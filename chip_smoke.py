@@ -9,13 +9,19 @@ Phases (``--phases`` picks a subset, comma-separated):
 
 1. env       the card's name and power limit, torch/CUDA versions; TF32 off.
 2. build     nvcc builds every kernel from harmony_tpu_torch/csrc.
-3. kernels   K1, K4, K5 against their plain PyTorch versions on the card, at
-             the main path's shapes and at one ragged shape; kernel, plain and
+3. kernels   K1, K4, K5, K6, K7 (with and without writing R), K8 and K9
+             against their plain PyTorch versions on the card, at the main
+             paths' shapes and at one ragged shape; kernel, plain and
              library-call times and the least time the card could take.
-4. traj      a 20k-cell run with injected centroids and permutations, once
-             through the kernels and once through the plain path.
-5. main      run_harmony on 500,000 x 50 cells, 10 batches, K = 100, the
-             permute schedule; every kernel must be launched.
+4. traj      20k-cell runs with injected centroids and randomness, once
+             through the kernels and once through the plain path: the
+             permute schedule (injected permutations) and the rotate
+             schedule (injected rotations and block orders).
+5. permute   run_harmony on 500,000 x 50 cells, 10 batches, K = 100, the
+             permute schedule; K1, K4 and K5 must be launched.
+6. main      run_harmony on the same cells with shuffle_mode left at its
+             default, which resolves to the rotate schedule; K6, K7, K8 and
+             K9 must be launched.
 
 It prints a JSON line of the kernels' numbers, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero, and so does
@@ -31,7 +37,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "build", "kernels", "traj", "main")
+PHASES = ("env", "build", "kernels", "traj", "permute", "main")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 outside the
 # tensor cores. The bound of a function is the larger of its bytes over the
@@ -199,10 +205,177 @@ def check_ridge(torch, dev, N, d, K, B, seed, timed):
     return k4, k5
 
 
-def profile_round(torch, res, top=12):
+def rotate_problem(torch, N, d, K, B_vec, seed, dev):
+    """Seeded inputs of the rotate kernels at the geometry
+    finalize_engine_config gives N cells: a raw (un-normalised) padded
+    embedding, per-covariate codes padded with the sentinel, centroids near
+    some cells, sigma 0.1, theta 2, and a generator for the schedule."""
+    from harmony_tpu_torch import ops
+    from harmony_tpu_torch.config import HarmonyConfig, finalize_engine_config
+    from harmony_tpu_torch.ops import rotate
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    cfg = finalize_engine_config(HarmonyConfig(
+        N=N, d=d, K=K, B=sum(B_vec), B_vec=tuple(B_vec), shuffle_mode="rotate"))
+    Np = cfg.Np
+    Z = torch.zeros(d, Np, device=dev)
+    Z[:, :N] = 2.0 * torch.randn(d, N, generator=g, device=dev)
+    Zn = ops.l2_normalize_columns(Z[:, :N])
+    Y = ops.l2_normalize_columns(Zn[:, torch.randperm(N, generator=g, device=dev)[:K]]
+                                 + 0.1 * torch.randn(d, K, generator=g, device=dev))
+    codes = torch.zeros(len(B_vec), Np, dtype=torch.int32, device=dev)
+    for c, b in enumerate(B_vec):
+        codes[c, :N] = torch.randint(0, b, (N,), generator=g, device=dev, dtype=torch.int32)
+    sizes = torch.cat([torch.bincount(codes[c, :N].long(), minlength=b)
+                       for c, b in enumerate(B_vec)]).float()
+    sigma = torch.full((K,), 0.1, device=dev)
+    theta = torch.full((cfg.B,), 2.0, device=dev)
+    return cfg, Z, rotate.make_codes_pad(cfg, codes), Y, sigma, sizes / N, theta, g
+
+
+def check_rotate(torch, dev, N, d, K, B_vec, seed, timed):
+    """K6 and K7 (one round with and one without writing R) against their
+    plain versions on the same inputs."""
+    from harmony_tpu_torch.ops import cuda_rotate, rotate
+
+    cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = rotate_problem(
+        torch, N, d, K, B_vec, seed, dev)
+    args6 = (cfg, Y, sigma, Pr_b, Z, codes_pad)
+    Zn, tO, O, E = cuda_rotate.reassign(*args6)
+    ref6 = rotate.reassign(*args6)
+    rt, order = rotate.draw_schedules(cfg, g, 1)[0]
+    layout = rotate.CodesLayout(Z_pad=ref6[0], codes_pad=codes_pad)
+    rs = rotate.RoundState(R=torch.zeros(K, cfg.Np, device=dev), E=ref6[3], O=ref6[2],
+                           tile_O=ref6[1], kmeans_error=None, entropy=None)
+    args7 = (cfg, Y, rs, Pr_b, sigma, theta, rt, order, layout)
+    out7 = {wr: cuda_rotate.rotate_update_round_v2(*args7, write_r=wr) for wr in (True, False)}
+    ref7 = {wr: rotate.rotate_update_round_v2(*args7, write_r=wr) for wr in (True, False)}
+    torch.cuda.synchronize()
+    e6 = float((Zn - ref6[0]).abs().max())
+    errs6 = {"tile_O": rel_err(tO, ref6[1]), "O": rel_err(O, ref6[2]), "E": rel_err(E, ref6[3])}
+    log(f"  K6 N={N} (Np={cfg.Np}, T={cfg.estep_sub_tile}) d={d} K={K} B_vec={B_vec}: "
+        f"max|dZn|={e6:.3e} (atol 1e-6); "
+        + ", ".join(f"{k} rel {v:.3e}" for k, v in errs6.items()) + f" (rtol {SUM_RTOL})")
+    require(e6 <= 1e-6, f"K6 Zn disagrees: {e6}")
+    for k, v in errs6.items():
+        require(v <= SUM_RTOL, f"K6 {k} disagrees: {v}")
+    e7 = float((out7[True].R - ref7[True].R).abs().max())
+    require(out7[False].R is rs.R, "K7 without write_r must hand back the input R")
+    log(f"  K7 schedule rt={rt}, order={order[:5]}...: max|dR|={e7:.3e} (atol {R_ATOL})")
+    require(e7 <= R_ATOL, f"K7 R disagrees: {e7}")
+    for wr in (True, False):
+        o, r = out7[wr], ref7[wr]
+        errs7 = {"E": rel_err(o.E, r.E), "O": rel_err(o.O, r.O),
+                 "tile_O": rel_err(o.tile_O, r.tile_O),
+                 "kmeans_error": rel_err(o.kmeans_error, r.kmeans_error),
+                 "entropy": rel_err(o.entropy, r.entropy)}
+        log(f"  K7 write_r={wr}: " + ", ".join(f"{k} rel {v:.3e}" for k, v in errs7.items())
+            + f" (rtol {SUM_RTOL}); kmeans_error {float(o.kmeans_error):.7g} vs "
+            f"{float(r.kmeans_error):.7g}, entropy {float(o.entropy):.7g} vs "
+            f"{float(r.entropy):.7g}")
+        for k, v in errs7.items():
+            require(v <= SUM_RTOL, f"K7 write_r={wr} {k} disagrees: {v}")
+    k6, k7 = {"max_abs_err": e6}, {"max_abs_err": e7}
+    if timed:
+        Np, ncov = cfg.Np, len(B_vec)
+        flops = 2.0 * K * d * Np
+        k6["ms"] = time_ms(torch, "K6 kernel", lambda: cuda_rotate.reassign(*args6))
+        k6["plain_ms"] = time_ms(torch, "K6 plain", lambda: rotate.reassign(*args6))
+        k6["library_ms"] = None
+        # Z and the codes read once, Zn written once (tile_O, O, E are tiny)
+        k6["bound_ms"], k6["bound_by"] = bound(4 * (2 * d * Np + ncov * Np), flops)
+        k7["ms"] = time_ms(torch, "K7 kernel round", lambda: cuda_rotate.rotate_update_round_v2(
+            *args7, write_r=False), iters=5)
+        k7["ms_write_r"] = time_ms(
+            torch, "K7 kernel round writing R",
+            lambda: cuda_rotate.rotate_update_round_v2(*args7, write_r=True), iters=5)
+        k7["plain_ms"] = time_ms(torch, "K7 plain round", lambda: rotate.rotate_update_round_v2(
+            *args7, write_r=False), iters=3)
+        k7["library_ms"] = None
+        # one round reads Z and the codes once; the round that writes R
+        # also writes (K, Np) once
+        k7["bound_ms"], k7["bound_by"] = bound(4 * (d * Np + ncov * Np), flops)
+        k7["bound_ms_write_r"], _ = bound(4 * (d * Np + ncov * Np + K * Np), flops)
+    return k6, k7
+
+
+def tiled_problem(torch, N, d, K, B_vec, tile, seed, dev):
+    """Seeded batch-tiled M-step inputs: a simplex R with zero pad columns,
+    Z, the tile -> joint table of a batch-tiled order, joint betas."""
+    import numpy as np
+
+    from harmony_tpu_torch.config import HarmonyConfig, finalize_engine_config
+    from harmony_tpu_torch.ops.ridge import full_tile_joint
+    from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
+
+    cfg = finalize_engine_config(HarmonyConfig(
+        N=N, d=d, K=K, B=sum(B_vec), B_vec=tuple(B_vec), shuffle_mode="rotate"))
+    rng = np.random.default_rng(seed)
+    codes = np.stack([rng.integers(0, b, N) for b in B_vec]).astype(np.int32)
+    _, layout = build_batch_tiled_order(codes, tile, seed)
+    tj = full_tile_joint(cfg, layout)
+    nj = layout.joint_codes.shape[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    R = torch.zeros(K, cfg.Np, device=dev)
+    R[:, :N] = torch.softmax(3 * torch.randn(K, N, generator=g, device=dev), dim=0)
+    Z = torch.zeros(d, cfg.Np, device=dev)
+    Z[:, :N] = 2 * torch.randn(d, N, generator=g, device=dev)
+    W = 0.1 * torch.randn(nj + 1, d, K, generator=g, device=dev)
+    W[nj] = 0.0
+    return cfg, R, Z, tj, nj, W, layout
+
+
+def check_tiled(torch, dev, N, d, K, B_vec, tile, seed, timed):
+    """K8 and K9 against their plain versions on the same inputs."""
+    from harmony_tpu_torch.ops import cuda_ridge
+
+    cfg, R, Z, tj, nj, W, layout = tiled_problem(torch, N, d, K, B_vec, tile, seed, dev)
+    M = cuda_ridge.tile_moments(R, Z, tile, tj, nj)
+    M_ref = cuda_ridge.tile_moments_twin(R, Z, tile, tj, nj)
+    Zc = cuda_ridge.tiled_correction(W, tj, R, Z, tile)
+    Zc_ref = cuda_ridge.tiled_correction_twin(W, tj, R, Z, tile)
+    torch.cuda.synchronize()
+    e8, e9 = float((M - M_ref).abs().max()), float((Zc - Zc_ref).abs().max())
+    r8, r9 = rel_err(M, M_ref), rel_err(Zc, Zc_ref)
+    log(f"  K8 N={N} (Np={cfg.Np}) d={d} K={K} B_vec={B_vec} tile={tile}, {nj} joint "
+        f"levels, {layout.n_pure} cells in pure tiles: max|dM|={e8:.3e} rel {r8:.3e} "
+        f"(rtol {SUM_RTOL})")
+    log(f"  K9 same inputs: max|dZ|={e9:.3e} rel {r9:.3e} (rtol {SUM_RTOL})")
+    require(r8 <= SUM_RTOL, f"K8 disagrees: {r8}")
+    require(r9 <= SUM_RTOL, f"K9 disagrees: {r9}")
+    k8, k9 = {"max_abs_err": e8}, {"max_abs_err": e9}
+    if timed:
+        Np = cfg.Np
+        nt = Np // tile
+        oh = torch.nn.functional.one_hot(torch.as_tensor(tj, device=dev).long(), nj + 1).float()
+        R3 = R.reshape(K, nt, tile)
+        Za3 = torch.cat([Z, torch.ones(1, Np, device=dev)]).reshape(d + 1, nt, tile)
+        k8["ms"] = time_ms(torch, "K8 kernel", lambda: cuda_ridge.tile_moments(R, Z, tile, tj, nj))
+        k8["plain_ms"] = time_ms(torch, "K8 plain",
+                                 lambda: cuda_ridge.tile_moments_twin(R, Z, tile, tj, nj))
+        k8["library_ms"] = time_ms(torch, "K8 library einsum",
+                                   lambda: torch.einsum("ktu,tj,dtu->jkd", R3, oh, Za3))
+        k8["bound_ms"], k8["bound_by"] = bound(
+            4 * (K * Np + d * Np + (nj + 1) * K * (d + 1)), 2.0 * K * (d + 1) * Np)
+        k9["ms"] = time_ms(torch, "K9 kernel",
+                           lambda: cuda_ridge.tiled_correction(W, tj, R, Z, tile))
+        k9["plain_ms"] = time_ms(torch, "K9 plain",
+                                 lambda: cuda_ridge.tiled_correction_twin(W, tj, R, Z, tile))
+        k9["library_ms"] = time_ms(torch, "K9 library einsum",
+                                   lambda: torch.einsum("jdk,tj,ktu->dtu", W, oh, R3))
+        k9["bound_ms"], k9["bound_by"] = bound(
+            4 * (K * Np + 2 * d * Np + (nj + 1) * d * K), 2.0 * K * d * Np)
+    return k8, k9
+
+
+def profile_round(torch, res, fname, tiled=None, top=12):
     """One more Harmony round of the finished run under torch.profiler:
-    device time by kernel, and the device's idle share of the round's wall.
-    The full table goes to OUT_DIR/profile_round.txt."""
+    device time by kernel, and the device's idle share of the round's wall;
+    then the same round without the profiler, whose host cost inflates the
+    profiled wall. The device table and the host ops by self CPU time go
+    to OUT_DIR/fname."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -215,12 +388,17 @@ def profile_round(torch, res, top=12):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.harmony_round(cfg, s)
+        engine.harmony_round(cfg, s, tiled=tiled)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []  # device kernels only: an aten op also reports its kernels' time
-    for e in prof.key_averages():
+    t0 = time.perf_counter()
+    engine.harmony_round(cfg, s, tiled=tiled)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    rows, host = [], []  # device kernels; host ops (an aten op also reports
+    for e in prof.key_averages():  # its kernels' device time)
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            host.append((e.self_cpu_time_total / 1e3, e.count, e.key))
             continue
         dt = getattr(e, "self_device_time_total", None)
         if dt is None:
@@ -228,20 +406,26 @@ def profile_round(torch, res, top=12):
         if dt > 0:
             rows.append((dt / 1e3, e.count, e.key))
     rows.sort(reverse=True)
+    host.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    with open(os.path.join(OUT_DIR, "profile_round.txt"), "w") as fh:
-        fh.write(f"wall_ms {wall * 1e3:.3f} device_busy_ms {busy:.3f}\n")
+    with open(os.path.join(OUT_DIR, fname), "w") as fh:
+        fh.write(f"wall_ms {wall * 1e3:.3f} device_busy_ms {busy:.3f} "
+                 f"unprofiled_wall_ms {plain_wall * 1e3:.3f}\n")
         for ms, n, name in rows:
             fh.write(f"{ms:10.3f} ms {n:6d}x  {name}\n")
+        fh.write("host ops by self CPU time (profiled round):\n")
+        for ms, n, name in host[:25]:
+            fh.write(f"{ms:10.3f} ms {n:6d}x  {name}\n")
     log(f"  profiled round: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms, "
-        f"idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
+        f"idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}; the same round "
+        f"unprofiled: wall {plain_wall * 1e3:.2f} ms")
     for ms, n, name in rows[:top]:
         log(f"    {ms:9.3f} ms {n:5d}x  {name[:90]}")
 
 
 def separation(torch, Z, codes0, B):
     """Mean pairwise distance of batch centroids of the L2-normalised cells
-    (Z is (d, N))."""
+    (Z is (d, N), codes0 (N,), both on the card)."""
     from harmony_tpu_torch.ops import l2_normalize_columns
 
     Zn = l2_normalize_columns(Z.float())
@@ -263,6 +447,129 @@ def synthetic(torch, N, d, B, seed, dev, n_types=12, scale=0.8):
     return Z, batches
 
 
+def check_traj(torch, dev, mode):
+    """A 20k-cell run with injected centroids and randomness (permutations
+    or rotate schedules), once through the kernels and once through the
+    plain path: the objective traces and Z_corr must agree."""
+    import dataclasses
+
+    import numpy as np
+
+    from harmony_tpu_torch import driver, engine, preprocess
+    from harmony_tpu_torch.config import finalize_engine_config, harmony_options
+    from harmony_tpu_torch.ops import rotate
+    from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
+    from harmony_tpu_torch.state import init_state
+
+    n, d, B, iters = 20_000, D_MAIN, B_MAIN, 5
+    Zs, bs = synthetic(torch, n, d, B, 5, dev)
+    Zh, bh = Zs.cpu().numpy().astype(np.float64), bs.cpu().numpy()
+    design = preprocess.build_design({"batch": bh.astype(str)}, ["batch"])
+    base = preprocess.resolve_config(
+        n_cells=n, d=d, design=design, nclust=None, max_iter=iters,
+        early_stop=False, options=harmony_options(), verbose=False,
+        lambda_estimation=True, ridge_solver="auto", shuffle_mode=mode,
+    )
+    hp = preprocess.expand_hyperparams(design, base.K, None, 0.1, None, 0.0)
+    rng = np.random.default_rng(6)
+    Zt = Zh.T
+    Y0 = Zt[:, rng.choice(n, base.K, replace=False)]
+    kw, tiled = {}, None
+    if mode == "permute":
+        kw["perms"] = np.stack([np.stack([rng.permutation(n) for _ in range(base.max_iter_cluster)])
+                                for _ in range(iters)])
+    else:
+        # a batch-tiled order at tile 128, so the M-step runs K8/K9 (the
+        # mixture gate of run_harmony would keep 20k cells x 10 batches on
+        # the plain order)
+        base = dataclasses.replace(base, mstep_tile=128)
+        perm, _ = build_batch_tiled_order(design.codes, 128, 0)
+        Zt = Zt[:, perm]
+        design = dataclasses.replace(design, codes=design.codes[:, perm])
+        geo = finalize_engine_config(base)
+        tiled = engine.tiled_layout(geo, design.codes)
+        require(tiled is not None, "rotate trajectory: no batch-tiled layout")
+        NT, nb = rotate.n_tiles(geo), len(rotate.block_sizes(geo)[0])
+        kw["schedules"] = [[(int(rng.integers(NT)), rng.permutation(nb).tolist())
+                            for _ in range(base.max_iter_cluster)] for _ in range(iters)]
+    out = {}
+    for impl in ("kernel", "torch"):
+        cfg = finalize_engine_config(dataclasses.replace(base, estep_impl=impl, mstep_impl=impl))
+        st = init_state(cfg, Zt, design, hp.sigma, hp.theta, hp.lamb, 0, dev)
+        t0 = time.perf_counter()
+        st = driver.run(cfg, st, Y0=Y0, tiled=tiled, **kw)
+        torch.cuda.synchronize()
+        out[impl] = (st.trace_lists(cfg), st.Z_corr.cpu().numpy(), time.perf_counter() - t0)
+    (tk, zk, sk), (tt, zt, st_) = out["kernel"], out["torch"]
+    obj_rel = float(np.max(np.abs(tk["objective_kmeans"] - tt["objective_kmeans"])
+                           / np.abs(tt["objective_kmeans"])))
+    z_err = float(np.max(np.abs(zk - zt)))
+    log(f"trajectory {mode} 20k x {d}, K={base.K}, B={B}, {iters} rounds: objective rel "
+        f"{obj_rel:.3e} (rtol 1e-4), max|dZ_corr|={z_err:.3e} (atol 1e-4); "
+        f"kernels {sk:.2f} s, plain {st_:.2f} s")
+    require(obj_rel <= 1e-4, f"{mode} trajectory objectives disagree: {obj_rel}")
+    require(z_err <= 1e-4, f"{mode} trajectory Z_corr disagrees: {z_err}")
+    require(np.array_equal(tk["kmeans_rounds"], tt["kmeans_rounds"]),
+            f"{mode} kmeans rounds differ")
+
+
+def run_main_path(torch, dev, wrappers, phase):
+    """run_harmony at the main shape through the entry point a user calls:
+    the permute schedule, or (phase 'main') shuffle_mode left at its
+    default. Launch counts are read right after the call."""
+    import numpy as np
+
+    from harmony_tpu_torch import engine, run_harmony
+
+    Zs, bs = synthetic(torch, N_MAIN, D_MAIN, B_MAIN, 7, dev)
+    sep0 = separation(torch, Zs.t(), bs, B_MAIN)
+    Zh = Zs.cpu().numpy()
+    meta = {"batch": bs.cpu().numpy()}
+    del Zs
+    kw = {"shuffle_mode": "permute"} if phase == "permute" else {}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    res = run_harmony(Zh, meta, ["batch"], max_iter=MAX_ITER, return_object=True, seed=0, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    mode = res.config.shuffle_mode
+    require(mode == ("permute" if phase == "permute" else "rotate"),
+            f"{phase} path resolved to shuffle_mode={mode!r}")
+    ph = res.phase_seconds()
+    n_it = int(res.state.n_rounds)
+    per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
+    log(f"{phase} path: run_harmony {N_MAIN} x {D_MAIN}, K={res.K}, B={res.B}, {mode}"
+        f" (T={res.config.estep_sub_tile}, Np={res.config.Np}), max_iter={MAX_ITER}: "
+        f"{n_it} iterations, wall {wall:.2f} s")
+    log("  phase seconds: " + json.dumps({k: round(v, 4) for k, v in ph.items()}))
+    log(f"  seconds per Harmony iteration {per_it:.4f}; "
+        f"{N_MAIN / per_it:,.0f} cells/s per iteration")
+    log(f"  kmeans rounds {res.kmeans_rounds.tolist()}; objective "
+        f"{[round(float(x), 3) for x in res.objective_harmony]}")
+    log(f"  launches: {launches}")
+    emb = res.embeddings
+    require(emb.shape == (N_MAIN, D_MAIN) and np.isfinite(emb).all(),
+            "embeddings not finite or of the wrong shape")
+    colsum = res.R.sum(0)
+    dev_r = float(np.abs(colsum - 1).max())
+    require(dev_r <= 1e-4, f"R column sums off by {dev_r}")
+    sep1 = separation(torch, torch.as_tensor(res.Z_corr, device=dev),
+                      torch.as_tensor(meta["batch"], device=dev), B_MAIN)
+    log(f"  R column sums within {dev_r:.2e} of 1; batch-centroid separation "
+        f"{sep0:.4f} -> {sep1:.4f}")
+    require(sep1 < sep0, "batch-centroid separation did not shrink")
+    if phase == "permute":
+        profile_round(torch, res, "profile_round.txt")
+    else:
+        tiled = engine.tiled_layout(res.config, res.design.codes)
+        log(f"  batch-tiled layout: tile {tiled.tile}, {len(tiled.tile_joint)} pure tiles, "
+            f"{res.config.Np - tiled.n_pure} cells in the mixed/pad tail")
+        profile_round(torch, res, "profile_round_rotate.txt", tiled=tiled)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -277,7 +584,7 @@ def main(argv=None) -> int:
     try:
         import harmony_tpu_torch  # noqa: F401
         from harmony_tpu_torch import _build
-        from harmony_tpu_torch.ops import cuda_estep, cuda_ridge
+        from harmony_tpu_torch.ops import cuda_estep, cuda_ridge, cuda_rotate
     except ImportError as e:
         print(f"chip_smoke: harmony_tpu_torch not importable ({e}); run from "
               "the root of a checkout", file=sys.stderr)
@@ -294,9 +601,24 @@ def main(argv=None) -> int:
         "K5": {"name": "K5 correction", "route": "cuda",
                "source": "harmony_tpu_torch/csrc/ridge.cu",
                "replaces": "harmony_tpu/ops/pallas_ridge.py:382"},
+        "K6": {"name": "K6 reassign", "route": "cuda",
+               "source": "harmony_tpu_torch/csrc/rotate.cu",
+               "replaces": "harmony_tpu/ops/pallas_rotate.py:1261"},
+        "K7": {"name": "K7 rotate_round", "route": "cuda",
+               "source": "harmony_tpu_torch/csrc/rotate.cu",
+               "replaces": "harmony_tpu/ops/pallas_rotate.py:594"},
+        "K8": {"name": "K8 tile_moments", "route": "cuda",
+               "source": "harmony_tpu_torch/csrc/tiled.cu",
+               "replaces": "harmony_tpu/ops/pallas_ridge.py:109"},
+        "K9": {"name": "K9 tiled_correction", "route": "cuda",
+               "source": "harmony_tpu_torch/csrc/tiled.cu",
+               "replaces": "harmony_tpu/ops/pallas_ridge.py:254"},
     }
     wrappers = {"K1": cuda_estep.block_update_round, "K4": cuda_ridge.moments,
-                "K5": cuda_ridge.correction}
+                "K5": cuda_ridge.correction, "K6": cuda_rotate.reassign,
+                "K7": cuda_rotate.rotate_update_round_v2, "K8": cuda_ridge.tile_moments,
+                "K9": cuda_ridge.tiled_correction}
+    paths = {"permute": ("K1", "K4", "K5"), "main": ("K6", "K7", "K8", "K9")}
     t_start = time.perf_counter()
 
     # ---- 1. env ----------------------------------------------------------
@@ -334,99 +656,35 @@ def main(argv=None) -> int:
         kernels["K4"].update(k4)
         kernels["K5"].update(k5)
         check_ridge(torch, dev, 1003, 13, 7, 3, 4, False)
+        k6, k7 = check_rotate(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 11, True)
+        kernels["K6"].update(k6)
+        kernels["K7"].update(k7)
+        # ragged: two covariates, N not a multiple of the tile, pad cells
+        check_rotate(torch, dev, 30_011, 13, 7, (3, 4), 12, False)
+        k8, k9 = check_tiled(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 256, 13, True)
+        kernels["K8"].update(k8)
+        kernels["K9"].update(k9)
+        # ragged: two covariates, a mixed tail after the pure tiles, pads
+        check_tiled(torch, dev, 30_011, 13, 7, (3, 4), 128, 14, False)
         for k, row in kernels.items():
             log(f"  {k}: {row.get('ms', float('nan')):.3f} ms, plain "
                 f"{row.get('plain_ms', float('nan')):.3f} ms, library "
                 f"{row.get('library_ms')}, bound {row.get('bound_ms', float('nan')):.4f} ms "
                 f"({row.get('bound_by')})")
 
-    # ---- 4. trajectory: kernels vs plain path ---------------------------
+    # ---- 4. trajectories: kernels vs plain path -------------------------
     if "traj" in phases:
-        import dataclasses
-        import numpy as np
+        check_traj(torch, dev, "permute")
+        check_traj(torch, dev, "rotate")
 
-        from harmony_tpu_torch import driver, preprocess
-        from harmony_tpu_torch.config import finalize_engine_config, harmony_options
-        from harmony_tpu_torch.state import init_state
-
-        n, d, B, iters = 20_000, D_MAIN, B_MAIN, 5
-        Zs, bs = synthetic(torch, n, d, B, 5, dev)
-        Zh, bh = Zs.cpu().numpy().astype(np.float64), bs.cpu().numpy()
-        design = preprocess.build_design({"batch": bh.astype(str)}, ["batch"])
-        base = preprocess.resolve_config(
-            n_cells=n, d=d, design=design, nclust=None, max_iter=iters,
-            early_stop=False, options=harmony_options(), verbose=False,
-            lambda_estimation=True, ridge_solver="auto",
-        )
-        hp = preprocess.expand_hyperparams(design, base.K, None, 0.1, None, 0.0)
-        rng = np.random.default_rng(6)
-        Zt = Zh.T
-        Y0 = Zt[:, rng.choice(n, base.K, replace=False)]
-        perms = np.stack([np.stack([rng.permutation(n) for _ in range(base.max_iter_cluster)])
-                          for _ in range(iters)])
-        out = {}
-        for impl in ("kernel", "torch"):
-            cfg = finalize_engine_config(dataclasses.replace(base, estep_impl=impl, mstep_impl=impl))
-            st = init_state(cfg, Zt, design, hp.sigma, hp.theta, hp.lamb, 0, dev)
-            t0 = time.perf_counter()
-            st = driver.run(cfg, st, Y0=Y0, perms=perms)
-            torch.cuda.synchronize()
-            out[impl] = (st.trace_lists(cfg), st.Z_corr.cpu().numpy(), time.perf_counter() - t0)
-        (tk, zk, sk), (tt, zt, st_) = out["kernel"], out["torch"]
-        obj_rel = float(np.max(np.abs(tk["objective_kmeans"] - tt["objective_kmeans"])
-                               / np.abs(tt["objective_kmeans"])))
-        z_err = float(np.max(np.abs(zk - zt)))
-        log(f"trajectory 20k x {d}, K={base.K}, B={B}, {iters} rounds: objective rel "
-            f"{obj_rel:.3e} (rtol 1e-4), max|dZ_corr|={z_err:.3e} (atol 1e-4); "
-            f"kernels {sk:.2f} s, plain {st_:.2f} s")
-        require(obj_rel <= 1e-4, f"trajectory objectives disagree: {obj_rel}")
-        require(z_err <= 1e-4, f"trajectory Z_corr disagrees: {z_err}")
-        require(np.array_equal(tk["kmeans_rounds"], tt["kmeans_rounds"]), "kmeans rounds differ")
-
-    # ---- 5. main path -----------------------------------------------------
-    if "main" in phases:
-        import numpy as np
-
-        from harmony_tpu_torch import run_harmony
-
-        Zs, bs = synthetic(torch, N_MAIN, D_MAIN, B_MAIN, 7, dev)
-        sep0 = separation(torch, Zs.t(), bs, B_MAIN)
-        Zh = Zs.cpu().numpy()
-        meta = {"batch": bs.cpu().numpy()}
-        del Zs
-        for w in wrappers.values():
-            w.launches = 0
-        t0 = time.perf_counter()
-        res = run_harmony(Zh, meta, ["batch"], shuffle_mode="permute",
-                          max_iter=MAX_ITER, return_object=True, seed=0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k: w.launches for k, w in wrappers.items()}
-        ph = res.phase_seconds()
-        n_it = int(res.state.n_rounds)
-        per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
-        log(f"main path: run_harmony {N_MAIN} x {D_MAIN}, K={res.K}, B={res.B}, "
-            f"permute, max_iter={MAX_ITER}: {n_it} iterations, wall {wall:.2f} s")
-        log("  phase seconds: " + json.dumps({k: round(v, 4) for k, v in ph.items()}))
-        log(f"  seconds per Harmony iteration {per_it:.4f}; "
-            f"{N_MAIN / per_it:,.0f} cells/s per iteration")
-        log(f"  kmeans rounds {res.kmeans_rounds.tolist()}; objective "
-            f"{[round(float(x), 3) for x in res.objective_harmony]}")
-        log(f"  launches: {launches}")
-        for k, v in launches.items():
-            kernels[k]["launches"] = v
-            require(v > 0, f"{k} was not launched on the main path")
-        emb = res.embeddings
-        require(emb.shape == (N_MAIN, D_MAIN) and np.isfinite(emb).all(),
-                "embeddings not finite or of the wrong shape")
-        colsum = res.state.R.sum(0)
-        dev_r = float((colsum - 1).abs().max())
-        require(dev_r <= 1e-4, f"R column sums off by {dev_r}")
-        sep1 = separation(torch, res.state.Z_corr, res.state.codes[0], B_MAIN)
-        log(f"  R column sums within {dev_r:.2e} of 1; batch-centroid separation "
-            f"{sep0:.4f} -> {sep1:.4f}")
-        require(sep1 < sep0, "batch-centroid separation did not shrink")
-        profile_round(torch, res)
+    # ---- 5./6. the main paths ---------------------------------------------
+    for phase in ("permute", "main"):
+        if phase not in phases:
+            continue
+        launches = run_main_path(torch, dev, wrappers, phase)
+        for k in paths[phase]:
+            kernels[k]["launches"] = launches[k]
+            require(launches[k] > 0, f"{k} was not launched on the {phase} path")
 
     for k in kernels.values():
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

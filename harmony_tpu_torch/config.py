@@ -6,16 +6,18 @@ reference ``R/harmony_option.R:33-55``) and a resolved, frozen
 :class:`HarmonyConfig` that every engine phase receives.
 
 Only the knobs that mean something on a GPU are kept. The TPU-only
-resolutions of the JAX package (the VMEM sub-tile budget, the bf16-pass
-matmul precisions, sorted permute blocks) have no counterpart here; fp32
-products run as IEEE fp32 on the card.
+resolutions of the JAX package (the bf16-pass matmul precisions, sorted
+permute blocks) have no counterpart here; fp32 products run as IEEE fp32
+on the card. The rotate schedule keeps the JAX package's sub-tile and
+padding formula, because it fixes the block partition (see
+:func:`finalize_engine_config`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,6 +120,10 @@ class HarmonyConfig:
     K: int
     B: int  # total one-hot design rows = sum(B_vec)
     B_vec: Tuple[int, ...]
+    # Physical cell-axis length: the rotate schedule pads N to whole cell
+    # tiles. Pad cells have zero Z, code 0 and zero R, so they add nothing
+    # to any statistic; None means no padding.
+    N_pad: Optional[int] = None
 
     # Driver / convergence
     max_iter_harmony: int = 10
@@ -141,10 +147,22 @@ class HarmonyConfig:
     # (resolved by finalize_engine_config).
     estep_impl: str = "auto"
     mstep_impl: str = "auto"
-    # Only the reference-exact 'permute' schedule is ported.
+    # 'permute' (the reference-exact fresh permutation per round) or
+    # 'rotate' (cells shuffled once at ingest; each round a random tile
+    # rotation and block order, ops/rotate.py).
     shuffle_mode: str = "permute"
-    # Virtual R exists only on the rotate schedule; None resolves by dtype
-    # as in the JAX package and must come out False here.
+    # Rotate schedule: cells per schedule tile (shrunk by
+    # finalize_engine_config), the batch-tiled layout's tile width, the
+    # M-step moment strategy ('auto' | 'tiled' | 'dense'), the assignment
+    # op order ('fused_vpu'; 'fused_mxu' is the same function) and the
+    # stats-carrying round (the only rotate round ported).
+    estep_sub_tile: int = 4096
+    mstep_tile: int = 256
+    mstep_mode: str = "auto"
+    estep_variant: str = "fused_vpu"
+    rotate_stats_carry: bool = True
+    # Virtual R: None resolves by dtype as in the JAX package and must come
+    # out False here (ROADMAP A9, K10/K11).
     virtual_r: "bool | None" = None
 
     verbose: bool = False
@@ -155,6 +173,21 @@ class HarmonyConfig:
             raise HarmonyConfigError("Refusing to run with less than 6 cells")
         if sum(self.B_vec) != self.B:
             raise HarmonyConfigError("B must equal sum(B_vec)")
+        if self.N_pad is not None and self.N_pad < self.N:
+            raise HarmonyConfigError("N_pad must be >= N")
+
+    @property
+    def Np(self) -> int:
+        """Physical (possibly padded) length of the cell axis."""
+        return self.N if self.N_pad is None else self.N_pad
+
+    @property
+    def use_segments(self) -> bool:
+        """Would the JAX package take the segmented M-step (ops/segments.py)
+        when no batch-tiled layout exists? Not ported: the caller raises."""
+        if self.mstep_mode in ("segment", "dense"):
+            return self.mstep_mode == "segment"
+        return self.N >= 65536 and self.B >= 32
 
     # ---- Derived block geometry (src/harmony.cpp:279-299) -----------------
 
@@ -229,39 +262,92 @@ def default_nclust(n_cells: int) -> int:
 
 
 _IMPLS = ("auto", "kernel", "torch")
+_SHUFFLE_MODES = ("permute", "rotate")
+_MSTEP_MODES = ("auto", "tiled", "dense", "segment")
+_VARIANTS = ("fused_vpu", "fused_mxu", "legacy")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to harmony_tpu_torch yet ({item})"
+    )
+
+
+def _rotate_geometry(cfg: HarmonyConfig) -> HarmonyConfig:
+    """Sub-tile T and padded N of the rotate schedule, by the JAX package's
+    formula (harmony_tpu/config.py:453-482, one device). The budget loop
+    guarded a TPU core's VMEM there; on the GPU nothing depends on it, but
+    T is the schedule's quantum: tiles make the blocks, so the two packages
+    draw the same block partition only with the same T and N_pad."""
+    T = cfg.estep_sub_tile
+    pc_extra = 4 * cfg.K if cfg.B > 32 else 0
+    budget = (12 if cfg.B <= 32 else 10) * 2**20
+    while T > 512 and T * (8 * (cfg.K + cfg.d + cfg.B) + pc_extra) > budget:
+        T //= 2
+    per_block = max(cfg.Np // max(cfg.n_blocks, 1), 1)
+    fit = 128
+    while fit * 2 <= per_block:
+        fit *= 2
+    T = max(128, min(T, fit))
+    Npt = -(-cfg.Np // T) * T
+    return dataclasses.replace(
+        cfg, estep_sub_tile=T, N_pad=None if Npt == cfg.N else Npt
+    )
 
 
 def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
     """Resolve the 'auto' knobs for the GPU engine.
 
     - ``virtual_r=None`` resolves by dtype, as in the JAX package: reduced
-      precision engines would skip writing R, which only the rotate
-      schedule supports; that path is not ported yet (ROADMAP A9).
+      precision engines would skip writing R (K10/K11), which is not
+      ported.
     - ``estep_impl``/``mstep_impl='auto'`` pick the hand-written kernels for
       float32 engines (the kernels are fp32 only) and the plain PyTorch path
-      otherwise. The M-step kernels serve single-covariate runs; others stay
-      on the dense PyTorch contractions whatever the setting (ops/ridge.py).
+      otherwise; 'kernel' on CPU tensors runs the kernels' plain twins.
+    - ``shuffle_mode='rotate'`` runs the stats-carrying schedule (K6/K7,
+      ops/rotate.py) with the JAX package's tile geometry; the rotate
+      options that select another path raise ``NotImplementedError``
+      naming their ROADMAP item.
     """
     for name in ("estep_impl", "mstep_impl"):
         if getattr(cfg, name) not in _IMPLS:
             raise HarmonyConfigError(
                 f"{name} must be one of {_IMPLS}, got {getattr(cfg, name)!r}"
             )
-    if cfg.shuffle_mode != "permute":
-        raise NotImplementedError(
-            f"shuffle_mode={cfg.shuffle_mode!r} is not ported yet; only the "
-            "reference-exact 'permute' schedule runs (ROADMAP A9: the rotate "
-            "schedule)"
-        )
+    for name, allowed in (("shuffle_mode", _SHUFFLE_MODES),
+                          ("mstep_mode", _MSTEP_MODES),
+                          ("estep_variant", _VARIANTS)):
+        if getattr(cfg, name) not in allowed:
+            raise HarmonyConfigError(
+                f"{name} must be one of {allowed}, got {getattr(cfg, name)!r}"
+            )
     if cfg.virtual_r is None:
         cfg = dataclasses.replace(
             cfg, virtual_r=getattr(torch, cfg.dtype).itemsize < 4
         )
     if cfg.virtual_r:
-        raise NotImplementedError(
-            "virtual R (the default for reduced-precision dtypes) needs the "
-            "rotate schedule, which is not ported yet (ROADMAP A9)"
+        raise _not_ported(
+            "virtual R (the default for reduced-precision dtypes)",
+            "ROADMAP A9, K10/K11",
         )
+    if cfg.shuffle_mode == "rotate":
+        if not cfg.rotate_stats_carry:
+            raise _not_ported(
+                "rotate_stats_carry=False (the two-phase rotate round)",
+                "ROADMAP B, K12",
+            )
+        if cfg.estep_variant == "legacy":
+            raise _not_ported("estep_variant='legacy'", "ROADMAP A9")
+        if cfg.mstep_mode == "segment":
+            raise _not_ported("the segmented M-step (ops/segments.py)", "ROADMAP A9")
+        if cfg.Np < cfg.n_blocks * 128:
+            raise _not_ported(
+                f"shuffle_mode='rotate' below n_blocks * 128 = "
+                f"{cfg.n_blocks * 128} cells (the cell-granular rotate round, "
+                "ops/estep.rotate_update_round)",
+                "ROADMAP A9",
+            )
+        cfg = _rotate_geometry(cfg)
     impl = "kernel" if cfg.dtype == "float32" else "torch"
     if cfg.estep_impl == "auto":
         cfg = dataclasses.replace(cfg, estep_impl=impl)

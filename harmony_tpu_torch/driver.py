@@ -9,7 +9,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -54,12 +54,17 @@ def harmonize(
     perms: Optional[np.ndarray] = None,
     abort=None,
     timers=None,
+    schedules: Optional[Sequence] = None,
+    tiled=None,
 ) -> HarmonyState:
     """Run up to ``max_iter`` rounds of (cluster, correct), with early stop.
 
     ``perms`` injects per-round permutations of shape
-    (rounds, max_iter_cluster, N). ``abort`` is any object with an
-    ``aborted()`` method, polled between rounds.
+    (rounds, max_iter_cluster, N) on the permute schedule; ``schedules``
+    injects, per round, the max_iter_cluster (rotation, block order)
+    pairs of the rotate schedule. ``tiled`` is the batch-tiled layout of
+    the rotate path's M-step (``engine.tiled_layout``). ``abort`` is any
+    object with an ``aborted()`` method, polled between rounds.
     """
     if max_iter is None:
         max_iter = cfg.max_iter_harmony
@@ -77,9 +82,10 @@ def harmonize(
             raise KeyboardInterrupt("harmony run aborted by user")
         t0 = time.perf_counter()
         with _scope(timers, "cluster"):
-            state = engine.cluster(cfg, state, None if perms is None else perms[it])
+            state = engine.cluster(cfg, state, None if perms is None else perms[it],
+                                   None if schedules is None else schedules[it])
         with _scope(timers, "correct"):
-            state = engine.correct(cfg, state)
+            state = engine.correct(cfg, state, tiled)
         converged = engine.harmony_converged(cfg, state)
         dt = time.perf_counter() - t0
         _check_finite(state)
@@ -104,6 +110,8 @@ def run(
     perms: Optional[np.ndarray] = None,
     abort=None,
     timers=None,
+    schedules: Optional[Sequence] = None,
+    tiled=None,
 ) -> HarmonyState:
     """init_cluster (or the injected centroids ``Y0``) + harmonize."""
     with _scope(timers, "init_cluster"):
@@ -112,4 +120,4 @@ def run(
         else:
             state = engine.init_cluster(cfg, state)
     return harmonize(cfg, state, verbose=verbose, perms=perms, abort=abort,
-                     timers=timers)
+                     timers=timers, schedules=schedules, tiled=tiled)

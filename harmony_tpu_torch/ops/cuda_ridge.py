@@ -1,21 +1,30 @@
-"""K4 and K5: the wrappers of the single-covariate M-step kernels.
+"""K4, K5, K8 and K9: the wrappers of the M-step kernels.
 
-Counterpart of ``harmony_tpu/ops/pallas_ridge.py`` (``pallas_moments``,
-``pallas_correction``). The CUDA source is ``csrc/ridge.cu``.
+Counterpart of ``harmony_tpu/ops/pallas_ridge.py``. The CUDA sources are
+``csrc/ridge.cu`` (K4, K5) and ``csrc/tiled.cu`` (K8, K9).
 
-* :func:`moments` — M[k, b, e] = sum_n R[k,n] [code(n)==b] [Z;1][e,n]:
+* :func:`moments` (K4) — M[k, b, e] = sum_n R[k,n] [code(n)==b] [Z;1][e,n]:
   per-batch ridge right-hand sides with the O row at ``[..., -1]``.
-* :func:`correction` — Z_corr = Z - sum_k R[k,n] W[k, code(n), :]
+* :func:`correction` (K5) — Z_corr = Z - sum_k R[k,n] W[k, code(n), :]
   (src/harmony.cpp:613-616).
+* :func:`tile_moments` (K8) — M[j] = sum over the layout tiles t of joint
+  batch j of [R_t Z_t^T | R_t 1]; mixed/pad tiles land in the trash row
+  j = n_joint (``pallas_tile_moments``).
+* :func:`tiled_correction` (K9) — Z - W_joint[j(t)] R_t per layout tile;
+  the trash row is zero, so mixed/pad tiles pass Z through
+  (``pallas_tiled_correction``).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-version (:func:`moments_twin`, :func:`correction_twin`) for CPU tensors;
-anything else raises. ``launches`` counts calls into the kernel's C entry
-point.
+version (``*_twin``) for CPU tensors; anything else raises. ``launches``
+counts calls into the kernel's C entry point.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from .. import _build
@@ -33,16 +42,20 @@ _SIGNATURES = {
 }
 
 
-def _check_inputs(where, tensors, codes):
-    dev = codes.device
+def _check_inputs(where, tensors, codes=None):
+    """Same device (that of ``codes``, else of the first tensor), float32
+    and contiguous; ``codes`` a contiguous (N,) int32 tensor."""
+    dev = codes.device if codes is not None else next(iter(tensors.values())).device
+    what = "codes" if codes is not None else next(iter(tensors))
     for name, t in tensors.items():
         if t.device != dev:
-            raise ValueError(f"{where}: {name} is on {t.device}, codes on {dev}")
+            raise ValueError(f"{where}: {name} is on {t.device}, {what} on {dev}")
         if t.dtype != _F32:
             raise TypeError(f"{where}: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{where}: {name} must be contiguous")
-    if codes.dtype != torch.int32 or codes.dim() != 1 or not codes.is_contiguous():
+    if codes is not None and (codes.dtype != torch.int32 or codes.dim() != 1
+                              or not codes.is_contiguous()):
         raise TypeError(f"{where}: codes must be a contiguous (N,) int32 tensor")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{where}: unsupported device {dev}")
@@ -140,3 +153,165 @@ def correction(W: torch.Tensor, R: torch.Tensor, Z: torch.Tensor,
 
 
 correction.launches = 0
+
+
+# ---- K8 / K9: the batch-tiled moments and correction ---------------------
+
+_TILED_SIGNATURES = {
+    "k8_tile_moments": [_build.PTR] * 6 + [_build.I64] + [_build.INT] * 8
+    + [_build.PTR],
+    "k9_tiled_correction": [_build.PTR] * 5 + [_build.I64] + [_build.INT] * 5
+    + [_build.PTR],
+}
+_CHUNK_TILES = 8  # layout tiles of one joint level per K8 CTA (kChunk in tiled.cu)
+_MAX_MT = 2  # 4x4 register tiles a thread owns (kMaxMT in tiled.cu)
+_THREADS = 256
+
+
+def _tiled_inputs(where, tensors, tile_joint, tile):
+    _check_inputs(where, tensors)
+    R, Z = tensors["R"], tensors["Z"]
+    K, Np = R.shape
+    if Z.shape[1] != Np:
+        raise ValueError(f"{where}: R {tuple(R.shape)} and Z {tuple(Z.shape)} disagree")
+    tj = np.asarray(tile_joint, dtype=np.int32)
+    if tj.shape != (-(-Np // tile),):
+        raise ValueError(f"{where}: tile_joint needs one entry per {tile}-cell tile "
+                         f"of {Np} cells, got {tj.shape}")
+    return K, Np, Z.shape[0], tj
+
+
+def tile_moments_twin(R, Z, tile: int, tile_joint, n_joint: int) -> torch.Tensor:
+    """Plain version of K8: per-tile products, then a one-hot product over
+    the tile -> joint table (n_joint + 1 rows, the last the trash row)."""
+    K, Np = R.shape
+    d = Z.shape[0]
+    nt = -(-Np // tile)
+    pad = nt * tile - Np
+    Rp = torch.nn.functional.pad(R, (0, pad)).reshape(K, nt, tile).permute(1, 0, 2)
+    Zp = torch.nn.functional.pad(Z, (0, pad)).reshape(d, nt, tile).permute(1, 2, 0)
+    S = torch.cat([torch.bmm(Rp, Zp), Rp.sum(dim=2, keepdim=True)], dim=2)
+    tj = torch.as_tensor(np.asarray(tile_joint), dtype=torch.int64, device=R.device)
+    oh = torch.nn.functional.one_hot(tj, n_joint + 1).to(_F32).t()
+    return (oh @ S.reshape(nt, -1)).reshape(n_joint + 1, K, d + 1)
+
+
+@functools.lru_cache(maxsize=4)
+def _moments_plan(tj_bytes: bytes, n_joint: int, device: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Chunks of up to _CHUNK_TILES tiles of one joint level, joints in
+    order and tiles ascending within a joint; (chunk tiles (n_chunks,
+    _CHUNK_TILES) padded with -1, first chunk of each joint (n_joint + 2,),
+    n_chunks). The table is fixed for a run, so the plan is built and
+    copied to the card once, not at every M-step."""
+    tj = np.frombuffer(tj_bytes, dtype=np.int32)
+    rows, start = [], [0]
+    for j in range(n_joint + 1):
+        tiles = np.flatnonzero(tj == j)
+        for a in range(0, len(tiles), _CHUNK_TILES):
+            row = np.full(_CHUNK_TILES, -1, np.int32)
+            part = tiles[a : a + _CHUNK_TILES]
+            row[: len(part)] = part
+            rows.append(row)
+        start.append(len(rows))
+    chunks = np.stack(rows) if rows else np.zeros((0, _CHUNK_TILES), np.int32)
+    return (torch.as_tensor(chunks, device=device),
+            torch.as_tensor(np.asarray(start, np.int32), device=device), len(rows))
+
+
+@functools.lru_cache(maxsize=4)
+def _table_on(tj_bytes: bytes, device: str) -> torch.Tensor:
+    """The tile -> joint table on the card, copied once per table."""
+    return torch.as_tensor(np.frombuffer(tj_bytes, dtype=np.int32).copy(), device=device)
+
+
+def _ceil4(n: int) -> int:
+    """n rounded up to a multiple of 4, off multiples of 32 (bank spread)."""
+    n = -(-n // 4) * 4
+    return n + 4 if n % 32 == 0 else n
+
+
+def tile_moments(R: torch.Tensor, Z: torch.Tensor, tile: int, tile_joint,
+                 n_joint: int) -> torch.Tensor:
+    """Return M (n_joint + 1, K, d + 1) for R (K, Np), Z (d, Np) and the
+    host table ``tile_joint`` (ceil(Np / tile),) of joint ids (n_joint is
+    the trash row)."""
+    K, Np, d, tj = _tiled_inputs("tile_moments", {"R": R, "Z": Z}, tile_joint, tile)
+    if R.device.type == "cpu":
+        return tile_moments_twin(R, Z, tile, tj, n_joint)
+    d1 = d + 1
+    neb = -(-d1 // 4)
+    KS = K
+    while KS > 4 and -(-KS // 4) * neb > _MAX_MT * _THREADS:
+        KS -= 4
+    if -(-KS // 4) * neb > _MAX_MT * _THREADS:
+        raise ValueError(f"tile_moments: d={d} needs more than {_MAX_MT} register "
+                         f"tiles a thread")
+    chunks, start, n_chunks = _moments_plan(tj.tobytes(), n_joint, str(R.device))
+    part = torch.empty((max(n_chunks, 1), K, d1), dtype=_F32, device=R.device)
+    M = torch.empty((n_joint + 1, K, d1), dtype=_F32, device=R.device)
+    smem = 4 * 32 * (_ceil4(KS) + _ceil4(d1))
+    lib = _build.load("tiled", _TILED_SIGNATURES)
+    stream = torch.cuda.current_stream(R.device).cuda_stream
+    _build.check(lib.k8_tile_moments(
+        R.data_ptr(), Z.data_ptr(), chunks.data_ptr(), start.data_ptr(),
+        part.data_ptr(), M.data_ptr(), Np, K, d, tile, n_chunks, n_joint, KS,
+        _CHUNK_TILES, smem, stream,
+    ), "k8_tile_moments")
+    tile_moments.launches += 1
+    return M
+
+
+tile_moments.launches = 0
+
+
+def tiled_correction_twin(W_joint, tile_joint, R, Z, tile: int) -> torch.Tensor:
+    """Plain version of K9: one (d, K) x (K, tile) product per layout tile."""
+    K, Np = R.shape
+    d = Z.shape[0]
+    nt = -(-Np // tile)
+    pad = nt * tile - Np
+    Rp = torch.nn.functional.pad(R, (0, pad)).reshape(K, nt, tile).permute(1, 0, 2)
+    tj = torch.as_tensor(np.asarray(tile_joint), dtype=torch.int64, device=R.device)
+    corr = torch.bmm(W_joint.index_select(0, tj), Rp)  # (nt, d, tile)
+    corr = corr.permute(1, 0, 2).reshape(d, nt * tile)[:, :Np]
+    return Z - corr
+
+
+def tiled_correction(W_joint: torch.Tensor, tile_joint, R: torch.Tensor,
+                     Z: torch.Tensor, tile: int) -> torch.Tensor:
+    """Return Z_corr (d, Np) for W_joint (n_joint + 1, d, K) per-joint betas
+    (the last row zero), the host table ``tile_joint`` (ceil(Np / tile),),
+    R (K, Np) and Z (d, Np)."""
+    K, Np, d, tj = _tiled_inputs("tiled_correction", {"R": R, "Z": Z, "W_joint": W_joint},
+                                 tile_joint, tile)
+    nj1 = W_joint.shape[0]
+    if W_joint.shape != (nj1, d, K) or tj.max(initial=0) >= nj1:
+        raise ValueError(f"tiled_correction: W_joint {tuple(W_joint.shape)} does not "
+                         f"fit d={d}, K={K} and the tile table")
+    if R.device.type == "cpu":
+        return tiled_correction_twin(W_joint, tj, R, Z, tile)
+    if tile % 64:
+        raise ValueError(f"tiled_correction: tile {tile} is not a multiple of 64")
+    if -(-d // 4) * 16 > _MAX_MT * _THREADS:
+        raise ValueError(f"tiled_correction: d={d} needs more than {_MAX_MT} register "
+                         "tiles a thread")
+    dp = _ceil4(d)
+    smem = 4 * K * (dp + 64)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"tiled_correction: K={K}, d={d} need {smem} bytes of "
+                         f"shared memory, over the {_SMEM_MAX} a CTA may use")
+    Wt = W_joint.transpose(1, 2).contiguous()  # (nj1, K, d)
+    tjd = _table_on(tj.tobytes(), str(R.device))
+    Zc = torch.empty_like(Z)
+    lib = _build.load("tiled", _TILED_SIGNATURES)
+    stream = torch.cuda.current_stream(R.device).cuda_stream
+    _build.check(lib.k9_tiled_correction(
+        Wt.data_ptr(), tjd.data_ptr(), R.data_ptr(), Z.data_ptr(), Zc.data_ptr(),
+        Np, K, d, tile, nj1 - 1, smem, stream,
+    ), "k9_tiled_correction")
+    tiled_correction.launches += 1
+    return Zc
+
+
+tiled_correction.launches = 0

@@ -20,12 +20,21 @@ and a dropped batch's beta rows are exactly zero, so no cell receives a
 correction from it (src/harmony.cpp:368-410). Runs with more covariates
 stay on the dense PyTorch contractions, as the JAX package keeps them on
 XLA.
+
+With a batch-tiled layout (``tiled``, ops/tiled.py; the rotate schedule's
+ingest order) the moments and the correction take the O(K·N·d) tiled
+path of ``harmony_tpu/ops/ridge.py:384-547``: K8 gives the per-joint-batch
+moment table over the batch-pure layout tiles and K9 the correction per
+pure tile (``ops/cuda_ridge.py``); the trailing mixed/pad region goes
+through dense one-hot products. Segment sums over joint levels are one-hot
+products, not ``index_add_``, whose CUDA version sums with float atomics.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from ..config import HarmonyConfig
@@ -112,6 +121,7 @@ def moe_correct_ridge(
     lamb: torch.Tensor,  # (B+1,) fixed ridge diag (ignored when estimating)
     Y_old: torch.Tensor,  # (d, K)
     onehots=None,
+    tiled=None,  # ops.tiled.TiledCells -> the batch-tiled O(K N d) path
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Return (Z_corr, Y_new, W); W is (K, B+1, d) with intercept rows zeroed.
     Z_corr is recomputed from Z_orig (src/harmony.cpp:347)."""
@@ -119,11 +129,29 @@ def moe_correct_ridge(
     dev = Z_orig.device
     keep, any_active = compute_masks(cfg, O, batch_sizes)
     keepf = keep.to(_F32)
-    use_kernel = cfg.mstep_impl == "kernel" and cfg.n_covariates == 1
+    use_kernel = (cfg.mstep_impl == "kernel" and cfg.n_covariates == 1
+                  and tiled is None)
     Zf = Z_orig.to(_F32).contiguous()
     cross_blocks: Dict[Tuple[int, int], torch.Tensor] = {}
 
-    if use_kernel:
+    if tiled is not None:
+        # raw R, keep-masked moments: a cell is kept iff ANY of its batches
+        # is, and every cell of a kept batch is kept, so kept batches'
+        # blocks equal their raw-R values; only the intercept moments see
+        # the union cell mask, constant within a joint level
+        # (harmony_tpu/ops/ridge.py:130-211)
+        R_eff = R.to(_F32).contiguous()
+        O_all, rhs_all, cross_blocks, ctx = _moments_tiled(
+            cfg, R_eff, Zf, codes, tiled
+        )
+        O_eff = O_all * keepf
+        rhs_batches = rhs_all * keepf[:, :, None]
+        if cfg.n_covariates == 1:
+            r_tot = O_eff.sum(dim=1)
+            rhs0 = rhs_batches.sum(dim=1)
+        else:
+            r_tot, rhs0 = _intercept_moments_tiled(cfg, keep, Zf, codes, tiled, ctx)
+    elif use_kernel:
         from .cuda_ridge import moments
 
         Rf = R.to(_F32).contiguous()
@@ -199,6 +227,9 @@ def moe_correct_ridge(
     W[:, 0, :] = 0.0
 
     # ---- Correction: Z_corr = Z_orig - sum_k W_k^T Phi_Rk ----------------
+    if tiled is not None:
+        Z_corr = _correction_tiled(cfg, W, R_eff, Zf, ctx, tiled)
+        return Z_corr.to(Z_orig.dtype), Y_new, W
     if use_kernel:
         from .cuda_ridge import correction
 
@@ -206,6 +237,126 @@ def moe_correct_ridge(
         return Z_corr.to(Z_orig.dtype), Y_new, W
     corr = _correction_dense(cfg, W, R_eff, onehots)
     return (Zf - corr).to(Z_orig.dtype), Y_new, W
+
+
+def full_tile_joint(cfg: HarmonyConfig, tiled) -> np.ndarray:
+    """(ceil(Np / tile),) layout tile -> joint id over the whole padded cell
+    axis; mixed/pad tiles map to the trash slot n_joint
+    (harmony_tpu/ops/ridge.py:384)."""
+    n_joint = tiled.joint_codes.shape[1]
+    tj = np.full(-(-cfg.Np // tiled.tile), n_joint, np.int32)
+    tj[: len(tiled.tile_joint)] = tiled.tile_joint
+    return tj
+
+
+def _segment_sum(x: torch.Tensor, ids, n: int) -> torch.Tensor:
+    """sum of the rows of x (m, ...) into n segments, as a one-hot product."""
+    ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=x.device)
+    oh = torch.nn.functional.one_hot(ids, n).to(_F32).t()  # (n, m)
+    return (oh @ x.reshape(x.shape[0], -1)).reshape((n,) + tuple(x.shape[1:]))
+
+
+def _moments_tiled(cfg, R_eff, Zf, codes, tiled):
+    """Batch-tiled moments, O(K·N·d) (harmony_tpu/ops/ridge.py:396-488):
+    the per-joint table from K8 over the layout tiles, segment sums over
+    joint levels, and dense one-hot products on the trailing mixed/pad
+    region. Returns (O_eff, rhs_batches, cross_blocks, (R_tail, tail
+    one-hots, per-joint table))."""
+    from . import cuda_ridge
+
+    K = cfg.K
+    n_joint = tiled.joint_codes.shape[1]
+    tj = full_tile_joint(cfg, tiled)
+    moments = (cuda_ridge.tile_moments if cfg.mstep_impl == "kernel"
+               else cuda_ridge.tile_moments_twin)
+    seg = moments(R_eff, Zf, tiled.tile, tj, n_joint)[:n_joint]  # (nj, K, d+1)
+
+    n_pure = tiled.n_pure
+    tail = R_eff.shape[1] - n_pure
+    R_t = tail_oh = tail_M = None
+    if tail:
+        R_t = R_eff[:, n_pure:]
+        Za_t = torch.cat([Zf[:, n_pure:], Zf.new_ones((1, tail))], dim=0)
+        tail_oh = [
+            torch.nn.functional.one_hot(codes[c, n_pure:].long(), b).to(_F32)
+            for c, b in enumerate(cfg.B_vec)
+        ]
+        tail_M = [
+            torch.stack([(R_t * oh[:, b]) @ Za_t.t() for b in range(oh.shape[1])], 1)
+            for oh in tail_oh
+        ]
+    O_parts, rhs_parts = [], []
+    for c, b in enumerate(cfg.B_vec):
+        Mc = _segment_sum(seg, tiled.joint_codes[c], b).transpose(0, 1)  # (K, b, d+1)
+        if tail:
+            Mc = Mc + tail_M[c]
+        O_parts.append(Mc[:, :, -1])
+        rhs_parts.append(Mc[:, :, :-1])
+    cross_blocks: Dict[Tuple[int, int], torch.Tensor] = {}
+    for c1 in range(cfg.n_covariates):
+        for c2 in range(c1 + 1, cfg.n_covariates):
+            b1, b2 = cfg.B_vec[c1], cfg.B_vec[c2]
+            jidx = tiled.joint_codes[c1].astype(np.int64) * b2 + tiled.joint_codes[c2]
+            cross = _segment_sum(seg[:, :, -1], jidx, b1 * b2).t().reshape(K, b1, b2)
+            if tail:
+                joint_t = codes[c1, n_pure:].long() * b2 + codes[c2, n_pure:].long()
+                ohj = torch.nn.functional.one_hot(joint_t, b1 * b2).to(_F32)
+                cross = cross + (R_t @ ohj).reshape(K, b1, b2)
+            cross_blocks[(c1, c2)] = cross
+    return (torch.cat(O_parts, dim=1), torch.cat(rhs_parts, dim=1),
+            cross_blocks, (R_t, tail_oh, seg))
+
+
+def _intercept_moments_tiled(cfg, keep, Zf, codes, tiled, ctx):
+    """Several covariates: intercept moments under the union cell mask, at
+    joint-level granularity on the pure tiles and per cell on the tail
+    (harmony_tpu/ops/ridge.py:170-211)."""
+    seg = ctx[2]
+    mask_j = None
+    for c, off in enumerate(cfg.covariate_offsets):
+        jc = torch.as_tensor(tiled.joint_codes[c], dtype=torch.int64, device=keep.device)
+        kc = keep[:, off : off + cfg.B_vec[c]].index_select(1, jc)  # (K, nj)
+        mask_j = kc if mask_j is None else (mask_j | kc)
+    mj = mask_j.to(_F32).t()[:, :, None]  # (nj, K, 1)
+    r_tot = (seg[:, :, -1:] * mj).sum(dim=0)[:, 0]
+    rhs0 = (seg[:, :, :-1] * mj).sum(dim=0)
+    n_pure = tiled.n_pure
+    if ctx[0] is not None:
+        mask_t = None
+        for c, off in enumerate(cfg.covariate_offsets):
+            kc = keep[:, off : off + cfg.B_vec[c]].index_select(1, codes[c, n_pure:].long())
+            mask_t = kc if mask_t is None else (mask_t | kc)
+        R_tm = ctx[0] * mask_t.to(_F32)
+        r_tot = r_tot + R_tm.sum(dim=1)
+        rhs0 = rhs0 + R_tm @ Zf[:, n_pure:].t()
+    return r_tot, rhs0
+
+
+def _correction_tiled(cfg, W, R_eff, Zf, ctx, tiled):
+    """Batch-tiled correction (harmony_tpu/ops/ridge.py:491-547): K9 applies
+    each pure tile's joint betas; the tail's correction is dense."""
+    from . import cuda_ridge
+
+    W_joint = None
+    for c, off in enumerate(cfg.covariate_offsets):
+        jc = torch.as_tensor(tiled.joint_codes[c], dtype=torch.int64, device=W.device)
+        Wc = W[:, 1 + off : 1 + off + cfg.B_vec[c], :].index_select(1, jc)  # (K, nj, d)
+        W_joint = Wc if W_joint is None else W_joint + Wc
+    W_joint = W_joint.permute(1, 2, 0).to(_F32)  # (nj, d, K)
+    W_joint = torch.cat([W_joint, W_joint.new_zeros((1,) + W_joint.shape[1:])]).contiguous()
+    correct = (cuda_ridge.tiled_correction if cfg.mstep_impl == "kernel"
+               else cuda_ridge.tiled_correction_twin)
+    Z_corr = correct(W_joint, full_tile_joint(cfg, tiled), R_eff, Zf, tiled.tile)
+    R_t, tail_oh = ctx[0], ctx[1]
+    if R_t is not None:
+        corr_t = None
+        for c, oh in enumerate(tail_oh):
+            off = cfg.covariate_offsets[c]
+            for b in range(oh.shape[1]):
+                t = W[:, 1 + off + b, :].t() @ (R_t * oh[:, b])
+                corr_t = t if corr_t is None else corr_t + t
+        Z_corr[:, tiled.n_pure :] -= corr_t
+    return Z_corr
 
 
 def _solve_ridge(cfg: HarmonyConfig, G: torch.Tensor, rhs: torch.Tensor):

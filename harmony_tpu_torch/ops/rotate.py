@@ -1,0 +1,295 @@
+"""The rotate schedule: its host side and the plain twins of K6 and K7.
+
+Counterpart of the parts of ``harmony_tpu/ops/pallas_rotate.py`` that are
+not kernels (the padded code layout, the schedule and the block-old
+statistics), and the plain PyTorch versions of its two kernels on the
+stats-carrying path:
+
+* :func:`reassign`, the twin of K6 (``_reassign_kernel``, :1261): the
+  cluster phase's re-entry. It L2-normalises the padded Z_corr, recomputes
+  the assignments from the centroids and returns the per-tile O table,
+  O and E. It writes no R.
+* :func:`rotate_update_round_v2`, the twin of K7 (``_round_kernel_v2``,
+  :594): one stats-carrying round. Each block's old contribution comes
+  from the previous round's per-tile table, never from R.
+
+Schedule: cells were shuffled once at ingest; virtual tile v holds
+physical tile (v + rt) mod NT for a per-round rotation rt, and the nb
+blocks are contiguous runs of virtual tiles processed in a per-round
+random order. Per-block semantics are the reference's: every cell of a
+block sees E/O with the whole block removed (src/harmony.cpp:309-331).
+
+Op order (``estep_variant='fused_vpu'``, ``_assign_tile`` :403-479): per
+cell ``w = exp((g - 1) * 2/sigma) * pen[code]``, one guarded normalise
+``R = w * (1 / colsum)``; the k-means error as ``2 n_valid - 2 sum R g``;
+the entropy in the factorised form for one covariate (:781-805), as
+``sum sigma R log R`` for several.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Sequence, Tuple
+
+import torch
+
+from ..config import HarmonyConfig
+from .objective import xlogx
+
+_F32 = torch.float32
+
+
+class CodesLayout(NamedTuple):
+    """Phase constants of the rounds: the normalised embedding and the
+    codes, both padded to whole tiles; pad cells carry the sentinel code."""
+
+    Z_pad: torch.Tensor  # (d, NT*T) float32
+    codes_pad: torch.Tensor  # (ncov, NT*T) int32; pads -B-1
+
+
+class RoundState(NamedTuple):
+    """Carry of the stats-carrying rounds."""
+
+    R: torch.Tensor  # (K, Np)
+    E: torch.Tensor  # (K, B)
+    O: torch.Tensor  # (K, B)
+    tile_O: torch.Tensor  # (NT, K, B) per-tile O contributions of R
+    kmeans_error: torch.Tensor
+    entropy: torch.Tensor
+
+
+def n_tiles(cfg: HarmonyConfig) -> int:
+    return -(-cfg.Np // cfg.estep_sub_tile)
+
+
+def make_codes_pad(cfg: HarmonyConfig, codes: torch.Tensor) -> torch.Tensor:
+    """(ncov, NT*T) int32 codes with pad cells set to -B-1, below every
+    level even after a covariate offset is added (pallas_rotate.py:75)."""
+    Npt = n_tiles(cfg) * cfg.estep_sub_tile
+    sentinel = -cfg.B - 1
+    cp = torch.full((codes.shape[0], Npt), sentinel, dtype=torch.int32,
+                    device=codes.device)
+    cp[:, : cfg.N] = codes[:, : cfg.N].to(torch.int32)
+    return cp
+
+
+def pad_cells_to_tile(cfg: HarmonyConfig, Z: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the cell axis to whole tiles (pallas_rotate.py:201)."""
+    Npt = n_tiles(cfg) * cfg.estep_sub_tile
+    if Z.shape[1] == Npt:
+        return Z
+    return torch.cat([Z, Z.new_zeros((Z.shape[0], Npt - Z.shape[1]))], dim=1)
+
+
+def block_sizes(cfg: HarmonyConfig) -> Tuple[List[int], List[int]]:
+    """(tiles per block, first virtual tile of each block): nb = min(n_blocks,
+    NT) blocks of near-equal tile counts, the first NT mod nb one larger."""
+    NT = n_tiles(cfg)
+    nb = min(cfg.n_blocks, NT)
+    base, rem = divmod(NT, nb)
+    szs = [base + (i < rem) for i in range(nb)]
+    vstart = [sum(szs[:i]) for i in range(nb)]
+    return szs, vstart
+
+
+def block_tiles(cfg: HarmonyConfig, rt: int, blk: int) -> List[int]:
+    """Physical tiles of block ``blk`` under rotation ``rt``, in order."""
+    NT = n_tiles(cfg)
+    szs, vstart = block_sizes(cfg)
+    return [(vstart[blk] + j + rt) % NT for j in range(szs[blk])]
+
+
+def draw_schedules(
+    cfg: HarmonyConfig, generator: torch.Generator, rounds: int
+) -> List[Tuple[int, List[int]]]:
+    """``rounds`` (rotation, block order) pairs from the generator, drawn
+    together and brought to the host once (the launch loop needs them)."""
+    NT = n_tiles(cfg)
+    nb = len(block_sizes(cfg)[0])
+    dev = generator.device
+    rts = torch.randint(0, NT, (rounds,), generator=generator, device=dev)
+    orders = torch.stack(
+        [torch.randperm(nb, generator=generator, device=dev) for _ in range(rounds)]
+    )
+    return [(int(r), o) for r, o in zip(rts.tolist(), orders.tolist())]
+
+
+def block_old_stats(
+    cfg: HarmonyConfig, tile_O: torch.Tensor, rt: int, order: Sequence[int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The round's step table and each block's old O (pallas_rotate.py:550).
+
+    Returns (steps (4, NT) int64 on the CPU, rows: physical tile, block,
+    first step of the block, last step of the block; blk_O (nb, K, B)
+    indexed by block id). blk_O is a difference of an exclusive cumsum
+    over the table in virtual order, as in the JAX function.
+    """
+    NT = tile_O.shape[0]
+    szs, vstart = block_sizes(cfg)
+    szs_t = torch.tensor(szs, dtype=torch.int64)
+    vs_t = torch.tensor(vstart, dtype=torch.int64)
+    order_t = torch.as_tensor(list(order), dtype=torch.int64)
+    sz_o = szs_t[order_t]
+    blk = torch.repeat_interleave(order_t, sz_o)
+    offs = torch.cumsum(sz_o, 0) - sz_o
+    within = torch.arange(NT) - torch.repeat_interleave(offs, sz_o)
+    tile = (vs_t[blk] + within + rt) % NT
+    steps = torch.stack([tile, blk, (within == 0).long(),
+                         (within == szs_t[blk] - 1).long()])
+
+    virt = ((torch.arange(NT) + rt) % NT).to(tile_O.device)
+    cs = torch.cumsum(tile_O.index_select(0, virt), dim=0, dtype=_F32)
+    cs_ex = torch.cat([torch.zeros_like(cs[:1]), cs])
+    dev = tile_O.device
+    blk_O = cs_ex[(vs_t + szs_t).to(dev)] - cs_ex[vs_t.to(dev)]
+    return steps, blk_O
+
+
+def _one_hot_tiles(cfg: HarmonyConfig, codes: torch.Tensor) -> torch.Tensor:
+    """(..., B) stacked one-hot of padded codes (ncov, ...); pads are zero."""
+    oh = None
+    for c, off in enumerate(cfg.covariate_offsets):
+        cc = codes[c].long()
+        idx = torch.where(cc >= 0, cc + off, torch.full_like(cc, cfg.B))
+        t = torch.nn.functional.one_hot(idx, cfg.B + 1)[..., : cfg.B].to(_F32)
+        oh = t if oh is None else oh + t
+    return oh
+
+
+def tile_stats_from_R(
+    cfg: HarmonyConfig, R: torch.Tensor, codes_pad: torch.Tensor
+) -> torch.Tensor:
+    """(NT, K, B) per-tile O contributions of R (pallas_rotate.py:531)."""
+    K = R.shape[0]
+    T, NT = cfg.estep_sub_tile, n_tiles(cfg)
+    R3 = pad_cells_to_tile(cfg, R.to(_F32)).reshape(K, NT, T).permute(1, 0, 2)
+    oh = _one_hot_tiles(cfg, codes_pad.reshape(-1, NT, T))  # (NT, T, B)
+    return torch.bmm(R3, oh)
+
+
+def reassign(
+    cfg: HarmonyConfig,
+    Y: torch.Tensor,  # (d, K)
+    sigma: torch.Tensor,  # (K,)
+    Pr_b: torch.Tensor,  # (B,)
+    Z_raw: torch.Tensor,  # (d, NT*T) un-normalised corrected embedding
+    codes_pad: torch.Tensor,  # (ncov, NT*T) int32; pads -B-1
+):
+    """Plain version of K6 (``pallas_reassign``, pallas_rotate.py:1354).
+
+    Returns (Zn (d, NT*T), tile_O (NT, K, B), O (K, B), E (K, B)); E is
+    rowsums(R) Pr_b^T with the row sums from covariate 0's block of O."""
+    d, Npt = Z_raw.shape
+    T = cfg.estep_sub_tile
+    NT = Npt // T
+    Zf = Z_raw.to(_F32)
+    nrm = torch.sqrt((Zf * Zf).sum(dim=0, keepdim=True))
+    Zn = Zf / torch.where(nrm == 0.0, torch.ones_like(nrm), nrm)
+    g = Y.t().to(_F32) @ Zn  # (K, Npt)
+    e = torch.exp((g - 1.0) * (2.0 / sigma.to(_F32))[:, None])
+    R_n = e * (codes_pad[0] >= 0).to(_F32)[None, :]
+    colsum = R_n.sum(dim=0, keepdim=True)
+    R_n = R_n * (1.0 / torch.where(colsum == 0.0, torch.ones_like(colsum), colsum))
+    K = R_n.shape[0]
+    oh = _one_hot_tiles(cfg, codes_pad.reshape(-1, NT, T))
+    tile_O = torch.bmm(R_n.reshape(K, NT, T).permute(1, 0, 2), oh)
+    O = tile_O.sum(dim=0)
+    E = O[:, : cfg.B_vec[0]].sum(dim=1)[:, None] * Pr_b.to(_F32)[None, :]
+    return Zn, tile_O, O, E
+
+
+def _assign_tiles(cfg, Yt, Z3, codes3, pen, logpen, sigma, inv2sig):
+    """Assign ``n`` tiles (Z3 (d, n, T), codes3 (ncov, n, T)) against one
+    block-removed penalty table. Returns (R (K, n, T), tO (n, K, B),
+    kmeans error and entropy per tile (n,))."""
+    K, B = pen.shape
+    d, n, T = Z3.shape
+    g = (Yt @ Z3.reshape(d, n * T)).reshape(K, n, T)
+    pen_pad = torch.cat([pen, pen.new_zeros((K, 1))], dim=1)
+    pc = None
+    for c, off in enumerate(cfg.covariate_offsets):
+        cc = codes3[c].reshape(-1).long()
+        idx = torch.where(cc >= 0, cc + off, torch.full_like(cc, B))
+        t = pen_pad.index_select(1, idx).reshape(K, n, T)
+        pc = t if pc is None else pc + t
+    e = torch.exp((g - 1.0) * inv2sig[:, None, None])
+    w = e * pc
+    colsum = w.sum(dim=0)
+    colsum_g = torch.where(colsum == 0.0, torch.ones_like(colsum), colsum)
+    R_n = w * (1.0 / colsum_g)
+    oh = _one_hot_tiles(cfg, codes3)  # (n, T, B)
+    tO = torch.bmm(R_n.permute(1, 0, 2), oh)  # (n, K, B)
+    b0 = cfg.B_vec[0]
+    n_valid = tO[:, :, :b0].sum(dim=(1, 2))
+    s_rd = 2.0 * n_valid - 2.0 * (R_n * g).sum(dim=(0, 2))
+    if cfg.n_covariates == 1:
+        # sigma R log R with log R = (g-1) 2/sigma + logpen - log colsum:
+        # the first term contracts to -R*d, the penalty term against tO
+        sR = (sigma[:, None, None] * R_n).sum(dim=0)  # (n, T)
+        ent = (-s_rd - (torch.log(colsum_g) * sR).sum(dim=1)
+               + (sigma[None, :, None] * tO * logpen[None]).sum(dim=(1, 2)))
+    else:
+        ent = (sigma[:, None, None] * xlogx(R_n)).sum(dim=(0, 2))
+    return R_n, tO, s_rd, ent
+
+
+def rotate_update_round_v2(
+    cfg: HarmonyConfig,
+    Y: torch.Tensor,  # (d, K)
+    rs: RoundState,
+    Pr_b: torch.Tensor,  # (B,)
+    sigma: torch.Tensor,  # (K,)
+    theta: torch.Tensor,  # (B,)
+    rt: int,
+    order: Sequence[int],
+    layout: CodesLayout,
+    write_r: bool = True,
+) -> RoundState:
+    """Plain version of K7 (``pallas_rotate_update_round_v2``,
+    pallas_rotate.py:851) for the schedule (rt, order).
+
+    ``write_r=False`` leaves the returned R the (stale) input R: no round
+    reads R, so only the phase's last round has to write it."""
+    K, Np = rs.R.shape
+    d, Npt = layout.Z_pad.shape
+    T = cfg.estep_sub_tile
+    NT = Npt // T
+    b0 = cfg.B_vec[0]
+    _, blk_O = block_old_stats(cfg, rs.tile_O, rt, order)
+    Yt = Y.t().to(_F32)
+    sig = sigma.to(_F32)
+    inv2sig = 2.0 / sig
+    Pr = Pr_b.to(_F32)[None, :]
+    th = theta.to(_F32)[None, :]
+    Z3 = layout.Z_pad.reshape(d, NT, T)
+    c3 = layout.codes_pad.reshape(-1, NT, T)
+    E, O = rs.E.to(_F32), rs.O.to(_F32)
+    tile_O = torch.empty_like(rs.tile_O)
+    R_new = torch.empty((K, NT, T), dtype=_F32, device=Y.device) if write_r else None
+    acc_d = torch.zeros((), dtype=_F32, device=Y.device)
+    acc_e = torch.zeros((), dtype=_F32, device=Y.device)
+    for blk in order:
+        # remove the block (src/harmony.cpp:312-313) and build its penalty
+        Ob = blk_O[blk]
+        E = E - Ob[:, :b0].sum(dim=1, keepdim=True) * Pr
+        O = O - Ob
+        ratio = (2.0 * E + 1.0) / (O + E + 1.0)
+        pen = ratio ** th
+        logpen = torch.log(ratio) * th
+        tiles = torch.as_tensor(block_tiles(cfg, rt, blk), device=Y.device)
+        R_n, tO, s_rd, ent = _assign_tiles(
+            cfg, Yt, Z3.index_select(1, tiles), c3.index_select(1, tiles),
+            pen, logpen, sig, inv2sig,
+        )
+        tile_O[tiles] = tO
+        acc_d = acc_d + s_rd.sum()
+        acc_e = acc_e + ent.sum()
+        if write_r:
+            R_new[:, tiles] = R_n
+        # commit the block's new contribution (src/harmony.cpp:329-330)
+        Opend = tO.sum(dim=0)
+        E = E + Opend[:, :b0].sum(dim=1, keepdim=True) * Pr
+        O = O + Opend
+    R_out = R_new.reshape(K, Npt)[:, :Np].to(rs.R.dtype) if write_r else rs.R
+    return RoundState(R=R_out, E=E.to(rs.E.dtype), O=O.to(rs.O.dtype),
+                      tile_O=tile_O, kmeans_error=acc_d, entropy=acc_e)
+

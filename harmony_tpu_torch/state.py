@@ -2,8 +2,10 @@
 
 The port's counterpart of ``harmony_tpu/state.py`` (the C++ engine's member
 state, ``src/harmony.h:20-70``). Layout follows the JAX package, cells
-last: Z_orig/Z_corr (d, N), Y (d, K), R (K, N), O/E (K, B), codes
-(ncov, N). Trace buffers have fixed capacity with integer cursors.
+last: Z_orig/Z_corr (d, Np), Y (d, K), R (K, Np), O/E (K, B), codes
+(ncov, Np), where Np = ``cfg.Np`` pads the cell axis as the JAX state
+does (pad cells: zero Z, code 0, zero R). Trace buffers have fixed
+capacity with integer cursors.
 
 The JAX state carries a PRNG key; here the randomness comes from a
 ``torch.Generator`` seeded from the same integer (``key`` holds
@@ -103,10 +105,17 @@ def init_state(
     """Build the initial state (``harmony::setup``, src/harmony.cpp:29-111):
     casts to the engine dtype, L2-normalises ``Z_corr`` columns
     (src/harmony.cpp:42) and computes the batch statistics. Clustering state
-    stays zero until ``engine.init_cluster``."""
+    stays zero until ``engine.init_cluster``. The cell axis is padded to
+    ``cfg.Np`` with inert zero cells of code 0, as the JAX state is."""
     dev = torch.device(device)
     dtype = getattr(torch, cfg.dtype)
-    Z_orig = torch.as_tensor(np.asarray(Z), device=dev).to(dtype)
+    Z = np.asarray(Z)
+    codes = design.codes.astype(np.int32)
+    pad = cfg.Np - cfg.N
+    if pad:
+        Z = np.concatenate([Z, np.zeros((Z.shape[0], pad), Z.dtype)], axis=1)
+        codes = np.concatenate([codes, np.zeros((codes.shape[0], pad), np.int32)], axis=1)
+    Z_orig = torch.as_tensor(Z, device=dev).to(dtype)
     norms = torch.linalg.vector_norm(Z_orig, dim=0, keepdim=True)
     Z_corr = Z_orig / torch.where(norms == 0, torch.ones_like(norms), norms)
     batch_sizes = design.batch_sizes().astype(np.float64)
@@ -118,10 +127,10 @@ def init_state(
         Z_orig=Z_orig,
         Z_corr=Z_corr,
         Y=torch.zeros((cfg.d, cfg.K), dtype=dtype, device=dev),
-        R=torch.zeros((cfg.K, cfg.N), dtype=dtype, device=dev),
+        R=torch.zeros((cfg.K, cfg.Np), dtype=dtype, device=dev),
         O=torch.zeros((cfg.K, cfg.B), dtype=dtype, device=dev),
         E=torch.zeros((cfg.K, cfg.B), dtype=dtype, device=dev),
-        codes=torch.as_tensor(design.codes.astype(np.int32), device=dev),
+        codes=torch.as_tensor(codes, device=dev),
         Pr_b=t(Pr_b),
         batch_sizes=t(batch_sizes),
         sigma=t(sigma),
@@ -145,7 +154,8 @@ def state_from_arrays(
     cfg: HarmonyConfig, arrays: Dict[str, np.ndarray], device
 ) -> HarmonyState:
     """Build a state from numpy arrays named as the JAX state's fields, so a
-    test can hand a ``harmony_tpu`` state straight to the port. ``key`` (the
+    test can hand a ``harmony_tpu`` state (padded or not) straight to the
+    port. ``key`` (the
     JAX ``[0, seed]`` key data) seeds the generator; it may be omitted."""
     dev = torch.device(device)
     missing = [f for f in ARRAY_FIELDS if f not in arrays and f != "key"]

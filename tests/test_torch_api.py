@@ -105,9 +105,24 @@ def test_auto_shuffle_mode_at_scale_is_rotate_and_not_ported():
                  ("auto", 500_000, True), ("permute", 500_000, False),
                  ("rotate", 10, False)]:
         assert tres(*args, False) == jres(*args, False)
-    Z = np.zeros((100_000, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="rotate"):
-        run_harmony(Z, np.zeros(100_000), device="cpu")
+    # 'auto' at 100k cells now runs the rotate schedule and hands the
+    # output back in the caller's cell order
+    rng = np.random.default_rng(9)
+    n, d = 100_000, 4
+    batches = rng.integers(0, 3, n)
+    types = rng.integers(0, 4, n)
+    Z = ((rng.normal(size=(4, d)) * 3)[types] + (rng.normal(size=(3, d)) * 0.8)[batches]
+         + rng.normal(size=(n, d))).astype(np.float32)
+    res = run_harmony(Z, {"batch": batches}, ["batch"], nclust=8, max_iter=2,
+                      device="cpu", return_object=True)
+    assert res.config.shuffle_mode == "rotate" and res.config.Np % res.config.estep_sub_tile == 0
+    assert res.ingest_inv is not None and not np.array_equal(res.ingest_inv, np.arange(n))
+    np.testing.assert_array_equal(res.Z_orig, Z.T)
+    emb = res.embeddings
+    assert emb.shape == (n, d) and np.isfinite(emb).all()
+    np.testing.assert_allclose(res.R.sum(0), 1.0, atol=1e-4)
+    assert _separation(emb, batches) < _separation(Z, batches)
+    assert res.W.shape == (8, 4, d)
 
 
 def test_anndata_like_input_raises():
@@ -140,7 +155,8 @@ def test_default_device_is_the_card(monkeypatch):
 def test_import_loads_neither_jax_nor_harmony_tpu():
     code = (
         "import sys, harmony_tpu_torch, harmony_tpu_torch.ops.cuda_estep, "
-        "harmony_tpu_torch.ops.cuda_ridge, harmony_tpu_torch._build\n"
+        "harmony_tpu_torch.ops.cuda_ridge, harmony_tpu_torch.ops.cuda_rotate, "
+        "harmony_tpu_torch.ops.rotate, harmony_tpu_torch.ops.tiled, harmony_tpu_torch._build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'harmony_tpu'))\n"
         "print(bad)\n"
