@@ -9,17 +9,23 @@ Phases (``--phases`` picks a subset, comma-separated):
 
 1. env       the card's name and power limit, torch/CUDA versions; TF32 off.
 2. build     nvcc builds every kernel from harmony_tpu_torch/csrc.
-3. kernels   K1, K4, K5, K6, K7 (with and without writing R), K8 and K9
-             against their plain PyTorch versions on the card, at the main
-             paths' shapes and at one ragged shape; kernel, plain and
-             library-call times and the least time the card could take.
+3. kernels   K1, K2, K3 (with and without the fused moments), K4, K5, K6,
+             K7 (with and without writing R), K8 and K9 against their plain
+             PyTorch versions on the card, at the main paths' shapes and at
+             one ragged shape; kernel, plain and library-call times and the
+             least time the card could take.
 4. traj      20k-cell runs with injected centroids and randomness, once
              through the kernels and once through the plain path: the
-             permute schedule (injected permutations) and the rotate
-             schedule (injected rotations and block orders).
+             per-round permute schedule and the fused permute phase
+             (injected permutations), and the rotate schedule (injected
+             rotations and block orders).
 5. permute   run_harmony on 500,000 x 50 cells, 10 batches, K = 100, the
-             permute schedule; K1, K4 and K5 must be launched.
-6. main      run_harmony on the same cells with shuffle_mode left at its
+             permute schedule, which at this size runs the fused phase on
+             the batch-tiled ingest order; K2, K3 and K9 must be launched,
+             K1 and K8 must not.
+6. permute_rounds  the same call with max_iter_cluster = 6, a round count
+             the fused phase does not take: K1, K4 and K5 must be launched.
+7. main      run_harmony on the same cells with shuffle_mode left at its
              default, which resolves to the rotate schedule; K6, K7, K8 and
              K9 must be launched.
 
@@ -37,7 +43,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "build", "kernels", "traj", "permute", "main")
+PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 outside the
 # tensor cores. The bound of a function is the larger of its bytes over the
@@ -163,6 +169,108 @@ def check_k1(torch, dev, N, d, K, B_vec, seed, timed):
         row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * K * d * N)
         row["library_ms"] = None
     return row
+
+
+def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4):
+    """K2 (the phase's rounds, injected permutations) and K3 (R from the
+    rounds' tables, with and without the fused moments) against their plain
+    versions. The cells are put in a batch-tiled order first, so the moment
+    table has pure tiles; K3 and its plain version get the same tables."""
+    import numpy as np
+
+    from harmony_tpu_torch.ops import cuda_permute
+    from harmony_tpu_torch.ops import permute_phase as pp
+    from harmony_tpu_torch.ops.cuda_ridge import _moments_plan
+    from harmony_tpu_torch.ops.ridge import full_tile_joint
+    from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
+
+    cfg, Z, Y, _, E, O, codes, Pr_b, sigma, theta, _ = problem(
+        torch, N, d, K, B_vec, seed, dev)
+    tile = 256 if N >= 100_000 else 128
+    order, layout = build_batch_tiled_order(codes.cpu().numpy(), tile, seed)
+    order = torch.as_tensor(order, device=dev)
+    Z, codes = Z[:, order].contiguous(), codes[:, order].contiguous()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    perms = torch.stack([torch.randperm(N, generator=g, device=dev) for _ in range(rounds)])
+    Zo = 2.0 * torch.randn(d, N, generator=g, device=dev)
+    nj = int(layout.joint_codes.shape[1])
+    spec = pp.MomentsSpec(Z_orig=Zo, tile_joint=full_tile_joint(cfg, layout), n_joint=nj,
+                          tile=tile)
+    args = (cfg, Z, Y, E, O, codes, Pr_b, sigma, theta, perms)
+    out = cuda_permute.permute_rounds(*args)
+    ref = pp.permute_rounds(*args)
+    R3, _ = cuda_permute.materialize(cfg, Z, Y, codes, sigma, out.tables)
+    R3m, M3 = cuda_permute.materialize(cfg, Z, Y, codes, sigma, out.tables, spec)
+    R_ref, M_ref = pp.materialize(cfg, Z, Y, codes, sigma, out.tables, spec)
+    R_twin, _ = pp.materialize(cfg, Z, Y, codes, sigma, ref.tables)
+    torch.cuda.synchronize()
+    errs2 = {f: rel_err(getattr(out, f), getattr(ref, f))
+             for f in ("E", "O", "E_rounds", "O_rounds", "kmeans_error", "entropy")}
+    errs2["pen"] = rel_err(out.tables.pen, ref.tables.pen)
+    blk_same = bool(torch.equal(out.tables.blk.long(), ref.tables.blk.long()))
+    e3 = float((R3 - R_ref).abs().max())
+    e3m = float((R3m - R_ref).abs().max())
+    r3m = rel_err(M3, M_ref)
+    e_all = float((R3 - R_twin).abs().max())
+    # K2's own error on the R its tables define: both sets of tables
+    # through the plain materialisation
+    e2 = float((R_ref - R_twin).abs().max())
+    log(f"  K2 N={N} d={d} K={K} B_vec={B_vec}, {rounds} rounds, {cfg.n_blocks} blocks: "
+        + ", ".join(f"{k} rel {v:.3e}" for k, v in errs2.items()) + f" (rtol {SUM_RTOL}); "
+        f"block ids equal: {blk_same}; R of its tables max|dR|={e2:.3e} (atol {R_ATOL})")
+    log(f"  K3 same tables: max|dR|={e3:.3e}, with moments max|dR|={e3m:.3e} (atol {R_ATOL}), "
+        f"M rel {r3m:.3e} (rtol {SUM_RTOL}; tile {tile}, {nj} joint levels); kernels' phase "
+        f"against the plain phase: max|dR|={e_all:.3e} (atol {R_ATOL})")
+    for k, v in errs2.items():
+        require(v <= SUM_RTOL, f"K2 {k} disagrees: {v}")
+    require(blk_same, "K2 block ids disagree")
+    require(e2 <= R_ATOL, f"K2's tables give another R: {e2}")
+    require(max(e3, e3m, e_all) <= R_ATOL, f"K3 R disagrees: {e3}, {e3m}, {e_all}")
+    require(r3m <= SUM_RTOL, f"K3 moments disagree: {r3m}")
+    require(float(R3.sum(0).sub(1).abs().max()) <= 1e-4, "K3 R columns do not sum to 1")
+    k2, k3 = {"max_abs_err": e2}, {"max_abs_err": max(e3, e3m)}
+    if timed:
+        one = (cfg, Z, Y, E, O, codes, Pr_b, sigma, theta, perms[:1])
+        ncov = len(B_vec)
+        k2["ms"] = time_ms(torch, "K2 kernel round", lambda: cuda_permute.permute_rounds(*one),
+                           iters=5)
+        k2["plain_ms"] = time_ms(torch, "K2 plain round", lambda: pp.permute_rounds(*one),
+                                 iters=3)
+        k2["library_ms"] = None
+        # a round reads Z, the codes, the block ids and the permutation and
+        # writes the new block ids (E, O and the tables are tiny); Y and Z
+        # are fixed within the phase, so the function needs the distances
+        # once (the kernel computes them again in its removal pass)
+        k2["bound_ms"], k2["bound_by"] = bound(4 * (d * N + ncov * N + 2 * N) + 8 * N,
+                                               2.0 * K * d * N)
+        tables = out.tables
+        k3["ms_no_moments"] = time_ms(
+            torch, "K3 kernel", lambda: cuda_permute.materialize(cfg, Z, Y, codes, sigma, tables))
+        k3["ms"] = time_ms(torch, "K3 kernel with moments", lambda: cuda_permute.materialize(
+            cfg, Z, Y, codes, sigma, tables, spec))
+        k3["plain_ms"] = time_ms(torch, "K3 plain with moments", lambda: pp.materialize(
+            cfg, Z, Y, codes, sigma, tables, spec))
+        nt = -(-N // tile)
+        pad = nt * tile - N
+        R3m_p = torch.nn.functional.pad(R3m, (0, pad)).reshape(K, nt, tile)
+        Za3 = torch.nn.functional.pad(torch.cat([Zo, torch.ones(1, N, device=dev)]),
+                                      (0, pad)).reshape(d + 1, nt, tile)
+        oh = torch.nn.functional.one_hot(torch.as_tensor(spec.tile_joint, device=dev).long(),
+                                         nj + 1).float()
+        k3["library_ms"] = time_ms(torch, "K3 moments library einsum (K8's, on K3's R)",
+                                   lambda: torch.einsum("ktu,tj,dtu->jkd", R3m_p, oh, Za3))
+        # Z, Z_orig, the codes and block ids read once, R and M written once,
+        # the per-chunk moment partials written and read once
+        n_chunks = _moments_plan(np.asarray(spec.tile_joint, np.int32).tobytes(), nj,
+                                 str(dev))[2]
+        part = n_chunks * K * (d + 1)
+        k3["bound_ms"], k3["bound_by"] = bound(
+            4 * (2 * d * N + ncov * N + N + K * N + (nj + 1) * K * (d + 1) + 2 * part),
+            2.0 * K * d * N + 2.0 * K * (d + 1) * N)
+        k3["bound_ms_no_moments"], _ = bound(4 * (d * N + ncov * N + N + K * N),
+                                             2.0 * K * d * N)
+    return k2, k3
 
 
 def check_ridge(torch, dev, N, d, K, B, seed, timed):
@@ -468,14 +576,24 @@ def check_traj(torch, dev, mode):
     base = preprocess.resolve_config(
         n_cells=n, d=d, design=design, nclust=None, max_iter=iters,
         early_stop=False, options=harmony_options(), verbose=False,
-        lambda_estimation=True, ridge_solver="auto", shuffle_mode=mode,
+        lambda_estimation=True, ridge_solver="auto",
+        shuffle_mode="rotate" if mode == "rotate" else "permute",
     )
     hp = preprocess.expand_hyperparams(design, base.K, None, 0.1, None, 0.0)
     rng = np.random.default_rng(6)
     Zt = Zh.T
     Y0 = Zt[:, rng.choice(n, base.K, replace=False)]
     kw, tiled = {}, None
-    if mode == "permute":
+    if mode == "permute_fused":
+        # the fused phase on a batch-tiled order at tile 128, so the M-step
+        # takes K3's moments and runs K9
+        base = dataclasses.replace(base, permute_fused=True, mstep_tile=128)
+        perm, _ = build_batch_tiled_order(design.codes, 128, 0)
+        Zt = Zt[:, perm]
+        design = dataclasses.replace(design, codes=design.codes[:, perm])
+        tiled = engine.tiled_layout(finalize_engine_config(base), design.codes)
+        require(tiled is not None, "fused permute trajectory: no batch-tiled layout")
+    if mode.startswith("permute"):
         kw["perms"] = np.stack([np.stack([rng.permutation(n) for _ in range(base.max_iter_cluster)])
                                 for _ in range(iters)])
     else:
@@ -495,6 +613,8 @@ def check_traj(torch, dev, mode):
     out = {}
     for impl in ("kernel", "torch"):
         cfg = finalize_engine_config(dataclasses.replace(base, estep_impl=impl, mstep_impl=impl))
+        require(cfg.permute_fused == (mode == "permute_fused"),
+                f"{mode} trajectory resolved permute_fused={cfg.permute_fused}")
         st = init_state(cfg, Zt, design, hp.sigma, hp.theta, hp.lamb, 0, dev)
         t0 = time.perf_counter()
         st = driver.run(cfg, st, Y0=Y0, tiled=tiled, **kw)
@@ -515,18 +635,24 @@ def check_traj(torch, dev, mode):
 
 def run_main_path(torch, dev, wrappers, phase):
     """run_harmony at the main shape through the entry point a user calls:
-    the permute schedule, or (phase 'main') shuffle_mode left at its
-    default. Launch counts are read right after the call."""
+    the permute schedule (phase 'permute', the fused phase at this size;
+    'permute_rounds' with a clustering budget of 6 rounds, the per-round
+    kernel), or (phase 'main') shuffle_mode left at its default. Launch
+    counts are set to 0 right before the call and read right after it."""
     import numpy as np
 
-    from harmony_tpu_torch import engine, run_harmony
+    from harmony_tpu_torch import engine, harmony_options, run_harmony
 
     Zs, bs = synthetic(torch, N_MAIN, D_MAIN, B_MAIN, 7, dev)
     sep0 = separation(torch, Zs.t(), bs, B_MAIN)
     Zh = Zs.cpu().numpy()
     meta = {"batch": bs.cpu().numpy()}
     del Zs
-    kw = {"shuffle_mode": "permute"} if phase == "permute" else {}
+    kw = {}
+    if phase.startswith("permute"):
+        kw["shuffle_mode"] = "permute"
+    if phase == "permute_rounds":
+        kw["options"] = harmony_options(max_iter_cluster=6)
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -535,13 +661,16 @@ def run_main_path(torch, dev, wrappers, phase):
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     mode = res.config.shuffle_mode
-    require(mode == ("permute" if phase == "permute" else "rotate"),
+    require(mode == ("permute" if phase.startswith("permute") else "rotate"),
             f"{phase} path resolved to shuffle_mode={mode!r}")
+    require(res.config.permute_fused == (phase == "permute"),
+            f"{phase} path resolved permute_fused={res.config.permute_fused}")
     ph = res.phase_seconds()
     n_it = int(res.state.n_rounds)
     per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
     log(f"{phase} path: run_harmony {N_MAIN} x {D_MAIN}, K={res.K}, B={res.B}, {mode}"
-        f" (T={res.config.estep_sub_tile}, Np={res.config.Np}), max_iter={MAX_ITER}: "
+        f" (fused={res.config.permute_fused}, max_iter_cluster={res.config.max_iter_cluster}, "
+        f"T={res.config.estep_sub_tile}, Np={res.config.Np}), max_iter={MAX_ITER}: "
         f"{n_it} iterations, wall {wall:.2f} s")
     log("  phase seconds: " + json.dumps({k: round(v, 4) for k, v in ph.items()}))
     log(f"  seconds per Harmony iteration {per_it:.4f}; "
@@ -560,13 +689,14 @@ def run_main_path(torch, dev, wrappers, phase):
     log(f"  R column sums within {dev_r:.2e} of 1; batch-centroid separation "
         f"{sep0:.4f} -> {sep1:.4f}")
     require(sep1 < sep0, "batch-centroid separation did not shrink")
-    if phase == "permute":
-        profile_round(torch, res, "profile_round.txt")
-    else:
+    if phase != "permute_rounds":
         tiled = engine.tiled_layout(res.config, res.design.codes)
+        require(tiled is not None and res.ingest_inv is not None,
+                f"{phase} path: no batch-tiled ingest order")
         log(f"  batch-tiled layout: tile {tiled.tile}, {len(tiled.tile_joint)} pure tiles, "
             f"{res.config.Np - tiled.n_pure} cells in the mixed/pad tail")
-        profile_round(torch, res, "profile_round_rotate.txt", tiled=tiled)
+        profile_round(torch, res, "profile_round.txt" if phase == "permute"
+                      else "profile_round_rotate.txt", tiled=tiled)
     return launches
 
 
@@ -584,7 +714,7 @@ def main(argv=None) -> int:
     try:
         import harmony_tpu_torch  # noqa: F401
         from harmony_tpu_torch import _build
-        from harmony_tpu_torch.ops import cuda_estep, cuda_ridge, cuda_rotate
+        from harmony_tpu_torch.ops import cuda_estep, cuda_permute, cuda_ridge, cuda_rotate
     except ImportError as e:
         print(f"chip_smoke: harmony_tpu_torch not importable ({e}); run from "
               "the root of a checkout", file=sys.stderr)
@@ -595,6 +725,12 @@ def main(argv=None) -> int:
         "K1": {"name": "K1 estep_round", "route": "cuda",
                "source": "harmony_tpu_torch/csrc/estep_round.cu",
                "replaces": "harmony_tpu/ops/pallas_estep.py:43"},
+        "K2": {"name": "K2 permute_round", "route": "cuda",
+               "source": "harmony_tpu_torch/csrc/permute_phase.cu",
+               "replaces": "harmony_tpu/ops/pallas_estep.py:303"},
+        "K3": {"name": "K3 permute_materialize", "route": "cuda",
+               "source": "harmony_tpu_torch/csrc/permute_phase.cu",
+               "replaces": "harmony_tpu/ops/pallas_estep.py:487"},
         "K4": {"name": "K4 moments", "route": "cuda",
                "source": "harmony_tpu_torch/csrc/ridge.cu",
                "replaces": "harmony_tpu/ops/pallas_ridge.py:41"},
@@ -614,11 +750,15 @@ def main(argv=None) -> int:
                "source": "harmony_tpu_torch/csrc/tiled.cu",
                "replaces": "harmony_tpu/ops/pallas_ridge.py:254"},
     }
-    wrappers = {"K1": cuda_estep.block_update_round, "K4": cuda_ridge.moments,
+    wrappers = {"K1": cuda_estep.block_update_round, "K2": cuda_permute.permute_rounds,
+                "K3": cuda_permute.materialize, "K4": cuda_ridge.moments,
                 "K5": cuda_ridge.correction, "K6": cuda_rotate.reassign,
                 "K7": cuda_rotate.rotate_update_round_v2, "K8": cuda_ridge.tile_moments,
                 "K9": cuda_ridge.tiled_correction}
-    paths = {"permute": ("K1", "K4", "K5"), "main": ("K6", "K7", "K8", "K9")}
+    # the kernels each path must launch, and those it must not
+    paths = {"permute": (("K2", "K3", "K9"), ("K1", "K8")),
+             "permute_rounds": (("K1", "K4", "K5"), ("K2", "K3")),
+             "main": (("K6", "K7", "K8", "K9"), ())}
     t_start = time.perf_counter()
 
     # ---- 1. env ----------------------------------------------------------
@@ -652,6 +792,11 @@ def main(argv=None) -> int:
         log("kernels against plain PyTorch on the card:")
         kernels["K1"].update(check_k1(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 1, True))
         check_k1(torch, dev, 1003, 13, 7, (3, 4), 2, False)
+        k2, k3 = check_permute(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 15, True)
+        kernels["K2"].update(k2)
+        kernels["K3"].update(k3)
+        # ragged: two covariates, blocks and tiles that do not divide N
+        check_permute(torch, dev, 30_011, 13, 7, (3, 4), 16, False)
         k4, k5 = check_ridge(torch, dev, N_MAIN, D_MAIN, K_MAIN, B_MAIN, 3, True)
         kernels["K4"].update(k4)
         kernels["K5"].update(k5)
@@ -675,16 +820,22 @@ def main(argv=None) -> int:
     # ---- 4. trajectories: kernels vs plain path -------------------------
     if "traj" in phases:
         check_traj(torch, dev, "permute")
+        check_traj(torch, dev, "permute_fused")
         check_traj(torch, dev, "rotate")
 
-    # ---- 5./6. the main paths ---------------------------------------------
-    for phase in ("permute", "main"):
+    # ---- 5.-7. the main paths ---------------------------------------------
+    for phase in ("permute", "permute_rounds", "main"):
         if phase not in phases:
             continue
         launches = run_main_path(torch, dev, wrappers, phase)
-        for k in paths[phase]:
-            kernels[k]["launches"] = launches[k]
+        need, never = paths[phase]
+        for k in need:
+            by_path = kernels[k].setdefault("launches_by_path", {})
+            by_path[phase] = launches[k]
+            kernels[k]["launches"] = sum(by_path.values())
             require(launches[k] > 0, f"{k} was not launched on the {phase} path")
+        for k in never:
+            require(launches[k] == 0, f"{k} was launched on the {phase} path")
 
     for k in kernels.values():
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

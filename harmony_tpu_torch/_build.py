@@ -26,7 +26,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("estep_round", "ridge", "rotate", "tiled")
+SOURCES = ("estep_round", "ridge", "rotate", "tiled", "permute_phase")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

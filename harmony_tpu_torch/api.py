@@ -5,7 +5,8 @@ R/ui.R:91-309), with the same signature plus ``device``. ``device=None``
 means the card; without one the call raises instead of carrying on on the
 CPU. Arguments that select a path not ported yet raise
 ``NotImplementedError`` naming the ROADMAP item; nothing is rerouted.
-``shuffle_mode='auto'`` at 100k cells and up runs the rotate schedule.
+``shuffle_mode='auto'`` at 100k cells and up runs the rotate schedule;
+``shuffle_mode='permute'`` at 200k cells and up the fused permute phase.
 """
 
 from __future__ import annotations
@@ -82,9 +83,9 @@ class HarmonyResult:
     (RCPP_MODULE, src/harmony.cpp:672-709). Arrays are host copies.
 
     Cell-indexed arrays (Z_corr, Z_orig, R, embeddings) come back in the
-    caller's cell order without the pad cells; under ``shuffle_mode=
-    'rotate'`` the ``state`` and ``design`` hold the ingest order and
-    ``ingest_inv`` maps back."""
+    caller's cell order without the pad cells; where the run reordered its
+    cells at ingest (rotate, and the fused permute phase) the ``state`` and
+    ``design`` hold the ingest order and ``ingest_inv`` maps back."""
 
     config: HarmonyConfig
     state: HarmonyState
@@ -268,7 +269,13 @@ def run_harmony(
     ops/tiled.py where it qualifies, else a plain permutation from
     ``seed``) and runs the stats-carrying rotate rounds (K6/K7) with the
     batch-tiled M-step (K8/K9); 'auto' picks rotate at 100k cells and up
-    unless ``init_Y`` is given.
+    unless ``init_Y`` is given. 'permute' at 200k cells and up (K <= 256,
+    the default clustering budget, the kernels) runs each clustering phase
+    as the fused R-gather-free phase (K2/K3; ``HarmonyConfig.permute_fused``
+    resolves it): the permutations per round are the reference's, and without ``init_Y`` the cells are reordered
+    once at ingest into the batch-tiled order, so the M-step takes its
+    moments from K3 and corrects through K9. Runs with ``init_Y`` keep the
+    caller's cell order.
 
     Returns (N, d) corrected embeddings, or a :class:`HarmonyResult` when
     ``return_object=True``.
@@ -316,20 +323,23 @@ def run_harmony(
     )
     cfg = finalize_engine_config(cfg)
     ingest_inv = None
-    if shuffle_mode == "rotate":
-        # shuffle once at ingest (harmony_tpu/api.py:485-525): the
-        # batch-tiled order where the mixture gate allows it, else a plain
-        # random permutation
+    if shuffle_mode == "rotate" or (cfg.permute_fused and init_Y is None):
+        # reorder once at ingest (harmony_tpu/api.py:479-525): the
+        # batch-tiled order where the mixture gate allows it; else rotate
+        # takes a plain random permutation and permute keeps the caller's
+        # order (it draws a fresh permutation every round anyway)
         tiled_t = None
         if cfg.mstep_mode in ("auto", "tiled"):
             tiled_t = choose_tiled_tile(cfg, count_joint_levels(design.codes))
+        perm = None
         if tiled_t:
             perm, _ = build_batch_tiled_order(design.codes, tiled_t, seed)
-        else:
+        elif shuffle_mode == "rotate":
             perm = np.random.default_rng(seed).permutation(N)
-        ingest_inv = np.argsort(perm)
-        Z = Z[:, perm]
-        design = dataclasses.replace(design, codes=design.codes[:, perm])
+        if perm is not None:
+            ingest_inv = np.argsort(perm)
+            Z = Z[:, perm]
+            design = dataclasses.replace(design, codes=design.codes[:, perm])
     tiled = tiled_layout(cfg, design.codes)
     hp = expand_hyperparams(
         design, cfg.K, theta, sigma, lamb, options.tau, verbose=verbose

@@ -7,10 +7,10 @@ reference ``R/harmony_option.R:33-55``) and a resolved, frozen
 
 Only the knobs that mean something on a GPU are kept. The TPU-only
 resolutions of the JAX package (the bf16-pass matmul precisions, sorted
-permute blocks) have no counterpart here; fp32 products run as IEEE fp32
-on the card. The rotate schedule keeps the JAX package's sub-tile and
-padding formula, because it fixes the block partition (see
-:func:`finalize_engine_config`).
+permute blocks, the permute phase's sub-tile padding choice) have no
+counterpart here; fp32 products run as IEEE fp32 on the card. The rotate
+schedule keeps the JAX package's sub-tile and padding formula, because it
+fixes the block partition (see :func:`finalize_engine_config`).
 """
 
 from __future__ import annotations
@@ -164,6 +164,11 @@ class HarmonyConfig:
     # Virtual R: None resolves by dtype as in the JAX package and must come
     # out False here (ROADMAP A9, K10/K11).
     virtual_r: "bool | None" = None
+    # Permute schedule: run a clustering phase as the fused R-gather-free
+    # phase (K2/K3, ops/permute_phase.py) instead of per-round updates;
+    # None resolves in finalize_engine_config. The port's spelling of what
+    # estep_impl='pallas' selects on the permute schedule in the JAX package.
+    permute_fused: Optional[bool] = None
 
     verbose: bool = False
 
@@ -308,6 +313,16 @@ def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
       ops/rotate.py) with the JAX package's tile geometry; the rotate
       options that select another path raise ``NotImplementedError``
       naming their ROADMAP item.
+    - ``permute_fused=None`` resolves to True under the JAX package's gate
+      (harmony_tpu/config.py:421-432): the permute schedule, the kernels,
+      ``Np >= 200_000``, ``K <= 256`` and a static round count
+      (``max_iter_cluster <= window_size + 2``, so the windowed early stop
+      cannot fire); to False otherwise, so ``estep_impl='torch'`` keeps the
+      per-round loop. True forces the fused phase at any size (the kernels,
+      or the plain twin under 'torch' or on CPU tensors) and raises without
+      a static round count. The JAX package's sub-tile choice for this phase
+      (config.py:434-452) only sizes its TPU padding: the port's kernels
+      cover each block's exact cell range, so it has no counterpart.
     """
     for name in ("estep_impl", "mstep_impl"):
         if getattr(cfg, name) not in _IMPLS:
@@ -353,4 +368,20 @@ def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
         cfg = dataclasses.replace(cfg, estep_impl=impl)
     if cfg.mstep_impl == "auto":
         cfg = dataclasses.replace(cfg, mstep_impl=impl)
-    return cfg
+    static = cfg.max_iter_cluster <= cfg.window_size + 2
+    if cfg.shuffle_mode != "permute":
+        if cfg.permute_fused:
+            raise HarmonyConfigError("permute_fused=True needs shuffle_mode='permute'")
+        fused = False
+    elif cfg.permute_fused is None:
+        fused = (cfg.estep_impl == "kernel" and cfg.Np >= 200_000
+                 and cfg.K <= 256 and static)
+    else:
+        fused = bool(cfg.permute_fused)
+        if fused and not static:
+            raise HarmonyConfigError(
+                "permute_fused=True needs a static round count: max_iter_cluster "
+                f"<= window_size + 2 = {cfg.window_size + 2}, got "
+                f"{cfg.max_iter_cluster}"
+            )
+    return dataclasses.replace(cfg, permute_fused=fused)

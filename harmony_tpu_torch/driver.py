@@ -63,7 +63,8 @@ def harmonize(
     (rounds, max_iter_cluster, N) on the permute schedule; ``schedules``
     injects, per round, the max_iter_cluster (rotation, block order)
     pairs of the rotate schedule. ``tiled`` is the batch-tiled layout of
-    the rotate path's M-step (``engine.tiled_layout``). ``abort`` is any
+    the M-step of the rotate and fused permute paths
+    (``engine.tiled_layout``). ``abort`` is any
     object with an ``aborted()`` method, polled between rounds.
     """
     if max_iter is None:
@@ -83,7 +84,7 @@ def harmonize(
         t0 = time.perf_counter()
         with _scope(timers, "cluster"):
             state = engine.cluster(cfg, state, None if perms is None else perms[it],
-                                   None if schedules is None else schedules[it])
+                                   None if schedules is None else schedules[it], tiled)
         with _scope(timers, "correct"):
             state = engine.correct(cfg, state, tiled)
         converged = engine.harmony_converged(cfg, state)

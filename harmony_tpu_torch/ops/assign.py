@@ -40,7 +40,8 @@ def make_blocks(
 
     Returns ``(cell_idx, valid)`` of shape (n_blocks, max_block_size): block
     ``i`` holds ``perm[i*cpb : i*cpb + size_i]``; slots past a block's size
-    carry the sentinel index N (an appended zero column). Indices are int64.
+    carry the sentinel index ``cfg.Np`` (an appended zero column past the
+    padded cell axis). Indices are int64.
     """
     nb, cpb, smax = cfg.n_blocks, cfg.cells_per_block, cfg.max_block_size
     sizes = torch.full((nb,), cpb, dtype=torch.int64, device=perm.device)
@@ -51,5 +52,6 @@ def make_blocks(
         [perm.to(torch.int64), torch.zeros(smax, dtype=torch.int64, device=perm.device)]
     )
     rows = torch.stack([p_pad[i * cpb : i * cpb + smax] for i in range(nb)])
-    cell_idx = torch.where(valid, rows, torch.full_like(rows, cfg.N))
+    cell_idx = torch.where(valid, rows, torch.full_like(rows, cfg.Np))
     return cell_idx, valid
+

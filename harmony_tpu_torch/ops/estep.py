@@ -45,24 +45,24 @@ def _pad1(X: torch.Tensor) -> torch.Tensor:
 
 def block_update_round(
     cfg: HarmonyConfig,
-    Z: torch.Tensor,  # (d, N) L2-normalised corrected embedding
+    Z: torch.Tensor,  # (d, Np) L2-normalised corrected embedding
     Y: torch.Tensor,  # (d, K) L2-normalised centroids
-    R: torch.Tensor,  # (K, N)
+    R: torch.Tensor,  # (K, Np)
     E: torch.Tensor,  # (K, B)
     O: torch.Tensor,  # (K, B)
-    codes: torch.Tensor,  # (ncov, N)
+    codes: torch.Tensor,  # (ncov, Np)
     Pr_b: torch.Tensor,  # (B,)
     sigma: torch.Tensor,  # (K,)
     theta: torch.Tensor,  # (B,)
     perm: torch.Tensor,  # (N,) cell permutation
 ) -> RoundResult:
     """One full update_R round in block layout, objective terms included."""
-    K, N = R.shape
+    K, Np = R.shape
     nb, S = cfg.n_blocks, cfg.max_block_size
     dtype = R.dtype
     f32 = torch.float32
 
-    idx, mask = make_blocks(cfg, perm.to(Z.device))  # (nb, S); sentinel N
+    idx, mask = make_blocks(cfg, perm.to(Z.device))  # (nb, S); sentinel Np
     mf = mask.to(dtype)
     R_blk = _pad1(R)[:, idx]  # (K, nb, S)
     Z_blk = _pad1(Z)[:, idx]  # (d, nb, S)
@@ -111,11 +111,11 @@ def block_update_round(
         R_new[:, i] = R_n
 
     # scatter back through the inverse map
-    flat_idx = idx.reshape(-1)  # (nb*S,), N for pad slots
-    pos = torch.full((N + 1,), nb * S, dtype=torch.int64, device=Z.device)
+    flat_idx = idx.reshape(-1)  # (nb*S,), Np for pad slots
+    pos = torch.full((Np + 1,), nb * S, dtype=torch.int64, device=Z.device)
     pos[flat_idx] = torch.arange(nb * S, dtype=torch.int64, device=Z.device)
     R_flat = _pad1(R_new.reshape(K, nb * S))
-    return RoundResult(R=R_flat[:, pos[:N]], E=E, O=O, kmeans_error=acc_d,
+    return RoundResult(R=R_flat[:, pos[:Np]], E=E, O=O, kmeans_error=acc_d,
                        entropy=acc_e)
 
 

@@ -15,7 +15,7 @@ The JAX state carries a PRNG key; here the randomness comes from a
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -67,6 +67,11 @@ class HarmonyState:
 
     seed: int
     generator: torch.Generator
+    # The joint-batch moment table (n_joint+1, K, d+1) of R that the fused
+    # permute phase accumulated for the next correction (K3), or None;
+    # engine.correct consumes it. Not a field of the JAX state, whose
+    # cluster returns it instead.
+    tiled_moments: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
