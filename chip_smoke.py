@@ -10,15 +10,19 @@ Phases (``--phases`` picks a subset, comma-separated):
 1. env       the card's name and power limit, torch/CUDA versions; TF32 off.
 2. build     nvcc builds every kernel from harmony_tpu_torch/csrc.
 3. kernels   K1, K2, K3 (with and without the fused moments), K4, K5, K6,
-             K7 (with and without writing R), K8 and K9 against their plain
-             PyTorch versions on the card, at the main paths' shapes and at
-             one ragged shape; kernel, plain and library-call times and the
-             least time the card could take.
+             K7 (with and without writing R, and a phase's last round with
+             the fused moments and the penalty tables), K8, K9, K10 and K11
+             against their plain PyTorch versions on the card, at the main
+             paths' shapes and at one ragged shape (K7's last round, K10
+             and K11 also at K = d = 100); K11's R against the R K7 wrote
+             in the same round, K10 against K9 on that R; kernel, plain
+             and library-call times and the least time the card could take.
 4. traj      20k-cell runs with injected centroids and randomness, once
              through the kernels and once through the plain path: the
              per-round permute schedule and the fused permute phase
-             (injected permutations), and the rotate schedule (injected
-             rotations and block orders).
+             (injected permutations), the rotate schedule (injected
+             rotations and block orders), and the rotate schedule with
+             virtual R, also against the kernels' materialised run.
 5. permute   run_harmony on 500,000 x 50 cells, 10 batches, K = 100, the
              permute schedule, which at this size runs the fused phase on
              the batch-tiled ingest order; K2, K3 and K9 must be launched,
@@ -26,8 +30,14 @@ Phases (``--phases`` picks a subset, comma-separated):
 6. permute_rounds  the same call with max_iter_cluster = 6, a round count
              the fused phase does not take: K1, K4 and K5 must be launched.
 7. main      run_harmony on the same cells with shuffle_mode left at its
-             default, which resolves to the rotate schedule; K6, K7, K8 and
-             K9 must be launched.
+             default, which resolves to the rotate schedule; K6, K7 (its
+             last round fusing the M-step's moments) and K9 must be
+             launched, K8 must not.
+8. virtual   the same call with virtual_r=True: K6, K7, K10 (once per
+             iteration) and K11 (once) must be launched, K8 and K9 must not.
+9. rotate_rounds  the default call with max_iter_cluster = 6, a round
+             count past the static budget: every round writes R and the
+             M-step takes K8: K6, K7, K8 and K9 must be launched.
 
 It prints a JSON line of the kernels' numbers, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero, and so does
@@ -43,7 +53,9 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main")
+PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
+          "rotate_rounds")
+MAIN_PATHS = ("permute", "permute_rounds", "main", "virtual", "rotate_rounds")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 outside the
 # tensor cores. The bound of a function is the larger of its bytes over the
@@ -408,6 +420,115 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed):
     return k6, k7
 
 
+def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
+    """A phase's last K7 round with the fused moments and the penalty
+    tables (writing R and not), K10 and K11 against their plain versions
+    on the same inputs, the cells in a batch-tiled order so the layout has
+    pure tiles. K11 from K7's tables must give back the R K7 wrote."""
+    from harmony_tpu_torch.ops import cuda_ridge, cuda_rotate, rotate
+    from harmony_tpu_torch.ops.ridge import full_tile_joint
+    from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
+
+    cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = rotate_problem(
+        torch, N, d, K, B_vec, seed, dev)
+    Np, ncov = cfg.Np, len(B_vec)
+    tile = 256 if N >= 100_000 else 128
+    order, layout = build_batch_tiled_order(codes_pad[:, :N].cpu().numpy(), tile, seed)
+    order = torch.as_tensor(order, device=dev)
+    Z[:, :N] = Z[:, order]
+    codes_pad[:, :N] = codes_pad[:, order]
+    Zo = torch.zeros(d, Np, device=dev)
+    Zo[:, :N] = 2.0 * torch.randn(d, N, generator=g, device=dev)
+    nj = int(layout.joint_codes.shape[1])
+    tj = full_tile_joint(cfg, layout)
+    spec = rotate.MomentsSpec(Z_orig=Zo, tile_joint=tj, n_joint=nj, tile=tile)
+    Zn, tO, O, E = rotate.reassign(cfg, Y, sigma, Pr_b, Z, codes_pad)
+    rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
+    lay = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad)
+    rs = rotate.RoundState(R=torch.zeros(K, Np, device=dev), E=E, O=O, tile_O=tO,
+                           kmeans_error=None, entropy=None)
+    args = (cfg, Y, rs, Pr_b, sigma, theta, rt, blocks, lay)
+    kw = dict(moments=spec, emit_pen=True)
+    out = cuda_rotate.rotate_update_round_v2(*args, write_r=True, **kw)
+    outv = cuda_rotate.rotate_update_round_v2(*args, write_r=False, **kw)
+    ref = rotate.rotate_update_round_v2(*args, write_r=True, **kw)
+    vargs = (Y, sigma, out.pen, out.blkmap, Zn, codes_pad)
+    R11 = cuda_rotate.materialize_r(cfg, *vargs)
+    R11_ref = rotate.materialize_r(cfg, *vargs)
+    W = 0.1 * torch.randn(nj + 1, d, K, generator=g, device=dev)
+    W[nj] = 0.0
+    cargs = (cfg, W, tj, tile, *vargs, Zo)
+    Zc = cuda_rotate.virtual_correction(*cargs)
+    Zc_ref = rotate.virtual_correction(*cargs)
+    Zc9 = cuda_ridge.tiled_correction(W, tj, out.R, Zo, tile)
+    torch.cuda.synchronize()
+    e7 = float((out.R - ref.R).abs().max())
+    errs7 = {f: rel_err(getattr(out, f), getattr(ref, f))
+             for f in ("M", "pen", "E", "O", "tile_O", "kmeans_error", "entropy")}
+    same_map = bool(torch.equal(out.blkmap, ref.blkmap))
+    same_v = bool(torch.equal(outv.M, out.M) and torch.equal(outv.pen, out.pen))
+    e11 = float((R11 - R11_ref).abs().max())
+    e11_7 = float((R11 - out.R).abs().max())
+    e10, r10 = float((Zc - Zc_ref).abs().max()), rel_err(Zc, Zc_ref)
+    e10_9 = float((Zc - Zc9).abs().max())
+    colsum = float(R11[:, :N].sum(0).sub(1).abs().max())
+    log(f"  K7 last round N={N} (Np={Np}) d={d} K={K} B_vec={B_vec}, layout tile {tile}, "
+        f"{nj} joint levels, moments + emit_pen: max|dR|={e7:.3e} (atol {R_ATOL}); "
+        + ", ".join(f"{k} rel {v:.3e}" for k, v in errs7.items()) + f" (rtol {SUM_RTOL}); "
+        f"tile -> block map equal: {same_map}; without writing R the same M and pen: {same_v}")
+    log(f"  K11 max|dR|={e11:.3e} (atol {R_ATOL}), against K7's written R {e11_7:.3e} "
+        f"(atol 1e-6); R column sums within {colsum:.2e} of 1")
+    log(f"  K10 max|dZ|={e10:.3e} rel {r10:.3e} (rtol {SUM_RTOL}); against K9 on K7's R "
+        f"max|dZ|={e10_9:.3e} (atol 1e-6)")
+    require(e7 <= R_ATOL, f"K7 (last round) R disagrees: {e7}")
+    for k, v in errs7.items():
+        require(v <= SUM_RTOL, f"K7 (last round) {k} disagrees: {v}")
+    require(same_map, "K7 tile -> block map disagrees")
+    require(same_v, "K7 without writing R gives other moments or tables")
+    require(e11 <= R_ATOL, f"K11 R disagrees: {e11}")
+    require(e11_7 <= 1e-6, f"K11 R is not the R K7 wrote: {e11_7}")
+    require(colsum <= 1e-4, f"K11 R columns do not sum to 1: {colsum}")
+    require(r10 <= SUM_RTOL, f"K10 disagrees: {r10}")
+    require(e10_9 <= 1e-6, f"K10 is not K9 on the R K7 wrote: {e10_9}")
+    k7m = {"max_abs_err_moments": max(e7, errs7["M"])}
+    k10, k11 = {"max_abs_err": e10}, {"max_abs_err": max(e11, e11_7)}
+    if timed:
+        flops = 2.0 * K * d * Np
+        k7m["ms_moments"] = time_ms(
+            torch, "K7 kernel last round, moments + penalty tables",
+            lambda: cuda_rotate.rotate_update_round_v2(*args, write_r=False, **kw), iters=5)
+        k7m["plain_ms_moments"] = time_ms(
+            torch, "K7 plain last round, moments + penalty tables",
+            lambda: rotate.rotate_update_round_v2(*args, write_r=False, **kw), iters=3)
+        nt = Np // tile
+        oh = torch.nn.functional.one_hot(torch.as_tensor(tj, device=dev).long(), nj + 1).float()
+        R3 = out.R.reshape(K, nt, tile)
+        Za3 = torch.cat([Zo, torch.ones(1, Np, device=dev)]).reshape(d + 1, nt, tile)
+        k7m["library_ms"] = time_ms(torch, "K7 moments library einsum (K8's, on K7's R)",
+                                    lambda: torch.einsum("ktu,tj,dtu->jkd", R3, oh, Za3))
+        # Z, the codes and Z_orig read once; M and the tables written once
+        nb = out.pen.shape[0]
+        k7m["bound_ms_moments"], _ = bound(
+            4 * (2 * d * Np + ncov * Np + (nj + 1) * K * (d + 1) + nb * K * cfg.B),
+            flops + 2.0 * K * (d + 1) * Np)
+        k10["ms"] = time_ms(torch, "K10 kernel", lambda: cuda_rotate.virtual_correction(*cargs))
+        k10["plain_ms"] = time_ms(torch, "K10 plain",
+                                  lambda: rotate.virtual_correction(*cargs), iters=3)
+        k10["library_ms"] = None
+        # Zn, the codes and Z_orig read once, Z_corr written once; the
+        # distances and the correction only on the cells of pure layout
+        # tiles (the trash tiles' output is Z_orig)
+        k10["bound_ms"], k10["bound_by"] = bound(4 * (3 * d * Np + ncov * Np),
+                                                 4.0 * K * d * layout.n_pure)
+        k11["ms"] = time_ms(torch, "K11 kernel", lambda: cuda_rotate.materialize_r(cfg, *vargs))
+        k11["plain_ms"] = time_ms(torch, "K11 plain",
+                                  lambda: rotate.materialize_r(cfg, *vargs), iters=3)
+        k11["library_ms"] = None
+        # Zn and the codes read once, R written once
+        k11["bound_ms"], k11["bound_by"] = bound(4 * (d * Np + ncov * Np + K * Np), flops)
+    return k7m, k10, k11
+
+
 def tiled_problem(torch, N, d, K, B_vec, tile, seed, dev):
     """Seeded batch-tiled M-step inputs: a simplex R with zero pad columns,
     Z, the tile -> joint table of a batch-tiled order, joint betas."""
@@ -573,11 +694,12 @@ def check_traj(torch, dev, mode):
     Zs, bs = synthetic(torch, n, d, B, 5, dev)
     Zh, bh = Zs.cpu().numpy().astype(np.float64), bs.cpu().numpy()
     design = preprocess.build_design({"batch": bh.astype(str)}, ["batch"])
+    rotate_mode = mode.startswith("rotate")
     base = preprocess.resolve_config(
         n_cells=n, d=d, design=design, nclust=None, max_iter=iters,
         early_stop=False, options=harmony_options(), verbose=False,
         lambda_estimation=True, ridge_solver="auto",
-        shuffle_mode="rotate" if mode == "rotate" else "permute",
+        shuffle_mode="rotate" if rotate_mode else "permute",
     )
     hp = preprocess.expand_hyperparams(design, base.K, None, 0.1, None, 0.0)
     rng = np.random.default_rng(6)
@@ -597,9 +719,9 @@ def check_traj(torch, dev, mode):
         kw["perms"] = np.stack([np.stack([rng.permutation(n) for _ in range(base.max_iter_cluster)])
                                 for _ in range(iters)])
     else:
-        # a batch-tiled order at tile 128, so the M-step runs K8/K9 (the
-        # mixture gate of run_harmony would keep 20k cells x 10 batches on
-        # the plain order)
+        # a batch-tiled order at tile 128, so the M-step takes K7's fused
+        # moments and runs K9 (or K10 under virtual R; the mixture gate of
+        # run_harmony would keep 20k cells x 10 batches on the plain order)
         base = dataclasses.replace(base, mstep_tile=128)
         perm, _ = build_batch_tiled_order(design.codes, 128, 0)
         Zt = Zt[:, perm]
@@ -610,35 +732,54 @@ def check_traj(torch, dev, mode):
         NT, nb = rotate.n_tiles(geo), len(rotate.block_sizes(geo)[0])
         kw["schedules"] = [[(int(rng.integers(NT)), rng.permutation(nb).tolist())
                             for _ in range(base.max_iter_cluster)] for _ in range(iters)]
+    virtual = mode == "rotate_virtual"
+    # (label, impl, virtual_r): the plain path never takes virtual R (its
+    # gate is the kernels'), so it is the materialised function
+    runs = [("kernel", "kernel", virtual), ("torch", "torch", virtual)]
+    if virtual:
+        runs.append(("kernel_materialised", "kernel", False))
     out = {}
-    for impl in ("kernel", "torch"):
-        cfg = finalize_engine_config(dataclasses.replace(base, estep_impl=impl, mstep_impl=impl))
+    for label, impl, vr in runs:
+        cfg = finalize_engine_config(dataclasses.replace(
+            base, estep_impl=impl, mstep_impl=impl, virtual_r=vr))
         require(cfg.permute_fused == (mode == "permute_fused"),
                 f"{mode} trajectory resolved permute_fused={cfg.permute_fused}")
         st = init_state(cfg, Zt, design, hp.sigma, hp.theta, hp.lamb, 0, dev)
         t0 = time.perf_counter()
         st = driver.run(cfg, st, Y0=Y0, tiled=tiled, **kw)
         torch.cuda.synchronize()
-        out[impl] = (st.trace_lists(cfg), st.Z_corr.cpu().numpy(), time.perf_counter() - t0)
-    (tk, zk, sk), (tt, zt, st_) = out["kernel"], out["torch"]
-    obj_rel = float(np.max(np.abs(tk["objective_kmeans"] - tt["objective_kmeans"])
-                           / np.abs(tt["objective_kmeans"])))
-    z_err = float(np.max(np.abs(zk - zt)))
-    log(f"trajectory {mode} 20k x {d}, K={base.K}, B={B}, {iters} rounds: objective rel "
-        f"{obj_rel:.3e} (rtol 1e-4), max|dZ_corr|={z_err:.3e} (atol 1e-4); "
-        f"kernels {sk:.2f} s, plain {st_:.2f} s")
-    require(obj_rel <= 1e-4, f"{mode} trajectory objectives disagree: {obj_rel}")
-    require(z_err <= 1e-4, f"{mode} trajectory Z_corr disagrees: {z_err}")
-    require(np.array_equal(tk["kmeans_rounds"], tt["kmeans_rounds"]),
-            f"{mode} kmeans rounds differ")
+        require((st.virt_pen is not None) == (label == "kernel" and virtual),
+                f"{mode} trajectory {label}: virtual R engaged={st.virt_pen is not None}")
+        out[label] = (st.trace_lists(cfg), st.Z_corr.cpu().numpy(), time.perf_counter() - t0)
+
+    def compare(a, b, obj_rtol, z_atol, what):
+        (ta, za, sa), (tb, zb, sb) = out[a], out[b]
+        obj_rel = float(np.max(np.abs(ta["objective_kmeans"] - tb["objective_kmeans"])
+                               / np.abs(tb["objective_kmeans"])))
+        z_err = float(np.max(np.abs(za - zb)))
+        log(f"trajectory {mode} 20k x {d}, K={base.K}, B={B}, {iters} rounds, {what}: "
+            f"objective rel {obj_rel:.3e} (rtol {obj_rtol}), max|dZ_corr|={z_err:.3e} "
+            f"(atol {z_atol}); {a} {sa:.2f} s, {b} {sb:.2f} s")
+        require(obj_rel <= obj_rtol, f"{mode} trajectory ({what}) objectives disagree: {obj_rel}")
+        require(z_err <= z_atol, f"{mode} trajectory ({what}) Z_corr disagrees: {z_err}")
+        require(np.array_equal(ta["kmeans_rounds"], tb["kmeans_rounds"]),
+                f"{mode} ({what}) kmeans rounds differ")
+
+    compare("kernel", "torch", 1e-4, 1e-4, "kernels against plain")
+    if virtual:
+        # the JAX package's own bounds between a virtual and a written run
+        # (tests/test_tiled.py:294-353)
+        compare("kernel", "kernel_materialised", 1e-5, 2e-4, "virtual against materialised")
 
 
 def run_main_path(torch, dev, wrappers, phase):
     """run_harmony at the main shape through the entry point a user calls:
     the permute schedule (phase 'permute', the fused phase at this size;
     'permute_rounds' with a clustering budget of 6 rounds, the per-round
-    kernel), or (phase 'main') shuffle_mode left at its default. Launch
-    counts are set to 0 right before the call and read right after it."""
+    kernel), or shuffle_mode left at its default (phase 'main'; 'virtual'
+    with virtual_r=True; 'rotate_rounds' with a budget of 6 rounds). Launch
+    counts are set to 0 right before the call and read right after it.
+    Returns (launches, objective trace, Harmony iterations)."""
     import numpy as np
 
     from harmony_tpu_torch import engine, harmony_options, run_harmony
@@ -651,8 +792,10 @@ def run_main_path(torch, dev, wrappers, phase):
     kw = {}
     if phase.startswith("permute"):
         kw["shuffle_mode"] = "permute"
-    if phase == "permute_rounds":
+    if phase.endswith("_rounds"):
         kw["options"] = harmony_options(max_iter_cluster=6)
+    if phase == "virtual":
+        kw["virtual_r"] = True
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -665,6 +808,8 @@ def run_main_path(torch, dev, wrappers, phase):
             f"{phase} path resolved to shuffle_mode={mode!r}")
     require(res.config.permute_fused == (phase == "permute"),
             f"{phase} path resolved permute_fused={res.config.permute_fused}")
+    require((res.state.virt_pen is not None) == (phase == "virtual"),
+            f"{phase} path: virtual R engaged={res.state.virt_pen is not None}")
     ph = res.phase_seconds()
     n_it = int(res.state.n_rounds)
     per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
@@ -674,9 +819,12 @@ def run_main_path(torch, dev, wrappers, phase):
         f"{n_it} iterations, wall {wall:.2f} s")
     log("  phase seconds: " + json.dumps({k: round(v, 4) for k, v in ph.items()}))
     log(f"  seconds per Harmony iteration {per_it:.4f}; "
-        f"{N_MAIN / per_it:,.0f} cells/s per iteration")
+        f"{N_MAIN / per_it:,.0f} cells/s per iteration; materialize_r "
+        f"{ph.get('materialize_r', 0.0):.4f} s")
+    # read before profile_round, which overwrites the traces of round 1
+    trace = [float(x) for x in res.objective_harmony]
     log(f"  kmeans rounds {res.kmeans_rounds.tolist()}; objective "
-        f"{[round(float(x), 3) for x in res.objective_harmony]}")
+        f"{[round(x, 3) for x in trace]}")
     log(f"  launches: {launches}")
     emb = res.embeddings
     require(emb.shape == (N_MAIN, D_MAIN) and np.isfinite(emb).all(),
@@ -695,9 +843,11 @@ def run_main_path(torch, dev, wrappers, phase):
                 f"{phase} path: no batch-tiled ingest order")
         log(f"  batch-tiled layout: tile {tiled.tile}, {len(tiled.tile_joint)} pure tiles, "
             f"{res.config.Np - tiled.n_pure} cells in the mixed/pad tail")
-        profile_round(torch, res, "profile_round.txt" if phase == "permute"
-                      else "profile_round_rotate.txt", tiled=tiled)
-    return launches
+        profile = {"permute": "profile_round.txt", "main": "profile_round_rotate.txt",
+                   "virtual": "profile_round_virtual.txt"}.get(phase)
+        if profile:
+            profile_round(torch, res, profile, tiled=tiled)
+    return launches, trace, n_it
 
 
 def main(argv=None) -> int:
@@ -749,16 +899,25 @@ def main(argv=None) -> int:
         "K9": {"name": "K9 tiled_correction", "route": "cuda",
                "source": "harmony_tpu_torch/csrc/tiled.cu",
                "replaces": "harmony_tpu/ops/pallas_ridge.py:254"},
+        "K10": {"name": "K10 virtual_correction", "route": "cuda",
+                "source": "harmony_tpu_torch/csrc/rotate.cu",
+                "replaces": "harmony_tpu/ops/pallas_rotate.py:1451"},
+        "K11": {"name": "K11 materialize_r", "route": "cuda",
+                "source": "harmony_tpu_torch/csrc/rotate.cu",
+                "replaces": "harmony_tpu/ops/pallas_rotate.py:1621"},
     }
     wrappers = {"K1": cuda_estep.block_update_round, "K2": cuda_permute.permute_rounds,
                 "K3": cuda_permute.materialize, "K4": cuda_ridge.moments,
                 "K5": cuda_ridge.correction, "K6": cuda_rotate.reassign,
                 "K7": cuda_rotate.rotate_update_round_v2, "K8": cuda_ridge.tile_moments,
-                "K9": cuda_ridge.tiled_correction}
+                "K9": cuda_ridge.tiled_correction, "K10": cuda_rotate.virtual_correction,
+                "K11": cuda_rotate.materialize_r}
     # the kernels each path must launch, and those it must not
     paths = {"permute": (("K2", "K3", "K9"), ("K1", "K8")),
              "permute_rounds": (("K1", "K4", "K5"), ("K2", "K3")),
-             "main": (("K6", "K7", "K8", "K9"), ())}
+             "main": (("K6", "K7", "K9"), ("K8", "K10", "K11")),
+             "virtual": (("K6", "K7", "K10", "K11"), ("K8", "K9")),
+             "rotate_rounds": (("K6", "K7", "K8", "K9"), ("K10", "K11"))}
     t_start = time.perf_counter()
 
     # ---- 1. env ----------------------------------------------------------
@@ -806,6 +965,13 @@ def main(argv=None) -> int:
         kernels["K7"].update(k7)
         # ragged: two covariates, N not a multiple of the tile, pad cells
         check_rotate(torch, dev, 30_011, 13, 7, (3, 4), 12, False)
+        k7m, k10, k11 = check_virtual(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, True)
+        kernels["K7"].update(k7m)
+        kernels["K10"].update(k10)
+        kernels["K11"].update(k11)
+        check_virtual(torch, dev, 30_011, 13, 7, (3, 4), 18, False)
+        # wide: more 4x4 tiles of the (K, d+1) table than a CTA has threads
+        check_virtual(torch, dev, 20_000, 100, 100, (B_MAIN,), 19, False)
         k8, k9 = check_tiled(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 256, 13, True)
         kernels["K8"].update(k8)
         kernels["K9"].update(k9)
@@ -822,12 +988,14 @@ def main(argv=None) -> int:
         check_traj(torch, dev, "permute")
         check_traj(torch, dev, "permute_fused")
         check_traj(torch, dev, "rotate")
+        check_traj(torch, dev, "rotate_virtual")
 
-    # ---- 5.-7. the main paths ---------------------------------------------
-    for phase in ("permute", "permute_rounds", "main"):
+    # ---- 5.-9. the main paths ---------------------------------------------
+    traces = {}
+    for phase in MAIN_PATHS:
         if phase not in phases:
             continue
-        launches = run_main_path(torch, dev, wrappers, phase)
+        launches, traces[phase], n_it = run_main_path(torch, dev, wrappers, phase)
         need, never = paths[phase]
         for k in need:
             by_path = kernels[k].setdefault("launches_by_path", {})
@@ -836,6 +1004,18 @@ def main(argv=None) -> int:
             require(launches[k] > 0, f"{k} was not launched on the {phase} path")
         for k in never:
             require(launches[k] == 0, f"{k} was launched on the {phase} path")
+        if phase == "virtual":
+            # one correction per iteration, R rebuilt once per run
+            require(launches["K10"] == n_it and launches["K11"] == 1,
+                    f"virtual path: K10 {launches['K10']} launches for {n_it} iterations, "
+                    f"K11 {launches['K11']}")
+            log(f"  objective trace: main {traces.get('main')}, virtual {traces['virtual']}")
+            if "main" in traces:
+                # the JAX package's bound between a virtual and a written run
+                obj_rel = max(abs(a - b) / abs(b) for a, b in zip(traces["virtual"],
+                                                                  traces["main"]))
+                log(f"  virtual against main: objective rel {obj_rel:.3e} (rtol 1e-5)")
+                require(obj_rel <= 1e-5, f"virtual path objectives disagree: {obj_rel}")
 
     for k in kernels.values():
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

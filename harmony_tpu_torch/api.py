@@ -18,6 +18,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 
 from .config import (
+    REDUCED_PRECISION_ITEM,
     HarmonyConfig,
     HarmonyOptions,
     _not_ported,
@@ -268,7 +269,7 @@ def run_harmony(
     shuffles the cells once at ingest (the batch-tiled order of
     ops/tiled.py where it qualifies, else a plain permutation from
     ``seed``) and runs the stats-carrying rotate rounds (K6/K7) with the
-    batch-tiled M-step (K8/K9); 'auto' picks rotate at 100k cells and up
+    batch-tiled M-step (K7's fused moments, K9); 'auto' picks rotate at 100k cells and up
     unless ``init_Y`` is given. 'permute' at 200k cells and up (K <= 256,
     the default clustering budget, the kernels) runs each clustering phase
     as the fused R-gather-free phase (K2/K3; ``HarmonyConfig.permute_fused``
@@ -276,6 +277,18 @@ def run_harmony(
     once at ingest into the batch-tiled order, so the M-step takes its
     moments from K3 and corrects through K9. Runs with ``init_Y`` keep the
     caller's cell order.
+
+    ``virtual_r``: None resolves by dtype as in the JAX package (off for
+    float32). True, on a rotate run with the default clustering budget and
+    a batch-tiled layout (the kernels), writes no (K, N) R during the
+    rounds: the last round of each phase fuses the M-step's moments and
+    stores its penalty tables, the correction recomputes R from them (K10)
+    and R is rebuilt once at the end of the run (K11), so ``R`` and ``W``
+    of the result are those of a run that wrote R. Elsewhere it is
+    ignored, as the JAX package ignores it. Reduced-precision ``dtype``s
+    and ``matmul_precision`` raise ``NotImplementedError``, and so does
+    virtual R on layout tiles that are not whole 64-cell pieces (a
+    user-set ``mstep_tile`` and ``estep_sub_tile``).
 
     Returns (N, d) corrected embeddings, or a :class:`HarmonyResult` when
     ``return_object=True``.
@@ -294,7 +307,7 @@ def run_harmony(
     if matmul_precision not in ("auto", "float32", "highest"):
         raise _not_ported(
             f"matmul_precision={matmul_precision!r} (reduced-precision products)",
-            "ROADMAP A9",
+            REDUCED_PRECISION_ITEM,
         )
     dev = resolve_device(device)
     if options is None:

@@ -161,8 +161,12 @@ class HarmonyConfig:
     mstep_mode: str = "auto"
     estep_variant: str = "fused_vpu"
     rotate_stats_carry: bool = True
-    # Virtual R: None resolves by dtype as in the JAX package and must come
-    # out False here (ROADMAP A9, K10/K11).
+    # Virtual R: no round writes the (K, N) assignment matrix; the final
+    # round emits its per-block penalty tables, the correction recomputes R
+    # from them (K10) and the run materialises R once at its end (K11).
+    # Taken by the static-budget rotate kernel path with a batch-tiled
+    # layout (engine._virtual_gate); None resolves by dtype as in the JAX
+    # package (off for float32).
     virtual_r: "bool | None" = None
     # Permute schedule: run a clustering phase as the fused R-gather-free
     # phase (K2/K3, ops/permute_phase.py) instead of per-round updates;
@@ -272,6 +276,11 @@ _MSTEP_MODES = ("auto", "tiled", "dense", "segment")
 _VARIANTS = ("fused_vpu", "fused_mxu", "legacy")
 
 
+# The ROADMAP item of the reduced-precision engines (bf16 state, bf16
+# matmul precision), whose default in the JAX package is virtual R.
+REDUCED_PRECISION_ITEM = "ROADMAP A9, reduced-precision engines"
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to harmony_tpu_torch yet ({item})"
@@ -303,9 +312,14 @@ def _rotate_geometry(cfg: HarmonyConfig) -> HarmonyConfig:
 def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
     """Resolve the 'auto' knobs for the GPU engine.
 
-    - ``virtual_r=None`` resolves by dtype, as in the JAX package: reduced
-      precision engines would skip writing R (K10/K11), which is not
-      ported.
+    - Reduced-precision engines (a ``dtype`` of fewer than 4 bytes) raise
+      ``NotImplementedError``: neither the kernels nor a tested plain path
+      take them yet.
+    - ``virtual_r=None`` resolves by dtype, as in the JAX package
+      (harmony_tpu/config.py:492-504): on for reduced precision, so off for
+      every engine that runs here; True selects virtual R where
+      ``engine._virtual_gate`` admits it and is ignored elsewhere, as the
+      JAX package ignores it.
     - ``estep_impl``/``mstep_impl='auto'`` pick the hand-written kernels for
       float32 engines (the kernels are fp32 only) and the plain PyTorch path
       otherwise; 'kernel' on CPU tensors runs the kernels' plain twins.
@@ -336,15 +350,13 @@ def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
             raise HarmonyConfigError(
                 f"{name} must be one of {allowed}, got {getattr(cfg, name)!r}"
             )
-    if cfg.virtual_r is None:
-        cfg = dataclasses.replace(
-            cfg, virtual_r=getattr(torch, cfg.dtype).itemsize < 4
-        )
-    if cfg.virtual_r:
+    reduced = getattr(torch, cfg.dtype).itemsize < 4
+    if reduced:
         raise _not_ported(
-            "virtual R (the default for reduced-precision dtypes)",
-            "ROADMAP A9, K10/K11",
+            f"dtype={cfg.dtype!r} (reduced-precision engines)", REDUCED_PRECISION_ITEM
         )
+    if cfg.virtual_r is None:
+        cfg = dataclasses.replace(cfg, virtual_r=reduced)
     if cfg.shuffle_mode == "rotate":
         if not cfg.rotate_stats_carry:
             raise _not_ported(

@@ -52,7 +52,8 @@
 // takes up to `chunk` layout tiles of one joint batch level, computes
 // their R in 64-cell sub-tiles, writes it, and accumulates
 // R_t [Z_orig_t; 1]^T in 4x4 register tiles; per-chunk partials are summed
-// per joint in chunk order by a second launch. No float atomics anywhere.
+// per joint in chunk order by a second launch (tiled.cu's sum_joint_rows).
+// No float atomics anywhere.
 //
 // Bounds on this card at N = 500k, d = 50, K = 100 (fp32 outside the
 // tensor cores, 67 TFLOP/s; 3.35 TB/s): Y and Z do not change within a
@@ -456,20 +457,6 @@ __global__ void __launch_bounds__(kThreads) materialize_kernel(
   }
 }
 
-// M[j, :] = sum of the partials rows of joint j's chunks, in chunk order
-// (tiled.cu's sum_chunks_kernel).
-__global__ void __launch_bounds__(kThreads) sum_chunks_kernel(
-    const float* __restrict__ part, const int* __restrict__ start,
-    float* __restrict__ M, int n_rows, long long row) {
-  const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  if (i >= n_rows * row) return;
-  const int j = static_cast<int>(i / row);
-  const long long r = i - j * row;
-  float v = 0.f;
-  for (int c = start[j]; c < start[j + 1]; ++c) v += part[c * row + r];
-  M[i] = v;
-}
-
 int set_smem(const void* kernel, int bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
@@ -523,13 +510,13 @@ int k2_commit(const void* part1, int n1, const void* part0, int rm_first, int rm
 }
 
 // K3; Zo == nullptr: no moments (grid = ceil(Np / T)); else the chunk plan
-// (grid = n_chunks) and the per-joint sum into M (n_joint + 1, K, d + 1).
+// (grid = n_chunks) and a partials row per chunk, which the wrapper sums
+// per joint with tiled.cu's sum_joint_rows.
 int k3_materialize(const void* Yt, const void* Z, const void* codes, const void* offs,
                    const void* blk, const void* pen, const void* sigma, void* R,
-                   const void* Zo, const void* chunks, const void* start, void* part,
-                   void* M, long long Np, long long N, int K, int d, int B, int ncov,
-                   int T, int grid, int chunk, int tw, int n_joint, int d1p,
-                   int smem_bytes, void* stream) {
+                   const void* Zo, const void* chunks, void* part, long long Np,
+                   long long N, int K, int d, int B, int ncov, int T, int grid, int chunk,
+                   int tw, int d1p, int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool mom = Zo != nullptr;
   const void* kern = mom ? reinterpret_cast<const void*>(materialize_kernel<true>)
@@ -555,13 +542,6 @@ int k3_materialize(const void* Yt, const void* Z, const void* codes, const void*
     materialize_kernel<false><<<grid, kThreads, smem_bytes, st>>>(
         Ytf, Zf, ci, oi, bi, penf, sigf, Rf, Zof, chi, partf, Np, N, K, d, B, ncov, T,
         chunk, tw, d1p);
-  err = static_cast<int>(cudaGetLastError());
-  if (err || !mom) return err;
-  const long long row = static_cast<long long>(K) * (d + 1);
-  const long long n = (n_joint + 1) * row;
-  sum_chunks_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
-                      st>>>(static_cast<const float*>(part), static_cast<const int*>(start),
-                            static_cast<float*>(M), n_joint + 1, row);
   return static_cast<int>(cudaGetLastError());
 }
 

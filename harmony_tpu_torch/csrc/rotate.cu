@@ -1,5 +1,5 @@
-// K6 and K7: the rotate schedule's re-entry and its stats-carrying round,
-// hand-written for Hopper (sm_90a).
+// K6, K7, K10 and K11: the rotate schedule's re-entry, its stats-carrying
+// round and the two virtual-R kernels, hand-written for Hopper (sm_90a).
 //
 // K6 replaces harmony_tpu/ops/pallas_rotate.py _reassign_kernel (:1261),
 // reached through pallas_reassign (:1354): per cell tile it L2-normalises
@@ -21,28 +21,63 @@
 // emits the block's per-tile table, the k-means error 2 n - 2 sum R g and
 // the entropy (factorised for one covariate, pallas_rotate.py:781-805;
 // sum sigma R log R otherwise), and commits the block. R is written only
-// when asked (the phase's last round). Bound: the same 5 GFLOP as K6
-// (75 us); bytes are Z read once (0.1 GB) plus R written once on the round
-// that writes it (0.2 GB, 90 us then).
+// when asked (the phase's last round). On the last round it can also
+// store each block's penalty table (emit_pen, for virtual R) and fuse the
+// M-step's joint-batch moments M[j] = sum over layout tiles of joint j of
+// R_t [Z_orig_t; 1]^T (the msub fusion, pallas_rotate.py:813-835), so no
+// separate pass over R and Z_orig (K8) runs. Bound: the same 5 GFLOP as
+// K6 (75 us); bytes are Z read once (0.1 GB) plus R written once on the
+// round that writes it (0.2 GB, 90 us then); with moments 2*K*(d+1)*N =
+// 5.1 GFLOP more and Z_orig read once (0.15 ms in all, operations-bound).
+//
+// K10 replaces _virtual_correction_kernel (:1451), reached through
+// pallas_virtual_correction (:1493): Z_corr = Z_orig - W_joint[j] R per
+// layout tile with R recomputed from the last round's penalty tables and
+// its tile -> block map, so R is never read. Bound: Zn and Z_orig read and
+// Z_corr written once (0.3 GB, 90 us); the distances and the correction
+// are 2*K*d*N each, 10 GFLOP (0.15 ms): operations-bound.
+// K11 replaces _materialize_r_kernel (:1621), reached through
+// pallas_materialize_r (:1648): the run-end R from the same tables. Bound:
+// R written once and Zn read once (0.3 GB, 90 us) against 5 GFLOP (75
+// us): bytes-bound.
 //
 // Design. On the TPU the round was one sequential grid with E/O in VMEM.
 // Here, as in estep_round.cu (K1), blocks are sequential and a block's
 // cells are independent, so a round is a host loop over the blocks with
 // two launches each:
-//   (a) rot_assign over the block's cells, one 64-cell CTA each (a tile
-//       of T cells is T/64 CTAs). A CTA stages Y^T, its Z columns and the
-//       penalty tables in shared memory, forms g = Y^T Z with register
-//       tiles, then per cell (one warp a column) the exp, the guarded
-//       normalise and the objective terms, and per cluster row the
-//       (K x B) design contraction. It writes R (if asked) and a partials
-//       row [tO (K*B) | k-means error | entropy].
+//   (a) rot_assign over the block's cells, 64-cell pieces of a tile (one
+//       per CTA). A CTA stages Y^T, its Z columns and the penalty tables
+//       in shared memory, forms g = Y^T Z with register tiles, then per
+//       cell (one warp a column) the exp, the guarded normalise and the
+//       objective terms, and per cluster row the (K x B) design
+//       contraction. It writes R (if asked) and a partials row [tO (K*B)
+//       | k-means error | entropy]. With moments it also forms its piece's
+//       R [Z_orig; 1]^T, one 4x4 register tile at a time (any K and d),
+//       and stores each tile into the piece's row of a scratch the size of
+//       one block's pieces (L2-resident); the last of a layout tile's
+//       pieces to finish (an integer count) sums their rows in piece order
+//       into one (K x d+1) row per layout tile. One
+//       CTA looping over a layout tile's pieces left a block's launch with
+//       fewer CTAs than the card has SMs, and a thread-block cluster per
+//       layout tile made each launch slower by itself, on the H100.
 //   (b) rot_commit, one CTA per cluster row, folds the partials of each
 //       tile in a fixed order into tile_O and the block's new O/E, removes
 //       the next block's old O (a fixed-order sum over its tiles of the
-//       previous table) and writes the next penalty tables. No float
-//       atomics anywhere, so repeated runs give the same trajectory.
+//       previous table) and writes the next penalty tables (and, with
+//       emit_pen, stores them as that block's table).
+// With moments a last launch sums each joint's layout-tile rows in tile
+// order (tiled.cu's sum_joint_rows, called by the wrapper: the rows are
+// laid out joint by joint). No float atomics anywhere, so repeated runs
+// give the same trajectory.
 // K6 is (a) without the penalty, plus a reduction kernel that builds
-// tile_O, O and E.
+// tile_O, O and E. K10 and K11 are (a) over the whole padded layout, each
+// CTA taking its penalty table from its tile's block.
+//
+// Bit-equal recomputation. K7's written R, the R K10 recomputes and K11's
+// R must be the same bits per cell (the property of pallas_rotate.py:
+// 1436-1441). All three call one routine, assign_chain: the same product
+// loop, and every product that feeds a sum or R is __fmul_rn, so no kernel
+// lets the compiler contract it into an FMA differently.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,7 +87,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kKC = 8;   // cluster rows per thread in the product
-constexpr int kCT = 64;  // cells per CTA
+constexpr int kCT = 64;  // cells per piece
 constexpr int kTP = kCT + 1;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -89,12 +124,11 @@ __device__ __forceinline__ void gram(const float* Ys, const float* Zs,
   }
 }
 
-// Per cluster row: the CTA's (K x B) design contraction into Obs, then the
-// partials row (tO first) and, if R is given, the assignments.
-__device__ __forceinline__ void tile_stats(const float* Ls, const int* gcs,
-                                           float* Obs, float* prow, float* R,
-                                           long long L, long long base, int K,
-                                           int B, int ncov) {
+// Per cluster row: the piece's (K x B) design contraction added into Obs
+// (each thread owns its rows) and, if R is given, the assignments.
+__device__ __forceinline__ void add_stats(const float* Ls, const int* gcs, float* Obs,
+                                          float* R, long long L, long long base, int K,
+                                          int B, int ncov) {
   const int tid = threadIdx.x;
   for (int k = tid; k < K; k += kThreads) {
     for (int t = 0; t < kCT; ++t) {
@@ -111,8 +145,6 @@ __device__ __forceinline__ void tile_stats(const float* Ls, const int* gcs,
       R[k * L + base + t] = Ls[k * kTP + t];
     }
   }
-  __syncthreads();
-  for (int i = tid; i < K * B; i += kThreads) prow[i] = Obs[i];
 }
 
 // Stages the CTA's cells: Z columns into Zs, global batch rows (code +
@@ -132,10 +164,93 @@ __device__ __forceinline__ void stage_cells(const float* Z, const int* codes,
   }
 }
 
+// The assignment chain of K7, K10 and K11 for the piece staged in Zs:
+// g = Y^T z into Ls, then per cell (one warp a column, lanes over
+// clusters) w = exp((g - 1) 2/sigma) * pc with pc the penalty summed over
+// the cell's covariates (0 on pad cells), and R = w * (1 / colsum(w)),
+// the sum guarded against zero; R overwrites Ls. With kObj the cell's
+// k-means error and entropy terms are added to kerr/ent (lane-uniform).
+// The caller synchronises before (staging) and after (readers of Ls).
+template <bool kObj>
+__device__ __forceinline__ void assign_chain(const float* Ys, const float* Zs, float* Ls,
+                                             const float* pens, const float* lps,
+                                             const float* sig, const float* i2s,
+                                             const int* gcs, int K, int d, int B, int ncov,
+                                             float& kerr, float& ent) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  gram(Ys, Zs, Ls, K, d);
+  __syncthreads();
+  for (int t = w; t < kCT; t += kWarps) {
+    const int g0 = gcs[t];
+    float cs = 0.f, swg = 0.f, sws = 0.f, swl = 0.f;
+    for (int k = lane; k < K; k += 32) {
+      float pc = 0.f;
+      for (int c = 0; c < ncov; ++c) {
+        const int gc = gcs[c * kCT + t];
+        if (gc >= 0) pc += pens[k * B + gc];
+      }
+      const float g = Ls[k * kTP + t];
+      const float wv = __fmul_rn(expf(__fmul_rn(g - 1.f, i2s[k])), pc);
+      cs += wv;
+      if (kObj) {
+        swg += wv * g;
+        if (ncov == 1 && g0 >= 0) {
+          sws += sig[k] * wv;
+          swl += sig[k] * wv * lps[k * B + g0];
+        }
+      }
+      Ls[k * kTP + t] = wv;
+    }
+    cs = warp_sum(cs);
+    const float csg = cs == 0.f ? 1.f : cs;
+    const float inv = 1.f / csg;
+    float sr = 0.f, sxl = 0.f;
+    for (int k = lane; k < K; k += 32) {
+      const float r = __fmul_rn(Ls[k * kTP + t], inv);
+      if (kObj) {
+        sr += r;
+        if (ncov > 1) sxl += sig[k] * (r > 0.f ? r * logf(r) : 0.f);
+      }
+      Ls[k * kTP + t] = r;
+    }
+    if (kObj) {
+      sr = warp_sum(sr);
+      swg = warp_sum(swg);
+      // k-means error as 2 sum R - 2 sum R g (pallas_rotate.py:776-779)
+      const float s_rd = 2.f * sr - 2.f * (swg * inv);
+      kerr += s_rd;
+      if (ncov == 1) {
+        sws = warp_sum(sws);
+        swl = warp_sum(swl);
+        ent += -s_rd - logf(csg) * (sws * inv) + swl * inv;
+      } else {
+        ent += warp_sum(sxl);
+      }
+    }
+  }
+}
+
+// Floats of K7's assign CTA layout before the moments' [Z_orig; 1] stage
+// (rot_assign_kernel; cuda_rotate.assign_smem_bytes mirrors it), rounded
+// up to whole float4s, and whether that stage fits in the Ys/Zs region.
+__host__ __device__ __forceinline__ int assign_floats(int K, int d, int B, int ncov) {
+  const int n = K * d + d * kCT + (K + 3) / 4 * 4 * kTP + 3 * K * B + 2 * K + 2 * kWarps +
+                ncov * kCT;
+  return (n + 3) / 4 * 4;
+}
+__host__ __device__ __forceinline__ bool zos_in_place(int K, int d, int d1p) {
+  return kCT * d1p <= K * d + d * kCT;
+}
+
 // ---- K7 ---------------------------------------------------------------
 
-// The block's CTA c covers cells [p*T + (c % cpt)*64, +64) of physical tile
-// p = (v0 + c / cpt) mod NT, cpt = T / 64.
+// The block's CTA c covers cells [p*T + (c % cpt)*64, +64) of physical
+// tile p = (v0 + c / cpt) mod NT, cpt = T / 64. With kMoments the C = tw /
+// 64 consecutive CTAs of a layout tile (tw cells) each store their piece's
+// (K4 x d1p) table as row c of mpiece and count themselves in count[c /
+// C]; the last to arrive sums the C rows in piece order into mpart's row
+// slot[layout tile] and resets the count for the next launch.
+template <bool kMoments>
 __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
     const float* __restrict__ Yt,      // (K, d)
     const float* __restrict__ Z,       // (d, L) normalised, padded layout
@@ -146,18 +261,30 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
     const float* __restrict__ sigma,   // (K,)
     float* __restrict__ R,             // (K, L) out, or null
     float* __restrict__ part,          // (n_cta, K*B + 2) out
-    long long L, int v0, int NT, int cpt, int K, int d, int B, int ncov) {
+    const float* __restrict__ Zo,      // (d, L) Z_orig (moments)
+    const int* __restrict__ slot,      // (L / tw,) moment row of each layout tile
+    float* __restrict__ mpart,         // (L / tw, K*(d+1)) out (moments)
+    float* __restrict__ mpiece,        // (n_cta, K4*d1p) scratch (moments)
+    int* __restrict__ count,           // (n_cta / C,) zero on entry and exit (moments)
+    long long L, int v0, int NT, int cpt, int tw, int K, int d, int B, int ncov,
+    int d1p) {
   extern __shared__ float smem[];
+  const int K4 = (K + 3) / 4 * 4;
   float* Ys = smem;             // K*d
   float* Zs = Ys + K * d;       // d*kCT
-  float* Ls = Zs + d * kCT;     // K*kTP: g, then w, then R
-  float* pens = Ls + K * kTP;   // K*B
+  float* Ls = Zs + d * kCT;     // K4*kTP: g, then w, then R
+  float* pens = Ls + K4 * kTP;  // K*B
   float* lps = pens + K * B;    // K*B
   float* sig = lps + K * B;     // K
   float* i2s = sig + K;         // K
   float* Obs = i2s + K;         // K*B
   float* red = Obs + K * B;     // 2*kWarps
   int* gcs = reinterpret_cast<int*>(red + 2 * kWarps);  // ncov*kCT
+  // moments: the piece's [Z_orig; 1] columns, cell-major (kCT*d1p), staged
+  // once the distances are done into Ys/Zs, which are dead by then, where
+  // they fit (so the CTA needs no more shared memory than without
+  // moments), else after gcs
+  float* Zos = zos_in_place(K, d, d1p) ? Ys : smem + assign_floats(K, d, B, ncov);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, w = tid >> 5;
@@ -165,6 +292,7 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
   const long long p = (v0 + j) % NT;
   const long long base = p * cpt * kCT + static_cast<long long>(q) * kCT;
   const int P = K * B + 2;
+  const int d1 = d + 1;
 
   for (int i = tid; i < K * d; i += kThreads) Ys[i] = Yt[i];
   for (int i = tid; i < K * B; i += kThreads) {
@@ -176,52 +304,54 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
     sig[i] = sigma[i];
     i2s[i] = 2.f / sigma[i];
   }
+  // rows K..K4 of Ls stay zero: the moment tiles read them
+  for (int i = K * kTP + tid; i < K4 * kTP; i += kThreads) Ls[i] = 0.f;
+
+  float kerr = 0.f, ent = 0.f;
   stage_cells(Z, codes, offsets, Zs, gcs, L, base, d, ncov);
   __syncthreads();
-  gram(Ys, Zs, Ls, K, d);
+  assign_chain<true>(Ys, Zs, Ls, pens, lps, sig, i2s, gcs, K, d, B, ncov, kerr, ent);
   __syncthreads();
-
-  // per cell: w = exp((g-1) 2/sigma) * pen[code]; R = w * (1/colsum(w))
-  float kerr = 0.f, ent = 0.f;
-  for (int t = w; t < kCT; t += kWarps) {
-    float cs = 0.f, swg = 0.f, sws = 0.f, swl = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      float pc = 0.f;
-      for (int c = 0; c < ncov; ++c) {
-        const int gc = gcs[c * kCT + t];
-        if (gc >= 0) pc += pens[k * B + gc];
-      }
-      const float g = Ls[k * kTP + t];
-      const float wv = expf((g - 1.f) * i2s[k]) * pc;
-      cs += wv;
-      swg += wv * g;
-      if (ncov == 1 && gcs[t] >= 0) {
-        sws += sig[k] * wv;
-        swl += sig[k] * wv * lps[k * B + gcs[t]];
-      }
-      Ls[k * kTP + t] = wv;
+  if (kMoments) {
+    for (int i = tid; i < d1p * kCT; i += kThreads) {
+      const int e = i / kCT, u = i - e * kCT;
+      float v = 0.f;
+      if (e < d1) v = e < d ? Zo[e * L + base + u] : 1.f;
+      Zos[u * d1p + e] = v;
     }
-    cs = warp_sum(cs);
-    swg = warp_sum(swg);
-    const float csg = cs == 0.f ? 1.f : cs;
-    const float inv = 1.f / csg;
-    float sr = 0.f, sxl = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const float r = Ls[k * kTP + t] * inv;
-      sr += r;
-      if (ncov > 1) sxl += sig[k] * (r > 0.f ? r * logf(r) : 0.f);
-      Ls[k * kTP + t] = r;
-    }
-    sr = warp_sum(sr);
-    // k-means error as 2 sum R - 2 sum R g (pallas_rotate.py:776-779)
-    const float s_rd = 2.f * sr - 2.f * (swg * inv);
-    kerr += s_rd;
-    if (ncov == 1) {
-      sws = warp_sum(sws);
-      swl = warp_sum(swl);
-      ent += -s_rd - logf(csg) * (sws * inv) + swl * inv;
-    } else {
-      ent += warp_sum(sxl);
+  }
+  add_stats(Ls, gcs, Obs, R, L, base, K, B, ncov);
+  // rows of KDp floats: the (K4 x d1p) piece table, zero past K and d + 1
+  const int KDp = K4 * d1p;
+  if (kMoments) {
+    __syncthreads();
+    // one 4x4 (cluster x dim) register tile at a time, stored as 16-byte
+    // rows into the piece's row of mpiece (L2), so K and d are not bounded
+    // by the registers a thread has
+    float* mine = mpiece + static_cast<long long>(blockIdx.x) * KDp;
+    const int nkb = K4 / 4, neb = (d1 + 3) / 4;
+    for (int mt = tid; mt < nkb * neb; mt += kThreads) {
+      const int kb = mt / neb, eb = mt - kb * neb;
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
+#pragma unroll 8
+      for (int u = 0; u < kCT; ++u) {
+        const float4 z = *reinterpret_cast<const float4*>(Zos + u * d1p + 4 * eb);
+        const float rv[4] = {Ls[(4 * kb) * kTP + u], Ls[(4 * kb + 1) * kTP + u],
+                             Ls[(4 * kb + 2) * kTP + u], Ls[(4 * kb + 3) * kTP + u]};
+        const float zv[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(rv[i], zv[jj], acc[i][jj]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(mine + (4 * kb + i) * d1p + 4 * eb) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
   }
   if (lane == 0) {
@@ -230,7 +360,7 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
   }
   __syncthreads();
   float* prow = part + static_cast<long long>(blockIdx.x) * P;
-  tile_stats(Ls, gcs, Obs, prow, R, L, base, K, B, ncov);
+  for (int i = tid; i < K * B; i += kThreads) prow[i] = Obs[i];
   if (tid == 0) {
     float a = 0.f, b = 0.f;
     for (int i = 0; i < kWarps; ++i) {
@@ -240,13 +370,46 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
     prow[P - 2] = a;
     prow[P - 1] = b;
   }
+  if (kMoments) {
+    // The fences order the piece's row before the count (release) and the
+    // count before the last CTA's reads (acquire); those read L2 (__ldcg),
+    // where the other CTAs' rows are.
+    const int C = tw / kCT, lt = blockIdx.x / C;
+    __threadfence();
+    __syncthreads();
+    int* last = reinterpret_cast<int*>(red);  // red's readers are done
+    if (tid == 0) *last = atomicAdd(count + lt, 1) == C - 1;
+    __syncthreads();
+    if (*last) {
+      __threadfence();
+      const float4* rows =
+          reinterpret_cast<const float4*>(mpiece + static_cast<long long>(lt) * C * KDp);
+      float* out = mpart + static_cast<long long>(slot[base / tw]) * K * d1;
+      for (int i = tid; i < KDp / 4; i += kThreads) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int c = 0; c < C; ++c) {
+          const float4 x = __ldcg(rows + static_cast<long long>(c) * (KDp / 4) + i);
+          v.x += x.x;
+          v.y += x.y;
+          v.z += x.z;
+          v.w += x.w;
+        }
+        const float vv[4] = {v.x, v.y, v.z, v.w};
+        const int k = 4 * i / d1p, e0 = 4 * i - k * d1p;
+        for (int t = 0; t < 4; ++t)
+          if (k < K && e0 + t < d1) out[k * d1 + e0 + t] = vv[t];
+      }
+      if (tid == 0) count[lt] = 0;
+    }
+  }
 }
 
 // One CTA per cluster row k. add: fold the block's partials (ntile tiles of
 // cpt CTAs, physical tiles (v0 + j) mod NT) into tile_O and E/O, and on row
 // 0 the objective terms into acc; rm_n > 0: remove the old O of the block
 // of tiles (rm_v0 + j) mod NT, j < rm_n, summed from the previous table
-// tO_old; always: write the penalty tables. E/O are read from E_in/O_in
+// tO_old; always: write the penalty tables (pen_row >= 0: also into that
+// row of pen_out, the block's stored table). E/O are read from E_in/O_in
 // and written to E/O (the first commit of a round copies them). The tile
 // sums are read back from tO_new after the barrier, which makes the CTA's
 // global writes visible to all its threads.
@@ -256,6 +419,7 @@ __global__ void __launch_bounds__(kThreads) rot_commit_kernel(
     int rm_n, const float* E_in, const float* O_in, float* E, float* O,
     const float* __restrict__ Pr, const float* __restrict__ theta,
     float* __restrict__ pen, float* __restrict__ logpen,
+    float* __restrict__ pen_out, int pen_row,
     float* __restrict__ acc, int zero_acc, int K, int B, int b0) {
   extern __shared__ float buf[];  // B block sums, B removal, 2*ntile objective
   const int k = blockIdx.x, tid = threadIdx.x;
@@ -314,8 +478,10 @@ __global__ void __launch_bounds__(kThreads) rot_commit_kernel(
     E[i] = e;
     O[i] = o;
     const float ratio = (2.f * e + 1.f) / (o + e + 1.f);
-    pen[i] = powf(ratio, theta[b]);
+    const float pv = powf(ratio, theta[b]);
+    pen[i] = pv;
     logpen[i] = logf(ratio) * theta[b];
+    if (pen_row >= 0) pen_out[static_cast<long long>(pen_row) * K * B + i] = pv;
   }
   if (k == 0 && tid == 0) {
     float a = zero_acc ? 0.f : acc[0], c = zero_acc ? 0.f : acc[1];
@@ -391,8 +557,10 @@ __global__ void __launch_bounds__(kThreads) reassign_assign_kernel(
     for (int k = lane; k < K; k += 32) Ls[k * kTP + t] *= inv;
   }
   __syncthreads();
-  tile_stats(Ls, gcs, Obs, part + static_cast<long long>(blockIdx.x) * K * B,
-             nullptr, L, base, K, B, ncov);
+  add_stats(Ls, gcs, Obs, nullptr, L, base, K, B, ncov);
+  __syncthreads();
+  float* prow = part + static_cast<long long>(blockIdx.x) * K * B;
+  for (int i = tid; i < K * B; i += kThreads) prow[i] = Obs[i];
 }
 
 // One CTA per cluster row k: tile_O[p, k, :] = fixed-order sum of the cpt
@@ -424,6 +592,134 @@ __global__ void __launch_bounds__(kThreads) reassign_reduce_kernel(
   for (int b = tid; b < B; b += kThreads) E[k * B + b] = rs * Pr[b];
 }
 
+// ---- K10 / K11 ---------------------------------------------------------
+
+// Stages what the virtual kernels share for the piece at base: Y^T, the
+// penalty table of its tile's block, sigma and 2/sigma, its Zn columns
+// and codes.
+__device__ __forceinline__ void stage_virtual(
+    const float* Yt, const float* Zn, const int* codes, const int* offsets,
+    const float* pen, const int* blkmap, const float* sigma, float* Ys, float* Zs,
+    float* pens, float* sig, float* i2s, int* gcs, long long L, long long base, int T,
+    int K, int d, int B, int ncov) {
+  const int tid = threadIdx.x;
+  const float* pb = pen + static_cast<long long>(blkmap[base / T]) * K * B;
+  for (int i = tid; i < K * d; i += kThreads) Ys[i] = Yt[i];
+  for (int i = tid; i < K * B; i += kThreads) pens[i] = pb[i];
+  for (int i = tid; i < K; i += kThreads) {
+    sig[i] = sigma[i];
+    i2s[i] = 2.f / sigma[i];
+  }
+  stage_cells(Zn, codes, offsets, Zs, gcs, L, base, d, ncov);
+}
+
+// K10, CTA c over cells [c*64, +64) of the padded layout, which lie in one
+// layout tile of joint jt = tj[c*64 / tw]. A trash-tile CTA copies Z_orig
+// through (the trash betas are zero). Otherwise: R by assign_chain, the
+// joint's betas (K x d, transposed) in shared memory, and W R one 4x4 (dim
+// x cell) register tile at a time, subtracted from Z_orig.
+__global__ void __launch_bounds__(kThreads) virtual_correction_kernel(
+    const float* __restrict__ Yt, const float* __restrict__ Zn,
+    const int* __restrict__ codes, const int* __restrict__ offsets,
+    const float* __restrict__ pen, const int* __restrict__ blkmap,
+    const float* __restrict__ sigma,
+    const float* __restrict__ Wt,      // (n_joint + 1, K, d) betas, transposed
+    const int* __restrict__ tj,        // (L / tw,) joint of each layout tile
+    const float* __restrict__ Zo,      // (d, L)
+    float* __restrict__ Zc,            // (d, L) out
+    long long L, int T, int tw, int trash, int K, int d, int B, int ncov, int dp) {
+  extern __shared__ float smem[];
+  float* Ws = smem;             // K*dp
+  float* Ys = Ws + K * dp;      // K*d
+  float* Zs = Ys + K * d;       // d*kCT
+  float* Ls = Zs + d * kCT;     // K*kTP
+  float* pens = Ls + K * kTP;   // K*B
+  float* sig = pens + K * B;    // K
+  float* i2s = sig + K;         // K
+  int* gcs = reinterpret_cast<int*>(i2s + K);  // ncov*kCT
+  const int tid = threadIdx.x;
+  const long long base = static_cast<long long>(blockIdx.x) * kCT;
+  const int jt = tj[base / tw];
+  if (jt == trash) {
+    for (int i = tid; i < d * kCT; i += kThreads) {
+      const int e = i / kCT, u = i - e * kCT;
+      Zc[e * L + base + u] = Zo[e * L + base + u];
+    }
+    return;
+  }
+  const float* W = Wt + static_cast<long long>(jt) * K * d;
+  for (int i = tid; i < K * dp; i += kThreads) {
+    const int k = i / dp, e = i - k * dp;
+    Ws[i] = e < d ? W[k * d + e] : 0.f;
+  }
+  stage_virtual(Yt, Zn, codes, offsets, pen, blkmap, sigma, Ys, Zs, pens, sig, i2s, gcs,
+                L, base, T, K, d, B, ncov);
+  __syncthreads();
+  float unused0 = 0.f, unused1 = 0.f;
+  assign_chain<false>(Ys, Zs, Ls, pens, nullptr, sig, i2s, gcs, K, d, B, ncov, unused0,
+                      unused1);
+  __syncthreads();
+  const int neb = (d + 3) / 4;
+  constexpr int ntb = kCT / 4;
+  for (int mt = tid; mt < neb * ntb; mt += kThreads) {
+    const int eb = mt / ntb, tb = mt - eb * ntb;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float4 wq = *reinterpret_cast<const float4*>(Ws + k * dp + 4 * eb);
+      const float wv[4] = {wq.x, wq.y, wq.z, wq.w};
+      const float* lr = Ls + k * kTP + 4 * tb;
+      const float rv[4] = {lr[0], lr[1], lr[2], lr[3]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(wv[i], rv[jj], acc[i][jj]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = 4 * eb + i;
+      if (e >= d) break;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const long long n = base + 4 * tb + jj;
+        Zc[e * L + n] = Zo[e * L + n] - acc[i][jj];
+      }
+    }
+  }
+}
+
+// K11, CTA c over cells [c*64, +64): R by assign_chain, written coalesced.
+__global__ void __launch_bounds__(kThreads) materialize_r_kernel(
+    const float* __restrict__ Yt, const float* __restrict__ Zn,
+    const int* __restrict__ codes, const int* __restrict__ offsets,
+    const float* __restrict__ pen, const int* __restrict__ blkmap,
+    const float* __restrict__ sigma, float* __restrict__ R,  // (K, L) out
+    long long L, int T, int K, int d, int B, int ncov) {
+  extern __shared__ float smem[];
+  float* Ys = smem;             // K*d
+  float* Zs = Ys + K * d;       // d*kCT
+  float* Ls = Zs + d * kCT;     // K*kTP
+  float* pens = Ls + K * kTP;   // K*B
+  float* sig = pens + K * B;    // K
+  float* i2s = sig + K;         // K
+  int* gcs = reinterpret_cast<int*>(i2s + K);  // ncov*kCT
+  const long long base = static_cast<long long>(blockIdx.x) * kCT;
+  stage_virtual(Yt, Zn, codes, offsets, pen, blkmap, sigma, Ys, Zs, pens, sig, i2s, gcs,
+                L, base, T, K, d, B, ncov);
+  __syncthreads();
+  float unused0 = 0.f, unused1 = 0.f;
+  assign_chain<false>(Ys, Zs, Ls, pens, nullptr, sig, i2s, gcs, K, d, B, ncov, unused0,
+                      unused1);
+  __syncthreads();
+  for (int i = threadIdx.x; i < K * kCT; i += kThreads) {
+    const int k = i / kCT, t = i - k * kCT;
+    R[k * L + base + t] = Ls[k * kTP + t];
+  }
+}
+
 int set_smem(const void* kernel, int bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
@@ -433,20 +729,41 @@ int set_smem(const void* kernel, int bytes) {
 
 extern "C" {
 
+// K7 assign launch over a block's ntile tiles; Zo == nullptr: no moments.
 int k7_assign(const void* Yt, const void* Z, const void* codes,
               const void* offsets, const void* pen, const void* logpen,
-              const void* sigma, void* R, void* part, long long L, int v0,
-              int ntile, int NT, int cpt, int K, int d, int B, int ncov,
+              const void* sigma, void* R, void* part, const void* Zo, const void* slot,
+              void* mpart, void* mpiece, void* count, long long L, int v0, int ntile,
+              int NT, int cpt, int tw, int K, int d, int B, int ncov, int d1p,
               int smem_bytes, void* stream) {
-  int err = set_smem(reinterpret_cast<const void*>(rot_assign_kernel), smem_bytes);
+  const bool mom = Zo != nullptr;
+  const void* kern = mom ? reinterpret_cast<const void*>(rot_assign_kernel<true>)
+                         : reinterpret_cast<const void*>(rot_assign_kernel<false>);
+  int err = set_smem(kern, smem_bytes);
   if (err) return err;
-  rot_assign_kernel<<<ntile * cpt, kThreads, smem_bytes,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(Yt), static_cast<const float*>(Z),
-      static_cast<const int*>(codes), static_cast<const int*>(offsets),
-      static_cast<const float*>(pen), static_cast<const float*>(logpen),
-      static_cast<const float*>(sigma), static_cast<float*>(R),
-      static_cast<float*>(part), L, v0, NT, cpt, K, d, B, ncov);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* Ytf = static_cast<const float*>(Yt);
+  const float* Zf = static_cast<const float*>(Z);
+  const int* ci = static_cast<const int*>(codes);
+  const int* oi = static_cast<const int*>(offsets);
+  const float* penf = static_cast<const float*>(pen);
+  const float* lpf = static_cast<const float*>(logpen);
+  const float* sigf = static_cast<const float*>(sigma);
+  float* Rf = static_cast<float*>(R);
+  float* partf = static_cast<float*>(part);
+  const float* Zof = static_cast<const float*>(Zo);
+  const int* sli = static_cast<const int*>(slot);
+  float* mpf = static_cast<float*>(mpart);
+  float* mpc = static_cast<float*>(mpiece);
+  int* cnt = static_cast<int*>(count);
+  if (mom)
+    rot_assign_kernel<true><<<ntile * cpt, kThreads, smem_bytes, st>>>(
+        Ytf, Zf, ci, oi, penf, lpf, sigf, Rf, partf, Zof, sli, mpf, mpc, cnt, L, v0, NT, cpt,
+        tw, K, d, B, ncov, d1p);
+  else
+    rot_assign_kernel<false><<<ntile * cpt, kThreads, smem_bytes, st>>>(
+        Ytf, Zf, ci, oi, penf, lpf, sigf, Rf, partf, Zof, sli, mpf, mpc, cnt, L, v0, NT, cpt,
+        tw, K, d, B, ncov, d1p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -454,7 +771,8 @@ int k7_commit(const void* part, int add, int v0, int ntile, int cpt, int NT,
               void* tO_new, const void* tO_old, int rm_v0, int rm_n,
               const void* E_in, const void* O_in, void* E, void* O,
               const void* Pr, const void* theta, void* pen, void* logpen,
-              void* acc, int zero_acc, int K, int B, int b0, void* stream) {
+              void* pen_out, int pen_row, void* acc, int zero_acc, int K, int B,
+              int b0, void* stream) {
   const int smem_bytes = (2 * B + 2 * ntile) * static_cast<int>(sizeof(float));
   int err = set_smem(reinterpret_cast<const void*>(rot_commit_kernel), smem_bytes);
   if (err) return err;
@@ -465,7 +783,8 @@ int k7_commit(const void* part, int add, int v0, int ntile, int cpt, int NT,
       static_cast<float*>(E), static_cast<float*>(O),
       static_cast<const float*>(Pr), static_cast<const float*>(theta),
       static_cast<float*>(pen), static_cast<float*>(logpen),
-      static_cast<float*>(acc), zero_acc, K, B, b0);
+      static_cast<float*>(pen_out), pen_row, static_cast<float*>(acc), zero_acc, K, B,
+      b0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -492,6 +811,40 @@ int k6_reassign(const void* Yt, const void* Z, const void* codes,
       static_cast<const float*>(part), NT, ncta / NT, static_cast<float*>(tO),
       static_cast<float*>(O), static_cast<float*>(E),
       static_cast<const float*>(Pr), K, B, b0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int k10_virtual_correction(const void* Yt, const void* Zn, const void* codes,
+                           const void* offsets, const void* pen, const void* blkmap,
+                           const void* sigma, const void* Wt, const void* tj,
+                           const void* Zo, void* Zc, long long L, int T, int tw, int trash,
+                           int K, int d, int B, int ncov, int dp, int smem_bytes,
+                           void* stream) {
+  int err = set_smem(reinterpret_cast<const void*>(virtual_correction_kernel), smem_bytes);
+  if (err) return err;
+  virtual_correction_kernel<<<static_cast<unsigned>(L / kCT), kThreads, smem_bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(Yt), static_cast<const float*>(Zn),
+      static_cast<const int*>(codes), static_cast<const int*>(offsets),
+      static_cast<const float*>(pen), static_cast<const int*>(blkmap),
+      static_cast<const float*>(sigma), static_cast<const float*>(Wt),
+      static_cast<const int*>(tj), static_cast<const float*>(Zo), static_cast<float*>(Zc),
+      L, T, tw, trash, K, d, B, ncov, dp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int k11_materialize_r(const void* Yt, const void* Zn, const void* codes,
+                      const void* offsets, const void* pen, const void* blkmap,
+                      const void* sigma, void* R, long long L, int T, int K, int d, int B,
+                      int ncov, int smem_bytes, void* stream) {
+  int err = set_smem(reinterpret_cast<const void*>(materialize_r_kernel), smem_bytes);
+  if (err) return err;
+  materialize_r_kernel<<<static_cast<unsigned>(L / kCT), kThreads, smem_bytes,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(Yt), static_cast<const float*>(Zn),
+      static_cast<const int*>(codes), static_cast<const int*>(offsets),
+      static_cast<const float*>(pen), static_cast<const int*>(blkmap),
+      static_cast<const float*>(sigma), static_cast<float*>(R), L, T, K, d, B, ncov);
   return static_cast<int>(cudaGetLastError());
 }
 

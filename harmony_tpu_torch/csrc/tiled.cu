@@ -114,6 +114,7 @@ __global__ void __launch_bounds__(kThreads) tile_moments_kernel(
 }
 
 // M[j, :] = sum of the partials rows of joint j's chunks, in chunk order.
+// K3 and K7 sum their moment rows with it too (sum_joint_rows).
 __global__ void __launch_bounds__(kThreads) sum_chunks_kernel(
     const float* __restrict__ part, const int* __restrict__ start,
     float* __restrict__ M, int n_rows, long long row) {
@@ -206,6 +207,19 @@ int ceil4(int n) {
 
 extern "C" {
 
+// M (n_rows, row) = per joint j the sum of rows start[j] .. start[j+1] - 1
+// of part, in row order: K8's second launch, and the per-joint moment sum
+// of K3 and K7.
+int sum_joint_rows(const void* part, const void* start, void* M, int n_rows,
+                   long long row, void* stream) {
+  const long long n = n_rows * row;
+  sum_chunks_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<const int*>(start),
+      static_cast<float*>(M), n_rows, row);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int k8_tile_moments(const void* R, const void* Z, const void* chunks,
                     const void* start, void* part, void* M, long long N, int K,
                     int d, int tile, int n_chunks, int n_joint, int KS,
@@ -222,13 +236,8 @@ int k8_tile_moments(const void* R, const void* Z, const void* chunks,
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }
-  const long long row = static_cast<long long>(K) * (d + 1);
-  const long long n = (n_joint + 1) * row;
-  sum_chunks_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
-                      kThreads, 0, st>>>(static_cast<const float*>(part),
-                                         static_cast<const int*>(start),
-                                         static_cast<float*>(M), n_joint + 1, row);
-  return static_cast<int>(cudaGetLastError());
+  return sum_joint_rows(part, start, M, n_joint + 1, static_cast<long long>(K) * (d + 1),
+                        stream);
 }
 
 int k9_tiled_correction(const void* Wt, const void* tj, const void* R,

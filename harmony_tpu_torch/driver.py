@@ -65,7 +65,9 @@ def harmonize(
     pairs of the rotate schedule. ``tiled`` is the batch-tiled layout of
     the M-step of the rotate and fused permute paths
     (``engine.tiled_layout``). ``abort`` is any
-    object with an ``aborted()`` method, polled between rounds.
+    object with an ``aborted()`` method, polled between rounds. A
+    virtual-R run materialises its R once after the loop, in the
+    ``materialize_r`` timer scope (harmony_tpu/driver.py:149-153, 231-234).
     """
     if max_iter is None:
         max_iter = cfg.max_iter_harmony
@@ -100,6 +102,8 @@ def harmonize(
             if verbose:
                 logger.info("Harmony converged after %d iterations", it + 1)
             break
+    with _scope(timers, "materialize_r"):
+        state = engine.materialize_r(cfg, state)
     return state
 
 

@@ -1,7 +1,8 @@
 """Engine phases: init_cluster, cluster (E-step rounds), correct (M-step).
 
 Counterpart of the permute branches (per-round and fused) and the
-single-device rotate stats-carry branch of ``harmony_tpu/engine.py``
+single-device rotate stats-carry branch (virtual R included) of
+``harmony_tpu/engine.py``
 (``init_cluster_cpp`` src/harmony.cpp:131-156, ``cluster_cpp``
 src/harmony.cpp:208-262, ``moe_correct_ridge_cpp``
 src/harmony.cpp:345-638). PyTorch runs eagerly, so there is no jit:
@@ -112,19 +113,42 @@ def _push_round(cfg: HarmonyConfig, state: HarmonyState, res) -> HarmonyState:
     return _push_objective_terms(cfg, state, terms)
 
 
+def _virtual_gate(cfg: HarmonyConfig, tiled: Optional[TiledCells]) -> bool:
+    """May this run take virtual R, no (K, N) write during the rounds
+    (harmony_tpu/engine.py:127-143; the JAX 'pallas' is the port's
+    'kernel', whose wrappers run their plain versions on CPU tensors)?"""
+    return bool(
+        cfg.virtual_r
+        and tiled is not None
+        and cfg.shuffle_mode == "rotate"
+        and cfg.estep_impl == "kernel"
+        and cfg.rotate_stats_carry
+        and cfg.max_iter_cluster <= cfg.window_size + 2
+        and cfg.estep_sub_tile % tiled.tile == 0
+    )
+
+
 def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
-                    schedules: Optional[Sequence] = None) -> HarmonyState:
+                    schedules: Optional[Sequence] = None,
+                    tiled: Optional[TiledCells] = None) -> HarmonyState:
     """The stats-carrying rotate phase (harmony_tpu/engine.py:403-608).
 
     K6 runs on every entry: it normalises the padded Z_corr and recomputes
     O, E and the per-tile table from the centroids (no first-entry branch:
-    right after init the recompute is a numerical no-op). Then the rounds:
-    with the default budget (max_iter_cluster <= window_size + 2) the
-    windowed early stop cannot fire, every round runs and only the last
-    writes R; a larger budget writes R every round and stops early as the
-    permute path does. ``schedules`` injects the (rotation, block order)
-    pair of each round; otherwise they are drawn from the state's
-    generator, all up front."""
+    right after init the recompute is a numerical no-op). Then the rounds.
+    With the default budget (max_iter_cluster <= window_size + 2) the
+    windowed early stop cannot fire and every round runs; only the last
+    writes R, and with a batch-tiled layout it also fuses the M-step's
+    joint-batch moments, which ride on the state (``tiled_moments``) to the
+    correction, so K8 does not run (on layout tiles that are not whole
+    64-cell pieces the correction runs K8 instead, and virtual R raises).
+    Under virtual R (:func:`_virtual_gate`) the last round writes no R
+    either: it stores its penalty tables and the state carries the
+    virtual-R context, from which the correction and
+    :func:`materialize_r` recompute R. A larger
+    budget writes R every round and stops early as the permute path does.
+    ``schedules`` injects the (rotation, block order) pair of each round;
+    otherwise they are drawn from the state's generator, all up front."""
     kern = cfg.estep_impl == "kernel"
     reassign = cuda_rotate.reassign if kern else rotate.reassign
     round_fn = cuda_rotate.rotate_update_round_v2 if kern else rotate.rotate_update_round_v2
@@ -139,6 +163,19 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
                                 O=O.to(dt), E=E.to(dt))
     layout = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad)
     static = cfg.max_iter_cluster <= cfg.window_size + 2
+    moments = None
+    virtual = _virtual_gate(cfg, tiled)
+    if static and tiled is not None and cfg.estep_sub_tile % tiled.tile == 0:
+        if cuda_rotate.moments_fit(tiled.tile):
+            moments = rotate.MomentsSpec(
+                Z_orig=rotate.pad_cells_to_tile(cfg, state.Z_orig.to(torch.float32)).contiguous(),
+                tile_joint=full_tile_joint(cfg, tiled),
+                n_joint=int(tiled.joint_codes.shape[1]), tile=int(tiled.tile),
+            )
+        elif virtual:
+            raise _not_ported(f"virtual R on {tiled.tile}-cell layout tiles (K7's moments "
+                              "and K10 take whole 64-cell pieces)",
+                              "ROADMAP A9, virtual R on other layout tiles")
     iters = 0
     while iters < cfg.max_iter_cluster:
         rt, order = schedules[iters]
@@ -146,7 +183,8 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
         rs = rotate.RoundState(R=state.R, E=state.E, O=state.O, tile_O=tile_O,
                                kmeans_error=None, entropy=None)
         res = round_fn(cfg, state.Y, rs, state.Pr_b, state.sigma, state.theta,
-                       rt, order, layout, write_r=last or not static)
+                       rt, order, layout, write_r=not static or (last and not virtual),
+                       moments=moments if last else None, emit_pen=last and virtual)
         tile_O = res.tile_O
         state = _push_round(cfg, state, res)
         iters += 1
@@ -154,6 +192,11 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
                 and _kmeans_window_converged(cfg, state)):
             break
     state.kmeans_rounds[state.n_rounds] = iters
+    if moments is not None:
+        state = dataclasses.replace(state, tiled_moments=res.M)
+    if virtual:
+        state = dataclasses.replace(state, virt_pen=res.pen, virt_blkmap=res.blkmap,
+                                    virt_Zn=Zn, virt_Y=state.Y.to(torch.float32))
     return _push_harmony(state)
 
 
@@ -199,7 +242,8 @@ def cluster(
 ) -> HarmonyState:
     """One clustering phase: up to ``max_iter_cluster`` block-update rounds.
 
-    The rotate schedule runs :func:`_cluster_rotate`. The permute schedule:
+    The rotate schedule runs :func:`_cluster_rotate`, which takes ``tiled``
+    for its moment fusion and virtual R. The permute schedule:
     on re-entry after a correction (harmony-trace cursor != 1,
     src/harmony.cpp:214-228) Z_corr is re-normalised and E/O recomputed
     from the centroids; then, with
@@ -214,7 +258,7 @@ def cluster(
         if perms is not None:
             raise ValueError("perms drive the permute schedule; the rotate "
                              "schedule takes schedules=")
-        return _cluster_rotate(cfg, state, schedules)
+        return _cluster_rotate(cfg, state, schedules, tiled)
     if state.n_harmony != 1:
         state = _assign_from_centroids(cfg, state)[0]
     dev = state.device
@@ -245,19 +289,31 @@ def cluster(
     return _push_harmony(state)
 
 
+def _virtual_context(cfg: HarmonyConfig, state: HarmonyState) -> Optional[rotate.VirtualR]:
+    """The state's virtual-R context as the correction takes it, or None."""
+    if state.virt_pen is None:
+        return None
+    Zo = state.Z_orig.to(torch.float32).contiguous()
+    return rotate.VirtualR(
+        pen=state.virt_pen, blkmap=state.virt_blkmap, Zn_pad=state.virt_Zn,
+        codes_pad=rotate.make_codes_pad(cfg, state.codes), Y=state.virt_Y,
+        Z_orig_pad=rotate.pad_cells_to_tile(cfg, Zo).contiguous(), sigma=state.sigma,
+    )
+
+
 def correct(cfg: HarmonyConfig, state: HarmonyState,
             tiled: Optional[TiledCells] = None) -> HarmonyState:
     """M-step: MoE ridge correction + centroid refresh (src/harmony.cpp:345-638);
-    ``tiled`` selects the batch-tiled moments and correction (K8/K9). The
-    moments are computed from the R the phase's last round wrote: the
-    JAX package fuses them into that round on the TPU, which is the same
-    function (tests/test_tiled.py:240-290). The fused permute phase's
-    moment table (``state.tiled_moments``) is consumed here, so K8 does
-    not run after it."""
+    ``tiled`` selects the batch-tiled moments and correction. The moment
+    table the phase's last round fused (``state.tiled_moments``: K3 on the
+    permute path, K7 on the rotate path) is consumed here, so K8 does not
+    run after it. On a virtual-R state the correction recomputes R from the
+    state's context (K10) and never reads the stale R; the context stays on
+    the state for :func:`materialize_r` (harmony_tpu/engine.py:643-657)."""
     Z_corr, Y_new, _ = ops.moe_correct_ridge(
         cfg, state.Z_orig, state.R, state.O, state.E, state.codes,
         state.batch_sizes, state.lamb, state.Y, tiled=tiled,
-        tiled_moments=state.tiled_moments,
+        tiled_moments=state.tiled_moments, virtual=_virtual_context(cfg, state),
     )
     return dataclasses.replace(
         state, Z_corr=Z_corr, Y=Y_new, n_rounds=state.n_rounds + 1,
@@ -269,6 +325,21 @@ def harmony_round(cfg: HarmonyConfig, state: HarmonyState, perms=None,
                   schedules=None, tiled=None) -> HarmonyState:
     """One Harmony round: cluster then correct (R/utils.R:26,35)."""
     return correct(cfg, cluster(cfg, state, perms, schedules, tiled), tiled)
+
+
+def materialize_r(cfg: HarmonyConfig, state: HarmonyState) -> HarmonyState:
+    """The user-facing (K, N) R of a virtual-R state, as the last clustering
+    round would have written it (getR parity, src/harmony.cpp:646-649;
+    harmony_tpu/engine.py:667-698), through K11 in the state's dtype. The
+    identity on a state that did not take virtual R."""
+    if state.virt_pen is None:
+        return state
+    R = cuda_rotate.materialize_r(
+        cfg, state.virt_Y, state.sigma.to(torch.float32), state.virt_pen,
+        state.virt_blkmap, state.virt_Zn, rotate.make_codes_pad(cfg, state.codes),
+        out_dtype=state.R.dtype,
+    )
+    return dataclasses.replace(state, R=R)
 
 
 def tiled_layout(cfg: HarmonyConfig, codes) -> Optional[TiledCells]:

@@ -31,7 +31,7 @@ import torch
 from .. import _build
 from ..config import HarmonyConfig
 from . import permute_phase as twin
-from .cuda_ridge import _CHUNK_TILES, _ceil4, _moments_plan
+from .cuda_ridge import _CHUNK_TILES, _ceil4, _moments_plan, sum_joint_rows
 from .cuda_rotate import _offsets_on
 from .permute_phase import MomentsSpec, PermutePhaseResult, PhaseTables, RoundsResult
 
@@ -45,7 +45,7 @@ _SIGNATURES = {
     "k2_cells": [_build.INT] + [_build.PTR] * 7 + [_build.INT] * 13 + [_build.PTR],
     "k2_commit": [_build.PTR, _build.INT, _build.PTR, _build.INT, _build.INT]
     + [_build.PTR] * 5 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [_build.PTR],
-    "k3_materialize": [_build.PTR] * 13 + [_build.I64, _build.I64] + [_build.INT] * 11
+    "k3_materialize": [_build.PTR] * 11 + [_build.I64, _build.I64] + [_build.INT] * 10
     + [_build.PTR],
 }
 
@@ -231,7 +231,7 @@ def materialize(
     M = None
     if moments is None:
         grid, chunk, tw = -(-Np // T), 0, T
-        ptrs = (None, None, None, None, None)
+        ptrs = (None, None, None)
     else:
         tj = np.asarray(moments.tile_joint, dtype=np.int32)
         nj, tw = int(moments.n_joint), int(moments.tile)
@@ -246,15 +246,17 @@ def materialize(
         Zo = moments.Z_orig.contiguous()
         part = torch.empty((max(grid, 1), K, d + 1), dtype=_F32, device=dev)
         M = torch.empty((nj + 1, K, d + 1), dtype=_F32, device=dev)
-        ptrs = (Zo, chunks, start, part, M)
+        ptrs = (Zo, chunks, part)
     smem = materialize_smem_bytes(K, d, ncov, T, moments is not None)
     ptr = lambda t: None if t is None else t.data_ptr()
     _build.check(lib.k3_materialize(
         Yt.data_ptr(), Zc.data_ptr(), codes.data_ptr(), off.data_ptr(), blk.data_ptr(),
         pen_rows.data_ptr(), sig.data_ptr(), R.data_ptr(),
-        *[ptr(t) for t in ptrs], Np, cfg.N, K, d, B, ncov, T, grid, chunk, tw,
-        0 if moments is None else nj, d1p, smem, stream,
+        *[ptr(t) for t in ptrs], Np, cfg.N, K, d, B, ncov, T, grid, chunk, tw, d1p, smem,
+        stream,
     ), "k3_materialize")
+    if M is not None:
+        sum_joint_rows(part, start, M)
     materialize.launches += 1
     return R, M
 

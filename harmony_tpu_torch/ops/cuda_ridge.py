@@ -162,6 +162,7 @@ _TILED_SIGNATURES = {
     + [_build.PTR],
     "k9_tiled_correction": [_build.PTR] * 5 + [_build.I64] + [_build.INT] * 5
     + [_build.PTR],
+    "sum_joint_rows": [_build.PTR] * 3 + [_build.INT, _build.I64, _build.PTR],
 }
 _CHUNK_TILES = 8  # layout tiles of one joint level per K8 CTA (kChunk in tiled.cu)
 _MAX_MT = 2  # 4x4 register tiles a thread owns (kMaxMT in tiled.cu)
@@ -229,6 +230,17 @@ def _ceil4(n: int) -> int:
     """n rounded up to a multiple of 4, off multiples of 32 (bank spread)."""
     n = -(-n // 4) * 4
     return n + 4 if n % 32 == 0 else n
+
+
+def sum_joint_rows(rows: torch.Tensor, start: torch.Tensor, M: torch.Tensor) -> None:
+    """M[j] = the sum of rows start[j] .. start[j+1] - 1 of ``rows``, in row
+    order, on the current stream: K8's per-joint sum, which K3 and K7 run on
+    their moment rows. All on the card, M (n_joint + 1, K, d + 1)."""
+    lib = _build.load("tiled", _TILED_SIGNATURES)
+    _build.check(lib.sum_joint_rows(
+        rows.data_ptr(), start.data_ptr(), M.data_ptr(), M.shape[0], M[0].numel(),
+        torch.cuda.current_stream(M.device).cuda_stream,
+    ), "sum_joint_rows")
 
 
 def tile_moments(R: torch.Tensor, Z: torch.Tensor, tile: int, tile_joint,

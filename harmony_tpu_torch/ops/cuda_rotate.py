@@ -1,7 +1,8 @@
-"""K6 and K7: the wrappers of the rotate schedule's kernels.
+"""K6, K7, K10 and K11: the wrappers of the rotate schedule's kernels.
 
 Counterpart of ``harmony_tpu/ops/pallas_rotate.py`` (``pallas_reassign``,
-``pallas_rotate_update_round_v2``), drop-ins for the plain versions in
+``pallas_rotate_update_round_v2``, ``pallas_virtual_correction``,
+``pallas_materialize_r``), drop-ins for the plain versions in
 :mod:`harmony_tpu_torch.ops.rotate`. The CUDA source is ``csrc/rotate.cu``.
 
 * :func:`reassign` (K6): one C call, an assign launch over the padded
@@ -14,43 +15,76 @@ Counterpart of ``harmony_tpu/ops/pallas_rotate.py`` (``pallas_reassign``,
   old O and writes the next penalty tables. A block's old O is the
   fixed-order sum of its tiles in the previous round's table, computed
   in the commit kernel: the loop issues launches only, with no PyTorch
-  operation or host copy between them.
+  operation or host copy between them. On a phase's last round the
+  commits can also store each block's penalty table (``emit_pen``), and
+  the assign launches can accumulate the M-step's moments, one row per
+  layout tile (the last of its pieces' CTAs to finish sums their rows),
+  summed per joint by one more launch, tiled.cu's ``sum_joint_rows``
+  (``moments``).
+* :func:`virtual_correction` (K10) and :func:`materialize_r` (K11): one
+  launch each over the padded layout's 64-cell pieces, R recomputed from
+  the penalty tables with the device routine K7 assigns with.
 
 For CPU tensors each wrapper runs its plain version; anything else
-raises. ``launches`` counts calls into the kernel's C entry points
-(1 per K6 call, 1 + 2 * n_blocks per K7 round).
+raises. ``launches`` counts calls into the kernels' C entry points (1 per
+K6, K10 or K11 call, 1 + 2 * n_blocks per K7 round and 1 more with
+moments).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import _build
 from ..config import HarmonyConfig
 from . import rotate
-from .rotate import CodesLayout, RoundState
+from .cuda_ridge import _ceil4, _table_on, sum_joint_rows
+from .rotate import CodesLayout, MomentsSpec, RoundState
 
 _F32 = torch.float32
 _SMEM_MAX = 232_448  # bytes of shared memory a CTA may use on Hopper
-_CT = 64  # cells per assign CTA (kCT in rotate.cu)
+_CT = 64  # cells per piece (kCT in rotate.cu)
 _WARPS = 8
 _SIGNATURES = {
-    "k7_assign": [_build.PTR] * 9 + [_build.I64] + [_build.INT] * 9 + [_build.PTR],
+    "k7_assign": [_build.PTR] * 14 + [_build.I64] + [_build.INT] * 11 + [_build.PTR],
     "k7_commit": [_build.PTR, _build.INT, _build.INT, _build.INT, _build.INT,
                   _build.INT, _build.PTR, _build.PTR, _build.INT, _build.INT]
-    + [_build.PTR] * 9 + [_build.INT] * 4 + [_build.PTR],
+    + [_build.PTR] * 9 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [_build.PTR],
     "k6_reassign": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 7 + [_build.PTR],
+    "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 9
+    + [_build.PTR],
+    "k11_materialize_r": [_build.PTR] * 8 + [_build.I64] + [_build.INT] * 6 + [_build.PTR],
 }
 
 
-def assign_smem_bytes(K: int, d: int, B: int, ncov: int) -> int:
-    """Shared memory of one K7 assign CTA (layout in rotate.cu); K6 needs
-    less."""
-    floats = K * d + d * _CT + K * (_CT + 1) + 3 * K * B + 2 * K + 2 * _WARPS
+def assign_smem_bytes(K: int, d: int, B: int, ncov: int, moments: bool = False) -> int:
+    """Shared memory of one K7 assign CTA (layout in rotate.cu,
+    assign_floats); K6 needs less. With moments the [Z_orig; 1] stage
+    reuses the distances' inputs where it fits, else it comes on top."""
+    K4 = -(-K // 4) * 4
+    floats = K * d + d * _CT + K4 * (_CT + 1) + 3 * K * B + 2 * K + 2 * _WARPS + ncov * _CT
+    floats = -(-floats // 4) * 4
+    if moments and _CT * _ceil4(d + 1) > K * d + d * _CT:
+        floats += _CT * _ceil4(d + 1)
+    return 4 * floats
+
+
+def virtual_smem_bytes(K: int, d: int, B: int, ncov: int, correction: bool) -> int:
+    """Shared memory of one K10 (``correction``) or K11 CTA."""
+    floats = K * d + d * _CT + K * (_CT + 1) + K * B + 2 * K
+    if correction:
+        floats += K * _ceil4(d)
     return 4 * (floats + ncov * _CT)
+
+
+def moments_fit(tile: int) -> bool:
+    """Can K7's last round fuse the moments (and K10 correct) on layout
+    tiles of ``tile`` cells: are they whole 64-cell pieces?"""
+    return tile % _CT == 0
 
 
 def _check(where: str, cfg: HarmonyConfig, floats: dict, codes: torch.Tensor):
@@ -72,12 +106,30 @@ def _check(where: str, cfg: HarmonyConfig, floats: dict, codes: torch.Tensor):
     if T % _CT or codes.shape[1] % T:
         raise ValueError(f"{where}: the layout ({codes.shape[1]} cells) must be "
                          f"whole tiles of {T} cells, a multiple of {_CT}")
-    smem = assign_smem_bytes(cfg.K, cfg.d, cfg.B, cfg.n_covariates)
+    _check_smem(where, cfg, assign_smem_bytes(cfg.K, cfg.d, cfg.B, cfg.n_covariates))
+
+
+def _check_smem(where: str, cfg: HarmonyConfig, smem: int) -> None:
     if smem > _SMEM_MAX:
         raise ValueError(
             f"{where}: K={cfg.K}, d={cfg.d}, B={cfg.B} need {smem} bytes of shared "
             f"memory a CTA, over the {_SMEM_MAX} a CTA may use"
         )
+
+
+@functools.lru_cache(maxsize=4)
+def _tile_slots(tj_bytes: bytes, n_joint: int, device: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's moment rows, one per layout tile, laid out joint by joint
+    (tiles ascending within a joint): (slot (n_tiles,) row of each layout
+    tile, start (n_joint + 2,) first row of each joint), on the card once
+    per table."""
+    tj = np.frombuffer(tj_bytes, dtype=np.int32)
+    order = np.argsort(tj, kind="stable")
+    slot = np.empty(len(tj), np.int32)
+    slot[order] = np.arange(len(tj), dtype=np.int32)
+    start = np.searchsorted(tj[order], np.arange(n_joint + 2)).astype(np.int32)
+    return torch.as_tensor(slot, device=device), torch.as_tensor(start, device=device)
 
 
 @functools.lru_cache(maxsize=4)
@@ -138,21 +190,47 @@ def rotate_update_round_v2(
     order: Sequence[int],
     layout: CodesLayout,
     write_r: bool = True,
+    moments: Optional[MomentsSpec] = None,
+    emit_pen: bool = False,
 ) -> RoundState:
-    """K7: one stats-carrying round for the schedule (rt, order)."""
+    """K7: one stats-carrying round for the schedule (rt, order); with
+    ``moments`` and ``emit_pen`` the extras of a phase's last round."""
     floats = {"Y": Y, "R": rs.R, "E": rs.E, "O": rs.O, "tile_O": rs.tile_O,
               "Pr_b": Pr_b, "sigma": sigma, "theta": theta, "Z_pad": layout.Z_pad}
+    if moments is not None:
+        floats["Z_orig"] = moments.Z_orig
     _check("rotate_update_round_v2", cfg, floats, layout.codes_pad)
     if Y.device.type == "cpu":
         return rotate.rotate_update_round_v2(cfg, Y, rs, Pr_b, sigma, theta, rt,
-                                             order, layout, write_r)
+                                             order, layout, write_r, moments, emit_pen)
     d, L = layout.Z_pad.shape
     K, B, T = cfg.K, cfg.B, cfg.estep_sub_tile
-    NT, cpt = L // T, T // _CT
+    NT = L // T
     if rs.tile_O.shape != (NT, K, B) or rs.R.shape != (K, L):
         raise ValueError("rotate_update_round_v2: tile_O/R shapes disagree with the layout")
     szs, vstart = rotate.block_sizes(cfg)
     dev = Y.device
+    ncov, b0 = cfg.n_covariates, cfg.B_vec[0]
+    tw, M, mom = _CT, None, (None,) * 5
+    if moments is not None:
+        tw, nj = int(moments.tile), int(moments.n_joint)
+        tj = np.asarray(moments.tile_joint, dtype=np.int32)
+        if (not moments_fit(tw) or T % tw or tj.shape != (L // tw,)
+                or tj.max(initial=0) > nj or moments.Z_orig.shape != (d, L)):
+            raise ValueError("rotate_update_round_v2: the moments spec does not fit the "
+                             "layout")
+        slot, start = _tile_slots(tj.tobytes(), nj, str(dev))
+        mpart = torch.empty((L // tw, K * (d + 1)), dtype=_F32, device=dev)
+        M = torch.empty((nj + 1, K, d + 1), dtype=_F32, device=dev)
+        # one block's pieces' (K4 x d1p) tables, and a count per layout tile
+        # of a block
+        mpiece = torch.empty((max(szs) * T // _CT, -(-K // 4) * 4 * _ceil4(d + 1)),
+                             dtype=_F32, device=dev)
+        count = torch.zeros(max(szs) * T // tw, dtype=torch.int32, device=dev)
+        mom = (moments.Z_orig, slot, mpart, mpiece, count)
+    smem = assign_smem_bytes(K, d, B, ncov, moments is not None)
+    _check_smem("rotate_update_round_v2", cfg, smem)
+    cpt = T // _CT  # assign CTAs per tile
     Yt = Y.t().contiguous()
     E_w = torch.empty((K, B), dtype=_F32, device=dev)
     O_w = torch.empty((K, B), dtype=_F32, device=dev)
@@ -161,12 +239,12 @@ def rotate_update_round_v2(
     acc = torch.empty(2, dtype=_F32, device=dev)
     tile_O = torch.empty_like(rs.tile_O)
     R_out = torch.empty_like(rs.R) if write_r else None
+    pen_out = torch.empty((len(szs), K, B), dtype=_F32, device=dev) if emit_pen else None
     part = torch.empty((max(szs) * cpt, K * B + 2), dtype=_F32, device=dev)
     offsets = _offsets_on(cfg.covariate_offsets, str(dev))
-    smem = assign_smem_bytes(K, d, B, cfg.n_covariates)
     lib = _build.load("rotate", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ncov, b0 = cfg.n_covariates, cfg.B_vec[0]
+    ptr = lambda t: None if t is None else t.data_ptr()
 
     def commit(add_blk: int, rm_blk: int, first: bool) -> None:
         v0, nt = ((vstart[add_blk] + rt) % NT, szs[add_blk]) if add_blk >= 0 else (0, 0)
@@ -176,8 +254,8 @@ def rotate_update_round_v2(
             part.data_ptr(), int(add_blk >= 0), v0, nt, cpt, NT,
             tile_O.data_ptr(), rs.tile_O.data_ptr(), rv0, rn, E_in.data_ptr(),
             O_in.data_ptr(), E_w.data_ptr(), O_w.data_ptr(), Pr_b.data_ptr(),
-            theta.data_ptr(), pen.data_ptr(), logpen.data_ptr(), acc.data_ptr(),
-            int(first), K, B, b0, stream,
+            theta.data_ptr(), pen.data_ptr(), logpen.data_ptr(), ptr(pen_out),
+            rm_blk if emit_pen else -1, acc.data_ptr(), int(first), K, B, b0, stream,
         ), "k7_commit")
         rotate_update_round_v2.launches += 1
 
@@ -187,14 +265,124 @@ def rotate_update_round_v2(
         _build.check(lib.k7_assign(
             Yt.data_ptr(), layout.Z_pad.data_ptr(), layout.codes_pad.data_ptr(),
             offsets.data_ptr(), pen.data_ptr(), logpen.data_ptr(),
-            sigma.data_ptr(), R_out.data_ptr() if write_r else None,
-            part.data_ptr(), L, (vstart[blk] + rt) % NT, szs[blk], NT, cpt,
-            K, d, B, ncov, smem, stream,
+            sigma.data_ptr(), ptr(R_out), part.data_ptr(), *[ptr(t) for t in mom],
+            L, (vstart[blk] + rt) % NT, szs[blk], NT, cpt, tw,
+            K, d, B, ncov, _ceil4(d + 1), smem, stream,
         ), "k7_assign")
         rotate_update_round_v2.launches += 1
         commit(blk, order[i + 1] if i + 1 < len(order) else -1, False)
+    if moments is not None:
+        sum_joint_rows(mpart, start, M)
+        rotate_update_round_v2.launches += 1
     return RoundState(R=R_out if write_r else rs.R, E=E_w, O=O_w, tile_O=tile_O,
-                      kmeans_error=acc[0], entropy=acc[1])
+                      kmeans_error=acc[0], entropy=acc[1], M=M, pen=pen_out,
+                      blkmap=rotate.block_of_tiles(cfg, rt, dev) if emit_pen else None)
 
 
 rotate_update_round_v2.launches = 0
+
+
+def _check_virtual(where: str, cfg: HarmonyConfig, floats: dict, codes_pad: torch.Tensor,
+                   blk_of_phys: torch.Tensor) -> bool:
+    """True for CUDA tensors that K10/K11 take, False for CPU tensors (the
+    plain version runs); raises for anything else."""
+    _check(where, cfg, floats, codes_pad)
+    if codes_pad.device.type == "cpu":
+        return False
+    d, L = floats["Zn_pad"].shape
+    NT = L // cfg.estep_sub_tile
+    pen = floats["pen"]
+    if (floats["Y"].shape != (d, cfg.K) or pen.shape[1:] != (cfg.K, cfg.B)
+            or blk_of_phys.shape != (NT,) or blk_of_phys.dtype != torch.int32
+            or blk_of_phys.device != codes_pad.device):
+        raise ValueError(f"{where}: Y, pen or the tile -> block map disagree with the "
+                         "layout (the map must be int32 on the card)")
+    return True
+
+
+def virtual_correction(
+    cfg: HarmonyConfig,
+    W_joint: torch.Tensor,  # (n_joint + 1, d, K); trash row zero
+    tile_joint,  # (Npt // layout_tile,) int32, trash tiles n_joint
+    layout_tile: int,
+    Y: torch.Tensor,  # (d, K)
+    sigma: torch.Tensor,  # (K,)
+    pen: torch.Tensor,  # (nb, K, B)
+    blk_of_phys: torch.Tensor,  # (NT,) int32
+    Zn_pad: torch.Tensor,  # (d, Npt)
+    codes_pad: torch.Tensor,  # (ncov, Npt) int32
+    Z_orig_pad: torch.Tensor,  # (d, Npt)
+) -> torch.Tensor:
+    """K10: Z_corr (d, Npt) = Z_orig - W_joint[joint(tile)] R, R recomputed
+    per 64-cell piece from the penalty tables."""
+    floats = {"Y": Y, "sigma": sigma, "pen": pen, "Zn_pad": Zn_pad,
+              "Z_orig_pad": Z_orig_pad, "W_joint": W_joint}
+    if not _check_virtual("virtual_correction", cfg, floats, codes_pad, blk_of_phys):
+        return rotate.virtual_correction(cfg, W_joint, tile_joint, layout_tile, Y, sigma,
+                                         pen, blk_of_phys, Zn_pad, codes_pad, Z_orig_pad)
+    K, B, T = cfg.K, cfg.B, cfg.estep_sub_tile
+    d, L = Zn_pad.shape
+    nj1 = W_joint.shape[0]
+    tj = np.asarray(tile_joint, dtype=np.int32)
+    if (W_joint.shape != (nj1, d, K) or not moments_fit(layout_tile) or T % layout_tile
+            or tj.shape != (L // layout_tile,) or tj.max(initial=0) >= nj1
+            or Z_orig_pad.shape != (d, L)):
+        raise ValueError("virtual_correction: W_joint, the tile table or the layout tile "
+                         f"({layout_tile}) do not fit the layout and the kernel")
+    smem = virtual_smem_bytes(K, d, B, cfg.n_covariates, True)
+    _check_smem("virtual_correction", cfg, smem)
+    Wt = W_joint.transpose(1, 2).contiguous()  # (nj1, K, d)
+    Zc = torch.empty_like(Z_orig_pad)
+    dev = Zn_pad.device
+    lib = _build.load("rotate", _SIGNATURES)
+    _build.check(lib.k10_virtual_correction(
+        Y.t().contiguous().data_ptr(), Zn_pad.data_ptr(), codes_pad.data_ptr(),
+        _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), pen.data_ptr(),
+        blk_of_phys.data_ptr(), sigma.data_ptr(), Wt.data_ptr(),
+        _table_on(tj.tobytes(), str(dev)).data_ptr(), Z_orig_pad.data_ptr(),
+        Zc.data_ptr(), L, T, layout_tile, nj1 - 1, K, d, B, cfg.n_covariates,
+        _ceil4(d), smem, torch.cuda.current_stream(dev).cuda_stream,
+    ), "k10_virtual_correction")
+    virtual_correction.launches += 1
+    return Zc
+
+
+virtual_correction.launches = 0
+
+
+def materialize_r(
+    cfg: HarmonyConfig,
+    Y: torch.Tensor,  # (d, K)
+    sigma: torch.Tensor,  # (K,)
+    pen: torch.Tensor,  # (nb, K, B)
+    blk_of_phys: torch.Tensor,  # (NT,) int32
+    Zn_pad: torch.Tensor,  # (d, Npt)
+    codes_pad: torch.Tensor,  # (ncov, Npt) int32
+    out_dtype=None,
+) -> torch.Tensor:
+    """K11: the last round's R (K, Np), rebuilt from the penalty tables.
+    The kernel writes float32, the only engine dtype that reaches it."""
+    floats = {"Y": Y, "sigma": sigma, "pen": pen, "Zn_pad": Zn_pad}
+    if not _check_virtual("materialize_r", cfg, floats, codes_pad, blk_of_phys):
+        return rotate.materialize_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad,
+                                    out_dtype)
+    if out_dtype not in (None, _F32):
+        raise TypeError(f"materialize_r: the kernel writes float32, not {out_dtype}")
+    K, B, T = cfg.K, cfg.B, cfg.estep_sub_tile
+    d, L = Zn_pad.shape
+    smem = virtual_smem_bytes(K, d, B, cfg.n_covariates, False)
+    _check_smem("materialize_r", cfg, smem)
+    R = torch.empty((K, L), dtype=_F32, device=Zn_pad.device)
+    dev = Zn_pad.device
+    lib = _build.load("rotate", _SIGNATURES)
+    _build.check(lib.k11_materialize_r(
+        Y.t().contiguous().data_ptr(), Zn_pad.data_ptr(), codes_pad.data_ptr(),
+        _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), pen.data_ptr(),
+        blk_of_phys.data_ptr(), sigma.data_ptr(), R.data_ptr(), L, T, K, d, B,
+        cfg.n_covariates, smem, torch.cuda.current_stream(dev).cuda_stream,
+    ), "k11_materialize_r")
+    materialize_r.launches += 1
+    return R[:, : cfg.Np]
+
+
+materialize_r.launches = 0

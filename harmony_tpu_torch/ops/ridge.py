@@ -28,6 +28,12 @@ moment table over the batch-pure layout tiles and K9 the correction per
 pure tile (``ops/cuda_ridge.py``); the trailing mixed/pad region goes
 through dense one-hot products. Segment sums over joint levels are one-hot
 products, not ``index_add_``, whose CUDA version sums with float atomics.
+
+Under virtual R (``virtual``, a :class:`~harmony_tpu_torch.ops.rotate.VirtualR`;
+harmony_tpu/ops/ridge.py:145-154, 550-654) the state's R is stale: the
+moments come fused from the E-step's final round, the tail's assignments
+are recomputed from the penalty tables in plain PyTorch, and K10 applies
+the correction with R recomputed per pure tile.
 """
 
 from __future__ import annotations
@@ -122,13 +128,15 @@ def moe_correct_ridge(
     Y_old: torch.Tensor,  # (d, K)
     onehots=None,
     tiled=None,  # ops.tiled.TiledCells -> the batch-tiled O(K N d) path
-    tiled_moments=None,  # (n_joint+1, K, d+1) table the E-step fused (K3)
+    tiled_moments=None,  # (n_joint+1, K, d+1) table the E-step fused (K3, K7)
+    virtual=None,  # ops.rotate.VirtualR: R is stale, recompute it (needs tiled)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Return (Z_corr, Y_new, W); W is (K, B+1, d) with intercept rows zeroed.
     Z_corr is recomputed from Z_orig (src/harmony.cpp:347). With ``tiled``,
     ``tiled_moments`` hands over the per-joint moment table of R that the
-    fused permute phase accumulated, and K8's pass never runs
-    (harmony_tpu/ops/ridge.py:404-417)."""
+    E-step's last round accumulated, and K8's pass never runs
+    (harmony_tpu/ops/ridge.py:404-417). ``virtual`` (with ``tiled`` and
+    ``tiled_moments``) corrects without reading R."""
     K, B = cfg.K, cfg.B
     dev = Z_orig.device
     keep, any_active = compute_masks(cfg, O, batch_sizes)
@@ -144,9 +152,10 @@ def moe_correct_ridge(
         # blocks equal their raw-R values; only the intercept moments see
         # the union cell mask, constant within a joint level
         # (harmony_tpu/ops/ridge.py:130-211)
-        R_eff = R.to(_F32).contiguous()
+        R_eff = None if virtual is not None else R.to(_F32).contiguous()
+        tail_R = None if virtual is None else _virtual_tail_r(cfg, virtual, tiled.n_pure)
         O_all, rhs_all, cross_blocks, ctx = _moments_tiled(
-            cfg, R_eff, Zf, codes, tiled, tiled_moments
+            cfg, R_eff, Zf, codes, tiled, tiled_moments, tail_R
         )
         O_eff = O_all * keepf
         rhs_batches = rhs_all * keepf[:, :, None]
@@ -231,6 +240,9 @@ def moe_correct_ridge(
     W[:, 0, :] = 0.0
 
     # ---- Correction: Z_corr = Z_orig - sum_k W_k^T Phi_Rk ----------------
+    if virtual is not None:
+        Z_corr = _correction_virtual(cfg, W, ctx, tiled, virtual)
+        return Z_corr.to(Z_orig.dtype), Y_new, W
     if tiled is not None:
         Z_corr = _correction_tiled(cfg, W, R_eff, Zf, ctx, tiled)
         return Z_corr.to(Z_orig.dtype), Y_new, W
@@ -260,11 +272,12 @@ def _segment_sum(x: torch.Tensor, ids, n: int) -> torch.Tensor:
     return (oh @ x.reshape(x.shape[0], -1)).reshape((n,) + tuple(x.shape[1:]))
 
 
-def _moments_tiled(cfg, R_eff, Zf, codes, tiled, precomputed=None):
+def _moments_tiled(cfg, R_eff, Zf, codes, tiled, precomputed=None, tail_R=None):
     """Batch-tiled moments, O(K·N·d) (harmony_tpu/ops/ridge.py:396-488):
     the per-joint table from K8 over the layout tiles (or ``precomputed``,
     the table fused into the E-step), segment sums over joint levels, and
-    dense one-hot products on the trailing mixed/pad region. Returns
+    dense one-hot products on the trailing mixed/pad region, whose R is
+    ``tail_R`` where given (virtual R) and R_eff's otherwise. Returns
     (O_eff, rhs_batches, cross_blocks, (R_tail, tail one-hots, per-joint
     table))."""
     from . import cuda_ridge
@@ -272,16 +285,18 @@ def _moments_tiled(cfg, R_eff, Zf, codes, tiled, precomputed=None):
     K = cfg.K
     n_joint = tiled.joint_codes.shape[1]
     if precomputed is None:
+        if R_eff is None:
+            raise ValueError("virtual R needs the moments its final round fused")
         moments = (cuda_ridge.tile_moments if cfg.mstep_impl == "kernel"
                    else cuda_ridge.tile_moments_twin)
         precomputed = moments(R_eff, Zf, tiled.tile, full_tile_joint(cfg, tiled), n_joint)
     seg = precomputed[:n_joint]  # (nj, K, d+1); the trash row dropped
 
     n_pure = tiled.n_pure
-    tail = R_eff.shape[1] - n_pure
+    tail = Zf.shape[1] - n_pure
     R_t = tail_oh = tail_M = None
     if tail:
-        R_t = R_eff[:, n_pure:]
+        R_t = tail_R if tail_R is not None else R_eff[:, n_pure:]
         Za_t = torch.cat([Zf[:, n_pure:], Zf.new_ones((1, tail))], dim=0)
         tail_oh = [
             torch.nn.functional.one_hot(codes[c, n_pure:].long(), b).to(_F32)
@@ -338,31 +353,81 @@ def _intercept_moments_tiled(cfg, keep, Zf, codes, tiled, ctx):
     return r_tot, rhs0
 
 
-def _correction_tiled(cfg, W, R_eff, Zf, ctx, tiled):
-    """Batch-tiled correction (harmony_tpu/ops/ridge.py:491-547): K9 applies
-    each pure tile's joint betas; the tail's correction is dense."""
-    from . import cuda_ridge
-
+def _joint_betas(cfg, W, tiled) -> torch.Tensor:
+    """(n_joint + 1, d, K) per-joint betas, the sum over covariates of each
+    one's beta block at the joint's level (a cell's correction sums over
+    covariates, src/harmony.cpp:613-616); the trash row n_joint is zero."""
     W_joint = None
     for c, off in enumerate(cfg.covariate_offsets):
         jc = torch.as_tensor(tiled.joint_codes[c], dtype=torch.int64, device=W.device)
         Wc = W[:, 1 + off : 1 + off + cfg.B_vec[c], :].index_select(1, jc)  # (K, nj, d)
         W_joint = Wc if W_joint is None else W_joint + Wc
     W_joint = W_joint.permute(1, 2, 0).to(_F32)  # (nj, d, K)
-    W_joint = torch.cat([W_joint, W_joint.new_zeros((1,) + W_joint.shape[1:])]).contiguous()
+    return torch.cat([W_joint, W_joint.new_zeros((1,) + W_joint.shape[1:])]).contiguous()
+
+
+def _patch_tail(cfg, W, ctx, tiled, Z_corr):
+    """The trailing mixed/pad region's correction, dense on its R (ctx)."""
+    R_t, tail_oh = ctx[0], ctx[1]
+    if R_t is None:
+        return Z_corr
+    corr_t = None
+    for c, oh in enumerate(tail_oh):
+        off = cfg.covariate_offsets[c]
+        for b in range(oh.shape[1]):
+            t = W[:, 1 + off + b, :].t() @ (R_t * oh[:, b])
+            corr_t = t if corr_t is None else corr_t + t
+    Z_corr[:, tiled.n_pure :] -= corr_t
+    return Z_corr
+
+
+def _correction_tiled(cfg, W, R_eff, Zf, ctx, tiled):
+    """Batch-tiled correction (harmony_tpu/ops/ridge.py:491-547): K9 applies
+    each pure tile's joint betas; the tail's correction is dense."""
+    from . import cuda_ridge
+
     correct = (cuda_ridge.tiled_correction if cfg.mstep_impl == "kernel"
                else cuda_ridge.tiled_correction_twin)
-    Z_corr = correct(W_joint, full_tile_joint(cfg, tiled), R_eff, Zf, tiled.tile)
-    R_t, tail_oh = ctx[0], ctx[1]
-    if R_t is not None:
-        corr_t = None
-        for c, oh in enumerate(tail_oh):
-            off = cfg.covariate_offsets[c]
-            for b in range(oh.shape[1]):
-                t = W[:, 1 + off + b, :].t() @ (R_t * oh[:, b])
-                corr_t = t if corr_t is None else corr_t + t
-        Z_corr[:, tiled.n_pure :] -= corr_t
-    return Z_corr
+    Z_corr = correct(_joint_betas(cfg, W, tiled), full_tile_joint(cfg, tiled), R_eff, Zf,
+                     tiled.tile)
+    return _patch_tail(cfg, W, ctx, tiled, Z_corr)
+
+
+def _virtual_tail_r(cfg, virt, n_pure):
+    """(K, tail) assignments of the trailing mixed/pad cells, recomputed
+    from the final round's penalty tables in the K7 op order
+    (harmony_tpu/ops/ridge.py:550-585): pc sums the covariates' penalty
+    rows in covariate order, zero on pad cells."""
+    Np, T = cfg.Np, cfg.estep_sub_tile
+    Zn_t = virt.Zn_pad[:, n_pure:Np].to(_F32)
+    tiles = torch.arange(n_pure, Np, device=Zn_t.device) // T
+    blk = virt.blkmap.long()[tiles]
+    valid = (virt.codes_pad[0, n_pure:Np] >= 0).to(_F32)
+    pc = None
+    for c, off in enumerate(cfg.covariate_offsets):
+        code = (virt.codes_pad[c, n_pure:Np].long() + off).clamp(0, cfg.B - 1)
+        pcc = virt.pen[blk, :, code].t()  # (K, tail)
+        pc = pcc if pc is None else pc + pcc
+    pc = pc * valid[None, :]
+    g = virt.Y.t().to(_F32) @ Zn_t
+    w = torch.exp((g - 1.0) * (2.0 / virt.sigma.to(_F32))[:, None]) * pc
+    colsum = w.sum(dim=0, keepdim=True)
+    return w * (1.0 / torch.where(colsum == 0.0, torch.ones_like(colsum), colsum))
+
+
+def _correction_virtual(cfg, W, ctx, tiled, virt):
+    """Correction with R recomputed from the penalty tables
+    (harmony_tpu/ops/ridge.py:588-654): K10 on the pure layout tiles (its
+    plain version on CPU tensors), then the dense patch of the tail from
+    its recomputed assignments (ctx carries them from _moments_tiled)."""
+    from .cuda_rotate import virtual_correction
+
+    Z_corr = virtual_correction(
+        cfg, _joint_betas(cfg, W, tiled), full_tile_joint(cfg, tiled), tiled.tile,
+        virt.Y.to(_F32), virt.sigma.to(_F32), virt.pen, virt.blkmap, virt.Zn_pad,
+        virt.codes_pad, virt.Z_orig_pad,
+    )[:, : cfg.Np]
+    return _patch_tail(cfg, W, ctx, tiled, Z_corr)
 
 
 def _solve_ridge(cfg: HarmonyConfig, G: torch.Tensor, rhs: torch.Tensor):

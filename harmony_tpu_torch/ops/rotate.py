@@ -11,7 +11,18 @@ stats-carrying path:
   O and E. It writes no R.
 * :func:`rotate_update_round_v2`, the twin of K7 (``_round_kernel_v2``,
   :594): one stats-carrying round. Each block's old contribution comes
-  from the previous round's per-tile table, never from R.
+  from the previous round's per-tile table, never from R. On the phase's
+  last round it can also return the M-step's joint-batch moments of its R
+  (``moments``) and its per-block penalty tables with the tile -> block
+  map (``emit_pen``), from which the virtual-R functions below reproduce
+  every assignment without R having been written.
+* :func:`virtual_correction`, the twin of K10 (``_virtual_correction_kernel``,
+  :1451): R recomputed per tile from those tables, then Z_orig - W_joint R.
+* :func:`materialize_r`, the twin of K11 (``_materialize_r_kernel``,
+  :1621): the run-end R from the same tables.
+
+All three compute R with one function (:func:`_assign_r`), as the three
+kernels share one device routine.
 
 Schedule: cells were shuffled once at ingest; virtual tile v holds
 physical tile (v + rt) mod NT for a per-round rotation rt, and the nb
@@ -28,12 +39,14 @@ the entropy in the factorised form for one covariate (:781-805), as
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import HarmonyConfig
+from .cuda_ridge import tile_moments_twin, tiled_correction_twin
 from .objective import xlogx
+from .permute_phase import MomentsSpec  # the same record on both paths
 
 _F32 = torch.float32
 
@@ -55,6 +68,23 @@ class RoundState(NamedTuple):
     tile_O: torch.Tensor  # (NT, K, B) per-tile O contributions of R
     kmeans_error: torch.Tensor
     entropy: torch.Tensor
+    # the extras of a phase's last round (None otherwise)
+    M: Optional[torch.Tensor] = None  # (n_joint+1, K, d+1) fused moments
+    pen: Optional[torch.Tensor] = None  # (nb, K, B) per-block penalties
+    blkmap: Optional[torch.Tensor] = None  # (NT,) int32 physical tile -> block
+
+
+class VirtualR(NamedTuple):
+    """What the virtual-R correction and the run-end materialisation need
+    to reproduce the final round's assignments (pallas_rotate.py:493)."""
+
+    pen: torch.Tensor  # (nb, K, B) per-block penalties of the final round
+    blkmap: torch.Tensor  # (NT,) int32 physical tile -> block
+    Zn_pad: torch.Tensor  # (d, Npt) the phase's normalised layout
+    codes_pad: torch.Tensor  # (ncov, Npt)
+    Y: torch.Tensor  # (d, K) centroids the final round used
+    Z_orig_pad: torch.Tensor  # (d, Npt)
+    sigma: torch.Tensor  # (K,)
 
 
 def n_tiles(cfg: HarmonyConfig) -> int:
@@ -96,6 +126,18 @@ def block_tiles(cfg: HarmonyConfig, rt: int, blk: int) -> List[int]:
     NT = n_tiles(cfg)
     szs, vstart = block_sizes(cfg)
     return [(vstart[blk] + j + rt) % NT for j in range(szs[blk])]
+
+
+def block_of_tiles(cfg: HarmonyConfig, rt: int, device) -> torch.Tensor:
+    """(NT,) int32 block of each physical tile under rotation ``rt``
+    (blk_of_phys, pallas_rotate.py:1053): tile p sits at virtual slot
+    (p - rt) mod NT, and the first NT mod nb blocks hold one tile more.
+    Built on the device from host ints, so no copy waits for the stream."""
+    NT = n_tiles(cfg)
+    base, rem = divmod(NT, len(block_sizes(cfg)[0]))
+    v = torch.remainder(torch.arange(NT, device=device) - rt, NT)
+    big = rem * (base + 1)
+    return torch.where(v < big, v // (base + 1), rem + (v - big) // base).to(torch.int32)
 
 
 def draw_schedules(
@@ -197,10 +239,10 @@ def reassign(
     return Zn, tile_O, O, E
 
 
-def _assign_tiles(cfg, Yt, Z3, codes3, pen, logpen, sigma, inv2sig):
-    """Assign ``n`` tiles (Z3 (d, n, T), codes3 (ncov, n, T)) against one
-    block-removed penalty table. Returns (R (K, n, T), tO (n, K, B),
-    kmeans error and entropy per tile (n,))."""
+def _assign_r(cfg, Yt, Z3, codes3, pen, inv2sig):
+    """The assignments of ``n`` tiles (Z3 (d, n, T), codes3 (ncov, n, T))
+    against one block-removed penalty table (K, B): R (K, n, T), with g and
+    the guarded column sums the objective terms reuse."""
     K, B = pen.shape
     d, n, T = Z3.shape
     g = (Yt @ Z3.reshape(d, n * T)).reshape(K, n, T)
@@ -211,11 +253,16 @@ def _assign_tiles(cfg, Yt, Z3, codes3, pen, logpen, sigma, inv2sig):
         idx = torch.where(cc >= 0, cc + off, torch.full_like(cc, B))
         t = pen_pad.index_select(1, idx).reshape(K, n, T)
         pc = t if pc is None else pc + t
-    e = torch.exp((g - 1.0) * inv2sig[:, None, None])
-    w = e * pc
+    w = torch.exp((g - 1.0) * inv2sig[:, None, None]) * pc
     colsum = w.sum(dim=0)
     colsum_g = torch.where(colsum == 0.0, torch.ones_like(colsum), colsum)
-    R_n = w * (1.0 / colsum_g)
+    return w * (1.0 / colsum_g), g, colsum_g
+
+
+def _assign_tiles(cfg, Yt, Z3, codes3, pen, logpen, sigma, inv2sig):
+    """Assign ``n`` tiles against one block-removed penalty table. Returns
+    (R (K, n, T), tO (n, K, B), kmeans error and entropy per tile (n,))."""
+    R_n, g, colsum_g = _assign_r(cfg, Yt, Z3, codes3, pen, inv2sig)
     oh = _one_hot_tiles(cfg, codes3)  # (n, T, B)
     tO = torch.bmm(R_n.permute(1, 0, 2), oh)  # (n, K, B)
     b0 = cfg.B_vec[0]
@@ -243,12 +290,18 @@ def rotate_update_round_v2(
     order: Sequence[int],
     layout: CodesLayout,
     write_r: bool = True,
+    moments: Optional[MomentsSpec] = None,
+    emit_pen: bool = False,
 ) -> RoundState:
     """Plain version of K7 (``pallas_rotate_update_round_v2``,
     pallas_rotate.py:851) for the schedule (rt, order).
 
     ``write_r=False`` leaves the returned R the (stale) input R: no round
-    reads R, so only the phase's last round has to write it."""
+    reads R, so only the phase's last round has to write it. ``moments``
+    (layout tiles of ``moments.tile`` cells, ``moments.Z_orig`` the padded
+    original embedding) returns the joint-batch moment table of this
+    round's R in ``M``; ``emit_pen`` returns the per-block penalty tables
+    in ``pen`` and the tile -> block map in ``blkmap``."""
     K, Np = rs.R.shape
     d, Npt = layout.Z_pad.shape
     T = cfg.estep_sub_tile
@@ -264,7 +317,10 @@ def rotate_update_round_v2(
     c3 = layout.codes_pad.reshape(-1, NT, T)
     E, O = rs.E.to(_F32), rs.O.to(_F32)
     tile_O = torch.empty_like(rs.tile_O)
-    R_new = torch.empty((K, NT, T), dtype=_F32, device=Y.device) if write_r else None
+    keep_r = write_r or moments is not None
+    R_new = torch.empty((K, NT, T), dtype=_F32, device=Y.device) if keep_r else None
+    pen_out = torch.empty((blk_O.shape[0], K, cfg.B), dtype=_F32,
+                          device=Y.device) if emit_pen else None
     acc_d = torch.zeros((), dtype=_F32, device=Y.device)
     acc_e = torch.zeros((), dtype=_F32, device=Y.device)
     for blk in order:
@@ -275,6 +331,8 @@ def rotate_update_round_v2(
         ratio = (2.0 * E + 1.0) / (O + E + 1.0)
         pen = ratio ** th
         logpen = torch.log(ratio) * th
+        if emit_pen:
+            pen_out[blk] = pen
         tiles = torch.as_tensor(block_tiles(cfg, rt, blk), device=Y.device)
         R_n, tO, s_rd, ent = _assign_tiles(
             cfg, Yt, Z3.index_select(1, tiles), c3.index_select(1, tiles),
@@ -283,13 +341,78 @@ def rotate_update_round_v2(
         tile_O[tiles] = tO
         acc_d = acc_d + s_rd.sum()
         acc_e = acc_e + ent.sum()
-        if write_r:
+        if keep_r:
             R_new[:, tiles] = R_n
         # commit the block's new contribution (src/harmony.cpp:329-330)
         Opend = tO.sum(dim=0)
         E = E + Opend[:, :b0].sum(dim=1, keepdim=True) * Pr
         O = O + Opend
+    M = None
+    if moments is not None:
+        M = tile_moments_twin(R_new.reshape(K, Npt), moments.Z_orig.to(_F32),
+                              moments.tile, moments.tile_joint, moments.n_joint)
     R_out = R_new.reshape(K, Npt)[:, :Np].to(rs.R.dtype) if write_r else rs.R
     return RoundState(R=R_out, E=E.to(rs.E.dtype), O=O.to(rs.O.dtype),
-                      tile_O=tile_O, kmeans_error=acc_d, entropy=acc_e)
+                      tile_O=tile_O, kmeans_error=acc_d, entropy=acc_e, M=M,
+                      pen=pen_out,
+                      blkmap=block_of_tiles(cfg, rt, Y.device) if emit_pen else None)
 
+
+def _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, out_dtype=None):
+    """(K, Npt) assignments of the round whose per-block penalties are
+    ``pen``: each block's tiles through :func:`_assign_r`, cast per block
+    to ``out_dtype`` (default float32)."""
+    d, Npt = Zn_pad.shape
+    T = cfg.estep_sub_tile
+    NT, K = Npt // T, pen.shape[1]
+    Yt, inv2sig = Y.t().to(_F32), 2.0 / sigma.to(_F32)
+    Z3 = Zn_pad.to(_F32).reshape(d, NT, T)
+    c3 = codes_pad.reshape(-1, NT, T)
+    R = torch.empty((K, NT, T), dtype=out_dtype or _F32, device=Zn_pad.device)
+    blkmap = blk_of_phys.long()
+    for b in range(pen.shape[0]):
+        tiles = (blkmap == b).nonzero().squeeze(1)
+        if tiles.numel():
+            R[:, tiles] = _assign_r(cfg, Yt, Z3.index_select(1, tiles),
+                                    c3.index_select(1, tiles), pen[b].to(_F32),
+                                    inv2sig)[0].to(R.dtype)
+    return R.reshape(K, Npt)
+
+
+def virtual_correction(
+    cfg: HarmonyConfig,
+    W_joint: torch.Tensor,  # (n_joint + 1, d, K); trash row zero
+    tile_joint,  # (Npt // layout_tile,) int32, trash tiles n_joint
+    layout_tile: int,
+    Y: torch.Tensor,  # (d, K) centroids the final round used
+    sigma: torch.Tensor,  # (K,)
+    pen: torch.Tensor,  # (nb, K, B)
+    blk_of_phys: torch.Tensor,  # (NT,)
+    Zn_pad: torch.Tensor,  # (d, Npt) the final phase's layout
+    codes_pad: torch.Tensor,  # (ncov, Npt)
+    Z_orig_pad: torch.Tensor,  # (d, Npt)
+) -> torch.Tensor:
+    """Plain version of K10 (``pallas_virtual_correction``,
+    pallas_rotate.py:1493): Z_orig - W_joint[joint(tile)] R per layout
+    tile, R recomputed from the penalty tables. Mixed and pad tiles meet
+    the zero trash row and pass Z_orig through."""
+    R = _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad)
+    return tiled_correction_twin(W_joint.to(_F32), tile_joint, R,
+                                 Z_orig_pad.to(_F32), layout_tile)
+
+
+def materialize_r(
+    cfg: HarmonyConfig,
+    Y: torch.Tensor,  # (d, K) centroids the final round used
+    sigma: torch.Tensor,  # (K,)
+    pen: torch.Tensor,  # (nb, K, B)
+    blk_of_phys: torch.Tensor,  # (NT,)
+    Zn_pad: torch.Tensor,  # (d, Npt)
+    codes_pad: torch.Tensor,  # (ncov, Npt)
+    out_dtype=None,
+) -> torch.Tensor:
+    """Plain version of K11 (``pallas_materialize_r``, pallas_rotate.py:
+    1648): the (K, Np) assignments of the last round, as that round would
+    have written them, in ``out_dtype`` (default float32)."""
+    R = _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, out_dtype)
+    return R[:, : cfg.Np]

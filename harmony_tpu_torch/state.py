@@ -34,6 +34,9 @@ ARRAY_FIELDS = (
     "objective_harmony", "n_harmony", "kmeans_rounds", "n_rounds", "key",
 )
 _CURSORS = ("n_kmeans", "n_harmony", "n_rounds")
+# The virtual-R context (harmony_tpu/state.py:78-88): None unless the run
+# takes virtual R.
+VIRTUAL_FIELDS = ("virt_pen", "virt_blkmap", "virt_Zn", "virt_Y")
 
 
 @dataclasses.dataclass
@@ -72,6 +75,16 @@ class HarmonyState:
     # engine.correct consumes it. Not a field of the JAX state, whose
     # cluster returns it instead.
     tiled_moments: Optional[torch.Tensor] = None
+    # Virtual-R context: what reproduces the LAST clustering round's
+    # assignments without R having been written (ops/rotate.py VirtualR):
+    # its per-block penalty tables, its tile -> block map, its normalised
+    # layout (the tensor K6 wrote, not a copy) and the centroids it used.
+    # engine.correct recomputes R from it and engine.materialize_r turns it
+    # into the user-facing R; until then the state's R is stale.
+    virt_pen: Optional[torch.Tensor] = None  # (nb, K, B) float32
+    virt_blkmap: Optional[torch.Tensor] = None  # (NT,) int32
+    virt_Zn: Optional[torch.Tensor] = None  # (d, Npt) float32
+    virt_Y: Optional[torch.Tensor] = None  # (d, K) float32
 
     @property
     def device(self) -> torch.device:
@@ -161,7 +174,8 @@ def state_from_arrays(
     """Build a state from numpy arrays named as the JAX state's fields, so a
     test can hand a ``harmony_tpu`` state (padded or not) straight to the
     port. ``key`` (the
-    JAX ``[0, seed]`` key data) seeds the generator; it may be omitted."""
+    JAX ``[0, seed]`` key data) seeds the generator; it may be omitted. The
+    virtual-R fields are carried where present and not None."""
     dev = torch.device(device)
     missing = [f for f in ARRAY_FIELDS if f not in arrays and f != "key"]
     if missing:
@@ -175,13 +189,17 @@ def state_from_arrays(
             kw[f] = int(a)
         else:
             kw[f] = torch.as_tensor(np.array(a), device=dev)
+    for f in VIRTUAL_FIELDS:
+        if arrays.get(f) is not None:
+            kw[f] = torch.as_tensor(np.array(arrays[f]), device=dev)
     key = np.asarray(arrays.get("key", np.zeros(2, np.uint32))).astype(np.uint64)
     seed = int(key.reshape(-1)[-1]) | (int(key.reshape(-1)[0]) << 32)
     return HarmonyState(**kw, seed=seed, generator=_generator(seed, dev))
 
 
 def state_to_arrays(state: HarmonyState) -> Dict[str, np.ndarray]:
-    """Every JAX state field as numpy (cursors as 0-d int32 arrays)."""
+    """Every JAX state field as numpy (cursors as 0-d int32 arrays), the
+    virtual-R fields only where set."""
     out = {}
     for f in ARRAY_FIELDS:
         if f == "key":
@@ -192,5 +210,8 @@ def state_to_arrays(state: HarmonyState) -> Dict[str, np.ndarray]:
         elif f in _CURSORS:
             out[f] = np.asarray(getattr(state, f), dtype=np.int32)
         else:
+            out[f] = getattr(state, f).cpu().numpy()
+    for f in VIRTUAL_FIELDS:
+        if getattr(state, f) is not None:
             out[f] = getattr(state, f).cpu().numpy()
     return out

@@ -3,7 +3,8 @@
 * ``finalize_engine_config``: the same sub-tile T and padded N as the JAX
   package's for several shapes (its ``estep_impl='auto'`` picks Pallas
   only on a TPU, so it is given 'pallas'); the unported rotate options
-  raise ``NotImplementedError`` naming their ROADMAP item.
+  raise ``NotImplementedError`` naming their ROADMAP item, and
+  ``virtual_r=True`` resolves.
 * The K6 twin (``ops.rotate.reassign``) against ``pallas_reassign`` in
   interpret mode: Zn atol 1e-6; tile_O, O, E rtol 1e-5.
 * The K7 twin (``ops.rotate.rotate_update_round_v2``) against
@@ -75,16 +76,21 @@ def test_rotate_geometry_matches(N, d, K, B_vec):
 @pytest.mark.parametrize(
     "change,item",
     [({"rotate_stats_carry": False}, "ROADMAP B, K12"),
-     ({"virtual_r": True}, "ROADMAP A9, K10/K11"),
-     ({"dtype": "bfloat16"}, "ROADMAP A9, K10/K11"),
+     ({"virtual_r": True}, None),
+     ({"dtype": "bfloat16"}, "ROADMAP A9, reduced-precision engines"),
      ({"N": 2559}, "cell-granular rotate round"),
      ({"estep_variant": "legacy"}, "ROADMAP A9"),
      ({"mstep_mode": "segment"}, "segmented M-step")],
 )
 def test_unported_rotate_options_raise(change, item):
     base = tconfig.HarmonyConfig(N=5000, d=4, K=3, B=2, B_vec=(2,), shuffle_mode="rotate")
-    with pytest.raises(NotImplementedError, match=item):
-        tconfig.finalize_engine_config(dataclasses.replace(base, **change))
+    if item is None:
+        # ported: virtual R resolves on (engine._virtual_gate decides per run)
+        cfg = tconfig.finalize_engine_config(dataclasses.replace(base, **change))
+        assert (cfg.virtual_r, cfg.estep_impl, cfg.mstep_impl) == (True, "kernel", "kernel")
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            tconfig.finalize_engine_config(dataclasses.replace(base, **change))
     mxu = tconfig.finalize_engine_config(dataclasses.replace(base, estep_variant="fused_mxu"))
     assert mxu.N_pad == 5120 and mxu.estep_sub_tile == 128
     with pytest.raises(tconfig.HarmonyConfigError):
