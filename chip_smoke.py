@@ -11,8 +11,8 @@ Phases (``--phases`` picks a subset, comma-separated):
 2. build     nvcc builds every kernel from harmony_tpu_torch/csrc.
 3. kernels   K1, K2, K3 (with and without the fused moments), K4, K5, K6,
              K7 (with and without writing R, and a phase's last round with
-             the fused moments and the penalty tables), K8, K9, K10 and K11
-             against their plain PyTorch versions on the card, at the main
+             the fused moments and the penalty tables), K8, K9, K10, K11
+             and K12 against their plain PyTorch versions on the card, at the main
              paths' shapes and at one ragged shape (K7's last round, K10
              and K11 also at K = d = 100); K11's R against the R K7 wrote
              in the same round, K10 against K9 on that R; kernel, plain
@@ -21,8 +21,11 @@ Phases (``--phases`` picks a subset, comma-separated):
              through the kernels and once through the plain path: the
              per-round permute schedule and the fused permute phase
              (injected permutations), the rotate schedule (injected
-             rotations and block orders), and the rotate schedule with
-             virtual R, also against the kernels' materialised run.
+             rotations and block orders), the rotate schedule with
+             virtual R, also against the kernels' materialised run, and the
+             rotate schedule without the stats carry (K12); then
+             run_harmony on 2,000 cells with shuffle_mode="rotate", which
+             takes the cell-granular round: no K6, K7 or K12.
 5. permute   run_harmony on 500,000 x 50 cells, 10 batches, K = 100, the
              permute schedule, which at this size runs the fused phase on
              the batch-tiled ingest order; K2, K3 and K9 must be launched,
@@ -38,6 +41,11 @@ Phases (``--phases`` picks a subset, comma-separated):
 9. rotate_rounds  the default call with max_iter_cluster = 6, a round
              count past the static budget: every round writes R and the
              M-step takes K8: K6, K7, K8 and K9 must be launched.
+10. rotate_two_phase  the same cells through the config and the driver
+             (resolve_config, rotate_stats_carry=False, finalize_engine_config,
+             the batch-tiled ingest order, init_state, driver.run): every
+             round reads the old statistics from R and writes R: K12, K8
+             and K9 must be launched, K6, K7, K10 and K11 must not.
 
 It prints a JSON line of the kernels' numbers, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero, and so does
@@ -54,8 +62,9 @@ import sys
 import time
 
 PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
-          "rotate_rounds")
-MAIN_PATHS = ("permute", "permute_rounds", "main", "virtual", "rotate_rounds")
+          "rotate_rounds", "rotate_two_phase")
+MAIN_PATHS = ("permute", "permute_rounds", "main", "virtual", "rotate_rounds",
+              "rotate_two_phase")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 outside the
 # tensor cores. The bound of a function is the larger of its bytes over the
@@ -529,6 +538,57 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
     return k7m, k10, k11
 
 
+def check_rotate_v1(torch, dev, N, d, K, B_vec, seed, timed):
+    """K12 (one rotate round reading the old statistics from R) against
+    its plain version on the same inputs: the normalised layout, R from
+    the initial softmax (zero on the pads), E/O from R, rotation NT - 1 so
+    that the first block wraps past the last tile."""
+    from harmony_tpu_torch import ops
+    from harmony_tpu_torch.ops import cuda_estep, rotate
+
+    cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = rotate_problem(
+        torch, N, d, K, B_vec, seed, dev)
+    Zn = ops.l2_normalize_columns(Z).contiguous()
+    R = ops.initial_assignments(ops.compute_distances(Y, Zn), sigma)
+    R[:, N:] = 0.0
+    codes = codes_pad.clamp_min(0)
+    E = ops.compute_E(R, Pr_b)
+    O = ops.compute_O(R, codes, cfg.covariate_offsets, cfg.B)
+    NT = rotate.n_tiles(cfg)
+    order = rotate.draw_schedules(cfg, g, 1)[0][1]
+    layout = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad)
+    args = (cfg, Y, R.contiguous(), E, O, Pr_b, sigma, theta, NT - 1, order, layout)
+    out = cuda_estep.rotate_update_round_v1(*args)
+    ref = rotate.rotate_update_round_v1(*args)
+    torch.cuda.synchronize()
+    err = float((out.R - ref.R).abs().max())
+    errs = {f: rel_err(getattr(out, f), getattr(ref, f))
+            for f in ("E", "O", "kmeans_error", "entropy")}
+    colsum = float(out.R[:, :N].sum(0).sub(1).abs().max())
+    pad_max = float(out.R[:, N:].abs().max()) if cfg.Np > N else 0.0
+    log(f"  K12 N={N} (Np={cfg.Np}, T={cfg.estep_sub_tile}, {NT} tiles) d={d} K={K} "
+        f"B_vec={B_vec}, rotation {NT - 1}, order {order[:5]}...: max|dR|={err:.3e} (atol "
+        f"{R_ATOL}); " + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items())
+        + f" (rtol {SUM_RTOL}); R column sums within {colsum:.2e} of 1, pads {pad_max:.1e}")
+    require(err <= R_ATOL, f"K12 R disagrees: {err}")
+    for k, v in errs.items():
+        require(v <= SUM_RTOL, f"K12 {k} disagrees: {v}")
+    require(colsum <= 1e-4, f"K12 R columns do not sum to 1: {colsum}")
+    require(pad_max == 0.0, f"K12 pads not zero: {pad_max}")
+    row = {"max_abs_err": err}
+    if timed:
+        Np, ncov = cfg.Np, len(B_vec)
+        row["ms"] = time_ms(torch, "K12 kernel round",
+                            lambda: cuda_estep.rotate_update_round_v1(*args), iters=5)
+        row["plain_ms"] = time_ms(torch, "K12 plain round",
+                                  lambda: rotate.rotate_update_round_v1(*args), iters=3)
+        row["library_ms"] = None
+        # the old R, Z and the codes read once, the new R written once
+        row["bound_ms"], row["bound_by"] = bound(4 * (2 * K * Np + d * Np + ncov * Np),
+                                                 2.0 * K * d * Np)
+    return row
+
+
 def tiled_problem(torch, N, d, K, B_vec, tile, seed, dev):
     """Seeded batch-tiled M-step inputs: a simplex R with zero pad columns,
     Z, the tile -> joint table of a batch-tiled order, joint betas."""
@@ -686,7 +746,7 @@ def check_traj(torch, dev, mode):
 
     from harmony_tpu_torch import driver, engine, preprocess
     from harmony_tpu_torch.config import finalize_engine_config, harmony_options
-    from harmony_tpu_torch.ops import rotate
+    from harmony_tpu_torch.ops import cuda_estep, rotate
     from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
     from harmony_tpu_torch.state import init_state
 
@@ -695,6 +755,7 @@ def check_traj(torch, dev, mode):
     Zh, bh = Zs.cpu().numpy().astype(np.float64), bs.cpu().numpy()
     design = preprocess.build_design({"batch": bh.astype(str)}, ["batch"])
     rotate_mode = mode.startswith("rotate")
+    two_phase = mode == "rotate_two_phase"
     base = preprocess.resolve_config(
         n_cells=n, d=d, design=design, nclust=None, max_iter=iters,
         early_stop=False, options=harmony_options(), verbose=False,
@@ -720,9 +781,10 @@ def check_traj(torch, dev, mode):
                                 for _ in range(iters)])
     else:
         # a batch-tiled order at tile 128, so the M-step takes K7's fused
-        # moments and runs K9 (or K10 under virtual R; the mixture gate of
-        # run_harmony would keep 20k cells x 10 batches on the plain order)
-        base = dataclasses.replace(base, mstep_tile=128)
+        # moments and runs K9 (K10 under virtual R, K8 and K9 without the
+        # stats carry; the mixture gate of run_harmony would keep 20k cells
+        # x 10 batches on the plain order)
+        base = dataclasses.replace(base, mstep_tile=128, rotate_stats_carry=not two_phase)
         perm, _ = build_batch_tiled_order(design.codes, 128, 0)
         Zt = Zt[:, perm]
         design = dataclasses.replace(design, codes=design.codes[:, perm])
@@ -744,10 +806,17 @@ def check_traj(torch, dev, mode):
             base, estep_impl=impl, mstep_impl=impl, virtual_r=vr))
         require(cfg.permute_fused == (mode == "permute_fused"),
                 f"{mode} trajectory resolved permute_fused={cfg.permute_fused}")
+        require(cfg.rotate_route == (None if not rotate_mode else
+                                     "two_phase" if two_phase else "carry"),
+                f"{mode} trajectory resolved rotate_route={cfg.rotate_route!r}")
         st = init_state(cfg, Zt, design, hp.sigma, hp.theta, hp.lamb, 0, dev)
+        k12 = cuda_estep.rotate_update_round_v1.launches
         t0 = time.perf_counter()
         st = driver.run(cfg, st, Y0=Y0, tiled=tiled, **kw)
         torch.cuda.synchronize()
+        k12 = cuda_estep.rotate_update_round_v1.launches - k12
+        require((k12 > 0) == (two_phase and impl == "kernel"),
+                f"{mode} trajectory {label}: {k12} K12 launches")
         require((st.virt_pen is not None) == (label == "kernel" and virtual),
                 f"{mode} trajectory {label}: virtual R engaged={st.virt_pen is not None}")
         out[label] = (st.trace_lists(cfg), st.Z_corr.cpu().numpy(), time.perf_counter() - t0)
@@ -772,13 +841,80 @@ def check_traj(torch, dev, mode):
         compare("kernel", "kernel_materialised", 1e-5, 2e-4, "virtual against materialised")
 
 
+def check_cell_route(torch, dev, wrappers):
+    """run_harmony on 2,000 cells with shuffle_mode="rotate" on the card:
+    below n_blocks * 128 cells it takes the cell-granular round, so no
+    rotate kernel runs; R's columns sum to 1 and the batches mix."""
+    import numpy as np
+
+    from harmony_tpu_torch import run_harmony
+
+    n = 2000
+    Zs, bs = synthetic(torch, n, D_MAIN, 4, 21, dev)
+    sep0 = separation(torch, Zs.t(), bs, 4)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    res = run_harmony(Zs.cpu().numpy(), {"batch": bs.cpu().numpy()}, ["batch"],
+                      max_iter=MAX_ITER, return_object=True, seed=0, shuffle_mode="rotate")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    colsum = float(np.abs(res.R.sum(0) - 1).max())
+    sep1 = separation(torch, torch.as_tensor(res.Z_corr, device=dev), bs, 4)
+    log(f"cell-granular rotate: run_harmony {n} x {D_MAIN}, K={res.K}, B={res.B}, route "
+        f"{res.config.rotate_route!r}, Np={res.config.Np}: {int(res.state.n_rounds)} "
+        f"iterations, wall {wall:.2f} s; launches {launches}; R column sums within "
+        f"{colsum:.2e} of 1; separation {sep0:.4f} -> {sep1:.4f}")
+    require(res.config.rotate_route == "cell" and res.config.Np == n,
+            f"2,000 cells resolved rotate_route={res.config.rotate_route!r}")
+    for k in ("K6", "K7", "K12"):
+        require(launches[k] == 0, f"{k} was launched on the cell-granular route")
+    require(np.isfinite(res.embeddings).all(), "cell-granular route: embeddings not finite")
+    require(colsum <= 1e-4, f"cell-granular route: R column sums off by {colsum}")
+    require(sep1 < sep0, "cell-granular route: batch-centroid separation did not shrink")
+
+
+def run_two_phase(N, Zh, meta, dev):
+    """The rotate rounds without the stats carry at the main shape, through
+    the config and the driver (run_harmony has no argument for them), with
+    run_harmony's ridge solver and ingest: the batch-tiled order and its
+    inverse."""
+    import dataclasses
+
+    from harmony_tpu_torch import api, driver, engine, preprocess
+    from harmony_tpu_torch.config import finalize_engine_config, harmony_options
+    from harmony_tpu_torch.runtime import PhaseTimers
+    from harmony_tpu_torch.state import init_state
+
+    opts = harmony_options()
+    design = preprocess.build_design(meta, ["batch"])
+    Z = preprocess.orient_embedding(Zh, N)
+    cfg = preprocess.resolve_config(
+        n_cells=N, d=Z.shape[0], design=design, nclust=None, max_iter=MAX_ITER,
+        early_stop=True, options=opts, verbose=False, lambda_estimation=True,
+        ridge_solver="auto", shuffle_mode="rotate")
+    cfg = finalize_engine_config(dataclasses.replace(cfg, rotate_stats_carry=False))
+    Z, design, inv = api._ingest_order(cfg, Z, design, 0)
+    tiled = engine.tiled_layout(cfg, design.codes)
+    hp = preprocess.expand_hyperparams(design, cfg.K, None, 0.1, None, opts.tau)
+    timers = PhaseTimers(dev)
+    with timers.scope("ingest"):
+        state = init_state(cfg, Z, design, hp.sigma, hp.theta, hp.lamb, 0, dev)
+    state = driver.run(cfg, state, timers=timers, tiled=tiled)
+    return api.HarmonyResult(config=cfg, state=state, design=design, timers=timers,
+                             ingest_inv=inv)
+
+
 def run_main_path(torch, dev, wrappers, phase):
     """run_harmony at the main shape through the entry point a user calls:
     the permute schedule (phase 'permute', the fused phase at this size;
     'permute_rounds' with a clustering budget of 6 rounds, the per-round
     kernel), or shuffle_mode left at its default (phase 'main'; 'virtual'
-    with virtual_r=True; 'rotate_rounds' with a budget of 6 rounds). Launch
-    counts are set to 0 right before the call and read right after it.
+    with virtual_r=True; 'rotate_rounds' with a budget of 6 rounds); or the
+    driver-level entry without the stats carry (phase 'rotate_two_phase').
+    Launch counts are set to 0 right before the call and read right after
+    it.
     Returns (launches, objective trace, Harmony iterations)."""
     import numpy as np
 
@@ -799,13 +935,20 @@ def run_main_path(torch, dev, wrappers, phase):
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    res = run_harmony(Zh, meta, ["batch"], max_iter=MAX_ITER, return_object=True, seed=0, **kw)
+    if phase == "rotate_two_phase":
+        res = run_two_phase(N_MAIN, Zh, meta, dev)
+    else:
+        res = run_harmony(Zh, meta, ["batch"], max_iter=MAX_ITER, return_object=True, seed=0,
+                          **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     mode = res.config.shuffle_mode
     require(mode == ("permute" if phase.startswith("permute") else "rotate"),
             f"{phase} path resolved to shuffle_mode={mode!r}")
+    route = {"permute": None, "permute_rounds": None, "rotate_two_phase": "two_phase"}
+    require(res.config.rotate_route == route.get(phase, "carry"),
+            f"{phase} path resolved rotate_route={res.config.rotate_route!r}")
     require(res.config.permute_fused == (phase == "permute"),
             f"{phase} path resolved permute_fused={res.config.permute_fused}")
     require((res.state.virt_pen is not None) == (phase == "virtual"),
@@ -813,7 +956,8 @@ def run_main_path(torch, dev, wrappers, phase):
     ph = res.phase_seconds()
     n_it = int(res.state.n_rounds)
     per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
-    log(f"{phase} path: run_harmony {N_MAIN} x {D_MAIN}, K={res.K}, B={res.B}, {mode}"
+    entry = "driver.run" if phase == "rotate_two_phase" else "run_harmony"
+    log(f"{phase} path: {entry} {N_MAIN} x {D_MAIN}, K={res.K}, B={res.B}, {mode}"
         f" (fused={res.config.permute_fused}, max_iter_cluster={res.config.max_iter_cluster}, "
         f"T={res.config.estep_sub_tile}, Np={res.config.Np}), max_iter={MAX_ITER}: "
         f"{n_it} iterations, wall {wall:.2f} s")
@@ -844,7 +988,8 @@ def run_main_path(torch, dev, wrappers, phase):
         log(f"  batch-tiled layout: tile {tiled.tile}, {len(tiled.tile_joint)} pure tiles, "
             f"{res.config.Np - tiled.n_pure} cells in the mixed/pad tail")
         profile = {"permute": "profile_round.txt", "main": "profile_round_rotate.txt",
-                   "virtual": "profile_round_virtual.txt"}.get(phase)
+                   "virtual": "profile_round_virtual.txt",
+                   "rotate_two_phase": "profile_round_two_phase.txt"}.get(phase)
         if profile:
             profile_round(torch, res, profile, tiled=tiled)
     return launches, trace, n_it
@@ -905,19 +1050,23 @@ def main(argv=None) -> int:
         "K11": {"name": "K11 materialize_r", "route": "cuda",
                 "source": "harmony_tpu_torch/csrc/rotate.cu",
                 "replaces": "harmony_tpu/ops/pallas_rotate.py:1621"},
+        "K12": {"name": "K12 rotate_round_v1", "route": "cuda",
+                "source": "harmony_tpu_torch/csrc/estep_round.cu",
+                "replaces": "harmony_tpu/ops/pallas_rotate.py:223"},
     }
     wrappers = {"K1": cuda_estep.block_update_round, "K2": cuda_permute.permute_rounds,
                 "K3": cuda_permute.materialize, "K4": cuda_ridge.moments,
                 "K5": cuda_ridge.correction, "K6": cuda_rotate.reassign,
                 "K7": cuda_rotate.rotate_update_round_v2, "K8": cuda_ridge.tile_moments,
                 "K9": cuda_ridge.tiled_correction, "K10": cuda_rotate.virtual_correction,
-                "K11": cuda_rotate.materialize_r}
+                "K11": cuda_rotate.materialize_r, "K12": cuda_estep.rotate_update_round_v1}
     # the kernels each path must launch, and those it must not
     paths = {"permute": (("K2", "K3", "K9"), ("K1", "K8")),
              "permute_rounds": (("K1", "K4", "K5"), ("K2", "K3")),
-             "main": (("K6", "K7", "K9"), ("K8", "K10", "K11")),
+             "main": (("K6", "K7", "K9"), ("K8", "K10", "K11", "K12")),
              "virtual": (("K6", "K7", "K10", "K11"), ("K8", "K9")),
-             "rotate_rounds": (("K6", "K7", "K8", "K9"), ("K10", "K11"))}
+             "rotate_rounds": (("K6", "K7", "K8", "K9"), ("K10", "K11", "K12")),
+             "rotate_two_phase": (("K12", "K8", "K9"), ("K6", "K7", "K10", "K11"))}
     t_start = time.perf_counter()
 
     # ---- 1. env ----------------------------------------------------------
@@ -977,6 +1126,10 @@ def main(argv=None) -> int:
         kernels["K9"].update(k9)
         # ragged: two covariates, a mixed tail after the pure tiles, pads
         check_tiled(torch, dev, 30_011, 13, 7, (3, 4), 128, 14, False)
+        kernels["K12"].update(check_rotate_v1(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 22,
+                                              True))
+        # ragged: two covariates, N not a multiple of the tile, pad cells
+        check_rotate_v1(torch, dev, 30_011, 13, 7, (3, 4), 23, False)
         for k, row in kernels.items():
             log(f"  {k}: {row.get('ms', float('nan')):.3f} ms, plain "
                 f"{row.get('plain_ms', float('nan')):.3f} ms, library "
@@ -989,6 +1142,8 @@ def main(argv=None) -> int:
         check_traj(torch, dev, "permute_fused")
         check_traj(torch, dev, "rotate")
         check_traj(torch, dev, "rotate_virtual")
+        check_traj(torch, dev, "rotate_two_phase")
+        check_cell_route(torch, dev, wrappers)
 
     # ---- 5.-9. the main paths ---------------------------------------------
     traces = {}

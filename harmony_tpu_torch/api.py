@@ -78,6 +78,30 @@ def _resolve_shuffle_mode(
     return "rotate"
 
 
+def _ingest_order(cfg: HarmonyConfig, Z: np.ndarray, design: DesignMatrix, seed: int,
+                  pinned: bool = False):
+    """Reorder the cells once at ingest (harmony_tpu/api.py:479-525), for
+    the rotate schedule and for the fused permute phase unless the caller
+    ``pinned`` the order (``init_Y``): the batch-tiled order where the
+    mixture gate allows it; else rotate takes a plain random permutation
+    and permute keeps the caller's order (it draws a fresh permutation
+    every round anyway). Returns (Z, design, ingest_inv), the inverse
+    permutation None where nothing moved."""
+    if not (cfg.shuffle_mode == "rotate" or (cfg.permute_fused and not pinned)):
+        return Z, design, None
+    tiled_t = None
+    if cfg.mstep_mode in ("auto", "tiled"):
+        tiled_t = choose_tiled_tile(cfg, count_joint_levels(design.codes))
+    if tiled_t:
+        perm, _ = build_batch_tiled_order(design.codes, tiled_t, seed)
+    elif cfg.shuffle_mode == "rotate":
+        perm = np.random.default_rng(seed).permutation(cfg.N)
+    else:
+        return Z, design, None
+    return (Z[:, perm], dataclasses.replace(design, codes=design.codes[:, perm]),
+            np.argsort(perm))
+
+
 @dataclasses.dataclass
 class HarmonyResult:
     """Result object mirroring the reference engine's exposed fields
@@ -269,7 +293,17 @@ def run_harmony(
     shuffles the cells once at ingest (the batch-tiled order of
     ops/tiled.py where it qualifies, else a plain permutation from
     ``seed``) and runs the stats-carrying rotate rounds (K6/K7) with the
-    batch-tiled M-step (K7's fused moments, K9); 'auto' picks rotate at 100k cells and up
+    batch-tiled M-step (K7's fused moments, K9); below ``n_blocks * 128``
+    cells (2,560 at the default ``block_size``) it runs the cell-granular
+    rotate round instead (plain PyTorch, every round reading and writing
+    R, with the dense M-step unless the order is batch-tiled), since whole
+    tiles cannot make the reference's block count there. The rounds that
+    read the old statistics from R on the tile schedule (K12,
+    ``HarmonyConfig.rotate_stats_carry=False``) have no argument here, as
+    in the JAX package: they are reached through the config and the
+    driver (``preprocess.resolve_config``, ``dataclasses.replace``,
+    ``finalize_engine_config``, ``state.init_state``, ``driver.run``).
+    'auto' picks rotate at 100k cells and up
     unless ``init_Y`` is given. 'permute' at 200k cells and up (K <= 256,
     the default clustering budget, the kernels) runs each clustering phase
     as the fused R-gather-free phase (K2/K3; ``HarmonyConfig.permute_fused``
@@ -335,24 +369,7 @@ def run_harmony(
         cfg, estep_impl=estep_impl, mstep_impl=mstep_impl, virtual_r=virtual_r
     )
     cfg = finalize_engine_config(cfg)
-    ingest_inv = None
-    if shuffle_mode == "rotate" or (cfg.permute_fused and init_Y is None):
-        # reorder once at ingest (harmony_tpu/api.py:479-525): the
-        # batch-tiled order where the mixture gate allows it; else rotate
-        # takes a plain random permutation and permute keeps the caller's
-        # order (it draws a fresh permutation every round anyway)
-        tiled_t = None
-        if cfg.mstep_mode in ("auto", "tiled"):
-            tiled_t = choose_tiled_tile(cfg, count_joint_levels(design.codes))
-        perm = None
-        if tiled_t:
-            perm, _ = build_batch_tiled_order(design.codes, tiled_t, seed)
-        elif shuffle_mode == "rotate":
-            perm = np.random.default_rng(seed).permutation(N)
-        if perm is not None:
-            ingest_inv = np.argsort(perm)
-            Z = Z[:, perm]
-            design = dataclasses.replace(design, codes=design.codes[:, perm])
+    Z, design, ingest_inv = _ingest_order(cfg, Z, design, seed, init_Y is not None)
     tiled = tiled_layout(cfg, design.codes)
     hp = expand_hyperparams(
         design, cfg.K, theta, sigma, lamb, options.tau, verbose=verbose

@@ -154,8 +154,10 @@ class HarmonyConfig:
     # Rotate schedule: cells per schedule tile (shrunk by
     # finalize_engine_config), the batch-tiled layout's tile width, the
     # M-step moment strategy ('auto' | 'tiled' | 'dense'), the assignment
-    # op order ('fused_vpu'; 'fused_mxu' is the same function) and the
-    # stats-carrying round (the only rotate round ported).
+    # op order of the stats-carrying round ('fused_vpu'; 'fused_mxu' is the
+    # same function) and whether the rounds carry per-tile statistics
+    # (K6/K7) or read the old block statistics from R (K12); see
+    # :attr:`rotate_route`.
     estep_sub_tile: int = 4096
     mstep_tile: int = 256
     mstep_mode: str = "auto"
@@ -189,6 +191,21 @@ class HarmonyConfig:
     def Np(self) -> int:
         """Physical (possibly padded) length of the cell axis."""
         return self.N if self.N_pad is None else self.N_pad
+
+    @property
+    def rotate_route(self) -> Optional[str]:
+        """The rotate round this config runs (None on the permute
+        schedule): 'cell', the cell-granular round (ops/estep.py), below
+        ``n_blocks * 128`` cells, where tiles of 128 cells or more cannot
+        make the reference's block count (harmony_tpu/config.py:396-405);
+        else 'carry', the stats-carrying rounds (K6/K7), or 'two_phase',
+        the rounds that read the old block statistics from R (K12), by
+        ``rotate_stats_carry``."""
+        if self.shuffle_mode != "rotate":
+            return None
+        if self.Np < self.n_blocks * 128:
+            return "cell"
+        return "carry" if self.rotate_stats_carry else "two_phase"
 
     @property
     def use_segments(self) -> bool:
@@ -323,10 +340,15 @@ def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
     - ``estep_impl``/``mstep_impl='auto'`` pick the hand-written kernels for
       float32 engines (the kernels are fp32 only) and the plain PyTorch path
       otherwise; 'kernel' on CPU tensors runs the kernels' plain twins.
-    - ``shuffle_mode='rotate'`` runs the stats-carrying schedule (K6/K7,
-      ops/rotate.py) with the JAX package's tile geometry; the rotate
-      options that select another path raise ``NotImplementedError``
-      naming their ROADMAP item.
+    - ``shuffle_mode='rotate'`` runs the round :attr:`HarmonyConfig.rotate_route`
+      names. The tile routes ('carry', 'two_phase') get the JAX package's
+      tile geometry, whether or not the rounds carry stats
+      (harmony_tpu/config.py:453-482); the cell-granular route gets none,
+      as the JAX package's XLA path gets none. ``estep_variant='legacy'``
+      raises on the stats-carrying route (K7's op orders) and is ignored
+      on the other two, which have one op sequence each, as the JAX
+      package ignores it there; the segmented M-step raises naming its
+      ROADMAP item.
     - ``permute_fused=None`` resolves to True under the JAX package's gate
       (harmony_tpu/config.py:421-432): the permute schedule, the kernels,
       ``Np >= 200_000``, ``K <= 256`` and a static round count
@@ -358,23 +380,12 @@ def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
     if cfg.virtual_r is None:
         cfg = dataclasses.replace(cfg, virtual_r=reduced)
     if cfg.shuffle_mode == "rotate":
-        if not cfg.rotate_stats_carry:
-            raise _not_ported(
-                "rotate_stats_carry=False (the two-phase rotate round)",
-                "ROADMAP B, K12",
-            )
-        if cfg.estep_variant == "legacy":
+        if cfg.estep_variant == "legacy" and cfg.rotate_route == "carry":
             raise _not_ported("estep_variant='legacy'", "ROADMAP A9")
         if cfg.mstep_mode == "segment":
             raise _not_ported("the segmented M-step (ops/segments.py)", "ROADMAP A9")
-        if cfg.Np < cfg.n_blocks * 128:
-            raise _not_ported(
-                f"shuffle_mode='rotate' below n_blocks * 128 = "
-                f"{cfg.n_blocks * 128} cells (the cell-granular rotate round, "
-                "ops/estep.rotate_update_round)",
-                "ROADMAP A9",
-            )
-        cfg = _rotate_geometry(cfg)
+        if cfg.rotate_route != "cell":
+            cfg = _rotate_geometry(cfg)
     impl = "kernel" if cfg.dtype == "float32" else "torch"
     if cfg.estep_impl == "auto":
         cfg = dataclasses.replace(cfg, estep_impl=impl)

@@ -1,9 +1,11 @@
-"""K1: the wrapper of the E-step round kernel.
+"""K1 and K12: the wrappers of the E-step round kernels.
 
-Counterpart of ``harmony_tpu/ops/pallas_estep.py``
-(``pallas_block_update_round``), a drop-in for
-:func:`harmony_tpu_torch.ops.estep.block_update_round`, which is its plain
-version. The CUDA source is ``csrc/estep_round.cu``.
+Counterparts of ``harmony_tpu/ops/pallas_estep.py``
+(``pallas_block_update_round``) and ``harmony_tpu/ops/pallas_rotate.py``
+(``pallas_rotate_update_round``), drop-ins for their plain versions
+:func:`harmony_tpu_torch.ops.estep.block_update_round` and
+:func:`harmony_tpu_torch.ops.rotate.rotate_update_round_v1`. The CUDA
+source of both is ``csrc/estep_round.cu``.
 
 For CUDA tensors the round is a host loop over the blocks: one commit
 launch removes block 0's old contribution, then each block gets an assign
@@ -15,25 +17,39 @@ statistics (``pallas_estep.py:177-182``). Blocks are contiguous ranges of
 the permuted cells, so no pad slots exist. For CPU tensors the wrapper
 runs the plain version; anything else raises. ``launches`` counts calls
 into the kernel's C entry points (2 * n_blocks + 1 a round).
+
+K12 (:func:`rotate_update_round_v1`) runs the same assign and commit
+kernels on the rotate schedule's physical layout, with no gather or
+scatter: one launch first sums the old R per span of cells into a table
+of old statistics, then one commit removes the first block's, and each
+block gets an assign launch over its tiles (which may wrap past the last
+tile) and a commit that removes the next block's old statistics, the
+sum of its tiles' rows. 2 * nb + 2 launches a round. The new R is
+another buffer than the input R.
 """
 
 from __future__ import annotations
 
 import torch
 
+from typing import Sequence
+
 from .. import _build
 from ..config import HarmonyConfig
+from . import rotate
 from .assign import block_bounds
 from .estep import RoundResult, block_update_round as block_update_round_twin
 
 _F32 = torch.float32
 _SMEM_MAX = 232_448  # bytes of shared memory a CTA may use on Hopper
 _WARPS = 8  # kWarps in estep_round.cu
+_CT_OLD = 64  # kCT of old_stats_kernel
 _SIGNATURES = {
-    "k1_assign": [_build.PTR] * 7 + [_build.I64, _build.I64] + [_build.INT] * 7
+    "k1_assign": [_build.PTR] * 7 + [_build.I64, _build.I64] + [_build.INT] * 10
     + [_build.PTR],
-    "k1_commit": [_build.PTR, _build.INT] + [_build.PTR] * 8
-    + [_build.INT] * 4 + [_build.PTR],
+    "k1_commit": [_build.PTR, _build.INT, _build.PTR, _build.PTR, _build.PTR]
+    + [_build.INT] * 3 + [_build.PTR] * 4 + [_build.INT] * 3 + [_build.PTR],
+    "k12_old_stats": [_build.PTR] * 3 + [_build.I64] + [_build.INT] * 5 + [_build.PTR],
 }
 
 
@@ -41,6 +57,11 @@ def assign_smem_bytes(K: int, d: int, B: int, ncov: int, T: int) -> int:
     """Shared memory of one assign CTA over T cells (layout in the .cu)."""
     floats = K * d + d * T + K * (T + 1) + 2 * K * B + K + 2 * _WARPS
     return 4 * (floats + ncov * T)
+
+
+def old_stats_smem_bytes(K: int, B: int, ncov: int) -> int:
+    """Shared memory of one K12 old-statistics CTA."""
+    return 4 * (K * (_CT_OLD + 1) + K * B + K + ncov * _CT_OLD)
 
 
 def cell_tile(K: int, d: int, B: int, ncov: int) -> int:
@@ -103,7 +124,10 @@ def block_update_round(
     bounds = block_bounds(cfg)
     rsum_old = torch.stack([R_old[:, s:s + n].sum(dim=1) for s, n in bounds])
     O_old = torch.stack([R_old[:, s:s + n] @ oh[s:s + n] for s, n in bounds])
-    del R_old, oh
+    # one row of old statistics a block: [row sums | batch sums | 2 unused]
+    old = torch.cat([rsum_old, O_old.reshape(len(bounds), -1),
+                     rsum_old.new_zeros((len(bounds), 2))], dim=1)
+    del R_old, oh, rsum_old, O_old
 
     Yt = Y.t().contiguous()
     E_w, O_w = E.contiguous().clone(), O.contiguous().clone()
@@ -118,10 +142,9 @@ def block_update_round(
 
     def commit(ncta: int, add: int, rm: int) -> None:
         _build.check(lib.k1_commit(
-            part.data_ptr(), ncta, E_w.data_ptr(), O_w.data_ptr(),
-            rsum_old.data_ptr(), O_old.data_ptr(), Pr_c.data_ptr(),
-            th_c.data_ptr(), pen.data_ptr(), acc.data_ptr(), K, B, add, rm,
-            stream,
+            part.data_ptr(), ncta, E_w.data_ptr(), O_w.data_ptr(), old.data_ptr(),
+            max(rm, 0), int(rm >= 0), len(bounds), Pr_c.data_ptr(), th_c.data_ptr(),
+            pen.data_ptr(), acc.data_ptr(), K, B, add, stream,
         ), "k1_commit")
         block_update_round.launches += 1
 
@@ -132,7 +155,7 @@ def block_update_round(
             _build.check(lib.k1_assign(
                 Yt.data_ptr(), Z_lay.data_ptr(), g_lay.data_ptr(), pen.data_ptr(),
                 sig_c.data_ptr(), R_lay.data_ptr(), part.data_ptr(), N, start,
-                size, K, d, B, ncov, T, smem, stream,
+                size, K, d, B, ncov, T, 0, 0, 0, smem, stream,
             ), "k1_assign")
             block_update_round.launches += 1
         commit(-(-size // T), 1, i + 1 if i + 1 < nb else -1)
@@ -143,3 +166,98 @@ def block_update_round(
 
 
 block_update_round.launches = 0
+
+
+def rotate_update_round_v1(
+    cfg: HarmonyConfig,
+    Y: torch.Tensor,  # (d, K)
+    R: torch.Tensor,  # (K, NT*T) the previous round's assignments
+    E: torch.Tensor,  # (K, B)
+    O: torch.Tensor,  # (K, B)
+    Pr_b: torch.Tensor,  # (B,)
+    sigma: torch.Tensor,  # (K,)
+    theta: torch.Tensor,  # (B,)
+    rt: int,
+    order: Sequence[int],
+    layout: rotate.CodesLayout,
+) -> RoundResult:
+    """K12: one rotate round that reads the old block statistics from R,
+    for the schedule (rt, order); the kernels on CUDA, the plain version
+    on CPU."""
+    codes = layout.codes_pad
+    dev = codes.device
+    floats = {"Y": Y, "R": R, "E": E, "O": O, "Pr_b": Pr_b, "sigma": sigma,
+              "theta": theta, "Z_pad": layout.Z_pad}
+    for name, t in floats.items():
+        if t.device != dev:
+            raise ValueError(f"rotate_update_round_v1: {name} is on {t.device}, codes on {dev}")
+    if dev.type == "cpu":
+        return rotate.rotate_update_round_v1(cfg, Y, R, E, O, Pr_b, sigma, theta, rt,
+                                             order, layout)
+    if dev.type != "cuda":
+        raise ValueError(f"rotate_update_round_v1: unsupported device {dev}")
+    for name, t in floats.items():
+        # Y may be a strided view: the wrapper copies Y^T for the kernel
+        if t.dtype != _F32 or not (t.is_contiguous() or name == "Y"):
+            raise TypeError(f"rotate_update_round_v1: {name} must be contiguous float32")
+    if codes.dtype != torch.int32 or not codes.is_contiguous():
+        raise TypeError("rotate_update_round_v1: codes must be contiguous int32")
+    d, L = layout.Z_pad.shape
+    K, B, ncov, T = cfg.K, cfg.B, cfg.n_covariates, cfg.estep_sub_tile
+    NT = L // T
+    if (T % _CT_OLD or L % T or NT != rotate.n_tiles(cfg) or R.shape != (K, L)
+            or Y.shape != (d, K) or E.shape != (K, B) or O.shape != (K, B)
+            or codes.shape != (ncov, L)):
+        raise ValueError(f"rotate_update_round_v1: the layout ({L} cells), R, Y, E or O "
+                         f"disagree with the config (whole tiles of {T} cells, a "
+                         f"multiple of {_CT_OLD})")
+    Tc = cell_tile(K, d, B, ncov)
+    smem = assign_smem_bytes(K, d, B, ncov, Tc)
+    smem_old = old_stats_smem_bytes(K, B, ncov)
+    if smem_old > _SMEM_MAX:
+        raise ValueError(f"rotate_update_round_v1: K={K}, B={B} need {smem_old} bytes of "
+                         f"shared memory a CTA, over the {_SMEM_MAX} a CTA may use")
+    span = next(s for s in (512, 256, 128, 64) if T % s == 0)
+    split = T // span  # rows of old statistics a tile
+    szs, vstart = rotate.block_sizes(cfg)
+    off = torch.as_tensor(cfg.covariate_offsets, dtype=torch.int32, device=dev)
+    gcodes = torch.where(codes >= 0, codes + off[:, None], -1).to(torch.int32).contiguous()
+    P = K + K * B + 2
+    old = torch.empty((NT * split, P), dtype=_F32, device=dev)
+    part = torch.empty((max(szs) * T // Tc, P), dtype=_F32, device=dev)
+    Yt = Y.t().contiguous()
+    E_w, O_w = E.clone(), O.clone()
+    pen = torch.empty((K, B), dtype=_F32, device=dev)
+    acc = torch.zeros(2, dtype=_F32, device=dev)
+    R_out = torch.empty_like(R)
+    lib = _build.load("estep_round", _SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    _build.check(lib.k12_old_stats(R.data_ptr(), gcodes.data_ptr(), old.data_ptr(), L,
+                                   span, K, B, ncov, smem_old, stream), "k12_old_stats")
+    rotate_update_round_v1.launches += 1
+
+    def commit(ncta: int, add: int, rm_blk: int) -> None:
+        v, n = ((vstart[rm_blk] + rt) % NT, szs[rm_blk]) if rm_blk >= 0 else (0, 0)
+        _build.check(lib.k1_commit(
+            part.data_ptr(), ncta, E_w.data_ptr(), O_w.data_ptr(), old.data_ptr(),
+            v * split, n * split, NT * split, Pr_b.data_ptr(), theta.data_ptr(),
+            pen.data_ptr(), acc.data_ptr(), K, B, add, stream,
+        ), "k1_commit")
+        rotate_update_round_v1.launches += 1
+
+    order = [int(b) for b in order]
+    commit(0, 0, order[0])
+    for i, blk in enumerate(order):
+        ncells = szs[blk] * T
+        _build.check(lib.k1_assign(
+            Yt.data_ptr(), layout.Z_pad.data_ptr(), gcodes.data_ptr(), pen.data_ptr(),
+            sigma.data_ptr(), R_out.data_ptr(), part.data_ptr(), L, 0, ncells, K, d, B,
+            ncov, Tc, T, NT, (vstart[blk] + rt) % NT, smem, stream,
+        ), "k1_assign")
+        rotate_update_round_v1.launches += 1
+        commit(ncells // Tc, 1, order[i + 1] if i + 1 < len(order) else -1)
+    return RoundResult(R=R_out, E=E_w, O=O_w, kmeans_error=acc[0], entropy=acc[1])
+
+
+rotate_update_round_v1.launches = 0

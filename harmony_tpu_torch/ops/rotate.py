@@ -20,6 +20,10 @@ stats-carrying path:
   :1451): R recomputed per tile from those tables, then Z_orig - W_joint R.
 * :func:`materialize_r`, the twin of K11 (``_materialize_r_kernel``,
   :1621): the run-end R from the same tables.
+* :func:`rotate_update_round_v1`, the twin of K12 (``_round_kernel``,
+  :223): the round without the stats carry, which reads each block's old
+  statistics from the input R (phase 0) before it assigns the block and
+  writes its R (phase 1). Its op order is K1's (``estep.py``), not K7's.
 
 All three compute R with one function (:func:`_assign_r`), as the three
 kernels share one device routine.
@@ -45,6 +49,7 @@ import torch
 
 from ..config import HarmonyConfig
 from .cuda_ridge import tile_moments_twin, tiled_correction_twin
+from .estep import RoundResult
 from .objective import xlogx
 from .permute_phase import MomentsSpec  # the same record on both paths
 
@@ -184,6 +189,20 @@ def block_old_stats(
     dev = tile_O.device
     blk_O = cs_ex[(vs_t + szs_t).to(dev)] - cs_ex[vs_t.to(dev)]
     return steps, blk_O
+
+
+def v1_steps(cfg: HarmonyConfig, rt: int, order: Sequence[int]) -> torch.Tensor:
+    """(5, 2 NT) int64 step table of K12's two-phase walk (``_schedule``,
+    pallas_rotate.py:330): per block in ``order``, its tiles once in phase
+    0 and once in phase 1. Rows: physical tile, block, phase, first step
+    of the block's phase, last step of the block (phase 1 only)."""
+    cols = []
+    for blk in order:
+        tiles = block_tiles(cfg, rt, int(blk))
+        for phase in (0, 1):
+            cols += [(t, int(blk), phase, int(j == 0), int(phase == 1 and j == len(tiles) - 1))
+                     for j, t in enumerate(tiles)]
+    return torch.tensor(cols, dtype=torch.int64).t()
 
 
 def _one_hot_tiles(cfg: HarmonyConfig, codes: torch.Tensor) -> torch.Tensor:
@@ -356,6 +375,78 @@ def rotate_update_round_v2(
                       tile_O=tile_O, kmeans_error=acc_d, entropy=acc_e, M=M,
                       pen=pen_out,
                       blkmap=block_of_tiles(cfg, rt, Y.device) if emit_pen else None)
+
+
+def rotate_update_round_v1(
+    cfg: HarmonyConfig,
+    Y: torch.Tensor,  # (d, K)
+    R: torch.Tensor,  # (K, Np) the previous round's assignments
+    E: torch.Tensor,  # (K, B)
+    O: torch.Tensor,  # (K, B)
+    Pr_b: torch.Tensor,  # (B,)
+    sigma: torch.Tensor,  # (K,)
+    theta: torch.Tensor,  # (B,)
+    rt: int,
+    order: Sequence[int],
+    layout: CodesLayout,
+) -> RoundResult:
+    """Plain version of K12 (``pallas_rotate_update_round``,
+    pallas_rotate.py:1752) for the schedule (rt, order), step by step
+    along :func:`v1_steps`. Phase 0 sums the block's old row sums and O
+    from the input R, tile by tile; the first phase-1 step removes them
+    and builds the penalty; each phase-1 step assigns one tile as K1's
+    chain does (``exp(-d / sigma)``, an unguarded normalise, the penalty,
+    a guarded one) and the block's last step adds its new statistics
+    back. Pad cells have all-zero one-hot rows, so their R is 0."""
+    K, Np = R.shape
+    d, Npt = layout.Z_pad.shape
+    T = cfg.estep_sub_tile
+    NT = Npt // T
+    R3 = pad_cells_to_tile(cfg, R.to(_F32)).reshape(K, NT, T)
+    Z3 = layout.Z_pad.to(_F32).reshape(d, NT, T)
+    oh = _one_hot_tiles(cfg, layout.codes_pad.reshape(-1, NT, T))  # (NT, T, B)
+    Yt = Y.t().to(_F32)
+    sig = sigma.to(_F32)[:, None]
+    Pr = Pr_b.to(_F32)[None, :]
+    th = theta.to(_F32)[None, :]
+    E_s, O_s = E.to(_F32), O.to(_F32)
+    R_new = torch.empty((K, NT, T), dtype=_F32, device=R.device)
+    acc_d = torch.zeros((), dtype=_F32, device=R.device)
+    acc_e = torch.zeros((), dtype=_F32, device=R.device)
+    for tile, _, phase, first, last in v1_steps(cfg, rt, order).t().tolist():
+        oh_t = oh[tile]
+        if phase == 0:
+            if first:
+                rold = torch.zeros((K, 1), dtype=_F32, device=R.device)
+                Oold = torch.zeros_like(E_s)
+            R_t = R3[:, tile]
+            rold = rold + R_t.sum(dim=1, keepdim=True)
+            Oold = Oold + R_t @ oh_t
+            continue
+        if first:
+            # remove the block (src/harmony.cpp:312-313), then its penalty
+            E_s = E_s - rold * Pr
+            O_s = O_s - Oold
+            pen = ((2.0 * E_s + 1.0) / (O_s + E_s + 1.0)) ** th
+            rpend = torch.zeros((K, 1), dtype=_F32, device=R.device)
+            Opend = torch.zeros_like(E_s)
+        d_t = 2.0 * (1.0 - Yt @ Z3[:, tile])
+        R_n = torch.exp(-d_t / sig)
+        R_n = R_n / R_n.sum(dim=0, keepdim=True)
+        R_n = R_n * (pen @ oh_t.t())
+        colsum = R_n.sum(dim=0, keepdim=True)
+        R_n = R_n / torch.where(colsum == 0.0, torch.ones_like(colsum), colsum)
+        rpend = rpend + R_n.sum(dim=1, keepdim=True)
+        Opend = Opend + R_n @ oh_t
+        acc_d = acc_d + (R_n * d_t).sum()
+        acc_e = acc_e + (sig * xlogx(R_n)).sum()
+        R_new[:, tile] = R_n
+        if last:
+            # commit the block's new contribution (src/harmony.cpp:329-330)
+            E_s = E_s + rpend * Pr
+            O_s = O_s + Opend
+    return RoundResult(R=R_new.reshape(K, Npt)[:, :Np].to(R.dtype), E=E_s.to(E.dtype),
+                       O=O_s.to(O.dtype), kmeans_error=acc_d, entropy=acc_e)
 
 
 def _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, out_dtype=None):

@@ -81,7 +81,9 @@ def test_run_harmony_matches_between_kernel_and_torch_impls_on_cpu():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        ({"shuffle_mode": "rotate"}, "ROADMAP A9"),
+        # ported: small rotate runs take the cell-granular round (the id is
+        # the one the case had while it raised)
+        pytest.param({"shuffle_mode": "rotate"}, "cell", id="kwargs0-ROADMAP A9"),
         ({"mesh": "auto"}, "ROADMAP A11"),
         ({"checkpoint_path": "x.npz"}, "ROADMAP A10"),
         ({"stream_ingest": True}, "ROADMAP A10"),
@@ -99,6 +101,12 @@ def test_unported_paths_raise(kwargs, item):
         res = run_harmony(Z, meta, ["dataset"], device="cpu", return_object=True, **kwargs)
         assert res.config.virtual_r and res.config.shuffle_mode == "permute"
         assert res.state.virt_pen is None and np.isfinite(res.embeddings).all()
+        return
+    if item == "cell":
+        res = run_harmony(Z, meta, ["dataset"], device="cpu", return_object=True, **kwargs)
+        assert res.config.rotate_route == "cell" and res.config.Np == 60
+        np.testing.assert_allclose(res.R.sum(0), 1.0, atol=1e-5)
+        assert np.isfinite(res.embeddings).all()
         return
     with pytest.raises(NotImplementedError, match=item):
         run_harmony(Z, meta, ["dataset"], device="cpu", **kwargs)

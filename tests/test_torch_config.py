@@ -142,8 +142,9 @@ def test_finalize_resolves_impls_and_refuses_unported():
 
     f64 = tconfig.finalize_engine_config(dataclasses.replace(base, dtype="float64"))
     assert (f64.estep_impl, f64.mstep_impl) == ("torch", "torch")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tconfig.finalize_engine_config(dataclasses.replace(base, shuffle_mode="rotate"))
+    # below n_blocks * 128 cells rotate takes the cell-granular round, untiled
+    small = tconfig.finalize_engine_config(dataclasses.replace(base, shuffle_mode="rotate"))
+    assert (small.rotate_route, small.Np, small.estep_sub_tile) == ("cell", 100, 4096)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tconfig.finalize_engine_config(dataclasses.replace(base, dtype="bfloat16"))
     with pytest.raises(tconfig.HarmonyConfigError):

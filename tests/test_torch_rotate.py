@@ -4,7 +4,8 @@
   package's for several shapes (its ``estep_impl='auto'`` picks Pallas
   only on a TPU, so it is given 'pallas'); the unported rotate options
   raise ``NotImplementedError`` naming their ROADMAP item, and
-  ``virtual_r=True`` resolves.
+  ``virtual_r=True``, ``rotate_stats_carry=False`` and runs below
+  ``n_blocks * 128`` cells resolve.
 * The K6 twin (``ops.rotate.reassign``) against ``pallas_reassign`` in
   interpret mode: Zn atol 1e-6; tile_O, O, E rtol 1e-5.
 * The K7 twin (``ops.rotate.rotate_update_round_v2``) against
@@ -73,6 +74,11 @@ def test_rotate_geometry_matches(N, d, K, B_vec):
     assert (ct.estep_impl, ct.mstep_impl, ct.virtual_r) == ("kernel", "kernel", False)
 
 
+# The cases whose rounds are ported resolve to their route; each keeps, as
+# its id, the ROADMAP item it named while it raised.
+_PORTED_ROUTES = {"ROADMAP B, K12": "two_phase", "cell-granular rotate round": "cell"}
+
+
 @pytest.mark.parametrize(
     "change,item",
     [({"rotate_stats_carry": False}, "ROADMAP B, K12"),
@@ -88,6 +94,16 @@ def test_unported_rotate_options_raise(change, item):
         # ported: virtual R resolves on (engine._virtual_gate decides per run)
         cfg = tconfig.finalize_engine_config(dataclasses.replace(base, **change))
         assert (cfg.virtual_r, cfg.estep_impl, cfg.mstep_impl) == (True, "kernel", "kernel")
+    elif item in _PORTED_ROUTES:
+        route = _PORTED_ROUTES[item]
+        # legacy and virtual R are accepted there, as the JAX package ignores them
+        for extra in ({}, {"estep_variant": "legacy"}, {"virtual_r": True}):
+            cfg = tconfig.finalize_engine_config(dataclasses.replace(base, **change, **extra))
+            assert cfg.rotate_route == route and cfg.estep_impl == "kernel"
+        if route == "cell":
+            assert (cfg.Np, cfg.estep_sub_tile) == (2559, 4096)
+        else:
+            assert (cfg.N_pad, cfg.estep_sub_tile) == (5120, 128)
     else:
         with pytest.raises(NotImplementedError, match=item):
             tconfig.finalize_engine_config(dataclasses.replace(base, **change))
