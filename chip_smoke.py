@@ -14,9 +14,12 @@ Phases (``--phases`` picks a subset, comma-separated):
              the fused moments and the penalty tables), K8, K9, K10, K11
              and K12 against their plain PyTorch versions on the card, at the main
              paths' shapes and at one ragged shape (K7's last round, K10
-             and K11 also at K = d = 100); K11's R against the R K7 wrote
-             in the same round, K10 against K9 on that R; kernel, plain
-             and library-call times and the least time the card could take.
+             and K11 also at K = d = 100; K1, K6 and K7 also at the segment
+             paths' 40 batches); K11's R against the R K7 wrote in the
+             same round, K10 against K9 on that R; kernel, plain and
+             library-call times (K1's a phase of rounds with its scatter
+             back to the cells' order, per round) and the least time the
+             card could take.
 4. traj      20k-cell runs with injected centroids and randomness, once
              through the kernels and once through the plain path: the
              per-round permute schedule and the fused permute phase
@@ -45,7 +48,15 @@ Phases (``--phases`` picks a subset, comma-separated):
              (resolve_config, rotate_stats_carry=False, finalize_engine_config,
              the batch-tiled ingest order, init_state, driver.run): every
              round reads the old statistics from R and writes R: K12, K8
-             and K9 must be launched, K6, K7, K10 and K11 must not.
+             and K9 must be launched, K6, K7, K10 and K11 must not; the
+             objective trace is held to main's (rtol 1e-4).
+11. segment  run_harmony on 200,000 x 50 cells in 40 batches (seed 7,
+             shuffle_mode left at its default, so rotate): no batch-tiled
+             layout exists at this N and B, so the M-step takes the
+             segmented layout (plain PyTorch): K6 and K7 must be launched,
+             K4, K5, K8, K9, K10 and K11 must not; then the same at 80,000
+             cells, which resolves to the per-round permute schedule: K1
+             must be launched, K4 and K5 must not.
 
 It prints a JSON line of the kernels' numbers, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero, and so does
@@ -62,9 +73,12 @@ import sys
 import time
 
 PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
-          "rotate_rounds", "rotate_two_phase")
+          "rotate_rounds", "rotate_two_phase", "segment")
 MAIN_PATHS = ("permute", "permute_rounds", "main", "virtual", "rotate_rounds",
               "rotate_two_phase")
+# the segment phase: (path, cells, schedule its default resolves to)
+SEGMENT_PATHS = (("segment", 200_000, "rotate"), ("segment_permute", 80_000, "permute"))
+B_SEGMENT = 40
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 outside the
 # tensor cores. The bound of a function is the larger of its bytes over the
@@ -154,12 +168,25 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def check_k1(torch, dev, N, d, K, B_vec, seed, timed):
+def check_k1(torch, dev, N, d, K, B_vec, seed, timed, rounds=4):
+    """K1 against its plain version on a round as the main path runs it: R
+    carried in the previous round's block order (another permutation), the
+    new R in this round's. Timed, a phase as the engine runs it: ``rounds``
+    rounds, the first with R in the cells' order, then the one scatter back
+    to the cells' order at its end; ``ms`` is that phase per round."""
     from harmony_tpu_torch.ops import cuda_estep, estep
 
-    args = problem(torch, N, d, K, B_vec, seed, dev)
-    out = cuda_estep.block_update_round(*args)
-    ref = estep.block_update_round(*args)
+    args = list(problem(torch, N, d, K, B_vec, seed, dev))
+    cfg, R0 = args[0], args[3]
+    ks, _ = cuda_estep._stats_slice(K, cfg.B, len(B_vec), cfg.n_blocks)
+    T = cuda_estep.cell_tile(K, d, cfg.B, len(B_vec), cfg.max_block_size,
+                             cuda_estep._sm_count(dev))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 100)
+    order = torch.randperm(N, generator=g, device=dev)
+    args[3] = R0[:, order].contiguous()
+    out = cuda_estep.block_update_round(*args, order=order)
+    ref = estep.block_update_round(*args, order=order, carry=True)
     torch.cuda.synchronize()
     err = float((out.R - ref.R).abs().max())
     errs = {
@@ -169,7 +196,8 @@ def check_k1(torch, dev, N, d, K, B_vec, seed, timed):
         "kmeans_error": rel_err(out.kmeans_error, ref.kmeans_error),
         "entropy": rel_err(out.entropy, ref.entropy),
     }
-    log(f"  K1 N={N} d={d} K={K} B_vec={B_vec}: max|dR|={err:.3e} (atol {R_ATOL}); "
+    log(f"  K1 N={N} d={d} K={K} B_vec={B_vec} ({cfg.n_blocks} blocks, {T} cells an assign "
+        f"CTA, old statistics {ks} of {K} clusters a CTA): max|dR|={err:.3e} (atol {R_ATOL}); "
         + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items() if k != "R")
         + f" (rtol {SUM_RTOL}); kmeans_error {float(out.kmeans_error):.7g} vs "
         f"{float(ref.kmeans_error):.7g}, entropy {float(out.entropy):.7g} vs "
@@ -180,13 +208,30 @@ def check_k1(torch, dev, N, d, K, B_vec, seed, timed):
             require(v <= SUM_RTOL, f"K1 {k} disagrees: {v}")
     row = {"max_abs_err": err}
     if timed:
-        row["ms"] = time_ms(torch, "K1 kernel round", lambda: cuda_estep.block_update_round(*args),
-                            iters=5)
-        row["plain_ms"] = time_ms(torch, "K1 plain round", lambda: estep.block_update_round(*args),
-                                  iters=3)
-        # one round reads Z, the old R, the codes and the permutation and
-        # writes the new R (E/O/Y are tiny); g = Y^T Z is 2*K*d*N flops
-        nbytes = 4 * (d * N + 2 * K * N + len(B_vec) * N) + 8 * N
+        perms = [args[10]] + [torch.randperm(N, generator=g, device=dev)
+                              for _ in range(rounds - 1)]
+
+        def phase():
+            R, E, O, prev = R0, args[4], args[5], None
+            for p in perms:
+                o = cuda_estep.block_update_round(*args[:3], R, E, O, *args[6:10], p,
+                                                  order=prev)
+                R, E, O, prev = o.R, o.E, o.O, p
+            return torch.empty_like(R).index_copy_(1, prev, R)
+
+        row["ms_round"] = time_ms(torch, "K1 kernel round, R carried",
+                                  lambda: cuda_estep.block_update_round(*args, order=order),
+                                  iters=5)
+        row["ms_phase"] = time_ms(torch, f"K1 kernel phase of {rounds} rounds and its scatter",
+                                  phase, iters=2)
+        row["ms"] = row["ms_phase"] / rounds
+        log(f"    K1 a round of the phase, its scatter included: {row['ms']:.4f} ms")
+        row["plain_ms"] = time_ms(
+            torch, "K1 plain round",
+            lambda: estep.block_update_round(*args, order=order, carry=True), iters=3)
+        # one round reads Z, the old R, the codes and the two permutations
+        # and writes the new R (E/O/Y are tiny); g = Y^T Z is 2*K*d*N flops
+        nbytes = 4 * (d * N + 2 * K * N + len(B_vec) * N) + 16 * N
         row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * K * d * N)
         row["library_ms"] = None
     return row
@@ -632,6 +677,13 @@ def check_tiled(torch, dev, N, d, K, B_vec, tile, seed, timed):
         f"levels, {layout.n_pure} cells in pure tiles: max|dM|={e8:.3e} rel {r8:.3e} "
         f"(rtol {SUM_RTOL})")
     log(f"  K9 same inputs: max|dZ|={e9:.3e} rel {r9:.3e} (rtol {SUM_RTOL})")
+    if not timed:
+        # a cell axis that is not a multiple of 4: K8 copies 4 bytes at a time
+        Ro, Zo = R[:, :-1].contiguous(), Z[:, :-1].contiguous()
+        r8o = rel_err(cuda_ridge.tile_moments(Ro, Zo, tile, tj, nj),
+                      cuda_ridge.tile_moments_twin(Ro, Zo, tile, tj, nj))
+        log(f"  K8 at {cfg.Np - 1} cells (unaligned rows): rel {r8o:.3e} (rtol {SUM_RTOL})")
+        require(r8o <= SUM_RTOL, f"K8 disagrees on unaligned rows: {r8o}")
     require(r8 <= SUM_RTOL, f"K8 disagrees: {r8}")
     require(r9 <= SUM_RTOL, f"K9 disagrees: {r9}")
     k8, k9 = {"max_abs_err": e8}, {"max_abs_err": e9}
@@ -659,7 +711,7 @@ def check_tiled(torch, dev, N, d, K, B_vec, tile, seed, timed):
     return k8, k9
 
 
-def profile_round(torch, res, fname, tiled=None, top=12):
+def profile_round(torch, res, fname, layout, top=12):
     """One more Harmony round of the finished run under torch.profiler:
     device time by kernel, and the device's idle share of the round's wall;
     then the same round without the profiler, whose host cost inflates the
@@ -677,11 +729,11 @@ def profile_round(torch, res, fname, tiled=None, top=12):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.harmony_round(cfg, s, tiled=tiled)
+        engine.harmony_round(cfg, s, layout=layout)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    engine.harmony_round(cfg, s, tiled=tiled)
+    engine.harmony_round(cfg, s, layout=layout)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     rows, host = [], []  # device kernels; host ops (an aten op also reports
@@ -766,7 +818,7 @@ def check_traj(torch, dev, mode):
     rng = np.random.default_rng(6)
     Zt = Zh.T
     Y0 = Zt[:, rng.choice(n, base.K, replace=False)]
-    kw, tiled = {}, None
+    kw, layout = {}, None
     if mode == "permute_fused":
         # the fused phase on a batch-tiled order at tile 128, so the M-step
         # takes K3's moments and runs K9
@@ -774,8 +826,8 @@ def check_traj(torch, dev, mode):
         perm, _ = build_batch_tiled_order(design.codes, 128, 0)
         Zt = Zt[:, perm]
         design = dataclasses.replace(design, codes=design.codes[:, perm])
-        tiled = engine.tiled_layout(finalize_engine_config(base), design.codes)
-        require(tiled is not None, "fused permute trajectory: no batch-tiled layout")
+        layout = engine.mstep_layout(finalize_engine_config(base), design.codes)
+        require(layout.tiled is not None, "fused permute trajectory: no batch-tiled layout")
     if mode.startswith("permute"):
         kw["perms"] = np.stack([np.stack([rng.permutation(n) for _ in range(base.max_iter_cluster)])
                                 for _ in range(iters)])
@@ -789,8 +841,8 @@ def check_traj(torch, dev, mode):
         Zt = Zt[:, perm]
         design = dataclasses.replace(design, codes=design.codes[:, perm])
         geo = finalize_engine_config(base)
-        tiled = engine.tiled_layout(geo, design.codes)
-        require(tiled is not None, "rotate trajectory: no batch-tiled layout")
+        layout = engine.mstep_layout(geo, design.codes)
+        require(layout.tiled is not None, "rotate trajectory: no batch-tiled layout")
         NT, nb = rotate.n_tiles(geo), len(rotate.block_sizes(geo)[0])
         kw["schedules"] = [[(int(rng.integers(NT)), rng.permutation(nb).tolist())
                             for _ in range(base.max_iter_cluster)] for _ in range(iters)]
@@ -812,7 +864,7 @@ def check_traj(torch, dev, mode):
         st = init_state(cfg, Zt, design, hp.sigma, hp.theta, hp.lamb, 0, dev)
         k12 = cuda_estep.rotate_update_round_v1.launches
         t0 = time.perf_counter()
-        st = driver.run(cfg, st, Y0=Y0, tiled=tiled, **kw)
+        st = driver.run(cfg, st, Y0=Y0, layout=layout, **kw)
         torch.cuda.synchronize()
         k12 = cuda_estep.rotate_update_round_v1.launches - k12
         require((k12 > 0) == (two_phase and impl == "kernel"),
@@ -896,12 +948,12 @@ def run_two_phase(N, Zh, meta, dev):
         ridge_solver="auto", shuffle_mode="rotate")
     cfg = finalize_engine_config(dataclasses.replace(cfg, rotate_stats_carry=False))
     Z, design, inv = api._ingest_order(cfg, Z, design, 0)
-    tiled = engine.tiled_layout(cfg, design.codes)
+    layout = engine.mstep_layout(cfg, design.codes, dev)
     hp = preprocess.expand_hyperparams(design, cfg.K, None, 0.1, None, opts.tau)
     timers = PhaseTimers(dev)
     with timers.scope("ingest"):
         state = init_state(cfg, Z, design, hp.sigma, hp.theta, hp.lamb, 0, dev)
-    state = driver.run(cfg, state, timers=timers, tiled=tiled)
+    state = driver.run(cfg, state, timers=timers, layout=layout)
     return api.HarmonyResult(config=cfg, state=state, design=design, timers=timers,
                              ingest_inv=inv)
 
@@ -982,7 +1034,8 @@ def run_main_path(torch, dev, wrappers, phase):
         f"{sep0:.4f} -> {sep1:.4f}")
     require(sep1 < sep0, "batch-centroid separation did not shrink")
     if phase != "permute_rounds":
-        tiled = engine.tiled_layout(res.config, res.design.codes)
+        layout = engine.mstep_layout(res.config, res.design.codes, dev)
+        tiled = layout.tiled
         require(tiled is not None and res.ingest_inv is not None,
                 f"{phase} path: no batch-tiled ingest order")
         log(f"  batch-tiled layout: tile {tiled.tile}, {len(tiled.tile_joint)} pure tiles, "
@@ -991,8 +1044,61 @@ def run_main_path(torch, dev, wrappers, phase):
                    "virtual": "profile_round_virtual.txt",
                    "rotate_two_phase": "profile_round_two_phase.txt"}.get(phase)
         if profile:
-            profile_round(torch, res, profile, tiled=tiled)
+            profile_round(torch, res, profile, layout)
     return launches, trace, n_it
+
+
+def run_segment_path(torch, dev, wrappers, path, n, schedule):
+    """run_harmony on n x 50 cells in 40 batches with shuffle_mode left at
+    its default: no batch-tiled layout exists at this N and B, so the
+    M-step is the segmented one. Launch counts are set to 0 right before
+    the call and read right after it. Returns the launches."""
+    import numpy as np
+
+    from harmony_tpu_torch import engine, run_harmony
+
+    Zs, bs = synthetic(torch, n, D_MAIN, B_SEGMENT, 7, dev)
+    sep0 = separation(torch, Zs.t(), bs, B_SEGMENT)
+    Zh, meta = Zs.cpu().numpy(), {"batch": bs.cpu().numpy()}
+    del Zs
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    res = run_harmony(Zh, meta, ["batch"], max_iter=MAX_ITER, return_object=True, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    cfg = res.config
+    layout = engine.mstep_layout(cfg, res.design.codes, dev)
+    ph = res.phase_seconds()
+    n_it = int(res.state.n_rounds)
+    per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
+    log(f"{path} path: run_harmony {n} x {D_MAIN}, K={res.K}, B={res.B}, {cfg.shuffle_mode} "
+        f"(route {cfg.rotate_route!r}, fused={cfg.permute_fused}, Np={cfg.Np}), segmented "
+        f"M-step: {len(layout.segments or ())} covariate layout(s) of "
+        f"{[s.n_tiles for s in layout.segments or ()]} tiles of {cfg.segment_tile} cells; "
+        f"{n_it} iterations, wall {wall:.2f} s")
+    log("  phase seconds: " + json.dumps({k: round(v, 4) for k, v in ph.items()}))
+    log(f"  seconds per Harmony iteration {per_it:.4f}; {n / per_it:,.0f} cells/s per "
+        f"iteration; objective {[round(float(x), 3) for x in res.objective_harmony]}")
+    log(f"  launches: {launches}")
+    require(cfg.shuffle_mode == schedule, f"{path}: resolved shuffle_mode={cfg.shuffle_mode!r}")
+    require(not cfg.permute_fused, f"{path}: resolved the fused permute phase")
+    require(layout.tiled is None and layout.segments is not None,
+            f"{path}: the M-step layout is not the segmented one")
+    emb = res.embeddings
+    require(emb.shape == (n, D_MAIN) and np.isfinite(emb).all(),
+            f"{path}: embeddings not finite or of the wrong shape")
+    dev_r = float(np.abs(res.R.sum(0) - 1).max())
+    sep1 = separation(torch, torch.as_tensor(res.Z_corr, device=dev),
+                      torch.as_tensor(meta["batch"], device=dev), B_SEGMENT)
+    log(f"  R column sums within {dev_r:.2e} of 1; batch-centroid separation "
+        f"{sep0:.4f} -> {sep1:.4f}")
+    require(dev_r <= 1e-4, f"{path}: R column sums off by {dev_r}")
+    require(sep1 < sep0, f"{path}: batch-centroid separation did not shrink")
+    if path == "segment":
+        profile_round(torch, res, "profile_round_segment.txt", layout)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1066,7 +1172,9 @@ def main(argv=None) -> int:
              "main": (("K6", "K7", "K9"), ("K8", "K10", "K11", "K12")),
              "virtual": (("K6", "K7", "K10", "K11"), ("K8", "K9")),
              "rotate_rounds": (("K6", "K7", "K8", "K9"), ("K10", "K11", "K12")),
-             "rotate_two_phase": (("K12", "K8", "K9"), ("K6", "K7", "K10", "K11"))}
+             "rotate_two_phase": (("K12", "K8", "K9"), ("K6", "K7", "K10", "K11")),
+             "segment": (("K6", "K7"), ("K4", "K5", "K8", "K9", "K10", "K11")),
+             "segment_permute": (("K1",), ("K2", "K3", "K4", "K5", "K8", "K9"))}
     t_start = time.perf_counter()
 
     # ---- 1. env ----------------------------------------------------------
@@ -1100,6 +1208,9 @@ def main(argv=None) -> int:
         log("kernels against plain PyTorch on the card:")
         kernels["K1"].update(check_k1(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 1, True))
         check_k1(torch, dev, 1003, 13, 7, (3, 4), 2, False)
+        # segment-permute-80k's shape: at 40 batches the old statistics
+        # split the clusters over two CTAs
+        check_k1(torch, dev, 80_000, D_MAIN, K_MAIN, (B_SEGMENT,), 5, False)
         k2, k3 = check_permute(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 15, True)
         kernels["K2"].update(k2)
         kernels["K3"].update(k3)
@@ -1114,6 +1225,8 @@ def main(argv=None) -> int:
         kernels["K7"].update(k7)
         # ragged: two covariates, N not a multiple of the tile, pad cells
         check_rotate(torch, dev, 30_011, 13, 7, (3, 4), 12, False)
+        # segment-200k's shape: 40 batches
+        check_rotate(torch, dev, 200_000, D_MAIN, K_MAIN, (B_SEGMENT,), 6, False)
         k7m, k10, k11 = check_virtual(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, True)
         kernels["K7"].update(k7m)
         kernels["K10"].update(k10)
@@ -1147,10 +1260,16 @@ def main(argv=None) -> int:
 
     # ---- 5.-9. the main paths ---------------------------------------------
     traces = {}
-    for phase in MAIN_PATHS:
-        if phase not in phases:
-            continue
-        launches, traces[phase], n_it = run_main_path(torch, dev, wrappers, phase)
+    runs = [(p, lambda p=p: run_main_path(torch, dev, wrappers, p)) for p in MAIN_PATHS
+            if p in phases]
+    if "segment" in phases:
+        runs += [(p, lambda p=p, n=n, sch=sch: (run_segment_path(torch, dev, wrappers, p, n,
+                                                                 sch), None, None))
+                 for p, n, sch in SEGMENT_PATHS]
+    for phase, run in runs:
+        launches, trace, n_it = run()
+        if trace is not None:
+            traces[phase] = trace
         need, never = paths[phase]
         for k in need:
             by_path = kernels[k].setdefault("launches_by_path", {})
@@ -1171,6 +1290,14 @@ def main(argv=None) -> int:
                                                                   traces["main"]))
                 log(f"  virtual against main: objective rel {obj_rel:.3e} (rtol 1e-5)")
                 require(obj_rel <= 1e-5, f"virtual path objectives disagree: {obj_rel}")
+        if phase == "rotate_two_phase" and "main" in traces:
+            # the rounds that re-read R against the stats carry: the same
+            # function in another summation order
+            a, b = traces["rotate_two_phase"], traces["main"]
+            obj_rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+            log(f"  rotate_two_phase against main: objective rel {obj_rel:.3e} (rtol 1e-4; "
+                f"{len(a)} and {len(b)} entries); two_phase {a}, main {b}")
+            require(obj_rel <= 1e-4, f"rotate_two_phase objectives disagree: {obj_rel}")
 
     for k in kernels.values():
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -161,6 +161,8 @@ class HarmonyConfig:
     estep_sub_tile: int = 4096
     mstep_tile: int = 256
     mstep_mode: str = "auto"
+    # Cells per tile of the segmented M-step's layout (ops/segments.py).
+    segment_tile: int = 1024
     estep_variant: str = "fused_vpu"
     rotate_stats_carry: bool = True
     # Virtual R: no round writes the (K, N) assignment matrix; the final
@@ -209,8 +211,9 @@ class HarmonyConfig:
 
     @property
     def use_segments(self) -> bool:
-        """Would the JAX package take the segmented M-step (ops/segments.py)
-        when no batch-tiled layout exists? Not ported: the caller raises."""
+        """Does the M-step take the segmented layout (ops/segments.py) when
+        no batch-tiled layout exists? 'segment' always, 'dense' never, and
+        'auto' at N >= 65,536 and B >= 32 (harmony_tpu/config.py:313-321)."""
         if self.mstep_mode in ("segment", "dense"):
             return self.mstep_mode == "segment"
         return self.N >= 65536 and self.B >= 32
@@ -347,8 +350,7 @@ def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
       as the JAX package's XLA path gets none. ``estep_variant='legacy'``
       raises on the stats-carrying route (K7's op orders) and is ignored
       on the other two, which have one op sequence each, as the JAX
-      package ignores it there; the segmented M-step raises naming its
-      ROADMAP item.
+      package ignores it there.
     - ``permute_fused=None`` resolves to True under the JAX package's gate
       (harmony_tpu/config.py:421-432): the permute schedule, the kernels,
       ``Np >= 200_000``, ``K <= 256`` and a static round count
@@ -382,8 +384,6 @@ def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
     if cfg.shuffle_mode == "rotate":
         if cfg.estep_variant == "legacy" and cfg.rotate_route == "carry":
             raise _not_ported("estep_variant='legacy'", "ROADMAP A9")
-        if cfg.mstep_mode == "segment":
-            raise _not_ported("the segmented M-step (ops/segments.py)", "ROADMAP A9")
         if cfg.rotate_route != "cell":
             cfg = _rotate_geometry(cfg)
     impl = "kernel" if cfg.dtype == "float32" else "torch"

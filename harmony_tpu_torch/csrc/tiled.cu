@@ -11,15 +11,28 @@
 //   collecting the mixed/pad tiles.
 // Bound on this card at N = 503,808, d = 50, K = 100: R and Z read once,
 // 0.3 GB (90 us at 3.35 TB/s); 2*K*(d+1)*N = 5.1 GFLOP of fp32 FMA (77 us
-// at 67 TFLOP/s): bytes-bound. Design: the TPU accumulated every tile into
-// its joint's slot in VMEM along a sequential grid. Here the host groups
-// each joint's tiles into chunks of kChunk tiles (a static plan); one CTA
-// per (chunk, cluster slice) accumulates the chunk's (KS x d+1) moments in
-// registers, each thread owning up to kMaxMT 4x4 register tiles fed by
-// 16-byte shared-memory loads of the staged R and [Z;1] columns, and
-// writes them to a partials row. A second launch sums each joint's chunks
-// in order. No atomics, so the result is the same on every run.
-//
+// at 67 TFLOP/s): bytes-bound, with the FMA bound close behind, so the
+// kernel has to stream at full rate and keep the FMA pipes fed at once.
+// Design. The TPU accumulated every tile into its joint's slot in VMEM
+// along a sequential grid. Here the host cuts each joint's tiles into
+// chunks of about 512 cells (a static plan), so the grid holds several
+// even waves of CTAs (about 1,000 at the main shape, four resident an SM);
+// one CTA per (chunk, cluster slice) writes its chunk's moments to a
+// partials row and a second launch sums each joint's rows in order, so
+// there are no float atomics and every run gives the same bits.
+// Inside a CTA, slices of 32 cells of R and Z come in through cp.async,
+// double-buffered: the next slice loads while the current one computes,
+// one barrier a slice. Shared memory is row-major along the cells, as the
+// rows lie in device memory, so each copy is 16 bytes. A thread owns an
+// 8 x 8 register tile of the (cluster, dim) table, rows kb + nkb*i and
+// columns eb + neb*j (strided, so the threads of a warp read distinct bank
+// quads): per 4-cell quad, 16 shared loads of 16 bytes feed 256 FMAs.
+// The row sums come from R through a padding column: row d of every staged
+// Z slice is a constant row of ones, written once per CTA (nothing is
+// staged for it per slice), and fma(r, 1, acc) is an exact add. At the end
+// the table goes out through shared memory, coalesced. IEEE fp32 FMA
+// throughout.
+
 // K9 replaces harmony_tpu/ops/pallas_ridge.py _tiled_correction_kernel
 // (:254), reached through pallas_tiled_correction (:275):
 //   Z_corr[:, t] = Z[:, t] - W_joint[j(t)] R_t, the trash row being zero.
@@ -34,83 +47,158 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSub = 32;   // K8: cells staged at a time
 constexpr int kCT = 64;    // K9: cells per CTA
-constexpr int kMaxMT = 2;  // 4x4 register tiles a thread owns
+constexpr int kMaxMT = 2;  // K9: 4x4 register tiles a thread owns
+// K8
+constexpr int kSub = 32;    // cells a slice
+constexpr int kSP = kSub + 4;  // row stride of a staged slice, in floats
+constexpr int kStages = 2;  // slices in flight
+constexpr int kRT = 8;      // register tile: rows and columns a thread owns
+constexpr int kK8Threads = 96;  // at most; four CTAs an SM
 
-__global__ void __launch_bounds__(kThreads) tile_moments_kernel(
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
+// One CTA: chunk blockIdx.x (up to `chunk` tiles of one joint), cluster
+// rows k0 .. k0 + ks - 1 with k0 = blockIdx.y * KS. Thread t < nkb * neb
+// owns rows kb + nkb*i and columns eb + neb*j (kb = t % nkb, eb = t / nkb). kAligned: N and tile are
+// multiples of 4, so every copy is 16 bytes; else 4.
+template <bool kAligned>
+__global__ void __launch_bounds__(kK8Threads, 4) tile_moments_kernel(
     const float* __restrict__ R,       // (K, N)
     const float* __restrict__ Z,       // (d, N)
     const int* __restrict__ chunks,    // (n_chunks, chunk) tile ids, -1 pad
     float* __restrict__ part,          // (n_chunks, K, d+1) out
-    long long N, int K, int d, int tile, int chunk, int KS, int KSp, int d1p) {
-  extern __shared__ float smem[];
-  float* Rs = smem;               // kSub * KSp, cell-major
-  float* Zs = Rs + kSub * KSp;    // kSub * d1p, cell-major; column d is 1
-  const int tid = threadIdx.x;
-  const int d1 = d + 1;
+    long long N, int K, int d, int tile, int chunk, int KS, int nkb, int neb) {
+  extern __shared__ __align__(16) float smem[];
+  const int rows_r = kRT * nkb, rows_z = kRT * neb;
+  const int stage = (rows_r + rows_z) * kSP;
+  int* tl = reinterpret_cast<int*>(smem + kStages * stage);  // chunk tile ids
+  const int tid = threadIdx.x, nthr = blockDim.x;
   const int k0 = blockIdx.y * KS;
   const int ks = min(KS, K - k0);
-  const int nkb = (ks + 3) / 4, neb = (d1 + 3) / 4;
-  float acc[kMaxMT][4][4];
-#pragma unroll
-  for (int m = 0; m < kMaxMT; ++m)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][i][j] = 0.f;
+  const int d1 = d + 1;
 
+  // once: rows past ks and past d stay zero (no copy writes them), and row
+  // d of each Z slice holds ones for the row sums
+  for (int i = tid; i < kStages * stage; i += nthr) {
+    const int r = i % stage - rows_r * kSP;
+    smem[i] = (r >= d * kSP && r < (d + 1) * kSP) ? 1.f : 0.f;
+  }
+  int ntl = 0;
   for (int c = 0; c < chunk; ++c) {
     const int t = chunks[static_cast<long long>(blockIdx.x) * chunk + c];
     if (t < 0) break;
-    const long long n0 = static_cast<long long>(t) * tile;
-    for (int s0 = 0; s0 < tile; s0 += kSub) {
-      __syncthreads();  // the previous slice's readers are done
-      for (int i = tid; i < kSub * KSp; i += kThreads) {
-        const int k = i / kSub, u = i - k * kSub;
-        const long long n = n0 + s0 + u;
-        Rs[u * KSp + k] = (k < ks && n < N) ? R[(k0 + k) * N + n] : 0.f;
+    if (tid == 0) tl[c] = t;
+    ++ntl;
+  }
+  __syncthreads();
+  const int spt = (tile + kSub - 1) / kSub;  // slices a tile
+  const int ns = ntl * spt;
+
+  auto load = [&](int q) {
+    float* Rb = smem + (q % kStages) * stage;
+    float* Zb = Rb + rows_r * kSP;
+    const int c = q / spt, s0 = (q - c * spt) * kSub;
+    const long long n0 = static_cast<long long>(tl[c]) * tile + s0;
+    const int nv = static_cast<int>(min(static_cast<long long>(min(kSub, tile - s0)), N - n0));
+    if (kAligned) {
+      constexpr int kQ = kSub / 4;
+      for (int i = tid; i < (ks + d) * kQ; i += nthr) {
+        const int row = i / kQ, u = 4 * (i - row * kQ);
+        const int bytes = 4 * max(0, min(4, nv - u));
+        const float* src = row < ks ? R + (k0 + row) * N : Z + (row - ks) * N;
+        float* dst = row < ks ? Rb + row * kSP : Zb + (row - ks) * kSP;
+        cp_async16(dst + u, bytes ? src + n0 + u : src, bytes);
       }
-      for (int i = tid; i < kSub * d1p; i += kThreads) {
-        const int e = i / kSub, u = i - e * kSub;
-        const long long n = n0 + s0 + u;
-        float v = 0.f;
-        if (n < N && e < d1) v = e < d ? Z[e * N + n] : 1.f;
-        Zs[u * d1p + e] = v;
+    } else {
+      for (int i = tid; i < (ks + d) * kSub; i += nthr) {
+        const int row = i / kSub, u = i - row * kSub;
+        const int bytes = u < nv ? 4 : 0;
+        const float* src = row < ks ? R + (k0 + row) * N : Z + (row - ks) * N;
+        float* dst = row < ks ? Rb + row * kSP : Zb + (row - ks) * kSP;
+        cp_async4(dst + u, bytes ? src + n0 + u : src, bytes);
       }
-      __syncthreads();
+    }
+  };
+
+  const bool active = tid < nkb * neb;
+  const int kb = tid % nkb, eb = tid / nkb;
+  float acc[kRT][kRT];
 #pragma unroll
-      for (int m = 0; m < kMaxMT; ++m) {
-        const int mt = tid + m * kThreads;
-        if (mt >= nkb * neb) break;
-        const int kb = mt / neb, eb = mt - kb * neb;
-        for (int u = 0; u < kSub; ++u) {
-          const float4 r = *reinterpret_cast<const float4*>(Rs + u * KSp + 4 * kb);
-          const float4 z = *reinterpret_cast<const float4*>(Zs + u * d1p + 4 * eb);
-          const float rv[4] = {r.x, r.y, r.z, r.w};
-          const float zv[4] = {z.x, z.y, z.z, z.w};
+  for (int i = 0; i < kRT; ++i)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < kRT; ++j) acc[i][j] = 0.f;
+
+  for (int q = 0; q < kStages - 1; ++q) {
+    if (q < ns) load(q);
+    cp_async_commit();
+  }
+  for (int q = 0; q < ns; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice q landed; every thread is done with slice q - 1
+    if (q + kStages - 1 < ns) load(q + kStages - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const float* Rb = smem + (q % kStages) * stage;
+    const float* Zb = Rb + rows_r * kSP;
+    for (int u = 0; u < kSub; u += 4) {
+      float4 r[kRT];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[m][i][j] = fmaf(rv[i], zv[j], acc[m][i][j]);
+      for (int i = 0; i < kRT; ++i)
+        r[i] = *reinterpret_cast<const float4*>(Rb + (kb + nkb * i) * kSP + u);
+#pragma unroll
+      for (int j = 0; j < kRT; ++j) {
+        const float4 z = *reinterpret_cast<const float4*>(Zb + (eb + neb * j) * kSP + u);
+#pragma unroll
+        for (int i = 0; i < kRT; ++i) {
+          float a = fmaf(r[i].x, z.x, acc[i][j]);
+          a = fmaf(r[i].y, z.y, a);
+          a = fmaf(r[i].z, z.z, a);
+          acc[i][j] = fmaf(r[i].w, z.w, a);
         }
       }
     }
   }
-  float* out = part + static_cast<long long>(blockIdx.x) * K * d1;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the table goes out through shared memory in rows of d+1, coalesced
+  // (the buffers are free now)
+  float* red = smem;  // ks x (d+1)
+  if (active) {
 #pragma unroll
-  for (int m = 0; m < kMaxMT; ++m) {
-    const int mt = tid + m * kThreads;
-    if (mt >= nkb * neb) break;
-    const int kb = mt / neb, eb = mt - kb * neb;
+    for (int i = 0; i < kRT; ++i) {
+      const int k = kb + nkb * i;
+      if (k >= ks) continue;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = 4 * kb + i, e = 4 * eb + j;
-        if (k < ks && e < d1) out[(k0 + k) * d1 + e] = acc[m][i][j];
+      for (int j = 0; j < kRT; ++j) {
+        const int e = eb + neb * j;
+        if (e < d1) red[k * d1 + e] = acc[i][j];
       }
+    }
   }
+  __syncthreads();
+  float* out = part + static_cast<long long>(blockIdx.x) * K * d1 + static_cast<long long>(k0) * d1;
+  for (int i = tid; i < ks * d1; i += nthr) out[i] = red[i];
 }
 
 // M[j, :] = sum of the partials rows of joint j's chunks, in chunk order.
@@ -222,17 +310,26 @@ int sum_joint_rows(const void* part, const void* start, void* M, int n_rows,
 
 int k8_tile_moments(const void* R, const void* Z, const void* chunks,
                     const void* start, void* part, void* M, long long N, int K,
-                    int d, int tile, int n_chunks, int n_joint, int KS,
-                    int chunk, int smem_bytes, void* stream) {
+                    int d, int tile, int n_chunks, int n_joint, int KS, int nkb,
+                    int neb, int threads, int chunk, int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_chunks > 0) {
-    int err = set_smem(reinterpret_cast<const void*>(tile_moments_kernel), smem_bytes);
+    const bool aligned = N % 4 == 0 && tile % 4 == 0;
+    const void* kernel = aligned ? reinterpret_cast<const void*>(tile_moments_kernel<true>)
+                                 : reinterpret_cast<const void*>(tile_moments_kernel<false>);
+    int err = set_smem(kernel, smem_bytes);
     if (err) return err;
     dim3 grid(n_chunks, (K + KS - 1) / KS);
-    tile_moments_kernel<<<grid, kThreads, smem_bytes, st>>>(
-        static_cast<const float*>(R), static_cast<const float*>(Z),
-        static_cast<const int*>(chunks), static_cast<float*>(part), N, K, d,
-        tile, chunk, KS, ceil4(KS), ceil4(d + 1));
+    const float* Rf = static_cast<const float*>(R);
+    const float* Zf = static_cast<const float*>(Z);
+    const int* cf = static_cast<const int*>(chunks);
+    float* pf = static_cast<float*>(part);
+    if (aligned)
+      tile_moments_kernel<true><<<grid, threads, smem_bytes, st>>>(
+          Rf, Zf, cf, pf, N, K, d, tile, chunk, KS, nkb, neb);
+    else
+      tile_moments_kernel<false><<<grid, threads, smem_bytes, st>>>(
+          Rf, Zf, cf, pf, N, K, d, tile, chunk, KS, nkb, neb);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }

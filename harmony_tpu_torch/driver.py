@@ -55,16 +55,15 @@ def harmonize(
     abort=None,
     timers=None,
     schedules: Optional[Sequence] = None,
-    tiled=None,
+    layout: Optional[engine.MStepLayout] = None,
 ) -> HarmonyState:
     """Run up to ``max_iter`` rounds of (cluster, correct), with early stop.
 
     ``perms`` injects per-round permutations of shape
     (rounds, max_iter_cluster, N) on the permute schedule; ``schedules``
     injects, per round, the max_iter_cluster (rotation, block order)
-    pairs of the rotate schedule. ``tiled`` is the batch-tiled layout of
-    the M-step of the rotate and fused permute paths
-    (``engine.tiled_layout``). ``abort`` is any
+    pairs of the rotate schedule. ``layout`` is the run's M-step layout
+    (``engine.mstep_layout``; None: dense). ``abort`` is any
     object with an ``aborted()`` method, polled between rounds. A
     virtual-R run materialises its R once after the loop, in the
     ``materialize_r`` timer scope (harmony_tpu/driver.py:149-153, 231-234).
@@ -80,15 +79,16 @@ def harmonize(
         )
     if verbose:
         _ensure_verbose_handler()
+    layout = layout or engine.MStepLayout()
     for it in range(max_iter):
         if abort is not None and abort.aborted():
             raise KeyboardInterrupt("harmony run aborted by user")
         t0 = time.perf_counter()
         with _scope(timers, "cluster"):
             state = engine.cluster(cfg, state, None if perms is None else perms[it],
-                                   None if schedules is None else schedules[it], tiled)
+                                   None if schedules is None else schedules[it], layout.tiled)
         with _scope(timers, "correct"):
-            state = engine.correct(cfg, state, tiled)
+            state = engine.correct(cfg, state, layout)
         converged = engine.harmony_converged(cfg, state)
         dt = time.perf_counter() - t0
         _check_finite(state)
@@ -116,7 +116,7 @@ def run(
     abort=None,
     timers=None,
     schedules: Optional[Sequence] = None,
-    tiled=None,
+    layout: Optional[engine.MStepLayout] = None,
 ) -> HarmonyState:
     """init_cluster (or the injected centroids ``Y0``) + harmonize."""
     with _scope(timers, "init_cluster"):
@@ -125,4 +125,4 @@ def run(
         else:
             state = engine.init_cluster(cfg, state)
     return harmonize(cfg, state, verbose=verbose, perms=perms, abort=abort,
-                     timers=timers, schedules=schedules, tiled=tiled)
+                     timers=timers, schedules=schedules, layout=layout)

@@ -16,7 +16,8 @@ written in place (they are append-only with cursors).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ from .ops.estep import (block_update_round, draw_rotate_schedules, make_rotate_l
 from .ops.normalize import l2_normalize_columns
 from .ops.objective import xlogx
 from .ops.ridge import full_tile_joint
+from .ops.segments import CovariateSegments, build_segments
 from .ops.tiled import TiledCells, detect_tiled_layout
 from .state import HarmonyState
 
@@ -301,7 +303,9 @@ def cluster(
     routes (``cfg.rotate_route``) run :func:`_cluster_rotate_written`; the
     permute schedule, with ``cfg.permute_fused``, the fused phase
     (:func:`_cluster_permute_fused`, which takes ``tiled`` for its moment
-    fusion), else update_R rounds with the windowed early stop.
+    fusion), else update_R rounds with the windowed early stop, R carried
+    in each round's block order and put back in the cells' order once at
+    the phase's end.
     ``perms`` injects the (max_iter_cluster, N) permutations; otherwise
     they are drawn from the state's generator, all up front.
     """
@@ -326,13 +330,23 @@ def cluster(
         return _cluster_permute_fused(cfg, state, perms, tiled)
     update_round = (
         cuda_estep.block_update_round if cfg.estep_impl == "kernel"
-        else block_update_round
+        else functools.partial(block_update_round, carry=True)
     )
+    # R is carried in each round's block order and put back in the cells'
+    # order once, after the phase
+    order = [None]
 
     def round_fn(s: HarmonyState, perm):
-        return update_round(cfg, s.Z_corr, s.Y, s.R, s.E, s.O, s.codes, s.Pr_b, s.sigma,
-                            s.theta, torch.as_tensor(perm, device=dev).long())
-    return _round_loop(cfg, state, round_fn, perms)
+        perm = torch.as_tensor(perm, device=dev).long()
+        res = update_round(cfg, s.Z_corr, s.Y, s.R, s.E, s.O, s.codes, s.Pr_b, s.sigma,
+                           s.theta, perm, order=order[0])
+        order[0] = perm
+        return res
+    state = _round_loop(cfg, state, round_fn, perms)
+    if order[0] is not None:
+        R = torch.empty_like(state.R).index_copy_(1, order[0], state.R)
+        state = dataclasses.replace(state, R=R)
+    return state
 
 
 def _virtual_context(cfg: HarmonyConfig, state: HarmonyState) -> Optional[rotate.VirtualR]:
@@ -348,17 +362,19 @@ def _virtual_context(cfg: HarmonyConfig, state: HarmonyState) -> Optional[rotate
 
 
 def correct(cfg: HarmonyConfig, state: HarmonyState,
-            tiled: Optional[TiledCells] = None) -> HarmonyState:
+            layout: Optional[MStepLayout] = None) -> HarmonyState:
     """M-step: MoE ridge correction + centroid refresh (src/harmony.cpp:345-638);
-    ``tiled`` selects the batch-tiled moments and correction. The moment
+    the run's ``layout`` (:func:`mstep_layout`; None: dense) selects the
+    batch-tiled moments and correction, or the segmented ones. The moment
     table the phase's last round fused (``state.tiled_moments``: K3 on the
     permute path, K7 on the rotate path) is consumed here, so K8 does not
     run after it. On a virtual-R state the correction recomputes R from the
     state's context (K10) and never reads the stale R; the context stays on
     the state for :func:`materialize_r` (harmony_tpu/engine.py:643-657)."""
+    layout = layout or MStepLayout()
     Z_corr, Y_new, _ = ops.moe_correct_ridge(
         cfg, state.Z_orig, state.R, state.O, state.E, state.codes,
-        state.batch_sizes, state.lamb, state.Y, tiled=tiled,
+        state.batch_sizes, state.lamb, state.Y, tiled=layout.tiled, segments=layout.segments,
         tiled_moments=state.tiled_moments, virtual=_virtual_context(cfg, state),
     )
     return dataclasses.replace(
@@ -368,9 +384,11 @@ def correct(cfg: HarmonyConfig, state: HarmonyState,
 
 
 def harmony_round(cfg: HarmonyConfig, state: HarmonyState, perms=None,
-                  schedules=None, tiled=None) -> HarmonyState:
-    """One Harmony round: cluster then correct (R/utils.R:26,35)."""
-    return correct(cfg, cluster(cfg, state, perms, schedules, tiled), tiled)
+                  schedules=None, layout: Optional[MStepLayout] = None) -> HarmonyState:
+    """One Harmony round: cluster then correct (R/utils.R:26,35), on the
+    run's M-step ``layout`` (None: dense)."""
+    layout = layout or MStepLayout()
+    return correct(cfg, cluster(cfg, state, perms, schedules, layout.tiled), layout)
 
 
 def materialize_r(cfg: HarmonyConfig, state: HarmonyState) -> HarmonyState:
@@ -388,29 +406,39 @@ def materialize_r(cfg: HarmonyConfig, state: HarmonyState) -> HarmonyState:
     return dataclasses.replace(state, R=R)
 
 
-def tiled_layout(cfg: HarmonyConfig, codes) -> Optional[TiledCells]:
-    """The batch-tiled layout the M-step of the rotate and fused permute
-    paths rides, detected from the cell order (harmony_tpu/engine.py:
-    811-827), or None (dense M-step). ``codes`` is the (ncov, N or Np)
-    host array in engine order."""
-    if not (cfg.shuffle_mode == "rotate" or cfg.permute_fused) or cfg.mstep_mode == "dense":
-        return None
+class MStepLayout(NamedTuple):
+    """The M-step layout of a run: at most one of the two is set; neither
+    means the dense M-step."""
+
+    tiled: Optional[TiledCells] = None
+    segments: Optional[Tuple[CovariateSegments, ...]] = None
+
+
+def mstep_layout(cfg: HarmonyConfig, codes, device=None) -> MStepLayout:
+    """The run's M-step layout, as ``harmony_tpu/engine.py:808-837`` picks
+    it (the port's rotate schedule and fused permute phase stand where the
+    JAX package has ``estep_impl == 'pallas'``): the batch-tiled layout,
+    detected from the cell order, under ``mstep_mode='auto'`` on those two
+    paths and under ``'tiled'`` on any schedule, where finding none raises
+    ``ValueError``; otherwise the segmented layout where
+    ``cfg.use_segments`` holds, built on the host and moved to ``device``
+    once; otherwise neither (dense). ``codes`` is the (ncov, N or Np) host
+    array in engine order."""
     codes = np.asarray(codes)
-    for t in dict.fromkeys((cfg.mstep_tile, 128)):
-        tiled = detect_tiled_layout(codes, cfg.N, t)
-        if tiled is not None:
-            return tiled
-    if cfg.mstep_mode == "tiled":
-        raise ValueError(
-            "mstep_mode='tiled' requires a batch-tiled cell order "
-            "(ops.tiled.build_batch_tiled_order at ingest)"
-        )
-    if cfg.shuffle_mode == "rotate" and cfg.use_segments:
-        raise _not_ported(
-            "the segmented M-step (no batch-tiled layout at this N and B, "
-            "ops/segments.py)", "ROADMAP A9",
-        )
-    return None
+    if cfg.mstep_mode == "tiled" or (
+            cfg.mstep_mode == "auto" and (cfg.shuffle_mode == "rotate" or cfg.permute_fused)):
+        for t in dict.fromkeys((cfg.mstep_tile, 128)):
+            tiled = detect_tiled_layout(codes, cfg.N, t)
+            if tiled is not None:
+                return MStepLayout(tiled=tiled)
+        if cfg.mstep_mode == "tiled":
+            raise ValueError(
+                "mstep_mode='tiled' requires a batch-tiled cell order "
+                "(ops.tiled.build_batch_tiled_order at ingest)"
+            )
+    if cfg.use_segments:
+        return MStepLayout(segments=build_segments(cfg, codes, cfg.segment_tile, device))
+    return MStepLayout()
 
 
 def harmony_converged(cfg: HarmonyConfig, state: HarmonyState) -> bool:

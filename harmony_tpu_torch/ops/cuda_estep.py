@@ -7,16 +7,23 @@ Counterparts of ``harmony_tpu/ops/pallas_estep.py``
 :func:`harmony_tpu_torch.ops.rotate.rotate_update_round_v1`. The CUDA
 source of both is ``csrc/estep_round.cu``.
 
-For CUDA tensors the round is a host loop over the blocks: one commit
-launch removes block 0's old contribution, then each block gets an assign
-launch over its cells and a commit launch that folds the block's partials
-into E/O (in a fixed order) and removes the next block's old contribution.
-The gather into block order and the scatter back stay PyTorch indexing, as
-they are ``jnp`` gathers outside the kernel in JAX; so do the old-block
-statistics (``pallas_estep.py:177-182``). Blocks are contiguous ranges of
-the permuted cells, so no pad slots exist. For CPU tensors the wrapper
-runs the plain version; anything else raises. ``launches`` counts calls
-into the kernel's C entry points (2 * n_blocks + 1 a round).
+For CUDA tensors the round is a host loop over the blocks. K1
+(:func:`block_update_round`) makes a cell-major copy of Z; one launch
+tables the block of each column of the input R and its batch rows, one
+sums the old R, read once and coalesced, into a table of old statistics
+(one row per block and span of columns), one commit removes block 0's;
+then each block gets an assign launch over its positions of the
+permutation (the kernel reads Z and the codes through the permutation and
+writes the new R at the positions, coalesced: no gather, one-hot or
+scatter in PyTorch) and a commit that folds the block's partials into E/O
+in a fixed order and removes the next block's old contribution. R comes
+in with its columns in any order (``order``) and goes out in the round's
+block order; the engine carries it so through a phase and puts it back in
+the cells' order once at its end. Blocks
+are contiguous ranges of the permutation, so no pad slots exist. 2 *
+n_blocks + 3 launches a round. For CPU tensors the wrapper runs the plain
+version; anything else raises. ``launches`` counts calls into the
+kernels' C entry points.
 
 K12 (:func:`rotate_update_round_v1`) runs the same assign and commit
 kernels on the rotate schedule's physical layout, with no gather or
@@ -24,15 +31,16 @@ scatter: one launch first sums the old R per span of cells into a table
 of old statistics, then one commit removes the first block's, and each
 block gets an assign launch over its tiles (which may wrap past the last
 tile) and a commit that removes the next block's old statistics, the
-sum of its tiles' rows. 2 * nb + 2 launches a round. The new R is
-another buffer than the input R.
+sum of its tiles' rows. 2 * nb + 2 launches a round. In both rounds the
+new R is another buffer than the input R.
 """
 
 from __future__ import annotations
 
-import torch
+import functools
+from typing import Optional, Sequence, Tuple
 
-from typing import Sequence
+import torch
 
 from .. import _build
 from ..config import HarmonyConfig
@@ -42,11 +50,15 @@ from .estep import RoundResult, block_update_round as block_update_round_twin
 
 _F32 = torch.float32
 _SMEM_MAX = 232_448  # bytes of shared memory a CTA may use on Hopper
+_SMEM_SM = 233_472  # bytes of shared memory an SM has for its CTAs
 _WARPS = 8  # kWarps in estep_round.cu
 _CT_OLD = 64  # kCT of old_stats_kernel
+_BS_COLS, _BS_STAGES = 32, 4  # block_stats_kernel: columns a slice, slices in flight
 _SIGNATURES = {
-    "k1_assign": [_build.PTR] * 7 + [_build.I64, _build.I64] + [_build.INT] * 10
+    "k1_assign": [_build.PTR] * 8 + [_build.I64, _build.I64] + [_build.INT] * 10
     + [_build.PTR],
+    "k1_keys": [_build.PTR] * 6 + [_build.INT] * 4 + [_build.PTR],
+    "k1_block_stats": [_build.PTR] * 4 + [_build.I64] + [_build.INT] * 8 + [_build.PTR],
     "k1_commit": [_build.PTR, _build.INT, _build.PTR, _build.PTR, _build.PTR]
     + [_build.INT] * 3 + [_build.PTR] * 4 + [_build.INT] * 3 + [_build.PTR],
     "k12_old_stats": [_build.PTR] * 3 + [_build.I64] + [_build.INT] * 5 + [_build.PTR],
@@ -55,8 +67,32 @@ _SIGNATURES = {
 
 def assign_smem_bytes(K: int, d: int, B: int, ncov: int, T: int) -> int:
     """Shared memory of one assign CTA over T cells (layout in the .cu)."""
-    floats = K * d + d * T + K * (T + 1) + 2 * K * B + K + 2 * _WARPS
-    return 4 * (floats + ncov * T)
+    dp, Bp = -(-d // 4) * 4, B | 1
+    floats = (max((K + T) * dp, _WARPS * K * Bp) + K * (T + 1) + K * Bp + K
+              + _WARPS * K + 2 * _WARPS)
+    return 4 * (floats + T + ncov * T)
+
+
+def block_stats_smem_bytes(K: int, B: int, ncov: int, nb: int, KS: int) -> int:
+    """Shared memory of one K1 old-statistics CTA over KS cluster rows."""
+    stage = KS * (_BS_COLS + 1) + (1 + ncov) * _BS_COLS
+    return 4 * (nb * (B + 1) * KS + _BS_STAGES * stage)
+
+
+def _stats_slice(K: int, B: int, ncov: int, nb: int) -> Tuple[int, int]:
+    """Cluster rows of one old-statistics CTA (at most 128, a lane's four),
+    the most whose table fits, and its shared memory."""
+    for KS in range(min(K, 128), 0, -8):
+        smem = block_stats_smem_bytes(K, B, ncov, nb, KS)
+        if smem <= _SMEM_MAX:
+            return KS, smem
+    raise ValueError(f"block_update_round: {nb} blocks x B={B} need more than "
+                     f"{_SMEM_MAX} bytes of shared memory at 8 clusters a CTA")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def old_stats_smem_bytes(K: int, B: int, ncov: int) -> int:
@@ -64,16 +100,25 @@ def old_stats_smem_bytes(K: int, B: int, ncov: int) -> int:
     return 4 * (K * (_CT_OLD + 1) + K * B + K + ncov * _CT_OLD)
 
 
-def cell_tile(K: int, d: int, B: int, ncov: int) -> int:
-    """Cells per assign CTA: 64, or 32 where 64 does not fit."""
-    for T in (64, 32):
-        if assign_smem_bytes(K, d, B, ncov, T) <= _SMEM_MAX:
+@functools.lru_cache(maxsize=64)
+def cell_tile(K: int, d: int, B: int, ncov: int, ncells: int, n_sm: int) -> int:
+    """Cells per assign CTA (a multiple of 16, at most 128) for a block of
+    ``ncells`` cells on a card of ``n_sm`` SMs: the least T whose CTAs fill
+    the card in one wave (two CTAs an SM where shared memory allows), so
+    every SM gets an even share; where no T does, the largest that fits,
+    which takes the fewest waves."""
+    fitting = [T for T in range(16, 129, 16) if assign_smem_bytes(K, d, B, ncov, T) <= _SMEM_MAX]
+    if not fitting:
+        raise ValueError(
+            f"E-step kernel: K={K}, d={d}, B={B}, {ncov} covariate(s) need "
+            f"{assign_smem_bytes(K, d, B, ncov, 16)} bytes of shared memory at 16 "
+            f"cells a CTA, over the {_SMEM_MAX} a CTA may use"
+        )
+    for T in fitting:
+        per_sm = min(2, _SMEM_SM // (assign_smem_bytes(K, d, B, ncov, T) + 1024))
+        if -(-ncells // T) <= per_sm * n_sm:
             return T
-    raise ValueError(
-        f"E-step kernel: K={K}, d={d}, B={B}, {ncov} covariate(s) need "
-        f"{assign_smem_bytes(K, d, B, ncov, 32)} bytes of shared memory at 32 "
-        f"cells a CTA, over the {_SMEM_MAX} a CTA may use"
-    )
+    return fitting[-1]
 
 
 def block_update_round(
@@ -88,8 +133,12 @@ def block_update_round(
     sigma: torch.Tensor,  # (K,)
     theta: torch.Tensor,  # (B,)
     perm: torch.Tensor,  # (N,)
+    order: Optional[torch.Tensor] = None,
 ) -> RoundResult:
-    """One update_R round; the kernel on CUDA, the plain version on CPU."""
+    """One update_R round; the kernel on CUDA, the plain version with
+    ``carry=True`` on CPU: R's columns hold the cells ``order`` (None: in
+    order), and the new R comes back in the round's block order, as the
+    kernels write it."""
     dev = Z.device
     floats = {"Z": Z, "Y": Y, "R": R, "E": E, "O": O, "Pr_b": Pr_b,
               "sigma": sigma, "theta": theta}
@@ -98,7 +147,7 @@ def block_update_round(
             raise ValueError(f"block_update_round: {name} is on {t.device}, Z on {dev}")
     if dev.type == "cpu":
         return block_update_round_twin(cfg, Z, Y, R, E, O, codes, Pr_b, sigma,
-                                       theta, perm)
+                                       theta, perm, order=order, carry=True)
     if dev.type != "cuda":
         raise ValueError(f"block_update_round: unsupported device {dev}")
     for name, t in floats.items():
@@ -108,60 +157,67 @@ def block_update_round(
     d, B, ncov = Z.shape[0], cfg.B, cfg.n_covariates
     if (Z.shape != (d, N) or Y.shape != (d, K) or E.shape != (K, B)
             or O.shape != (K, B) or codes.shape != (ncov, N)
-            or perm.shape != (N,)):
+            or perm.shape != (N,) or (order is not None and order.shape != (N,))):
         raise ValueError("block_update_round: argument shapes disagree with the config")
-    T = cell_tile(K, d, B, ncov)
+    T = cell_tile(K, d, B, ncov, cfg.max_block_size, _sm_count(dev))
     smem = assign_smem_bytes(K, d, B, ncov, T)
+    nb = cfg.n_blocks
+    KS, smem_stats = _stats_slice(K, B, ncov, nb)
+    n_slices = -(-K // KS)
+    n_spans = max(1, -(-_sm_count(dev) // n_slices))
+    span = -(-(-(-N // n_spans)) // 32) * 32
+    n_spans = -(-N // span)
 
-    perm = perm.to(device=dev, dtype=torch.int64)
+    perm = perm.to(device=dev, dtype=torch.int32).contiguous()
+    if order is not None:
+        order = order.to(device=dev, dtype=torch.int32).contiguous()
     off = torch.as_tensor(cfg.covariate_offsets, dtype=torch.int32, device=dev)
-    Z_lay = Z.index_select(1, perm)  # (d, N) in block order
-    g_lay = (codes.index_select(1, perm) + off[:, None]).contiguous()
-    oh = torch.zeros((N, B), dtype=_F32, device=dev)
-    for c in range(ncov):
-        oh += torch.nn.functional.one_hot(g_lay[c].long(), B).to(_F32)
-    R_old = R.index_select(1, perm)
-    bounds = block_bounds(cfg)
-    rsum_old = torch.stack([R_old[:, s:s + n].sum(dim=1) for s, n in bounds])
-    O_old = torch.stack([R_old[:, s:s + n] @ oh[s:s + n] for s, n in bounds])
-    # one row of old statistics a block: [row sums | batch sums | 2 unused]
-    old = torch.cat([rsum_old, O_old.reshape(len(bounds), -1),
-                     rsum_old.new_zeros((len(bounds), 2))], dim=1)
-    del R_old, oh, rsum_old, O_old
+    gcodes = (codes + off[:, None]).to(torch.int32).contiguous()
+    Zc = Z.t().contiguous()  # (N, d): one contiguous row a cell
+    blk = torch.empty((N,), dtype=torch.int32, device=dev)
+    bq = torch.empty((N,), dtype=torch.int32, device=dev)
+    gq = torch.empty((ncov, N), dtype=torch.int32, device=dev)
 
     Yt = Y.t().contiguous()
     E_w, O_w = E.contiguous().clone(), O.contiguous().clone()
     Pr_c, sig_c, th_c = Pr_b.contiguous(), sigma.contiguous(), theta.contiguous()
+    R_c = R.contiguous()
     pen = torch.empty((K, B), dtype=_F32, device=dev)
     acc = torch.zeros(2, dtype=_F32, device=dev)
-    R_lay = torch.empty((K, N), dtype=_F32, device=dev)
+    R_out = torch.empty((K, N), dtype=_F32, device=dev)
     P = K + K * B + 2
+    old = torch.empty((nb * n_spans, P), dtype=_F32, device=dev)
     part = torch.empty((-(-cfg.max_block_size // T), P), dtype=_F32, device=dev)
     lib = _build.load("estep_round", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
+    _build.check(lib.k1_keys(
+        perm.data_ptr(), None if order is None else order.data_ptr(), gcodes.data_ptr(),
+        blk.data_ptr(), bq.data_ptr(), gq.data_ptr(), N, ncov, cfg.cells_per_block, nb,
+        stream), "k1_keys")
+    _build.check(lib.k1_block_stats(
+        R_c.data_ptr(), bq.data_ptr(), gq.data_ptr(), old.data_ptr(), N, span, n_spans, K,
+        B, ncov, nb, KS, smem_stats, stream), "k1_block_stats")
+    block_update_round.launches += 2
+
     def commit(ncta: int, add: int, rm: int) -> None:
         _build.check(lib.k1_commit(
             part.data_ptr(), ncta, E_w.data_ptr(), O_w.data_ptr(), old.data_ptr(),
-            max(rm, 0), int(rm >= 0), len(bounds), Pr_c.data_ptr(), th_c.data_ptr(),
-            pen.data_ptr(), acc.data_ptr(), K, B, add, stream,
+            max(rm, 0) * n_spans, n_spans if rm >= 0 else 0, nb * n_spans, Pr_c.data_ptr(),
+            th_c.data_ptr(), pen.data_ptr(), acc.data_ptr(), K, B, add, stream,
         ), "k1_commit")
         block_update_round.launches += 1
 
     commit(0, 0, 0)
-    nb = len(bounds)
-    for i, (start, size) in enumerate(bounds):
+    for i, (start, size) in enumerate(block_bounds(cfg)):
         if size:  # a tiny block_size can leave blocks empty; a 0-CTA launch is refused
             _build.check(lib.k1_assign(
-                Yt.data_ptr(), Z_lay.data_ptr(), g_lay.data_ptr(), pen.data_ptr(),
-                sig_c.data_ptr(), R_lay.data_ptr(), part.data_ptr(), N, start,
-                size, K, d, B, ncov, T, 0, 0, 0, smem, stream,
+                Yt.data_ptr(), Zc.data_ptr(), gcodes.data_ptr(), perm.data_ptr(),
+                pen.data_ptr(), sig_c.data_ptr(), R_out.data_ptr(), part.data_ptr(), N,
+                start, size, K, d, B, ncov, T, 0, 0, 0, smem, stream,
             ), "k1_assign")
             block_update_round.launches += 1
         commit(-(-size // T), 1, i + 1 if i + 1 < nb else -1)
-
-    R_out = torch.empty_like(R)
-    R_out.index_copy_(1, perm, R_lay)
     return RoundResult(R=R_out, E=E_w, O=O_w, kmeans_error=acc[0], entropy=acc[1])
 
 
@@ -211,7 +267,8 @@ def rotate_update_round_v1(
         raise ValueError(f"rotate_update_round_v1: the layout ({L} cells), R, Y, E or O "
                          f"disagree with the config (whole tiles of {T} cells, a "
                          f"multiple of {_CT_OLD})")
-    Tc = cell_tile(K, d, B, ncov)
+    szs, vstart = rotate.block_sizes(cfg)
+    Tc = cell_tile(K, d, B, ncov, max(szs) * T, _sm_count(dev))
     smem = assign_smem_bytes(K, d, B, ncov, Tc)
     smem_old = old_stats_smem_bytes(K, B, ncov)
     if smem_old > _SMEM_MAX:
@@ -219,12 +276,11 @@ def rotate_update_round_v1(
                          f"shared memory a CTA, over the {_SMEM_MAX} a CTA may use")
     span = next(s for s in (512, 256, 128, 64) if T % s == 0)
     split = T // span  # rows of old statistics a tile
-    szs, vstart = rotate.block_sizes(cfg)
     off = torch.as_tensor(cfg.covariate_offsets, dtype=torch.int32, device=dev)
     gcodes = torch.where(codes >= 0, codes + off[:, None], -1).to(torch.int32).contiguous()
     P = K + K * B + 2
     old = torch.empty((NT * split, P), dtype=_F32, device=dev)
-    part = torch.empty((max(szs) * T // Tc, P), dtype=_F32, device=dev)
+    part = torch.empty((-(-max(szs) * T // Tc), P), dtype=_F32, device=dev)
     Yt = Y.t().contiguous()
     E_w, O_w = E.clone(), O.clone()
     pen = torch.empty((K, B), dtype=_F32, device=dev)
@@ -251,12 +307,12 @@ def rotate_update_round_v1(
     for i, blk in enumerate(order):
         ncells = szs[blk] * T
         _build.check(lib.k1_assign(
-            Yt.data_ptr(), layout.Z_pad.data_ptr(), gcodes.data_ptr(), pen.data_ptr(),
+            Yt.data_ptr(), layout.Z_pad.data_ptr(), gcodes.data_ptr(), None, pen.data_ptr(),
             sigma.data_ptr(), R_out.data_ptr(), part.data_ptr(), L, 0, ncells, K, d, B,
             ncov, Tc, T, NT, (vstart[blk] + rt) % NT, smem, stream,
         ), "k1_assign")
         rotate_update_round_v1.launches += 1
-        commit(ncells // Tc, 1, order[i + 1] if i + 1 < len(order) else -1)
+        commit(-(-ncells // Tc), 1, order[i + 1] if i + 1 < len(order) else -1)
     return RoundResult(R=R_out, E=E_w, O=O_w, kmeans_error=acc[0], entropy=acc[1])
 
 

@@ -158,15 +158,20 @@ correction.launches = 0
 # ---- K8 / K9: the batch-tiled moments and correction ---------------------
 
 _TILED_SIGNATURES = {
-    "k8_tile_moments": [_build.PTR] * 6 + [_build.I64] + [_build.INT] * 8
+    "k8_tile_moments": [_build.PTR] * 6 + [_build.I64] + [_build.INT] * 11
     + [_build.PTR],
     "k9_tiled_correction": [_build.PTR] * 5 + [_build.I64] + [_build.INT] * 5
     + [_build.PTR],
     "sum_joint_rows": [_build.PTR] * 3 + [_build.INT, _build.I64, _build.PTR],
 }
-_CHUNK_TILES = 8  # layout tiles of one joint level per K8 CTA (kChunk in tiled.cu)
-_MAX_MT = 2  # 4x4 register tiles a thread owns (kMaxMT in tiled.cu)
+_CHUNK_TILES = 8  # layout tiles of one joint level per K3 CTA (cuda_permute)
+_MAX_MT = 2  # K9: 4x4 register tiles a thread owns (kMaxMT in tiled.cu)
 _THREADS = 256
+# K8 (tiled.cu): cells of one joint level per CTA, the row stride of a
+# staged 32-cell slice, staged slices in flight, the side of a thread's
+# register tile, and the most register tiles (threads) a CTA holds
+_K8_CHUNK_CELLS = 512
+_K8_SP, _K8_STAGES, _K8_RT, _K8_MAX_TILES = 36, 2, 8, 96
 
 
 def _tiled_inputs(where, tensors, tile_joint, tile):
@@ -197,25 +202,25 @@ def tile_moments_twin(R, Z, tile: int, tile_joint, n_joint: int) -> torch.Tensor
     return (oh @ S.reshape(nt, -1)).reshape(n_joint + 1, K, d + 1)
 
 
-@functools.lru_cache(maxsize=4)
-def _moments_plan(tj_bytes: bytes, n_joint: int, device: str
+@functools.lru_cache(maxsize=8)
+def _moments_plan(tj_bytes: bytes, n_joint: int, device: str, chunk: int = _CHUNK_TILES
                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Chunks of up to _CHUNK_TILES tiles of one joint level, joints in
+    """Chunks of up to ``chunk`` tiles of one joint level, joints in
     order and tiles ascending within a joint; (chunk tiles (n_chunks,
-    _CHUNK_TILES) padded with -1, first chunk of each joint (n_joint + 2,),
+    chunk) padded with -1, first chunk of each joint (n_joint + 2,),
     n_chunks). The table is fixed for a run, so the plan is built and
     copied to the card once, not at every M-step."""
     tj = np.frombuffer(tj_bytes, dtype=np.int32)
     rows, start = [], [0]
     for j in range(n_joint + 1):
         tiles = np.flatnonzero(tj == j)
-        for a in range(0, len(tiles), _CHUNK_TILES):
-            row = np.full(_CHUNK_TILES, -1, np.int32)
-            part = tiles[a : a + _CHUNK_TILES]
+        for a in range(0, len(tiles), chunk):
+            row = np.full(chunk, -1, np.int32)
+            part = tiles[a : a + chunk]
             row[: len(part)] = part
             rows.append(row)
         start.append(len(rows))
-    chunks = np.stack(rows) if rows else np.zeros((0, _CHUNK_TILES), np.int32)
+    chunks = np.stack(rows) if rows else np.zeros((0, chunk), np.int32)
     return (torch.as_tensor(chunks, device=device),
             torch.as_tensor(np.asarray(start, np.int32), device=device), len(rows))
 
@@ -252,23 +257,30 @@ def tile_moments(R: torch.Tensor, Z: torch.Tensor, tile: int, tile_joint,
     if R.device.type == "cpu":
         return tile_moments_twin(R, Z, tile, tj, n_joint)
     d1 = d + 1
-    neb = -(-d1 // 4)
-    KS = K
-    while KS > 4 and -(-KS // 4) * neb > _MAX_MT * _THREADS:
-        KS -= 4
-    if -(-KS // 4) * neb > _MAX_MT * _THREADS:
-        raise ValueError(f"tile_moments: d={d} needs more than {_MAX_MT} register "
-                         f"tiles a thread")
-    chunks, start, n_chunks = _moments_plan(tj.tobytes(), n_joint, str(R.device))
+    neb = -(-d1 // _K8_RT)  # the ones row for the row sums at d
+    if neb > _K8_MAX_TILES:
+        raise ValueError(f"tile_moments: d={d} is over {_K8_RT * _K8_MAX_TILES}")
+    chunk = max(1, _K8_CHUNK_CELLS // tile)
+    for KS in range(-(-K // _K8_RT) * _K8_RT, 0, -_K8_RT):
+        nkb = KS // _K8_RT
+        stage = _K8_RT * (nkb + neb) * _K8_SP
+        smem = 4 * (_K8_STAGES * stage + chunk)
+        if (nkb * neb <= _K8_MAX_TILES and smem <= _SMEM_MAX
+                and min(KS, K) * d1 <= _K8_STAGES * stage):
+            break
+    else:
+        raise ValueError(f"tile_moments: d={d} needs more than {_SMEM_MAX} bytes of "
+                         "shared memory at 8 clusters a CTA")
+    threads = -(-nkb * neb // 32) * 32
+    chunks, start, n_chunks = _moments_plan(tj.tobytes(), n_joint, str(R.device), chunk)
     part = torch.empty((max(n_chunks, 1), K, d1), dtype=_F32, device=R.device)
     M = torch.empty((n_joint + 1, K, d1), dtype=_F32, device=R.device)
-    smem = 4 * 32 * (_ceil4(KS) + _ceil4(d1))
     lib = _build.load("tiled", _TILED_SIGNATURES)
     stream = torch.cuda.current_stream(R.device).cuda_stream
     _build.check(lib.k8_tile_moments(
         R.data_ptr(), Z.data_ptr(), chunks.data_ptr(), start.data_ptr(),
-        part.data_ptr(), M.data_ptr(), Np, K, d, tile, n_chunks, n_joint, KS,
-        _CHUNK_TILES, smem, stream,
+        part.data_ptr(), M.data_ptr(), Np, K, d, tile, n_chunks, n_joint, KS, nkb, neb,
+        threads, chunk, smem, stream,
     ), "k8_tile_moments")
     tile_moments.launches += 1
     return M

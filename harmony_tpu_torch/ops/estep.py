@@ -89,8 +89,17 @@ def block_update_round(
     sigma: torch.Tensor,  # (K,)
     theta: torch.Tensor,  # (B,)
     perm: torch.Tensor,  # (N,) cell permutation
+    order: Optional[torch.Tensor] = None,
+    carry: bool = False,
 ) -> RoundResult:
-    """One full update_R round in block layout, objective terms included."""
+    """One full update_R round in block layout, objective terms included.
+
+    ``order`` says which cells R's columns hold (None: the cells in
+    order); ``carry=True`` returns R with the columns in the round's block
+    order (column p holds cell ``perm[p]``), so a phase can hand it to its
+    next round as ``order=perm`` and scatter it back once at its end."""
+    if order is not None:
+        R = torch.empty_like(R).index_copy_(1, order.to(R.device).long(), R)
     K, Np = R.shape
     nb, S = cfg.n_blocks, cfg.max_block_size
     dtype = R.dtype
@@ -121,6 +130,9 @@ def block_update_round(
         acc_d, acc_e = acc_d + kerr, acc_e + ent
         R_new[:, i] = R_n
 
+    if carry:  # the blocks' slots in order are the round's positions
+        R_pos = R_new.reshape(K, nb * S)[:, mask.reshape(-1)]
+        return RoundResult(R=R_pos, E=E, O=O, kmeans_error=acc_d, entropy=acc_e)
     # scatter back through the inverse map
     flat_idx = idx.reshape(-1)  # (nb*S,), Np for pad slots
     pos = torch.full((Np + 1,), nb * S, dtype=torch.int64, device=Z.device)

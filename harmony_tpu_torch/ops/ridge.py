@@ -29,6 +29,13 @@ pure tile (``ops/cuda_ridge.py``); the trailing mixed/pad region goes
 through dense one-hot products. Segment sums over joint levels are one-hot
 products, not ``index_add_``, whose CUDA version sums with float atomics.
 
+With ``segments`` (ops/segments.py: per covariate, the cells grouped by
+level into batch-pure tiles) the moments and the correction take the
+O(K·N·d) segmented path of ``harmony_tpu/ops/ridge.py:663-730``: gathers
+into (tiles, T, ·) arrays and batched products. It is XLA in the JAX
+package, so it is plain PyTorch here, on the card too; the K4/K5 kernels
+do not run where segments are given (``harmony_tpu/ops/ridge.py:105-110``).
+
 Under virtual R (``virtual``, a :class:`~harmony_tpu_torch.ops.rotate.VirtualR`;
 harmony_tpu/ops/ridge.py:145-154, 550-654) the state's R is stale: the
 moments come fused from the E-step's final round, the tail's assignments
@@ -128,6 +135,7 @@ def moe_correct_ridge(
     Y_old: torch.Tensor,  # (d, K)
     onehots=None,
     tiled=None,  # ops.tiled.TiledCells -> the batch-tiled O(K N d) path
+    segments=None,  # tuple of ops.segments.CovariateSegments -> segmented path
     tiled_moments=None,  # (n_joint+1, K, d+1) table the E-step fused (K3, K7)
     virtual=None,  # ops.rotate.VirtualR: R is stale, recompute it (needs tiled)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -142,7 +150,7 @@ def moe_correct_ridge(
     keep, any_active = compute_masks(cfg, O, batch_sizes)
     keepf = keep.to(_F32)
     use_kernel = (cfg.mstep_impl == "kernel" and cfg.n_covariates == 1
-                  and tiled is None)
+                  and tiled is None and segments is None)
     Zf = Z_orig.to(_F32).contiguous()
     cross_blocks: Dict[Tuple[int, int], torch.Tensor] = {}
 
@@ -176,7 +184,10 @@ def moe_correct_ridge(
     elif cfg.n_covariates == 1:
         # keep-masking the moments is the cell mask (see module docstring)
         R_eff = R.to(_F32)
-        O_all, rhs_all, _, onehots = _moments_dense(cfg, R_eff, Zf, codes, onehots)
+        if segments is None:
+            O_all, rhs_all, _, onehots = _moments_dense(cfg, R_eff, Zf, codes, onehots)
+        else:
+            O_all, rhs_all, _, R_s = _moments_segmented(cfg, R_eff, Zf, codes, segments)
         O_eff = O_all * keepf
         rhs_batches = rhs_all * keepf[:, :, None]
         r_tot = O_eff.sum(dim=1)
@@ -189,9 +200,14 @@ def moe_correct_ridge(
             kc = keep[:, off : off + cfg.B_vec[c]].index_select(1, codes[c].long())
             cell_mask = kc if cell_mask is None else (cell_mask | kc)
         R_eff = R.to(_F32) * cell_mask.to(_F32)
-        O_eff, rhs_batches, cross_blocks, onehots = _moments_dense(
-            cfg, R_eff, Zf, codes, onehots
-        )
+        if segments is None:
+            O_eff, rhs_batches, cross_blocks, onehots = _moments_dense(
+                cfg, R_eff, Zf, codes, onehots
+            )
+        else:
+            O_eff, rhs_batches, cross_blocks, R_s = _moments_segmented(
+                cfg, R_eff, Zf, codes, segments
+            )
         # every cell has exactly one covariate-0 level: their sum is the
         # intercept moment (src/harmony.cpp:561)
         b0 = cfg.B_vec[0]
@@ -251,7 +267,10 @@ def moe_correct_ridge(
 
         Z_corr = correction(W[:, 1:, :].contiguous(), Rf, Zf, codes[0].contiguous())
         return Z_corr.to(Z_orig.dtype), Y_new, W
-    corr = _correction_dense(cfg, W, R_eff, onehots)
+    if segments is None:
+        corr = _correction_dense(cfg, W, R_eff, onehots)
+    else:
+        corr = _correction_segmented(cfg, W, R_s, segments)
     return (Zf - corr).to(Z_orig.dtype), Y_new, W
 
 
@@ -266,10 +285,62 @@ def full_tile_joint(cfg: HarmonyConfig, tiled) -> np.ndarray:
 
 
 def _segment_sum(x: torch.Tensor, ids, n: int) -> torch.Tensor:
-    """sum of the rows of x (m, ...) into n segments, as a one-hot product."""
-    ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=x.device)
+    """sum of the rows of x (m, ...) into n segments, as a one-hot product;
+    ``ids`` a host array or a tensor."""
+    if not isinstance(ids, torch.Tensor):
+        ids = torch.as_tensor(np.asarray(ids))
+    ids = ids.to(device=x.device, dtype=torch.int64)
     oh = torch.nn.functional.one_hot(ids, n).to(_F32).t()  # (n, m)
     return (oh @ x.reshape(x.shape[0], -1)).reshape((n,) + tuple(x.shape[1:]))
+
+
+def _moments_segmented(cfg, R_eff, Zf, codes, segments):
+    """Batch-pure tile products, O(K·N·d) (harmony_tpu/ops/ridge.py:663-709):
+    per covariate, R and Z gathered into (nt, T, ·) tiles through the
+    layout (the sentinel gathers an appended zero cell), one batched
+    product per tile and segment sums over the tiles' levels; the cross
+    blocks from the tiles of the first covariate against one-hots of the
+    second. Returns (O_eff, rhs_batches, cross_blocks, the gathered R tiles
+    of each covariate)."""
+    Rt_p = torch.cat([R_eff.t(), R_eff.new_zeros((1, cfg.K))])  # (Np+1, K)
+    Zt_p = torch.cat([Zf.t(), Zf.new_zeros((1, cfg.d))])  # (Np+1, d)
+    O_parts, S_parts, R_s_all = [], [], []
+    for c, seg in enumerate(segments):
+        Bc = cfg.B_vec[c]
+        R_s = Rt_p[seg.tile_cells]  # (nt, T, K)
+        Z_s = Zt_p[seg.tile_cells]  # (nt, T, d)
+        R_s_all.append(R_s)
+        O_parts.append(_segment_sum(R_s.sum(dim=1), seg.tile_batch, Bc).t())  # (K, Bc)
+        S_t = torch.bmm(R_s.transpose(1, 2), Z_s)  # (nt, K, d)
+        S_parts.append(_segment_sum(S_t, seg.tile_batch, Bc).transpose(0, 1))
+    cross_blocks: Dict[Tuple[int, int], torch.Tensor] = {}
+    codes_p = torch.cat([codes, codes.new_zeros((codes.shape[0], 1))], dim=1).long()
+    for c1 in range(cfg.n_covariates):
+        seg = segments[c1]
+        for c2 in range(c1 + 1, cfg.n_covariates):
+            b1, b2 = cfg.B_vec[c1], cfg.B_vec[c2]
+            oh2 = torch.nn.functional.one_hot(codes_p[c2][seg.tile_cells], b2).to(_F32)
+            X_t = torch.bmm(R_s_all[c1].transpose(1, 2), oh2)  # (nt, K, b2)
+            cross_blocks[(c1, c2)] = _segment_sum(X_t, seg.tile_batch, b1).transpose(0, 1)
+    return (torch.cat(O_parts, dim=1), torch.cat(S_parts, dim=1), cross_blocks,
+            R_s_all)
+
+
+def _correction_segmented(cfg, W, R_s_all, segments):
+    """corr (d, Np) from the gathered R tiles (harmony_tpu/ops/ridge.py:
+    712-730): each tile's level's betas applied by one batched product,
+    scattered back through each cell's tile slot (none for pad cells)."""
+    corr = None
+    for c, seg in enumerate(segments):
+        o = cfg.covariate_offsets[c]
+        Wc = W[:, 1 + o : 1 + o + cfg.B_vec[c], :].to(_F32)  # (K, Bc, d)
+        W_t = Wc.index_select(1, seg.tile_batch).transpose(0, 1)  # (nt, K, d)
+        corr_t = torch.bmm(R_s_all[c], W_t)  # (nt, T, d)
+        nt, T = seg.tile_cells.shape
+        corr_flat = torch.cat([corr_t.reshape(nt * T, cfg.d), corr_t.new_zeros((1, cfg.d))])
+        t = corr_flat[seg.pos[:-1]]  # (Np, d)
+        corr = t if corr is None else corr + t
+    return corr.t()
 
 
 def _moments_tiled(cfg, R_eff, Zf, codes, tiled, precomputed=None, tail_R=None):

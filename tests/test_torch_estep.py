@@ -8,6 +8,8 @@ Tolerances: R atol 1e-5 (dist/sigma scales a 1e-7 product difference by
 ~10); E/O, k-means error and entropy rtol 1e-5.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -76,14 +78,39 @@ def test_twin_matches_jax_round_and_pallas_kernel(N, d, K, B_vec, block_size, su
 
 
 def test_cuda_wrapper_runs_the_twin_on_cpu_tensors():
+    """On CPU tensors the wrapper is the twin carrying R in block order,
+    as the kernels write it."""
     _, cfgt, a = _problem(300, 6, 4, (2, 3), seed=1)
     t = [torch.as_tensor(np.array(x)) for x in a]
     before = cuda_estep.block_update_round.launches
     out = cuda_estep.block_update_round(cfgt, *t)
-    ref = block_update_round(cfgt, *t)
+    ref = block_update_round(cfgt, *t, carry=True)
     assert cuda_estep.block_update_round.launches == before
     for x, y in zip(out, ref):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("N,d,K,B_vec,block_size", [(300, 6, 4, (2, 3), 0.05),
+                                                   (1003, 13, 7, (3, 4), 0.07)])
+def test_carried_order_matches_the_cells_order(N, d, K, B_vec, block_size):
+    """Two rounds with R carried in block order, then put back, give the
+    rounds in the cells' order exactly; the wrapper on CPU tensors too."""
+    _, cfgt, a = _problem(N, d, K, B_vec, seed=N, block_size=block_size)
+    t = [torch.as_tensor(np.array(x)) for x in a]
+    Z, Y, R, E, O, codes, Pr_b, sigma, theta, p1 = t
+    p2 = torch.as_tensor(np.random.default_rng(N).permutation(N))
+    rest = (codes, Pr_b, sigma, theta)
+    a1 = block_update_round(cfgt, Z, Y, R, E, O, *rest, p1)
+    a2 = block_update_round(cfgt, Z, Y, a1.R, a1.E, a1.O, *rest, p2)
+    for fn in (functools.partial(block_update_round, carry=True),
+               cuda_estep.block_update_round):
+        c1 = fn(cfgt, Z, Y, R, E, O, *rest, p1)
+        assert torch.equal(c1.R, a1.R[:, p1.long()])
+        c2 = fn(cfgt, Z, Y, c1.R, c1.E, c1.O, *rest, p2, order=p1)
+        back = torch.empty_like(c2.R).index_copy_(1, p2.long(), c2.R)
+        assert torch.equal(back, a2.R)
+        for x, y in zip(c2[1:], a2[1:]):
+            assert torch.equal(x, y)
 
 
 def test_cuda_wrapper_rejects_mixed_devices():
@@ -95,14 +122,25 @@ def test_cuda_wrapper_rejects_mixed_devices():
 
 
 @pytest.mark.parametrize(
-    "K,d,B,ncov,T",
-    [(100, 50, 10, 1, 64), (7, 13, 7, 2, 64), (300, 100, 10, 1, 32)],
+    "K,d,B,ncov,ncells,T,one_wave",
+    [
+        (100, 50, 10, 1, 25_000, 96, True),  # 500k cells in 20 blocks: two CTAs an SM
+        (7, 13, 7, 2, 51, 16, True),  # a tiny block: the least T
+        (100, 50, 40, 1, 4_000, 32, True),  # 80k cells, 40 batches: one CTA an SM
+        (100, 50, 10, 1, 100_000, 128, False),  # no T fills one wave: the largest
+        (300, 100, 10, 1, 25_000, 48, False),  # the largest that fits shared memory
+    ],
 )
-def test_cell_tile_fits_shared_memory(K, d, B, ncov, T):
-    assert cuda_estep.cell_tile(K, d, B, ncov) == T
-    assert cuda_estep.assign_smem_bytes(K, d, B, ncov, T) <= 232_448
+def test_cell_tile_fits_shared_memory(K, d, B, ncov, ncells, T, one_wave):
+    """The least T whose CTAs fill an H100's 132 SMs in one wave (two CTAs
+    an SM where shared memory allows), else the largest that fits."""
+    assert cuda_estep.cell_tile(K, d, B, ncov, ncells, 132) == T
+    smem = cuda_estep.assign_smem_bytes(K, d, B, ncov, T)
+    assert smem <= 232_448
+    per_sm = min(2, 233_472 // (smem + 1024))
+    assert (-(-ncells // T) <= per_sm * 132) == one_wave
 
 
 def test_cell_tile_refuses_shapes_past_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_estep.cell_tile(1000, 100, 10, 1)
+        cuda_estep.cell_tile(1000, 100, 10, 1, 25_000, 132)

@@ -245,7 +245,7 @@ def test_fused_slice_matches_jax_engine(impl):
     sj = jstate.init_state(cj, Zt, jd, hj.sigma, hj.theta, hj.lamb, jax.random.PRNGKey(3))
     st = tstate.init_state(ct, Zt, td, ht.sigma, ht.theta, ht.lamb, 3, "cpu")
     tiled_j = jtiled.detect_tiled_layout(np.asarray(sj.codes), cj.N, 128)
-    tiled_t = tengine.tiled_layout(ct, st.codes.numpy())
+    tiled_t = tengine.mstep_layout(ct, st.codes.numpy()).tiled
     assert tiled_t is not None and tiled_t.n_pure == tiled_j.n_pure
     sj = jengine.init_cluster_from(cj, sj, jnp.asarray(Y0))
     st = tengine.init_cluster_from(ct, st, Y0)
@@ -257,7 +257,7 @@ def test_fused_slice_matches_jax_engine(impl):
         st = tengine.cluster(ct, st, perms[it], tiled=tiled_t)
         assert st.tiled_moments is not None
         assert _rel(st.tiled_moments.numpy(), M) <= STAT_REL
-        st = tengine.correct(ct, st, tiled_t)
+        st = tengine.correct(ct, st, tengine.MStepLayout(tiled_t))
         assert st.tiled_moments is None
     tj, tt = sj.trace_lists(cj), st.trace_lists(ct)
     np.testing.assert_array_equal(tt["kmeans_rounds"], tj["kmeans_rounds"])

@@ -94,6 +94,11 @@ def test_unported_rotate_options_raise(change, item):
         # ported: virtual R resolves on (engine._virtual_gate decides per run)
         cfg = tconfig.finalize_engine_config(dataclasses.replace(base, **change))
         assert (cfg.virtual_r, cfg.estep_impl, cfg.mstep_impl) == (True, "kernel", "kernel")
+    elif item == "segmented M-step":
+        # ported: the config resolves, and the M-step takes the segments
+        cfg = tconfig.finalize_engine_config(dataclasses.replace(base, **change))
+        assert cfg.use_segments and cfg.rotate_route == "carry"
+        assert (cfg.N_pad, cfg.estep_sub_tile, cfg.segment_tile) == (5120, 128, 1024)
     elif item in _PORTED_ROUTES:
         route = _PORTED_ROUTES[item]
         # legacy and virtual R are accepted there, as the JAX package ignores them
@@ -286,7 +291,7 @@ def test_rotate_slice_matches_jax_engine(N, Np, lamb, obj_rtol, r_atol, mic):
     sj = jstate.init_state(cj, Zt, jd, hj.sigma, hj.theta, hj.lamb, key)
     st = tstate.init_state(ct, Zt, td, ht.sigma, ht.theta, ht.lamb, 3, "cpu")
     tiled_j = jtiled.detect_tiled_layout(np.asarray(sj.codes), cj.N, 128)
-    tiled_t = tengine.tiled_layout(ct, st.codes.numpy())
+    tiled_t = tengine.mstep_layout(ct, st.codes.numpy()).tiled
     assert tiled_j is not None and tiled_t is not None
     np.testing.assert_array_equal(tiled_t.tile_joint, tiled_j.tile_joint)
     cluster_j = jax.jit(lambda s: jengine.cluster(cj, s, tiled=tiled_j))
@@ -298,7 +303,8 @@ def test_rotate_slice_matches_jax_engine(N, Np, lamb, obj_rtol, r_atol, mic):
         _, sub = jax.random.split(sj.key)
         sched = [_jax_schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)]
         sj = correct_j(cluster_j(sj))
-        st = tengine.correct(ct, tengine.cluster(ct, st, schedules=sched), tiled_t)
+        st = tengine.correct(ct, tengine.cluster(ct, st, schedules=sched),
+                             tengine.MStepLayout(tiled_t))
     tj, tt = sj.trace_lists(cj), st.trace_lists(ct)
     np.testing.assert_array_equal(tt["kmeans_rounds"], tj["kmeans_rounds"])
     _close(tt["objective_kmeans"], tj["objective_kmeans"], rtol=obj_rtol)
@@ -324,8 +330,8 @@ def test_padded_state_crosses_between_packages():
 
 def test_run_harmony_rotate_without_a_tiled_layout():
     """20 batches at 70k cells fail the mixture gate: the ingest order is a
-    plain permutation and the M-step dense; at 40 batches the JAX package
-    would take the segmented M-step, which is not ported."""
+    plain permutation and the M-step dense; at 40 batches it takes the
+    segmented M-step, as the JAX package does."""
     from harmony_tpu_torch import run_harmony
 
     rng = np.random.default_rng(4)
@@ -335,12 +341,15 @@ def test_run_harmony_rotate_without_a_tiled_layout():
     res = run_harmony(Z, {"b": batches}, ["b"], nclust=6, max_iter=2, device="cpu",
                       shuffle_mode="rotate", return_object=True)
     assert res.config.Np == 71_680 and res.config.estep_sub_tile == 2048
-    assert tengine.tiled_layout(res.config, res.design.codes) is None
+    assert tengine.mstep_layout(res.config, res.design.codes) == (None, None)
     plain_order = np.random.default_rng(0).permutation(n)
     np.testing.assert_array_equal(res.ingest_inv, np.argsort(plain_order))
     np.testing.assert_allclose(res.Z_orig, Z.T.astype(np.float32))
     np.testing.assert_allclose(res.R.sum(0), 1.0, atol=1e-4)
     assert np.isfinite(res.embeddings).all() and res.W.shape == (6, 21, d)
-    with pytest.raises(NotImplementedError, match="segmented M-step"):
-        run_harmony(Z, {"b": rng.integers(0, 40, n)}, ["b"], nclust=6, max_iter=1,
-                    device="cpu", shuffle_mode="rotate")
+    res = run_harmony(Z, {"b": rng.integers(0, 40, n)}, ["b"], nclust=6, max_iter=1,
+                      device="cpu", shuffle_mode="rotate", return_object=True)
+    layout = tengine.mstep_layout(res.config, res.design.codes)
+    assert layout.tiled is None and len(layout.segments) == 1
+    assert np.isfinite(res.embeddings).all()
+    np.testing.assert_allclose(res.R.sum(0), 1.0, atol=1e-4)

@@ -236,10 +236,10 @@ def test_written_rounds_match_jax_engine(route, mic):
     tiled_j = tiled_t = None
     if route == "two_phase":
         tiled_j = jtiled.detect_tiled_layout(np.asarray(sj.codes), cj.N, 128)
-        tiled_t = tengine.tiled_layout(ct, st.codes.numpy())
+        tiled_t = tengine.mstep_layout(ct, st.codes.numpy()).tiled
         assert tiled_j is not None and tiled_t is not None
     else:
-        assert tengine.tiled_layout(ct, st.codes.numpy()) is None
+        assert tengine.mstep_layout(ct, st.codes.numpy()).tiled is None
     cluster_j = jax.jit(lambda s: jengine.cluster(cj, s, tiled=tiled_j))
     correct_j = jax.jit(lambda s: jengine.correct(cj, s, tiled=tiled_j))
     sj = jengine.init_cluster_from(cj, sj, jnp.asarray(Y0))
@@ -250,7 +250,8 @@ def test_written_rounds_match_jax_engine(route, mic):
         _, sub = jax.random.split(sj.key)
         sched = [schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)]
         sj = correct_j(cluster_j(sj))
-        st = tengine.correct(ct, tengine.cluster(ct, st, schedules=sched), tiled_t)
+        st = tengine.correct(ct, tengine.cluster(ct, st, schedules=sched),
+                             tengine.MStepLayout(tiled_t))
     assert cuda_estep.rotate_update_round_v1.launches == before
     tj, tt = sj.trace_lists(cj), st.trace_lists(ct)
     np.testing.assert_array_equal(tt["kmeans_rounds"], tj["kmeans_rounds"])

@@ -196,7 +196,7 @@ def _states(cj, ct, jd, td, Zt, hj, ht, Y0, key=3):
     sj = jstate.init_state(cj, Zt, jd, hj.sigma, hj.theta, hj.lamb, jax.random.PRNGKey(key))
     st = tstate.init_state(ct, Zt, td, ht.sigma, ht.theta, ht.lamb, key, "cpu")
     tiled_j = jtiled.detect_tiled_layout(np.asarray(sj.codes), cj.N, 128)
-    tiled_t = tengine.tiled_layout(ct, st.codes.numpy())
+    tiled_t = tengine.mstep_layout(ct, st.codes.numpy()).tiled
     assert tiled_j is not None and tiled_t is not None
     sj = jengine.init_cluster_from(cj, sj, jnp.asarray(Y0))
     st = tengine.init_cluster_from(ct, st, Y0)
@@ -234,7 +234,7 @@ def test_virtual_slice_matches_jax_engine(N):
         _, sub = jax.random.split(sj.key)
         sched = [_jax_schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)]
         sj = round_j(sj)
-        st = tengine.harmony_round(ct, st, schedules=sched, tiled=tiled_t)
+        st = tengine.harmony_round(ct, st, schedules=sched, layout=tengine.MStepLayout(tiled_t))
     assert sj.virt_pen is not None and st.virt_pen is not None
     # the phase's layout is the tensor K6 wrote, carried by reference
     assert st.virt_Zn.shape == (8, 4096)
@@ -272,12 +272,12 @@ def test_virtual_state_crosses_between_packages():
 def test_virtual_run_matches_materialised_run(B_vec):
     setup = _setup(B_vec, 4096, 4096, lamb=1.0)
     ct, td, Zt, ht = setup[1], setup[3], setup[4], setup[6]
-    tiled = tengine.tiled_layout(ct, td.codes)
+    layout = tengine.mstep_layout(ct, td.codes)
     out = {}
     for virtual in (True, False):
         cfg = dataclasses.replace(ct, virtual_r=virtual)
         st = tstate.init_state(cfg, Zt, td, ht.sigma, ht.theta, ht.lamb, 5, "cpu")
-        out[virtual] = tdriver.run(cfg, st, tiled=tiled)
+        out[virtual] = tdriver.run(cfg, st, layout=layout)
     assert out[True].virt_pen is not None and out[False].virt_pen is None
     _close(out[True].Z_corr, out[False].Z_corr, rtol=0, atol=2e-4)
     _close(out[True].trace_lists(ct)["objective_harmony"],
@@ -303,9 +303,9 @@ def test_fused_moments_match_the_k8_path(monkeypatch):
                                              tridge.full_tile_joint(ct, tiled),
                                              int(tiled.joint_codes.shape[1]))
             _close(first.tiled_moments, M, rtol=0, atol=1e-5 * float(M.abs().max()))
-        st = tengine.correct(ct, first, tiled)
+        st = tengine.correct(ct, first, tengine.MStepLayout(tiled))
         for _ in range(2):
-            st = tengine.harmony_round(ct, st, tiled=tiled)
+            st = tengine.harmony_round(ct, st, layout=tengine.MStepLayout(tiled))
         runs[fused] = st
     _close(runs[True].trace_lists(ct)["objective_kmeans"],
            runs[False].trace_lists(ct)["objective_kmeans"], rtol=1e-5)

@@ -1,51 +1,158 @@
 #!/usr/bin/env python3
-"""A/B of harmony_tpu_torch's K1 round between checkouts, on the card.
+"""A/B of harmony_tpu_torch's K1 round, K12 round and K8 between checkouts,
+on the card.
 
-    python3 tools/ab_torch_k1.py PARENT CHANGE CHANGE PARENT
+    python3 tools/ab_torch_k1.py [--paths permute_rounds,...] PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout of this repo. In turn, each runs
 in a fresh process from its own root (so it builds and loads its own
-kernels) one K1 round (``cuda_estep.block_update_round``) at the main
-shape of ``chip_smoke.py`` (500,000 x 50, K = 100, B = 10, seed 1) and
-prints the round's time by CUDA events (the wrapper, host work included)
-and the device time per round of its assign and commit kernels under
-``torch.profiler`` (five rounds). Give the checkouts in turns (parent,
-change, change, parent) to see the spread beside the difference.
+kernels), at the main shapes of ``chip_smoke.py`` (500,000 x 50, K = 100,
+B = 10): one K1 round (``cuda_estep.block_update_round``, seed 1, with R
+carried in block order where the checkout's wrapper takes it); one K1
+phase as the engine runs it, four rounds from R in the cells' order to R
+back in the cells' order (a wrapper that carries R returns it in block
+order, so the phase ends with one scatter; one that does not scatters
+every round); one K12 round (``cuda_estep.rotate_update_round_v1`` on the
+padded rotate layout, seed 22) and one K8 call (``cuda_ridge.tile_moments``,
+tile 256, seed 13). It prints each one's time by CUDA events (the wrapper,
+host work included) and the device time of each of its kernels under
+``torch.profiler`` (five calls, per call). With ``--paths``, each checkout
+then runs those main paths of its own ``chip_smoke.py``
+(``run_main_path``) in the same process, twice: the first run warms up
+the libraries a cold process loads on first use (cuBLAS, cuSOLVER), and
+the lines of the second's end-to-end numbers are printed.
+Give the checkouts in turns (parent, change, change, parent) to see the
+spread beside the difference.
 """
 
+import argparse
 import subprocess
 import sys
 
 _ONE = r'''
-import json, sys
+import inspect, json, os, sys
 import torch
 from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, ".")
 import chip_smoke as cs
-from harmony_tpu_torch.ops import cuda_estep
+from harmony_tpu_torch import ops
+from harmony_tpu_torch.ops import cuda_estep, cuda_permute, cuda_ridge, cuda_rotate, rotate
 dev = torch.device("cuda")
-args = cs.problem(torch, 500_000, 50, 100, (10,), 1, dev)
-ms = cs.time_ms(torch, "K1 round", lambda: cuda_estep.block_update_round(*args), iters=5)
-with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    for _ in range(5):
-        cuda_estep.block_update_round(*args)
-    torch.cuda.synchronize()
-dev_ms = {}
-for e in prof.key_averages():
-    for name in ("assign_kernel", "commit_kernel"):
-        if name in e.key:
-            dev_ms[name] = getattr(e, "self_device_time_total", 0.0) / 1e3 / 5
-print("RESULT " + json.dumps({"round_ms": ms, "device_ms_per_round": dev_ms}))
+torch.backends.cuda.matmul.allow_tf32 = False
+PATHS = [p for p in sys.argv[1].split(",") if p]
+WRAPPERS = {"K1": cuda_estep.block_update_round, "K2": cuda_permute.permute_rounds,
+            "K3": cuda_permute.materialize, "K4": cuda_ridge.moments,
+            "K5": cuda_ridge.correction, "K6": cuda_rotate.reassign,
+            "K7": cuda_rotate.rotate_update_round_v2, "K8": cuda_ridge.tile_moments,
+            "K9": cuda_ridge.tiled_correction, "K10": cuda_rotate.virtual_correction,
+            "K11": cuda_rotate.materialize_r, "K12": cuda_estep.rotate_update_round_v1}
+
+
+def k12_args():
+    cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = cs.rotate_problem(
+        torch, 500_000, 50, 100, (10,), 22, dev)
+    Zn = ops.l2_normalize_columns(Z).contiguous()
+    R = ops.initial_assignments(ops.compute_distances(Y, Zn), sigma)
+    R[:, 500_000:] = 0.0
+    E = ops.compute_E(R, Pr_b)
+    O = ops.compute_O(R, codes_pad.clamp_min(0), cfg.covariate_offsets, cfg.B)
+    NT = rotate.n_tiles(cfg)
+    order = rotate.draw_schedules(cfg, g, 1)[0][1]
+    layout = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad)
+    return (cfg, Y, R.contiguous(), E, O, Pr_b, sigma, theta, NT - 1, order, layout)
+
+
+def k8_args():
+    cfg, R, Z, tj, nj, W, layout = cs.tiled_problem(torch, 500_000, 50, 100, (10,), 256, 13,
+                                                    dev)
+    return (R, Z, 256, tj, nj)
+
+
+CARRIES = "order" in inspect.signature(cuda_estep.block_update_round).parameters
+KW = {"carry": True} if "carry" in inspect.signature(
+    cuda_estep.block_update_round).parameters else {}
+K1_ARGS = list(cs.problem(torch, 500_000, 50, 100, (10,), 1, dev))
+
+
+def k1_call():
+    args = list(K1_ARGS)
+    if not CARRIES:
+        return lambda: cuda_estep.block_update_round(*args)
+    # the round as the main path runs it: R carried in block order
+    g = torch.Generator(device=dev)
+    g.manual_seed(101)
+    order = torch.randperm(500_000, generator=g, device=dev)
+    args[3] = args[3][:, order].contiguous()
+    return lambda: cuda_estep.block_update_round(*args, order=order, **KW)
+
+
+def k1_phase():
+    a = K1_ARGS
+    g = torch.Generator(device=dev)
+    g.manual_seed(102)
+    perms = [a[10]] + [torch.randperm(500_000, generator=g, device=dev) for _ in range(3)]
+
+    def phase():
+        R, E, O, prev = a[3], a[4], a[5], None
+        for p in perms:
+            kw = {"order": prev, **KW} if CARRIES else {}
+            o = cuda_estep.block_update_round(*a[:3], R, E, O, *a[6:10], p, **kw)
+            R, E, O, prev = o.R, o.E, o.O, p
+        return torch.empty_like(R).index_copy_(1, prev, R) if CARRIES else R
+    return phase
+
+
+out = {}
+for name, call in (
+        ("K1", k1_call()),
+        ("K1_phase", k1_phase()),
+        ("K12", (lambda a: lambda: cuda_estep.rotate_update_round_v1(*a))(k12_args())),
+        ("K8", (lambda a: lambda: cuda_ridge.tile_moments(*a))(k8_args()))):
+    ms = cs.time_ms(torch, name, call, iters={"K8": 10, "K1_phase": 2}.get(name, 5))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    dev_ms = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            dev_ms[e.key[:60]] = round(t / 1e3 / 5, 4)
+    out[name] = {"ms": ms, "device_ms_per_call": dev_ms}
+print("RESULT " + json.dumps(out), flush=True)
+os.makedirs(cs.OUT_DIR, exist_ok=True)
+for path in PATHS:
+    cs.run_main_path(torch, dev, WRAPPERS, path)
+    print("MEASURED " + path, flush=True)
+    cs.run_main_path(torch, dev, WRAPPERS, path)
 '''
 
 
-def main(trees):
-    for tree in trees:
-        out = subprocess.run([sys.executable, "-c", _ONE], cwd=tree, capture_output=True,
-                             text=True)
-        res = [line for line in out.stdout.splitlines() if line.startswith("RESULT")]
+# the lines of chip_smoke.py's main paths that carry end-to-end numbers
+_PATH_LINES = (" path:", "phase seconds", "seconds per Harmony iteration", "launches:")
+
+
+def main(argv):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--paths", default="", help="chip_smoke.py main paths to run per checkout")
+    ap.add_argument("trees", nargs="+")
+    args = ap.parse_args(argv)
+    for tree in args.trees:
+        out = subprocess.run([sys.executable, "-c", _ONE, args.paths], cwd=tree,
+                             capture_output=True, text=True)
+        lines = out.stdout.splitlines()
+        res = [line for line in lines if line.startswith("RESULT")]
         print(tree, res[0][7:] if res else "FAILED\n" + out.stderr[-2000:], flush=True)
-        if not res:
+        path = None
+        for line in lines:
+            if line.startswith("MEASURED"):
+                path = line.split()[1]
+            elif path and any(key in line for key in _PATH_LINES):
+                print(f"{tree} {path}: {line.strip()}", flush=True)
+        if not res or out.returncode:
+            print(tree, f"exited {out.returncode}\n" + out.stderr[-2000:], flush=True)
             return 1
     return 0
 
