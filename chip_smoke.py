@@ -9,17 +9,22 @@ Phases (``--phases`` picks a subset, comma-separated):
 
 1. env       the card's name and power limit, torch/CUDA versions; TF32 off.
 2. build     nvcc builds every kernel from harmony_tpu_torch/csrc.
-3. kernels   K1, K2, K3 (with and without the fused moments), K4, K5, K6,
+3. kernels   K1, K2 (its head, the phase's distances, too), K3 (with and
+             without the fused moments), K4, K5, K6 (its Gram table too),
              K7 (with and without writing R, and a phase's last round with
-             the fused moments and the penalty tables), K8, K9, K10, K11
+             the fused moments and the penalty tables; g from K6's Gram
+             table), K8, K9, K10, K11
              and K12 against their plain PyTorch versions on the card, at the main
              paths' shapes and at one ragged shape (K7's last round, K10
-             and K11 also at K = d = 100; K1, K6 and K7 also at the segment
-             paths' 40 batches); K11's R against the R K7 wrote in the
+             and K11 also at K = d = 100; K1, K2, K3, K6 and K7 also at
+             the segment paths' 40 batches, K2 and K3 also at 400
+             batches and at K = 300); K11's R against the R K7 wrote in the
              same round, K10 against K9 on that R; kernel, plain and
-             library-call times (K1's a phase of rounds with its scatter
-             back to the cells' order, per round) and the least time the
-             card could take.
+             library-call times (K1's and K2's a phase of rounds, per
+             round: K1's with its scatter back to the cells' order, K2's
+             with its head), the device time and achieved bytes a second
+             of K2's and K7's cell passes, and the least time the card
+             could take. Each main path also prints its peak device memory.
 4. traj      20k-cell runs with injected centroids and randomness, once
              through the kernels and once through the plain path: the
              per-round permute schedule and the fused permute phase
@@ -168,6 +173,28 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def device_ms(torch, fn, names, calls: int = 3) -> dict:
+    """Device ms per call of ``fn`` under torch.profiler, summed over the
+    kernels whose name holds each of ``names`` ({name: ms})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        for n in names:
+            if n in e.key:
+                out[n] += t / 1e3 / calls
+    return out
+
+
 def check_k1(torch, dev, N, d, K, B_vec, seed, timed, rounds=4):
     """K1 against its plain version on a round as the main path runs it: R
     carried in the previous round's block order (another permutation), the
@@ -237,11 +264,14 @@ def check_k1(torch, dev, N, d, K, B_vec, seed, timed, rounds=4):
     return row
 
 
-def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4):
-    """K2 (the phase's rounds, injected permutations) and K3 (R from the
-    rounds' tables, with and without the fused moments) against their plain
-    versions. The cells are put in a batch-tiled order first, so the moment
-    table has pure tiles; K3 and its plain version get the same tables."""
+def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4, timed_phase=None):
+    """K2 (its head, the phase's distances, and the phase's rounds,
+    injected permutations) and K3 (R from the rounds' tables, with and
+    without the fused moments) against their plain versions. The cells are
+    put in a batch-tiled order first, so the moment table has pure tiles;
+    K3 and its plain version get the same tables. Timed, K2's ``ms`` is a
+    round of a ``rounds``-round phase, its head included (``ms_one_round``
+    a phase of one round; ``timed_phase`` alone times only that)."""
     import numpy as np
 
     from harmony_tpu_torch.ops import cuda_permute
@@ -252,6 +282,8 @@ def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4):
 
     cfg, Z, Y, _, E, O, codes, Pr_b, sigma, theta, _ = problem(
         torch, N, d, K, B_vec, seed, dev)
+    ncov = len(B_vec)
+    timed_phase = timed if timed_phase is None else timed_phase
     tile = 256 if N >= 100_000 else 128
     order, layout = build_batch_tiled_order(codes.cpu().numpy(), tile, seed)
     order = torch.as_tensor(order, device=dev)
@@ -264,6 +296,7 @@ def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4):
     spec = pp.MomentsSpec(Z_orig=Zo, tile_joint=full_tile_joint(cfg, layout), n_joint=nj,
                           tile=tile)
     args = (cfg, Z, Y, E, O, codes, Pr_b, sigma, theta, perms)
+    eh = float((cuda_permute.phase_head(cfg, Z, Y) - pp.phase_head(cfg, Z, Y)).abs().max())
     out = cuda_permute.permute_rounds(*args)
     ref = pp.permute_rounds(*args)
     R3, _ = cuda_permute.materialize(cfg, Z, Y, codes, sigma, out.tables)
@@ -283,11 +316,12 @@ def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4):
     # through the plain materialisation
     e2 = float((R_ref - R_twin).abs().max())
     log(f"  K2 N={N} d={d} K={K} B_vec={B_vec}, {rounds} rounds, {cfg.n_blocks} blocks: "
-        + ", ".join(f"{k} rel {v:.3e}" for k, v in errs2.items()) + f" (rtol {SUM_RTOL}); "
+        f"head max|dG|={eh:.3e} (atol {R_ATOL}); " + ", ".join(f"{k} rel {v:.3e}" for k, v in errs2.items()) + f" (rtol {SUM_RTOL}); "
         f"block ids equal: {blk_same}; R of its tables max|dR|={e2:.3e} (atol {R_ATOL})")
     log(f"  K3 same tables: max|dR|={e3:.3e}, with moments max|dR|={e3m:.3e} (atol {R_ATOL}), "
         f"M rel {r3m:.3e} (rtol {SUM_RTOL}; tile {tile}, {nj} joint levels); kernels' phase "
         f"against the plain phase: max|dR|={e_all:.3e} (atol {R_ATOL})")
+    require(eh <= R_ATOL, f"K2's head disagrees: {eh}")
     for k, v in errs2.items():
         require(v <= SUM_RTOL, f"K2 {k} disagrees: {v}")
     require(blk_same, "K2 block ids disagree")
@@ -295,21 +329,50 @@ def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4):
     require(max(e3, e3m, e_all) <= R_ATOL, f"K3 R disagrees: {e3}, {e3m}, {e_all}")
     require(r3m <= SUM_RTOL, f"K3 moments disagree: {r3m}")
     require(float(R3.sum(0).sub(1).abs().max()) <= 1e-4, "K3 R columns do not sum to 1")
-    k2, k3 = {"max_abs_err": e2}, {"max_abs_err": max(e3, e3m)}
+    k2, k3 = {"max_abs_err": max(e2, eh)}, {"max_abs_err": max(e3, e3m)}
+    warps, shared = cuda_permute.cell_layout(K, cfg.B, ncov)
+    log(f"    K2 cell passes: {warps} warps a CTA, "
+        + ("one batch-sum table a CTA" if shared else "a batch-sum table a warp")
+        + (", the chain in shared memory (K > 256)" if K > 256 else ""))
+    if timed_phase:
+        k2["ms_phase"] = time_ms(torch, f"K2 kernel phase of {rounds} rounds, head included",
+                                 lambda: cuda_permute.permute_rounds(*args), iters=3)
+        k2["ms"] = k2["ms_phase"] / rounds
+        log(f"    K2 a round of the phase, its share of the head included: {k2['ms']:.4f} ms")
     if timed:
         one = (cfg, Z, Y, E, O, codes, Pr_b, sigma, theta, perms[:1])
-        ncov = len(B_vec)
-        k2["ms"] = time_ms(torch, "K2 kernel round", lambda: cuda_permute.permute_rounds(*one),
-                           iters=5)
-        k2["plain_ms"] = time_ms(torch, "K2 plain round", lambda: pp.permute_rounds(*one),
+        k2["ms_one_round"] = time_ms(torch, "K2 kernel phase of one round, head included",
+                                     lambda: cuda_permute.permute_rounds(*one), iters=5)
+        k2["ms_head"] = time_ms(torch, "K2 head", lambda: cuda_permute.phase_head(cfg, Z, Y))
+        dms = device_ms(torch, lambda: cuda_permute.permute_rounds(*args),
+                        ("head_kernel", "round_cells_kernel<false", "round_cells_kernel<true",
+                         "commit_kernel"))
+        # each pass reads G, the permutation and the codes once; the
+        # removal also reads and writes the block ids
+        g_bytes = 4 * N * K + 8 * N + 4 * ncov * N
+        for key, what, nbytes in (("round_cells_kernel<false", "removal", g_bytes + 8 * N),
+                                  ("round_cells_kernel<true", "assign", g_bytes)):
+            ms = dms[key] / rounds
+            k2[f"device_ms_{what}"] = ms
+            log(f"    K2 {what} pass: {ms:.4f} ms device time a round, "
+                f"{nbytes / ms / 1e6:.1f} GB/s ({nbytes / 1e6:.1f} MB)")
+        k2["device_ms_head"] = dms["head_kernel"]
+        k2["device_ms_commits"] = dms["commit_kernel"] / rounds
+        log(f"    K2 device time: head {dms['head_kernel']:.4f} ms a phase, commits "
+            f"{k2['device_ms_commits']:.4f} ms a round")
+        k2["plain_ms"] = time_ms(torch, "K2 plain phase of one round", lambda: pp.permute_rounds(*one),
                                  iters=3)
         k2["library_ms"] = None
-        # a round reads Z, the codes, the block ids and the permutation and
-        # writes the new block ids (E, O and the tables are tiny); Y and Z
-        # are fixed within the phase, so the function needs the distances
-        # once (the kernel computes them again in its removal pass)
-        k2["bound_ms"], k2["bound_by"] = bound(4 * (d * N + ncov * N + 2 * N) + 8 * N,
-                                               2.0 * K * d * N)
+        # what ``ms`` times, a round of a ``rounds``-round phase: the phase
+        # reads Z and the codes once and each round's permutation, writes
+        # the block ids once (E, O, Y and the tables are tiny), and needs
+        # the distances once, as Y and Z are fixed within it; a share of
+        # that per round. A phase of one round (``ms_one_round``) needs all
+        # of it in its one round.
+        phase_bytes = 4 * (d * N + ncov * N + N) + 8 * N * rounds
+        k2["bound_ms"], k2["bound_by"] = bound(phase_bytes / rounds, 2.0 * K * d * N / rounds)
+        k2["bound_ms_one_round"], _ = bound(4 * (d * N + ncov * N + N) + 8 * N,
+                                            2.0 * K * d * N)
         tables = out.tables
         k3["ms_no_moments"] = time_ms(
             torch, "K3 kernel", lambda: cuda_permute.materialize(cfg, Z, Y, codes, sigma, tables))
@@ -409,35 +472,41 @@ def rotate_problem(torch, N, d, K, B_vec, seed, dev):
 
 
 def check_rotate(torch, dev, N, d, K, B_vec, seed, timed):
-    """K6 and K7 (one round with and one without writing R) against their
-    plain versions on the same inputs."""
+    """K6 (its Gram table G included) and K7 (one round with and one
+    without writing R, g from K6's G) against their plain versions on the
+    same inputs; K7's R also against the plain round that forms g itself."""
     from harmony_tpu_torch.ops import cuda_rotate, rotate
 
     cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = rotate_problem(
         torch, N, d, K, B_vec, seed, dev)
     args6 = (cfg, Y, sigma, Pr_b, Z, codes_pad)
-    Zn, tO, O, E = cuda_rotate.reassign(*args6)
+    Zn, tO, O, E, G = cuda_rotate.reassign(*args6)
     ref6 = rotate.reassign(*args6)
     rt, order = rotate.draw_schedules(cfg, g, 1)[0]
-    layout = rotate.CodesLayout(Z_pad=ref6[0], codes_pad=codes_pad)
+    layout = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G)
     rs = rotate.RoundState(R=torch.zeros(K, cfg.Np, device=dev), E=ref6[3], O=ref6[2],
                            tile_O=ref6[1], kmeans_error=None, entropy=None)
     args7 = (cfg, Y, rs, Pr_b, sigma, theta, rt, order, layout)
     out7 = {wr: cuda_rotate.rotate_update_round_v2(*args7, write_r=wr) for wr in (True, False)}
     ref7 = {wr: rotate.rotate_update_round_v2(*args7, write_r=wr) for wr in (True, False)}
+    own_g = rotate.rotate_update_round_v2(*args7[:-1], layout._replace(G=None), write_r=True)
     torch.cuda.synchronize()
     e6 = float((Zn - ref6[0]).abs().max())
+    eg = float((G - ref6[4]).abs().max())
     errs6 = {"tile_O": rel_err(tO, ref6[1]), "O": rel_err(O, ref6[2]), "E": rel_err(E, ref6[3])}
     log(f"  K6 N={N} (Np={cfg.Np}, T={cfg.estep_sub_tile}) d={d} K={K} B_vec={B_vec}: "
-        f"max|dZn|={e6:.3e} (atol 1e-6); "
+        f"max|dZn|={e6:.3e}, max|dG|={eg:.3e} (atol 1e-6); "
         + ", ".join(f"{k} rel {v:.3e}" for k, v in errs6.items()) + f" (rtol {SUM_RTOL})")
     require(e6 <= 1e-6, f"K6 Zn disagrees: {e6}")
+    require(eg <= 1e-6, f"K6 G disagrees: {eg}")
     for k, v in errs6.items():
         require(v <= SUM_RTOL, f"K6 {k} disagrees: {v}")
     e7 = float((out7[True].R - ref7[True].R).abs().max())
+    e7g = float((out7[True].R - own_g.R).abs().max())
     require(out7[False].R is rs.R, "K7 without write_r must hand back the input R")
-    log(f"  K7 schedule rt={rt}, order={order[:5]}...: max|dR|={e7:.3e} (atol {R_ATOL})")
-    require(e7 <= R_ATOL, f"K7 R disagrees: {e7}")
+    log(f"  K7 schedule rt={rt}, order={order[:5]}...: max|dR|={e7:.3e}, against the plain "
+        f"round forming g itself {e7g:.3e} (atol {R_ATOL})")
+    require(max(e7, e7g) <= R_ATOL, f"K7 R disagrees: {e7}, {e7g}")
     for wr in (True, False):
         o, r = out7[wr], ref7[wr]
         errs7 = {"E": rel_err(o.E, r.E), "O": rel_err(o.O, r.O),
@@ -450,11 +519,11 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed):
             f"{float(r.entropy):.7g}")
         for k, v in errs7.items():
             require(v <= SUM_RTOL, f"K7 write_r={wr} {k} disagrees: {v}")
-    k6, k7 = {"max_abs_err": e6}, {"max_abs_err": e7}
+    k6, k7 = {"max_abs_err": max(e6, eg)}, {"max_abs_err": max(e7, e7g)}
     if timed:
         Np, ncov = cfg.Np, len(B_vec)
         flops = 2.0 * K * d * Np
-        k6["ms"] = time_ms(torch, "K6 kernel", lambda: cuda_rotate.reassign(*args6))
+        k6["ms"] = time_ms(torch, "K6 kernel, G stored", lambda: cuda_rotate.reassign(*args6))
         k6["plain_ms"] = time_ms(torch, "K6 plain", lambda: rotate.reassign(*args6))
         k6["library_ms"] = None
         # Z and the codes read once, Zn written once (tile_O, O, E are tiny)
@@ -466,6 +535,15 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed):
             lambda: cuda_rotate.rotate_update_round_v2(*args7, write_r=True), iters=5)
         k7["plain_ms"] = time_ms(torch, "K7 plain round", lambda: rotate.rotate_update_round_v2(
             *args7, write_r=False), iters=3)
+        dms = device_ms(torch, lambda: cuda_rotate.rotate_update_round_v2(*args7, write_r=False),
+                        ("rot_assign_kernel", "rot_commit_kernel"))
+        # the assign launches read G and the codes once a round
+        nbytes = 4 * K * Np + 4 * ncov * Np
+        k7["device_ms_assign"] = dms["rot_assign_kernel"]
+        k7["device_ms_commits"] = dms["rot_commit_kernel"]
+        log(f"    K7 assign launches: {dms['rot_assign_kernel']:.4f} ms device time a round, "
+            f"{nbytes / dms['rot_assign_kernel'] / 1e6:.1f} GB/s ({nbytes / 1e6:.1f} MB); "
+            f"commits {dms['rot_commit_kernel']:.4f} ms")
         k7["library_ms"] = None
         # one round reads Z and the codes once; the round that writes R
         # also writes (K, Np) once
@@ -496,9 +574,10 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
     nj = int(layout.joint_codes.shape[1])
     tj = full_tile_joint(cfg, layout)
     spec = rotate.MomentsSpec(Z_orig=Zo, tile_joint=tj, n_joint=nj, tile=tile)
-    Zn, tO, O, E = rotate.reassign(cfg, Y, sigma, Pr_b, Z, codes_pad)
+    # K6's Zn and G, as the engine hands them to the phase's rounds
+    Zn, tO, O, E, G = cuda_rotate.reassign(cfg, Y, sigma, Pr_b, Z, codes_pad)
     rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
-    lay = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad)
+    lay = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G)
     rs = rotate.RoundState(R=torch.zeros(K, Np, device=dev), E=E, O=O, tile_O=tO,
                            kmeans_error=None, entropy=None)
     args = (cfg, Y, rs, Pr_b, sigma, theta, rt, blocks, lay)
@@ -984,6 +1063,7 @@ def run_main_path(torch, dev, wrappers, phase):
         kw["options"] = harmony_options(max_iter_cluster=6)
     if phase == "virtual":
         kw["virtual_r"] = True
+    torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -1022,6 +1102,8 @@ def run_main_path(torch, dev, wrappers, phase):
     log(f"  kmeans rounds {res.kmeans_rounds.tolist()}; objective "
         f"{[round(x, 3) for x in trace]}")
     log(f"  launches: {launches}")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+        "(torch.cuda.max_memory_allocated over the call)")
     emb = res.embeddings
     require(emb.shape == (N_MAIN, D_MAIN) and np.isfinite(emb).all(),
             "embeddings not finite or of the wrong shape")
@@ -1061,6 +1143,7 @@ def run_segment_path(torch, dev, wrappers, path, n, schedule):
     sep0 = separation(torch, Zs.t(), bs, B_SEGMENT)
     Zh, meta = Zs.cpu().numpy(), {"batch": bs.cpu().numpy()}
     del Zs
+    torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -1082,6 +1165,8 @@ def run_segment_path(torch, dev, wrappers, path, n, schedule):
     log(f"  seconds per Harmony iteration {per_it:.4f}; {n / per_it:,.0f} cells/s per "
         f"iteration; objective {[round(float(x), 3) for x in res.objective_harmony]}")
     log(f"  launches: {launches}")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+        "(torch.cuda.max_memory_allocated over the call)")
     require(cfg.shuffle_mode == schedule, f"{path}: resolved shuffle_mode={cfg.shuffle_mode!r}")
     require(not cfg.permute_fused, f"{path}: resolved the fused permute phase")
     require(layout.tiled is None and layout.segments is not None,
@@ -1216,6 +1301,14 @@ def main(argv=None) -> int:
         kernels["K3"].update(k3)
         # ragged: two covariates, blocks and tiles that do not divide N
         check_permute(torch, dev, 30_011, 13, 7, (3, 4), 16, False)
+        # 40 batches, as on the segment paths: K2's warps share one (40 x K)
+        # table of batch sums a CTA; its phase timed
+        kernels["K2"]["ms_b40"] = check_permute(torch, dev, 200_000, D_MAIN, K_MAIN,
+                                                (B_SEGMENT,), 7, False, timed_phase=True)[0]["ms"]
+        # 400 batches: one table a CTA near the most shared memory holds;
+        # K = 300: the chain in shared memory (past a lane's 8 registers)
+        check_permute(torch, dev, 100_000, D_MAIN, K_MAIN, (400,), 9, False)
+        check_permute(torch, dev, 30_011, 13, 300, (3, 4), 10, False)
         k4, k5 = check_ridge(torch, dev, N_MAIN, D_MAIN, K_MAIN, B_MAIN, 3, True)
         kernels["K4"].update(k4)
         kernels["K5"].update(k5)
@@ -1234,6 +1327,7 @@ def main(argv=None) -> int:
         check_virtual(torch, dev, 30_011, 13, 7, (3, 4), 18, False)
         # wide: more 4x4 tiles of the (K, d+1) table than a CTA has threads
         check_virtual(torch, dev, 20_000, 100, 100, (B_MAIN,), 19, False)
+        check_virtual(torch, dev, 200_000, D_MAIN, K_MAIN, (B_SEGMENT,), 8, False)
         k8, k9 = check_tiled(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 256, 13, True)
         kernels["K8"].update(k8)
         kernels["K9"].update(k9)

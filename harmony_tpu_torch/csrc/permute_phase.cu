@@ -19,36 +19,64 @@
 // select chain, one-hot matmul and chunking were layout devices for this
 // same lookup.
 //
-// One per-cell chain (cell_chain) serves the removal pass, the assign pass
-// and K3: g = Y^T z with K1's product loop, d = 2(1 - g), the softmax over
-// K, times the penalty summed over covariates, the guarded renormalise.
-// Its products are __fmul_rn, so no kernel fuses them differently: the
-// removal subtracts exactly the assignments the last round added, and K3's
-// R equals the last round's R bit for bit per cell (the property of
-// pallas_estep.py:350-353, 502-504).
+// The phase's distances. Y and Z do not change within a clustering phase
+// (the property pallas_estep.py:350-353 states), so a cell's distances
+// dist = 2(1 - Y^T z) are the same in every round. The TPU kernel
+// recomputes them in every pass to keep a (K, N) table out of HBM; on this
+// card that table is G (N, K), 200 MB at N = 500k, K = 100, and a pass
+// reads it in 0.06 ms. So K2 starts a phase with one head launch
+// (head_kernel) that writes G, cell-major (a cell's K distances are one
+// contiguous row), and neither of its cell passes computes Y^T Z or stages
+// Y^T or Z: each warp reads its cell's row of G through the permutation.
+// The head computes with tile_dist, the product loop K3 keeps, so every
+// cell's distances have the same bits in G as in K3 (a fixed fmaf sequence
+// over e = 0..d-1, whatever the tile).
 //
-// K2, one round, all host-ordered launches on one stream, no PyTorch op and
-// no host copy between them (2*nb + 2 launches):
+// One chain (chain) serves the removal pass, the assign pass and K3: a
+// warp per cell, lanes over clusters, the cell's K distances in registers
+// (up to 8 a lane, so K <= 256; past that chain_wide, the same operations
+// on shared memory), exp(-dist / sigma) once per (cluster, cell), the softmax over K, times the penalty summed over covariates, the
+// guarded renormalise. Its products are __fmul_rn, so no kernel fuses them
+// differently: the removal subtracts exactly the assignments the last
+// round added, and K3's R equals the last round's R bit for bit per cell
+// (the property of pallas_estep.py:350-353, 502-504).
+//
+// K2, one phase: the head, then per round, all host-ordered launches on
+// one stream with no PyTorch op and no host copy between them (2*nb + 2
+// launches a round):
 //   (0) round_cells_kernel<false> over all the round's cells (the removal
-//       depends only on last round's tables and block ids): per CTA, up to
-//       nsub tiles of T cells of one block, partial row sums and batch sums
-//       of the recomputed old assignments.
+//       depends only on last round's tables and block ids): per CTA, a
+//       span of one block's positions; it reads each cell's id through the
+//       permutation, its codes and previous block id, stores the cell's new
+//       block id in place, and writes partial row sums and batch sums of
+//       the recomputed old assignments. One wave of CTAs that each loop
+//       over ~1,000 cells: a CTA per few dozen cells would write 20x the
+//       partials for the commits to read.
 //   (1) commit_kernel: no add; remove block 0; store table row 0.
 //   (2) per block i: round_cells_kernel<true> (the assign pass, against
-//       table row i; no R; k-means error and entropy partials), then
-//       commit_kernel: fold the block's partials in a fixed order, remove
-//       block i+1's old statistics (its removal partials, in a fixed
-//       order), compute the penalty and store it as table row i+1.
-// The layout gather (cells in block order, cell-major so each gathered
-// cell is one contiguous row), the scatter of the new block ids and the
-// swap of the two tables stay PyTorch between rounds, as pallas_estep.py:
-// 807-843 keeps them outside its kernel.
+//       table row i; no R; k-means error and entropy partials), its CTAs
+//       sized so that the block's cells run as one even wave on the card,
+//       then commit_kernel: fold the block's partials in a fixed order,
+//       remove block i+1's old statistics (its removal partials, in a
+//       fixed order), compute the penalty and store it as table row i+1.
+// In a cell pass each warp takes its CTA's cells in turn, with the rows of
+// G of its next kRing - 1 cells in flight into a ring in shared memory
+// (cp.async, each lane copying the entries it will read) and the next
+// cell's penalties in registers while the current cell's chain runs: a
+// row is 400 bytes at a random place, so a pass is bound by how many are
+// in flight. Each lane adds its r to its warp's own row sums (registers)
+// and, where shared memory holds a (B x K) table a warp with two CTAs an
+// SM (B <= 26 at K = 100), its own batch sums, so every thread works and
+// no two share a sum; past that (or past K = 256) the warps share one
+// table, filled step by step in warp order after a barrier. The warps'
+// sums go to the CTA's partials row in warp order. The
+// swap of the two tables stays between rounds in the wrapper.
 // Shared with K1 (estep_round.cu, copied because each source builds into a
-// library of its own): the distance product loop, the per-warp cell
-// column, the row pass and the commit's fixed-order fold.
+// library of its own): the commit's fixed-order fold.
 //
 // K3: materialize_kernel over natural-order tiles writes R (K, Np), pad
-// cells 0. With moments the grid is K8's chunk plan (csrc/tiled.cu): a CTA
+// cells 0: tile_dist, then the chain. With moments the grid is K8's chunk
+// plan (csrc/tiled.cu): a CTA
 // takes up to `chunk` layout tiles of one joint batch level, computes
 // their R in 64-cell sub-tiles, writes it, and accumulates
 // R_t [Z_orig_t; 1]^T in 4x4 register tiles; per-chunk partials are summed
@@ -56,18 +84,13 @@
 // No float atomics anywhere.
 //
 // Bounds on this card at N = 500k, d = 50, K = 100 (fp32 outside the
-// tensor cores, 67 TFLOP/s; 3.35 TB/s): Y and Z do not change within a
-// clustering phase, so a round needs one distance product, 2*K*d*N =
-// 5 GFLOP, 0.075 ms, against 0.1 GB of Z, codes, block ids and the
-// permutation (0.03 ms): operations-bound. Computing the distances again
-// in the removal pass (as the TPU kernel does) is this design's choice,
-// not the function's: it keeps the removal one launch with no (K, N)
-// buffer between rounds, at twice the bound's operations. K3 is
-// 2*K*d*N = 5 GFLOP plus, with
-// moments, 2*K*(d+1)*N = 5.1 GFLOP (0.15 ms), against Z, Z_orig and R,
-// 0.4 GB (0.12 ms). The design keeps the chain in shared memory and L2
-// (tile staged once, tables L2-resident) so the passes stay near the
-// operations bound rather than re-reading Z or R.
+// tensor cores, 67 TFLOP/s; 3.35 TB/s): a round of the function needs one
+// distance product, 2*K*d*N = 5 GFLOP, 0.075 ms, against 0.1 GB of Z,
+// codes, block ids and the permutation (0.03 ms): operations-bound. This
+// design does the product once a phase (the head) and moves G instead:
+// each cell pass reads it once, 200 MB, 0.06 ms. K3 is 2*K*d*N = 5 GFLOP
+// plus, with moments, 2*K*(d+1)*N = 5.1 GFLOP (0.15 ms), against Z,
+// Z_orig and R, 0.4 GB (0.12 ms).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,14 +102,32 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kKC = 8;      // cluster rows per thread in the product
 constexpr int kSlices = 8;  // commit: partial rows summed per warp slice
 constexpr int kMaxMT = 2;   // K3 moments: 4x4 register tiles a thread owns
+constexpr int kChunk = 256; // cell passes: cells whose ids and codes a CTA stages at once
+constexpr int kRing = 4;    // cell passes: rows of G a warp has in flight, plus the one in use
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
 // dist = 2 (1 - Y^T z) for the T cells staged in Zs (row stride TP) into Ls
 // (row stride TP): lane -> cells (lane, lane + 32), warp -> 8 cluster rows.
+// The head and K3 both compute with it, so a cell's distances have the
+// same bits in G and in K3.
 __device__ __forceinline__ void tile_dist(const float* Ys, const float* Zs, float* Ls,
                                           int K, int d, int T, int TP) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -116,148 +157,331 @@ __device__ __forceinline__ void tile_dist(const float* Ys, const float* Zs, floa
   }
 }
 
-// pc[k] of cell t: the sum over covariates of its table row's entry k.
-__device__ __forceinline__ float penalty(const float* __restrict__ rows, const int* gcs,
-                                         int t, int T, int ncov, int K, int k) {
-  float pc = __ldg(rows + static_cast<long long>(gcs[t]) * K + k);
-  for (int c = 1; c < ncov; ++c)
-    pc += __ldg(rows + static_cast<long long>(gcs[c * T + t]) * K + k);
-  return pc;
+// One warp, lanes over clusters (k = lane + 32 j, j < KJ): the assignment
+// of a cell from its distances dv and its penalties pc (the table rows of
+// its block summed over covariates), r = L1(L1(exp(-dist / sigma)) * pc),
+// both sums guarded against zero, each normalisation a multiplication by
+// the sum's reciprocal. Each exp is taken once. Entries with k >= K are
+// left undefined.
+template <int KJ>
+__device__ __forceinline__ void chain(const float (&dv)[KJ], const float (&pc)[KJ],
+                                      const float (&sg)[KJ], int K, float (&r)[KJ]) {
+  const int lane = threadIdx.x & 31;
+  float s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    if (lane + 32 * j < K) {
+      r[j] = expf(-dv[j] / sg[j]);
+      s1 += r[j];
+    }
+  s1 = warp_sum(s1);
+  const float i1 = 1.f / (s1 == 0.f ? 1.f : s1);
+  float s2 = 0.f;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    if (lane + 32 * j < K) {
+      r[j] = __fmul_rn(__fmul_rn(r[j], i1), pc[j]);
+      s2 += r[j];
+    }
+  s2 = warp_sum(s2);
+  const float i2 = 1.f / (s2 == 0.f ? 1.f : s2);
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    if (lane + 32 * j < K) r[j] = __fmul_rn(r[j], i2);
 }
 
-// One warp, lanes over clusters: the assignment of cell t from its
-// distances (column t of Ls, overwritten with R) and the table rows of
-// block blk: r = L1(L1(exp(-dist / sigma)) * pc), both sums guarded against
-// zero. With kObj the cell's k-means error and entropy terms are added to
-// the lane's kerr/ent.
-template <bool kObj>
-__device__ __forceinline__ void cell_chain(float* Ls, int TP, int t, const float* sig,
-                                           const float* __restrict__ pen, int blk,
-                                           const int* gcs, int T, int ncov, int B, int K,
-                                           float& kerr, float& ent) {
+// chain for any K (the one for K > 256): a cell's
+// distances at dv[k * ds], its assignments out at r[k * rs] (r may be dv),
+// its penalties summed from rows as in penalties(), sigma from device
+// memory. Each lane takes k = lane + 32 j in chain's order with chain's
+// operations, so the passes that share it give the same bits.
+__device__ __forceinline__ void chain_wide(const float* dv, int ds, float* r, int rs,
+                                           const float* rows, const int* gcs, int stride,
+                                           int ncov, const float* __restrict__ sigma, int K) {
   const int lane = threadIdx.x & 31;
-  const float* rows = pen + static_cast<long long>(blk) * B * K;
   float s1 = 0.f;
-  for (int k = lane; k < K; k += 32) s1 += expf(-Ls[k * TP + t] / sig[k]);
-  s1 = warp_sum(s1);
-  const float s1g = s1 == 0.f ? 1.f : s1;
-  float s2 = 0.f;
-  for (int k = lane; k < K; k += 32)
-    s2 += __fmul_rn(expf(-Ls[k * TP + t] / sig[k]) / s1g,
-                    penalty(rows, gcs, t, T, ncov, K, k));
-  s2 = warp_sum(s2);
-  const float s2g = s2 == 0.f ? 1.f : s2;
   for (int k = lane; k < K; k += 32) {
-    const float dist = Ls[k * TP + t];
-    const float r = __fmul_rn(expf(-dist / sig[k]) / s1g,
-                              penalty(rows, gcs, t, T, ncov, K, k)) / s2g;
-    if (kObj) {
-      kerr += r * dist;
-      ent += sig[k] * (r > 0.f ? r * logf(r) : 0.f);
+    const float e = expf(-dv[k * ds] / sigma[k]);
+    r[k * rs] = e;
+    s1 += e;
+  }
+  s1 = warp_sum(s1);
+  const float i1 = 1.f / (s1 == 0.f ? 1.f : s1);
+  float s2 = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    float pc = rows[static_cast<long long>(gcs[0]) * K + k];
+    for (int c = 1; c < ncov; ++c) pc += rows[static_cast<long long>(gcs[c * stride]) * K + k];
+    const float v = __fmul_rn(__fmul_rn(r[k * rs], i1), pc);
+    r[k * rs] = v;
+    s2 += v;
+  }
+  s2 = warp_sum(s2);
+  const float i2 = 1.f / (s2 == 0.f ? 1.f : s2);
+  for (int k = lane; k < K; k += 32) r[k * rs] = __fmul_rn(r[k * rs], i2);
+}
+
+// pc[j] of a cell: the sum over covariates c of its block's table row
+// entry, rows[gc(c)] at cluster lane + 32 j (gc(c) = gcs[c * stride]);
+// rows lie in shared or device memory.
+template <int KJ>
+__device__ __forceinline__ void penalties(const float* rows, const int* gcs, int stride,
+                                          int ncov, int K, float (&pc)[KJ]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const int k = lane + 32 * j;
+    if (k < K) {
+      float v = rows[static_cast<long long>(gcs[0]) * K + k];
+      for (int c = 1; c < ncov; ++c) v += rows[static_cast<long long>(gcs[c * stride]) * K + k];
+      pc[j] = v;
     }
-    Ls[k * TP + t] = r;
   }
 }
 
-// K2's cell passes over the round's layout (cells in block order; block i
-// holds cells [i*cpb, i*cpb + size_i)). CTA c = cta0 + blockIdx.x covers up
-// to nsub tiles of T cells of block min(c / cta_per, nb - 1). The removal
-// (kAssign false) looks each cell up in its previous block's table rows;
-// the assign pass in block i's rows. Partials row of a CTA, in part at
-// blockIdx.x: [row sums K | batch sums K*B | k-means error | entropy].
-template <bool kAssign>
-__global__ void __launch_bounds__(kThreads) round_cells_kernel(
-    const float* __restrict__ Yt,     // (K, d)
-    const float* __restrict__ Zl,     // (L, d) cell-major, block order
-    const int* __restrict__ gl,       // (L, ncov) global batch rows
-    const int* __restrict__ bl,       // (L,) previous block id (removal only)
-    const float* __restrict__ pen,    // (nbp*B, K) tables
-    const float* __restrict__ sigma,  // (K,)
-    float* __restrict__ part,         // (gridDim.x, P) out
-    int cpb, int last, int nb, int cta_per, int nsub, int cta0, int K, int d,
-    int B, int ncov, int T) {
+// A lane's entries k = lane + 32 j of cell n's row of G into the same
+// entries of dst, in flight (cp.async): each lane later reads only what
+// it copied, so its own wait suffices.
+template <int KJ>
+__device__ __forceinline__ void fetch_row(const float* __restrict__ G, int n, int K,
+                                          float* dst) {
+  const float* row = G + static_cast<long long>(n) * K;
+  const int lane = threadIdx.x & 31;
+  if constexpr (KJ > 0) {
+#pragma unroll
+    for (int j = 0; j < KJ; ++j)
+      if (lane + 32 * j < K) cp_async4(dst + lane + 32 * j, row + lane + 32 * j);
+  } else {
+    for (int k = lane; k < K; k += 32) cp_async4(dst + k, row + k);
+  }
+}
+
+// The head: G[n, :] = 2 (1 - Y^T z_n) for the N cells, T cells a tile; a
+// CTA stages Y^T once and walks tiles blockIdx.x, blockIdx.x + gridDim.x,
+// ...; each tile's rows are written coalesced, one cell a contiguous row.
+__global__ void __launch_bounds__(kThreads) head_kernel(
+    const float* __restrict__ Yt,  // (K, d)
+    const float* __restrict__ Z,   // (d, Np) L2-normalised
+    float* __restrict__ G,         // (N, K) out
+    long long N, long long Np, int K, int d, int T) {
   extern __shared__ float smem[];
   const int TP = T + 1;
-  const int P = K + K * B + 2;
-  float* Ys = smem;             // K*d
-  float* Zs = Ys + K * d;       // d*TP
-  float* Ls = Zs + d * TP;      // K*TP: dist, then R
-  float* sig = Ls + K * TP;     // K
-  float* Obs = sig + K;         // K*B
-  float* rss = Obs + K * B;     // K
-  float* red = rss + K;         // 2*kWarps
-  int* gcs = reinterpret_cast<int*>(red + 2 * kWarps);  // ncov*T
-  int* bks = gcs + ncov * T;                           // T
-
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int c = cta0 + blockIdx.x;
-  const int blk = cta_per ? min(c / cta_per, nb - 1) : nb - 1;
-  const int size = blk < nb - 1 ? cpb : last;
-  const int q0 = (c - blk * cta_per) * T * nsub;
-  const int q1 = min(q0 + T * nsub, size);
-  const long long cell0 = static_cast<long long>(blk) * cpb;
-
+  float* Ys = smem;        // K*d
+  float* Zs = Ys + K * d;  // d*TP
+  float* Ls = Zs + d * TP; // K*TP
+  const int tid = threadIdx.x;
   for (int i = tid; i < K * d; i += kThreads) Ys[i] = Yt[i];
-  for (int i = tid; i < K; i += kThreads) {
-    sig[i] = sigma[i];
-    rss[i] = 0.f;
-  }
-  for (int i = tid; i < K * B; i += kThreads) Obs[i] = 0.f;
-
-  float kerr = 0.f, ent = 0.f;
-  for (int s0 = q0; s0 < q1; s0 += T) {
-    const int nv = min(T, q1 - s0);
-    const long long base = cell0 + s0;
+  for (long long n0 = static_cast<long long>(blockIdx.x) * T; n0 < N;
+       n0 += static_cast<long long>(gridDim.x) * T) {
+    const int nv = static_cast<int>(min(static_cast<long long>(T), N - n0));
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < T * d; i += kThreads) {
-      const int t = i / d, e = i - t * d;
-      Zs[e * TP + t] = t < nv ? Zl[(base + t) * d + e] : 0.f;
+    for (int i = tid; i < d * T; i += kThreads) {
+      const int e = i / T, t = i - e * T;
+      Zs[e * TP + t] = t < nv ? Z[e * Np + n0 + t] : 0.f;
     }
-    for (int i = tid; i < ncov * T; i += kThreads) {
-      const int t = i / ncov, cc = i - t * ncov;
-      gcs[cc * T + t] = t < nv ? gl[(base + t) * ncov + cc] : 0;
-    }
-    if (!kAssign)
-      for (int t = tid; t < T; t += kThreads) bks[t] = t < nv ? bl[base + t] : 0;
     __syncthreads();
     tile_dist(Ys, Zs, Ls, K, d, T, TP);
     __syncthreads();
-    for (int t = w; t < nv; t += kWarps)
-      cell_chain<kAssign>(Ls, TP, t, sig, pen, kAssign ? blk : bks[t], gcs, T, ncov, B,
-                          K, kerr, ent);
-    __syncthreads();
-    // row pass: each thread owns cluster rows, so no two threads share a sum
-    for (int k = tid; k < K; k += kThreads) {
-      float rs = rss[k];
-      for (int t = 0; t < nv; ++t) {
-        const float r = Ls[k * TP + t];
-        rs += r;
-        for (int cc = 0; cc < ncov; ++cc) Obs[k * B + gcs[cc * T + t]] += r;
-      }
-      rss[k] = rs;
+    for (int i = tid; i < nv * K; i += kThreads) {
+      const int t = i / K, k = i - t * K;
+      G[(n0 + t) * K + k] = Ls[k * TP + t];
     }
   }
-  if (kAssign) {
-    kerr = warp_sum(kerr);
-    ent = warp_sum(ent);
-    if (lane == 0) {
-      red[w] = kerr;
-      red[kWarps + w] = ent;
+}
+
+// K2's cell passes over the round's positions (block i holds positions
+// [i*cpb, i*cpb + size_i) of perm). CTA c = cta0 + blockIdx.x covers the
+// positions [q0, q0 + span) of block min(c / cta_per, nb - 1), in chunks of
+// kChunk: the CTA stages the chunk's cell ids, codes and (removal) previous
+// block ids, storing each cell's new block id in place; then warp w takes
+// the chunk's cells w, w + nw, ... (its i-th cell in step i), with the next
+// kRing - 1 cells' rows of G coming into its ring in shared memory
+// (cp.async) and, with KJ > 0, the next cell's penalties loading while the
+// current cell's chain runs. The removal (kAssign false) looks each cell up
+// in its previous block's table rows (L2); the assign pass in block i's
+// rows, staged in shared memory where each warp has a table of its own.
+// Batch sums: without kShared each warp adds its cells' r into its own
+// (B x K) table; with kShared (the tables of all warps do not fit, or K is
+// past the register chain, KJ = 0) the warps write step i's r into a
+// double-buffered row each, and after a barrier thread k adds the step's
+// rows into the CTA's one table at cluster k, in warp order. Either way
+// the sums have one order, with no atomics. Partials row of a CTA, at
+// blockIdx.x: [row sums K | batch sums K*B | k-means error | entropy].
+template <bool kAssign, int KJ, bool kShared>
+__global__ void __launch_bounds__(kThreads) round_cells_kernel(
+    const float* __restrict__ G,        // (N, K) the phase's distances
+    const long long* __restrict__ perm, // (N,) this round's permutation
+    const int* __restrict__ gn,         // (Np, ncov) global batch rows
+    int* __restrict__ blk,              // (Np,) block of each cell's last assignment
+    const float* __restrict__ pen,      // (nbp*B, K) tables
+    const float* __restrict__ sigma,    // (K,)
+    float* __restrict__ part,           // (gridDim.x, P) out
+    int cpb, int last, int nb, int cta_per, int span, int cta0, int K, int B, int ncov) {
+  static_assert(KJ > 0 || kShared, "chain_wide (KJ = 0) writes r into the step's rows");
+  constexpr int KR = KJ > 0 ? KJ : 1;  // register arrays of the KJ > 0 chain
+  extern __shared__ float smem[];
+  const int nw = blockDim.x >> 5;
+  const int nt = kShared ? 1 : nw;  // batch-sum tables
+  const int P = K + K * B + 2;
+  float* Ob = smem;                       // nt*B*K: table q's batch sums at (q*B + b)*K + k
+  float* rsw = Ob + nt * B * K;           // nw*K: the warps' row sums
+  float* red = rsw + nw * K;              // 2*nw
+  float* pen_s = red + 2 * nw;            // B*K without kShared: the assign pass's rows
+  float* ring = pen_s + (kShared ? 0 : B * K);  // nw*kRing*K: each warp's rows of G
+  float* rrow = ring + nw * kRing * K;    // 2*nw*K with kShared: step i's r at (i&1)*nw + w
+  int* ids = reinterpret_cast<int*>(rrow + (kShared ? 2 * nw * K : 0));  // kChunk cell ids
+  int* gcs = ids + kChunk;                          // ncov*kChunk global batch rows
+  int* bks = gcs + ncov * kChunk;                   // kChunk previous block ids
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int c = cta0 + blockIdx.x;
+  const int bi = cta_per ? min(c / cta_per, nb - 1) : nb - 1;
+  const int size = bi < nb - 1 ? cpb : last;
+  const int q0 = (c - bi * cta_per) * span;
+  const int q1 = min(q0 + span, size);
+  const long long cell0 = static_cast<long long>(bi) * cpb;
+
+  for (int i = tid; i < nt * B * K; i += blockDim.x) Ob[i] = 0.f;
+  if (KJ == 0)
+    for (int i = tid; i < nw * K; i += blockDim.x) rsw[i] = 0.f;
+  if (kAssign && !kShared)
+    for (int i = tid; i < B * K; i += blockDim.x)
+      pen_s[i] = pen[static_cast<long long>(bi) * B * K + i];
+  float sg[KR], rs[KR];
+#pragma unroll
+  for (int j = 0; j < KR; ++j) {
+    const int k = lane + 32 * j;
+    sg[j] = k < K ? sigma[k] : 1.f;
+    rs[j] = 0.f;
+  }
+  float* Om = Ob + (kShared ? 0 : w * B * K);
+  float* myring = ring + w * kRing * K;
+  float kerr = 0.f, ent = 0.f;
+  for (int s0 = q0; s0 < q1; s0 += kChunk) {
+    const int nv = min(kChunk, q1 - s0);
+    __syncthreads();  // the previous chunk's readers are done
+    for (int t = tid; t < nv; t += blockDim.x) {
+      const int n = static_cast<int>(perm[cell0 + s0 + t]);
+      ids[t] = n;
+      for (int cc = 0; cc < ncov; ++cc)
+        gcs[cc * kChunk + t] = gn[static_cast<long long>(n) * ncov + cc];
+      if (!kAssign) {
+        bks[t] = blk[n];
+        blk[n] = bi;
+      }
     }
+    __syncthreads();
+    auto rows = [&](int t) {
+      if (kAssign) return kShared ? pen + static_cast<long long>(bi) * B * K : pen_s;
+      return pen + static_cast<long long>(bks[t]) * B * K;
+    };
+    // ring slot i % kRing holds the warp's i-th cell of the chunk; the
+    // slot refilled is the one read a step earlier
+    for (int i = 0; i < kRing - 1; ++i) {
+      if (w + i * nw < nv) fetch_row<KJ>(G, ids[w + i * nw], K, myring + i * K);
+      cp_async_commit();
+    }
+    float dv[KR], pc[KR], pn[KR], r[KR];
+    if constexpr (KJ > 0)
+      if (w < nv) penalties(rows(w), gcs + w, kChunk, ncov, K, pc);
+    const int steps = (nv + nw - 1) / nw;
+    for (int i = 0; i < steps; ++i) {
+      const int t = w + i * nw;
+      cp_async_wait<kRing - 2>();  // the cell's row has landed
+      const float* slot = myring + (i % kRing) * K;
+      float* rw = rrow + ((i & 1) * nw + w) * K;
+      if constexpr (KJ > 0) {
+#pragma unroll
+        for (int j = 0; j < KJ; ++j)
+          if (t < nv && lane + 32 * j < K) dv[j] = slot[lane + 32 * j];
+      }
+      const int tf = t + (kRing - 1) * nw;
+      if (tf < nv) fetch_row<KJ>(G, ids[tf], K, myring + ((i + kRing - 1) % kRing) * K);
+      cp_async_commit();
+      if (t < nv) {
+        if constexpr (KJ > 0) {
+          const int tn = t + nw;
+          if (tn < nv) penalties(rows(tn), gcs + tn, kChunk, ncov, K, pn);  // in flight
+          chain(dv, pc, sg, K, r);
+          if constexpr (kShared) {
+#pragma unroll
+            for (int j = 0; j < KJ; ++j)
+              if (lane + 32 * j < K) rw[lane + 32 * j] = r[j];
+          } else {
+            for (int cc = 0; cc < ncov; ++cc) {
+              float* o = Om + gcs[cc * kChunk + t] * K + lane;
+#pragma unroll
+              for (int j = 0; j < KJ; ++j)
+                if (lane + 32 * j < K) o[32 * j] += r[j];
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) {
+            if (lane + 32 * j < K) {
+              rs[j] += r[j];
+              if (kAssign) {
+                kerr += r[j] * dv[j];
+                ent += sg[j] * (r[j] > 0.f ? r[j] * logf(r[j]) : 0.f);
+              }
+            }
+            pc[j] = pn[j];
+          }
+        } else {
+          chain_wide(slot, 1, rw, 1, rows(t), gcs + t, kChunk, ncov, sigma, K);
+          for (int k = lane; k < K; k += 32) {
+            const float rv = rw[k];
+            rsw[w * K + k] += rv;
+            if (kAssign) {
+              kerr += rv * slot[k];
+              ent += sigma[k] * (rv > 0.f ? rv * logf(rv) : 0.f);
+            }
+          }
+        }
+      }
+      if constexpr (kShared) {
+        __syncthreads();  // step i's rows are in; step i - 1's buffer is free
+        const int nq = min(nw, nv - i * nw);
+        for (int k = tid; k < K; k += blockDim.x)
+          for (int q = 0; q < nq; ++q) {
+            const float rv = rrow[((i & 1) * nw + q) * K + k];
+            for (int cc = 0; cc < ncov; ++cc) Ob[gcs[cc * kChunk + i * nw + q] * K + k] += rv;
+          }
+      }
+    }
+    cp_async_wait<0>();  // no copy into the ring outlives the chunk
+  }
+  if constexpr (KJ > 0) {
+#pragma unroll
+    for (int j = 0; j < KJ; ++j)
+      if (lane + 32 * j < K) rsw[w * K + lane + 32 * j] = rs[j];
+  }
+  kerr = warp_sum(kerr);
+  ent = warp_sum(ent);
+  if (lane == 0) {
+    red[w] = kerr;
+    red[nw + w] = ent;
   }
   __syncthreads();
+  // the warps' sums, in warp order
   float* prow = part + static_cast<long long>(blockIdx.x) * P;
-  for (int k = tid; k < K; k += kThreads) prow[k] = rss[k];
-  for (int i = tid; i < K * B; i += kThreads) prow[K + i] = Obs[i];
+  for (int k = tid; k < K; k += blockDim.x) {
+    float v = 0.f;
+    for (int q = 0; q < nw; ++q) v += rsw[q * K + k];
+    prow[k] = v;
+  }
+  for (int i = tid; i < K * B; i += blockDim.x) {
+    const int k = i / B, b = i - k * B;
+    float v = 0.f;
+    for (int q = 0; q < nt; ++q) v += Ob[(q * B + b) * K + k];
+    prow[K + i] = v;
+  }
   if (tid == 0) {
-    float a = 0.f, b = 0.f;
-    if (kAssign)
-      for (int i = 0; i < kWarps; ++i) {
-        a += red[i];
-        b += red[kWarps + i];
-      }
+    float a = 0.f, e = 0.f;
+    for (int q = 0; q < nw; ++q) {
+      a += red[q];
+      e += red[nw + q];
+    }
     prow[P - 2] = a;
-    prow[P - 1] = b;
+    prow[P - 1] = e;
   }
 }
 
@@ -328,7 +552,7 @@ __global__ void __launch_bounds__(kThreads) commit_kernel(
 // cells [b*T, b*T + T); with moments it covers the layout tiles (width tw)
 // of chunk row b, in sub-tiles of T cells, and writes the chunk's
 // [R Z_orig^T | R 1] partial (K x d+1). Cells n >= N are pads: R = 0.
-template <bool kMoments>
+template <bool kMoments, int KJ>
 __global__ void __launch_bounds__(kThreads) materialize_kernel(
     const float* __restrict__ Yt,     // (K, d)
     const float* __restrict__ Z,      // (d, Np) L2-normalised
@@ -351,13 +575,15 @@ __global__ void __launch_bounds__(kThreads) materialize_kernel(
   float* Ys = Zos + (kMoments ? T * d1p : 0);  // K*d
   float* Zs = Ys + K * d;                      // d*TP
   float* Ls = Zs + d * TP;                     // K4*TP
-  float* sig = Ls + K4 * TP;                   // K
-  int* gcs = reinterpret_cast<int*>(sig + K);  // ncov*T
+  int* gcs = reinterpret_cast<int*>(Ls + K4 * TP);  // ncov*T
   int* bks = gcs + ncov * T;                   // T
 
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   for (int i = tid; i < K * d; i += kThreads) Ys[i] = Yt[i];
-  for (int i = tid; i < K; i += kThreads) sig[i] = sigma[i];
+  constexpr int KR = KJ > 0 ? KJ : 1;
+  float sg[KR];
+#pragma unroll
+  for (int j = 0; j < KR; ++j) sg[j] = lane + 32 * j < K ? sigma[lane + 32 * j] : 1.f;
   for (int i = K * TP + tid; i < K4 * TP; i += kThreads) Ls[i] = 0.f;
   const int nkb = K4 / 4, neb = (d1 + 3) / 4;
   float acc[kMaxMT][4][4];
@@ -367,7 +593,6 @@ __global__ void __launch_bounds__(kThreads) materialize_kernel(
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[m][i][j] = 0.f;
-  float unused0 = 0.f, unused1 = 0.f;
 
   const int ntiles = kMoments ? chunk : 1;
   for (int c = 0; c < ntiles; ++c) {
@@ -408,8 +633,20 @@ __global__ void __launch_bounds__(kThreads) materialize_kernel(
       __syncthreads();
       for (int t = w; t < nv; t += kWarps) {
         if (n0 + t < N) {
-          cell_chain<false>(Ls, TP, t, sig, pen, bks[t], gcs, T, ncov, B, K, unused0,
-                            unused1);
+          const float* rows = pen + static_cast<long long>(bks[t]) * B * K;
+          if constexpr (KJ > 0) {
+            float dv[KJ], pc[KJ], r[KJ];
+#pragma unroll
+            for (int j = 0; j < KJ; ++j)
+              if (lane + 32 * j < K) dv[j] = Ls[(lane + 32 * j) * TP + t];
+            penalties(rows, gcs + t, T, ncov, K, pc);
+            chain(dv, pc, sg, K, r);
+#pragma unroll
+            for (int j = 0; j < KJ; ++j)
+              if (lane + 32 * j < K) Ls[(lane + 32 * j) * TP + t] = r[j];
+          } else {
+            chain_wide(Ls + t, TP, Ls + t, TP, rows, gcs + t, T, ncov, sigma, K);
+          }
         } else {
           for (int k = lane; k < K; k += 32) Ls[k * TP + t] = 0.f;
         }
@@ -462,37 +699,94 @@ int set_smem(const void* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
+// KJ, the cluster values a lane holds in registers: 1, 2, 4 or 8 for
+// K <= 256, else 0 (chain_wide, in shared memory).
+int lanes_kj(int K) { return K <= 32 ? 1 : K <= 64 ? 2 : K <= 128 ? 4 : K <= 256 ? 8 : 0; }
+
+template <int KJ, bool kShared>
+const void* cells_kernel(int assign) {
+  return assign ? reinterpret_cast<const void*>(round_cells_kernel<true, KJ, kShared>)
+                : reinterpret_cast<const void*>(round_cells_kernel<false, KJ, kShared>);
+}
+
+template <bool kShared>
+const void* cells_kernel_kj(int assign, int K) {
+  switch (lanes_kj(K)) {
+    case 1: return cells_kernel<1, kShared>(assign);
+    case 2: return cells_kernel<2, kShared>(assign);
+    case 4: return cells_kernel<4, kShared>(assign);
+    case 8: return cells_kernel<8, kShared>(assign);
+    default: return kShared ? cells_kernel<0, true>(assign) : nullptr;
+  }
+}
+
+// nullptr for the per-warp tables past K = 256
+const void* cells_kernel_for(int assign, int K, int shared) {
+  return shared ? cells_kernel_kj<true>(assign, K) : cells_kernel_kj<false>(assign, K);
+}
+
+template <bool kMoments>
+const void* materialize_kernel_for(int K) {
+  switch (lanes_kj(K)) {
+    case 1: return reinterpret_cast<const void*>(materialize_kernel<kMoments, 1>);
+    case 2: return reinterpret_cast<const void*>(materialize_kernel<kMoments, 2>);
+    case 4: return reinterpret_cast<const void*>(materialize_kernel<kMoments, 4>);
+    case 8: return reinterpret_cast<const void*>(materialize_kernel<kMoments, 8>);
+    default: return reinterpret_cast<const void*>(materialize_kernel<kMoments, 0>);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
+// CTAs of `threads` threads and smem_bytes of shared memory an SM holds at
+// once: kernel 0 the head, 1 the removal pass, 2 the assign pass (shared:
+// one batch-sum table a CTA); < 0 is minus a CUDA error.
+int k2_occupancy(int which, int K, int shared, int threads, int smem_bytes) {
+  const void* kern = which == 0 ? reinterpret_cast<const void*>(head_kernel)
+                                : cells_kernel_for(which == 2, K, shared);
+  if (kern == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  int err = set_smem(kern, smem_bytes);
+  if (err) return -err;
+  int n = 0;
+  err = static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads, smem_bytes));
+  return err ? -err : n;
+}
+
+int k2_head(const void* Yt, const void* Z, void* G, long long N, long long Np, int K, int d,
+            int T, int grid, int smem_bytes, void* stream) {
+  int err = set_smem(reinterpret_cast<const void*>(head_kernel), smem_bytes);
+  if (err) return err;
+  head_kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(Yt), static_cast<const float*>(Z), static_cast<float*>(G), N,
+      Np, K, d, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K2 cell pass: assign = 0 is the removal over the whole round, 1 the
-// assign pass of one block (cta0 = block * cta_per).
-int k2_cells(int assign, const void* Yt, const void* Zl, const void* gl, const void* bl,
-             const void* pen, const void* sigma, void* part, int grid, int cpb, int last,
-             int nb, int cta_per, int nsub, int cta0, int K, int d, int B, int ncov, int T,
+// assign pass of one block (cta0 = block * cta_per); shared: one batch-sum
+// table a CTA.
+int k2_cells(int assign, int shared, const void* G, const void* perm, const void* gn,
+             void* blk, const void* pen, const void* sigma, void* part, int grid, int threads,
+             int cpb, int last, int nb, int cta_per, int span, int cta0, int K, int B, int ncov,
              int smem_bytes, void* stream) {
-  const void* kern = assign ? reinterpret_cast<const void*>(round_cells_kernel<true>)
-                            : reinterpret_cast<const void*>(round_cells_kernel<false>);
+  const void* kern = cells_kernel_for(assign, K, shared);
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int err = set_smem(kern, smem_bytes);
   if (err) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* Ytf = static_cast<const float*>(Yt);
-  const float* Zlf = static_cast<const float*>(Zl);
-  const int* gli = static_cast<const int*>(gl);
-  const int* bli = static_cast<const int*>(bl);
+  const float* Gf = static_cast<const float*>(G);
+  const long long* pi = static_cast<const long long*>(perm);
+  const int* gi = static_cast<const int*>(gn);
+  int* bi = static_cast<int*>(blk);
   const float* penf = static_cast<const float*>(pen);
   const float* sigf = static_cast<const float*>(sigma);
   float* partf = static_cast<float*>(part);
-  if (assign)
-    round_cells_kernel<true><<<grid, kThreads, smem_bytes, st>>>(
-        Ytf, Zlf, gli, bli, penf, sigf, partf, cpb, last, nb, cta_per, nsub, cta0, K, d,
-        B, ncov, T);
-  else
-    round_cells_kernel<false><<<grid, kThreads, smem_bytes, st>>>(
-        Ytf, Zlf, gli, bli, penf, sigf, partf, cpb, last, nb, cta_per, nsub, cta0, K, d,
-        B, ncov, T);
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&Gf, &pi, &gi, &bi, &penf, &sigf, &partf, &cpb, &last, &nb,
+                  &cta_per, &span, &cta0, &K, &B, &ncov};
+  return static_cast<int>(cudaLaunchKernel(kern, dim3(grid), dim3(threads), args,
+                                           smem_bytes, static_cast<cudaStream_t>(stream)));
 }
 
 int k2_commit(const void* part1, int n1, const void* part0, int rm_first, int rm_n,
@@ -517,10 +811,8 @@ int k3_materialize(const void* Yt, const void* Z, const void* codes, const void*
                    const void* Zo, const void* chunks, void* part, long long Np,
                    long long N, int K, int d, int B, int ncov, int T, int grid, int chunk,
                    int tw, int d1p, int smem_bytes, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool mom = Zo != nullptr;
-  const void* kern = mom ? reinterpret_cast<const void*>(materialize_kernel<true>)
-                         : reinterpret_cast<const void*>(materialize_kernel<false>);
+  const void* kern = Zo != nullptr ? materialize_kernel_for<true>(K)
+                                   : materialize_kernel_for<false>(K);
   int err = set_smem(kern, smem_bytes);
   if (err) return err;
   const float* Ytf = static_cast<const float*>(Yt);
@@ -534,15 +826,10 @@ int k3_materialize(const void* Yt, const void* Z, const void* codes, const void*
   const float* Zof = static_cast<const float*>(Zo);
   const int* chi = static_cast<const int*>(chunks);
   float* partf = static_cast<float*>(part);
-  if (mom)
-    materialize_kernel<true><<<grid, kThreads, smem_bytes, st>>>(
-        Ytf, Zf, ci, oi, bi, penf, sigf, Rf, Zof, chi, partf, Np, N, K, d, B, ncov, T,
-        chunk, tw, d1p);
-  else
-    materialize_kernel<false><<<grid, kThreads, smem_bytes, st>>>(
-        Ytf, Zf, ci, oi, bi, penf, sigf, Rf, Zof, chi, partf, Np, N, K, d, B, ncov, T,
-        chunk, tw, d1p);
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&Ytf, &Zf, &ci, &oi, &bi, &penf, &sigf, &Rf, &Zof, &chi, &partf, &Np,
+                  &N, &K, &d, &B, &ncov, &T, &chunk, &tw, &d1p};
+  return static_cast<int>(cudaLaunchKernel(kern, dim3(grid), dim3(kThreads), args,
+                                           smem_bytes, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -6,10 +6,14 @@
 // the corrected embedding, recomputes R = colnorm(exp((Y^T Z - 1) 2/sigma))
 // on valid cells and contracts R against the design into the per-tile
 // table tile_O (NT, K, B); O is the fixed-order sum of the table and E its
-// covariate-0 row sums times Pr_b. R itself is never written.
+// covariate-0 row sums times Pr_b. R itself is never written. It also
+// stores the phase's Gram table G (L, K) = (Y^T Zn)^T, one contiguous row
+// of K values a cell, which every K7 round of the phase reads: Y and Zn do
+// not change within a clustering phase.
 // Bound on this card at N_pad = 503,808, d = 50, K = 100, B = 10: Z read
 // once and Zn written once (0.2 GB, 60 us at 3.35 TB/s); Y^T Z is
 // 2*K*d*N = 5 GFLOP of fp32 FMA (75 us at 67 TFLOP/s): operations-bound.
+// G adds 0.2 GB written (60 us).
 //
 // K7 replaces harmony_tpu/ops/pallas_rotate.py _round_kernel_v2 (:594),
 // reached through pallas_rotate_update_round_v2 (:851), in its fused_vpu
@@ -25,10 +29,12 @@
 // store each block's penalty table (emit_pen, for virtual R) and fuse the
 // M-step's joint-batch moments M[j] = sum over layout tiles of joint j of
 // R_t [Z_orig_t; 1]^T (the msub fusion, pallas_rotate.py:813-835), so no
-// separate pass over R and Z_orig (K8) runs. Bound: the same 5 GFLOP as
-// K6 (75 us); bytes are Z read once (0.1 GB) plus R written once on the
-// round that writes it (0.2 GB, 90 us then); with moments 2*K*(d+1)*N =
-// 5.1 GFLOP more and Z_orig read once (0.15 ms in all, operations-bound).
+// separate pass over R and Z_orig (K8) runs. Bound (of the function, not
+// of this design): the same 5 GFLOP as K6 (75 us); bytes are Z read once
+// (0.1 GB) plus R written once on the round that writes it (0.2 GB, 90 us
+// then); with moments 2*K*(d+1)*N = 5.1 GFLOP more and Z_orig read once
+// (0.15 ms in all, operations-bound). This design does the product once a
+// phase, in K6, and reads g from K6's G instead: 0.2 GB a round, 60 us.
 //
 // K10 replaces _virtual_correction_kernel (:1451), reached through
 // pallas_virtual_correction (:1493): Z_corr = Z_orig - W_joint[j] R per
@@ -46,11 +52,15 @@
 // cells are independent, so a round is a host loop over the blocks with
 // two launches each:
 //   (a) rot_assign over the block's cells, 64-cell pieces of a tile (one
-//       per CTA). A CTA stages Y^T, its Z columns and the penalty tables
-//       in shared memory, forms g = Y^T Z with register tiles, then per
-//       cell (one warp a column) the exp, the guarded normalise and the
-//       objective terms, and per cluster row the (K x B) design
-//       contraction. It writes R (if asked) and a partials row [tO (K*B)
+//       per CTA: a block's ~384 pieces at 500k cells already fit the card
+//       in one wave). A CTA does not compute Y^T Z and stages neither Y^T
+//       nor Z: its piece's rows of G (64 x K floats, contiguous) come in
+//       through cp.async, transposed into the (K x 64) table the chain
+//       reads, with the codes and the penalty tables; then per cell (one
+//       warp a column, two cells at a time) the exp, the guarded
+//       normalise and the objective terms, and per cluster row the (K x B)
+//       design contraction (a run of cells of one batch row summed in a
+//       register). It writes R (if asked) and a partials row [tO (K*B)
 //       | k-means error | entropy]. With moments it also forms its piece's
 //       R [Z_orig; 1]^T, one 4x4 register tile at a time (any K and d),
 //       and stores each tile into the piece's row of a scratch the size of
@@ -75,9 +85,12 @@
 //
 // Bit-equal recomputation. K7's written R, the R K10 recomputes and K11's
 // R must be the same bits per cell (the property of pallas_rotate.py:
-// 1436-1441). All three call one routine, assign_chain: the same product
-// loop, and every product that feeds a sum or R is __fmul_rn, so no kernel
-// lets the compiler contract it into an FMA differently.
+// 1436-1441). K10 and K11 compute g with gram on the phase's stored Zn, K6
+// computed G with gram on the same Zn values, so g has the same bits in
+// all three (a fixed fmaf sequence over e = 0..d-1 per cell); then all
+// three call one routine, assign_chain, and every product that feeds a sum
+// or R is __fmul_rn, so no kernel lets the compiler contract it into an FMA
+// differently.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -93,6 +106,22 @@ constexpr int kTP = kCT + 1;
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
 // Ls[k * kTP + t] = sum_e Ys[k, e] Zs[e, t] for the CTA's 64 cells: lane ->
@@ -125,18 +154,28 @@ __device__ __forceinline__ void gram(const float* Ys, const float* Zs,
 }
 
 // Per cluster row: the piece's (K x B) design contraction added into Obs
-// (each thread owns its rows) and, if R is given, the assignments.
+// (each thread owns its rows) and, if R is given, the assignments. A run
+// of cells with one batch row (a batch-tiled layout's pieces are mostly
+// one run) is summed in a register and added to Obs once.
 __device__ __forceinline__ void add_stats(const float* Ls, const int* gcs, float* Obs,
                                           float* R, long long L, long long base, int K,
                                           int B, int ncov) {
   const int tid = threadIdx.x;
   for (int k = tid; k < K; k += kThreads) {
-    for (int t = 0; t < kCT; ++t) {
-      const float r = Ls[k * kTP + t];
-      for (int c = 0; c < ncov; ++c) {
+    for (int c = 0; c < ncov; ++c) {
+      int cur = -1;
+      float run = 0.f;
+#pragma unroll 8
+      for (int t = 0; t < kCT; ++t) {
         const int gc = gcs[c * kCT + t];
-        if (gc >= 0) Obs[k * B + gc] += r;
+        if (gc != cur) {
+          if (cur >= 0) Obs[k * B + cur] += run;
+          cur = gc;
+          run = 0.f;
+        }
+        run += Ls[k * kTP + t];
       }
+      if (cur >= 0) Obs[k * B + cur] += run;
     }
   }
   if (R != nullptr) {
@@ -147,8 +186,18 @@ __device__ __forceinline__ void add_stats(const float* Ls, const int* gcs, float
   }
 }
 
-// Stages the CTA's cells: Z columns into Zs, global batch rows (code +
-// covariate offset, -1 on pad cells) into gcs.
+// Stages the CTA's cells' global batch rows (code + covariate offset, -1
+// on pad cells) into gcs.
+__device__ __forceinline__ void stage_codes(const int* codes, const int* offsets, int* gcs,
+                                            long long L, long long base, int ncov) {
+  for (int i = threadIdx.x; i < ncov * kCT; i += kThreads) {
+    const int c = i / kCT, t = i - c * kCT;
+    const int code = codes[c * L + base + t];
+    gcs[i] = code >= 0 ? code + offsets[c] : -1;
+  }
+}
+
+// Stages the CTA's cells: Z columns into Zs, and their codes.
 __device__ __forceinline__ void stage_cells(const float* Z, const int* codes,
                                             const int* offsets, float* Zs,
                                             int* gcs, long long L,
@@ -157,74 +206,93 @@ __device__ __forceinline__ void stage_cells(const float* Z, const int* codes,
     const int e = i / kCT, t = i - e * kCT;
     Zs[i] = Z[e * L + base + t];
   }
-  for (int i = threadIdx.x; i < ncov * kCT; i += kThreads) {
-    const int c = i / kCT, t = i - c * kCT;
-    const int code = codes[c * L + base + t];
-    gcs[i] = code >= 0 ? code + offsets[c] : -1;
-  }
+  stage_codes(codes, offsets, gcs, L, base, ncov);
 }
 
-// The assignment chain of K7, K10 and K11 for the piece staged in Zs:
-// g = Y^T z into Ls, then per cell (one warp a column, lanes over
-// clusters) w = exp((g - 1) 2/sigma) * pc with pc the penalty summed over
-// the cell's covariates (0 on pad cells), and R = w * (1 / colsum(w)),
-// the sum guarded against zero; R overwrites Ls. With kObj the cell's
-// k-means error and entropy terms are added to kerr/ent (lane-uniform).
-// The caller synchronises before (staging) and after (readers of Ls).
+// The assignment chain of K7, K10 and K11 for the piece whose g = Y^T z
+// is in Ls (K7: from K6's G; K10 and K11: gram), per cell (one warp a
+// column, lanes over clusters) w = exp((g - 1) 2/sigma) * pc with pc the
+// penalty summed over the cell's covariates (0 on pad cells), and R = w *
+// (1 / colsum(w)), the sum guarded against zero; R overwrites Ls. With
+// kObj the cell's k-means error and entropy terms are added to kerr/ent
+// (lane-uniform). The caller synchronises before (g in Ls) and after
+// (readers of Ls).
+// A warp takes two cells at a time, t and t + 32, so the two chains'
+// latencies overlap; each cell's operations are the same in the same order
+// as one at a time.
 template <bool kObj>
-__device__ __forceinline__ void assign_chain(const float* Ys, const float* Zs, float* Ls,
-                                             const float* pens, const float* lps,
+__device__ __forceinline__ void assign_chain(float* Ls, const float* pens, const float* lps,
                                              const float* sig, const float* i2s,
-                                             const int* gcs, int K, int d, int B, int ncov,
+                                             const int* gcs, int K, int B, int ncov,
                                              float& kerr, float& ent) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  gram(Ys, Zs, Ls, K, d);
-  __syncthreads();
-  for (int t = w; t < kCT; t += kWarps) {
-    const int g0 = gcs[t];
-    float cs = 0.f, swg = 0.f, sws = 0.f, swl = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      float pc = 0.f;
-      for (int c = 0; c < ncov; ++c) {
-        const int gc = gcs[c * kCT + t];
-        if (gc >= 0) pc += pens[k * B + gc];
-      }
-      const float g = Ls[k * kTP + t];
-      const float wv = __fmul_rn(expf(__fmul_rn(g - 1.f, i2s[k])), pc);
-      cs += wv;
-      if (kObj) {
-        swg += wv * g;
-        if (ncov == 1 && g0 >= 0) {
-          sws += sig[k] * wv;
-          swl += sig[k] * wv * lps[k * B + g0];
-        }
-      }
-      Ls[k * kTP + t] = wv;
+  for (int t0 = w; t0 < kCT / 2; t0 += kWarps) {
+    const int tt[2] = {t0, t0 + kCT / 2};
+    int g0[2];
+    float cs[2], swg[2], sws[2], swl[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      g0[u] = gcs[tt[u]];
+      cs[u] = swg[u] = sws[u] = swl[u] = 0.f;
     }
-    cs = warp_sum(cs);
-    const float csg = cs == 0.f ? 1.f : cs;
-    const float inv = 1.f / csg;
-    float sr = 0.f, sxl = 0.f;
     for (int k = lane; k < K; k += 32) {
-      const float r = __fmul_rn(Ls[k * kTP + t], inv);
-      if (kObj) {
-        sr += r;
-        if (ncov > 1) sxl += sig[k] * (r > 0.f ? r * logf(r) : 0.f);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = tt[u];
+        float pc = 0.f;
+        for (int c = 0; c < ncov; ++c) {
+          const int gc = gcs[c * kCT + t];
+          if (gc >= 0) pc += pens[k * B + gc];
+        }
+        const float g = Ls[k * kTP + t];
+        const float wv = __fmul_rn(expf(__fmul_rn(g - 1.f, i2s[k])), pc);
+        cs[u] += wv;
+        if (kObj) {
+          swg[u] += wv * g;
+          if (ncov == 1 && g0[u] >= 0) {
+            sws[u] += sig[k] * wv;
+            swl[u] += sig[k] * wv * lps[k * B + g0[u]];
+          }
+        }
+        Ls[k * kTP + t] = wv;
       }
-      Ls[k * kTP + t] = r;
+    }
+    warp_sum2(cs[0], cs[1]);
+    float csg[2], inv[2], sr[2] = {0.f, 0.f}, sxl[2] = {0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      csg[u] = cs[u] == 0.f ? 1.f : cs[u];
+      inv[u] = 1.f / csg[u];
+    }
+    for (int k = lane; k < K; k += 32) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float r = __fmul_rn(Ls[k * kTP + tt[u]], inv[u]);
+        if (kObj) {
+          sr[u] += r;
+          if (ncov > 1) sxl[u] += sig[k] * (r > 0.f ? r * logf(r) : 0.f);
+        }
+        Ls[k * kTP + tt[u]] = r;
+      }
     }
     if (kObj) {
-      sr = warp_sum(sr);
-      swg = warp_sum(swg);
-      // k-means error as 2 sum R - 2 sum R g (pallas_rotate.py:776-779)
-      const float s_rd = 2.f * sr - 2.f * (swg * inv);
-      kerr += s_rd;
+      warp_sum2(sr[0], sr[1]);
+      warp_sum2(swg[0], swg[1]);
       if (ncov == 1) {
-        sws = warp_sum(sws);
-        swl = warp_sum(swl);
-        ent += -s_rd - logf(csg) * (sws * inv) + swl * inv;
+        warp_sum2(sws[0], sws[1]);
+        warp_sum2(swl[0], swl[1]);
       } else {
-        ent += warp_sum(sxl);
+        warp_sum2(sxl[0], sxl[1]);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        // k-means error as 2 sum R - 2 sum R g (pallas_rotate.py:776-779)
+        const float s_rd = 2.f * sr[u] - 2.f * (swg[u] * inv[u]);
+        kerr += s_rd;
+        if (ncov == 1)
+          ent += -s_rd - logf(csg[u]) * (sws[u] * inv[u]) + swl[u] * inv[u];
+        else
+          ent += sxl[u];
       }
     }
   }
@@ -232,14 +300,10 @@ __device__ __forceinline__ void assign_chain(const float* Ys, const float* Zs, f
 
 // Floats of K7's assign CTA layout before the moments' [Z_orig; 1] stage
 // (rot_assign_kernel; cuda_rotate.assign_smem_bytes mirrors it), rounded
-// up to whole float4s, and whether that stage fits in the Ys/Zs region.
-__host__ __device__ __forceinline__ int assign_floats(int K, int d, int B, int ncov) {
-  const int n = K * d + d * kCT + (K + 3) / 4 * 4 * kTP + 3 * K * B + 2 * K + 2 * kWarps +
-                ncov * kCT;
+// up to whole float4s.
+__host__ __device__ __forceinline__ int assign_floats(int K, int B, int ncov) {
+  const int n = (K + 3) / 4 * 4 * kTP + 3 * K * B + 2 * K + 2 * kWarps + ncov * kCT;
   return (n + 3) / 4 * 4;
-}
-__host__ __device__ __forceinline__ bool zos_in_place(int K, int d, int d1p) {
-  return kCT * d1p <= K * d + d * kCT;
 }
 
 // ---- K7 ---------------------------------------------------------------
@@ -252,8 +316,7 @@ __host__ __device__ __forceinline__ bool zos_in_place(int K, int d, int d1p) {
 // slot[layout tile] and resets the count for the next launch.
 template <bool kMoments>
 __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
-    const float* __restrict__ Yt,      // (K, d)
-    const float* __restrict__ Z,       // (d, L) normalised, padded layout
+    const float* __restrict__ G,       // (L, K) the phase's Gram table (K6)
     const int* __restrict__ codes,     // (ncov, L), pads < 0
     const int* __restrict__ offsets,   // (ncov,)
     const float* __restrict__ pen,     // (K, B) block-removed penalty
@@ -268,11 +331,9 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
     int* __restrict__ count,           // (n_cta / C,) zero on entry and exit (moments)
     long long L, int v0, int NT, int cpt, int tw, int K, int d, int B, int ncov,
     int d1p) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int K4 = (K + 3) / 4 * 4;
-  float* Ys = smem;             // K*d
-  float* Zs = Ys + K * d;       // d*kCT
-  float* Ls = Zs + d * kCT;     // K4*kTP: g, then w, then R
+  float* Ls = smem;             // K4*kTP: g, then w, then R
   float* pens = Ls + K4 * kTP;  // K*B
   float* lps = pens + K * B;    // K*B
   float* sig = lps + K * B;     // K
@@ -280,11 +341,8 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
   float* Obs = i2s + K;         // K*B
   float* red = Obs + K * B;     // 2*kWarps
   int* gcs = reinterpret_cast<int*>(red + 2 * kWarps);  // ncov*kCT
-  // moments: the piece's [Z_orig; 1] columns, cell-major (kCT*d1p), staged
-  // once the distances are done into Ys/Zs, which are dead by then, where
-  // they fit (so the CTA needs no more shared memory than without
-  // moments), else after gcs
-  float* Zos = zos_in_place(K, d, d1p) ? Ys : smem + assign_floats(K, d, B, ncov);
+  // moments: the piece's [Z_orig; 1] columns, cell-major (kCT*d1p)
+  float* Zos = smem + assign_floats(K, B, ncov);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, w = tid >> 5;
@@ -294,7 +352,11 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
   const int P = K * B + 2;
   const int d1 = d + 1;
 
-  for (int i = tid; i < K * d; i += kThreads) Ys[i] = Yt[i];
+  // g of the piece's cells: their rows of G, contiguous, transposed into
+  // Ls in flight (warp w takes rows w, w + 8, ..., lanes the clusters)
+  const float* Gp = G + base * K;
+  for (int t = w; t < kCT; t += kWarps)
+    for (int k = lane; k < K; k += 32) cp_async4(Ls + k * kTP + t, Gp + t * K + k);
   for (int i = tid; i < K * B; i += kThreads) {
     pens[i] = pen[i];
     lps[i] = logpen[i];
@@ -308,9 +370,10 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
   for (int i = K * kTP + tid; i < K4 * kTP; i += kThreads) Ls[i] = 0.f;
 
   float kerr = 0.f, ent = 0.f;
-  stage_cells(Z, codes, offsets, Zs, gcs, L, base, d, ncov);
+  stage_codes(codes, offsets, gcs, L, base, ncov);
+  cp_async_wait_all();
   __syncthreads();
-  assign_chain<true>(Ys, Zs, Ls, pens, lps, sig, i2s, gcs, K, d, B, ncov, kerr, ent);
+  assign_chain<true>(Ls, pens, lps, sig, i2s, gcs, K, B, ncov, kerr, ent);
   __syncthreads();
   if (kMoments) {
     for (int i = tid; i < d1p * kCT; i += kThreads) {
@@ -504,6 +567,7 @@ __global__ void __launch_bounds__(kThreads) reassign_assign_kernel(
     const int* __restrict__ offsets,  // (ncov,)
     const float* __restrict__ sigma,  // (K,)
     float* __restrict__ Zn,           // (d, L) out, L2-normalised columns
+    float* __restrict__ G,            // (L, K) out, g = Y^T Zn a cell a row
     float* __restrict__ part,         // (L/64, K*B) out
     long long L, int K, int d, int B, int ncov) {
   extern __shared__ float smem[];
@@ -544,11 +608,15 @@ __global__ void __launch_bounds__(kThreads) reassign_assign_kernel(
   __syncthreads();
   gram(Ys, Zs, Ls, K, d);
   __syncthreads();
+  // per cell, lanes over clusters: its row of G (coalesced), then R
   for (int t = w; t < kCT; t += kWarps) {
     const float valid = gcs[t] >= 0 ? 1.f : 0.f;
+    float* grow = G + (base + t) * K;
     float cs = 0.f;
     for (int k = lane; k < K; k += 32) {
-      const float v = expf((Ls[k * kTP + t] - 1.f) * i2s[k]) * valid;
+      const float g = Ls[k * kTP + t];
+      grow[k] = g;
+      const float v = expf((g - 1.f) * i2s[k]) * valid;
       cs += v;
       Ls[k * kTP + t] = v;
     }
@@ -655,9 +723,10 @@ __global__ void __launch_bounds__(kThreads) virtual_correction_kernel(
   stage_virtual(Yt, Zn, codes, offsets, pen, blkmap, sigma, Ys, Zs, pens, sig, i2s, gcs,
                 L, base, T, K, d, B, ncov);
   __syncthreads();
+  gram(Ys, Zs, Ls, K, d);
+  __syncthreads();
   float unused0 = 0.f, unused1 = 0.f;
-  assign_chain<false>(Ys, Zs, Ls, pens, nullptr, sig, i2s, gcs, K, d, B, ncov, unused0,
-                      unused1);
+  assign_chain<false>(Ls, pens, nullptr, sig, i2s, gcs, K, B, ncov, unused0, unused1);
   __syncthreads();
   const int neb = (d + 3) / 4;
   constexpr int ntb = kCT / 4;
@@ -710,9 +779,10 @@ __global__ void __launch_bounds__(kThreads) materialize_r_kernel(
   stage_virtual(Yt, Zn, codes, offsets, pen, blkmap, sigma, Ys, Zs, pens, sig, i2s, gcs,
                 L, base, T, K, d, B, ncov);
   __syncthreads();
+  gram(Ys, Zs, Ls, K, d);
+  __syncthreads();
   float unused0 = 0.f, unused1 = 0.f;
-  assign_chain<false>(Ys, Zs, Ls, pens, nullptr, sig, i2s, gcs, K, d, B, ncov, unused0,
-                      unused1);
+  assign_chain<false>(Ls, pens, nullptr, sig, i2s, gcs, K, B, ncov, unused0, unused1);
   __syncthreads();
   for (int i = threadIdx.x; i < K * kCT; i += kThreads) {
     const int k = i / kCT, t = i - k * kCT;
@@ -730,7 +800,7 @@ int set_smem(const void* kernel, int bytes) {
 extern "C" {
 
 // K7 assign launch over a block's ntile tiles; Zo == nullptr: no moments.
-int k7_assign(const void* Yt, const void* Z, const void* codes,
+int k7_assign(const void* G, const void* codes,
               const void* offsets, const void* pen, const void* logpen,
               const void* sigma, void* R, void* part, const void* Zo, const void* slot,
               void* mpart, void* mpiece, void* count, long long L, int v0, int ntile,
@@ -742,8 +812,7 @@ int k7_assign(const void* Yt, const void* Z, const void* codes,
   int err = set_smem(kern, smem_bytes);
   if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* Ytf = static_cast<const float*>(Yt);
-  const float* Zf = static_cast<const float*>(Z);
+  const float* Gf = static_cast<const float*>(G);
   const int* ci = static_cast<const int*>(codes);
   const int* oi = static_cast<const int*>(offsets);
   const float* penf = static_cast<const float*>(pen);
@@ -758,11 +827,11 @@ int k7_assign(const void* Yt, const void* Z, const void* codes,
   int* cnt = static_cast<int*>(count);
   if (mom)
     rot_assign_kernel<true><<<ntile * cpt, kThreads, smem_bytes, st>>>(
-        Ytf, Zf, ci, oi, penf, lpf, sigf, Rf, partf, Zof, sli, mpf, mpc, cnt, L, v0, NT, cpt,
+        Gf, ci, oi, penf, lpf, sigf, Rf, partf, Zof, sli, mpf, mpc, cnt, L, v0, NT, cpt,
         tw, K, d, B, ncov, d1p);
   else
     rot_assign_kernel<false><<<ntile * cpt, kThreads, smem_bytes, st>>>(
-        Ytf, Zf, ci, oi, penf, lpf, sigf, Rf, partf, Zof, sli, mpf, mpc, cnt, L, v0, NT, cpt,
+        Gf, ci, oi, penf, lpf, sigf, Rf, partf, Zof, sli, mpf, mpc, cnt, L, v0, NT, cpt,
         tw, K, d, B, ncov, d1p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -790,7 +859,7 @@ int k7_commit(const void* part, int add, int v0, int ntile, int cpt, int NT,
 
 int k6_reassign(const void* Yt, const void* Z, const void* codes,
                 const void* offsets, const void* sigma, const void* Pr,
-                void* Zn, void* part, void* tO, void* O, void* E, long long L,
+                void* Zn, void* G, void* part, void* tO, void* O, void* E, long long L,
                 int NT, int K, int d, int B, int ncov, int b0, int smem_bytes,
                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -800,7 +869,7 @@ int k6_reassign(const void* Yt, const void* Z, const void* codes,
   reassign_assign_kernel<<<ncta, kThreads, smem_bytes, st>>>(
       static_cast<const float*>(Yt), static_cast<const float*>(Z),
       static_cast<const int*>(codes), static_cast<const int*>(offsets),
-      static_cast<const float*>(sigma), static_cast<float*>(Zn),
+      static_cast<const float*>(sigma), static_cast<float*>(Zn), static_cast<float*>(G),
       static_cast<float*>(part), L, K, d, B, ncov);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;

@@ -139,7 +139,10 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
 
     K6 runs on every entry: it normalises the padded Z_corr and recomputes
     O, E and the per-tile table from the centroids (no first-entry branch:
-    right after init the recompute is a numerical no-op). Then the rounds.
+    right after init the recompute is a numerical no-op), and returns the
+    phase's Gram table G = (Y^T Zn)^T, which the rounds read on the layout
+    (Y and Zn are fixed within the phase; 4 K Npt bytes, dropped with the
+    layout at the phase's end). Then the rounds.
     With the default budget (max_iter_cluster <= window_size + 2) the
     windowed early stop cannot fire and every round runs; only the last
     writes R, and with a batch-tiled layout it also fuses the M-step's
@@ -160,12 +163,12 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
         schedules = rotate.draw_schedules(cfg, state.generator, cfg.max_iter_cluster)
     codes_pad = rotate.make_codes_pad(cfg, state.codes)
     Z_raw = rotate.pad_cells_to_tile(cfg, state.Z_corr.to(torch.float32)).contiguous()
-    Zn, tile_O, O, E = reassign(cfg, state.Y.to(torch.float32), state.sigma,
-                                state.Pr_b, Z_raw, codes_pad)
+    Zn, tile_O, O, E, G = reassign(cfg, state.Y.to(torch.float32), state.sigma,
+                                   state.Pr_b, Z_raw, codes_pad)
     dt = state.Z_corr.dtype
     state = dataclasses.replace(state, Z_corr=Zn[:, : cfg.Np].to(dt),
                                 O=O.to(dt), E=E.to(dt))
-    layout = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad)
+    layout = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G)
     static = cfg.max_iter_cluster <= cfg.window_size + 2
     moments = None
     virtual = _virtual_gate(cfg, tiled)

@@ -4,26 +4,31 @@ Counterpart of ``harmony_tpu/ops/pallas_estep.py`` (``pallas_permute_phase``),
 drop-ins for :mod:`harmony_tpu_torch.ops.permute_phase`, which holds their
 plain versions. The CUDA source is ``csrc/permute_phase.cu``.
 
-* :func:`permute_rounds` (K2): the phase's rounds. Per round PyTorch
-  gathers the cells into block order from cell-major tables (one
-  contiguous row per cell) and scatters the new block ids; then one
-  removal launch over the round's cells and, per block, an assign launch
-  and a commit launch, with nothing in between (2 * n_blocks + 2 launches
-  a round). The penalty tables live as (n_blocks+1)·B rows of K floats,
-  two of them swapped between rounds; the result hands them back as the
+* :func:`permute_rounds` (K2): the phase's rounds. One head launch
+  (:func:`phase_head`) writes the phase's distances G (N, K), one
+  contiguous row per cell, which every round reads: Y and Z are fixed
+  within the phase. Per round, one removal launch over the round's cells
+  and, per block, an assign launch and a commit launch, with nothing in
+  between (2 * n_blocks + 2 launches a round); the cell passes read each
+  cell's row of G, its codes and its previous block id through the
+  round's permutation, and the removal stores the new block ids. The
+  penalty tables live as (n_blocks+1)·B rows of K floats, two of them
+  swapped between rounds; the result hands them back as the
   (K, (n_blocks+1)·B) view the plain version carries.
 * :func:`materialize` (K3): R (K, Np) in natural order, pad cells 0, and
   with a :class:`MomentsSpec` the joint-batch moment table over K8's chunk
-  plan.
+  plan. It computes the distances with the head's product loop, so its R
+  is the last round's R bit for bit.
 
 For CPU tensors each wrapper runs its plain version; any other device,
 dtype or shape raises. ``launches`` counts calls into a kernel's C entry
-points.
+points (the head is K2's).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,18 +36,24 @@ import torch
 from .. import _build
 from ..config import HarmonyConfig
 from . import permute_phase as twin
+from .cuda_estep import _sm_count
 from .cuda_ridge import _CHUNK_TILES, _ceil4, _moments_plan, sum_joint_rows
 from .cuda_rotate import _offsets_on
 from .permute_phase import MomentsSpec, PermutePhaseResult, PhaseTables, RoundsResult
 
 _F32 = torch.float32
 _SMEM_MAX = 232_448  # bytes of shared memory a CTA may use on Hopper
+_SMEM_SM = 233_472  # bytes of shared memory an SM holds, 1,024 of them reserved a CTA
 _WARPS = 8  # kWarps in permute_phase.cu
 _MAX_MT = 2  # kMaxMT in permute_phase.cu
 _THREADS = 256
-_REMOVE_TILES = 4  # cell tiles a removal CTA covers (nsub)
+_CHUNK = 256  # kChunk: cells whose ids and codes a cell-pass CTA stages at once
+_RING = 4  # kRing: rows of G a cell-pass warp holds in shared memory
+_MAX_KJ_K = 256  # the register chain: a lane holds up to 8 of a cell's K values
 _SIGNATURES = {
-    "k2_cells": [_build.INT] + [_build.PTR] * 7 + [_build.INT] * 13 + [_build.PTR],
+    "k2_occupancy": [_build.INT] * 5,
+    "k2_head": [_build.PTR] * 3 + [_build.I64, _build.I64] + [_build.INT] * 5 + [_build.PTR],
+    "k2_cells": [_build.INT] * 2 + [_build.PTR] * 7 + [_build.INT] * 12 + [_build.PTR],
     "k2_commit": [_build.PTR, _build.INT, _build.PTR, _build.INT, _build.INT]
     + [_build.PTR] * 5 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [_build.PTR],
     "k3_materialize": [_build.PTR] * 11 + [_build.I64, _build.I64] + [_build.INT] * 10
@@ -50,29 +61,56 @@ _SIGNATURES = {
 }
 
 
-def cells_smem_bytes(K: int, d: int, B: int, ncov: int, T: int) -> int:
-    """Shared memory of one K2 cell-pass CTA (layout in the .cu)."""
-    floats = K * d + d * (T + 1) + K * (T + 1) + K + K * B + K + 2 * _WARPS
-    return 4 * (floats + ncov * T + T)
+def head_smem_bytes(K: int, d: int, T: int) -> int:
+    """Shared memory of one head CTA (layout in the .cu)."""
+    return 4 * (K * d + d * (T + 1) + K * (T + 1))
+
+
+def cells_smem_bytes(K: int, B: int, ncov: int, warps: int, shared: bool) -> int:
+    """Shared memory of one K2 cell-pass CTA of ``warps`` warps, with a
+    (B x K) batch-sum table a warp and the assign pass's table rows, or
+    (``shared``) one table a CTA and two rows of K a warp (layout in the
+    .cu)."""
+    if shared:
+        floats = B * K + warps * (K + 2 + _RING * K + 2 * K)
+    else:
+        floats = warps * (B * K + K + 2 + _RING * K) + B * K
+    return 4 * (floats + _CHUNK * (ncov + 2))
 
 
 def materialize_smem_bytes(K: int, d: int, ncov: int, T: int, moments: bool) -> int:
     """Shared memory of one K3 CTA (layout in the .cu)."""
     K4 = -(-K // 4) * 4
-    floats = (T * _ceil4(d + 1) if moments else 0) + K * d + d * (T + 1) + K4 * (T + 1) + K
+    floats = (T * _ceil4(d + 1) if moments else 0) + K * d + d * (T + 1) + K4 * (T + 1)
     return 4 * (floats + ncov * T + T)
 
 
 def cell_tile(K: int, d: int, B: int, ncov: int) -> int:
-    """Cells per staged tile: 64, or 32 where 64 does not fit."""
+    """Cells per staged tile of the head and K3: 64, or 32 where 64 does
+    not fit."""
     for T in (64, 32):
-        if max(cells_smem_bytes(K, d, B, ncov, T),
+        if max(head_smem_bytes(K, d, T),
                materialize_smem_bytes(K, d, ncov, T, True)) <= _SMEM_MAX:
             return T
     raise ValueError(
         f"permute phase kernels: K={K}, d={d}, B={B}, {ncov} covariate(s) need more "
         f"than the {_SMEM_MAX} bytes of shared memory a CTA may use at 32 cells"
     )
+
+
+def cell_layout(K: int, B: int, ncov: int) -> Tuple[int, bool]:
+    """(warps, shared) of a K2 cell-pass CTA: 8 warps with a (B x K)
+    batch-sum table each where K <= 256 and two such CTAs fit on an SM
+    (B <= 26 at K = 100); else one table a CTA (``shared``), with the most
+    warps, up to 8, that fit."""
+    if K <= _MAX_KJ_K and 2 * (cells_smem_bytes(K, B, ncov, _WARPS, False) + 1024) <= _SMEM_SM:
+        return _WARPS, False
+    for w in range(_WARPS, 0, -1):
+        if cells_smem_bytes(K, B, ncov, w, True) <= _SMEM_MAX:
+            return w, True
+    raise ValueError(f"K2: K={K}, B={B} need {cells_smem_bytes(K, B, ncov, 1, True)} bytes "
+                     f"of shared memory for one (B x K) table of batch sums, over the "
+                     f"{_SMEM_MAX} a CTA may use")
 
 
 def moments_fit(K: int, d: int) -> bool:
@@ -104,6 +142,73 @@ def _check(where: str, cfg: HarmonyConfig, floats: dict, codes: torch.Tensor) ->
     return True
 
 
+class _Plan(NamedTuple):
+    """Launch geometry of a phase (see :func:`_plan`)."""
+
+    warps: int
+    shared: bool  # one batch-sum table a cell-pass CTA (cell_layout)
+    smem: int  # bytes a cell-pass CTA
+    span_rm: int  # positions a removal CTA covers
+    cta_rm: int  # removal CTAs of a full block
+    span: int  # positions an assign CTA covers
+    cta: int  # assign CTAs of a full block
+    head_grid: int
+
+
+def _occupancy(lib, which: int, K: int, shared: bool, threads: int, smem: int) -> int:
+    n = lib.k2_occupancy(which, K, int(shared), threads, smem)
+    if n <= 0:
+        raise RuntimeError(f"k2_occupancy: kernel {which} fits no CTA on an SM (CUDA error "
+                           f"{-n})")
+    return n
+
+
+@functools.lru_cache(maxsize=16)
+def _plan(K: int, d: int, B: int, ncov: int, cpb: int, nb: int, n_sm: int, T: int) -> _Plan:
+    """The grids that fill the card: an assign launch covers a block in one
+    even wave of the CTAs an SM holds (a warp at least one cell); the
+    removal launch is one such wave over the whole round, each CTA looping
+    over a span of one block, so the partials it writes stay few; the head
+    is one wave of CTAs that loop over the tiles."""
+    lib = _build.load("permute_phase", _SIGNATURES)
+    warps, shared = cell_layout(K, B, ncov)
+    smem = cells_smem_bytes(K, B, ncov, warps, shared)
+    res_a = n_sm * _occupancy(lib, 2, K, shared, 32 * warps, smem)
+    res_r = n_sm * _occupancy(lib, 1, K, shared, 32 * warps, smem)
+    span = max(warps, -(-cpb // res_a))
+    span_rm = max(warps, -(-cpb // max(1, res_r // nb)))
+    head_grid = n_sm * _occupancy(lib, 0, K, False, _THREADS, head_smem_bytes(K, d, T))
+    return _Plan(warps, shared, smem, span_rm, -(-cpb // span_rm), span, -(-cpb // span),
+                 head_grid)
+
+
+def phase_head(cfg: HarmonyConfig, Z: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """K2's head: the phase's distances G (N, K), G[n, k] = 2 (1 - Y[:, k]
+    . Z[:, n]), with K3's product loop; the plain version on CPU tensors."""
+    dev = Z.device
+    if dev.type == "cpu":
+        return twin.phase_head(cfg, Z, Y)
+    if dev.type != "cuda" or Y.device != dev or Z.dtype != _F32 or Y.dtype != _F32:
+        raise ValueError("phase_head: Z and Y must be float32 on one CUDA device")
+    K, d, N, Np = cfg.K, cfg.d, cfg.N, cfg.Np
+    if Z.shape != (d, Np) or Y.shape != (d, K):
+        raise ValueError(f"phase_head: Z {tuple(Z.shape)} and Y {tuple(Y.shape)} disagree "
+                         f"with the config (d={d}, K={K}, Np={Np})")
+    T = cell_tile(K, d, cfg.B, cfg.n_covariates)
+    plan = _plan(K, d, cfg.B, cfg.n_covariates, cfg.cells_per_block, cfg.n_blocks,
+                 _sm_count(dev), T)
+    G = torch.empty((N, K), dtype=_F32, device=dev)
+    Yt, Zc = Y.t().contiguous(), Z.contiguous()  # held until the launch is queued
+    lib = _build.load("permute_phase", _SIGNATURES)
+    _build.check(lib.k2_head(
+        Yt.data_ptr(), Zc.data_ptr(), G.data_ptr(), N, Np, K, d,
+        T, min(plan.head_grid, -(-N // T)), head_smem_bytes(K, d, T),
+        torch.cuda.current_stream(dev).cuda_stream,
+    ), "k2_head")
+    permute_rounds.launches += 1
+    return G
+
+
 def permute_rounds(
     cfg: HarmonyConfig,
     Z: torch.Tensor,  # (d, Np) L2-normalised
@@ -116,77 +221,76 @@ def permute_rounds(
     theta: torch.Tensor,  # (B,)
     perms: torch.Tensor,  # (rounds, N)
 ) -> RoundsResult:
-    """K2: the phase's rounds; the plain version on CPU tensors."""
+    """K2: the phase's head and rounds; the plain version on CPU tensors."""
     floats = {"Z": Z, "Y": Y, "E": E, "O": O, "Pr_b": Pr_b, "sigma": sigma, "theta": theta}
     if not _check("permute_rounds", cfg, floats, codes):
         return twin.permute_rounds(cfg, Z, Y, E, O, codes, Pr_b, sigma, theta, perms)
-    K, d, B, ncov, nb = cfg.K, cfg.d, cfg.B, cfg.n_covariates, cfg.n_blocks
+    K, B, ncov, nb = cfg.K, cfg.B, cfg.n_covariates, cfg.n_blocks
     N, Np, dev = cfg.N, cfg.Np, Z.device
     if E.shape != (K, B) or O.shape != (K, B) or perms.shape[1:] != (N,):
         raise ValueError("permute_rounds: E/O or perms disagree with the config")
     rounds = perms.shape[0]
-    T = cell_tile(K, d, B, ncov)
-    smem = cells_smem_bytes(K, d, B, ncov, T)
     cpb, last = cfg.cells_per_block, cfg.last_block_size
-    span0 = T * _REMOVE_TILES
-    cta0 = -(-cpb // span0)  # removal CTAs of a full block
-    grid0 = (nb - 1) * cta0 + -(-last // span0)
-    cta1 = -(-cpb // T)
+    plan = _plan(K, cfg.d, B, ncov, cpb, nb, _sm_count(dev),
+                 cell_tile(K, cfg.d, B, ncov))
+    grid0 = (nb - 1) * plan.cta_rm + -(-last // plan.span_rm)
     P = K + K * B + 2
 
+    G = phase_head(cfg, Z, Y)
+    perms = torch.as_tensor(perms, device=dev).to(torch.int64).contiguous()
     off = _offsets_on(cfg.covariate_offsets, str(dev))
-    Zt = Z.t().contiguous()  # (Np, d): a gathered cell is one row
     gn = (codes + off[:, None]).t().contiguous()  # (Np, ncov) global batch rows
-    Yt = Y.t().contiguous()
     sig, Pr, th = sigma.contiguous(), Pr_b.contiguous(), theta.contiguous()
     pens = [torch.ones(((nb + 1) * B, K), dtype=_F32, device=dev) for _ in range(2)]
     blk_nat = torch.full((Np,), nb, dtype=torch.int32, device=dev)
-    slot_blk = twin.slot_blocks(cfg, dev).to(torch.int32)
     E_w, O_w = E.contiguous().clone(), O.contiguous().clone()
     E_st = torch.empty((rounds, K, B), dtype=_F32, device=dev)
     O_st = torch.empty_like(E_st)
     acc = torch.zeros((rounds, 2), dtype=_F32, device=dev)
     part0 = torch.empty((grid0, P), dtype=_F32, device=dev)
-    part1 = torch.empty((max(cpb, last, 1) + T - 1) // T, P, dtype=_F32, device=dev)
+    part1 = torch.empty((-(-max(cpb, last, 1) // plan.span), P), dtype=_F32, device=dev)
     lib = _build.load("permute_phase", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # the launches' pointer arguments, read once: a round issues 2 * nb + 2
+    # launches, and the host builds each one
+    p_G, p_gn, p_blk, p_sig = G.data_ptr(), gn.data_ptr(), blk_nat.data_ptr(), sig.data_ptr()
+    p_part = (part0.data_ptr(), part1.data_ptr())  # the removal's, the assign's
+    c_tail = (E_w.data_ptr(), O_w.data_ptr(), Pr.data_ptr(), th.data_ptr())
+    p_pens = [t.data_ptr() for t in pens]
+    p_acc = [acc[r].data_ptr() for r in range(rounds)]
+    threads = 32 * plan.warps
 
-    def cells(assign, Zl, gl, bl, pen, part, grid, cta_per, nsub, first):
+    def cells(assign, p_perm, p_pen, grid, cta_per, span, first):
         _build.check(lib.k2_cells(
-            assign, Yt.data_ptr(), Zl.data_ptr(), gl.data_ptr(), bl.data_ptr(),
-            pen.data_ptr(), sig.data_ptr(), part.data_ptr(), grid, cpb, last, nb, cta_per,
-            nsub, first, K, d, B, ncov, T, smem, stream,
+            assign, int(plan.shared), p_G, p_perm, p_gn, p_blk, p_pen, p_sig, p_part[assign], grid,
+            threads, cpb, last, nb, cta_per, span, first, K, B, ncov, plan.smem, stream,
         ), "k2_cells")
         permute_rounds.launches += 1
 
-    def commit(n1, rm, pen, store_row, acc_r):
+    def commit(n1, rm, p_pen, store_row, p_acc_r):
         rm_first, rm_n = 0, 0
         if rm >= 0:
             size = cpb if rm < nb - 1 else last
-            rm_first, rm_n = rm * cta0, -(-size // span0)
+            rm_first, rm_n = rm * plan.cta_rm, -(-size // plan.span_rm)
         _build.check(lib.k2_commit(
-            part1.data_ptr(), n1, part0.data_ptr(), rm_first, rm_n, E_w.data_ptr(),
-            O_w.data_ptr(), Pr.data_ptr(), th.data_ptr(), pen.data_ptr(), store_row,
-            acc_r.data_ptr(), K, B, int(n1 >= 0), int(rm >= 0), stream,
+            p_part[1], n1, p_part[0], rm_first, rm_n, *c_tail, p_pen, store_row, p_acc_r,
+            K, B, int(n1 >= 0), int(rm >= 0), stream,
         ), "k2_commit")
         permute_rounds.launches += 1
 
     for r in range(rounds):
-        perm = torch.as_tensor(perms[r], device=dev).long()
-        Zl = Zt.index_select(0, perm)
-        gl = gn.index_select(0, perm)
-        bl = blk_nat.index_select(0, perm)
-        blk_nat.index_copy_(0, perm, slot_blk)
-        pen_prev, pen_new = pens[r % 2], pens[(r + 1) % 2]
-        cells(0, Zl, gl, bl, pen_prev, part0, grid0, cta0, _REMOVE_TILES, 0)
-        commit(-1, 0, pen_new, 0, acc[r])
+        p_perm = perms[r].data_ptr()
+        pen_prev, pen_new = p_pens[r % 2], p_pens[(r + 1) % 2]
+        # the removal also stores each cell's block id of this round
+        cells(0, p_perm, pen_prev, grid0, plan.cta_rm, plan.span_rm, 0)
+        commit(-1, 0, pen_new, 0, p_acc[r])
         for i in range(nb):
             size = cpb if i < nb - 1 else last
-            n1 = -(-size // T)
+            n1 = -(-size // plan.span)
             if n1:  # a tiny block_size can leave blocks empty; a 0-CTA launch is refused
-                cells(1, Zl, gl, bl, pen_new, part1, n1, cta1, 1, i * cta1)
+                cells(1, p_perm, pen_new, n1, plan.cta, plan.span, i * plan.cta)
             commit(n1, i + 1 if i + 1 < nb else -1, pen_new,
-                   i + 1 if i + 1 < nb else -1, acc[r])
+                   i + 1 if i + 1 < nb else -1, p_acc[r])
         E_st[r].copy_(E_w)
         O_st[r].copy_(O_w)
     return RoundsResult(

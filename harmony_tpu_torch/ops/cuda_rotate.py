@@ -7,14 +7,16 @@ Counterpart of ``harmony_tpu/ops/pallas_rotate.py`` (``pallas_reassign``,
 
 * :func:`reassign` (K6): one C call, an assign launch over the padded
   layout's 64-cell pieces and a reduction launch that builds tile_O, O
-  and E.
+  and E. It also returns the phase's Gram table G (L, K) = (Y^T Zn)^T,
+  which the phase's K7 rounds read instead of forming Y^T Z again.
 * :func:`rotate_update_round_v2` (K7): a host loop over the blocks in the
-  round's order. One commit launch removes the first block's old O; then
-  each block gets an assign launch over its cells and a commit launch
-  that folds its partials into tile_O and E/O, removes the next block's
-  old O and writes the next penalty tables. A block's old O is the
-  fixed-order sum of its tiles in the previous round's table, computed
-  in the commit kernel: the loop issues launches only, with no PyTorch
+  round's order, g read from ``layout.G``. One commit launch removes the
+  first block's old O; then each block gets an assign launch over its
+  cells and a commit launch that folds its partials into tile_O and E/O,
+  removes the next block's old O and writes the next penalty tables. A
+  block's old O is the fixed-order sum of its tiles in the previous
+  round's table, computed in the commit kernel: the loop issues launches
+  only, with no PyTorch
   operation or host copy between them. On a phase's last round the
   commits can also store each block's penalty table (``emit_pen``), and
   the assign launches can accumulate the M-step's moments, one row per
@@ -50,11 +52,11 @@ _SMEM_MAX = 232_448  # bytes of shared memory a CTA may use on Hopper
 _CT = 64  # cells per piece (kCT in rotate.cu)
 _WARPS = 8
 _SIGNATURES = {
-    "k7_assign": [_build.PTR] * 14 + [_build.I64] + [_build.INT] * 11 + [_build.PTR],
+    "k7_assign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 11 + [_build.PTR],
     "k7_commit": [_build.PTR, _build.INT, _build.INT, _build.INT, _build.INT,
                   _build.INT, _build.PTR, _build.PTR, _build.INT, _build.INT]
     + [_build.PTR] * 9 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [_build.PTR],
-    "k6_reassign": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 7 + [_build.PTR],
+    "k6_reassign": [_build.PTR] * 12 + [_build.I64] + [_build.INT] * 7 + [_build.PTR],
     "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 9
     + [_build.PTR],
     "k11_materialize_r": [_build.PTR] * 8 + [_build.I64] + [_build.INT] * 6 + [_build.PTR],
@@ -63,14 +65,18 @@ _SIGNATURES = {
 
 def assign_smem_bytes(K: int, d: int, B: int, ncov: int, moments: bool = False) -> int:
     """Shared memory of one K7 assign CTA (layout in rotate.cu,
-    assign_floats); K6 needs less. With moments the [Z_orig; 1] stage
-    reuses the distances' inputs where it fits, else it comes on top."""
+    assign_floats); with moments the [Z_orig; 1] stage comes on top."""
     K4 = -(-K // 4) * 4
-    floats = K * d + d * _CT + K4 * (_CT + 1) + 3 * K * B + 2 * K + 2 * _WARPS + ncov * _CT
+    floats = K4 * (_CT + 1) + 3 * K * B + 2 * K + 2 * _WARPS + ncov * _CT
     floats = -(-floats // 4) * 4
-    if moments and _CT * _ceil4(d + 1) > K * d + d * _CT:
+    if moments:
         floats += _CT * _ceil4(d + 1)
     return 4 * floats
+
+
+def reassign_smem_bytes(K: int, d: int, B: int, ncov: int) -> int:
+    """Shared memory of one K6 assign CTA (layout in rotate.cu)."""
+    return 4 * (K * d + d * _CT + K * (_CT + 1) + K + K * B + _CT + ncov * _CT)
 
 
 def virtual_smem_bytes(K: int, d: int, B: int, ncov: int, correction: bool) -> int:
@@ -106,7 +112,6 @@ def _check(where: str, cfg: HarmonyConfig, floats: dict, codes: torch.Tensor):
     if T % _CT or codes.shape[1] % T:
         raise ValueError(f"{where}: the layout ({codes.shape[1]} cells) must be "
                          f"whole tiles of {T} cells, a multiple of {_CT}")
-    _check_smem(where, cfg, assign_smem_bytes(cfg.K, cfg.d, cfg.B, cfg.n_covariates))
 
 
 def _check_smem(where: str, cfg: HarmonyConfig, smem: int) -> None:
@@ -147,7 +152,8 @@ def reassign(
     Z_raw: torch.Tensor,  # (d, NT*T)
     codes_pad: torch.Tensor,  # (ncov, NT*T) int32; pads -B-1
 ):
-    """K6; returns (Zn (d, NT*T), tile_O (NT, K, B), O (K, B), E (K, B))."""
+    """K6; returns (Zn (d, NT*T), tile_O (NT, K, B), O (K, B), E (K, B),
+    G (NT*T, K))."""
     _check("reassign", cfg, {"Y": Y, "sigma": sigma, "Pr_b": Pr_b, "Z_raw": Z_raw},
            codes_pad)
     if Z_raw.device.type == "cpu":
@@ -156,8 +162,11 @@ def reassign(
     K, B, T = cfg.K, cfg.B, cfg.estep_sub_tile
     NT = L // T
     dev = Z_raw.device
+    smem = reassign_smem_bytes(K, d, B, cfg.n_covariates)
+    _check_smem("reassign", cfg, smem)
     Yt = Y.t().contiguous()
     Zn = torch.empty_like(Z_raw)
+    G = torch.empty((L, K), dtype=_F32, device=dev)
     part = torch.empty((L // _CT, K * B), dtype=_F32, device=dev)
     tile_O = torch.empty((NT, K, B), dtype=_F32, device=dev)
     O = torch.empty((K, B), dtype=_F32, device=dev)
@@ -167,13 +176,12 @@ def reassign(
         Yt.data_ptr(), Z_raw.data_ptr(), codes_pad.data_ptr(),
         _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), sigma.data_ptr(),
         Pr_b.data_ptr(),
-        Zn.data_ptr(), part.data_ptr(), tile_O.data_ptr(), O.data_ptr(),
-        E.data_ptr(), L, NT, K, d, B, cfg.n_covariates, cfg.B_vec[0],
-        assign_smem_bytes(K, d, B, cfg.n_covariates),
+        Zn.data_ptr(), G.data_ptr(), part.data_ptr(), tile_O.data_ptr(), O.data_ptr(),
+        E.data_ptr(), L, NT, K, d, B, cfg.n_covariates, cfg.B_vec[0], smem,
         torch.cuda.current_stream(dev).cuda_stream,
     ), "k6_reassign")
     reassign.launches += 1
-    return Zn, tile_O, O, E
+    return Zn, tile_O, O, E, G
 
 
 reassign.launches = 0
@@ -193,8 +201,9 @@ def rotate_update_round_v2(
     moments: Optional[MomentsSpec] = None,
     emit_pen: bool = False,
 ) -> RoundState:
-    """K7: one stats-carrying round for the schedule (rt, order); with
-    ``moments`` and ``emit_pen`` the extras of a phase's last round."""
+    """K7: one stats-carrying round for the schedule (rt, order), g read
+    from the phase's Gram table ``layout.G`` (K6's); with ``moments`` and
+    ``emit_pen`` the extras of a phase's last round."""
     floats = {"Y": Y, "R": rs.R, "E": rs.E, "O": rs.O, "tile_O": rs.tile_O,
               "Pr_b": Pr_b, "sigma": sigma, "theta": theta, "Z_pad": layout.Z_pad}
     if moments is not None:
@@ -208,6 +217,12 @@ def rotate_update_round_v2(
     NT = L // T
     if rs.tile_O.shape != (NT, K, B) or rs.R.shape != (K, L):
         raise ValueError("rotate_update_round_v2: tile_O/R shapes disagree with the layout")
+    G = layout.G
+    if (G is None or G.shape != (L, K) or G.dtype != _F32 or not G.is_contiguous()
+            or G.device != Y.device):
+        raise ValueError("rotate_update_round_v2: the kernel reads g from the layout's "
+                         f"Gram table, a contiguous float32 ({L}, {K}) tensor on {Y.device} "
+                         "(K6 returns it)")
     szs, vstart = rotate.block_sizes(cfg)
     dev = Y.device
     ncov, b0 = cfg.n_covariates, cfg.B_vec[0]
@@ -231,7 +246,6 @@ def rotate_update_round_v2(
     smem = assign_smem_bytes(K, d, B, ncov, moments is not None)
     _check_smem("rotate_update_round_v2", cfg, smem)
     cpt = T // _CT  # assign CTAs per tile
-    Yt = Y.t().contiguous()
     E_w = torch.empty((K, B), dtype=_F32, device=dev)
     O_w = torch.empty((K, B), dtype=_F32, device=dev)
     pen = torch.empty((K, B), dtype=_F32, device=dev)
@@ -245,17 +259,24 @@ def rotate_update_round_v2(
     lib = _build.load("rotate", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
+    # the launches' pointer arguments, read once: the loop below issues
+    # 2 * n_blocks + 1 launches a round, and the host builds each one
+    a_ptrs = (G.data_ptr(), layout.codes_pad.data_ptr(), offsets.data_ptr(), pen.data_ptr(),
+              logpen.data_ptr(), sigma.data_ptr(), ptr(R_out), part.data_ptr(),
+              *[ptr(t) for t in mom])
+    c_part, c_new, c_old = part.data_ptr(), tile_O.data_ptr(), rs.tile_O.data_ptr()
+    c_in = ((rs.E.data_ptr(), rs.O.data_ptr()), (E_w.data_ptr(), O_w.data_ptr()))
+    c_tail = (E_w.data_ptr(), O_w.data_ptr(), Pr_b.data_ptr(), theta.data_ptr(),
+              pen.data_ptr(), logpen.data_ptr(), ptr(pen_out))
+    c_acc, d1p = acc.data_ptr(), _ceil4(d + 1)
 
     def commit(add_blk: int, rm_blk: int, first: bool) -> None:
         v0, nt = ((vstart[add_blk] + rt) % NT, szs[add_blk]) if add_blk >= 0 else (0, 0)
         rv0, rn = ((vstart[rm_blk] + rt) % NT, szs[rm_blk]) if rm_blk >= 0 else (0, 0)
-        E_in, O_in = (rs.E, rs.O) if first else (E_w, O_w)
         _build.check(lib.k7_commit(
-            part.data_ptr(), int(add_blk >= 0), v0, nt, cpt, NT,
-            tile_O.data_ptr(), rs.tile_O.data_ptr(), rv0, rn, E_in.data_ptr(),
-            O_in.data_ptr(), E_w.data_ptr(), O_w.data_ptr(), Pr_b.data_ptr(),
-            theta.data_ptr(), pen.data_ptr(), logpen.data_ptr(), ptr(pen_out),
-            rm_blk if emit_pen else -1, acc.data_ptr(), int(first), K, B, b0, stream,
+            c_part, int(add_blk >= 0), v0, nt, cpt, NT, c_new, c_old, rv0, rn,
+            *c_in[0 if first else 1], *c_tail, rm_blk if emit_pen else -1, c_acc,
+            int(first), K, B, b0, stream,
         ), "k7_commit")
         rotate_update_round_v2.launches += 1
 
@@ -263,11 +284,8 @@ def rotate_update_round_v2(
     commit(-1, order[0], True)
     for i, blk in enumerate(order):
         _build.check(lib.k7_assign(
-            Yt.data_ptr(), layout.Z_pad.data_ptr(), layout.codes_pad.data_ptr(),
-            offsets.data_ptr(), pen.data_ptr(), logpen.data_ptr(),
-            sigma.data_ptr(), ptr(R_out), part.data_ptr(), *[ptr(t) for t in mom],
-            L, (vstart[blk] + rt) % NT, szs[blk], NT, cpt, tw,
-            K, d, B, ncov, _ceil4(d + 1), smem, stream,
+            *a_ptrs, L, (vstart[blk] + rt) % NT, szs[blk], NT, cpt, tw, K, d, B, ncov, d1p,
+            smem, stream,
         ), "k7_assign")
         rotate_update_round_v2.launches += 1
         commit(blk, order[i + 1] if i + 1 < len(order) else -1, False)
@@ -332,11 +350,14 @@ def virtual_correction(
     smem = virtual_smem_bytes(K, d, B, cfg.n_covariates, True)
     _check_smem("virtual_correction", cfg, smem)
     Wt = W_joint.transpose(1, 2).contiguous()  # (nj1, K, d)
+    # Y^T held in a name until the launch is queued: a temporary freed
+    # before it could hand its memory to the tile table allocated below
+    Yt = Y.t().contiguous()
     Zc = torch.empty_like(Z_orig_pad)
     dev = Zn_pad.device
     lib = _build.load("rotate", _SIGNATURES)
     _build.check(lib.k10_virtual_correction(
-        Y.t().contiguous().data_ptr(), Zn_pad.data_ptr(), codes_pad.data_ptr(),
+        Yt.data_ptr(), Zn_pad.data_ptr(), codes_pad.data_ptr(),
         _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), pen.data_ptr(),
         blk_of_phys.data_ptr(), sigma.data_ptr(), Wt.data_ptr(),
         _table_on(tj.tobytes(), str(dev)).data_ptr(), Z_orig_pad.data_ptr(),
@@ -373,10 +394,11 @@ def materialize_r(
     smem = virtual_smem_bytes(K, d, B, cfg.n_covariates, False)
     _check_smem("materialize_r", cfg, smem)
     R = torch.empty((K, L), dtype=_F32, device=Zn_pad.device)
+    Yt = Y.t().contiguous()
     dev = Zn_pad.device
     lib = _build.load("rotate", _SIGNATURES)
     _build.check(lib.k11_materialize_r(
-        Y.t().contiguous().data_ptr(), Zn_pad.data_ptr(), codes_pad.data_ptr(),
+        Yt.data_ptr(), Zn_pad.data_ptr(), codes_pad.data_ptr(),
         _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), pen.data_ptr(),
         blk_of_phys.data_ptr(), sigma.data_ptr(), R.data_ptr(), L, T, K, d, B,
         cfg.n_covariates, smem, torch.cuda.current_stream(dev).cuda_stream,

@@ -7,12 +7,15 @@ without the mesh) and of ``harmony_tpu/ops/pallas_estep.py``
 (Y, its Z column, the penalty table in force when its block was last
 committed). The phase carries those per-block tables, (K, (nb+1)·B) with
 the all-ones row nb as the sentinel for the assignments made before the
-phase, and each cell's last block id, instead of R. Each round recomputes
-the previous round's assignments from the tables and removes them block by
-block, freezes each block's penalty, assigns and adds; R is materialised
-once at the end, in natural order, with pad cells exactly 0.
+phase, and each cell's last block id, instead of R. The cells' distances
+are the same in every round of the phase, so they are computed once, by
+:func:`phase_head`, into G (N, K), and each round takes its cells' rows
+through the permutation. Each round recomputes the previous round's
+assignments from the tables and removes them block by block, freezes each
+block's penalty, assigns and adds; R is materialised once at the end, in
+natural order, with pad cells exactly 0.
 
-:func:`permute_rounds` is the plain version of K2 (the rounds) and
+:func:`permute_rounds` is the plain version of K2 (the head and the rounds) and
 :func:`materialize` of K3 (the final R, with the M-step's joint-batch
 moments when a :class:`MomentsSpec` is given);
 ``ops/cuda_permute.py`` holds the kernels. On the card this module is used
@@ -85,6 +88,13 @@ def slot_blocks(cfg: HarmonyConfig, device) -> torch.Tensor:
     return out
 
 
+def phase_head(cfg: HarmonyConfig, Z: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """The phase's distances G (N, K), cell-major: G[n, k] = 2 (1 - Y[:, k]
+    . Z[:, n]) for the N cells (plain version of K2's head)."""
+    g = Z[:, : cfg.N].to(_F32).t() @ Y.to(_F32)
+    return 2.0 * (1.0 - g)
+
+
 def _softmax_head(Yt, Z, sigma) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dist, L1(exp(-dist / sigma))) for the columns of Z."""
     dist = 2.0 * (1.0 - Yt @ Z)
@@ -112,14 +122,14 @@ def permute_rounds(
     theta: torch.Tensor,  # (B,)
     perms: torch.Tensor,  # (rounds, N)
 ) -> RoundsResult:
-    """The phase's rounds (plain K2). Pre-condition: (E, O) are the
+    """The phase's head and rounds (plain K2). Pre-condition: (E, O) are the
     statistics of the current assignments softmax(-dist / sigma), as right
     after init or the re-entry re-estimation (src/harmony.cpp:214-228)."""
     dev = Z.device
     K = sigma.shape[0]
     B, nb = cfg.B, cfg.n_blocks
     bounds = block_bounds(cfg)
-    Zf, Yt = Z.to(_F32), Y.to(_F32).t()
+    G = phase_head(cfg, Z, Y)
     sig, Pr, th = sigma.to(_F32), Pr_b.to(_F32)[None, :], theta.to(_F32)[None, :]
     E_c, O_c = E.to(_F32).clone(), O.to(_F32).clone()
     # every cell on the all-ones sentinel row: the assignment an all-ones
@@ -132,9 +142,9 @@ def permute_rounds(
     E_st, O_st, kerr_st, ent_st = [], [], [], []
     for r in range(perms.shape[0]):
         perm = torch.as_tensor(perms[r], device=dev).long()
-        Z_lay = Zf.index_select(1, perm)  # (d, N) in block order
+        dist = G.index_select(0, perm).t()  # (K, N) in block order
+        R1 = l1_normalize_columns(torch.exp(-dist / sig[:, None]))
         c_lay = codes.index_select(1, perm).long()
-        dist, R1 = _softmax_head(Yt, Z_lay, sig)
         oh = torch.zeros((perm.shape[0], B), dtype=_F32, device=dev)
         for c, off in enumerate(cfg.covariate_offsets):
             oh += (c_lay[c][:, None] + off == b_ids).to(_F32)

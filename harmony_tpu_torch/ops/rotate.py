@@ -8,9 +8,11 @@ stats-carrying path:
 * :func:`reassign`, the twin of K6 (``_reassign_kernel``, :1261): the
   cluster phase's re-entry. It L2-normalises the padded Z_corr, recomputes
   the assignments from the centroids and returns the per-tile O table,
-  O and E. It writes no R.
+  O and E, and the phase's Gram table G = (Y^T Zn)^T, one row per cell. It
+  writes no R.
 * :func:`rotate_update_round_v2`, the twin of K7 (``_round_kernel_v2``,
-  :594): one stats-carrying round. Each block's old contribution comes
+  :594): one stats-carrying round, g taken from the layout's G (Y and Zn
+  are fixed within the phase). Each block's old contribution comes
   from the previous round's per-tile table, never from R. On the phase's
   last round it can also return the M-step's joint-batch moments of its R
   (``moments``) and its per-block penalty tables with the tile -> block
@@ -25,8 +27,9 @@ stats-carrying path:
   statistics from the input R (phase 0) before it assigns the block and
   writes its R (phase 1). Its op order is K1's (``estep.py``), not K7's.
 
-All three compute R with one function (:func:`_assign_r`), as the three
-kernels share one device routine.
+K7's, K10's and K11's twins compute R with one function (:func:`_assign_r`)
+from g, as the three kernels share one device routine; K10's and K11's
+form g from Zn, as their kernels do.
 
 Schedule: cells were shuffled once at ingest; virtual tile v holds
 physical tile (v + rt) mod NT for a per-round rotation rt, and the nb
@@ -58,10 +61,13 @@ _F32 = torch.float32
 
 class CodesLayout(NamedTuple):
     """Phase constants of the rounds: the normalised embedding and the
-    codes, both padded to whole tiles; pad cells carry the sentinel code."""
+    codes, both padded to whole tiles (pad cells carry the sentinel code),
+    and the phase's Gram table. K7 reads g from ``G``; without it the plain
+    round forms g = Y^T Z_pad itself, block by block."""
 
     Z_pad: torch.Tensor  # (d, NT*T) float32
     codes_pad: torch.Tensor  # (ncov, NT*T) int32; pads -B-1
+    G: Optional[torch.Tensor] = None  # (NT*T, K) float32, (Y^T Z_pad)^T from K6
 
 
 class RoundState(NamedTuple):
@@ -237,8 +243,9 @@ def reassign(
 ):
     """Plain version of K6 (``pallas_reassign``, pallas_rotate.py:1354).
 
-    Returns (Zn (d, NT*T), tile_O (NT, K, B), O (K, B), E (K, B)); E is
-    rowsums(R) Pr_b^T with the row sums from covariate 0's block of O."""
+    Returns (Zn (d, NT*T), tile_O (NT, K, B), O (K, B), E (K, B), G (NT*T,
+    K)); E is rowsums(R) Pr_b^T with the row sums from covariate 0's block
+    of O; G is (Y^T Zn)^T, cell-major."""
     d, Npt = Z_raw.shape
     T = cfg.estep_sub_tile
     NT = Npt // T
@@ -255,16 +262,21 @@ def reassign(
     tile_O = torch.bmm(R_n.reshape(K, NT, T).permute(1, 0, 2), oh)
     O = tile_O.sum(dim=0)
     E = O[:, : cfg.B_vec[0]].sum(dim=1)[:, None] * Pr_b.to(_F32)[None, :]
-    return Zn, tile_O, O, E
+    return Zn, tile_O, O, E, g.t().contiguous()
 
 
-def _assign_r(cfg, Yt, Z3, codes3, pen, inv2sig):
-    """The assignments of ``n`` tiles (Z3 (d, n, T), codes3 (ncov, n, T))
-    against one block-removed penalty table (K, B): R (K, n, T), with g and
-    the guarded column sums the objective terms reuse."""
-    K, B = pen.shape
+def _gram_tiles(Yt, Z3):
+    """g = Y^T z (K, n, T) of ``n`` tiles Z3 (d, n, T)."""
     d, n, T = Z3.shape
-    g = (Yt @ Z3.reshape(d, n * T)).reshape(K, n, T)
+    return (Yt @ Z3.reshape(d, n * T)).reshape(-1, n, T)
+
+
+def _assign_r(cfg, g, codes3, pen, inv2sig):
+    """The assignments of ``n`` tiles (g (K, n, T), codes3 (ncov, n, T))
+    against one block-removed penalty table (K, B): R (K, n, T), with the
+    guarded column sums the objective terms reuse."""
+    K, B = pen.shape
+    _, n, T = g.shape
     pen_pad = torch.cat([pen, pen.new_zeros((K, 1))], dim=1)
     pc = None
     for c, off in enumerate(cfg.covariate_offsets):
@@ -275,13 +287,14 @@ def _assign_r(cfg, Yt, Z3, codes3, pen, inv2sig):
     w = torch.exp((g - 1.0) * inv2sig[:, None, None]) * pc
     colsum = w.sum(dim=0)
     colsum_g = torch.where(colsum == 0.0, torch.ones_like(colsum), colsum)
-    return w * (1.0 / colsum_g), g, colsum_g
+    return w * (1.0 / colsum_g), colsum_g
 
 
-def _assign_tiles(cfg, Yt, Z3, codes3, pen, logpen, sigma, inv2sig):
-    """Assign ``n`` tiles against one block-removed penalty table. Returns
-    (R (K, n, T), tO (n, K, B), kmeans error and entropy per tile (n,))."""
-    R_n, g, colsum_g = _assign_r(cfg, Yt, Z3, codes3, pen, inv2sig)
+def _assign_tiles(cfg, g, codes3, pen, logpen, sigma, inv2sig):
+    """Assign ``n`` tiles (g (K, n, T)) against one block-removed penalty
+    table. Returns (R (K, n, T), tO (n, K, B), kmeans error and entropy per
+    tile (n,))."""
+    R_n, colsum_g = _assign_r(cfg, g, codes3, pen, inv2sig)
     oh = _one_hot_tiles(cfg, codes3)  # (n, T, B)
     tO = torch.bmm(R_n.permute(1, 0, 2), oh)  # (n, K, B)
     b0 = cfg.B_vec[0]
@@ -313,7 +326,8 @@ def rotate_update_round_v2(
     emit_pen: bool = False,
 ) -> RoundState:
     """Plain version of K7 (``pallas_rotate_update_round_v2``,
-    pallas_rotate.py:851) for the schedule (rt, order).
+    pallas_rotate.py:851) for the schedule (rt, order), g taken from
+    ``layout.G`` (formed from ``layout.Z_pad`` block by block without it).
 
     ``write_r=False`` leaves the returned R the (stale) input R: no round
     reads R, so only the phase's last round has to write it. ``moments``
@@ -333,6 +347,7 @@ def rotate_update_round_v2(
     Pr = Pr_b.to(_F32)[None, :]
     th = theta.to(_F32)[None, :]
     Z3 = layout.Z_pad.reshape(d, NT, T)
+    G3 = None if layout.G is None else layout.G.reshape(NT, T, K)
     c3 = layout.codes_pad.reshape(-1, NT, T)
     E, O = rs.E.to(_F32), rs.O.to(_F32)
     tile_O = torch.empty_like(rs.tile_O)
@@ -353,10 +368,10 @@ def rotate_update_round_v2(
         if emit_pen:
             pen_out[blk] = pen
         tiles = torch.as_tensor(block_tiles(cfg, rt, blk), device=Y.device)
-        R_n, tO, s_rd, ent = _assign_tiles(
-            cfg, Yt, Z3.index_select(1, tiles), c3.index_select(1, tiles),
-            pen, logpen, sig, inv2sig,
-        )
+        g = (_gram_tiles(Yt, Z3.index_select(1, tiles)) if G3 is None
+             else G3.index_select(0, tiles).permute(2, 0, 1))
+        R_n, tO, s_rd, ent = _assign_tiles(cfg, g, c3.index_select(1, tiles), pen, logpen,
+                                           sig, inv2sig)
         tile_O[tiles] = tO
         acc_d = acc_d + s_rd.sum()
         acc_e = acc_e + ent.sum()
@@ -464,8 +479,8 @@ def _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, out_dtype=Non
     for b in range(pen.shape[0]):
         tiles = (blkmap == b).nonzero().squeeze(1)
         if tiles.numel():
-            R[:, tiles] = _assign_r(cfg, Yt, Z3.index_select(1, tiles),
-                                    c3.index_select(1, tiles), pen[b].to(_F32),
+            g = _gram_tiles(Yt, Z3.index_select(1, tiles))
+            R[:, tiles] = _assign_r(cfg, g, c3.index_select(1, tiles), pen[b].to(_F32),
                                     inv2sig)[0].to(R.dtype)
     return R.reshape(K, Npt)
 

@@ -164,6 +164,23 @@ def test_make_blocks_sentinel_matches_jax(N, N_pad, bs):
     assert (it.numpy()[~mt.numpy()] == ct.Np).all()
 
 
+@pytest.mark.parametrize("K,B,ncov,layout", [
+    (100, 10, 1, (8, False)), (100, 26, 1, (8, False)), (100, 27, 1, (8, True)),
+    (100, 40, 1, (8, True)), (100, 478, 2, (8, True)), (100, 566, 1, (1, True)),
+    (300, 7, 2, (8, True)), (7, 3, 2, (8, False))])
+def test_k2_cell_layout(K, B, ncov, layout):
+    """K2's cell passes keep a (B x K) table of batch sums a warp where two
+    such CTAs fit on an SM and K <= 256, else one a CTA with the most warps
+    that fit, up to the B at which one table and one warp fill a CTA."""
+    assert cuda_permute.cell_layout(K, B, ncov) == layout
+    assert cuda_permute.cells_smem_bytes(K, B, ncov, *layout) <= cuda_permute._SMEM_MAX
+
+
+def test_k2_cell_layout_refuses_past_shared_memory():
+    with pytest.raises(ValueError, match="B=567"):
+        cuda_permute.cell_layout(100, 567, 1)
+
+
 def test_wrappers_run_the_twins_on_cpu_and_check_devices():
     cj, ct, args = _problem(900, 5, (2, 3), seed=6, rounds=2)
     targs = [_t(a) for a in args]

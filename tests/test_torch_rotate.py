@@ -175,15 +175,23 @@ def _jax_schedule(cfg_t, key):
     return int(jax.random.randint(k1, (), 0, NT)), [int(b) for b in jax.random.permutation(k2, nb)]
 
 
-@pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
-def test_k7_twin_matches_pallas_round(N, Np, d, K, B_vec, T):
+def gram_table(Y, Zn):
+    """The phase's Gram table as K6 stores it, (Y^T Zn)^T, from JAX's Zn."""
+    return _t(np.asarray(Zn).T @ np.asarray(Y))
+
+
+def _k7_rounds_against_pallas(N, Np, d, K, B_vec, T, with_G):
+    """Two K7 rounds of the twin against pallas_rotate_update_round_v2, g
+    formed from the layout's Zn or (``with_G``) read from the Gram table
+    of JAX's Zn, as the engine runs it."""
     cj, ct, Z, Y, codes, Pr, sigma, theta = _problem(N, Np, d, K, B_vec, T, seed=N + d)
     cp_j = jpr.make_codes_pad(cj, jnp.asarray(codes))
     Zn, tO, O, E = jpr.pallas_reassign(cj, jnp.asarray(Y), jnp.asarray(sigma), jnp.asarray(Pr),
                                        jpr.pad_cells_to_tile(cj, jnp.asarray(Z)), cp_j,
                                        interpret=True)
     lay_j = jpr.CodesLayout(Z_pad=Zn, codes_pad=cp_j)
-    lay_t = tr.CodesLayout(Z_pad=_t(Zn), codes_pad=_t(cp_j))
+    lay_t = tr.CodesLayout(Z_pad=_t(Zn), codes_pad=_t(cp_j),
+                           G=gram_table(Y, Zn) if with_G else None)
     R0 = np.full((K, Np), 0.5, np.float32)  # stale R: no round reads it
     rs_j = jpr.RoundState(R=jnp.asarray(R0), E=E, O=O, tile_O=tO,
                           kmeans_error=jnp.float32(0), entropy=jnp.float32(0))
@@ -219,10 +227,20 @@ def test_k7_twin_matches_pallas_round(N, Np, d, K, B_vec, T):
         rs_t = out._replace(R=_t(R0))
 
 
+@pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
+def test_k7_twin_matches_pallas_round(N, Np, d, K, B_vec, T):
+    _k7_rounds_against_pallas(N, Np, d, K, B_vec, T, with_G=False)
+
+
+@pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
+def test_k7_twin_reading_gram_table_matches_pallas_round(N, Np, d, K, B_vec, T):
+    _k7_rounds_against_pallas(N, Np, d, K, B_vec, T, with_G=True)
+
+
 def test_k7_wrapper_rejects_mixed_devices():
     _, ct, Z, Y, codes, Pr, sigma, theta = _problem(600, 640, 8, 5, (3,), 128, seed=1)
     cp = tr.make_codes_pad(ct, _t(codes))
-    Zn, tO, O, E = tr.reassign(ct, _t(Y), _t(sigma), _t(Pr), _t(Z), cp)
+    Zn, tO, O, E, _ = tr.reassign(ct, _t(Y), _t(sigma), _t(Pr), _t(Z), cp)
     rs = tr.RoundState(R=torch.zeros(5, 640), E=E, O=O, tile_O=tO, kmeans_error=None,
                        entropy=None)
     with pytest.raises(ValueError, match="sigma is on meta"):

@@ -59,14 +59,15 @@ from harmony_tpu_torch.ops import cuda_ridge, cuda_rotate
 from harmony_tpu_torch.ops import ridge as tridge
 from harmony_tpu_torch.ops import rotate as tr
 
-from test_torch_rotate import CASES, _close, _jax_schedule, _problem, _t
+from test_torch_rotate import CASES, _close, _jax_schedule, _problem, _t, gram_table
 
 N_JOINT, LAYOUT_TILE = 3, 128
 
 
-def _last_round(N, Np, d, K, B_vec, T, write_r):
+def _last_round(N, Np, d, K, B_vec, T, write_r, with_G=False):
     """One K7 round with the last-round extras in both packages, from the
-    same re-entry (JAX's K6 in interpret mode) and schedule. Returns
+    same re-entry (JAX's K6 in interpret mode) and schedule; ``with_G``:
+    the port's round reads g from the Gram table of JAX's Zn. Returns
     (cj, ct, JAX (res, M, (pen, map)), the port's RoundState, the inputs
     the virtual functions take)."""
     cj, ct, Z, Y, codes, Pr, sigma, theta = _problem(N, Np, d, K, B_vec, T, seed=N + 2 * d)
@@ -96,16 +97,17 @@ def _last_round(N, Np, d, K, B_vec, T, write_r):
     before = cuda_rotate.rotate_update_round_v2.launches
     out = cuda_rotate.rotate_update_round_v2(
         ct, _t(Y), rs_t, _t(Pr), _t(sigma), _t(theta), rt, order,
-        tr.CodesLayout(Z_pad=_t(Zn), codes_pad=_t(cp_j)), write_r, moments=spec_t, emit_pen=True)
+        tr.CodesLayout(Z_pad=_t(Zn), codes_pad=_t(cp_j),
+                       G=gram_table(Y, Zn) if with_G else None),
+        write_r, moments=spec_t, emit_pen=True)
     assert cuda_rotate.rotate_update_round_v2.launches == before
     inputs = dict(Y=Y, sigma=sigma, Zn=np.asarray(Zn), cp=np.asarray(cp_j), Zo=Zo, tj=tj)
     return cj, ct, ref, out, inputs
 
 
-@pytest.mark.parametrize("write_r", [True, False])
-@pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
-def test_k7_last_round_extras_match_pallas(N, Np, d, K, B_vec, T, write_r):
-    _, _, (res_j, M_j, (pen_j, map_j)), out, _ = _last_round(N, Np, d, K, B_vec, T, write_r)
+def _check_last_round_extras(N, Np, d, K, B_vec, T, write_r, with_G):
+    _, _, (res_j, M_j, (pen_j, map_j)), out, _ = _last_round(N, Np, d, K, B_vec, T, write_r,
+                                                             with_G)
     M_j = np.asarray(M_j)
     assert out.M.shape == M_j.shape == (N_JOINT + 1, K, d + 1)
     _close(out.M, M_j, rtol=0, atol=1e-5 * np.abs(M_j).max())
@@ -120,6 +122,18 @@ def test_k7_last_round_extras_match_pallas(N, Np, d, K, B_vec, T, write_r):
         _close(getattr(out, name), getattr(res_j, name), atol=1e-5)
     _close(float(out.kmeans_error), float(res_j.kmeans_error))
     _close(float(out.entropy), float(res_j.entropy))
+
+
+@pytest.mark.parametrize("write_r", [True, False])
+@pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
+def test_k7_last_round_extras_match_pallas(N, Np, d, K, B_vec, T, write_r):
+    _check_last_round_extras(N, Np, d, K, B_vec, T, write_r, with_G=False)
+
+
+@pytest.mark.parametrize("write_r", [True, False])
+@pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
+def test_k7_last_round_reading_gram_table_matches_pallas(N, Np, d, K, B_vec, T, write_r):
+    _check_last_round_extras(N, Np, d, K, B_vec, T, write_r, with_G=True)
 
 
 @pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)

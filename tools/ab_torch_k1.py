@@ -1,26 +1,43 @@
 #!/usr/bin/env python3
-"""A/B of harmony_tpu_torch's K1 round, K12 round and K8 between checkouts,
-on the card.
+"""A/B of harmony_tpu_torch's round kernels between checkouts, on the card.
 
-    python3 tools/ab_torch_k1.py [--paths permute_rounds,...] PARENT CHANGE CHANGE PARENT
+    python3 tools/ab_torch_k1.py [--paths permute,main,...] PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout of this repo. In turn, each runs
 in a fresh process from its own root (so it builds and loads its own
 kernels), at the main shapes of ``chip_smoke.py`` (500,000 x 50, K = 100,
-B = 10): one K1 round (``cuda_estep.block_update_round``, seed 1, with R
-carried in block order where the checkout's wrapper takes it); one K1
-phase as the engine runs it, four rounds from R in the cells' order to R
-back in the cells' order (a wrapper that carries R returns it in block
-order, so the phase ends with one scatter; one that does not scatters
-every round); one K12 round (``cuda_estep.rotate_update_round_v1`` on the
-padded rotate layout, seed 22) and one K8 call (``cuda_ridge.tile_moments``,
-tile 256, seed 13). It prints each one's time by CUDA events (the wrapper,
-host work included) and the device time of each of its kernels under
-``torch.profiler`` (five calls, per call). With ``--paths``, each checkout
-then runs those main paths of its own ``chip_smoke.py``
-(``run_main_path``) in the same process, twice: the first run warms up
-the libraries a cold process loads on first use (cuBLAS, cuSOLVER), and
-the lines of the second's end-to-end numbers are printed.
+B = 10). The entries, each timed by CUDA events around the wrapper (host
+work included) and, under ``torch.profiler``, by the device time of each
+of its kernels (five calls, per call):
+
+* ``K1``: one K1 round (``cuda_estep.block_update_round``, seed 1, with R
+  carried in block order where the checkout's wrapper takes it).
+* ``K1_phase``: a K1 phase as the engine runs it, four rounds from R in
+  the cells' order to R back in the cells' order (a wrapper that carries R
+  returns it in block order, so the phase ends with one scatter; one that
+  does not scatters every round).
+* ``K2_phase``: a K2 phase of four rounds (``cuda_permute.permute_rounds``,
+  seed 15, the cells in a batch-tiled order as in ``chip_smoke.py``), its
+  head included where the checkout has one; ``ms_round`` is a quarter.
+* ``K2_phase_b40``: the same at segment-200k's shape, 200,000 x 50, K =
+  100, 40 batches (seed 7).
+* ``K6``: one K6 call (``cuda_rotate.reassign``, seed 17, the cells in a
+  batch-tiled order), with its Gram table where the checkout stores one.
+* ``K7``, ``K7_write_r``, ``K7_last``: one K7 round on K6's outputs (g
+  from K6's Gram table where the checkout has one) without writing R,
+  writing R, and a phase's last round fusing the M-step's moments and
+  storing the penalty tables, without writing R.
+* ``K12``: one K12 round (``cuda_estep.rotate_update_round_v1`` on the
+  padded rotate layout, seed 22).
+* ``K8``: one K8 call (``cuda_ridge.tile_moments``, tile 256, seed 13).
+
+With ``--paths``, each checkout then runs those paths of its own
+``chip_smoke.py`` (``run_main_path``; ``segment``: ``run_segment_path`` at
+200,000 cells in 40 batches) in the same process, twice: the first run
+warms up the libraries a cold process loads on first use (cuBLAS,
+cuSOLVER), and the lines of the second's end-to-end numbers are printed,
+with its peak device memory (``torch.cuda.max_memory_allocated``) and the
+memory the process held before it.
 Give the checkouts in turns (parent, change, change, parent) to see the
 spread beside the difference.
 """
@@ -60,6 +77,51 @@ def k12_args():
     order = rotate.draw_schedules(cfg, g, 1)[0][1]
     layout = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad)
     return (cfg, Y, R.contiguous(), E, O, Pr_b, sigma, theta, NT - 1, order, layout)
+
+
+def k2_phase(N=500_000, B=10, seed=15):
+    from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
+    cfg, Z, Y, _, E, O, codes, Pr_b, sigma, theta, _ = cs.problem(
+        torch, N, 50, 100, (B,), seed, dev)
+    order, _ = build_batch_tiled_order(codes.cpu().numpy(), 256, seed)
+    order = torch.as_tensor(order, device=dev)
+    Z, codes = Z[:, order].contiguous(), codes[:, order].contiguous()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    perms = torch.stack([torch.randperm(N, generator=g, device=dev) for _ in range(4)])
+    return lambda: cuda_permute.permute_rounds(cfg, Z, Y, E, O, codes, Pr_b, sigma, theta,
+                                               perms)
+
+
+def rotate_calls():
+    """K6, and K7's three forms on K6's outputs, as check_virtual sets them up."""
+    from harmony_tpu_torch.ops.ridge import full_tile_joint
+    from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
+    cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = cs.rotate_problem(
+        torch, 500_000, 50, 100, (10,), 17, dev)
+    N, Np = 500_000, cfg.Np
+    order, layout = build_batch_tiled_order(codes_pad[:, :N].cpu().numpy(), 256, 17)
+    order = torch.as_tensor(order, device=dev)
+    Z[:, :N] = Z[:, order]
+    codes_pad[:, :N] = codes_pad[:, order]
+    Zo = torch.zeros(50, Np, device=dev)
+    Zo[:, :N] = 2.0 * torch.randn(50, N, generator=g, device=dev)
+    spec = rotate.MomentsSpec(Z_orig=Zo, tile_joint=full_tile_joint(cfg, layout),
+                              n_joint=int(layout.joint_codes.shape[1]), tile=256)
+    args6 = (cfg, Y, sigma, Pr_b, Z, codes_pad)
+    out6 = cuda_rotate.reassign(*args6)
+    Zn, tO, O, E = out6[:4]
+    extra = {"G": out6[4]} if len(out6) > 4 else {}  # a checkout whose K6 stores G
+    lay = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, **extra)
+    rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
+    rs = rotate.RoundState(R=torch.zeros(100, Np, device=dev), E=E, O=O, tile_O=tO,
+                           kmeans_error=None, entropy=None)
+    a7 = (cfg, Y, rs, Pr_b, sigma, theta, rt, blocks, lay)
+    k7 = cuda_rotate.rotate_update_round_v2
+    return {"K6": lambda: cuda_rotate.reassign(*args6),
+            "K7": lambda: k7(*a7, write_r=False),
+            "K7_write_r": lambda: k7(*a7, write_r=True),
+            "K7_last": lambda: k7(*a7, write_r=False, moments=spec, emit_pen=True)}
 
 
 def k8_args():
@@ -103,12 +165,15 @@ def k1_phase():
 
 
 out = {}
-for name, call in (
-        ("K1", k1_call()),
-        ("K1_phase", k1_phase()),
-        ("K12", (lambda a: lambda: cuda_estep.rotate_update_round_v1(*a))(k12_args())),
-        ("K8", (lambda a: lambda: cuda_ridge.tile_moments(*a))(k8_args()))):
-    ms = cs.time_ms(torch, name, call, iters={"K8": 10, "K1_phase": 2}.get(name, 5))
+calls = [("K1", k1_call()), ("K1_phase", k1_phase()), ("K2_phase", k2_phase()),
+         ("K2_phase_b40", k2_phase(200_000, 40, 7)),
+         *rotate_calls().items(),
+         ("K12", (lambda a: lambda: cuda_estep.rotate_update_round_v1(*a))(k12_args())),
+         ("K8", (lambda a: lambda: cuda_ridge.tile_moments(*a))(k8_args()))]
+for name, call in calls:
+    ms = cs.time_ms(torch, name, call,
+                    iters={"K8": 10, "K6": 10, "K1_phase": 2, "K2_phase": 2,
+                           "K2_phase_b40": 2}.get(name, 5))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
             call()
@@ -121,17 +186,33 @@ for name, call in (
         if t > 0:
             dev_ms[e.key[:60]] = round(t / 1e3 / 5, 4)
     out[name] = {"ms": ms, "device_ms_per_call": dev_ms}
+    if name.startswith("K2_phase"):
+        out[name]["ms_round"] = ms / 4
 print("RESULT " + json.dumps(out), flush=True)
 os.makedirs(cs.OUT_DIR, exist_ok=True)
+def run_path(path):
+    if path == "segment":
+        cs.run_segment_path(torch, dev, WRAPPERS, "segment", 200_000, "rotate")
+    else:
+        cs.run_main_path(torch, dev, WRAPPERS, path)
+
+
 for path in PATHS:
-    cs.run_main_path(torch, dev, WRAPPERS, path)
+    run_path(path)
     print("MEASURED " + path, flush=True)
-    cs.run_main_path(torch, dev, WRAPPERS, path)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run_path(path)
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"{base / 2**20:.1f} MiB of it allocated before the run", flush=True)
+    print("MEASURED_END", flush=True)
 '''
 
 
 # the lines of chip_smoke.py's main paths that carry end-to-end numbers
-_PATH_LINES = (" path:", "phase seconds", "seconds per Harmony iteration", "launches:")
+_PATH_LINES = (" path:", "phase seconds", "seconds per Harmony iteration", "launches:",
+               "peak device memory")
 
 
 def main(argv):
@@ -139,6 +220,9 @@ def main(argv):
     ap.add_argument("--paths", default="", help="chip_smoke.py main paths to run per checkout")
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args(argv)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=False)
+    print("card:", smi.stdout.strip() or "nvidia-smi: n/a", flush=True)
     for tree in args.trees:
         out = subprocess.run([sys.executable, "-c", _ONE, args.paths], cwd=tree,
                              capture_output=True, text=True)
@@ -147,7 +231,9 @@ def main(argv):
         print(tree, res[0][7:] if res else "FAILED\n" + out.stderr[-2000:], flush=True)
         path = None
         for line in lines:
-            if line.startswith("MEASURED"):
+            if line.startswith("MEASURED_END"):
+                path = None
+            elif line.startswith("MEASURED"):
                 path = line.split()[1]
             elif path and any(key in line for key in _PATH_LINES):
                 print(f"{tree} {path}: {line.strip()}", flush=True)
