@@ -10,7 +10,10 @@ Phases (``--phases`` picks a subset, comma-separated):
 1. env       the card's name and power limit, torch/CUDA versions; TF32 off.
 2. build     nvcc builds every kernel from harmony_tpu_torch/csrc.
 3. kernels   K1, K2 (its head, the phase's distances, too), K3 (with and
-             without the fused moments), K4, K5, K6 (its Gram table too),
+             without the fused moments), K4 and K5 (through the per-tile
+             batch index, at random and batch-sorted codes, 60k cells,
+             300 batches, a ragged N with an absent batch and K = 300;
+             two launches bit-equal), K6 (its Gram table too),
              K7 (with and without writing R, and a phase's last round with
              the fused moments and the penalty tables; g from K6's Gram
              table), K8, K9, K10, K11
@@ -39,7 +42,9 @@ Phases (``--phases`` picks a subset, comma-separated):
              the batch-tiled ingest order; K2, K3 and K9 must be launched,
              K1 and K8 must not.
 6. permute_rounds  the same call with max_iter_cluster = 6, a round count
-             the fused phase does not take: K1, K4 and K5 must be launched.
+             the fused phase does not take: K1, K4 and K5 must be launched;
+             it prints the size of the run's K4/K5 cell index and profiles
+             one round.
 7. main      run_harmony on the same cells with shuffle_mode left at its
              default, which resolves to the rotate schedule; K6, K7 (its
              last round fusing the M-step's moments) and K9 must be
@@ -402,7 +407,13 @@ def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4, timed_phase
     return k2, k3
 
 
-def check_ridge(torch, dev, N, d, K, B, seed, timed):
+def check_ridge(torch, dev, N, d, K, B, seed, timed, kind="random", absent=None):
+    """K4 and K5 against their twins at SUM_RTOL, through the per-tile
+    batch index the main path builds once a run (``cuda_ridge.cell_index``),
+    and twice on the same input: bit-equal. ``kind``: codes drawn at random
+    or sorted (a batch-contiguous order); ``absent``: a batch with no cells.
+    Timed: kernel, plain and library times, achieved GB/s of the bound's
+    bytes, the bound, and the index's build time."""
     from harmony_tpu_torch.ops import cuda_ridge
 
     g = torch.Generator(device=dev)
@@ -410,35 +421,57 @@ def check_ridge(torch, dev, N, d, K, B, seed, timed):
     R = torch.softmax(torch.randn(K, N, generator=g, device=dev) * 3, dim=0).contiguous()
     Z = torch.randn(d, N, generator=g, device=dev) * 2
     codes = torch.randint(0, B, (N,), generator=g, device=dev, dtype=torch.int32)
+    if absent is not None:
+        codes[codes == absent] = (absent + 1) % B
+    if kind == "sorted":
+        codes = torch.sort(codes).values.contiguous()
     W = torch.randn(K, B, d, generator=g, device=dev) * 0.1
-    M = cuda_ridge.moments(R, Z, codes, B)
+    index = cuda_ridge.cell_index(codes, B, cuda_ridge.index_tile(K, d, B))
+    M = cuda_ridge.moments(R, Z, codes, B, index)
     M_ref = cuda_ridge.moments_twin(R, Z, codes, B)
-    Zc = cuda_ridge.correction(W, R, Z, codes)
+    Zc = cuda_ridge.correction(W, R, Z, codes, index)
     Zc_ref = cuda_ridge.correction_twin(W, R, Z, codes)
+    same4 = bool(torch.equal(M, cuda_ridge.moments(R, Z, codes, B, index)))
+    same5 = bool(torch.equal(Zc, cuda_ridge.correction(W, R, Z, codes, index)))
     torch.cuda.synchronize()
     e4, e5 = float((M - M_ref).abs().max()), float((Zc - Zc_ref).abs().max())
     r4, r5 = rel_err(M, M_ref), rel_err(Zc, Zc_ref)
-    log(f"  K4 N={N} d={d} K={K} B={B}: max|dM|={e4:.3e} rel {r4:.3e} (rtol {SUM_RTOL})")
-    log(f"  K5 N={N} d={d} K={K} B={B}: max|dZ|={e5:.3e} rel {r5:.3e} (rtol {SUM_RTOL})")
-    require(r4 <= SUM_RTOL, f"K4 disagrees: {r4}")
-    require(r5 <= SUM_RTOL, f"K5 disagrees: {r5}")
+    what = (f"N={N} d={d} K={K} B={B} {kind} codes"
+            + (f", batch {absent} absent" if absent is not None else "")
+            + f", index tiles of {index.tile}")
+    log(f"  K4 {what}: max|dM|={e4:.3e} rel {r4:.3e} (rtol {SUM_RTOL}); repeat bit-equal "
+        f"{same4}")
+    log(f"  K5 {what}: max|dZ|={e5:.3e} rel {r5:.3e} (rtol {SUM_RTOL}); repeat bit-equal "
+        f"{same5}")
+    require(r4 <= SUM_RTOL, f"K4 disagrees at {what}: {r4}")
+    require(r5 <= SUM_RTOL, f"K5 disagrees at {what}: {r5}")
+    require(same4 and same5, f"K4/K5 repeats differ at {what}: {same4}, {same5}")
     k4, k5 = {"max_abs_err": e4}, {"max_abs_err": e5}
     if timed:
         oh = torch.nn.functional.one_hot(codes.long(), B).float()
         Za = torch.cat([Z, torch.ones(1, N, device=dev)])
-        k4["ms"] = time_ms(torch, "K4 kernel", lambda: cuda_ridge.moments(R, Z, codes, B))
+        b4 = 4 * (K * N + d * N + N + K * B * (d + 1))
+        b5 = 4 * (K * N + 2 * d * N + N + K * B * d)
+        k4["ms"] = time_ms(torch, f"K4 kernel ({kind})",
+                           lambda: cuda_ridge.moments(R, Z, codes, B, index))
         k4["plain_ms"] = time_ms(torch, "K4 plain", lambda: cuda_ridge.moments_twin(R, Z, codes, B))
         k4["library_ms"] = time_ms(torch, "K4 library einsum",
                                    lambda: torch.einsum("kn,nb,dn->kbd", R, oh, Za))
-        k4["bound_ms"], k4["bound_by"] = bound(
-            4 * (K * N + d * N + N + K * B * (d + 1)), 2.0 * K * (d + 1) * N)
-        k5["ms"] = time_ms(torch, "K5 kernel", lambda: cuda_ridge.correction(W, R, Z, codes))
+        k4["bound_ms"], k4["bound_by"] = bound(b4, 2.0 * K * (d + 1) * N)
+        k4["gb_per_s"] = b4 / k4["ms"] / 1e6
+        k5["ms"] = time_ms(torch, f"K5 kernel ({kind})",
+                           lambda: cuda_ridge.correction(W, R, Z, codes, index))
         k5["plain_ms"] = time_ms(torch, "K5 plain",
                                  lambda: cuda_ridge.correction_twin(W, R, Z, codes))
         k5["library_ms"] = time_ms(torch, "K5 library einsum",
                                    lambda: torch.einsum("kn,nb,kbd->dn", R, oh, W))
-        k5["bound_ms"], k5["bound_by"] = bound(
-            4 * (K * N + 2 * d * N + N + K * B * d), 2.0 * K * d * N)
+        k5["bound_ms"], k5["bound_by"] = bound(b5, 2.0 * K * d * N)
+        k5["gb_per_s"] = b5 / k5["ms"] / 1e6
+        k4["index_ms"] = time_ms(torch, "the cell index, built once a run",
+                                 lambda: cuda_ridge.cell_index(codes, B, index.tile))
+        log(f"  K4 {k4['ms']:.4f} ms ({k4['gb_per_s']:.1f} GB/s, bound {k4['bound_ms']:.4f} ms), "
+            f"K5 {k5['ms']:.4f} ms ({k5['gb_per_s']:.1f} GB/s, bound {k5['bound_ms']:.4f} ms) "
+            f"at {what}")
     return k4, k5
 
 
@@ -1115,7 +1148,14 @@ def run_main_path(torch, dev, wrappers, phase):
     log(f"  R column sums within {dev_r:.2e} of 1; batch-centroid separation "
         f"{sep0:.4f} -> {sep1:.4f}")
     require(sep1 < sep0, "batch-centroid separation did not shrink")
-    if phase != "permute_rounds":
+    if phase == "permute_rounds":
+        layout = engine.mstep_layout(res.config, res.design.codes, dev)
+        cells = layout.cells
+        require(cells is not None, "permute_rounds path: no cell index for K4/K5")
+        log(f"  K4/K5 cell index: tiles of {cells.tile} cells, "
+            f"{(cells.order.numel() + cells.runs.numel()) * 4 / 2**20:.2f} MiB of the peak")
+        profile_round(torch, res, "profile_round_permute_rounds.txt", layout)
+    else:
         layout = engine.mstep_layout(res.config, res.design.codes, dev)
         tiled = layout.tiled
         require(tiled is not None and res.ingest_inv is not None,
@@ -1312,7 +1352,23 @@ def main(argv=None) -> int:
         k4, k5 = check_ridge(torch, dev, N_MAIN, D_MAIN, K_MAIN, B_MAIN, 3, True)
         kernels["K4"].update(k4)
         kernels["K5"].update(k5)
-        check_ridge(torch, dev, 1003, 13, 7, 3, 4, False)
+        # a batch-contiguous order (a concatenated dataset's): one run a tile
+        k4s, k5s = check_ridge(torch, dev, N_MAIN, D_MAIN, K_MAIN, B_MAIN, 3, True, "sorted")
+        # the default path below 100k cells
+        k4d, k5d = check_ridge(torch, dev, 60_000, D_MAIN, K_MAIN, B_MAIN, 4, True)
+        for row, a, b in ((kernels["K4"], k4s, k4d), (kernels["K5"], k5s, k5d)):
+            row.update(ms_sorted=a["ms"], gb_per_s_sorted=a["gb_per_s"], ms_60k=b["ms"],
+                       bound_ms_60k=b["bound_ms"], gb_per_s_60k=b["gb_per_s"])
+        # large B under the segment gate: K4's accumulators in device memory
+        check_ridge(torch, dev, 60_000, D_MAIN, K_MAIN, 300, 5, False)
+        # ragged, a batch with no cells; K = 300: K5 with one stage
+        check_ridge(torch, dev, 30_011, 13, 7, 4, 4, False, absent=1)
+        check_ridge(torch, dev, 30_011, D_MAIN, 300, B_MAIN, 6, False)
+        # wide d: index tiles of 64, 32 and 16 cells (the last with K4's
+        # accumulators in device memory)
+        check_ridge(torch, dev, 5_003, 300, 100, B_MAIN, 7, False)
+        check_ridge(torch, dev, 5_003, 500, 50, 3, 8, False)
+        check_ridge(torch, dev, 5_003, 800, 50, B_MAIN, 9, False)
         k6, k7 = check_rotate(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 11, True)
         kernels["K6"].update(k6)
         kernels["K7"].update(k7)

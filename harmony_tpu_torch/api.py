@@ -194,7 +194,7 @@ class HarmonyResult:
         layout = mstep_layout(self.config, self._host(s.codes), s.device)
         _, _, W = moe_correct_ridge(
             self.config, s.Z_orig, s.R, s.O, s.E, s.codes, s.batch_sizes,
-            s.lamb, s.Y, tiled=layout.tiled, segments=layout.segments,
+            s.lamb, s.Y, tiled=layout.tiled, segments=layout.segments, cells=layout.cells,
         )
         return self._host(W)
 

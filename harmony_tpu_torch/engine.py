@@ -24,7 +24,7 @@ import torch
 
 from . import ops
 from .config import HarmonyConfig, _not_ported
-from .ops import cuda_estep, cuda_permute, cuda_rotate, permute_phase, rotate
+from .ops import cuda_estep, cuda_permute, cuda_ridge, cuda_rotate, permute_phase, rotate
 from .ops.estep import (block_update_round, draw_rotate_schedules, make_rotate_layout,
                         rotate_update_round)
 from .ops.normalize import l2_normalize_columns
@@ -379,6 +379,7 @@ def correct(cfg: HarmonyConfig, state: HarmonyState,
         cfg, state.Z_orig, state.R, state.O, state.E, state.codes,
         state.batch_sizes, state.lamb, state.Y, tiled=layout.tiled, segments=layout.segments,
         tiled_moments=state.tiled_moments, virtual=_virtual_context(cfg, state),
+        cells=layout.cells,
     )
     return dataclasses.replace(
         state, Z_corr=Z_corr, Y=Y_new, n_rounds=state.n_rounds + 1,
@@ -410,11 +411,13 @@ def materialize_r(cfg: HarmonyConfig, state: HarmonyState) -> HarmonyState:
 
 
 class MStepLayout(NamedTuple):
-    """The M-step layout of a run: at most one of the two is set; neither
-    means the dense M-step."""
+    """The M-step layout of a run: at most one of ``tiled`` and ``segments``
+    is set; neither means the dense M-step, whose K4/K5 kernels read
+    ``cells``, the per-tile batch index of the codes."""
 
     tiled: Optional[TiledCells] = None
     segments: Optional[Tuple[CovariateSegments, ...]] = None
+    cells: Optional[cuda_ridge.CellIndex] = None
 
 
 def mstep_layout(cfg: HarmonyConfig, codes, device=None) -> MStepLayout:
@@ -425,8 +428,11 @@ def mstep_layout(cfg: HarmonyConfig, codes, device=None) -> MStepLayout:
     paths and under ``'tiled'`` on any schedule, where finding none raises
     ``ValueError``; otherwise the segmented layout where
     ``cfg.use_segments`` holds, built on the host and moved to ``device``
-    once; otherwise neither (dense). ``codes`` is the (ncov, N or Np) host
-    array in engine order."""
+    once; otherwise the dense M-step, with the per-tile batch index of the
+    codes (``cuda_ridge.cell_index``, built on ``device`` once a run) where
+    its K4/K5 branch runs (one covariate, ``mstep_impl='kernel'``) and a
+    tile fits the shapes. ``codes`` is the (ncov, N or Np) host array in
+    engine order."""
     codes = np.asarray(codes)
     if cfg.mstep_mode == "tiled" or (
             cfg.mstep_mode == "auto" and (cfg.shuffle_mode == "rotate" or cfg.permute_fused)):
@@ -441,7 +447,14 @@ def mstep_layout(cfg: HarmonyConfig, codes, device=None) -> MStepLayout:
             )
     if cfg.use_segments:
         return MStepLayout(segments=build_segments(cfg, codes, cfg.segment_tile, device))
-    return MStepLayout()
+    tile = cuda_ridge.index_tile(cfg.K, cfg.d, cfg.B)
+    if cfg.mstep_impl != "kernel" or cfg.n_covariates != 1 or tile is None:
+        return MStepLayout()
+    # the state's codes: the first N cells, pad cells at code 0
+    codes0 = np.zeros(cfg.Np, np.int32)
+    codes0[: cfg.N] = codes[0][: cfg.N]
+    return MStepLayout(cells=cuda_ridge.cell_index(
+        torch.as_tensor(codes0, device=device), cfg.B, tile))
 
 
 def harmony_converged(cfg: HarmonyConfig, state: HarmonyState) -> bool:

@@ -22,7 +22,7 @@ counts calls into the kernel's C entry point.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,15 +31,148 @@ from .. import _build
 
 _F32 = torch.float32
 _SMEM_MAX = 232_448  # bytes of shared memory a CTA may use on Hopper
-_CT = 64  # cells per staged tile (kCT in ridge.cu)
-_CTP = _CT + 1
+_INDEX_TILES = (128, 64, 32, 16)  # cells a tile of the K4/K5 index, largest first
+_K4_MAX_THREADS = 512  # kK4MaxThreads in ridge.cu
+_K4_MIN_THREADS = 64  # below this, K4 keeps its accumulators in device memory
+_K4_GLOBAL_PART_BYTES = 1 << 28  # the partials of K4's device-memory layout
+_K5_THREADS = 384  # kK5Threads
+_K5_W_FLOATS = 6 * 4 * _K5_THREADS  # kWRegs float4 registers a thread
 _SIGNATURES = {
-    "k4_moments": [_build.PTR] * 5 + [_build.I64, _build.INT, _build.INT,
-                                      _build.INT, _build.INT, _build.INT,
-                                      _build.I64, _build.INT, _build.PTR],
-    "k5_correction": [_build.PTR] * 5 + [_build.I64] + [_build.INT] * 4
-    + [_build.PTR],
+    "ridge_occupancy": [_build.INT] * 4,
+    "k4_moments": [_build.PTR] * 6 + [_build.I64] + [_build.INT] * 12 + [_build.PTR],
+    "k5_correction": [_build.PTR] * 7 + [_build.I64] + [_build.INT] * 10 + [_build.PTR],
 }
+
+
+class CellIndex(NamedTuple):
+    """The cells of each tile of ``tile`` cells, batch by batch: ``order``
+    (n_tiles, tile) int32, the tile's cell offsets ordered by code (stable),
+    -1 on the slots past the last cell; ``runs`` (n_tiles, tile + 1) int32,
+    the first slot of each run of one code in order, then the tile's cell
+    count repeated. The codes are fixed for a run, so it is built once a run
+    (``engine.mstep_layout``) and read by K4 and K5."""
+
+    order: torch.Tensor
+    runs: torch.Tensor
+
+    @property
+    def tile(self) -> int:
+        return self.order.shape[1]
+
+
+def cell_index(codes: torch.Tensor, B: int, tile: int) -> CellIndex:
+    """The :class:`CellIndex` of (N,) codes in [0, B), on their device."""
+    N = codes.shape[0]
+    nt = -(-N // tile)
+    key = torch.full((nt * tile,), B, dtype=torch.int64, device=codes.device)
+    key[:N] = codes.long()
+    key, order = torch.sort(key.view(nt, tile), dim=1, stable=True)
+    valid = key < B
+    order = torch.where(valid, order, torch.full_like(order, -1))
+    start = valid.clone()
+    start[:, 1:] &= key[:, 1:] != key[:, :-1]
+    nv = valid.sum(dim=1, keepdim=True)
+    slot = torch.arange(tile, device=codes.device).expand(nt, tile)
+    rank = torch.cumsum(start, dim=1) - 1
+    runs = nv.expand(nt, tile + 2).clone()
+    runs.scatter_(1, torch.where(start, rank, tile + 1), torch.where(start, slot, nv))
+    return CellIndex(order.to(torch.int32).contiguous(),
+                     runs[:, : tile + 1].to(torch.int32).contiguous())
+
+
+def _k4_plan(K: int, d: int, B: int, T: int):
+    """K4's layout at tiles of T cells: (KS cluster rows a CTA, EP, the
+    accumulators in device memory, threads, bytes of shared memory), or
+    None if no layout fits. The accumulators of B batches stay in shared
+    memory beside the two stages unless that leaves fewer than
+    ``_K4_MIN_THREADS`` register tiles and the device-memory layout has more.
+    Threads are a multiple of T: each copies one slot of every staged row."""
+    EP = -(-(d + 1) // 4) * 4
+    k4 = -(-K // 4) * 4
+
+    def layout(KS, global_acc):
+        floats = 2 * ((KS + EP) * (T + 4) + T)
+        smem = 4 * (floats + (0 if global_acc else B * EP * KS))
+        threads = -(-(KS // 4) * (EP // 4) // T) * T
+        if smem <= _SMEM_MAX and threads <= _K4_MAX_THREADS:
+            return KS, EP, global_acc, threads, smem
+        return None
+
+    def widest(global_acc):
+        for ns in range(1, k4 // 4 + 1):
+            plan = layout(-(-(-(-K // ns)) // 4) * 4, global_acc)
+            if plan is not None:
+                return plan
+        return None
+
+    def tiles(plan):  # threads that own a register tile
+        return (plan[0] // 4) * (EP // 4)
+
+    shared, glob = widest(False), widest(True)
+    if shared is None or (tiles(shared) < _K4_MIN_THREADS and glob is not None
+                          and tiles(glob) > tiles(shared)):
+        return glob
+    return shared
+
+
+def _k5_plan(K: int, d: int, T: int):
+    """K5's layout at tiles of T cells: (stages, WB floats a W buffer, dp,
+    bytes of shared memory), or None if none fits: two stages where the W
+    buffers keep half their full size, else one. A pass takes as many
+    (4-slot chunk, run) entries as the threads cover in (8 dims x 4 slots)
+    tiles, one a thread, and the W buffer holds its runs' betas for a k."""
+    dp = -(-d // 4) * 4
+    ne8 = -(-dp // 8)
+    if ne8 > _K5_THREADS or T // 4 > 32:
+        return None
+    # a pass's runs: at most its entries, or the tile's cells
+    need = min(T, _K5_THREADS // ne8) * dp
+    plans = []
+    for stages in (2, 1):
+        floats = stages * ((K + d) * (T + 4) + 3 * T + 4) + 4 * T + 1
+        WB = min(_K5_W_FLOATS, (_SMEM_MAX // 4 - floats) // 2 // 4 * 4)
+        if WB >= need:
+            plans.append((stages, WB, dp, 4 * (floats + 2 * WB)))
+    # two stages unless that leaves the W buffers under half their size
+    good = [p for p in plans if p[0] == 1 or p[1] >= _K5_W_FLOATS // 2]
+    return (good or plans or [None])[0]
+
+
+def index_tile(K: int, d: int, B: int):
+    """The largest index tile at which both K4 and K5 take (K, d, B), or
+    None."""
+    for T in _INDEX_TILES:
+        if _k4_plan(K, d, B, T) is not None and _k5_plan(K, d, T) is not None:
+            return T
+    return None
+
+
+def _index_for(where, codes, B, K, d, index):
+    """``index`` checked against the codes, or one built for them."""
+    N = codes.shape[0]
+    if index is None:
+        T = index_tile(K, d, B)
+        if T is None:
+            raise ValueError(f"{where}: K={K}, d={d}, B={B} fit no layout of the kernel")
+        return cell_index(codes, B, T)
+    T = index.tile
+    nt = -(-N // T)
+    for name, t, shape in (("order", index.order, (nt, T)), ("runs", index.runs, (nt, T + 1))):
+        if (t.device != codes.device or t.dtype != torch.int32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{where}: index.{name} must be a contiguous int32 {shape} "
+                             f"tensor on {codes.device} for {N} cells in tiles of {T}")
+    if T not in _INDEX_TILES:
+        raise ValueError(f"{where}: index tiles of {T} cells; the kernels take {_INDEX_TILES}")
+    return index
+
+
+def _occupancy(lib, which: int, arg: int, threads: int, smem: int) -> int:
+    n = lib.ridge_occupancy(which, arg, threads, smem)
+    if n <= 0:
+        raise RuntimeError(f"ridge_occupancy: {'K4' if which == 0 else 'K5'} fits no CTA "
+                           f"on an SM (CUDA error {-n})")
+    return n
 
 
 def _check_inputs(where, tensors, codes=None):
@@ -72,9 +205,10 @@ def moments_twin(R, Z, codes, B: int) -> torch.Tensor:
     return M
 
 
-def moments(R: torch.Tensor, Z: torch.Tensor, codes: torch.Tensor, B: int
-            ) -> torch.Tensor:
-    """Return M (K, B, d+1) for R (K, N), Z (d, N), codes (N,) in [0, B)."""
+def moments(R: torch.Tensor, Z: torch.Tensor, codes: torch.Tensor, B: int,
+            index: Optional[CellIndex] = None) -> torch.Tensor:
+    """Return M (K, B, d+1) for R (K, N), Z (d, N), codes (N,) in [0, B);
+    ``index`` is the codes' :class:`CellIndex` (built here when None)."""
     _check_inputs("moments", {"R": R, "Z": Z}, codes)
     K, N = R.shape
     d = Z.shape[0]
@@ -82,30 +216,32 @@ def moments(R: torch.Tensor, Z: torch.Tensor, codes: torch.Tensor, B: int
         raise ValueError(f"moments: shapes R {tuple(R.shape)}, Z {tuple(Z.shape)}, "
                          f"codes {tuple(codes.shape)} disagree")
     if codes.device.type == "cpu":
+        if index is not None:
+            _index_for("moments", codes, B, K, d, index)
         return moments_twin(R, Z, codes, B)
-    d1 = d + 1
-    for KT in (16, 8, 4, 2, 1):
-        smem = 4 * (B * KT * d1 + KT * _CTP + d1 * _CTP + _CT)
-        if smem <= _SMEM_MAX:
-            break
-    else:
-        raise ValueError(
-            f"moments: B={B}, d={d} need {smem} bytes of shared memory at one "
-            f"cluster row per CTA, over the {_SMEM_MAX} a CTA may use"
-        )
-    # about four CTAs per SM: cell-range splits times cluster tiles
-    n_kt = -(-K // KT)
-    n_sm = torch.cuda.get_device_properties(R.device).multi_processor_count
-    NS = max(1, min(-(-N // _CT), -(-4 * n_sm // n_kt)))
-    chunk = -(-(-(-N // NS)) // _CT) * _CT
-    NS = -(-N // chunk)
-    part = torch.empty((NS, K, B, d1), dtype=_F32, device=R.device)
-    M = torch.empty((K, B, d1), dtype=_F32, device=R.device)
+    index = _index_for("moments", codes, B, K, d, index)
+    T = index.tile
+    plan = _k4_plan(K, d, B, T)
+    if plan is None:
+        raise ValueError(f"moments: K={K}, d={d}, B={B} fit no layout of K4 at tiles of {T}")
+    KS, EP, global_acc, threads, smem = plan
+    d1, nt, n_ks = d + 1, -(-N // T), -(-K // KS)
     lib = _build.load("ridge", _SIGNATURES)
+    n_sm = torch.cuda.get_device_properties(R.device).multi_processor_count
+    NS = min(nt, max(1, -(-n_sm * _occupancy(lib, 0, int(global_acc), threads, smem)
+                        // n_ks)))
+    if global_acc:
+        NS = min(NS, max(1, _K4_GLOBAL_PART_BYTES // (4 * B * d1 * K)))
+    tpc = -(-nt // NS)
+    NS = -(-nt // tpc)
+    alloc = torch.zeros if global_acc else torch.empty
+    part = alloc((NS, B, d1, K), dtype=_F32, device=R.device)
+    M = torch.empty((K, B, d1), dtype=_F32, device=R.device)
     stream = torch.cuda.current_stream(R.device).cuda_stream
     _build.check(lib.k4_moments(
-        R.data_ptr(), Z.data_ptr(), codes.data_ptr(), part.data_ptr(),
-        M.data_ptr(), N, K, d, B, KT, NS, chunk, smem, stream,
+        R.data_ptr(), Z.data_ptr(), codes.data_ptr(), index.order.data_ptr(),
+        part.data_ptr(), M.data_ptr(), N, K, d, B, T, nt, tpc, NS,
+        KS, EP, int(global_acc), threads, smem, stream,
     ), "k4_moments")
     moments.launches += 1
     return M
@@ -124,8 +260,9 @@ def correction_twin(W, R, Z, codes) -> torch.Tensor:
 
 
 def correction(W: torch.Tensor, R: torch.Tensor, Z: torch.Tensor,
-               codes: torch.Tensor) -> torch.Tensor:
-    """Return Z_corr (d, N) for W (K, B, d) batch betas, R (K, N), Z (d, N)."""
+               codes: torch.Tensor, index: Optional[CellIndex] = None) -> torch.Tensor:
+    """Return Z_corr (d, N) for W (K, B, d) batch betas, R (K, N), Z (d, N);
+    ``index`` is the codes' :class:`CellIndex` (built here when None)."""
     _check_inputs("correction", {"W": W, "R": R, "Z": Z}, codes)
     K, N = R.shape
     d = Z.shape[0]
@@ -134,19 +271,27 @@ def correction(W: torch.Tensor, R: torch.Tensor, Z: torch.Tensor,
         raise ValueError(f"correction: shapes W {tuple(W.shape)}, R {tuple(R.shape)}, "
                          f"Z {tuple(Z.shape)}, codes {tuple(codes.shape)} disagree")
     if codes.device.type == "cpu":
+        if index is not None:
+            _index_for("correction", codes, B, K, d, index)
         return correction_twin(W, R, Z, codes)
-    smem = 4 * ((K + d) * _CTP + _CT)
-    if smem > _SMEM_MAX:
-        raise ValueError(
-            f"correction: K={K}, d={d} need {smem} bytes of shared memory; "
-            f"the kernel takes K + d <= {(_SMEM_MAX // 4 - _CT) // _CTP}"
-        )
+    index = _index_for("correction", codes, B, K, d, index)
+    T = index.tile
+    plan = _k5_plan(K, d, T)
+    if plan is None:
+        raise ValueError(f"correction: K={K}, d={d} fit no layout of K5 at tiles of {T}")
+    stages, WB, dp, smem = plan
+    nt = -(-N // T)
+    # W_b as one contiguous (K, dp) block a batch, dims padded with zeros
+    Wt = torch.nn.functional.pad(W.permute(1, 0, 2), (0, dp - d)).contiguous()
     Zc = torch.empty_like(Z)
     lib = _build.load("ridge", _SIGNATURES)
+    n_sm = torch.cuda.get_device_properties(R.device).multi_processor_count
+    grid = min(nt, n_sm * _occupancy(lib, 1, stages, _K5_THREADS, smem))
     stream = torch.cuda.current_stream(R.device).cuda_stream
     _build.check(lib.k5_correction(
-        W.data_ptr(), R.data_ptr(), Z.data_ptr(), codes.data_ptr(),
-        Zc.data_ptr(), N, K, d, B, smem, stream,
+        Wt.data_ptr(), R.data_ptr(), Z.data_ptr(), codes.data_ptr(), index.order.data_ptr(),
+        index.runs.data_ptr(), Zc.data_ptr(), N, K, d, T, nt, T + 4, dp, WB, stages, grid, smem,
+        stream,
     ), "k5_correction")
     correction.launches += 1
     return Zc

@@ -13,7 +13,9 @@ the same exactness argument as the JAX package:
 
 Single-covariate runs with ``mstep_impl='kernel'`` take their moments and
 correction from the K4/K5 wrappers (``ops/cuda_ridge.py``), which launch
-the CUDA kernels on the card and run their plain twins on the CPU.
+the CUDA kernels on the card and run their plain twins on the CPU. Both
+kernels visit each tile's cells batch by batch through ``cells``, the
+per-tile index of the codes that ``engine.mstep_layout`` builds once a run.
 That branch drops the cell mask: with one covariate a cell is dropped iff
 its only batch is, so keep-masking the per-batch moments is the cell mask,
 and a dropped batch's beta rows are exactly zero, so no cell receives a
@@ -138,13 +140,16 @@ def moe_correct_ridge(
     segments=None,  # tuple of ops.segments.CovariateSegments -> segmented path
     tiled_moments=None,  # (n_joint+1, K, d+1) table the E-step fused (K3, K7)
     virtual=None,  # ops.rotate.VirtualR: R is stale, recompute it (needs tiled)
+    cells=None,  # ops.cuda_ridge.CellIndex of codes[0]: K4/K5 visit cells by batch
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Return (Z_corr, Y_new, W); W is (K, B+1, d) with intercept rows zeroed.
     Z_corr is recomputed from Z_orig (src/harmony.cpp:347). With ``tiled``,
     ``tiled_moments`` hands over the per-joint moment table of R that the
     E-step's last round accumulated, and K8's pass never runs
     (harmony_tpu/ops/ridge.py:404-417). ``virtual`` (with ``tiled`` and
-    ``tiled_moments``) corrects without reading R."""
+    ``tiled_moments``) corrects without reading R. ``cells`` is the run's
+    per-tile batch index of the codes that the K4/K5 branch hands to both
+    kernels (they build one for the call without it)."""
     K, B = cfg.K, cfg.B
     dev = Z_orig.device
     keep, any_active = compute_masks(cfg, O, batch_sizes)
@@ -176,7 +181,7 @@ def moe_correct_ridge(
         from .cuda_ridge import moments
 
         Rf = R.to(_F32).contiguous()
-        M = moments(Rf, Zf, codes[0].contiguous(), B)  # (K, B, d+1)
+        M = moments(Rf, Zf, codes[0].contiguous(), B, cells)  # (K, B, d+1)
         O_eff = M[:, :, -1] * keepf
         rhs_batches = M[:, :, :-1] * keepf[:, :, None]
         r_tot = O_eff.sum(dim=1)
@@ -265,7 +270,7 @@ def moe_correct_ridge(
     if use_kernel:
         from .cuda_ridge import correction
 
-        Z_corr = correction(W[:, 1:, :].contiguous(), Rf, Zf, codes[0].contiguous())
+        Z_corr = correction(W[:, 1:, :].contiguous(), Rf, Zf, codes[0].contiguous(), cells)
         return Z_corr.to(Z_orig.dtype), Y_new, W
     if segments is None:
         corr = _correction_dense(cfg, W, R_eff, onehots)

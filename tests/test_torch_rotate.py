@@ -359,7 +359,8 @@ def test_run_harmony_rotate_without_a_tiled_layout():
     res = run_harmony(Z, {"b": batches}, ["b"], nclust=6, max_iter=2, device="cpu",
                       shuffle_mode="rotate", return_object=True)
     assert res.config.Np == 71_680 and res.config.estep_sub_tile == 2048
-    assert tengine.mstep_layout(res.config, res.design.codes) == (None, None)
+    layout = tengine.mstep_layout(res.config, res.design.codes)
+    assert layout.tiled is None and layout.segments is None
     plain_order = np.random.default_rng(0).permutation(n)
     np.testing.assert_array_equal(res.ingest_inv, np.argsort(plain_order))
     np.testing.assert_allclose(res.Z_orig, Z.T.astype(np.float32))

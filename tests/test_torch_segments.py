@@ -130,7 +130,8 @@ def test_segment_mode_routes_to_segments(shuffle_mode):
     assert layout.segments[0].pos.shape == (cfg.Np + 1,)
     # 'dense' takes neither, whatever N and B
     dense = dataclasses.replace(cfg, mstep_mode="dense")
-    assert tengine.mstep_layout(dense, codes) == (None, None)
+    layout = tengine.mstep_layout(dense, codes)
+    assert layout.tiled is None and layout.segments is None
 
 
 def test_tiled_mode_without_a_layout_raises_on_every_schedule():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """A/B of harmony_tpu_torch's round kernels between checkouts, on the card.
 
-    python3 tools/ab_torch_k1.py [--paths permute,main,...] PARENT CHANGE CHANGE PARENT
+    python3 tools/ab_torch_k1.py [--paths permute_rounds,main,...] [--entries K4,K5,...] \
+        PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout of this repo. In turn, each runs
 in a fresh process from its own root (so it builds and loads its own
@@ -30,6 +31,15 @@ of its kernels (five calls, per call):
 * ``K12``: one K12 round (``cuda_estep.rotate_update_round_v1`` on the
   padded rotate layout, seed 22).
 * ``K8``: one K8 call (``cuda_ridge.tile_moments``, tile 256, seed 13).
+* ``K4``, ``K5``: one K4 call (``cuda_ridge.moments``) and one K5 call
+  (``cuda_ridge.correction``) at ``chip_smoke.check_ridge``'s inputs (seed
+  3), codes drawn at random; where the checkout's wrappers take the
+  per-tile batch index, it is built once beforehand, as the main path
+  builds it once a run, and passed in.
+* ``K4_sorted``, ``K5_sorted``: the same with the codes sorted (a
+  batch-contiguous order).
+
+``--entries`` picks a subset of the entries (all by default).
 
 With ``--paths``, each checkout then runs those paths of its own
 ``chip_smoke.py`` (``run_main_path``; ``segment``: ``run_segment_path`` at
@@ -57,6 +67,7 @@ from harmony_tpu_torch.ops import cuda_estep, cuda_permute, cuda_ridge, cuda_rot
 dev = torch.device("cuda")
 torch.backends.cuda.matmul.allow_tf32 = False
 PATHS = [p for p in sys.argv[1].split(",") if p]
+ENTRIES = [e for e in sys.argv[2].split(",") if e]
 WRAPPERS = {"K1": cuda_estep.block_update_round, "K2": cuda_permute.permute_rounds,
             "K3": cuda_permute.materialize, "K4": cuda_ridge.moments,
             "K5": cuda_ridge.correction, "K6": cuda_rotate.reassign,
@@ -130,6 +141,25 @@ def k8_args():
     return (R, Z, 256, tj, nj)
 
 
+def ridge_calls(kind):
+    """K4 and K5 at check_ridge's inputs; the index prebuilt where taken."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    N, d, K, B = 500_000, 50, 100, 10
+    R = torch.softmax(torch.randn(K, N, generator=g, device=dev) * 3, dim=0).contiguous()
+    Z = torch.randn(d, N, generator=g, device=dev) * 2
+    codes = torch.randint(0, B, (N,), generator=g, device=dev, dtype=torch.int32)
+    if kind == "sorted":
+        codes = torch.sort(codes).values.contiguous()
+    W = torch.randn(K, B, d, generator=g, device=dev) * 0.1
+    extra = ()
+    if "index" in inspect.signature(cuda_ridge.moments).parameters:
+        extra = (cuda_ridge.cell_index(codes, B, cuda_ridge.index_tile(K, d, B)),)
+    sfx = "" if kind == "random" else "_" + kind
+    return {"K4" + sfx: lambda: cuda_ridge.moments(R, Z, codes, B, *extra),
+            "K5" + sfx: lambda: cuda_ridge.correction(W, R, Z, codes, *extra)}
+
+
 CARRIES = "order" in inspect.signature(cuda_estep.block_update_round).parameters
 KW = {"carry": True} if "carry" in inspect.signature(
     cuda_estep.block_update_round).parameters else {}
@@ -165,11 +195,21 @@ def k1_phase():
 
 
 out = {}
-calls = [("K1", k1_call()), ("K1_phase", k1_phase()), ("K2_phase", k2_phase()),
-         ("K2_phase_b40", k2_phase(200_000, 40, 7)),
-         *rotate_calls().items(),
-         ("K12", (lambda a: lambda: cuda_estep.rotate_update_round_v1(*a))(k12_args())),
-         ("K8", (lambda a: lambda: cuda_ridge.tile_moments(*a))(k8_args()))]
+makers = [("K1", k1_call), ("K1_phase", k1_phase), ("K2_phase", k2_phase),
+          ("K2_phase_b40", lambda: k2_phase(200_000, 40, 7)),
+          (("K6", "K7", "K7_write_r", "K7_last"), rotate_calls),
+          ("K12", lambda: (lambda a: lambda: cuda_estep.rotate_update_round_v1(*a))(k12_args())),
+          ("K8", lambda: (lambda a: lambda: cuda_ridge.tile_moments(*a))(k8_args())),
+          (("K4", "K5"), lambda: ridge_calls("random")),
+          (("K4_sorted", "K5_sorted"), lambda: ridge_calls("sorted"))]
+calls = []
+for names, make in makers:
+    group = names if isinstance(names, tuple) else (names,)
+    if ENTRIES and not set(group) & set(ENTRIES):
+        continue
+    made = make()
+    calls += [(n, c) for n, c in (made.items() if isinstance(made, dict) else [(names, made)])
+              if not ENTRIES or n in ENTRIES]
 for name, call in calls:
     ms = cs.time_ms(torch, name, call,
                     iters={"K8": 10, "K6": 10, "K1_phase": 2, "K2_phase": 2,
@@ -218,13 +258,14 @@ _PATH_LINES = (" path:", "phase seconds", "seconds per Harmony iteration", "laun
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--paths", default="", help="chip_smoke.py main paths to run per checkout")
+    ap.add_argument("--entries", default="", help="timed entries to run (default: all)")
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=False)
     print("card:", smi.stdout.strip() or "nvidia-smi: n/a", flush=True)
     for tree in args.trees:
-        out = subprocess.run([sys.executable, "-c", _ONE, args.paths], cwd=tree,
+        out = subprocess.run([sys.executable, "-c", _ONE, args.paths, args.entries], cwd=tree,
                              capture_output=True, text=True)
         lines = out.stdout.splitlines()
         res = [line for line in lines if line.startswith("RESULT")]
