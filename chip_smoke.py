@@ -9,11 +9,13 @@ Phases (``--phases`` picks a subset, comma-separated):
 
 1. env       the card's name and power limit, torch/CUDA versions; TF32 off.
 2. build     nvcc builds every kernel from harmony_tpu_torch/csrc.
-3. kernels   K1, K2 (its head, the phase's distances, too), K3 (with and
-             without the fused moments), K4 and K5 (through the per-tile
+3. kernels   K1, K2 (its head, the phase's distances, too), K3 (reading
+             the head's distances, with and without the fused moments; its R
+             bit-equal with and without them and over two launches), K4 and K5 (through the per-tile
              batch index, at random and batch-sorted codes, 60k cells,
              300 batches, a ragged N with an absent batch and K = 300;
-             two launches bit-equal), K6 (its Gram table too),
+             two launches bit-equal), K6 (its Gram table too; two launches
+             bit-equal; its assign and reduce launches timed apart),
              K7 (with and without writing R, and a phase's last round with
              the fused moments and the penalty tables; g from K6's Gram
              table), K8, K9, K10, K11
@@ -281,7 +283,6 @@ def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4, timed_phase
 
     from harmony_tpu_torch.ops import cuda_permute
     from harmony_tpu_torch.ops import permute_phase as pp
-    from harmony_tpu_torch.ops.cuda_ridge import _moments_plan
     from harmony_tpu_torch.ops.ridge import full_tile_joint
     from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
 
@@ -304,11 +305,21 @@ def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4, timed_phase
     eh = float((cuda_permute.phase_head(cfg, Z, Y) - pp.phase_head(cfg, Z, Y)).abs().max())
     out = cuda_permute.permute_rounds(*args)
     ref = pp.permute_rounds(*args)
-    R3, _ = cuda_permute.materialize(cfg, Z, Y, codes, sigma, out.tables)
-    R3m, M3 = cuda_permute.materialize(cfg, Z, Y, codes, sigma, out.tables, spec)
-    R_ref, M_ref = pp.materialize(cfg, Z, Y, codes, sigma, out.tables, spec)
+    R3, _ = cuda_permute.materialize(cfg, Z, Y, codes, sigma, out.tables, G=out.G)
+    R3m, M3 = cuda_permute.materialize(cfg, Z, Y, codes, sigma, out.tables, spec, G=out.G)
+    R3b, _ = cuda_permute.materialize(cfg, Z, Y, codes, sigma, out.tables, G=out.G)
+    R3mb, M3b = cuda_permute.materialize(cfg, Z, Y, codes, sigma, out.tables, spec, G=out.G)
+    R_ref, M_ref = pp.materialize(cfg, Z, Y, codes, sigma, out.tables, spec, G=out.G)
+    # the plain version forming the distances from Y and Z
+    R_yz, _ = pp.materialize(cfg, Z, Y, codes, sigma, out.tables)
     R_twin, _ = pp.materialize(cfg, Z, Y, codes, sigma, ref.tables)
     torch.cuda.synchronize()
+    # K3's R is the same bits with and without the moments and in repeats
+    d3 = max(float((R3 - R3m).abs().max()), float((R3 - R3b).abs().max()),
+             float((R3m - R3mb).abs().max()))
+    same3 = bool(torch.equal(R3, R3m) and torch.equal(R3, R3b) and torch.equal(R3m, R3mb)
+                 and torch.equal(M3, M3b))
+    e_yz = float((R3 - R_yz).abs().max())
     errs2 = {f: rel_err(getattr(out, f), getattr(ref, f))
              for f in ("E", "O", "E_rounds", "O_rounds", "kmeans_error", "entropy")}
     errs2["pen"] = rel_err(out.tables.pen, ref.tables.pen)
@@ -325,13 +336,21 @@ def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4, timed_phase
         f"block ids equal: {blk_same}; R of its tables max|dR|={e2:.3e} (atol {R_ATOL})")
     log(f"  K3 same tables: max|dR|={e3:.3e}, with moments max|dR|={e3m:.3e} (atol {R_ATOL}), "
         f"M rel {r3m:.3e} (rtol {SUM_RTOL}; tile {tile}, {nj} joint levels); kernels' phase "
-        f"against the plain phase: max|dR|={e_all:.3e} (atol {R_ATOL})")
+        f"against the plain phase: max|dR|={e_all:.3e}, against the plain version forming "
+        f"the distances from Y and Z {e_yz:.3e} (atol {R_ATOL}); R with and without the "
+        f"moments and over two launches, and M over two launches, bit-equal: {same3} "
+        f"(max|dR| {d3:.1e}, required 0.0)")
+    T3 = cuda_permute.materialize_tile(K, d, ncov, True)
+    log(f"    K3: {T3} cells a step, {cuda_permute.moment_tiles(K, d)} moment tiles of "
+        f"4 x 8 in {cuda_permute.moment_groups(K, d)} cell group(s), "
+        f"{cuda_permute.materialize_smem_bytes(K, d, ncov, T3, True)} bytes of shared memory")
     require(eh <= R_ATOL, f"K2's head disagrees: {eh}")
     for k, v in errs2.items():
         require(v <= SUM_RTOL, f"K2 {k} disagrees: {v}")
     require(blk_same, "K2 block ids disagree")
     require(e2 <= R_ATOL, f"K2's tables give another R: {e2}")
-    require(max(e3, e3m, e_all) <= R_ATOL, f"K3 R disagrees: {e3}, {e3m}, {e_all}")
+    require(max(e3, e3m, e_all, e_yz) <= R_ATOL, f"K3 R disagrees: {e3}, {e3m}, {e_all}, {e_yz}")
+    require(same3 and d3 == 0.0, f"K3's R or M is not bit-equal across moments and launches: {d3}")
     require(r3m <= SUM_RTOL, f"K3 moments disagree: {r3m}")
     require(float(R3.sum(0).sub(1).abs().max()) <= 1e-4, "K3 R columns do not sum to 1")
     k2, k3 = {"max_abs_err": max(e2, eh)}, {"max_abs_err": max(e3, e3m)}
@@ -378,13 +397,14 @@ def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4, timed_phase
         k2["bound_ms"], k2["bound_by"] = bound(phase_bytes / rounds, 2.0 * K * d * N / rounds)
         k2["bound_ms_one_round"], _ = bound(4 * (d * N + ncov * N + N) + 8 * N,
                                             2.0 * K * d * N)
-        tables = out.tables
+        tables, G = out.tables, out.G
         k3["ms_no_moments"] = time_ms(
-            torch, "K3 kernel", lambda: cuda_permute.materialize(cfg, Z, Y, codes, sigma, tables))
+            torch, "K3 kernel", lambda: cuda_permute.materialize(cfg, Z, Y, codes, sigma, tables,
+                                                                G=G))
         k3["ms"] = time_ms(torch, "K3 kernel with moments", lambda: cuda_permute.materialize(
-            cfg, Z, Y, codes, sigma, tables, spec))
+            cfg, Z, Y, codes, sigma, tables, spec, G=G))
         k3["plain_ms"] = time_ms(torch, "K3 plain with moments", lambda: pp.materialize(
-            cfg, Z, Y, codes, sigma, tables, spec))
+            cfg, Z, Y, codes, sigma, tables, spec, G=G))
         nt = -(-N // tile)
         pad = nt * tile - N
         R3m_p = torch.nn.functional.pad(R3m, (0, pad)).reshape(K, nt, tile)
@@ -394,13 +414,13 @@ def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4, timed_phase
                                          nj + 1).float()
         k3["library_ms"] = time_ms(torch, "K3 moments library einsum (K8's, on K3's R)",
                                    lambda: torch.einsum("ktu,tj,dtu->jkd", R3m_p, oh, Za3))
-        # Z, Z_orig, the codes and block ids read once, R and M written once,
-        # the per-chunk moment partials written and read once
-        n_chunks = _moments_plan(np.asarray(spec.tile_joint, np.int32).tobytes(), nj,
-                                 str(dev))[2]
-        part = n_chunks * K * (d + 1)
+        # does the fusion pay: K3 without moments plus the library call for them
+        k3["ms_no_moments_plus_library"] = k3["ms_no_moments"] + k3["library_ms"]
+        log(f"    K3 with moments {k3['ms']:.4f} ms against K3 without moments + the library "
+            f"einsum {k3['ms_no_moments_plus_library']:.4f} ms")
+        # Z, Z_orig, the codes and block ids read once, R and M written once
         k3["bound_ms"], k3["bound_by"] = bound(
-            4 * (2 * d * N + ncov * N + N + K * N + (nj + 1) * K * (d + 1) + 2 * part),
+            4 * (2 * d * N + ncov * N + N + K * N + (nj + 1) * K * (d + 1)),
             2.0 * K * d * N + 2.0 * K * (d + 1) * N)
         k3["bound_ms_no_moments"], _ = bound(4 * (d * N + ncov * N + N + K * N),
                                              2.0 * K * d * N)
@@ -514,6 +534,7 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed):
         torch, N, d, K, B_vec, seed, dev)
     args6 = (cfg, Y, sigma, Pr_b, Z, codes_pad)
     Zn, tO, O, E, G = cuda_rotate.reassign(*args6)
+    again = cuda_rotate.reassign(*args6)
     ref6 = rotate.reassign(*args6)
     rt, order = rotate.draw_schedules(cfg, g, 1)[0]
     layout = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G)
@@ -527,9 +548,13 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed):
     e6 = float((Zn - ref6[0]).abs().max())
     eg = float((G - ref6[4]).abs().max())
     errs6 = {"tile_O": rel_err(tO, ref6[1]), "O": rel_err(O, ref6[2]), "E": rel_err(E, ref6[3])}
+    same6 = all(bool(torch.equal(a, b)) for a, b in zip((Zn, tO, O, E, G), again))
+    splits, smem6 = cuda_rotate.reassign_plan(K, d, cfg.B, len(B_vec))
     log(f"  K6 N={N} (Np={cfg.Np}, T={cfg.estep_sub_tile}) d={d} K={K} B_vec={B_vec}: "
         f"max|dZn|={e6:.3e}, max|dG|={eg:.3e} (atol 1e-6); "
-        + ", ".join(f"{k} rel {v:.3e}" for k, v in errs6.items()) + f" (rtol {SUM_RTOL})")
+        + ", ".join(f"{k} rel {v:.3e}" for k, v in errs6.items()) + f" (rtol {SUM_RTOL}); "
+        f"repeat bit-equal {same6} ({splits} cell splits, {smem6} bytes of shared memory)")
+    require(same6, "K6 repeats differ")
     require(e6 <= 1e-6, f"K6 Zn disagrees: {e6}")
     require(eg <= 1e-6, f"K6 G disagrees: {eg}")
     for k, v in errs6.items():
@@ -556,7 +581,7 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed):
     if timed:
         Np, ncov = cfg.Np, len(B_vec)
         flops = 2.0 * K * d * Np
-        k6["ms"] = time_ms(torch, "K6 kernel, G stored", lambda: cuda_rotate.reassign(*args6))
+        k6.update(time_k6(torch, args6, "random codes", ""))
         k6["plain_ms"] = time_ms(torch, "K6 plain", lambda: rotate.reassign(*args6))
         k6["library_ms"] = None
         # Z and the codes read once, Zn written once (tile_O, O, E are tiny)
@@ -585,6 +610,25 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed):
     return k6, k7
 
 
+def time_k6(torch, args6, what, sfx):
+    """K6's time per call, and its assign and reduce launches' device time
+    apart (keys with suffix ``sfx``)."""
+    from harmony_tpu_torch.ops import cuda_rotate
+
+    cfg = args6[0]
+    part_mb = cfg.Np // 64 * cfg.K * cfg.B * 4 / 1e6
+    row = {"ms" + sfx: time_ms(torch, f"K6 kernel, G stored ({what})",
+                               lambda: cuda_rotate.reassign(*args6))}
+    dms = device_ms(torch, lambda: cuda_rotate.reassign(*args6),
+                    ("reassign_assign_kernel", "reassign_reduce_kernel"))
+    row["ms_assign" + sfx] = dms["reassign_assign_kernel"]
+    row["ms_reduce" + sfx] = dms["reassign_reduce_kernel"]
+    log(f"    K6 device time ({what}): assign {row['ms_assign' + sfx]:.4f} ms, reduce "
+        f"{row['ms_reduce' + sfx]:.4f} ms ({part_mb:.1f} MB of partials, "
+        f"{part_mb / row['ms_reduce' + sfx]:.1f} GB/s)")
+    return row
+
+
 def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
     """A phase's last K7 round with the fused moments and the penalty
     tables (writing R and not), K10 and K11 against their plain versions
@@ -608,7 +652,8 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
     tj = full_tile_joint(cfg, layout)
     spec = rotate.MomentsSpec(Z_orig=Zo, tile_joint=tj, n_joint=nj, tile=tile)
     # K6's Zn and G, as the engine hands them to the phase's rounds
-    Zn, tO, O, E, G = cuda_rotate.reassign(cfg, Y, sigma, Pr_b, Z, codes_pad)
+    args6 = (cfg, Y, sigma, Pr_b, Z, codes_pad)
+    Zn, tO, O, E, G = cuda_rotate.reassign(*args6)
     rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
     lay = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G)
     rs = rotate.RoundState(R=torch.zeros(K, Np, device=dev), E=E, O=O, tile_O=tO,
@@ -643,7 +688,8 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
         + ", ".join(f"{k} rel {v:.3e}" for k, v in errs7.items()) + f" (rtol {SUM_RTOL}); "
         f"tile -> block map equal: {same_map}; without writing R the same M and pen: {same_v}")
     log(f"  K11 max|dR|={e11:.3e} (atol {R_ATOL}), against K7's written R {e11_7:.3e} "
-        f"(atol 1e-6); R column sums within {colsum:.2e} of 1")
+        f"(atol 1e-6; reads 0.0 when K6's G and K11's gram agree bit for bit: "
+        f"{e11_7 == 0.0}); R column sums within {colsum:.2e} of 1")
     log(f"  K10 max|dZ|={e10:.3e} rel {r10:.3e} (rtol {SUM_RTOL}); against K9 on K7's R "
         f"max|dZ|={e10_9:.3e} (atol 1e-6)")
     require(e7 <= R_ATOL, f"K7 (last round) R disagrees: {e7}")
@@ -658,7 +704,10 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
     require(e10_9 <= 1e-6, f"K10 is not K9 on the R K7 wrote: {e10_9}")
     k7m = {"max_abs_err_moments": max(e7, errs7["M"])}
     k10, k11 = {"max_abs_err": e10}, {"max_abs_err": max(e11, e11_7)}
+    k6 = {}
     if timed:
+        # K6 on the batch-tiled order the main path gives it
+        k6 = time_k6(torch, args6, "batch-tiled order", "_tiled")
         flops = 2.0 * K * d * Np
         k7m["ms_moments"] = time_ms(
             torch, "K7 kernel last round, moments + penalty tables",
@@ -692,7 +741,7 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
         k11["library_ms"] = None
         # Zn and the codes read once, R written once
         k11["bound_ms"], k11["bound_by"] = bound(4 * (d * Np + ncov * Np + K * Np), flops)
-    return k7m, k10, k11
+    return k7m, k10, k11, k6
 
 
 def check_rotate_v1(torch, dev, N, d, K, B_vec, seed, timed):
@@ -1136,7 +1185,9 @@ def run_main_path(torch, dev, wrappers, phase):
         f"{[round(x, 3) for x in trace]}")
     log(f"  launches: {launches}")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
-        "(torch.cuda.max_memory_allocated over the call)")
+        "(torch.cuda.max_memory_allocated over the call)"
+        + (f"; the phase's distances G, held until K3 has run, are "
+           f"{N_MAIN * res.K * 4 / 2**20:.1f} MiB of it at most" if phase == "permute" else ""))
     emb = res.embeddings
     require(emb.shape == (N_MAIN, D_MAIN) and np.isfinite(emb).all(),
             "embeddings not finite or of the wrong shape")
@@ -1376,7 +1427,9 @@ def main(argv=None) -> int:
         check_rotate(torch, dev, 30_011, 13, 7, (3, 4), 12, False)
         # segment-200k's shape: 40 batches
         check_rotate(torch, dev, 200_000, D_MAIN, K_MAIN, (B_SEGMENT,), 6, False)
-        k7m, k10, k11 = check_virtual(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, True)
+        k7m, k10, k11, k6t = check_virtual(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17,
+                                           True)
+        kernels["K6"].update(k6t)
         kernels["K7"].update(k7m)
         kernels["K10"].update(k10)
         kernels["K11"].update(k11)

@@ -28,9 +28,9 @@
 // (head_kernel) that writes G, cell-major (a cell's K distances are one
 // contiguous row), and neither of its cell passes computes Y^T Z or stages
 // Y^T or Z: each warp reads its cell's row of G through the permutation.
-// The head computes with tile_dist, the product loop K3 keeps, so every
-// cell's distances have the same bits in G as in K3 (a fixed fmaf sequence
-// over e = 0..d-1, whatever the tile).
+// The head computes with tile_dist (a fixed fmaf sequence over e =
+// 0..d-1, whatever the tile), and G also feeds K3, so the rounds and K3
+// read the same bits.
 //
 // One chain (chain) serves the removal pass, the assign pass and K3: a
 // warp per cell, lanes over clusters, the cell's K distances in registers
@@ -74,23 +74,45 @@
 // Shared with K1 (estep_round.cu, copied because each source builds into a
 // library of its own): the commit's fixed-order fold.
 //
-// K3: materialize_kernel over natural-order tiles writes R (K, Np), pad
-// cells 0: tile_dist, then the chain. With moments the grid is K8's chunk
-// plan (csrc/tiled.cu): a CTA
-// takes up to `chunk` layout tiles of one joint batch level, computes
-// their R in 64-cell sub-tiles, writes it, and accumulates
-// R_t [Z_orig_t; 1]^T in 4x4 register tiles; per-chunk partials are summed
-// per joint in chunk order by a second launch (tiled.cu's sum_joint_rows).
-// No float atomics anywhere.
+// K3: materialize_kernel writes R (K, Np) in natural order, pad cells 0,
+// from the phase's G: the head computed every cell's distances with the
+// loop the rounds read, so K3 forms no product and its R is the last
+// round's R bit for bit. Bound on this card at N = 500k, d = 50, K = 100:
+// of the function, the distance product and, with moments, 2*K*(d+1)*N =
+// 5.1 GFLOP more (0.15 ms at 67 TFLOP/s; 0.09 ms without); of this design,
+// G read and R written, 0.4 GB (0.12 ms at 3.35 TB/s), plus Z_orig with
+// moments. What bounds it in practice is the chain's latency (two warp
+// sums and three divisions a cell) and, with moments, the SM's
+// shared-memory load path (a 16-byte load costs a warp four cycles
+// whatever its lanes share, so what counts is the floats a thread loads
+// per FMA). One CTA of 512 threads a SM walks 64-cell steps (32 or 16
+// where shared memory is short) in a pipeline with one barrier a step:
+// after step s's barrier it issues step s+1's copies (rows of G, one
+// contiguous span, and Z_orig, 16-byte cp.async; codes and block ids),
+// loads the penalties of step s's cells, stores step s-1's R and runs its
+// moment tail, then runs step s's chain, a warp four cells at once
+// (chain_n) so their latencies overlap, writing r cluster-major (the
+// coalesced R store) and cell-major (the moments). The moment tail: each
+// thread owns one 4 x 8 (cluster x dim) register tile for the CTA's whole
+// run, and per block of four cells one float4 of R a cell and one of
+// [Z_orig; 1] a dim (dim-major as copied, so no transposition) for 128
+// FMAs, three float4 loads per 32 FMAs; the (K/4) x ceil((d+1)/8) tiles
+// take one pass (512 threads cover K <= 128
+// at d <= 100; moments_fit refuses past 512 tiles). Where the tiles leave
+// threads idle up to four groups of threads split the cells (two at the
+// main shape's 175 tiles), each writing its own partial row. With
+// moments the layout tiles, joint by joint, are cut into equal ranges,
+// one a CTA of one wave, and each range where its joint changes, so no
+// SM waits on a second wave; each segment writes a
+// partial row a cell group, summed per joint in row order by a second
+// launch (tiled.cu's sum_joint_rows). No float atomics anywhere.
 //
-// Bounds on this card at N = 500k, d = 50, K = 100 (fp32 outside the
+// Bounds of K2 on this card at N = 500k, d = 50, K = 100 (fp32 outside the
 // tensor cores, 67 TFLOP/s; 3.35 TB/s): a round of the function needs one
 // distance product, 2*K*d*N = 5 GFLOP, 0.075 ms, against 0.1 GB of Z,
 // codes, block ids and the permutation (0.03 ms): operations-bound. This
 // design does the product once a phase (the head) and moves G instead:
-// each cell pass reads it once, 200 MB, 0.06 ms. K3 is 2*K*d*N = 5 GFLOP
-// plus, with moments, 2*K*(d+1)*N = 5.1 GFLOP (0.15 ms), against Z,
-// Z_orig and R, 0.4 GB (0.12 ms).
+// each cell pass reads it once, 200 MB, 0.06 ms.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,7 +123,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kKC = 8;      // cluster rows per thread in the product
 constexpr int kSlices = 8;  // commit: partial rows summed per warp slice
-constexpr int kMaxMT = 2;   // K3 moments: 4x4 register tiles a thread owns
+constexpr int kK3Threads = 512;  // K3: threads of a CTA, one a SM
+constexpr int kK3Warps = kK3Threads / 32;
+constexpr int kMR = 4;      // K3 moments: clusters of a thread's register tile
+constexpr int kME = 8;      // K3 moments: dims of a thread's register tile
+constexpr int kCPW = 4;     // K3: most cells a warp takes in a step (T <= 64 cells, 16 warps)
 constexpr int kChunk = 256; // cell passes: cells whose ids and codes a CTA stages at once
 constexpr int kRing = 4;    // cell passes: rows of G a warp has in flight, plus the one in use
 
@@ -110,9 +136,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -126,8 +157,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // dist = 2 (1 - Y^T z) for the T cells staged in Zs (row stride TP) into Ls
 // (row stride TP): lane -> cells (lane, lane + 32), warp -> 8 cluster rows.
-// The head and K3 both compute with it, so a cell's distances have the
-// same bits in G and in K3.
+// The head computes with it; the rounds and K3 read what it wrote.
 __device__ __forceinline__ void tile_dist(const float* Ys, const float* Zs, float* Ls,
                                           int K, int d, int T, int TP) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -188,6 +218,53 @@ __device__ __forceinline__ void chain(const float (&dv)[KJ], const float (&pc)[K
 #pragma unroll
   for (int j = 0; j < KJ; ++j)
     if (lane + 32 * j < K) r[j] = __fmul_rn(r[j], i2);
+}
+
+// chain for NC cells at once, their operations interleaved so that their
+// latencies overlap: v holds each cell's distances in and its r out, p its
+// penalties. Each cell's operations are chain's in chain's order, so each
+// gets chain's bits.
+template <int NC, int KJ>
+__device__ __forceinline__ void chain_n(float (&v)[NC][KJ], const float (&p)[NC][KJ],
+                                        const float (&sg)[KJ], int K) {
+  const int lane = threadIdx.x & 31;
+  float s[NC], inv[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) s[c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    if (lane + 32 * j < K)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        v[c][j] = expf(-v[c][j] / sg[j]);
+        s[c] += v[c][j];
+      }
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) s[c] += __shfl_xor_sync(0xffffffffu, s[c], o);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    inv[c] = 1.f / (s[c] == 0.f ? 1.f : s[c]);
+    s[c] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    if (lane + 32 * j < K)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        v[c][j] = __fmul_rn(__fmul_rn(v[c][j], inv[c]), p[c][j]);
+        s[c] += v[c][j];
+      }
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) s[c] += __shfl_xor_sync(0xffffffffu, s[c], o);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) inv[c] = 1.f / (s[c] == 0.f ? 1.f : s[c]);
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    if (lane + 32 * j < K)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) v[c][j] = __fmul_rn(v[c][j], inv[c]);
 }
 
 // chain for any K (the one for K > 256): a cell's
@@ -548,14 +625,98 @@ __global__ void __launch_bounds__(kThreads) commit_kernel(
   }
 }
 
-// K3: R of the final round in natural order. Without moments CTA b covers
-// cells [b*T, b*T + T); with moments it covers the layout tiles (width tw)
-// of chunk row b, in sub-tiles of T cells, and writes the chunk's
-// [R Z_orig^T | R 1] partial (K x d+1). Cells n >= N are pads: R = 0.
+// K3's steps. A step is one sub-tile of T cells: [n0, n0 + nv). Without
+// moments CTA b takes the sub-tiles b, b + gridDim.x, ... of the natural
+// order; with moments the sub-tiles of the layout tiles (width tw) of its
+// range of the plan (pl: span tile ids, then each tile's segment, -1 past
+// the range; in shared memory), in order. nv <= 0 is an empty step (a
+// tile past Np).
+struct Step {
+  long long n0;
+  int nv;
+  int seg;  // moments: the segment whose partials row the step adds to
+  bool done;
+};
+
+template <bool kMoments>
+__device__ __forceinline__ Step k3_step(int s, const int* pl, long long Np, int T, int span,
+                                        int tw) {
+  if (kMoments) {
+    const int spt = (tw + T - 1) / T;
+    const int c = s / spt;
+    if (c >= span || pl[c] < 0) return {0, 0, -1, true};
+    const int s0 = (s - c * spt) * T;
+    const long long n0 = static_cast<long long>(pl[c]) * tw + s0;
+    return {n0, static_cast<int>(min(static_cast<long long>(min(T, tw - s0)), Np - n0)),
+            pl[span + c], false};
+  }
+  const long long n0 =
+      (static_cast<long long>(blockIdx.x) + static_cast<long long>(s) * gridDim.x) * T;
+  if (n0 >= Np) return {0, 0, 0, true};
+  return {n0, static_cast<int>(min(static_cast<long long>(T), Np - n0)), 0, false};
+}
+
+// Issues the copies of a step's inputs (cp.async): the rows of G of its
+// cells below N, one contiguous span; their codes and block ids; with
+// moments their Z_orig columns, dim-major (row stride T + 4), 16 bytes at
+// a time where aligned, zeros up to a whole float4 past the cells.
+template <bool kMoments>
+__device__ __forceinline__ void k3_stage(const Step& st, const float* __restrict__ G,
+                                         const int* __restrict__ codes,
+                                         const int* __restrict__ blkn,
+                                         const float* __restrict__ Zo, float* Gs, int* gcs,
+                                         int* bks, float* Zr, long long Np, long long N, int K,
+                                         int d, int ncov, int T) {
+  if (st.done || st.nv <= 0) return;
+  const int tid = threadIdx.x, nv = st.nv;
+  const int nf = static_cast<int>(max(0LL, min(static_cast<long long>(nv), N - st.n0))) * K;
+  const float* src = G + st.n0 * K;
+  int head = 0;
+  if (((st.n0 * K) & 3) == 0) {
+    head = nf & ~3;
+    for (int i = 4 * tid; i < head; i += 4 * kK3Threads) cp_async16(Gs + i, src + i);
+  }
+  for (int i = head + tid; i < nf; i += kK3Threads) cp_async4(Gs + i, src + i);
+  for (int i = tid; i < ncov * nv; i += kK3Threads) {
+    const int c = i / nv, t = i - c * nv;
+    cp_async4(gcs + c * T + t, codes + c * Np + st.n0 + t);
+  }
+  for (int t = tid; t < nv; t += kK3Threads) cp_async4(bks + t, blkn + st.n0 + t);
+  if (kMoments) {
+    const int nq = (nv + 3) / 4, zs = T + 4;
+    const bool al = (Np & 3) == 0 && (st.n0 & 3) == 0;
+    for (int i = tid; i < d * nq; i += kK3Threads) {
+      const int e = i / nq, q = 4 * (i - e * nq);
+      const float* z = Zo + e * Np + st.n0 + q;
+      float* dst = Zr + e * zs + q;
+      if (al && q + 4 <= nv) {
+        cp_async16(dst, z);
+      } else {
+        for (int u = 0; u < 4; ++u) {
+          if (q + u < nv) cp_async4(dst + u, z + u);
+          else dst[u] = 0.f;  // past the step's cells, up to a whole float4
+        }
+      }
+    }
+  }
+}
+
+// K3: R of the final round in natural order, read from the phase's
+// distances G (the head's, so R is the last round's bit for bit), and with
+// moments the [R Z_orig^T | R 1] partials, one (K x d+1) row per segment
+// of the plan and cell group, written when the segment's last step is
+// done. Cells n >= N are pads: R = 0. A software pipeline
+// with one barrier a step: in the interval after step s's barrier the CTA
+// issues step s+1's copies, loads the penalties of step s's cells, stores
+// step s-1's R and runs its moment tail from the other halves of Ls and
+// Rc, then runs step s's chain (a warp four cells at once, r written
+// cluster-major into Ls and, with moments, cell-major into Rc). The tail:
+// thread (group g, tile mt) owns a kMR x kME (cluster x dim) register tile
+// over the 4-cell blocks g, g + ng, ..., one float4 of R a cell and one of
+// [Z_orig; 1] a dim (dim-major, as copied) for each 128 FMAs.
 template <bool kMoments, int KJ>
-__global__ void __launch_bounds__(kThreads) materialize_kernel(
-    const float* __restrict__ Yt,     // (K, d)
-    const float* __restrict__ Z,      // (d, Np) L2-normalised
+__global__ void __launch_bounds__(kK3Threads, 1) materialize_kernel(
+    const float* __restrict__ G,      // (N, K) the phase's distances
     const int* __restrict__ codes,    // (ncov, Np) local levels
     const int* __restrict__ offs,     // (ncov,) covariate offsets
     const int* __restrict__ blkn,     // (Np,) final block id per cell
@@ -563,135 +724,212 @@ __global__ void __launch_bounds__(kThreads) materialize_kernel(
     const float* __restrict__ sigma,  // (K,)
     float* __restrict__ R,            // (K, Np) out
     const float* __restrict__ Zo,     // (d, Np) Z_orig (moments)
-    const int* __restrict__ chunks,   // (gridDim.x, chunk) tile ids, -1 pad
-    float* __restrict__ part,         // (gridDim.x, K, d+1) out (moments)
-    long long Np, long long N, int K, int d, int B, int ncov, int T, int chunk,
-    int tw, int d1p) {
-  extern __shared__ float smem[];
+    const int* __restrict__ plan,     // (gridDim.x, 2, span) tile ids, segments (moments)
+    float* __restrict__ part,         // (segments * ng, K, d+1) out (moments)
+    long long Np, long long N, int K, int d, int B, int ncov, int T, int span, int tw,
+    int KR, int d1p, int ng) {
+  extern __shared__ __align__(16) float smem[];
   const int TP = T + 1;
-  const int K4 = (K + 3) / 4 * 4;
+  const int LS = (K * TP + 3) / 4 * 4;
   const int d1 = d + 1;
-  float* Zos = smem;                           // T*d1p (moments), cell-major
-  float* Ys = Zos + (kMoments ? T * d1p : 0);  // K*d
-  float* Zs = Ys + K * d;                      // d*TP
-  float* Ls = Zs + d * TP;                     // K4*TP
-  int* gcs = reinterpret_cast<int*>(Ls + K4 * TP);  // ncov*T
-  int* bks = gcs + ncov * T;                   // T
+  float* Gs = smem;                                   // 2*T*K: the steps' rows of G
+  float* Ls = Gs + 2 * T * K;                         // 2*LS: R, cluster-major
+  float* Rc = Ls + 2 * LS;                            // 2*T*KR (moments): R, cell-major
+  const int zs = T + 4;                               // row stride of Zr
+  // 3*d1p*zs (moments): [Z_orig; 1; 0], dim-major, d1p = 8 ceil((d+1)/8)
+  // rows; three steps', as step s+1's copies land while step s-1's tail
+  // reads
+  float* Zr = Rc + (kMoments ? 2 * T * KR : 0);
+  int* gcs = reinterpret_cast<int*>(Zr + (kMoments ? 3 * d1p * zs : 0));  // 2*ncov*T
+  int* bks = gcs + 2 * ncov * T;                      // 2*T
+  int* pl = bks + 2 * T;                              // 2*span (moments): the CTA's plan
 
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  for (int i = tid; i < K * d; i += kThreads) Ys[i] = Yt[i];
-  constexpr int KR = KJ > 0 ? KJ : 1;
-  float sg[KR];
+  if (kMoments)
+    for (int c = tid; c < 2 * span; c += kK3Threads)
+      pl[c] = plan[static_cast<long long>(blockIdx.x) * 2 * span + c];
+  constexpr int KR_ = KJ > 0 ? KJ : 1;
+  float sg[KR_];
 #pragma unroll
-  for (int j = 0; j < KR; ++j) sg[j] = lane + 32 * j < K ? sigma[lane + 32 * j] : 1.f;
-  for (int i = K * TP + tid; i < K4 * TP; i += kThreads) Ls[i] = 0.f;
-  const int nkb = K4 / 4, neb = (d1 + 3) / 4;
-  float acc[kMaxMT][4][4];
+  for (int j = 0; j < KR_; ++j) sg[j] = lane + 32 * j < K ? sigma[lane + 32 * j] : 1.f;
+  const int neb = (d1 + kME - 1) / kME;
+  const int nt = (K + kMR - 1) / kMR * neb;
+  const int nkb = (K + kMR - 1) / kMR;
+  const int grp = tid / nt, mt = tid - grp * nt;
+  const bool mine = kMoments && grp < ng;
+  const int eb = mt / nkb, kb = mt - eb * nkb;  // clusters fastest: Zr's loads broadcast
+  float acc[kMR][kME];
 #pragma unroll
-  for (int m = 0; m < kMaxMT; ++m)
+  for (int i = 0; i < kMR; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][i][j] = 0.f;
-
-  const int ntiles = kMoments ? chunk : 1;
-  for (int c = 0; c < ntiles; ++c) {
-    long long start;
-    int len;
-    if (kMoments) {
-      const int tile = chunks[static_cast<long long>(blockIdx.x) * chunk + c];
-      if (tile < 0) break;
-      start = static_cast<long long>(tile) * tw;
-      len = tw;
-    } else {
-      start = static_cast<long long>(blockIdx.x) * T;
-      len = T;
-    }
-    for (int s0 = 0; s0 < len; s0 += T) {
-      const long long n0 = start + s0;
-      const int nv = static_cast<int>(min(static_cast<long long>(min(T, len - s0)), Np - n0));
-      if (nv <= 0) break;
-      __syncthreads();  // the previous sub-tile's readers are done
-      for (int i = tid; i < d * T; i += kThreads) {
-        const int e = i / T, t = i - e * T;
-        Zs[e * TP + t] = t < nv ? Z[e * Np + n0 + t] : 0.f;
-      }
-      for (int i = tid; i < ncov * T; i += kThreads) {
-        const int cc = i / T, t = i - cc * T;
-        gcs[i] = t < nv ? codes[cc * Np + n0 + t] + offs[cc] : 0;
-      }
-      for (int t = tid; t < T; t += kThreads) bks[t] = t < nv ? blkn[n0 + t] : 0;
-      if (kMoments)
-        for (int i = tid; i < d1p * T; i += kThreads) {
-          const int e = i / T, u = i - e * T;
-          float v = 0.f;
-          if (u < nv && e < d1) v = e < d ? Zo[e * Np + n0 + u] : 1.f;
-          Zos[u * d1p + e] = v;
-        }
-      __syncthreads();
-      tile_dist(Ys, Zs, Ls, K, d, T, TP);
-      __syncthreads();
-      for (int t = w; t < nv; t += kWarps) {
-        if (n0 + t < N) {
-          const float* rows = pen + static_cast<long long>(bks[t]) * B * K;
-          if constexpr (KJ > 0) {
-            float dv[KJ], pc[KJ], r[KJ];
-#pragma unroll
-            for (int j = 0; j < KJ; ++j)
-              if (lane + 32 * j < K) dv[j] = Ls[(lane + 32 * j) * TP + t];
-            penalties(rows, gcs + t, T, ncov, K, pc);
-            chain(dv, pc, sg, K, r);
-#pragma unroll
-            for (int j = 0; j < KJ; ++j)
-              if (lane + 32 * j < K) Ls[(lane + 32 * j) * TP + t] = r[j];
-          } else {
-            chain_wide(Ls + t, TP, Ls + t, TP, rows, gcs + t, T, ncov, sigma, K);
-          }
-        } else {
-          for (int k = lane; k < K; k += 32) Ls[k * TP + t] = 0.f;
-        }
-      }
-      __syncthreads();
-      for (int i = tid; i < K * T; i += kThreads) {
-        const int k = i / T, t = i - k * T;
-        if (t < nv) R[k * Np + n0 + t] = Ls[k * TP + t];
-      }
-      if (kMoments) {
-#pragma unroll
-        for (int m = 0; m < kMaxMT; ++m) {
-          const int mt = tid + m * kThreads;
-          if (mt >= nkb * neb) break;
-          const int kb = mt / neb, eb = mt - kb * neb;
-          for (int u = 0; u < nv; ++u) {
-            const float4 z = *reinterpret_cast<const float4*>(Zos + u * d1p + 4 * eb);
-            const float rv[4] = {Ls[(4 * kb) * TP + u], Ls[(4 * kb + 1) * TP + u],
-                                 Ls[(4 * kb + 2) * TP + u], Ls[(4 * kb + 3) * TP + u]};
-            const float zv[4] = {z.x, z.y, z.z, z.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[m][i][j] = fmaf(rv[i], zv[j], acc[m][i][j]);
-          }
-        }
-      }
-    }
-  }
+    for (int j = 0; j < kME; ++j) acc[i][j] = 0.f;
   if (kMoments) {
-    float* out = part + static_cast<long long>(blockIdx.x) * K * d1;
-#pragma unroll
-    for (int m = 0; m < kMaxMT; ++m) {
-      const int mt = tid + m * kThreads;
-      if (mt >= nkb * neb) break;
-      const int kb = mt / neb, eb = mt - kb * neb;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = 4 * kb + i, e = 4 * eb + j;
-          if (k < K && e < d1) out[k * d1 + e] = acc[m][i][j];
-        }
+    // the constant rows of the three: 1 at e = d, 0 past it
+    const int nc = d1p - d;
+    for (int i = tid; i < 3 * nc * zs; i += kK3Threads) {
+      const int r = i / zs, u = i - r * zs;
+      const int hh = r / nc, e = d + (r - hh * nc);
+      Zr[(hh * d1p + e) * zs + u] = e == d ? 1.f : 0.f;
     }
   }
+
+  auto finish_cells = [&](const Step& st, int h, int hz) {
+    if (st.nv <= 0) return;
+    const int nv = st.nv;
+    const float* Lh = Ls + h * LS;
+    const int t = tid % T;
+    if (t < nv)
+      for (int k = tid / T; k < K; k += kK3Threads / T) R[k * Np + st.n0 + t] = Lh[k * TP + t];
+    if (mine) {
+      // 4-cell blocks q = grp, grp + ng, ...: four float4s of R (one a
+      // cell) and eight of [Z_orig; 1] (one a dim, four cells) for 128 FMAs
+      const float* Zc = Zr + (hz * d1p + kME * eb) * zs;
+      const float* Rk = Rc + h * T * KR + kMR * kb;
+      for (int u0 = 4 * grp; u0 < nv; u0 += 4 * ng) {
+        float zv[kME][4];
+#pragma unroll
+        for (int j = 0; j < kME; ++j) {
+          const float4 z = *reinterpret_cast<const float4*>(Zc + j * zs + u0);
+          zv[j][0] = z.x;
+          zv[j][1] = z.y;
+          zv[j][2] = z.z;
+          zv[j][3] = z.w;
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float4 rq = *reinterpret_cast<const float4*>(Rk + (u0 + c) * KR);
+          const float rv[kMR] = {rq.x, rq.y, rq.z, rq.w};
+#pragma unroll
+          for (int i = 0; i < kMR; ++i)
+#pragma unroll
+            for (int j = 0; j < kME; ++j) acc[i][j] = fmaf(rv[i], zv[j][c], acc[i][j]);
+        }
+      }
+    }
+  };
+  // the step's R: stored, and its moments added into the register tiles;
+  // after the last step of a segment (nx the step after st) the tiles go
+  // to the segment's partials row and start again from zero
+  auto finish = [&](const Step& st, int h, int hz, const Step& nx) {
+    if (st.done) return;
+    finish_cells(st, h, hz);
+    if (kMoments && mine && (nx.done || nx.seg != st.seg)) {
+      float* out = part + (static_cast<long long>(st.seg) * ng + grp) * K * d1;
+#pragma unroll
+      for (int i = 0; i < kMR; ++i)
+#pragma unroll
+        for (int j = 0; j < kME; ++j) {
+          const int k = kMR * kb + i, e = kME * eb + j;
+          if (k < K && e < d1) out[k * d1 + e] = acc[i][j];
+          acc[i][j] = 0.f;
+        }
+    }
+  };
+  // the penalties of a warp's cells of step st (w + 16 c, c < kCPW),
+  // issued before the other work of the interval so that their loads
+  // overlap it
+  float pq[kCPW][KR_];
+  auto load_pens = [&](const Step& st, int h) {
+    if constexpr (KJ > 0) {
+      if (st.done || st.nv <= 0) return;
+      const int nreal = static_cast<int>(max(0LL, min(static_cast<long long>(st.nv), N - st.n0)));
+      const int* gc = gcs + h * ncov * T;
+      const int* bk = bks + h * T;
+#pragma unroll
+      for (int c = 0; c < kCPW; ++c) {
+        const int t = w + kK3Warps * c;
+        if (t < nreal) {
+          penalties(pen + static_cast<long long>(bk[t]) * B * K, gc + t, T, ncov, K, pq[c]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) pq[c][j] = 0.f;
+        }
+      }
+    }
+  };
+  // the step's chain: R into half h of Ls (and Rc)
+  auto run_chain = [&](const Step& st, int h) {
+    if (st.done || st.nv <= 0) return;
+    const int nv = st.nv;
+    float* Gc = Gs + h * T * K;
+    const int* gc = gcs + h * ncov * T;
+    const int* bk = bks + h * T;
+    float* Lh = Ls + h * LS;
+    float* Rh = Rc + h * T * KR;
+    const int nreal = static_cast<int>(max(0LL, min(static_cast<long long>(nv), N - st.n0)));
+    auto put = [&](int t, int k, float v) {
+      Lh[k * TP + t] = v;
+      if (kMoments) Rh[t * KR + k] = v;
+    };
+    if constexpr (KJ > 0) {
+      // NC of the warp's cells at once; a cell past nreal runs on zeros
+      constexpr int NC = KJ <= 4 ? kCPW : 2;
+#pragma unroll
+      for (int c0 = 0; c0 < kCPW; c0 += NC) {
+        if (w + kK3Warps * c0 >= nreal) break;
+        float v[NC][KJ], pp[NC][KJ];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int t = w + kK3Warps * (c0 + c);
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) {
+            v[c][j] = t < nreal && lane + 32 * j < K ? Gc[t * K + lane + 32 * j] : 0.f;
+            pp[c][j] = pq[c0 + c][j];
+          }
+        }
+        chain_n<NC, KJ>(v, pp, sg, K);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int t = w + kK3Warps * (c0 + c);
+          if (t < nreal)
+#pragma unroll
+            for (int j = 0; j < KJ; ++j)
+              if (lane + 32 * j < K) put(t, lane + 32 * j, v[c][j]);
+        }
+      }
+    } else {
+      for (int t = w; t < nreal; t += kK3Warps) {
+        float* row = Gc + t * K;  // r overwrites the cell's distances
+        chain_wide(row, 1, row, 1, pen + static_cast<long long>(bk[t]) * B * K, gc + t, T,
+                   ncov, sigma, K);
+        for (int k = lane; k < K; k += 32) put(t, k, row[k]);
+      }
+    }
+    // pads, and with moments R = 0 up to a whole float4 of cells
+    const int nz = kMoments ? min(T, (nv + 3) / 4 * 4) : nv;
+    for (int t = nreal + w; t < nz; t += kK3Warps)
+      for (int k = lane; k < K; k += 32) put(t, k, 0.f);
+  };
+
+  __syncthreads();  // the plan is in
+  Step cur = k3_step<kMoments>(0, pl, Np, T, span, tw), prv = {0, 0, -1, true};
+  k3_stage<kMoments>(cur, G, codes, blkn, Zo, Gs, gcs, bks, Zr, Np, N, K, d, ncov, T);
+  cp_async_commit();
+  for (int s = 0; !(cur.done && prv.done); ++s) {
+    const int h = s & 1;
+    cp_async_wait<0>();  // this thread's copies of step s have landed
+    if (!cur.done && cur.nv > 0) {
+      // the codes this thread copied, made global batch rows
+      int* gc = gcs + h * ncov * T;
+      for (int i = tid; i < ncov * cur.nv; i += kK3Threads) {
+        const int c = i / cur.nv, t = i - c * cur.nv;
+        gc[c * T + t] += offs[c];
+      }
+    }
+    __syncthreads();  // step s's inputs are in; step s-1's R is in Ls, Rc
+    const Step nx =
+        cur.done ? Step{0, 0, -1, true} : k3_step<kMoments>(s + 1, pl, Np, T, span, tw);
+    k3_stage<kMoments>(nx, G, codes, blkn, Zo, Gs + (h ^ 1) * T * K,
+                       gcs + (h ^ 1) * ncov * T, bks + (h ^ 1) * T,
+                       Zr + (s + 1) % 3 * d1p * zs, Np, N, K, d, ncov, T);
+    cp_async_commit();
+    load_pens(cur, h);
+    finish(prv, h ^ 1, (s + 2) % 3, cur);
+    run_chain(cur, h);
+    prv = cur;
+    cur = nx;
+  }
+  cp_async_wait<0>();
 }
 
 int set_smem(const void* kernel, int bytes) {
@@ -803,20 +1041,31 @@ int k2_commit(const void* part1, int n1, const void* part0, int rm_first, int rm
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3; Zo == nullptr: no moments (grid = ceil(Np / T)); else the chunk plan
-// (grid = n_chunks) and a partials row per chunk, which the wrapper sums
-// per joint with tiled.cu's sum_joint_rows.
-int k3_materialize(const void* Yt, const void* Z, const void* codes, const void* offs,
-                   const void* blk, const void* pen, const void* sigma, void* R,
-                   const void* Zo, const void* chunks, void* part, long long Np,
-                   long long N, int K, int d, int B, int ncov, int T, int grid, int chunk,
-                   int tw, int d1p, int smem_bytes, void* stream) {
+// CTAs of K3 (moments or not, at K) an SM holds with smem_bytes each; < 0
+// is minus a CUDA error.
+int k3_occupancy(int moments, int K, int smem_bytes) {
+  const void* kern = moments ? materialize_kernel_for<true>(K) : materialize_kernel_for<false>(K);
+  int err = set_smem(kern, smem_bytes);
+  if (err) return -err;
+  int n = 0;
+  err = static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kK3Threads, smem_bytes));
+  return err ? -err : n;
+}
+
+// K3; Zo == nullptr: no moments (grid CTAs walk the sub-tiles); else the
+// plan, a range of layout tiles a CTA, and ng partials rows per segment,
+// which the wrapper sums per joint with tiled.cu's sum_joint_rows.
+int k3_materialize(const void* G, const void* codes, const void* offs, const void* blk,
+                   const void* pen, const void* sigma, void* R, const void* Zo,
+                   const void* plan, void* part, long long Np, long long N, int K, int d,
+                   int B, int ncov, int T, int grid, int span, int tw, int KR, int d1p, int ng,
+                   int smem_bytes, void* stream) {
   const void* kern = Zo != nullptr ? materialize_kernel_for<true>(K)
                                    : materialize_kernel_for<false>(K);
   int err = set_smem(kern, smem_bytes);
   if (err) return err;
-  const float* Ytf = static_cast<const float*>(Yt);
-  const float* Zf = static_cast<const float*>(Z);
+  const float* Gf = static_cast<const float*>(G);
   const int* ci = static_cast<const int*>(codes);
   const int* oi = static_cast<const int*>(offs);
   const int* bi = static_cast<const int*>(blk);
@@ -824,11 +1073,11 @@ int k3_materialize(const void* Yt, const void* Z, const void* codes, const void*
   const float* sigf = static_cast<const float*>(sigma);
   float* Rf = static_cast<float*>(R);
   const float* Zof = static_cast<const float*>(Zo);
-  const int* chi = static_cast<const int*>(chunks);
+  const int* pli = static_cast<const int*>(plan);
   float* partf = static_cast<float*>(part);
-  void* args[] = {&Ytf, &Zf, &ci, &oi, &bi, &penf, &sigf, &Rf, &Zof, &chi, &partf, &Np,
-                  &N, &K, &d, &B, &ncov, &T, &chunk, &tw, &d1p};
-  return static_cast<int>(cudaLaunchKernel(kern, dim3(grid), dim3(kThreads), args,
+  void* args[] = {&Gf, &ci, &oi, &bi, &penf, &sigf, &Rf, &Zof, &pli, &partf, &Np, &N,
+                  &K, &d, &B, &ncov, &T, &span, &tw, &KR, &d1p, &ng};
+  return static_cast<int>(cudaLaunchKernel(kern, dim3(grid), dim3(kK3Threads), args,
                                            smem_bytes, static_cast<cudaStream_t>(stream)));
 }
 

@@ -16,9 +16,11 @@ plain versions. The CUDA source is ``csrc/permute_phase.cu``.
   swapped between rounds; the result hands them back as the
   (K, (n_blocks+1)·B) view the plain version carries.
 * :func:`materialize` (K3): R (K, Np) in natural order, pad cells 0, and
-  with a :class:`MomentsSpec` the joint-batch moment table over K8's chunk
-  plan. It computes the distances with the head's product loop, so its R
-  is the last round's R bit for bit.
+  with a :class:`MomentsSpec` the joint-batch moment table over a plan of
+  equal tile ranges, one a CTA (:func:`_k3_moments_plan`). It reads the
+  distances from the head's G, which :func:`permute_rounds` hands on
+  (``RoundsResult.G``), so its R is the last round's R bit for bit; G
+  lives until K3 has run.
 
 For CPU tensors each wrapper runs its plain version; any other device,
 dtype or shape raises. ``launches`` counts calls into a kernel's C entry
@@ -37,7 +39,7 @@ from .. import _build
 from ..config import HarmonyConfig
 from . import permute_phase as twin
 from .cuda_estep import _sm_count
-from .cuda_ridge import _CHUNK_TILES, _ceil4, _moments_plan, sum_joint_rows
+from .cuda_ridge import sum_joint_rows
 from .cuda_rotate import _offsets_on
 from .permute_phase import MomentsSpec, PermutePhaseResult, PhaseTables, RoundsResult
 
@@ -45,8 +47,10 @@ _F32 = torch.float32
 _SMEM_MAX = 232_448  # bytes of shared memory a CTA may use on Hopper
 _SMEM_SM = 233_472  # bytes of shared memory an SM holds, 1,024 of them reserved a CTA
 _WARPS = 8  # kWarps in permute_phase.cu
-_MAX_MT = 2  # kMaxMT in permute_phase.cu
 _THREADS = 256
+_K3_THREADS = 512  # kK3Threads: a K3 CTA
+_MR, _ME = 4, 8  # kMR x kME: the (cluster x dim) register tile of K3's moment tail
+_K3_GROUPS = 4  # the most groups of K3 threads that split a step's cells for the moments
 _CHUNK = 256  # kChunk: cells whose ids and codes a cell-pass CTA stages at once
 _RING = 4  # kRing: rows of G a cell-pass warp holds in shared memory
 _MAX_KJ_K = 256  # the register chain: a lane holds up to 8 of a cell's K values
@@ -56,7 +60,8 @@ _SIGNATURES = {
     "k2_cells": [_build.INT] * 2 + [_build.PTR] * 7 + [_build.INT] * 12 + [_build.PTR],
     "k2_commit": [_build.PTR, _build.INT, _build.PTR, _build.INT, _build.INT]
     + [_build.PTR] * 5 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [_build.PTR],
-    "k3_materialize": [_build.PTR] * 11 + [_build.I64, _build.I64] + [_build.INT] * 10
+    "k3_occupancy": [_build.INT] * 3,
+    "k3_materialize": [_build.PTR] * 10 + [_build.I64, _build.I64] + [_build.INT] * 12
     + [_build.PTR],
 }
 
@@ -78,19 +83,59 @@ def cells_smem_bytes(K: int, B: int, ncov: int, warps: int, shared: bool) -> int
     return 4 * (floats + _CHUNK * (ncov + 2))
 
 
-def materialize_smem_bytes(K: int, d: int, ncov: int, T: int, moments: bool) -> int:
-    """Shared memory of one K3 CTA (layout in the .cu)."""
-    K4 = -(-K // 4) * 4
-    floats = (T * _ceil4(d + 1) if moments else 0) + K * d + d * (T + 1) + K4 * (T + 1)
-    return 4 * (floats + ncov * T + T)
+def moment_tiles(K: int, d: int) -> int:
+    """K3's register tiles of the (K x d+1) moment table, kMR x kME each."""
+    return -(-K // _MR) * -(-(d + 1) // _ME)
+
+
+def moment_groups(K: int, d: int) -> int:
+    """Groups of K3 threads that split a step's cells for the moment tail,
+    each with one tile a thread and a partials row of its own."""
+    return max(1, min(_K3_GROUPS, _K3_THREADS // moment_tiles(K, d)))
+
+
+def _kr(K: int) -> int:
+    """Row stride of K3's cell-major R: whole kMR tiles, off multiples of 32."""
+    n = _MR * -(-K // _MR)
+    return n + 4 if n % 32 == 0 else n
+
+
+def _d1p(d: int) -> int:
+    """Rows of K3's dim-major [Z_orig; 1] stage: whole kME tiles."""
+    return _ME * -(-(d + 1) // _ME)
+
+
+def materialize_smem_bytes(K: int, d: int, ncov: int, T: int, moments: bool,
+                           span: int = 0) -> int:
+    """Shared memory of one K3 CTA at T cells a step (layout in the .cu):
+    two steps' rows of G and two of R cluster-major; with moments two of R
+    cell-major, three of [Z_orig; 1] dim-major (rows of T + 4), and the
+    CTA's plan of ``span`` tiles; two steps' codes and block ids."""
+    floats = 2 * T * K + 2 * (-(-K * (T + 1) // 4) * 4)
+    ints = 2 * ncov * T + 2 * T
+    if moments:
+        floats += 2 * T * _kr(K) + 3 * _d1p(d) * (T + 4)
+        ints += 2 * span  # the CTA's plan: tile ids and segments
+    return 4 * (floats + ints)
+
+
+def materialize_tile(K: int, d: int, ncov: int, moments: bool) -> int:
+    """Cells of a K3 step: 64, or 32 or 16 where 64 does not fit."""
+    for T in (64, 32, 16):
+        if materialize_smem_bytes(K, d, ncov, T, moments) <= _SMEM_MAX:
+            return T
+    raise ValueError(
+        f"materialize: K={K}, d={d}, {ncov} covariate(s) need "
+        f"{materialize_smem_bytes(K, d, ncov, 16, moments)} bytes of shared memory at 16 "
+        f"cells a step, over the {_SMEM_MAX} a CTA may use"
+    )
 
 
 def cell_tile(K: int, d: int, B: int, ncov: int) -> int:
-    """Cells per staged tile of the head and K3: 64, or 32 where 64 does
-    not fit."""
+    """Cells per staged tile of the head: 64, or 32 where 64 does not
+    fit."""
     for T in (64, 32):
-        if max(head_smem_bytes(K, d, T),
-               materialize_smem_bytes(K, d, ncov, T, True)) <= _SMEM_MAX:
+        if head_smem_bytes(K, d, T) <= _SMEM_MAX:
             return T
     raise ValueError(
         f"permute phase kernels: K={K}, d={d}, B={B}, {ncov} covariate(s) need more "
@@ -114,8 +159,9 @@ def cell_layout(K: int, B: int, ncov: int) -> Tuple[int, bool]:
 
 
 def moments_fit(K: int, d: int) -> bool:
-    """Does K3's moment fusion hold a (K x d+1) table in its register tiles?"""
-    return -(-K // 4) * -(-(d + 1) // 4) <= _MAX_MT * _THREADS
+    """Does K3's moment fusion hold a (K x d+1) table in its register
+    tiles, one a thread in one pass?"""
+    return moment_tiles(K, d) <= _K3_THREADS
 
 
 def _check(where: str, cfg: HarmonyConfig, floats: dict, codes: torch.Tensor) -> bool:
@@ -296,11 +342,52 @@ def permute_rounds(
     return RoundsResult(
         E=E_w, O=O_w, E_rounds=E_st, O_rounds=O_st, kmeans_error=acc[:, 0],
         entropy=acc[:, 1],
-        tables=PhaseTables(pen=pens[rounds % 2].t(), blk=blk_nat),
+        tables=PhaseTables(pen=pens[rounds % 2].t(), blk=blk_nat), G=G,
     )
 
 
 permute_rounds.launches = 0
+
+
+@functools.lru_cache(maxsize=4)
+def _k3_moments_plan(tj_bytes: bytes, n_joint: int, device: str, groups: int, ctas: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """K3's work with moments: the layout tiles, joint by joint (ascending
+    within a joint), cut into ``ctas`` ranges of equal length, one a CTA,
+    and each range again where the joint changes; a segment adds into a
+    partials row a cell group. Returns (plan (ctas, 2, span) int32: a
+    range's tile ids, then each one's segment, -1 past the range; the
+    first row of each joint (n_joint + 2,); span; rows), on the card once
+    per table."""
+    tj = np.frombuffer(tj_bytes, dtype=np.int32)
+    order = np.argsort(tj, kind="stable").astype(np.int32)
+    joint = tj[order]
+    n = len(order)
+    bounds = np.arange(ctas + 1, dtype=np.int64) * n // ctas
+    new = np.zeros(n, bool)
+    new[bounds[:-1][bounds[:-1] < n]] = True
+    new[1:] |= joint[1:] != joint[:-1]
+    seg = (np.cumsum(new) - 1).astype(np.int32)
+    span = max(1, int(np.diff(bounds).max()))
+    plan = np.full((ctas, 2, span), -1, np.int32)
+    for b in range(ctas):
+        lo, hi = bounds[b], bounds[b + 1]
+        plan[b, 0, : hi - lo] = order[lo:hi]
+        plan[b, 1, : hi - lo] = seg[lo:hi]
+    start = groups * np.searchsorted(joint[new], np.arange(n_joint + 2))
+    return (torch.as_tensor(plan, device=device),
+            torch.as_tensor(start.astype(np.int32), device=device), span,
+            groups * int(new.sum()))
+
+
+@functools.lru_cache(maxsize=16)
+def _k3_grid(moments: bool, K: int, smem: int, n_sm: int) -> int:
+    """The CTAs of K3 the card holds at once."""
+    lib = _build.load("permute_phase", _SIGNATURES)
+    n = lib.k3_occupancy(int(moments), K, smem)
+    if n <= 0:
+        raise RuntimeError(f"k3_occupancy: K3 fits no CTA on an SM (CUDA error {-n})")
+    return n_sm * n
 
 
 def materialize(
@@ -311,30 +398,43 @@ def materialize(
     sigma: torch.Tensor,  # (K,)
     tables: PhaseTables,
     moments: Optional[MomentsSpec] = None,
+    G: Optional[torch.Tensor] = None,  # (N, K) the phase's distances (K2's head)
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K3: the final R (K, Np) and, with ``moments``, the (n_joint+1, K,
-    d+1) moment table; the plain version on CPU tensors."""
+    d+1) moment table, from the phase's distances G; the plain version on
+    CPU tensors (which forms them from Y and Z when G is None)."""
     floats = {"Z": Z, "Y": Y, "sigma": sigma, "pen": tables.pen}
+    if G is not None:
+        floats["G"] = G
     if moments is not None:
         floats["Z_orig"] = moments.Z_orig
     if not _check("materialize", cfg, floats, codes):
-        return twin.materialize(cfg, Z, Y, codes, sigma, tables, moments)
+        return twin.materialize(cfg, Z, Y, codes, sigma, tables, moments, G)
     K, d, B, ncov, nb = cfg.K, cfg.d, cfg.B, cfg.n_covariates, cfg.n_blocks
-    Np, dev = cfg.Np, Z.device
+    N, Np, dev = cfg.N, cfg.Np, Z.device
+    if G is None or G.shape != (N, K) or not G.is_contiguous():
+        raise ValueError(f"materialize: the kernel reads the phase's distances G, a "
+                         f"contiguous float32 ({N}, {K}) tensor on {dev} (permute_rounds "
+                         f"returns it), got {None if G is None else tuple(G.shape)}")
     if tables.pen.shape != (K, (nb + 1) * B) or tables.blk.shape != (Np,):
         raise ValueError("materialize: the phase tables disagree with the config")
-    T = cell_tile(K, d, B, ncov)
+    mom = moments is not None
+    if mom and not moments_fit(K, d):
+        raise ValueError(f"materialize: K={K}, d={d} give {moment_tiles(K, d)} register "
+                         f"tiles of the moments, over the {_K3_THREADS} threads of a CTA")
+    T = materialize_tile(K, d, ncov, mom)
+    smem = materialize_smem_bytes(K, d, ncov, T, mom)
     pen_rows = tables.pen.t().contiguous()  # (nbp*B, K); a view of K2's tables
     blk = tables.blk.to(torch.int32).contiguous()
-    Zc, Yt, sig = Z.contiguous(), Y.t().contiguous(), sigma.contiguous()
+    sig = sigma.contiguous()
     R = torch.empty((K, Np), dtype=_F32, device=dev)
     lib = _build.load("permute_phase", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     off = _offsets_on(cfg.covariate_offsets, str(dev))
-    d1p = _ceil4(d + 1)
-    M = None
-    if moments is None:
-        grid, chunk, tw = -(-Np // T), 0, T
+    M, groups = None, 1
+    if not mom:
+        grid = min(-(-Np // T), _k3_grid(False, K, smem, _sm_count(dev)))
+        span, tw = 0, T
         ptrs = (None, None, None)
     else:
         tj = np.asarray(moments.tile_joint, dtype=np.int32)
@@ -342,22 +442,24 @@ def materialize(
         if (moments.Z_orig.shape != (d, Np) or tj.shape != (-(-Np // tw),)
                 or tj.max(initial=0) > nj):
             raise ValueError("materialize: the moments spec disagrees with the config")
-        if not moments_fit(K, d):
-            raise ValueError(f"materialize: K={K}, d={d} need more than {_MAX_MT} "
-                             "register tiles a thread for the moments")
-        chunks, start, grid = _moments_plan(tj.tobytes(), nj, str(dev))
-        chunk = _CHUNK_TILES
+        groups = moment_groups(K, d)
+        # a CTA a range, one wave: the ranges are at most ceil(tiles / SMs) long
+        n_sm = _sm_count(dev)
+        smem = materialize_smem_bytes(K, d, ncov, T, True, -(-len(tj) // n_sm))
+        if smem > _SMEM_MAX:
+            raise ValueError(f"materialize: the moments' plan of {len(tj)} tiles needs "
+                             f"{smem} bytes of shared memory a CTA, over {_SMEM_MAX}")
+        grid = _k3_grid(True, K, smem, n_sm)
+        plan, start, span, rows = _k3_moments_plan(tj.tobytes(), nj, str(dev), groups, grid)
         Zo = moments.Z_orig.contiguous()
-        part = torch.empty((max(grid, 1), K, d + 1), dtype=_F32, device=dev)
+        part = torch.empty((rows, K, d + 1), dtype=_F32, device=dev)
         M = torch.empty((nj + 1, K, d + 1), dtype=_F32, device=dev)
-        ptrs = (Zo, chunks, part)
-    smem = materialize_smem_bytes(K, d, ncov, T, moments is not None)
+        ptrs = (Zo, plan, part)
     ptr = lambda t: None if t is None else t.data_ptr()
     _build.check(lib.k3_materialize(
-        Yt.data_ptr(), Zc.data_ptr(), codes.data_ptr(), off.data_ptr(), blk.data_ptr(),
-        pen_rows.data_ptr(), sig.data_ptr(), R.data_ptr(),
-        *[ptr(t) for t in ptrs], Np, cfg.N, K, d, B, ncov, T, grid, chunk, tw, d1p, smem,
-        stream,
+        G.data_ptr(), codes.data_ptr(), off.data_ptr(), blk.data_ptr(), pen_rows.data_ptr(),
+        sig.data_ptr(), R.data_ptr(), *[ptr(t) for t in ptrs], Np, N, K, d, B, ncov, T,
+        grid, span, tw, _kr(K), _d1p(d), groups, smem, stream,
     ), "k3_materialize")
     if M is not None:
         sum_joint_rows(part, start, M)
@@ -385,7 +487,7 @@ def permute_phase(
     Zf = Z.to(_F32).contiguous()
     rr = permute_rounds(cfg, Zf, Y.to(_F32), E.to(_F32), O.to(_F32), codes, Pr_b.to(_F32),
                         sigma.to(_F32), theta.to(_F32), perms)
-    R, M = materialize(cfg, Zf, Y.to(_F32), codes, sigma.to(_F32), rr.tables, moments)
+    R, M = materialize(cfg, Zf, Y.to(_F32), codes, sigma.to(_F32), rr.tables, moments, G=rr.G)
     return PermutePhaseResult(R=R, E=rr.E, O=rr.O, E_rounds=rr.E_rounds,
                               O_rounds=rr.O_rounds, kmeans_error=rr.kmeans_error,
                               entropy=rr.entropy, M=M)

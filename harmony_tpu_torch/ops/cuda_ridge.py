@@ -309,7 +309,6 @@ _TILED_SIGNATURES = {
     + [_build.PTR],
     "sum_joint_rows": [_build.PTR] * 3 + [_build.INT, _build.I64, _build.PTR],
 }
-_CHUNK_TILES = 8  # layout tiles of one joint level per K3 CTA (cuda_permute)
 _MAX_MT = 2  # K9: 4x4 register tiles a thread owns (kMaxMT in tiled.cu)
 _THREADS = 256
 # K8 (tiled.cu): cells of one joint level per CTA, the row stride of a
@@ -348,7 +347,7 @@ def tile_moments_twin(R, Z, tile: int, tile_joint, n_joint: int) -> torch.Tensor
 
 
 @functools.lru_cache(maxsize=8)
-def _moments_plan(tj_bytes: bytes, n_joint: int, device: str, chunk: int = _CHUNK_TILES
+def _moments_plan(tj_bytes: bytes, n_joint: int, device: str, chunk: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Chunks of up to ``chunk`` tiles of one joint level, joints in
     order and tiles ascending within a joint; (chunk tiles (n_chunks,

@@ -5,10 +5,11 @@ Counterpart of ``harmony_tpu/ops/pallas_rotate.py`` (``pallas_reassign``,
 ``pallas_materialize_r``), drop-ins for the plain versions in
 :mod:`harmony_tpu_torch.ops.rotate`. The CUDA source is ``csrc/rotate.cu``.
 
-* :func:`reassign` (K6): one C call, an assign launch over the padded
-  layout's 64-cell pieces and a reduction launch that builds tile_O, O
-  and E. It also returns the phase's Gram table G (L, K) = (Y^T Zn)^T,
-  which the phase's K7 rounds read instead of forming Y^T Z again.
+* :func:`reassign` (K6): one C call, an assign launch of persistent CTAs
+  over the padded layout's 64-cell pieces (:func:`reassign_plan`) and a
+  reduction launch over (tile, column chunk) that builds tile_O, O and E.
+  It also returns the phase's Gram table G (L, K) = (Y^T Zn)^T, which the
+  phase's K7 rounds read instead of forming Y^T Z again.
 * :func:`rotate_update_round_v2` (K7): a host loop over the blocks in the
   round's order, g read from ``layout.G``. One commit launch removes the
   first block's old O; then each block gets an assign launch over its
@@ -44,6 +45,7 @@ import torch
 from .. import _build
 from ..config import HarmonyConfig
 from . import rotate
+from .cuda_estep import _sm_count
 from .cuda_ridge import _ceil4, _table_on, sum_joint_rows
 from .rotate import CodesLayout, MomentsSpec, RoundState
 
@@ -56,7 +58,8 @@ _SIGNATURES = {
     "k7_commit": [_build.PTR, _build.INT, _build.INT, _build.INT, _build.INT,
                   _build.INT, _build.PTR, _build.PTR, _build.INT, _build.INT]
     + [_build.PTR] * 9 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [_build.PTR],
-    "k6_reassign": [_build.PTR] * 12 + [_build.I64] + [_build.INT] * 7 + [_build.PTR],
+    "k6_occupancy": [_build.INT],
+    "k6_reassign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 11 + [_build.PTR],
     "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 9
     + [_build.PTR],
     "k11_materialize_r": [_build.PTR] * 8 + [_build.I64] + [_build.INT] * 6 + [_build.PTR],
@@ -74,9 +77,44 @@ def assign_smem_bytes(K: int, d: int, B: int, ncov: int, moments: bool = False) 
     return 4 * floats
 
 
-def reassign_smem_bytes(K: int, d: int, B: int, ncov: int) -> int:
-    """Shared memory of one K6 assign CTA (layout in rotate.cu)."""
-    return 4 * (K * d + d * _CT + K * (_CT + 1) + K + K * B + _CT + ncov * _CT)
+_LP = _CT + 4  # kLP: the row stride of K6's (K8 x 64) table
+_SPLITS = (4, 2, 1)  # K6: cell splits of the design sums, the most that fit first
+
+
+def reassign_smem_bytes(K: int, d: int, B: int, ncov: int, splits: int) -> int:
+    """Shared memory of one K6 assign CTA with ``splits`` cell splits of
+    the design sums (layout in rotate.cu)."""
+    K8 = -(-K // 8) * 8
+    floats = (d * K8 + 2 * d * _CT + K8 * _LP + 2 * ncov * _CT + splits * K * B + 4 * _CT
+              + (K8 // 8 + 1) * _CT + K + ncov)
+    return 4 * floats
+
+
+def reassign_plan(K: int, d: int, B: int, ncov: int) -> Tuple[int, int]:
+    """(splits, shared memory bytes) of a K6 assign CTA: the most cell
+    splits (4, 2, 1) whose (cluster, split) threads a CTA's 256 hold and
+    whose tables fit; raises where one split does not fit."""
+    for h in _SPLITS:
+        smem = reassign_smem_bytes(K, d, B, ncov, h)
+        if (h == 1 or h * K <= 256) and smem <= _SMEM_MAX:
+            return h, smem
+    raise ValueError(f"reassign: K={K}, d={d}, B={B} need {smem} bytes of shared memory "
+                     f"a CTA, over the {_SMEM_MAX} a CTA may use")
+
+
+def reduce_chunks(K: int, B: int) -> int:
+    """Column chunks of K6's reduce: its grid is (tiles, chunks) CTAs of
+    256 threads, one (k, b) column a thread."""
+    return -(-K * B // 256)
+
+
+@functools.lru_cache(maxsize=16)
+def _k6_grid(smem: int, n_sm: int) -> int:
+    """The K6 assign CTAs the card holds at once."""
+    n = _build.load("rotate", _SIGNATURES).k6_occupancy(smem)
+    if n <= 0:
+        raise RuntimeError(f"k6_occupancy: K6 fits no CTA on an SM (CUDA error {-n})")
+    return n_sm * n
 
 
 def virtual_smem_bytes(K: int, d: int, B: int, ncov: int, correction: bool) -> int:
@@ -162,8 +200,11 @@ def reassign(
     K, B, T = cfg.K, cfg.B, cfg.estep_sub_tile
     NT = L // T
     dev = Z_raw.device
-    smem = reassign_smem_bytes(K, d, B, cfg.n_covariates)
-    _check_smem("reassign", cfg, smem)
+    if Z_raw.data_ptr() % 16 or codes_pad.data_ptr() % 16:
+        raise ValueError("reassign: Z_raw and codes_pad must start on 16-byte boundaries "
+                         "(the kernel copies 16 bytes at a time)")
+    splits, smem = reassign_plan(K, d, B, cfg.n_covariates)
+    grid = min(L // _CT, _k6_grid(smem, _sm_count(dev)))
     Yt = Y.t().contiguous()
     Zn = torch.empty_like(Z_raw)
     G = torch.empty((L, K), dtype=_F32, device=dev)
@@ -171,14 +212,17 @@ def reassign(
     tile_O = torch.empty((NT, K, B), dtype=_F32, device=dev)
     O = torch.empty((K, B), dtype=_F32, device=dev)
     E = torch.empty((K, B), dtype=_F32, device=dev)
+    # the reduce's arrival counts, zeroed by the assign launch
+    n_chunk = reduce_chunks(K, B)
+    count = torch.empty(n_chunk + 1, dtype=torch.int32, device=dev)
     lib = _build.load("rotate", _SIGNATURES)
     _build.check(lib.k6_reassign(
         Yt.data_ptr(), Z_raw.data_ptr(), codes_pad.data_ptr(),
         _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), sigma.data_ptr(),
         Pr_b.data_ptr(),
         Zn.data_ptr(), G.data_ptr(), part.data_ptr(), tile_O.data_ptr(), O.data_ptr(),
-        E.data_ptr(), L, NT, K, d, B, cfg.n_covariates, cfg.B_vec[0], smem,
-        torch.cuda.current_stream(dev).cuda_stream,
+        E.data_ptr(), count.data_ptr(), L, NT, K, d, B, cfg.n_covariates, cfg.B_vec[0],
+        -(-K // 8) * 8, splits, grid, n_chunk, smem, torch.cuda.current_stream(dev).cuda_stream,
     ), "k6_reassign")
     reassign.launches += 1
     return Zn, tile_O, O, E, G

@@ -15,9 +15,9 @@ assignments from the tables and removes them block by block, freezes each
 block's penalty, assigns and adds; R is materialised once at the end, in
 natural order, with pad cells exactly 0.
 
-:func:`permute_rounds` is the plain version of K2 (the head and the rounds) and
-:func:`materialize` of K3 (the final R, with the M-step's joint-batch
-moments when a :class:`MomentsSpec` is given);
+:func:`permute_rounds` is the plain version of K2 (the head and the rounds),
+which hands G on, and :func:`materialize` of K3 (the final R from G's rows,
+with the M-step's joint-batch moments when a :class:`MomentsSpec` is given);
 ``ops/cuda_permute.py`` holds the kernels. On the card this module is used
 only by the tests and ``chip_smoke.py``.
 
@@ -78,6 +78,7 @@ class RoundsResult(NamedTuple):
     kmeans_error: torch.Tensor
     entropy: torch.Tensor
     tables: PhaseTables
+    G: Optional[torch.Tensor] = None  # (N, K) the phase's distances, for materialize
 
 
 def slot_blocks(cfg: HarmonyConfig, device) -> torch.Tensor:
@@ -174,7 +175,7 @@ def permute_rounds(
         ent_st.append(torch.as_tensor(acc_e, dtype=_F32, device=dev))
     return RoundsResult(E=E_c, O=O_c, E_rounds=torch.stack(E_st), O_rounds=torch.stack(O_st),
                         kmeans_error=torch.stack(kerr_st), entropy=torch.stack(ent_st),
-                        tables=PhaseTables(pen=pen_prev, blk=blk_nat))
+                        tables=PhaseTables(pen=pen_prev, blk=blk_nat), G=G)
 
 
 def materialize(
@@ -185,15 +186,27 @@ def materialize(
     sigma: torch.Tensor,  # (K,)
     tables: PhaseTables,
     moments: Optional[MomentsSpec] = None,
+    G: Optional[torch.Tensor] = None,  # (N, K) the phase's distances
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The final round's R (K, Np) in natural order, pad cells 0, and with
-    ``moments`` the joint-batch moment table (plain K3)."""
+    ``moments`` the joint-batch moment table (plain K3). The distances are
+    G's rows, as the rounds read them; without G they are formed from Y
+    and Z."""
     from .cuda_ridge import tile_moments_twin
 
-    _, R1 = _softmax_head(Y.to(_F32).t(), Z.to(_F32), sigma.to(_F32))
-    R = _penalised(cfg, R1, tables.pen, tables.blk, codes)
-    if cfg.Np != cfg.N:
-        R[:, cfg.N :] = 0.0
+    K, N = sigma.shape[0], cfg.N
+    if G is None:
+        _, R1 = _softmax_head(Y.to(_F32).t(), Z.to(_F32), sigma.to(_F32))
+        R = _penalised(cfg, R1, tables.pen, tables.blk, codes)
+        if cfg.Np != N:
+            R[:, N:] = 0.0
+    else:
+        if G.shape != (N, K) or G.device != Z.device:
+            raise ValueError(f"materialize: G must be ({N}, {K}) on {Z.device}, got "
+                             f"{tuple(G.shape)} on {G.device}")
+        R1 = l1_normalize_columns(torch.exp(-G.to(_F32).t() / sigma.to(_F32)[:, None]))
+        R = torch.zeros((K, cfg.Np), dtype=_F32, device=Z.device)
+        R[:, :N] = _penalised(cfg, R1, tables.pen, tables.blk[:N], codes[:, :N])
     if moments is None:
         return R, None
     M = tile_moments_twin(R, moments.Z_orig.to(_F32), moments.tile, moments.tile_joint,
@@ -216,7 +229,7 @@ def permute_phase(
 ) -> PermutePhaseResult:
     """All of a clustering phase's rounds, R-gather-free, then R once."""
     rr = permute_rounds(cfg, Z, Y, E, O, codes, Pr_b, sigma, theta, perms)
-    R, M = materialize(cfg, Z, Y, codes, sigma, rr.tables, moments)
+    R, M = materialize(cfg, Z, Y, codes, sigma, rr.tables, moments, G=rr.G)
     return PermutePhaseResult(R=R, E=rr.E, O=rr.O, E_rounds=rr.E_rounds,
                               O_rounds=rr.O_rounds, kmeans_error=rr.kmeans_error,
                               entropy=rr.entropy, M=M)

@@ -189,8 +189,9 @@ def test_wrappers_run_the_twins_on_cpu_and_check_devices():
     ref = tpp.permute_rounds(ct, *targs)
     for a, b in zip(rr[:6], ref[:6]):
         assert torch.equal(a, b)
-    R, M = cuda_permute.materialize(ct, targs[0], targs[1], targs[4], targs[6], rr.tables)
-    R_ref, _ = tpp.materialize(ct, targs[0], targs[1], targs[4], targs[6], ref.tables)
+    R, M = cuda_permute.materialize(ct, targs[0], targs[1], targs[4], targs[6], rr.tables,
+                                    G=rr.G)
+    R_ref, _ = tpp.materialize(ct, targs[0], targs[1], targs[4], targs[6], ref.tables, G=ref.G)
     assert M is None and torch.equal(R, R_ref)
     out = cuda_permute.permute_phase(ct, *targs)
     assert torch.equal(out.R, R)

@@ -23,7 +23,14 @@ of its kernels (five calls, per call):
 * ``K2_phase_b40``: the same at segment-200k's shape, 200,000 x 50, K =
   100, 40 batches (seed 7).
 * ``K6``: one K6 call (``cuda_rotate.reassign``, seed 17, the cells in a
-  batch-tiled order), with its Gram table where the checkout stores one.
+  batch-tiled order), with its Gram table where the checkout stores one;
+  ``K6_random``: the same at ``chip_smoke.check_rotate``'s inputs (seed 11,
+  codes drawn at random).
+* ``K3``, ``K3_moments``: one K3 call (``cuda_permute.materialize``)
+  without and with the fused moments at ``chip_smoke.check_permute``'s
+  inputs (seed 15, the cells in a batch-tiled order, the tables of a
+  four-round K2 phase), reading the phase's distances where the
+  checkout's K3 takes them.
 * ``K7``, ``K7_write_r``, ``K7_last``: one K7 round on K6's outputs (g
   from K6's Gram table where the checkout has one) without writing R,
   writing R, and a phase's last round fusing the M-step's moments and
@@ -135,6 +142,36 @@ def rotate_calls():
             "K7_last": lambda: k7(*a7, write_r=False, moments=spec, emit_pen=True)}
 
 
+def k3_calls():
+    """K3 without and with the moments, as check_permute sets them up."""
+    from harmony_tpu_torch.ops import permute_phase as pp
+    from harmony_tpu_torch.ops.ridge import full_tile_joint
+    from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
+    N = 500_000
+    cfg, Z, Y, _, E, O, codes, Pr_b, sigma, theta, _ = cs.problem(
+        torch, N, 50, 100, (10,), 15, dev)
+    order, layout = build_batch_tiled_order(codes.cpu().numpy(), 256, 15)
+    order = torch.as_tensor(order, device=dev)
+    Z, codes = Z[:, order].contiguous(), codes[:, order].contiguous()
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    perms = torch.stack([torch.randperm(N, generator=g, device=dev) for _ in range(4)])
+    Zo = 2.0 * torch.randn(50, N, generator=g, device=dev)
+    spec = pp.MomentsSpec(Z_orig=Zo, tile_joint=full_tile_joint(cfg, layout),
+                          n_joint=int(layout.joint_codes.shape[1]), tile=256)
+    out = cuda_permute.permute_rounds(cfg, Z, Y, E, O, codes, Pr_b, sigma, theta, perms)
+    kw = {"G": out.G} if getattr(out, "G", None) is not None else {}
+    m = cuda_permute.materialize
+    return {"K3": lambda: m(cfg, Z, Y, codes, sigma, out.tables, **kw),
+            "K3_moments": lambda: m(cfg, Z, Y, codes, sigma, out.tables, spec, **kw)}
+
+
+def k6_random():
+    cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = cs.rotate_problem(
+        torch, 500_000, 50, 100, (10,), 11, dev)
+    return lambda: cuda_rotate.reassign(cfg, Y, sigma, Pr_b, Z, codes_pad)
+
+
 def k8_args():
     cfg, R, Z, tj, nj, W, layout = cs.tiled_problem(torch, 500_000, 50, 100, (10,), 256, 13,
                                                     dev)
@@ -197,7 +234,9 @@ def k1_phase():
 out = {}
 makers = [("K1", k1_call), ("K1_phase", k1_phase), ("K2_phase", k2_phase),
           ("K2_phase_b40", lambda: k2_phase(200_000, 40, 7)),
+          (("K3", "K3_moments"), k3_calls),
           (("K6", "K7", "K7_write_r", "K7_last"), rotate_calls),
+          ("K6_random", k6_random),
           ("K12", lambda: (lambda a: lambda: cuda_estep.rotate_update_round_v1(*a))(k12_args())),
           ("K8", lambda: (lambda a: lambda: cuda_ridge.tile_moments(*a))(k8_args())),
           (("K4", "K5"), lambda: ridge_calls("random")),
@@ -212,7 +251,8 @@ for names, make in makers:
               if not ENTRIES or n in ENTRIES]
 for name, call in calls:
     ms = cs.time_ms(torch, name, call,
-                    iters={"K8": 10, "K6": 10, "K1_phase": 2, "K2_phase": 2,
+                    iters={"K8": 10, "K6": 10, "K6_random": 10, "K3": 10, "K3_moments": 10,
+                           "K1_phase": 2, "K2_phase": 2,
                            "K2_phase_b40": 2}.get(name, 5))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
