@@ -24,7 +24,13 @@ Phases (``--phases`` picks a subset, comma-separated):
              and K11 also at K = d = 100; K1, K2, K3, K6 and K7 also at
              the segment paths' 40 batches, K2 and K3 also at 400
              batches and at K = 300); K11's R against the R K7 wrote in the
-             same round, K10 against K9 on that R; kernel, plain and
+             same round, K10 (reading K6's Gram table) against K9 on that
+             R; K9 and K10 twice bit-equal, K9 also on rows that are not a
+             multiple of 4 cells, with one staged slice of R (K = 400) and
+             past 256 dims; the correction's route without G and past
+             K10's limits (K = 300), K11 then K9, equal to K10; K10 with
+             one correction group (B = 100); K10's time beside K11 then
+             K9 on its R, the path it fuses; kernel, plain and
              library-call times (K1's and K2's a phase of rounds, per
              round: K1's with its scatter back to the cells' order, K2's
              with its head), the device time and achieved bytes a second
@@ -633,9 +639,11 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
     """A phase's last K7 round with the fused moments and the penalty
     tables (writing R and not), K10 and K11 against their plain versions
     on the same inputs, the cells in a batch-tiled order so the layout has
-    pure tiles. K11 from K7's tables must give back the R K7 wrote."""
+    pure tiles. K11 from K7's tables must give back the R K7 wrote. The
+    correction goes through the route the engine takes (K10 where it takes
+    the shape, else K11 then K9), and again without G (K11 then K9)."""
     from harmony_tpu_torch.ops import cuda_ridge, cuda_rotate, rotate
-    from harmony_tpu_torch.ops.ridge import full_tile_joint
+    from harmony_tpu_torch.ops.ridge import full_tile_joint, virtual_tile_correction
     from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
 
     cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = rotate_problem(
@@ -668,8 +676,24 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
     R11_ref = rotate.materialize_r(cfg, *vargs)
     W = 0.1 * torch.randn(nj + 1, d, K, generator=g, device=dev)
     W[nj] = 0.0
-    cargs = (cfg, W, tj, tile, *vargs, Zo)
-    Zc = cuda_rotate.virtual_correction(*cargs)
+    # K10 reads K6's G, as the engine hands it over from the phase; where
+    # K10 does not take K, d and B, the correction runs K11, then K9
+    cargs = (cfg, W, tj, tile, *vargs, Zo, G)
+    virt = rotate.VirtualR(pen=out.pen, blkmap=out.blkmap, Zn_pad=Zn, codes_pad=codes_pad, Y=Y,
+                           Z_orig_pad=Zo, sigma=sigma, G=G)
+    counts = (cuda_rotate.virtual_correction, cuda_rotate.materialize_r,
+              cuda_ridge.tiled_correction)
+
+    def routed(v):
+        before = [f.launches for f in counts]
+        z = virtual_tile_correction(cfg, W, tj, tile, v)
+        return z, [f.launches - b for f, b in zip(counts, before)]
+
+    k10_takes = cuda_rotate.k10_fits(cfg, d, Np // tile, dev)
+    Zc, route = routed(virt)
+    same10 = bool(torch.equal(Zc, routed(virt)[0]))
+    # a state without G (built from the JAX package's arrays): K11, then K9
+    Zc_nog, route_nog = routed(virt._replace(G=None))
     Zc_ref = rotate.virtual_correction(*cargs)
     Zc9 = cuda_ridge.tiled_correction(W, tj, out.R, Zo, tile)
     torch.cuda.synchronize()
@@ -690,8 +714,12 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
     log(f"  K11 max|dR|={e11:.3e} (atol {R_ATOL}), against K7's written R {e11_7:.3e} "
         f"(atol 1e-6; reads 0.0 when K6's G and K11's gram agree bit for bit: "
         f"{e11_7 == 0.0}); R column sums within {colsum:.2e} of 1")
-    log(f"  K10 max|dZ|={e10:.3e} rel {r10:.3e} (rtol {SUM_RTOL}); against K9 on K7's R "
-        f"max|dZ|={e10_9:.3e} (atol 1e-6)")
+    e_nog = float((Zc_nog - Zc).abs().max())
+    log(f"  K10 (K10, K11, K9 launches {route}; K10 takes the shape: {k10_takes}) "
+        f"max|dZ|={e10:.3e} rel {r10:.3e} (rtol {SUM_RTOL}); against K9 on K7's R "
+        f"max|dZ|={e10_9:.3e} (atol 1e-6; 0.0 when both take the same bits of R: "
+        f"{e10_9 == 0.0}); repeat bit-equal {same10}; without G (launches {route_nog}) "
+        f"max|dZ|={e_nog:.3e} (atol 1e-6)")
     require(e7 <= R_ATOL, f"K7 (last round) R disagrees: {e7}")
     for k, v in errs7.items():
         require(v <= SUM_RTOL, f"K7 (last round) {k} disagrees: {v}")
@@ -702,6 +730,11 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
     require(colsum <= 1e-4, f"K11 R columns do not sum to 1: {colsum}")
     require(r10 <= SUM_RTOL, f"K10 disagrees: {r10}")
     require(e10_9 <= 1e-6, f"K10 is not K9 on the R K7 wrote: {e10_9}")
+    require(same10, "K10 repeats differ")
+    require(route == ([1, 0, 0] if k10_takes else [0, 1, 1]),
+            f"the correction took launches {route} (K10 takes the shape: {k10_takes})")
+    require(route_nog == [0, 1, 1], f"the correction without G took launches {route_nog}")
+    require(e_nog <= 1e-6, f"the correction without G disagrees: {e_nog}")
     k7m = {"max_abs_err_moments": max(e7, errs7["M"])}
     k10, k11 = {"max_abs_err": e10}, {"max_abs_err": max(e11, e11_7)}
     k6 = {}
@@ -729,6 +762,11 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
         k10["ms"] = time_ms(torch, "K10 kernel", lambda: cuda_rotate.virtual_correction(*cargs))
         k10["plain_ms"] = time_ms(torch, "K10 plain",
                                   lambda: rotate.virtual_correction(*cargs), iters=3)
+        # the path K10 fuses: K11 writes R, K9 corrects on it; no single
+        # PyTorch call computes K10's function
+        k10["unfused_ms"] = time_ms(torch, "K11, then K9 on its R", lambda: (
+            cuda_ridge.tiled_correction(W, tj, cuda_rotate.materialize_r(cfg, *vargs), Zo,
+                                        tile)))
         k10["library_ms"] = None
         # Zn, the codes and Z_orig read once, Z_corr written once; the
         # distances and the correction only on the cells of pure layout
@@ -830,6 +868,7 @@ def check_tiled(torch, dev, N, d, K, B_vec, tile, seed, timed):
     M = cuda_ridge.tile_moments(R, Z, tile, tj, nj)
     M_ref = cuda_ridge.tile_moments_twin(R, Z, tile, tj, nj)
     Zc = cuda_ridge.tiled_correction(W, tj, R, Z, tile)
+    same9 = bool(torch.equal(Zc, cuda_ridge.tiled_correction(W, tj, R, Z, tile)))
     Zc_ref = cuda_ridge.tiled_correction_twin(W, tj, R, Z, tile)
     torch.cuda.synchronize()
     e8, e9 = float((M - M_ref).abs().max()), float((Zc - Zc_ref).abs().max())
@@ -837,14 +876,22 @@ def check_tiled(torch, dev, N, d, K, B_vec, tile, seed, timed):
     log(f"  K8 N={N} (Np={cfg.Np}) d={d} K={K} B_vec={B_vec} tile={tile}, {nj} joint "
         f"levels, {layout.n_pure} cells in pure tiles: max|dM|={e8:.3e} rel {r8:.3e} "
         f"(rtol {SUM_RTOL})")
-    log(f"  K9 same inputs: max|dZ|={e9:.3e} rel {r9:.3e} (rtol {SUM_RTOL})")
+    log(f"  K9 same inputs (slices staged, threads, shared memory: "
+        f"{cuda_ridge.k9_plan(K, d)}): max|dZ|={e9:.3e} rel {r9:.3e} (rtol {SUM_RTOL}); "
+        f"repeat bit-equal {same9}")
+    require(same9, "K9 repeats differ")
     if not timed:
-        # a cell axis that is not a multiple of 4: K8 copies 4 bytes at a time
+        # a cell axis that is not a multiple of 4, the last tile partial: K8
+        # and K9 copy 4 bytes at a time, K9 loads and stores Z as scalars
         Ro, Zo = R[:, :-1].contiguous(), Z[:, :-1].contiguous()
         r8o = rel_err(cuda_ridge.tile_moments(Ro, Zo, tile, tj, nj),
                       cuda_ridge.tile_moments_twin(Ro, Zo, tile, tj, nj))
-        log(f"  K8 at {cfg.Np - 1} cells (unaligned rows): rel {r8o:.3e} (rtol {SUM_RTOL})")
+        r9o = rel_err(cuda_ridge.tiled_correction(W, tj, Ro, Zo, tile),
+                      cuda_ridge.tiled_correction_twin(W, tj, Ro, Zo, tile))
+        log(f"  K8 and K9 at {cfg.Np - 1} cells (unaligned rows): rel {r8o:.3e} and "
+            f"{r9o:.3e} (rtol {SUM_RTOL})")
         require(r8o <= SUM_RTOL, f"K8 disagrees on unaligned rows: {r8o}")
+        require(r9o <= SUM_RTOL, f"K9 disagrees on unaligned rows: {r9o}")
     require(r8 <= SUM_RTOL, f"K8 disagrees: {r8}")
     require(r9 <= SUM_RTOL, f"K9 disagrees: {r9}")
     k8, k9 = {"max_abs_err": e8}, {"max_abs_err": e9}
@@ -1437,11 +1484,19 @@ def main(argv=None) -> int:
         # wide: more 4x4 tiles of the (K, d+1) table than a CTA has threads
         check_virtual(torch, dev, 20_000, 100, 100, (B_MAIN,), 19, False)
         check_virtual(torch, dev, 200_000, D_MAIN, K_MAIN, (B_SEGMENT,), 8, False)
+        # K10 with one correction group where two do not fit (B = 100); past
+        # its 256 clusters the correction runs K11, then K9
+        check_virtual(torch, dev, 20_000, D_MAIN, K_MAIN, (100,), 20, False)
+        check_virtual(torch, dev, 20_000, D_MAIN, 300, (B_MAIN,), 21, False)
         k8, k9 = check_tiled(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 256, 13, True)
         kernels["K8"].update(k8)
         kernels["K9"].update(k9)
         # ragged: two covariates, a mixed tail after the pure tiles, pads
         check_tiled(torch, dev, 30_011, 13, 7, (3, 4), 128, 14, False)
+        # K9 with one slice of R where two do not fit beside the betas, and
+        # past 256 dims (a thread takes its 4-dim tiles in turn)
+        check_tiled(torch, dev, 20_000, D_MAIN, 400, (B_MAIN,), 256, 24, False)
+        check_tiled(torch, dev, 20_000, 300, 50, (B_MAIN,), 256, 25, False)
         kernels["K12"].update(check_rotate_v1(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 22,
                                               True))
         # ragged: two covariates, N not a multiple of the tile, pad cells

@@ -51,7 +51,10 @@
 // layout tile with R recomputed from the last round's penalty tables and
 // its tile -> block map, so R is never read. Bound: Zn and Z_orig read and
 // Z_corr written once (0.3 GB, 90 us); the distances and the correction
-// are 2*K*d*N each, 10 GFLOP (0.15 ms): operations-bound.
+// are 2*K*d*N each, 10 GFLOP (0.15 ms): operations-bound. This design
+// forms no distances: it reads the phase's G (K6's, 0.2 GB, kept on the
+// state until the correction), so it moves 0.5 GB (0.15 ms) and does the
+// correction's 5 GFLOP (75 us).
 // K11 replaces _materialize_r_kernel (:1621), reached through
 // pallas_materialize_r (:1648): the run-end R from the same tables. Bound:
 // R written once and Zn read once (0.3 GB, 90 us) against 5 GFLOP (75
@@ -90,18 +93,25 @@
 // laid out joint by joint). No float atomics anywhere, so repeated runs
 // give the same trajectory.
 // K6 is (a) without the penalty over persistent CTAs (see its kernel),
-// plus a reduction kernel that builds tile_O, O and E. K10 and K11 are (a)
-// over the whole padded layout, each CTA taking its penalty table from its
-// tile's block.
+// plus a reduction kernel that builds tile_O, O and E. K11 is (a) over the
+// whole padded layout, each CTA taking its penalty table from its tile's
+// block. K10 gives each persistent CTA an equal range of the layout
+// tiles in K8's plan order (tiled.cu), a joint's betas staged once where
+// its run starts, and splits its warps into a chain role and correction
+// groups that hand R tables over at named barriers (see its kernel). It
+// takes K <= 256 (a lane's registers), d <= 192 and one correction
+// group's shared memory; past those, and without G, the correction runs
+// K11, then K9 on its R (ops/ridge.py virtual_tile_correction).
 //
 // Bit-equal recomputation. K7's written R, the R K10 recomputes and K11's
 // R must be the same bits per cell (the property of pallas_rotate.py:
-// 1436-1441). K10 and K11 compute g with gram on the phase's stored Zn, K6
-// computed G on the same Zn values with gram's fixed fmaf sequence over e =
-// 0..d-1 per output (in register tiles), so g has the same bits in all
-// three; then all
-// three call one routine, assign_chain, and every product that feeds a sum
-// or R is __fmul_rn, so no kernel lets the compiler contract it into an FMA
+// 1436-1441). K7 and K10 read g from K6's G; K11 computes it with gram on
+// the phase's stored Zn, and K6 computed G on the same Zn values with
+// gram's fixed fmaf sequence over e = 0..d-1 per output (in register
+// tiles), so g has the same bits in all three. Then K7 and K11 call one
+// routine, assign_chain, and K10 runs its per-cell operations in its
+// order four cells at a time; every product that feeds a sum or R is
+// __fmul_rn, so no kernel lets the compiler contract it into an FMA
 // differently.
 
 #include <cuda_runtime.h>
@@ -116,6 +126,9 @@ constexpr int kCT = 64;  // cells per piece
 constexpr int kTP = kCT + 1;
 constexpr int kLP = kCT + 4;  // K6's (K8 x 64) table: a row is 17 float4s (odd), so
                               // float4 columns are read and written without conflicts
+constexpr int kVThreads = 512;          // K10: one CTA a SM
+constexpr int kVCells = 64;             // K10: cells a step
+constexpr int kVLP = kVCells + 4;       // K10's (K x 64) R table: a row is 17 float4s
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -237,8 +250,9 @@ __device__ __forceinline__ void stage_cells(const float* Z, const int* codes,
   stage_codes(codes, offsets, gcs, L, base, ncov);
 }
 
-// The assignment chain of K7, K10 and K11 for the piece whose g = Y^T z
-// is in Ls (K7: from K6's G; K10 and K11: gram), per cell (one warp a
+// The assignment chain of K7 and K11 (K10 runs its operations four
+// cells at once) for the piece whose g = Y^T z is in Ls (K7: from K6's
+// G; K11: gram), per cell (one warp a
 // column, lanes over clusters) w = exp((g - 1) 2/sigma) * pc with pc the
 // penalty summed over the cell's covariates (0 on pad cells), and R = w *
 // (1 / colsum(w)), the sum guarded against zero; R overwrites Ls. With
@@ -594,7 +608,7 @@ __global__ void __launch_bounds__(kThreads) rot_commit_kernel(
 // order), Zn stored; g = Y^T zn with a 4-cell x 8-cluster register tile a
 // thread (one float4 of zn and two of Y^T per 32 FMAs), each output
 // acc = fmaf(y, z, acc) over e = 0..d-1 from 0, gram's sequence, so G has
-// the bits K10 and K11 recompute. The tile's epilogue stores its rows of G
+// the bits K11 recomputes. The tile's epilogue stores its rows of G
 // from the registers, takes w = exp((g - 1) 2/sigma) on valid cells and
 // its partial column sums (a table of ceil(K/8) x 64, summed per cell in
 // tile order). The (K x B) design sums of R = w / colsum: thread (k, h)
@@ -861,9 +875,8 @@ __global__ void __launch_bounds__(kThreads) reassign_reduce_kernel(
 
 // ---- K10 / K11 ---------------------------------------------------------
 
-// Stages what the virtual kernels share for the piece at base: Y^T, the
-// penalty table of its tile's block, sigma and 2/sigma, its Zn columns
-// and codes.
+// Stages what K11 needs for the piece at base: Y^T, the penalty table of
+// its tile's block, sigma and 2/sigma, its Zn columns and codes.
 __device__ __forceinline__ void stage_virtual(
     const float* Yt, const float* Zn, const int* codes, const int* offsets,
     const float* pen, const int* blkmap, const float* sigma, float* Ys, float* Zs,
@@ -880,82 +893,279 @@ __device__ __forceinline__ void stage_virtual(
   stage_cells(Zn, codes, offsets, Zs, gcs, L, base, d, ncov);
 }
 
-// K10, CTA c over cells [c*64, +64) of the padded layout, which lie in one
-// layout tile of joint jt = tj[c*64 / tw]. A trash-tile CTA copies Z_orig
-// through (the trash betas are zero). Otherwise: R by assign_chain, the
-// joint's betas (K x d, transposed) in shared memory, and W R one 4x4 (dim
-// x cell) register tile at a time, subtracted from Z_orig.
-__global__ void __launch_bounds__(kThreads) virtual_correction_kernel(
-    const float* __restrict__ Yt, const float* __restrict__ Zn,
-    const int* __restrict__ codes, const int* __restrict__ offsets,
-    const float* __restrict__ pen, const int* __restrict__ blkmap,
-    const float* __restrict__ sigma,
-    const float* __restrict__ Wt,      // (n_joint + 1, K, d) betas, transposed
+// K10's chain of four of a step's cells, t0..t0+3, for one warp, lanes
+// over clusters k = lane + 32 j: per cell assign_chain's operations in its
+// order (so K7's R bit for bit), the four cells interleaved so that their
+// latencies overlap. The penalties come first, for all four cells (pc = 0
+// + the table entries of the cell's batch rows, covariate by covariate),
+// so no cell's table lookups wait on another's. R goes into the (K x 64)
+// table Lh as one float4 of the four cells a cluster.
+template <int KJ>
+__device__ __forceinline__ void v_chain(const float* Gc, const float* pt, const int* gc,
+                                        float* Lh, const float (&i2s)[KJ], int t0, int K,
+                                        int B, int ncov) {
+  constexpr int NC = 4;
+  const int lane = threadIdx.x & 31;
+  float v[NC][KJ], cs[NC];
+  int b[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) b[c] = gc[t0 + c];
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      v[c][j] = 0.f;
+      if (lane + 32 * j < K && b[c] >= 0) v[c][j] = 0.f + pt[(lane + 32 * j) * B + b[c]];
+    }
+  for (int cv = 1; cv < ncov; ++cv) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) b[c] = gc[cv * kVCells + t0 + c];
+#pragma unroll
+    for (int j = 0; j < KJ; ++j)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        if (lane + 32 * j < K && b[c] >= 0) v[c][j] += pt[(lane + 32 * j) * B + b[c]];
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) cs[c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const int k = lane + 32 * j;
+    if (k < K)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        v[c][j] = __fmul_rn(expf(__fmul_rn(Gc[(t0 + c) * K + k] - 1.f, i2s[j])), v[c][j]);
+        cs[c] += v[c][j];
+      }
+  }
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) cs[c] += __shfl_xor_sync(0xffffffffu, cs[c], o);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) cs[c] = 1.f / (cs[c] == 0.f ? 1.f : cs[c]);
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const int k = lane + 32 * j;
+    if (k < K)
+      *reinterpret_cast<float4*>(Lh + k * kVLP + t0) =
+          make_float4(__fmul_rn(v[0][j], cs[0]), __fmul_rn(v[1][j], cs[1]),
+                      __fmul_rn(v[2][j], cs[2]), __fmul_rn(v[3][j], cs[3]));
+  }
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// K10's named barriers (0 is __syncthreads): the chain's warps, each
+// correction group's warps, and per R table b, full (chain -> correction)
+// and empty (correction -> chain).
+constexpr int kBarChain = 1, kBarGroup = 2, kBarFull = 4, kBarEmpty = 7;
+
+// K10: a persistent CTA of 512 threads a SM takes an equal range of the
+// layout tiles in K8's plan order (joint by joint), 64-cell steps, its
+// warps in roles that meet at named barriers, so no role waits on
+// another's step. The chain's warps start step s+1's copies (cp.async: the
+// cells' rows of the phase's G, one contiguous span; the penalty table of
+// their tile's block; their codes), then run step s's chain (v_chain, four
+// cells a warp at a time) into R table s mod (ng + 1) once its last reader
+// is done with it, and mark it full. The correction takes ng groups of the
+// first warps (two where both leave the chain eight warps, d <= 64, and
+// their betas and R tables fit, else one; cuda_rotate.virtual_plan), group
+// g the steps s = g mod ng, so a group has ng steps' time for its own and
+// each scheduler holds ng of its warps; thread (tb, eb) of a group owns a
+// 4-dim x 8-cell register tile, cells 4tb..4tb+3 and 32+4tb..32+4tb+3 (so
+// eight lanes read 128 contiguous bytes of a row of R: no bank
+// conflicts), one float4 of betas and two of R a cluster for 32 FMAs,
+// acc = fmaf(w, r, acc) over k = 0..K-1 from 0 (K9's sequence), its
+// Z_orig loaded as float4s before the product and Z_corr stored as float4s;
+// then it marks the table empty. A group stages a joint's betas into its
+// own buffer where the joint starts among its steps (once or twice a
+// range). A trash step copies Z_orig through (its betas are zero). The
+// chain and the correction share the SM's instruction slots and shared-memory
+// loads, so they overlap only in part.
+template <int KJ>
+__global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
+    const float* __restrict__ G,       // (L, K) the phase's Gram table (K6)
+    const int* __restrict__ codes,     // (ncov, L), pads < 0
+    const int* __restrict__ offsets,   // (ncov,)
+    const float* __restrict__ pen,     // (nb, K, B) the last round's block tables
+    const int* __restrict__ blkmap,    // (L / T,) block of each physical tile
+    const float* __restrict__ sigma,   // (K,)
+    const float* __restrict__ Wj,      // (n_joint + 1, d, K) betas
+    const int* __restrict__ order,     // (n,) the plan's layout tiles, joint by joint
     const int* __restrict__ tj,        // (L / tw,) joint of each layout tile
     const float* __restrict__ Zo,      // (d, L)
     float* __restrict__ Zc,            // (d, L) out
-    long long L, int T, int tw, int trash, int K, int d, int B, int ncov, int dp) {
-  extern __shared__ float smem[];
-  float* Ws = smem;             // K*dp
-  float* Ys = Ws + K * dp;      // K*d
-  float* Zs = Ys + K * d;       // d*kCT
-  float* Ls = Zs + d * kCT;     // K*kTP
-  float* pens = Ls + K * kTP;   // K*B
-  float* sig = pens + K * B;    // K
-  float* i2s = sig + K;         // K
-  int* gcs = reinterpret_cast<int*>(i2s + K);  // ncov*kCT
-  const int tid = threadIdx.x;
-  const long long base = static_cast<long long>(blockIdx.x) * kCT;
-  const int jt = tj[base / tw];
-  if (jt == trash) {
-    for (int i = tid; i < d * kCT; i += kThreads) {
-      const int e = i / kCT, u = i - e * kCT;
-      Zc[e * L + base + u] = Zo[e * L + base + u];
+    long long L, int n, int span, int T, int tw, int trash, int K, int d, int dp, int B,
+    int ncov, int ng) {
+  extern __shared__ __align__(16) float smem[];
+  const int neb = (d + 3) / 4;
+  const int cw = (8 * neb + 31) / 32;              // a correction group's warps
+  const int nbuf = ng + 1;                         // R tables
+  const int KBp = (K * B + 3) / 4 * 4;
+  float* Ws = smem;                      // ng*K*dp: each group's betas
+  float* Gs = Ws + ng * K * dp;          // 2*kVCells*K: the steps' rows of G
+  float* Ls = Gs + 2 * kVCells * K;      // nbuf*K*kVLP: the steps' R, cluster-major
+  float* pens = Ls + nbuf * K * kVLP;    // 2*KBp: the steps' block tables
+  int* gcs = reinterpret_cast<int*>(pens + 2 * KBp);  // 2*ncov*kVCells global batch rows
+  int* pl = gcs + 2 * ncov * kVCells;    // 3*span: the range's tiles, joints, blocks
+  int* offs = pl + 3 * span;             // ncov
+  const int tid = threadIdx.x, w = tid >> 5;
+  constexpr int kQ = kVCells / 4;  // float4s of a step's row
+  const int lo = static_cast<int>(static_cast<long long>(blockIdx.x) * n / gridDim.x);
+  const int nt = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * n / gridDim.x) - lo;
+  for (int i = tid; i < nt; i += kVThreads) {
+    const int t = order[lo + i];
+    pl[i] = t;
+    pl[span + i] = tj[t];
+    pl[2 * span + i] = blkmap[static_cast<long long>(t) * tw / T];
+  }
+  if (tid < ncov) offs[tid] = offsets[tid];
+  __syncthreads();  // the range's plan is in
+  const int spt = tw / kVCells;
+  const int ns = nt * spt;
+  const int nT = 32 * cw, nC = kVThreads - ng * nT;
+  auto base = [&](int s) {
+    return static_cast<long long>(pl[s / spt]) * tw + (s % spt) * kVCells;
+  };
+  auto joint = [&](int s) { return pl[span + s / spt]; };
+
+  if (w >= ng * cw) {
+    // ---- the chain's warps ----
+    const int ct = tid - ng * nT, wc = w - ng * cw, nwc = nC / 32, lane = tid & 31;
+    float i2s[KJ];
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) i2s[j] = lane + 32 * j < K ? 2.f / sigma[lane + 32 * j] : 0.f;
+    auto stage = [&](int s, int h) {
+      if (s >= ns || joint(s) == trash) return;
+      const long long b0 = base(s);
+      const float* src = G + b0 * K;  // 16-byte aligned: b0 is a multiple of 64
+      float* gd = Gs + h * kVCells * K;
+      for (int i = ct; i < kVCells * K / 4; i += nC) cp_async16(gd + 4 * i, src + 4 * i);
+      const float* pb = pen + static_cast<long long>(pl[2 * span + s / spt]) * K * B;
+      float* pd = pens + h * KBp;
+      for (int i = ct; i < K * B; i += nC) cp_async4(pd + i, pb + i);
+      int* cd = gcs + h * ncov * kVCells;
+      for (int i = ct; i < ncov * kQ; i += nC) {
+        const int c = i / kQ, q = i - c * kQ;
+        cp_async16(cd + c * kVCells + 4 * q, codes + c * L + b0 + 4 * q);
+      }
+    };
+    stage(0, 0);
+    cp_async_commit();
+    for (int s = 0; s < ns; ++s) {
+      const int h = s & 1, b = s % nbuf;
+      const bool live = joint(s) != trash;
+      cp_async_wait<0>();
+      if (live) {
+        // the codes this thread copied, made global batch rows (-1 on pads)
+        int* cd = gcs + h * ncov * kVCells;
+        for (int i = ct; i < ncov * kQ; i += nC) {
+          const int c = i / kQ, o = offs[c];
+          int4* p = reinterpret_cast<int4*>(cd + c * kVCells + 4 * (i - c * kQ));
+          int4 v = *p;
+          v.x = v.x >= 0 ? v.x + o : -1;
+          v.y = v.y >= 0 ? v.y + o : -1;
+          v.z = v.z >= 0 ? v.z + o : -1;
+          v.w = v.w >= 0 ? v.w + o : -1;
+          *p = v;
+        }
+      }
+      bar_sync(kBarChain, nC);  // step s's inputs are in; step s-1's are free
+      stage(s + 1, h ^ 1);
+      cp_async_commit();
+      if (s >= nbuf) bar_sync(kBarEmpty + b, nC + nT);  // step s - nbuf's correction is done
+      if (live) {
+        const float* Gc = Gs + h * kVCells * K;
+        const float* pt = pens + h * KBp;
+        const int* gc = gcs + h * ncov * kVCells;
+        float* Lh = Ls + b * K * kVLP;
+        for (int g = wc; g < kVCells / 4; g += nwc)
+          v_chain<KJ>(Gc, pt, gc, Lh, i2s, 4 * g, K, B, ncov);
+      }
+      bar_arrive(kBarFull + b, nC + nT);
     }
+    cp_async_wait<0>();
     return;
   }
-  const float* W = Wt + static_cast<long long>(jt) * K * d;
-  for (int i = tid; i < K * dp; i += kThreads) {
-    const int k = i / dp, e = i - k * dp;
-    Ws[i] = e < d ? W[k * d + e] : 0.f;
-  }
-  stage_virtual(Yt, Zn, codes, offsets, pen, blkmap, sigma, Ys, Zs, pens, sig, i2s, gcs,
-                L, base, T, K, d, B, ncov);
-  __syncthreads();
-  gram(Ys, Zs, Ls, K, d);
-  __syncthreads();
-  float unused0 = 0.f, unused1 = 0.f;
-  assign_chain<false>(Ls, pens, nullptr, sig, i2s, gcs, K, B, ncov, unused0, unused1);
-  __syncthreads();
-  const int neb = (d + 3) / 4;
-  constexpr int ntb = kCT / 4;
-  for (int mt = tid; mt < neb * ntb; mt += kThreads) {
-    const int eb = mt / ntb, tb = mt - eb * ntb;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float4 wq = *reinterpret_cast<const float4*>(Ws + k * dp + 4 * eb);
-      const float wv[4] = {wq.x, wq.y, wq.z, wq.w};
-      const float* lr = Ls + k * kTP + 4 * tb;
-      const float rv[4] = {lr[0], lr[1], lr[2], lr[3]};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(wv[i], rv[jj], acc[i][jj]);
+
+  // ---- a correction group ----
+  const int grp = w / cw, gt = tid - grp * nT;
+  const bool owns = gt < 8 * neb;
+  const int tb = gt & 7, eb = gt >> 3;
+  float* Wg = Ws + grp * K * dp;
+  int held = -1;  // the joint whose betas are in Wg
+  for (int s = grp; s < ns; s += ng) {
+    const int b = s % nbuf, jt = joint(s);
+    bar_sync(kBarFull + b, nC + nT);  // step s's R is in Ls[b]
+    if (jt != trash && jt != held) {
+      // the joint's betas, once every thread of the group is done with the
+      // last, transposed into (K x dp) as they come in (the columns past d
+      // are never stored from)
+      bar_sync(kBarGroup + grp, nT);
+      const float* src = Wj + static_cast<long long>(jt) * d * K;
+      for (int i = gt; i < d * K; i += nT) {
+        const int e = i / K;
+        cp_async4(Wg + (i - e * K) * dp + e, src + i);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      bar_sync(kBarGroup + grp, nT);
+      held = jt;
     }
+    const long long b0 = base(s);
+    if (jt == trash) {
+      for (int x = gt; x < d * kQ; x += nT) {
+        const int e = x / kQ;
+        const long long o = e * L + b0 + 4 * (x - e * kQ);
+        *reinterpret_cast<float4*>(Zc + o) = *reinterpret_cast<const float4*>(Zo + o);
+      }
+    } else if (owns) {
+      float4 z[4][2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = 4 * eb + i;
-      if (e >= d) break;
+      for (int ii = 0; ii < 4; ++ii) {
+        const int e = 4 * eb + ii;
+        if (e >= d) continue;
+        const float* zp = Zo + e * L + b0 + 4 * tb;
+        z[ii][0] = *reinterpret_cast<const float4*>(zp);
+        z[ii][1] = *reinterpret_cast<const float4*>(zp + 32);
+      }
+      float acc[4][8];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const long long n = base + 4 * tb + jj;
-        Zc[e * L + n] = Zo[e * L + n] - acc[i][jj];
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[ii][j] = 0.f;
+      const float* Wp = Wg + 4 * eb;
+      const float* Rp = Ls + b * K * kVLP + 4 * tb;
+#pragma unroll 4
+      for (int k = 0; k < K; ++k) {
+        const float4 wq = *reinterpret_cast<const float4*>(Wp + k * dp);
+        const float4 ra = *reinterpret_cast<const float4*>(Rp + k * kVLP);
+        const float4 rb = *reinterpret_cast<const float4*>(Rp + k * kVLP + 32);
+        const float wv[4] = {wq.x, wq.y, wq.z, wq.w};
+        const float rv[8] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w};
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[ii][j] = fmaf(wv[ii], rv[j], acc[ii][j]);
+      }
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const int e = 4 * eb + ii;
+        if (e >= d) continue;
+        float4* op = reinterpret_cast<float4*>(Zc + e * L + b0 + 4 * tb);
+        op[0] = make_float4(z[ii][0].x - acc[ii][0], z[ii][0].y - acc[ii][1],
+                            z[ii][0].z - acc[ii][2], z[ii][0].w - acc[ii][3]);
+        op[8] = make_float4(z[ii][1].x - acc[ii][4], z[ii][1].y - acc[ii][5],
+                            z[ii][1].z - acc[ii][6], z[ii][1].w - acc[ii][7]);
       }
     }
+    if (s + nbuf < ns) bar_arrive(kBarEmpty + b, nC + nT);  // Ls[b] is free for step s+nbuf
   }
 }
 
@@ -992,6 +1202,21 @@ __global__ void __launch_bounds__(kThreads) materialize_r_kernel(
 int set_smem(const void* kernel, int bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+// K10 with KJ cluster values a lane (1, 2, 4 or 8: K <= 256).
+template <int KJ>
+int k10_launch(const float* G, const int* codes, const int* offsets, const float* pen,
+               const int* blkmap, const float* sigma, const float* Wj, const int* order,
+               const int* tj, const float* Zo, float* Zc, long long L, int n, int span, int T,
+               int tw, int trash, int K, int d, int dp, int B, int ncov, int ng, int grid,
+               int smem_bytes, cudaStream_t st) {
+  int err = set_smem(reinterpret_cast<const void*>(virtual_correction_kernel<KJ>), smem_bytes);
+  if (err) return err;
+  virtual_correction_kernel<KJ><<<grid, kVThreads, smem_bytes, st>>>(
+      G, codes, offsets, pen, blkmap, sigma, Wj, order, tj, Zo, Zc, L, n, span, T, tw, trash,
+      K, d, dp, B, ncov, ng);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1094,23 +1319,23 @@ int k6_reassign(const void* Yt, const void* Z, const void* codes,
   return static_cast<int>(cudaGetLastError());
 }
 
-int k10_virtual_correction(const void* Yt, const void* Zn, const void* codes,
-                           const void* offsets, const void* pen, const void* blkmap,
-                           const void* sigma, const void* Wt, const void* tj,
-                           const void* Zo, void* Zc, long long L, int T, int tw, int trash,
-                           int K, int d, int B, int ncov, int dp, int smem_bytes,
-                           void* stream) {
-  int err = set_smem(reinterpret_cast<const void*>(virtual_correction_kernel), smem_bytes);
-  if (err) return err;
-  virtual_correction_kernel<<<static_cast<unsigned>(L / kCT), kThreads, smem_bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(Yt), static_cast<const float*>(Zn),
-      static_cast<const int*>(codes), static_cast<const int*>(offsets),
-      static_cast<const float*>(pen), static_cast<const int*>(blkmap),
-      static_cast<const float*>(sigma), static_cast<const float*>(Wt),
-      static_cast<const int*>(tj), static_cast<const float*>(Zo), static_cast<float*>(Zc),
-      L, T, tw, trash, K, d, B, ncov, dp);
-  return static_cast<int>(cudaGetLastError());
+// K10 over the plan's order (n layout tiles of tw cells) in grid equal
+// ranges of at most span tiles.
+int k10_virtual_correction(const void* G, const void* codes, const void* offsets,
+                           const void* pen, const void* blkmap, const void* sigma,
+                           const void* Wj, const void* order, const void* tj, const void* Zo,
+                           void* Zc, long long L, int n, int span, int T, int tw, int trash,
+                           int K, int d, int dp, int B, int ncov, int ng, int grid,
+                           int smem_bytes, void* stream) {
+  auto launch = K <= 32 ? k10_launch<1> : K <= 64 ? k10_launch<2> : K <= 128 ? k10_launch<4>
+                                                                             : k10_launch<8>;
+  return launch(static_cast<const float*>(G), static_cast<const int*>(codes),
+                static_cast<const int*>(offsets), static_cast<const float*>(pen),
+                static_cast<const int*>(blkmap), static_cast<const float*>(sigma),
+                static_cast<const float*>(Wj), static_cast<const int*>(order),
+                static_cast<const int*>(tj), static_cast<const float*>(Zo),
+                static_cast<float*>(Zc), L, n, span, T, tw, trash, K, d, dp, B, ncov, ng,
+                grid, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 int k11_materialize_r(const void* Yt, const void* Zn, const void* codes,

@@ -37,18 +37,39 @@
 // (:254), reached through pallas_tiled_correction (:275):
 //   Z_corr[:, t] = Z[:, t] - W_joint[j(t)] R_t, the trash row being zero.
 // Bound: R and Z read once, Z_corr written once, 0.4 GB (120 us); K*d*N
-// = 2.5 GFLOP. Design: one CTA per 64 cells (a tile is tile/64 CTAs)
-// stages its joint's betas (K x d, transposed) and its R columns in shared
-// memory; each thread owns up to kMaxMT 4x4 (dim x cell) register tiles.
-// A trash-tile CTA copies Z through.
+// = 2.5 G FMA (75 us): bytes-bound, the FMA pipes close behind.
+// Design. The grid walks K8's static plan in its order (the layout tiles
+// joint by joint, ascending), cut into one equal range of tiles a CTA, one
+// wave at three CTAs an SM (72 KB of shared memory each at the main
+// shape), so no SM waits on a partial last wave; a joint's betas are
+// staged once where its run in a range starts (transposed into K x dp as
+// they come in), not once per 64 cells. A trash tile copies Z through
+// (its betas are zero). Slices of 64 cells of R come in through cp.async,
+// double-buffered, one barrier a slice: the next slice loads while the
+// current one computes (where two slices do not fit beside the betas, at
+// K (dp + 128) past 58,112 floats, one slice is loaded, then computed, in
+// K (dp + 64) floats). Thread (tb, eb) owns a 4-dim x 8-cell register
+// tile, dims 4 eb.. and cells 4 tb.. and 32 + 4 tb.. of the slice (so
+// eight lanes read 128 contiguous bytes of a row of R: no bank
+// conflicts): per cluster one float4 of betas and two of R feed 32 FMAs,
+// each output acc = fmaf(w, r, acc) over k = 0..K-1 from 0 (K10's
+// sequence, so both give the same bits on the same R). The tile's Z comes
+// in as float4s before the product and Z_corr goes out the same way,
+// coalesced: eight lanes cover 128 contiguous bytes of a dim. Its memory
+// stream, 64-cell pieces of some 200 rows at once, sets most of its time;
+// the product's FMAs and shared-memory loads (12 floats per 32 FMAs) add
+// the rest. Rows whose cell axis is not a multiple of 4 take 4-byte copies
+// and scalar loads instead.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCT = 64;    // K9: cells per CTA
-constexpr int kMaxMT = 2;  // K9: 4x4 register tiles a thread owns
+// K9
+constexpr int kK9Cells = 64;              // cells a slice
+constexpr int kK9Half = kK9Cells / 2;     // a tile's second cell quad, past its first
+constexpr int kK9MaxThreads = 512;        // 4 x 8 tiles of 256 dims at once
 // K8
 constexpr int kSub = 32;    // cells a slice
 constexpr int kSP = kSub + 4;  // row stride of a staged slice, in floats
@@ -215,80 +236,206 @@ __global__ void __launch_bounds__(kThreads) sum_chunks_kernel(
   M[i] = v;
 }
 
-__global__ void __launch_bounds__(kThreads) tiled_correction_kernel(
-    const float* __restrict__ Wt,      // (n_joint + 1, K, d) betas, transposed
+// K9, CTA b: the tiles [lo, hi) of the plan's order, lo = b * n / grid
+// (an equal range a CTA, one wave), joint by joint, read from the order
+// and the tile table as it goes (no copy in shared memory). Slice q is
+// cells [s0, s0 + 64) of the range's tile q / spt; cells at N and past are
+// masked (the last tile may be partial). A joint's betas are staged where
+// its run in the range starts, after a barrier (a new joint comes once or
+// twice a range); a trash tile's slices copy Z through. stages: slices of
+// R staged, 2 (the next in flight) or, where two do not fit beside the
+// betas, 1 (load, wait, compute). Past 4 * blockDim.x / 8 dims a thread
+// takes its 4-dim tiles in turn.
+template <bool kAligned>
+__global__ void __launch_bounds__(kK9MaxThreads) tiled_correction_kernel(
+    const float* __restrict__ Wj,      // (n_joint + 1, d, K) betas
+    const int* __restrict__ order,     // (n,) the plan's tiles, joint by joint, ascending
     const int* __restrict__ tj,        // (ceil(N / tile),) joint of each tile
     const float* __restrict__ R,       // (K, N)
     const float* __restrict__ Z,       // (d, N)
     float* __restrict__ Zc,            // (d, N) out
-    long long N, int K, int d, int tile, int trash, int dp) {
-  extern __shared__ float smem[];
-  float* Ws = smem;            // K * dp
-  float* Rs = Ws + K * dp;     // K * kCT
-  const int tid = threadIdx.x;
-  const long long n0 = static_cast<long long>(blockIdx.x) * kCT;
-  const int nv = static_cast<int>(min(static_cast<long long>(kCT), N - n0));
-  const int jt = tj[n0 / tile];
-  if (jt == trash) {
-    for (int i = tid; i < d * kCT; i += kThreads) {
-      const int e = i / kCT, u = i - e * kCT;
-      if (u < nv) Zc[e * N + n0 + u] = Z[e * N + n0 + u];
+    long long N, int n, int K, int d, int dp, int tile, int trash, int stages) {
+  extern __shared__ __align__(16) float smem[];
+  float* Ws = smem;                // K*dp
+  float* Rb = Ws + K * dp;         // stages*K*kK9Cells: the slices' R
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lo = static_cast<int>(static_cast<long long>(blockIdx.x) * n / gridDim.x);
+  const int hi = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * n / gridDim.x);
+  const int spt = tile / kK9Cells;
+  const int ns = (hi - lo) * spt;
+  // slice q's cells start at n0 = t * tile + (q % spt) * 64 of its tile t;
+  // cells at N and past are masked
+  auto cells = [&](int q, int t, long long& n0) {
+    n0 = static_cast<long long>(t) * tile + (q % spt) * kK9Cells;
+    return static_cast<int>(max(0LL, min(static_cast<long long>(kK9Cells), N - n0)));
+  };
+  auto load = [&](int q, int t, int jt) {
+    if (jt == trash) return;
+    float* Rs = Rb + (q % stages) * K * kK9Cells;
+    long long n0;
+    const int nv = cells(q, t, n0);
+    if (kAligned) {
+      constexpr int kQ = kK9Cells / 4;
+      for (int i = tid; i < K * kQ; i += nthr) {
+        const int k = i / kQ, u = 4 * (i - k * kQ);
+        const int bytes = 4 * max(0, min(4, nv - u));
+        cp_async16(Rs + k * kK9Cells + u, bytes ? R + k * N + n0 + u : R, bytes);
+      }
+    } else {
+      for (int i = tid; i < K * kK9Cells; i += nthr) {
+        const int k = i / kK9Cells, u = i - k * kK9Cells;
+        cp_async4(Rs + k * kK9Cells + u, u < nv ? R + k * N + n0 + u : R, u < nv ? 4 : 0);
+      }
     }
-    return;
-  }
-  const float* W = Wt + static_cast<long long>(jt) * K * d;
-  for (int i = tid; i < K * dp; i += kThreads) {
-    const int k = i / dp, e = i - k * dp;
-    Ws[i] = e < d ? W[k * d + e] : 0.f;
-  }
-  for (int i = tid; i < K * kCT; i += kThreads) {
-    const int k = i / kCT, u = i - k * kCT;
-    Rs[i] = u < nv ? R[k * N + n0 + u] : 0.f;
-  }
-  __syncthreads();
+  };
+  // a joint's betas, transposed into (K x dp) as they come in; the
+  // columns past d are never stored from, so they stay as they are
+  auto stage_betas = [&](int jt) {
+    const float* W = Wj + static_cast<long long>(jt) * d * K;
+    for (int i = tid; i < d * K; i += nthr) {
+      const int e = i / K;
+      cp_async4(Ws + (i - e * K) * dp + e, W + i, 4);
+    }
+  };
+  // the range's tile c and its joint, read from the order a tile ahead of
+  // their use: (tq, jq) the current slice's, (tn, jn) the next tile's
+  auto fetch = [&](int c, int& t, int& jt) {
+    if (c < hi - lo) {
+      t = __ldg(order + lo + c);
+      jt = __ldg(tj + t);
+    }
+  };
+  int tq = 0, jq = trash, tn = 0, jn = trash;
+  fetch(0, tq, jq);
+  fetch(1, tn, jn);
+  // the first joint's betas, then (two stages) the first slice
+  if (ns > 0 && jq != trash) stage_betas(jq);
+  if (stages == 2 && ns > 0) load(0, tq, jq);
+  cp_async_commit();
   const int neb = (d + 3) / 4;
-  constexpr int ntb = kCT / 4;
+  const int tb = tid % (kK9Cells / 8), eb0 = tid / (kK9Cells / 8), ebs = nthr / (kK9Cells / 8);
+  int jp = jq;  // the previous slice's joint
+  for (int q = 0; q < ns; ++q) {
+    if (q > 0 && q % spt == 0) {
+      tq = tn;
+      jq = jn;
+      fetch(q / spt + 1, tn, jn);
+    }
+    if (stages == 1) {
+      __syncthreads();  // every thread is done with slice q - 1
+      load(q, tq, jq);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // slice q landed; every thread is done with slice q - 1
+    const int jt = jq;
+    if (q > 0 && jt != trash && jt != jp) {
+      // a new joint: its betas, once every thread is done with the last
+      stage_betas(jt);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    jp = jt;
+    if (stages == 2 && q + 1 < ns) {
+      if ((q + 1) % spt)
+        load(q + 1, tq, jq);
+      else
+        load(q + 1, tn, jn);
+    }
+    cp_async_commit();
+    long long n0;
+    const int nv = cells(q, tq, n0);
+    if (jt == trash) {
+      // the trash betas are zero: Z passes through
+      if (kAligned) {
+        constexpr int kQ = kK9Cells / 4;
+        for (int i = tid; i < d * kQ; i += nthr) {
+          const int e = i / kQ, u = 4 * (i - e * kQ);
+          if (u < nv)
+            *reinterpret_cast<float4*>(Zc + e * N + n0 + u) =
+                *reinterpret_cast<const float4*>(Z + e * N + n0 + u);
+        }
+      } else {
+        for (int i = tid; i < d * kK9Cells; i += nthr) {
+          const int e = i / kK9Cells, u = i - e * kK9Cells;
+          if (u < nv) Zc[e * N + n0 + u] = Z[e * N + n0 + u];
+        }
+      }
+      continue;
+    }
+    if (4 * tb >= nv) continue;
+    for (int eb = eb0; eb < neb; eb += ebs) {
+      const float* Wp = Ws + 4 * eb;
+      // the tile's Z (cells 4 tb + kK9Half h + 0..3, h = 0, 1), in flight during
+      // the product
+      float zv[4][8];
 #pragma unroll
-  for (int m = 0; m < kMaxMT; ++m) {
-    const int mt = tid + m * kThreads;
-    if (mt >= neb * ntb) break;
-    const int eb = mt / ntb, tb = mt - eb * ntb;
-    float acc[4][4];
+      for (int i = 0; i < 4; ++i) {
+        const int e = 4 * eb + i;
+        if (e >= d) continue;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int h = 0; h < 2; ++h) {
+          const int u = 4 * tb + kK9Half * h;
+          const float* zp = Z + e * N + n0 + u;
+          if (kAligned && u + 4 <= nv) {
+            const float4 a = *reinterpret_cast<const float4*>(zp);
+            zv[i][4 * h] = a.x;
+            zv[i][4 * h + 1] = a.y;
+            zv[i][4 * h + 2] = a.z;
+            zv[i][4 * h + 3] = a.w;
+          } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float4 w = *reinterpret_cast<const float4*>(Ws + k * dp + 4 * eb);
-      const float4 r = *reinterpret_cast<const float4*>(Rs + k * kCT + 4 * tb);
-      const float wv[4] = {w.x, w.y, w.z, w.w};
-      const float rv[4] = {r.x, r.y, r.z, r.w};
+            for (int j = 0; j < 4; ++j) zv[i][4 * h + j] = u + j < nv ? zp[j] : 0.f;
+          }
+        }
+      }
+      float acc[4][8];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], rv[j], acc[i][j]);
-    }
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      const float* Rs = Rb + (q % stages) * K * kK9Cells + 4 * tb;
+#pragma unroll 4
+      for (int k = 0; k < K; ++k) {
+        const float4 w = *reinterpret_cast<const float4*>(Wp + k * dp);
+        const float4 ra = *reinterpret_cast<const float4*>(Rs + k * kK9Cells);
+        const float4 rb = *reinterpret_cast<const float4*>(Rs + k * kK9Cells + kK9Half);
+        const float wv[4] = {w.x, w.y, w.z, w.w};
+        const float rv[8] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = 4 * eb + i;
-      if (e >= d) break;
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int u = 4 * tb + j;
-        if (u < nv) Zc[e * N + n0 + u] = Z[e * N + n0 + u] - acc[i][j];
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(wv[i], rv[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = 4 * eb + i;
+        if (e >= d) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int u = 4 * tb + kK9Half * h;
+          float* op = Zc + e * N + n0 + u;
+          const int c = 4 * h;
+          if (kAligned && u + 4 <= nv) {
+            *reinterpret_cast<float4*>(op) =
+                make_float4(zv[i][c] - acc[i][c], zv[i][c + 1] - acc[i][c + 1],
+                            zv[i][c + 2] - acc[i][c + 2], zv[i][c + 3] - acc[i][c + 3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (u + j < nv) op[j] = zv[i][c + j] - acc[i][c + j];
+          }
+        }
       }
     }
   }
+  cp_async_wait<0>();
 }
 
 int set_smem(const void* kernel, int bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
-int ceil4(int n) {
-  n = (n + 3) / 4 * 4;
-  return n % 32 == 0 ? n + 4 : n;
 }
 
 }  // namespace
@@ -337,17 +484,42 @@ int k8_tile_moments(const void* R, const void* Z, const void* chunks,
                         stream);
 }
 
-int k9_tiled_correction(const void* Wt, const void* tj, const void* R,
-                        const void* Z, void* Zc, long long N, int K, int d,
-                        int tile, int trash, int smem_bytes, void* stream) {
-  int err = set_smem(reinterpret_cast<const void*>(tiled_correction_kernel), smem_bytes);
+// CTAs of K9 an SM holds with `threads` threads and smem_bytes each; < 0
+// is minus a CUDA error.
+int k9_occupancy(int threads, int smem_bytes) {
+  const void* kern = reinterpret_cast<const void*>(tiled_correction_kernel<true>);
+  int err = set_smem(kern, smem_bytes);
+  if (err) return -err;
+  int nb = 0;
+  err = static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kern, threads, smem_bytes));
+  return err ? -err : nb;
+}
+
+// K9 over the plan's order (n tiles) in grid equal ranges, stages slices
+// of R staged (1 or 2); aligned: N % 4 == 0 and every tensor starts on a
+// 16-byte boundary.
+int k9_tiled_correction(const void* Wj, const void* order, const void* tj, const void* R,
+                        const void* Z, void* Zc, long long N, int n, int K, int d, int dp,
+                        int tile, int trash, int grid, int stages, int threads, int aligned,
+                        int smem_bytes, void* stream) {
+  const void* kernel = aligned ? reinterpret_cast<const void*>(tiled_correction_kernel<true>)
+                               : reinterpret_cast<const void*>(tiled_correction_kernel<false>);
+  int err = set_smem(kernel, smem_bytes);
   if (err) return err;
-  const unsigned grid = static_cast<unsigned>((N + kCT - 1) / kCT);
-  tiled_correction_kernel<<<grid, kThreads, smem_bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(Wt), static_cast<const int*>(tj),
-      static_cast<const float*>(R), static_cast<const float*>(Z),
-      static_cast<float*>(Zc), N, K, d, tile, trash, ceil4(d));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* Wf = static_cast<const float*>(Wj);
+  const int* of = static_cast<const int*>(order);
+  const int* tf = static_cast<const int*>(tj);
+  const float* Rf = static_cast<const float*>(R);
+  const float* Zf = static_cast<const float*>(Z);
+  float* Zcf = static_cast<float*>(Zc);
+  if (aligned)
+    tiled_correction_kernel<true><<<grid, threads, smem_bytes, st>>>(
+        Wf, of, tf, Rf, Zf, Zcf, N, n, K, d, dp, tile, trash, stages);
+  else
+    tiled_correction_kernel<false><<<grid, threads, smem_bytes, st>>>(
+        Wf, of, tf, Rf, Zf, Zcf, N, n, K, d, dp, tile, trash, stages);
   return static_cast<int>(cudaGetLastError());
 }
 

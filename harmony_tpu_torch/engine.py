@@ -142,7 +142,8 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
     right after init the recompute is a numerical no-op), and returns the
     phase's Gram table G = (Y^T Zn)^T, which the rounds read on the layout
     (Y and Zn are fixed within the phase; 4 K Npt bytes, dropped with the
-    layout at the phase's end). Then the rounds.
+    layout at the phase's end, or under virtual R kept on the state for
+    the correction's K10). Then the rounds.
     With the default budget (max_iter_cluster <= window_size + 2) the
     windowed early stop cannot fire and every round runs; only the last
     writes R, and with a batch-tiled layout it also fuses the M-step's
@@ -203,7 +204,7 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
         state = dataclasses.replace(state, tiled_moments=res.M)
     if virtual:
         state = dataclasses.replace(state, virt_pen=res.pen, virt_blkmap=res.blkmap,
-                                    virt_Zn=Zn, virt_Y=state.Y.to(torch.float32))
+                                    virt_Zn=Zn, virt_Y=state.Y.to(torch.float32), virt_G=G)
     return _push_harmony(state)
 
 
@@ -361,6 +362,7 @@ def _virtual_context(cfg: HarmonyConfig, state: HarmonyState) -> Optional[rotate
         pen=state.virt_pen, blkmap=state.virt_blkmap, Zn_pad=state.virt_Zn,
         codes_pad=rotate.make_codes_pad(cfg, state.codes), Y=state.virt_Y,
         Z_orig_pad=rotate.pad_cells_to_tile(cfg, Zo).contiguous(), sigma=state.sigma,
+        G=state.virt_G,
     )
 
 
@@ -372,8 +374,11 @@ def correct(cfg: HarmonyConfig, state: HarmonyState,
     table the phase's last round fused (``state.tiled_moments``: K3 on the
     permute path, K7 on the rotate path) is consumed here, so K8 does not
     run after it. On a virtual-R state the correction recomputes R from the
-    state's context (K10) and never reads the stale R; the context stays on
-    the state for :func:`materialize_r` (harmony_tpu/engine.py:643-657)."""
+    state's context (K10, reading the phase's Gram table, which is consumed
+    here too; without the table, on a state built from the JAX package's
+    arrays, K11 writes R and K9 applies it) and never reads the stale R;
+    the rest of the context stays on the state for :func:`materialize_r`
+    (harmony_tpu/engine.py:643-657)."""
     layout = layout or MStepLayout()
     Z_corr, Y_new, _ = ops.moe_correct_ridge(
         cfg, state.Z_orig, state.R, state.O, state.E, state.codes,
@@ -383,7 +388,7 @@ def correct(cfg: HarmonyConfig, state: HarmonyState,
     )
     return dataclasses.replace(
         state, Z_corr=Z_corr, Y=Y_new, n_rounds=state.n_rounds + 1,
-        tiled_moments=None,
+        tiled_moments=None, virt_G=None,
     )
 
 

@@ -305,17 +305,19 @@ correction.launches = 0
 _TILED_SIGNATURES = {
     "k8_tile_moments": [_build.PTR] * 6 + [_build.I64] + [_build.INT] * 11
     + [_build.PTR],
-    "k9_tiled_correction": [_build.PTR] * 5 + [_build.I64] + [_build.INT] * 5
+    "k9_tiled_correction": [_build.PTR] * 6 + [_build.I64] + [_build.INT] * 11
     + [_build.PTR],
+    "k9_occupancy": [_build.INT] * 2,
     "sum_joint_rows": [_build.PTR] * 3 + [_build.INT, _build.I64, _build.PTR],
 }
-_MAX_MT = 2  # K9: 4x4 register tiles a thread owns (kMaxMT in tiled.cu)
-_THREADS = 256
 # K8 (tiled.cu): cells of one joint level per CTA, the row stride of a
 # staged 32-cell slice, staged slices in flight, the side of a thread's
 # register tile, and the most register tiles (threads) a CTA holds
 _K8_CHUNK_CELLS = 512
 _K8_SP, _K8_STAGES, _K8_RT, _K8_MAX_TILES = 36, 2, 8, 96
+# K9 (tiled.cu): cells a slice of R, the most threads a CTA has (one
+# 4-dim x 8-cell tile each at a time) and the fewest
+_K9_CELLS, _K9_MAX_THREADS, _K9_MIN_THREADS = 64, 512, 128
 
 
 def _tiled_inputs(where, tensors, tile_joint, tile):
@@ -367,6 +369,44 @@ def _moments_plan(tj_bytes: bytes, n_joint: int, device: str, chunk: int
     chunks = np.stack(rows) if rows else np.zeros((0, chunk), np.int32)
     return (torch.as_tensor(chunks, device=device),
             torch.as_tensor(np.asarray(start, np.int32), device=device), len(rows))
+
+
+def plan_order(tile_joint: np.ndarray, device) -> torch.Tensor:
+    """The order K9 and K10 walk, K8's plan's: every layout tile once,
+    joint by joint (the trash tiles last), ascending within a joint; int32
+    on ``device``, built once per table. Each CTA takes an equal range."""
+    tj = np.ascontiguousarray(tile_joint, dtype=np.int32)
+    return _order_on(tj.tobytes(), str(device))
+
+
+@functools.lru_cache(maxsize=4)
+def _order_on(tj_bytes: bytes, device: str) -> torch.Tensor:
+    order = np.argsort(np.frombuffer(tj_bytes, dtype=np.int32), kind="stable")
+    return torch.as_tensor(order.astype(np.int32), device=device)
+
+
+def k9_plan(K: int, d: int) -> Tuple[int, int, int]:
+    """(slices of R staged, threads, shared memory bytes) of a K9 CTA: two
+    slices where they fit beside a joint's betas, else one; raises where
+    one does not fit. A thread owns a 4-dim x 8-cell tile of a slice and
+    takes the next tile 4 * threads / 8 dims on where d needs more."""
+    tiles = _K9_CELLS // 8 * -(-d // 4)  # 4-dim x 8-cell register tiles of a slice
+    threads = min(_K9_MAX_THREADS, max(_K9_MIN_THREADS, -(-tiles // 32) * 32))
+    for stages in (2, 1):
+        smem = 4 * K * (_ceil4(d) + stages * _K9_CELLS)  # the betas, the slices of R
+        if smem <= _SMEM_MAX:
+            return stages, threads, smem
+    raise ValueError(f"tiled_correction: K={K}, d={d} need {smem} bytes of shared memory "
+                     f"(a joint's betas and one 64-cell slice of R), over the {_SMEM_MAX} "
+                     "a CTA may use")
+
+
+@functools.lru_cache(maxsize=16)
+def _k9_occupancy(threads: int, smem: int) -> int:
+    n = _build.load("tiled", _TILED_SIGNATURES).k9_occupancy(threads, smem)
+    if n <= 0:
+        raise RuntimeError(f"k9_occupancy: K9 fits no CTA on an SM (CUDA error {-n})")
+    return n
 
 
 @functools.lru_cache(maxsize=4)
@@ -459,24 +499,23 @@ def tiled_correction(W_joint: torch.Tensor, tile_joint, R: torch.Tensor,
                          f"fit d={d}, K={K} and the tile table")
     if R.device.type == "cpu":
         return tiled_correction_twin(W_joint, tj, R, Z, tile)
-    if tile % 64:
-        raise ValueError(f"tiled_correction: tile {tile} is not a multiple of 64")
-    if -(-d // 4) * 16 > _MAX_MT * _THREADS:
-        raise ValueError(f"tiled_correction: d={d} needs more than {_MAX_MT} register "
-                         "tiles a thread")
-    dp = _ceil4(d)
-    smem = 4 * K * (dp + 64)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"tiled_correction: K={K}, d={d} need {smem} bytes of "
-                         f"shared memory, over the {_SMEM_MAX} a CTA may use")
-    Wt = W_joint.transpose(1, 2).contiguous()  # (nj1, K, d)
+    if tile % _K9_CELLS:
+        raise ValueError(f"tiled_correction: tile {tile} is not a multiple of {_K9_CELLS}")
+    stages, threads, smem = k9_plan(K, d)
+    order = plan_order(tj, R.device)
+    n = order.shape[0]
+    # one equal range of the order a CTA, as many CTAs as the card holds at once
+    n_sm = torch.cuda.get_device_properties(R.device).multi_processor_count
+    grid = min(n, n_sm * _k9_occupancy(threads, smem))
     tjd = _table_on(tj.tobytes(), str(R.device))
     Zc = torch.empty_like(Z)
+    aligned = Np % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (R, Z, Zc))
     lib = _build.load("tiled", _TILED_SIGNATURES)
     stream = torch.cuda.current_stream(R.device).cuda_stream
     _build.check(lib.k9_tiled_correction(
-        Wt.data_ptr(), tjd.data_ptr(), R.data_ptr(), Z.data_ptr(), Zc.data_ptr(),
-        Np, K, d, tile, nj1 - 1, smem, stream,
+        W_joint.data_ptr(), order.data_ptr(), tjd.data_ptr(), R.data_ptr(), Z.data_ptr(),
+        Zc.data_ptr(), Np, n, K, d, _ceil4(d), tile, nj1 - 1, grid, stages, threads, int(aligned),
+        smem, stream,
     ), "k9_tiled_correction")
     tiled_correction.launches += 1
     return Zc

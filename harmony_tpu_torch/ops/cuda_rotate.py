@@ -24,9 +24,14 @@ Counterpart of ``harmony_tpu/ops/pallas_rotate.py`` (``pallas_reassign``,
   layout tile (the last of its pieces' CTAs to finish sums their rows),
   summed per joint by one more launch, tiled.cu's ``sum_joint_rows``
   (``moments``).
-* :func:`virtual_correction` (K10) and :func:`materialize_r` (K11): one
-  launch each over the padded layout's 64-cell pieces, R recomputed from
-  the penalty tables with the device routine K7 assigns with.
+* :func:`virtual_correction` (K10): one launch of persistent CTAs, one
+  an SM, each over an equal range of the layout tiles in K8's plan order,
+  R recomputed from the penalty tables and the phase's Gram table G (K6's,
+  which the state keeps until the correction) with K7's per-cell
+  operations, then Z_orig - W_joint R.
+* :func:`materialize_r` (K11): one launch over the padded layout's
+  64-cell pieces, g formed again from Zn, R with the device routine K7
+  assigns with.
 
 For CPU tensors each wrapper runs its plain version; anything else
 raises. ``launches`` counts calls into the kernels' C entry points (1 per
@@ -46,7 +51,7 @@ from .. import _build
 from ..config import HarmonyConfig
 from . import rotate
 from .cuda_estep import _sm_count
-from .cuda_ridge import _ceil4, _table_on, sum_joint_rows
+from .cuda_ridge import _ceil4, _table_on, plan_order, sum_joint_rows
 from .rotate import CodesLayout, MomentsSpec, RoundState
 
 _F32 = torch.float32
@@ -60,7 +65,7 @@ _SIGNATURES = {
     + [_build.PTR] * 9 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [_build.PTR],
     "k6_occupancy": [_build.INT],
     "k6_reassign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 11 + [_build.PTR],
-    "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 9
+    "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 13
     + [_build.PTR],
     "k11_materialize_r": [_build.PTR] * 8 + [_build.I64] + [_build.INT] * 6 + [_build.PTR],
 }
@@ -117,12 +122,55 @@ def _k6_grid(smem: int, n_sm: int) -> int:
     return n_sm * n
 
 
-def virtual_smem_bytes(K: int, d: int, B: int, ncov: int, correction: bool) -> int:
-    """Shared memory of one K10 (``correction``) or K11 CTA."""
-    floats = K * d + d * _CT + K * (_CT + 1) + K * B + 2 * K
-    if correction:
-        floats += K * _ceil4(d)
-    return 4 * (floats + ncov * _CT)
+def materialize_r_smem_bytes(K: int, d: int, B: int, ncov: int) -> int:
+    """Shared memory of one K11 CTA."""
+    return 4 * (K * d + d * _CT + K * (_CT + 1) + K * B + 2 * K + ncov * _CT)
+
+
+# K10: cells a step, the row stride of its R tables, the most warps a
+# correction group takes (of 16), the most groups, and the most clusters
+# (a lane holds 8 of a cell's values in registers)
+_V_CELLS, _V_LP, _V_CORR_WARPS, _V_GROUPS, _V_MAX_K = 64, 68, 12, 2, 256
+
+
+def virtual_smem_bytes(K: int, d: int, B: int, ncov: int, span: int, groups: int) -> int:
+    """Shared memory of K10's CTA (layout in rotate.cu) with ``groups``
+    correction groups: each group's betas; two steps' rows of G, block
+    tables and codes; one R table more than groups; its range of ``span``
+    layout tiles (tile, joint, block)."""
+    floats = (groups * K * _ceil4(d) + 2 * _V_CELLS * K + (groups + 1) * K * _V_LP
+              + 2 * (-(-K * B // 4) * 4))
+    return 4 * (floats + 2 * ncov * _V_CELLS + 3 * span + ncov)
+
+
+def virtual_plan(K: int, d: int, B: int, ncov: int, span: int) -> Optional[Tuple[int, int]]:
+    """(correction groups, shared memory bytes) of K10's CTA: two groups
+    where both leave the chain eight warps (d <= 64) and fit, else one;
+    None where K10 cannot take the shape: K over 256, d over 192 (the dims
+    12 warps cover in 4 x 8 tiles) or one group past shared memory."""
+    warps = -(-8 * -(-d // 4) // 32)  # a group's warps
+    if K > _V_MAX_K or warps > _V_CORR_WARPS:
+        return None
+    for groups in range(_V_GROUPS if _V_GROUPS * warps <= 8 else 1, 0, -1):
+        smem = virtual_smem_bytes(K, d, B, ncov, span, groups)
+        if smem <= _SMEM_MAX:
+            return groups, smem
+    return None
+
+
+def _k10_plan(cfg: HarmonyConfig, d: int, n_tiles: int, dev):
+    """(grid, span, virtual_plan) of K10 over ``n_tiles`` layout tiles: one
+    CTA an SM, each over an equal range of at most ``span`` tiles."""
+    grid = min(n_tiles, _sm_count(dev))
+    span = -(-n_tiles // grid)
+    return grid, span, virtual_plan(cfg.K, d, cfg.B, cfg.n_covariates, span)
+
+
+def k10_fits(cfg: HarmonyConfig, d: int, n_tiles: int, dev) -> bool:
+    """Does K10 take d dims over ``n_tiles`` layout tiles on the card
+    ``dev``? Where it does not, the correction writes R with K11 and
+    applies it with K9 (``ops.ridge.virtual_tile_correction``)."""
+    return _k10_plan(cfg, d, n_tiles, dev)[2] is not None
 
 
 def moments_fit(tile: int) -> bool:
@@ -374,16 +422,21 @@ def virtual_correction(
     Zn_pad: torch.Tensor,  # (d, Npt)
     codes_pad: torch.Tensor,  # (ncov, Npt) int32
     Z_orig_pad: torch.Tensor,  # (d, Npt)
+    G: Optional[torch.Tensor] = None,  # (Npt, K) the phase's Gram table (K6's)
 ) -> torch.Tensor:
     """K10: Z_corr (d, Npt) = Z_orig - W_joint[joint(tile)] R, R recomputed
-    per 64-cell piece from the penalty tables."""
+    from the penalty tables and the phase's Gram table ``G``, which the
+    kernel needs; the plain version forms g from Y and Zn without it."""
     floats = {"Y": Y, "sigma": sigma, "pen": pen, "Zn_pad": Zn_pad,
               "Z_orig_pad": Z_orig_pad, "W_joint": W_joint}
+    if G is not None:
+        floats["G"] = G
     if not _check_virtual("virtual_correction", cfg, floats, codes_pad, blk_of_phys):
         return rotate.virtual_correction(cfg, W_joint, tile_joint, layout_tile, Y, sigma,
-                                         pen, blk_of_phys, Zn_pad, codes_pad, Z_orig_pad)
+                                         pen, blk_of_phys, Zn_pad, codes_pad, Z_orig_pad, G)
     K, B, T = cfg.K, cfg.B, cfg.estep_sub_tile
     d, L = Zn_pad.shape
+    dev = Zn_pad.device
     nj1 = W_joint.shape[0]
     tj = np.asarray(tile_joint, dtype=np.int32)
     if (W_joint.shape != (nj1, d, K) or not moments_fit(layout_tile) or T % layout_tile
@@ -391,22 +444,33 @@ def virtual_correction(
             or Z_orig_pad.shape != (d, L)):
         raise ValueError("virtual_correction: W_joint, the tile table or the layout tile "
                          f"({layout_tile}) do not fit the layout and the kernel")
-    smem = virtual_smem_bytes(K, d, B, cfg.n_covariates, True)
-    _check_smem("virtual_correction", cfg, smem)
-    Wt = W_joint.transpose(1, 2).contiguous()  # (nj1, K, d)
-    # Y^T held in a name until the launch is queued: a temporary freed
-    # before it could hand its memory to the tile table allocated below
-    Yt = Y.t().contiguous()
+    if G is None or G.shape != (L, K):
+        raise ValueError("virtual_correction: the kernel reads g from the phase's Gram "
+                         f"table, a contiguous float32 ({L}, {K}) tensor on {dev} (K6 "
+                         "returns it)")
+    order = plan_order(tj, dev)
+    n = order.shape[0]
+    grid, span, plan = _k10_plan(cfg, d, n, dev)
+    if plan is None:
+        raise ValueError(
+            f"virtual_correction: K={K}, d={d}, B={B} do not fit K10: it takes K <= "
+            f"{_V_MAX_K}, d <= {16 * _V_CORR_WARPS} and one correction group's "
+            f"{virtual_smem_bytes(K, d, B, cfg.n_covariates, span, 1)} bytes of shared "
+            f"memory within {_SMEM_MAX} (K11 then K9 take the rest: k10_fits)")
+    groups, smem = plan
     Zc = torch.empty_like(Z_orig_pad)
-    dev = Zn_pad.device
+    if any(t.data_ptr() % 16 for t in (G, codes_pad, Z_orig_pad, Zc)):
+        raise ValueError("virtual_correction: G, codes_pad and Z_orig_pad must start on "
+                         "16-byte boundaries (the kernel copies 16 bytes at a time)")
     lib = _build.load("rotate", _SIGNATURES)
     _build.check(lib.k10_virtual_correction(
-        Yt.data_ptr(), Zn_pad.data_ptr(), codes_pad.data_ptr(),
+        G.data_ptr(), codes_pad.data_ptr(),
         _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), pen.data_ptr(),
-        blk_of_phys.data_ptr(), sigma.data_ptr(), Wt.data_ptr(),
-        _table_on(tj.tobytes(), str(dev)).data_ptr(), Z_orig_pad.data_ptr(),
-        Zc.data_ptr(), L, T, layout_tile, nj1 - 1, K, d, B, cfg.n_covariates,
-        _ceil4(d), smem, torch.cuda.current_stream(dev).cuda_stream,
+        blk_of_phys.data_ptr(), sigma.data_ptr(), W_joint.data_ptr(), order.data_ptr(),
+        _table_on(tj.tobytes(), str(dev)).data_ptr(), Z_orig_pad.data_ptr(), Zc.data_ptr(),
+        L, n, span, T, layout_tile, nj1 - 1, K, d, _ceil4(d), B, cfg.n_covariates, groups,
+        grid, smem,
+        torch.cuda.current_stream(dev).cuda_stream,
     ), "k10_virtual_correction")
     virtual_correction.launches += 1
     return Zc
@@ -435,7 +499,7 @@ def materialize_r(
         raise TypeError(f"materialize_r: the kernel writes float32, not {out_dtype}")
     K, B, T = cfg.K, cfg.B, cfg.estep_sub_tile
     d, L = Zn_pad.shape
-    smem = virtual_smem_bytes(K, d, B, cfg.n_covariates, False)
+    smem = materialize_r_smem_bytes(K, d, B, cfg.n_covariates)
     _check_smem("materialize_r", cfg, smem)
     R = torch.empty((K, L), dtype=_F32, device=Zn_pad.device)
     Yt = Y.t().contiguous()

@@ -42,7 +42,8 @@ Under virtual R (``virtual``, a :class:`~harmony_tpu_torch.ops.rotate.VirtualR`;
 harmony_tpu/ops/ridge.py:145-154, 550-654) the state's R is stale: the
 moments come fused from the E-step's final round, the tail's assignments
 are recomputed from the penalty tables in plain PyTorch, and K10 applies
-the correction with R recomputed per pure tile.
+the correction with R recomputed per pure tile from the tables and the
+phase's Gram table.
 """
 
 from __future__ import annotations
@@ -493,17 +494,34 @@ def _virtual_tail_r(cfg, virt, n_pure):
 
 def _correction_virtual(cfg, W, ctx, tiled, virt):
     """Correction with R recomputed from the penalty tables
-    (harmony_tpu/ops/ridge.py:588-654): K10 on the pure layout tiles (its
-    plain version on CPU tensors), then the dense patch of the tail from
+    (harmony_tpu/ops/ridge.py:588-654): the pure layout tiles by
+    :func:`virtual_tile_correction`, then the dense patch of the tail from
     its recomputed assignments (ctx carries them from _moments_tiled)."""
-    from .cuda_rotate import virtual_correction
+    Z_corr = virtual_tile_correction(cfg, _joint_betas(cfg, W, tiled),
+                                     full_tile_joint(cfg, tiled), tiled.tile, virt)
+    return _patch_tail(cfg, W, ctx, tiled, Z_corr[:, : cfg.Np])
 
-    Z_corr = virtual_correction(
-        cfg, _joint_betas(cfg, W, tiled), full_tile_joint(cfg, tiled), tiled.tile,
-        virt.Y.to(_F32), virt.sigma.to(_F32), virt.pen, virt.blkmap, virt.Zn_pad,
-        virt.codes_pad, virt.Z_orig_pad,
-    )[:, : cfg.Np]
-    return _patch_tail(cfg, W, ctx, tiled, Z_corr)
+
+def virtual_tile_correction(cfg: HarmonyConfig, W_joint: torch.Tensor, tile_joint,
+                            tile: int, virt) -> torch.Tensor:
+    """Z_orig - W_joint[joint(tile)] R on the padded layout (d, Npt), R the
+    final round's, recomputed from ``virt`` (a VirtualR): K10 where it
+    reads the phase's Gram table ``virt.G`` and (on the card) takes the
+    shape; else K11 writes R, from Y and Zn, and K9 applies it: a state
+    without G (built from the JAX package's arrays) or K, d, B past K10's
+    shared memory. Both give the same bits (K11's R is K7's; K10 and K9 run
+    one fmaf order). On CPU tensors the kernels' plain versions."""
+    from . import cuda_ridge, cuda_rotate
+
+    rargs = (virt.Y.to(_F32), virt.sigma.to(_F32), virt.pen, virt.blkmap, virt.Zn_pad,
+             virt.codes_pad)
+    d, L = virt.Zn_pad.shape
+    if virt.G is not None and (not virt.Zn_pad.is_cuda
+                               or cuda_rotate.k10_fits(cfg, d, L // tile, virt.Zn_pad.device)):
+        return cuda_rotate.virtual_correction(cfg, W_joint, tile_joint, tile, *rargs,
+                                              virt.Z_orig_pad, virt.G)
+    R = cuda_rotate.materialize_r(cfg, *rargs)
+    return cuda_ridge.tiled_correction(W_joint, tile_joint, R, virt.Z_orig_pad, tile)
 
 
 def _solve_ridge(cfg: HarmonyConfig, G: torch.Tensor, rhs: torch.Tensor):

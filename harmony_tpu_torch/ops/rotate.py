@@ -19,7 +19,8 @@ stats-carrying path:
   map (``emit_pen``), from which the virtual-R functions below reproduce
   every assignment without R having been written.
 * :func:`virtual_correction`, the twin of K10 (``_virtual_correction_kernel``,
-  :1451): R recomputed per tile from those tables, then Z_orig - W_joint R.
+  :1451): R recomputed per tile from those tables and the phase's Gram
+  table G where given, then Z_orig - W_joint R.
 * :func:`materialize_r`, the twin of K11 (``_materialize_r_kernel``,
   :1621): the run-end R from the same tables.
 * :func:`rotate_update_round_v1`, the twin of K12 (``_round_kernel``,
@@ -28,8 +29,9 @@ stats-carrying path:
   writes its R (phase 1). Its op order is K1's (``estep.py``), not K7's.
 
 K7's, K10's and K11's twins compute R with one function (:func:`_assign_r`)
-from g, as the three kernels share one device routine; K10's and K11's
-form g from Zn, as their kernels do.
+from g, as the three kernels run one routine's operations; K7's and
+K10's read g from G where given (their kernels always do), K11's forms it
+from Zn, as its kernel does.
 
 Schedule: cells were shuffled once at ingest; virtual tile v holds
 physical tile (v + rt) mod NT for a per-round rotation rt, and the nb
@@ -96,6 +98,10 @@ class VirtualR(NamedTuple):
     Y: torch.Tensor  # (d, K) centroids the final round used
     Z_orig_pad: torch.Tensor  # (d, Npt)
     sigma: torch.Tensor  # (K,)
+    # the final phase's Gram table (Npt, K), K6's; None on a state that
+    # crossed from the JAX package (the correction then writes R with K11
+    # and applies it with K9: ops.ridge.virtual_tile_correction)
+    G: Optional[torch.Tensor] = None
 
 
 def n_tiles(cfg: HarmonyConfig) -> int:
@@ -464,22 +470,25 @@ def rotate_update_round_v1(
                        O=O_s.to(O.dtype), kmeans_error=acc_d, entropy=acc_e)
 
 
-def _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, out_dtype=None):
+def _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, out_dtype=None, G=None):
     """(K, Npt) assignments of the round whose per-block penalties are
-    ``pen``: each block's tiles through :func:`_assign_r`, cast per block
-    to ``out_dtype`` (default float32)."""
+    ``pen``: each block's tiles through :func:`_assign_r`, g read from the
+    phase's Gram table ``G`` (Npt, K) or formed from Y and Zn without it,
+    cast per block to ``out_dtype`` (default float32)."""
     d, Npt = Zn_pad.shape
     T = cfg.estep_sub_tile
     NT, K = Npt // T, pen.shape[1]
     Yt, inv2sig = Y.t().to(_F32), 2.0 / sigma.to(_F32)
     Z3 = Zn_pad.to(_F32).reshape(d, NT, T)
+    G3 = None if G is None else G.to(_F32).reshape(NT, T, K)
     c3 = codes_pad.reshape(-1, NT, T)
     R = torch.empty((K, NT, T), dtype=out_dtype or _F32, device=Zn_pad.device)
     blkmap = blk_of_phys.long()
     for b in range(pen.shape[0]):
         tiles = (blkmap == b).nonzero().squeeze(1)
         if tiles.numel():
-            g = _gram_tiles(Yt, Z3.index_select(1, tiles))
+            g = (_gram_tiles(Yt, Z3.index_select(1, tiles)) if G3 is None
+                 else G3.index_select(0, tiles).permute(2, 0, 1))
             R[:, tiles] = _assign_r(cfg, g, c3.index_select(1, tiles), pen[b].to(_F32),
                                     inv2sig)[0].to(R.dtype)
     return R.reshape(K, Npt)
@@ -497,12 +506,17 @@ def virtual_correction(
     Zn_pad: torch.Tensor,  # (d, Npt) the final phase's layout
     codes_pad: torch.Tensor,  # (ncov, Npt)
     Z_orig_pad: torch.Tensor,  # (d, Npt)
+    G: Optional[torch.Tensor] = None,  # (Npt, K) the phase's Gram table
 ) -> torch.Tensor:
     """Plain version of K10 (``pallas_virtual_correction``,
     pallas_rotate.py:1493): Z_orig - W_joint[joint(tile)] R per layout
-    tile, R recomputed from the penalty tables. Mixed and pad tiles meet
-    the zero trash row and pass Z_orig through."""
-    R = _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad)
+    tile, R recomputed from the penalty tables, g read from ``G`` where
+    given (formed from Y and Zn without it). Mixed and pad tiles meet the
+    zero trash row and pass Z_orig through."""
+    if G is not None and tuple(G.shape) != (Zn_pad.shape[1], pen.shape[1]):
+        raise ValueError(f"virtual_correction: G must be ({Zn_pad.shape[1]}, {pen.shape[1]}), "
+                         f"one row of g a cell of the layout, got {tuple(G.shape)}")
+    R = _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, G=G)
     return tiled_correction_twin(W_joint.to(_F32), tile_joint, R,
                                  Z_orig_pad.to(_F32), layout_tile)
 

@@ -85,6 +85,13 @@ class HarmonyState:
     virt_blkmap: Optional[torch.Tensor] = None  # (NT,) int32
     virt_Zn: Optional[torch.Tensor] = None  # (d, Npt) float32
     virt_Y: Optional[torch.Tensor] = None  # (d, K) float32
+    # The last phase's Gram table (Npt, K) float32, K6's, which the
+    # virtual-R correction (K10) reads instead of forming g again; set with
+    # the context, consumed by engine.correct, so no phase holds two. Not a
+    # field of the JAX state: a state built from its arrays has none, and
+    # its correction writes R from virt_Y and virt_Zn (K11), then applies
+    # it (K9).
+    virt_G: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:

@@ -6,6 +6,14 @@
   agree.
 * The K8/K9 twins against ``pallas_tile_moments``/
   ``pallas_tiled_correction`` in interpret mode: rtol 1e-5.
+* The order K9 and K10 walk, K8's per-joint plan read chunk by chunk
+  (``cuda_ridge.plan_order``): every layout tile of the padded axis once,
+  joint by joint inside a chunk of its own joint, ascending, the trash
+  tiles in the trash chunks, a partial last tile included.
+* K9's launch plan (``cuda_ridge.k9_plan``) over a sweep of K and d: it
+  takes every shape the earlier K9 took (d <= 128 and a joint's betas and
+  one 64-cell piece of R in shared memory), two staged slices where they
+  fit, and its threads' 4-dim tiles cover every dim.
 * ``moe_correct_ridge(..., tiled=)`` (Z_corr, Y_new, W) against JAX's on
   the same layout, one and two covariates, pad cells, a dropped batch:
   Z_corr and W atol 1e-5; Y_new atol 1e-4, because with a fixed lambda the
@@ -123,6 +131,68 @@ def test_k8_k9_twins_match_pallas(N, d, K, B_vec, tile, pad):
     assert (cuda_ridge.tile_moments.launches, cuda_ridge.tiled_correction.launches) == before
     np.testing.assert_allclose(Mt.numpy(), Mj, rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(Ct.numpy(), Cj, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "N,Np,B_vec,tile",
+    [(5000, 5000, (3,), 128), (6000, 6144, (2, 3), 256), (30_011, 30_011, (3, 4), 128),
+     (4000, 4096, (4,), 64)],
+)
+def test_plan_order_covers_every_tile_once(N, Np, B_vec, tile):
+    codes = _codes(N, B_vec, seed=N)
+    _, layout = jtiled.build_batch_tiled_order(codes, tile, seed=1)
+    tj = full_tile_joint(SimpleNamespace(Np=Np), layout)
+    nj = layout.joint_codes.shape[1]
+    nt = -(-Np // tile)
+    assert tj.shape == (nt,)  # the last tile is partial at 5,000 and 30,011 cells
+    # K8's plan at its chunk size, of about 512 cells
+    chunks, start, n_chunks = cuda_ridge._moments_plan(tj.tobytes(), nj, "cpu",
+                                                       max(1, 512 // tile))
+    order = cuda_ridge.plan_order(tj, "cpu")
+    assert order.dtype == torch.int32
+    order = order.numpy()
+    np.testing.assert_array_equal(np.sort(order), np.arange(nt))  # each tile once
+    # joint by joint (the trash row n_joint last), ascending within a joint
+    np.testing.assert_array_equal(order, np.argsort(tj, kind="stable"))
+    # and the plan's chunks read in order: each inside a chunk of its own joint
+    ch, st = chunks.numpy(), start.numpy()
+    np.testing.assert_array_equal(order, ch[ch >= 0])
+    for j in range(nj + 1):
+        rows = ch[st[j] : st[j + 1]]
+        tiles = rows[rows >= 0]
+        assert (tj[tiles] == j).all() and (np.diff(tiles) > 0).all()
+    assert set(order[tj[order] == nj]) == set(np.flatnonzero(tj == nj))
+    assert (tj == nj).any() and n_chunks == len(ch)
+
+
+def _earlier_k9_took(K, d):
+    """The earlier K9's range: 4x4 tiles of 256 threads (d <= 128), and a
+    joint's betas beside one 64-cell piece of R."""
+    return d <= 128 and 4 * K * (cuda_ridge._ceil4(d) + 64) <= cuda_ridge._SMEM_MAX
+
+
+@pytest.mark.parametrize("K_range", [(1, 129), (129, 257), (257, 513), (513, 1025)])
+def test_k9_plan_takes_every_shape_the_earlier_k9_took(K_range):
+    took = 0
+    for K in range(*K_range):
+        for d in list(range(1, 70)) + list(range(70, 400, 7)):
+            if not _earlier_k9_took(K, d):
+                continue
+            took += 1
+            stages, threads, smem = cuda_ridge.k9_plan(K, d)
+            dp = cuda_ridge._ceil4(d)
+            assert smem == 4 * K * (dp + 64 * stages) <= cuda_ridge._SMEM_MAX
+            assert stages == (2 if 4 * K * (dp + 128) <= cuda_ridge._SMEM_MAX else 1)
+            # a thread's 4-dim tiles, threads / 8 of them side by side, cover d
+            assert threads % 32 == 0 and 128 <= threads <= 512
+            assert threads >= min(512, 8 * -(-d // 4))
+    assert took > 0
+    # the main shape: two slices, three CTAs an SM; past shared memory it raises
+    assert cuda_ridge.k9_plan(100, 50) == (2, 128, 72_000)
+    assert cuda_ridge.k9_plan(320, 50)[0] == 2 and cuda_ridge.k9_plan(400, 50)[0] == 1
+    assert cuda_ridge.k9_plan(50, 300)[1] == 512
+    with pytest.raises(ValueError, match="over the 232448"):
+        cuda_ridge.k9_plan(1000, 4)
 
 
 def test_tiled_wrappers_check_their_inputs():

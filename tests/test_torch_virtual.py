@@ -5,7 +5,10 @@
   schedule its key draws, on the cases of ``test_torch_rotate``: M within
   rtol 1e-5 of its max, the penalty tables rtol 1e-6, the tile -> block
   map equal, E/O/tile_O as the plain round.
-* (b) The K10 twin against ``pallas_virtual_correction``: atol 1e-5.
+* (b) The K10 twin against ``pallas_virtual_correction``: atol 1e-5; fed
+  the phase's Gram table from the K6 twin, as the kernel reads it, equal
+  within 1e-6 to the twin that forms the distances, and against the
+  Pallas kernel at atol 1e-5.
 * (c) The K11 twin against ``pallas_materialize_r``: R atol 1e-6, and equal
   within 1e-6 to the R the K7 twin writes in the same round.
 * (d) ``moe_correct_ridge(virtual=)`` against the JAX function on the same
@@ -23,6 +26,18 @@
 * (h) ``run_harmony(..., virtual_r=True)`` at the setup of
   tests/test_auto_mode.py:105-136: the virtual path engages, R columns sum
   to 1 and ``res.W`` reproduces the applied correction (atol 5e-4).
+* (j) The Gram table rides on the state from the phase to the correction,
+  which consumes it: no G is left after ``engine.correct``, and
+  ``materialize_r`` gives the same R before and after; the correction
+  without it (a state crossed from the JAX package) agrees within 1e-6,
+  and a JAX virtual state corrects on the CPU as the JAX package does.
+  Without G the correction writes R with K11 and applies it with K9, on
+  the CPU as on the card (their plain versions here), and gives the bits
+  of the K10 twin that forms the distances.
+* (k) K10's launch plan over a sweep of K, d, B and covariates: where
+  the earlier K10 (a CTA per 64 cells) took the shape, K10 takes it with
+  two correction groups or one, or K11 and K9 take it; the shapes it
+  turns away are K > 256, d > 192 or one group past shared memory.
 * (i) Virtual R engages at K = d = 100, whose (K, d+1) moment table is
   wider than a CTA's threads hold in 4x4 register tiles at once, and
   raises (never falls back to the written path) where the layout tiles
@@ -101,7 +116,8 @@ def _last_round(N, Np, d, K, B_vec, T, write_r, with_G=False):
                        G=gram_table(Y, Zn) if with_G else None),
         write_r, moments=spec_t, emit_pen=True)
     assert cuda_rotate.rotate_update_round_v2.launches == before
-    inputs = dict(Y=Y, sigma=sigma, Zn=np.asarray(Zn), cp=np.asarray(cp_j), Zo=Zo, tj=tj)
+    inputs = dict(Y=Y, sigma=sigma, Zn=np.asarray(Zn), cp=np.asarray(cp_j), Zo=Zo, tj=tj,
+                  Zr=np.asarray(jpr.pad_cells_to_tile(cj, jnp.asarray(Z))), Pr=Pr)
     return cj, ct, ref, out, inputs
 
 
@@ -155,6 +171,38 @@ def test_k10_twin_matches_pallas_virtual_correction(N, Np, d, K, B_vec, T):
     # trash tiles pass Z_orig through
     trash = np.repeat(x["tj"] == N_JOINT, LAYOUT_TILE)
     np.testing.assert_array_equal(out.numpy()[:, trash], x["Zo"][:, trash])
+
+
+@pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
+def test_k10_twin_reading_gram_table_matches_pallas(N, Np, d, K, B_vec, T):
+    cj, ct, (_, _, (pen_j, map_j)), _, x = _last_round(N, Np, d, K, B_vec, T, False)
+    rng = np.random.default_rng(d + 1)
+    W = (0.2 * rng.normal(size=(N_JOINT + 1, d, K))).astype(np.float32)
+    W[N_JOINT] = 0.0
+    ref = jpr.pallas_virtual_correction(
+        cj, jnp.asarray(W), jnp.asarray(x["tj"]), LAYOUT_TILE, jnp.asarray(x["Y"]),
+        jnp.asarray(x["sigma"]), pen_j, map_j, jnp.asarray(x["Zn"]), jnp.asarray(x["cp"]),
+        jnp.asarray(x["Zo"]), interpret=True)
+    # the phase's Zn and Gram table from the K6 twin, as the engine keeps them
+    Zn, _, _, _, G = tr.reassign(ct, _t(x["Y"]), _t(x["sigma"]), _t(x["Pr"]), _t(x["Zr"]),
+                                 _t(x["cp"]))
+    assert G.shape == (Np, K)
+    args = (ct, _t(W), x["tj"], LAYOUT_TILE, _t(x["Y"]), _t(x["sigma"]), _t(pen_j), _t(map_j),
+            Zn, _t(x["cp"]), _t(x["Zo"]))
+    before = cuda_rotate.virtual_correction.launches
+    with_g = cuda_rotate.virtual_correction(*args, G)
+    without = cuda_rotate.virtual_correction(*args)
+    assert cuda_rotate.virtual_correction.launches == before
+    _close(with_g, without, rtol=0, atol=1e-6)
+    _close(with_g, ref, rtol=0, atol=1e-5)
+    trash = np.repeat(x["tj"] == N_JOINT, LAYOUT_TILE)
+    np.testing.assert_array_equal(with_g.numpy()[:, trash], x["Zo"][:, trash])
+    # a table of another layout, or on another device, is refused
+    for fn in (tr.virtual_correction, cuda_rotate.virtual_correction):
+        with pytest.raises(ValueError, match=rf"G must be \({Np}, {K}\)"):
+            fn(*args, G[:-1])
+    with pytest.raises(ValueError, match="G is on meta"):
+        cuda_rotate.virtual_correction(*args, G.to("meta"))
 
 
 @pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
@@ -280,6 +328,122 @@ def test_virtual_state_crosses_between_packages():
     back = tstate.state_to_arrays(st)
     for f in tstate.VIRTUAL_FIELDS:
         np.testing.assert_array_equal(back[f], np.asarray(getattr(sj, f)))
+
+
+@pytest.mark.parametrize("B_vec,N", [((3,), 4000), ((2, 3), 4096)])
+def test_correct_consumes_the_gram_table(B_vec, N):
+    setup = _setup(B_vec, N, 4096)
+    ct = setup[1]
+    _, st, _, tiled = _states(*setup)
+    st = tengine.cluster(ct, st, tiled=tiled)
+    # the phase's table rides on the state to the correction, not across
+    assert st.virt_G is not None and st.virt_G.shape == (4096, ct.K)
+    assert "virt_G" not in tstate.state_to_arrays(st)
+    R_last = tengine.materialize_r(ct, st).R
+    out = tengine.correct(ct, st, tengine.MStepLayout(tiled))
+    assert out.virt_G is None and out.tiled_moments is None and out.virt_pen is not None
+    np.testing.assert_array_equal(tengine.materialize_r(ct, out).R.numpy(), R_last.numpy())
+    # the same correction forming the distances again, as on a crossed state
+    again = tengine.correct(ct, dataclasses.replace(st, virt_G=None),
+                            tengine.MStepLayout(tiled))
+    _close(out.Z_corr, again.Z_corr, rtol=0, atol=1e-6)
+    _close(out.Y, again.Y, rtol=0, atol=1e-6)
+
+
+def test_state_crossed_from_jax_corrects_without_gram_table():
+    setup = _setup((2, 3), 4000, 4096)
+    cj, ct = setup[:2]
+    sj, _, tiled_j, tiled_t = _states(*setup)
+    sj, M, virt = jengine.cluster(cj, sj, tiled=tiled_j, return_moments=True, virtual=True)
+    arrays = {f: np.asarray(getattr(sj, f)) for f in tstate.ARRAY_FIELDS}
+    arrays.update(virt_pen=np.asarray(virt.pen), virt_blkmap=np.asarray(virt.blkmap),
+                  virt_Zn=np.asarray(virt.Zn_pad), virt_Y=np.asarray(virt.Y))
+    st = tstate.state_from_arrays(ct, arrays, "cpu")
+    assert st.virt_G is None and st.virt_pen is not None
+    out = tengine.correct(ct, dataclasses.replace(st, tiled_moments=_t(M)),
+                          tengine.MStepLayout(tiled_t))
+    ref = jridge.moe_correct_ridge(cj, sj.Z_orig, sj.R, sj.O, sj.E, sj.codes, sj.batch_sizes,
+                                   sj.lamb, sj.Y, tiled=tiled_j, tiled_moments=M, virtual=virt)
+    assert out.virt_G is None
+    _close(out.Z_corr, ref[0], rtol=0, atol=1e-5)
+    _close(out.Y, ref[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B_vec,N", [((3,), 4000), ((2, 3), 4096)])
+def test_correction_without_gram_table_writes_r_then_applies_it(B_vec, N, monkeypatch):
+    setup = _setup(B_vec, N, 4096)
+    ct = setup[1]
+    _, st, _, tiled = _states(*setup)
+    st = tengine.cluster(ct, st, tiled=tiled)
+    calls = []
+
+    def spy(mod, name):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, **k: calls.append(name) or fn(*a, **k))
+
+    spy(cuda_rotate, "virtual_correction")
+    spy(cuda_rotate, "materialize_r")
+    spy(cuda_ridge, "tiled_correction")
+    layout = tengine.MStepLayout(tiled)
+    with_g = tengine.correct(ct, st, layout)
+    assert calls == ["virtual_correction"]
+    calls.clear()
+    crossed = dataclasses.replace(st, virt_G=None)
+    without = tengine.correct(ct, crossed, layout)
+    assert calls == ["materialize_r", "tiled_correction"]
+    _close(with_g.Z_corr, without.Z_corr, rtol=0, atol=1e-6)
+    # the K10 twin forming the distances gives the same bits
+    virt = tengine._virtual_context(ct, crossed)
+    nj = tiled.joint_codes.shape[1]
+    Wj = torch.randn(nj + 1, ct.d, ct.K, generator=torch.Generator().manual_seed(0))
+    Wj[-1] = 0.0
+    tj = tridge.full_tile_joint(ct, tiled)
+    args = (ct, Wj, tj, tiled.tile)
+    routed = tridge.virtual_tile_correction(*args, virt)
+    twin = tr.virtual_correction(*args, virt.Y, virt.sigma, virt.pen, virt.blkmap, virt.Zn_pad,
+                                 virt.codes_pad, virt.Z_orig_pad)
+    assert torch.equal(routed, twin)
+
+
+def _earlier_k10_took(K, d, B, ncov):
+    """The earlier K10's shared memory (a CTA per 64 cells staging Y^T,
+    a piece of Zn, its R table, block table, sigma and 2/sigma, the
+    joint's betas and the codes)."""
+    dp = cuda_ridge._ceil4(d)
+    floats = K * d + d * 64 + K * 65 + K * B + 2 * K + K * dp + ncov * 64
+    return 4 * floats <= cuda_rotate._SMEM_MAX
+
+
+@pytest.mark.parametrize("ncov", [1, 2])
+@pytest.mark.parametrize("K_range", [(2, 129), (129, 257), (257, 520)])
+def test_virtual_correction_takes_every_shape_the_earlier_k10_took(K_range, ncov):
+    span = -(-4096 // 132)  # 500k cells at layout tile 128 on 132 SMs
+    took = 0
+    for K in range(*K_range, 3):
+        for d in list(range(1, 80, 3)) + list(range(80, 300, 11)):
+            for B in (1, 2, 3, 10, 26, 40, 100, 200, 400):
+                if not _earlier_k10_took(K, d, B, ncov):
+                    continue
+                took += 1
+                plan = cuda_rotate.virtual_plan(K, d, B, ncov, span)
+                if plan is not None:
+                    groups, smem = plan
+                    assert smem == cuda_rotate.virtual_smem_bytes(K, d, B, ncov, span, groups)
+                    assert smem <= cuda_rotate._SMEM_MAX and K <= 256 and d <= 192
+                    assert groups == 1 or d <= 64
+                    continue
+                # K11 writes R, K9 applies it
+                assert (cuda_rotate.materialize_r_smem_bytes(K, d, B, ncov)
+                        <= cuda_rotate._SMEM_MAX)
+                cuda_ridge.k9_plan(K, d)
+    assert took > 0
+    # the main shape with two groups; one group where two do not fit
+    assert cuda_rotate.virtual_plan(100, 50, 10, 1, span)[0] == 2
+    assert cuda_rotate.virtual_plan(128, 50, 10, 1, span)[0] == 1
+    assert cuda_rotate.virtual_plan(100, 50, 100, 1, span)[0] == 1
+    assert cuda_rotate.virtual_plan(100, 100, 10, 1, span)[0] == 1
+    assert cuda_rotate.virtual_plan(300, 50, 10, 1, span) is None
+    assert cuda_rotate.virtual_plan(50, 200, 10, 1, span) is None
 
 
 @pytest.mark.parametrize("B_vec", [(3,), (2, 3), (2, 2, 3)])

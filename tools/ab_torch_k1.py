@@ -35,9 +35,16 @@ of its kernels (five calls, per call):
   from K6's Gram table where the checkout has one) without writing R,
   writing R, and a phase's last round fusing the M-step's moments and
   storing the penalty tables, without writing R.
+* ``K10``, ``K11``: one K10 call (``cuda_rotate.virtual_correction``)
+  and one K11 call (``cuda_rotate.materialize_r``) from that last round's
+  penalty tables, at ``chip_smoke.check_virtual``'s inputs (seed 17, the
+  same joint betas), K10 given K6's Gram table where the checkout's K10
+  takes it; ``K10_unfused``: K11, then K9 on its R, the path K10 fuses.
 * ``K12``: one K12 round (``cuda_estep.rotate_update_round_v1`` on the
   padded rotate layout, seed 22).
-* ``K8``: one K8 call (``cuda_ridge.tile_moments``, tile 256, seed 13).
+* ``K8``, ``K9``: one K8 call (``cuda_ridge.tile_moments``) and one K9
+  call (``cuda_ridge.tiled_correction``) at ``chip_smoke.check_tiled``'s
+  inputs (tile 256, seed 13).
 * ``K4``, ``K5``: one K4 call (``cuda_ridge.moments``) and one K5 call
   (``cuda_ridge.correction``) at ``chip_smoke.check_ridge``'s inputs (seed
   3), codes drawn at random; where the checkout's wrappers take the
@@ -64,7 +71,7 @@ import subprocess
 import sys
 
 _ONE = r'''
-import inspect, json, os, sys
+import gc, inspect, json, os, sys
 import torch
 from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, ".")
@@ -112,7 +119,8 @@ def k2_phase(N=500_000, B=10, seed=15):
 
 
 def rotate_calls():
-    """K6, and K7's three forms on K6's outputs, as check_virtual sets them up."""
+    """K6, K7's three forms on K6's outputs, and K10 and K11 from the last
+    round's tables, as check_virtual sets them up."""
     from harmony_tpu_torch.ops.ridge import full_tile_joint
     from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
     cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = cs.rotate_problem(
@@ -136,10 +144,21 @@ def rotate_calls():
                            kmeans_error=None, entropy=None)
     a7 = (cfg, Y, rs, Pr_b, sigma, theta, rt, blocks, lay)
     k7 = cuda_rotate.rotate_update_round_v2
+    nj, tj = spec.n_joint, spec.tile_joint
+    W = 0.1 * torch.randn(nj + 1, 50, 100, generator=g, device=dev)
+    W[nj] = 0.0
+    last = k7(*a7, write_r=False, moments=spec, emit_pen=True)
+    vargs = (Y, sigma, last.pen, last.blkmap, Zn, codes_pad)
+    k10 = cuda_rotate.virtual_correction
+    kw10 = extra if "G" in inspect.signature(k10).parameters else {}
+    k11 = lambda: cuda_rotate.materialize_r(cfg, *vargs)
     return {"K6": lambda: cuda_rotate.reassign(*args6),
             "K7": lambda: k7(*a7, write_r=False),
             "K7_write_r": lambda: k7(*a7, write_r=True),
-            "K7_last": lambda: k7(*a7, write_r=False, moments=spec, emit_pen=True)}
+            "K7_last": lambda: k7(*a7, write_r=False, moments=spec, emit_pen=True),
+            "K10": lambda: k10(cfg, W, tj, 256, *vargs, Zo, **kw10),
+            "K10_unfused": lambda: cuda_ridge.tiled_correction(W, tj, k11(), Zo, 256),
+            "K11": k11}
 
 
 def k3_calls():
@@ -172,10 +191,11 @@ def k6_random():
     return lambda: cuda_rotate.reassign(cfg, Y, sigma, Pr_b, Z, codes_pad)
 
 
-def k8_args():
+def tiled_calls():
     cfg, R, Z, tj, nj, W, layout = cs.tiled_problem(torch, 500_000, 50, 100, (10,), 256, 13,
                                                     dev)
-    return (R, Z, 256, tj, nj)
+    return {"K8": lambda: cuda_ridge.tile_moments(R, Z, 256, tj, nj),
+            "K9": lambda: cuda_ridge.tiled_correction(W, tj, R, Z, 256)}
 
 
 def ridge_calls(kind):
@@ -235,10 +255,10 @@ out = {}
 makers = [("K1", k1_call), ("K1_phase", k1_phase), ("K2_phase", k2_phase),
           ("K2_phase_b40", lambda: k2_phase(200_000, 40, 7)),
           (("K3", "K3_moments"), k3_calls),
-          (("K6", "K7", "K7_write_r", "K7_last"), rotate_calls),
+          (("K6", "K7", "K7_write_r", "K7_last", "K10", "K10_unfused", "K11"), rotate_calls),
           ("K6_random", k6_random),
           ("K12", lambda: (lambda a: lambda: cuda_estep.rotate_update_round_v1(*a))(k12_args())),
-          ("K8", lambda: (lambda a: lambda: cuda_ridge.tile_moments(*a))(k8_args())),
+          (("K8", "K9"), tiled_calls),
           (("K4", "K5"), lambda: ridge_calls("random")),
           (("K4_sorted", "K5_sorted"), lambda: ridge_calls("sorted"))]
 calls = []
@@ -251,7 +271,8 @@ for names, make in makers:
               if not ENTRIES or n in ENTRIES]
 for name, call in calls:
     ms = cs.time_ms(torch, name, call,
-                    iters={"K8": 10, "K6": 10, "K6_random": 10, "K3": 10, "K3_moments": 10,
+                    iters={"K8": 10, "K9": 10, "K10": 10, "K10_unfused": 10, "K11": 10,
+                           "K6": 10, "K6_random": 10, "K3": 10, "K3_moments": 10,
                            "K1_phase": 2, "K2_phase": 2,
                            "K2_phase_b40": 2}.get(name, 5))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -269,6 +290,12 @@ for name, call in calls:
     if name.startswith("K2_phase"):
         out[name]["ms_round"] = ms / 4
 print("RESULT " + json.dumps(out), flush=True)
+# free the entries' inputs before the paths: one checkout's entry may hold
+# a tensor (K10's G) that the other's does not, and the paths report the
+# memory allocated before them
+calls.clear()
+call = made = None
+gc.collect()
 os.makedirs(cs.OUT_DIR, exist_ok=True)
 def run_path(path):
     if path == "segment":
