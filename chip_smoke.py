@@ -28,9 +28,13 @@ Phases (``--phases`` picks a subset, comma-separated):
              R; K9 and K10 twice bit-equal, K9 also on rows that are not a
              multiple of 4 cells, with one staged slice of R (K = 400) and
              past 256 dims; the correction's route without G and past
-             K10's limits (K = 300), K11 then K9, equal to K10; K10 with
-             one correction group (B = 100); K10's time beside K11 then
-             K9 on its R, the path it fuses; kernel, plain and
+             K10's limits (K = 300, d = 300), K11 then K9, equal to K10;
+             K11 with the centroids staged and read from device memory;
+             K10 with one correction group (B = 100); K10's time beside
+             K11 then K9 on its R, the path it fuses; K7, K10 and K11 in
+             the legacy op order too, at the main shape (timed) and the
+             shapes above, K11's R equal to K7's and K10 equal to K9 on
+             it (1e-6; 0.0 expected); kernel, plain and
              library-call times (K1's and K2's a phase of rounds, per
              round: K1's with its scatter back to the cells' order, K2's
              with its head), the device time and achieved bytes a second
@@ -68,7 +72,13 @@ Phases (``--phases`` picks a subset, comma-separated):
              round reads the old statistics from R and writes R: K12, K8
              and K9 must be launched, K6, K7, K10 and K11 must not; the
              objective trace is held to main's (rtol 1e-4).
-11. segment  run_harmony on 200,000 x 50 cells in 40 batches (seed 7,
+11. legacy   the same cells through the config and the driver with
+             estep_variant="legacy" on the stats-carrying route, R written
+             (K6, K7, K9; no K8, K10, K11 or K12) and virtual (K6, K7, K10
+             once per iteration, K11 once; no K8, K9 or K12); the
+             objective traces held to main's and virtual's (rtol 1e-4),
+             and the virtual one to the written one (rtol 1e-5).
+12. segment  run_harmony on 200,000 x 50 cells in 40 batches (seed 7,
              shuffle_mode left at its default, so rotate): no batch-tiled
              layout exists at this N and B, so the M-step takes the
              segmented layout (plain PyTorch): K6 and K7 must be launched,
@@ -76,9 +86,11 @@ Phases (``--phases`` picks a subset, comma-separated):
              cells, which resolves to the per-round permute schedule: K1
              must be launched, K4 and K5 must not.
 
-It prints a JSON line of the kernels' numbers, and last
-{"ok": true, "device": {...}}. Any failed check exits non-zero, and so does
-a machine without a GPU or a directory without the package.
+It prints a JSON line of the kernels' numbers, the card's name and power
+limit, and last {"ok": true, "device": {...}}. Any failed check exits 1.
+A machine without a GPU, or a directory without the package (the script
+copied alone), exits 2 and prints no result: the script runs on the card,
+from the root of a checkout.
 """
 
 from __future__ import annotations
@@ -91,9 +103,11 @@ import sys
 import time
 
 PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
-          "rotate_rounds", "rotate_two_phase", "segment")
+          "rotate_rounds", "rotate_two_phase", "legacy", "segment")
 MAIN_PATHS = ("permute", "permute_rounds", "main", "virtual", "rotate_rounds",
               "rotate_two_phase")
+# the legacy phase: the driver with the legacy op order, R written and virtual
+LEGACY_PATHS = ("legacy", "legacy_virtual")
 # the segment phase: (path, cells, schedule its default resolves to)
 SEGMENT_PATHS = (("segment", 200_000, "rotate"), ("segment_permute", 80_000, "permute"))
 B_SEGMENT = 40
@@ -107,6 +121,9 @@ FP32_FLOP_PER_S = 67e12
 # main-path shape: the repo's canonical 500k x 50, K = 100, B = 10
 N_MAIN, D_MAIN, K_MAIN, B_MAIN = 500_000, 50, 100, 10
 MAX_ITER = 10  # run_harmony's default; early stop is on
+# K11 past K10's limits (N, d, K, B_vec, seed), then K9: 300 dims (one
+# CTA an SM) and v_chain at eight cluster values a lane (K = 256)
+VIRTUAL_WIDE = ((20_000, 300, 32, (B_MAIN,), 26), (20_000, D_MAIN, 256, (B_MAIN,), 29))
 R_ATOL = 1e-5  # assignments: fp32 with another summation order
 SUM_RTOL = 1e-4  # sums: max |kernel - plain| <= SUM_RTOL * max |plain|
 # logs too long for the console (profile, ptxas report); a path setting
@@ -530,14 +547,18 @@ def rotate_problem(torch, N, d, K, B_vec, seed, dev):
     return cfg, Z, rotate.make_codes_pad(cfg, codes), Y, sigma, sizes / N, theta, g
 
 
-def check_rotate(torch, dev, N, d, K, B_vec, seed, timed):
+def check_rotate(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
     """K6 (its Gram table G included) and K7 (one round with and one
-    without writing R, g from K6's G) against their plain versions on the
-    same inputs; K7's R also against the plain round that forms g itself."""
+    without writing R, g from K6's G, in the op order ``variant``) against
+    their plain versions on the same inputs; K7's R also against the plain
+    round that forms g itself."""
+    import dataclasses
+
     from harmony_tpu_torch.ops import cuda_rotate, rotate
 
     cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = rotate_problem(
         torch, N, d, K, B_vec, seed, dev)
+    cfg = dataclasses.replace(cfg, estep_variant=variant)
     args6 = (cfg, Y, sigma, Pr_b, Z, codes_pad)
     Zn, tO, O, E, G = cuda_rotate.reassign(*args6)
     again = cuda_rotate.reassign(*args6)
@@ -568,8 +589,8 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed):
     e7 = float((out7[True].R - ref7[True].R).abs().max())
     e7g = float((out7[True].R - own_g.R).abs().max())
     require(out7[False].R is rs.R, "K7 without write_r must hand back the input R")
-    log(f"  K7 schedule rt={rt}, order={order[:5]}...: max|dR|={e7:.3e}, against the plain "
-        f"round forming g itself {e7g:.3e} (atol {R_ATOL})")
+    log(f"  K7 ({variant}) schedule rt={rt}, order={order[:5]}...: max|dR|={e7:.3e}, against "
+        f"the plain round forming g itself {e7g:.3e} (atol {R_ATOL})")
     require(max(e7, e7g) <= R_ATOL, f"K7 R disagrees: {e7}, {e7g}")
     for wr in (True, False):
         o, r = out7[wr], ref7[wr]
@@ -635,19 +656,24 @@ def time_k6(torch, args6, what, sfx):
     return row
 
 
-def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
+def check_virtual(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
     """A phase's last K7 round with the fused moments and the penalty
     tables (writing R and not), K10 and K11 against their plain versions
-    on the same inputs, the cells in a batch-tiled order so the layout has
-    pure tiles. K11 from K7's tables must give back the R K7 wrote. The
-    correction goes through the route the engine takes (K10 where it takes
-    the shape, else K11 then K9), and again without G (K11 then K9)."""
+    on the same inputs, in the op order ``variant``, the cells in a
+    batch-tiled order so the layout has pure tiles. K11 from K7's tables
+    must give back the R K7 wrote. The correction goes through the route
+    the engine takes (K10 where it takes the shape, else K11 then K9), and
+    again without G (K11 then K9). Timed under ``legacy``, only K7's last
+    round, K10 and K11 (keys ``*_legacy``)."""
+    import dataclasses
+
     from harmony_tpu_torch.ops import cuda_ridge, cuda_rotate, rotate
     from harmony_tpu_torch.ops.ridge import full_tile_joint, virtual_tile_correction
     from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
 
     cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = rotate_problem(
         torch, N, d, K, B_vec, seed, dev)
+    cfg = dataclasses.replace(cfg, estep_variant=variant)
     Np, ncov = cfg.Np, len(B_vec)
     tile = 256 if N >= 100_000 else 128
     order, layout = build_batch_tiled_order(codes_pad[:, :N].cpu().numpy(), tile, seed)
@@ -707,13 +733,14 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
     e10, r10 = float((Zc - Zc_ref).abs().max()), rel_err(Zc, Zc_ref)
     e10_9 = float((Zc - Zc9).abs().max())
     colsum = float(R11[:, :N].sum(0).sub(1).abs().max())
-    log(f"  K7 last round N={N} (Np={Np}) d={d} K={K} B_vec={B_vec}, layout tile {tile}, "
-        f"{nj} joint levels, moments + emit_pen: max|dR|={e7:.3e} (atol {R_ATOL}); "
+    log(f"  K7 last round ({variant}) N={N} (Np={Np}) d={d} K={K} B_vec={B_vec}, layout tile "
+        f"{tile}, {nj} joint levels, moments + emit_pen: max|dR|={e7:.3e} (atol {R_ATOL}); "
         + ", ".join(f"{k} rel {v:.3e}" for k, v in errs7.items()) + f" (rtol {SUM_RTOL}); "
         f"tile -> block map equal: {same_map}; without writing R the same M and pen: {same_v}")
-    log(f"  K11 max|dR|={e11:.3e} (atol {R_ATOL}), against K7's written R {e11_7:.3e} "
-        f"(atol 1e-6; reads 0.0 when K6's G and K11's gram agree bit for bit: "
-        f"{e11_7 == 0.0}); R column sums within {colsum:.2e} of 1")
+    log(f"  K11 ({k11_form(torch, dev, cfg, d, Np)}) max|dR|={e11:.3e} (atol {R_ATOL}), "
+        f"against K7's written R {e11_7:.3e} "
+        f"(atol 1e-6; reads 0.0 when K6's G and K11's product and chain agree bit for "
+        f"bit: {e11_7 == 0.0}); R column sums within {colsum:.2e} of 1")
     e_nog = float((Zc_nog - Zc).abs().max())
     log(f"  K10 (K10, K11, K9 launches {route}; K10 takes the shape: {k10_takes}) "
         f"max|dZ|={e10:.3e} rel {r10:.3e} (rtol {SUM_RTOL}); against K9 on K7's R "
@@ -738,7 +765,15 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
     k7m = {"max_abs_err_moments": max(e7, errs7["M"])}
     k10, k11 = {"max_abs_err": e10}, {"max_abs_err": max(e11, e11_7)}
     k6 = {}
-    if timed:
+    if timed and variant == "legacy":
+        k7m = {"ms_moments_legacy": time_ms(
+            torch, "K7 kernel last round (legacy), moments + penalty tables",
+            lambda: cuda_rotate.rotate_update_round_v2(*args, write_r=False, **kw), iters=5)}
+        k10 = {"ms_legacy": time_ms(torch, "K10 kernel (legacy)",
+                                    lambda: cuda_rotate.virtual_correction(*cargs))}
+        k11 = {"ms_legacy": time_ms(torch, "K11 kernel (legacy)",
+                                    lambda: cuda_rotate.materialize_r(cfg, *vargs))}
+    elif timed:
         # K6 on the batch-tiled order the main path gives it
         k6 = time_k6(torch, args6, "batch-tiled order", "_tiled")
         flops = 2.0 * K * d * Np
@@ -780,6 +815,47 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed):
         # Zn and the codes read once, R written once
         k11["bound_ms"], k11["bound_by"] = bound(4 * (d * Np + ncov * Np + K * Np), flops)
     return k7m, k10, k11, k6
+
+
+def k11_form(torch, dev, cfg, d, Np) -> str:
+    """K11's launch plan at a shape, for the log."""
+    from harmony_tpu_torch.ops import cuda_rotate
+
+    plan = cuda_rotate.materialize_r_plan(cfg.K, d, cfg.B, cfg.n_covariates)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    chain = f"v_chain, {plan.kj} values a lane" if plan.kj else "assign_chain"
+    return (f"{chain}, Y {'staged' if plan.ys_shared else 'read from device memory'}, "
+            f"{plan.smem} bytes of shared memory, "
+            f"{cuda_rotate.materialize_r_grid(Np // 64, plan.smem, n_sm)} CTAs")
+
+
+def check_k11(torch, dev, N, d, K, B_vec, seed, variant):
+    """K11 alone against its plain version, twice bit-equal, on a layout
+    normalised by K6's plain version and seeded penalty tables, at a shape
+    K6 does not take (so no phase's Gram table exists to hold it to)."""
+    import dataclasses
+
+    from harmony_tpu_torch.ops import cuda_rotate, rotate
+
+    cfg, Z, codes_pad, Y, sigma, Pr_b, _, g = rotate_problem(torch, N, d, K, B_vec, seed, dev)
+    cfg = dataclasses.replace(cfg, estep_variant=variant)
+    Zn = rotate.reassign(cfg, Y, sigma, Pr_b, Z, codes_pad)[0]
+    nb = len(rotate.block_sizes(cfg)[0])
+    pen = 0.5 + torch.rand(nb, K, cfg.B, generator=g, device=dev)
+    vargs = (Y, sigma, pen, rotate.block_of_tiles(cfg, 5, dev), Zn, codes_pad)
+    R = cuda_rotate.materialize_r(cfg, *vargs)
+    same = bool(torch.equal(R, cuda_rotate.materialize_r(cfg, *vargs)))
+    R_ref = rotate.materialize_r(cfg, *vargs)
+    torch.cuda.synchronize()
+    err = float((R - R_ref).abs().max())
+    colsum = float(R[:, :N].sum(0).sub(1).abs().max())
+    log(f"  K11 alone ({variant}) N={N} d={d} K={K} B_vec={B_vec} "
+        f"({k11_form(torch, dev, cfg, d, cfg.Np)}): max|dR|={err:.3e} (atol {R_ATOL}); "
+        f"repeat bit-equal {same}; "
+        f"R column sums within {colsum:.2e} of 1")
+    require(err <= R_ATOL, f"K11 alone disagrees: {err}")
+    require(same, "K11 repeats differ")
+    require(colsum <= 1e-4, f"K11 alone: R columns do not sum to 1: {colsum}")
 
 
 def check_rotate_v1(torch, dev, N, d, K, B_vec, seed, timed):
@@ -1135,11 +1211,11 @@ def check_cell_route(torch, dev, wrappers):
     require(sep1 < sep0, "cell-granular route: batch-centroid separation did not shrink")
 
 
-def run_two_phase(N, Zh, meta, dev):
-    """The rotate rounds without the stats carry at the main shape, through
-    the config and the driver (run_harmony has no argument for them), with
-    run_harmony's ridge solver and ingest: the batch-tiled order and its
-    inverse."""
+def run_driver(N, Zh, meta, dev, **change):
+    """The main shape through the config and the driver, for the options
+    run_harmony has no argument for (``change``: the rotate rounds without
+    the stats carry, or the legacy op order), with run_harmony's ridge
+    solver and ingest: the batch-tiled order and its inverse."""
     import dataclasses
 
     from harmony_tpu_torch import api, driver, engine, preprocess
@@ -1154,7 +1230,7 @@ def run_two_phase(N, Zh, meta, dev):
         n_cells=N, d=Z.shape[0], design=design, nclust=None, max_iter=MAX_ITER,
         early_stop=True, options=opts, verbose=False, lambda_estimation=True,
         ridge_solver="auto", shuffle_mode="rotate")
-    cfg = finalize_engine_config(dataclasses.replace(cfg, rotate_stats_carry=False))
+    cfg = finalize_engine_config(dataclasses.replace(cfg, **change))
     Z, design, inv = api._ingest_order(cfg, Z, design, 0)
     layout = engine.mstep_layout(cfg, design.codes, dev)
     hp = preprocess.expand_hyperparams(design, cfg.K, None, 0.1, None, opts.tau)
@@ -1172,7 +1248,9 @@ def run_main_path(torch, dev, wrappers, phase):
     'permute_rounds' with a clustering budget of 6 rounds, the per-round
     kernel), or shuffle_mode left at its default (phase 'main'; 'virtual'
     with virtual_r=True; 'rotate_rounds' with a budget of 6 rounds); or the
-    driver-level entry without the stats carry (phase 'rotate_two_phase').
+    driver-level entry without the stats carry (phase 'rotate_two_phase'),
+    or with the legacy op order, writing R ('legacy') and with virtual R
+    ('legacy_virtual').
     Launch counts are set to 0 right before the call and read right after
     it.
     Returns (launches, objective trace, Harmony iterations)."""
@@ -1197,7 +1275,10 @@ def run_main_path(torch, dev, wrappers, phase):
         w.launches = 0
     t0 = time.perf_counter()
     if phase == "rotate_two_phase":
-        res = run_two_phase(N_MAIN, Zh, meta, dev)
+        res = run_driver(N_MAIN, Zh, meta, dev, rotate_stats_carry=False)
+    elif phase.startswith("legacy"):
+        res = run_driver(N_MAIN, Zh, meta, dev, estep_variant="legacy",
+                         virtual_r=phase == "legacy_virtual")
     else:
         res = run_harmony(Zh, meta, ["batch"], max_iter=MAX_ITER, return_object=True, seed=0,
                           **kw)
@@ -1212,13 +1293,17 @@ def run_main_path(torch, dev, wrappers, phase):
             f"{phase} path resolved rotate_route={res.config.rotate_route!r}")
     require(res.config.permute_fused == (phase == "permute"),
             f"{phase} path resolved permute_fused={res.config.permute_fused}")
-    require((res.state.virt_pen is not None) == (phase == "virtual"),
+    require((res.state.virt_pen is not None) == phase.endswith("virtual"),
             f"{phase} path: virtual R engaged={res.state.virt_pen is not None}")
+    require((res.config.estep_variant == "legacy") == phase.startswith("legacy"),
+            f"{phase} path: estep_variant={res.config.estep_variant!r}")
     ph = res.phase_seconds()
     n_it = int(res.state.n_rounds)
     per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
-    entry = "driver.run" if phase == "rotate_two_phase" else "run_harmony"
-    log(f"{phase} path: {entry} {N_MAIN} x {D_MAIN}, K={res.K}, B={res.B}, {mode}"
+    entry = ("driver.run" if phase == "rotate_two_phase" or phase.startswith("legacy")
+             else "run_harmony")
+    log(f"{phase} path: {entry} {N_MAIN} x {D_MAIN}, K={res.K}, B={res.B}, {mode}, "
+        f"{res.config.estep_variant}"
         f" (fused={res.config.permute_fused}, max_iter_cluster={res.config.max_iter_cluster}, "
         f"T={res.config.estep_sub_tile}, Np={res.config.Np}), max_iter={MAX_ITER}: "
         f"{n_it} iterations, wall {wall:.2f} s")
@@ -1396,6 +1481,8 @@ def main(argv=None) -> int:
              "virtual": (("K6", "K7", "K10", "K11"), ("K8", "K9")),
              "rotate_rounds": (("K6", "K7", "K8", "K9"), ("K10", "K11", "K12")),
              "rotate_two_phase": (("K12", "K8", "K9"), ("K6", "K7", "K10", "K11")),
+             "legacy": (("K6", "K7", "K9"), ("K8", "K10", "K11", "K12")),
+             "legacy_virtual": (("K6", "K7", "K10", "K11"), ("K8", "K9", "K12")),
              "segment": (("K6", "K7"), ("K4", "K5", "K8", "K9", "K10", "K11")),
              "segment_permute": (("K1",), ("K2", "K3", "K4", "K5", "K8", "K9"))}
     t_start = time.perf_counter()
@@ -1488,6 +1575,23 @@ def main(argv=None) -> int:
         # its 256 clusters the correction runs K11, then K9
         check_virtual(torch, dev, 20_000, D_MAIN, K_MAIN, (100,), 20, False)
         check_virtual(torch, dev, 20_000, D_MAIN, 300, (B_MAIN,), 21, False)
+        for shape in VIRTUAL_WIDE:
+            check_virtual(torch, dev, *shape, False)
+        # K11 reading the centroids where they lie (past K6's shared memory:
+        # a state crossed from the JAX package), against its plain version
+        for variant in ("fused_vpu", "legacy"):
+            check_k11(torch, dev, 20_000, 300, 100, (20,), 27, variant)
+        # the legacy op order: K7's rounds, its last round, K10 and K11 at
+        # the main shape (timed) and at every shape above but 200k x 40
+        check_rotate(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 11, False, "legacy")
+        check_rotate(torch, dev, 30_011, 13, 7, (3, 4), 12, False, "legacy")
+        for row, extra in zip(("K7", "K10", "K11"), check_virtual(
+                torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, True, "legacy")):
+            kernels[row].update(extra)
+        for shape in ((30_011, 13, 7, (3, 4), 18), (20_000, 100, 100, (B_MAIN,), 19),
+                      (20_000, D_MAIN, K_MAIN, (100,), 20), (20_000, D_MAIN, 300, (B_MAIN,), 21),
+                      *VIRTUAL_WIDE):
+            check_virtual(torch, dev, *shape, False, "legacy")
         k8, k9 = check_tiled(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 256, 13, True)
         kernels["K8"].update(k8)
         kernels["K9"].update(k9)
@@ -1520,6 +1624,8 @@ def main(argv=None) -> int:
     traces = {}
     runs = [(p, lambda p=p: run_main_path(torch, dev, wrappers, p)) for p in MAIN_PATHS
             if p in phases]
+    if "legacy" in phases:
+        runs += [(p, lambda p=p: run_main_path(torch, dev, wrappers, p)) for p in LEGACY_PATHS]
     if "segment" in phases:
         runs += [(p, lambda p=p, n=n, sch=sch: (run_segment_path(torch, dev, wrappers, p, n,
                                                                  sch), None, None))
@@ -1536,18 +1642,24 @@ def main(argv=None) -> int:
             require(launches[k] > 0, f"{k} was not launched on the {phase} path")
         for k in never:
             require(launches[k] == 0, f"{k} was launched on the {phase} path")
-        if phase == "virtual":
+        if phase.endswith("virtual"):
             # one correction per iteration, R rebuilt once per run
             require(launches["K10"] == n_it and launches["K11"] == 1,
-                    f"virtual path: K10 {launches['K10']} launches for {n_it} iterations, "
+                    f"{phase} path: K10 {launches['K10']} launches for {n_it} iterations, "
                     f"K11 {launches['K11']}")
-            log(f"  objective trace: main {traces.get('main')}, virtual {traces['virtual']}")
-            if "main" in traces:
-                # the JAX package's bound between a virtual and a written run
-                obj_rel = max(abs(a - b) / abs(b) for a, b in zip(traces["virtual"],
-                                                                  traces["main"]))
-                log(f"  virtual against main: objective rel {obj_rel:.3e} (rtol 1e-5)")
-                require(obj_rel <= 1e-5, f"virtual path objectives disagree: {obj_rel}")
+        # the paths each path's objective trace is held to: a virtual run
+        # to the written one at the JAX package's bound; the legacy op order
+        # to fused_vpu on the same route, one function in another op order
+        held = {"virtual": (("main", 1e-5),), "legacy": (("main", 1e-4),),
+                "legacy_virtual": (("virtual", 1e-4), ("legacy", 1e-5))}
+        for other, rtol in held.get(phase, ()):
+            if other not in traces:
+                continue
+            a, b = traces[phase], traces[other]
+            obj_rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+            log(f"  {phase} against {other}: objective rel {obj_rel:.3e} (rtol {rtol}; "
+                f"{len(a)} and {len(b)} entries); {phase} {a}, {other} {b}")
+            require(obj_rel <= rtol, f"{phase} objectives disagree with {other}: {obj_rel}")
         if phase == "rotate_two_phase" and "main" in traces:
             # the rounds that re-read R against the stats carry: the same
             # function in another summation order

@@ -155,9 +155,9 @@ class HarmonyConfig:
     # finalize_engine_config), the batch-tiled layout's tile width, the
     # M-step moment strategy ('auto' | 'tiled' | 'dense'), the assignment
     # op order of the stats-carrying round ('fused_vpu'; 'fused_mxu' is the
-    # same function) and whether the rounds carry per-tile statistics
-    # (K6/K7) or read the old block statistics from R (K12); see
-    # :attr:`rotate_route`.
+    # same function; 'legacy' the reference's two normalisations) and
+    # whether the rounds carry per-tile statistics (K6/K7) or read the old
+    # block statistics from R (K12); see :attr:`rotate_route`.
     estep_sub_tile: int = 4096
     mstep_tile: int = 256
     mstep_mode: str = "auto"
@@ -348,9 +348,9 @@ def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
       tile geometry, whether or not the rounds carry stats
       (harmony_tpu/config.py:453-482); the cell-granular route gets none,
       as the JAX package's XLA path gets none. ``estep_variant='legacy'``
-      raises on the stats-carrying route (K7's op orders) and is ignored
-      on the other two, which have one op sequence each, as the JAX
-      package ignores it there.
+      selects the reference's two-normalise op order of K7, K10 and K11 on
+      the stats-carrying route and is ignored on the other two, which have
+      one op sequence each, as the JAX package ignores it there.
     - ``permute_fused=None`` resolves to True under the JAX package's gate
       (harmony_tpu/config.py:421-432): the permute schedule, the kernels,
       ``Np >= 200_000``, ``K <= 256`` and a static round count
@@ -381,11 +381,8 @@ def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
         )
     if cfg.virtual_r is None:
         cfg = dataclasses.replace(cfg, virtual_r=reduced)
-    if cfg.shuffle_mode == "rotate":
-        if cfg.estep_variant == "legacy" and cfg.rotate_route == "carry":
-            raise _not_ported("estep_variant='legacy'", "ROADMAP A9")
-        if cfg.rotate_route != "cell":
-            cfg = _rotate_geometry(cfg)
+    if cfg.shuffle_mode == "rotate" and cfg.rotate_route != "cell":
+        cfg = _rotate_geometry(cfg)
     impl = "kernel" if cfg.dtype == "float32" else "torch"
     if cfg.estep_impl == "auto":
         cfg = dataclasses.replace(cfg, estep_impl=impl)

@@ -26,15 +26,20 @@
 // rows, one thread a (k, b) column, over (tile, column chunk) CTAs.
 //
 // K7 replaces harmony_tpu/ops/pallas_rotate.py _round_kernel_v2 (:594),
-// reached through pallas_rotate_update_round_v2 (:851), in its fused_vpu
-// op order (_assign_tile :403): one stats-carrying round. Per block (a run
+// reached through pallas_rotate_update_round_v2 (:851), in both of its op
+// orders (_assign_tile :403): one stats-carrying round. Per block (a run
 // of whole tiles, rotated mod NT) it removes the block's old O/E, taken
 // from the previous round's tile table and never from R, builds the
 // block-constant penalty ((2E+1)/(O+E+1))^theta, assigns each cell
-//   w = exp((g - 1) 2/sigma) * pen[code],  R = w * (1 / colsum(w)),
-// emits the block's per-tile table, the k-means error 2 n - 2 sum R g and
-// the entropy (factorised for one covariate, pallas_rotate.py:781-805;
-// sum sigma R log R otherwise), and commits the block. R is written only
+//   fused_vpu: w = exp((g - 1) 2/sigma) * pen[code],
+//   legacy:    e = exp(-2 (1 - g) / sigma), w = (e / colsum(e)) * pen[code]
+//              (the reference's two normalisations, src/harmony.cpp:319-323),
+//   R = w * (1 / colsum(w)),
+// emits the block's per-tile table, the k-means error (2 n - 2 sum R g;
+// legacy: sum R 2 (1 - g)) and the entropy (factorised for one covariate,
+// pallas_rotate.py:781-805, whose column term is log colsum(w), legacy
+// log(colsum(e) colsum(w)); sum sigma R log R otherwise), and commits the
+// block. R is written only
 // when asked (the phase's last round). On the last round it can also
 // store each block's penalty table (emit_pen, for virtual R) and fuse the
 // M-step's joint-batch moments M[j] = sum over layout tiles of joint j of
@@ -56,9 +61,15 @@
 // state until the correction), so it moves 0.5 GB (0.15 ms) and does the
 // correction's 5 GFLOP (75 us).
 // K11 replaces _materialize_r_kernel (:1621), reached through
-// pallas_materialize_r (:1648): the run-end R from the same tables. Bound:
-// R written once and Zn read once (0.3 GB, 90 us) against 5 GFLOP (75
-// us): bytes-bound.
+// pallas_materialize_r (:1648): the run-end R from the same tables, and on
+// a correction K10 does not take, the R K9 applies. Bound: R written once
+// and Zn read once (0.3 GB, 90 us) against 5 GFLOP (75 us): bytes-bound.
+// This design forms g again (the phase's G is gone by then): its floor is
+// the larger of the 0.3 GB and the product at K6's rate on the SM (~21
+// TFLOP/s, a 4 x 8 tile's shared-memory loads: ~0.24 ms), so ~0.24 ms
+// where the chain and the R stores hide behind the product of the other
+// CTA on the SM. They hide only in part: the chain is latency-bound and
+// as long as the product on its own at the main shape (PERF.md §6).
 //
 // Design. On the TPU the round was one sequential grid with E/O in VMEM.
 // Here, as in estep_round.cu (K1), blocks are sequential and a block's
@@ -93,9 +104,10 @@
 // laid out joint by joint). No float atomics anywhere, so repeated runs
 // give the same trajectory.
 // K6 is (a) without the penalty over persistent CTAs (see its kernel),
-// plus a reduction kernel that builds tile_O, O and E. K11 is (a) over the
-// whole padded layout, each CTA taking its penalty table from its tile's
-// block. K10 gives each persistent CTA an equal range of the layout
+// plus a reduction kernel that builds tile_O, O and E. K11 walks the
+// whole padded layout over persistent CTAs, as K6 does, forming g with
+// K6's register tiles and running K10's chain (see its kernel). K10
+// gives each persistent CTA an equal range of the layout
 // tiles in K8's plan order (tiled.cu), a joint's betas staged once where
 // its run starts, and splits its warps into a chain role and correction
 // groups that hand R tables over at named barriers (see its kernel). It
@@ -105,14 +117,16 @@
 //
 // Bit-equal recomputation. K7's written R, the R K10 recomputes and K11's
 // R must be the same bits per cell (the property of pallas_rotate.py:
-// 1436-1441). K7 and K10 read g from K6's G; K11 computes it with gram on
-// the phase's stored Zn, and K6 computed G on the same Zn values with
-// gram's fixed fmaf sequence over e = 0..d-1 per output (in register
-// tiles), so g has the same bits in all three. Then K7 and K11 call one
-// routine, assign_chain, and K10 runs its per-cell operations in its
-// order four cells at a time; every product that feeds a sum or R is
-// __fmul_rn, so no kernel lets the compiler contract it into an FMA
-// differently.
+// 1436-1441), in either op order. K7 and K10 read g from K6's G; K11
+// computes it on the phase's stored Zn with tile_gram, the routine K6
+// formed G with on the same Zn values (a fixed fmaf sequence over e =
+// 0..d-1 per output), so g has the same bits in all three. Then K7 runs
+// assign_chain, and K10 and K11 run its per-cell operations in its order
+// four cells at a time (v_chain; K11 past 256 clusters runs assign_chain);
+// each column sum is a lane's sum over its clusters in order, then the
+// same xor-shuffle tree; every product that feeds a sum or R is __fmul_rn
+// and every division __fdiv_rn, so no kernel lets the compiler contract
+// or approximate them differently.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -165,32 +179,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
 }
 
-// Ls[k * kTP + t] = sum_e Ys[k, e] Zs[e, t] for the CTA's 64 cells: lane ->
-// cells (lane, lane+32), warp -> 8 cluster rows at a time.
-__device__ __forceinline__ void gram(const float* Ys, const float* Zs,
-                                     float* Ls, int K, int d) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int kc = w * kKC; kc < K; kc += kWarps * kKC) {
-    float a0[kKC], a1[kKC];
+// The product of K6 and K11: g = Y^T z of one 4-cell x 8-cluster register
+// tile, acc[i][j] = the sum over e = 0..d-1 of y[e][j] z[e][i], each
+// output acc = fmaf(y, z, acc) from 0 in that order, so K6's G and K11's g
+// are the same bits. yp: the tile's 8 clusters of Y^T stored (d x ys),
+// zp: its 4 cells of a (d x 64) piece; both float4-aligned. One float4 of
+// z and two of Y^T per 32 FMAs.
+__device__ __forceinline__ void tile_gram(const float* yp, int ys, const float* zp, int d,
+                                          float (&acc)[4][8]) {
 #pragma unroll
-    for (int j = 0; j < kKC; ++j) a0[j] = a1[j] = 0.f;
-    for (int e = 0; e < d; ++e) {
-      const float z0 = Zs[e * kCT + lane];
-      const float z1 = Zs[e * kCT + lane + 32];
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < kKC; ++j) {
-        const float y = Ys[min(kc + j, K - 1) * d + e];
-        a0[j] = fmaf(y, z0, a0[j]);
-        a1[j] = fmaf(y, z1, a1[j]);
-      }
-    }
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int e = 0; e < d; ++e) {
+    const float4 z = *reinterpret_cast<const float4*>(zp + e * kCT);
+    const float4 ya = *reinterpret_cast<const float4*>(yp + e * ys);
+    const float4 yb = *reinterpret_cast<const float4*>(yp + e * ys + 4);
+    const float zv[4] = {z.x, z.y, z.z, z.w};
+    const float yv[8] = {ya.x, ya.y, ya.z, ya.w, yb.x, yb.y, yb.z, yb.w};
 #pragma unroll
-    for (int j = 0; j < kKC; ++j) {
-      if (kc + j < K) {
-        Ls[(kc + j) * kTP + lane] = a0[j];
-        Ls[(kc + j) * kTP + lane + 32] = a1[j];
-      }
-    }
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(yv[j], zv[i], acc[i][j]);
   }
 }
 
@@ -238,35 +249,37 @@ __device__ __forceinline__ void stage_codes(const int* codes, const int* offsets
   }
 }
 
-// Stages the CTA's cells: Z columns into Zs, and their codes.
-__device__ __forceinline__ void stage_cells(const float* Z, const int* codes,
-                                            const int* offsets, float* Zs,
-                                            int* gcs, long long L,
-                                            long long base, int d, int ncov) {
-  for (int i = threadIdx.x; i < d * kCT; i += kThreads) {
-    const int e = i / kCT, t = i - e * kCT;
-    Zs[i] = Z[e * L + base + t];
-  }
-  stage_codes(codes, offsets, gcs, L, base, ncov);
+// The per-cell operations of the legacy order (pallas_rotate.py:452-458,
+// the reference's two normalisations, src/harmony.cpp:319-323):
+// d = 2 (1 - g), e = exp(-d / sigma), then w = (e / colsum(e)) * pc.
+__device__ __forceinline__ float legacy_d(float g) { return __fmul_rn(2.f, 1.f - g); }
+__device__ __forceinline__ float legacy_e(float dv, float sigma) {
+  return expf(__fdiv_rn(-dv, sigma));
 }
 
-// The assignment chain of K7 and K11 (K10 runs its operations four
-// cells at once) for the piece whose g = Y^T z is in Ls (K7: from K6's
-// G; K11: gram), per cell (one warp a
-// column, lanes over clusters) w = exp((g - 1) 2/sigma) * pc with pc the
-// penalty summed over the cell's covariates (0 on pad cells), and R = w *
-// (1 / colsum(w)), the sum guarded against zero; R overwrites Ls. With
-// kObj the cell's k-means error and entropy terms are added to kerr/ent
-// (lane-uniform). The caller synchronises before (g in Ls) and after
-// (readers of Ls).
+// The assignment chain of K7 and K11 past 256 clusters (K10 and K11 run
+// its operations four cells at once, v_chain) for the piece whose g = Y^T z
+// is in Ls (K7: from K6's G; K11: tile_gram), per cell (one warp a column,
+// lanes over clusters), with pc the penalty summed over the cell's
+// covariates (0 on pad cells):
+//   fused_vpu: w = exp((g - 1) 2/sigma) * pc;
+//   legacy (kLegacy): e = exp(-2 (1 - g) / sigma), w = (e / colsum(e)) * pc,
+//     Ls holding e between the passes (with kObj, g is read again from the
+//     piece's rows of G, Gg, for the k-means error);
+// then R = w * (1 / colsum(w)), the sum guarded against zero; R overwrites
+// Ls. Each column sum is a lane's sum over k = lane, lane + 32, ... in
+// order, then the xor-shuffle tree. With kObj the cell's k-means error
+// and entropy terms are added to kerr/ent (lane-uniform). The caller
+// synchronises before (g in Ls) and after (readers of Ls).
 // A warp takes two cells at a time, t and t + 32, so the two chains'
 // latencies overlap; each cell's operations are the same in the same order
 // as one at a time.
-template <bool kObj>
+template <bool kObj, bool kLegacy>
 __device__ __forceinline__ void assign_chain(float* Ls, const float* pens, const float* lps,
                                              const float* sig, const float* i2s,
                                              const int* gcs, int K, int B, int ncov,
-                                             float& kerr, float& ent) {
+                                             float& kerr, float& ent,
+                                             const float* Gg = nullptr) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   for (int t0 = w; t0 < kCT / 2; t0 += kWarps) {
     const int tt[2] = {t0, t0 + kCT / 2};
@@ -276,6 +289,75 @@ __device__ __forceinline__ void assign_chain(float* Ls, const float* pens, const
     for (int u = 0; u < 2; ++u) {
       g0[u] = gcs[tt[u]];
       cs[u] = swg[u] = sws[u] = swl[u] = 0.f;
+    }
+    if constexpr (kLegacy) {
+      // pass 1: e into Ls, colsum(e) summed
+      float c1[2] = {0.f, 0.f};
+      for (int k = lane; k < K; k += 32) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float e = legacy_e(legacy_d(Ls[k * kTP + tt[u]]), sig[k]);
+          c1[u] += e;
+          Ls[k * kTP + tt[u]] = e;
+        }
+      }
+      warp_sum2(c1[0], c1[1]);
+      // pass 2: w = (e / colsum(e)) * pc; the k-means error as sum w d
+      for (int k = lane; k < K; k += 32) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int t = tt[u];
+          float pc = 0.f;
+          for (int c = 0; c < ncov; ++c) {
+            const int gc = gcs[c * kCT + t];
+            if (gc >= 0) pc += pens[k * B + gc];
+          }
+          const float wv = __fmul_rn(__fdiv_rn(Ls[k * kTP + t], c1[u]), pc);
+          cs[u] += wv;
+          if (kObj) {
+            swg[u] += wv * legacy_d(Gg[t * K + k]);
+            if (ncov == 1 && g0[u] >= 0) {
+              sws[u] += sig[k] * wv;
+              swl[u] += sig[k] * wv * lps[k * B + g0[u]];
+            }
+          }
+          Ls[k * kTP + t] = wv;
+        }
+      }
+      warp_sum2(cs[0], cs[1]);
+      float inv[2], sxl[2] = {0.f, 0.f};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) inv[u] = 1.f / (cs[u] == 0.f ? 1.f : cs[u]);
+      for (int k = lane; k < K; k += 32) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float r = __fmul_rn(Ls[k * kTP + tt[u]], inv[u]);
+          if (kObj && ncov > 1) sxl[u] += sig[k] * (r > 0.f ? r * logf(r) : 0.f);
+          Ls[k * kTP + tt[u]] = r;
+        }
+      }
+      if (kObj) {
+        warp_sum2(swg[0], swg[1]);
+        if (ncov == 1) {
+          warp_sum2(sws[0], sws[1]);
+          warp_sum2(swl[0], swl[1]);
+        } else {
+          warp_sum2(sxl[0], sxl[1]);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          // sum R d (pallas_rotate.py:773-774); log R's column term is
+          // log(colsum(e) colsum(w)) (:796-798)
+          const float csg = cs[u] == 0.f ? 1.f : cs[u];
+          const float s_rd = swg[u] * inv[u];
+          kerr += s_rd;
+          if (ncov == 1)
+            ent += -s_rd - logf(c1[u] * csg) * (sws[u] * inv[u]) + swl[u] * inv[u];
+          else
+            ent += sxl[u];
+        }
+      }
+      continue;
     }
     for (int k = lane; k < K; k += 32) {
 #pragma unroll
@@ -356,7 +438,7 @@ __host__ __device__ __forceinline__ int assign_floats(int K, int B, int ncov) {
 // (K4 x d1p) table as row c of mpiece and count themselves in count[c /
 // C]; the last to arrive sums the C rows in piece order into mpart's row
 // slot[layout tile] and resets the count for the next launch.
-template <bool kMoments>
+template <bool kMoments, bool kLegacy>
 __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
     const float* __restrict__ G,       // (L, K) the phase's Gram table (K6)
     const int* __restrict__ codes,     // (ncov, L), pads < 0
@@ -415,7 +497,7 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
   stage_codes(codes, offsets, gcs, L, base, ncov);
   cp_async_wait_all();
   __syncthreads();
-  assign_chain<true>(Ls, pens, lps, sig, i2s, gcs, K, B, ncov, kerr, ent);
+  assign_chain<true, kLegacy>(Ls, pens, lps, sig, i2s, gcs, K, B, ncov, kerr, ent, Gp);
   __syncthreads();
   if (kMoments) {
     for (int i = tid; i < d1p * kCT; i += kThreads) {
@@ -606,9 +688,8 @@ __global__ void __launch_bounds__(kThreads) rot_commit_kernel(
 // piece's Z columns and codes come in by cp.async while the previous piece
 // computes. Per piece: column norms (four partial sums a cell, summed in
 // order), Zn stored; g = Y^T zn with a 4-cell x 8-cluster register tile a
-// thread (one float4 of zn and two of Y^T per 32 FMAs), each output
-// acc = fmaf(y, z, acc) over e = 0..d-1 from 0, gram's sequence, so G has
-// the bits K11 recomputes. The tile's epilogue stores its rows of G
+// thread (tile_gram, which K11 runs too, so G has the bits K11
+// recomputes). The tile's epilogue stores its rows of G
 // from the registers, takes w = exp((g - 1) 2/sigma) on valid cells and
 // its partial column sums (a table of ceil(K/8) x 64, summed per cell in
 // tile order). The (K x B) design sums of R = w / colsum: thread (k, h)
@@ -699,24 +780,7 @@ __global__ void __launch_bounds__(kThreads, 2) reassign_assign_kernel(
     __syncthreads();
     for (int kg = tid >> 4; kg < nkg; kg += kThreads / 16) {
       float acc[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      const float* yp = Ys + 8 * kg;
-      const float* zp = zb + 4 * cg;
-#pragma unroll 2
-      for (int e = 0; e < d; ++e) {
-        const float4 z = *reinterpret_cast<const float4*>(zp + e * kCT);
-        const float4 ya = *reinterpret_cast<const float4*>(yp + e * K8);
-        const float4 yb = *reinterpret_cast<const float4*>(yp + e * K8 + 4);
-        const float zv[4] = {z.x, z.y, z.z, z.w};
-        const float yv[8] = {ya.x, ya.y, ya.z, ya.w, yb.x, yb.y, yb.z, yb.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(yv[j], zv[i], acc[i][j]);
-      }
+      tile_gram(Ys + 8 * kg, K8, zb + 4 * cg, d, acc);
       const int k0 = 8 * kg;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -875,38 +939,16 @@ __global__ void __launch_bounds__(kThreads) reassign_reduce_kernel(
 
 // ---- K10 / K11 ---------------------------------------------------------
 
-// Stages what K11 needs for the piece at base: Y^T, the penalty table of
-// its tile's block, sigma and 2/sigma, its Zn columns and codes.
-__device__ __forceinline__ void stage_virtual(
-    const float* Yt, const float* Zn, const int* codes, const int* offsets,
-    const float* pen, const int* blkmap, const float* sigma, float* Ys, float* Zs,
-    float* pens, float* sig, float* i2s, int* gcs, long long L, long long base, int T,
-    int K, int d, int B, int ncov) {
-  const int tid = threadIdx.x;
-  const float* pb = pen + static_cast<long long>(blkmap[base / T]) * K * B;
-  for (int i = tid; i < K * d; i += kThreads) Ys[i] = Yt[i];
-  for (int i = tid; i < K * B; i += kThreads) pens[i] = pb[i];
-  for (int i = tid; i < K; i += kThreads) {
-    sig[i] = sigma[i];
-    i2s[i] = 2.f / sigma[i];
-  }
-  stage_cells(Zn, codes, offsets, Zs, gcs, L, base, d, ncov);
-}
-
-// K10's chain of four of a step's cells, t0..t0+3, for one warp, lanes
-// over clusters k = lane + 32 j: per cell assign_chain's operations in its
-// order (so K7's R bit for bit), the four cells interleaved so that their
-// latencies overlap. The penalties come first, for all four cells (pc = 0
-// + the table entries of the cell's batch rows, covariate by covariate),
-// so no cell's table lookups wait on another's. R goes into the (K x 64)
-// table Lh as one float4 of the four cells a cluster.
+// K10's and K11's penalties of four of a step's cells, t0..t0+3, for one
+// warp, lanes over clusters k = lane + 32 j: pc = 0 + the table entries of
+// the cell's batch rows, covariate by covariate (assign_chain's sum), 0 on
+// pad cells and past K; all four cells' lookups first, so no cell's wait on
+// another's.
 template <int KJ>
-__device__ __forceinline__ void v_chain(const float* Gc, const float* pt, const int* gc,
-                                        float* Lh, const float (&i2s)[KJ], int t0, int K,
-                                        int B, int ncov) {
+__device__ __forceinline__ void v_pens(const float* pt, const int* gc, int t0, int K, int B,
+                                       int ncov, float (&v)[4][KJ]) {
   constexpr int NC = 4;
   const int lane = threadIdx.x & 31;
-  float v[NC][KJ], cs[NC];
   int b[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) b[c] = gc[t0 + c];
@@ -926,17 +968,81 @@ __device__ __forceinline__ void v_chain(const float* Gc, const float* pt, const 
       for (int c = 0; c < NC; ++c)
         if (lane + 32 * j < K && b[c] >= 0) v[c][j] += pt[(lane + 32 * j) * B + b[c]];
   }
+}
+
+// The chain of K10 and K11 (to 256 clusters) for four of a step's cells,
+// t0..t0+3, one warp, lanes over clusters k = lane + 32 j, g of cell t in
+// row t of Gc (K floats a row): per cell assign_chain's operations in its
+// order (so K7's R bit for bit: each column sum a lane's sum over j in
+// order, then the xor-shuffle tree), the four cells interleaved so that
+// their latencies overlap. s holds 2/sigma of the lane's clusters, under
+// kLegacy sigma. R goes into the (K x 64) table Lh as one float4 of the
+// four cells a cluster.
+template <int KJ, bool kLegacy>
+__device__ __forceinline__ void v_chain(const float* Gc, const float* pt, const int* gc,
+                                        float* Lh, const float (&s)[KJ], int t0, int K,
+                                        int B, int ncov) {
+  constexpr int NC = 4;
+  const int lane = threadIdx.x & 31;
+  float v[NC][KJ], cs[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) cs[c] = 0.f;
+  if constexpr (kLegacy) {
+    // e = exp(-2 (1 - g) / sigma) and colsum(e); then per cluster value
+    // its four penalties (v_pens' sums, one j at a time: the registers
+    // hold e) and w = (e / colsum(e)) * pc
+    float c1[NC];
 #pragma unroll
-  for (int j = 0; j < KJ; ++j) {
-    const int k = lane + 32 * j;
-    if (k < K)
+    for (int c = 0; c < NC; ++c) c1[c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int k = lane + 32 * j;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        v[c][j] = __fmul_rn(expf(__fmul_rn(Gc[(t0 + c) * K + k] - 1.f, i2s[j])), v[c][j]);
+        v[c][j] = 0.f;
+        if (k < K) {
+          v[c][j] = legacy_e(legacy_d(Gc[(t0 + c) * K + k]), s[j]);
+          c1[c] += v[c][j];
+        }
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) c1[c] += __shfl_xor_sync(0xffffffffu, c1[c], o);
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int k = lane + 32 * j;
+      if (k >= K) continue;
+      float pc[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int b = gc[t0 + c];
+        pc[c] = b >= 0 ? 0.f + pt[k * B + b] : 0.f;
+      }
+      for (int cv = 1; cv < ncov; ++cv)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int b = gc[cv * kVCells + t0 + c];
+          if (b >= 0) pc[c] += pt[k * B + b];
+        }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        v[c][j] = __fmul_rn(__fdiv_rn(v[c][j], c1[c]), pc[c]);
         cs[c] += v[c][j];
       }
+    }
+  } else {
+    v_pens<KJ>(pt, gc, t0, K, B, ncov, v);
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int k = lane + 32 * j;
+      if (k < K)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          v[c][j] = __fmul_rn(expf(__fmul_rn(Gc[(t0 + c) * K + k] - 1.f, s[j])), v[c][j]);
+          cs[c] += v[c][j];
+        }
+    }
   }
   for (int o = 16; o > 0; o >>= 1)
 #pragma unroll
@@ -988,7 +1094,7 @@ constexpr int kBarChain = 1, kBarGroup = 2, kBarFull = 4, kBarEmpty = 7;
 // range). A trash step copies Z_orig through (its betas are zero). The
 // chain and the correction share the SM's instruction slots and shared-memory
 // loads, so they overlap only in part.
-template <int KJ>
+template <int KJ, bool kLegacy>
 __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
     const float* __restrict__ G,       // (L, K) the phase's Gram table (K6)
     const int* __restrict__ codes,     // (ncov, L), pads < 0
@@ -1038,9 +1144,12 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
   if (w >= ng * cw) {
     // ---- the chain's warps ----
     const int ct = tid - ng * nT, wc = w - ng * cw, nwc = nC / 32, lane = tid & 31;
-    float i2s[KJ];
+    float sv[KJ];  // the chain's 2/sigma (legacy: sigma) of the lane's clusters
 #pragma unroll
-    for (int j = 0; j < KJ; ++j) i2s[j] = lane + 32 * j < K ? 2.f / sigma[lane + 32 * j] : 0.f;
+    for (int j = 0; j < KJ; ++j) {
+      const int k = lane + 32 * j;
+      sv[j] = k < K ? (kLegacy ? sigma[k] : 2.f / sigma[k]) : 0.f;
+    }
     auto stage = [&](int s, int h) {
       if (s >= ns || joint(s) == trash) return;
       const long long b0 = base(s);
@@ -1086,7 +1195,7 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
         const int* gc = gcs + h * ncov * kVCells;
         float* Lh = Ls + b * K * kVLP;
         for (int g = wc; g < kVCells / 4; g += nwc)
-          v_chain<KJ>(Gc, pt, gc, Lh, i2s, 4 * g, K, B, ncov);
+          v_chain<KJ, kLegacy>(Gc, pt, gc, Lh, sv, 4 * g, K, B, ncov);
       }
       bar_arrive(kBarFull + b, nC + nT);
     }
@@ -1169,34 +1278,169 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
   }
 }
 
-// K11, CTA c over cells [c*64, +64): R by assign_chain, written coalesced.
-__global__ void __launch_bounds__(kThreads) materialize_r_kernel(
-    const float* __restrict__ Yt, const float* __restrict__ Zn,
-    const int* __restrict__ codes, const int* __restrict__ offsets,
-    const float* __restrict__ pen, const int* __restrict__ blkmap,
-    const float* __restrict__ sigma, float* __restrict__ R,  // (K, L) out
-    long long L, int T, int K, int d, int B, int ncov) {
-  extern __shared__ float smem[];
-  float* Ys = smem;             // K*d
-  float* Zs = Ys + K * d;       // d*kCT
-  float* Ls = Zs + d * kCT;     // K*kTP
-  float* pens = Ls + K * kTP;   // K*B
-  float* sig = pens + K * B;    // K
-  float* i2s = sig + K;         // K
-  int* gcs = reinterpret_cast<int*>(i2s + K);  // ncov*kCT
-  const long long base = static_cast<long long>(blockIdx.x) * kCT;
-  stage_virtual(Yt, Zn, codes, offsets, pen, blkmap, sigma, Ys, Zs, pens, sig, i2s, gcs,
-                L, base, T, K, d, B, ncov);
-  __syncthreads();
-  gram(Ys, Zs, Ls, K, d);
-  __syncthreads();
-  float unused0 = 0.f, unused1 = 0.f;
-  assign_chain<false>(Ls, pens, nullptr, sig, i2s, gcs, K, B, ncov, unused0, unused1);
-  __syncthreads();
-  for (int i = threadIdx.x; i < K * kCT; i += kThreads) {
-    const int k = i / kCT, t = i - k * kCT;
-    R[k * L + base + t] = Ls[k * kTP + t];
+// K11: persistent CTAs (two a SM where their shared memory allows it),
+// CTA c over the contiguous range of 64-cell pieces [c npc / grid,
+// (c + 1) npc / grid). The centroids Y (d x K8, zero past K, the layout
+// of K6's staged Y^T) are staged once a CTA where they fit (ys_shared),
+// else read where they lie, through L1. Per piece: its Zn columns came in
+// by cp.async during the last piece's chain, its codes during the last
+// piece's R stores; the block's
+// penalty table is staged again only where the piece's tile lies in
+// another block than the last piece's; g = Y^T zn by tile_gram (K6's
+// routine, so K6's bits) into the table the chain reads (KJ > 0: a row
+// of K a cell, as the rows of K6's G that K10 reads; KJ == 0: (K x 65),
+// assign_chain's); then the next piece's copies are issued; the chain
+// (v_chain, four cells a warp, to 256 clusters; assign_chain past that)
+// leaves R in a (K x 64) table, and R goes out as float4 rows of 256
+// bytes a cluster. Three barriers a piece.
+template <int KJ, bool kLegacy>
+__global__ void __launch_bounds__(kThreads, 2) materialize_r_kernel(
+    const float* __restrict__ Yp,      // (d, K8) centroids, zero past K
+    const float* __restrict__ Zn,      // (d, L) the phase's normalised layout
+    const int* __restrict__ codes,     // (ncov, L), pads < 0
+    const int* __restrict__ offsets,   // (ncov,)
+    const float* __restrict__ pen,     // (nb, K, B) the last round's block tables
+    const int* __restrict__ blkmap,    // (L / T,) block of each physical tile
+    const float* __restrict__ sigma,   // (K,)
+    float* __restrict__ R,             // (K, L) out
+    long long L, int T, int K, int d, int B, int ncov, int K8, int ys_shared) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, w = tid >> 5;
+  // the layout (cuda_rotate.materialize_r_smem_bytes mirrors it), each part
+  // a whole number of float4s
+  float* Ys = smem;                                // d*K8 (ys_shared)
+  float* Zb = Ys + (ys_shared ? d * K8 : 0);       // d*kCT: the piece's Zn
+  float* Gs = Zb + d * kCT;                        // KJ > 0: kCT*K g; 0: K*kTP g, then R
+  float* Lh = Gs + kCT * K;                        // KJ > 0: K*kVLP R
+  float* sig = Gs + (K * kTP + 3) / 4 * 4;         // KJ == 0: sigma, then 2/sigma
+  float* i2s = sig + K;
+  float* pens = KJ > 0 ? Lh + K * kVLP : sig + (2 * K + 3) / 4 * 4;  // K*B
+  int* gcs = reinterpret_cast<int*>(pens + (K * B + 3) / 4 * 4);     // ncov*kCT
+  int* offs = gcs + ncov * kCT;                                      // ncov
+  constexpr int kQ = kCT / 4;  // float4s of a piece's row
+  const int npc = static_cast<int>(L / kCT);
+  const int lo = static_cast<int>(static_cast<long long>(blockIdx.x) * npc / gridDim.x);
+  const int hi = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * npc / gridDim.x);
+  // a piece's copies: its Zn columns (once the product is done with the
+  // last piece's) and its codes (once the chain is)
+  auto stage_zn = [&](int p) {
+    const long long base = static_cast<long long>(p) * kCT;
+    for (int i = tid; i < d * kQ; i += kThreads) {
+      const int e = i / kQ, q = i - e * kQ;
+      cp_async16(Zb + e * kCT + 4 * q, Zn + e * L + base + 4 * q);
+    }
+  };
+  auto stage_codes = [&](int p) {
+    const long long base = static_cast<long long>(p) * kCT;
+    for (int i = tid; i < ncov * kQ; i += kThreads) {
+      const int cc = i / kQ, q = i - cc * kQ;
+      cp_async16(gcs + cc * kCT + 4 * q, codes + cc * L + base + 4 * q);
+    }
+  };
+  if (lo < hi) {
+    stage_zn(lo);
+    stage_codes(lo);
   }
+  cp_async_commit();
+  if (ys_shared)
+    for (int i = tid; i < d * K8 / 4; i += kThreads)
+      reinterpret_cast<float4*>(Ys)[i] = reinterpret_cast<const float4*>(Yp)[i];
+  const float* Yr = ys_shared ? Ys : Yp;
+  if (tid < ncov) offs[tid] = offsets[tid];
+  float sv[KJ > 0 ? KJ : 1];  // v_chain's 2/sigma (legacy: sigma) of the lane's clusters
+  if constexpr (KJ > 0) {
+    const int lane = tid & 31;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int k = lane + 32 * j;
+      sv[j] = k < K ? (kLegacy ? sigma[k] : 2.f / sigma[k]) : 0.f;
+    }
+  } else {
+    for (int i = tid; i < K; i += kThreads) {
+      sig[i] = sigma[i];
+      i2s[i] = 2.f / sigma[i];
+    }
+  }
+  __syncthreads();  // Y, the offsets and sigma are in
+  const int cg = tid & 15;
+  const bool vec = (K & 3) == 0;  // a cell's row of g starts on 16 bytes
+  int held = -1;                  // the block whose table is in pens
+  for (int p = lo; p < hi; ++p) {
+    const long long base = static_cast<long long>(p) * kCT;
+    cp_async_wait<0>();
+    // the codes this thread copied, made global batch rows (-1 on pads)
+    for (int i = tid; i < ncov * kQ; i += kThreads) {
+      const int cc = i / kQ, o = offs[cc];
+      int4* q = reinterpret_cast<int4*>(gcs + cc * kCT + 4 * (i - cc * kQ));
+      int4 v = *q;
+      v.x = v.x >= 0 ? v.x + o : -1;
+      v.y = v.y >= 0 ? v.y + o : -1;
+      v.z = v.z >= 0 ? v.z + o : -1;
+      v.w = v.w >= 0 ? v.w + o : -1;
+      *q = v;
+    }
+    const int blk = blkmap[base / T];
+    if (blk != held) {
+      const float* pb = pen + static_cast<long long>(blk) * K * B;
+      for (int i = tid; i < K * B; i += kThreads) pens[i] = pb[i];
+      held = blk;
+    }
+    __syncthreads();  // the piece's Zn, codes and table are in; the last piece's R is out
+    for (int kg = tid >> 4; kg < K8 / 8; kg += kThreads / 16) {
+      float acc[4][8];
+      tile_gram(Yr + 8 * kg, K8, Zb + 4 * cg, d, acc);
+      const int k0 = 8 * kg;
+      if constexpr (KJ > 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float* row = Gs + (4 * cg + i) * K + k0;
+          if (vec) {
+            *reinterpret_cast<float4*>(row) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+            if (k0 + 4 < K)
+              *reinterpret_cast<float4*>(row + 4) =
+                  make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (k0 + j < K) row[j] = acc[i][j];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (k0 + j < K)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) Gs[(k0 + j) * kTP + 4 * cg + i] = acc[i][j];
+      }
+    }
+    __syncthreads();  // g is in; Zb is free
+    if (p + 1 < hi) stage_zn(p + 1);
+    cp_async_commit();
+    if constexpr (KJ > 0) {
+      for (int g = w; g < kCT / 4; g += kWarps)
+        v_chain<KJ, kLegacy>(Gs, pens, gcs, Lh, sv, 4 * g, K, B, ncov);
+    } else {
+      float unused0 = 0.f, unused1 = 0.f;
+      assign_chain<false, kLegacy>(Gs, pens, nullptr, sig, i2s, gcs, K, B, ncov, unused0,
+                                   unused1);
+    }
+    __syncthreads();  // R is in its table; the codes are free
+    if (p + 1 < hi) stage_codes(p + 1);
+    cp_async_commit();
+    for (int i = tid; i < K * kQ; i += kThreads) {
+      const int k = i / kQ, q = i - k * kQ;
+      float4 r;
+      if constexpr (KJ > 0) {
+        r = *reinterpret_cast<const float4*>(Lh + k * kVLP + 4 * q);
+      } else {
+        const float* x = Gs + k * kTP + 4 * q;
+        r = make_float4(x[0], x[1], x[2], x[3]);
+      }
+      *reinterpret_cast<float4*>(R + k * L + base + 4 * q) = r;
+    }
+  }
+  cp_async_wait<0>();
 }
 
 int set_smem(const void* kernel, int bytes) {
@@ -1205,17 +1449,32 @@ int set_smem(const void* kernel, int bytes) {
 }
 
 // K10 with KJ cluster values a lane (1, 2, 4 or 8: K <= 256).
-template <int KJ>
+template <int KJ, bool kLegacy>
 int k10_launch(const float* G, const int* codes, const int* offsets, const float* pen,
                const int* blkmap, const float* sigma, const float* Wj, const int* order,
                const int* tj, const float* Zo, float* Zc, long long L, int n, int span, int T,
                int tw, int trash, int K, int d, int dp, int B, int ncov, int ng, int grid,
                int smem_bytes, cudaStream_t st) {
-  int err = set_smem(reinterpret_cast<const void*>(virtual_correction_kernel<KJ>), smem_bytes);
+  const void* kern = reinterpret_cast<const void*>(virtual_correction_kernel<KJ, kLegacy>);
+  int err = set_smem(kern, smem_bytes);
   if (err) return err;
-  virtual_correction_kernel<KJ><<<grid, kVThreads, smem_bytes, st>>>(
+  virtual_correction_kernel<KJ, kLegacy><<<grid, kVThreads, smem_bytes, st>>>(
       G, codes, offsets, pen, blkmap, sigma, Wj, order, tj, Zo, Zc, L, n, span, T, tw, trash,
       K, d, dp, B, ncov, ng);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K11 with KJ cluster values a lane (v_chain), or assign_chain (KJ == 0).
+template <int KJ, bool kLegacy>
+int k11_launch(const float* Yp, const float* Zn, const int* codes, const int* offsets,
+               const float* pen, const int* blkmap, const float* sigma, float* R, long long L,
+               int T, int K, int d, int B, int ncov, int K8, int ys_shared, int grid,
+               int smem_bytes, cudaStream_t st) {
+  const void* kern = reinterpret_cast<const void*>(materialize_r_kernel<KJ, kLegacy>);
+  int err = set_smem(kern, smem_bytes);
+  if (err) return err;
+  materialize_r_kernel<KJ, kLegacy><<<grid, kThreads, smem_bytes, st>>>(
+      Yp, Zn, codes, offsets, pen, blkmap, sigma, R, L, T, K, d, B, ncov, K8, ys_shared);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1223,40 +1482,27 @@ int k10_launch(const float* G, const int* codes, const int* offsets, const float
 
 extern "C" {
 
-// K7 assign launch over a block's ntile tiles; Zo == nullptr: no moments.
+// K7 assign launch over a block's ntile tiles; Zo == nullptr: no moments;
+// legacy != 0: the legacy op order.
 int k7_assign(const void* G, const void* codes,
               const void* offsets, const void* pen, const void* logpen,
               const void* sigma, void* R, void* part, const void* Zo, const void* slot,
               void* mpart, void* mpiece, void* count, long long L, int v0, int ntile,
-              int NT, int cpt, int tw, int K, int d, int B, int ncov, int d1p,
+              int NT, int cpt, int tw, int K, int d, int B, int ncov, int d1p, int legacy,
               int smem_bytes, void* stream) {
   const bool mom = Zo != nullptr;
-  const void* kern = mom ? reinterpret_cast<const void*>(rot_assign_kernel<true>)
-                         : reinterpret_cast<const void*>(rot_assign_kernel<false>);
-  int err = set_smem(kern, smem_bytes);
+  const decltype(&rot_assign_kernel<true, true>) kern = mom ? (legacy ? rot_assign_kernel<true, true> : rot_assign_kernel<true, false>)
+                        : (legacy ? rot_assign_kernel<false, true>
+                                  : rot_assign_kernel<false, false>);
+  int err = set_smem(reinterpret_cast<const void*>(kern), smem_bytes);
   if (err) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* Gf = static_cast<const float*>(G);
-  const int* ci = static_cast<const int*>(codes);
-  const int* oi = static_cast<const int*>(offsets);
-  const float* penf = static_cast<const float*>(pen);
-  const float* lpf = static_cast<const float*>(logpen);
-  const float* sigf = static_cast<const float*>(sigma);
-  float* Rf = static_cast<float*>(R);
-  float* partf = static_cast<float*>(part);
-  const float* Zof = static_cast<const float*>(Zo);
-  const int* sli = static_cast<const int*>(slot);
-  float* mpf = static_cast<float*>(mpart);
-  float* mpc = static_cast<float*>(mpiece);
-  int* cnt = static_cast<int*>(count);
-  if (mom)
-    rot_assign_kernel<true><<<ntile * cpt, kThreads, smem_bytes, st>>>(
-        Gf, ci, oi, penf, lpf, sigf, Rf, partf, Zof, sli, mpf, mpc, cnt, L, v0, NT, cpt,
-        tw, K, d, B, ncov, d1p);
-  else
-    rot_assign_kernel<false><<<ntile * cpt, kThreads, smem_bytes, st>>>(
-        Gf, ci, oi, penf, lpf, sigf, Rf, partf, Zof, sli, mpf, mpc, cnt, L, v0, NT, cpt,
-        tw, K, d, B, ncov, d1p);
+  kern<<<ntile * cpt, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(G), static_cast<const int*>(codes),
+      static_cast<const int*>(offsets), static_cast<const float*>(pen),
+      static_cast<const float*>(logpen), static_cast<const float*>(sigma),
+      static_cast<float*>(R), static_cast<float*>(part), static_cast<const float*>(Zo),
+      static_cast<const int*>(slot), static_cast<float*>(mpart), static_cast<float*>(mpiece),
+      static_cast<int*>(count), L, v0, NT, cpt, tw, K, d, B, ncov, d1p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1320,15 +1566,21 @@ int k6_reassign(const void* Yt, const void* Z, const void* codes,
 }
 
 // K10 over the plan's order (n layout tiles of tw cells) in grid equal
-// ranges of at most span tiles.
+// ranges of at most span tiles; legacy != 0: the legacy op order.
 int k10_virtual_correction(const void* G, const void* codes, const void* offsets,
                            const void* pen, const void* blkmap, const void* sigma,
                            const void* Wj, const void* order, const void* tj, const void* Zo,
                            void* Zc, long long L, int n, int span, int T, int tw, int trash,
-                           int K, int d, int dp, int B, int ncov, int ng, int grid,
+                           int K, int d, int dp, int B, int ncov, int ng, int legacy, int grid,
                            int smem_bytes, void* stream) {
-  auto launch = K <= 32 ? k10_launch<1> : K <= 64 ? k10_launch<2> : K <= 128 ? k10_launch<4>
-                                                                             : k10_launch<8>;
+  auto launch = legacy ? (K <= 32    ? k10_launch<1, true>
+                          : K <= 64  ? k10_launch<2, true>
+                          : K <= 128 ? k10_launch<4, true>
+                                     : k10_launch<8, true>)
+                       : (K <= 32    ? k10_launch<1, false>
+                          : K <= 64  ? k10_launch<2, false>
+                          : K <= 128 ? k10_launch<4, false>
+                                     : k10_launch<8, false>);
   return launch(static_cast<const float*>(G), static_cast<const int*>(codes),
                 static_cast<const int*>(offsets), static_cast<const float*>(pen),
                 static_cast<const int*>(blkmap), static_cast<const float*>(sigma),
@@ -1338,19 +1590,27 @@ int k10_virtual_correction(const void* G, const void* codes, const void* offsets
                 grid, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
-int k11_materialize_r(const void* Yt, const void* Zn, const void* codes,
+// K11 over grid persistent CTAs; kj: v_chain's cluster values a lane (1,
+// 2, 4, 8), 0 for assign_chain; ys_shared: Y staged into shared memory;
+// legacy != 0: the legacy op order.
+int k11_materialize_r(const void* Yp, const void* Zn, const void* codes,
                       const void* offsets, const void* pen, const void* blkmap,
                       const void* sigma, void* R, long long L, int T, int K, int d, int B,
-                      int ncov, int smem_bytes, void* stream) {
-  int err = set_smem(reinterpret_cast<const void*>(materialize_r_kernel), smem_bytes);
-  if (err) return err;
-  materialize_r_kernel<<<static_cast<unsigned>(L / kCT), kThreads, smem_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(Yt), static_cast<const float*>(Zn),
-      static_cast<const int*>(codes), static_cast<const int*>(offsets),
-      static_cast<const float*>(pen), static_cast<const int*>(blkmap),
-      static_cast<const float*>(sigma), static_cast<float*>(R), L, T, K, d, B, ncov);
-  return static_cast<int>(cudaGetLastError());
+                      int ncov, int K8, int kj, int ys_shared, int legacy, int grid,
+                      int smem_bytes, void* stream) {
+  decltype(&k11_launch<0, false>) launch;
+  switch (kj) {
+    case 1: launch = legacy ? k11_launch<1, true> : k11_launch<1, false>; break;
+    case 2: launch = legacy ? k11_launch<2, true> : k11_launch<2, false>; break;
+    case 4: launch = legacy ? k11_launch<4, true> : k11_launch<4, false>; break;
+    case 8: launch = legacy ? k11_launch<8, true> : k11_launch<8, false>; break;
+    default: launch = legacy ? k11_launch<0, true> : k11_launch<0, false>; break;
+  }
+  return launch(static_cast<const float*>(Yp), static_cast<const float*>(Zn),
+                static_cast<const int*>(codes), static_cast<const int*>(offsets),
+                static_cast<const float*>(pen), static_cast<const int*>(blkmap),
+                static_cast<const float*>(sigma), static_cast<float*>(R), L, T, K, d, B, ncov,
+                K8, ys_shared, grid, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -29,9 +29,15 @@ Counterpart of ``harmony_tpu/ops/pallas_rotate.py`` (``pallas_reassign``,
   R recomputed from the penalty tables and the phase's Gram table G (K6's,
   which the state keeps until the correction) with K7's per-cell
   operations, then Z_orig - W_joint R.
-* :func:`materialize_r` (K11): one launch over the padded layout's
-  64-cell pieces, g formed again from Zn, R with the device routine K7
-  assigns with.
+* :func:`materialize_r` (K11): one launch of persistent CTAs, two an SM
+  where they fit, each over an equal range of the padded layout's 64-cell
+  pieces (:func:`materialize_r_plan`, :func:`materialize_r_grid`), g formed
+  again from Zn with K6's register tiles, R with K10's four-cell chain (K7's
+  routine past 256 clusters).
+
+K7, K10 and K11 take the config's ``estep_variant``: ``legacy`` runs the
+reference's two-normalise op order (:func:`legacy`), the others the
+single normalise; K6 has one op sequence.
 
 For CPU tensors each wrapper runs its plain version; anything else
 raises. ``launches`` counts calls into the kernels' C entry points (1 per
@@ -42,7 +48,7 @@ moments).
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,15 +65,15 @@ _SMEM_MAX = 232_448  # bytes of shared memory a CTA may use on Hopper
 _CT = 64  # cells per piece (kCT in rotate.cu)
 _WARPS = 8
 _SIGNATURES = {
-    "k7_assign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 11 + [_build.PTR],
+    "k7_assign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 12 + [_build.PTR],
     "k7_commit": [_build.PTR, _build.INT, _build.INT, _build.INT, _build.INT,
                   _build.INT, _build.PTR, _build.PTR, _build.INT, _build.INT]
     + [_build.PTR] * 9 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [_build.PTR],
     "k6_occupancy": [_build.INT],
     "k6_reassign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 11 + [_build.PTR],
-    "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 13
+    "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 14
     + [_build.PTR],
-    "k11_materialize_r": [_build.PTR] * 8 + [_build.I64] + [_build.INT] * 6 + [_build.PTR],
+    "k11_materialize_r": [_build.PTR] * 8 + [_build.I64] + [_build.INT] * 11 + [_build.PTR],
 }
 
 
@@ -122,9 +128,63 @@ def _k6_grid(smem: int, n_sm: int) -> int:
     return n_sm * n
 
 
-def materialize_r_smem_bytes(K: int, d: int, B: int, ncov: int) -> int:
-    """Shared memory of one K11 CTA."""
-    return 4 * (K * d + d * _CT + K * (_CT + 1) + K * B + 2 * K + ncov * _CT)
+def legacy(cfg: HarmonyConfig) -> int:
+    """The variant argument of K7, K10 and K11: 1 for the legacy op order,
+    0 for fused_vpu (fused_mxu is the same function)."""
+    return int(cfg.estep_variant == "legacy")
+
+
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def chain_lanes(K: int) -> int:
+    """The cluster values a lane of K10's and K11's four-cell chain holds
+    (v_chain's KJ): 1, 2, 4 or 8; 0 past 256 clusters (assign_chain)."""
+    return next((kj for kj in (1, 2, 4, 8) if K <= 32 * kj), 0)
+
+
+def materialize_r_smem_bytes(K: int, d: int, B: int, ncov: int, kj: int,
+                             ys_shared: bool) -> int:
+    """Shared memory of one K11 CTA (layout in rotate.cu): the centroids
+    (d x K8, if staged), a piece's Zn, then with v_chain (kj > 0) its g, a
+    row of K a cell, and its (K x 68) R table, with assign_chain (kj == 0)
+    one (K x 65) table and sigma and 2/sigma; the block's penalty table;
+    the piece's codes; the offsets. Each part whole float4s."""
+    f = (d * _ceil(K, 8) if ys_shared else 0) + d * _CT
+    f += _CT * K + K * _V_LP if kj else _ceil(K * (_CT + 1), 4) + _ceil(2 * K, 4)
+    return 4 * (f + _ceil(K * B, 4) + ncov * _CT + _ceil(ncov, 4))
+
+
+class K11Plan(NamedTuple):
+    kj: int  # v_chain's cluster values a lane; 0: assign_chain
+    ys_shared: bool  # the centroids staged in shared memory
+    smem: int  # bytes of shared memory a CTA
+
+
+def materialize_r_plan(K: int, d: int, B: int, ncov: int) -> K11Plan:
+    """K11's form at K, d, B and covariates: v_chain (to 256 clusters)
+    with the centroids staged where that fits, else assign_chain with them
+    staged, else assign_chain reading them where they lie. Raises where
+    none fits."""
+    kj = chain_lanes(K)
+    for c, ys in ([(kj, True)] if kj else []) + [(0, True), (0, False)]:
+        smem = materialize_r_smem_bytes(K, d, B, ncov, c, ys)
+        if smem <= _SMEM_MAX:
+            return K11Plan(c, ys, smem)
+    raise ValueError(f"materialize_r: K={K}, d={d}, B={B} need {smem} bytes of shared memory "
+                     f"a CTA, over the {_SMEM_MAX} a CTA may use")
+
+
+_SM_SMEM, _CTA_RESERVED = 233_472, 1024  # bytes of shared memory an SM has; each CTA's reserve
+
+
+def materialize_r_grid(n_pieces: int, smem: int, n_sm: int) -> int:
+    """K11's persistent CTAs: two an SM where both CTAs' shared memory fits
+    it (the kernel's launch bounds leave the registers for two), else one;
+    no more than the layout has 64-cell pieces."""
+    per_sm = 2 if 2 * (smem + _CTA_RESERVED) <= _SM_SMEM else 1
+    return min(n_pieces, per_sm * n_sm)
 
 
 # K10: cells a step, the row stride of its R tables, the most warps a
@@ -360,7 +420,7 @@ def rotate_update_round_v2(
     c_in = ((rs.E.data_ptr(), rs.O.data_ptr()), (E_w.data_ptr(), O_w.data_ptr()))
     c_tail = (E_w.data_ptr(), O_w.data_ptr(), Pr_b.data_ptr(), theta.data_ptr(),
               pen.data_ptr(), logpen.data_ptr(), ptr(pen_out))
-    c_acc, d1p = acc.data_ptr(), _ceil4(d + 1)
+    c_acc, d1p, lg = acc.data_ptr(), _ceil4(d + 1), legacy(cfg)
 
     def commit(add_blk: int, rm_blk: int, first: bool) -> None:
         v0, nt = ((vstart[add_blk] + rt) % NT, szs[add_blk]) if add_blk >= 0 else (0, 0)
@@ -377,7 +437,7 @@ def rotate_update_round_v2(
     for i, blk in enumerate(order):
         _build.check(lib.k7_assign(
             *a_ptrs, L, (vstart[blk] + rt) % NT, szs[blk], NT, cpt, tw, K, d, B, ncov, d1p,
-            smem, stream,
+            lg, smem, stream,
         ), "k7_assign")
         rotate_update_round_v2.launches += 1
         commit(blk, order[i + 1] if i + 1 < len(order) else -1, False)
@@ -469,7 +529,7 @@ def virtual_correction(
         blk_of_phys.data_ptr(), sigma.data_ptr(), W_joint.data_ptr(), order.data_ptr(),
         _table_on(tj.tobytes(), str(dev)).data_ptr(), Z_orig_pad.data_ptr(), Zc.data_ptr(),
         L, n, span, T, layout_tile, nj1 - 1, K, d, _ceil4(d), B, cfg.n_covariates, groups,
-        grid, smem,
+        legacy(cfg), grid, smem,
         torch.cuda.current_stream(dev).cuda_stream,
     ), "k10_virtual_correction")
     virtual_correction.launches += 1
@@ -499,17 +559,23 @@ def materialize_r(
         raise TypeError(f"materialize_r: the kernel writes float32, not {out_dtype}")
     K, B, T = cfg.K, cfg.B, cfg.estep_sub_tile
     d, L = Zn_pad.shape
-    smem = materialize_r_smem_bytes(K, d, B, cfg.n_covariates)
-    _check_smem("materialize_r", cfg, smem)
-    R = torch.empty((K, L), dtype=_F32, device=Zn_pad.device)
-    Yt = Y.t().contiguous()
     dev = Zn_pad.device
+    if Zn_pad.data_ptr() % 16 or codes_pad.data_ptr() % 16:
+        raise ValueError("materialize_r: Zn_pad and codes_pad must start on 16-byte boundaries "
+                         "(the kernel copies 16 bytes at a time)")
+    plan = materialize_r_plan(K, d, B, cfg.n_covariates)
+    K8 = _ceil(K, 8)
+    # the centroids as the kernel reads them, (d, K8), zero past K
+    Yp = torch.nn.functional.pad(Y, (0, K8 - K)).contiguous()
+    R = torch.empty((K, L), dtype=_F32, device=dev)
     lib = _build.load("rotate", _SIGNATURES)
     _build.check(lib.k11_materialize_r(
-        Yt.data_ptr(), Zn_pad.data_ptr(), codes_pad.data_ptr(),
+        Yp.data_ptr(), Zn_pad.data_ptr(), codes_pad.data_ptr(),
         _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), pen.data_ptr(),
         blk_of_phys.data_ptr(), sigma.data_ptr(), R.data_ptr(), L, T, K, d, B,
-        cfg.n_covariates, smem, torch.cuda.current_stream(dev).cuda_stream,
+        cfg.n_covariates, K8, plan.kj, int(plan.ys_shared), legacy(cfg),
+        materialize_r_grid(L // _CT, plan.smem, _sm_count(dev)), plan.smem,
+        torch.cuda.current_stream(dev).cuda_stream,
     ), "k11_materialize_r")
     materialize_r.launches += 1
     return R[:, : cfg.Np]

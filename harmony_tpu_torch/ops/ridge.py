@@ -472,9 +472,9 @@ def _correction_tiled(cfg, W, R_eff, Zf, ctx, tiled):
 
 def _virtual_tail_r(cfg, virt, n_pure):
     """(K, tail) assignments of the trailing mixed/pad cells, recomputed
-    from the final round's penalty tables in the K7 op order
-    (harmony_tpu/ops/ridge.py:550-585): pc sums the covariates' penalty
-    rows in covariate order, zero on pad cells."""
+    from the final round's penalty tables in K7's op order of
+    ``cfg.estep_variant`` (harmony_tpu/ops/ridge.py:550-585): pc sums the
+    covariates' penalty rows in covariate order, zero on pad cells."""
     Np, T = cfg.Np, cfg.estep_sub_tile
     Zn_t = virt.Zn_pad[:, n_pure:Np].to(_F32)
     tiles = torch.arange(n_pure, Np, device=Zn_t.device) // T
@@ -487,7 +487,12 @@ def _virtual_tail_r(cfg, virt, n_pure):
         pc = pcc if pc is None else pc + pcc
     pc = pc * valid[None, :]
     g = virt.Y.t().to(_F32) @ Zn_t
-    w = torch.exp((g - 1.0) * (2.0 / virt.sigma.to(_F32))[:, None]) * pc
+    sigma = virt.sigma.to(_F32)[:, None]
+    if cfg.estep_variant == "legacy":
+        e = torch.exp(-(2.0 * (1.0 - g)) / sigma)
+        w = (e / e.sum(dim=0, keepdim=True)) * pc
+    else:
+        w = torch.exp((g - 1.0) * (2.0 / sigma)) * pc
     colsum = w.sum(dim=0, keepdim=True)
     return w * (1.0 / torch.where(colsum == 0.0, torch.ones_like(colsum), colsum))
 

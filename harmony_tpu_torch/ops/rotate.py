@@ -39,10 +39,18 @@ blocks are contiguous runs of virtual tiles processed in a per-round
 random order. Per-block semantics are the reference's: every cell of a
 block sees E/O with the whole block removed (src/harmony.cpp:309-331).
 
-Op order (``estep_variant='fused_vpu'``, ``_assign_tile`` :403-479): per
-cell ``w = exp((g - 1) * 2/sigma) * pen[code]``, one guarded normalise
-``R = w * (1 / colsum)``; the k-means error as ``2 n_valid - 2 sum R g``;
-the entropy in the factorised form for one covariate (:781-805), as
+Op orders (``_assign_tile`` :403-479), by ``cfg.estep_variant``:
+
+* ``fused_vpu`` (and ``fused_mxu``, the same function): per cell
+  ``w = exp((g - 1) * 2/sigma) * pen[code]``, one guarded normalise
+  ``R = w * (1 / colsum)``; the k-means error as ``2 n_valid - 2 sum R g``.
+* ``legacy`` (:452-458, the reference's two normalisations,
+  src/harmony.cpp:319-323): ``d = 2 (1 - g)``, ``e = exp(-d / sigma)``,
+  ``w = (e / colsum(e)) * pen[code]``, then the same guarded normalise;
+  the k-means error as ``sum R d`` (:773-774).
+
+The entropy is in the factorised form for one covariate (:781-805, whose
+column term is ``log colsum``, under ``legacy`` ``log(colsum(e) colsum)``),
 ``sum sigma R log R`` for several.
 """
 
@@ -277,10 +285,12 @@ def _gram_tiles(Yt, Z3):
     return (Yt @ Z3.reshape(d, n * T)).reshape(-1, n, T)
 
 
-def _assign_r(cfg, g, codes3, pen, inv2sig):
+def _assign_r(cfg, g, codes3, pen, sigma):
     """The assignments of ``n`` tiles (g (K, n, T), codes3 (ncov, n, T))
-    against one block-removed penalty table (K, B): R (K, n, T), with the
-    guarded column sums the objective terms reuse."""
+    against one block-removed penalty table (K, B) in the op order of
+    ``cfg.estep_variant``: R (K, n, T), with the guarded column sums and,
+    under ``legacy``, the first normalisation's column sums (else None),
+    which the objective terms reuse."""
     K, B = pen.shape
     _, n, T = g.shape
     pen_pad = torch.cat([pen, pen.new_zeros((K, 1))], dim=1)
@@ -290,27 +300,38 @@ def _assign_r(cfg, g, codes3, pen, inv2sig):
         idx = torch.where(cc >= 0, cc + off, torch.full_like(cc, B))
         t = pen_pad.index_select(1, idx).reshape(K, n, T)
         pc = t if pc is None else pc + t
-    w = torch.exp((g - 1.0) * inv2sig[:, None, None]) * pc
+    colsum1 = None
+    if cfg.estep_variant == "legacy":
+        e = torch.exp(-(2.0 * (1.0 - g)) / sigma[:, None, None])
+        colsum1 = e.sum(dim=0)
+        w = (e / colsum1) * pc
+    else:
+        w = torch.exp((g - 1.0) * (2.0 / sigma)[:, None, None]) * pc
     colsum = w.sum(dim=0)
     colsum_g = torch.where(colsum == 0.0, torch.ones_like(colsum), colsum)
-    return w * (1.0 / colsum_g), colsum_g
+    return w * (1.0 / colsum_g), colsum_g, colsum1
 
 
-def _assign_tiles(cfg, g, codes3, pen, logpen, sigma, inv2sig):
+def _assign_tiles(cfg, g, codes3, pen, logpen, sigma):
     """Assign ``n`` tiles (g (K, n, T)) against one block-removed penalty
     table. Returns (R (K, n, T), tO (n, K, B), kmeans error and entropy per
     tile (n,))."""
-    R_n, colsum_g = _assign_r(cfg, g, codes3, pen, inv2sig)
+    R_n, colsum_g, colsum1 = _assign_r(cfg, g, codes3, pen, sigma)
     oh = _one_hot_tiles(cfg, codes3)  # (n, T, B)
     tO = torch.bmm(R_n.permute(1, 0, 2), oh)  # (n, K, B)
     b0 = cfg.B_vec[0]
-    n_valid = tO[:, :, :b0].sum(dim=(1, 2))
-    s_rd = 2.0 * n_valid - 2.0 * (R_n * g).sum(dim=(0, 2))
+    if colsum1 is not None:
+        s_rd = (R_n * (2.0 * (1.0 - g))).sum(dim=(0, 2))
+    else:
+        n_valid = tO[:, :, :b0].sum(dim=(1, 2))
+        s_rd = 2.0 * n_valid - 2.0 * (R_n * g).sum(dim=(0, 2))
     if cfg.n_covariates == 1:
-        # sigma R log R with log R = (g-1) 2/sigma + logpen - log colsum:
-        # the first term contracts to -R*d, the penalty term against tO
+        # sigma R log R with log R = (g-1) 2/sigma + logpen - log colsum
+        # (legacy: - log(colsum1 colsum)): the first term contracts to
+        # -R*d, the penalty term against tO
         sR = (sigma[:, None, None] * R_n).sum(dim=0)  # (n, T)
-        ent = (-s_rd - (torch.log(colsum_g) * sR).sum(dim=1)
+        logc = torch.log(colsum_g if colsum1 is None else colsum1 * colsum_g)
+        ent = (-s_rd - (logc * sR).sum(dim=1)
                + (sigma[None, :, None] * tO * logpen[None]).sum(dim=(1, 2)))
     else:
         ent = (sigma[:, None, None] * xlogx(R_n)).sum(dim=(0, 2))
@@ -349,7 +370,6 @@ def rotate_update_round_v2(
     _, blk_O = block_old_stats(cfg, rs.tile_O, rt, order)
     Yt = Y.t().to(_F32)
     sig = sigma.to(_F32)
-    inv2sig = 2.0 / sig
     Pr = Pr_b.to(_F32)[None, :]
     th = theta.to(_F32)[None, :]
     Z3 = layout.Z_pad.reshape(d, NT, T)
@@ -377,7 +397,7 @@ def rotate_update_round_v2(
         g = (_gram_tiles(Yt, Z3.index_select(1, tiles)) if G3 is None
              else G3.index_select(0, tiles).permute(2, 0, 1))
         R_n, tO, s_rd, ent = _assign_tiles(cfg, g, c3.index_select(1, tiles), pen, logpen,
-                                           sig, inv2sig)
+                                           sig)
         tile_O[tiles] = tO
         acc_d = acc_d + s_rd.sum()
         acc_e = acc_e + ent.sum()
@@ -478,7 +498,7 @@ def _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, out_dtype=Non
     d, Npt = Zn_pad.shape
     T = cfg.estep_sub_tile
     NT, K = Npt // T, pen.shape[1]
-    Yt, inv2sig = Y.t().to(_F32), 2.0 / sigma.to(_F32)
+    Yt, sig = Y.t().to(_F32), sigma.to(_F32)
     Z3 = Zn_pad.to(_F32).reshape(d, NT, T)
     G3 = None if G is None else G.to(_F32).reshape(NT, T, K)
     c3 = codes_pad.reshape(-1, NT, T)
@@ -490,7 +510,7 @@ def _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, out_dtype=Non
             g = (_gram_tiles(Yt, Z3.index_select(1, tiles)) if G3 is None
                  else G3.index_select(0, tiles).permute(2, 0, 1))
             R[:, tiles] = _assign_r(cfg, g, c3.index_select(1, tiles), pen[b].to(_F32),
-                                    inv2sig)[0].to(R.dtype)
+                                    sig)[0].to(R.dtype)
     return R.reshape(K, Npt)
 
 

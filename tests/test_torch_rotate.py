@@ -4,8 +4,9 @@
   package's for several shapes (its ``estep_impl='auto'`` picks Pallas
   only on a TPU, so it is given 'pallas'); the unported rotate options
   raise ``NotImplementedError`` naming their ROADMAP item, and
-  ``virtual_r=True``, ``rotate_stats_carry=False`` and runs below
-  ``n_blocks * 128`` cells resolve.
+  ``virtual_r=True``, ``rotate_stats_carry=False``,
+  ``estep_variant='legacy'`` and runs below ``n_blocks * 128`` cells
+  resolve.
 * The K6 twin (``ops.rotate.reassign``) against ``pallas_reassign`` in
   interpret mode: Zn atol 1e-6; tile_O, O, E rtol 1e-5.
 * The K7 twin (``ops.rotate.rotate_update_round_v2``) against
@@ -13,7 +14,8 @@
   key draws (``_block_old_stats``), writing R or not, one and two
   covariates, two chained rounds: R atol 1e-5; E, O, tile_O, k-means
   error and entropy rtol 1e-5. The step table equals JAX's; blk_O agrees
-  to rtol 1e-6.
+  to rtol 1e-6. The same under ``estep_variant='legacy'``, the
+  reference's two-normalise op order, g formed or read from G.
 * The whole slice at the shape of ``tests/test_tiled.py:250-272`` (N =
   4096, d = 8, B = 3, K = 8, T = 512, layout tile 128): three Harmony
   rounds of JAX ``cluster`` (unfused) + ``correct(tiled=)`` against the
@@ -23,7 +25,8 @@
   solve cancels (u = r_tot - sum_b O_b^2 / (O_b + lambda)): one M-step
   from identical inputs already differs by 2e-5 in Z_corr between the
   packages (as the JAX package's own tiled and dense paths do), and three
-  rounds carry that to objective rtol 5e-5 and R atol 1e-3.
+  rounds carry that to objective rtol 5e-5 and R atol 1e-3. Under
+  ``estep_variant='legacy'`` the same three rounds at the same bounds.
 """
 
 import dataclasses
@@ -99,6 +102,11 @@ def test_unported_rotate_options_raise(change, item):
         cfg = tconfig.finalize_engine_config(dataclasses.replace(base, **change))
         assert cfg.use_segments and cfg.rotate_route == "carry"
         assert (cfg.N_pad, cfg.estep_sub_tile, cfg.segment_tile) == (5120, 128, 1024)
+    elif change == {"estep_variant": "legacy"}:
+        # ported: the stats-carrying route runs K7, K10 and K11 in that order
+        cfg = tconfig.finalize_engine_config(dataclasses.replace(base, **change))
+        assert cfg.rotate_route == "carry" and cfg.estep_variant == "legacy"
+        assert (cfg.N_pad, cfg.estep_sub_tile, cfg.estep_impl) == (5120, 128, "kernel")
     elif item in _PORTED_ROUTES:
         route = _PORTED_ROUTES[item]
         # legacy and virtual R are accepted there, as the JAX package ignores them
@@ -118,11 +126,11 @@ def test_unported_rotate_options_raise(change, item):
         tconfig.finalize_engine_config(dataclasses.replace(base, estep_variant="vpu"))
 
 
-def _problem(N, Np, d, K, B_vec, T, seed):
+def _problem(N, Np, d, K, B_vec, T, seed, variant="fused_vpu"):
     """A padded rotate problem, built the same way for both packages."""
     rng = np.random.default_rng(seed)
     kw = dict(N=N, d=d, K=K, B=sum(B_vec), B_vec=B_vec, N_pad=Np if Np != N else None,
-              estep_sub_tile=T)
+              estep_sub_tile=T, estep_variant=variant)
     cj, ct = jconfig.HarmonyConfig(**kw), tconfig.HarmonyConfig(**kw)
     Z = np.zeros((d, Np), np.float32)
     Z[:, :N] = 2.5 * rng.normal(size=(d, N))
@@ -180,11 +188,13 @@ def gram_table(Y, Zn):
     return _t(np.asarray(Zn).T @ np.asarray(Y))
 
 
-def _k7_rounds_against_pallas(N, Np, d, K, B_vec, T, with_G):
-    """Two K7 rounds of the twin against pallas_rotate_update_round_v2, g
-    formed from the layout's Zn or (``with_G``) read from the Gram table
-    of JAX's Zn, as the engine runs it."""
-    cj, ct, Z, Y, codes, Pr, sigma, theta = _problem(N, Np, d, K, B_vec, T, seed=N + d)
+def _k7_rounds_against_pallas(N, Np, d, K, B_vec, T, with_G, variant="fused_vpu"):
+    """Two K7 rounds of the twin against pallas_rotate_update_round_v2 in
+    the op order ``variant``, g formed from the layout's Zn or
+    (``with_G``) read from the Gram table of JAX's Zn, as the engine runs
+    it."""
+    cj, ct, Z, Y, codes, Pr, sigma, theta = _problem(N, Np, d, K, B_vec, T, seed=N + d,
+                                                     variant=variant)
     cp_j = jpr.make_codes_pad(cj, jnp.asarray(codes))
     Zn, tO, O, E = jpr.pallas_reassign(cj, jnp.asarray(Y), jnp.asarray(sigma), jnp.asarray(Pr),
                                        jpr.pad_cells_to_tile(cj, jnp.asarray(Z)), cp_j,
@@ -237,6 +247,12 @@ def test_k7_twin_reading_gram_table_matches_pallas_round(N, Np, d, K, B_vec, T):
     _k7_rounds_against_pallas(N, Np, d, K, B_vec, T, with_G=True)
 
 
+@pytest.mark.parametrize("with_G", [False, True])
+@pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
+def test_k7_twin_legacy_matches_pallas_round(N, Np, d, K, B_vec, T, with_G):
+    _k7_rounds_against_pallas(N, Np, d, K, B_vec, T, with_G, variant="legacy")
+
+
 def test_k7_wrapper_rejects_mixed_devices():
     _, ct, Z, Y, codes, Pr, sigma, theta = _problem(600, 640, 8, 5, (3,), 128, seed=1)
     cp = tr.make_codes_pad(ct, _t(codes))
@@ -268,8 +284,9 @@ def test_schedule_draws_and_blocks():
     assert sorted(tiles) == list(range(NT)) and tiles[0] == 7
 
 
-def _slice_setup(N, Np, lamb, max_iter_cluster=4):
-    """tests/test_tiled.py:250-272's problem, for both packages."""
+def _slice_setup(N, Np, lamb, max_iter_cluster=4, variant="fused_vpu"):
+    """tests/test_tiled.py:250-272's problem, for both packages, in the
+    E-step op order ``variant``."""
     rng = np.random.default_rng(7)
     d, B = 8, 3
     batches = rng.integers(0, B, N)
@@ -283,7 +300,7 @@ def _slice_setup(N, Np, lamb, max_iter_cluster=4):
     cj = jpre.resolve_config(design=jd, options=opts_j, **kw)
     ct = tpre.resolve_config(design=td, options=opts_t, **kw)
     over = dict(shuffle_mode="rotate", estep_sub_tile=512, mstep_tile=128, mstep_mode="tiled",
-                N_pad=Np if Np != N else None)
+                N_pad=Np if Np != N else None, estep_variant=variant)
     cj = dataclasses.replace(cj, estep_impl="pallas", **over)
     ct = dataclasses.replace(ct, estep_impl="torch", mstep_impl="torch", **over)
     perm, _ = jtiled.build_batch_tiled_order(jd.codes, 128, seed=0)
@@ -304,7 +321,18 @@ def _slice_setup(N, Np, lamb, max_iter_cluster=4):
      (4096, 4096, None, 1e-5, 1e-4, 7)],
 )
 def test_rotate_slice_matches_jax_engine(N, Np, lamb, obj_rtol, r_atol, mic):
-    cj, ct, jd, td, Zt, hj, ht, Y0 = _slice_setup(N, Np, lamb, mic)
+    _rotate_slice_against_jax(N, Np, lamb, obj_rtol, r_atol, mic, "fused_vpu")
+
+
+@pytest.mark.parametrize("N,Np", [(4096, 4096), (4000, 4096)])
+def test_rotate_slice_legacy_matches_jax_engine(N, Np):
+    _rotate_slice_against_jax(N, Np, None, 1e-5, 1e-4, 4, "legacy")
+
+
+def _rotate_slice_against_jax(N, Np, lamb, obj_rtol, r_atol, mic, variant):
+    """Three Harmony rounds of the JAX engine against the port's, the same
+    centroids and schedules, in the op order ``variant``."""
+    cj, ct, jd, td, Zt, hj, ht, Y0 = _slice_setup(N, Np, lamb, mic, variant)
     key = jax.random.PRNGKey(3)
     sj = jstate.init_state(cj, Zt, jd, hj.sigma, hj.theta, hj.lamb, key)
     st = tstate.init_state(ct, Zt, td, ht.sigma, ht.theta, ht.lamb, 3, "cpu")

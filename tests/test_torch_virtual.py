@@ -42,6 +42,17 @@
   wider than a CTA's threads hold in 4x4 register tiles at once, and
   raises (never falls back to the written path) where the layout tiles
   are not whole 64-cell pieces.
+* (l) ``estep_variant='legacy'``, the reference's two-normalise op order:
+  (a), (b), (c) at their bounds; the mixed/pad tail's recomputed R
+  (``_virtual_tail_r``) against the JAX function's at 1e-6 in both
+  orders; three rounds as (e); a legacy JAX virtual state crossed into
+  the port and materialised there at 1e-6; virtual against materialised
+  as (f), one and two covariates.
+* (m) K11's launch plan: where the earlier K11 (a CTA per 64 cells
+  staging Y^T, Zn, its R table, the block's table, sigma, 2/sigma and the
+  codes) took K, d, B and covariates, K11 takes them, in the first form
+  that fits: v_chain (to 256 clusters), assign_chain, then the centroids
+  read where they lie; two persistent CTAs an SM where both fit.
 
 On CPU tensors the kernel wrappers run their plain versions, so the
 port's side of every case is the plain PyTorch path the kernels are held
@@ -79,13 +90,14 @@ from test_torch_rotate import CASES, _close, _jax_schedule, _problem, _t, gram_t
 N_JOINT, LAYOUT_TILE = 3, 128
 
 
-def _last_round(N, Np, d, K, B_vec, T, write_r, with_G=False):
-    """One K7 round with the last-round extras in both packages, from the
-    same re-entry (JAX's K6 in interpret mode) and schedule; ``with_G``:
-    the port's round reads g from the Gram table of JAX's Zn. Returns
-    (cj, ct, JAX (res, M, (pen, map)), the port's RoundState, the inputs
-    the virtual functions take)."""
-    cj, ct, Z, Y, codes, Pr, sigma, theta = _problem(N, Np, d, K, B_vec, T, seed=N + 2 * d)
+def _last_round(N, Np, d, K, B_vec, T, write_r, with_G=False, variant="fused_vpu"):
+    """One K7 round with the last-round extras in both packages, in the op
+    order ``variant``, from the same re-entry (JAX's K6 in interpret mode)
+    and schedule; ``with_G``: the port's round reads g from the Gram table
+    of JAX's Zn. Returns (cj, ct, JAX (res, M, (pen, map)), the port's
+    RoundState, the inputs the virtual functions take)."""
+    cj, ct, Z, Y, codes, Pr, sigma, theta = _problem(N, Np, d, K, B_vec, T, seed=N + 2 * d,
+                                                     variant=variant)
     rng = np.random.default_rng(N + K)
     cp_j = jpr.make_codes_pad(cj, jnp.asarray(codes))
     Zn, tO, O, E = jpr.pallas_reassign(cj, jnp.asarray(Y), jnp.asarray(sigma), jnp.asarray(Pr),
@@ -121,9 +133,9 @@ def _last_round(N, Np, d, K, B_vec, T, write_r, with_G=False):
     return cj, ct, ref, out, inputs
 
 
-def _check_last_round_extras(N, Np, d, K, B_vec, T, write_r, with_G):
+def _check_last_round_extras(N, Np, d, K, B_vec, T, write_r, with_G, variant="fused_vpu"):
     _, _, (res_j, M_j, (pen_j, map_j)), out, _ = _last_round(N, Np, d, K, B_vec, T, write_r,
-                                                             with_G)
+                                                             with_G, variant)
     M_j = np.asarray(M_j)
     assert out.M.shape == M_j.shape == (N_JOINT + 1, K, d + 1)
     _close(out.M, M_j, rtol=0, atol=1e-5 * np.abs(M_j).max())
@@ -150,6 +162,13 @@ def test_k7_last_round_extras_match_pallas(N, Np, d, K, B_vec, T, write_r):
 @pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
 def test_k7_last_round_reading_gram_table_matches_pallas(N, Np, d, K, B_vec, T, write_r):
     _check_last_round_extras(N, Np, d, K, B_vec, T, write_r, with_G=True)
+
+
+@pytest.mark.parametrize("with_G", [False, True])
+@pytest.mark.parametrize("write_r", [True, False])
+@pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
+def test_k7_last_round_extras_legacy_match_pallas(N, Np, d, K, B_vec, T, write_r, with_G):
+    _check_last_round_extras(N, Np, d, K, B_vec, T, write_r, with_G, "legacy")
 
 
 @pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
@@ -206,8 +225,45 @@ def test_k10_twin_reading_gram_table_matches_pallas(N, Np, d, K, B_vec, T):
 
 
 @pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
+def test_k10_twin_legacy_matches_pallas(N, Np, d, K, B_vec, T):
+    """K10's twin in the legacy order, forming the distances and reading
+    the K6 twin's Gram table, against the Pallas kernel."""
+    cj, ct, (_, _, (pen_j, map_j)), _, x = _last_round(N, Np, d, K, B_vec, T, False,
+                                                       variant="legacy")
+    rng = np.random.default_rng(d + 2)
+    W = (0.2 * rng.normal(size=(N_JOINT + 1, d, K))).astype(np.float32)
+    W[N_JOINT] = 0.0
+    ref = jpr.pallas_virtual_correction(
+        cj, jnp.asarray(W), jnp.asarray(x["tj"]), LAYOUT_TILE, jnp.asarray(x["Y"]),
+        jnp.asarray(x["sigma"]), pen_j, map_j, jnp.asarray(x["Zn"]), jnp.asarray(x["cp"]),
+        jnp.asarray(x["Zo"]), interpret=True)
+    Zn, _, _, _, G = tr.reassign(ct, _t(x["Y"]), _t(x["sigma"]), _t(x["Pr"]), _t(x["Zr"]),
+                                 _t(x["cp"]))
+    args = (ct, _t(W), x["tj"], LAYOUT_TILE, _t(x["Y"]), _t(x["sigma"]), _t(pen_j), _t(map_j))
+    without = cuda_rotate.virtual_correction(*args, _t(x["Zn"]), _t(x["cp"]), _t(x["Zo"]))
+    with_g = cuda_rotate.virtual_correction(*args, Zn, _t(x["cp"]), _t(x["Zo"]), G)
+    _close(without, ref, rtol=0, atol=1e-5)
+    _close(with_g, ref, rtol=0, atol=1e-5)
+    _close(with_g, without, rtol=0, atol=1e-6)
+    trash = np.repeat(x["tj"] == N_JOINT, LAYOUT_TILE)
+    np.testing.assert_array_equal(with_g.numpy()[:, trash], x["Zo"][:, trash])
+
+
+@pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
 def test_k11_twin_matches_pallas_materialize_and_k7(N, Np, d, K, B_vec, T):
-    cj, ct, (_, _, (pen_j, map_j)), out, x = _last_round(N, Np, d, K, B_vec, T, True)
+    _check_k11(N, Np, d, K, B_vec, T, "fused_vpu")
+
+
+@pytest.mark.parametrize("N,Np,d,K,B_vec,T", CASES)
+def test_k11_twin_legacy_matches_pallas_materialize_and_k7(N, Np, d, K, B_vec, T):
+    _check_k11(N, Np, d, K, B_vec, T, "legacy")
+
+
+def _check_k11(N, Np, d, K, B_vec, T, variant):
+    """The K11 twin against pallas_materialize_r and the R the K7 twin
+    wrote in the same round, in the op order ``variant``."""
+    cj, ct, (_, _, (pen_j, map_j)), out, x = _last_round(N, Np, d, K, B_vec, T, True,
+                                                         variant=variant)
     ref = jpr.pallas_materialize_r(cj, jnp.asarray(x["Y"]), jnp.asarray(x["sigma"]), pen_j,
                                    map_j, jnp.asarray(x["Zn"]), jnp.asarray(x["cp"]),
                                    interpret=True)
@@ -225,11 +281,11 @@ def test_k11_twin_matches_pallas_materialize_and_k7(N, Np, d, K, B_vec, T):
                             _t(x["cp"]), out_dtype=torch.float64).dtype == torch.float64
 
 
-def _setup(B_vec, N, Np, lamb=None, seed=7, d=8, K=8):
+def _setup(B_vec, N, Np, lamb=None, seed=7, d=8, K=8, variant="fused_vpu"):
     """A batch-tiled rotate problem (N cells x d dims, K clusters, T = 512,
-    layout tile 128) for both packages, virtual R on: at d = K = 8 the
-    shape of tests/test_tiled.py:307-325 and
-    tests/test_multicov_fast.py:87-119."""
+    layout tile 128) for both packages, virtual R on, in the E-step op
+    order ``variant``: at d = K = 8 the shape of tests/test_tiled.py:307-325
+    and tests/test_multicov_fast.py:87-119."""
     rng = np.random.default_rng(seed)
     meta = {f"v{c}": rng.integers(0, b, N).astype(np.int32) for c, b in enumerate(B_vec)}
     Z = rng.normal(size=(N, d)).astype(np.float32)
@@ -241,7 +297,7 @@ def _setup(B_vec, N, Np, lamb=None, seed=7, d=8, K=8):
     cj = jpre.resolve_config(design=jd, options=opts_j, **kw)
     ct = tpre.resolve_config(design=td, options=opts_t, **kw)
     over = dict(shuffle_mode="rotate", estep_sub_tile=512, mstep_tile=128, mstep_mode="tiled",
-                N_pad=Np if Np != N else None, virtual_r=True)
+                N_pad=Np if Np != N else None, virtual_r=True, estep_variant=variant)
     cj = dataclasses.replace(cj, estep_impl="pallas", **over)
     ct = dataclasses.replace(ct, estep_impl="kernel", mstep_impl="kernel", **over)
     perm, _ = jtiled.build_batch_tiled_order(jd.codes, 128, seed=0)
@@ -286,9 +342,35 @@ def test_moe_correct_ridge_virtual_matches_jax(B_vec, N):
     _close(out[2], ref[2], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("variant", ["fused_vpu", "legacy"])
+def test_virtual_tail_r_matches_jax(variant):
+    """The mixed/pad tail's assignments, recomputed from the penalty tables
+    of a JAX virtual phase (harmony_tpu/ops/ridge.py:550-585)."""
+    setup = _setup((3,), 4000, 4096, variant=variant)
+    cj, ct = setup[:2]
+    sj, _, tiled_j, tiled_t = _states(*setup)
+    sj, _, virt = jengine.cluster(cj, sj, tiled=tiled_j, return_moments=True, virtual=True)
+    assert tiled_t.n_pure == tiled_j.n_pure < ct.Np
+    ref = jridge._virtual_tail_r(cj, virt, tiled_j.n_pure)
+    out = tridge._virtual_tail_r(ct, tr.VirtualR(*[_t(a) for a in virt]), tiled_t.n_pure)
+    assert out.shape == (ct.K, ct.Np - tiled_t.n_pure)
+    _close(out, ref, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("N", [4096, 4000])
 def test_virtual_slice_matches_jax_engine(N):
-    setup = _setup((3,), N, 4096)
+    _virtual_slice_against_jax(N, "fused_vpu")
+
+
+@pytest.mark.parametrize("N", [4096, 4000])
+def test_virtual_slice_legacy_matches_jax_engine(N):
+    _virtual_slice_against_jax(N, "legacy")
+
+
+def _virtual_slice_against_jax(N, variant):
+    """Three rounds of the JAX engine with virtual R and its run-end
+    materialize_r against the port's, in the op order ``variant``."""
+    setup = _setup((3,), N, 4096, variant=variant)
     cj, ct = setup[:2]
     sj, st, tiled_j, tiled_t = _states(*setup)
     round_j = jax.jit(lambda s: jengine.harmony_round(cj, s, tiled=tiled_j))
@@ -314,7 +396,17 @@ def test_virtual_slice_matches_jax_engine(N):
 
 
 def test_virtual_state_crosses_between_packages():
-    setup = _setup((2, 3), 4000, 4096)
+    _cross_virtual_state("fused_vpu")
+
+
+def test_legacy_virtual_state_crosses_between_packages():
+    _cross_virtual_state("legacy")
+
+
+def _cross_virtual_state(variant):
+    """A JAX virtual state (op order ``variant``) crosses to the port and
+    materialises there as in the JAX package."""
+    setup = _setup((2, 3), 4000, 4096, variant=variant)
     cj, ct = setup[:2]
     sj, st, tiled_j, tiled_t = _states(*setup)
     # a state that did not take virtual R carries none of the fields
@@ -433,8 +525,7 @@ def test_virtual_correction_takes_every_shape_the_earlier_k10_took(K_range, ncov
                     assert groups == 1 or d <= 64
                     continue
                 # K11 writes R, K9 applies it
-                assert (cuda_rotate.materialize_r_smem_bytes(K, d, B, ncov)
-                        <= cuda_rotate._SMEM_MAX)
+                assert cuda_rotate.materialize_r_plan(K, d, B, ncov).smem <= cuda_rotate._SMEM_MAX
                 cuda_ridge.k9_plan(K, d)
     assert took > 0
     # the main shape with two groups; one group where two do not fit
@@ -446,9 +537,79 @@ def test_virtual_correction_takes_every_shape_the_earlier_k10_took(K_range, ncov
     assert cuda_rotate.virtual_plan(50, 200, 10, 1, span) is None
 
 
+def _earlier_k11_took(K, d, B, ncov):
+    """The earlier K11's shared memory (a CTA per 64 cells staging Y^T, a
+    piece of Zn, its (K x 65) table, the block's table, sigma, 2/sigma and
+    the codes)."""
+    floats = K * d + d * 64 + K * 65 + K * B + 2 * K + ncov * 64
+    return 4 * floats <= cuda_rotate._SMEM_MAX
+
+
+def _k11_floats(K, d, B, ncov, kj, ys_shared):
+    c4 = lambda n: -(-n // 4) * 4
+    f = (d * 8 * -(-K // 8) if ys_shared else 0) + 64 * d
+    f += 64 * K + 68 * K if kj else c4(65 * K) + c4(2 * K)
+    return f + c4(K * B) + 64 * ncov + c4(ncov)
+
+
+@pytest.mark.parametrize("ncov", [1, 2, 3])
+@pytest.mark.parametrize("K_range", [(1, 129), (129, 257), (257, 520)])
+def test_materialize_r_takes_every_shape_the_earlier_k11_took(K_range, ncov):
+    took = 0
+    smem = lambda *form: 4 * _k11_floats(K, d, B, ncov, *form)
+    for K in range(*K_range, 3):
+        kj = cuda_rotate.chain_lanes(K)
+        for d in list(range(1, 80, 3)) + list(range(80, 310, 11)):
+            for B in (1, 2, 3, 10, 26, 40, 100, 200, 400, 566):
+                if not _earlier_k11_took(K, d, B, ncov):
+                    continue
+                took += 1
+                plan = cuda_rotate.materialize_r_plan(K, d, B, ncov)
+                assert plan.smem == smem(plan.kj, plan.ys_shared) <= cuda_rotate._SMEM_MAX
+                assert plan.kj in (0, kj) and (kj > 0) == (K <= 256)
+                # the first form that fits: v_chain, assign_chain, then the
+                # centroids read where they lie
+                forms = ([(kj, True)] if kj else []) + [(0, True), (0, False)]
+                first = forms.index((plan.kj, plan.ys_shared))
+                assert all(smem(*f) > cuda_rotate._SMEM_MAX for f in forms[:first])
+    assert took > 0
+
+
+def test_materialize_r_plan_and_grid():
+    # the main shape: v_chain at four values a lane, Y staged, two CTAs an SM
+    plan = cuda_rotate.materialize_r_plan(100, 50, 10, 1)
+    assert plan == (4, True, 4 * _k11_floats(100, 50, 10, 1, 4, True))
+    assert cuda_rotate.materialize_r_grid(503_808 // 64, plan.smem, 132) == 264
+    assert cuda_rotate.materialize_r_grid(10, plan.smem, 132) == 10
+    # one CTA an SM where two do not fit
+    wide = cuda_rotate.materialize_r_plan(256, 50, 10, 1)
+    assert wide[:2] == (8, True) and wide.smem > 115_712
+    assert cuda_rotate.materialize_r_grid(7872, wide.smem, 132) == 132
+    # past 256 clusters the chain of K7; past shared memory Y where it lies
+    assert cuda_rotate.materialize_r_plan(300, 50, 10, 1)[:2] == (0, True)
+    assert cuda_rotate.materialize_r_plan(400, 50, 10, 3)[:2] == (0, True)
+    assert cuda_rotate.materialize_r_plan(100, 300, 20, 1)[:2] == (0, False)
+    assert [cuda_rotate.chain_lanes(K) for K in (1, 32, 33, 64, 65, 128, 129, 256, 257)] == [
+        1, 1, 2, 2, 4, 4, 8, 8, 0]
+    with pytest.raises(ValueError, match="K=400, d=300, B=100"):
+        cuda_rotate.materialize_r_plan(400, 300, 100, 1)
+
+
+@pytest.mark.parametrize("B_vec", [(3,), (2, 3)])
+def test_virtual_run_legacy_matches_materialised_run(B_vec):
+    _virtual_against_materialised(B_vec, "legacy")
+
+
 @pytest.mark.parametrize("B_vec", [(3,), (2, 3), (2, 2, 3)])
 def test_virtual_run_matches_materialised_run(B_vec):
-    setup = _setup(B_vec, 4096, 4096, lamb=1.0)
+    _virtual_against_materialised(B_vec, "fused_vpu")
+
+
+def _virtual_against_materialised(B_vec, variant):
+    """The port's virtual run against its own materialised run, with the
+    JAX package's bounds (tests/test_multicov_fast.py:144-171), in the op
+    order ``variant``."""
+    setup = _setup(B_vec, 4096, 4096, lamb=1.0, variant=variant)
     ct, td, Zt, ht = setup[1], setup[3], setup[4], setup[6]
     layout = tengine.mstep_layout(ct, td.codes)
     out = {}
