@@ -85,6 +85,33 @@ Phases (``--phases`` picks a subset, comma-separated):
              K4, K5, K8, K9, K10 and K11 must not; then the same at 80,000
              cells, which resolves to the per-round permute schedule: K1
              must be launched, K4 and K5 must not.
+13. bf16     run_harmony(..., dtype="bfloat16") on the main shape's cells,
+             nothing cut: rotate, the stats carry, virtual R; the bf16
+             forms of K6 and K10 once an iteration, K7, K11 once, no K8 or
+             K9; R stored in bf16, its column sums within 1e-2 of 1, the
+             separation shrinks; its seconds per iteration and peak device
+             memory beside the float32 virtual path's. Then the same cells
+             from shared initial centroids, early stop off, five
+             iterations, in bf16 and float32 (virtual R both): Z_corr
+             (relative Frobenius) within 2e-2, the objective entries from
+             the first correction on within 2e-2 of the trace's scale and
+             the last within 2e-2 of itself (the two before it cancel near
+             0 and carry bf16's renormalisation; logged, held_to). Then each
+             other route of a bf16 engine (the float32 kernels on float32
+             copies) at 20,000 cells through the driver, held to its
+             float32 run the same way: per-round permute (K1), the forced
+             fused permute phase (K2, K3), rotate writing R (K6, K7),
+             without the stats carry (K12), and the cell-granular round at
+             2,000 cells (its objective at 5e-2, BF16_CELL_OBJ_RTOL). The kernels phase checks the bf16 forms against
+             their float32 forms on the upcast inputs (0.0 required),
+             their plain versions and two launches bit-equal, at the main
+             shape (timed) and the shapes of K7's last round above, in
+             both op orders.
+14. bf16_10m (opt-in: named in --phases, not run by default) the bf16 path
+             at BASELINE's shape, 10,000,000 x 50 cells, 100 batches, K =
+             100: wall, phase seconds, seconds per iteration, peak device
+             memory; then the float32 engine (virtual R) on the same cells
+             beside it, logged only.
 
 It prints a JSON line of the kernels' numbers, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Any failed check exits 1.
@@ -103,7 +130,12 @@ import sys
 import time
 
 PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
-          "rotate_rounds", "rotate_two_phase", "legacy", "segment")
+          "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16")
+# phases run only when named in --phases: the bf16 engine at BASELINE's shape
+OPT_IN_PHASES = ("bf16_10m",)
+# BASELINE's north-star shape (BASELINE.json): 10M cells x 50, 100 batches,
+# K = 100 (default_nclust), bf16
+N_10M, B_10M = 10_000_000, 100
 MAIN_PATHS = ("permute", "permute_rounds", "main", "virtual", "rotate_rounds",
               "rotate_two_phase")
 # the legacy phase: the driver with the legacy op order, R written and virtual
@@ -126,6 +158,10 @@ MAX_ITER = 10  # run_harmony's default; early stop is on
 VIRTUAL_WIDE = ((20_000, 300, 32, (B_MAIN,), 26), (20_000, D_MAIN, 256, (B_MAIN,), 29))
 R_ATOL = 1e-5  # assignments: fp32 with another summation order
 SUM_RTOL = 1e-4  # sums: max |kernel - plain| <= SUM_RTOL * max |plain|
+# the kernels with a bf16 storage form (the bf16 engine's virtual route)
+BF16_FORMS = ("K6", "K7", "K10", "K11")
+# peak device memory of each main path run, MiB
+PEAKS = {}
 # logs too long for the console (profile, ptxas report); a path setting
 OUT_DIR = os.environ.get("CHIP_SMOKE_OUT", "chip_smoke_out")
 
@@ -656,6 +692,30 @@ def time_k6(torch, args6, what, sfx):
     return row
 
 
+def virtual_problem(torch, dev, N, d, K, B_vec, seed, variant):
+    """rotate_problem's inputs in the op order ``variant`` with the cells in
+    a batch-tiled order (so the layout has pure tiles of 256 cells, 128
+    below 100k cells) and a seeded Z_orig. Returns (cfg, Z, codes_pad, Y,
+    sigma, Pr_b, theta, g, tile, layout, Z_orig, n_joint, tile_joint)."""
+    import dataclasses
+
+    from harmony_tpu_torch.ops.ridge import full_tile_joint
+    from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
+
+    cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = rotate_problem(
+        torch, N, d, K, B_vec, seed, dev)
+    cfg = dataclasses.replace(cfg, estep_variant=variant)
+    tile = 256 if N >= 100_000 else 128
+    order, layout = build_batch_tiled_order(codes_pad[:, :N].cpu().numpy(), tile, seed)
+    order = torch.as_tensor(order, device=dev)
+    Z[:, :N] = Z[:, order]
+    codes_pad[:, :N] = codes_pad[:, order]
+    Zo = torch.zeros(d, cfg.Np, device=dev)
+    Zo[:, :N] = 2.0 * torch.randn(d, N, generator=g, device=dev)
+    return (cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g, tile, layout, Zo,
+            int(layout.joint_codes.shape[1]), full_tile_joint(cfg, layout))
+
+
 def check_virtual(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
     """A phase's last K7 round with the fused moments and the penalty
     tables (writing R and not), K10 and K11 against their plain versions
@@ -665,25 +725,12 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
     the engine takes (K10 where it takes the shape, else K11 then K9), and
     again without G (K11 then K9). Timed under ``legacy``, only K7's last
     round, K10 and K11 (keys ``*_legacy``)."""
-    import dataclasses
-
     from harmony_tpu_torch.ops import cuda_ridge, cuda_rotate, rotate
-    from harmony_tpu_torch.ops.ridge import full_tile_joint, virtual_tile_correction
-    from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
+    from harmony_tpu_torch.ops.ridge import virtual_tile_correction
 
-    cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = rotate_problem(
-        torch, N, d, K, B_vec, seed, dev)
-    cfg = dataclasses.replace(cfg, estep_variant=variant)
+    (cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g, tile, layout, Zo, nj,
+     tj) = virtual_problem(torch, dev, N, d, K, B_vec, seed, variant)
     Np, ncov = cfg.Np, len(B_vec)
-    tile = 256 if N >= 100_000 else 128
-    order, layout = build_batch_tiled_order(codes_pad[:, :N].cpu().numpy(), tile, seed)
-    order = torch.as_tensor(order, device=dev)
-    Z[:, :N] = Z[:, order]
-    codes_pad[:, :N] = codes_pad[:, order]
-    Zo = torch.zeros(d, Np, device=dev)
-    Zo[:, :N] = 2.0 * torch.randn(d, N, generator=g, device=dev)
-    nj = int(layout.joint_codes.shape[1])
-    tj = full_tile_joint(cfg, layout)
     spec = rotate.MomentsSpec(Z_orig=Zo, tile_joint=tj, n_joint=nj, tile=tile)
     # K6's Zn and G, as the engine hands them to the phase's rounds
     args6 = (cfg, Y, sigma, Pr_b, Z, codes_pad)
@@ -856,6 +903,189 @@ def check_k11(torch, dev, N, d, K, B_vec, seed, variant):
     require(err <= R_ATOL, f"K11 alone disagrees: {err}")
     require(same, "K11 repeats differ")
     require(colsum <= 1e-4, f"K11 alone: R columns do not sum to 1: {colsum}")
+
+
+def bf16_ulps(torch, out, ref) -> float:
+    """The largest |out - ref| of two bf16 tensors in bf16 ulps of ref
+    (an ulp at |r| is 2^(floor(log2 |r|) - 7)); 0 where they are equal."""
+    o, r = out.double(), ref.double()
+    a = r.abs()
+    ulp = torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-38))) - 7),
+                      torch.full_like(a, 2.0 ** -133))
+    return float(((o - r).abs() / ulp).max())
+
+
+def check_bf16(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
+    """The bf16 forms of K6 (bf16 Z_raw), K7's last round (moments on a bf16
+    Z_orig, R written in bf16), K10 (bf16 Z_orig in, bf16 Z_corr out) and
+    K11 (bf16 R out) on check_virtual's inputs stored in bf16, in the op
+    order ``variant``. Required, 0.0: K6's and K7's float32 outputs equal
+    the float32 forms' on the upcast inputs; K11's R equals K7's float32 R
+    of the same round cast to bf16; K10's Z_corr equals K9 on K11's float32
+    R and the upcast Z_orig, cast to bf16; each kernel's two launches
+    bit-equal. Against the plain versions on the same bf16 inputs: float32
+    outputs at the float32 checks' bounds, bf16 outputs within one bf16 ulp
+    past the float32 difference (atol 1e-5). Timed (``timed``) beside the
+    float32 forms on the upcast inputs, with bounds for 2-byte storage."""
+    import dataclasses
+
+    from harmony_tpu_torch.ops import cuda_ridge, cuda_rotate, rotate
+    from harmony_tpu_torch.ops.ridge import virtual_tile_correction
+
+    bf = torch.bfloat16
+    (cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g, tile, layout, Zo, nj,
+     tj) = virtual_problem(torch, dev, N, d, K, B_vec, seed, variant)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    Np, ncov = cfg.Np, len(B_vec)
+    Zb, Zob = Z.to(bf), Zo.to(bf)
+    Zu, Zou = Zb.float(), Zob.float()
+    spec_b = rotate.MomentsSpec(Z_orig=Zob, tile_joint=tj, n_joint=nj, tile=tile)
+    spec_u = spec_b._replace(Z_orig=Zou)
+    # K6
+    args6 = (cfg, Y, sigma, Pr_b)
+    out6 = cuda_rotate.reassign(*args6, Zb, codes_pad)
+    again6 = cuda_rotate.reassign(*args6, Zb, codes_pad)
+    up6 = cuda_rotate.reassign(*args6, Zu, codes_pad)
+    ref6 = rotate.reassign(*args6, Zb, codes_pad)
+    Zn, tO, O, E, G = out6
+    # K7, a phase's last round on bf16 state: R, E and O in bf16
+    rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
+    lay = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G)
+    rs = rotate.RoundState(R=torch.zeros(K, Np, device=dev, dtype=bf), E=E.to(bf),
+                           O=O.to(bf), tile_O=tO, kmeans_error=None, entropy=None)
+    args7 = (cfg, Y, rs, Pr_b, sigma, theta, rt, blocks, lay)
+    kw = dict(write_r=True, emit_pen=True)
+    out7 = cuda_rotate.rotate_update_round_v2(*args7, moments=spec_b, **kw)
+    again7 = cuda_rotate.rotate_update_round_v2(*args7, moments=spec_b, **kw)
+    up7 = cuda_rotate.rotate_update_round_v2(*args7, moments=spec_u, **kw)
+    f32_7 = cuda_rotate.rotate_update_round_v2(*args7[:2], rs._replace(R=torch.zeros(
+        K, Np, device=dev)), *args7[3:], moments=spec_u, **kw)
+    ref7 = rotate.rotate_update_round_v2(*args7, moments=spec_b, **kw)
+    # K11 and K10 from that round's tables
+    vargs = (Y, sigma, out7.pen, out7.blkmap, Zn, codes_pad)
+    R11 = cuda_rotate.materialize_r(cfg, *vargs, out_dtype=bf)
+    again11 = cuda_rotate.materialize_r(cfg, *vargs, out_dtype=bf)
+    R11f = cuda_rotate.materialize_r(cfg, *vargs)
+    ref11 = rotate.materialize_r(cfg, *vargs, out_dtype=bf)
+    W = 0.1 * torch.randn(nj + 1, d, K, generator=g, device=dev)
+    W[nj] = 0.0
+    cargs = (cfg, W, tj, tile, *vargs)
+    Zc9 = cuda_ridge.tiled_correction(W, tj, R11f, Zou, tile)
+    k10_takes = cuda_rotate.k10_fits(cfg, d, Np // tile, dev)
+    if k10_takes:
+        Zc = cuda_rotate.virtual_correction(*cargs, Zob, G)
+        again10 = cuda_rotate.virtual_correction(*cargs, Zob, G)
+        ref10 = rotate.virtual_correction(*cargs, Zob, G)
+    else:
+        # past K10's limits the correction runs K11, then K9, on float32
+        virt = rotate.VirtualR(pen=out7.pen, blkmap=out7.blkmap, Zn_pad=Zn,
+                               codes_pad=codes_pad, Y=Y, Z_orig_pad=Zob, sigma=sigma, G=G)
+        Zc = virtual_tile_correction(cfg, W, tj, tile, virt)
+        again10 = virtual_tile_correction(cfg, W, tj, tile, virt)
+        ref10 = Zc9
+    torch.cuda.synchronize()
+    require(all(t.dtype == torch.float32 for t in out6), "K6 (bf16) outputs are not float32")
+    require(out7.R.dtype == R11.dtype == bf and Zc.dtype == (bf if k10_takes else torch.float32),
+            "K7, K11 or K10 (bf16) outputs are not bf16, or the fallback not float32")
+    d6 = max(float((a - b).abs().max()) for a, b in zip(out6, up6))
+    same6 = all(bool(torch.equal(a, b)) for a, b in zip(out6, again6))
+    e6 = max(float((Zn - ref6[0]).abs().max()), float((G - ref6[4]).abs().max()))
+    r6 = max(rel_err(a, b) for a, b in zip(out6[1:4], ref6[1:4]))
+    names7 = ("M", "pen", "tile_O", "kmeans_error", "entropy")
+    d7 = max(float((getattr(out7, f) - getattr(up7, f)).abs().max()) for f in names7)
+    d7r = max(float((getattr(out7, f).float() - getattr(up7, f).float()).abs().max())
+              for f in ("R", "E", "O"))
+    same7 = all(bool(torch.equal(getattr(out7, f), getattr(again7, f)))
+                for f in names7 + ("R", "E", "O"))
+    r7 = max(rel_err(getattr(out7, f), getattr(ref7, f)) for f in names7)
+    u7 = bf16_ulps(torch, out7.R, ref7.R)
+    r_cast = float((out7.R.float() - f32_7.R.to(bf).float()).abs().max())
+    d11 = float((R11.float() - f32_7.R.to(bf).float()).abs().max())
+    same11 = bool(torch.equal(R11, again11))
+    u11 = bf16_ulps(torch, R11, ref11)
+    e11 = float((R11.float() - ref11.float()).abs().max())
+    d10 = float((Zc.float() - Zc9.to(Zc.dtype).float()).abs().max())
+    same10 = bool(torch.equal(Zc, again10))
+    e10 = float((Zc.float() - ref10.float()).abs().max())
+    u10 = bf16_ulps(torch, Zc, ref10) if k10_takes else 0.0
+    colsum = float(R11[:, :N].float().sum(0).sub(1).abs().max())
+    log(f"  bf16 forms ({variant}) N={N} (Np={Np}) d={d} K={K} B_vec={B_vec}, layout tile "
+        f"{tile}: K6 against its float32 form on the upcast Z {d6:.1e} (0.0 required), "
+        f"repeat bit-equal {same6}, plain max|dZn|,|dG| {e6:.2e} (1e-6), sums rel {r6:.2e}; "
+        f"K7 last round against the float32 form on the upcast Z_orig: M, pen, tile_O, "
+        f"objective {d7:.1e}, R/E/O {d7r:.1e} (0.0), its bf16 R against the float32 form's "
+        f"cast {r_cast:.1e} (0.0), repeat bit-equal {same7}, plain rel {r7:.2e}, R "
+        f"{u7:.2f} ulp; K11 against K7's float32 R cast {d11:.1e} (0.0), repeat bit-equal "
+        f"{same11}, plain max|dR| {e11:.2e} ({u11:.2f} ulp), R column sums within "
+        f"{colsum:.2e} of 1; " + (
+            f"K10 against K9 on K11's float32 R, cast {d10:.1e} (0.0), repeat bit-equal "
+            f"{same10}, plain max|dZ| {e10:.2e} ({u10:.2f} ulp)" if k10_takes else
+            f"past K10's limits K11, then K9 on float32 copies, against K9 on K11's R "
+            f"{d10:.1e} (0.0), repeat bit-equal {same10}"))
+    require(d6 == 0.0 and same6, f"K6 (bf16): {d6} against the float32 form, repeat {same6}")
+    require(e6 <= 1e-6 and r6 <= SUM_RTOL, f"K6 (bf16) disagrees with its plain version: "
+            f"{e6}, {r6}")
+    require(d7 == 0.0 and d7r == 0.0 and r_cast == 0.0 and same7,
+            f"K7 (bf16): {d7}, {d7r}, {r_cast} against the float32 form, repeat {same7}")
+    require(r7 <= SUM_RTOL, f"K7 (bf16) disagrees with its plain version: {r7}")
+    # bf16 outputs: the float32 difference (R_ATOL) plus one bf16 ulp
+    bad7 = (out7.R.float() - ref7.R.float()).abs() > R_ATOL + ref7.R.float().abs() * 2.0 ** -7
+    require(not bool(bad7.any()), "K7 (bf16) R disagrees with its plain version")
+    require(d11 == 0.0 and same11, f"K11 (bf16): {d11} against K7's R cast, repeat {same11}")
+    bad11 = (R11.float() - ref11.float()).abs() > R_ATOL + ref11.float().abs() * 2.0 ** -7
+    require(not bool(bad11.any()), f"K11 (bf16) disagrees with its plain version: {e11}")
+    require(colsum <= 1e-2, f"K11 (bf16) R columns do not sum to 1: {colsum}")
+    require(d10 == 0.0 and same10, f"K10 (bf16): {d10} against K9 on K11's R, repeat {same10}")
+    bad10 = (Zc.float() - ref10.float()).abs() > SUM_RTOL * float(
+        ref10.float().abs().max()) + ref10.float().abs() * 2.0 ** -7
+    require(not bool(bad10.any()), f"K10 (bf16) disagrees with its plain version: {e10}")
+    rows = {k: {"max_abs_err": v} for k, v in
+            (("K6", e6), ("K7", r7), ("K10", e10), ("K11", e11))}
+    if not timed or not k10_takes:
+        return rows
+    flops = 2.0 * K * d * Np
+    for k, fn, fn32, plain, iters in (
+            ("K6", lambda: cuda_rotate.reassign(*args6, Zb, codes_pad),
+             lambda: cuda_rotate.reassign(*args6, Zu, codes_pad),
+             lambda: rotate.reassign(*args6, Zb, codes_pad), 10),
+            ("K7", lambda: cuda_rotate.rotate_update_round_v2(
+                *args7, write_r=False, moments=spec_b, emit_pen=True),
+             lambda: cuda_rotate.rotate_update_round_v2(
+                 *args7, write_r=False, moments=spec_u, emit_pen=True),
+             lambda: rotate.rotate_update_round_v2(
+                 *args7, write_r=False, moments=spec_b, emit_pen=True), 5),
+            ("K10", lambda: cuda_rotate.virtual_correction(*cargs, Zob, G),
+             lambda: cuda_rotate.virtual_correction(*cargs, Zou, G),
+             lambda: rotate.virtual_correction(*cargs, Zob, G), 10),
+            ("K11", lambda: cuda_rotate.materialize_r(cfg, *vargs, out_dtype=bf),
+             lambda: cuda_rotate.materialize_r(cfg, *vargs),
+             lambda: rotate.materialize_r(cfg, *vargs, out_dtype=bf), 10)):
+        rows[k]["ms"] = time_ms(torch, f"{k} kernel, bf16 storage", fn, iters=iters)
+        rows[k]["ms_float32_form"] = time_ms(torch, f"{k} kernel, float32 form on the upcast "
+                                             "inputs", fn32, iters=iters)
+        rows[k]["plain_ms"] = time_ms(torch, f"{k} plain, bf16 storage", plain, iters=3)
+        rows[k]["library_ms"] = None
+    nb = out7.pen.shape[0]
+    # the bytes each function moves with Z_raw, Z_orig, Z_corr and R in 2
+    # bytes and Zn, G's inputs and the tables in 4
+    rows["K6"]["bound_ms"], rows["K6"]["bound_by"] = bound(
+        2 * d * Np + 4 * d * Np + 4 * ncov * Np, flops)
+    rows["K7"]["bound_ms"], rows["K7"]["bound_by"] = bound(
+        4 * d * Np + 2 * d * Np + 4 * ncov * Np + 4 * ((nj + 1) * K * (d + 1) + nb * K * cfg.B),
+        flops + 2.0 * K * (d + 1) * Np)
+    rows["K10"]["bound_ms"], rows["K10"]["bound_by"] = bound(
+        4 * d * Np + 2 * d * Np + 2 * d * Np + 4 * ncov * Np, 4.0 * K * d * layout.n_pure)
+    rows["K11"]["bound_ms"], rows["K11"]["bound_by"] = bound(
+        4 * d * Np + 4 * ncov * Np + 2 * K * Np, flops)
+    # K7's moments: the library einsum of K8's function on the bf16 round's
+    # R and the upcast Z_orig
+    nt = Np // tile
+    oh = torch.nn.functional.one_hot(torch.as_tensor(tj, device=dev).long(), nj + 1).float()
+    R3 = f32_7.R.reshape(K, nt, tile)
+    Za3 = torch.cat([Zou, torch.ones(1, Np, device=dev)]).reshape(d + 1, nt, tile)
+    rows["K7"]["library_ms"] = time_ms(torch, "K7 (bf16) moments library einsum",
+                                       lambda: torch.einsum("ktu,tj,dtu->jkd", R3, oh, Za3))
+    return rows
 
 
 def check_rotate_v1(torch, dev, N, d, K, B_vec, seed, timed):
@@ -1211,11 +1441,13 @@ def check_cell_route(torch, dev, wrappers):
     require(sep1 < sep0, "cell-granular route: batch-centroid separation did not shrink")
 
 
-def run_driver(N, Zh, meta, dev, **change):
+def run_driver(N, Zh, meta, dev, Y0=None, **change):
     """The main shape through the config and the driver, for the options
     run_harmony has no argument for (``change``: the rotate rounds without
-    the stats carry, or the legacy op order), with run_harmony's ridge
-    solver and ingest: the batch-tiled order and its inverse."""
+    the stats carry, the legacy op order, the forced fused permute phase,
+    and any other config field), with run_harmony's ridge solver and
+    ingest: the batch-tiled order and its inverse; ``Y0`` injects the
+    initial centroids (d, K)."""
     import dataclasses
 
     from harmony_tpu_torch import api, driver, engine, preprocess
@@ -1237,7 +1469,7 @@ def run_driver(N, Zh, meta, dev, **change):
     timers = PhaseTimers(dev)
     with timers.scope("ingest"):
         state = init_state(cfg, Z, design, hp.sigma, hp.theta, hp.lamb, 0, dev)
-    state = driver.run(cfg, state, timers=timers, layout=layout)
+    state = driver.run(cfg, state, timers=timers, layout=layout, Y0=Y0)
     return api.HarmonyResult(config=cfg, state=state, design=design, timers=timers,
                              ingest_inv=inv)
 
@@ -1316,7 +1548,8 @@ def run_main_path(torch, dev, wrappers, phase):
     log(f"  kmeans rounds {res.kmeans_rounds.tolist()}; objective "
         f"{[round(x, 3) for x in trace]}")
     log(f"  launches: {launches}")
-    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+    PEAKS[phase] = torch.cuda.max_memory_allocated() / 2**20
+    log(f"  peak device memory {PEAKS[phase]:.1f} MiB "
         "(torch.cuda.max_memory_allocated over the call)"
         + (f"; the phase's distances G, held until K3 has run, are "
            f"{N_MAIN * res.K * 4 / 2**20:.1f} MiB of it at most" if phase == "permute" else ""))
@@ -1409,9 +1642,230 @@ def run_segment_path(torch, dev, wrappers, path, n, schedule):
     return launches
 
 
+def held_to(torch, what, a, b, rtol, obj_rtol=None):
+    """Hold result ``a`` (bf16) to ``b`` (float32) of the same data and
+    initial centroids: Z_corr's relative Frobenius error at ``rtol``; the
+    objective trace from the first correction on, entry by entry, within
+    ``rtol`` of the trace's scale (its largest magnitude), and its last
+    entry within ``rtol`` of itself (``obj_rtol`` in place of ``rtol`` for
+    the objective where given). The entries before the first correction
+    (the initial clustering's and the first phase's) are logged, not held:
+    they are sums of terms two orders larger that cancel near 0, whose
+    distance term carries, in a bf16 engine, the renormalisation of bf16
+    vectors (squared norms rounded on bf16's grid near 1; the JAX package's
+    bf16 engine gives the same values). Returns (Z_corr rel, the held
+    entries' largest difference over the scale, the last entry's rel)."""
+    import numpy as np
+
+    obj_rtol = obj_rtol or rtol
+    ta, tb = np.asarray(a.objective_harmony, np.float64), np.asarray(b.objective_harmony,
+                                                                    np.float64)
+    require(len(ta) == len(tb) >= 3, f"{what}: {len(ta)} and {len(tb)} objective entries")
+    scale = float(np.abs(tb).max())
+    d = np.abs(ta - tb) / scale
+    last = float(abs(ta[-1] - tb[-1]) / abs(tb[-1]))
+    za = torch.as_tensor(a.Z_corr).double()
+    zb = torch.as_tensor(b.Z_corr).double()
+    zrel = float(torch.linalg.norm(za - zb) / torch.linalg.norm(zb))
+    log(f"  {what}: Z_corr relative Frobenius error {zrel:.3e}; objective entries from the "
+        f"first correction on within {float(d[2:].max()):.3e} of the trace's scale "
+        f"{scale:.4g}, the last within {last:.3e} of itself (rtol {obj_rtol}; Z_corr "
+        f"{rtol}); the two before "
+        f"it {float(d[0]):.3e} and {float(d[1]):.3e} of the scale (not held); "
+        f"{[round(float(x), 4) for x in ta]} against {[round(float(x), 4) for x in tb]}")
+    require(zrel <= rtol, f"{what}: Z_corr rel {zrel}")
+    require(float(d[2:].max()) <= obj_rtol and last <= obj_rtol,
+            f"{what}: objective entries {float(d[2:].max())} of the scale, last {last}")
+    return zrel, float(d[2:].max()), last
+
+
+def initial_centroids(torch, Zs, K, seed):
+    """K centroids by the port's k-means seeding on the L2-normalised cells,
+    on the card from a seeded generator: the initial centroids two runs in
+    different dtypes share (each dtype's own seeding picks other cells)."""
+    from harmony_tpu_torch import ops
+
+    g = torch.Generator(device=Zs.device)
+    g.manual_seed(seed)
+    X = ops.l2_normalize_columns(Zs.t().contiguous())
+    return ops.kmeans_centers(X, K, generator=g).cpu().numpy()
+
+
+BF16_HELD_RTOL = 2e-2  # Z_corr and objective of a bf16 run against float32 (held_to)
+# the cell-granular route's objective: its rounds read the state's Z_corr,
+# renormalised in bf16 at each re-entry, and round R, E and O to bf16 every
+# round at 2,000 cells, K = 67 (measured 2.9e-2 of the trace's scale)
+BF16_CELL_OBJ_RTOL = 5e-2
+BF16_HELD_ITERS = 5  # iterations of the held pair (early stop off)
+
+
+def run_bf16_path(torch, dev, wrappers, phase, n, B):
+    """run_harmony(..., dtype="bfloat16") on the canonical synthetic cells
+    (n x 50, B batches, seed 7), everything else at its default: rotate,
+    the stats carry, virtual R. Launch counts are set to 0 right before the
+    call and read right after it. Required: K6 and K10 once an iteration,
+    K11 once, K7, no K8 or K9; bf16 storage and R; R's column sums within
+    1e-2 of 1; finite embeddings; the batch-centroid separation shrinks.
+    At the main shape (phase 'bf16') the run is also held to a float32
+    virtual run: both from the same initial centroids, early stop off,
+    BF16_HELD_ITERS iterations, Z_corr and the objective at BF16_HELD_RTOL
+    (held_to). Returns (launches, objective trace, iterations)."""
+    import numpy as np
+
+    from harmony_tpu_torch import engine, run_harmony
+    from harmony_tpu_torch.config import default_nclust
+
+    Zs, bs = synthetic(torch, n, D_MAIN, B, 7, dev)
+    sep0 = separation(torch, Zs.t(), bs, B)
+    Y0 = initial_centroids(torch, Zs, default_nclust(n), 5) if phase == "bf16" else None
+    Zh, meta = Zs.cpu().numpy(), {"batch": bs.cpu().numpy()}
+    del Zs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    res = run_harmony(Zh, meta, ["batch"], max_iter=MAX_ITER, return_object=True, seed=0,
+                      dtype="bfloat16")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    cfg, st = res.config, res.state
+    ph = res.phase_seconds()
+    n_it = int(st.n_rounds)
+    per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
+    log(f"{phase} path: run_harmony {n} x {D_MAIN}, K={res.K}, B={res.B}, dtype "
+        f"{cfg.dtype}, matmul_precision {cfg.matmul_precision!r}, {cfg.shuffle_mode} (route "
+        f"{cfg.rotate_route!r}, virtual R {st.virt_pen is not None}, T={cfg.estep_sub_tile}, "
+        f"Np={cfg.Np}), max_iter={MAX_ITER}: {n_it} iterations, wall {wall:.2f} s")
+    log("  phase seconds: " + json.dumps({k: round(v, 4) for k, v in ph.items()}))
+    log(f"  seconds per Harmony iteration {per_it:.4f}; {n / per_it:,.0f} cells/s per "
+        f"iteration; materialize_r {ph.get('materialize_r', 0.0):.4f} s")
+    trace = [float(x) for x in res.objective_harmony]
+    log(f"  kmeans rounds {res.kmeans_rounds.tolist()}; objective {[round(x, 3) for x in trace]}")
+    log(f"  launches: {launches}")
+    beside = (f"; the float32 virtual path's in this run {PEAKS['virtual']:.1f} MiB"
+              if "virtual" in PEAKS else "")
+    log(f"  peak device memory {peak:.1f} MiB (torch.cuda.max_memory_allocated over the "
+        f"call){beside}")
+    PEAKS[phase] = peak
+    bf = torch.bfloat16
+    require((cfg.shuffle_mode, cfg.rotate_route, cfg.dtype, cfg.matmul_precision) ==
+            ("rotate", "carry", "bfloat16", "bfloat16"),
+            f"{phase}: resolved {cfg.shuffle_mode}, {cfg.rotate_route}, {cfg.dtype}, "
+            f"{cfg.matmul_precision}")
+    require(st.virt_pen is not None, f"{phase}: virtual R did not engage")
+    require(st.Z_orig.dtype == st.Z_corr.dtype == st.R.dtype == st.Y.dtype == bf,
+            f"{phase}: the state is not stored in bf16")
+    require(launches["K6"] == n_it and launches["K10"] == n_it and launches["K11"] == 1,
+            f"{phase}: K6 {launches['K6']}, K10 {launches['K10']} launches for {n_it} "
+            f"iterations, K11 {launches['K11']}")
+    emb = res.embeddings
+    require(emb.shape == (n, D_MAIN) and np.isfinite(emb).all(),
+            f"{phase}: embeddings not finite or of the wrong shape")
+    dev_r = float(np.abs(res.R.astype(np.float64).sum(0) - 1).max())
+    sep1 = separation(torch, torch.as_tensor(res.Z_corr, device=dev),
+                      torch.as_tensor(meta["batch"], device=dev), B)
+    log(f"  R (bf16) column sums within {dev_r:.2e} of 1; batch-centroid separation "
+        f"{sep0:.4f} -> {sep1:.4f}")
+    require(dev_r <= 1e-2, f"{phase}: R column sums off by {dev_r}")
+    require(sep1 < sep0, f"{phase}: batch-centroid separation did not shrink")
+    profile_round(torch, res, f"profile_round_{phase}.txt",
+                  engine.mstep_layout(cfg, res.design.codes, dev))
+    if phase == "bf16":
+        held = {}
+        for dt in ("float32", "bfloat16"):
+            held[dt] = run_harmony(Zh, meta, ["batch"], max_iter=BF16_HELD_ITERS,
+                                   early_stop=False, return_object=True, seed=0, dtype=dt,
+                                   shuffle_mode="rotate", virtual_r=True, init_Y=Y0)
+            require(held[dt].state.virt_pen is not None, f"{phase}: held {dt} run not virtual")
+        held_to(torch, f"{phase} against float32 virtual R, the same initial centroids, "
+                f"{BF16_HELD_ITERS} iterations", held["bfloat16"], held["float32"],
+                BF16_HELD_RTOL)
+    else:
+        # the float32 engine on the same cells, virtual R as the bf16 one,
+        # for its iterations, time and memory beside them (nothing held)
+        del res, emb
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r32 = run_harmony(Zh, meta, ["batch"], max_iter=MAX_ITER, return_object=True, seed=0,
+                          virtual_r=True)
+        torch.cuda.synchronize()
+        ph32 = r32.phase_seconds()
+        n32 = int(r32.state.n_rounds)
+        log(f"  float32 beside it, virtual R: {n32} iterations, wall "
+            f"{time.perf_counter() - t0:.2f} s, seconds per Harmony iteration "
+            f"{(ph32.get('cluster', 0.0) + ph32.get('correct', 0.0)) / max(n32, 1):.4f}, "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+            f"phase seconds {json.dumps({k: round(v, 4) for k, v in ph32.items()})}; objective "
+            f"{[round(float(x), 3) for x in r32.objective_harmony]}")
+    return launches, trace, n_it
+
+
+# the other routes of a bf16 engine: (route, cells, config changes, kernels
+# that must run, kernels that must not)
+BF16_ROUTES = (
+    ("permute", 20_000, {"shuffle_mode": "permute"}, ("K1",), ("K2", "K6", "K7")),
+    ("permute_fused", 20_000, {"shuffle_mode": "permute", "permute_fused": True},
+     ("K2", "K3"), ("K1", "K6", "K7")),
+    ("rotate_written", 20_000, {"virtual_r": False}, ("K6", "K7"), ("K10", "K11", "K12")),
+    ("rotate_two_phase", 20_000, {"rotate_stats_carry": False}, ("K12",), ("K6", "K7")),
+    ("rotate_cell", 2_000, {}, (), ("K6", "K7", "K12")),
+)
+BF16_ROUTE_ITERS = 4
+
+
+def check_bf16_routes(torch, dev, wrappers):
+    """Each other route of a bf16 engine once, through the config and the
+    driver (run_harmony's ingest and solver), from the same initial
+    centroids as its float32 run, early stop off: it must finish with
+    finite output and a falling objective, launch its kernels (the float32
+    ones, on float32 copies made at their wrappers), and be held to the
+    float32 run at BF16_HELD_RTOL."""
+    import numpy as np
+
+    from harmony_tpu_torch.config import default_nclust
+
+    for route, n, change, need, never in BF16_ROUTES:
+        Zs, bs = synthetic(torch, n, D_MAIN, B_MAIN, 31, dev)
+        Y0 = initial_centroids(torch, Zs, default_nclust(n), 6)
+        Zh, meta = Zs.cpu().numpy(), {"batch": bs.cpu().numpy()}
+        del Zs
+        out = {}
+        for dt in ("float32", "bfloat16"):
+            for w in wrappers.values():
+                w.launches = 0
+            res = run_driver(n, Zh, meta, dev, Y0=Y0, dtype=dt, max_iter_harmony=BF16_ROUTE_ITERS,
+                             epsilon_harmony=-np.inf, **change)
+            torch.cuda.synchronize()
+            launches = {k: w.launches for k, w in wrappers.items()}
+            out[dt] = res
+            cfg = res.config
+            obj = [float(x) for x in res.objective_harmony]
+            log(f"bf16 route {route}: {dt}, {n} x {D_MAIN}, K={cfg.K}, {cfg.shuffle_mode} "
+                f"(route {cfg.rotate_route!r}, fused {cfg.permute_fused}, virtual R "
+                f"{res.state.virt_pen is not None}): launches {launches}; objective "
+                f"{[round(x, 3) for x in obj]}")
+            require(np.isfinite(res.embeddings).all(), f"bf16 route {route} ({dt}): "
+                    "embeddings not finite")
+            require(obj[-1] < obj[0], f"bf16 route {route} ({dt}): the objective did not fall")
+            require(res.state.virt_pen is None, f"bf16 route {route} ({dt}): virtual R")
+            for k in need:
+                require(launches[k] > 0, f"bf16 route {route} ({dt}): {k} not launched")
+            for k in never:
+                require(launches[k] == 0, f"bf16 route {route} ({dt}): {k} launched")
+        require(out["bfloat16"].state.R.dtype == torch.bfloat16,
+                f"bf16 route {route}: R is not bf16")
+        held_to(torch, f"bf16 route {route} against float32", out["bfloat16"], out["float32"],
+                BF16_HELD_RTOL, BF16_CELL_OBJ_RTOL if route == "rotate_cell" else None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated; opt-in: {','.join(OPT_IN_PHASES)}")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1468,6 +1922,10 @@ def main(argv=None) -> int:
                 "source": "harmony_tpu_torch/csrc/estep_round.cu",
                 "replaces": "harmony_tpu/ops/pallas_rotate.py:223"},
     }
+    # the bf16 storage forms of K6, K7, K10 and K11 (the bf16 engine's
+    # virtual route): their launches are the bf16 phases'
+    for k in BF16_FORMS:
+        kernels[k + "_bf16"] = {**kernels[k], "name": kernels[k]["name"] + " (bf16 storage)"}
     wrappers = {"K1": cuda_estep.block_update_round, "K2": cuda_permute.permute_rounds,
                 "K3": cuda_permute.materialize, "K4": cuda_ridge.moments,
                 "K5": cuda_ridge.correction, "K6": cuda_rotate.reassign,
@@ -1484,7 +1942,9 @@ def main(argv=None) -> int:
              "legacy": (("K6", "K7", "K9"), ("K8", "K10", "K11", "K12")),
              "legacy_virtual": (("K6", "K7", "K10", "K11"), ("K8", "K9", "K12")),
              "segment": (("K6", "K7"), ("K4", "K5", "K8", "K9", "K10", "K11")),
-             "segment_permute": (("K1",), ("K2", "K3", "K4", "K5", "K8", "K9"))}
+             "segment_permute": (("K1",), ("K2", "K3", "K4", "K5", "K8", "K9")),
+             "bf16": (BF16_FORMS, ("K1", "K2", "K3", "K8", "K9", "K12")),
+             "bf16_10m": (BF16_FORMS, ("K1", "K2", "K3", "K8", "K9", "K12"))}
     t_start = time.perf_counter()
 
     # ---- 1. env ----------------------------------------------------------
@@ -1592,6 +2052,17 @@ def main(argv=None) -> int:
                       (20_000, D_MAIN, K_MAIN, (100,), 20), (20_000, D_MAIN, 300, (B_MAIN,), 21),
                       *VIRTUAL_WIDE):
             check_virtual(torch, dev, *shape, False, "legacy")
+        # the bf16 forms: at the main shape (timed) in both op orders, and
+        # at the shapes the float32 forms are checked at above
+        for k, row in check_bf16(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, True).items():
+            kernels[k + "_bf16"].update(row)
+        check_bf16(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, False, "legacy")
+        for shape in ((30_011, 13, 7, (3, 4), 18), (20_000, 100, 100, (B_MAIN,), 19),
+                      (200_000, D_MAIN, K_MAIN, (B_SEGMENT,), 8),
+                      (20_000, D_MAIN, K_MAIN, (100,), 20), (20_000, D_MAIN, 300, (B_MAIN,), 21),
+                      *VIRTUAL_WIDE):
+            for variant in ("fused_vpu", "legacy"):
+                check_bf16(torch, dev, *shape, False, variant)
         k8, k9 = check_tiled(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 256, 13, True)
         kernels["K8"].update(k8)
         kernels["K9"].update(k9)
@@ -1630,15 +2101,22 @@ def main(argv=None) -> int:
         runs += [(p, lambda p=p, n=n, sch=sch: (run_segment_path(torch, dev, wrappers, p, n,
                                                                  sch), None, None))
                  for p, n, sch in SEGMENT_PATHS]
+    if "bf16" in phases:
+        runs.append(("bf16", lambda: run_bf16_path(torch, dev, wrappers, "bf16", N_MAIN,
+                                                   B_MAIN)))
+    if "bf16_10m" in phases:
+        runs.append(("bf16_10m", lambda: run_bf16_path(torch, dev, wrappers, "bf16_10m", N_10M,
+                                                       B_10M)))
     for phase, run in runs:
         launches, trace, n_it = run()
         if trace is not None:
             traces[phase] = trace
         need, never = paths[phase]
         for k in need:
-            by_path = kernels[k].setdefault("launches_by_path", {})
+            row = kernels[k + "_bf16" if phase.startswith("bf16") else k]
+            by_path = row.setdefault("launches_by_path", {})
             by_path[phase] = launches[k]
-            kernels[k]["launches"] = sum(by_path.values())
+            row["launches"] = sum(by_path.values())
             require(launches[k] > 0, f"{k} was not launched on the {phase} path")
         for k in never:
             require(launches[k] == 0, f"{k} was launched on the {phase} path")
@@ -1668,6 +2146,9 @@ def main(argv=None) -> int:
             log(f"  rotate_two_phase against main: objective rel {obj_rel:.3e} (rtol 1e-4; "
                 f"{len(a)} and {len(b)} entries); two_phase {a}, main {b}")
             require(obj_rel <= 1e-4, f"rotate_two_phase objectives disagree: {obj_rel}")
+
+    if "bf16" in phases:
+        check_bf16_routes(torch, dev, wrappers)
 
     for k in kernels.values():
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

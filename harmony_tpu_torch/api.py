@@ -22,7 +22,6 @@ from typing import Optional, Sequence, Union
 import numpy as np
 
 from .config import (
-    REDUCED_PRECISION_ITEM,
     HarmonyConfig,
     HarmonyOptions,
     _not_ported,
@@ -41,7 +40,7 @@ from .preprocess import (
 )
 from .ops.tiled import build_batch_tiled_order, choose_tiled_tile, count_joint_levels
 from .runtime import PhaseTimers, resolve_device
-from .state import HarmonyState, init_state
+from .state import HarmonyState, host_numpy, init_state
 
 # Below this many cells 'auto' keeps the reference-exact 'permute' schedule.
 AUTO_ROTATE_MIN_CELLS = 100_000
@@ -143,7 +142,9 @@ class HarmonyResult:
 
     @staticmethod
     def _host(X) -> np.ndarray:
-        return X.detach().cpu().numpy()
+        """A host copy; bf16 comes back as float32 holding the same values
+        (numpy has no bf16 without ml_dtypes, which the port does not use)."""
+        return host_numpy(X)
 
     def _cells(self, X) -> np.ndarray:
         """Drop the pad cells and undo the ingest order on the cell axis."""
@@ -291,7 +292,7 @@ def run_harmony(
     seeds the ``torch.Generator`` behind the k-means draws and the
     per-round permutations, and ``init_Y`` (d x K or K x d) injects the
     initial centroids for parity runs. ``estep_impl``/``mstep_impl``: 'kernel' (the CUDA kernels),
-    'torch' (plain PyTorch) or 'auto' (kernels for float32). ``device``:
+    'torch' (plain PyTorch) or 'auto' (kernels for float32 and bfloat16). ``device``:
     None for the card, or a torch device such as ``"cpu"``.
 
     ``shuffle_mode``: 'permute' is the reference-exact schedule; 'rotate'
@@ -317,17 +318,28 @@ def run_harmony(
     moments from K3 and corrects through K9. Runs with ``init_Y`` keep the
     caller's cell order.
 
+    ``dtype``: 'float32' (the default), 'float64' (plain PyTorch), or
+    'bfloat16', the reduced-precision engine: Z_orig, Z_corr, Y, R, O, E,
+    sigma, theta, lambda and Pr_b are stored in bf16, as the JAX package
+    stores them, and every product and sum runs in fp32 on operands upcast
+    at the boundary, with results cast back where the JAX engine casts
+    them; the arrays of a bf16 result come back as float32 numpy arrays
+    holding the bf16 values. 'float16' raises ``NotImplementedError``.
+    ``matmul_precision``: 'auto' resolves by dtype as in the JAX package
+    ('bfloat16' for a bf16 engine, a permission to use bf16 passes; the
+    port's products stay fp32, which it allows), or 'bfloat16',
+    'float32', 'highest'.
+
     ``virtual_r``: None resolves by dtype as in the JAX package (off for
-    float32). True, on a rotate run with the default clustering budget and
+    float32, on for bfloat16). True, on a rotate run with the default clustering budget and
     a batch-tiled layout (the kernels), writes no (K, N) R during the
     rounds: the last round of each phase fuses the M-step's moments and
     stores its penalty tables, the correction recomputes R from them (K10)
     and R is rebuilt once at the end of the run (K11), so ``R`` and ``W``
     of the result are those of a run that wrote R. Elsewhere it is
-    ignored, as the JAX package ignores it. Reduced-precision ``dtype``s
-    and ``matmul_precision`` raise ``NotImplementedError``, and so does
-    virtual R on layout tiles that are not whole 64-cell pieces (a
-    user-set ``mstep_tile`` and ``estep_sub_tile``).
+    ignored, as the JAX package ignores it. Virtual R on layout tiles that
+    are not whole 64-cell pieces (a user-set ``mstep_tile`` and
+    ``estep_sub_tile``) raises ``NotImplementedError``.
 
     Returns (N, d) corrected embeddings, or a :class:`HarmonyResult` when
     ``return_object=True``.
@@ -343,11 +355,6 @@ def run_harmony(
         raise _not_ported("stream_ingest", "ROADMAP A10")
     if plot_convergence:
         raise _not_ported("plot_convergence", "ROADMAP A10")
-    if matmul_precision not in ("auto", "float32", "highest"):
-        raise _not_ported(
-            f"matmul_precision={matmul_precision!r} (reduced-precision products)",
-            REDUCED_PRECISION_ITEM,
-        )
     dev = resolve_device(device)
     if options is None:
         options = harmony_options()
@@ -368,7 +375,7 @@ def run_harmony(
         n_cells=N, d=d, design=design, nclust=nclust, max_iter=max_iter,
         early_stop=early_stop, options=options, verbose=verbose,
         lambda_estimation=lamb is None, dtype=dtype, ridge_solver=ridge_solver,
-        shuffle_mode=shuffle_mode,
+        shuffle_mode=shuffle_mode, matmul_precision=matmul_precision,
     )
     cfg = dataclasses.replace(
         cfg, estep_impl=estep_impl, mstep_impl=mstep_impl, virtual_r=virtual_r

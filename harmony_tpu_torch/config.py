@@ -6,11 +6,15 @@ reference ``R/harmony_option.R:33-55``) and a resolved, frozen
 :class:`HarmonyConfig` that every engine phase receives.
 
 Only the knobs that mean something on a GPU are kept. The TPU-only
-resolutions of the JAX package (the bf16-pass matmul precisions, sorted
-permute blocks, the permute phase's sub-tile padding choice) have no
-counterpart here; fp32 products run as IEEE fp32 on the card. The rotate
-schedule keeps the JAX package's sub-tile and padding formula, because it
-fixes the block partition (see :func:`finalize_engine_config`).
+resolutions of the JAX package (sorted permute blocks, the permute
+phase's sub-tile padding choice) have no counterpart here. The matmul
+precision resolves by dtype as in the JAX package
+(:func:`resolve_matmul_precision`); every product of the port runs in IEEE
+fp32 on operands upcast from the storage dtype, which each resolved
+precision allows ('bfloat16' permits bf16 passes, 'float32' and 'highest'
+require fp32). The rotate schedule keeps the JAX package's sub-tile and
+padding formula, because it fixes the block partition (see
+:func:`finalize_engine_config`).
 """
 
 from __future__ import annotations
@@ -140,6 +144,9 @@ class HarmonyConfig:
     block_size: float = 0.05
 
     dtype: str = "float32"
+    # Precision of the products (harmony_tpu/config.py:159-162): 'auto'
+    # resolves by dtype in finalize_engine_config.
+    matmul_precision: str = "float32"
     ridge_solver: str = "auto"  # 'auto' | 'cholesky' | 'solve' | 'arrowhead'
     # E-step round and M-step contractions: 'kernel' (the hand-written
     # CUDA kernels, ops/cuda_estep.py and ops/cuda_ridge.py; their plain
@@ -284,6 +291,23 @@ def dtype_name(dtype) -> str:
     return np.dtype(dtype).name
 
 
+def resolve_matmul_precision(dtype: str, matmul_precision: str = "auto") -> str:
+    """Resolve the 'auto' matmul precision by engine dtype, as the JAX
+    package does (harmony_tpu/config.py:341-360): 'bfloat16' for engines
+    of fewer than 4 bytes, 'highest' for float64, 'float32' otherwise.
+    'bfloat16' is a permission to run products on bf16 operands where the
+    platform has such passes; the port's kernels and plain versions run
+    them in fp32 on upcast operands, which it allows."""
+    if matmul_precision != "auto":
+        return matmul_precision
+    dt = getattr(torch, dtype_name(dtype))
+    if dt.itemsize < 4:
+        return "bfloat16"
+    if dt == torch.float64:
+        return "highest"
+    return "float32"
+
+
 def default_nclust(n_cells: int) -> int:
     """K heuristic ``min(round(N/30), 100)`` (R/ui.R:192-194); Python's
     ``round`` is round-half-to-even, as is R's."""
@@ -296,9 +320,10 @@ _MSTEP_MODES = ("auto", "tiled", "dense", "segment")
 _VARIANTS = ("fused_vpu", "fused_mxu", "legacy")
 
 
-# The ROADMAP item of the reduced-precision engines (bf16 state, bf16
-# matmul precision), whose default in the JAX package is virtual R.
-REDUCED_PRECISION_ITEM = "ROADMAP A9, reduced-precision engines"
+# The ROADMAP item of the float16 engine, the one reduced-precision
+# engine not ported (the bf16 engine is).
+FLOAT16_ITEM = "ROADMAP A9, float16 engines"
+_PRECISIONS = ("auto", "bfloat16", "float32", "highest")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -332,17 +357,23 @@ def _rotate_geometry(cfg: HarmonyConfig) -> HarmonyConfig:
 def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
     """Resolve the 'auto' knobs for the GPU engine.
 
-    - Reduced-precision engines (a ``dtype`` of fewer than 4 bytes) raise
-      ``NotImplementedError``: neither the kernels nor a tested plain path
-      take them yet.
+    - ``dtype='bfloat16'`` is the reduced-precision engine: its state is
+      stored in bf16 and every product and sum runs in fp32 on upcast
+      operands, cast back where the JAX engine casts. ``float16`` raises
+      ``NotImplementedError`` (ROADMAP A9, float16 engines).
+    - ``matmul_precision='auto'`` resolves by dtype
+      (:func:`resolve_matmul_precision`, harmony_tpu/config.py:483-486);
+      values other than those in ``_PRECISIONS`` raise
+      ``HarmonyConfigError``.
     - ``virtual_r=None`` resolves by dtype, as in the JAX package
-      (harmony_tpu/config.py:492-504): on for reduced precision, so off for
-      every engine that runs here; True selects virtual R where
-      ``engine._virtual_gate`` admits it and is ignored elsewhere, as the
-      JAX package ignores it.
+      (harmony_tpu/config.py:492-504): on for bfloat16, off for float32
+      and float64; True selects virtual R where ``engine._virtual_gate``
+      admits it and is ignored elsewhere, as the JAX package ignores it.
     - ``estep_impl``/``mstep_impl='auto'`` pick the hand-written kernels for
-      float32 engines (the kernels are fp32 only) and the plain PyTorch path
-      otherwise; 'kernel' on CPU tensors runs the kernels' plain twins.
+      float32 and bfloat16 engines (K6, K7, K10 and K11 read and write bf16
+      storage on the virtual route; the other kernels run on float32
+      copies made at their wrappers) and the plain PyTorch path for
+      float64; 'kernel' on CPU tensors runs the kernels' plain twins.
     - ``shuffle_mode='rotate'`` runs the round :attr:`HarmonyConfig.rotate_route`
       names. The tile routes ('carry', 'two_phase') get the JAX package's
       tile geometry, whether or not the rounds carry stats
@@ -374,16 +405,20 @@ def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
             raise HarmonyConfigError(
                 f"{name} must be one of {allowed}, got {getattr(cfg, name)!r}"
             )
-    reduced = getattr(torch, cfg.dtype).itemsize < 4
-    if reduced:
-        raise _not_ported(
-            f"dtype={cfg.dtype!r} (reduced-precision engines)", REDUCED_PRECISION_ITEM
+    if cfg.matmul_precision not in _PRECISIONS:
+        raise HarmonyConfigError(
+            f"matmul_precision must be one of {_PRECISIONS}, got {cfg.matmul_precision!r}"
         )
+    reduced = getattr(torch, cfg.dtype).itemsize < 4
+    if reduced and cfg.dtype != "bfloat16":
+        raise _not_ported(f"dtype={cfg.dtype!r}", FLOAT16_ITEM)
+    cfg = dataclasses.replace(
+        cfg, matmul_precision=resolve_matmul_precision(cfg.dtype, cfg.matmul_precision))
     if cfg.virtual_r is None:
         cfg = dataclasses.replace(cfg, virtual_r=reduced)
     if cfg.shuffle_mode == "rotate" and cfg.rotate_route != "cell":
         cfg = _rotate_geometry(cfg)
-    impl = "kernel" if cfg.dtype == "float32" else "torch"
+    impl = "kernel" if cfg.dtype in ("float32", "bfloat16") else "torch"
     if cfg.estep_impl == "auto":
         cfg = dataclasses.replace(cfg, estep_impl=impl)
     if cfg.mstep_impl == "auto":

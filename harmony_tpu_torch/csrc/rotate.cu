@@ -127,9 +127,30 @@
 // same xor-shuffle tree; every product that feeds a sum or R is __fmul_rn
 // and every division __fdiv_rn, so no kernel lets the compiler contract
 // or approximate them differently.
+//
+// Storage types. A bf16 engine stores Z_orig, Z_corr and R in bf16
+// (harmony_tpu/state.py:127-166) and runs every contraction in fp32 on
+// operands upcast at the boundary (harmony_tpu/ops/assign.py:32-38). K6
+// (Z_raw), K7 (Z_orig, in the moments), K10 (Z_orig in, Z_corr out) and
+// K11 (R out) are templated on the storage type, float or __nv_bfloat16,
+// one instance each bound to the C entry points through an int. A load
+// converts to float in registers or while staging (exact); every product
+// and sum is then the float form's fmaf in the same order; a bf16 store is
+// __float2bfloat16_rn of the float the float form stores. So each bf16
+// output is the float form's on the upcast inputs, rounded once to nearest
+// even, and the float outputs (K6's Zn and G, K7's moments) are the float
+// form's bit for bit. G, Zn, the penalty tables, sigma and the betas stay
+// float. K6 stages a piece's bf16 Z (eight values a 16-byte copy, double
+// buffered) and converts it into one float buffer as it normalises, so
+// its shared memory is the float form's; K7 converts while staging its
+// [Z_orig; 1] columns; K10 and K11 read and write 4 values as 8 bytes
+// where the float form moves 16.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -143,6 +164,32 @@ constexpr int kLP = kCT + 4;  // K6's (K8 x 64) table: a row is 17 float4s (odd)
 constexpr int kVThreads = 512;          // K10: one CTA a SM
 constexpr int kVCells = 64;             // K10: cells a step
 constexpr int kVLP = kVCells + 4;       // K10's (K x 64) R table: a row is 17 float4s
+
+// Storage-type conversions: a bf16 value is the high 16 bits of its float,
+// so the loads are exact; a store rounds to nearest even.
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+// four bf16 values, 8-byte aligned
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const unsigned a = __bfloat16_as_ushort(__float2bfloat16_rn(v.x));
+  const unsigned b = __bfloat16_as_ushort(__float2bfloat16_rn(v.y));
+  const unsigned c = __bfloat16_as_ushort(__float2bfloat16_rn(v.z));
+  const unsigned e = __bfloat16_as_ushort(__float2bfloat16_rn(v.w));
+  *reinterpret_cast<uint2*>(p) = make_uint2(a | (b << 16), c | (e << 16));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -438,7 +485,7 @@ __host__ __device__ __forceinline__ int assign_floats(int K, int B, int ncov) {
 // (K4 x d1p) table as row c of mpiece and count themselves in count[c /
 // C]; the last to arrive sums the C rows in piece order into mpart's row
 // slot[layout tile] and resets the count for the next launch.
-template <bool kMoments, bool kLegacy>
+template <bool kMoments, bool kLegacy, typename TZ>
 __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
     const float* __restrict__ G,       // (L, K) the phase's Gram table (K6)
     const int* __restrict__ codes,     // (ncov, L), pads < 0
@@ -448,7 +495,7 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
     const float* __restrict__ sigma,   // (K,)
     float* __restrict__ R,             // (K, L) out, or null
     float* __restrict__ part,          // (n_cta, K*B + 2) out
-    const float* __restrict__ Zo,      // (d, L) Z_orig (moments)
+    const TZ* __restrict__ Zo,         // (d, L) Z_orig (moments), float or bf16
     const int* __restrict__ slot,      // (L / tw,) moment row of each layout tile
     float* __restrict__ mpart,         // (L / tw, K*(d+1)) out (moments)
     float* __restrict__ mpiece,        // (n_cta, K4*d1p) scratch (moments)
@@ -503,7 +550,7 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
     for (int i = tid; i < d1p * kCT; i += kThreads) {
       const int e = i / kCT, u = i - e * kCT;
       float v = 0.f;
-      if (e < d1) v = e < d ? Zo[e * L + base + u] : 1.f;
+      if (e < d1) v = e < d ? to_f(Zo[e * L + base + u]) : 1.f;
       Zos[u * d1p + e] = v;
     }
   }
@@ -697,9 +744,10 @@ __global__ void __launch_bounds__(kThreads) rot_commit_kernel(
 // summed in a register (four cells at once where they share it), and the
 // splits are added in order into the piece's partials row. CTA 0 zeroes
 // the reduce's arrival counts.
+template <typename TZ>
 __global__ void __launch_bounds__(kThreads, 2) reassign_assign_kernel(
     const float* __restrict__ Yt,     // (K, d)
-    const float* __restrict__ Z,      // (d, L) raw corrected embedding
+    const TZ* __restrict__ Z,         // (d, L) raw corrected embedding, float or bf16
     const int* __restrict__ codes,    // (ncov, L), pads < 0
     const int* __restrict__ offsets,  // (ncov,)
     const float* __restrict__ sigma,  // (K,)
@@ -711,7 +759,8 @@ __global__ void __launch_bounds__(kThreads, 2) reassign_assign_kernel(
   extern __shared__ __align__(16) float smem[];
   const int nkg = K8 / 8;
   float* Ys = smem;                 // d*K8
-  float* Zb = Ys + d * K8;          // 2*d*kCT: the pieces' Z, normalised in place
+  float* Zb = Ys + d * K8;          // 2*d*kCT: the pieces' Z (float: normalised in place;
+                                    // bf16: two staged pieces, then one float piece)
   float* Ls = Zb + 2 * d * kCT;     // K8*kLP: w = exp((g - 1) 2/sigma)
   int* cb = reinterpret_cast<int*>(Ls + K8 * kLP);  // 2*ncov*kCT: the pieces' codes
   float* invs = reinterpret_cast<float*>(cb + 2 * ncov * kCT);  // kCT: 1 / colsum(w)
@@ -731,13 +780,17 @@ __global__ void __launch_bounds__(kThreads, 2) reassign_assign_kernel(
   }
   for (int i = tid; i < K; i += kThreads) i2s[i] = 2.f / sigma[i];
   if (tid < ncov) offs[tid] = offsets[tid];
-  constexpr int kQ = kCT / 4;  // float4s of a piece's row
+  constexpr int kQ = kCT / 4;  // 16-byte copies of a piece's row of codes
+  constexpr int kE = 16 / static_cast<int>(sizeof(TZ));  // Z values a 16-byte copy
+  constexpr int kQz = kCT / kE;                           // copies of a piece's row of Z
+  constexpr bool kF32 = std::is_same<TZ, float>::value;
+  TZ* Zs = reinterpret_cast<TZ*>(Zb);  // the two staged pieces
   auto stage = [&](int p, int buf) {
     const long long base = static_cast<long long>(p) * kCT;
-    float* zb = Zb + buf * d * kCT;
-    for (int i = tid; i < d * kQ; i += kThreads) {
-      const int e = i / kQ, q = i - e * kQ;
-      cp_async16(zb + e * kCT + 4 * q, Z + e * L + base + 4 * q);
+    TZ* zs = Zs + buf * d * kCT;
+    for (int i = tid; i < d * kQz; i += kThreads) {
+      const int e = i / kQz, q = i - e * kQz;
+      cp_async16(zs + e * kCT + kE * q, Z + e * L + base + kE * q);
     }
     int* c = cb + buf * ncov * kCT;
     for (int i = tid; i < ncov * kQ; i += kThreads) {
@@ -756,13 +809,19 @@ __global__ void __launch_bounds__(kThreads, 2) reassign_assign_kernel(
     cp_async_wait<1>();
     __syncthreads();  // the piece is in; the last piece's readers are done
     const long long base = static_cast<long long>(p) * kCT;
-    float* zb = Zb + cur * d * kCT;
+    const TZ* zs = Zs + cur * d * kCT;
+    // the piece as float: in place (float), else the float buffer past the
+    // two staged bf16 pieces
+    float* zb = kF32 ? Zb + cur * d * kCT : Zb + d * kCT;
     const int* gc = cb + cur * ncov * kCT;
     {
       // column norms; zero columns (pads) stay zero (src/harmony.cpp:220)
       const int t = tid & (kCT - 1), q = tid / kCT;
       float s2 = 0.f;
-      for (int e = q; e < d; e += kThreads / kCT) s2 += zb[e * kCT + t] * zb[e * kCT + t];
+      for (int e = q; e < d; e += kThreads / kCT) {
+        const float z = to_f(zs[e * kCT + t]);
+        s2 += z * z;
+      }
       red[q * kCT + t] = s2;
     }
     for (int i = tid; i < nh * K * B; i += kThreads) Obs[i] = 0.f;
@@ -772,7 +831,7 @@ __global__ void __launch_bounds__(kThreads, 2) reassign_assign_kernel(
       const float nr = sqrtf(((red[t] + red[kCT + t]) + red[2 * kCT + t]) + red[3 * kCT + t]);
       const float n = nr == 0.f ? 1.f : nr;
       for (int e = tid / kCT; e < d; e += kThreads / kCT) {
-        const float z = zb[e * kCT + t] / n;
+        const float z = to_f(zs[e * kCT + t]) / n;
         zb[e * kCT + t] = z;
         Zn[e * L + base + t] = z;
       }
@@ -1094,7 +1153,7 @@ constexpr int kBarChain = 1, kBarGroup = 2, kBarFull = 4, kBarEmpty = 7;
 // range). A trash step copies Z_orig through (its betas are zero). The
 // chain and the correction share the SM's instruction slots and shared-memory
 // loads, so they overlap only in part.
-template <int KJ, bool kLegacy>
+template <int KJ, bool kLegacy, typename TZ>
 __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
     const float* __restrict__ G,       // (L, K) the phase's Gram table (K6)
     const int* __restrict__ codes,     // (ncov, L), pads < 0
@@ -1105,8 +1164,8 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
     const float* __restrict__ Wj,      // (n_joint + 1, d, K) betas
     const int* __restrict__ order,     // (n,) the plan's layout tiles, joint by joint
     const int* __restrict__ tj,        // (L / tw,) joint of each layout tile
-    const float* __restrict__ Zo,      // (d, L)
-    float* __restrict__ Zc,            // (d, L) out
+    const TZ* __restrict__ Zo,         // (d, L), float or bf16
+    TZ* __restrict__ Zc,               // (d, L) out, Zo's type
     long long L, int n, int span, int T, int tw, int trash, int K, int d, int dp, int B,
     int ncov, int ng) {
   extern __shared__ __align__(16) float smem[];
@@ -1232,7 +1291,7 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
       for (int x = gt; x < d * kQ; x += nT) {
         const int e = x / kQ;
         const long long o = e * L + b0 + 4 * (x - e * kQ);
-        *reinterpret_cast<float4*>(Zc + o) = *reinterpret_cast<const float4*>(Zo + o);
+        store4(Zc + o, load4(Zo + o));
       }
     } else if (owns) {
       float4 z[4][2];
@@ -1240,9 +1299,9 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
       for (int ii = 0; ii < 4; ++ii) {
         const int e = 4 * eb + ii;
         if (e >= d) continue;
-        const float* zp = Zo + e * L + b0 + 4 * tb;
-        z[ii][0] = *reinterpret_cast<const float4*>(zp);
-        z[ii][1] = *reinterpret_cast<const float4*>(zp + 32);
+        const TZ* zp = Zo + e * L + b0 + 4 * tb;
+        z[ii][0] = load4(zp);
+        z[ii][1] = load4(zp + 32);
       }
       float acc[4][8];
 #pragma unroll
@@ -1267,11 +1326,11 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
       for (int ii = 0; ii < 4; ++ii) {
         const int e = 4 * eb + ii;
         if (e >= d) continue;
-        float4* op = reinterpret_cast<float4*>(Zc + e * L + b0 + 4 * tb);
-        op[0] = make_float4(z[ii][0].x - acc[ii][0], z[ii][0].y - acc[ii][1],
-                            z[ii][0].z - acc[ii][2], z[ii][0].w - acc[ii][3]);
-        op[8] = make_float4(z[ii][1].x - acc[ii][4], z[ii][1].y - acc[ii][5],
-                            z[ii][1].z - acc[ii][6], z[ii][1].w - acc[ii][7]);
+        TZ* op = Zc + e * L + b0 + 4 * tb;
+        store4(op, make_float4(z[ii][0].x - acc[ii][0], z[ii][0].y - acc[ii][1],
+                               z[ii][0].z - acc[ii][2], z[ii][0].w - acc[ii][3]));
+        store4(op + 32, make_float4(z[ii][1].x - acc[ii][4], z[ii][1].y - acc[ii][5],
+                                    z[ii][1].z - acc[ii][6], z[ii][1].w - acc[ii][7]));
       }
     }
     if (s + nbuf < ns) bar_arrive(kBarEmpty + b, nC + nT);  // Ls[b] is free for step s+nbuf
@@ -1291,9 +1350,9 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
 // of K a cell, as the rows of K6's G that K10 reads; KJ == 0: (K x 65),
 // assign_chain's); then the next piece's copies are issued; the chain
 // (v_chain, four cells a warp, to 256 clusters; assign_chain past that)
-// leaves R in a (K x 64) table, and R goes out as float4 rows of 256
-// bytes a cluster. Three barriers a piece.
-template <int KJ, bool kLegacy>
+// leaves R in a (K x 64) table, and R goes out as rows of 256 bytes a
+// cluster (float4 stores; 128 bytes in 8-byte stores of four bf16). Three barriers a piece.
+template <int KJ, bool kLegacy, typename TR>
 __global__ void __launch_bounds__(kThreads, 2) materialize_r_kernel(
     const float* __restrict__ Yp,      // (d, K8) centroids, zero past K
     const float* __restrict__ Zn,      // (d, L) the phase's normalised layout
@@ -1302,7 +1361,7 @@ __global__ void __launch_bounds__(kThreads, 2) materialize_r_kernel(
     const float* __restrict__ pen,     // (nb, K, B) the last round's block tables
     const int* __restrict__ blkmap,    // (L / T,) block of each physical tile
     const float* __restrict__ sigma,   // (K,)
-    float* __restrict__ R,             // (K, L) out
+    TR* __restrict__ R,                // (K, L) out, float or bf16
     long long L, int T, int K, int d, int B, int ncov, int K8, int ys_shared) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, w = tid >> 5;
@@ -1437,7 +1496,7 @@ __global__ void __launch_bounds__(kThreads, 2) materialize_r_kernel(
         const float* x = Gs + k * kTP + 4 * q;
         r = make_float4(x[0], x[1], x[2], x[3]);
       }
-      *reinterpret_cast<float4*>(R + k * L + base + 4 * q) = r;
+      store4(R + k * L + base + 4 * q, r);
     }
   }
   cp_async_wait<0>();
@@ -1448,34 +1507,78 @@ int set_smem(const void* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-// K10 with KJ cluster values a lane (1, 2, 4 or 8: K <= 256).
-template <int KJ, bool kLegacy>
-int k10_launch(const float* G, const int* codes, const int* offsets, const float* pen,
-               const int* blkmap, const float* sigma, const float* Wj, const int* order,
-               const int* tj, const float* Zo, float* Zc, long long L, int n, int span, int T,
-               int tw, int trash, int K, int d, int dp, int B, int ncov, int ng, int grid,
-               int smem_bytes, cudaStream_t st) {
-  const void* kern = reinterpret_cast<const void*>(virtual_correction_kernel<KJ, kLegacy>);
+// K7's assign launch, with moments reading Z_orig as TZ.
+template <bool kMoments, bool kLegacy, typename TZ>
+int k7_launch(const float* G, const int* codes, const int* offsets, const float* pen,
+              const float* logpen, const float* sigma, float* R, float* part, const void* Zo,
+              const int* slot, float* mpart, float* mpiece, int* count, long long L, int v0,
+              int ncta, int NT, int cpt, int tw, int K, int d, int B, int ncov, int d1p,
+              int smem_bytes, cudaStream_t st) {
+  const void* kern = reinterpret_cast<const void*>(rot_assign_kernel<kMoments, kLegacy, TZ>);
   int err = set_smem(kern, smem_bytes);
   if (err) return err;
-  virtual_correction_kernel<KJ, kLegacy><<<grid, kVThreads, smem_bytes, st>>>(
-      G, codes, offsets, pen, blkmap, sigma, Wj, order, tj, Zo, Zc, L, n, span, T, tw, trash,
-      K, d, dp, B, ncov, ng);
+  rot_assign_kernel<kMoments, kLegacy, TZ><<<ncta, kThreads, smem_bytes, st>>>(
+      G, codes, offsets, pen, logpen, sigma, R, part, static_cast<const TZ*>(Zo), slot, mpart,
+      mpiece, count, L, v0, NT, cpt, tw, K, d, B, ncov, d1p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K11 with KJ cluster values a lane (v_chain), or assign_chain (KJ == 0).
-template <int KJ, bool kLegacy>
-int k11_launch(const float* Yp, const float* Zn, const int* codes, const int* offsets,
-               const float* pen, const int* blkmap, const float* sigma, float* R, long long L,
-               int T, int K, int d, int B, int ncov, int K8, int ys_shared, int grid,
+// K10 with KJ cluster values a lane (1, 2, 4 or 8: K <= 256), Z as TZ.
+template <int KJ, bool kLegacy, typename TZ>
+int k10_launch(const float* G, const int* codes, const int* offsets, const float* pen,
+               const int* blkmap, const float* sigma, const float* Wj, const int* order,
+               const int* tj, const void* Zo, void* Zc, long long L, int n, int span, int T,
+               int tw, int trash, int K, int d, int dp, int B, int ncov, int ng, int grid,
                int smem_bytes, cudaStream_t st) {
-  const void* kern = reinterpret_cast<const void*>(materialize_r_kernel<KJ, kLegacy>);
+  const void* kern =
+      reinterpret_cast<const void*>(virtual_correction_kernel<KJ, kLegacy, TZ>);
   int err = set_smem(kern, smem_bytes);
   if (err) return err;
-  materialize_r_kernel<KJ, kLegacy><<<grid, kThreads, smem_bytes, st>>>(
-      Yp, Zn, codes, offsets, pen, blkmap, sigma, R, L, T, K, d, B, ncov, K8, ys_shared);
+  virtual_correction_kernel<KJ, kLegacy, TZ><<<grid, kVThreads, smem_bytes, st>>>(
+      G, codes, offsets, pen, blkmap, sigma, Wj, order, tj, static_cast<const TZ*>(Zo),
+      static_cast<TZ*>(Zc), L, n, span, T, tw, trash, K, d, dp, B, ncov, ng);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K11 with KJ cluster values a lane (v_chain), or assign_chain (KJ == 0),
+// R written as TR.
+template <int KJ, bool kLegacy, typename TR>
+int k11_launch(const float* Yp, const float* Zn, const int* codes, const int* offsets,
+               const float* pen, const int* blkmap, const float* sigma, void* R, long long L,
+               int T, int K, int d, int B, int ncov, int K8, int ys_shared, int grid,
+               int smem_bytes, cudaStream_t st) {
+  const void* kern = reinterpret_cast<const void*>(materialize_r_kernel<KJ, kLegacy, TR>);
+  int err = set_smem(kern, smem_bytes);
+  if (err) return err;
+  materialize_r_kernel<KJ, kLegacy, TR><<<grid, kThreads, smem_bytes, st>>>(
+      Yp, Zn, codes, offsets, pen, blkmap, sigma, static_cast<TR*>(R), L, T, K, d, B, ncov,
+      K8, ys_shared);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The K10 instance for K and the op order, Z as TZ.
+template <typename TZ>
+decltype(&k10_launch<1, true, float>) k10_pick(int K, int legacy) {
+  return legacy ? (K <= 32    ? k10_launch<1, true, TZ>
+                   : K <= 64  ? k10_launch<2, true, TZ>
+                   : K <= 128 ? k10_launch<4, true, TZ>
+                              : k10_launch<8, true, TZ>)
+                : (K <= 32    ? k10_launch<1, false, TZ>
+                   : K <= 64  ? k10_launch<2, false, TZ>
+                   : K <= 128 ? k10_launch<4, false, TZ>
+                              : k10_launch<8, false, TZ>);
+}
+
+// The K11 instance for the chain form kj and the op order, R as TR.
+template <typename TR>
+decltype(&k11_launch<0, false, float>) k11_pick(int kj, int legacy) {
+  switch (kj) {
+    case 1: return legacy ? k11_launch<1, true, TR> : k11_launch<1, false, TR>;
+    case 2: return legacy ? k11_launch<2, true, TR> : k11_launch<2, false, TR>;
+    case 4: return legacy ? k11_launch<4, true, TR> : k11_launch<4, false, TR>;
+    case 8: return legacy ? k11_launch<8, true, TR> : k11_launch<8, false, TR>;
+    default: return legacy ? k11_launch<0, true, TR> : k11_launch<0, false, TR>;
+  }
 }
 
 }  // namespace
@@ -1483,27 +1586,29 @@ int k11_launch(const float* Yp, const float* Zn, const int* codes, const int* of
 extern "C" {
 
 // K7 assign launch over a block's ntile tiles; Zo == nullptr: no moments;
-// legacy != 0: the legacy op order.
+// legacy != 0: the legacy op order; zbf16 != 0: the moments read a bf16
+// Z_orig.
 int k7_assign(const void* G, const void* codes,
               const void* offsets, const void* pen, const void* logpen,
               const void* sigma, void* R, void* part, const void* Zo, const void* slot,
               void* mpart, void* mpiece, void* count, long long L, int v0, int ntile,
               int NT, int cpt, int tw, int K, int d, int B, int ncov, int d1p, int legacy,
-              int smem_bytes, void* stream) {
-  const bool mom = Zo != nullptr;
-  const decltype(&rot_assign_kernel<true, true>) kern = mom ? (legacy ? rot_assign_kernel<true, true> : rot_assign_kernel<true, false>)
-                        : (legacy ? rot_assign_kernel<false, true>
-                                  : rot_assign_kernel<false, false>);
-  int err = set_smem(reinterpret_cast<const void*>(kern), smem_bytes);
-  if (err) return err;
-  kern<<<ntile * cpt, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(G), static_cast<const int*>(codes),
-      static_cast<const int*>(offsets), static_cast<const float*>(pen),
-      static_cast<const float*>(logpen), static_cast<const float*>(sigma),
-      static_cast<float*>(R), static_cast<float*>(part), static_cast<const float*>(Zo),
-      static_cast<const int*>(slot), static_cast<float*>(mpart), static_cast<float*>(mpiece),
-      static_cast<int*>(count), L, v0, NT, cpt, tw, K, d, B, ncov, d1p);
-  return static_cast<int>(cudaGetLastError());
+              int zbf16, int smem_bytes, void* stream) {
+  using Launch = decltype(&k7_launch<false, false, float>);
+  Launch launch;
+  if (Zo == nullptr)
+    launch = legacy ? k7_launch<false, true, float> : k7_launch<false, false, float>;
+  else if (zbf16)
+    launch = legacy ? k7_launch<true, true, __nv_bfloat16> : k7_launch<true, false, __nv_bfloat16>;
+  else
+    launch = legacy ? k7_launch<true, true, float> : k7_launch<true, false, float>;
+  return launch(static_cast<const float*>(G), static_cast<const int*>(codes),
+                static_cast<const int*>(offsets), static_cast<const float*>(pen),
+                static_cast<const float*>(logpen), static_cast<const float*>(sigma),
+                static_cast<float*>(R), static_cast<float*>(part), Zo,
+                static_cast<const int*>(slot), static_cast<float*>(mpart),
+                static_cast<float*>(mpiece), static_cast<int*>(count), L, v0, ntile * cpt, NT,
+                cpt, tw, K, d, B, ncov, d1p, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 int k7_commit(const void* part, int add, int v0, int ntile, int cpt, int NT,
@@ -1527,10 +1632,12 @@ int k7_commit(const void* part, int add, int v0, int ntile, int cpt, int NT,
   return static_cast<int>(cudaGetLastError());
 }
 
-// CTAs of K6's assign kernel an SM holds with smem_bytes each; < 0 is
-// minus a CUDA error.
-int k6_occupancy(int smem_bytes) {
-  const void* kern = reinterpret_cast<const void*>(reassign_assign_kernel);
+// CTAs of K6's assign kernel (zbf16 != 0: the instance reading bf16 Z) an
+// SM holds with smem_bytes each; < 0 is minus a CUDA error.
+int k6_occupancy(int smem_bytes, int zbf16) {
+  const void* kern =
+      zbf16 ? reinterpret_cast<const void*>(reassign_assign_kernel<__nv_bfloat16>)
+            : reinterpret_cast<const void*>(reassign_assign_kernel<float>);
   int err = set_smem(kern, smem_bytes);
   if (err) return -err;
   int n = 0;
@@ -1540,21 +1647,33 @@ int k6_occupancy(int smem_bytes) {
 }
 
 // K6: the assign launch (grid persistent CTAs over the L/64 pieces, nh
-// cell splits of the design sums), then the reduce over (tile, 256-column
-// chunk), n_chunk = ceil(K*B / 256) chunks.
+// cell splits of the design sums; zbf16 != 0: Z is bf16), then the reduce
+// over (tile, 256-column chunk), n_chunk = ceil(K*B / 256) chunks.
 int k6_reassign(const void* Yt, const void* Z, const void* codes,
                 const void* offsets, const void* sigma, const void* Pr,
                 void* Zn, void* G, void* part, void* tO, void* O, void* E, void* count,
                 long long L, int NT, int K, int d, int B, int ncov, int b0, int K8, int nh,
-                int grid, int n_chunk, int smem_bytes, void* stream) {
+                int grid, int n_chunk, int zbf16, int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = set_smem(reinterpret_cast<const void*>(reassign_assign_kernel), smem_bytes);
+  const void* kern =
+      zbf16 ? reinterpret_cast<const void*>(reassign_assign_kernel<__nv_bfloat16>)
+            : reinterpret_cast<const void*>(reassign_assign_kernel<float>);
+  int err = set_smem(kern, smem_bytes);
   if (err) return err;
-  reassign_assign_kernel<<<grid, kThreads, smem_bytes, st>>>(
-      static_cast<const float*>(Yt), static_cast<const float*>(Z),
-      static_cast<const int*>(codes), static_cast<const int*>(offsets),
-      static_cast<const float*>(sigma), static_cast<float*>(Zn), static_cast<float*>(G),
-      static_cast<float*>(part), static_cast<int*>(count), L, K, d, B, ncov, K8, nh, n_chunk);
+  const float* Y = static_cast<const float*>(Yt);
+  const int* cd = static_cast<const int*>(codes);
+  const int* of = static_cast<const int*>(offsets);
+  const float* sg = static_cast<const float*>(sigma);
+  if (zbf16)
+    reassign_assign_kernel<__nv_bfloat16><<<grid, kThreads, smem_bytes, st>>>(
+        Y, static_cast<const __nv_bfloat16*>(Z), cd, of, sg, static_cast<float*>(Zn),
+        static_cast<float*>(G), static_cast<float*>(part), static_cast<int*>(count), L, K, d,
+        B, ncov, K8, nh, n_chunk);
+  else
+    reassign_assign_kernel<float><<<grid, kThreads, smem_bytes, st>>>(
+        Y, static_cast<const float*>(Z), cd, of, sg, static_cast<float*>(Zn),
+        static_cast<float*>(G), static_cast<float*>(part), static_cast<int*>(count), L, K, d,
+        B, ncov, K8, nh, n_chunk);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   const int npc = static_cast<int>(L / kCT);
@@ -1566,51 +1685,37 @@ int k6_reassign(const void* Yt, const void* Z, const void* codes,
 }
 
 // K10 over the plan's order (n layout tiles of tw cells) in grid equal
-// ranges of at most span tiles; legacy != 0: the legacy op order.
+// ranges of at most span tiles; legacy != 0: the legacy op order; zbf16 !=
+// 0: Z_orig and Z_corr are bf16.
 int k10_virtual_correction(const void* G, const void* codes, const void* offsets,
                            const void* pen, const void* blkmap, const void* sigma,
                            const void* Wj, const void* order, const void* tj, const void* Zo,
                            void* Zc, long long L, int n, int span, int T, int tw, int trash,
-                           int K, int d, int dp, int B, int ncov, int ng, int legacy, int grid,
-                           int smem_bytes, void* stream) {
-  auto launch = legacy ? (K <= 32    ? k10_launch<1, true>
-                          : K <= 64  ? k10_launch<2, true>
-                          : K <= 128 ? k10_launch<4, true>
-                                     : k10_launch<8, true>)
-                       : (K <= 32    ? k10_launch<1, false>
-                          : K <= 64  ? k10_launch<2, false>
-                          : K <= 128 ? k10_launch<4, false>
-                                     : k10_launch<8, false>);
+                           int K, int d, int dp, int B, int ncov, int ng, int legacy, int zbf16,
+                           int grid, int smem_bytes, void* stream) {
+  auto launch = zbf16 ? k10_pick<__nv_bfloat16>(K, legacy) : k10_pick<float>(K, legacy);
   return launch(static_cast<const float*>(G), static_cast<const int*>(codes),
                 static_cast<const int*>(offsets), static_cast<const float*>(pen),
                 static_cast<const int*>(blkmap), static_cast<const float*>(sigma),
                 static_cast<const float*>(Wj), static_cast<const int*>(order),
-                static_cast<const int*>(tj), static_cast<const float*>(Zo),
-                static_cast<float*>(Zc), L, n, span, T, tw, trash, K, d, dp, B, ncov, ng,
-                grid, smem_bytes, static_cast<cudaStream_t>(stream));
+                static_cast<const int*>(tj), Zo, Zc, L, n, span, T, tw, trash, K, d, dp, B,
+                ncov, ng, grid, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 // K11 over grid persistent CTAs; kj: v_chain's cluster values a lane (1,
 // 2, 4, 8), 0 for assign_chain; ys_shared: Y staged into shared memory;
-// legacy != 0: the legacy op order.
+// legacy != 0: the legacy op order; rbf16 != 0: R is written in bf16.
 int k11_materialize_r(const void* Yp, const void* Zn, const void* codes,
                       const void* offsets, const void* pen, const void* blkmap,
                       const void* sigma, void* R, long long L, int T, int K, int d, int B,
-                      int ncov, int K8, int kj, int ys_shared, int legacy, int grid,
+                      int ncov, int K8, int kj, int ys_shared, int legacy, int rbf16, int grid,
                       int smem_bytes, void* stream) {
-  decltype(&k11_launch<0, false>) launch;
-  switch (kj) {
-    case 1: launch = legacy ? k11_launch<1, true> : k11_launch<1, false>; break;
-    case 2: launch = legacy ? k11_launch<2, true> : k11_launch<2, false>; break;
-    case 4: launch = legacy ? k11_launch<4, true> : k11_launch<4, false>; break;
-    case 8: launch = legacy ? k11_launch<8, true> : k11_launch<8, false>; break;
-    default: launch = legacy ? k11_launch<0, true> : k11_launch<0, false>; break;
-  }
+  auto launch = rbf16 ? k11_pick<__nv_bfloat16>(kj, legacy) : k11_pick<float>(kj, legacy);
   return launch(static_cast<const float*>(Yp), static_cast<const float*>(Zn),
                 static_cast<const int*>(codes), static_cast<const int*>(offsets),
                 static_cast<const float*>(pen), static_cast<const int*>(blkmap),
-                static_cast<const float*>(sigma), static_cast<float*>(R), L, T, K, d, B, ncov,
-                K8, ys_shared, grid, smem_bytes, static_cast<cudaStream_t>(stream));
+                static_cast<const float*>(sigma), R, L, T, K, d, B, ncov, K8, ys_shared, grid,
+                smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -163,9 +163,13 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
     if schedules is None:
         schedules = rotate.draw_schedules(cfg, state.generator, cfg.max_iter_cluster)
     codes_pad = rotate.make_codes_pad(cfg, state.codes)
-    Z_raw = rotate.pad_cells_to_tile(cfg, state.Z_corr.to(torch.float32)).contiguous()
-    Zn, tile_O, O, E, G = reassign(cfg, state.Y.to(torch.float32), state.sigma,
-                                   state.Pr_b, Z_raw, codes_pad)
+    # K6 and K7's moments read the storage dtype (bf16 too) where it lies;
+    # the centroids and the per-cluster and per-batch vectors go to the
+    # kernels as float32 (Y is fixed within the phase)
+    Y32, sig32, Pr32, th32 = (t.to(torch.float32)
+                              for t in (state.Y, state.sigma, state.Pr_b, state.theta))
+    Z_raw = rotate.pad_cells_to_tile(cfg, state.Z_corr).contiguous()
+    Zn, tile_O, O, E, G = reassign(cfg, Y32, sig32, Pr32, Z_raw, codes_pad)
     dt = state.Z_corr.dtype
     state = dataclasses.replace(state, Z_corr=Zn[:, : cfg.Np].to(dt),
                                 O=O.to(dt), E=E.to(dt))
@@ -176,7 +180,7 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
     if static and tiled is not None and cfg.estep_sub_tile % tiled.tile == 0:
         if cuda_rotate.moments_fit(tiled.tile):
             moments = rotate.MomentsSpec(
-                Z_orig=rotate.pad_cells_to_tile(cfg, state.Z_orig.to(torch.float32)).contiguous(),
+                Z_orig=rotate.pad_cells_to_tile(cfg, state.Z_orig).contiguous(),
                 tile_joint=full_tile_joint(cfg, tiled),
                 n_joint=int(tiled.joint_codes.shape[1]), tile=int(tiled.tile),
             )
@@ -190,7 +194,7 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
         last = iters == cfg.max_iter_cluster - 1
         rs = rotate.RoundState(R=state.R, E=state.E, O=state.O, tile_O=tile_O,
                                kmeans_error=None, entropy=None)
-        res = round_fn(cfg, state.Y, rs, state.Pr_b, state.sigma, state.theta,
+        res = round_fn(cfg, Y32, rs, Pr32, sig32, th32,
                        rt, order, layout, write_r=not static or (last and not virtual),
                        moments=moments if last else None, emit_pen=last and virtual)
         tile_O = res.tile_O
@@ -204,7 +208,7 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
         state = dataclasses.replace(state, tiled_moments=res.M)
     if virtual:
         state = dataclasses.replace(state, virt_pen=res.pen, virt_blkmap=res.blkmap,
-                                    virt_Zn=Zn, virt_Y=state.Y.to(torch.float32), virt_G=G)
+                                    virt_Zn=Zn, virt_Y=state.Y, virt_G=G)
     return _push_harmony(state)
 
 
@@ -236,12 +240,16 @@ def _cluster_rotate_written(cfg: HarmonyConfig, state: HarmonyState,
     route (tiles, or cells); otherwise they are drawn from the state's
     generator, all up front."""
     if cfg.rotate_route == "cell":
-        layout = make_rotate_layout(cfg, state.Z_corr, state.codes)
+        # a bf16 engine's rounds run on float32 copies, R, E and O cast
+        # back at each round's end, as the kernels' wrappers do
+        f32 = cuda_estep.f32
+        layout = make_rotate_layout(cfg, *f32(state.Z_corr), state.codes)
         draw = draw_rotate_schedules
 
         def round_fn(s: HarmonyState, sched):
-            return rotate_update_round(cfg, s.Z_corr, s.Y, s.R, s.E, s.O, s.codes, s.Pr_b,
-                                       s.sigma, s.theta, *sched, layout)
+            res = rotate_update_round(cfg, *f32(s.Z_corr, s.Y, s.R, s.E, s.O), s.codes,
+                                      *f32(s.Pr_b, s.sigma, s.theta), *sched, layout)
+            return cuda_estep.cast_back(res, s.R, s.E, s.O)
     else:
         layout = rotate.CodesLayout(
             Z_pad=rotate.pad_cells_to_tile(cfg, state.Z_corr.to(torch.float32)).contiguous(),
@@ -357,12 +365,11 @@ def _virtual_context(cfg: HarmonyConfig, state: HarmonyState) -> Optional[rotate
     """The state's virtual-R context as the correction takes it, or None."""
     if state.virt_pen is None:
         return None
-    Zo = state.Z_orig.to(torch.float32).contiguous()
     return rotate.VirtualR(
         pen=state.virt_pen, blkmap=state.virt_blkmap, Zn_pad=state.virt_Zn,
         codes_pad=rotate.make_codes_pad(cfg, state.codes), Y=state.virt_Y,
-        Z_orig_pad=rotate.pad_cells_to_tile(cfg, Zo).contiguous(), sigma=state.sigma,
-        G=state.virt_G,
+        Z_orig_pad=rotate.pad_cells_to_tile(cfg, state.Z_orig).contiguous(),
+        sigma=state.sigma, G=state.virt_G,
     )
 
 
@@ -408,7 +415,7 @@ def materialize_r(cfg: HarmonyConfig, state: HarmonyState) -> HarmonyState:
     if state.virt_pen is None:
         return state
     R = cuda_rotate.materialize_r(
-        cfg, state.virt_Y, state.sigma.to(torch.float32), state.virt_pen,
+        cfg, state.virt_Y.to(torch.float32), state.sigma.to(torch.float32), state.virt_pen,
         state.virt_blkmap, state.virt_Zn, rotate.make_codes_pad(cfg, state.codes),
         out_dtype=state.R.dtype,
     )

@@ -65,6 +65,21 @@ _SIGNATURES = {
 }
 
 
+def _bf16(*tensors: torch.Tensor) -> bool:
+    """Does a bf16 engine's state reach this float32 kernel?"""
+    return any(t.dtype == torch.bfloat16 for t in tensors)
+
+
+def f32(*tensors: torch.Tensor):
+    """float32 copies of a bf16 engine's tensors (float32 ones as they are)."""
+    return [t.to(_F32) for t in tensors]
+
+
+def cast_back(res: RoundResult, R, E, O) -> RoundResult:
+    """A round's R, E and O cast to the dtypes of its inputs."""
+    return res._replace(R=res.R.to(R.dtype), E=res.E.to(E.dtype), O=res.O.to(O.dtype))
+
+
 def assign_smem_bytes(K: int, d: int, B: int, ncov: int, T: int) -> int:
     """Shared memory of one assign CTA over T cells (layout in the .cu)."""
     dp, Bp = -(-d // 4) * 4, B | 1
@@ -138,7 +153,13 @@ def block_update_round(
     """One update_R round; the kernel on CUDA, the plain version with
     ``carry=True`` on CPU: R's columns hold the cells ``order`` (None: in
     order), and the new R comes back in the round's block order, as the
-    kernels write it."""
+    kernels write it. A bf16 engine's round runs on float32 copies made
+    here, and R, E and O go back in their dtypes, as
+    ``pallas_block_update_round`` casts (pallas_estep.py:160-251)."""
+    if _bf16(Z, Y, R, E, O, Pr_b, sigma, theta):
+        res = block_update_round(cfg, *f32(Z, Y, R, E, O), codes, *f32(Pr_b, sigma, theta),
+                                 perm, order)
+        return cast_back(res, R, E, O)
     dev = Z.device
     floats = {"Z": Z, "Y": Y, "R": R, "E": E, "O": O, "Pr_b": Pr_b,
               "sigma": sigma, "theta": theta}
@@ -239,7 +260,12 @@ def rotate_update_round_v1(
 ) -> RoundResult:
     """K12: one rotate round that reads the old block statistics from R,
     for the schedule (rt, order); the kernels on CUDA, the plain version
-    on CPU."""
+    on CPU. A bf16 engine's round runs on float32 copies made here, and R,
+    E and O go back in their dtypes (pallas_rotate.py:1780-1846)."""
+    if _bf16(Y, R, E, O, Pr_b, sigma, theta, layout.Z_pad):
+        res = rotate_update_round_v1(cfg, *f32(Y, R, E, O, Pr_b, sigma, theta), rt, order,
+                                     layout._replace(Z_pad=layout.Z_pad.to(_F32)))
+        return cast_back(res, R, E, O)
     codes = layout.codes_pad
     dev = codes.device
     floats = {"Y": Y, "R": R, "E": E, "O": O, "Pr_b": Pr_b, "sigma": sigma,

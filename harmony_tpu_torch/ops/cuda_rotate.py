@@ -39,6 +39,15 @@ K7, K10 and K11 take the config's ``estep_variant``: ``legacy`` runs the
 reference's two-normalise op order (:func:`legacy`), the others the
 single normalise; K6 has one op sequence.
 
+A bf16 engine's storage goes to the kernels as it lies (:data:`STORAGE`):
+K6 reads Z_raw, K7's moments Z_orig and K10 Z_orig in bf16, K10 writes
+Z_corr and K11 R in bf16; each kernel is one instance per storage type,
+chosen by an int argument (:func:`bf16`), whose arithmetic is the float32
+form's on the upcast values, so a bf16 output is the float32 form's value
+rounded to nearest even. G, Zn, the penalty tables, sigma and the betas
+stay float32; K7's E and O come in and go out in their own dtype
+(float32 copies at the boundary), as its R does where it writes one.
+
 For CPU tensors each wrapper runs its plain version; anything else
 raises. ``launches`` counts calls into the kernels' C entry points (1 per
 K6, K10 or K11 call, 1 + 2 * n_blocks per K7 round and 1 more with
@@ -61,19 +70,21 @@ from .cuda_ridge import _ceil4, _table_on, plan_order, sum_joint_rows
 from .rotate import CodesLayout, MomentsSpec, RoundState
 
 _F32 = torch.float32
+# the storage dtypes the four kernels read and write (their bf16 instances)
+STORAGE = (torch.float32, torch.bfloat16)
 _SMEM_MAX = 232_448  # bytes of shared memory a CTA may use on Hopper
 _CT = 64  # cells per piece (kCT in rotate.cu)
 _WARPS = 8
 _SIGNATURES = {
-    "k7_assign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 12 + [_build.PTR],
+    "k7_assign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 13 + [_build.PTR],
     "k7_commit": [_build.PTR, _build.INT, _build.INT, _build.INT, _build.INT,
                   _build.INT, _build.PTR, _build.PTR, _build.INT, _build.INT]
     + [_build.PTR] * 9 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [_build.PTR],
-    "k6_occupancy": [_build.INT],
-    "k6_reassign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 11 + [_build.PTR],
-    "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 14
+    "k6_occupancy": [_build.INT, _build.INT],
+    "k6_reassign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 12 + [_build.PTR],
+    "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 15
     + [_build.PTR],
-    "k11_materialize_r": [_build.PTR] * 8 + [_build.I64] + [_build.INT] * 11 + [_build.PTR],
+    "k11_materialize_r": [_build.PTR] * 8 + [_build.I64] + [_build.INT] * 12 + [_build.PTR],
 }
 
 
@@ -120,12 +131,19 @@ def reduce_chunks(K: int, B: int) -> int:
 
 
 @functools.lru_cache(maxsize=16)
-def _k6_grid(smem: int, n_sm: int) -> int:
-    """The K6 assign CTAs the card holds at once."""
-    n = _build.load("rotate", _SIGNATURES).k6_occupancy(smem)
+def _k6_grid(smem: int, n_sm: int, zbf16: int) -> int:
+    """The K6 assign CTAs the card holds at once (the instance reading
+    float32 or, ``zbf16``, bf16 Z)."""
+    n = _build.load("rotate", _SIGNATURES).k6_occupancy(smem, zbf16)
     if n <= 0:
         raise RuntimeError(f"k6_occupancy: K6 fits no CTA on an SM (CUDA error {-n})")
     return n_sm * n
+
+
+def bf16(t: torch.Tensor) -> int:
+    """The storage argument of K6, K7, K10 and K11: 1 where the tensor the
+    kernel reads or writes in the storage dtype is bf16, 0 for float32."""
+    return int(t.dtype == torch.bfloat16)
 
 
 def legacy(cfg: HarmonyConfig) -> int:
@@ -239,9 +257,14 @@ def moments_fit(tile: int) -> bool:
     return tile % _CT == 0
 
 
-def _check(where: str, cfg: HarmonyConfig, floats: dict, codes: torch.Tensor):
+def _check(where: str, cfg: HarmonyConfig, floats: dict, codes: torch.Tensor,
+           storage: Optional[dict] = None):
+    """Same device; on the card ``floats`` contiguous float32 (Y may be a
+    strided view: the wrappers copy Y^T for the kernel) and ``storage``
+    contiguous in a dtype of :data:`STORAGE`; raises otherwise."""
+    storage = storage or {}
     dev = codes.device
-    for name, t in {**floats, "codes": codes}.items():
+    for name, t in {**floats, **storage, "codes": codes}.items():
         if t.device != dev:
             raise ValueError(f"{where}: {name} is on {t.device}, codes on {dev}")
     if dev.type not in ("cpu", "cuda"):
@@ -249,9 +272,12 @@ def _check(where: str, cfg: HarmonyConfig, floats: dict, codes: torch.Tensor):
     if dev.type == "cpu":
         return
     for name, t in floats.items():
-        # Y may be a strided view: the wrappers copy Y^T for the kernel
         if t.dtype != _F32 or not (t.is_contiguous() or name == "Y"):
             raise TypeError(f"{where}: {name} must be contiguous float32")
+    for name, t in storage.items():
+        if t.dtype not in STORAGE or not t.is_contiguous():
+            raise TypeError(f"{where}: {name} must be contiguous float32 or bfloat16, "
+                            f"got {t.dtype}")
     if codes.dtype != torch.int32 or not codes.is_contiguous():
         raise TypeError(f"{where}: codes must be contiguous int32")
     T = cfg.estep_sub_tile
@@ -299,9 +325,9 @@ def reassign(
     codes_pad: torch.Tensor,  # (ncov, NT*T) int32; pads -B-1
 ):
     """K6; returns (Zn (d, NT*T), tile_O (NT, K, B), O (K, B), E (K, B),
-    G (NT*T, K))."""
-    _check("reassign", cfg, {"Y": Y, "sigma": sigma, "Pr_b": Pr_b, "Z_raw": Z_raw},
-           codes_pad)
+    G (NT*T, K)), all float32; Z_raw float32 or bf16."""
+    _check("reassign", cfg, {"Y": Y, "sigma": sigma, "Pr_b": Pr_b}, codes_pad,
+           {"Z_raw": Z_raw})
     if Z_raw.device.type == "cpu":
         return rotate.reassign(cfg, Y, sigma, Pr_b, Z_raw, codes_pad)
     d, L = Z_raw.shape
@@ -312,9 +338,9 @@ def reassign(
         raise ValueError("reassign: Z_raw and codes_pad must start on 16-byte boundaries "
                          "(the kernel copies 16 bytes at a time)")
     splits, smem = reassign_plan(K, d, B, cfg.n_covariates)
-    grid = min(L // _CT, _k6_grid(smem, _sm_count(dev)))
+    grid = min(L // _CT, _k6_grid(smem, _sm_count(dev), bf16(Z_raw)))
     Yt = Y.t().contiguous()
-    Zn = torch.empty_like(Z_raw)
+    Zn = torch.empty((d, L), dtype=_F32, device=dev)
     G = torch.empty((L, K), dtype=_F32, device=dev)
     part = torch.empty((L // _CT, K * B), dtype=_F32, device=dev)
     tile_O = torch.empty((NT, K, B), dtype=_F32, device=dev)
@@ -330,7 +356,8 @@ def reassign(
         Pr_b.data_ptr(),
         Zn.data_ptr(), G.data_ptr(), part.data_ptr(), tile_O.data_ptr(), O.data_ptr(),
         E.data_ptr(), count.data_ptr(), L, NT, K, d, B, cfg.n_covariates, cfg.B_vec[0],
-        -(-K // 8) * 8, splits, grid, n_chunk, smem, torch.cuda.current_stream(dev).cuda_stream,
+        -(-K // 8) * 8, splits, grid, n_chunk, bf16(Z_raw), smem,
+        torch.cuda.current_stream(dev).cuda_stream,
     ), "k6_reassign")
     reassign.launches += 1
     return Zn, tile_O, O, E, G
@@ -355,12 +382,15 @@ def rotate_update_round_v2(
 ) -> RoundState:
     """K7: one stats-carrying round for the schedule (rt, order), g read
     from the phase's Gram table ``layout.G`` (K6's); with ``moments`` and
-    ``emit_pen`` the extras of a phase's last round."""
-    floats = {"Y": Y, "R": rs.R, "E": rs.E, "O": rs.O, "tile_O": rs.tile_O,
-              "Pr_b": Pr_b, "sigma": sigma, "theta": theta, "Z_pad": layout.Z_pad}
+    ``emit_pen`` the extras of a phase's last round. R, E and O come back
+    in the dtypes of ``rs``'s (the kernel's float32 cast, as
+    pallas_rotate.py:1036-1043 casts), and ``moments.Z_orig`` may be bf16."""
+    floats = {"Y": Y, "tile_O": rs.tile_O, "Pr_b": Pr_b, "sigma": sigma, "theta": theta,
+              "Z_pad": layout.Z_pad}
+    storage = {"R": rs.R, "E": rs.E, "O": rs.O}
     if moments is not None:
-        floats["Z_orig"] = moments.Z_orig
-    _check("rotate_update_round_v2", cfg, floats, layout.codes_pad)
+        storage["Z_orig"] = moments.Z_orig
+    _check("rotate_update_round_v2", cfg, floats, layout.codes_pad, storage)
     if Y.device.type == "cpu":
         return rotate.rotate_update_round_v2(cfg, Y, rs, Pr_b, sigma, theta, rt,
                                              order, layout, write_r, moments, emit_pen)
@@ -404,7 +434,8 @@ def rotate_update_round_v2(
     logpen = torch.empty((K, B), dtype=_F32, device=dev)
     acc = torch.empty(2, dtype=_F32, device=dev)
     tile_O = torch.empty_like(rs.tile_O)
-    R_out = torch.empty_like(rs.R) if write_r else None
+    R_out = torch.empty((K, L), dtype=_F32, device=dev) if write_r else None
+    E_in, O_in = rs.E.to(_F32), rs.O.to(_F32)
     pen_out = torch.empty((len(szs), K, B), dtype=_F32, device=dev) if emit_pen else None
     part = torch.empty((max(szs) * cpt, K * B + 2), dtype=_F32, device=dev)
     offsets = _offsets_on(cfg.covariate_offsets, str(dev))
@@ -417,10 +448,11 @@ def rotate_update_round_v2(
               logpen.data_ptr(), sigma.data_ptr(), ptr(R_out), part.data_ptr(),
               *[ptr(t) for t in mom])
     c_part, c_new, c_old = part.data_ptr(), tile_O.data_ptr(), rs.tile_O.data_ptr()
-    c_in = ((rs.E.data_ptr(), rs.O.data_ptr()), (E_w.data_ptr(), O_w.data_ptr()))
+    c_in = ((E_in.data_ptr(), O_in.data_ptr()), (E_w.data_ptr(), O_w.data_ptr()))
     c_tail = (E_w.data_ptr(), O_w.data_ptr(), Pr_b.data_ptr(), theta.data_ptr(),
               pen.data_ptr(), logpen.data_ptr(), ptr(pen_out))
     c_acc, d1p, lg = acc.data_ptr(), _ceil4(d + 1), legacy(cfg)
+    zbf = bf16(moments.Z_orig) if moments is not None else 0
 
     def commit(add_blk: int, rm_blk: int, first: bool) -> None:
         v0, nt = ((vstart[add_blk] + rt) % NT, szs[add_blk]) if add_blk >= 0 else (0, 0)
@@ -437,14 +469,15 @@ def rotate_update_round_v2(
     for i, blk in enumerate(order):
         _build.check(lib.k7_assign(
             *a_ptrs, L, (vstart[blk] + rt) % NT, szs[blk], NT, cpt, tw, K, d, B, ncov, d1p,
-            lg, smem, stream,
+            lg, zbf, smem, stream,
         ), "k7_assign")
         rotate_update_round_v2.launches += 1
         commit(blk, order[i + 1] if i + 1 < len(order) else -1, False)
     if moments is not None:
         sum_joint_rows(mpart, start, M)
         rotate_update_round_v2.launches += 1
-    return RoundState(R=R_out if write_r else rs.R, E=E_w, O=O_w, tile_O=tile_O,
+    return RoundState(R=R_out.to(rs.R.dtype) if write_r else rs.R, E=E_w.to(rs.E.dtype),
+                      O=O_w.to(rs.O.dtype), tile_O=tile_O,
                       kmeans_error=acc[0], entropy=acc[1], M=M, pen=pen_out,
                       blkmap=rotate.block_of_tiles(cfg, rt, dev) if emit_pen else None)
 
@@ -453,10 +486,10 @@ rotate_update_round_v2.launches = 0
 
 
 def _check_virtual(where: str, cfg: HarmonyConfig, floats: dict, codes_pad: torch.Tensor,
-                   blk_of_phys: torch.Tensor) -> bool:
+                   blk_of_phys: torch.Tensor, storage: Optional[dict] = None) -> bool:
     """True for CUDA tensors that K10/K11 take, False for CPU tensors (the
     plain version runs); raises for anything else."""
-    _check(where, cfg, floats, codes_pad)
+    _check(where, cfg, floats, codes_pad, storage)
     if codes_pad.device.type == "cpu":
         return False
     d, L = floats["Zn_pad"].shape
@@ -486,12 +519,13 @@ def virtual_correction(
 ) -> torch.Tensor:
     """K10: Z_corr (d, Npt) = Z_orig - W_joint[joint(tile)] R, R recomputed
     from the penalty tables and the phase's Gram table ``G``, which the
-    kernel needs; the plain version forms g from Y and Zn without it."""
-    floats = {"Y": Y, "sigma": sigma, "pen": pen, "Zn_pad": Zn_pad,
-              "Z_orig_pad": Z_orig_pad, "W_joint": W_joint}
+    kernel needs; the plain version forms g from Y and Zn without it.
+    Z_orig float32 or bf16; Z_corr comes back in its dtype."""
+    floats = {"Y": Y, "sigma": sigma, "pen": pen, "Zn_pad": Zn_pad, "W_joint": W_joint}
     if G is not None:
         floats["G"] = G
-    if not _check_virtual("virtual_correction", cfg, floats, codes_pad, blk_of_phys):
+    if not _check_virtual("virtual_correction", cfg, floats, codes_pad, blk_of_phys,
+                          {"Z_orig_pad": Z_orig_pad}):
         return rotate.virtual_correction(cfg, W_joint, tile_joint, layout_tile, Y, sigma,
                                          pen, blk_of_phys, Zn_pad, codes_pad, Z_orig_pad, G)
     K, B, T = cfg.K, cfg.B, cfg.estep_sub_tile
@@ -529,7 +563,7 @@ def virtual_correction(
         blk_of_phys.data_ptr(), sigma.data_ptr(), W_joint.data_ptr(), order.data_ptr(),
         _table_on(tj.tobytes(), str(dev)).data_ptr(), Z_orig_pad.data_ptr(), Zc.data_ptr(),
         L, n, span, T, layout_tile, nj1 - 1, K, d, _ceil4(d), B, cfg.n_covariates, groups,
-        legacy(cfg), grid, smem,
+        legacy(cfg), bf16(Z_orig_pad), grid, smem,
         torch.cuda.current_stream(dev).cuda_stream,
     ), "k10_virtual_correction")
     virtual_correction.launches += 1
@@ -549,14 +583,16 @@ def materialize_r(
     codes_pad: torch.Tensor,  # (ncov, Npt) int32
     out_dtype=None,
 ) -> torch.Tensor:
-    """K11: the last round's R (K, Np), rebuilt from the penalty tables.
-    The kernel writes float32, the only engine dtype that reaches it."""
+    """K11: the last round's R (K, Np), rebuilt from the penalty tables, in
+    ``out_dtype`` (float32 by default, or bf16: the kernel stores each
+    value rounded to nearest even, as pallas_rotate.py:1642-1645 casts)."""
     floats = {"Y": Y, "sigma": sigma, "pen": pen, "Zn_pad": Zn_pad}
     if not _check_virtual("materialize_r", cfg, floats, codes_pad, blk_of_phys):
         return rotate.materialize_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad,
                                     out_dtype)
-    if out_dtype not in (None, _F32):
-        raise TypeError(f"materialize_r: the kernel writes float32, not {out_dtype}")
+    out_dtype = out_dtype or _F32
+    if out_dtype not in STORAGE:
+        raise TypeError(f"materialize_r: the kernel writes float32 or bfloat16, not {out_dtype}")
     K, B, T = cfg.K, cfg.B, cfg.estep_sub_tile
     d, L = Zn_pad.shape
     dev = Zn_pad.device
@@ -567,13 +603,13 @@ def materialize_r(
     K8 = _ceil(K, 8)
     # the centroids as the kernel reads them, (d, K8), zero past K
     Yp = torch.nn.functional.pad(Y, (0, K8 - K)).contiguous()
-    R = torch.empty((K, L), dtype=_F32, device=dev)
+    R = torch.empty((K, L), dtype=out_dtype, device=dev)
     lib = _build.load("rotate", _SIGNATURES)
     _build.check(lib.k11_materialize_r(
         Yp.data_ptr(), Zn_pad.data_ptr(), codes_pad.data_ptr(),
         _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), pen.data_ptr(),
         blk_of_phys.data_ptr(), sigma.data_ptr(), R.data_ptr(), L, T, K, d, B,
-        cfg.n_covariates, K8, plan.kj, int(plan.ys_shared), legacy(cfg),
+        cfg.n_covariates, K8, plan.kj, int(plan.ys_shared), legacy(cfg), bf16(R),
         materialize_r_grid(L // _CT, plan.smem, _sm_count(dev)), plan.smem,
         torch.cuda.current_stream(dev).cuda_stream,
     ), "k11_materialize_r")

@@ -41,9 +41,12 @@ def _seed_centroids(
     exponential-race trick (``argmin(-log(u) / dist)`` samples in proportion
     to distance); chosen cells are excluded (the reference's dedupe,
     src/utils.cpp:39-43). ``init_idx`` (K,) and ``uniforms`` (K vectors of
-    n_valid) replace the generator's draws when given.
+    n_valid) replace the generator's draws when given. The distances are in
+    X's dtype; the draws and the race are float32 at least, as
+    ``jax.random.uniform``'s default dtype makes them for a bf16 X.
     """
     dev, dt = X.device, X.dtype
+    udt = torch.promote_types(dt, torch.float32)
     tiny = torch.finfo(dt).tiny
     if init_idx is None:
         init_idx = torch.randint(0, n_valid, (K,), generator=generator, device=dev)
@@ -52,13 +55,13 @@ def _seed_centroids(
     Xv = X[:, :n_valid]
     D = torch.abs(2.0 * (1.0 - Y0.t().float() @ Xv.float())).to(dt)  # (K, n_valid)
     chosen = torch.zeros(n_valid, dtype=torch.bool, device=dev)
-    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    inf = torch.tensor(float("inf"), dtype=udt, device=dev)
     picks = []
     for k in range(K):
         if uniforms is None:
-            u = _uniform(n_valid, generator, dev, dt)
+            u = _uniform(n_valid, generator, dev, udt)
         else:
-            u = torch.as_tensor(uniforms[k], device=dev).to(dt)
+            u = torch.as_tensor(uniforms[k], device=dev).to(udt)
         prob = -torch.log(u) / torch.clamp(D[k], min=tiny)
         prob = torch.where(chosen, inf, prob)
         idx = torch.argmin(prob)

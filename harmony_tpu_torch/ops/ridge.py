@@ -157,7 +157,10 @@ def moe_correct_ridge(
     keepf = keep.to(_F32)
     use_kernel = (cfg.mstep_impl == "kernel" and cfg.n_covariates == 1
                   and tiled is None and segments is None)
-    Zf = Z_orig.to(_F32).contiguous()
+    # moments and solve in float32 (harmony_tpu/ops/ridge.py:103-112); under
+    # virtual R only the mixed/pad tail is read here (K10 reads Z_orig in
+    # its storage dtype), so no float32 copy of the whole Z_orig is made
+    Zf = Z_orig if virtual is not None else Z_orig.to(_F32).contiguous()
     cross_blocks: Dict[Tuple[int, int], torch.Tensor] = {}
 
     if tiled is not None:
@@ -374,7 +377,8 @@ def _moments_tiled(cfg, R_eff, Zf, codes, tiled, precomputed=None, tail_R=None):
     R_t = tail_oh = tail_M = None
     if tail:
         R_t = tail_R if tail_R is not None else R_eff[:, n_pure:]
-        Za_t = torch.cat([Zf[:, n_pure:], Zf.new_ones((1, tail))], dim=0)
+        Z_t = Zf[:, n_pure:].to(_F32)
+        Za_t = torch.cat([Z_t, Z_t.new_ones((1, tail))], dim=0)
         tail_oh = [
             torch.nn.functional.one_hot(codes[c, n_pure:].long(), b).to(_F32)
             for c, b in enumerate(cfg.B_vec)
@@ -426,7 +430,7 @@ def _intercept_moments_tiled(cfg, keep, Zf, codes, tiled, ctx):
             mask_t = kc if mask_t is None else (mask_t | kc)
         R_tm = ctx[0] * mask_t.to(_F32)
         r_tot = r_tot + R_tm.sum(dim=1)
-        rhs0 = rhs0 + R_tm @ Zf[:, n_pure:].t()
+        rhs0 = rhs0 + R_tm @ Zf[:, n_pure:].to(_F32).t()
     return r_tot, rhs0
 
 
@@ -515,7 +519,9 @@ def virtual_tile_correction(cfg: HarmonyConfig, W_joint: torch.Tensor, tile_join
     shape; else K11 writes R, from Y and Zn, and K9 applies it: a state
     without G (built from the JAX package's arrays) or K, d, B past K10's
     shared memory. Both give the same bits (K11's R is K7's; K10 and K9 run
-    one fmaf order). On CPU tensors the kernels' plain versions."""
+    one fmaf order). On CPU tensors the kernels' plain versions. K10 reads
+    Z_orig in its storage dtype and returns Z_corr in it; K11 and K9 run on
+    float32 (a copy of a bf16 Z_orig) and return float32."""
     from . import cuda_ridge, cuda_rotate
 
     rargs = (virt.Y.to(_F32), virt.sigma.to(_F32), virt.pen, virt.blkmap, virt.Zn_pad,
@@ -526,7 +532,8 @@ def virtual_tile_correction(cfg: HarmonyConfig, W_joint: torch.Tensor, tile_join
         return cuda_rotate.virtual_correction(cfg, W_joint, tile_joint, tile, *rargs,
                                               virt.Z_orig_pad, virt.G)
     R = cuda_rotate.materialize_r(cfg, *rargs)
-    return cuda_ridge.tiled_correction(W_joint, tile_joint, R, virt.Z_orig_pad, tile)
+    return cuda_ridge.tiled_correction(W_joint, tile_joint, R,
+                                       virt.Z_orig_pad.to(_F32).contiguous(), tile)
 
 
 def _solve_ridge(cfg: HarmonyConfig, G: torch.Tensor, rhs: torch.Tensor):

@@ -532,13 +532,15 @@ def virtual_correction(
     pallas_rotate.py:1493): Z_orig - W_joint[joint(tile)] R per layout
     tile, R recomputed from the penalty tables, g read from ``G`` where
     given (formed from Y and Zn without it). Mixed and pad tiles meet the
-    zero trash row and pass Z_orig through."""
+    zero trash row and pass Z_orig through. Z_orig may be stored in bf16:
+    the correction runs in float32 and Z_corr comes back in Z_orig's dtype,
+    one round-to-nearest-even of the float32 value."""
     if G is not None and tuple(G.shape) != (Zn_pad.shape[1], pen.shape[1]):
         raise ValueError(f"virtual_correction: G must be ({Zn_pad.shape[1]}, {pen.shape[1]}), "
                          f"one row of g a cell of the layout, got {tuple(G.shape)}")
     R = _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, G=G)
-    return tiled_correction_twin(W_joint.to(_F32), tile_joint, R,
-                                 Z_orig_pad.to(_F32), layout_tile)
+    return tiled_correction_twin(W_joint.to(_F32), tile_joint, R, Z_orig_pad.to(_F32),
+                                 layout_tile).to(Z_orig_pad.dtype)
 
 
 def materialize_r(

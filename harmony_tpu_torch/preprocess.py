@@ -212,6 +212,7 @@ def resolve_config(
     dtype: str = "float32",
     ridge_solver: str = "cholesky",
     shuffle_mode: str = "permute",
+    matmul_precision: str = "auto",
 ) -> HarmonyConfig:
     """Assemble the static engine config (R/ui.R:133-150, 192-194)."""
     if nclust is None:
@@ -234,6 +235,8 @@ def resolve_config(
         block_size=options.block_size,
         shuffle_mode=shuffle_mode,
         dtype=dtype_name(dtype),
+        # 'auto' resolves by dtype in finalize_engine_config
+        matmul_precision=matmul_precision,
         ridge_solver=ridge_solver,
         verbose=verbose,
     )

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .config import HarmonyConfig
+from .ops.normalize import l2_normalize_columns
 from .preprocess import DesignMatrix
 
 _F32 = torch.float32
@@ -37,6 +38,11 @@ _CURSORS = ("n_kmeans", "n_harmony", "n_rounds")
 # The virtual-R context (harmony_tpu/state.py:78-88): None unless the run
 # takes virtual R.
 VIRTUAL_FIELDS = ("virt_pen", "virt_blkmap", "virt_Zn", "virt_Y")
+# The fields held in the engine dtype (harmony_tpu/state.py:127-166;
+# virt_Y snapshots state.Y, harmony_tpu/engine.py:748-749); the traces,
+# virt_pen and virt_Zn stay float32.
+ENGINE_DTYPE_FIELDS = ("Z_orig", "Z_corr", "Y", "R", "O", "E", "Pr_b", "batch_sizes",
+                       "sigma", "theta", "lamb", "virt_Y")
 
 
 @dataclasses.dataclass
@@ -84,7 +90,7 @@ class HarmonyState:
     virt_pen: Optional[torch.Tensor] = None  # (nb, K, B) float32
     virt_blkmap: Optional[torch.Tensor] = None  # (NT,) int32
     virt_Zn: Optional[torch.Tensor] = None  # (d, Npt) float32
-    virt_Y: Optional[torch.Tensor] = None  # (d, K) float32
+    virt_Y: Optional[torch.Tensor] = None  # (d, K) engine dtype
     # The last phase's Gram table (Npt, K) float32, K6's, which the
     # virtual-R correction (K10) reads instead of forming g again; set with
     # the context, consumed by engine.correct, so no phase holds two. Not a
@@ -140,9 +146,10 @@ def init_state(
     if pad:
         Z = np.concatenate([Z, np.zeros((Z.shape[0], pad), Z.dtype)], axis=1)
         codes = np.concatenate([codes, np.zeros((codes.shape[0], pad), np.int32)], axis=1)
-    Z_orig = torch.as_tensor(Z, device=dev).to(dtype)
-    norms = torch.linalg.vector_norm(Z_orig, dim=0, keepdim=True)
-    Z_corr = Z_orig / torch.where(norms == 0, torch.ones_like(norms), norms)
+    # cell-contiguous rows, as the kernels read them: an embedding reordered
+    # at ingest arrives column-major
+    Z_orig = torch.as_tensor(np.ascontiguousarray(Z), device=dev).to(dtype)
+    Z_corr = l2_normalize_columns(Z_orig)
     batch_sizes = design.batch_sizes().astype(np.float64)
     Pr_b = batch_sizes / cfg.N
     t = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(dtype)
@@ -175,6 +182,23 @@ def init_state(
     )
 
 
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A tensor of the array's values; a bf16 array (ml_dtypes' bfloat16,
+    which numpy cannot convert) is read as its 16-bit patterns, so no bit
+    changes and ml_dtypes is not needed."""
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy; bf16 as float32 holding the same values, which
+    ``.astype(jnp.bfloat16)`` turns back into the same bits."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 def state_from_arrays(
     cfg: HarmonyConfig, arrays: Dict[str, np.ndarray], device
 ) -> HarmonyState:
@@ -182,23 +206,25 @@ def state_from_arrays(
     test can hand a ``harmony_tpu`` state (padded or not) straight to the
     port. ``key`` (the
     JAX ``[0, seed]`` key data) seeds the generator; it may be omitted. The
-    virtual-R fields are carried where present and not None."""
+    virtual-R fields are carried where present and not None. Floating
+    fields the engine stores in its dtype (``ENGINE_DTYPE_FIELDS``) are
+    cast to ``cfg.dtype``: exact for the float32 arrays of
+    :func:`state_to_arrays` that hold a bf16 state's values."""
     dev = torch.device(device)
     missing = [f for f in ARRAY_FIELDS if f not in arrays and f != "key"]
     if missing:
         raise KeyError(f"state arrays missing fields: {missing}")
+    dtype = getattr(torch, cfg.dtype)
     kw = {}
-    for f in ARRAY_FIELDS:
-        if f == "key":
+    for f in ARRAY_FIELDS + VIRTUAL_FIELDS:
+        if f == "key" or arrays.get(f) is None:
             continue
         a = np.asarray(arrays[f])
         if f in _CURSORS:
             kw[f] = int(a)
-        else:
-            kw[f] = torch.as_tensor(np.array(a), device=dev)
-    for f in VIRTUAL_FIELDS:
-        if arrays.get(f) is not None:
-            kw[f] = torch.as_tensor(np.array(arrays[f]), device=dev)
+            continue
+        t = _tensor(a, dev)
+        kw[f] = t.to(dtype) if f in ENGINE_DTYPE_FIELDS and t.is_floating_point() else t
     key = np.asarray(arrays.get("key", np.zeros(2, np.uint32))).astype(np.uint64)
     seed = int(key.reshape(-1)[-1]) | (int(key.reshape(-1)[0]) << 32)
     return HarmonyState(**kw, seed=seed, generator=_generator(seed, dev))
@@ -206,7 +232,8 @@ def state_from_arrays(
 
 def state_to_arrays(state: HarmonyState) -> Dict[str, np.ndarray]:
     """Every JAX state field as numpy (cursors as 0-d int32 arrays), the
-    virtual-R fields only where set."""
+    virtual-R fields only where set; bf16 fields as float32 arrays holding
+    their values."""
     out = {}
     for f in ARRAY_FIELDS:
         if f == "key":
@@ -217,8 +244,8 @@ def state_to_arrays(state: HarmonyState) -> Dict[str, np.ndarray]:
         elif f in _CURSORS:
             out[f] = np.asarray(getattr(state, f), dtype=np.int32)
         else:
-            out[f] = getattr(state, f).cpu().numpy()
+            out[f] = host_numpy(getattr(state, f))
     for f in VIRTUAL_FIELDS:
         if getattr(state, f) is not None:
-            out[f] = getattr(state, f).cpu().numpy()
+            out[f] = host_numpy(getattr(state, f))
     return out

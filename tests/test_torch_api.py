@@ -88,13 +88,25 @@ def test_run_harmony_matches_between_kernel_and_torch_impls_on_cpu():
         ({"checkpoint_path": "x.npz"}, "ROADMAP A10"),
         ({"stream_ingest": True}, "ROADMAP A10"),
         ({"virtual_r": True}, None),
-        ({"dtype": "bfloat16"}, "ROADMAP A9, reduced-precision engines"),
-        ({"matmul_precision": "bfloat16"}, "ROADMAP A9"),
+        # ported: the bf16 engine and the bf16 precision permission resolve
+        # (the ids are the ones the cases had while they raised)
+        pytest.param({"dtype": "bfloat16"}, "bf16",
+                     id="kwargs5-ROADMAP A9, reduced-precision engines"),
+        pytest.param({"matmul_precision": "bfloat16"}, "bf16", id="kwargs6-ROADMAP A9"),
         ({"plot_convergence": True}, "ROADMAP A10"),
+        ({"dtype": "float16"}, "ROADMAP A9, float16 engines"),
     ],
 )
 def test_unported_paths_raise(kwargs, item):
     Z, meta = make_synthetic(None, n_cells=60, d=4, seed=5)
+    if item == "bf16":
+        res = run_harmony(Z, meta, ["dataset"], device="cpu", return_object=True, **kwargs)
+        assert res.config.matmul_precision == "bfloat16"
+        dt = torch.bfloat16 if "dtype" in kwargs else torch.float32
+        assert res.state.Z_corr.dtype == res.state.R.dtype == dt
+        assert res.R.dtype == np.float32 and np.isfinite(res.embeddings).all()
+        np.testing.assert_allclose(res.R.sum(0), 1.0, atol=5e-3)
+        return
     if item is None:
         # ported: on this permute run the virtual-R gate ignores it, as the
         # JAX package's does

@@ -145,7 +145,13 @@ def test_finalize_resolves_impls_and_refuses_unported():
     # below n_blocks * 128 cells rotate takes the cell-granular round, untiled
     small = tconfig.finalize_engine_config(dataclasses.replace(base, shuffle_mode="rotate"))
     assert (small.rotate_route, small.Np, small.estep_sub_tile) == ("cell", 100, 4096)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tconfig.finalize_engine_config(dataclasses.replace(base, dtype="bfloat16"))
+    # the bf16 engine resolves: the kernels, virtual R, the bf16 precision
+    # permission, as the JAX package resolves them; float16 still raises
+    bf = tconfig.finalize_engine_config(dataclasses.replace(base, dtype="bfloat16",
+                                                            matmul_precision="auto"))
+    assert (bf.estep_impl, bf.mstep_impl, bf.virtual_r, bf.matmul_precision) == (
+        "kernel", "kernel", True, "bfloat16")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9, float16 engines"):
+        tconfig.finalize_engine_config(dataclasses.replace(base, dtype="float16"))
     with pytest.raises(tconfig.HarmonyConfigError):
         tconfig.finalize_engine_config(dataclasses.replace(base, estep_impl="pallas"))

@@ -3,10 +3,10 @@
 * ``finalize_engine_config``: the same sub-tile T and padded N as the JAX
   package's for several shapes (its ``estep_impl='auto'`` picks Pallas
   only on a TPU, so it is given 'pallas'); the unported rotate options
-  raise ``NotImplementedError`` naming their ROADMAP item, and
-  ``virtual_r=True``, ``rotate_stats_carry=False``,
-  ``estep_variant='legacy'`` and runs below ``n_blocks * 128`` cells
-  resolve.
+  (``dtype='float16'``) raise ``NotImplementedError`` naming their ROADMAP
+  item, and ``virtual_r=True``, ``rotate_stats_carry=False``,
+  ``estep_variant='legacy'``, ``dtype='bfloat16'`` and runs below
+  ``n_blocks * 128`` cells resolve.
 * The K6 twin (``ops.rotate.reassign``) against ``pallas_reassign`` in
   interpret mode: Zn atol 1e-6; tile_O, O, E rtol 1e-5.
 * The K7 twin (``ops.rotate.rotate_update_round_v2``) against
@@ -86,14 +86,23 @@ _PORTED_ROUTES = {"ROADMAP B, K12": "two_phase", "cell-granular rotate round": "
     "change,item",
     [({"rotate_stats_carry": False}, "ROADMAP B, K12"),
      ({"virtual_r": True}, None),
-     ({"dtype": "bfloat16"}, "ROADMAP A9, reduced-precision engines"),
+     # ported: the id is the one the case had while it raised
+     pytest.param({"dtype": "bfloat16"}, "bf16",
+                  id="change2-ROADMAP A9, reduced-precision engines"),
      ({"N": 2559}, "cell-granular rotate round"),
      ({"estep_variant": "legacy"}, "ROADMAP A9"),
-     ({"mstep_mode": "segment"}, "segmented M-step")],
+     ({"mstep_mode": "segment"}, "segmented M-step"),
+     ({"dtype": "float16"}, "ROADMAP A9, float16 engines")],
 )
 def test_unported_rotate_options_raise(change, item):
     base = tconfig.HarmonyConfig(N=5000, d=4, K=3, B=2, B_vec=(2,), shuffle_mode="rotate")
-    if item is None:
+    if item == "bf16":
+        # the bf16 engine takes the stats-carrying route with virtual R,
+        # on the geometry of the float32 engine
+        cfg = tconfig.finalize_engine_config(dataclasses.replace(base, **change))
+        assert (cfg.virtual_r, cfg.estep_impl, cfg.rotate_route) == (True, "kernel", "carry")
+        assert (cfg.N_pad, cfg.estep_sub_tile) == (5120, 128)
+    elif item is None:
         # ported: virtual R resolves on (engine._virtual_gate decides per run)
         cfg = tconfig.finalize_engine_config(dataclasses.replace(base, **change))
         assert (cfg.virtual_r, cfg.estep_impl, cfg.mstep_impl) == (True, "kernel", "kernel")

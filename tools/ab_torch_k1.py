@@ -40,6 +40,13 @@ of its kernels (five calls, per call):
   penalty tables, at ``chip_smoke.check_virtual``'s inputs (seed 17, the
   same joint betas), K10 given K6's Gram table where the checkout's K10
   takes it; ``K10_unfused``: K11, then K9 on its R, the path K10 fuses.
+* ``K6_bf16``, ``K7_bf16``, ``K10_bf16``, ``K11_bf16``: the bf16 storage
+  forms of K6, K7's last round, K10 and K11 (the bf16 engine's virtual
+  route) on the same inputs stored in bf16: K6 reading a bf16 Z, K7's
+  last round fusing the moments of a bf16 Z_orig on a bf16 R, E and O,
+  K10 reading a bf16 Z_orig and writing a bf16 Z_corr, K11 writing a
+  bf16 R. A checkout whose wrappers refuse bf16 reports the entry as
+  unsupported.
 * ``K12``: one K12 round (``cuda_estep.rotate_update_round_v1`` on the
   padded rotate layout, seed 22).
 * ``K8``, ``K9``: one K8 call (``cuda_ridge.tile_moments``) and one K9
@@ -57,7 +64,8 @@ of its kernels (five calls, per call):
 
 With ``--paths``, each checkout then runs those paths of its own
 ``chip_smoke.py`` (``run_main_path``; ``segment``: ``run_segment_path`` at
-200,000 cells in 40 batches) in the same process, twice: the first run
+200,000 cells in 40 batches; ``bf16``: ``run_bf16_path``, the bf16 engine
+at the main shape, where the checkout has it) in the same process, twice: the first run
 warms up the libraries a cold process loads on first use (cuBLAS,
 cuSOLVER), and the lines of the second's end-to-end numbers are printed,
 with its peak device memory (``torch.cuda.max_memory_allocated``) and the
@@ -152,7 +160,17 @@ def rotate_calls():
     k10 = cuda_rotate.virtual_correction
     kw10 = extra if "G" in inspect.signature(k10).parameters else {}
     k11 = lambda: cuda_rotate.materialize_r(cfg, *vargs)
+    # the bf16 storage forms on the same values stored in bf16
+    bf = torch.bfloat16
+    Zb, Zob = Z.to(bf), Zo.to(bf)
+    spec_b = spec._replace(Z_orig=Zob)
+    rs_b = rs._replace(R=rs.R.to(bf), E=E.to(bf), O=O.to(bf))
+    a7b = (cfg, Y, rs_b, Pr_b, sigma, theta, rt, blocks, lay)
     return {"K6": lambda: cuda_rotate.reassign(*args6),
+            "K6_bf16": lambda: cuda_rotate.reassign(cfg, Y, sigma, Pr_b, Zb, codes_pad),
+            "K7_bf16": lambda: k7(*a7b, write_r=False, moments=spec_b, emit_pen=True),
+            "K10_bf16": lambda: k10(cfg, W, tj, 256, *vargs, Zob, **kw10),
+            "K11_bf16": lambda: cuda_rotate.materialize_r(cfg, *vargs, out_dtype=bf),
             "K7": lambda: k7(*a7, write_r=False),
             "K7_write_r": lambda: k7(*a7, write_r=True),
             "K7_last": lambda: k7(*a7, write_r=False, moments=spec, emit_pen=True),
@@ -255,7 +273,8 @@ out = {}
 makers = [("K1", k1_call), ("K1_phase", k1_phase), ("K2_phase", k2_phase),
           ("K2_phase_b40", lambda: k2_phase(200_000, 40, 7)),
           (("K3", "K3_moments"), k3_calls),
-          (("K6", "K7", "K7_write_r", "K7_last", "K10", "K10_unfused", "K11"), rotate_calls),
+          (("K6", "K7", "K7_write_r", "K7_last", "K10", "K10_unfused", "K11", "K6_bf16",
+            "K7_bf16", "K10_bf16", "K11_bf16"), rotate_calls),
           ("K6_random", k6_random),
           ("K12", lambda: (lambda a: lambda: cuda_estep.rotate_update_round_v1(*a))(k12_args())),
           (("K8", "K9"), tiled_calls),
@@ -270,9 +289,16 @@ for names, make in makers:
     calls += [(n, c) for n, c in (made.items() if isinstance(made, dict) else [(names, made)])
               if not ENTRIES or n in ENTRIES]
 for name, call in calls:
+    if name.endswith("_bf16"):
+        try:
+            call()
+        except (TypeError, ValueError, RuntimeError) as e:
+            out[name] = {"unsupported": str(e)[:200]}
+            continue
     ms = cs.time_ms(torch, name, call,
                     iters={"K8": 10, "K9": 10, "K10": 10, "K10_unfused": 10, "K11": 10,
                            "K6": 10, "K6_random": 10, "K3": 10, "K3_moments": 10,
+                           "K6_bf16": 10, "K10_bf16": 10, "K11_bf16": 10,
                            "K1_phase": 2, "K2_phase": 2,
                            "K2_phase_b40": 2}.get(name, 5))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -300,6 +326,11 @@ os.makedirs(cs.OUT_DIR, exist_ok=True)
 def run_path(path):
     if path == "segment":
         cs.run_segment_path(torch, dev, WRAPPERS, "segment", 200_000, "rotate")
+    elif path == "bf16":
+        if hasattr(cs, "run_bf16_path"):
+            cs.run_bf16_path(torch, dev, WRAPPERS, "bf16", 500_000, 10)
+        else:
+            print("bf16 path: not in this checkout", flush=True)
     else:
         cs.run_main_path(torch, dev, WRAPPERS, path)
 
