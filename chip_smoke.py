@@ -109,9 +109,27 @@ Phases (``--phases`` picks a subset, comma-separated):
              both op orders.
 14. bf16_10m (opt-in: named in --phases, not run by default) the bf16 path
              at BASELINE's shape, 10,000,000 x 50 cells, 100 batches, K =
-             100: wall, phase seconds, seconds per iteration, peak device
-             memory; then the float32 engine (virtual R) on the same cells
-             beside it, logged only.
+             100: wall, phase seconds (the ingest streamed, the copy
+             overlapping the ingest order), seconds per iteration, peak
+             device memory; then the float32 engine (virtual R) on the
+             same cells beside it, and the bf16 call with
+             stream_ingest=False (one iteration, the copy finished before
+             the ingest order), logged only.
+15. host     the host modules around the engine on the main shape's cells
+             (check_host): the harmony-torch CLI on .npy/.csv files against
+             run_harmony with the same arguments (<= 1e-6), a checkpointed
+             two-round run resumed for one round against three rounds
+             without early stop (5e-4), K6, K7 and K9 launched by the CLI;
+             stream_ingest=True (the copy overlapped) against False
+             (Z_orig bit-equal and equal to the caller's cells, Z_corr
+             equal, the ingest's parts timed both ways), the bf16 cast of
+             the stream bit-equal to the card's; an abort from a
+             thread after round 1 of a checkpointing run (KeyboardInterrupt,
+             then the checkpoint resumes); a trace of one round with the
+             cluster and correct spans ($CHIP_SMOKE_OUT/trace_host/);
+             run_bench at rotate, permute and rotate-virtual-bf16 (payload
+             and peak memory); cell_lines() through run_harmony (the
+             batch-centroid separation shrinks).
 
 It prints a JSON line of the kernels' numbers, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Any failed check exits 1.
@@ -130,7 +148,7 @@ import sys
 import time
 
 PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
-          "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16")
+          "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16", "host")
 # phases run only when named in --phases: the bf16 engine at BASELINE's shape
 OPT_IN_PHASES = ("bf16_10m",)
 # BASELINE's north-star shape (BASELINE.json): 10M cells x 50, 100 batches,
@@ -239,26 +257,45 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def device_ms(torch, fn, names, calls: int = 3) -> dict:
+def device_ms(torch, fn, names, calls: int = 3, tries: int = 4) -> dict:
     """Device ms per call of ``fn`` under torch.profiler, summed over the
-    kernels whose name holds each of ``names`` ({name: ms})."""
+    kernels whose name holds each of ``names`` ({name: ms}). The profiler
+    now and then hands back a cycle without one of the kernels: such a
+    cycle is profiled again, up to ``tries`` times, and a name still
+    without device time reads None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        for n in names:
-            if n in e.key:
-                out[n] += t / 1e3 / calls
-    return out
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(names, 0.0)
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0.0)
+            for n in names:
+                if n in e.key:
+                    out[n] += t / 1e3 / calls
+        missing = [n for n in names if out[n] <= 0.0]
+        if not missing:
+            return out
+        log(f"    torch.profiler recorded no device time for {missing} "
+            f"(profile {attempt + 1} of {tries})")
+    return {n: (None if n in missing else v) for n, v in out.items()}
+
+
+def fmt_ms(ms) -> str:
+    """A device time from ``device_ms``, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def fmt_rate(nbytes, ms) -> str:
+    """``nbytes`` over a device time from ``device_ms``, in GB/s."""
+    return "GB/s not measured" if ms is None else f"{nbytes / ms / 1e6:.1f} GB/s"
 
 
 def check_k1(torch, dev, N, d, K, B_vec, seed, timed, rounds=4):
@@ -435,14 +472,15 @@ def check_permute(torch, dev, N, d, K, B_vec, seed, timed, rounds=4, timed_phase
         g_bytes = 4 * N * K + 8 * N + 4 * ncov * N
         for key, what, nbytes in (("round_cells_kernel<false", "removal", g_bytes + 8 * N),
                                   ("round_cells_kernel<true", "assign", g_bytes)):
-            ms = dms[key] / rounds
+            ms = None if dms[key] is None else dms[key] / rounds
             k2[f"device_ms_{what}"] = ms
-            log(f"    K2 {what} pass: {ms:.4f} ms device time a round, "
-                f"{nbytes / ms / 1e6:.1f} GB/s ({nbytes / 1e6:.1f} MB)")
+            log(f"    K2 {what} pass: {fmt_ms(ms)} device time a round, "
+                f"{fmt_rate(nbytes, ms)} ({nbytes / 1e6:.1f} MB)")
         k2["device_ms_head"] = dms["head_kernel"]
-        k2["device_ms_commits"] = dms["commit_kernel"] / rounds
-        log(f"    K2 device time: head {dms['head_kernel']:.4f} ms a phase, commits "
-            f"{k2['device_ms_commits']:.4f} ms a round")
+        commits = dms["commit_kernel"]
+        k2["device_ms_commits"] = None if commits is None else commits / rounds
+        log(f"    K2 device time: head {fmt_ms(dms['head_kernel'])} a phase, commits "
+            f"{fmt_ms(k2['device_ms_commits'])} a round")
         k2["plain_ms"] = time_ms(torch, "K2 plain phase of one round", lambda: pp.permute_rounds(*one),
                                  iters=3)
         k2["library_ms"] = None
@@ -662,9 +700,9 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
         nbytes = 4 * K * Np + 4 * ncov * Np
         k7["device_ms_assign"] = dms["rot_assign_kernel"]
         k7["device_ms_commits"] = dms["rot_commit_kernel"]
-        log(f"    K7 assign launches: {dms['rot_assign_kernel']:.4f} ms device time a round, "
-            f"{nbytes / dms['rot_assign_kernel'] / 1e6:.1f} GB/s ({nbytes / 1e6:.1f} MB); "
-            f"commits {dms['rot_commit_kernel']:.4f} ms")
+        log(f"    K7 assign launches: {fmt_ms(dms['rot_assign_kernel'])} device time a round, "
+            f"{fmt_rate(nbytes, dms['rot_assign_kernel'])} ({nbytes / 1e6:.1f} MB); "
+            f"commits {fmt_ms(dms['rot_commit_kernel'])}")
         k7["library_ms"] = None
         # one round reads Z and the codes once; the round that writes R
         # also writes (K, Np) once
@@ -686,9 +724,9 @@ def time_k6(torch, args6, what, sfx):
                     ("reassign_assign_kernel", "reassign_reduce_kernel"))
     row["ms_assign" + sfx] = dms["reassign_assign_kernel"]
     row["ms_reduce" + sfx] = dms["reassign_reduce_kernel"]
-    log(f"    K6 device time ({what}): assign {row['ms_assign' + sfx]:.4f} ms, reduce "
-        f"{row['ms_reduce' + sfx]:.4f} ms ({part_mb:.1f} MB of partials, "
-        f"{part_mb / row['ms_reduce' + sfx]:.1f} GB/s)")
+    log(f"    K6 device time ({what}): assign {fmt_ms(row['ms_assign' + sfx])}, reduce "
+        f"{fmt_ms(row['ms_reduce' + sfx])} ({part_mb:.1f} MB of partials, "
+        f"{fmt_rate(part_mb * 1e6, row['ms_reduce' + sfx])})")
     return row
 
 
@@ -1452,7 +1490,7 @@ def run_driver(N, Zh, meta, dev, Y0=None, **change):
 
     from harmony_tpu_torch import api, driver, engine, preprocess
     from harmony_tpu_torch.config import finalize_engine_config, harmony_options
-    from harmony_tpu_torch.runtime import PhaseTimers
+    from harmony_tpu_torch.runtime import AsyncIngest, PhaseTimers
     from harmony_tpu_torch.state import init_state
 
     opts = harmony_options()
@@ -1463,11 +1501,13 @@ def run_driver(N, Zh, meta, dev, Y0=None, **change):
         early_stop=True, options=opts, verbose=False, lambda_estimation=True,
         ridge_solver="auto", shuffle_mode="rotate")
     cfg = finalize_engine_config(dataclasses.replace(cfg, **change))
-    Z, design, inv = api._ingest_order(cfg, Z, design, 0)
+    perm, _ = api.ingest_perm(cfg, design, 0)
+    _, design, inv = api.apply_ingest_order(design, perm)
     layout = engine.mstep_layout(cfg, design.codes, dev)
     hp = preprocess.expand_hyperparams(design, cfg.K, None, 0.1, None, opts.tau)
     timers = PhaseTimers(dev)
     with timers.scope("ingest"):
+        Z = AsyncIngest(Z, cfg, dev).result(perm)
         state = init_state(cfg, Z, design, hp.sigma, hp.theta, hp.lamb, 0, dev)
     state = driver.run(cfg, state, timers=timers, layout=layout, Y0=Y0)
     return api.HarmonyResult(config=cfg, state=state, design=design, timers=timers,
@@ -1740,6 +1780,7 @@ def run_bf16_path(torch, dev, wrappers, phase, n, B):
         f"{cfg.rotate_route!r}, virtual R {st.virt_pen is not None}, T={cfg.estep_sub_tile}, "
         f"Np={cfg.Np}), max_iter={MAX_ITER}: {n_it} iterations, wall {wall:.2f} s")
     log("  phase seconds: " + json.dumps({k: round(v, 4) for k, v in ph.items()}))
+    log(f"  ingest (streamed, stream_ingest='auto'): {_ingest_split(ph)}")
     log(f"  seconds per Harmony iteration {per_it:.4f}; {n / per_it:,.0f} cells/s per "
         f"iteration; materialize_r {ph.get('materialize_r', 0.0):.4f} s")
     trace = [float(x) for x in res.objective_harmony]
@@ -1786,7 +1827,7 @@ def run_bf16_path(torch, dev, wrappers, phase, n, B):
     else:
         # the float32 engine on the same cells, virtual R as the bf16 one,
         # for its iterations, time and memory beside them (nothing held)
-        del res, emb
+        del res, emb, st  # the first run's state is not in the next runs' peaks
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1801,6 +1842,18 @@ def run_bf16_path(torch, dev, wrappers, phase, n, B):
             f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
             f"phase seconds {json.dumps({k: round(v, 4) for k, v in ph32.items()})}; objective "
             f"{[round(float(x), 3) for x in r32.objective_harmony]}")
+        # the same bf16 call with the copy finished before the ingest order
+        # is built (no overlap), one iteration: the ingest beside the
+        # overlapped one above
+        del r32
+        _reset_peak(torch)
+        t0 = time.perf_counter()
+        rh = run_harmony(Zh, meta, ["batch"], max_iter=1, return_object=True, seed=0,
+                         dtype="bfloat16", stream_ingest=False)
+        torch.cuda.synchronize()
+        log(f"  bf16 with stream_ingest=False, one iteration: wall "
+            f"{time.perf_counter() - t0:.2f} s, peak {_peak_mib(torch):.1f} MiB; ingest "
+            f"{_ingest_split(rh.phase_seconds())}")
     return launches, trace, n_it
 
 
@@ -1860,6 +1913,228 @@ def check_bf16_routes(torch, dev, wrappers):
                 f"bf16 route {route}: R is not bf16")
         held_to(torch, f"bf16 route {route} against float32", out["bfloat16"], out["float32"],
                 BF16_HELD_RTOL, BF16_CELL_OBJ_RTOL if route == "rotate_cell" else None)
+
+
+def _peak_mib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2**20 if torch.cuda.is_available() else 0.0
+
+
+def _reset_peak(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _ingest_split(ph: dict) -> str:
+    """The ingest scopes of a run's phase seconds and their total: orient,
+    order and stream beside ``ingest``, which encloses normalize."""
+    keys = [k for k in ph if k.startswith("ingest")]
+    total = sum(ph.get(k, 0.0) for k in ("ingest_orient", "ingest_order", "ingest_stream",
+                                         "ingest"))
+    return ", ".join(f"{k} {ph[k]:.4f}" for k in keys) + f"; total {total:.4f} s"
+
+
+def check_host(torch, dev, wrappers, n=N_MAIN, d=D_MAIN, B=B_MAIN):
+    """The host modules around the engine, on the main shape's cells (seed
+    7, n x d, B batches, K = 100 by default): the harmony-torch CLI on .npy
+    and .csv files (a run against run_harmony with the same arguments; a
+    checkpointed two-round run resumed for one round against three rounds
+    without early stop, 5e-4), the streamed copy overlapped and not
+    (Z_orig bit-equal and equal to the caller's cells, Z_corr equal, the
+    ingest's parts timed; the bf16 cast of the stream against the card's),
+    an abort from a thread after
+    round 1 of a checkpointing run (KeyboardInterrupt, then the checkpoint
+    resumes), a trace of one round (the cluster and correct spans),
+    run_bench at rotate, permute and rotate-virtual-bf16, and the bundled
+    cell_lines dataset through run_harmony. Returns the CLI's launches."""
+    import csv
+    import dataclasses
+    import glob
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from harmony_tpu_torch import (AbortFlag, bench, cli, datasets, engine, harmony_options,
+                                   run_harmony)
+    from harmony_tpu_torch.config import finalize_engine_config
+    from harmony_tpu_torch.runtime import AsyncIngest, engine_cast, trace
+
+    t_phase = time.perf_counter()
+    Zs, bs = synthetic(torch, n, d, B, 7, dev)
+    Zh = Zs.cpu().numpy()
+    del Zs
+    batches = np.array([f"b{x}" for x in bs.cpu().numpy()])
+    tmp_ctx = tempfile.TemporaryDirectory()
+    tmp = tmp_ctx.name
+    emb, meta_csv = os.path.join(tmp, "emb.npy"), os.path.join(tmp, "meta.csv")
+    np.save(emb, Zh)
+    with open(meta_csv, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["batch"])
+        w.writerows([[b] for b in batches])
+    meta = cli._load_meta(meta_csv)
+    log(f"host: {n} x {d} cells (seed 7, {B} batches) written as .npy and .csv in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+    def cli_run(out, *extra):
+        return cli.main(["run", "--embeddings", emb, "--meta", meta_csv, "--vars", "batch",
+                         "--out", os.path.join(tmp, out), *extra])
+
+    # -- the CLI: a run, a checkpointed run and its resume --------------------
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    require(cli_run("full.npy", "--max-iter", "3") == 0, "harmony-torch run failed")
+    ck = os.path.join(tmp, "ck.npz")
+    require(cli_run("part.npy", "--max-iter", "2", "--checkpoint", ck) == 0,
+            "harmony-torch run --checkpoint failed")
+    with np.load(ck) as z:
+        rounds_at_save = int(z["n_rounds"])
+    require(cli_run("resumed.npy", "--max-iter", "1", "--checkpoint", ck) == 0,
+            "harmony-torch resume failed")
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"  CLI: run (3 rounds), run with --checkpoint (2 rounds), resume (1 round): "
+        f"{time.perf_counter() - t0:.2f} s; launches {launches}")
+    for k in ("K6", "K7", "K9"):
+        require(launches[k] > 0, f"host: {k} was not launched by the CLI runs")
+    require(rounds_at_save == 2, f"host: the checkpoint holds {rounds_at_save} rounds, not 2")
+    lib = run_harmony(Zh, meta, ["batch"], max_iter=3, seed=0, options=harmony_options())
+    cli_out = np.load(os.path.join(tmp, "full.npy"))
+    diff = float(np.abs(cli_out - lib).max())
+    log(f"  CLI against run_harmony with the same arguments: max |diff| {diff:.3e} (<= 1e-6)")
+    require(diff <= 1e-6, f"host: CLI output differs from run_harmony by {diff}")
+    straight = run_harmony(Zh, meta, ["batch"], max_iter=3, seed=0, early_stop=False,
+                           return_object=True)
+    resumed = np.load(os.path.join(tmp, "resumed.npy"))
+    diff = float(np.abs(resumed - straight.embeddings).max())
+    log(f"  resumed (2 + 1 rounds) against 3 rounds without early stop: max |diff| "
+        f"{diff:.3e} (<= 5e-4); the uninterrupted CLI run against it "
+        f"{float(np.abs(cli_out - straight.embeddings).max()):.3e}")
+    require(diff <= 5e-4, f"host: resumed output differs from the uninterrupted run by {diff}")
+    require(np.isfinite(resumed).all() and resumed.shape == (n, d), "host: resumed output")
+
+    # -- the copy overlapped (True) and not (False), against the host path -------
+    seen = {}
+    for mode in (False, True, False, True):
+        _reset_peak(torch)
+        t0 = time.perf_counter()
+        res = run_harmony(Zh, meta, ["batch"], max_iter=3, seed=0, return_object=True,
+                          stream_ingest=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ph = res.phase_seconds()
+        log(f"  stream_ingest={mode}: wall {wall:.3f} s, peak {_peak_mib(torch):.1f} MiB; "
+            f"ingest {_ingest_split(ph)}")
+        seen[mode] = (res.state.Z_orig.cpu(), res.Z_corr)
+        # the plain host path: the caller's cells, in their order, unpadded
+        require(np.array_equal(res.Z_orig, Zh.T) and not res.state.Z_orig[:, n:].any(),
+                f"host: stream_ingest={mode}: Z_orig is not the caller's cells")
+        del res  # the next run's peak is its own
+    (z_host, c_host), (z_streamed, c_streamed) = seen[False], seen[True]
+    require(torch.equal(z_host, z_streamed),
+            "host: overlapped Z_orig is not bit-equal to the unoverlapped one")
+    zc = float(np.abs(c_streamed - c_host).max())
+    log(f"  overlapped against not: Z_orig bit-equal, and equal to the caller's cells "
+        f"undone from the ingest order; Z_corr max |diff| {zc:.3e} (0 required)")
+    require(zc == 0.0, f"host: overlapped Z_corr differs by {zc}")
+    del seen, z_host, z_streamed, c_host, c_streamed
+    # the bf16 cast on the host (stream) against the one on the card, float64
+    # and float32 inputs
+    cfg = finalize_engine_config(dataclasses.replace(straight.config, dtype="bfloat16"))
+    for src in (Zh.T.astype(np.float64), Zh.T):
+        st = AsyncIngest(np.ascontiguousarray(src), cfg, dev, chunk_bytes=16 << 20)
+        out = st.result()[:, :n]
+        on_card = engine_cast(torch.as_tensor(src, device=dev), torch.bfloat16)
+        require(torch.equal(out.view(torch.int16), on_card.view(torch.int16)),
+                f"host: the streamed bf16 cast of {src.dtype} differs from the card's")
+        log(f"  bf16 from {src.dtype}: streamed ({st.n_chunks} chunks) bit-equal to the "
+            "card's cast")
+    del straight
+
+    # -- abort from a thread after round 1 of a checkpointing run -----------------
+    flag, round_done = AbortFlag(), threading.Event()
+    setter = threading.Thread(target=lambda: (round_done.wait(60), flag.set()))
+    setter.start()
+    correct = engine.correct
+
+    def signalling(cfg, state, layout=None):
+        out = correct(cfg, state, layout)
+        if out.n_rounds == 1:
+            round_done.set()
+            setter.join(60)
+        return out
+
+    ck_abort = os.path.join(tmp, "abort.npz")
+    engine.correct = signalling
+    try:
+        run_harmony(Zh, meta, ["batch"], max_iter=MAX_ITER, seed=0, early_stop=False,
+                    abort=flag, checkpoint_path=ck_abort)
+        aborted = False
+    except KeyboardInterrupt:
+        aborted = True
+    finally:
+        engine.correct = correct
+    require(aborted and not setter.is_alive(), "host: the abort flag did not stop the run")
+    with np.load(ck_abort) as z:
+        at = int(z["n_rounds"])
+    require(cli.main(["run", "--embeddings", emb, "--meta", meta_csv, "--vars", "batch",
+                      "--out", os.path.join(tmp, "after_abort.npy"), "--max-iter", "1",
+                      "--checkpoint", ck_abort]) == 0, "host: resume after the abort failed")
+    after = np.load(os.path.join(tmp, "after_abort.npy"))
+    require(np.isfinite(after).all(), "host: the resume after the abort is not finite")
+    log(f"  abort: KeyboardInterrupt after round {at}; the checkpoint resumed for one round "
+        "(finite)")
+
+    # -- a trace of one round -------------------------------------------------------
+    tdir = os.path.join(OUT_DIR, "trace_host")
+    for f in glob.glob(os.path.join(tdir, "*.json")):
+        os.remove(f)
+    with trace(tdir):
+        run_harmony(Zh, meta, ["batch"], max_iter=1, seed=0)
+    files = glob.glob(os.path.join(tdir, "*.json"))
+    require(len(files) == 1, f"host: {len(files)} trace files")
+    text = open(files[0]).read()
+    for name in ("cluster", "correct"):
+        require(f'"name": "{name}"' in text, f"host: the trace has no {name} span")
+    log(f"  trace of one rotate round: {files[0]} ({os.path.getsize(files[0]) / 2**20:.1f} MiB) "
+        "holds the cluster and correct spans")
+    del Zh
+    tmp_ctx.cleanup()
+
+    # -- run_bench at the three cells ---------------------------------------------
+    for mode, dtype in (("rotate", None), ("permute", None), ("rotate", "bfloat16")):
+        _reset_peak(torch)
+        payload = bench.run_bench(n_cells=n, d=d, n_batches=B, nclust=100, max_iter=4,
+                                  shuffle_mode=mode, dtype=dtype, device=dev)
+        log(f"  bench {mode} {dtype or 'float32'}: {json.dumps(payload)}; peak "
+            f"{_peak_mib(torch):.1f} MiB")
+        require(payload["platform"] == ("gpu" if dev.type == "cuda" else dev.type)
+                and payload["value"] > 0, f"host: bench payload {payload}")
+
+    # -- a bundled dataset -----------------------------------------------------------
+    ds = datasets.cell_lines()
+    res = run_harmony(ds.scaled_pcs, ds.meta_data, ["dataset"], seed=0, return_object=True,
+                      device=dev)
+    codes = np.unique(ds.meta_data["dataset"], return_inverse=True)[1]
+
+    def centroid_distances(Z):
+        """(mean, max) pairwise distance of the datasets' centroids of the
+        L2-normalised cells (N, d); the max is the verify skill's figure."""
+        Z = Z / np.linalg.norm(Z, axis=1, keepdims=True)
+        c = np.stack([Z[codes == b].mean(0) for b in range(codes.max() + 1)])
+        D = np.linalg.norm(c[:, None] - c[None], axis=-1)
+        return D.sum() / (len(c) * (len(c) - 1)), D.max()
+
+    (m0, x0), (m1, x1) = centroid_distances(ds.scaled_pcs), centroid_distances(res.embeddings)
+    log(f"  cell_lines ({ds.n_cells} cells, {codes.max() + 1} datasets): "
+        f"{int(res.state.n_rounds)} iterations; dataset-centroid distance mean {m0:.4f} -> "
+        f"{m1:.4f}, max {x0:.4f} -> {x1:.4f}")
+    require(np.isfinite(res.embeddings).all() and m1 < m0 and x1 < x0,
+            "host: cell_lines separation did not shrink")
+    log(f"host phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2149,6 +2424,14 @@ def main(argv=None) -> int:
 
     if "bf16" in phases:
         check_bf16_routes(torch, dev, wrappers)
+
+    # ---- 15. the host modules: CLI, checkpoint, stream, abort, trace, bench -
+    if "host" in phases:
+        launches = check_host(torch, dev, wrappers)
+        for k in ("K6", "K7", "K9"):
+            by_path = kernels[k].setdefault("launches_by_path", {})
+            by_path["host_cli"] = launches[k]
+            kernels[k]["launches"] = sum(by_path.values())
 
     for k in kernels.values():
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

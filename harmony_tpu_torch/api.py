@@ -3,8 +3,9 @@
 Counterpart of ``harmony_tpu/api.py`` (``RunHarmony.default``,
 R/ui.R:91-309), with the same signature plus ``device``. ``device=None``
 means the card; without one the call raises instead of carrying on on the
-CPU. Arguments that select a path not ported yet raise
-``NotImplementedError`` naming the ROADMAP item; nothing is rerouted.
+CPU. Arguments that select a path not ported yet (``mesh``, the float16
+engine) raise ``NotImplementedError`` naming the ROADMAP item; nothing is
+rerouted.
 ``shuffle_mode='auto'`` at 100k cells and up runs the rotate schedule;
 ``shuffle_mode='permute'`` at 200k cells and up the fused permute phase.
 The M-step takes the layout the JAX package takes
@@ -39,7 +40,7 @@ from .preprocess import (
     resolve_config,
 )
 from .ops.tiled import build_batch_tiled_order, choose_tiled_tile, count_joint_levels
-from .runtime import PhaseTimers, resolve_device
+from .runtime import AsyncIngest, PhaseTimers, resolve_device
 from .state import HarmonyState, host_numpy, init_state
 
 # Below this many cells 'auto' keeps the reference-exact 'permute' schedule.
@@ -81,28 +82,44 @@ def _resolve_shuffle_mode(
     return "rotate"
 
 
-def _ingest_order(cfg: HarmonyConfig, Z: np.ndarray, design: DesignMatrix, seed: int,
-                  pinned: bool = False):
-    """Reorder the cells once at ingest (harmony_tpu/api.py:479-525), for
-    the rotate schedule and for the fused permute phase unless the caller
-    ``pinned`` the order (``init_Y``): the batch-tiled order where the
-    mixture gate allows it; else rotate takes a plain random permutation
-    and permute keeps the caller's order (it draws a fresh permutation
-    every round anyway). Returns (Z, design, ingest_inv), the inverse
-    permutation None where nothing moved."""
+def ingest_perm(cfg: HarmonyConfig, design: DesignMatrix, seed: int, pinned: bool = False):
+    """The order the cells are reordered into once at ingest
+    (harmony_tpu/api.py:479-525), for the rotate schedule and for the fused
+    permute phase unless the caller ``pinned`` the order (``init_Y``): the
+    batch-tiled order where the mixture gate allows it; else rotate takes a
+    plain random permutation and permute keeps the caller's order (it draws
+    a fresh permutation every round anyway). Returns (perm or None, the
+    batch-tiled tile width or 0); the pair is deterministic in (codes,
+    seed), so a resume rebuilds it from a checkpoint's provenance."""
     if not (cfg.shuffle_mode == "rotate" or (cfg.permute_fused and not pinned)):
-        return Z, design, None
+        return None, 0
     tiled_t = None
     if cfg.mstep_mode in ("auto", "tiled"):
         tiled_t = choose_tiled_tile(cfg, count_joint_levels(design.codes))
-    if tiled_t:
-        perm, _ = build_batch_tiled_order(design.codes, tiled_t, seed)
-    elif cfg.shuffle_mode == "rotate":
-        perm = np.random.default_rng(seed).permutation(cfg.N)
-    else:
+    return order_from_recipe(design, cfg.shuffle_mode, seed, tiled_t or 0), int(tiled_t or 0)
+
+
+def order_from_recipe(design: DesignMatrix, shuffle_mode: str, seed: int, tiled_tile: int):
+    """The ingest order a run with this recipe took (None: none): the
+    batch-tiled order of ``tiled_tile`` cells, else a plain permutation
+    from ``seed`` on the rotate schedule."""
+    if tiled_tile:
+        return build_batch_tiled_order(design.codes, tiled_tile, seed)[0]
+    if shuffle_mode == "rotate":
+        return np.random.default_rng(seed).permutation(design.n_cells)
+    return None
+
+
+def apply_ingest_order(design: DesignMatrix, perm: Optional[np.ndarray], Z=None):
+    """The ingest order ``perm`` (None: none) applied on the host to the
+    design and, where given, the (d, N) array ``Z``. Returns (``Z`` in
+    ingest order or None, design, the inverse permutation or None). The
+    embedding a run uploads is reordered on the device instead
+    (:meth:`runtime.AsyncIngest.result`)."""
+    if perm is None:
         return Z, design, None
-    return (Z[:, perm], dataclasses.replace(design, codes=design.codes[:, perm]),
-            np.argsort(perm))
+    design = dataclasses.replace(design, codes=design.codes[:, perm])
+    return None if Z is None else Z[:, perm], design, np.argsort(perm)
 
 
 @dataclasses.dataclass
@@ -341,27 +358,59 @@ def run_harmony(
     are not whole 64-cell pieces (a user-set ``mstep_tile`` and
     ``estep_sub_tile``) raises ``NotImplementedError``.
 
+    The embedding goes to the card in engine-dtype column chunks, cast on
+    the host, from a background thread (:class:`runtime.AsyncIngest`); the
+    ingest order is then applied on the card. ``stream_ingest``: 'auto'
+    (the default) and True overlap the copy with the ingest order and the
+    M-step layout; False finishes the copy first. The state is the same bit
+    for bit either way. The result's ``phase_seconds()`` splits the ingest:
+    ``ingest_orient``, ``ingest_order``, ``ingest_stream`` (the wait for
+    the copy) and ``ingest`` around the state's construction.
+
+    ``abort`` (a :class:`runtime.AbortFlag`) is polled between rounds; a set
+    flag raises ``KeyboardInterrupt``. ``checkpoint_path`` writes a minimal
+    checkpoint (:mod:`checkpoint`) every ``checkpoint_every`` rounds, with
+    the ingest order's recipe as its provenance, so ``harmony-torch run``
+    resumes it; a diverged run raises :class:`runtime.DivergenceError`
+    without replacing the last good checkpoint. ``plot_convergence`` draws
+    :func:`plot.convergence_plot` (matplotlib) after the run. An
+    AnnData-like ``data_mat`` (with ``obsm`` and ``obs``) goes to
+    :func:`adapters.run_harmony_anndata` with ``meta_data`` (or
+    ``vars_use``) naming the covariates.
+
     Returns (N, d) corrected embeddings, or a :class:`HarmonyResult` when
     ``return_object=True``.
     """
     if hasattr(data_mat, "obsm") and hasattr(data_mat, "obs"):
-        raise _not_ported("the AnnData adapter", "ROADMAP A10")
+        # an AnnData-like first argument routes to the adapter, meta_data
+        # naming the covariates (the UseMethod analog, R/RunHarmony.R:27-29)
+        from .adapters import run_harmony_anndata
+
+        group_by = vars_use if vars_use is not None else meta_data
+        if isinstance(group_by, str):
+            group_by = [group_by]
+        return run_harmony_anndata(
+            data_mat, group_by, theta=theta, sigma=sigma, lamb=lamb, nclust=nclust,
+            max_iter=max_iter, early_stop=early_stop, plot_convergence=plot_convergence,
+            verbose=verbose, seed=seed, options=options, dtype=dtype,
+            matmul_precision=matmul_precision, ridge_solver=ridge_solver, init_Y=init_Y,
+            mesh=mesh, shuffle_mode=shuffle_mode, estep_impl=estep_impl,
+            mstep_impl=mstep_impl, virtual_r=virtual_r, abort=abort,
+            checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+            stream_ingest=stream_ingest, device=device, **legacy,
+        )
     check_legacy_args(**legacy)
     if mesh is not None:
         raise _not_ported("mesh (multi-device runs)", "ROADMAP A11")
-    if checkpoint_path is not None:
-        raise _not_ported("checkpoint_path", "ROADMAP A10")
-    if stream_ingest not in ("auto", False):
-        raise _not_ported("stream_ingest", "ROADMAP A10")
-    if plot_convergence:
-        raise _not_ported("plot_convergence", "ROADMAP A10")
     dev = resolve_device(device)
     if options is None:
         options = harmony_options()
+    timers = PhaseTimers(dev)
 
-    design = build_design(meta_data, vars_use)
-    N = design.n_cells
-    Z = orient_embedding(data_mat, N, verbose=verbose)
+    with timers.scope("ingest_orient"):
+        design = build_design(meta_data, vars_use)
+        N = design.n_cells
+        Z = orient_embedding(data_mat, N, verbose=verbose)
     d = Z.shape[0]
     if verbose:
         from .driver import _ensure_verbose_handler
@@ -381,8 +430,6 @@ def run_harmony(
         cfg, estep_impl=estep_impl, mstep_impl=mstep_impl, virtual_r=virtual_r
     )
     cfg = finalize_engine_config(cfg)
-    Z, design, ingest_inv = _ingest_order(cfg, Z, design, seed, init_Y is not None)
-    layout = mstep_layout(cfg, design.codes, dev)
     hp = expand_hyperparams(
         design, cfg.K, theta, sigma, lamb, options.tau, verbose=verbose
     )
@@ -392,14 +439,38 @@ def run_harmony(
             init_Y = init_Y.T
         if init_Y.shape != (cfg.d, cfg.K):
             raise ValueError(f"init_Y must be (d, K)={cfg.d, cfg.K}")
-
-    timers = PhaseTimers(dev)
+    # the upload starts now and overlaps the ingest order and the M-step
+    # layout; the order is then applied on the device
+    with AsyncIngest(Z, cfg, dev) as stream:
+        if not stream_ingest:
+            with timers.scope("ingest_stream"):
+                stream.join()
+        with timers.scope("ingest_order"):
+            perm, tiled_t = ingest_perm(cfg, design, seed, init_Y is not None)
+            _, design, ingest_inv = apply_ingest_order(design, perm)
+        layout = mstep_layout(cfg, design.codes, dev)
+        with timers.scope("ingest_stream"):
+            stream.join()
+        with timers.scope("ingest_order"):
+            Z = stream.result(perm)
+    ckpt_meta = {"shuffle_mode": cfg.shuffle_mode, "seed": seed, "tiled_tile": tiled_t,
+                 "mesh_size": 0}
     with timers.scope("ingest"):
-        state = init_state(cfg, Z, design, hp.sigma, hp.theta, hp.lamb, seed, dev)
-    state = _run(cfg, state, verbose=verbose, Y0=init_Y, abort=abort,
-                 timers=timers, layout=layout)
+        state = init_state(cfg, Z, design, hp.sigma, hp.theta, hp.lamb, seed, dev, timers)
+    del Z
+    state = _run(cfg, state, verbose=verbose, Y0=init_Y, abort=abort, timers=timers,
+                 layout=layout, checkpoint_path=checkpoint_path,
+                 checkpoint_every=checkpoint_every, checkpoint_meta=ckpt_meta)
     result = HarmonyResult(config=cfg, state=state, design=design, timers=timers,
                            ingest_inv=ingest_inv)
+    if plot_convergence:
+        # the reference's plot_convergence hook (R/ui.R:285)
+        import matplotlib.pyplot as plt
+
+        from .plot import convergence_plot
+
+        convergence_plot(result)
+        plt.show()
     if return_object:
         return result
     return result.embeddings

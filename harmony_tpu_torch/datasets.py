@@ -1,0 +1,148 @@
+"""Bundled reference datasets, as ``harmony_tpu/datasets.py`` loads them:
+``cell_lines`` and ``cell_lines_small`` (metadata and 20 scaled PCs), and
+``pbmc_ctrl``/``pbmc_stim`` (gene-count sparse matrices, Kang et al. 2017,
+from the Seurat vignette), with ``pbmc_dataset`` reproducing the vignette's
+preprocessing in NumPy.
+
+The files are read in place, in this order: the ``path=`` argument, else
+the directory in ``HARMONY_TPU_DATA``, then the vendored
+``harmony_tpu/data/*.npz`` of this checkout (read by path; nothing of the
+JAX package is imported). Where no ``.npz`` is found the cell lines fall
+back to a deterministic synthetic set with the same schema. The
+reference's ``.rda``/``.RData`` files, which the JAX package also reads
+(``harmony_tpu/rdata.py``), are not read here: the checkout vendors every
+dataset as ``.npz``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Optional
+
+import numpy as np
+
+
+VENDORED = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "harmony_tpu", "data")
+
+
+@dataclasses.dataclass
+class CellDataset:
+    """Embedding and metadata, the shape ``run_harmony`` consumes."""
+
+    scaled_pcs: np.ndarray  # (N, d) float64
+    meta_data: Dict[str, np.ndarray]
+    name: str
+
+    @property
+    def n_cells(self) -> int:
+        return self.scaled_pcs.shape[0]
+
+
+def _find(fname: str, path: Optional[str]) -> Optional[str]:
+    candidates = [path] if path else [p for p in (os.environ.get("HARMONY_TPU_DATA", ""),
+                                                  VENDORED) if p]
+    for base in candidates:
+        full = os.path.join(base, fname)
+        if os.path.exists(full):
+            return full
+    return None
+
+
+@dataclasses.dataclass
+class SparseMatrix:
+    """A CSC sparse matrix (genes x cells), the fields of a Matrix-package
+    dgCMatrix as ``harmony_tpu.rdata.RSparseMatrix`` holds them."""
+
+    data: np.ndarray  # x
+    indices: np.ndarray  # i (row indices)
+    indptr: np.ndarray  # p (column pointers)
+    shape: tuple
+    dimnames: Optional[list] = None
+
+    def toarray(self) -> np.ndarray:
+        out = np.zeros(self.shape, dtype=self.data.dtype)
+        for c in range(self.shape[1]):
+            sl = slice(self.indptr[c], self.indptr[c + 1])
+            out[self.indices[sl], c] = self.data[sl]
+        return out
+
+
+def _load_cell_lines(key: str, path: Optional[str]) -> CellDataset:
+    npz = _find(f"{key}.npz", path)
+    if npz is None:
+        return _synthetic_cell_lines(key)
+    with np.load(npz, allow_pickle=False) as z:
+        meta = {k[len("meta_"):]: z[k] for k in z.files if k.startswith("meta_")}
+        return CellDataset(scaled_pcs=z["scaled_pcs"], meta_data=meta, name=key)
+
+
+def cell_lines(path: Optional[str] = None) -> CellDataset:
+    """Cell-line mixture (10x), 20 scaled PCs, covariates dataset/cell_type."""
+    return _load_cell_lines("cell_lines", path)
+
+
+def cell_lines_small(path: Optional[str] = None) -> CellDataset:
+    """300-cell subset of cell_lines."""
+    return _load_cell_lines("cell_lines_small", path)
+
+
+def pbmc_stim(path: Optional[str] = None):
+    """(pbmc_ctrl, pbmc_stim) gene-count CSC matrices (genes x cells), as
+    :class:`SparseMatrix`."""
+    out = []
+    for key in ("pbmc_ctrl", "pbmc_stim"):
+        npz = _find(f"{key}.npz", path)
+        if npz is None:
+            raise FileNotFoundError(f"{key}.npz not found; set HARMONY_TPU_DATA")
+        with np.load(npz, allow_pickle=False) as z:
+            out.append(SparseMatrix(
+                data=z["data"], indices=z["indices"], indptr=z["indptr"],
+                shape=tuple(z["shape"]),
+                dimnames=[z["genes"] if "genes" in z.files else None,
+                          z["cells"] if "cells" in z.files else None],
+            ))
+    return tuple(out)
+
+
+def pbmc_dataset(n_pcs: int = 20, path: Optional[str] = None) -> CellDataset:
+    """Stimulated-vs-control PBMC integration input, the Seurat vignette's
+    preprocessing in NumPy: concatenate ctrl and stim counts, library-size
+    log-normalise, keep the 1,000 most variable genes, scale them
+    (scaleData, src/utils.cpp:112-155), PCA to ``n_pcs``."""
+    from .scale import scale_data
+
+    ctrl, stim = pbmc_stim(path)
+    counts = np.concatenate([ctrl.toarray(), stim.toarray()], axis=1)
+    cond = np.array(["ctrl"] * ctrl.shape[1] + ["stim"] * stim.shape[1])
+    libsize = counts.sum(axis=0, keepdims=True)
+    norm = np.log1p(counts / np.where(libsize == 0, 1, libsize) * 1e4)
+    top = np.argsort(norm.var(axis=1))[::-1][:1000]
+    scaled = scale_data(norm[top], margin=1, thresh=10.0)
+    Xc = scaled - scaled.mean(axis=1, keepdims=True)
+    _, S, Vt = np.linalg.svd(Xc, full_matrices=False)
+    pcs = Vt[:n_pcs].T * S[:n_pcs]  # (N, n_pcs)
+    # unit-variance PCs, as the quickstart's scaled_pcs
+    pcs = pcs / pcs.std(axis=0, keepdims=True) / np.sqrt(pcs.shape[0])
+    return CellDataset(scaled_pcs=pcs, meta_data={"stim": cond}, name="pbmc_stim")
+
+
+def _synthetic_cell_lines(name: str) -> CellDataset:
+    """Schema-compatible synthetic fallback (deterministic)."""
+    n = 300 if name == "cell_lines_small" else 2370
+    rng = np.random.default_rng(0)
+    types = rng.integers(0, 3, n)
+    datasets = rng.integers(0, 2, n)
+    d = 20
+    Z = (
+        (rng.normal(size=(3, d)) * 3.0)[types]
+        + (rng.normal(size=(2, d)) * 1.5)[datasets]
+        + rng.normal(size=(n, d)) * 0.5
+    ) / 50.0
+    return CellDataset(
+        scaled_pcs=Z,
+        meta_data={"dataset": np.array([f"d{x}" for x in datasets]),
+                   "cell_type": np.array([f"t{x}" for x in types])},
+        name=name + "_synthetic",
+    )

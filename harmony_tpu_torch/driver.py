@@ -6,7 +6,6 @@ round (the convergence flag); everything else stays on the device.
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import time
 from typing import Optional, Sequence
@@ -15,7 +14,7 @@ import numpy as np
 
 from . import engine
 from .config import HarmonyConfig
-from .runtime import DivergenceError
+from .runtime import DivergenceError, span
 from .state import HarmonyState
 
 logger = logging.getLogger("harmony_tpu_torch")
@@ -43,7 +42,8 @@ def _check_finite(state: HarmonyState) -> None:
 
 
 def _scope(timers, name: str):
-    return contextlib.nullcontext() if timers is None else timers.scope(name)
+    """The timer scope ``name``, or without timers its profiler span."""
+    return span(name) if timers is None else timers.scope(name)
 
 
 def harmonize(
@@ -56,6 +56,9 @@ def harmonize(
     timers=None,
     schedules: Optional[Sequence] = None,
     layout: Optional[engine.MStepLayout] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 1,
+    checkpoint_meta: Optional[dict] = None,
 ) -> HarmonyState:
     """Run up to ``max_iter`` rounds of (cluster, correct), with early stop.
 
@@ -64,10 +67,17 @@ def harmonize(
     injects, per round, the max_iter_cluster (rotation, block order)
     pairs of the rotate schedule. ``layout`` is the run's M-step layout
     (``engine.mstep_layout``; None: dense). ``abort`` is any
-    object with an ``aborted()`` method, polled between rounds. A
+    object with an ``aborted()`` method (``runtime.AbortFlag``), polled
+    before every round; a set flag raises ``KeyboardInterrupt``. A
     virtual-R run materialises its R once after the loop, in the
     ``materialize_r`` timer scope (harmony_tpu/driver.py:149-153, 231-234).
-    """
+
+    ``checkpoint_path`` writes a minimal checkpoint (``checkpoint.py``, with
+    ``checkpoint_meta`` as its provenance) every ``checkpoint_every``
+    completed rounds, in the ``checkpoint`` timer scope, after the
+    divergence check, so a diverged state never replaces the last good
+    checkpoint; it needs no R, so a virtual-R run materialises nothing for
+    it."""
     if max_iter is None:
         max_iter = cfg.max_iter_harmony
     if max_iter > cfg.max_iter_harmony:
@@ -92,6 +102,12 @@ def harmonize(
         converged = engine.harmony_converged(cfg, state)
         dt = time.perf_counter() - t0
         _check_finite(state)
+        if checkpoint_path and (it + 1) % checkpoint_every == 0:
+            from .checkpoint import save_checkpoint
+
+            with _scope(timers, "checkpoint"):
+                save_checkpoint(checkpoint_path, cfg, state, mode="minimal",
+                                meta=checkpoint_meta)
         if verbose:
             obj = float(state.objective_harmony[state.n_harmony - 1])
             logger.info(
@@ -117,6 +133,9 @@ def run(
     timers=None,
     schedules: Optional[Sequence] = None,
     layout: Optional[engine.MStepLayout] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 1,
+    checkpoint_meta: Optional[dict] = None,
 ) -> HarmonyState:
     """init_cluster (or the injected centroids ``Y0``) + harmonize."""
     with _scope(timers, "init_cluster"):
@@ -125,4 +144,6 @@ def run(
         else:
             state = engine.init_cluster(cfg, state)
     return harmonize(cfg, state, verbose=verbose, perms=perms, abort=abort,
-                     timers=timers, schedules=schedules, layout=layout)
+                     timers=timers, schedules=schedules, layout=layout,
+                     checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+                     checkpoint_meta=checkpoint_meta)

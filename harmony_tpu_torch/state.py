@@ -14,7 +14,9 @@ The JAX state carries a PRNG key; here the randomness comes from a
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -23,6 +25,7 @@ import torch
 from .config import HarmonyConfig
 from .ops.normalize import l2_normalize_columns
 from .preprocess import DesignMatrix
+from .runtime import AsyncIngest, engine_cast
 
 _F32 = torch.float32
 
@@ -35,6 +38,9 @@ ARRAY_FIELDS = (
     "objective_harmony", "n_harmony", "kmeans_rounds", "n_rounds", "key",
 )
 _CURSORS = ("n_kmeans", "n_harmony", "n_rounds")
+# The torch generator's state (not a JAX state field: the JAX state's key
+# advances with every draw, a torch.Generator keeps its position inside).
+GENERATOR_FIELD = "torch_generator"
 # The virtual-R context (harmony_tpu/state.py:78-88): None unless the run
 # takes virtual R.
 VIRTUAL_FIELDS = ("virt_pen", "virt_blkmap", "virt_Zn", "virt_Y")
@@ -117,6 +123,10 @@ class HarmonyState:
         }
 
 
+def _scope(timers, name: str):
+    return contextlib.nullcontext() if timers is None else timers.scope(name)
+
+
 def _generator(seed: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
@@ -125,31 +135,40 @@ def _generator(seed: int, device) -> torch.Generator:
 
 def init_state(
     cfg: HarmonyConfig,
-    Z: np.ndarray,
+    Z,
     design: DesignMatrix,
     sigma: np.ndarray,
     theta: np.ndarray,
     lamb: np.ndarray,
     seed: int,
     device,
+    timers=None,
 ) -> HarmonyState:
     """Build the initial state (``harmony::setup``, src/harmony.cpp:29-111):
     casts to the engine dtype, L2-normalises ``Z_corr`` columns
     (src/harmony.cpp:42) and computes the batch statistics. Clustering state
     stays zero until ``engine.init_cluster``. The cell axis is padded to
-    ``cfg.Np`` with inert zero cells of code 0, as the JAX state is."""
+    ``cfg.Np`` with inert zero cells of code 0, as the JAX state is.
+
+    ``Z`` is the (d, Np) device tensor of :meth:`runtime.AsyncIngest.result`,
+    padded and in the engine dtype, or the (d, N) host array in engine
+    order, which goes to the device through the same
+    :class:`runtime.AsyncIngest`. ``timers`` (a ``runtime.PhaseTimers``)
+    times the scope ``ingest_normalize``."""
     dev = torch.device(device)
     dtype = getattr(torch, cfg.dtype)
-    Z = np.asarray(Z)
     codes = design.codes.astype(np.int32)
     pad = cfg.Np - cfg.N
     if pad:
-        Z = np.concatenate([Z, np.zeros((Z.shape[0], pad), Z.dtype)], axis=1)
         codes = np.concatenate([codes, np.zeros((codes.shape[0], pad), np.int32)], axis=1)
-    # cell-contiguous rows, as the kernels read them: an embedding reordered
-    # at ingest arrives column-major
-    Z_orig = torch.as_tensor(np.ascontiguousarray(Z), device=dev).to(dtype)
-    Z_corr = l2_normalize_columns(Z_orig)
+    if not isinstance(Z, torch.Tensor):
+        Z = AsyncIngest(Z, cfg, dev).result()
+    if Z.shape[1] != cfg.Np or Z.dtype != dtype or Z.device.type != dev.type:
+        raise ValueError(f"a device Z must be ({cfg.d}, {cfg.Np}) {dtype} on {dev}, got "
+                         f"{tuple(Z.shape)} {Z.dtype} on {Z.device}")
+    Z_orig = Z
+    with _scope(timers, "ingest_normalize"):
+        Z_corr = l2_normalize_columns(Z_orig)
     batch_sizes = design.batch_sizes().astype(np.float64)
     Pr_b = batch_sizes / cfg.N
     t = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(dtype)
@@ -182,11 +201,18 @@ def init_state(
     )
 
 
+def is_bf16_bits(a: np.ndarray) -> bool:
+    """Does ``a`` hold bf16 values as 16-bit patterns: ml_dtypes' bfloat16,
+    which numpy cannot convert, or the raw ``'V2'`` an ``.npz`` stores it
+    as?"""
+    return a.dtype.itemsize == 2 and (a.dtype.name == "bfloat16" or a.dtype.kind == "V")
+
+
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    """A tensor of the array's values; a bf16 array (ml_dtypes' bfloat16,
-    which numpy cannot convert) is read as its 16-bit patterns, so no bit
-    changes and ml_dtypes is not needed."""
-    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+    """A tensor of the array's values; a bf16 array (:func:`is_bf16_bits`)
+    is read as its 16-bit patterns, so no bit changes and ml_dtypes is not
+    needed."""
+    if is_bf16_bits(a):
         bits = np.ascontiguousarray(a).view(np.int16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
     return torch.as_tensor(np.array(a), device=device)
@@ -205,7 +231,9 @@ def state_from_arrays(
     """Build a state from numpy arrays named as the JAX state's fields, so a
     test can hand a ``harmony_tpu`` state (padded or not) straight to the
     port. ``key`` (the
-    JAX ``[0, seed]`` key data) seeds the generator; it may be omitted. The
+    JAX ``[0, seed]`` key data) seeds the generator; it may be omitted.
+    ``GENERATOR_FIELD``, where present, sets the generator's state
+    (:func:`set_generator_state`), so the port's draws continue. The
     virtual-R fields are carried where present and not None. Floating
     fields the engine stores in its dtype (``ENGINE_DTYPE_FIELDS``) are
     cast to ``cfg.dtype``: exact for the float32 arrays of
@@ -224,17 +252,38 @@ def state_from_arrays(
             kw[f] = int(a)
             continue
         t = _tensor(a, dev)
-        kw[f] = t.to(dtype) if f in ENGINE_DTYPE_FIELDS and t.is_floating_point() else t
+        kw[f] = (engine_cast(t, dtype) if f in ENGINE_DTYPE_FIELDS and t.is_floating_point()
+                 else t)
     key = np.asarray(arrays.get("key", np.zeros(2, np.uint32))).astype(np.uint64)
     seed = int(key.reshape(-1)[-1]) | (int(key.reshape(-1)[0]) << 32)
-    return HarmonyState(**kw, seed=seed, generator=_generator(seed, dev))
+    gen = _generator(seed, dev)
+    if arrays.get(GENERATOR_FIELD) is not None:
+        set_generator_state(gen, arrays[GENERATOR_FIELD])
+    return HarmonyState(**kw, seed=seed, generator=gen)
 
 
-def state_to_arrays(state: HarmonyState) -> Dict[str, np.ndarray]:
+def set_generator_state(gen: torch.Generator, state: np.ndarray) -> None:
+    """Continue ``gen`` from a saved ``get_state()``. A state saved from a
+    generator of another device type (the card's Philox against the CPU's
+    Mersenne Twister) cannot continue there; the generator keeps its seed
+    and a warning says so."""
+    state = torch.as_tensor(np.asarray(state, dtype=np.uint8))
+    if state.numel() != gen.get_state().numel():
+        warnings.warn(
+            f"the saved generator state ({state.numel()} bytes) is not one of a "
+            f"{gen.device.type} generator; the resumed draws start from the seed instead",
+            stacklevel=3)
+        return
+    gen.set_state(state)
+
+
+def state_to_arrays(state: HarmonyState, with_generator: bool = False) -> Dict[str, np.ndarray]:
     """Every JAX state field as numpy (cursors as 0-d int32 arrays), the
     virtual-R fields only where set; bf16 fields as float32 arrays holding
-    their values."""
-    out = {}
+    their values. ``with_generator`` adds ``GENERATOR_FIELD``, the torch
+    generator's state (``get_state()``), so a state built from these arrays
+    continues the port's draws where this one stands."""
+    out = {GENERATOR_FIELD: state.generator.get_state().numpy()} if with_generator else {}
     for f in ARRAY_FIELDS:
         if f == "key":
             out[f] = np.array(

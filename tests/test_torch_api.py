@@ -85,20 +85,45 @@ def test_run_harmony_matches_between_kernel_and_torch_impls_on_cpu():
         # the one the case had while it raised)
         pytest.param({"shuffle_mode": "rotate"}, "cell", id="kwargs0-ROADMAP A9"),
         ({"mesh": "auto"}, "ROADMAP A11"),
-        ({"checkpoint_path": "x.npz"}, "ROADMAP A10"),
-        ({"stream_ingest": True}, "ROADMAP A10"),
+        # ported: checkpoints, streamed ingest and the convergence plot run
+        # (the ids are the ones the cases had while they raised)
+        pytest.param({"checkpoint_path": "x.npz"}, "checkpoint", id="kwargs2-ROADMAP A10"),
+        pytest.param({"stream_ingest": True}, "stream", id="kwargs3-ROADMAP A10"),
         ({"virtual_r": True}, None),
         # ported: the bf16 engine and the bf16 precision permission resolve
         # (the ids are the ones the cases had while they raised)
         pytest.param({"dtype": "bfloat16"}, "bf16",
                      id="kwargs5-ROADMAP A9, reduced-precision engines"),
         pytest.param({"matmul_precision": "bfloat16"}, "bf16", id="kwargs6-ROADMAP A9"),
-        ({"plot_convergence": True}, "ROADMAP A10"),
+        pytest.param({"plot_convergence": True}, "plot", id="kwargs7-ROADMAP A10"),
         ({"dtype": "float16"}, "ROADMAP A9, float16 engines"),
     ],
 )
-def test_unported_paths_raise(kwargs, item):
+def test_unported_paths_raise(kwargs, item, tmp_path, monkeypatch):
     Z, meta = make_synthetic(None, n_cells=60, d=4, seed=5)
+    if item == "checkpoint":
+        path = str(tmp_path / kwargs["checkpoint_path"])
+        res = run_harmony(Z, meta, ["dataset"], device="cpu", return_object=True,
+                          checkpoint_path=path)
+        with np.load(path) as z:
+            assert int(z["n_harmony"]) == res.state.n_harmony
+        return
+    if item == "stream":
+        res = run_harmony(Z, meta, ["dataset"], device="cpu", return_object=True, **kwargs)
+        assert "ingest_stream" in res.phase_seconds() and np.isfinite(res.embeddings).all()
+        return
+    if item == "plot":
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        shown = []
+        monkeypatch.setattr(plt, "show", lambda: shown.append(plt.gcf()))
+        run_harmony(Z, meta, ["dataset"], device="cpu", **kwargs)
+        assert len(shown) == 1 and len(shown[0].axes[0].collections) > 0
+        plt.close("all")
+        return
     if item == "bf16":
         res = run_harmony(Z, meta, ["dataset"], device="cpu", return_object=True, **kwargs)
         assert res.config.matmul_precision == "bfloat16"
@@ -153,11 +178,15 @@ def test_auto_shuffle_mode_at_scale_is_rotate_and_not_ported():
 
 
 def test_anndata_like_input_raises():
+    """Ported: an AnnData-like object goes to the adapter, which raises, as
+    the JAX package's does, when the object has no PCA embedding."""
     class FakeAnnData:
         obsm, obs = {}, {}
 
-    with pytest.raises(NotImplementedError, match="AnnData"):
+    with pytest.raises(HarmonyConfigError, match="X_pca cell embeddings not found in AnnData"):
         run_harmony(FakeAnnData(), "batch", device="cpu")
+    with pytest.raises(harmony_tpu.HarmonyConfigError, match="X_pca cell embeddings not found"):
+        harmony_tpu.run_harmony(FakeAnnData(), "batch")
 
 
 def test_config_errors_match_the_jax_api():
