@@ -130,6 +130,23 @@ Phases (``--phases`` picks a subset, comma-separated):
              run_bench at rotate, permute and rotate-virtual-bf16 (payload
              and peak memory); cell_lines() through run_harmony (the
              batch-centroid separation shrinks).
+16. mesh     the cells sharded over torch.distributed ranks, each a process
+             of harmony_tpu_torch.multihost_worker loading the kernels this
+             process built (check_mesh): K6-K11 on the shards of 2 gloo
+             ranks against the plain route at 20,000 cells (injected
+             centroids and schedules; rotate R written, virtual R, the
+             unfused M-step, the permute phase; the traj bounds), and at
+             500,000 cells for rotate, virtual R and permute; then
+             run_harmony(mesh=) on 500,000 x 50 cells on 2 gloo ranks of
+             the one card, nothing cut: mesh_main (K6, K7, K9), mesh_virtual
+             (K6, K7, K10, K11) and mesh_permute (the plain sharded phase,
+             K8, K9), each held to one device's run on the same cells (final
+             objective within 5%, separation shrinking, R's columns within
+             1e-4 of 1, the ranks' traces equal), with seconds an iteration
+             (run_bench on both), all-reduces an iteration and their bytes,
+             and each rank's peak memory; then mesh_main on a 1-rank NCCL
+             group against one device (objective rtol 1e-5). A rank that
+             fails fails the phase. Launches are summed over the ranks.
 
 It prints a JSON line of the kernels' numbers, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Any failed check exits 1.
@@ -148,7 +165,7 @@ import sys
 import time
 
 PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
-          "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16", "host")
+          "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16", "host", "mesh")
 # phases run only when named in --phases: the bf16 engine at BASELINE's shape
 OPT_IN_PHASES = ("bf16_10m",)
 # BASELINE's north-star shape (BASELINE.json): 10M cells x 50, 100 batches,
@@ -161,6 +178,16 @@ LEGACY_PATHS = ("legacy", "legacy_virtual")
 # the segment phase: (path, cells, schedule its default resolves to)
 SEGMENT_PATHS = (("segment", 200_000, "rotate"), ("segment_permute", 80_000, "permute"))
 B_SEGMENT = 40
+# the mesh phase: two gloo ranks on the one card (NCCL takes one rank a
+# device); the full-width paths and the worker options that select them
+MESH_RANKS = 2
+MESH_PATHS = (("mesh_main", ("--shuffle", "rotate")),
+              ("mesh_virtual", ("--shuffle", "rotate", "--virtual")),
+              ("mesh_permute", ("--shuffle", "permute")))
+# seconds a spawned rank may take (each call of a rank set)
+MESH_RANK_TIMEOUT = 300.0
+# pairs of run_bench's timed rounds on each mesh path and its one-device run
+MESH_BENCH_PAIRS = 3
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 outside the
 # tensor cores. The bound of a function is the larger of its bytes over the
@@ -2059,8 +2086,8 @@ def check_host(torch, dev, wrappers, n=N_MAIN, d=D_MAIN, B=B_MAIN):
     setter.start()
     correct = engine.correct
 
-    def signalling(cfg, state, layout=None):
-        out = correct(cfg, state, layout)
+    def signalling(cfg, state, layout=None, mesh=None):
+        out = correct(cfg, state, layout, mesh)
         if out.n_rounds == 1:
             round_done.set()
             setter.join(60)
@@ -2134,6 +2161,214 @@ def check_host(torch, dev, wrappers, n=N_MAIN, d=D_MAIN, B=B_MAIN):
     require(np.isfinite(res.embeddings).all() and m1 < m0 and x1 < x0,
             "host: cell_lines separation did not shrink")
     log(f"host phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def mesh_ranks(n, extra, what):
+    """``n`` ranks of ``python -m harmony_tpu_torch.multihost_worker`` with
+    the arguments ``extra``, each within MESH_RANK_TIMEOUT (all killed on
+    expiry); any rank that fails fails the phase. Returns each rank's JSON
+    line."""
+    from harmony_tpu_torch.multihost_worker import json_line, spawn
+
+    t0 = time.perf_counter()
+    res = spawn(n, list(extra), MESH_RANK_TIMEOUT, cwd=os.getcwd())
+    for r, (rc, so, se) in enumerate(res):
+        if rc != 0:
+            log(f"  {what} rank {r} stderr tail:\n{se[-4000:]}")
+        require(rc == 0, f"{what}: rank {r} of {n} exited with {rc}")
+    lines = [json_line(so) for _, so, _ in res]
+    log(f"  {what}: {n} rank(s) done in {time.perf_counter() - t0:.1f} s wall")
+    return lines
+
+
+def check_inject(lines, Zc, mode, size, need, never):
+    """The injected runs of one mode on the ranks (multihost_worker
+    --inject): the kernel route launched ``need`` and none of ``never`` on
+    every rank, the plain route no kernel, and the kernel route held to the
+    plain one (and virtual R to its materialised run) at the traj bounds;
+    the ranks' traces equal."""
+    import numpy as np
+
+    for r, ln in enumerate(lines):
+        kl = ln[f"{mode}/kernel"]["launches"]
+        require(all(kl[k] > 0 for k in need) and all(kl[k] == 0 for k in never),
+                f"mesh {mode} {size} kernel route, rank {r}: launches {kl}")
+        require(not any(ln[f"{mode}/torch"]["launches"].values()),
+                f"mesh {mode} {size} plain route launched kernels on rank {r}")
+        require(ln[f"{mode}/kernel"]["tiled"], f"mesh {mode} {size}: no batch-tiled layout")
+        require(ln[f"{mode}/kernel"]["virtual"] == (mode == "virtual"),
+                f"mesh {mode} {size}: virtual R engaged={ln[f'{mode}/kernel']['virtual']}")
+    pairs = [("kernel", "torch", 1e-4, 1e-4)]
+    if mode == "virtual" and f"{mode}/materialised" in lines[0]:
+        pairs.append(("kernel", "materialised", 1e-5, 2e-4))
+    for a, b, obj_rtol, z_atol in pairs:
+        ta = np.asarray(lines[0][f"{mode}/{a}"]["objective_kmeans"])
+        tb = np.asarray(lines[0][f"{mode}/{b}"]["objective_kmeans"])
+        obj_rel = float(np.max(np.abs(ta - tb) / np.abs(tb)))
+        z_err = float(np.max(np.abs(Zc[f"{mode}__{a}"] - Zc[f"{mode}__{b}"])))
+        log(f"  mesh {mode} {size}, {a} against {b}: objective rel {obj_rel:.3e} (rtol "
+            f"{obj_rtol}), max|dZ_corr| {z_err:.3e} (atol {z_atol}); rank-0 launches "
+            f"{ {k: v for k, v in lines[0][f'{mode}/{a}']['launches'].items() if v} }; "
+            f"{lines[0][f'{mode}/{a}']['seconds']:.2f} s and "
+            f"{lines[0][f'{mode}/{b}']['seconds']:.2f} s")
+        require(obj_rel <= obj_rtol,
+                f"mesh {mode} {size}: {a} and {b} objectives differ: {obj_rel}")
+        require(z_err <= z_atol, f"mesh {mode} {size}: {a} and {b} Z_corr differ: {z_err}")
+        require(lines[0][f"{mode}/{a}"]["kmeans_rounds"]
+                == lines[0][f"{mode}/{b}"]["kmeans_rounds"],
+                f"mesh {mode} {size}: kmeans rounds differ")
+    for ln in lines[1:]:
+        require(ln[f"{mode}/kernel"]["objective_kmeans"]
+                == lines[0][f"{mode}/kernel"]["objective_kmeans"],
+                f"mesh {mode} {size}: the ranks' traces differ")
+
+
+def check_mesh(torch, dev):
+    """The mesh phase: cells sharded over torch.distributed ranks, one
+    process a rank (harmony_tpu_torch.multihost_worker), the kernels built
+    by the parent before (phase 2), so the ranks load them.
+
+    1. K6-K11 on shards against their plain versions: 20,000 x 50 cells,
+       K = 100, B = 10, on 2 gloo ranks, injected centroids and each
+       shard's schedules (or the global permutations), the kernel route
+       against the plain route on the same shards: the rotate route with R
+       written (K6, K7, K9), with virtual R (K6, K7, K10, K11; also against
+       its materialised run at the JAX package's 1e-5), the unfused M-step
+       (max_iter_cluster = 6: K8, K9) and the permute phase (the plain
+       sharded phase, K8, K9); objective rtol 1e-4, Z_corr atol 1e-4. Then
+       the same at 500,000 cells (250,000 a shard, 3 iterations) for the
+       rotate route, virtual R and the permute phase, kernel against plain.
+    2. The full width, nothing cut: 500,000 x 50, K = 100, B = 10 (seed 0,
+       bench.make_synthetic_cells), run_harmony(mesh=) on 2 gloo ranks on
+       the one card: mesh_main (rotate), mesh_virtual, mesh_permute; each
+       held to run_harmony on one device on the same cells (final objective
+       within 5%), separation shrinking, R's columns summing to 1 within
+       1e-4, the ranks' traces equal bit for bit; logged: seconds an
+       iteration beside the one-device run's (the runs' phase timers, and
+       bench.run_bench on the same cells, CUDA events, median of
+       MESH_BENCH_PAIRS pairs, warm-up excluded), the all-reduces an
+       iteration and their bytes, each rank's peak memory.
+    3. mesh_main on a 1-rank NCCL group against the one-device run, the
+       objective trace at rtol 1e-5 (the delta merge O + (O' - O) rounds
+       otherwise than O').
+    Returns {path: launches summed over the ranks}."""
+    import tempfile
+
+    import numpy as np
+
+    from harmony_tpu_torch import run_harmony
+    from harmony_tpu_torch.bench import make_synthetic_cells, run_bench
+    from harmony_tpu_torch.multihost_worker import separation
+
+    log(f"mesh: {MESH_RANKS} gloo ranks on {torch.cuda.get_device_name(0)} (one process a "
+        "rank, each its own CUDA context); the kernels were built by this process")
+    # 1. the kernels on shards against their plain versions: every mode at
+    # 20k cells, then the three mesh paths' routes at the full width, where
+    # each shard holds 250k cells (the injected runs' Z_corr pass through a
+    # temporary directory)
+    need = {"rotate": ("K6", "K7", "K9"), "virtual": ("K6", "K7", "K10", "K11"),
+            "rotate_rounds": ("K6", "K7", "K8", "K9"), "permute": ("K8", "K9")}
+    never = {"rotate": ("K8", "K10", "K11", "K12"), "virtual": ("K8", "K9", "K12"),
+             "rotate_rounds": ("K10", "K11", "K12"),
+             "permute": ("K1", "K2", "K3", "K6", "K7", "K10", "K11", "K12")}
+    for cells, modes, variants, iters in (
+            (20_000, tuple(need), "kernel,torch,materialised", 5),
+            (N_MAIN, ("rotate", "virtual", "permute"), "kernel,torch", 3)):
+        size = f"{cells // 1000}k"
+        with tempfile.TemporaryDirectory() as tmp:
+            npz = os.path.join(tmp, "mesh_inject.npz")
+            lines = mesh_ranks(MESH_RANKS, [
+                "--backend", "gloo", "--cells", str(cells), "--dims", str(D_MAIN), "--batches",
+                str(B_MAIN), "--nclust", str(K_MAIN), "--max-iter", str(iters), "--inject",
+                ",".join(modes), "--variants", variants, "--out", npz],
+                f"K6-K11 on shards, {size}")
+            with np.load(npz) as z:
+                Zc = {k: z[k] for k in z.files}
+        for mode in modes:
+            check_inject(lines, Zc, mode, size, need[mode], never[mode])
+        del Zc
+
+    # 2. the full width against one device on the same cells
+    Z, batches = make_synthetic_cells(N_MAIN, D_MAIN, B_MAIN, seed=0)
+    meta = {"dataset": batches.astype(str)}
+    sep0 = separation(Z, batches)
+    single = {}
+    for phase, opts in MESH_PATHS:
+        kw = {"shuffle_mode": opts[1], "virtual_r": True if "--virtual" in opts else None}
+        _reset_peak(torch)
+        res = run_harmony(Z, meta, ["dataset"], nclust=K_MAIN, max_iter=MAX_ITER, seed=0,
+                          return_object=True, **kw)
+        ph, n_it = res.phase_seconds(), int(res.state.n_rounds)
+        single[phase] = dict(trace=res.objective_harmony.tolist(), n_iter=n_it,
+                             per_it=(ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / n_it,
+                             peak=_peak_mib(torch))
+        del res
+        os.environ["HARMONY_BENCH_PAIRS"] = str(MESH_BENCH_PAIRS)
+        single[phase]["bench"] = run_bench(
+            n_cells=N_MAIN, d=D_MAIN, n_batches=B_MAIN, nclust=K_MAIN, seed=0,
+            shuffle_mode=opts[1], virtual_r=kw["virtual_r"])["seconds_per_iter"]
+        torch.cuda.empty_cache()
+    launches = {}
+    common = ["--cells", str(N_MAIN), "--dims", str(D_MAIN), "--batches", str(B_MAIN),
+              "--nclust", str(K_MAIN), "--max-iter", str(MAX_ITER)]
+    for phase, opts in MESH_PATHS:
+        lines = mesh_ranks(MESH_RANKS, ["--backend", "gloo", *common, *opts, "--bench-pairs",
+                                        str(MESH_BENCH_PAIRS)], phase)
+        first, ref = lines[0], single[phase]
+        for ln in lines[1:]:
+            require(ln["objective_harmony"] == first["objective_harmony"],
+                    f"{phase}: the ranks' objective traces differ")
+        launches[phase] = {k: sum(ln["launches"][k] for ln in lines) for k in first["launches"]}
+        obj, obj1 = first["objective_harmony"][-1], ref["trace"][-1]
+        rel = abs(obj - obj1) / abs(obj1)
+        n_it = first["n_iter"]
+        coll = first["collectives"]
+        cfg = first["config"]
+        log(f"{phase}: run_harmony(mesh=) {N_MAIN} x {D_MAIN}, K={cfg['K']}, B={B_MAIN} on "
+            f"{MESH_RANKS} gloo ranks (T={cfg['T']}, Np={cfg['Np']}, route {cfg['route']}, "
+            f"fused permute {cfg['permute_fused']}, virtual R {cfg['virtual']}): {n_it} "
+            f"iterations; final objective {obj:.4f} against one device's {obj1:.4f} "
+            f"({ref['n_iter']} iterations), rel {rel:.3e} (bound 0.05)")
+        log(f"  seconds per iteration, run_bench (CUDA events, median of {MESH_BENCH_PAIRS} "
+            f"pairs): {first['bench']['seconds_per_iter']:.4f} (rank 0; rank 1 "
+            f"{lines[1]['bench']['seconds_per_iter']:.4f}) against one device's "
+            f"{ref['bench']:.4f}; the run's phase timers {first['seconds_per_iter']:.4f} "
+            f"against {ref['per_it']:.4f} (warm-up included); "
+            f"all-reduces an iteration {coll['all_reduce'] / n_it:.1f}, "
+            f"{coll['all_reduce_bytes'] / n_it / 1e3:.1f} kB a rank (one all-reduce of 16 kB: "
+            f"{first['allreduce_16k_ms']:.3f} ms); all-gathers over the run "
+            f"{coll['all_gather']} ({coll['all_gather_bytes'] / 2**20:.1f} MiB a rank), "
+            f"broadcasts {coll['broadcast']}")
+        log(f"  peak device memory by rank {[round(ln['peak_mib'], 1) for ln in lines]} MiB "
+            f"(one device: {ref['peak']:.1f} MiB); separation {sep0:.4f} -> "
+            f"{first['separation_out']:.4f}; R column sums within "
+            f"{first['r_colsum_err']:.2e} of 1; launches (summed over ranks) "
+            f"{ {k: v for k, v in launches[phase].items() if v} }")
+        log(f"  phase seconds (rank 0): "
+            + json.dumps({k: round(v, 4) for k, v in first["phase_seconds"].items()}))
+        require(first["finite"] and first["shape"] == [N_MAIN, D_MAIN],
+                f"{phase}: embeddings not finite or of the wrong shape")
+        require(rel <= 0.05, f"{phase}: final objective {obj} is not within 5% of {obj1}")
+        require(first["separation_out"] < sep0, f"{phase}: separation did not shrink")
+        require(first["r_colsum_err"] <= 1e-4,
+                f"{phase}: R column sums off by {first['r_colsum_err']}")
+        require(cfg["virtual"] == (phase == "mesh_virtual")
+                and cfg["permute_fused"] == (phase == "mesh_permute"),
+                f"{phase}: resolved {cfg}")
+
+    # 3. one NCCL rank against one device
+    (ln,) = mesh_ranks(1, ["--backend", "nccl", *common, "--shuffle", "rotate"],
+                       "mesh_main, 1 NCCL rank")
+    a, b = np.asarray(ln["objective_harmony"]), np.asarray(single["mesh_main"]["trace"])
+    require(len(a) == len(b), f"1-rank NCCL run took {len(a) - 1} iterations, one device "
+            f"{len(b) - 1}")
+    rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    log(f"mesh_main on 1 NCCL rank against one device: objective rel {rel:.3e} (rtol 1e-5) "
+        f"over {len(a)} entries; {ln['seconds_per_iter']:.4f} s an iteration, all-reduces "
+        f"{ln['collectives']['all_reduce'] / ln['n_iter']:.1f} an iteration (one all-reduce of "
+        f"16 kB: {ln['allreduce_16k_ms']:.3f} ms)")
+    require(rel <= 1e-5, f"1-rank NCCL run differs from one device: {rel}")
     return launches
 
 
@@ -2219,7 +2454,14 @@ def main(argv=None) -> int:
              "segment": (("K6", "K7"), ("K4", "K5", "K8", "K9", "K10", "K11")),
              "segment_permute": (("K1",), ("K2", "K3", "K4", "K5", "K8", "K9")),
              "bf16": (BF16_FORMS, ("K1", "K2", "K3", "K8", "K9", "K12")),
-             "bf16_10m": (BF16_FORMS, ("K1", "K2", "K3", "K8", "K9", "K12"))}
+             "bf16_10m": (BF16_FORMS, ("K1", "K2", "K3", "K8", "K9", "K12")),
+             # the mesh paths, launches summed over the ranks
+             "mesh_main": (("K6", "K7", "K9"),
+                           ("K1", "K2", "K3", "K4", "K5", "K8", "K10", "K11", "K12")),
+             "mesh_virtual": (("K6", "K7", "K10", "K11"),
+                              ("K1", "K2", "K3", "K4", "K5", "K8", "K9", "K12")),
+             "mesh_permute": (("K8", "K9"), ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10",
+                                              "K11", "K12"))}
     t_start = time.perf_counter()
 
     # ---- 1. env ----------------------------------------------------------
@@ -2432,6 +2674,18 @@ def main(argv=None) -> int:
             by_path = kernels[k].setdefault("launches_by_path", {})
             by_path["host_cli"] = launches[k]
             kernels[k]["launches"] = sum(by_path.values())
+
+    # ---- 16. the mesh: cells sharded over torch.distributed ranks --------
+    if "mesh" in phases:
+        for phase, launches in check_mesh(torch, dev).items():
+            need, never = paths[phase]
+            for k in need:
+                by_path = kernels[k].setdefault("launches_by_path", {})
+                by_path[phase] = launches[k]
+                kernels[k]["launches"] = sum(by_path.values())
+                require(launches[k] > 0, f"{k} was not launched on the {phase} path")
+            for k in never:
+                require(launches[k] == 0, f"{k} was launched on the {phase} path")
 
     for k in kernels.values():
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -8,8 +8,9 @@ the ``harmony-torch`` command) run on the card unless given
 ``device="cpu"``. Around the engine: checkpoint and resume
 (:mod:`.checkpoint`), streamed ingest, abort and tracing (:mod:`.runtime`),
 the bundled datasets (:mod:`.datasets`), ``scale_data`` with its native
-helper, and a convergence plot. This package imports neither JAX nor
-``harmony_tpu``.
+helper, and a convergence plot. Runs on several devices shard the cells
+over ``torch.distributed`` ranks (:mod:`.sharding`, ``run_harmony(mesh=)``).
+This package imports neither JAX nor ``harmony_tpu``.
 """
 
 from .api import HarmonyResult, run_harmony

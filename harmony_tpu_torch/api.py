@@ -3,9 +3,10 @@
 Counterpart of ``harmony_tpu/api.py`` (``RunHarmony.default``,
 R/ui.R:91-309), with the same signature plus ``device``. ``device=None``
 means the card; without one the call raises instead of carrying on on the
-CPU. Arguments that select a path not ported yet (``mesh``, the float16
-engine) raise ``NotImplementedError`` naming the ROADMAP item; nothing is
-rerouted.
+CPU. Arguments that select a path not ported yet (the float16 engine, the
+mesh routes of ROADMAP A11's part 2) raise ``NotImplementedError`` naming
+the ROADMAP item; nothing is rerouted. ``mesh`` runs the cells sharded over
+``torch.distributed`` ranks (:mod:`.sharding`), one process a device.
 ``shuffle_mode='auto'`` at 100k cells and up runs the rotate schedule;
 ``shuffle_mode='permute'`` at 200k cells and up the fused permute phase.
 The M-step takes the layout the JAX package takes
@@ -25,13 +26,13 @@ import numpy as np
 from .config import (
     HarmonyConfig,
     HarmonyOptions,
-    _not_ported,
     check_legacy_args,
     finalize_engine_config,
     harmony_options,
 )
+from . import sharding
 from .driver import run as _run
-from .engine import mstep_layout
+from .engine import check_mesh_route, mstep_layout
 from .preprocess import (
     DesignMatrix,
     build_design,
@@ -95,7 +96,9 @@ def ingest_perm(cfg: HarmonyConfig, design: DesignMatrix, seed: int, pinned: boo
         return None, 0
     tiled_t = None
     if cfg.mstep_mode in ("auto", "tiled"):
-        tiled_t = choose_tiled_tile(cfg, count_joint_levels(design.codes))
+        # on a mesh the mixture gate applies to each shard's cells
+        # (harmony_tpu/api.py:499-502)
+        tiled_t = choose_tiled_tile(cfg, count_joint_levels(design.codes), cfg.n_shards)
     return order_from_recipe(design, cfg.shuffle_mode, seed, tiled_t or 0), int(tiled_t or 0)
 
 
@@ -137,6 +140,10 @@ class HarmonyResult:
     design: DesignMatrix
     timers: Optional[PhaseTimers] = None
     ingest_inv: Optional[np.ndarray] = None
+    # the run's sharding.CellMesh (None: one device): the state holds this
+    # rank's columns, and the cell arrays gather every rank's, so each rank
+    # reads them in the same order (collectives)
+    mesh: Optional[object] = None
 
     def phase_seconds(self) -> dict:
         return self.timers.as_dict() if self.timers is not None else {}
@@ -164,7 +171,10 @@ class HarmonyResult:
         return host_numpy(X)
 
     def _cells(self, X) -> np.ndarray:
-        """Drop the pad cells and undo the ingest order on the cell axis."""
+        """Drop the pad cells and undo the ingest order on the cell axis; on
+        a mesh every rank's columns first (a collective)."""
+        if self.mesh is not None:
+            X = sharding.gather_cells(X, self.mesh)
         X = self._host(X[:, : self.config.N])
         return X if self.ingest_inv is None else X[:, self.ingest_inv]
 
@@ -209,10 +219,12 @@ class HarmonyResult:
         from .ops.ridge import moe_correct_ridge
 
         s = self.state
-        layout = mstep_layout(self.config, self._host(s.codes), s.device)
+        codes = s.codes if self.mesh is None else sharding.gather_cells(s.codes, self.mesh)
+        layout = mstep_layout(self.config, self._host(codes), s.device)
         _, _, W = moe_correct_ridge(
             self.config, s.Z_orig, s.R, s.O, s.E, s.codes, s.batch_sizes,
             s.lamb, s.Y, tiled=layout.tiled, segments=layout.segments, cells=layout.cells,
+            mesh=self.mesh,
         )
         return self._host(W)
 
@@ -269,6 +281,22 @@ class HarmonyResult:
     @property
     def kmeans_rounds(self) -> np.ndarray:
         return self._traces()["kmeans_rounds"]
+
+
+def resolve_mesh(mesh, device=None):
+    """The ``mesh`` argument of :func:`run_harmony` as a
+    ``sharding.CellMesh`` or None: ``"auto"`` is every rank of the
+    initialised default group (None when it has one process or none, as
+    harmony_tpu/api.py:426-429 does), on ``device`` or this rank's card."""
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be None, 'auto' or a sharding.CellMesh, got {mesh!r}")
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return None
+        return sharding.make_mesh(device)
+    return mesh
 
 
 def run_harmony(
@@ -360,12 +388,30 @@ def run_harmony(
 
     The embedding goes to the card in engine-dtype column chunks, cast on
     the host, from a background thread (:class:`runtime.AsyncIngest`); the
-    ingest order is then applied on the card. ``stream_ingest``: 'auto'
-    (the default) and True overlap the copy with the ingest order and the
-    M-step layout; False finishes the copy first. The state is the same bit
-    for bit either way. The result's ``phase_seconds()`` splits the ingest:
+    ingest order is then applied on the card (on a mesh each rank copies
+    its columns of the order). ``stream_ingest``: 'auto' (the default) and
+    True overlap the copy with the ingest order and the M-step layout;
+    False finishes the copy first (on a mesh, where the copy needs the
+    order, right after it). The state is the same bit for bit either way. The result's ``phase_seconds()`` splits the ingest:
     ``ingest_orient``, ``ingest_order``, ``ingest_stream`` (the wait for
     the copy) and ``ingest`` around the state's construction.
+
+    ``mesh``: None (one device), ``"auto"`` (every rank of the initialised
+    default ``torch.distributed`` group, on this rank's card, or on
+    ``device`` where given; None when the group has one process or none,
+    as the JAX package takes ``"auto"``) or a :class:`sharding.CellMesh`
+    (``sharding.initialize_distributed``, then ``sharding.make_mesh``). Every
+    rank calls ``run_harmony`` with the same arguments and the whole data;
+    each streams and holds only its own cells (the cell axis padded to the
+    mesh, ``sharding.pad_for_mesh``), runs the kernels on them and
+    all-reduces the statistics, and the result's cell arrays gather every
+    rank's cells in the caller's order (collectives: read them on every
+    rank). On a mesh the stats-carrying rotate route (R written or
+    virtual) and the fused permute phase run, each with the batch-tiled
+    M-step; the other routes raise ``NotImplementedError`` naming ROADMAP
+    A11 (``engine.check_mesh_route``). The backend is the caller's:
+    NCCL for one rank a card, gloo for several ranks on one card or on the
+    CPU.
 
     ``abort`` (a :class:`runtime.AbortFlag`) is polled between rounds; a set
     flag raises ``KeyboardInterrupt``. ``checkpoint_path`` writes a minimal
@@ -400,9 +446,8 @@ def run_harmony(
             stream_ingest=stream_ingest, device=device, **legacy,
         )
     check_legacy_args(**legacy)
-    if mesh is not None:
-        raise _not_ported("mesh (multi-device runs)", "ROADMAP A11")
-    dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     if options is None:
         options = harmony_options()
     timers = PhaseTimers(dev)
@@ -426,10 +471,12 @@ def run_harmony(
         lambda_estimation=lamb is None, dtype=dtype, ridge_solver=ridge_solver,
         shuffle_mode=shuffle_mode, matmul_precision=matmul_precision,
     )
+    if mesh is not None:
+        cfg = sharding.pad_for_mesh(cfg, mesh)
     cfg = dataclasses.replace(
         cfg, estep_impl=estep_impl, mstep_impl=mstep_impl, virtual_r=virtual_r
     )
-    cfg = finalize_engine_config(cfg)
+    cfg = finalize_engine_config(cfg, mesh)
     hp = expand_hyperparams(
         design, cfg.K, theta, sigma, lamb, options.tau, verbose=verbose
     )
@@ -439,30 +486,31 @@ def run_harmony(
             init_Y = init_Y.T
         if init_Y.shape != (cfg.d, cfg.K):
             raise ValueError(f"init_Y must be (d, K)={cfg.d, cfg.K}")
-    # the upload starts now and overlaps the ingest order and the M-step
-    # layout; the order is then applied on the device
-    with AsyncIngest(Z, cfg, dev) as stream:
-        if not stream_ingest:
-            with timers.scope("ingest_stream"):
-                stream.join()
+    # the copy starts now (on a mesh each rank's at the order, of its own
+    # columns of it) and overlaps the ingest order and the M-step layout
+    with AsyncIngest(Z, cfg, dev, mesh=mesh, overlap=bool(stream_ingest)) as stream:
         with timers.scope("ingest_order"):
             perm, tiled_t = ingest_perm(cfg, design, seed, init_Y is not None)
             _, design, ingest_inv = apply_ingest_order(design, perm)
+            stream.order(perm)
         layout = mstep_layout(cfg, design.codes, dev)
+        if mesh is not None:
+            check_mesh_route(cfg, layout.tiled)
         with timers.scope("ingest_stream"):
             stream.join()
         with timers.scope("ingest_order"):
-            Z = stream.result(perm)
+            Z = stream.result()
     ckpt_meta = {"shuffle_mode": cfg.shuffle_mode, "seed": seed, "tiled_tile": tiled_t,
-                 "mesh_size": 0}
+                 "mesh_size": 0 if mesh is None else mesh.size}
     with timers.scope("ingest"):
-        state = init_state(cfg, Z, design, hp.sigma, hp.theta, hp.lamb, seed, dev, timers)
+        state = init_state(cfg, Z, design, hp.sigma, hp.theta, hp.lamb, seed, dev, timers,
+                           mesh)
     del Z
     state = _run(cfg, state, verbose=verbose, Y0=init_Y, abort=abort, timers=timers,
                  layout=layout, checkpoint_path=checkpoint_path,
-                 checkpoint_every=checkpoint_every, checkpoint_meta=ckpt_meta)
+                 checkpoint_every=checkpoint_every, checkpoint_meta=ckpt_meta, mesh=mesh)
     result = HarmonyResult(config=cfg, state=state, design=design, timers=timers,
-                           ingest_inv=ingest_inv)
+                           ingest_inv=ingest_inv, mesh=mesh)
     if plot_convergence:
         # the reference's plot_convergence hook (R/ui.R:285)
         import matplotlib.pyplot as plt

@@ -8,7 +8,10 @@ kernels and makes their first launches; a pair is (2 rounds, 2 + max_iter
 rounds), and the per-iteration time is the median over pairs of their
 difference divided by max_iter, as in the JAX package. The run takes
 ``run_harmony``'s ingest order and M-step layout and its ridge solver
-('auto'), with lambda fixed at 1 and early stop off.
+('auto'), with lambda fixed at 1 and early stop off. On a mesh every rank
+runs it (the ranks of ``torch.distributed``'s default group) and times its
+own rounds, which the collectives keep in lockstep; the payload's value is
+per device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -87,9 +90,10 @@ def run_bench(
     baseline_cells_per_sec: Optional[float] = None,
     estep_impl: Optional[str] = None,
     mstep_mode: Optional[str] = None,
-    mesh: Optional[str] = None,
+    mesh=None,
     shuffle_mode: Optional[str] = None,
     dtype: Optional[str] = None,
+    virtual_r: Optional[bool] = None,
     budget_s: Optional[float] = None,
     progress_cb=None,
     device=None,
@@ -103,18 +107,34 @@ def run_bench(
     payload carries ``degraded``. ``progress_cb(payload)`` gets each
     preliminary payload (after the warm-up, a lower bound; after each
     pair). ``HARMONY_BENCH_PAIRS`` sets the pair count (default 5),
-    ``HARMONY_BENCH_VERBOSE`` prints progress to stderr. ``mesh`` raises
-    (ROADMAP A11)."""
-    from .api import apply_ingest_order, ingest_perm
-    from .config import _not_ported, finalize_engine_config, harmony_options
-    from .engine import harmony_round, init_cluster, mstep_layout
+    ``HARMONY_BENCH_VERBOSE`` prints progress to stderr. ``mesh``: None
+    (one device), ``"auto"`` (every rank of the initialised default group;
+    None for one process), an int (the mesh size, which must be the
+    group's world size; 1 still takes the sharded code path, so a 1-rank
+    and an N-rank run compare one program, harmony_tpu/bench.py:168-181)
+    or a ``sharding.CellMesh``. Every rank of a mesh calls it. ``virtual_r``
+    is the config's (None: by dtype), what ``HARMONY_BENCH_VIRTUAL`` sets in
+    the JAX bench."""
+    from . import sharding
+    from .api import apply_ingest_order, ingest_perm, resolve_mesh
+    from .config import finalize_engine_config, harmony_options
+    from .engine import check_mesh_route, harmony_round, init_cluster, mstep_layout
     from .preprocess import build_design, expand_hyperparams, orient_embedding, resolve_config
     from .runtime import AsyncIngest, resolve_device, synchronize
     from .state import init_state
 
-    if mesh is not None:
-        raise _not_ported("mesh (multi-device runs)", "ROADMAP A11")
-    dev = resolve_device(device)
+    if isinstance(mesh, int) and not isinstance(mesh, bool):
+        import torch.distributed as dist
+
+        world = dist.get_world_size() if dist.is_initialized() else 0
+        if mesh != world:
+            raise ValueError(f"mesh={mesh}: a mesh size must be the world size of the "
+                             f"initialised torch.distributed group ({world}); one rank a "
+                             "device (sharding.initialize_distributed)")
+        mesh = sharding.make_mesh(device)
+    else:
+        mesh = resolve_mesh(mesh, device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     t_start = time.perf_counter()
     verbose = os.environ.get("HARMONY_BENCH_VERBOSE", "") not in ("", "0")
 
@@ -141,28 +161,35 @@ def run_bench(
         shuffle_mode=shuffle_mode or "permute", dtype=dtype or "float32",
     )
     overrides = {"estep_impl": estep_impl or "auto"}
+    if virtual_r is not None:
+        overrides["virtual_r"] = virtual_r
     if mstep_mode:
         overrides["mstep_mode"] = mstep_mode
-    cfg = finalize_engine_config(dataclasses.replace(cfg, **overrides))
+    if mesh is not None:
+        cfg = sharding.pad_for_mesh(cfg, mesh)
+    cfg = finalize_engine_config(dataclasses.replace(cfg, **overrides), mesh)
     perm, _ = ingest_perm(cfg, design, seed)
     _, design, _ = apply_ingest_order(design, perm)
     layout = mstep_layout(cfg, design.codes, dev)
+    if mesh is not None:
+        check_mesh_route(cfg, layout.tiled)
     hp = expand_hyperparams(design, cfg.K, None, 0.1, 1.0, options.tau)
     note("building the state on the device")
-    Zt = AsyncIngest(Zt, cfg, dev).result(perm)
-    state = init_state(cfg, Zt, design, hp.sigma, hp.theta, hp.lamb, seed, dev)
-    state = init_cluster(cfg, state)
+    Zt = AsyncIngest(Zt, cfg, dev, mesh=mesh).result(perm)
+    state = init_state(cfg, Zt, design, hp.sigma, hp.theta, hp.lamb, seed, dev, mesh=mesh)
+    state = init_cluster(cfg, state, mesh=mesh)
     clock = _Clock(dev)
+    n_devices = 1 if mesh is None else mesh.size
 
     def rounds(st, k: int):
         for _ in range(k):
-            st = harmony_round(cfg, st, layout=layout)
+            st = harmony_round(cfg, st, layout=layout, mesh=mesh)
         return st
 
     def payload(per_iter: float, warm_s: float, pairs_done) -> dict:
         out = {
             "metric": "cells_per_sec_per_chip_per_harmony_iter",
-            "value": round(n_cells / per_iter, 1),
+            "value": round(n_cells / per_iter / n_devices, 1),
             "unit": "cells/s/chip",
             "n_cells": n_cells,
             "d": d,
@@ -170,7 +197,7 @@ def run_bench(
             "n_batches": n_batches if np.ndim(n_batches) == 0 else list(n_batches),
             "seconds_per_iter": round(per_iter, 4),
             "first_iter_with_compile_s": round(warm_s, 2),
-            "n_devices": 1,
+            "n_devices": n_devices,
             "platform": "gpu" if dev.type == "cuda" else dev.type,
             "estep_impl": cfg.estep_impl,
             "mstep": ("tiled" if layout.tiled is not None

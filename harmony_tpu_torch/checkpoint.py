@@ -22,9 +22,14 @@ The header's implementation knobs translate one to one: the port's
 'kernel' is the JAX 'pallas', its 'torch' the JAX 'xla'. The JAX-only
 ``donate`` and ``permute_sorted_blocks`` are written at their defaults and
 dropped on reading; the port's ``permute_fused`` is not written and
-resolves on reading as ``config.finalize_engine_config`` resolves it. The
-orbax variant of the JAX package (multi-host, sharded) goes with the
-multi-device port (ROADMAP A11, ``torch.distributed.checkpoint``).
+resolves on reading as ``config.finalize_engine_config`` resolves it, as
+``n_shards`` is, from the mesh a resume runs on.
+
+A mesh run writes the same file from the gathered state (the ranks' columns
+in rank order), rank 0 alone, with ``mesh_size`` in its provenance
+(harmony_tpu/api.py:453-455); a resume on a mesh takes each rank's columns
+of it again. The orbax variant of the JAX package (multi-host, sharded)
+has no counterpart yet (ROADMAP A11, part 2: ``torch.distributed.checkpoint``).
 """
 
 from __future__ import annotations
@@ -72,21 +77,27 @@ def normalize_checkpoint_path(path: str) -> str:
 def _header(cfg: HarmonyConfig) -> dict:
     """The config as the JAX package's ``HarmonyConfig`` fields."""
     d = dataclasses.asdict(cfg)
-    del d["permute_fused"]
+    del d["permute_fused"], d["n_shards"]
     for k in ("estep_impl", "mstep_impl"):
         d[k] = _IMPL_TO_JAX.get(d[k], d[k])
     d.update(_JAX_ONLY)
     return d
 
 
-def config_from_header(d: dict) -> HarmonyConfig:
-    """The port's resolved config from a header of either package."""
+def config_from_header(d: dict, mesh=None) -> HarmonyConfig:
+    """The port's resolved config from a header of either package, for one
+    device or for ``mesh`` (its cell axis padded to the mesh first)."""
     d = {k: v for k, v in d.items() if k not in _JAX_ONLY}
     d["B_vec"] = tuple(d["B_vec"])
     for k in ("estep_impl", "mstep_impl"):
         d[k] = _IMPL_FROM_JAX.get(d[k], d[k])
     d["permute_fused"] = None
-    return finalize_engine_config(HarmonyConfig(**d))
+    cfg = HarmonyConfig(**d)
+    if mesh is not None:
+        from .sharding import pad_for_mesh
+
+        cfg = pad_for_mesh(cfg, mesh)
+    return finalize_engine_config(cfg, mesh)
 
 
 def _field(t: torch.Tensor) -> np.ndarray:
@@ -100,7 +111,7 @@ def _field(t: torch.Tensor) -> np.ndarray:
 def save_checkpoint(
     path: str, cfg: HarmonyConfig, state: HarmonyState,
     mode: str = "minimal", meta: Optional[dict] = None,
-    compress: bool = False,
+    compress: bool = False, mesh=None,
 ) -> None:
     """Write ``state`` to ``path`` (``.npz`` appended if missing), replacing
     any earlier file atomically: a crash mid-write leaves the last good
@@ -108,13 +119,22 @@ def save_checkpoint(
     the ingest order's recipe {shuffle_mode, seed, tiled_tile}, from which a
     resume rebuilds the order (:func:`read_checkpoint_meta`). A full save of
     a virtual-R state materialises R first (``engine.materialize_r``, K11);
-    a minimal save needs no R and runs nothing on the card."""
+    a minimal save needs no R and runs nothing on the card. On a ``mesh``
+    every rank calls it: the cell fields are gathered from every rank and
+    rank 0 writes the file."""
     if mode not in ("minimal", "full"):
         raise ValueError("mode must be 'minimal' or 'full'")
     if mode == "full" and state.virt_pen is not None:
-        state = engine.materialize_r(cfg, state)
+        state = engine.materialize_r(cfg, state, mesh)
     path = normalize_checkpoint_path(path)
     fields = _MINIMAL_FIELDS + (_FULL_ONLY_FIELDS if mode == "full" else ())
+    if mesh is not None:
+        from .sharding import gather_cells
+
+        state = dataclasses.replace(state, **{f: gather_cells(getattr(state, f), mesh)
+                                              for f in _CELL_FIELDS if f in fields})
+        if mesh.rank != 0:
+            return
     arrays = {}
     for f in fields:
         if f == "key":
@@ -164,6 +184,7 @@ def load_checkpoint(
     design=None,
     extra_rounds: int = 10,
     device=None,
+    mesh=None,
 ) -> Tuple[HarmonyConfig, HarmonyState]:
     """Load a checkpoint of either package onto ``device`` (None: the card).
     A minimal checkpoint needs the original (d, N) embedding ``Z`` and the
@@ -176,10 +197,11 @@ def load_checkpoint(
     re-entry does (harmony_tpu/checkpoint.py:175-190), pad cells masked, and
     Z_corr is stored normalised; the virtual-R context and the fused moment
     table come back as None: the next step is ``cluster``, which makes them
-    again."""
-    dev = resolve_device(device)
+    again. On a ``mesh`` (every rank calls it, on the mesh's device) the
+    state holds this rank's columns of the file's global arrays."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     with np.load(normalize_checkpoint_path(path), allow_pickle=False) as z:
-        cfg = config_from_header(json.loads(bytes(z["__config__"]).decode()))
+        cfg = config_from_header(json.loads(bytes(z["__config__"]).decode()), mesh)
         mode = str(z["__mode__"])
         names = _MINIMAL_FIELDS + (_FULL_ONLY_FIELDS if mode == "full" else ())
         arrays = {f: z[f] for f in names}
@@ -205,11 +227,17 @@ def load_checkpoint(
             arrays[f] = _pad_cells(arrays[f], cfg.Np)
     if mode != "full":
         arrays["R"] = np.zeros((cfg.K, cfg.Np), np.float32)
-    state = state_from_arrays(cfg, arrays, dev)
+    state = state_from_arrays(cfg, arrays, dev, mesh)
     if mode != "full":
         Zc = l2_normalize_columns(state.Z_corr)
         R = ops.initial_assignments(ops.compute_distances(state.Y, Zc), state.sigma)
-        if cfg.Np != cfg.N:
-            R[:, cfg.N:] = 0
+        if mesh is None:
+            nv = cfg.N
+        else:
+            from .sharding import valid_cells
+
+            nv = valid_cells(cfg, mesh)
+        if R.shape[1] != nv:
+            R[:, nv:] = 0
         state = dataclasses.replace(state, Z_corr=Zc, R=R.to(state.Y.dtype))
     return cfg, state

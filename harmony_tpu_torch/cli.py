@@ -6,12 +6,19 @@ Usage:
         [--checkpoint run.npz] [--device cpu]
     harmony-torch bench [--cells 100000] [--dims 50] [--batches 10]
 
+Multi-device, one process a device under torchrun:
+    torchrun --nproc_per_node=N -m harmony_tpu_torch.cli run --mesh auto ...
+
 Counterpart of ``harmony_tpu/cli.py`` (``harmony-tpu``), with the same
 flags plus ``--device`` (default: the card; without one the command
-fails). The embeddings file may be ``.npy`` (cells x dims) or ``.csv``;
-metadata is a CSV with a header naming the covariates. ``run`` resumes
-from ``--checkpoint`` when that file exists. ``--mesh`` raises until
-multi-device runs are ported (ROADMAP A11).
+fails) and ``--backend``. The embeddings file may be ``.npy`` (cells x
+dims) or ``.csv``; metadata is a CSV with a header naming the covariates.
+``run`` resumes from ``--checkpoint`` when that file exists. ``--mesh
+auto`` shards the cells over the ranks torchrun started (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT`` from the
+environment) on ``--backend`` (nccl, one rank a card; gloo for several
+ranks on one card or ``--device cpu``); every rank reads the inputs, and
+rank 0 alone writes ``--out`` and prints the bench payload.
 """
 
 from __future__ import annotations
@@ -40,20 +47,39 @@ def _load_meta(path: str):
     return {h: np.array([r[i] for r in rows]) for i, h in enumerate(header)}
 
 
-def _mesh_not_ported():
-    from .config import _not_ported
+def _mesh(args):
+    """The mesh of ``--mesh``: None without it or in a one-process run;
+    with it the default ``torch.distributed`` group from torchrun's
+    environment on ``--backend`` (initialised here), one rank a device. An
+    integer (bench) is the mesh size, which must be the world size."""
+    if args.mesh is None:
+        return None
+    from .sharding import initialize_distributed, make_mesh
 
-    return _not_ported("mesh (multi-device runs)", "ROADMAP A11")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.mesh != "auto" and int(args.mesh) != world:
+        raise SystemExit(f"--mesh {args.mesh}: the mesh size must be the number of ranks "
+                         f"torchrun started (WORLD_SIZE={world})")
+    if world <= 1 and args.mesh == "auto":
+        return None
+    initialize_distributed(backend=args.backend)
+    return make_mesh(args.device)
 
 
-def _resume_run(args, Z, meta) -> np.ndarray:
+def _is_writer(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
+def _resume_run(args, Z, meta, mesh=None) -> np.ndarray:
     """Continue a run from ``--checkpoint`` for up to ``--max-iter`` more
     rounds, with the usual early stop. A minimal checkpoint needs the
     original embedding and design, which the command has at hand; where the
     run reordered its cells at ingest, the order is rebuilt from the
     checkpoint's provenance ({shuffle_mode, seed, tiled_tile}) and undone
     on the result. Flags that would change the checkpointed config are
-    ignored, with a warning."""
+    ignored, with a warning. ``--mesh`` is honoured: the checkpoint's
+    arrays are taken apart over the ranks again (harmony_tpu/cli.py:60-135);
+    a checkpoint of a mesh run resumed without one says so."""
     from .api import HarmonyResult, apply_ingest_order, order_from_recipe
     from .checkpoint import load_checkpoint, read_checkpoint_meta
     from .driver import harmonize
@@ -61,17 +87,22 @@ def _resume_run(args, Z, meta) -> np.ndarray:
     from .preprocess import build_design, orient_embedding
     from .runtime import PhaseTimers, resolve_device
 
-    if args.mesh is not None:
-        raise _mesh_not_ported()
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     design = build_design(meta, args.vars.split(","))
     Zd = orient_embedding(Z, design.n_cells, verbose=args.verbose)
     ckpt_meta = read_checkpoint_meta(args.checkpoint)
+    orig_mesh_size = int(ckpt_meta.get("mesh_size", 0))
+    if mesh is None and orig_mesh_size > 1:
+        print(f"note: this checkpoint came from a {orig_mesh_size}-rank mesh run; resuming "
+              "on one device (run under torchrun with --mesh auto to resume sharded)",
+              file=sys.stderr)
     perm = order_from_recipe(design, ckpt_meta.get("shuffle_mode"),
                              int(ckpt_meta.get("seed", 0)), int(ckpt_meta.get("tiled_tile", 0)))
     Zd, design, ingest_inv = apply_ingest_order(design, perm, Zd)
     cfg, state = load_checkpoint(args.checkpoint, Z=Zd, design=design,
-                                 extra_rounds=args.max_iter, device=dev)
+                                 extra_rounds=args.max_iter, device=dev, mesh=mesh)
+    if mesh is not None:
+        ckpt_meta = {**ckpt_meta, "mesh_size": mesh.size}
     ignored = [
         name for name, val, default in (
             ("--nclust", args.nclust, None),
@@ -84,7 +115,7 @@ def _resume_run(args, Z, meta) -> np.ndarray:
             ("--virtual-r", args.virtual_r, "auto"),
         ) if val != default
     ]
-    if ignored:
+    if ignored and _is_writer(mesh):
         print(
             f"warning: resuming from {args.checkpoint}; ignoring "
             f"{', '.join(ignored)} (hyperparameters come from the "
@@ -92,11 +123,16 @@ def _resume_run(args, Z, meta) -> np.ndarray:
             file=sys.stderr,
         )
     timers = PhaseTimers(dev)
+    layout = mstep_layout(cfg, design.codes, dev)
+    if mesh is not None:
+        from .engine import check_mesh_route
+
+        check_mesh_route(cfg, layout.tiled)
     state = harmonize(cfg, state, max_iter=args.max_iter, verbose=args.verbose, timers=timers,
-                      layout=mstep_layout(cfg, design.codes, dev),
-                      checkpoint_path=args.checkpoint, checkpoint_meta=ckpt_meta)
+                      layout=layout, checkpoint_path=args.checkpoint,
+                      checkpoint_meta=ckpt_meta, mesh=mesh)
     return HarmonyResult(config=cfg, state=state, design=design, timers=timers,
-                         ingest_inv=ingest_inv).embeddings
+                         ingest_inv=ingest_inv, mesh=mesh).embeddings
 
 
 def _cmd_run(args) -> int:
@@ -105,14 +141,16 @@ def _cmd_run(args) -> int:
 
     Z = _load_matrix(args.embeddings)
     meta = _load_meta(args.meta)
+    mesh = _mesh(args)
     t0 = time.perf_counter()
     if args.checkpoint:
         from .checkpoint import normalize_checkpoint_path
 
         args.checkpoint = normalize_checkpoint_path(args.checkpoint)
     if args.checkpoint and os.path.exists(args.checkpoint):
-        print(f"resuming from checkpoint {args.checkpoint}")
-        out = _resume_run(args, Z, meta)
+        if _is_writer(mesh):
+            print(f"resuming from checkpoint {args.checkpoint}")
+        out = _resume_run(args, Z, meta, mesh)
     else:
         theta = None
         if args.theta is not None:
@@ -122,7 +160,7 @@ def _cmd_run(args) -> int:
         out = run_harmony(
             Z, meta, args.vars.split(","), theta=theta, nclust=args.nclust, lamb=args.lamb,
             max_iter=args.max_iter, seed=args.seed, verbose=args.verbose,
-            shuffle_mode=args.shuffle_mode, mesh=args.mesh, options=harmony_options(),
+            shuffle_mode=args.shuffle_mode, mesh=mesh, options=harmony_options(),
             checkpoint_path=args.checkpoint, dtype=args.dtype or "float32",
             estep_impl=args.estep_impl,
             virtual_r=None if args.virtual_r == "auto" else args.virtual_r == "on",
@@ -130,21 +168,24 @@ def _cmd_run(args) -> int:
         )
     dt = time.perf_counter() - t0
     out = np.asarray(out)
-    np.save(args.out, out)
-    print(f"wrote {args.out}  shape={out.shape}  ({dt:.2f}s)")
+    if _is_writer(mesh):
+        np.save(args.out, out)
+        print(f"wrote {args.out}  shape={out.shape}  ({dt:.2f}s)")
     return 0
 
 
 def _cmd_bench(args) -> int:
     from .bench import run_bench
 
+    mesh = _mesh(args)
     result = run_bench(
         n_cells=args.cells, d=args.dims, n_batches=args.batches, nclust=args.nclust,
         max_iter=args.max_iter, seed=args.seed, shuffle_mode=args.shuffle_mode,
-        dtype=args.dtype, mesh=args.mesh, estep_impl=args.estep_impl, budget_s=args.budget,
+        dtype=args.dtype, mesh=mesh, estep_impl=args.estep_impl, budget_s=args.budget,
         device=args.device,
     )
-    print(json.dumps(result))
+    if _is_writer(mesh):
+        print(json.dumps(result))
     return 0
 
 
@@ -170,7 +211,11 @@ def main(argv=None) -> int:
         "rotate above",
     )
     pr.add_argument("--mesh", choices=["auto"], default=None,
-                    help="multi-device runs: not ported yet (ROADMAP A11)")
+                    help="shard the cells over the ranks torchrun started (one process "
+                    "a device)")
+    pr.add_argument("--backend", choices=["nccl", "gloo"], default="nccl",
+                    help="torch.distributed backend of --mesh (default nccl, one rank a "
+                    "card; gloo for several ranks on one card or on the CPU)")
     pr.add_argument("--dtype", default=None,
                     help="engine dtype: float32 (default) or bfloat16")
     pr.add_argument("--estep-impl", choices=["auto", "kernel", "torch"], default="auto",
@@ -205,8 +250,11 @@ def main(argv=None) -> int:
                     help="schedule to benchmark (default: rotate, the large-run "
                     "schedule; permute = reference-exact)")
     pb.add_argument("--dtype", default=None, help="engine dtype (e.g. bfloat16)")
-    pb.add_argument("--mesh", choices=["auto"], default=None,
-                    help="multi-device runs: not ported yet (ROADMAP A11)")
+    pb.add_argument("--mesh", default=None, metavar="auto|N",
+                    help="shard the cells over the ranks torchrun started: 'auto', or "
+                    "the mesh size N (the number of ranks)")
+    pb.add_argument("--backend", choices=["nccl", "gloo"], default="nccl",
+                    help="torch.distributed backend of --mesh")
     pb.add_argument("--estep-impl", choices=["auto", "kernel", "torch"], default="auto",
                     dest="estep_impl")
     pb.add_argument("--budget", type=float, default=None, metavar="SECONDS",

@@ -184,6 +184,11 @@ class HarmonyConfig:
     # None resolves in finalize_engine_config. The port's spelling of what
     # estep_impl='pallas' selects on the permute schedule in the JAX package.
     permute_fused: Optional[bool] = None
+    # The cell shards of a mesh run (sharding.CellMesh.size), set by
+    # finalize_engine_config; the rotate schedule's blocks and tiles are
+    # per shard. Not a field of the JAX config, whose finalize takes the
+    # mesh as an argument.
+    n_shards: int = 1
 
     verbose: bool = False
 
@@ -212,7 +217,8 @@ class HarmonyConfig:
         ``rotate_stats_carry``."""
         if self.shuffle_mode != "rotate":
             return None
-        if self.Np < self.n_blocks * 128:
+        # on a mesh the bound applies to each shard's cells
+        if self.Np // self.n_shards < self.n_blocks * 128:
             return "cell"
         return "carry" if self.rotate_stats_carry else "two_phase"
 
@@ -334,7 +340,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _rotate_geometry(cfg: HarmonyConfig) -> HarmonyConfig:
     """Sub-tile T and padded N of the rotate schedule, by the JAX package's
-    formula (harmony_tpu/config.py:453-482, one device). The budget loop
+    formula (harmony_tpu/config.py:453-482): each of the ``n_shards``
+    shards gets at least ``n_blocks`` tiles where it can and a whole number
+    of tiles (N is padded to ``n_shards * T``). The budget loop
     guarded a TPU core's VMEM there; on the GPU nothing depends on it, but
     T is the schedule's quantum: tiles make the blocks, so the two packages
     draw the same block partition only with the same T and N_pad."""
@@ -343,19 +351,22 @@ def _rotate_geometry(cfg: HarmonyConfig) -> HarmonyConfig:
     budget = (12 if cfg.B <= 32 else 10) * 2**20
     while T > 512 and T * (8 * (cfg.K + cfg.d + cfg.B) + pc_extra) > budget:
         T //= 2
-    per_block = max(cfg.Np // max(cfg.n_blocks, 1), 1)
+    per_block = max(cfg.Np // cfg.n_shards // max(cfg.n_blocks, 1), 1)
     fit = 128
     while fit * 2 <= per_block:
         fit *= 2
     T = max(128, min(T, fit))
-    Npt = -(-cfg.Np // T) * T
+    align = cfg.n_shards * T
+    Npt = -(-cfg.Np // align) * align
     return dataclasses.replace(
         cfg, estep_sub_tile=T, N_pad=None if Npt == cfg.N else Npt
     )
 
 
-def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
-    """Resolve the 'auto' knobs for the GPU engine.
+def finalize_engine_config(cfg: HarmonyConfig, mesh=None) -> HarmonyConfig:
+    """Resolve the 'auto' knobs for the GPU engine, on one device or on the
+    cell shards of ``mesh`` (a ``sharding.CellMesh``, or anything with a
+    ``size``), which sets ``n_shards``.
 
     - ``dtype='bfloat16'`` is the reduced-precision engine: its state is
       stored in bf16 and every product and sum runs in fp32 on upcast
@@ -409,6 +420,8 @@ def finalize_engine_config(cfg: HarmonyConfig) -> HarmonyConfig:
         raise HarmonyConfigError(
             f"matmul_precision must be one of {_PRECISIONS}, got {cfg.matmul_precision!r}"
         )
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, n_shards=int(mesh.size))
     reduced = getattr(torch, cfg.dtype).itemsize < 4
     if reduced and cfg.dtype != "bfloat16":
         raise _not_ported(f"dtype={cfg.dtype!r}", FLOAT16_ITEM)

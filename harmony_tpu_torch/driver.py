@@ -1,7 +1,11 @@
 """Outer Harmony loop: the analog of ``harmonize`` (R/utils.R:15-46).
 
 Counterpart of ``harmony_tpu/driver.py``. One device->host scalar read per
-round (the convergence flag); everything else stays on the device.
+round (the convergence flag); everything else stays on the device. On a
+mesh every rank runs the loop in lockstep: the convergence test reads the
+replicated (all-reduced) objective, so every rank takes the same decision,
+and an abort is all-reduced (max) before each round, so no rank leaves the
+others waiting in a collective.
 """
 
 from __future__ import annotations
@@ -11,8 +15,9 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
-from . import engine
+from . import engine, sharding
 from .config import HarmonyConfig
 from .runtime import DivergenceError, span
 from .state import HarmonyState
@@ -46,6 +51,15 @@ def _scope(timers, name: str):
     return span(name) if timers is None else timers.scope(name)
 
 
+def _aborted(abort, mesh) -> bool:
+    """Is the run to stop? On a mesh, if any rank's flag is set."""
+    flag = abort is not None and abort.aborted()
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device)
+    return bool(sharding.all_reduce_max(t, mesh).item())
+
+
 def harmonize(
     cfg: HarmonyConfig,
     state: HarmonyState,
@@ -59,6 +73,7 @@ def harmonize(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 1,
     checkpoint_meta: Optional[dict] = None,
+    mesh=None,
 ) -> HarmonyState:
     """Run up to ``max_iter`` rounds of (cluster, correct), with early stop.
 
@@ -77,7 +92,13 @@ def harmonize(
     completed rounds, in the ``checkpoint`` timer scope, after the
     divergence check, so a diverged state never replaces the last good
     checkpoint; it needs no R, so a virtual-R run materialises nothing for
-    it."""
+    it.
+
+    ``mesh`` runs the rounds on the rank's cells (``engine``'s mesh
+    routes); ``schedules`` then holds the rank's own draws. Every rank polls
+    ``abort`` and the flags are all-reduced (max), so a flag set on one
+    rank stops every rank before the same round; a checkpoint is gathered
+    from every rank and written by rank 0."""
     if max_iter is None:
         max_iter = cfg.max_iter_harmony
     if max_iter > cfg.max_iter_harmony:
@@ -91,14 +112,15 @@ def harmonize(
         _ensure_verbose_handler()
     layout = layout or engine.MStepLayout()
     for it in range(max_iter):
-        if abort is not None and abort.aborted():
+        if _aborted(abort, mesh):
             raise KeyboardInterrupt("harmony run aborted by user")
         t0 = time.perf_counter()
         with _scope(timers, "cluster"):
             state = engine.cluster(cfg, state, None if perms is None else perms[it],
-                                   None if schedules is None else schedules[it], layout.tiled)
+                                   None if schedules is None else schedules[it], layout.tiled,
+                                   mesh)
         with _scope(timers, "correct"):
-            state = engine.correct(cfg, state, layout)
+            state = engine.correct(cfg, state, layout, mesh)
         converged = engine.harmony_converged(cfg, state)
         dt = time.perf_counter() - t0
         _check_finite(state)
@@ -107,7 +129,7 @@ def harmonize(
 
             with _scope(timers, "checkpoint"):
                 save_checkpoint(checkpoint_path, cfg, state, mode="minimal",
-                                meta=checkpoint_meta)
+                                meta=checkpoint_meta, mesh=mesh)
         if verbose:
             obj = float(state.objective_harmony[state.n_harmony - 1])
             logger.info(
@@ -119,7 +141,7 @@ def harmonize(
                 logger.info("Harmony converged after %d iterations", it + 1)
             break
     with _scope(timers, "materialize_r"):
-        state = engine.materialize_r(cfg, state)
+        state = engine.materialize_r(cfg, state, mesh)
     return state
 
 
@@ -136,14 +158,15 @@ def run(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 1,
     checkpoint_meta: Optional[dict] = None,
+    mesh=None,
 ) -> HarmonyState:
     """init_cluster (or the injected centroids ``Y0``) + harmonize."""
     with _scope(timers, "init_cluster"):
         if Y0 is not None:
-            state = engine.init_cluster_from(cfg, state, Y0)
+            state = engine.init_cluster_from(cfg, state, Y0, mesh)
         else:
-            state = engine.init_cluster(cfg, state)
+            state = engine.init_cluster(cfg, state, mesh=mesh)
     return harmonize(cfg, state, verbose=verbose, perms=perms, abort=abort,
                      timers=timers, schedules=schedules, layout=layout,
                      checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
-                     checkpoint_meta=checkpoint_meta)
+                     checkpoint_meta=checkpoint_meta, mesh=mesh)

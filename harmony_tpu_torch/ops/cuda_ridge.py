@@ -522,3 +522,44 @@ def tiled_correction(W_joint: torch.Tensor, tile_joint, R: torch.Tensor,
 
 
 tiled_correction.launches = 0
+
+
+# ---- sharded wrappers (no kernels: K8 and K9 on the rank's cells) --------
+
+
+def _pad_left(X: torch.Tensor, off: int) -> torch.Tensor:
+    """X with ``off`` zero columns in front: a shard that starts inside a
+    layout tile reads that tile from its start, the cells of the rank
+    before as zeros, which add nothing to a moment and take no correction."""
+    return torch.nn.functional.pad(X, (off, 0)) if off else X
+
+
+def sharded_tile_moments(cfg, mesh, R: torch.Tensor, Z: torch.Tensor, tile: int,
+                         tile_joint_full, n_joint: int) -> torch.Tensor:
+    """The joint-batch moments of the mesh (``sharded_tile_moments``,
+    pallas_ridge.py:213): K8 (its plain version under ``mstep_impl='torch'``)
+    over the rank's layout tiles, R and Z its columns,
+    ``tile_joint_full`` the global table, then one all-reduce of the
+    (n_joint+1, K, d+1) table. A tile cut by a shard boundary is summed in
+    part on each side."""
+    from ..sharding import all_reduce_sum, shard_tiles
+
+    t0, t1, off = shard_tiles(cfg, mesh, tile)
+    fn = tile_moments if cfg.mstep_impl == "kernel" else tile_moments_twin
+    M = fn(_pad_left(R, off), _pad_left(Z, off), tile, np.asarray(tile_joint_full)[t0:t1],
+           n_joint)
+    return all_reduce_sum(M.contiguous(), mesh)
+
+
+def sharded_tiled_correction(cfg, mesh, W_joint: torch.Tensor, tile_joint_full,
+                             R: torch.Tensor, Z: torch.Tensor, tile: int) -> torch.Tensor:
+    """Z_corr of the rank's columns (``sharded_tiled_correction``,
+    pallas_ridge.py:345): K9 (its plain version under ``mstep_impl='torch'``)
+    over the rank's layout tiles with the replicated betas; no collective."""
+    from ..sharding import shard_tiles
+
+    t0, t1, off = shard_tiles(cfg, mesh, tile)
+    fn = tiled_correction if cfg.mstep_impl == "kernel" else tiled_correction_twin
+    Zc = fn(W_joint, np.asarray(tile_joint_full)[t0:t1], _pad_left(R, off), _pad_left(Z, off),
+            tile)
+    return Zc[:, off:].contiguous() if off else Zc

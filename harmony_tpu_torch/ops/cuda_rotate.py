@@ -405,7 +405,7 @@ def rotate_update_round_v2(
         raise ValueError("rotate_update_round_v2: the kernel reads g from the layout's "
                          f"Gram table, a contiguous float32 ({L}, {K}) tensor on {Y.device} "
                          "(K6 returns it)")
-    szs, vstart = rotate.block_sizes(cfg)
+    szs, vstart = rotate.block_sizes(cfg, NT)
     dev = Y.device
     ncov, b0 = cfg.n_covariates, cfg.B_vec[0]
     tw, M, mom = _CT, None, (None,) * 5
@@ -479,7 +479,7 @@ def rotate_update_round_v2(
     return RoundState(R=R_out.to(rs.R.dtype) if write_r else rs.R, E=E_w.to(rs.E.dtype),
                       O=O_w.to(rs.O.dtype), tile_O=tile_O,
                       kmeans_error=acc[0], entropy=acc[1], M=M, pen=pen_out,
-                      blkmap=rotate.block_of_tiles(cfg, rt, dev) if emit_pen else None)
+                      blkmap=rotate.block_of_tiles(cfg, rt, dev, NT) if emit_pen else None)
 
 
 rotate_update_round_v2.launches = 0

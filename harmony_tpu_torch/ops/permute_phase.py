@@ -18,8 +18,10 @@ natural order, with pad cells exactly 0.
 :func:`permute_rounds` is the plain version of K2 (the head and the rounds),
 which hands G on, and :func:`materialize` of K3 (the final R from G's rows,
 with the M-step's joint-batch moments when a :class:`MomentsSpec` is given);
-``ops/cuda_permute.py`` holds the kernels. On the card this module is used
-only by the tests and ``chip_smoke.py``.
+``ops/cuda_permute.py`` holds the kernels. On the card this module's
+one-device functions are used only by the tests and ``chip_smoke.py``;
+:func:`sharded_permute_phase`, the phase on a mesh, is plain PyTorch as
+the JAX package's is.
 
 Blocks are contiguous ranges of the permutation (``block_bounds``), so the
 round needs no pad slots. The first L1 normalisation is guarded against a
@@ -233,3 +235,98 @@ def permute_phase(
     return PermutePhaseResult(R=R, E=rr.E, O=rr.O, E_rounds=rr.E_rounds,
                               O_rounds=rr.O_rounds, kmeans_error=rr.kmeans_error,
                               entropy=rr.entropy, M=M)
+
+
+def sharded_permute_phase(
+    cfg: HarmonyConfig,
+    mesh,
+    Z: torch.Tensor,  # (d, n) the rank's columns, L2-normalised
+    Y: torch.Tensor,  # (d, K) replicated
+    E: torch.Tensor,  # (K, B) replicated
+    O: torch.Tensor,
+    codes: torch.Tensor,  # (ncov, n) the rank's columns
+    Pr_b: torch.Tensor,
+    sigma: torch.Tensor,
+    theta: torch.Tensor,
+    perms: torch.Tensor,  # (rounds, N) global permutations, replicated
+) -> PermutePhaseResult:
+    """The fused permute phase on a mesh (``xla_permute_phase`` with a
+    mesh, harmony_tpu/ops/permute_phase.py:52), in plain PyTorch on each
+    rank, as the JAX package runs it in XLA outside any kernel.
+
+    The blocks are global, cut from the replicated global permutation
+    (``block_bounds``), so the trajectory does not depend on the mesh size.
+    Each rank holds the positions of the permutation whose cells are its
+    own, in order, so a block is a contiguous range of them. Per round one
+    all-reduce sums every block's removal (the previous round's assignments
+    recomputed from the carried tables); then per block commit one
+    all-reduce of the block's new K row sums and K x B O (src/harmony.cpp:
+    309-331), after which every rank adds the same sums to the replicated
+    E and O. The objective terms are summed once for the phase. R comes
+    back as the rank's columns, pad cells 0, and no moment table: as in the
+    JAX package (harmony_tpu/engine.py:280-282) the M-step sums the moments
+    itself, K8 on the rank's layout tiles (``cuda_ridge.sharded_tile_moments``)."""
+    from ..sharding import all_reduce_many, cell_range, valid_cells
+
+    dev = Z.device
+    K = sigma.shape[0]
+    B, nb = cfg.B, cfg.n_blocks
+    lo, hi = cell_range(cfg, mesh)
+    nv = valid_cells(cfg, mesh)
+    starts = torch.tensor([s for s, _ in block_bounds(cfg)] + [cfg.N], device=dev)
+    # the phase's distances of the rank's real cells, once
+    G = 2.0 * (1.0 - Z[:, :nv].to(_F32).t() @ Y.to(_F32))  # (nv, K)
+    sig, Pr, th = sigma.to(_F32), Pr_b.to(_F32)[None, :], theta.to(_F32)[None, :]
+    E_c, O_c = E.to(_F32).clone(), O.to(_F32).clone()
+    pen_prev = torch.ones((K, (nb + 1) * B), dtype=_F32, device=dev)
+    blk_nat = torch.full((hi - lo,), nb, dtype=torch.int64, device=dev)
+    slot_blk = slot_blocks(cfg, dev)
+    ones = torch.ones((K, B), dtype=_F32, device=dev)
+    b_ids = torch.arange(B, device=dev)
+    E_st, O_st, kerr_st, ent_st = [], [], [], []
+    for r in range(perms.shape[0]):
+        perm = torch.as_tensor(perms[r], device=dev).long()
+        pos = ((perm >= lo) & (perm < lo + nv)).nonzero().squeeze(1)  # ascending
+        cells = perm.index_select(0, pos) - lo
+        cuts = torch.searchsorted(pos, starts).tolist()
+        dist = G.index_select(0, cells).t()  # (K, m) in block order
+        R1 = l1_normalize_columns(torch.exp(-dist / sig[:, None]))
+        c_lay = codes.index_select(1, cells).long()
+        oh = torch.zeros((cells.shape[0], B), dtype=_F32, device=dev)
+        for c, off in enumerate(cfg.covariate_offsets):
+            oh += (c_lay[c][:, None] + off == b_ids).to(_F32)
+
+        # removal: the previous round's assignments, recomputed from the
+        # tables, every block's sums in one all-reduce
+        R_prev = _penalised(cfg, R1, pen_prev, blk_nat.index_select(0, cells), c_lay)
+        rm_r = torch.stack([R_prev[:, a:b].sum(dim=1) for a, b in zip(cuts, cuts[1:])])
+        rm_O = torch.stack([R_prev[:, a:b] @ oh[a:b] for a, b in zip(cuts, cuts[1:])])
+        rm_r, rm_O = all_reduce_many([rm_r, rm_O], mesh)
+
+        pens = []
+        acc_d = torch.zeros((), dtype=_F32, device=dev)
+        acc_e = torch.zeros((), dtype=_F32, device=dev)
+        for i, (a, b) in enumerate(zip(cuts, cuts[1:])):
+            E_c = E_c - rm_r[i][:, None] * Pr
+            O_c = O_c - rm_O[i]
+            pen = ((2.0 * E_c + 1.0) / (O_c + E_c + 1.0)) ** th
+            pens.append(pen)
+            R_n = l1_normalize_columns(R1[:, a:b] * (pen @ oh[a:b].t()))
+            rs, Op = all_reduce_many([R_n.sum(dim=1), R_n @ oh[a:b]], mesh)
+            E_c = E_c + rs[:, None] * Pr
+            O_c = O_c + Op
+            acc_d = acc_d + (R_n * dist[:, a:b]).sum()
+            acc_e = acc_e + (sig[:, None] * xlogx(R_n)).sum()
+        pen_prev = torch.cat(pens + [ones], dim=1)
+        blk_nat = blk_nat.clone()
+        blk_nat[cells] = slot_blk.index_select(0, pos)
+        E_st.append(E_c)
+        O_st.append(O_c)
+        kerr_st.append(acc_d)
+        ent_st.append(acc_e)
+    kerr, ent = all_reduce_many([torch.stack(kerr_st), torch.stack(ent_st)], mesh)
+    R = torch.zeros((K, hi - lo), dtype=_F32, device=dev)
+    R1 = l1_normalize_columns(torch.exp(-G.t() / sig[:, None]))
+    R[:, :nv] = _penalised(cfg, R1, pen_prev, blk_nat[:nv], codes[:, :nv])
+    return PermutePhaseResult(R=R, E=E_c, O=O_c, E_rounds=torch.stack(E_st),
+                              O_rounds=torch.stack(O_st), kmeans_error=kerr, entropy=ent)

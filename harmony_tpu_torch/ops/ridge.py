@@ -38,6 +38,14 @@ into (tiles, T, ·) arrays and batched products. It is XLA in the JAX
 package, so it is plain PyTorch here, on the card too; the K4/K5 kernels
 do not run where segments are given (``harmony_tpu/ops/ridge.py:105-110``).
 
+On a mesh (``mesh``, a ``sharding.CellMesh``; harmony_tpu/ops/ridge.py:86,
+396-547) the arrays with a cell axis are the rank's columns: K8 and K9 run
+on the rank's layout tiles (``cuda_ridge.sharded_tile_moments``, one
+all-reduce of the moment table, and ``sharded_tiled_correction``), the
+mixed tail's moments are the rank's part of the tail summed by one more
+all-reduce, and the ridge solve runs replicated on every rank from the
+summed moments. Only the batch-tiled M-step runs on a mesh.
+
 Under virtual R (``virtual``, a :class:`~harmony_tpu_torch.ops.rotate.VirtualR`;
 harmony_tpu/ops/ridge.py:145-154, 550-654) the state's R is stale: the
 moments come fused from the E-step's final round, the tail's assignments
@@ -142,6 +150,7 @@ def moe_correct_ridge(
     tiled_moments=None,  # (n_joint+1, K, d+1) table the E-step fused (K3, K7)
     virtual=None,  # ops.rotate.VirtualR: R is stale, recompute it (needs tiled)
     cells=None,  # ops.cuda_ridge.CellIndex of codes[0]: K4/K5 visit cells by batch
+    mesh=None,  # sharding.CellMesh: cell arrays are the rank's columns (needs tiled)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Return (Z_corr, Y_new, W); W is (K, B+1, d) with intercept rows zeroed.
     Z_corr is recomputed from Z_orig (src/harmony.cpp:347). With ``tiled``,
@@ -150,8 +159,13 @@ def moe_correct_ridge(
     (harmony_tpu/ops/ridge.py:404-417). ``virtual`` (with ``tiled`` and
     ``tiled_moments``) corrects without reading R. ``cells`` is the run's
     per-tile batch index of the codes that the K4/K5 branch hands to both
-    kernels (they build one for the call without it)."""
+    kernels (they build one for the call without it). ``mesh`` runs the
+    batch-tiled path on the rank's cells (module docstring)."""
     K, B = cfg.K, cfg.B
+    if mesh is not None and tiled is None:
+        from ..config import _not_ported
+
+        raise _not_ported("the segmented and dense M-steps on a mesh", "ROADMAP A11, part 2")
     dev = Z_orig.device
     keep, any_active = compute_masks(cfg, O, batch_sizes)
     keepf = keep.to(_F32)
@@ -170,9 +184,11 @@ def moe_correct_ridge(
         # the union cell mask, constant within a joint level
         # (harmony_tpu/ops/ridge.py:130-211)
         R_eff = None if virtual is not None else R.to(_F32).contiguous()
-        tail_R = None if virtual is None else _virtual_tail_r(cfg, virtual, tiled.n_pure)
+        n_pure = _pure_end(cfg, tiled, mesh)
+        tail_R = (None if virtual is None
+                  else _virtual_tail_r(cfg, virtual, n_pure, mesh))
         O_all, rhs_all, cross_blocks, ctx = _moments_tiled(
-            cfg, R_eff, Zf, codes, tiled, tiled_moments, tail_R
+            cfg, R_eff, Zf, codes, tiled, tiled_moments, tail_R, mesh
         )
         O_eff = O_all * keepf
         rhs_batches = rhs_all * keepf[:, :, None]
@@ -180,7 +196,7 @@ def moe_correct_ridge(
             r_tot = O_eff.sum(dim=1)
             rhs0 = rhs_batches.sum(dim=1)
         else:
-            r_tot, rhs0 = _intercept_moments_tiled(cfg, keep, Zf, codes, tiled, ctx)
+            r_tot, rhs0 = _intercept_moments_tiled(cfg, keep, Zf, codes, tiled, ctx, mesh)
     elif use_kernel:
         from .cuda_ridge import moments
 
@@ -266,10 +282,10 @@ def moe_correct_ridge(
 
     # ---- Correction: Z_corr = Z_orig - sum_k W_k^T Phi_Rk ----------------
     if virtual is not None:
-        Z_corr = _correction_virtual(cfg, W, ctx, tiled, virtual)
+        Z_corr = _correction_virtual(cfg, W, ctx, tiled, virtual, mesh)
         return Z_corr.to(Z_orig.dtype), Y_new, W
     if tiled is not None:
-        Z_corr = _correction_tiled(cfg, W, R_eff, Zf, ctx, tiled)
+        Z_corr = _correction_tiled(cfg, W, R_eff, Zf, ctx, tiled, mesh)
         return Z_corr.to(Z_orig.dtype), Y_new, W
     if use_kernel:
         from .cuda_ridge import correction
@@ -352,14 +368,30 @@ def _correction_segmented(cfg, W, R_s_all, segments):
     return corr.t()
 
 
-def _moments_tiled(cfg, R_eff, Zf, codes, tiled, precomputed=None, tail_R=None):
+def _pure_end(cfg, tiled, mesh) -> int:
+    """Where the pure layout tiles end on the cell axis a call holds: the
+    layout's ``n_pure``, or on a mesh its place in the rank's columns
+    (0 where the rank holds only tail, the rank's length where only pure
+    tiles)."""
+    if mesh is None:
+        return tiled.n_pure
+    from ..sharding import cell_range
+
+    lo, hi = cell_range(cfg, mesh)
+    return min(max(tiled.n_pure - lo, 0), hi - lo)
+
+
+def _moments_tiled(cfg, R_eff, Zf, codes, tiled, precomputed=None, tail_R=None, mesh=None):
     """Batch-tiled moments, O(K·N·d) (harmony_tpu/ops/ridge.py:396-488):
     the per-joint table from K8 over the layout tiles (or ``precomputed``,
     the table fused into the E-step), segment sums over joint levels, and
     dense one-hot products on the trailing mixed/pad region, whose R is
-    ``tail_R`` where given (virtual R) and R_eff's otherwise. Returns
+    ``tail_R`` where given (virtual R) and R_eff's otherwise. On a mesh K8
+    runs on the rank's tiles with one all-reduce of the table, and the
+    tail's products are the rank's part of the tail (maybe none), summed by
+    one more all-reduce wherever the global axis has a tail. Returns
     (O_eff, rhs_batches, cross_blocks, (R_tail, tail one-hots, per-joint
-    table))."""
+    table, where the pure tiles end on the call's cell axis))."""
     from . import cuda_ridge
 
     K = cfg.K
@@ -367,18 +399,24 @@ def _moments_tiled(cfg, R_eff, Zf, codes, tiled, precomputed=None, tail_R=None):
     if precomputed is None:
         if R_eff is None:
             raise ValueError("virtual R needs the moments its final round fused")
-        moments = (cuda_ridge.tile_moments if cfg.mstep_impl == "kernel"
-                   else cuda_ridge.tile_moments_twin)
-        precomputed = moments(R_eff, Zf, tiled.tile, full_tile_joint(cfg, tiled), n_joint)
+        if mesh is None:
+            moments = (cuda_ridge.tile_moments if cfg.mstep_impl == "kernel"
+                       else cuda_ridge.tile_moments_twin)
+            precomputed = moments(R_eff, Zf, tiled.tile, full_tile_joint(cfg, tiled), n_joint)
+        else:
+            precomputed = cuda_ridge.sharded_tile_moments(
+                cfg, mesh, R_eff, Zf, tiled.tile, full_tile_joint(cfg, tiled), n_joint)
     seg = precomputed[:n_joint]  # (nj, K, d+1); the trash row dropped
 
-    n_pure = tiled.n_pure
-    tail = Zf.shape[1] - n_pure
+    n_pure = _pure_end(cfg, tiled, mesh)
+    # every rank takes part in the tail's all-reduce where the global axis
+    # has a tail, with zeros where its own columns hold none of it
+    tail = Zf.shape[1] - n_pure if mesh is None else cfg.Np - tiled.n_pure
     R_t = tail_oh = tail_M = None
     if tail:
         R_t = tail_R if tail_R is not None else R_eff[:, n_pure:]
         Z_t = Zf[:, n_pure:].to(_F32)
-        Za_t = torch.cat([Z_t, Z_t.new_ones((1, tail))], dim=0)
+        Za_t = torch.cat([Z_t, Z_t.new_ones((1, Z_t.shape[1]))], dim=0)
         tail_oh = [
             torch.nn.functional.one_hot(codes[c, n_pure:].long(), b).to(_F32)
             for c, b in enumerate(cfg.B_vec)
@@ -387,6 +425,20 @@ def _moments_tiled(cfg, R_eff, Zf, codes, tiled, precomputed=None, tail_R=None):
             torch.stack([(R_t * oh[:, b]) @ Za_t.t() for b in range(oh.shape[1])], 1)
             for oh in tail_oh
         ]
+    cross_t: Dict[Tuple[int, int], torch.Tensor] = {}
+    if tail:
+        for c1 in range(cfg.n_covariates):
+            for c2 in range(c1 + 1, cfg.n_covariates):
+                b1, b2 = cfg.B_vec[c1], cfg.B_vec[c2]
+                joint_t = codes[c1, n_pure:].long() * b2 + codes[c2, n_pure:].long()
+                ohj = torch.nn.functional.one_hot(joint_t, b1 * b2).to(_F32)
+                cross_t[(c1, c2)] = (R_t @ ohj).reshape(K, b1, b2)
+        if mesh is not None:
+            from ..sharding import all_reduce_many
+
+            keys = list(cross_t)
+            red = all_reduce_many(tail_M + [cross_t[k] for k in keys], mesh)
+            tail_M, cross_t = red[: len(tail_M)], dict(zip(keys, red[len(tail_M):]))
     O_parts, rhs_parts = [], []
     for c, b in enumerate(cfg.B_vec):
         Mc = _segment_sum(seg, tiled.joint_codes[c], b).transpose(0, 1)  # (K, b, d+1)
@@ -401,18 +453,17 @@ def _moments_tiled(cfg, R_eff, Zf, codes, tiled, precomputed=None, tail_R=None):
             jidx = tiled.joint_codes[c1].astype(np.int64) * b2 + tiled.joint_codes[c2]
             cross = _segment_sum(seg[:, :, -1], jidx, b1 * b2).t().reshape(K, b1, b2)
             if tail:
-                joint_t = codes[c1, n_pure:].long() * b2 + codes[c2, n_pure:].long()
-                ohj = torch.nn.functional.one_hot(joint_t, b1 * b2).to(_F32)
-                cross = cross + (R_t @ ohj).reshape(K, b1, b2)
+                cross = cross + cross_t[(c1, c2)]
             cross_blocks[(c1, c2)] = cross
     return (torch.cat(O_parts, dim=1), torch.cat(rhs_parts, dim=1),
-            cross_blocks, (R_t, tail_oh, seg))
+            cross_blocks, (R_t, tail_oh, seg, n_pure))
 
 
-def _intercept_moments_tiled(cfg, keep, Zf, codes, tiled, ctx):
+def _intercept_moments_tiled(cfg, keep, Zf, codes, tiled, ctx, mesh=None):
     """Several covariates: intercept moments under the union cell mask, at
     joint-level granularity on the pure tiles and per cell on the tail
-    (harmony_tpu/ops/ridge.py:170-211)."""
+    (harmony_tpu/ops/ridge.py:170-211); on a mesh the tail's part summed
+    over the ranks."""
     seg = ctx[2]
     mask_j = None
     for c, off in enumerate(cfg.covariate_offsets):
@@ -422,15 +473,20 @@ def _intercept_moments_tiled(cfg, keep, Zf, codes, tiled, ctx):
     mj = mask_j.to(_F32).t()[:, :, None]  # (nj, K, 1)
     r_tot = (seg[:, :, -1:] * mj).sum(dim=0)[:, 0]
     rhs0 = (seg[:, :, :-1] * mj).sum(dim=0)
-    n_pure = tiled.n_pure
+    n_pure = ctx[3]
     if ctx[0] is not None:
         mask_t = None
         for c, off in enumerate(cfg.covariate_offsets):
             kc = keep[:, off : off + cfg.B_vec[c]].index_select(1, codes[c, n_pure:].long())
             mask_t = kc if mask_t is None else (mask_t | kc)
         R_tm = ctx[0] * mask_t.to(_F32)
-        r_tot = r_tot + R_tm.sum(dim=1)
-        rhs0 = rhs0 + R_tm @ Zf[:, n_pure:].to(_F32).t()
+        r_t, rhs_t = R_tm.sum(dim=1), R_tm @ Zf[:, n_pure:].to(_F32).t()
+        if mesh is not None:
+            from ..sharding import all_reduce_many
+
+            r_t, rhs_t = all_reduce_many([r_t, rhs_t], mesh)
+        r_tot = r_tot + r_t
+        rhs0 = rhs0 + rhs_t
     return r_tot, rhs0
 
 
@@ -458,31 +514,44 @@ def _patch_tail(cfg, W, ctx, tiled, Z_corr):
         for b in range(oh.shape[1]):
             t = W[:, 1 + off + b, :].t() @ (R_t * oh[:, b])
             corr_t = t if corr_t is None else corr_t + t
-    Z_corr[:, tiled.n_pure :] -= corr_t
+    Z_corr[:, ctx[3]:] -= corr_t
     return Z_corr
 
 
-def _correction_tiled(cfg, W, R_eff, Zf, ctx, tiled):
+def _correction_tiled(cfg, W, R_eff, Zf, ctx, tiled, mesh=None):
     """Batch-tiled correction (harmony_tpu/ops/ridge.py:491-547): K9 applies
-    each pure tile's joint betas; the tail's correction is dense."""
+    each pure tile's joint betas (on a mesh to the rank's tiles); the
+    tail's correction is dense."""
     from . import cuda_ridge
 
-    correct = (cuda_ridge.tiled_correction if cfg.mstep_impl == "kernel"
-               else cuda_ridge.tiled_correction_twin)
-    Z_corr = correct(_joint_betas(cfg, W, tiled), full_tile_joint(cfg, tiled), R_eff, Zf,
-                     tiled.tile)
+    W_joint, tj = _joint_betas(cfg, W, tiled), full_tile_joint(cfg, tiled)
+    if mesh is not None:
+        Z_corr = cuda_ridge.sharded_tiled_correction(cfg, mesh, W_joint, tj, R_eff, Zf,
+                                                     tiled.tile)
+    else:
+        correct = (cuda_ridge.tiled_correction if cfg.mstep_impl == "kernel"
+                   else cuda_ridge.tiled_correction_twin)
+        Z_corr = correct(W_joint, tj, R_eff, Zf, tiled.tile)
     return _patch_tail(cfg, W, ctx, tiled, Z_corr)
 
 
-def _virtual_tail_r(cfg, virt, n_pure):
+def _virtual_tail_r(cfg, virt, n_pure, mesh=None):
     """(K, tail) assignments of the trailing mixed/pad cells, recomputed
     from the final round's penalty tables in K7's op order of
     ``cfg.estep_variant`` (harmony_tpu/ops/ridge.py:550-585): pc sums the
-    covariates' penalty rows in covariate order, zero on pad cells."""
-    Np, T = cfg.Np, cfg.estep_sub_tile
+    covariates' penalty rows in covariate order, zero on pad cells. On a
+    mesh the tail's part in the rank's columns (``n_pure`` where the pure
+    tiles end there), read through the rank's own block ids."""
+    T = cfg.estep_sub_tile
+    if mesh is None:
+        Np, blkmap = cfg.Np, virt.blkmap
+    else:
+        from .rotate import local_blocks
+
+        Np, blkmap = virt.Zn_pad.shape[1], local_blocks(mesh, virt.pen, virt.blkmap)
     Zn_t = virt.Zn_pad[:, n_pure:Np].to(_F32)
     tiles = torch.arange(n_pure, Np, device=Zn_t.device) // T
-    blk = virt.blkmap.long()[tiles]
+    blk = blkmap.long()[tiles]
     valid = (virt.codes_pad[0, n_pure:Np] >= 0).to(_F32)
     pc = None
     for c, off in enumerate(cfg.covariate_offsets):
@@ -501,18 +570,20 @@ def _virtual_tail_r(cfg, virt, n_pure):
     return w * (1.0 / torch.where(colsum == 0.0, torch.ones_like(colsum), colsum))
 
 
-def _correction_virtual(cfg, W, ctx, tiled, virt):
+def _correction_virtual(cfg, W, ctx, tiled, virt, mesh=None):
     """Correction with R recomputed from the penalty tables
     (harmony_tpu/ops/ridge.py:588-654): the pure layout tiles by
     :func:`virtual_tile_correction`, then the dense patch of the tail from
     its recomputed assignments (ctx carries them from _moments_tiled)."""
     Z_corr = virtual_tile_correction(cfg, _joint_betas(cfg, W, tiled),
-                                     full_tile_joint(cfg, tiled), tiled.tile, virt)
-    return _patch_tail(cfg, W, ctx, tiled, Z_corr[:, : cfg.Np])
+                                     full_tile_joint(cfg, tiled), tiled.tile, virt, mesh)
+    if mesh is None:
+        Z_corr = Z_corr[:, : cfg.Np]
+    return _patch_tail(cfg, W, ctx, tiled, Z_corr)
 
 
 def virtual_tile_correction(cfg: HarmonyConfig, W_joint: torch.Tensor, tile_joint,
-                            tile: int, virt) -> torch.Tensor:
+                            tile: int, virt, mesh=None) -> torch.Tensor:
     """Z_orig - W_joint[joint(tile)] R on the padded layout (d, Npt), R the
     final round's, recomputed from ``virt`` (a VirtualR): K10 where it
     reads the phase's Gram table ``virt.G`` and (on the card) takes the
@@ -521,19 +592,32 @@ def virtual_tile_correction(cfg: HarmonyConfig, W_joint: torch.Tensor, tile_join
     shared memory. Both give the same bits (K11's R is K7's; K10 and K9 run
     one fmaf order). On CPU tensors the kernels' plain versions. K10 reads
     Z_orig in its storage dtype and returns Z_corr in it; K11 and K9 run on
-    float32 (a copy of a bf16 Z_orig) and return float32."""
-    from . import cuda_ridge, cuda_rotate
+    float32 (a copy of a bf16 Z_orig) and return float32. On a mesh the
+    same per rank, through the sharded wrappers: ``virt`` holds the rank's
+    columns, its penalty tables and its map in global block ids, and
+    ``tile_joint`` is the global table."""
+    from . import cuda_ridge, cuda_rotate, rotate
 
     rargs = (virt.Y.to(_F32), virt.sigma.to(_F32), virt.pen, virt.blkmap, virt.Zn_pad,
              virt.codes_pad)
     d, L = virt.Zn_pad.shape
     if virt.G is not None and (not virt.Zn_pad.is_cuda
                                or cuda_rotate.k10_fits(cfg, d, L // tile, virt.Zn_pad.device)):
+        if mesh is not None:
+            return rotate.sharded_virtual_correction(cfg, mesh, W_joint, tile_joint, tile,
+                                                     *rargs, virt.Z_orig_pad, virt.G,
+                                                     fn=cuda_rotate.virtual_correction)
         return cuda_rotate.virtual_correction(cfg, W_joint, tile_joint, tile, *rargs,
                                               virt.Z_orig_pad, virt.G)
+    Zo = virt.Z_orig_pad.to(_F32).contiguous()
+    if mesh is not None:
+        from ..sharding import shard_tile_table
+
+        R = rotate.sharded_materialize_r(cfg, mesh, *rargs, fn=cuda_rotate.materialize_r)
+        return cuda_ridge.tiled_correction(W_joint, shard_tile_table(cfg, mesh, tile_joint, tile),
+                                           R, Zo, tile)
     R = cuda_rotate.materialize_r(cfg, *rargs)
-    return cuda_ridge.tiled_correction(W_joint, tile_joint, R,
-                                       virt.Z_orig_pad.to(_F32).contiguous(), tile)
+    return cuda_ridge.tiled_correction(W_joint, tile_joint, R, Zo, tile)
 
 
 def _solve_ridge(cfg: HarmonyConfig, G: torch.Tensor, rhs: torch.Tensor):

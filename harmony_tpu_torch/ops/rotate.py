@@ -116,14 +116,23 @@ def n_tiles(cfg: HarmonyConfig) -> int:
     return -(-cfg.Np // cfg.estep_sub_tile)
 
 
-def make_codes_pad(cfg: HarmonyConfig, codes: torch.Tensor) -> torch.Tensor:
+def make_codes_pad(cfg: HarmonyConfig, codes: torch.Tensor, mesh=None) -> torch.Tensor:
     """(ncov, NT*T) int32 codes with pad cells set to -B-1, below every
-    level even after a covariate offset is added (pallas_rotate.py:75)."""
-    Npt = n_tiles(cfg) * cfg.estep_sub_tile
+    level even after a covariate offset is added (pallas_rotate.py:75). On
+    a mesh ``codes`` are this rank's columns and so is the result: the
+    shard's slice of the global array, pad cells those at global index N
+    and past."""
+    if mesh is None:
+        Npt, n = n_tiles(cfg) * cfg.estep_sub_tile, cfg.N
+    else:
+        from ..sharding import cell_range, valid_cells
+
+        lo, hi = cell_range(cfg, mesh)
+        Npt, n = hi - lo, valid_cells(cfg, mesh)
     sentinel = -cfg.B - 1
     cp = torch.full((codes.shape[0], Npt), sentinel, dtype=torch.int32,
                     device=codes.device)
-    cp[:, : cfg.N] = codes[:, : cfg.N].to(torch.int32)
+    cp[:, :n] = codes[:, :n].to(torch.int32)
     return cp
 
 
@@ -135,10 +144,12 @@ def pad_cells_to_tile(cfg: HarmonyConfig, Z: torch.Tensor) -> torch.Tensor:
     return torch.cat([Z, Z.new_zeros((Z.shape[0], Npt - Z.shape[1]))], dim=1)
 
 
-def block_sizes(cfg: HarmonyConfig) -> Tuple[List[int], List[int]]:
+def block_sizes(cfg: HarmonyConfig, NT: Optional[int] = None) -> Tuple[List[int], List[int]]:
     """(tiles per block, first virtual tile of each block): nb = min(n_blocks,
-    NT) blocks of near-equal tile counts, the first NT mod nb one larger."""
-    NT = n_tiles(cfg)
+    NT) blocks of near-equal tile counts, the first NT mod nb one larger.
+    ``NT`` is the tiles of the layout the round walks: the whole padded
+    axis (the default) or, on a mesh, one shard's."""
+    NT = n_tiles(cfg) if NT is None else NT
     nb = min(cfg.n_blocks, NT)
     base, rem = divmod(NT, nb)
     szs = [base + (i < rem) for i in range(nb)]
@@ -146,32 +157,34 @@ def block_sizes(cfg: HarmonyConfig) -> Tuple[List[int], List[int]]:
     return szs, vstart
 
 
-def block_tiles(cfg: HarmonyConfig, rt: int, blk: int) -> List[int]:
+def block_tiles(cfg: HarmonyConfig, rt: int, blk: int, NT: Optional[int] = None) -> List[int]:
     """Physical tiles of block ``blk`` under rotation ``rt``, in order."""
-    NT = n_tiles(cfg)
-    szs, vstart = block_sizes(cfg)
+    NT = n_tiles(cfg) if NT is None else NT
+    szs, vstart = block_sizes(cfg, NT)
     return [(vstart[blk] + j + rt) % NT for j in range(szs[blk])]
 
 
-def block_of_tiles(cfg: HarmonyConfig, rt: int, device) -> torch.Tensor:
+def block_of_tiles(cfg: HarmonyConfig, rt: int, device, NT: Optional[int] = None
+                   ) -> torch.Tensor:
     """(NT,) int32 block of each physical tile under rotation ``rt``
     (blk_of_phys, pallas_rotate.py:1053): tile p sits at virtual slot
     (p - rt) mod NT, and the first NT mod nb blocks hold one tile more.
     Built on the device from host ints, so no copy waits for the stream."""
-    NT = n_tiles(cfg)
-    base, rem = divmod(NT, len(block_sizes(cfg)[0]))
+    NT = n_tiles(cfg) if NT is None else NT
+    base, rem = divmod(NT, len(block_sizes(cfg, NT)[0]))
     v = torch.remainder(torch.arange(NT, device=device) - rt, NT)
     big = rem * (base + 1)
     return torch.where(v < big, v // (base + 1), rem + (v - big) // base).to(torch.int32)
 
 
 def draw_schedules(
-    cfg: HarmonyConfig, generator: torch.Generator, rounds: int
+    cfg: HarmonyConfig, generator: torch.Generator, rounds: int, NT: Optional[int] = None
 ) -> List[Tuple[int, List[int]]]:
     """``rounds`` (rotation, block order) pairs from the generator, drawn
-    together and brought to the host once (the launch loop needs them)."""
-    NT = n_tiles(cfg)
-    nb = len(block_sizes(cfg)[0])
+    together and brought to the host once (the launch loop needs them),
+    over ``NT`` tiles (default: the whole padded axis)."""
+    NT = n_tiles(cfg) if NT is None else NT
+    nb = len(block_sizes(cfg, NT)[0])
     dev = generator.device
     rts = torch.randint(0, NT, (rounds,), generator=generator, device=dev)
     orders = torch.stack(
@@ -191,7 +204,7 @@ def block_old_stats(
     over the table in virtual order, as in the JAX function.
     """
     NT = tile_O.shape[0]
-    szs, vstart = block_sizes(cfg)
+    szs, vstart = block_sizes(cfg, NT)
     szs_t = torch.tensor(szs, dtype=torch.int64)
     vs_t = torch.tensor(vstart, dtype=torch.int64)
     order_t = torch.as_tensor(list(order), dtype=torch.int64)
@@ -393,7 +406,7 @@ def rotate_update_round_v2(
         logpen = torch.log(ratio) * th
         if emit_pen:
             pen_out[blk] = pen
-        tiles = torch.as_tensor(block_tiles(cfg, rt, blk), device=Y.device)
+        tiles = torch.as_tensor(block_tiles(cfg, rt, blk, NT), device=Y.device)
         g = (_gram_tiles(Yt, Z3.index_select(1, tiles)) if G3 is None
              else G3.index_select(0, tiles).permute(2, 0, 1))
         R_n, tO, s_rd, ent = _assign_tiles(cfg, g, c3.index_select(1, tiles), pen, logpen,
@@ -415,7 +428,7 @@ def rotate_update_round_v2(
     return RoundState(R=R_out, E=E.to(rs.E.dtype), O=O.to(rs.O.dtype),
                       tile_O=tile_O, kmeans_error=acc_d, entropy=acc_e, M=M,
                       pen=pen_out,
-                      blkmap=block_of_tiles(cfg, rt, Y.device) if emit_pen else None)
+                      blkmap=block_of_tiles(cfg, rt, Y.device, NT) if emit_pen else None)
 
 
 def rotate_update_round_v1(
@@ -558,3 +571,90 @@ def materialize_r(
     have written them, in ``out_dtype`` (default float32)."""
     R = _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, out_dtype)
     return R[:, : cfg.Np]
+
+
+# --------------------------------------------------------------------------
+# Sharded wrappers (harmony_tpu/ops/pallas_rotate.py:1060-1250, 1571-1750):
+# each rank runs the kernels (here their plain versions) on its own cells
+# and the collectives sit where the JAX package's psums do. Each shard runs
+# the reference's whole block structure over its own tiles, with its own
+# rotation and block order, against E/O that are global at the round's
+# start; the shards' E/O deltas merge once per round. The layout arguments
+# (Z, codes, the per-tile table, R) are the rank's columns; Y, E, O and the
+# per-cluster and per-batch vectors are replicated.
+# --------------------------------------------------------------------------
+
+
+def local_blocks(mesh, pen: torch.Tensor, blk_of_phys: torch.Tensor) -> torch.Tensor:
+    """A shard's tile -> block map in its own block ids: the global ids less
+    ``rank * nb`` (``pen`` holds the shard's nb tables)."""
+    return (blk_of_phys - mesh.rank * pen.shape[0]).to(torch.int32)
+
+
+def sharded_reassign(cfg: HarmonyConfig, mesh, Y, sigma, Pr_b, Z_raw, codes_pad, fn=None):
+    """K6 on the rank's cells (``fn``, the one-device function:
+    :func:`reassign` by default, ``cuda_rotate.reassign`` for the kernel),
+    then one all-reduce of O (``sharded_reassign``, pallas_rotate.py:
+    1078-1106): E from the summed O's covariate-0 row sums. Zn, tile_O and
+    G stay the rank's."""
+    from ..sharding import all_reduce_sum
+
+    Zn, tile_O, O, _, G = (fn or reassign)(cfg, Y, sigma, Pr_b, Z_raw, codes_pad)
+    O = all_reduce_sum(O.to(_F32).contiguous(), mesh)
+    E = O[:, : cfg.B_vec[0]].sum(dim=1)[:, None] * Pr_b.to(_F32)[None, :]
+    return Zn, tile_O, O, E, G
+
+
+def sharded_rotate_round_v2(cfg: HarmonyConfig, mesh, Y, rs: RoundState, Pr_b, sigma, theta,
+                            rt: int, order: Sequence[int], layout: CodesLayout,
+                            write_r: bool = True, moments: Optional[MomentsSpec] = None,
+                            emit_pen: bool = False, fn=None) -> RoundState:
+    """K7 on the rank's cells for the rank's own schedule (rt, order)
+    (``fn``: :func:`rotate_update_round_v2` by default,
+    ``cuda_rotate.rotate_update_round_v2`` for the kernel), then one
+    all-reduce (``sharded_rotate_round_v2``, pallas_rotate.py:1127-1216):
+    E and O as ``E + sum(E_rank - E)`` (the deltas, not the sum of the
+    ranks' E), the objective accumulators and the fused moment table
+    summed; the penalty tables stay the rank's and the tile -> block map
+    takes global block ids (shard s's blocks are s*nb .. s*nb+nb-1)."""
+    from ..sharding import all_reduce_many
+
+    res = (fn or rotate_update_round_v2)(cfg, Y, rs, Pr_b, sigma, theta, rt, order, layout,
+                                         write_r, moments, emit_pen)
+    E0, O0 = rs.E.to(_F32), rs.O.to(_F32)
+    parts = [res.O.to(_F32) - O0, res.E.to(_F32) - E0, res.kmeans_error.reshape(1),
+             res.entropy.reshape(1)]
+    if res.M is not None:
+        parts.append(res.M)
+    red = all_reduce_many(parts, mesh)
+    blkmap = res.blkmap
+    if blkmap is not None:
+        blkmap = (blkmap + mesh.rank * res.pen.shape[0]).to(torch.int32)
+    return res._replace(O=(O0 + red[0]).to(rs.O.dtype), E=(E0 + red[1]).to(rs.E.dtype),
+                        kmeans_error=red[2][0], entropy=red[3][0],
+                        M=red[4] if res.M is not None else None, blkmap=blkmap)
+
+
+def sharded_virtual_correction(cfg: HarmonyConfig, mesh, W_joint, tile_joint, layout_tile: int,
+                               Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, Z_orig_pad,
+                               G=None, fn=None) -> torch.Tensor:
+    """K10 on the rank's tiles (``fn``: :func:`virtual_correction` by
+    default, ``cuda_rotate.virtual_correction`` for the kernel;
+    ``sharded_virtual_correction``, pallas_rotate.py:1571): ``tile_joint``
+    is the global table, ``pen`` the rank's tables, ``blk_of_phys`` its map
+    in global block ids; no collective, Z_corr comes back as the rank's
+    columns."""
+    from ..sharding import shard_tile_table
+
+    return (fn or virtual_correction)(
+        cfg, W_joint, shard_tile_table(cfg, mesh, tile_joint, layout_tile), layout_tile, Y,
+        sigma, pen, local_blocks(mesh, pen, blk_of_phys), Zn_pad, codes_pad, Z_orig_pad, G)
+
+
+def sharded_materialize_r(cfg: HarmonyConfig, mesh, Y, sigma, pen, blk_of_phys, Zn_pad,
+                          codes_pad, out_dtype=None, fn=None) -> torch.Tensor:
+    """K11 on the rank's tiles (``fn``: :func:`materialize_r` by default,
+    ``cuda_rotate.materialize_r`` for the kernel; ``sharded_materialize_r``,
+    pallas_rotate.py:1710); no collective."""
+    return (fn or materialize_r)(cfg, Y, sigma, pen, local_blocks(mesh, pen, blk_of_phys),
+                                 Zn_pad, codes_pad, out_dtype)

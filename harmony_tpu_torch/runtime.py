@@ -154,20 +154,39 @@ class AsyncIngest:
     into a (d, cfg.Np) tensor on ``device``, so the caller builds the config,
     the ingest layout and the hyperparameters meanwhile. A bf16 run moves
     half the bytes of a float32 upload, a quarter of a float64 one. The pad
-    cells (``cfg.Np - N``) are zero. :meth:`result` joins the thread,
-    makes the current stream wait for the side stream, and applies the
-    ingest order on the device with one gather whose pad columns map to
-    themselves. An exception on the thread is raised by :meth:`join` and
-    :meth:`result`. Used as a context manager it joins on the way out, so no
-    copy outlives its tensor when the caller's set-up raises. On a CPU
-    device the same steps run as plain copies.
+    cells (``cfg.Np - N``) are zero. :meth:`order` gives the ingest order;
+    :meth:`result` joins the thread, makes the current stream wait for the
+    side stream, and applies the order on the device with one gather whose
+    pad columns map to themselves. An exception on the thread is raised by
+    :meth:`join` and :meth:`result`. Used as a context manager it joins on
+    the way out, so no copy outlives its tensor when the caller's set-up
+    raises. On a CPU device the same steps run as plain copies.
+
+    On a ``mesh`` (a ``sharding.CellMesh``) each rank copies only its own
+    columns of the padded axis in ingest order, ``(d, Np / size)``, so its
+    copy starts at :meth:`order` (every rank gives the same order; a join
+    before it copies the input order): each chunk of ``chunk_bytes`` is
+    gathered from the rank's input cells on the host into the pinned
+    buffers, and :meth:`result` applies no order. ``overlap=False``
+    finishes each copy where it starts (at construction on one device, at
+    :meth:`order` on a mesh).
     """
 
-    def __init__(self, Z: np.ndarray, cfg, device, chunk_bytes: int = 64 << 20):
+    def __init__(self, Z: np.ndarray, cfg, device, chunk_bytes: int = 64 << 20, mesh=None,
+                 overlap: bool = True):
         if Z.ndim != 2 or Z.shape[1] != cfg.N:
             raise ValueError(f"Z must be (d, {cfg.N}), got {Z.shape}")
         self._Z = Z
+        self._cfg, self._mesh, self._overlap = cfg, mesh, overlap
         self._N, self._Np = cfg.N, cfg.Np
+        if mesh is not None:
+            from .sharding import cell_range
+
+            lo, hi = cell_range(cfg, mesh)
+            self._N, self._Np = min(hi, cfg.N) - lo, hi - lo
+        # the input cells of the output's columns, in order (None: 0..N-1)
+        self._src = None
+        self._perm = None
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.dtype)
         d = Z.shape[0]
@@ -177,8 +196,33 @@ class AsyncIngest:
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._exc: Optional[BaseException] = None
         self._joined = False
+        self._thread = None
+        self._ordered = False
+        if mesh is None:
+            self._start()
+
+    def _start(self) -> None:
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
+        if not self._overlap:
+            self.join()
+
+    def order(self, perm: Optional[np.ndarray]) -> None:
+        """The ingest order: column j < N of the result holds input cell
+        ``perm[j]`` (None: the input order). On a mesh the rank's copy of
+        its columns of it starts now. Call it once, before :meth:`result`."""
+        if self._ordered:
+            raise ValueError("the ingest order was given already")
+        self._ordered = True
+        if self._mesh is None:
+            self._perm = perm
+            return
+        from .sharding import cell_range
+
+        lo = cell_range(self._cfg, self._mesh)[0]
+        src = np.arange(self._cfg.N) if perm is None else np.asarray(perm)
+        self._src = src[lo:lo + self._N]
+        self._start()
 
     @property
     def n_chunks(self) -> int:
@@ -217,7 +261,8 @@ class AsyncIngest:
             buf = bufs[i % 2][:, : b - a]
             if done[i % 2] is not None:
                 done[i % 2].synchronize()  # the copy out of this buffer has landed
-            buf.copy_(engine_cast(torch.from_numpy(self._Z[:, a:b]), self.dtype))
+            cols = self._Z[:, a:b] if self._src is None else self._Z[:, self._src[a:b]]
+            buf.copy_(engine_cast(torch.from_numpy(cols), self.dtype))
             self._out[:, a:b].copy_(buf, non_blocking=pin)
             if pin:
                 done[i % 2] = torch.cuda.Event()
@@ -228,6 +273,8 @@ class AsyncIngest:
     def join(self) -> None:
         """Wait for the copies; the current stream then waits for the side
         stream, also after an exception on the thread."""
+        if self._thread is None:
+            self.order(None)  # a mesh copy without an order: the input order
         if not self._joined:
             self._thread.join()
             self._joined = True
@@ -237,14 +284,15 @@ class AsyncIngest:
             raise self._exc
 
     def result(self, perm: Optional[np.ndarray] = None) -> torch.Tensor:
-        """The (d, Np) tensor on the device, in ingest order: column j < N
-        holds input cell ``perm[j]`` (all cells in input order when ``perm``
-        is None), the pad columns stay in place. Call it once: the object
-        lets go of its tensor."""
+        """The (d, Np) tensor on the device (on a mesh the rank's columns),
+        in ingest order; ``perm``, where given, is :meth:`order`'s. Call it
+        once: the object lets go of its tensor."""
+        if perm is not None:
+            self.order(perm)
         self.join()
         out, self._out = self._out, None
-        if perm is None:
+        if self._perm is None:
             return out
         idx = np.arange(self._Np, dtype=np.int64)
-        idx[: self._N] = perm
+        idx[: self._N] = self._perm
         return out.index_select(1, torch.as_tensor(idx, device=self.device))

@@ -10,6 +10,11 @@ capacity with integer cursors.
 The JAX state carries a PRNG key; here the randomness comes from a
 ``torch.Generator`` seeded from the same integer (``key`` holds
 ``[0, seed]``, the layout of ``jax.random.PRNGKey(seed)``).
+
+On a mesh (``mesh``, a ``sharding.CellMesh``) a rank's state holds its own
+columns of the cell-axis fields (:data:`CELL_FIELDS`) and the replicated
+rest; :func:`state_to_arrays` gathers the JAX package's global arrays and
+:func:`state_from_arrays` takes this rank's part of them.
 """
 
 from __future__ import annotations
@@ -49,6 +54,11 @@ VIRTUAL_FIELDS = ("virt_pen", "virt_blkmap", "virt_Zn", "virt_Y")
 # virt_pen and virt_Zn stay float32.
 ENGINE_DTYPE_FIELDS = ("Z_orig", "Z_corr", "Y", "R", "O", "E", "Pr_b", "batch_sizes",
                        "sigma", "theta", "lamb", "virt_Y")
+# The fields with a trailing cell axis: on a mesh each rank holds its
+# columns (harmony_tpu/sharding.py:86-93's P(None, CELL_AXIS)). virt_pen
+# stacks the shards' tables on its leading axis and virt_blkmap is one
+# entry a tile, both sharded with the tiles.
+CELL_FIELDS = ("Z_orig", "Z_corr", "R", "codes", "virt_Zn")
 
 
 @dataclasses.dataclass
@@ -143,6 +153,7 @@ def init_state(
     seed: int,
     device,
     timers=None,
+    mesh=None,
 ) -> HarmonyState:
     """Build the initial state (``harmony::setup``, src/harmony.cpp:29-111):
     casts to the engine dtype, L2-normalises ``Z_corr`` columns
@@ -154,17 +165,26 @@ def init_state(
     padded and in the engine dtype, or the (d, N) host array in engine
     order, which goes to the device through the same
     :class:`runtime.AsyncIngest`. ``timers`` (a ``runtime.PhaseTimers``)
-    times the scope ``ingest_normalize``."""
+    times the scope ``ingest_normalize``. On a ``mesh`` the state holds
+    this rank's columns: a device ``Z`` is the rank's (d, Np / size) slice,
+    a host ``Z`` the whole (d, N) array, of which only the rank's columns
+    are copied; ``design`` is the whole design."""
     dev = torch.device(device)
     dtype = getattr(torch, cfg.dtype)
     codes = design.codes.astype(np.int32)
     pad = cfg.Np - cfg.N
     if pad:
         codes = np.concatenate([codes, np.zeros((codes.shape[0], pad), np.int32)], axis=1)
+    n_loc = cfg.Np
+    if mesh is not None:
+        from .sharding import shard_cells
+
+        codes = np.ascontiguousarray(shard_cells(codes, cfg, mesh))
+        n_loc = codes.shape[1]
     if not isinstance(Z, torch.Tensor):
-        Z = AsyncIngest(Z, cfg, dev).result()
-    if Z.shape[1] != cfg.Np or Z.dtype != dtype or Z.device.type != dev.type:
-        raise ValueError(f"a device Z must be ({cfg.d}, {cfg.Np}) {dtype} on {dev}, got "
+        Z = AsyncIngest(Z, cfg, dev, mesh=mesh).result()
+    if Z.shape[1] != n_loc or Z.dtype != dtype or Z.device.type != dev.type:
+        raise ValueError(f"a device Z must be ({cfg.d}, {n_loc}) {dtype} on {dev}, got "
                          f"{tuple(Z.shape)} {Z.dtype} on {Z.device}")
     Z_orig = Z
     with _scope(timers, "ingest_normalize"):
@@ -178,7 +198,7 @@ def init_state(
         Z_orig=Z_orig,
         Z_corr=Z_corr,
         Y=torch.zeros((cfg.d, cfg.K), dtype=dtype, device=dev),
-        R=torch.zeros((cfg.K, cfg.Np), dtype=dtype, device=dev),
+        R=torch.zeros((cfg.K, n_loc), dtype=dtype, device=dev),
         O=torch.zeros((cfg.K, cfg.B), dtype=dtype, device=dev),
         E=torch.zeros((cfg.K, cfg.B), dtype=dtype, device=dev),
         codes=torch.as_tensor(codes, device=dev),
@@ -226,7 +246,7 @@ def host_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def state_from_arrays(
-    cfg: HarmonyConfig, arrays: Dict[str, np.ndarray], device
+    cfg: HarmonyConfig, arrays: Dict[str, np.ndarray], device, mesh=None
 ) -> HarmonyState:
     """Build a state from numpy arrays named as the JAX state's fields, so a
     test can hand a ``harmony_tpu`` state (padded or not) straight to the
@@ -237,8 +257,17 @@ def state_from_arrays(
     virtual-R fields are carried where present and not None. Floating
     fields the engine stores in its dtype (``ENGINE_DTYPE_FIELDS``) are
     cast to ``cfg.dtype``: exact for the float32 arrays of
-    :func:`state_to_arrays` that hold a bf16 state's values."""
+    :func:`state_to_arrays` that hold a bf16 state's values. On a ``mesh``
+    the arrays are the global ones (the JAX package's layout) and the state
+    takes this rank's part: its columns of :data:`CELL_FIELDS`, its rows
+    of the stacked penalty tables and its tiles' entries of the tile ->
+    block map (global block ids)."""
     dev = torch.device(device)
+    if mesh is not None:
+        from .sharding import shard_fields
+
+        arrays = {k: (np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v)
+                  for k, v in shard_fields(arrays, cfg, mesh).items()}
     missing = [f for f in ARRAY_FIELDS if f not in arrays and f != "key"]
     if missing:
         raise KeyError(f"state arrays missing fields: {missing}")
@@ -249,7 +278,7 @@ def state_from_arrays(
             continue
         a = np.asarray(arrays[f])
         if f in _CURSORS:
-            kw[f] = int(a)
+            kw[f] = int(a.item())
             continue
         t = _tensor(a, dev)
         kw[f] = (engine_cast(t, dtype) if f in ENGINE_DTYPE_FIELDS and t.is_floating_point()
@@ -277,12 +306,26 @@ def set_generator_state(gen: torch.Generator, state: np.ndarray) -> None:
     gen.set_state(state)
 
 
-def state_to_arrays(state: HarmonyState, with_generator: bool = False) -> Dict[str, np.ndarray]:
+def state_to_arrays(state: HarmonyState, with_generator: bool = False,
+                    mesh=None) -> Dict[str, np.ndarray]:
     """Every JAX state field as numpy (cursors as 0-d int32 arrays), the
     virtual-R fields only where set; bf16 fields as float32 arrays holding
     their values. ``with_generator`` adds ``GENERATOR_FIELD``, the torch
     generator's state (``get_state()``), so a state built from these arrays
-    continues the port's draws where this one stands."""
+    continues the port's draws where this one stands. On a ``mesh`` the
+    cell-axis fields are gathered (a collective: every rank calls it) into
+    the JAX package's global arrays: the ranks' columns in rank order, the
+    penalty tables stacked (size * nb, K, B) beside the map's global block
+    ids (harmony_tpu/sharding.py:86-93)."""
+    if mesh is not None:
+        from .sharding import gather_cells, gather_rows
+
+        full = {f: gather_cells(getattr(state, f), mesh) for f in CELL_FIELDS
+                if getattr(state, f) is not None}
+        if state.virt_pen is not None:
+            full["virt_pen"] = gather_rows(state.virt_pen, mesh)
+            full["virt_blkmap"] = gather_cells(state.virt_blkmap, mesh)
+        state = dataclasses.replace(state, **full)
     out = {GENERATOR_FIELD: state.generator.get_state().numpy()} if with_generator else {}
     for f in ARRAY_FIELDS:
         if f == "key":

@@ -84,7 +84,10 @@ def test_run_harmony_matches_between_kernel_and_torch_impls_on_cpu():
         # ported: small rotate runs take the cell-granular round (the id is
         # the one the case had while it raised)
         pytest.param({"shuffle_mode": "rotate"}, "cell", id="kwargs0-ROADMAP A9"),
-        ({"mesh": "auto"}, "ROADMAP A11"),
+        # ported: in one process (no torch.distributed group) "auto" is one
+        # device, as the JAX package's "auto" is on one device (the id is
+        # the one the case had while it raised)
+        pytest.param({"mesh": "auto"}, "mesh", id="kwargs1-ROADMAP A11"),
         # ported: checkpoints, streamed ingest and the convergence plot run
         # (the ids are the ones the cases had while they raised)
         pytest.param({"checkpoint_path": "x.npz"}, "checkpoint", id="kwargs2-ROADMAP A10"),
@@ -138,6 +141,12 @@ def test_unported_paths_raise(kwargs, item, tmp_path, monkeypatch):
         res = run_harmony(Z, meta, ["dataset"], device="cpu", return_object=True, **kwargs)
         assert res.config.virtual_r and res.config.shuffle_mode == "permute"
         assert res.state.virt_pen is None and np.isfinite(res.embeddings).all()
+        return
+    if item == "mesh":
+        res = run_harmony(Z, meta, ["dataset"], device="cpu", return_object=True, **kwargs)
+        assert res.mesh is None and res.config.n_shards == 1
+        np.testing.assert_array_equal(res.embeddings,
+                                      run_harmony(Z, meta, ["dataset"], device="cpu"))
         return
     if item == "cell":
         res = run_harmony(Z, meta, ["dataset"], device="cpu", return_object=True, **kwargs)

@@ -144,8 +144,8 @@ def test_minimal_resume_matches_uninterrupted(tmp_path, shuffle_mode):
 def test_diverged_round_keeps_the_last_good_checkpoint(tmp_path, monkeypatch):
     correct = tengine.correct
 
-    def poisoned(cfg, state, layout=None):
-        out = correct(cfg, state, layout)
+    def poisoned(cfg, state, layout=None, mesh=None):
+        out = correct(cfg, state, layout, mesh)
         if out.n_rounds == 2:
             out = dataclasses.replace(out, Z_corr=torch.full_like(out.Z_corr, float("nan")))
         return out
@@ -163,9 +163,9 @@ def test_virtual_r_saves(tmp_path, monkeypatch):
     calls = []
     materialize = tengine.materialize_r
 
-    def counted(cfg, state):
+    def counted(cfg, state, mesh=None):
         calls.append(state.virt_pen is not None)
-        return materialize(cfg, state)
+        return materialize(cfg, state, mesh)
 
     monkeypatch.setattr(tengine, "materialize_r", counted)
     path = str(tmp_path / "ck")
@@ -278,8 +278,9 @@ def test_port_checkpoint_loads_in_jax(tmp_path, mode):
     cj2, sj2 = jckpt.load_checkpoint(path, Z=Zt, design=jd, extra_rounds=0)
     hdr = {k: v for k, v in dataclasses.asdict(cj2).items()
            if k not in ("estep_impl", "mstep_impl", "donate", "permute_sorted_blocks")}
+    # permute_fused and n_shards are the port's own (resolved, not written)
     port = {k: v for k, v in dataclasses.asdict(ct).items()
-            if k not in ("estep_impl", "mstep_impl", "permute_fused")}
+            if k not in ("estep_impl", "mstep_impl", "permute_fused", "n_shards")}
     assert {**hdr, "B_vec": tuple(hdr["B_vec"])} == port
     arrays = tstate.state_to_arrays(st)
     for f in ("Y", "O", "E", "objective_kmeans", "objective_harmony", "kmeans_rounds",

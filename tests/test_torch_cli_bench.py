@@ -5,8 +5,9 @@
 * A rotate run with ``--checkpoint``, two rounds, then the same command
   again, which resumes for one: the output equals an uninterrupted
   three-round run within 5e-4 (``tests/test_cli.py:154``'s bound); the
-  resume warns about the flags it ignores, and ``--mesh`` raises
-  (ROADMAP A11).
+  resume warns about the flags it ignores. ``--mesh auto`` in one process
+  (no torchrun) runs on one device, a resume too, as the JAX command's
+  does; its runs on ranks are in ``test_torch_mesh_run.py``.
 * ``harmony-torch bench --device cpu`` prints one JSON line with the JAX
   package's payload keys (``harmony_tpu/bench.py:242-274``);
   ``make_synthetic_cells`` equals the JAX package's bit for bit.
@@ -81,13 +82,19 @@ def test_checkpoint_then_resume_equals_uninterrupted(files, capsys):
     np.testing.assert_allclose(np.load(tmp / "b.npy"), full, rtol=0, atol=5e-4)
 
 
-def test_resume_with_mesh_raises(files):
+def test_resume_with_mesh_raises(files, monkeypatch):
+    """Ported: ``--mesh auto`` without torchrun's ranks (WORLD_SIZE unset or
+    1) is one device, for a run and for a resume (the name is the one the
+    test had while the flag raised)."""
     tmp, _, _ = files
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert _run(tmp, "a.npy", "--max-iter", "1", "--checkpoint", str(tmp / "ck")) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        _run(tmp, "b.npy", "--checkpoint", str(tmp / "ck"), "--mesh", "auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        _run(tmp, "c.npy", "--mesh", "auto")
+    assert _run(tmp, "b.npy", "--max-iter", "1", "--checkpoint", str(tmp / "ck"),
+                "--mesh", "auto") == 0
+    with np.load(tmp / "ck.npz") as z:
+        assert int(z["n_rounds"]) == 2
+    assert _run(tmp, "c.npy", "--max-iter", "1", "--mesh", "auto") == 0
+    np.testing.assert_array_equal(np.load(tmp / "c.npy"), np.load(tmp / "a.npy"))
 
 
 def test_bench_prints_the_payload(capsys, monkeypatch):

@@ -61,8 +61,8 @@ def test_abort_set_from_a_thread_between_rounds(monkeypatch):
     correct = tengine.correct
     rounds = []
 
-    def signalling(cfg, state, layout=None):
-        out = correct(cfg, state, layout)
+    def signalling(cfg, state, layout=None, mesh=None):
+        out = correct(cfg, state, layout, mesh)
         rounds.append(out.n_rounds)
         round_done.set()
         setter.join(30)
