@@ -166,8 +166,9 @@ import time
 
 PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
           "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16", "host", "mesh")
-# phases run only when named in --phases: the bf16 engine at BASELINE's shape
-OPT_IN_PHASES = ("bf16_10m",)
+# phases run only when named in --phases: the bf16 engine at BASELINE's
+# shape, on one card and on the mesh
+OPT_IN_PHASES = ("bf16_10m", "mesh_bf16_10m")
 # BASELINE's north-star shape (BASELINE.json): 10M cells x 50, 100 batches,
 # K = 100 (default_nclust), bf16
 N_10M, B_10M = 10_000_000, 100
@@ -179,13 +180,11 @@ LEGACY_PATHS = ("legacy", "legacy_virtual")
 SEGMENT_PATHS = (("segment", 200_000, "rotate"), ("segment_permute", 80_000, "permute"))
 B_SEGMENT = 40
 # the mesh phase: two gloo ranks on the one card (NCCL takes one rank a
-# device); the full-width paths and the worker options that select them
+# device)
 MESH_RANKS = 2
-MESH_PATHS = (("mesh_main", ("--shuffle", "rotate")),
-              ("mesh_virtual", ("--shuffle", "rotate", "--virtual")),
-              ("mesh_permute", ("--shuffle", "permute")))
-# seconds a spawned rank may take (each call of a rank set)
+# seconds a spawned rank may take (each call of a rank set; the 10M run's)
 MESH_RANK_TIMEOUT = 300.0
+MESH_10M_TIMEOUT = 1500.0
 # pairs of run_bench's timed rounds on each mesh path and its one-device run
 MESH_BENCH_PAIRS = 3
 
@@ -198,6 +197,27 @@ FP32_FLOP_PER_S = 67e12
 # main-path shape: the repo's canonical 500k x 50, K = 100, B = 10
 N_MAIN, D_MAIN, K_MAIN, B_MAIN = 500_000, 50, 100, 10
 MAX_ITER = 10  # run_harmony's default; early stop is on
+# the mesh phase's full-width paths: each one's cells (the bench generator,
+# seed 0, K = 100), batches and settings, and what it must resolve to
+# (route, fused permute phase, virtual R, M-step layout); run_bench takes
+# the paths whose settings it has ("bench")
+_MESH_ROTATE = dict(cells=N_MAIN, batches=B_MAIN, shuffle="rotate", mic=None, carry=True,
+                    dtype="float32", virtual=False, bench=True,
+                    want=("carry", False, False, "tiled"))
+MESH_PATHS = {
+    "mesh_main": _MESH_ROTATE,
+    "mesh_virtual": {**_MESH_ROTATE, "virtual": True, "want": ("carry", False, True, "tiled")},
+    "mesh_permute": {**_MESH_ROTATE, "shuffle": "permute",
+                     "want": ("None", True, False, "tiled")},
+    "mesh_permute_rounds": {**_MESH_ROTATE, "shuffle": "permute", "mic": 6, "bench": False,
+                            "want": ("None", False, False, "dense")},
+    "mesh_rotate_cell": {**_MESH_ROTATE, "carry": False, "bench": False,
+                         "want": ("cell", False, False, "dense")},
+    "mesh_virtual_bf16": {**_MESH_ROTATE, "virtual": True, "dtype": "bfloat16",
+                          "want": ("carry", False, True, "tiled")},
+    "mesh_segment": {**_MESH_ROTATE, "cells": 200_000, "batches": B_SEGMENT,
+                     "want": ("carry", False, False, "segment")},
+}
 # K11 past K10's limits (N, d, K, B_vec, seed), then K9: 300 dims (one
 # CTA an SM) and v_chain at eight cluster values a lane (K = 256)
 VIRTUAL_WIDE = ((20_000, 300, 32, (B_MAIN,), 26), (20_000, D_MAIN, 256, (B_MAIN,), 29))
@@ -1506,39 +1526,19 @@ def check_cell_route(torch, dev, wrappers):
     require(sep1 < sep0, "cell-granular route: batch-centroid separation did not shrink")
 
 
-def run_driver(N, Zh, meta, dev, Y0=None, **change):
-    """The main shape through the config and the driver, for the options
-    run_harmony has no argument for (``change``: the rotate rounds without
-    the stats carry, the legacy op order, the forced fused permute phase,
-    and any other config field), with run_harmony's ridge solver and
-    ingest: the batch-tiled order and its inverse; ``Y0`` injects the
+def run_driver(Zh, meta, dev, Y0=None, **change):
+    """The cells ``Zh`` (N, d) in ``meta`` through run_harmony's steps with
+    the config and the driver (multihost_worker.driver_result), for the
+    options run_harmony has no argument for (``change``: the rotate rounds
+    without the stats carry, the legacy op order, the forced fused permute
+    phase, and any other config field), the rotate schedule unless
+    ``change`` names another, MAX_ITER with early stop; ``Y0`` injects the
     initial centroids (d, K)."""
-    import dataclasses
+    from harmony_tpu_torch.config import harmony_options
+    from harmony_tpu_torch.multihost_worker import driver_result
 
-    from harmony_tpu_torch import api, driver, engine, preprocess
-    from harmony_tpu_torch.config import finalize_engine_config, harmony_options
-    from harmony_tpu_torch.runtime import AsyncIngest, PhaseTimers
-    from harmony_tpu_torch.state import init_state
-
-    opts = harmony_options()
-    design = preprocess.build_design(meta, ["batch"])
-    Z = preprocess.orient_embedding(Zh, N)
-    cfg = preprocess.resolve_config(
-        n_cells=N, d=Z.shape[0], design=design, nclust=None, max_iter=MAX_ITER,
-        early_stop=True, options=opts, verbose=False, lambda_estimation=True,
-        ridge_solver="auto", shuffle_mode="rotate")
-    cfg = finalize_engine_config(dataclasses.replace(cfg, **change))
-    perm, _ = api.ingest_perm(cfg, design, 0)
-    _, design, inv = api.apply_ingest_order(design, perm)
-    layout = engine.mstep_layout(cfg, design.codes, dev)
-    hp = preprocess.expand_hyperparams(design, cfg.K, None, 0.1, None, opts.tau)
-    timers = PhaseTimers(dev)
-    with timers.scope("ingest"):
-        Z = AsyncIngest(Z, cfg, dev).result(perm)
-        state = init_state(cfg, Z, design, hp.sigma, hp.theta, hp.lamb, 0, dev)
-    state = driver.run(cfg, state, timers=timers, layout=layout, Y0=Y0)
-    return api.HarmonyResult(config=cfg, state=state, design=design, timers=timers,
-                             ingest_inv=inv)
+    return driver_result(Zh, meta, None, None, MAX_ITER, 0, change.pop("shuffle_mode", "rotate"),
+                         harmony_options(), device=dev, Y0=Y0, **change)
 
 
 def run_main_path(torch, dev, wrappers, phase):
@@ -1574,9 +1574,9 @@ def run_main_path(torch, dev, wrappers, phase):
         w.launches = 0
     t0 = time.perf_counter()
     if phase == "rotate_two_phase":
-        res = run_driver(N_MAIN, Zh, meta, dev, rotate_stats_carry=False)
+        res = run_driver(Zh, meta, dev, rotate_stats_carry=False)
     elif phase.startswith("legacy"):
-        res = run_driver(N_MAIN, Zh, meta, dev, estep_variant="legacy",
+        res = run_driver(Zh, meta, dev, estep_variant="legacy",
                          virtual_r=phase == "legacy_virtual")
     else:
         res = run_harmony(Zh, meta, ["batch"], max_iter=MAX_ITER, return_object=True, seed=0,
@@ -1917,7 +1917,7 @@ def check_bf16_routes(torch, dev, wrappers):
         for dt in ("float32", "bfloat16"):
             for w in wrappers.values():
                 w.launches = 0
-            res = run_driver(n, Zh, meta, dev, Y0=Y0, dtype=dt, max_iter_harmony=BF16_ROUTE_ITERS,
+            res = run_driver(Zh, meta, dev, Y0=Y0, dtype=dt, max_iter_harmony=BF16_ROUTE_ITERS,
                              epsilon_harmony=-np.inf, **change)
             torch.cuda.synchronize()
             launches = {k: w.launches for k, w in wrappers.items()}
@@ -2182,39 +2182,67 @@ def mesh_ranks(n, extra, what):
     return lines
 
 
-def check_inject(lines, Zc, mode, size, need, never):
+# the injected modes on the mesh (multihost_worker --inject): the kernels
+# each launches on every rank, those it must not, and its M-step layout
+_NOT_E = ("K1", "K2", "K3", "K6", "K7", "K8", "K9", "K10", "K11", "K12")
+MESH_INJECT = {
+    "rotate": (("K6", "K7", "K9"), ("K8", "K10", "K11", "K12"), "tiled"),
+    "virtual": (("K6", "K7", "K10", "K11"), ("K8", "K9", "K12"), "tiled"),
+    "rotate_rounds": (("K6", "K7", "K8", "K9"), ("K10", "K11", "K12"), "tiled"),
+    "permute": (("K8", "K9"), ("K1", "K2", "K3", "K6", "K7", "K10", "K11", "K12"), "tiled"),
+    "permute_rounds": (("K4", "K5"), _NOT_E, "dense"),
+    "rotate_cell": (("K4", "K5"), _NOT_E, "dense"),
+    "segment": (("K6", "K7"), ("K1", "K2", "K3", "K4", "K5", "K8", "K9", "K10", "K11", "K12"),
+                "segment"),
+    "virtual_bf16": (BF16_FORMS, ("K1", "K2", "K3", "K4", "K5", "K8", "K9", "K12"), "tiled"),
+}
+
+
+def check_inject(lines, Zc, mode, size):
     """The injected runs of one mode on the ranks (multihost_worker
-    --inject): the kernel route launched ``need`` and none of ``never`` on
-    every rank, the plain route no kernel, and the kernel route held to the
-    plain one (and virtual R to its materialised run) at the traj bounds;
-    the ranks' traces equal."""
+    --inject): the kernel route launched the mode's kernels and none of
+    those it must not on every rank (MESH_INJECT), the plain route no
+    kernel, both took the mode's M-step layout, and the kernel route held
+    to the plain one (and virtual R to its materialised run) at the traj
+    bounds, a bf16 run at check_bf16_routes' (Z_corr relative Frobenius
+    and the objective at BF16_HELD_RTOL); the ranks' traces equal."""
     import numpy as np
 
+    need, never, lay = MESH_INJECT[mode]
     for r, ln in enumerate(lines):
         kl = ln[f"{mode}/kernel"]["launches"]
         require(all(kl[k] > 0 for k in need) and all(kl[k] == 0 for k in never),
                 f"mesh {mode} {size} kernel route, rank {r}: launches {kl}")
         require(not any(ln[f"{mode}/torch"]["launches"].values()),
                 f"mesh {mode} {size} plain route launched kernels on rank {r}")
-        require(ln[f"{mode}/kernel"]["tiled"], f"mesh {mode} {size}: no batch-tiled layout")
-        require(ln[f"{mode}/kernel"]["virtual"] == (mode == "virtual"),
+        for v in ("kernel", "torch"):
+            got = ln[f"{mode}/{v}"]
+            kind = "tiled" if got["tiled"] else "segment" if got["segments"] else "dense"
+            require(kind == lay, f"mesh {mode} {size} {v}: the {kind} M-step, not {lay}")
+        require(ln[f"{mode}/kernel"]["virtual"] == mode.startswith("virtual"),
                 f"mesh {mode} {size}: virtual R engaged={ln[f'{mode}/kernel']['virtual']}")
-    pairs = [("kernel", "torch", 1e-4, 1e-4)]
+    bf16 = mode.endswith("bf16")
+    pairs = [("kernel", "torch", BF16_HELD_RTOL if bf16 else 1e-4,
+              BF16_HELD_RTOL if bf16 else 1e-4)]
     if mode == "virtual" and f"{mode}/materialised" in lines[0]:
         pairs.append(("kernel", "materialised", 1e-5, 2e-4))
-    for a, b, obj_rtol, z_atol in pairs:
+    for a, b, obj_rtol, z_tol in pairs:
         ta = np.asarray(lines[0][f"{mode}/{a}"]["objective_kmeans"])
         tb = np.asarray(lines[0][f"{mode}/{b}"]["objective_kmeans"])
         obj_rel = float(np.max(np.abs(ta - tb) / np.abs(tb)))
-        z_err = float(np.max(np.abs(Zc[f"{mode}__{a}"] - Zc[f"{mode}__{b}"])))
+        za, zb = Zc[f"{mode}__{a}"].astype(np.float64), Zc[f"{mode}__{b}"].astype(np.float64)
+        z_err = float(np.linalg.norm(za - zb) / np.linalg.norm(zb) if bf16
+                      else np.max(np.abs(za - zb)))
         log(f"  mesh {mode} {size}, {a} against {b}: objective rel {obj_rel:.3e} (rtol "
-            f"{obj_rtol}), max|dZ_corr| {z_err:.3e} (atol {z_atol}); rank-0 launches "
+            f"{obj_rtol}), Z_corr {'relative Frobenius' if bf16 else 'max abs'} error "
+            f"{z_err:.3e} (bound {z_tol}); rank-0 launches "
             f"{ {k: v for k, v in lines[0][f'{mode}/{a}']['launches'].items() if v} }; "
             f"{lines[0][f'{mode}/{a}']['seconds']:.2f} s and "
-            f"{lines[0][f'{mode}/{b}']['seconds']:.2f} s")
+            f"{lines[0][f'{mode}/{b}']['seconds']:.2f} s; all-reduces "
+            f"{lines[0][f'{mode}/{a}']['collectives']['all_reduce']}")
         require(obj_rel <= obj_rtol,
                 f"mesh {mode} {size}: {a} and {b} objectives differ: {obj_rel}")
-        require(z_err <= z_atol, f"mesh {mode} {size}: {a} and {b} Z_corr differ: {z_err}")
+        require(z_err <= z_tol, f"mesh {mode} {size}: {a} and {b} Z_corr differ: {z_err}")
         require(lines[0][f"{mode}/{a}"]["kmeans_rounds"]
                 == lines[0][f"{mode}/{b}"]["kmeans_rounds"],
                 f"mesh {mode} {size}: kmeans rounds differ")
@@ -2224,31 +2252,140 @@ def check_inject(lines, Zc, mode, size, need, never):
                 f"mesh {mode} {size}: the ranks' traces differ")
 
 
+def mesh_worker_args(p: dict, bench: bool = True) -> list:
+    """multihost_worker's arguments for the MESH_PATHS entry ``p`` (2 gloo
+    ranks unless the caller adds another backend)."""
+    args = ["--cells", str(p["cells"]), "--dims", str(D_MAIN), "--batches", str(p["batches"]),
+            "--nclust", str(K_MAIN), "--max-iter", str(MAX_ITER), "--shuffle", p["shuffle"],
+            "--dtype", p["dtype"]]
+    if p["mic"]:
+        args += ["--max-iter-cluster", str(p["mic"])]
+    if not p["carry"]:
+        args.append("--no-stats-carry")
+    if p["virtual"]:
+        args.append("--virtual")
+    if bench and p["bench"]:
+        args += ["--bench-pairs", str(MESH_BENCH_PAIRS)]
+    return args
+
+
+def one_device_run(torch, dev, p: dict, Z, batches):
+    """The MESH_PATHS entry ``p`` on one card, on the cells ``Z`` in
+    ``batches``, as the worker runs it on the ranks: run_harmony, or for
+    rotate_stats_carry=False the worker's driver_result with the mesh's
+    config (n_shards = MESH_RANKS: the cell-granular round on the plain
+    random ingest order; on its own config one card takes the written-R
+    rounds, K12, a tile schedule on the batch-tiled order, another
+    trajectory). Returns (trace, iterations, seconds an iteration from the
+    phase timers, peak MiB, the phase seconds)."""
+    from harmony_tpu_torch import harmony_options, run_harmony
+    from harmony_tpu_torch.multihost_worker import driver_result
+
+    opts = harmony_options(max_iter_cluster=p["mic"] or 4)
+    _reset_peak(torch)
+    meta = {"dataset": batches.astype(str)}
+    if p["carry"]:
+        res = run_harmony(Z, meta, ["dataset"], nclust=K_MAIN, max_iter=MAX_ITER, seed=0,
+                          shuffle_mode=p["shuffle"], options=opts, virtual_r=p["virtual"] or None,
+                          dtype=p["dtype"], return_object=True)
+    else:
+        res = driver_result(Z, meta, None, K_MAIN, MAX_ITER, 0, p["shuffle"], opts,
+                            device=dev, rotate_stats_carry=False, dtype=p["dtype"],
+                            n_shards=MESH_RANKS)
+    torch.cuda.synchronize()
+    ph, n_it = res.phase_seconds(), int(res.state.n_rounds)
+    out = (res.objective_harmony.tolist(), n_it,
+           (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / n_it, _peak_mib(torch), ph)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def held_mesh_path(phase, p, lines, ref, sep0):
+    """Hold a full-width mesh run (each rank's JSON line) to its one-device
+    run ``ref`` (one_device_run's, with its ``bench`` seconds where run_bench
+    takes the path): the ranks' traces equal, the final objective within
+    5%, finite embeddings of the right shape, separation shrinking from
+    ``sep0``, R's columns within 1e-4 of 1 (1e-2 stored in bf16), the route,
+    fused permute phase, virtual R and M-step layout resolved as ``p``
+    names; logs seconds an iteration, all-reduces and their bytes, and each
+    rank's peak memory. Returns the launches summed over the ranks."""
+    first = lines[0]
+    for ln in lines[1:]:
+        require(ln["objective_harmony"] == first["objective_harmony"],
+                f"{phase}: the ranks' objective traces differ")
+    launches = {k: sum(ln["launches"][k] for ln in lines) for k in first["launches"]}
+    trace, n1, per_it1, peak1, _ = ref["run"]
+    obj, obj1 = first["objective_harmony"][-1], trace[-1]
+    rel = abs(obj - obj1) / abs(obj1)
+    n_it, coll, cfg = first["n_iter"], first["collectives"], first["config"]
+    log(f"{phase}: {p['cells']} x {D_MAIN}, K={cfg['K']}, B={p['batches']}, {cfg['dtype']} on "
+        f"{len(lines)} gloo ranks (T={cfg['T']}, Np={cfg['Np']}, route {cfg['route']}, fused "
+        f"permute {cfg['permute_fused']}, virtual R {cfg['virtual']}, M-step {cfg['mstep']}): "
+        f"{n_it} iterations; final objective {obj:.4f} against one device's {obj1:.4f} "
+        f"({n1} iterations), rel {rel:.3e} (bound 0.05)")
+    bench = ""
+    if "bench" in first:
+        bench = (f"run_bench (CUDA events, median of {MESH_BENCH_PAIRS} pairs): "
+                 f"{first['bench']['seconds_per_iter']:.4f} (rank 0; rank 1 "
+                 f"{lines[1]['bench']['seconds_per_iter']:.4f}) against one device's "
+                 f"{ref['bench']:.4f}; ")
+    log(f"  seconds per iteration, {bench}the run's phase timers "
+        f"{first['seconds_per_iter']:.4f} against {per_it1:.4f} (warm-up included); "
+        f"all-reduces an iteration {coll['all_reduce'] / n_it:.1f}, "
+        f"{coll['all_reduce_bytes'] / n_it / 1e3:.1f} kB a rank (one all-reduce of 16 kB: "
+        f"{first['allreduce_16k_ms']:.3f} ms); all-gathers over the run {coll['all_gather']} "
+        f"({coll['all_gather_bytes'] / 2**20:.1f} MiB a rank), broadcasts {coll['broadcast']}")
+    log(f"  peak device memory by rank {[round(ln['peak_mib'], 1) for ln in lines]} MiB "
+        f"(one device: {peak1:.1f} MiB); separation {sep0:.4f} -> "
+        f"{first['separation_out']:.4f}; R column sums within {first['r_colsum_err']:.2e} "
+        f"of 1; launches (summed over ranks) { {k: v for k, v in launches.items() if v} }")
+    log(f"  phase seconds (rank 0): "
+        + json.dumps({k: round(v, 4) for k, v in first["phase_seconds"].items()}))
+    colsum = 1e-2 if p["dtype"] == "bfloat16" else 1e-4
+    require(first["finite"] and first["shape"] == [p["cells"], D_MAIN],
+            f"{phase}: embeddings not finite or of the wrong shape")
+    require(rel <= 0.05, f"{phase}: final objective {obj} is not within 5% of {obj1}")
+    require(first["separation_out"] < sep0, f"{phase}: separation did not shrink")
+    require(first["r_colsum_err"] <= colsum,
+            f"{phase}: R column sums off by {first['r_colsum_err']} (bound {colsum})")
+    got = (str(cfg["route"]), cfg["permute_fused"], cfg["virtual"], cfg["mstep"])
+    require(got == p["want"] and cfg["dtype"] == p["dtype"],
+            f"{phase}: resolved {cfg}, not {p['want']}")
+    return launches
+
+
 def check_mesh(torch, dev):
     """The mesh phase: cells sharded over torch.distributed ranks, one
     process a rank (harmony_tpu_torch.multihost_worker), the kernels built
     by the parent before (phase 2), so the ranks load them.
 
-    1. K6-K11 on shards against their plain versions: 20,000 x 50 cells,
-       K = 100, B = 10, on 2 gloo ranks, injected centroids and each
-       shard's schedules (or the global permutations), the kernel route
-       against the plain route on the same shards: the rotate route with R
-       written (K6, K7, K9), with virtual R (K6, K7, K10, K11; also against
-       its materialised run at the JAX package's 1e-5), the unfused M-step
-       (max_iter_cluster = 6: K8, K9) and the permute phase (the plain
-       sharded phase, K8, K9); objective rtol 1e-4, Z_corr atol 1e-4. Then
-       the same at 500,000 cells (250,000 a shard, 3 iterations) for the
-       rotate route, virtual R and the permute phase, kernel against plain.
-    2. The full width, nothing cut: 500,000 x 50, K = 100, B = 10 (seed 0,
-       bench.make_synthetic_cells), run_harmony(mesh=) on 2 gloo ranks on
-       the one card: mesh_main (rotate), mesh_virtual, mesh_permute; each
-       held to run_harmony on one device on the same cells (final objective
-       within 5%), separation shrinking, R's columns summing to 1 within
-       1e-4, the ranks' traces equal bit for bit; logged: seconds an
-       iteration beside the one-device run's (the runs' phase timers, and
-       bench.run_bench on the same cells, CUDA events, median of
-       MESH_BENCH_PAIRS pairs, warm-up excluded), the all-reduces an
-       iteration and their bytes, each rank's peak memory.
+    1. The kernels on shards against their plain versions: 20,000 x 50
+       cells, K = 100, B = 10, on 2 gloo ranks, injected centroids and each
+       shard's schedules (or the global permutations and cell-granular
+       schedules), the kernel route against the plain route on the same
+       shards (MESH_INJECT): the rotate route with R written (K6, K7, K9),
+       with virtual R (K6, K7, K10, K11; also against its materialised run
+       at the JAX package's 1e-5), the unfused M-step (max_iter_cluster =
+       6: K8, K9), the permute phase (the plain sharded phase, K8, K9), the
+       per-round permute schedule (max_iter_cluster = 6, plain rounds, K4,
+       K5), the cell-granular round (rotate_stats_carry=False, K4, K5), and
+       bf16 virtual R (the bf16 forms of K6, K7, K10, K11); objective rtol
+       1e-4, Z_corr atol 1e-4 (bf16: both 2e-2, Z_corr relative
+       Frobenius); then the segmented M-step at B = 40 (K6, K7). Then at
+       500,000 cells (250,000 a shard, 3 iterations) for the rotate route,
+       virtual R and the permute phase, kernel against plain.
+    2. The full width (MESH_PATHS), nothing cut: the bench generator (seed
+       0), K = 100, run_harmony(mesh=) on 2 gloo ranks on the one card
+       (through the worker's driver_result for rotate_stats_carry=False):
+       mesh_main (rotate), mesh_virtual, mesh_permute, mesh_permute_rounds,
+       mesh_rotate_cell, mesh_virtual_bf16 at 500,000 x 50, B = 10, and
+       mesh_segment at 200,000 x 50, B = 40; each held to one device's run
+       on the same cells (held_mesh_path), with seconds an iteration (the
+       runs' phase timers, and bench.run_bench on both where it takes the
+       path: CUDA events, median of MESH_BENCH_PAIRS pairs, warm-up
+       excluded), the all-reduces an iteration and their bytes, each
+       rank's peak memory.
     3. mesh_main on a 1-rank NCCL group against the one-device run, the
        objective trace at rtol 1e-5 (the delta merge O + (O' - O) rounds
        otherwise than O').
@@ -2257,110 +2394,59 @@ def check_mesh(torch, dev):
 
     import numpy as np
 
-    from harmony_tpu_torch import run_harmony
     from harmony_tpu_torch.bench import make_synthetic_cells, run_bench
     from harmony_tpu_torch.multihost_worker import separation
 
     log(f"mesh: {MESH_RANKS} gloo ranks on {torch.cuda.get_device_name(0)} (one process a "
         "rank, each its own CUDA context); the kernels were built by this process")
     # 1. the kernels on shards against their plain versions: every mode at
-    # 20k cells, then the three mesh paths' routes at the full width, where
-    # each shard holds 250k cells (the injected runs' Z_corr pass through a
-    # temporary directory)
-    need = {"rotate": ("K6", "K7", "K9"), "virtual": ("K6", "K7", "K10", "K11"),
-            "rotate_rounds": ("K6", "K7", "K8", "K9"), "permute": ("K8", "K9")}
-    never = {"rotate": ("K8", "K10", "K11", "K12"), "virtual": ("K8", "K9", "K12"),
-             "rotate_rounds": ("K10", "K11", "K12"),
-             "permute": ("K1", "K2", "K3", "K6", "K7", "K10", "K11", "K12")}
-    for cells, modes, variants, iters in (
-            (20_000, tuple(need), "kernel,torch,materialised", 5),
-            (N_MAIN, ("rotate", "virtual", "permute"), "kernel,torch", 3)):
-        size = f"{cells // 1000}k"
+    # 20k cells (the segmented M-step's at 40 batches), then three mesh
+    # paths' routes at the full width, where each shard holds 250k cells
+    # (the injected runs' Z_corr pass through a temporary directory)
+    for cells, batches, modes, variants, iters in (
+            (20_000, B_MAIN, ("rotate", "virtual", "rotate_rounds", "permute", "permute_rounds",
+                              "rotate_cell", "virtual_bf16"), "kernel,torch,materialised", 5),
+            (20_000, B_SEGMENT, ("segment",), "kernel,torch", 5),
+            (N_MAIN, B_MAIN, ("rotate", "virtual", "permute"), "kernel,torch", 3)):
+        size = f"{cells // 1000}k, B={batches}"
         with tempfile.TemporaryDirectory() as tmp:
             npz = os.path.join(tmp, "mesh_inject.npz")
             lines = mesh_ranks(MESH_RANKS, [
                 "--backend", "gloo", "--cells", str(cells), "--dims", str(D_MAIN), "--batches",
-                str(B_MAIN), "--nclust", str(K_MAIN), "--max-iter", str(iters), "--inject",
+                str(batches), "--nclust", str(K_MAIN), "--max-iter", str(iters), "--inject",
                 ",".join(modes), "--variants", variants, "--out", npz],
-                f"K6-K11 on shards, {size}")
+                f"the kernels on shards, {size}")
             with np.load(npz) as z:
                 Zc = {k: z[k] for k in z.files}
         for mode in modes:
-            check_inject(lines, Zc, mode, size, need[mode], never[mode])
+            check_inject(lines, Zc, mode, size)
         del Zc
 
     # 2. the full width against one device on the same cells
-    Z, batches = make_synthetic_cells(N_MAIN, D_MAIN, B_MAIN, seed=0)
-    meta = {"dataset": batches.astype(str)}
-    sep0 = separation(Z, batches)
-    single = {}
-    for phase, opts in MESH_PATHS:
-        kw = {"shuffle_mode": opts[1], "virtual_r": True if "--virtual" in opts else None}
-        _reset_peak(torch)
-        res = run_harmony(Z, meta, ["dataset"], nclust=K_MAIN, max_iter=MAX_ITER, seed=0,
-                          return_object=True, **kw)
-        ph, n_it = res.phase_seconds(), int(res.state.n_rounds)
-        single[phase] = dict(trace=res.objective_harmony.tolist(), n_iter=n_it,
-                             per_it=(ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / n_it,
-                             peak=_peak_mib(torch))
-        del res
-        os.environ["HARMONY_BENCH_PAIRS"] = str(MESH_BENCH_PAIRS)
-        single[phase]["bench"] = run_bench(
-            n_cells=N_MAIN, d=D_MAIN, n_batches=B_MAIN, nclust=K_MAIN, seed=0,
-            shuffle_mode=opts[1], virtual_r=kw["virtual_r"])["seconds_per_iter"]
-        torch.cuda.empty_cache()
-    launches = {}
-    common = ["--cells", str(N_MAIN), "--dims", str(D_MAIN), "--batches", str(B_MAIN),
-              "--nclust", str(K_MAIN), "--max-iter", str(MAX_ITER)]
-    for phase, opts in MESH_PATHS:
-        lines = mesh_ranks(MESH_RANKS, ["--backend", "gloo", *common, *opts, "--bench-pairs",
-                                        str(MESH_BENCH_PAIRS)], phase)
-        first, ref = lines[0], single[phase]
-        for ln in lines[1:]:
-            require(ln["objective_harmony"] == first["objective_harmony"],
-                    f"{phase}: the ranks' objective traces differ")
-        launches[phase] = {k: sum(ln["launches"][k] for ln in lines) for k in first["launches"]}
-        obj, obj1 = first["objective_harmony"][-1], ref["trace"][-1]
-        rel = abs(obj - obj1) / abs(obj1)
-        n_it = first["n_iter"]
-        coll = first["collectives"]
-        cfg = first["config"]
-        log(f"{phase}: run_harmony(mesh=) {N_MAIN} x {D_MAIN}, K={cfg['K']}, B={B_MAIN} on "
-            f"{MESH_RANKS} gloo ranks (T={cfg['T']}, Np={cfg['Np']}, route {cfg['route']}, "
-            f"fused permute {cfg['permute_fused']}, virtual R {cfg['virtual']}): {n_it} "
-            f"iterations; final objective {obj:.4f} against one device's {obj1:.4f} "
-            f"({ref['n_iter']} iterations), rel {rel:.3e} (bound 0.05)")
-        log(f"  seconds per iteration, run_bench (CUDA events, median of {MESH_BENCH_PAIRS} "
-            f"pairs): {first['bench']['seconds_per_iter']:.4f} (rank 0; rank 1 "
-            f"{lines[1]['bench']['seconds_per_iter']:.4f}) against one device's "
-            f"{ref['bench']:.4f}; the run's phase timers {first['seconds_per_iter']:.4f} "
-            f"against {ref['per_it']:.4f} (warm-up included); "
-            f"all-reduces an iteration {coll['all_reduce'] / n_it:.1f}, "
-            f"{coll['all_reduce_bytes'] / n_it / 1e3:.1f} kB a rank (one all-reduce of 16 kB: "
-            f"{first['allreduce_16k_ms']:.3f} ms); all-gathers over the run "
-            f"{coll['all_gather']} ({coll['all_gather_bytes'] / 2**20:.1f} MiB a rank), "
-            f"broadcasts {coll['broadcast']}")
-        log(f"  peak device memory by rank {[round(ln['peak_mib'], 1) for ln in lines]} MiB "
-            f"(one device: {ref['peak']:.1f} MiB); separation {sep0:.4f} -> "
-            f"{first['separation_out']:.4f}; R column sums within "
-            f"{first['r_colsum_err']:.2e} of 1; launches (summed over ranks) "
-            f"{ {k: v for k, v in launches[phase].items() if v} }")
-        log(f"  phase seconds (rank 0): "
-            + json.dumps({k: round(v, 4) for k, v in first["phase_seconds"].items()}))
-        require(first["finite"] and first["shape"] == [N_MAIN, D_MAIN],
-                f"{phase}: embeddings not finite or of the wrong shape")
-        require(rel <= 0.05, f"{phase}: final objective {obj} is not within 5% of {obj1}")
-        require(first["separation_out"] < sep0, f"{phase}: separation did not shrink")
-        require(first["r_colsum_err"] <= 1e-4,
-                f"{phase}: R column sums off by {first['r_colsum_err']}")
-        require(cfg["virtual"] == (phase == "mesh_virtual")
-                and cfg["permute_fused"] == (phase == "mesh_permute"),
-                f"{phase}: resolved {cfg}")
+    launches, cells = {}, {}
+    for phase, p in MESH_PATHS.items():
+        key = (p["cells"], p["batches"])
+        if key not in cells:
+            cells = {key: make_synthetic_cells(p["cells"], D_MAIN, p["batches"], seed=0)}
+        Z, batches = cells[key]
+        ref = {"run": one_device_run(torch, dev, p, Z, batches)}
+        if p["bench"]:
+            os.environ["HARMONY_BENCH_PAIRS"] = str(MESH_BENCH_PAIRS)
+            ref["bench"] = run_bench(
+                n_cells=p["cells"], d=D_MAIN, n_batches=p["batches"], nclust=K_MAIN, seed=0,
+                shuffle_mode=p["shuffle"], virtual_r=p["virtual"] or None,
+                dtype=p["dtype"])["seconds_per_iter"]
+            torch.cuda.empty_cache()
+        lines = mesh_ranks(MESH_RANKS, ["--backend", "gloo", *mesh_worker_args(p)], phase)
+        launches[phase] = held_mesh_path(phase, p, lines, ref, separation(Z, batches))
+        if phase == "mesh_main":
+            main_trace = ref["run"][0]
 
     # 3. one NCCL rank against one device
-    (ln,) = mesh_ranks(1, ["--backend", "nccl", *common, "--shuffle", "rotate"],
+    (ln,) = mesh_ranks(1, ["--backend", "nccl", *mesh_worker_args(MESH_PATHS["mesh_main"],
+                                                                  bench=False)],
                        "mesh_main, 1 NCCL rank")
-    a, b = np.asarray(ln["objective_harmony"]), np.asarray(single["mesh_main"]["trace"])
+    a, b = np.asarray(ln["objective_harmony"]), np.asarray(main_trace)
     require(len(a) == len(b), f"1-rank NCCL run took {len(a) - 1} iterations, one device "
             f"{len(b) - 1}")
     rel = float(np.max(np.abs(a - b) / np.abs(b)))
@@ -2370,6 +2456,43 @@ def check_mesh(torch, dev):
         f"16 kB: {ln['allreduce_16k_ms']:.3f} ms)")
     require(rel <= 1e-5, f"1-rank NCCL run differs from one device: {rel}")
     return launches
+
+
+def check_mesh_bf16_10m(torch, dev):
+    """The opt-in phase mesh_bf16_10m: BASELINE's fifth configuration
+    (10,000,000 x 50 cells, B = 100, K = 100, bf16; the bench generator,
+    seed 0) through run_harmony(mesh=) on 2 gloo ranks of the one card,
+    held to run_harmony on one device on the same cells as the mesh phase
+    holds its paths (held_mesh_path), each rank's init seconds and peak
+    memory logged. Returns {"mesh_bf16_10m": launches summed over the
+    ranks}."""
+    from harmony_tpu_torch.bench import make_synthetic_cells
+    from harmony_tpu_torch.multihost_worker import separation, spawn
+
+    p = {**MESH_PATHS["mesh_virtual_bf16"], "cells": N_10M, "batches": B_10M, "bench": False}
+    t0 = time.perf_counter()
+    Z, batches = make_synthetic_cells(N_10M, D_MAIN, B_10M, seed=0)
+    log(f"mesh_bf16_10m: {N_10M} x {D_MAIN} cells, {B_10M} batches made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ref = {"run": one_device_run(torch, dev, p, Z, batches)}
+    log(f"  one device: {len(ref['run'][0]) - 1} iterations, phase seconds "
+        + json.dumps({k: round(v, 3) for k, v in ref["run"][4].items()}))
+    sep0 = separation(Z, batches)
+    del Z, batches
+    t0 = time.perf_counter()
+    res = spawn(MESH_RANKS, ["--backend", "gloo", *mesh_worker_args(p)], MESH_10M_TIMEOUT,
+                cwd=os.getcwd())
+    for r, (rc, so, se) in enumerate(res):
+        if rc != 0:
+            log(f"  mesh_bf16_10m rank {r} stderr tail:\n{se[-4000:]}")
+        require(rc == 0, f"mesh_bf16_10m: rank {r} of {MESH_RANKS} exited with {rc}")
+    from harmony_tpu_torch.multihost_worker import json_line
+
+    lines = [json_line(so) for _, so, _ in res]
+    log(f"  {MESH_RANKS} ranks done in {time.perf_counter() - t0:.1f} s wall; init_cluster "
+        f"by rank {[round(ln['phase_seconds'].get('init_cluster', 0.0), 3) for ln in lines]} s, "
+        f"wall by rank {[round(ln['wall_s'], 1) for ln in lines]} s")
+    return {"mesh_bf16_10m": held_mesh_path("mesh_bf16_10m", p, lines, ref, sep0)}
 
 
 def main(argv=None) -> int:
@@ -2461,7 +2584,12 @@ def main(argv=None) -> int:
              "mesh_virtual": (("K6", "K7", "K10", "K11"),
                               ("K1", "K2", "K3", "K4", "K5", "K8", "K9", "K12")),
              "mesh_permute": (("K8", "K9"), ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10",
-                                              "K11", "K12"))}
+                                              "K11", "K12")),
+             "mesh_permute_rounds": (("K4", "K5"), _NOT_E),
+             "mesh_rotate_cell": (("K4", "K5"), _NOT_E),
+             "mesh_virtual_bf16": MESH_INJECT["virtual_bf16"][:2],
+             "mesh_segment": MESH_INJECT["segment"][:2],
+             "mesh_bf16_10m": MESH_INJECT["virtual_bf16"][:2]}
     t_start = time.perf_counter()
 
     # ---- 1. env ----------------------------------------------------------
@@ -2675,17 +2803,22 @@ def main(argv=None) -> int:
             by_path["host_cli"] = launches[k]
             kernels[k]["launches"] = sum(by_path.values())
 
-    # ---- 16. the mesh: cells sharded over torch.distributed ranks --------
+    # ---- 16.-17. the mesh: cells sharded over torch.distributed ranks ----
+    mesh_launches = {}
     if "mesh" in phases:
-        for phase, launches in check_mesh(torch, dev).items():
-            need, never = paths[phase]
-            for k in need:
-                by_path = kernels[k].setdefault("launches_by_path", {})
-                by_path[phase] = launches[k]
-                kernels[k]["launches"] = sum(by_path.values())
-                require(launches[k] > 0, f"{k} was not launched on the {phase} path")
-            for k in never:
-                require(launches[k] == 0, f"{k} was launched on the {phase} path")
+        mesh_launches.update(check_mesh(torch, dev))
+    if "mesh_bf16_10m" in phases:
+        mesh_launches.update(check_mesh_bf16_10m(torch, dev))
+    for phase, launches in mesh_launches.items():
+        need, never = paths[phase]
+        for k in need:
+            row = kernels[k + "_bf16" if "bf16" in phase else k]
+            by_path = row.setdefault("launches_by_path", {})
+            by_path[phase] = launches[k]
+            row["launches"] = sum(by_path.values())
+            require(launches[k] > 0, f"{k} was not launched on the {phase} path")
+        for k in never:
+            require(launches[k] == 0, f"{k} was launched on the {phase} path")
 
     for k in kernels.values():
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -3,16 +3,17 @@
 Counterpart of ``harmony_tpu/api.py`` (``RunHarmony.default``,
 R/ui.R:91-309), with the same signature plus ``device``. ``device=None``
 means the card; without one the call raises instead of carrying on on the
-CPU. Arguments that select a path not ported yet (the float16 engine, the
-mesh routes of ROADMAP A11's part 2) raise ``NotImplementedError`` naming
-the ROADMAP item; nothing is rerouted. ``mesh`` runs the cells sharded over
-``torch.distributed`` ranks (:mod:`.sharding`), one process a device.
+CPU. Arguments that select a path not ported yet (the float16 engine)
+raise ``NotImplementedError`` naming the ROADMAP item; nothing is
+rerouted. ``mesh`` runs the cells sharded over ``torch.distributed`` ranks
+(:mod:`.sharding`), one process a device, on every route and in bf16 too.
 ``shuffle_mode='auto'`` at 100k cells and up runs the rotate schedule;
 ``shuffle_mode='permute'`` at 200k cells and up the fused permute phase.
 The M-step takes the layout the JAX package takes
 (``engine.mstep_layout``): batch-tiled where the ingest order has one on
-those two paths, else segmented at 65,536 cells and 32 batches and up (and
-always under the config's ``mstep_mode='segment'``), else dense.
+those two paths (the rotate schedule's tile routes), else segmented at
+65,536 cells and 32 batches and up (and always under the config's
+``mstep_mode='segment'``), else dense.
 """
 
 from __future__ import annotations
@@ -87,7 +88,8 @@ def ingest_perm(cfg: HarmonyConfig, design: DesignMatrix, seed: int, pinned: boo
     """The order the cells are reordered into once at ingest
     (harmony_tpu/api.py:479-525), for the rotate schedule and for the fused
     permute phase unless the caller ``pinned`` the order (``init_Y``): the
-    batch-tiled order where the mixture gate allows it; else rotate takes a
+    batch-tiled order where the mixture gate allows it on a route that
+    takes it (``HarmonyConfig.tiled_route``); else rotate takes a
     plain random permutation and permute keeps the caller's order (it draws
     a fresh permutation every round anyway). Returns (perm or None, the
     batch-tiled tile width or 0); the pair is deterministic in (codes,
@@ -95,7 +97,7 @@ def ingest_perm(cfg: HarmonyConfig, design: DesignMatrix, seed: int, pinned: boo
     if not (cfg.shuffle_mode == "rotate" or (cfg.permute_fused and not pinned)):
         return None, 0
     tiled_t = None
-    if cfg.mstep_mode in ("auto", "tiled"):
+    if cfg.mstep_mode in ("auto", "tiled") and cfg.tiled_route:
         # on a mesh the mixture gate applies to each shard's cells
         # (harmony_tpu/api.py:499-502)
         tiled_t = choose_tiled_tile(cfg, count_joint_levels(design.codes), cfg.n_shards)
@@ -220,7 +222,7 @@ class HarmonyResult:
 
         s = self.state
         codes = s.codes if self.mesh is None else sharding.gather_cells(s.codes, self.mesh)
-        layout = mstep_layout(self.config, self._host(codes), s.device)
+        layout = mstep_layout(self.config, self._host(codes), s.device, self.mesh)
         _, _, W = moe_correct_ridge(
             self.config, s.Z_orig, s.R, s.O, s.E, s.codes, s.batch_sizes,
             s.lamb, s.Y, tiled=layout.tiled, segments=layout.segments, cells=layout.cells,
@@ -406,10 +408,13 @@ def run_harmony(
     mesh, ``sharding.pad_for_mesh``), runs the kernels on them and
     all-reduces the statistics, and the result's cell arrays gather every
     rank's cells in the caller's order (collectives: read them on every
-    rank). On a mesh the stats-carrying rotate route (R written or
-    virtual) and the fused permute phase run, each with the batch-tiled
-    M-step; the other routes raise ``NotImplementedError`` naming ROADMAP
-    A11 (``engine.check_mesh_route``). The backend is the caller's:
+    rank). Every route runs on a mesh, in float32 and in bf16
+    (``dtype='bfloat16'``): the stats-carrying rotate route (R written or
+    virtual), the fused permute phase, the per-round permute schedule and
+    the cell-granular rotate round, each with the batch-tiled, segmented or
+    dense M-step (``engine``'s module docstring); the rounds of the last
+    two are plain PyTorch per rank, as they are XLA in the JAX package.
+    The backend is the caller's:
     NCCL for one rank a card, gloo for several ranks on one card or on the
     CPU.
 
@@ -493,9 +498,9 @@ def run_harmony(
             perm, tiled_t = ingest_perm(cfg, design, seed, init_Y is not None)
             _, design, ingest_inv = apply_ingest_order(design, perm)
             stream.order(perm)
-        layout = mstep_layout(cfg, design.codes, dev)
+        layout = mstep_layout(cfg, design.codes, dev, mesh)
         if mesh is not None:
-            check_mesh_route(cfg, layout.tiled)
+            check_mesh_route(cfg)
         with timers.scope("ingest_stream"):
             stream.join()
         with timers.scope("ingest_order"):

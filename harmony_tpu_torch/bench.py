@@ -170,9 +170,9 @@ def run_bench(
     cfg = finalize_engine_config(dataclasses.replace(cfg, **overrides), mesh)
     perm, _ = ingest_perm(cfg, design, seed)
     _, design, _ = apply_ingest_order(design, perm)
-    layout = mstep_layout(cfg, design.codes, dev)
+    layout = mstep_layout(cfg, design.codes, dev, mesh)
     if mesh is not None:
-        check_mesh_route(cfg, layout.tiled)
+        check_mesh_route(cfg)
     hp = expand_hyperparams(design, cfg.K, None, 0.1, 1.0, options.tau)
     note("building the state on the device")
     Zt = AsyncIngest(Zt, cfg, dev, mesh=mesh).result(perm)

@@ -123,11 +123,11 @@ def _resume_run(args, Z, meta, mesh=None) -> np.ndarray:
             file=sys.stderr,
         )
     timers = PhaseTimers(dev)
-    layout = mstep_layout(cfg, design.codes, dev)
+    layout = mstep_layout(cfg, design.codes, dev, mesh)
     if mesh is not None:
         from .engine import check_mesh_route
 
-        check_mesh_route(cfg, layout.tiled)
+        check_mesh_route(cfg)
     state = harmonize(cfg, state, max_iter=args.max_iter, verbose=args.verbose, timers=timers,
                       layout=layout, checkpoint_path=args.checkpoint,
                       checkpoint_meta=ckpt_meta, mesh=mesh)

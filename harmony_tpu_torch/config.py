@@ -214,13 +214,26 @@ class HarmonyConfig:
         make the reference's block count (harmony_tpu/config.py:396-405);
         else 'carry', the stats-carrying rounds (K6/K7), or 'two_phase',
         the rounds that read the old block statistics from R (K12), by
-        ``rotate_stats_carry``."""
+        ``rotate_stats_carry``. On a mesh the bound applies to each shard's
+        cells, and without the stats carry the route is 'cell': K12 has no
+        sharded form, and the JAX package's 'auto' takes its XLA
+        cell-granular round there (harmony_tpu/config.py:393-394)."""
         if self.shuffle_mode != "rotate":
             return None
-        # on a mesh the bound applies to each shard's cells
         if self.Np // self.n_shards < self.n_blocks * 128:
             return "cell"
-        return "carry" if self.rotate_stats_carry else "two_phase"
+        if self.rotate_stats_carry:
+            return "carry"
+        return "two_phase" if self.n_shards == 1 else "cell"
+
+    @property
+    def tiled_route(self) -> bool:
+        """Does the run take the routes on which the JAX package runs its
+        Pallas E-step (the rotate schedule's tile routes, the fused permute
+        phase), and with them the batch-tiled ingest order and M-step under
+        ``mstep_mode='auto'`` (harmony_tpu/api.py:484-502,
+        harmony_tpu/engine.py:808-827)? Call it on a finalised config."""
+        return self.rotate_route in ("carry", "two_phase") or bool(self.permute_fused)
 
     @property
     def use_segments(self) -> bool:
@@ -389,7 +402,8 @@ def finalize_engine_config(cfg: HarmonyConfig, mesh=None) -> HarmonyConfig:
       names. The tile routes ('carry', 'two_phase') get the JAX package's
       tile geometry, whether or not the rounds carry stats
       (harmony_tpu/config.py:453-482); the cell-granular route gets none,
-      as the JAX package's XLA path gets none. ``estep_variant='legacy'``
+      as the JAX package's XLA path gets none (on a mesh it takes
+      ``rotate_stats_carry=False`` too). ``estep_variant='legacy'``
       selects the reference's two-normalise op order of K7, K10 and K11 on
       the stats-carrying route and is ignored on the other two, which have
       one op sequence each, as the JAX package ignores it there.

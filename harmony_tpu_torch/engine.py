@@ -15,12 +15,17 @@ written in place (they are append-only with cursors).
 On a mesh (``mesh``, a ``sharding.CellMesh``; harmony_tpu/engine.py's
 ``mesh=`` branches) the state holds the rank's columns and the replicated
 cluster state; the phases run the kernels per shard and all-reduce the
-statistics where the JAX package psums them. The ported mesh routes are the
-stats-carrying rotate route with the batch-tiled M-step (R written or
-virtual) and the fused permute phase (:func:`check_mesh_route` raises for
-the others). The state's generator stays replicated: every rank makes every
-draw, so the ranks stay in lockstep and no collective waits on a rank that
-took another branch.
+statistics where the JAX package psums them. Every route runs on a mesh,
+in float32 and in bf16: the stats-carrying rotate route (R written or
+virtual; K6, K7, K10, K11 per shard), the fused permute phase, the
+per-round permute schedule and the cell-granular rotate round (global
+blocks, plain PyTorch per rank, as the JAX package runs XLA there; the
+cell-granular round also takes ``rotate_stats_carry=False`` on a mesh,
+K12 having no sharded form), each with the batch-tiled, segmented or
+dense M-step (K4/K5 per shard); only the float16 engine raises
+(:func:`check_mesh_route`). The state's generator stays replicated: every
+rank makes every draw, so the ranks stay in lockstep and no collective
+waits on a rank that took another branch.
 """
 
 from __future__ import annotations
@@ -33,10 +38,11 @@ import numpy as np
 import torch
 
 from . import ops, sharding
-from .config import HarmonyConfig, _not_ported
+from .config import FLOAT16_ITEM, HarmonyConfig, _not_ported
 from .ops import cuda_estep, cuda_permute, cuda_ridge, cuda_rotate, permute_phase, rotate
 from .ops.estep import (block_update_round, draw_rotate_schedules, make_rotate_layout,
-                        rotate_update_round)
+                        rotate_update_round, sharded_block_update_round,
+                        sharded_rotate_update_round)
 from .ops.normalize import l2_normalize_columns
 from .ops.objective import xlogx
 from .ops.ridge import full_tile_joint
@@ -76,12 +82,15 @@ def _assign_from_centroids(cfg: HarmonyConfig, state: HarmonyState, mesh=None):
     if R.shape[1] != nv:
         # pad cells carry zero weight in every statistic
         R[:, nv:] = 0.0
-    O = ops.compute_O(R, state.codes, cfg.covariate_offsets, cfg.B)
     if mesh is None:
+        O = ops.compute_O(R, state.codes, cfg.covariate_offsets, cfg.B)
         E = ops.compute_E(R, state.Pr_b)
     else:
-        rsum, O = sharding.all_reduce_many([R.sum(dim=1), O], mesh)
-        E = (rsum[:, None] * state.Pr_b[None, :]).to(R.dtype)
+        # the rank's sums in float32, rounded to the engine dtype once summed
+        Rf = R.float()
+        rsum, O = sharding.all_reduce_many(
+            [Rf.sum(dim=1), ops.compute_O(Rf, state.codes, cfg.covariate_offsets, cfg.B)], mesh)
+        E = rsum.to(R.dtype)[:, None] * state.Pr_b[None, :]
         O = O.to(R.dtype)
     return dataclasses.replace(state, Z_corr=Z, R=R, E=E, O=O), R, dist
 
@@ -160,25 +169,13 @@ def _virtual_gate(cfg: HarmonyConfig, tiled: Optional[TiledCells]) -> bool:
     )
 
 
-def check_mesh_route(cfg: HarmonyConfig, tiled: Optional[TiledCells]) -> None:
-    """Raise ``NotImplementedError`` naming the route where a mesh run would
-    take one this port does not run on a mesh yet (ROADMAP A11, part 2):
-    the ported mesh routes are the stats-carrying rotate route and the
-    fused permute phase, each with the batch-tiled M-step, in float32 or
-    float64."""
-    what = None
-    if getattr(torch, cfg.dtype).itemsize < 4:
-        what = f"dtype={cfg.dtype!r}"
-    elif cfg.shuffle_mode == "permute" and not cfg.permute_fused:
-        what = "the per-round permute schedule"
-    elif cfg.rotate_route == "cell":
-        what = "the cell-granular rotate round"
-    elif cfg.rotate_route == "two_phase":
-        what = "rotate_stats_carry=False (the written-R rotate rounds, K12)"
-    elif tiled is None:
-        what = "the segmented and dense M-steps"
-    if what is not None:
-        raise _not_ported(f"{what} on a mesh", "ROADMAP A11, part 2")
+def check_mesh_route(cfg: HarmonyConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item where a mesh
+    run would take a route this port does not run: the float16 engine
+    (ROADMAP A9), which it runs nowhere. Every other route runs on a mesh
+    (module docstring)."""
+    if getattr(torch, cfg.dtype).itemsize < 4 and cfg.dtype != "bfloat16":
+        raise _not_ported(f"dtype={cfg.dtype!r} on a mesh", FLOAT16_ITEM)
 
 
 def draw_shard_schedules(cfg: HarmonyConfig, generator: torch.Generator, rounds: int,
@@ -309,7 +306,7 @@ def _round_loop(cfg: HarmonyConfig, state: HarmonyState, round_fn, draws) -> Har
 
 
 def _cluster_rotate_written(cfg: HarmonyConfig, state: HarmonyState,
-                            schedules: Optional[Sequence] = None) -> HarmonyState:
+                            schedules: Optional[Sequence] = None, mesh=None) -> HarmonyState:
     """The rotate rounds without the stats carry, after the re-entry
     (harmony_tpu/engine.py:440-451, 548-595): every round reads the
     previous round's R for each block's old statistics and writes R again,
@@ -320,17 +317,21 @@ def _cluster_rotate_written(cfg: HarmonyConfig, state: HarmonyState,
     PyTorch everywhere) below ``n_blocks * 128`` cells. ``schedules``
     injects each round's (rotation, block order) pair, in the units of the
     route (tiles, or cells); otherwise they are drawn from the state's
-    generator, all up front."""
+    generator, all up front. On a mesh the route is the cell-granular one
+    (:func:`ops.estep.sharded_rotate_update_round`): the schedule is
+    global, every rank drawing the same pairs."""
     if cfg.rotate_route == "cell":
         # a bf16 engine's rounds run on float32 copies, R, E and O cast
         # back at each round's end, as the kernels' wrappers do
         f32 = cuda_estep.f32
-        layout = make_rotate_layout(cfg, *f32(state.Z_corr), state.codes)
         draw = draw_rotate_schedules
+        rnd = (functools.partial(rotate_update_round, cfg, layout=make_rotate_layout(
+            cfg, *f32(state.Z_corr), state.codes)) if mesh is None
+            else functools.partial(sharded_rotate_update_round, cfg, mesh))
 
         def round_fn(s: HarmonyState, sched):
-            res = rotate_update_round(cfg, *f32(s.Z_corr, s.Y, s.R, s.E, s.O), s.codes,
-                                      *f32(s.Pr_b, s.sigma, s.theta), *sched, layout)
+            res = rnd(*f32(s.Z_corr, s.Y, s.R, s.E, s.O), s.codes,
+                      *f32(s.Pr_b, s.sigma, s.theta), *sched)
             return cuda_estep.cast_back(res, s.R, s.E, s.O)
     else:
         layout = rotate.CodesLayout(
@@ -410,11 +411,16 @@ def cluster(
     the phase's end.
     ``perms`` injects the (max_iter_cluster, N) permutations; otherwise
     they are drawn from the state's generator, all up front. On a mesh
-    (the rank's columns; :func:`check_mesh_route` names the routes that
-    raise) the permutations are global and every rank draws them.
+    (the rank's columns; :func:`check_mesh_route` names what raises) the
+    permutations and the cell-granular schedules are global and every rank
+    draws them; the per-round permute rounds are
+    :func:`ops.estep.sharded_block_update_round`, R carried in the order
+    of the rank's cells in each round's permutation, and the windowed
+    early stop reads the all-reduced objective, so every rank stops at the
+    same round.
     """
     if mesh is not None:
-        check_mesh_route(cfg, tiled)
+        check_mesh_route(cfg)
     if cfg.shuffle_mode == "rotate":
         if perms is not None:
             raise ValueError("perms drive the permute schedule; the rotate "
@@ -424,7 +430,7 @@ def cluster(
     if state.n_harmony != 1:
         state = _assign_from_centroids(cfg, state, mesh)[0]
     if cfg.shuffle_mode == "rotate":
-        return _cluster_rotate_written(cfg, state, schedules)
+        return _cluster_rotate_written(cfg, state, schedules, mesh)
     dev = state.device
     if perms is None:
         perms = [
@@ -444,14 +450,22 @@ def cluster(
 
     def round_fn(s: HarmonyState, perm):
         perm = torch.as_tensor(perm, device=dev).long()
-        res = update_round(cfg, s.Z_corr, s.Y, s.R, s.E, s.O, s.codes, s.Pr_b, s.sigma,
-                           s.theta, perm, order=order[0])
-        order[0] = perm
-        return res
+        if mesh is None:
+            res = update_round(cfg, s.Z_corr, s.Y, s.R, s.E, s.O, s.codes, s.Pr_b, s.sigma,
+                               s.theta, perm, order=order[0])
+            order[0] = perm
+            return res
+        # plain PyTorch on float32 copies, cast back as the K1 wrapper does
+        f32 = cuda_estep.f32
+        res, order[0] = sharded_block_update_round(
+            cfg, mesh, *f32(s.Z_corr, s.Y, s.R, s.E, s.O), s.codes,
+            *f32(s.Pr_b, s.sigma, s.theta), perm, order=order[0])
+        return cuda_estep.cast_back(res, s.R, s.E, s.O)
     state = _round_loop(cfg, state, round_fn, perms)
     if order[0] is not None:
-        R = torch.empty_like(state.R).index_copy_(1, order[0], state.R)
-        state = dataclasses.replace(state, R=R)
+        # on a mesh the pad cells are in no round: their R stays 0
+        R = state.R.new_zeros((state.R.shape[0], state.Z_corr.shape[1]))
+        state = dataclasses.replace(state, R=R.index_copy_(1, order[0], state.R))
     return state
 
 
@@ -533,22 +547,23 @@ class MStepLayout(NamedTuple):
     cells: Optional[cuda_ridge.CellIndex] = None
 
 
-def mstep_layout(cfg: HarmonyConfig, codes, device=None) -> MStepLayout:
+def mstep_layout(cfg: HarmonyConfig, codes, device=None, mesh=None) -> MStepLayout:
     """The run's M-step layout, as ``harmony_tpu/engine.py:808-837`` picks
-    it (the port's rotate schedule and fused permute phase stand where the
-    JAX package has ``estep_impl == 'pallas'``): the batch-tiled layout,
-    detected from the cell order, under ``mstep_mode='auto'`` on those two
-    paths and under ``'tiled'`` on any schedule, where finding none raises
-    ``ValueError``; otherwise the segmented layout where
-    ``cfg.use_segments`` holds, built on the host and moved to ``device``
-    once; otherwise the dense M-step, with the per-tile batch index of the
-    codes (``cuda_ridge.cell_index``, built on ``device`` once a run) where
-    its K4/K5 branch runs (one covariate, ``mstep_impl='kernel'``) and a
-    tile fits the shapes. ``codes`` is the (ncov, N or Np) host array in
-    engine order."""
+    it (the port's tile routes of the rotate schedule and fused permute
+    phase, ``HarmonyConfig.tiled_route``, stand where the JAX package has
+    ``estep_impl == 'pallas'``): the batch-tiled layout, detected from the
+    cell order, under ``mstep_mode='auto'`` on those routes and under
+    ``'tiled'`` on any, where finding none raises ``ValueError``; otherwise
+    the segmented layout where ``cfg.use_segments`` holds, built on the
+    host and moved to ``device`` once; otherwise the dense M-step, with the
+    per-tile batch index of the codes (``cuda_ridge.cell_index``, built on
+    ``device`` once a run) where its K4/K5 branch runs (one covariate,
+    ``mstep_impl='kernel'``) and a tile fits the shapes. ``codes`` is the
+    (ncov, N or Np) host array of the whole run in engine order; on a
+    ``mesh`` the segments and the index are those of the rank's columns
+    (the batch-tiled layout is global)."""
     codes = np.asarray(codes)
-    if cfg.mstep_mode == "tiled" or (
-            cfg.mstep_mode == "auto" and (cfg.shuffle_mode == "rotate" or cfg.permute_fused)):
+    if cfg.mstep_mode == "tiled" or (cfg.mstep_mode == "auto" and cfg.tiled_route):
         for t in dict.fromkeys((cfg.mstep_tile, 128)):
             tiled = detect_tiled_layout(codes, cfg.N, t)
             if tiled is not None:
@@ -559,13 +574,15 @@ def mstep_layout(cfg: HarmonyConfig, codes, device=None) -> MStepLayout:
                 "(ops.tiled.build_batch_tiled_order at ingest)"
             )
     if cfg.use_segments:
-        return MStepLayout(segments=build_segments(cfg, codes, cfg.segment_tile, device))
+        return MStepLayout(segments=build_segments(cfg, codes, cfg.segment_tile, device, mesh))
     tile = cuda_ridge.index_tile(cfg.K, cfg.d, cfg.B)
     if cfg.mstep_impl != "kernel" or cfg.n_covariates != 1 or tile is None:
         return MStepLayout()
     # the state's codes: the first N cells, pad cells at code 0
     codes0 = np.zeros(cfg.Np, np.int32)
     codes0[: cfg.N] = codes[0][: cfg.N]
+    if mesh is not None:
+        codes0 = np.ascontiguousarray(sharding.shard_cells(codes0, cfg, mesh))
     return MStepLayout(cells=cuda_ridge.cell_index(
         torch.as_tensor(codes0, device=device), cfg.B, tile))
 

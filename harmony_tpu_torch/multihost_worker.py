@@ -15,19 +15,25 @@ One rank (start one per rank; ``--device cpu --backend gloo`` on the CPU):
 
 Modes:
 
-* default: ``run_harmony(..., mesh=)`` on the cells, as a user calls it;
-  rank 0 also reports the batch separation before and after, the largest
-  deviation of R's column sums from 1, and with ``--out`` writes the
-  embeddings there (``.npz``). ``--bench-pairs P`` then times full rounds
-  with ``bench.run_bench(mesh=)`` on the same cells (P pairs; its
-  ``seconds_per_iter``, warm-up excluded). It also times an all-reduce
-  of 16 kB on the group (``allreduce_16k_ms``).
-* ``--inject MODE[,MODE]`` (rotate, virtual, rotate_rounds, permute): the
-  driver with injected centroids and randomness on a batch-tiled order,
-  once per ``--variants`` entry (``kernel``: the kernels, ``torch``: the
-  plain path, ``materialised``: the kernels without virtual R), every rank
-  drawing every shard's schedule from one numpy generator and taking its
-  own; rank 0 writes each run's gathered Z_corr and traces to ``--out``.
+* default: ``run_harmony(..., mesh=)`` on the cells, as a user calls it
+  (``--dtype`` its dtype); with ``--no-stats-carry`` or ``--mstep-mode``,
+  options ``run_harmony`` has no argument for, the same steps through the
+  config and the driver (:func:`driver_result`). Rank 0 also reports the
+  batch separation before and after, the largest deviation of R's column
+  sums from 1, and with ``--out`` writes the embeddings there (``.npz``).
+  ``--bench-pairs P`` then times full rounds with
+  ``bench.run_bench(mesh=)`` on the same cells (P pairs; its
+  ``seconds_per_iter``, warm-up excluded). It also times an all-reduce of
+  16 kB on the group (``allreduce_16k_ms``).
+* ``--inject MODE[,MODE]`` (rotate, virtual, rotate_rounds, permute,
+  permute_rounds, rotate_cell, segment, virtual_bf16; ``INJECT_MODES``):
+  the driver with injected centroids and randomness on a batch-tiled
+  order, once per ``--variants`` entry (``kernel``: the kernels,
+  ``torch``: the plain path, ``materialised``: the kernels without virtual
+  R), every rank drawing every shard's schedule (or the global
+  permutations and cell-granular schedules) from one numpy generator and
+  taking its own; rank 0 writes each run's gathered Z_corr and traces to
+  ``--out``.
 * ``--dryrun N``: start N ranks of this module on one sharded Harmony run
   at tiny shapes (gloo; ``--device``, default the card, ``--device cpu``
   on the CPU), each with a time limit, and check that they finish, agree bit for bit on their traces and
@@ -56,7 +62,16 @@ _WRAPPERS = (
     ("K9", "cuda_ridge", "tiled_correction"), ("K10", "cuda_rotate", "virtual_correction"),
     ("K11", "cuda_rotate", "materialize_r"), ("K12", "cuda_estep", "rotate_update_round_v1"),
 )
-INJECT_MODES = ("rotate", "virtual", "rotate_rounds", "permute")
+INJECT_MODES = ("rotate", "virtual", "rotate_rounds", "permute", "permute_rounds",
+                "rotate_cell", "segment", "virtual_bf16")
+# each injected mode's config changes; the rest of the problem is shared
+_INJECT_CHANGES = {
+    "rotate": {}, "virtual": {}, "rotate_rounds": {"max_iter_cluster": 6},
+    "permute": {"shuffle_mode": "permute", "permute_fused": True},
+    "permute_rounds": {"shuffle_mode": "permute", "max_iter_cluster": 6},
+    "rotate_cell": {"rotate_stats_carry": False}, "segment": {"mstep_mode": "segment"},
+    "virtual_bf16": {"dtype": "bfloat16"},
+}
 
 
 def launch_counts() -> dict:
@@ -125,8 +140,57 @@ def allreduce_ms(mesh, n: int = 4096, reps: int = 50) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def driver_result(Z, meta: dict, mesh, nclust, max_iter: int, seed: int, shuffle_mode: str,
+                  options, early_stop: bool = True, device=None, Y0=None, **change):
+    """What ``run_harmony(Z, meta, list(meta), ..., mesh=)`` computes, for
+    config fields it has no argument for (``change``: ``rotate_stats_carry``,
+    ``mstep_mode``, ``estep_variant``, any other field, and its own
+    ``dtype``, ``estep_impl``, ``mstep_impl``, ``virtual_r``), through its
+    steps: the config padded and finalised for the mesh, the ingest order,
+    the M-step layout, the streamed state and the driver (``Y0`` injects
+    the initial centroids); ``mesh`` None runs on ``device`` (None: the
+    card). Returns the ``api.HarmonyResult``."""
+    from .api import (HarmonyResult, _resolve_shuffle_mode, apply_ingest_order, ingest_perm)
+    from .config import finalize_engine_config
+    from .driver import run
+    from .engine import check_mesh_route, mstep_layout
+    from .preprocess import build_design, expand_hyperparams, orient_embedding, resolve_config
+    from .runtime import AsyncIngest, PhaseTimers, resolve_device
+    from .sharding import pad_for_mesh
+    from .state import init_state
+
+    design = build_design(meta, list(meta))
+    n = design.n_cells
+    dev = resolve_device(device) if mesh is None else mesh.device
+    Zt = orient_embedding(Z, n)
+    cfg = resolve_config(
+        n_cells=n, d=Zt.shape[0], design=design, nclust=nclust, max_iter=max_iter,
+        early_stop=early_stop, options=options, verbose=False, lambda_estimation=True,
+        ridge_solver="auto", shuffle_mode=_resolve_shuffle_mode(shuffle_mode, n, False, False),
+        dtype=change.pop("dtype", "float32"))
+    if mesh is not None:
+        cfg = pad_for_mesh(cfg, mesh)
+    cfg = finalize_engine_config(dataclasses.replace(cfg, **change), mesh)
+    if mesh is not None:
+        check_mesh_route(cfg)
+    timers = PhaseTimers(dev)
+    with timers.scope("ingest_order"):
+        perm, _ = ingest_perm(cfg, design, seed)
+        _, design, inv = apply_ingest_order(design, perm)
+        layout = mstep_layout(cfg, design.codes, dev, mesh)
+    hp = expand_hyperparams(design, cfg.K, None, 0.1, None, options.tau)
+    with timers.scope("ingest"):
+        Zd = AsyncIngest(Zt, cfg, dev, mesh=mesh).result(perm)
+        state = init_state(cfg, Zd, design, hp.sigma, hp.theta, hp.lamb, seed, dev, timers,
+                           mesh)
+    state = run(cfg, state, timers=timers, layout=layout, Y0=Y0, mesh=mesh)
+    return HarmonyResult(config=cfg, state=state, design=design, timers=timers,
+                         ingest_inv=inv, mesh=mesh)
+
+
 def _run(args, mesh) -> dict:
-    """run_harmony on the synthetic cells, as a user calls it."""
+    """run_harmony on the synthetic cells, as a user calls it, or through
+    :func:`driver_result` for ``--no-stats-carry`` and ``--mstep-mode``."""
     import torch
 
     from . import sharding
@@ -143,11 +207,19 @@ def _run(args, mesh) -> dict:
     sharding.reset_counters()
     _reset_peak(mesh.device)
     t0 = time.perf_counter()
-    res = run_harmony(Z, meta, ["dataset"], nclust=args.nclust, max_iter=args.max_iter,
-                      seed=args.seed, shuffle_mode=args.shuffle, options=options,
-                      estep_impl=args.impl, mstep_impl=args.impl,
-                      virtual_r=args.virtual or None, early_stop=not args.no_early_stop,
-                      mesh=mesh, return_object=True)
+    if args.no_stats_carry or args.mstep_mode != "auto":
+        res = driver_result(Z, meta, mesh, args.nclust, args.max_iter, args.seed,
+                            args.shuffle, options, not args.no_early_stop,
+                            rotate_stats_carry=not args.no_stats_carry,
+                            mstep_mode=args.mstep_mode, dtype=args.dtype,
+                            estep_impl=args.impl, mstep_impl=args.impl,
+                            virtual_r=args.virtual or None)
+    else:
+        res = run_harmony(Z, meta, ["dataset"], nclust=args.nclust, max_iter=args.max_iter,
+                          seed=args.seed, shuffle_mode=args.shuffle, options=options,
+                          estep_impl=args.impl, mstep_impl=args.impl,
+                          virtual_r=args.virtual or None, early_stop=not args.no_early_stop,
+                          dtype=args.dtype, mesh=mesh, return_object=True)
     if mesh.device.type == "cuda":
         torch.cuda.synchronize(mesh.device)
     wall = time.perf_counter() - t0
@@ -166,7 +238,8 @@ def _run(args, mesh) -> dict:
         "config": {"N": res.config.N, "Np": res.config.Np, "T": res.config.estep_sub_tile,
                    "K": res.config.K, "route": res.config.rotate_route,
                    "permute_fused": res.config.permute_fused,
-                   "virtual": res.state.virt_pen is not None},
+                   "virtual": res.state.virt_pen is not None, "dtype": res.config.dtype,
+                   "mstep": _mstep_kind(res, mesh)},
     }
     # every rank reads the gathered arrays (collectives), rank 0 reports
     emb = res.embeddings
@@ -186,8 +259,16 @@ def _run(args, mesh) -> dict:
         out["bench"] = run_bench(n_cells=args.cells, d=args.dims, n_batches=args.batches,
                                  nclust=args.nclust, seed=args.seed, shuffle_mode=args.shuffle,
                                  virtual_r=args.virtual or None, estep_impl=args.impl,
-                                 mesh=mesh)
+                                 dtype=args.dtype, mesh=mesh)
     return out
+
+
+def _mstep_kind(res, mesh) -> str:
+    """The M-step layout the run took: tiled, segment or dense."""
+    from .engine import mstep_layout
+
+    lay = mstep_layout(res.config, res.design.codes, mesh.device, mesh)
+    return "tiled" if lay.tiled is not None else "segment" if lay.segments else "dense"
 
 
 def inject_problem(mode: str, cells: int, dims: int, batches: int, nclust: int,
@@ -202,15 +283,15 @@ def inject_problem(mode: str, cells: int, dims: int, batches: int, nclust: int,
 
     Z, b = make_synthetic_cells(cells, dims, batches, seed=seed)
     design = build_design({"batch": b.astype(str)}, ["batch"])
+    change = dict(_INJECT_CHANGES[mode])
     base = resolve_config(
         n_cells=cells, d=dims, design=design, nclust=nclust, max_iter=rounds,
         early_stop=False, options=harmony_options(
-            max_iter_cluster=6 if mode == "rotate_rounds" else 4),
+            max_iter_cluster=change.pop("max_iter_cluster", 4)),
         verbose=False, lambda_estimation=True, ridge_solver="auto",
-        shuffle_mode="permute" if mode == "permute" else "rotate",
+        shuffle_mode=change.pop("shuffle_mode", "rotate"),
     )
-    base = dataclasses.replace(base, mstep_tile=128,
-                               permute_fused=True if mode == "permute" else None)
+    base = dataclasses.replace(base, mstep_tile=128, **change)
     perm, _ = build_batch_tiled_order(design.codes, 128, 0)
     design = dataclasses.replace(design, codes=design.codes[:, perm])
     Zt = orient_embedding(Z, cells)[:, perm]
@@ -223,7 +304,8 @@ def inject_problem(mode: str, cells: int, dims: int, batches: int, nclust: int,
 def inject_draws(cfg, mesh_size: int, rank: int, rounds: int, seed: int):
     """The injected randomness of every shard from one numpy generator,
     this rank's taken: per round, max_iter_cluster (rotation, block order)
-    pairs over the shard's tiles, or the global permutations."""
+    pairs over the shard's tiles, or the global permutations, or the
+    global (cell rotation, block order) pairs of the cell-granular round."""
     from .ops import rotate
 
     rng = np.random.default_rng(seed + 2)
@@ -231,6 +313,9 @@ def inject_draws(cfg, mesh_size: int, rank: int, rounds: int, seed: int):
         return {"perms": np.stack([np.stack([rng.permutation(cfg.N)
                                              for _ in range(cfg.max_iter_cluster)])
                                    for _ in range(rounds)])}
+    if cfg.rotate_route == "cell":
+        return {"schedules": [[(int(rng.integers(cfg.Np)), rng.permutation(cfg.n_blocks).tolist())
+                               for _ in range(cfg.max_iter_cluster)] for _ in range(rounds)]}
     NT = cfg.Np // mesh_size // cfg.estep_sub_tile
     nb = len(rotate.block_sizes(cfg, NT)[0])
     every = [[[(int(rng.integers(NT)), rng.permutation(nb).tolist())
@@ -255,10 +340,10 @@ def _inject(args, mesh) -> dict:
             if variant == "materialised" and mode != "virtual":
                 continue
             impl = "torch" if variant == "torch" else "kernel"
-            cfg = dataclasses.replace(base, estep_impl=impl, mstep_impl=impl,
-                                      virtual_r=(mode == "virtual" and variant == "kernel"))
+            virtual = mode.startswith("virtual") and variant == "kernel"
+            cfg = dataclasses.replace(base, estep_impl=impl, mstep_impl=impl, virtual_r=virtual)
             cfg = finalize_engine_config(sharding.pad_for_mesh(cfg, mesh), mesh)
-            layout = engine.mstep_layout(cfg, design.codes, mesh.device)
+            layout = engine.mstep_layout(cfg, design.codes, mesh.device, mesh)
             draws = inject_draws(cfg, mesh.size, mesh.rank, args.max_iter, args.seed)
             st = init_state(cfg, Zt, design, hp.sigma, hp.theta, hp.lamb, args.seed,
                             mesh.device, mesh=mesh)
@@ -278,7 +363,8 @@ def _inject(args, mesh) -> dict:
                         "collectives": sharding.counters(),
                         "peak_mib": _peak_mib(mesh.device),
                         "virtual": st.virt_pen is not None,
-                        "tiled": layout.tiled is not None}
+                        "tiled": layout.tiled is not None,
+                        "segments": layout.segments is not None, "route": cfg.rotate_route}
             Zc = sharding.gather_cells(st.Z_corr, mesh)
             if mesh.rank == 0:
                 saved[key.replace("/", "__")] = host_numpy(Zc)[:, : cfg.N]
@@ -403,6 +489,11 @@ def main(argv=None) -> int:
     ap.add_argument("--shuffle", choices=["rotate", "permute", "auto"], default="rotate")
     ap.add_argument("--impl", choices=["auto", "kernel", "torch"], default="auto")
     ap.add_argument("--virtual", action="store_true")
+    ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
+    ap.add_argument("--no-stats-carry", action="store_true",
+                    help="rotate_stats_carry=False (on a mesh the cell-granular round)")
+    ap.add_argument("--mstep-mode", choices=["auto", "tiled", "dense", "segment"],
+                    default="auto")
     ap.add_argument("--no-early-stop", action="store_true")
     ap.add_argument("--bench-pairs", type=int, default=0,
                     help="then time rounds with bench.run_bench(mesh=), this many pairs")

@@ -524,7 +524,19 @@ def tiled_correction(W_joint: torch.Tensor, tile_joint, R: torch.Tensor,
 tiled_correction.launches = 0
 
 
-# ---- sharded wrappers (no kernels: K8 and K9 on the rank's cells) --------
+# ---- sharded wrappers (no kernels: K4, K8 and K9 on the rank's cells) ----
+
+
+def sharded_moments(mesh, R: torch.Tensor, Z: torch.Tensor, codes: torch.Tensor, B: int,
+                    index: Optional[CellIndex] = None) -> torch.Tensor:
+    """The (K, B, d+1) moments of the mesh: K4 on the rank's columns (R, Z
+    and ``codes``, pad cells at code 0 with R zero) through ``index``, the
+    rank's own :class:`CellIndex` (``engine.mstep_layout(mesh=)`` builds it
+    once a run from the rank's codes), then one all-reduce. K5 needs no
+    sharded form: it corrects the rank's columns with the same index."""
+    from ..sharding import all_reduce_sum
+
+    return all_reduce_sum(moments(R, Z, codes, B, index).contiguous(), mesh)
 
 
 def _pad_left(X: torch.Tensor, off: int) -> torch.Tensor:

@@ -23,6 +23,11 @@ the card; this function is its plain version.
 ``n_blocks * 128`` cells (``HarmonyConfig.rotate_route == 'cell'``), where
 whole tiles cannot make the reference's block count. It is XLA, not a
 kernel, in the JAX package, and plain PyTorch here on the card too.
+
+:func:`sharded_block_update_round` and :func:`sharded_rotate_update_round`
+run the two rounds on a mesh, as the JAX package partitions its XLA
+rounds: the blocks are global, each rank updates its own cells of each,
+and the block statistics are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -49,10 +54,14 @@ def _pad1(X: torch.Tensor) -> torch.Tensor:
     return torch.cat([X, X.new_zeros((*X.shape[:-1], 1))], dim=-1)
 
 
-def _update_block(cfg, Y, E, O, rsum_old, O_old, Z_b, oh_b, cb, m_b, Pr_b, sigma, theta):
+def _update_block(cfg, Y, E, O, rsum_old, O_old, Z_b, oh_b, cb, m_b, Pr_b, sigma, theta,
+                  mesh=None):
     """One block of an update round: remove its old contribution (row sums
     ``rsum_old`` (K, 1), ``O_old`` (K, B)), recompute its assignments and
-    add them back. Returns (E, O, R_n, k-means error, entropy)."""
+    add them back; on a ``mesh`` the block's cells are the rank's part of
+    it and its new row sums and O are summed over the ranks (one
+    all-reduce) before they are added. Returns (E, O, R_n, k-means error,
+    entropy), the last two the rank's part."""
     dtype = E.dtype
     # Step 1: remove the block's old contribution (src/harmony.cpp:312-313)
     E = E - rsum_old * Pr_b[None, :]
@@ -70,8 +79,13 @@ def _update_block(cfg, Y, E, O, rsum_old, O_old, Z_b, oh_b, cb, m_b, Pr_b, sigma
     R_n = l1_normalize_columns(R_n * pc) * m_b[None, :]
 
     # Step 3: add the block back + objective accumulators
-    E = E + R_n.sum(dim=1, keepdim=True) * Pr_b[None, :]
-    O = O + (R_n.float() @ oh_b.float()).to(dtype)
+    rsum, O_new = R_n.sum(dim=1, keepdim=True), (R_n.float() @ oh_b.float()).to(dtype)
+    if mesh is not None:
+        from ..sharding import all_reduce_many
+
+        rsum, O_new = (t.to(dtype) for t in all_reduce_many([rsum, O_new], mesh))
+    E = E + rsum * Pr_b[None, :]
+    O = O + O_new
     Rf = R_n.float()
     return (E, O, R_n, (Rf * d_b.float()).sum(),
             (sigma.float()[:, None] * xlogx(Rf)).sum())
@@ -142,6 +156,83 @@ def block_update_round(
                        entropy=acc_e)
 
 
+def _design(cfg: HarmonyConfig, codes: torch.Tensor, dtype) -> torch.Tensor:
+    """(n, B) stacked one-hot design of (ncov, n) codes."""
+    b_ids = torch.arange(cfg.B, device=codes.device)
+    oh = torch.zeros((codes.shape[1], cfg.B), dtype=dtype, device=codes.device)
+    for c, off in enumerate(cfg.covariate_offsets):
+        oh = oh + (codes[c].long()[:, None] + off == b_ids).to(dtype)
+    return oh
+
+
+def _sharded_blocks(cfg, mesh, Z, Y, R_c, E, O, codes, cells, cuts, Pr_b, sigma,
+                    theta) -> RoundResult:
+    """The blocks of a round on a mesh, in order: block i is the rank's
+    real cells ``cells[cuts[i]:cuts[i+1]]`` (column ids of Z and the
+    codes), whose old statistics are read from ``R_c`` (K, len(cells)), R's
+    columns of ``cells``. Every block's old statistics are summed over the
+    ranks in one all-reduce before the first block, each block's commit in
+    one after its assignments (:func:`_update_block`), the objective terms
+    in one at the end. R comes back in the order of ``cells``."""
+    from ..sharding import all_reduce_many
+
+    dtype, f32 = R_c.dtype, torch.float32
+    Z_c = Z.index_select(1, cells)
+    c_c = codes.index_select(1, cells).long()
+    oh = _design(cfg, c_c, dtype)
+    bl = list(zip(cuts, cuts[1:]))
+    rsum_old = torch.stack([R_c[:, a:b].sum(dim=1) for a, b in bl])  # (nb, K)
+    O_old = torch.stack([R_c[:, a:b].float() @ oh[a:b].float() for a, b in bl])
+    rsum_old, O_old = (t.to(dtype) for t in all_reduce_many([rsum_old, O_old], mesh))
+    acc_d = torch.zeros((), dtype=f32, device=Z.device)
+    acc_e = torch.zeros((), dtype=f32, device=Z.device)
+    R_new = torch.empty_like(R_c)
+    ones = R_c.new_ones(R_c.shape[1])
+    for i, (a, b) in enumerate(bl):
+        E, O, R_n, kerr, ent = _update_block(
+            cfg, Y, E, O, rsum_old[i][:, None], O_old[i], Z_c[:, a:b], oh[a:b], c_c[:, a:b],
+            ones[a:b], Pr_b, sigma, theta, mesh)
+        acc_d, acc_e = acc_d + kerr, acc_e + ent
+        R_new[:, a:b] = R_n
+    acc_d, acc_e = all_reduce_many([acc_d.reshape(1), acc_e.reshape(1)], mesh)
+    return RoundResult(R=R_new, E=E, O=O, kmeans_error=acc_d[0], entropy=acc_e[0])
+
+
+def sharded_block_update_round(
+    cfg: HarmonyConfig,
+    mesh,
+    Z: torch.Tensor,  # (d, n) the rank's columns, L2-normalised
+    Y: torch.Tensor,  # (d, K) replicated
+    R: torch.Tensor,  # (K, n), or (K, nv) in the order ``order``
+    E: torch.Tensor,  # (K, B) replicated
+    O: torch.Tensor,
+    codes: torch.Tensor,  # (ncov, n) the rank's columns
+    Pr_b: torch.Tensor,
+    sigma: torch.Tensor,
+    theta: torch.Tensor,
+    perm: torch.Tensor,  # (N,) global permutation, replicated
+    order: Optional[torch.Tensor] = None,
+) -> Tuple[RoundResult, torch.Tensor]:
+    """:func:`block_update_round` on a mesh (the JAX package's XLA round
+    on the sharded state, harmony_tpu/engine.py:356-367), plain PyTorch on
+    each rank. The blocks are global, cut from the replicated global
+    permutation (``permute_phase.rank_blocks``), so the trajectory does not
+    depend on the mesh size; each rank updates the members of each block
+    that are its cells, and the statistics are summed over the ranks where
+    the JAX package's partitioned sums are (:func:`_sharded_blocks`).
+    ``order`` says which of the rank's columns R's columns hold (None: all
+    n in order). Returns the round, R's columns holding the rank's real
+    cells in the permutation's order, and those cells (the round's
+    ``order`` for the next round; pad cells are in no block)."""
+    from .permute_phase import rank_blocks
+
+    _, cells, cuts = rank_blocks(cfg, mesh, perm.to(Z.device).long())
+    if order is not None:
+        R = R.new_zeros((R.shape[0], Z.shape[1])).index_copy_(1, order, R)
+    return _sharded_blocks(cfg, mesh, Z, Y, R.index_select(1, cells), E, O, codes, cells, cuts,
+                           Pr_b, sigma, theta), cells
+
+
 class RotateLayout(NamedTuple):
     """Phase constants of the cell-granular rotate round (Z and the codes
     are fixed across a phase's rounds), each followed by a mirror of its
@@ -165,11 +256,7 @@ def make_rotate_layout(cfg: HarmonyConfig, Z: torch.Tensor, codes: torch.Tensor)
     mirror = lambda X: torch.cat([X, X[..., :S]], dim=-1)
     valid_pad = mirror((torch.arange(cfg.Np, device=Z.device) < cfg.N).to(Z.dtype))
     codes_pad = mirror(codes)
-    b_ids = torch.arange(cfg.B, device=Z.device)
-    oh = torch.zeros((cfg.Np + S, cfg.B), dtype=Z.dtype, device=Z.device)
-    for c, off in enumerate(cfg.covariate_offsets):
-        oh = oh + ((codes_pad[c].long()[:, None] + off == b_ids)
-                   & (valid_pad[:, None] > 0)).to(Z.dtype)
+    oh = _design(cfg, codes_pad, Z.dtype) * valid_pad[:, None]
     return RotateLayout(Z_pad=mirror(Z), oh_pad=oh, codes_pad=codes_pad, valid_pad=valid_pad)
 
 
@@ -234,6 +321,55 @@ def rotate_update_round(
     R_out = R_new[:, :Np].clone()
     R_out[:, :S] += R_new[:, Np:]
     return RoundResult(R=R_out, E=E, O=O, kmeans_error=acc_d, entropy=acc_e)
+
+
+def rotate_block_cells(cfg: HarmonyConfig, mesh, r: int, b: int) -> torch.Tensor:
+    """The rank's real cells of block ``b`` of the cell-granular schedule
+    rotated by ``r``, as its column ids, in the block's order: the block
+    covers cells (r + b S + j) mod Np for j below its live length
+    min(S, Np - b S), which may wrap past the last cell and span ranks."""
+    from ..sharding import cell_range, valid_cells
+
+    Np, S = cfg.Np, _block_len(cfg)
+    lo = cell_range(cfg, mesh)[0]
+    hi = lo + valid_cells(cfg, mesh)
+    start, L = (b * S + r) % Np, max(min(S, Np - b * S), 0)
+    runs = [(start, min(start + L, Np))] + ([(0, start + L - Np)] if start + L > Np else [])
+    runs = [(max(a, lo), min(e, hi)) for a, e in runs]
+    return torch.cat([torch.arange(a, max(a, e), dtype=torch.int64) - lo for a, e in runs])
+
+
+def sharded_rotate_update_round(
+    cfg: HarmonyConfig,
+    mesh,
+    Z: torch.Tensor,  # (d, n) the rank's columns, L2-normalised
+    Y: torch.Tensor,  # (d, K) replicated
+    R: torch.Tensor,  # (K, n)
+    E: torch.Tensor,  # (K, B) replicated
+    O: torch.Tensor,
+    codes: torch.Tensor,  # (ncov, n)
+    Pr_b: torch.Tensor,
+    sigma: torch.Tensor,
+    theta: torch.Tensor,
+    r: int,
+    order: Sequence[int],
+) -> RoundResult:
+    """:func:`rotate_update_round` on a mesh (the JAX package's XLA round
+    on the sharded state, harmony_tpu/engine.py:449-451), plain PyTorch on
+    each rank. The schedule (r, order) is global, drawn alike on every
+    rank; each block is the global slice of the mirror layout, cut to the
+    rank's real cells (:func:`rotate_block_cells`; pad cells are in no
+    block), and its statistics are summed over the ranks as
+    :func:`sharded_block_update_round` sums them. R comes back in the
+    rank's columns, pad cells 0."""
+    blocks = [rotate_block_cells(cfg, mesh, r, int(b)).to(R.device) for b in order]
+    cuts = [0]
+    for c in blocks:
+        cuts.append(cuts[-1] + c.shape[0])
+    cells = torch.cat(blocks)
+    res = _sharded_blocks(cfg, mesh, Z, Y, R.index_select(1, cells), E, O, codes, cells, cuts,
+                          Pr_b, sigma, theta)
+    return res._replace(R=torch.zeros_like(R).index_copy_(1, cells, res.R))
 
 
 def objective_from_stats(

@@ -237,6 +237,23 @@ def permute_phase(
                               entropy=rr.entropy, M=M)
 
 
+def rank_blocks(cfg: HarmonyConfig, mesh, perm: torch.Tensor):
+    """This rank's part of the global blocks of the permutation ``perm``
+    (N,): the positions of the permutation whose cells are the rank's real
+    cells, ascending, those cells as the rank's column ids, and the cuts:
+    block i is ``cells[cuts[i]:cuts[i + 1]]`` (maybe empty). Blocks are
+    contiguous ranges of the permutation (``block_bounds``), so they are
+    contiguous ranges of the rank's positions too."""
+    from ..sharding import cell_range, valid_cells
+
+    lo = cell_range(cfg, mesh)[0]
+    nv = valid_cells(cfg, mesh)
+    starts = torch.tensor([s for s, _ in block_bounds(cfg)] + [cfg.N], device=perm.device)
+    pos = ((perm >= lo) & (perm < lo + nv)).nonzero().squeeze(1)  # ascending
+    cells = perm.index_select(0, pos) - lo
+    return pos, cells, torch.searchsorted(pos, starts).tolist()
+
+
 def sharded_permute_phase(
     cfg: HarmonyConfig,
     mesh,
@@ -273,7 +290,6 @@ def sharded_permute_phase(
     B, nb = cfg.B, cfg.n_blocks
     lo, hi = cell_range(cfg, mesh)
     nv = valid_cells(cfg, mesh)
-    starts = torch.tensor([s for s, _ in block_bounds(cfg)] + [cfg.N], device=dev)
     # the phase's distances of the rank's real cells, once
     G = 2.0 * (1.0 - Z[:, :nv].to(_F32).t() @ Y.to(_F32))  # (nv, K)
     sig, Pr, th = sigma.to(_F32), Pr_b.to(_F32)[None, :], theta.to(_F32)[None, :]
@@ -285,10 +301,7 @@ def sharded_permute_phase(
     b_ids = torch.arange(B, device=dev)
     E_st, O_st, kerr_st, ent_st = [], [], [], []
     for r in range(perms.shape[0]):
-        perm = torch.as_tensor(perms[r], device=dev).long()
-        pos = ((perm >= lo) & (perm < lo + nv)).nonzero().squeeze(1)  # ascending
-        cells = perm.index_select(0, pos) - lo
-        cuts = torch.searchsorted(pos, starts).tolist()
+        pos, cells, cuts = rank_blocks(cfg, mesh, torch.as_tensor(perms[r], device=dev).long())
         dist = G.index_select(0, cells).t()  # (K, m) in block order
         R1 = l1_normalize_columns(torch.exp(-dist / sig[:, None]))
         c_lay = codes.index_select(1, cells).long()

@@ -44,7 +44,14 @@ on the rank's layout tiles (``cuda_ridge.sharded_tile_moments``, one
 all-reduce of the moment table, and ``sharded_tiled_correction``), the
 mixed tail's moments are the rank's part of the tail summed by one more
 all-reduce, and the ridge solve runs replicated on every rank from the
-summed moments. Only the batch-tiled M-step runs on a mesh.
+summed moments. The dense and segmented M-steps take the rank's columns
+as they are (``cells`` and ``segments`` are the rank's,
+``engine.mstep_layout(mesh=)``): K4 sums its moments
+(``cuda_ridge.sharded_moments``) and the plain contractions theirs, one
+all-reduce of the (K, B, d+1) moments and the cross blocks before the
+masks, and K5 or the plain correction writes the rank's columns with no
+collective, as the JAX package partitions its XLA M-step
+(harmony_tpu/ops/ridge.py:105-110).
 
 Under virtual R (``virtual``, a :class:`~harmony_tpu_torch.ops.rotate.VirtualR`;
 harmony_tpu/ops/ridge.py:145-154, 550-654) the state's R is stale: the
@@ -150,7 +157,7 @@ def moe_correct_ridge(
     tiled_moments=None,  # (n_joint+1, K, d+1) table the E-step fused (K3, K7)
     virtual=None,  # ops.rotate.VirtualR: R is stale, recompute it (needs tiled)
     cells=None,  # ops.cuda_ridge.CellIndex of codes[0]: K4/K5 visit cells by batch
-    mesh=None,  # sharding.CellMesh: cell arrays are the rank's columns (needs tiled)
+    mesh=None,  # sharding.CellMesh: cell arrays are the rank's columns
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Return (Z_corr, Y_new, W); W is (K, B+1, d) with intercept rows zeroed.
     Z_corr is recomputed from Z_orig (src/harmony.cpp:347). With ``tiled``,
@@ -160,12 +167,8 @@ def moe_correct_ridge(
     ``tiled_moments``) corrects without reading R. ``cells`` is the run's
     per-tile batch index of the codes that the K4/K5 branch hands to both
     kernels (they build one for the call without it). ``mesh`` runs the
-    batch-tiled path on the rank's cells (module docstring)."""
+    M-step on the rank's cells (module docstring)."""
     K, B = cfg.K, cfg.B
-    if mesh is not None and tiled is None:
-        from ..config import _not_ported
-
-        raise _not_ported("the segmented and dense M-steps on a mesh", "ROADMAP A11, part 2")
     dev = Z_orig.device
     keep, any_active = compute_masks(cfg, O, batch_sizes)
     keepf = keep.to(_F32)
@@ -198,10 +201,11 @@ def moe_correct_ridge(
         else:
             r_tot, rhs0 = _intercept_moments_tiled(cfg, keep, Zf, codes, tiled, ctx, mesh)
     elif use_kernel:
-        from .cuda_ridge import moments
+        from .cuda_ridge import moments, sharded_moments
 
         Rf = R.to(_F32).contiguous()
-        M = moments(Rf, Zf, codes[0].contiguous(), B, cells)  # (K, B, d+1)
+        M = (moments(Rf, Zf, codes[0].contiguous(), B, cells) if mesh is None
+             else sharded_moments(mesh, Rf, Zf, codes[0].contiguous(), B, cells))  # (K, B, d+1)
         O_eff = M[:, :, -1] * keepf
         rhs_batches = M[:, :, :-1] * keepf[:, :, None]
         r_tot = O_eff.sum(dim=1)
@@ -213,6 +217,7 @@ def moe_correct_ridge(
             O_all, rhs_all, _, onehots = _moments_dense(cfg, R_eff, Zf, codes, onehots)
         else:
             O_all, rhs_all, _, R_s = _moments_segmented(cfg, R_eff, Zf, codes, segments)
+        O_all, rhs_all, _ = _sum_over_ranks(mesh, O_all, rhs_all, {})
         O_eff = O_all * keepf
         rhs_batches = rhs_all * keepf[:, :, None]
         r_tot = O_eff.sum(dim=1)
@@ -233,6 +238,8 @@ def moe_correct_ridge(
             O_eff, rhs_batches, cross_blocks, R_s = _moments_segmented(
                 cfg, R_eff, Zf, codes, segments
             )
+        O_eff, rhs_batches, cross_blocks = _sum_over_ranks(mesh, O_eff, rhs_batches,
+                                                           cross_blocks)
         # every cell has exactly one covariate-0 level: their sum is the
         # intercept moment (src/harmony.cpp:561)
         b0 = cfg.B_vec[0]
@@ -290,6 +297,7 @@ def moe_correct_ridge(
     if use_kernel:
         from .cuda_ridge import correction
 
+        # on a mesh K5 on the rank's columns with their index: no collective
         Z_corr = correction(W[:, 1:, :].contiguous(), Rf, Zf, codes[0].contiguous(), cells)
         return Z_corr.to(Z_orig.dtype), Y_new, W
     if segments is None:
@@ -297,6 +305,19 @@ def moe_correct_ridge(
     else:
         corr = _correction_segmented(cfg, W, R_s, segments)
     return (Zf - corr).to(Z_orig.dtype), Y_new, W
+
+
+def _sum_over_ranks(mesh, O, rhs, cross):
+    """The dense or segmented moments of the rank's cells summed over the
+    ranks in one all-reduce (as given without a mesh): every rank then
+    solves from the same sums."""
+    if mesh is None:
+        return O, rhs, cross
+    from ..sharding import all_reduce_many
+
+    keys = list(cross)
+    red = all_reduce_many([O, rhs] + [cross[k] for k in keys], mesh)
+    return red[0], red[1], dict(zip(keys, red[2:]))
 
 
 def full_tile_joint(cfg: HarmonyConfig, tiled) -> np.ndarray:

@@ -616,12 +616,15 @@ def sharded_rotate_round_v2(cfg: HarmonyConfig, mesh, Y, rs: RoundState, Pr_b, s
     E and O as ``E + sum(E_rank - E)`` (the deltas, not the sum of the
     ranks' E), the objective accumulators and the fused moment table
     summed; the penalty tables stay the rank's and the tile -> block map
-    takes global block ids (shard s's blocks are s*nb .. s*nb+nb-1)."""
+    takes global block ids (shard s's blocks are s*nb .. s*nb+nb-1). A
+    bf16 engine's E and O enter the round as float32 and the merge stays
+    in float32, cast to their dtype once after it (pallas_rotate.py:
+    1196-1252)."""
     from ..sharding import all_reduce_many
 
-    res = (fn or rotate_update_round_v2)(cfg, Y, rs, Pr_b, sigma, theta, rt, order, layout,
-                                         write_r, moments, emit_pen)
     E0, O0 = rs.E.to(_F32), rs.O.to(_F32)
+    res = (fn or rotate_update_round_v2)(cfg, Y, rs._replace(E=E0, O=O0), Pr_b, sigma, theta,
+                                         rt, order, layout, write_r, moments, emit_pen)
     parts = [res.O.to(_F32) - O0, res.E.to(_F32) - E0, res.kmeans_error.reshape(1),
              res.entropy.reshape(1)]
     if res.M is not None:

@@ -47,15 +47,22 @@ class CovariateSegments:
 
 
 def build_segments(cfg: HarmonyConfig, codes, tile: int = 1024,
-                   device=None) -> Tuple[CovariateSegments, ...]:
+                   device=None, mesh=None) -> Tuple[CovariateSegments, ...]:
     """The layout of every covariate from the (ncov, N or Np) host codes
     (harmony_tpu/ops/segments.py:49-103); only the first N cells are read,
-    and the cell axis is ``cfg.Np`` long."""
+    and the cell axis is ``cfg.Np`` long. On a ``mesh`` the layout of the
+    rank's columns (``sharding.cell_range``): its real cells, as its column
+    ids, on its axis of ``Np / size`` cells."""
     codes = np.asarray(codes)
-    Np = cfg.Np
+    first, end, Np = 0, cfg.N, cfg.Np
+    if mesh is not None:
+        from ..sharding import cell_range
+
+        first, Np = cell_range(cfg, mesh)
+        end, Np = min(Np, cfg.N), Np - first
     out = []
     for c in range(cfg.n_covariates):
-        col = codes[c][: cfg.N]
+        col = codes[c][first:end]
         order = np.argsort(col, kind="stable").astype(np.int64)
         counts = np.bincount(col[order], minlength=cfg.B_vec[c])
         tiles, tile_batch = [], []

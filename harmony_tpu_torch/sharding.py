@@ -219,9 +219,17 @@ def all_reduce_max(t: torch.Tensor, mesh: CellMesh) -> torch.Tensor:
     return t
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous bf16 tensor as its bytes (uint8, the same memory),
+    which every backend moves (gloo takes neither bf16 nor int16 on every
+    build); other tensors as they are. Broadcasts and gathers copy bits,
+    so no value changes."""
+    return t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
+
+
 def broadcast(t: torch.Tensor, mesh: CellMesh, src: int = 0) -> torch.Tensor:
     """Rank ``src``'s ``t`` on every rank, in place; returns it."""
-    dist.broadcast(t, src=dist.get_global_rank(mesh.group, src) if mesh.group else src,
+    dist.broadcast(_bits(t), src=dist.get_global_rank(mesh.group, src) if mesh.group else src,
                    group=mesh.group)
     _COUNTS["broadcast"] += 1
     return t
@@ -230,7 +238,7 @@ def broadcast(t: torch.Tensor, mesh: CellMesh, src: int = 0) -> torch.Tensor:
 def _gather(t: torch.Tensor, mesh: CellMesh, dim: int) -> torch.Tensor:
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
-    dist.all_gather(parts, t, group=mesh.group)
+    dist.all_gather([_bits(p) for p in parts], _bits(t), group=mesh.group)
     _COUNTS["all_gather"] += 1
     _COUNTS["all_gather_bytes"] += t.numel() * t.element_size()
     return torch.cat(parts, dim=dim)

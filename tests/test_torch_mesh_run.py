@@ -21,6 +21,15 @@ that fails fails the test).
 * ``python -m harmony_tpu_torch.multihost_worker``: two ranks agree bit for
   bit on their traces, and ``--dryrun 2`` passes (``tests/test_multihost.
   py``'s two-process tests, here unmarked: they take seconds).
+* The routes of ROADMAP A11's part 2 through ``run_harmony(mesh=)`` on 2
+  ranks, each against ``run_harmony`` on one device on the same cells: the
+  per-round permute schedule (``max_iter_cluster=6``, 4,000 cells) and the
+  cell-granular rotate round (2,400 cells, a cell route on one device too)
+  on the port's own draws, whose trajectory the global blocks keep
+  (objective trace rtol 1e-4); the segmented M-step (65,536 cells in 32
+  batches, rotate) and the bf16 engine (virtual R, 12,288 cells) within 5%
+  of one device's final objective with the separation shrinking. Each
+  resolves the route and M-step layout named, R's columns sum to 1.
 """
 
 from __future__ import annotations
@@ -47,6 +56,16 @@ from harmony_tpu_torch.multihost_worker import (  # noqa: E402
 
 RANK_TIMEOUT = 120.0
 E2E = dict(n=12_288, d=10, B=3, ranks=4)
+# the routes of A11's part 2: cells, batches, run_harmony arguments, the
+# route, the M-step layout, whether the trajectory is one device's
+ROUTES = {
+    "permute_rounds": (4000, 3, dict(shuffle_mode="permute", options=harmony_options(
+        max_iter_cluster=6)), "None", "dense", True),
+    "cell": (2400, 3, dict(shuffle_mode="rotate"), "cell", "dense", True),
+    "segment": (65_536, 32, dict(shuffle_mode="rotate"), "carry", "segment", False),
+    "bf16": (12_288, 3, dict(shuffle_mode="rotate", dtype="bfloat16",
+                             options=harmony_options(block_size=0.25)), "carry", "tiled", False),
+}
 HOST = dict(n=8192, d=8, B=3)
 CLI = dict(n=20_480, d=8, B=2)
 
@@ -130,6 +149,31 @@ def _rank_host(mesh, d, cli_emb, cli_meta):
     np.savez(os.path.join(d, f"host{mesh.rank}.npz"), **out)
 
 
+def _route_run(name, mesh=None):
+    from harmony_tpu_torch.engine import mstep_layout
+
+    n, B, kw, _, _, _ = ROUTES[name]
+    Z, batches = problem(n, 4 if name == "segment" else 8, B)
+    res = run_harmony(Z, {"dataset": batches.astype(str)}, ["dataset"], nclust=8, max_iter=4,
+                      seed=0, mesh=mesh, device="cpu" if mesh is None else None,
+                      return_object=True, **kw)
+    lay = mstep_layout(res.config, res.design.codes, "cpu", mesh)
+    return dict(emb=res.embeddings, obj=res.objective_harmony, route=str(res.config.rotate_route),
+                layout="tiled" if lay.tiled is not None else
+                "segment" if lay.segments is not None else "dense",
+                virtual=res.state.virt_pen is not None, dtype=str(res.state.Z_corr.dtype),
+                colsum=float(np.abs(res.R.sum(0) - 1).max()), sep=separation(res.embeddings,
+                                                                              batches))
+
+
+def _rank_routes(mesh, d):
+    for name in ROUTES:
+        out = _route_run(name, mesh)
+        if mesh.rank == 0:
+            np.savez(os.path.join(d, f"{name}.npz"), **out)
+        np.save(os.path.join(d, f"{name}_obj{mesh.rank}.npy"), out["obj"])
+
+
 def _rank_main(argv):
     task, rank, world, port, d = argv[:5]
     torch.set_num_threads(1)
@@ -138,6 +182,8 @@ def _rank_main(argv):
     mesh = tsh.make_mesh("cpu")
     if task == "e2e":
         _rank_e2e(mesh, d)
+    elif task == "routes":
+        _rank_routes(mesh, d)
     else:
         _rank_host(mesh, d, *argv[5:])
     print(json.dumps({"rank": mesh.rank, "ok": True}), flush=True)
@@ -190,6 +236,34 @@ def test_four_rank_run_matches_one_device_quality(tmp_path):
                       seed=0, shuffle_mode="rotate", options=_opts(), device="cpu",
                       return_object=True)
     np.testing.assert_allclose(obj[-1], one.objective_harmony[-1], rtol=0.05)
+
+
+@pytest.fixture(scope="module")
+def routes(tmp_path_factory):
+    d = tmp_path_factory.mktemp("routes")
+    _start("routes", 2, d)
+    return d
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_part_2_routes_run_on_two_ranks(routes, name):
+    n, B, kw, route, layout, same = ROUTES[name]
+    with np.load(routes / f"{name}.npz") as z:
+        got = {k: z[k] for k in z.files}
+    assert str(got["route"]) == route and str(got["layout"]) == layout
+    assert bool(got["virtual"]) == (name == "bf16")
+    assert str(got["dtype"]) == ("torch.bfloat16" if name == "bf16" else "torch.float32")
+    assert got["emb"].shape[0] == n and np.isfinite(got["emb"]).all()
+    assert float(got["colsum"]) <= (5e-3 if name == "bf16" else 1e-4)
+    np.testing.assert_array_equal(np.load(routes / f"{name}_obj1.npy"), got["obj"])
+    one = _route_run(name)
+    assert one["route"] == route and one["layout"] == layout
+    if same:
+        np.testing.assert_allclose(got["obj"], one["obj"], rtol=1e-4)
+    else:
+        np.testing.assert_allclose(got["obj"][-1], one["obj"][-1], rtol=0.05)
+    Z, batches = problem(n, 4 if name == "segment" else 8, B)
+    assert float(got["sep"]) < separation(Z, batches)
 
 
 def test_abort_on_one_rank_stops_every_rank_at_the_same_round(host):

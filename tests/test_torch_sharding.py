@@ -18,8 +18,11 @@ in one process (no ranks are started here).
 * The ranks' schedules: each takes its own of every shard's draws, the
   generator advancing alike on every rank.
 * ``initialize_distributed`` raises on a failed init and is idempotent.
-* Every mesh route left for ROADMAP A11's part 2 raises naming it, before
-  any collective.
+* Every mesh route ported in ROADMAP A11's part 2 (the per-round permute
+  schedule, the cell-granular rotate round and ``rotate_stats_carry=False``,
+  the dense and segmented M-steps, the bf16 engine) resolves as the JAX
+  package resolves it on a mesh and passes the engine's route check;
+  float16 still raises.
 """
 
 from __future__ import annotations
@@ -255,44 +258,103 @@ def _cells(n, B, seed=0, d=4):
     return Z, {"dataset": b.astype(str)}
 
 
+def _codes_of(n_cells, B):
+    return tpre.build_design(_cells(n_cells, B)[1], ["dataset"]).codes
+
+
+def _resolve_both(n_cells, B, kw, n=2):
+    """The configs a run on an ``n``-device mesh resolves: the port's as
+    ``run_harmony(mesh=)`` builds it, the JAX package's as its ``RunHarmony``
+    does with its 'auto' resolved as on a TPU; and the port's M-step layout
+    on its ingest order (rank 0's)."""
+    Z, meta = _cells(n_cells, B)
+    opts = kw.get("options", tconfig.harmony_options())
+    jopts = jconfig.harmony_options(**dataclasses.asdict(opts))
+    common = dict(n_cells=n_cells, d=4, nclust=6, max_iter=3, early_stop=True, verbose=False,
+                  lambda_estimation=True, shuffle_mode=kw["shuffle_mode"],
+                  dtype=kw.get("dtype", "float32"))
+    td = tpre.build_design(meta, ["dataset"])
+    ct = tpre.resolve_config(design=td, options=opts, **common)
+    ct = tconfig.finalize_engine_config(tsh.pad_for_mesh(ct, _mesh(n)), _mesh(n))
+    jm = jsh.make_mesh(n)
+    jd = jpre.build_design(meta, ["dataset"])
+    cj = jpre.resolve_config(design=jd, options=jopts, **common)
+    cj = jconfig.finalize_engine_config(
+        jsh.pad_for_mesh(dataclasses.replace(cj, estep_impl="auto"), jm), jm)
+    perm, _ = ingest_perm(ct, td, 0)
+    codes = td.codes if perm is None else td.codes[:, perm]
+    return ct, cj, tengine.mstep_layout(ct, codes, CPU, _mesh(n))
+
+
 @pytest.mark.parametrize(
     "n_cells,B,kw,route",
     [(3000, 3, {"shuffle_mode": "permute"}, "the per-round permute schedule"),
      (6000, 3, {"shuffle_mode": "rotate", "options": tconfig.harmony_options(
-         max_iter_cluster=6)}, None),
+         max_iter_cluster=6)}, "the rotate rounds past the static budget"),
      (3000, 3, {"shuffle_mode": "rotate"}, "the cell-granular rotate round"),
      (12_000, 30, {"shuffle_mode": "rotate"}, "the segmented and dense M-steps"),
-     (12_000, 3, {"shuffle_mode": "rotate", "dtype": "bfloat16"}, "dtype='bfloat16'")],
+     (12_000, 3, {"shuffle_mode": "rotate", "dtype": "bfloat16"}, "dtype='bfloat16'"),
+     (12_000, 3, {"shuffle_mode": "rotate", "dtype": "float16"}, "dtype='float16'")],
 )
-def test_mesh_routes_of_part_2_raise(n_cells, B, kw, route):
-    """run_harmony on a 2-rank mesh raises naming the route and ROADMAP
-    A11 before any collective (so here, with no group, too); the rotate
-    route with an unfused M-step is ported and gets past the check."""
-    Z, meta = _cells(n_cells, B)
-    if route is None:
-        cfg = tconfig.finalize_engine_config(tsh.pad_for_mesh(tconfig.HarmonyConfig(
-            N=n_cells, d=4, K=8, B=B, B_vec=(B,), shuffle_mode="rotate",
-            max_iter_cluster=6), _mesh(2)), _mesh(2))
-        assert cfg.rotate_route == "carry"
+def test_mesh_routes_of_part_2_raise(n_cells, B, kw, route, monkeypatch):
+    """The routes that raised on a mesh until ROADMAP A11's part 2 was
+    ported resolve on a 2-rank mesh as the JAX package resolves them there
+    (its 'auto' as on a TPU: Pallas on the stats-carrying rotate route and
+    the fused permute phase, XLA elsewhere; the same padded axis), take
+    the M-step layout it takes, and pass the engine's route check; the
+    float16 engine still raises, naming ROADMAP A9."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    if route == "dtype='float16'":
+        with pytest.raises(NotImplementedError, match="float16.*ROADMAP A9, float16 engines"):
+            _resolve_both(n_cells, B, kw)
         return
-    with pytest.raises(NotImplementedError, match=f"{route}.*ROADMAP A11"):
-        run_harmony(Z, meta, ["dataset"], nclust=6, device="cpu", mesh=_mesh(2), **kw)
+    ct, cj, layout = _resolve_both(n_cells, B, kw)
+    assert ct.n_shards == 2 and ct.Np == cj.Np and ct.dtype == cj.dtype
+    assert (cj.estep_impl == "pallas") == (ct.rotate_route == "carry" or ct.permute_fused)
+    if route == "the per-round permute schedule":
+        assert ct.shuffle_mode == "permute" and not ct.permute_fused
+    elif route == "the cell-granular rotate round":
+        assert ct.rotate_route == "cell" and cj.estep_impl == "xla"
+    else:
+        assert ct.rotate_route == "carry"
+    if route == "the segmented and dense M-steps":
+        # no batch-tiled order passes the mixture gate at 30 batches
+        assert layout.tiled is None and layout.segments is None
+        assert not cj.use_segments
+    if kw.get("dtype") == "bfloat16":
+        assert ct.virtual_r and cj.virtual_r
+    # the batch-tiled M-step where the JAX package's ingest takes its order
+    tj = cj.estep_impl == "pallas" and jtiled.choose_tiled_tile(
+        cj, ttiled.count_joint_levels(_codes_of(n_cells, B)), n_shards=2)
+    assert (layout.tiled is not None) == bool(tj)
+    tengine.check_mesh_route(ct)
 
 
-def test_written_r_rounds_on_a_mesh_raise():
-    """rotate_stats_carry=False has no run_harmony argument: the engine's
-    route check raises for it, and for the routes above, naming A11."""
+def test_written_r_rounds_on_a_mesh_raise(monkeypatch):
+    """rotate_stats_carry=False has no run_harmony argument: on a mesh it
+    resolves to the cell-granular round, as the JAX package's 'auto' takes
+    its XLA round there (only its stats-carry kernel has a sharded
+    wrapper), and every route passes the engine's route check; float16
+    still raises, naming ROADMAP A9."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     base = tconfig.HarmonyConfig(N=20_000, d=4, K=8, B=3, B_vec=(3,), shuffle_mode="rotate")
-    tiled = object()
-    for change, what in (({"rotate_stats_carry": False}, "rotate_stats_carry=False"),
-                         ({"N": 3000}, "cell-granular"),
-                         ({"shuffle_mode": "permute"}, "per-round permute"),
-                         ({"dtype": "bfloat16"}, "bfloat16")):
+    jm = jsh.make_mesh(2)
+    for change, route in (({"rotate_stats_carry": False}, "cell"), ({"N": 3000}, "cell"),
+                          ({"shuffle_mode": "permute"}, None), ({"dtype": "bfloat16"}, "carry"),
+                          ({}, "carry")):
         cfg = tconfig.finalize_engine_config(tsh.pad_for_mesh(
             dataclasses.replace(base, **change), _mesh(2)), _mesh(2))
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A11"):
-            tengine.check_mesh_route(cfg, tiled)
-    cfg = tconfig.finalize_engine_config(tsh.pad_for_mesh(base, _mesh(2)), _mesh(2))
-    tengine.check_mesh_route(cfg, tiled)
-    with pytest.raises(NotImplementedError, match="dense M-steps.*ROADMAP A11"):
-        tengine.check_mesh_route(cfg, None)
+        cj = jconfig.finalize_engine_config(jsh.pad_for_mesh(jconfig.HarmonyConfig(
+            **{**dict(N=20_000, d=4, K=8, B=3, B_vec=(3,), shuffle_mode="rotate",
+                      estep_impl="auto"), **change}),
+            jm), jm)
+        assert cfg.rotate_route == route and cfg.Np == cj.Np
+        assert (cj.estep_impl == "pallas") == (route == "carry")
+        tengine.check_mesh_route(cfg)
+    # one device keeps K12 for the same change
+    one = tconfig.finalize_engine_config(dataclasses.replace(base, rotate_stats_carry=False))
+    assert one.rotate_route == "two_phase"
+    cfg = dataclasses.replace(tconfig.finalize_engine_config(tsh.pad_for_mesh(base, _mesh(2)),
+                                                             _mesh(2)), dtype="float16")
+    with pytest.raises(NotImplementedError, match="float16.*ROADMAP A9, float16 engines"):
+        tengine.check_mesh_route(cfg)
