@@ -33,7 +33,11 @@ Phases (``--phases`` picks a subset, comma-separated):
              K10 with one correction group (B = 100); K10's time beside
              K11 then K9 on its R, the path it fuses; K7, K10 and K11 in
              the legacy op order too, at the main shape (timed) and the
-             shapes above, K11's R equal to K7's and K10 equal to K9 on
+             shapes above; K7's last round and K10 on 160-cell layout tiles
+             (T = 2560) at 200k x 50 (timed, the "160-cell tile" form,
+             K7's launches profiled by kernel), a ragged and a wide shape
+             and the legacy order; a profile of K7's last round at T = 2560
+             on 160- and 256-cell tiles at 200k and 500k (probe_k7_tiles); K11's R equal to K7's and K10 equal to K9 on
              it (1e-6; 0.0 expected); kernel, plain and
              library-call times (K1's and K2's a phase of rounds, per
              round: K1's with its scatter back to the cells' order, K2's
@@ -63,6 +67,16 @@ Phases (``--phases`` picks a subset, comma-separated):
              launched, K8 must not.
 8. virtual   the same call with virtual_r=True: K6, K7, K10 (once per
              iteration) and K11 (once) must be launched, K8 and K9 must not.
+             Then the driver on 200,000 x 50 cells, K = 100, B = 10 with a
+             user-set mstep_tile=160 and estep_sub_tile=2560: layout tiles
+             that are not whole 64-cell pieces. First the reference:
+             written R with the fused moments dropped before each
+             correction, so K8 sums M from the written R (K6, K7, K8, K9);
+             then written R (K6, K7 with its moments split at tile
+             boundaries, K9 masking a tile's partial slice; no K8), then
+             virtual R (K6, K7, K10 once an iteration, K11 once; no K8 or
+             K9); both objective traces are held to the reference's (rtol
+             1e-4), the virtual one also to the written one's.
 9. rotate_rounds  the default call with max_iter_cluster = 6, a round
              count past the static budget: every round writes R and the
              M-step takes K8: K6, K7, K8 and K9 must be launched.
@@ -147,6 +161,18 @@ Phases (``--phases`` picks a subset, comma-separated):
              and each rank's peak memory; then mesh_main on a 1-rank NCCL
              group against one device (objective rtol 1e-5). A rank that
              fails fails the phase. Launches are summed over the ranks.
+17. harness  the port's benchmark harnesses (check_harness): python -m
+             harmony_tpu_torch.bench at 500,000 x 50, K = 100, B = 10,
+             rotate, with a 60 s budget, whose one JSON line must carry the
+             JAX payload's keys; a second run, on 20,000 cells, sent
+             SIGTERM after its warm-up, which must print exactly one line; the quality tool's
+             parity section (the four fixtures against their float64
+             oracle, Z_corr within 1e-4, the JAX engine's band logged) and
+             converge section (cell_lines and pbmc_stim at the reference's
+             defaults); then the sharded checkpoint (check_sharded_
+             checkpoint): a 500k virtual-R state saved and loaded on the
+             card, bit for bit, timed, and one round from it. Its results
+             go to $CHIP_SMOKE_OUT/harness.json.
 
 It prints a JSON line of the kernels' numbers, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Any failed check exits 1.
@@ -165,10 +191,22 @@ import sys
 import time
 
 PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
-          "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16", "host", "mesh")
+          "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16", "host", "mesh",
+          "harness")
 # phases run only when named in --phases: the bf16 engine at BASELINE's
 # shape, on one card and on the mesh
 OPT_IN_PHASES = ("bf16_10m", "mesh_bf16_10m")
+# the payload keys of the JAX package's bench (harmony_tpu/bench.py:242-275,
+# with the root harness's baseline), which python -m harmony_tpu_torch.bench
+# must print
+JAX_PAYLOAD_KEYS = ("metric", "value", "unit", "n_cells", "d", "K", "n_batches",
+                    "seconds_per_iter", "first_iter_with_compile_s", "n_devices", "platform",
+                    "estep_impl", "mstep", "shuffle_mode", "dtype", "vs_baseline")
+# the harness phase: the harness's wall-clock budget, and the Z_corr bound
+# of the parity fixtures against their float64 oracle (tests/test_parity_
+# fixtures.py) beside the JAX engine's band on them (QUALITY.json's parity
+# section, up to 1.13e-6)
+HARNESS_BUDGET_S, PARITY_ATOL, JAX_PARITY_BAND = 60, 1e-4, 1.13e-6
 # BASELINE's north-star shape (BASELINE.json): 10M cells x 50, 100 batches,
 # K = 100 (default_nclust), bf16
 N_10M, B_10M = 10_000_000, 100
@@ -218,6 +256,11 @@ MESH_PATHS = {
     "mesh_segment": {**_MESH_ROTATE, "cells": 200_000, "batches": B_SEGMENT,
                      "want": ("carry", False, False, "segment")},
 }
+# layout tiles that are not whole 64-cell pieces: (E-step tile, layout
+# tile) and the cells of the virtual phase's runs on them (run_driver: a
+# user-set mstep_tile and estep_sub_tile)
+TILE160, N_TILE160 = (2560, 160), 200_000
+N_SIGTERM = 20_000  # the harness run sent SIGTERM after its warm-up
 # K11 past K10's limits (N, d, K, B_vec, seed), then K9: 300 dims (one
 # CTA an SM) and v_chain at eight cluster values a lane (K = 256)
 VIRTUAL_WIDE = ((20_000, 300, 32, (B_MAIN,), 26), (20_000, D_MAIN, 256, (B_MAIN,), 29))
@@ -238,6 +281,24 @@ def log(*a):
 def bound(nbytes: float, flops: float):
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def k7_moments_work(K, d, Np, ncov, nj, nb, B, zbytes):
+    """(bytes, flops) of K7's last round with the fused moments: K6's G
+    (K, Np), Z_orig (``zbytes`` a value) and the codes read once, the
+    moments of nj + 1 joints and nb block tables written once; the moments'
+    product 2 K (d + 1) Np (the chain's elementwise operations are not
+    counted)."""
+    nbytes = 4 * (K * Np + ncov * Np + (nj + 1) * K * (d + 1) + nb * K * B) + zbytes * d * Np
+    return nbytes, 2.0 * K * (d + 1) * Np
+
+
+def k10_work(K, d, Np, ncov, n_pure, zbytes):
+    """(bytes, flops) of K10: K6's G (K, Np) and the codes read once,
+    Z_orig read and Z_corr written once (``zbytes`` a value); the
+    correction's product 2 K d on the cells of pure layout tiles only (a
+    trash tile's output is Z_orig)."""
+    return 4 * (K * Np + ncov * Np) + 2 * zbytes * d * Np, 2.0 * K * d * n_pure
 
 
 def time_ms(torch, label, fn, iters: int = 10, warmup: int = 2, reps: int = 3) -> float:
@@ -639,9 +700,10 @@ def check_ridge(torch, dev, N, d, K, B, seed, timed, kind="random", absent=None)
     return k4, k5
 
 
-def rotate_problem(torch, N, d, K, B_vec, seed, dev):
+def rotate_problem(torch, N, d, K, B_vec, seed, dev, T=None):
     """Seeded inputs of the rotate kernels at the geometry
-    finalize_engine_config gives N cells: a raw (un-normalised) padded
+    finalize_engine_config gives N cells (from an E-step tile of ``T``
+    cells where given): a raw (un-normalised) padded
     embedding, per-covariate codes padded with the sentinel, centroids near
     some cells, sigma 0.1, theta 2, and a generator for the schedule."""
     from harmony_tpu_torch import ops
@@ -651,7 +713,10 @@ def rotate_problem(torch, N, d, K, B_vec, seed, dev):
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     cfg = finalize_engine_config(HarmonyConfig(
-        N=N, d=d, K=K, B=sum(B_vec), B_vec=tuple(B_vec), shuffle_mode="rotate"))
+        N=N, d=d, K=K, B=sum(B_vec), B_vec=tuple(B_vec), shuffle_mode="rotate",
+        **({"estep_sub_tile": T} if T else {})))
+    require(T is None or cfg.estep_sub_tile == T,
+            f"rotate_problem: the E-step tile resolved to {cfg.estep_sub_tile}, not {T}")
     Np = cfg.Np
     Z = torch.zeros(d, Np, device=dev)
     Z[:, :N] = 2.0 * torch.randn(d, N, generator=g, device=dev)
@@ -732,8 +797,9 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
         k6.update(time_k6(torch, args6, "random codes", ""))
         k6["plain_ms"] = time_ms(torch, "K6 plain", lambda: rotate.reassign(*args6))
         k6["library_ms"] = None
-        # Z and the codes read once, Zn written once (tile_O, O, E are tiny)
-        k6["bound_ms"], k6["bound_by"] = bound(4 * (2 * d * Np + ncov * Np), flops)
+        # Z and the codes read once, Zn and G written once (tile_O, O, E
+        # are tiny)
+        k6["bound_ms"], k6["bound_by"] = bound(4 * (2 * d * Np + ncov * Np + K * Np), flops)
         k7["ms"] = time_ms(torch, "K7 kernel round", lambda: cuda_rotate.rotate_update_round_v2(
             *args7, write_r=False), iters=5)
         k7["ms_write_r"] = time_ms(
@@ -751,10 +817,11 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
             f"{fmt_rate(nbytes, dms['rot_assign_kernel'])} ({nbytes / 1e6:.1f} MB); "
             f"commits {fmt_ms(dms['rot_commit_kernel'])}")
         k7["library_ms"] = None
-        # one round reads Z and the codes once; the round that writes R
-        # also writes (K, Np) once
-        k7["bound_ms"], k7["bound_by"] = bound(4 * (d * Np + ncov * Np), flops)
-        k7["bound_ms_write_r"], _ = bound(4 * (d * Np + ncov * Np + K * Np), flops)
+        # one round reads K6's G and the codes once and forms no product
+        # (the chain's elementwise operations are not counted); the round
+        # that writes R also writes (K, Np) once
+        k7["bound_ms"], k7["bound_by"] = bound(4 * (K * Np + ncov * Np), 0.0)
+        k7["bound_ms_write_r"], _ = bound(4 * (2 * K * Np + ncov * Np), 0.0)
     return k6, k7
 
 
@@ -777,20 +844,21 @@ def time_k6(torch, args6, what, sfx):
     return row
 
 
-def virtual_problem(torch, dev, N, d, K, B_vec, seed, variant):
+def virtual_problem(torch, dev, N, d, K, B_vec, seed, variant, tiles=None):
     """rotate_problem's inputs in the op order ``variant`` with the cells in
     a batch-tiled order (so the layout has pure tiles of 256 cells, 128
-    below 100k cells) and a seeded Z_orig. Returns (cfg, Z, codes_pad, Y,
-    sigma, Pr_b, theta, g, tile, layout, Z_orig, n_joint, tile_joint)."""
+    below 100k cells; ``tiles`` (E-step tile, layout tile) sets both) and a
+    seeded Z_orig. Returns (cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g,
+    tile, layout, Z_orig, n_joint, tile_joint)."""
     import dataclasses
 
     from harmony_tpu_torch.ops.ridge import full_tile_joint
     from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
 
     cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = rotate_problem(
-        torch, N, d, K, B_vec, seed, dev)
+        torch, N, d, K, B_vec, seed, dev, T=tiles[0] if tiles else None)
     cfg = dataclasses.replace(cfg, estep_variant=variant)
-    tile = 256 if N >= 100_000 else 128
+    tile = tiles[1] if tiles else 256 if N >= 100_000 else 128
     order, layout = build_batch_tiled_order(codes_pad[:, :N].cpu().numpy(), tile, seed)
     order = torch.as_tensor(order, device=dev)
     Z[:, :N] = Z[:, order]
@@ -801,20 +869,23 @@ def virtual_problem(torch, dev, N, d, K, B_vec, seed, variant):
             int(layout.joint_codes.shape[1]), full_tile_joint(cfg, layout))
 
 
-def check_virtual(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
+def check_virtual(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu", tiles=None):
     """A phase's last K7 round with the fused moments and the penalty
     tables (writing R and not), K10 and K11 against their plain versions
     on the same inputs, in the op order ``variant``, the cells in a
-    batch-tiled order so the layout has pure tiles. K11 from K7's tables
+    batch-tiled order so the layout has pure tiles (``tiles``: the E-step
+    and layout tiles, TILE160's layout tiles that are not whole 64-cell
+    pieces). K11 from K7's tables
     must give back the R K7 wrote. The correction goes through the route
     the engine takes (K10 where it takes the shape, else K11 then K9), and
     again without G (K11 then K9). Timed under ``legacy``, only K7's last
-    round, K10 and K11 (keys ``*_legacy``)."""
+    round, K10 and K11 (keys ``*_legacy``); with ``tiles``, only K7's last
+    round and K10 (keys ``*_tile160``)."""
     from harmony_tpu_torch.ops import cuda_ridge, cuda_rotate, rotate
     from harmony_tpu_torch.ops.ridge import virtual_tile_correction
 
     (cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g, tile, layout, Zo, nj,
-     tj) = virtual_problem(torch, dev, N, d, K, B_vec, seed, variant)
+     tj) = virtual_problem(torch, dev, N, d, K, B_vec, seed, variant, tiles)
     Np, ncov = cfg.Np, len(B_vec)
     spec = rotate.MomentsSpec(Z_orig=Zo, tile_joint=tj, n_joint=nj, tile=tile)
     # K6's Zn and G, as the engine hands them to the phase's rounds
@@ -897,7 +968,27 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
     k7m = {"max_abs_err_moments": max(e7, errs7["M"])}
     k10, k11 = {"max_abs_err": e10}, {"max_abs_err": max(e11, e11_7)}
     k6 = {}
-    if timed and variant == "legacy":
+    if timed and tiles:
+        nb = out.pen.shape[0]
+        k7m = {"ms_moments_tile160": time_ms(
+            torch, f"K7 kernel last round, moments + penalty tables, {tile}-cell tiles",
+            lambda: cuda_rotate.rotate_update_round_v2(*args, write_r=False, **kw), iters=5),
+               "plain_ms_moments_tile160": time_ms(
+            torch, f"K7 plain last round, moments + penalty tables, {tile}-cell tiles",
+            lambda: rotate.rotate_update_round_v2(*args, write_r=False, **kw), iters=3),
+               "max_abs_err_moments_tile160": k7m["max_abs_err_moments"]}
+        k7m.update(profile_k7_last(torch, cuda_rotate, lambda: cuda_rotate.rotate_update_round_v2(
+            *args, write_r=False, **kw), f"{tile}-cell tiles", "_tile160"))
+        k7m["bound_ms_moments_tile160"], _ = bound(*k7_moments_work(K, d, Np, ncov, nj, nb,
+                                                                    cfg.B, 4))
+        k10 = {"ms_tile160": time_ms(torch, f"K10 kernel, {tile}-cell tiles",
+                                     lambda: cuda_rotate.virtual_correction(*cargs)),
+               "plain_ms_tile160": time_ms(torch, f"K10 plain, {tile}-cell tiles",
+                                           lambda: rotate.virtual_correction(*cargs), iters=3),
+               "max_abs_err_tile160": e10}
+        k10["bound_ms_tile160"], _ = bound(*k10_work(K, d, Np, ncov, layout.n_pure, 4))
+        k11 = {}
+    elif timed and variant == "legacy":
         k7m = {"ms_moments_legacy": time_ms(
             torch, "K7 kernel last round (legacy), moments + penalty tables",
             lambda: cuda_rotate.rotate_update_round_v2(*args, write_r=False, **kw), iters=5)}
@@ -915,17 +1006,16 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
         k7m["plain_ms_moments"] = time_ms(
             torch, "K7 plain last round, moments + penalty tables",
             lambda: rotate.rotate_update_round_v2(*args, write_r=False, **kw), iters=3)
+        k7m.update(profile_k7_last(torch, cuda_rotate, lambda: cuda_rotate.rotate_update_round_v2(
+            *args, write_r=False, **kw), f"{tile}-cell tiles", ""))
         nt = Np // tile
         oh = torch.nn.functional.one_hot(torch.as_tensor(tj, device=dev).long(), nj + 1).float()
         R3 = out.R.reshape(K, nt, tile)
         Za3 = torch.cat([Zo, torch.ones(1, Np, device=dev)]).reshape(d + 1, nt, tile)
         k7m["library_ms"] = time_ms(torch, "K7 moments library einsum (K8's, on K7's R)",
                                     lambda: torch.einsum("ktu,tj,dtu->jkd", R3, oh, Za3))
-        # Z, the codes and Z_orig read once; M and the tables written once
         nb = out.pen.shape[0]
-        k7m["bound_ms_moments"], _ = bound(
-            4 * (2 * d * Np + ncov * Np + (nj + 1) * K * (d + 1) + nb * K * cfg.B),
-            flops + 2.0 * K * (d + 1) * Np)
+        k7m["bound_ms_moments"], _ = bound(*k7_moments_work(K, d, Np, ncov, nj, nb, cfg.B, 4))
         k10["ms"] = time_ms(torch, "K10 kernel", lambda: cuda_rotate.virtual_correction(*cargs))
         k10["plain_ms"] = time_ms(torch, "K10 plain",
                                   lambda: rotate.virtual_correction(*cargs), iters=3)
@@ -935,11 +1025,7 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
             cuda_ridge.tiled_correction(W, tj, cuda_rotate.materialize_r(cfg, *vargs), Zo,
                                         tile)))
         k10["library_ms"] = None
-        # Zn, the codes and Z_orig read once, Z_corr written once; the
-        # distances and the correction only on the cells of pure layout
-        # tiles (the trash tiles' output is Z_orig)
-        k10["bound_ms"], k10["bound_by"] = bound(4 * (3 * d * Np + ncov * Np),
-                                                 4.0 * K * d * layout.n_pure)
+        k10["bound_ms"], k10["bound_by"] = bound(*k10_work(K, d, Np, ncov, layout.n_pure, 4))
         k11["ms"] = time_ms(torch, "K11 kernel", lambda: cuda_rotate.materialize_r(cfg, *vargs))
         k11["plain_ms"] = time_ms(torch, "K11 plain",
                                   lambda: rotate.materialize_r(cfg, *vargs), iters=3)
@@ -947,6 +1033,54 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
         # Zn and the codes read once, R written once
         k11["bound_ms"], k11["bound_by"] = bound(4 * (d * Np + ncov * Np + K * Np), flops)
     return k7m, k10, k11, k6
+
+
+def profile_k7_last(torch, cuda_rotate, fn, what, sfx) -> dict:
+    """K7's last round with moments under torch.profiler: the device ms a
+    call of its assign launches, its commits and the per-joint sum of the
+    moments, and its launches a call."""
+    before = cuda_rotate.rotate_update_round_v2.launches
+    fn()
+    n = cuda_rotate.rotate_update_round_v2.launches - before
+    dms = device_ms(torch, fn, ("rot_assign_kernel", "rot_commit_kernel", "sum_chunks_kernel"))
+    log(f"    K7 last round with moments, {what}: assign {fmt_ms(dms['rot_assign_kernel'])}, "
+        f"commits {fmt_ms(dms['rot_commit_kernel'])}, joint sums "
+        f"{fmt_ms(dms['sum_chunks_kernel'])} device time a call; {n} launches a call")
+    return {f"device_ms_moments_assign{sfx}": dms["rot_assign_kernel"],
+            f"device_ms_moments_commits{sfx}": dms["rot_commit_kernel"],
+            f"launches_a_call_moments{sfx}": n}
+
+
+def probe_k7_tiles(torch, dev) -> dict:
+    """K7's last round with moments at one E-step tile (T = 2560) on
+    160-cell layout tiles (split pieces) and 256-cell ones (whole pieces),
+    at N_TILE160 and N_MAIN cells: what the split moments cost at one
+    launch plan, and how the time follows the cells a launch. Profiled
+    only (device ms a call, by kernel), logged and returned."""
+    from harmony_tpu_torch.ops import cuda_rotate, rotate
+
+    out = {}
+    for n in (N_TILE160, N_MAIN):
+        for tw in (TILE160[1], 256):
+            (cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g, tile, layout, Zo, nj,
+             tj) = virtual_problem(torch, dev, n, D_MAIN, K_MAIN, (B_MAIN,), 31, "fused_vpu",
+                                   (TILE160[0], tw))
+            Zn, tO, O, E, G = cuda_rotate.reassign(cfg, Y, sigma, Pr_b, Z, codes_pad)
+            rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
+            rs = rotate.RoundState(R=torch.zeros(K_MAIN, cfg.Np, device=dev), E=E, O=O,
+                                   tile_O=tO, kmeans_error=None, entropy=None)
+            args = (cfg, Y, rs, Pr_b, sigma, theta, rt, blocks,
+                    rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G))
+            spec = rotate.MomentsSpec(Z_orig=Zo, tile_joint=tj, n_joint=nj, tile=tile)
+            ctas = cfg.Np // 64 / cfg.n_blocks
+            row = profile_k7_last(
+                torch, cuda_rotate, lambda: cuda_rotate.rotate_update_round_v2(
+                    *args, write_r=False, moments=spec, emit_pen=True),
+                f"T={cfg.estep_sub_tile}, {tw}-cell tiles, N={n}, ~{ctas:.0f} CTAs an "
+                f"assign launch", "")
+            out[f"{n}_{tw}"] = row
+            del Z, Zn, G, Zo, rs, args
+    return out
 
 
 def k11_form(torch, dev, cfg, d, Np) -> str:
@@ -1152,14 +1286,13 @@ def check_bf16(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
         rows[k]["library_ms"] = None
     nb = out7.pen.shape[0]
     # the bytes each function moves with Z_raw, Z_orig, Z_corr and R in 2
-    # bytes and Zn, G's inputs and the tables in 4
+    # bytes and Zn, G, the codes and the tables in 4
     rows["K6"]["bound_ms"], rows["K6"]["bound_by"] = bound(
-        2 * d * Np + 4 * d * Np + 4 * ncov * Np, flops)
+        2 * d * Np + 4 * d * Np + 4 * ncov * Np + 4 * K * Np, flops)
     rows["K7"]["bound_ms"], rows["K7"]["bound_by"] = bound(
-        4 * d * Np + 2 * d * Np + 4 * ncov * Np + 4 * ((nj + 1) * K * (d + 1) + nb * K * cfg.B),
-        flops + 2.0 * K * (d + 1) * Np)
+        *k7_moments_work(K, d, Np, ncov, nj, nb, cfg.B, 2))
     rows["K10"]["bound_ms"], rows["K10"]["bound_by"] = bound(
-        4 * d * Np + 2 * d * Np + 2 * d * Np + 4 * ncov * Np, 4.0 * K * d * layout.n_pure)
+        *k10_work(K, d, Np, ncov, layout.n_pure, 2))
     rows["K11"]["bound_ms"], rows["K11"]["bound_by"] = bound(
         4 * d * Np + 4 * ncov * Np + 2 * K * Np, flops)
     # K7's moments: the library einsum of K8's function on the bf16 round's
@@ -1651,6 +1784,229 @@ def run_main_path(torch, dev, wrappers, phase):
         if profile:
             profile_round(torch, res, profile, layout)
     return launches, trace, n_it
+
+
+def run_tile160_path(torch, dev, wrappers, path):
+    """The driver (run_harmony's steps) on N_TILE160 x 50 cells, 10
+    batches, K = 100, with a user-set ``mstep_tile=160`` and
+    ``estep_sub_tile=2560``: layout tiles that are not whole 64-cell
+    pieces. 'virtual_tile160' takes virtual R (K6, K7 with its split
+    moments, K10 once an iteration, K11 once; no K8 or K9),
+    'written_tile160' writes R (K7's split moments, K9 masking a tile's
+    partial slice; no K8), 'written_tile160_k8' is that run with the fused
+    moments dropped before each correction, so K8 sums M from the written R:
+    the reference the other two are held to, independent of K7's split
+    moments. Launch counts are set to 0 right before the call and read
+    right after it. Returns (launches, objective trace, iterations)."""
+    import dataclasses
+
+    import numpy as np
+
+    from harmony_tpu_torch import engine
+
+    virtual = path == "virtual_tile160"
+    correct = engine.correct
+    if path == "written_tile160_k8":
+        engine.correct = lambda cfg, state, *a: correct(
+            cfg, dataclasses.replace(state, tiled_moments=None), *a)
+    Zs, bs = synthetic(torch, N_TILE160, D_MAIN, B_MAIN, 7, dev)
+    sep0 = separation(torch, Zs.t(), bs, B_MAIN)
+    Zh, meta = Zs.cpu().numpy(), {"batch": bs.cpu().numpy()}
+    del Zs
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = run_driver(Zh, meta, dev, virtual_r=virtual, estep_sub_tile=TILE160[0],
+                         mstep_tile=TILE160[1])
+        torch.cuda.synchronize()
+    finally:
+        engine.correct = correct
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    cfg = res.config
+    tiled = engine.mstep_layout(cfg, res.design.codes, dev).tiled
+    ph = res.phase_seconds()
+    n_it = int(res.state.n_rounds)
+    per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
+    trace = [float(x) for x in res.objective_harmony]
+    log(f"{path} path: driver.run {N_TILE160} x {D_MAIN}, K={res.K}, B={res.B}, "
+        f"{cfg.shuffle_mode} (route {cfg.rotate_route!r}, T={cfg.estep_sub_tile}, "
+        f"Np={cfg.Np}), layout tile {tiled.tile if tiled else None}, virtual R "
+        f"{res.state.virt_pen is not None}: {n_it} iterations, wall {wall:.2f} s")
+    log("  phase seconds: " + json.dumps({k: round(v, 4) for k, v in ph.items()}))
+    log(f"  seconds per Harmony iteration {per_it:.4f}; objective "
+        f"{[round(x, 3) for x in trace]}")
+    log(f"  launches: {launches}")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    require(cfg.estep_sub_tile == TILE160[0] and tiled is not None
+            and tiled.tile == TILE160[1], f"{path}: E-step tile {cfg.estep_sub_tile}, "
+            f"layout tile {tiled.tile if tiled else None}")
+    require(cfg.rotate_route == "carry", f"{path}: rotate_route={cfg.rotate_route!r}")
+    require((res.state.virt_pen is not None) == virtual,
+            f"{path}: virtual R engaged={res.state.virt_pen is not None}")
+    if virtual:
+        require(launches["K10"] == n_it and launches["K11"] == 1,
+                f"{path}: K10 {launches['K10']} launches for {n_it} iterations, "
+                f"K11 {launches['K11']}")
+    emb = res.embeddings
+    require(emb.shape == (N_TILE160, D_MAIN) and np.isfinite(emb).all(),
+            f"{path}: embeddings not finite or of the wrong shape")
+    dev_r = float(np.abs(res.R.sum(0) - 1).max())
+    sep1 = separation(torch, torch.as_tensor(res.Z_corr, device=dev),
+                      torch.as_tensor(meta["batch"], device=dev), B_MAIN)
+    log(f"  R column sums within {dev_r:.2e} of 1; batch-centroid separation "
+        f"{sep0:.4f} -> {sep1:.4f}")
+    require(dev_r <= 1e-4, f"{path}: R column sums off by {dev_r}")
+    require(sep1 < sep0, f"{path}: batch-centroid separation did not shrink")
+    return launches, trace, n_it
+
+
+def harness_env(**extra) -> dict:
+    """The environment of a harness subprocess: this checkout on the path,
+    no HARMONY_BENCH_* knob from outside, then ``extra``."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HARMONY_BENCH_")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    env.update(extra)
+    return env
+
+
+def check_harness(torch, dev):
+    """The port's benchmark harnesses on the card (check_harness): python -m
+    harmony_tpu_torch.bench at the canonical 500k x 50, K = 100, B = 10 with
+    a 60 s budget (one JSON line with the JAX payload's keys, on the gpu);
+    a second run on N_SIGTERM cells sent SIGTERM once its warm-up has landed
+    (exactly one line); the quality tool's parity sections (the four fixtures against
+    their float64 oracle) and converge sections (cell_lines and pbmc_stim
+    at the reference's defaults)."""
+    import signal
+
+    import numpy as np
+
+    from harmony_tpu_torch.tools import quality_bench
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "harmony_tpu_torch.bench"],
+                         env=harness_env(HARMONY_BENCH_BUDGET=str(HARNESS_BUDGET_S)),
+                         capture_output=True, text=True, timeout=HARNESS_BUDGET_S + 120)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.splitlines() if ln.strip()]
+    log(f"harness: python -m harmony_tpu_torch.bench (500k x 50, K=100, B=10, rotate, budget "
+        f"{HARNESS_BUDGET_S} s): rc {out.returncode}, {len(lines)} line(s), wall {wall:.1f} s: "
+        + (lines[-1] if lines else out.stderr[-2000:]))
+    require(out.returncode == 0 and len(lines) == 1,
+            f"the harness printed {len(lines)} lines, rc {out.returncode}")
+    payload = json.loads(lines[0])
+    # "degraded" (fewer valid pairs than asked) is optional in both payloads
+    require(set(payload) - {"degraded"} == set(JAX_PAYLOAD_KEYS)
+            and payload["platform"] == "gpu" and payload["value"] > 0,
+            f"the harness's payload keys {sorted(payload)} are not the JAX payload's")
+    # the SIGTERM after the warm-up, at a small shape (the emit does not
+    # depend on it): many timed rounds, so it is still going
+    p = subprocess.Popen([sys.executable, "-m", "harmony_tpu_torch.bench"],
+                         env=harness_env(HARMONY_BENCH_VERBOSE="1", HARMONY_BENCH_ITERS="400",
+                                         HARMONY_BENCH_PAIRS="50",
+                                         HARMONY_BENCH_CELLS=str(N_SIGTERM)),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        seen, deadline = "", time.monotonic() + 180
+        while "warm-up done" not in seen and time.monotonic() < deadline:
+            line = p.stderr.readline()
+            if not line and p.poll() is not None:
+                break
+            seen += line
+        require("warm-up done" in seen, f"the second harness run: no warm-up: {seen[-2000:]}")
+        p.send_signal(signal.SIGTERM)
+        so, _ = p.communicate(timeout=60)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    lines = [ln for ln in so.splitlines() if ln.strip()]
+    log(f"  SIGTERM after the warm-up ({N_SIGTERM} cells): rc {p.returncode}, "
+        f"{len(lines)} line(s): "
+        f"{lines[-1] if lines else ''}")
+    require(p.returncode == 0 and len(lines) == 1
+            and set(json.loads(lines[0])) <= set(JAX_PAYLOAD_KEYS) | {"degraded"},
+            f"SIGTERM after the warm-up: rc {p.returncode}, {len(lines)} lines")
+    t0 = time.perf_counter()
+    parity = quality_bench.section_parity(dev)
+    for name, e in parity.items():
+        err = e["max_abs_err_vs_oracle"]
+        log(f"  parity {name} ({e['n_cells']} cells): Z_corr max|d| against the float64 oracle "
+            f"{err:.3e} (bound {PARITY_ATOL}; within the JAX engine's band "
+            f"{JAX_PARITY_BAND}: {err <= JAX_PARITY_BAND}), objective rel "
+            f"{e['objective_max_rel_delta_vs_oracle']:.3e} (1e-5)")
+        require(err <= PARITY_ATOL and e["objective_max_rel_delta_vs_oracle"] <= 1e-5,
+                f"parity {name}: {e}")
+    converge = quality_bench.section_converge(dev)
+    for name, e in converge.items():
+        obj = np.asarray(e["objective_harmony"])
+        log(f"  converge {name} ({e['n_cells']} cells, {e['vars_use']}): "
+            f"{e['iters_to_converge']} iterations, k-means rounds {e['kmeans_rounds']}, wall "
+            f"{e['wall_s_end_to_end']} s, warm {e['wall_s_end_to_end_warm']} s; objective "
+            f"{obj.round(3).tolist()}")
+        require(np.isfinite(obj).all() and obj[-1] < obj[0] and e["iters_to_converge"] >= 1,
+                f"converge {name}: {e}")
+    log(f"  quality sections {time.perf_counter() - t0:.1f} s")
+    return {"harness": payload, "parity": parity, "converge": converge,
+            "checkpoint": check_sharded_checkpoint(torch, dev)}
+
+
+def check_sharded_checkpoint(torch, dev) -> dict:
+    """checkpoint.save_checkpoint_sharded and load_checkpoint_sharded on the
+    card, one process: the state of a one-iteration virtual-R run_harmony
+    on the main shape's cells, saved and loaded back (every field of the JAX state and
+    the generator bit for bit against the state with R materialised, the
+    virtual-R context kept), timed; then one more round from the loaded
+    state."""
+    import shutil
+
+    from harmony_tpu_torch import checkpoint, engine, run_harmony
+    from harmony_tpu_torch.state import ARRAY_FIELDS, VIRTUAL_FIELDS
+
+    Zs, bs = synthetic(torch, N_MAIN, D_MAIN, B_MAIN, 7, dev)
+    res = run_harmony(Zs.cpu().numpy(), {"batch": bs.cpu().numpy()}, ["batch"], max_iter=1,
+                      early_stop=False, return_object=True, seed=0, virtual_r=True)
+    del Zs
+    cfg, st = res.config, res.state
+    require(st.virt_pen is not None, "checkpoint: the run did not take virtual R")
+    path = os.path.join(OUT_DIR, "ck_sharded")
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint_sharded(path, cfg, st)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg2, back = checkpoint.load_checkpoint_sharded(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    # room for the round after the load
+    cfg3, more = checkpoint.load_checkpoint_sharded(path, extra_rounds=1)
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    want = engine.materialize_r(cfg, st)
+
+    def same(a, b):
+        if not isinstance(a, torch.Tensor):
+            return a == b
+        return (a.dtype == b.dtype and a.shape == b.shape and a.device == b.device
+                and bool(torch.equal(a, b)))
+
+    fields = [f for f in ARRAY_FIELDS if f != "key"]
+    bad = [f for f in fields if not same(getattr(back, f), getattr(want, f))]
+    bad += [f for f in VIRTUAL_FIELDS if not same(getattr(back, f), getattr(st, f))]
+    gen = bool(torch.equal(back.generator.get_state(), st.generator.get_state()))
+    log(f"checkpoint: save_checkpoint_sharded of the {N_MAIN} x {D_MAIN} virtual-R state "
+        f"{save_s:.3f} s, load {load_s:.3f} s, {size / 2**20:.1f} MiB; config equal "
+        f"{cfg2 == cfg}; fields that differ {bad}; generator equal {gen}")
+    require(cfg2 == cfg and not bad and gen, f"the sharded checkpoint's round trip: {bad}")
+    layout = engine.mstep_layout(cfg3, more.codes.cpu().numpy(), dev)
+    nxt = engine.materialize_r(cfg3, engine.harmony_round(cfg3, more, layout=layout))
+    require(bool(torch.isfinite(nxt.Z_corr).all()) and nxt.n_rounds == st.n_rounds + 1,
+            "checkpoint: the round after the load")
+    shutil.rmtree(path, ignore_errors=True)
+    return {"save_s": save_s, "load_s": load_s, "bytes": size}
 
 
 def run_segment_path(torch, dev, wrappers, path, n, schedule):
@@ -2570,6 +2926,11 @@ def main(argv=None) -> int:
              "permute_rounds": (("K1", "K4", "K5"), ("K2", "K3")),
              "main": (("K6", "K7", "K9"), ("K8", "K10", "K11", "K12")),
              "virtual": (("K6", "K7", "K10", "K11"), ("K8", "K9")),
+             # 160-cell layout tiles: K7's split moments, K10 cutting its
+             # steps, K9 masking a tile's partial slice
+             "written_tile160": (("K6", "K7", "K9"), ("K8", "K10", "K11", "K12")),
+             "written_tile160_k8": (("K6", "K7", "K8", "K9"), ("K10", "K11", "K12")),
+             "virtual_tile160": (("K6", "K7", "K10", "K11"), ("K8", "K9", "K12")),
              "rotate_rounds": (("K6", "K7", "K8", "K9"), ("K10", "K11", "K12")),
              "rotate_two_phase": (("K12", "K8", "K9"), ("K6", "K7", "K10", "K11")),
              "legacy": (("K6", "K7", "K9"), ("K8", "K10", "K11", "K12")),
@@ -2676,6 +3037,19 @@ def main(argv=None) -> int:
         # wide: more 4x4 tiles of the (K, d+1) table than a CTA has threads
         check_virtual(torch, dev, 20_000, 100, 100, (B_MAIN,), 19, False)
         check_virtual(torch, dev, 200_000, D_MAIN, K_MAIN, (B_SEGMENT,), 8, False)
+        # layout tiles of 160 cells (T = 2560): K7's moments split a piece
+        # at a tile boundary, K10 cuts its steps at tile edges; timed at
+        # the virtual phase's shape ("160-cell tile" form), then ragged,
+        # wide and in the legacy op order
+        k7t, k10t = check_virtual(torch, dev, N_TILE160, D_MAIN, K_MAIN, (B_MAIN,), 31, True,
+                                  tiles=TILE160)[:2]
+        kernels["K7"].update(k7t)
+        kernels["K10"].update(k10t)
+        kernels["K7"]["tile_probe"] = probe_k7_tiles(torch, dev)
+        check_virtual(torch, dev, 90_011, 13, 7, (3, 4), 32, False, tiles=TILE160)
+        check_virtual(torch, dev, 90_000, 100, 100, (B_MAIN,), 33, False, tiles=TILE160)
+        check_virtual(torch, dev, N_TILE160, D_MAIN, K_MAIN, (B_MAIN,), 31, False, "legacy",
+                      tiles=TILE160)
         # K10 with one correction group where two do not fit (B = 100); past
         # its 256 clusters the correction runs K11, then K9
         check_virtual(torch, dev, 20_000, D_MAIN, K_MAIN, (100,), 20, False)
@@ -2740,6 +3114,10 @@ def main(argv=None) -> int:
     traces = {}
     runs = [(p, lambda p=p: run_main_path(torch, dev, wrappers, p)) for p in MAIN_PATHS
             if p in phases]
+    if "virtual" in phases:
+        # the K8 reference first: the other two are held to it
+        runs += [(p, lambda p=p: run_tile160_path(torch, dev, wrappers, p))
+                 for p in ("written_tile160_k8", "written_tile160", "virtual_tile160")]
     if "legacy" in phases:
         runs += [(p, lambda p=p: run_main_path(torch, dev, wrappers, p)) for p in LEGACY_PATHS]
     if "segment" in phases:
@@ -2774,6 +3152,8 @@ def main(argv=None) -> int:
         # to the written one at the JAX package's bound; the legacy op order
         # to fused_vpu on the same route, one function in another op order
         held = {"virtual": (("main", 1e-5),), "legacy": (("main", 1e-4),),
+                "written_tile160": (("written_tile160_k8", 1e-4),),
+                "virtual_tile160": (("written_tile160_k8", 1e-4), ("written_tile160", 1e-4)),
                 "legacy_virtual": (("virtual", 1e-4), ("legacy", 1e-5))}
         for other, rtol in held.get(phase, ()):
             if other not in traces:
@@ -2819,6 +3199,11 @@ def main(argv=None) -> int:
             require(launches[k] > 0, f"{k} was not launched on the {phase} path")
         for k in never:
             require(launches[k] == 0, f"{k} was launched on the {phase} path")
+
+    # ---- 18. the port's benchmark harnesses ------------------------------
+    if "harness" in phases:
+        with open(os.path.join(OUT_DIR, "harness.json"), "w") as fh:
+            json.dump(check_harness(torch, dev), fh, indent=1)
 
     for k in kernels.values():
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

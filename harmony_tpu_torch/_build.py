@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,7 +27,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("estep_round", "ridge", "rotate", "tiled", "permute_phase")
+SOURCES = ("estep_round", "ridge", "rotate", "rotate_tiles", "tiled", "permute_phase")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,6 +54,10 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # a source that includes another of csrc/ (rotate_tiles.cu: rotate.cu)
+    # rebuilds when either changes
+    for inc in re.findall(rb'#include "([^"]+)"', src):
+        src += (CSRC / inc.decode()).read_bytes()
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 

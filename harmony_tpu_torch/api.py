@@ -384,9 +384,10 @@ def run_harmony(
     stores its penalty tables, the correction recomputes R from them (K10)
     and R is rebuilt once at the end of the run (K11), so ``R`` and ``W``
     of the result are those of a run that wrote R. Elsewhere it is
-    ignored, as the JAX package ignores it. Virtual R on layout tiles that
-    are not whole 64-cell pieces (a user-set ``mstep_tile`` and
-    ``estep_sub_tile``) raises ``NotImplementedError``.
+    ignored, as the JAX package ignores it. A user-set ``mstep_tile`` that
+    is not a multiple of 64 (160, with an ``estep_sub_tile`` it divides)
+    runs too: K7 splits a piece's moments at a tile boundary and K10 cuts
+    its steps at tile edges.
 
     The embedding goes to the card in engine-dtype column chunks, cast on
     the host, from a background thread (:class:`runtime.AsyncIngest`); the

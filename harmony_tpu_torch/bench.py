@@ -1,5 +1,7 @@
 """Benchmark harness: synthetic cells and the cells/s/chip per Harmony
-iteration metric, the library module behind ``harmony-torch bench``.
+iteration metric, the library module behind ``harmony-torch bench`` and
+``python -m harmony_tpu_torch.bench`` (:func:`main`, the counterpart of
+the repository's root ``bench.py``, which runs the JAX package).
 
 Counterpart of ``harmony_tpu/bench.py``: the same synthetic generator (bit
 for bit) and the same payload keys. Rounds are timed with CUDA events on
@@ -12,13 +14,37 @@ difference divided by max_iter, as in the JAX package. The run takes
 runs it (the ranks of ``torch.distributed``'s default group) and times its
 own rounds, which the collectives keep in lockstep; the payload's value is
 per device, as in the JAX package.
+
+``python -m harmony_tpu_torch.bench`` prints exactly one JSON line, the
+payload, and keeps the root ``bench.py``'s contract (bench.py:11-24): a
+wall-clock budget (``HARMONY_BENCH_BUDGET``, seconds, default 270) that
+:func:`run_bench` returns early within, a watchdog that prints the best
+payload at the budget plus 45 s, and the same on SIGTERM or SIGINT; no
+payload exists, and nothing is printed, before the warm-up round has
+landed. Its knobs are the JAX harness's environment variables
+(bench.py:81-140, harmony_tpu/bench.py:143-153): ``HARMONY_BENCH_CELLS``,
+``_DIMS``, ``_BATCHES`` (``10``, or ``4,25``: one covariate a level
+count), ``_K``, ``_ITERS`` (timed rounds, default 40), ``_ESTEP``,
+``_MSTEP`` (the M-step mode), ``_SHUFFLE`` (default rotate), ``_DTYPE``,
+``_MESH`` (``auto``: every rank of the default group, which the harness
+initialises from ``torchrun``'s variables, rank 0 printing; an integer:
+the mesh size, which must be the world size), ``_MSTEP_IMPL``,
+``_VARIANT``, ``_SUBTILE``, ``_TILED`` (0: no batch-tiled ingest order)
+and ``_VIRTUAL``; the JAX package's implementation names ``pallas`` and
+``xla`` are read as the port's ``kernel`` and ``torch``. ``_SORTED`` is
+refused: the port has no ``permute_sorted_blocks``. It runs on the card;
+``HARMONY_BENCH_DEVICE=cpu`` (the counterpart of ``JAX_PLATFORMS=cpu``)
+runs it on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import signal
 import sys
+import threading
 import time
 from typing import Optional
 
@@ -97,6 +123,10 @@ def run_bench(
     budget_s: Optional[float] = None,
     progress_cb=None,
     device=None,
+    mstep_impl: Optional[str] = None,
+    estep_variant: Optional[str] = None,
+    estep_sub_tile: Optional[int] = None,
+    tiled: bool = True,
 ) -> dict:
     """Time full Harmony rounds (cluster + correct); returns the JSON-line
     payload of ``harmony_tpu.bench.run_bench``.
@@ -114,7 +144,10 @@ def run_bench(
     and an N-rank run compare one program, harmony_tpu/bench.py:168-181)
     or a ``sharding.CellMesh``. Every rank of a mesh calls it. ``virtual_r``
     is the config's (None: by dtype), what ``HARMONY_BENCH_VIRTUAL`` sets in
-    the JAX bench."""
+    the JAX bench; ``mstep_impl``, ``estep_variant`` and ``estep_sub_tile``
+    are the config's too (None: its default), and ``tiled=False`` keeps the synthetic cells'
+    order instead of the batch-tiled ingest order (``HARMONY_BENCH_TILED=0``
+    in the JAX bench), so the M-step takes its dense or segmented layout."""
     from . import sharding
     from .api import apply_ingest_order, ingest_perm, resolve_mesh
     from .config import finalize_engine_config, harmony_options
@@ -161,14 +194,18 @@ def run_bench(
         shuffle_mode=shuffle_mode or "permute", dtype=dtype or "float32",
     )
     overrides = {"estep_impl": estep_impl or "auto"}
-    if virtual_r is not None:
-        overrides["virtual_r"] = virtual_r
+    for field, v in (("virtual_r", virtual_r), ("mstep_impl", mstep_impl),
+                     ("estep_variant", estep_variant), ("estep_sub_tile", estep_sub_tile)):
+        if v is not None:
+            overrides[field] = v
     if mstep_mode:
         overrides["mstep_mode"] = mstep_mode
     if mesh is not None:
         cfg = sharding.pad_for_mesh(cfg, mesh)
     cfg = finalize_engine_config(dataclasses.replace(cfg, **overrides), mesh)
-    perm, _ = ingest_perm(cfg, design, seed)
+    # synthetic cells are in random order already: without the batch-tiled
+    # order no ingest order is needed
+    perm = ingest_perm(cfg, design, seed)[0] if tiled else None
     _, design, _ = apply_ingest_order(design, perm)
     layout = mstep_layout(cfg, design.codes, dev, mesh)
     if mesh is not None:
@@ -250,3 +287,127 @@ def run_bench(
     if not deltas:
         return payload(warm_s, warm_s, "warmup_lower_bound")
     return payload(float(np.median(deltas)) / max_iter, warm_s, min(len(deltas), n_pairs))
+
+
+# ---- the harness: python -m harmony_tpu_torch.bench -------------------------
+
+# the reference's quickstart, "~4 seconds" for 9,478 cells over ~5 Harmony
+# rounds: its per-iteration throughput (bench.py:106-110)
+BASELINE_CELLS_PER_SEC = 9478.0 / (4.0 / 5.0)
+# the JAX package's implementation names, read as the port's
+_IMPL = {"pallas": "kernel", "xla": "torch"}
+
+
+class _Emitter:
+    """The best payload so far, printed exactly once however the process
+    ends (bench.py:38-76): at the end, by the watchdog past the budget, or
+    on SIGTERM/SIGINT. ``best`` is rebound, never mutated, so the signal
+    handler and the watchdog read a whole payload without a lock; the
+    handler may interrupt the main thread anywhere, so it takes none.
+    ``os._exit``: the main thread may sit in a native call that would
+    swallow a SystemExit."""
+
+    def __init__(self, prints: bool):
+        self.prints = prints
+        self.best: dict = {}
+        self.emitted = threading.Event()
+
+    def keep(self, payload: dict) -> None:
+        if self.prints:
+            self.best = dict(payload)
+
+    def emit(self, rc: int) -> None:
+        already = self.emitted.is_set()
+        self.emitted.set()
+        best = self.best
+        if best and not already:
+            sys.stdout.write(json.dumps(best) + "\n")
+            sys.stdout.flush()
+        os._exit(0 if best else rc)
+
+    def on_signal(self, signum, frame) -> None:
+        self.emit(128 + signum)
+
+    def watchdog(self, deadline: float) -> None:
+        """Print the best payload once past ``deadline``; with none yet (the
+        warm-up still running), the moment the warm-up lands one."""
+        while not self.emitted.is_set():
+            now = time.monotonic()
+            if now >= deadline and self.best:
+                self.emit(0)
+            time.sleep(1.0 if now >= deadline else min(5.0, deadline - now))
+
+
+def _env_impl(name: str) -> Optional[str]:
+    v = os.environ.get(name)
+    return _IMPL.get(v, v) if v else None
+
+
+def _env_flag(name: str) -> Optional[bool]:
+    v = os.environ.get(name)
+    return None if not v else v != "0"
+
+
+def _harness_mesh(device):
+    """``HARMONY_BENCH_MESH`` as run_bench's ``mesh``: with it set, the
+    default group is initialised from torchrun's variables (NCCL on the
+    card, gloo on the CPU) where it is not already."""
+    raw = os.environ.get("HARMONY_BENCH_MESH")
+    if not raw:
+        return None
+    from .sharding import initialize_distributed
+
+    if "WORLD_SIZE" in os.environ:
+        initialize_distributed("gloo" if device == "cpu" else "nccl")
+    return int(raw) if raw.isdigit() else raw
+
+
+def main() -> int:
+    """The harness (module docstring); returns the exit code."""
+    if os.environ.get("HARMONY_BENCH_SORTED"):
+        raise SystemExit("HARMONY_BENCH_SORTED: the port has no permute_sorted_blocks (a "
+                         "JAX-only config field); unset it")
+    size = int(os.environ.get("HARMONY_BENCH_CELLS", 500_000))
+    d = int(os.environ.get("HARMONY_BENCH_DIMS", 50))
+    raw_batches = os.environ.get("HARMONY_BENCH_BATCHES", "10")
+    n_batches = ([int(v) for v in raw_batches.split(",")] if "," in raw_batches
+                 else int(raw_batches))
+    nclust = int(os.environ.get("HARMONY_BENCH_K", 100))
+    budget = float(os.environ.get("HARMONY_BENCH_BUDGET", 270))
+    device = os.environ.get("HARMONY_BENCH_DEVICE") or None
+    mesh = _harness_mesh(device)
+    import torch.distributed as dist
+
+    out = _Emitter(prints=not dist.is_initialized() or dist.get_rank() == 0)
+    signal.signal(signal.SIGTERM, out.on_signal)
+    signal.signal(signal.SIGINT, out.on_signal)
+    if budget > 0:
+        # grace over the budget, so run_bench's own early return lands first
+        threading.Thread(target=out.watchdog, args=(time.monotonic() + budget + 45,),
+                         daemon=True).start()
+    subtile = os.environ.get("HARMONY_BENCH_SUBTILE")
+    result = run_bench(
+        n_cells=size, d=d, n_batches=n_batches, nclust=nclust,
+        max_iter=int(os.environ.get("HARMONY_BENCH_ITERS", 40)),
+        baseline_cells_per_sec=BASELINE_CELLS_PER_SEC,
+        estep_impl=_env_impl("HARMONY_BENCH_ESTEP"),
+        mstep_mode=os.environ.get("HARMONY_BENCH_MSTEP") or None,
+        mesh=mesh, shuffle_mode=os.environ.get("HARMONY_BENCH_SHUFFLE", "rotate"),
+        dtype=os.environ.get("HARMONY_BENCH_DTYPE") or None,
+        virtual_r=_env_flag("HARMONY_BENCH_VIRTUAL"),
+        budget_s=budget if budget > 0 else None, progress_cb=out.keep, device=device,
+        mstep_impl=_env_impl("HARMONY_BENCH_MSTEP_IMPL"),
+        estep_variant=os.environ.get("HARMONY_BENCH_VARIANT") or None,
+        estep_sub_tile=int(subtile) if subtile else None,
+        tiled=os.environ.get("HARMONY_BENCH_TILED", "1") != "0",
+    )
+    out.keep(result)
+    if not out.emitted.is_set():
+        out.emitted.set()
+        if out.prints:
+            print(json.dumps(out.best), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

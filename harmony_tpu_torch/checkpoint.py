@@ -28,8 +28,13 @@ resolves on reading as ``config.finalize_engine_config`` resolves it, as
 A mesh run writes the same file from the gathered state (the ranks' columns
 in rank order), rank 0 alone, with ``mesh_size`` in its provenance
 (harmony_tpu/api.py:453-455); a resume on a mesh takes each rank's columns
-of it again. The orbax variant of the JAX package (multi-host, sharded)
-has no counterpart yet (ROADMAP A11, part 2: ``torch.distributed.checkpoint``).
+of it again.
+
+:func:`save_checkpoint_sharded` and :func:`load_checkpoint_sharded` are the
+counterpart of the JAX package's orbax variant (``save_checkpoint_orbax``,
+harmony_tpu/checkpoint.py:203-246), on ``torch.distributed.checkpoint``: a
+directory in which each rank writes its own columns, the replicated fields
+once, and a load re-shards onto the mesh it runs on.
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ from . import engine, ops
 from .config import HarmonyConfig, finalize_engine_config
 from .ops.normalize import l2_normalize_columns
 from .runtime import resolve_device
-from .state import GENERATOR_FIELD, HarmonyState, host_numpy, state_from_arrays
+from .state import (GENERATOR_FIELD, HarmonyState, host_numpy, set_generator_state,
+                    state_from_arrays)
 
 _MINIMAL_FIELDS = (
     "Y", "O", "E", "Z_corr",
@@ -178,6 +184,24 @@ def _pad_cells(a: np.ndarray, Np: int) -> np.ndarray:
     return np.concatenate([a, np.zeros(a.shape[:-1] + (Np - a.shape[-1],), a.dtype)], axis=-1)
 
 
+def _extend_traces(cfg: HarmonyConfig, arrays: dict, extra_rounds: int) -> HarmonyConfig:
+    """``cfg`` with room for ``extra_rounds`` more Harmony rounds, the trace
+    buffers of ``arrays`` (numpy arrays or tensors) grown to it in place."""
+    if not extra_rounds:
+        return cfg
+    old_k, old_h, old_r = (cfg.kmeans_trace_capacity, cfg.harmony_trace_capacity,
+                           cfg.max_iter_harmony)
+    cfg = dataclasses.replace(cfg, max_iter_harmony=cfg.max_iter_harmony + extra_rounds)
+    grow = ([(f, old_k, cfg.kmeans_trace_capacity) for f in _TRACE_FIELDS]
+            + [("objective_harmony", old_h, cfg.harmony_trace_capacity),
+               ("kmeans_rounds", old_r, cfg.max_iter_harmony)])
+    for f, old, new in grow:
+        a = arrays[f]
+        arrays[f] = (np.concatenate([a, np.zeros(new - old, a.dtype)])
+                     if isinstance(a, np.ndarray) else torch.cat([a, a.new_zeros(new - old)]))
+    return cfg
+
+
 def load_checkpoint(
     path: str,
     Z: Optional[np.ndarray] = None,
@@ -207,16 +231,7 @@ def load_checkpoint(
         arrays = {f: z[f] for f in names}
         if GENERATOR_FIELD in z.files:
             arrays[GENERATOR_FIELD] = z[GENERATOR_FIELD]
-    if extra_rounds:
-        old_k, old_h, old_r = (cfg.kmeans_trace_capacity, cfg.harmony_trace_capacity,
-                               cfg.max_iter_harmony)
-        cfg = dataclasses.replace(cfg, max_iter_harmony=cfg.max_iter_harmony + extra_rounds)
-        grow = ([(f, old_k, cfg.kmeans_trace_capacity) for f in _TRACE_FIELDS]
-                + [("objective_harmony", old_h, cfg.harmony_trace_capacity),
-                   ("kmeans_rounds", old_r, cfg.max_iter_harmony)])
-        for f, old, new in grow:
-            a = arrays[f]
-            arrays[f] = np.concatenate([a, np.zeros(new - old, a.dtype)])
+    cfg = _extend_traces(cfg, arrays, extra_rounds)
     if mode != "full":
         if Z is None or design is None:
             raise ValueError("minimal checkpoint: pass Z (d, N) and design to resume")
@@ -241,3 +256,149 @@ def load_checkpoint(
             R[:, nv:] = 0
         state = dataclasses.replace(state, Z_corr=Zc, R=R.to(state.Y.dtype))
     return cfg, state
+
+
+# ---- sharded variant (torch.distributed.checkpoint) ------------------------
+
+# the per-shard fields besides state.CELL_FIELDS: the stacked penalty tables
+# (a shard's rows) and the tile -> block map (a shard's tiles)
+_SHARD_TABLES = ("virt_pen", "virt_blkmap")
+_CONFIG_KEY, _LAYOUT_KEY = "config", "layout"
+
+
+def _json_tensor(d: dict) -> torch.Tensor:
+    """A dict as JSON bytes in a uint8 tensor (harmony_tpu/checkpoint.py:
+    218-221: the config rides beside the arrays)."""
+    return torch.frombuffer(bytearray(json.dumps(d).encode()), dtype=torch.uint8)
+
+
+def _shard_key(f: str, rank: int) -> str:
+    return f"cells.{f}.{rank}"
+
+
+def save_checkpoint_sharded(path: str, cfg: HarmonyConfig, state: HarmonyState,
+                            mesh=None) -> None:
+    """Write ``state`` into the directory ``path`` with
+    ``torch.distributed.checkpoint``: each rank of ``mesh`` (every rank calls
+    it; None: one process) writes its own columns of the cell-axis fields
+    (``state.CELL_FIELDS``) and its rows of the per-shard tables
+    (``virt_pen``, ``virt_blkmap``); the replicated fields, the generator's
+    state (``state.GENERATOR_FIELD``) and the config (JSON bytes in a uint8
+    tensor, with the mesh size beside it) go in once. Fields that are None
+    are not written and come back as None (harmony_tpu/checkpoint.py:
+    211-216); bf16 fields stay bf16. A
+    virtual-R state is saved with R materialised (``engine.materialize_r``,
+    K11), as the npz format's full mode saves it, and keeps its context.
+    The phase's Gram table and the fused moment table, which the JAX state
+    has not, are not written."""
+    import torch.distributed.checkpoint as dcp
+
+    from .state import ARRAY_FIELDS, CELL_FIELDS, VIRTUAL_FIELDS, _CURSORS
+
+    if state.virt_pen is not None:
+        state = engine.materialize_r(cfg, state, mesh)
+    rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    sd = {_CONFIG_KEY: _json_tensor(_header(cfg)),
+          _LAYOUT_KEY: _json_tensor({"mesh_size": size}),
+          GENERATOR_FIELD: state.generator.get_state()}
+    for f in ARRAY_FIELDS + VIRTUAL_FIELDS:
+        if f == "key":
+            sd[f] = torch.tensor([(state.seed >> 32) & 0xFFFFFFFF, state.seed & 0xFFFFFFFF],
+                                 dtype=torch.int64)
+            continue
+        v = getattr(state, f)
+        if v is None:
+            continue
+        if f in _CURSORS:
+            sd[f] = torch.tensor(int(v), dtype=torch.int32)
+        elif f in CELL_FIELDS or f in _SHARD_TABLES:
+            sd[_shard_key(f, rank)] = v.detach().cpu().contiguous()
+        else:
+            sd[f] = v.detach().cpu().contiguous()
+    dcp.save(sd, checkpoint_id=os.path.abspath(path), no_dist=mesh is None,
+             process_group=None if mesh is None else mesh.group)
+
+
+def _read(path: str, keys, mesh) -> dict:
+    """The tensors ``keys`` of the checkpoint at ``path``, on the host, at
+    the shapes and dtypes its metadata records."""
+    import torch.distributed.checkpoint as dcp
+
+    md = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    sd = {k: torch.empty(tuple(md[k].size), dtype=md[k].properties.dtype) for k in keys}
+    dcp.load(sd, checkpoint_id=path, no_dist=mesh is None,
+             process_group=None if mesh is None else mesh.group)
+    return sd
+
+
+def _columns(path: str, f: str, md: dict, size: int, lo: int, hi: int, mesh) -> torch.Tensor:
+    """Columns [lo, hi) of the cell-axis field ``f`` written by ``size``
+    ranks: the shards that hold them, joined; past the written axis, the
+    inert zero pad cells of a longer axis."""
+    widths = [md[_shard_key(f, r)].size[-1] for r in range(size)]
+    starts = np.concatenate([[0], np.cumsum(widths)])
+    need = [r for r in range(size) if starts[r] < hi and starts[r + 1] > lo]
+    parts = _read(path, [_shard_key(f, r) for r in need], mesh)
+    joined = torch.cat([parts[_shard_key(f, r)] for r in need], dim=-1) if need else None
+    a0 = int(starts[need[0]]) if need else lo
+    out = torch.zeros(tuple(md[_shard_key(f, 0)].size[:-1]) + (hi - lo,),
+                      dtype=md[_shard_key(f, 0)].properties.dtype)
+    if joined is not None:
+        a, b = max(lo, a0), min(hi, a0 + joined.shape[-1])
+        out[..., a - lo:b - lo] = joined[..., a - a0:b - a0]
+    return out
+
+
+def load_checkpoint_sharded(path: str, mesh=None, device=None, extra_rounds: int = 0
+                            ) -> Tuple[HarmonyConfig, HarmonyState]:
+    """Returns (cfg, state) from a :func:`save_checkpoint_sharded` directory,
+    re-sharded onto the mesh it runs on: on ``mesh`` (every rank calls it)
+    each rank reads the shards that hold its columns of the cell axis of
+    this mesh's config (padded for this mesh: the written axis's pad cells
+    are dropped or more are added, all inert zeros); with ``mesh=None`` the
+    whole state on one device (``device``, None: the card), as the JAX
+    load returns the replicated layout. The virtual-R context comes back
+    where the mesh size is the one it was written on (its per-shard tables
+    belong to that mesh's blocks); otherwise it is dropped, the state's R
+    being the materialised one, and the next phase builds it again.
+    ``extra_rounds`` extends ``max_iter_harmony`` and the trace buffers, as
+    :func:`load_checkpoint`'s does, so a finished run can go on."""
+    import torch.distributed.checkpoint as dcp
+
+    from .sharding import cell_range
+    from .state import ARRAY_FIELDS, CELL_FIELDS, VIRTUAL_FIELDS, _CURSORS
+
+    path = os.path.abspath(path)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    md = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    head = _read(path, [_CONFIG_KEY, _LAYOUT_KEY], mesh)
+    size = json.loads(bytes(head[_LAYOUT_KEY].numpy()).decode())["mesh_size"]
+    cfg = config_from_header(json.loads(bytes(head[_CONFIG_KEY].numpy()).decode()), mesh)
+    same = size == (1 if mesh is None else mesh.size)
+    lo, hi = (0, cfg.Np) if mesh is None else cell_range(cfg, mesh)
+    arrays = _read(path, [k for k in md if "." not in k and k not in (_CONFIG_KEY, _LAYOUT_KEY)
+                          and (same or k not in VIRTUAL_FIELDS)], mesh)
+    for f in CELL_FIELDS + _SHARD_TABLES:
+        if _shard_key(f, 0) not in md or (f in VIRTUAL_FIELDS and not same):
+            continue
+        if f in VIRTUAL_FIELDS:
+            # the virtual-R context, on the mesh it was written on: the
+            # rank's own (one device: every shard's, stacked)
+            ranks = range(size) if mesh is None else [mesh.rank]
+            parts = _read(path, [_shard_key(f, r) for r in ranks], mesh)
+            arrays[f] = torch.cat([parts[_shard_key(f, r)] for r in ranks],
+                                  dim=0 if f == "virt_pen" else -1)
+        else:
+            arrays[f] = _columns(path, f, md, size, lo, hi, mesh)
+    cfg = _extend_traces(cfg, arrays, extra_rounds)
+    kw = {}
+    for f in ARRAY_FIELDS + VIRTUAL_FIELDS:
+        if f == "key" or f not in arrays:
+            continue
+        kw[f] = int(arrays[f].item()) if f in _CURSORS else arrays[f].to(dev)
+    key = arrays["key"].tolist()
+    seed = (int(key[0]) << 32) | int(key[1])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    set_generator_state(gen, arrays[GENERATOR_FIELD].numpy())
+    return cfg, HarmonyState(**kw, seed=seed, generator=gen)

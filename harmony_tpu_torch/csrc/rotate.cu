@@ -152,6 +152,16 @@
 
 #include <type_traits>
 
+// ROTATE_TILE_FORMS (set by rotate_tiles.cu, which includes this file): the
+// translation unit holds only the instances for layout tiles that are not
+// whole 64-cell pieces (kWhole = false: K7's split moments and K10) and
+// only the two entry points that launch them, k7_assign and
+// k10_virtual_correction; without it, everything else. Two libraries, so
+// nvcc compiles the two sets of instances side by side.
+#ifndef ROTATE_TILE_FORMS
+#define ROTATE_TILE_FORMS 0
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -189,6 +199,23 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   const unsigned c = __bfloat16_as_ushort(__float2bfloat16_rn(v.z));
   const unsigned e = __bfloat16_as_ushort(__float2bfloat16_rn(v.w));
   *reinterpret_cast<uint2*>(p) = make_uint2(a | (b << 16), c | (e << 16));
+}
+
+// The values of cells c..c+3 of a step whose cells [lo, hi) are to be
+// written: one 16-byte (bf16: 8-byte) store where all four are, else one
+// store a cell.
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+template <bool kWhole, typename TZ>
+__device__ __forceinline__ void store4_cells(TZ* p, float4 v, int c, int lo, int hi) {
+  if (kWhole || (c >= lo && c + 4 <= hi)) {
+    store4(p, v);
+    return;
+  }
+  const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (c + i >= lo && c + i < hi) store1(p + i, vv[i]);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -479,13 +506,53 @@ __host__ __device__ __forceinline__ int assign_floats(int K, int B, int ncov) {
 
 // ---- K7 ---------------------------------------------------------------
 
+// One 4x4 (cluster x dim) register tile of a piece's moments R [Z_orig;
+// 1]^T over its cells [u0, u1) (Ls: R, K4 x kTP; Zos: [Z_orig; 1],
+// cell-major), stored as 16-byte rows into the piece's (K4 x d1p) table
+// out (L2), so K and d are not bounded by the registers a thread has.
+__device__ __forceinline__ void moment_tile(const float* Ls, const float* Zos, int kb, int eb,
+                                            int u0, int u1, int d1p, float* out) {
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
+#pragma unroll 8
+  for (int u = u0; u < u1; ++u) {
+    const float4 z = *reinterpret_cast<const float4*>(Zos + u * d1p + 4 * eb);
+    const float rv[4] = {Ls[(4 * kb) * kTP + u], Ls[(4 * kb + 1) * kTP + u],
+                         Ls[(4 * kb + 2) * kTP + u], Ls[(4 * kb + 3) * kTP + u]};
+    const float zv[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(rv[i], zv[jj], acc[i][jj]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(out + (4 * kb + i) * d1p + 4 * eb) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+// The 64-cell pieces that layout tile lt (tw cells, tw >= 64, pieces and
+// tiles both from cell 0) meets: tw / 64 where tiles are whole pieces.
+__device__ __forceinline__ int tile_pieces(int lt, int tw) {
+  const long long a = static_cast<long long>(lt) * tw;
+  return static_cast<int>((a + tw - 1) / kCT - a / kCT) + 1;
+}
+
 // The block's CTA c covers cells [p*T + (c % cpt)*64, +64) of physical
-// tile p = (v0 + c / cpt) mod NT, cpt = T / 64. With kMoments the C = tw /
-// 64 consecutive CTAs of a layout tile (tw cells) each store their piece's
-// (K4 x d1p) table as row c of mpiece and count themselves in count[c /
-// C]; the last to arrive sums the C rows in piece order into mpart's row
-// slot[layout tile] and resets the count for the next launch.
-template <bool kMoments, bool kLegacy, typename TZ>
+// tile p = (v0 + c / cpt) mod NT, cpt = T / 64. With kMoments each CTA
+// stores its piece's (K4 x d1p) table as row c of mpiece (tw a multiple of
+// 64: a layout tile of tw cells is C = tw / 64 whole pieces) or, where
+// layout tiles are not whole pieces (tw >= 64, T a multiple of tw), the
+// tables of its cells in each of the (at most two) layout tiles it meets as
+// rows 2c and 2c + 1, and counts itself in count[lt] of each such tile lt
+// of the launch; the last of a tile's pieces to arrive sums the tile's
+// rows in piece order into mpart's row slot[layout tile] and resets the
+// count for the next launch. kWhole: tw is a multiple of 64 (without
+// moments too), whose instance splits no piece.
+template <bool kMoments, bool kLegacy, typename TZ, bool kWhole>
 __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
     const float* __restrict__ G,       // (L, K) the phase's Gram table (K6)
     const int* __restrict__ codes,     // (ncov, L), pads < 0
@@ -557,35 +624,29 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
   add_stats(Ls, gcs, Obs, R, L, base, K, B, ncov);
   // rows of KDp floats: the (K4 x d1p) piece table, zero past K and d + 1
   const int KDp = K4 * d1p;
+  // the piece's first layout tile of the launch (its cells [0, split));
+  // split < kCT: the cells [split, kCT) lie in the next one
+  constexpr bool whole = kWhole;
+  const long long off0 = static_cast<long long>(blockIdx.x) * kCT;  // in the launch
+  const int lt0 = static_cast<int>(off0 / tw);
+  const int split = whole ? kCT : min(kCT, tw - static_cast<int>(off0 % tw));
   if (kMoments) {
     __syncthreads();
     // one 4x4 (cluster x dim) register tile at a time, stored as 16-byte
     // rows into the piece's row of mpiece (L2), so K and d are not bounded
     // by the registers a thread has
-    float* mine = mpiece + static_cast<long long>(blockIdx.x) * KDp;
     const int nkb = K4 / 4, neb = (d1 + 3) / 4;
-    for (int mt = tid; mt < nkb * neb; mt += kThreads) {
-      const int kb = mt / neb, eb = mt - kb * neb;
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
-#pragma unroll 8
-      for (int u = 0; u < kCT; ++u) {
-        const float4 z = *reinterpret_cast<const float4*>(Zos + u * d1p + 4 * eb);
-        const float rv[4] = {Ls[(4 * kb) * kTP + u], Ls[(4 * kb + 1) * kTP + u],
-                             Ls[(4 * kb + 2) * kTP + u], Ls[(4 * kb + 3) * kTP + u]};
-        const float zv[4] = {z.x, z.y, z.z, z.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(rv[i], zv[jj], acc[i][jj]);
+    if (whole) {
+      float* mine = mpiece + static_cast<long long>(blockIdx.x) * KDp;
+      for (int mt = tid; mt < nkb * neb; mt += kThreads)
+        moment_tile(Ls, Zos, mt / neb, mt % neb, 0, kCT, d1p, mine);
+    } else {
+      // the cells before the tile boundary into row 2c, the rest into 2c + 1
+      float* mine = mpiece + 2 * static_cast<long long>(blockIdx.x) * KDp;
+      for (int mt = tid; mt < nkb * neb; mt += kThreads) {
+        moment_tile(Ls, Zos, mt / neb, mt % neb, 0, split, d1p, mine);
+        if (split < kCT) moment_tile(Ls, Zos, mt / neb, mt % neb, split, kCT, d1p, mine + KDp);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(mine + (4 * kb + i) * d1p + 4 * eb) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
   }
   if (lane == 0) {
@@ -605,24 +666,38 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
     prow[P - 1] = b;
   }
   if (kMoments) {
-    // The fences order the piece's row before the count (release) and the
-    // count before the last CTA's reads (acquire); those read L2 (__ldcg),
-    // where the other CTAs' rows are.
-    const int C = tw / kCT, lt = blockIdx.x / C;
+    // The fences order the piece's rows before the counts (release) and a
+    // count before the last CTA's reads (acquire); those read L2
+    // (__ldcg), where the other CTAs' rows are.
+    const int nseg = split < kCT ? 2 : 1;
     __threadfence();
     __syncthreads();
     int* last = reinterpret_cast<int*>(red);  // red's readers are done
-    if (tid == 0) *last = atomicAdd(count + lt, 1) == C - 1;
+    if (tid < nseg) {
+      const int lt = lt0 + tid;
+      last[tid] = atomicAdd(count + lt, 1) == tile_pieces(lt, tw) - 1;
+    }
     __syncthreads();
-    if (*last) {
+    for (int sg = 0; sg < nseg; ++sg) {
+      if (!last[sg]) continue;
       __threadfence();
-      const float4* rows =
-          reinterpret_cast<const float4*>(mpiece + static_cast<long long>(lt) * C * KDp);
-      float* out = mpart + static_cast<long long>(slot[base / tw]) * K * d1;
+      const int lt = lt0 + sg;
+      const long long c0 = static_cast<long long>(lt) * tw / kCT;
+      const int np = tile_pieces(lt, tw);
+      // the tile's first cell: launch tile j, physical tile (v0 + j) mod NT
+      const long long a = static_cast<long long>(lt) * tw, T = static_cast<long long>(cpt) * kCT;
+      const long long jt = a / T;
+      const long long g0 = (v0 + jt) % NT * T + (a - jt * T);
+      float* out = mpart + static_cast<long long>(slot[g0 / tw]) * K * d1;
+      const float4* rows = reinterpret_cast<const float4*>(mpiece);
       for (int i = tid; i < KDp / 4; i += kThreads) {
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int c = 0; c < C; ++c) {
-          const float4 x = __ldcg(rows + static_cast<long long>(c) * (KDp / 4) + i);
+        for (int c = 0; c < np; ++c) {
+          // piece c0 + c's row of this tile: its second where it starts
+          // in the tile before
+          const long long pc = c0 + c;
+          const long long row = whole ? pc : 2 * pc + (pc * kCT / tw != lt);
+          const float4 x = __ldcg(rows + row * (KDp / 4) + i);
           v.x += x.x;
           v.y += x.y;
           v.z += x.z;
@@ -1150,10 +1225,15 @@ constexpr int kBarChain = 1, kBarGroup = 2, kBarFull = 4, kBarEmpty = 7;
 // Z_orig loaded as float4s before the product and Z_corr stored as float4s;
 // then it marks the table empty. A group stages a joint's betas into its
 // own buffer where the joint starts among its steps (once or twice a
-// range). A trash step copies Z_orig through (its betas are zero). The
+// range). A trash step copies Z_orig through (its betas are zero). Where
+// layout tiles are not whole 64-cell pieces (tw = 160), a tile's steps
+// are the pieces it meets, cut at its edges: the chain runs all 64 cells
+// of a piece, the correction writes the tile's cells only, so a piece
+// across a tile boundary runs once for each of its two tiles (the same
+// bits both times), each with its own joint's betas. The
 // chain and the correction share the SM's instruction slots and shared-memory
 // loads, so they overlap only in part.
-template <int KJ, bool kLegacy, typename TZ>
+template <int KJ, bool kLegacy, typename TZ, bool kWhole>
 __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
     const float* __restrict__ G,       // (L, K) the phase's Gram table (K6)
     const int* __restrict__ codes,     // (ncov, L), pads < 0
@@ -1166,8 +1246,8 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
     const int* __restrict__ tj,        // (L / tw,) joint of each layout tile
     const TZ* __restrict__ Zo,         // (d, L), float or bf16
     TZ* __restrict__ Zc,               // (d, L) out, Zo's type
-    long long L, int n, int span, int T, int tw, int trash, int K, int d, int dp, int B,
-    int ncov, int ng) {
+    long long L, int n, int span, int T, int tw, int spt, int trash, int K, int d, int dp,
+    int B, int ncov, int ng) {
   extern __shared__ __align__(16) float smem[];
   const int neb = (d + 3) / 4;
   const int cw = (8 * neb + 31) / 32;              // a correction group's warps
@@ -1192,13 +1272,26 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
   }
   if (tid < ncov) offs[tid] = offsets[tid];
   __syncthreads();  // the range's plan is in
-  const int spt = tw / kVCells;
+  // step s of the range: piece (tile * tw) / 64 + s % spt of the tile
+  // pl[s / spt], cells [cut_lo, cut_hi) of it in the tile; a tile meets at
+  // most spt pieces (tw / 64 where tiles are whole pieces: all 64 cells),
+  // a step past its last is empty (cut_lo >= cut_hi)
   const int ns = nt * spt;
   const int nT = 32 * cw, nC = kVThreads - ng * nT;
-  auto base = [&](int s) {
-    return static_cast<long long>(pl[s / spt]) * tw + (s % spt) * kVCells;
+  // kWhole: tw is a multiple of 64, every step a whole piece of its tile
+  auto first = [&](int s) { return static_cast<long long>(pl[s / spt]) * tw; };
+  auto base = [&](int s) { return (first(s) / kVCells + s % spt) * kVCells; };
+  auto cut_lo = [&](int s) {
+    return kWhole ? 0 : static_cast<int>(max(first(s) - base(s), 0LL));
+  };
+  auto cut_hi = [&](int s) {
+    return kWhole ? kVCells
+                  : static_cast<int>(min(first(s) + tw - base(s),
+                                         static_cast<long long>(kVCells)));
   };
   auto joint = [&](int s) { return pl[span + s / spt]; };
+  // the chain runs a step of a non-trash joint that holds cells
+  auto live = [&](int s) { return joint(s) != trash && cut_lo(s) < cut_hi(s); };
 
   if (w >= ng * cw) {
     // ---- the chain's warps ----
@@ -1210,7 +1303,7 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
       sv[j] = k < K ? (kLegacy ? sigma[k] : 2.f / sigma[k]) : 0.f;
     }
     auto stage = [&](int s, int h) {
-      if (s >= ns || joint(s) == trash) return;
+      if (s >= ns || !live(s)) return;
       const long long b0 = base(s);
       const float* src = G + b0 * K;  // 16-byte aligned: b0 is a multiple of 64
       float* gd = Gs + h * kVCells * K;
@@ -1228,9 +1321,9 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
     cp_async_commit();
     for (int s = 0; s < ns; ++s) {
       const int h = s & 1, b = s % nbuf;
-      const bool live = joint(s) != trash;
+      const bool on = live(s);
       cp_async_wait<0>();
-      if (live) {
+      if (on) {
         // the codes this thread copied, made global batch rows (-1 on pads)
         int* cd = gcs + h * ncov * kVCells;
         for (int i = ct; i < ncov * kQ; i += nC) {
@@ -1248,7 +1341,7 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
       stage(s + 1, h ^ 1);
       cp_async_commit();
       if (s >= nbuf) bar_sync(kBarEmpty + b, nC + nT);  // step s - nbuf's correction is done
-      if (live) {
+      if (on) {
         const float* Gc = Gs + h * kVCells * K;
         const float* pt = pens + h * KBp;
         const int* gc = gcs + h * ncov * kVCells;
@@ -1271,7 +1364,8 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
   for (int s = grp; s < ns; s += ng) {
     const int b = s % nbuf, jt = joint(s);
     bar_sync(kBarFull + b, nC + nT);  // step s's R is in Ls[b]
-    if (jt != trash && jt != held) {
+    const int c_lo = cut_lo(s), c_hi = cut_hi(s);
+    if (c_lo < c_hi && jt != trash && jt != held) {
       // the joint's betas, once every thread of the group is done with the
       // last, transposed into (K x dp) as they come in (the columns past d
       // are never stored from)
@@ -1287,11 +1381,13 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
       held = jt;
     }
     const long long b0 = base(s);
-    if (jt == trash) {
+    if (c_lo >= c_hi) {
+      // an empty step: nothing of the tile
+    } else if (jt == trash) {
       for (int x = gt; x < d * kQ; x += nT) {
-        const int e = x / kQ;
-        const long long o = e * L + b0 + 4 * (x - e * kQ);
-        store4(Zc + o, load4(Zo + o));
+        const int e = x / kQ, c = 4 * (x - e * kQ);
+        const long long o = e * L + b0 + c;
+        store4_cells<kWhole>(Zc + o, load4(Zo + o), c, c_lo, c_hi);
       }
     } else if (owns) {
       float4 z[4][2];
@@ -1327,10 +1423,12 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
         const int e = 4 * eb + ii;
         if (e >= d) continue;
         TZ* op = Zc + e * L + b0 + 4 * tb;
-        store4(op, make_float4(z[ii][0].x - acc[ii][0], z[ii][0].y - acc[ii][1],
-                               z[ii][0].z - acc[ii][2], z[ii][0].w - acc[ii][3]));
-        store4(op + 32, make_float4(z[ii][1].x - acc[ii][4], z[ii][1].y - acc[ii][5],
-                                    z[ii][1].z - acc[ii][6], z[ii][1].w - acc[ii][7]));
+        store4_cells<kWhole>(op, make_float4(z[ii][0].x - acc[ii][0], z[ii][0].y - acc[ii][1],
+                                     z[ii][0].z - acc[ii][2], z[ii][0].w - acc[ii][3]),
+                     4 * tb, c_lo, c_hi);
+        store4_cells<kWhole>(op + 32, make_float4(z[ii][1].x - acc[ii][4], z[ii][1].y - acc[ii][5],
+                                          z[ii][1].z - acc[ii][6], z[ii][1].w - acc[ii][7]),
+                     32 + 4 * tb, c_lo, c_hi);
       }
     }
     if (s + nbuf < ns) bar_arrive(kBarEmpty + b, nC + nT);  // Ls[b] is free for step s+nbuf
@@ -1507,36 +1605,39 @@ int set_smem(const void* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-// K7's assign launch, with moments reading Z_orig as TZ.
-template <bool kMoments, bool kLegacy, typename TZ>
+// K7's assign launch, with moments reading Z_orig as TZ on layout tiles
+// that are (kWhole) or are not whole 64-cell pieces.
+template <bool kMoments, bool kLegacy, typename TZ, bool kWhole>
 int k7_launch(const float* G, const int* codes, const int* offsets, const float* pen,
               const float* logpen, const float* sigma, float* R, float* part, const void* Zo,
               const int* slot, float* mpart, float* mpiece, int* count, long long L, int v0,
               int ncta, int NT, int cpt, int tw, int K, int d, int B, int ncov, int d1p,
               int smem_bytes, cudaStream_t st) {
-  const void* kern = reinterpret_cast<const void*>(rot_assign_kernel<kMoments, kLegacy, TZ>);
+  const void* kern =
+      reinterpret_cast<const void*>(rot_assign_kernel<kMoments, kLegacy, TZ, kWhole>);
   int err = set_smem(kern, smem_bytes);
   if (err) return err;
-  rot_assign_kernel<kMoments, kLegacy, TZ><<<ncta, kThreads, smem_bytes, st>>>(
+  rot_assign_kernel<kMoments, kLegacy, TZ, kWhole><<<ncta, kThreads, smem_bytes, st>>>(
       G, codes, offsets, pen, logpen, sigma, R, part, static_cast<const TZ*>(Zo), slot, mpart,
       mpiece, count, L, v0, NT, cpt, tw, K, d, B, ncov, d1p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10 with KJ cluster values a lane (1, 2, 4 or 8: K <= 256), Z as TZ.
-template <int KJ, bool kLegacy, typename TZ>
+// K10 with KJ cluster values a lane (1, 2, 4 or 8: K <= 256), Z as TZ, on
+// layout tiles that are (kWhole) or are not whole 64-cell pieces.
+template <int KJ, bool kLegacy, typename TZ, bool kWhole>
 int k10_launch(const float* G, const int* codes, const int* offsets, const float* pen,
                const int* blkmap, const float* sigma, const float* Wj, const int* order,
                const int* tj, const void* Zo, void* Zc, long long L, int n, int span, int T,
-               int tw, int trash, int K, int d, int dp, int B, int ncov, int ng, int grid,
-               int smem_bytes, cudaStream_t st) {
+               int tw, int spt, int trash, int K, int d, int dp, int B, int ncov, int ng,
+               int grid, int smem_bytes, cudaStream_t st) {
   const void* kern =
-      reinterpret_cast<const void*>(virtual_correction_kernel<KJ, kLegacy, TZ>);
+      reinterpret_cast<const void*>(virtual_correction_kernel<KJ, kLegacy, TZ, kWhole>);
   int err = set_smem(kern, smem_bytes);
   if (err) return err;
-  virtual_correction_kernel<KJ, kLegacy, TZ><<<grid, kVThreads, smem_bytes, st>>>(
+  virtual_correction_kernel<KJ, kLegacy, TZ, kWhole><<<grid, kVThreads, smem_bytes, st>>>(
       G, codes, offsets, pen, blkmap, sigma, Wj, order, tj, static_cast<const TZ*>(Zo),
-      static_cast<TZ*>(Zc), L, n, span, T, tw, trash, K, d, dp, B, ncov, ng);
+      static_cast<TZ*>(Zc), L, n, span, T, tw, spt, trash, K, d, dp, B, ncov, ng);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1556,18 +1657,19 @@ int k11_launch(const float* Yp, const float* Zn, const int* codes, const int* of
   return static_cast<int>(cudaGetLastError());
 }
 
-// The K10 instance for K and the op order, Z as TZ.
-template <typename TZ>
-decltype(&k10_launch<1, true, float>) k10_pick(int K, int legacy) {
-  return legacy ? (K <= 32    ? k10_launch<1, true, TZ>
-                   : K <= 64  ? k10_launch<2, true, TZ>
-                   : K <= 128 ? k10_launch<4, true, TZ>
-                              : k10_launch<8, true, TZ>)
-                : (K <= 32    ? k10_launch<1, false, TZ>
-                   : K <= 64  ? k10_launch<2, false, TZ>
-                   : K <= 128 ? k10_launch<4, false, TZ>
-                              : k10_launch<8, false, TZ>);
+// The K10 instance for K, the op order and the tile form, Z as TZ.
+template <typename TZ, bool kWhole>
+decltype(&k10_launch<1, true, float, true>) k10_pick_form(int K, int legacy) {
+  return legacy ? (K <= 32    ? k10_launch<1, true, TZ, kWhole>
+                   : K <= 64  ? k10_launch<2, true, TZ, kWhole>
+                   : K <= 128 ? k10_launch<4, true, TZ, kWhole>
+                              : k10_launch<8, true, TZ, kWhole>)
+                : (K <= 32    ? k10_launch<1, false, TZ, kWhole>
+                   : K <= 64  ? k10_launch<2, false, TZ, kWhole>
+                   : K <= 128 ? k10_launch<4, false, TZ, kWhole>
+                              : k10_launch<8, false, TZ, kWhole>);
 }
+
 
 // The K11 instance for the chain form kj and the op order, R as TR.
 template <typename TR>
@@ -1594,14 +1696,27 @@ int k7_assign(const void* G, const void* codes,
               void* mpart, void* mpiece, void* count, long long L, int v0, int ntile,
               int NT, int cpt, int tw, int K, int d, int B, int ncov, int d1p, int legacy,
               int zbf16, int smem_bytes, void* stream) {
-  using Launch = decltype(&k7_launch<false, false, float>);
+  using Launch = decltype(&k7_launch<false, false, float, true>);
+  using BF = __nv_bfloat16;
   Launch launch;
+#if ROTATE_TILE_FORMS
+  // the moments on layout tiles that are not whole pieces
+  if (Zo == nullptr || tw % kCT == 0) return static_cast<int>(cudaErrorInvalidValue);
+  launch = zbf16 ? (legacy ? k7_launch<true, true, BF, false> : k7_launch<true, false, BF, false>)
+                 : (legacy ? k7_launch<true, true, float, false>
+                           : k7_launch<true, false, float, false>);
+#else
+  // without moments the tile form does not matter; with them tw must be a
+  // multiple of 64 here (rotate_tiles.cu holds the other form)
   if (Zo == nullptr)
-    launch = legacy ? k7_launch<false, true, float> : k7_launch<false, false, float>;
+    launch = legacy ? k7_launch<false, true, float, true> : k7_launch<false, false, float, true>;
+  else if (tw % kCT != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   else if (zbf16)
-    launch = legacy ? k7_launch<true, true, __nv_bfloat16> : k7_launch<true, false, __nv_bfloat16>;
+    launch = legacy ? k7_launch<true, true, BF, true> : k7_launch<true, false, BF, true>;
   else
-    launch = legacy ? k7_launch<true, true, float> : k7_launch<true, false, float>;
+    launch = legacy ? k7_launch<true, true, float, true> : k7_launch<true, false, float, true>;
+#endif
   return launch(static_cast<const float*>(G), static_cast<const int*>(codes),
                 static_cast<const int*>(offsets), static_cast<const float*>(pen),
                 static_cast<const float*>(logpen), static_cast<const float*>(sigma),
@@ -1611,6 +1726,7 @@ int k7_assign(const void* G, const void* codes,
                 cpt, tw, K, d, B, ncov, d1p, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
+#if !ROTATE_TILE_FORMS
 int k7_commit(const void* part, int add, int v0, int ntile, int cpt, int NT,
               void* tO_new, const void* tO_old, int rm_v0, int rm_n,
               const void* E_in, const void* O_in, void* E, void* O,
@@ -1684,24 +1800,31 @@ int k6_reassign(const void* Yt, const void* Z, const void* codes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10 over the plan's order (n layout tiles of tw cells) in grid equal
-// ranges of at most span tiles; legacy != 0: the legacy op order; zbf16 !=
-// 0: Z_orig and Z_corr are bf16.
+#endif  // !ROTATE_TILE_FORMS
+
+// K10 over the plan's order (n layout tiles of tw cells, each at most spt
+// 64-cell steps) in grid equal ranges of at most span tiles; legacy != 0:
+// the legacy op order; zbf16 != 0: Z_orig and Z_corr are bf16. The tile
+// form is this library's: tw a multiple of 64 here, not in rotate_tiles.cu.
 int k10_virtual_correction(const void* G, const void* codes, const void* offsets,
                            const void* pen, const void* blkmap, const void* sigma,
                            const void* Wj, const void* order, const void* tj, const void* Zo,
-                           void* Zc, long long L, int n, int span, int T, int tw, int trash,
-                           int K, int d, int dp, int B, int ncov, int ng, int legacy, int zbf16,
-                           int grid, int smem_bytes, void* stream) {
-  auto launch = zbf16 ? k10_pick<__nv_bfloat16>(K, legacy) : k10_pick<float>(K, legacy);
+                           void* Zc, long long L, int n, int span, int T, int tw, int spt,
+                           int trash, int K, int d, int dp, int B, int ncov, int ng, int legacy,
+                           int zbf16, int grid, int smem_bytes, void* stream) {
+  constexpr bool kWholeForm = !ROTATE_TILE_FORMS;
+  if ((tw % kVCells == 0) != kWholeForm) return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = zbf16 ? k10_pick_form<__nv_bfloat16, kWholeForm>(K, legacy)
+                      : k10_pick_form<float, kWholeForm>(K, legacy);
   return launch(static_cast<const float*>(G), static_cast<const int*>(codes),
                 static_cast<const int*>(offsets), static_cast<const float*>(pen),
                 static_cast<const int*>(blkmap), static_cast<const float*>(sigma),
                 static_cast<const float*>(Wj), static_cast<const int*>(order),
-                static_cast<const int*>(tj), Zo, Zc, L, n, span, T, tw, trash, K, d, dp, B,
+                static_cast<const int*>(tj), Zo, Zc, L, n, span, T, tw, spt, trash, K, d, dp, B,
                 ncov, ng, grid, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
+#if !ROTATE_TILE_FORMS
 // K11 over grid persistent CTAs; kj: v_chain's cluster values a lane (1,
 // 2, 4, 8), 0 for assign_chain; ys_shared: Y staged into shared memory;
 // legacy != 0: the legacy op order; rbf16 != 0: R is written in bf16.
@@ -1717,5 +1840,6 @@ int k11_materialize_r(const void* Yp, const void* Zn, const void* codes,
                 static_cast<const float*>(sigma), R, L, T, K, d, B, ncov, K8, ys_shared, grid,
                 smem_bytes, static_cast<cudaStream_t>(stream));
 }
+#endif  // !ROTATE_TILE_FORMS
 
 }  // extern "C"

@@ -58,8 +58,8 @@
 // coalesced: eight lanes cover 128 contiguous bytes of a dim. Its memory
 // stream, 64-cell pieces of some 200 rows at once, sets most of its time;
 // the product's FMAs and shared-memory loads (12 floats per 32 FMAs) add
-// the rest. Rows whose cell axis is not a multiple of 4 take 4-byte copies
-// and scalar loads instead.
+// the rest. Rows whose cell axis, or layout tiles whose width, is not a
+// multiple of 4 take 4-byte copies and scalar loads instead.
 
 #include <cuda_runtime.h>
 
@@ -239,14 +239,18 @@ __global__ void __launch_bounds__(kThreads) sum_chunks_kernel(
 // K9, CTA b: the tiles [lo, hi) of the plan's order, lo = b * n / grid
 // (an equal range a CTA, one wave), joint by joint, read from the order
 // and the tile table as it goes (no copy in shared memory). Slice q is
-// cells [s0, s0 + 64) of the range's tile q / spt; cells at N and past are
-// masked (the last tile may be partial). A joint's betas are staged where
+// cells [s0, s0 + 64) of the range's tile q / spt, spt = ceil(tile / 64);
+// cells past the tile's end (a tile that is not whole slices, tile = 160:
+// its last slice holds 32) and at N and past are masked (the last tile
+// may be partial). A joint's betas are staged where
 // its run in the range starts, after a barrier (a new joint comes once or
-// twice a range); a trash tile's slices copy Z through. stages: slices of
+// twice a range); a trash tile's slices copy Z through. kWhole: the tiles
+// are whole slices (tile a multiple of 64), so no slice is cut at a tile's
+// end. stages: slices of
 // R staged, 2 (the next in flight) or, where two do not fit beside the
 // betas, 1 (load, wait, compute). Past 4 * blockDim.x / 8 dims a thread
 // takes its 4-dim tiles in turn.
-template <bool kAligned>
+template <bool kAligned, bool kWhole>
 __global__ void __launch_bounds__(kK9MaxThreads) tiled_correction_kernel(
     const float* __restrict__ Wj,      // (n_joint + 1, d, K) betas
     const int* __restrict__ order,     // (n,) the plan's tiles, joint by joint, ascending
@@ -261,13 +265,15 @@ __global__ void __launch_bounds__(kK9MaxThreads) tiled_correction_kernel(
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lo = static_cast<int>(static_cast<long long>(blockIdx.x) * n / gridDim.x);
   const int hi = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * n / gridDim.x);
-  const int spt = tile / kK9Cells;
+  const int spt = kWhole ? tile / kK9Cells : (tile + kK9Cells - 1) / kK9Cells;
   const int ns = (hi - lo) * spt;
   // slice q's cells start at n0 = t * tile + (q % spt) * 64 of its tile t;
-  // cells at N and past are masked
+  // cells past the tile's end and at N and past are masked
   auto cells = [&](int q, int t, long long& n0) {
-    n0 = static_cast<long long>(t) * tile + (q % spt) * kK9Cells;
-    return static_cast<int>(max(0LL, min(static_cast<long long>(kK9Cells), N - n0)));
+    const int k0 = (q % spt) * kK9Cells;
+    n0 = static_cast<long long>(t) * tile + k0;
+    const int in_tile = kWhole ? kK9Cells : min(kK9Cells, tile - k0);
+    return static_cast<int>(max(0LL, min(static_cast<long long>(in_tile), N - n0)));
   };
   auto load = [&](int q, int t, int jt) {
     if (jt == trash) return;
@@ -438,6 +444,18 @@ int set_smem(const void* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
+using K9Kernel = decltype(&tiled_correction_kernel<true, true>);
+
+// The K9 instance for the alignment and the tile form (whole: the tile is
+// a multiple of kK9Cells).
+K9Kernel k9_pick(int aligned, int tile) {
+  const bool whole = tile % kK9Cells == 0;
+  return aligned ? (whole ? tiled_correction_kernel<true, true>
+                          : tiled_correction_kernel<true, false>)
+                 : (whole ? tiled_correction_kernel<false, true>
+                          : tiled_correction_kernel<false, false>);
+}
+
 }  // namespace
 
 extern "C" {
@@ -484,10 +502,10 @@ int k8_tile_moments(const void* R, const void* Z, const void* chunks,
                         stream);
 }
 
-// CTAs of K9 an SM holds with `threads` threads and smem_bytes each; < 0
-// is minus a CUDA error.
-int k9_occupancy(int threads, int smem_bytes) {
-  const void* kern = reinterpret_cast<const void*>(tiled_correction_kernel<true>);
+// CTAs of the K9 instance k9_pick(aligned, tile) an SM holds with
+// `threads` threads and smem_bytes each; < 0 is minus a CUDA error.
+int k9_occupancy(int threads, int smem_bytes, int aligned, int tile) {
+  const void* kern = reinterpret_cast<const void*>(k9_pick(aligned, tile));
   int err = set_smem(kern, smem_bytes);
   if (err) return -err;
   int nb = 0;
@@ -497,29 +515,19 @@ int k9_occupancy(int threads, int smem_bytes) {
 }
 
 // K9 over the plan's order (n tiles) in grid equal ranges, stages slices
-// of R staged (1 or 2); aligned: N % 4 == 0 and every tensor starts on a
-// 16-byte boundary.
+// of R staged (1 or 2); aligned: N % 4 == 0, tile % 4 == 0 and every
+// tensor starts on a 16-byte boundary.
 int k9_tiled_correction(const void* Wj, const void* order, const void* tj, const void* R,
                         const void* Z, void* Zc, long long N, int n, int K, int d, int dp,
                         int tile, int trash, int grid, int stages, int threads, int aligned,
                         int smem_bytes, void* stream) {
-  const void* kernel = aligned ? reinterpret_cast<const void*>(tiled_correction_kernel<true>)
-                               : reinterpret_cast<const void*>(tiled_correction_kernel<false>);
-  int err = set_smem(kernel, smem_bytes);
+  const K9Kernel kernel = k9_pick(aligned, tile);
+  int err = set_smem(reinterpret_cast<const void*>(kernel), smem_bytes);
   if (err) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* Wf = static_cast<const float*>(Wj);
-  const int* of = static_cast<const int*>(order);
-  const int* tf = static_cast<const int*>(tj);
-  const float* Rf = static_cast<const float*>(R);
-  const float* Zf = static_cast<const float*>(Z);
-  float* Zcf = static_cast<float*>(Zc);
-  if (aligned)
-    tiled_correction_kernel<true><<<grid, threads, smem_bytes, st>>>(
-        Wf, of, tf, Rf, Zf, Zcf, N, n, K, d, dp, tile, trash, stages);
-  else
-    tiled_correction_kernel<false><<<grid, threads, smem_bytes, st>>>(
-        Wf, of, tf, Rf, Zf, Zcf, N, n, K, d, dp, tile, trash, stages);
+  kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(Wj), static_cast<const int*>(order),
+      static_cast<const int*>(tj), static_cast<const float*>(R), static_cast<const float*>(Z),
+      static_cast<float*>(Zc), N, n, K, d, dp, tile, trash, stages);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -206,7 +206,7 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
     writes R, and with a batch-tiled layout it also fuses the M-step's
     joint-batch moments, which ride on the state (``tiled_moments``) to the
     correction, so K8 does not run (on layout tiles that are not whole
-    64-cell pieces the correction runs K8 instead, and virtual R raises).
+    64-cell pieces too: K7 splits a piece's moments at a tile boundary).
     Under virtual R (:func:`_virtual_gate`) the last round writes no R
     either: it stores its penalty tables and the state carries the
     virtual-R context, from which the correction and
@@ -249,19 +249,14 @@ def _cluster_rotate(cfg: HarmonyConfig, state: HarmonyState,
     moments = None
     virtual = _virtual_gate(cfg, tiled)
     if static and tiled is not None and cfg.estep_sub_tile % tiled.tile == 0:
-        if cuda_rotate.moments_fit(tiled.tile):
-            tj = full_tile_joint(cfg, tiled)
-            moments = rotate.MomentsSpec(
-                Z_orig=(rotate.pad_cells_to_tile(cfg, state.Z_orig) if mesh is None
-                        else state.Z_orig).contiguous(),
-                tile_joint=(tj if mesh is None
-                            else sharding.shard_tile_table(cfg, mesh, tj, tiled.tile)),
-                n_joint=int(tiled.joint_codes.shape[1]), tile=int(tiled.tile),
-            )
-        elif virtual:
-            raise _not_ported(f"virtual R on {tiled.tile}-cell layout tiles (K7's moments "
-                              "and K10 take whole 64-cell pieces)",
-                              "ROADMAP A9, virtual R on other layout tiles")
+        tj = full_tile_joint(cfg, tiled)
+        moments = rotate.MomentsSpec(
+            Z_orig=(rotate.pad_cells_to_tile(cfg, state.Z_orig) if mesh is None
+                    else state.Z_orig).contiguous(),
+            tile_joint=(tj if mesh is None
+                        else sharding.shard_tile_table(cfg, mesh, tj, tiled.tile)),
+            n_joint=int(tiled.joint_codes.shape[1]), tile=int(tiled.tile),
+        )
     iters = 0
     while iters < cfg.max_iter_cluster:
         rt, order = schedules[iters]

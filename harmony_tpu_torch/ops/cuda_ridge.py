@@ -307,7 +307,7 @@ _TILED_SIGNATURES = {
     + [_build.PTR],
     "k9_tiled_correction": [_build.PTR] * 6 + [_build.I64] + [_build.INT] * 11
     + [_build.PTR],
-    "k9_occupancy": [_build.INT] * 2,
+    "k9_occupancy": [_build.INT] * 4,
     "sum_joint_rows": [_build.PTR] * 3 + [_build.INT, _build.I64, _build.PTR],
 }
 # K8 (tiled.cu): cells of one joint level per CTA, the row stride of a
@@ -402,8 +402,11 @@ def k9_plan(K: int, d: int) -> Tuple[int, int, int]:
 
 
 @functools.lru_cache(maxsize=16)
-def _k9_occupancy(threads: int, smem: int) -> int:
-    n = _build.load("tiled", _TILED_SIGNATURES).k9_occupancy(threads, smem)
+def _k9_occupancy(threads: int, smem: int, aligned: bool, tile: int) -> int:
+    """CTAs an SM holds of the K9 instance launched for ``aligned`` and the
+    tile form of ``tile``."""
+    n = _build.load("tiled", _TILED_SIGNATURES).k9_occupancy(threads, smem, int(aligned),
+                                                             tile)
     if n <= 0:
         raise RuntimeError(f"k9_occupancy: K9 fits no CTA on an SM (CUDA error {-n})")
     return n
@@ -499,17 +502,15 @@ def tiled_correction(W_joint: torch.Tensor, tile_joint, R: torch.Tensor,
                          f"fit d={d}, K={K} and the tile table")
     if R.device.type == "cpu":
         return tiled_correction_twin(W_joint, tj, R, Z, tile)
-    if tile % _K9_CELLS:
-        raise ValueError(f"tiled_correction: tile {tile} is not a multiple of {_K9_CELLS}")
     stages, threads, smem = k9_plan(K, d)
     order = plan_order(tj, R.device)
     n = order.shape[0]
     # one equal range of the order a CTA, as many CTAs as the card holds at once
-    n_sm = torch.cuda.get_device_properties(R.device).multi_processor_count
-    grid = min(n, n_sm * _k9_occupancy(threads, smem))
     tjd = _table_on(tj.tobytes(), str(R.device))
     Zc = torch.empty_like(Z)
-    aligned = Np % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (R, Z, Zc))
+    aligned = Np % 4 == 0 and tile % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (R, Z, Zc))
+    n_sm = torch.cuda.get_device_properties(R.device).multi_processor_count
+    grid = min(n, n_sm * _k9_occupancy(threads, smem, aligned, tile))
     lib = _build.load("tiled", _TILED_SIGNATURES)
     stream = torch.cuda.current_stream(R.device).cuda_stream
     _build.check(lib.k9_tiled_correction(

@@ -82,10 +82,20 @@ _SIGNATURES = {
     + [_build.PTR] * 9 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [_build.PTR],
     "k6_occupancy": [_build.INT, _build.INT],
     "k6_reassign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 12 + [_build.PTR],
-    "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 15
+    "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 16
     + [_build.PTR],
     "k11_materialize_r": [_build.PTR] * 8 + [_build.I64] + [_build.INT] * 12 + [_build.PTR],
 }
+
+
+def _lib_for(tw: int):
+    """The library whose K7 moments and K10 instances take layout tiles of
+    ``tw`` cells: rotate.cu's where they are whole 64-cell pieces, else
+    rotate_tiles.cu's (its k7_assign and k10_virtual_correction only)."""
+    if tw % _CT == 0:
+        return _build.load("rotate", _SIGNATURES)
+    return _build.load("rotate_tiles", {k: _SIGNATURES[k] for k in
+                                        ("k7_assign", "k10_virtual_correction")})
 
 
 def assign_smem_bytes(K: int, d: int, B: int, ncov: int, moments: bool = False) -> int:
@@ -251,10 +261,13 @@ def k10_fits(cfg: HarmonyConfig, d: int, n_tiles: int, dev) -> bool:
     return _k10_plan(cfg, d, n_tiles, dev)[2] is not None
 
 
-def moments_fit(tile: int) -> bool:
-    """Can K7's last round fuse the moments (and K10 correct) on layout
-    tiles of ``tile`` cells: are they whole 64-cell pieces?"""
-    return tile % _CT == 0
+def tile_steps(tile: int) -> int:
+    """The most 64-cell pieces a layout tile of ``tile`` cells meets (tiles
+    and pieces both start at cell 0): ``tile / 64`` where tiles are whole
+    pieces, else one or two more (3 for 160 cells). K10 walks a tile in
+    this many steps; K7's moments split a piece across two tiles."""
+    return max((a + tile - 1) // _CT - a // _CT + 1
+               for a in range(0, _CT * tile, tile))
 
 
 def _check(where: str, cfg: HarmonyConfig, floats: dict, codes: torch.Tensor,
@@ -412,17 +425,18 @@ def rotate_update_round_v2(
     if moments is not None:
         tw, nj = int(moments.tile), int(moments.n_joint)
         tj = np.asarray(moments.tile_joint, dtype=np.int32)
-        if (not moments_fit(tw) or T % tw or tj.shape != (L // tw,)
+        if (tw < _CT or T % tw or tj.shape != (L // tw,)
                 or tj.max(initial=0) > nj or moments.Z_orig.shape != (d, L)):
             raise ValueError("rotate_update_round_v2: the moments spec does not fit the "
-                             "layout")
+                             "layout (layout tiles of at least 64 cells dividing the tile)")
         slot, start = _tile_slots(tj.tobytes(), nj, str(dev))
         mpart = torch.empty((L // tw, K * (d + 1)), dtype=_F32, device=dev)
         M = torch.empty((nj + 1, K, d + 1), dtype=_F32, device=dev)
-        # one block's pieces' (K4 x d1p) tables, and a count per layout tile
-        # of a block
-        mpiece = torch.empty((max(szs) * T // _CT, -(-K // 4) * 4 * _ceil4(d + 1)),
-                             dtype=_F32, device=dev)
+        # one block's pieces' (K4 x d1p) tables (two a piece where layout
+        # tiles are not whole pieces: its cells on each side of a tile
+        # boundary), and a count per layout tile of a block
+        mpiece = torch.empty((max(szs) * T // _CT * (1 if tw % _CT == 0 else 2),
+                              -(-K // 4) * 4 * _ceil4(d + 1)), dtype=_F32, device=dev)
         count = torch.zeros(max(szs) * T // tw, dtype=torch.int32, device=dev)
         mom = (moments.Z_orig, slot, mpart, mpiece, count)
     smem = assign_smem_bytes(K, d, B, ncov, moments is not None)
@@ -439,7 +453,7 @@ def rotate_update_round_v2(
     pen_out = torch.empty((len(szs), K, B), dtype=_F32, device=dev) if emit_pen else None
     part = torch.empty((max(szs) * cpt, K * B + 2), dtype=_F32, device=dev)
     offsets = _offsets_on(cfg.covariate_offsets, str(dev))
-    lib = _build.load("rotate", _SIGNATURES)
+    lib, alib = _build.load("rotate", _SIGNATURES), _lib_for(tw)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
     # the launches' pointer arguments, read once: the loop below issues
@@ -467,7 +481,7 @@ def rotate_update_round_v2(
     order = [int(b) for b in order]
     commit(-1, order[0], True)
     for i, blk in enumerate(order):
-        _build.check(lib.k7_assign(
+        _build.check(alib.k7_assign(
             *a_ptrs, L, (vstart[blk] + rt) % NT, szs[blk], NT, cpt, tw, K, d, B, ncov, d1p,
             lg, zbf, smem, stream,
         ), "k7_assign")
@@ -533,7 +547,7 @@ def virtual_correction(
     dev = Zn_pad.device
     nj1 = W_joint.shape[0]
     tj = np.asarray(tile_joint, dtype=np.int32)
-    if (W_joint.shape != (nj1, d, K) or not moments_fit(layout_tile) or T % layout_tile
+    if (W_joint.shape != (nj1, d, K) or layout_tile < _CT or T % layout_tile
             or tj.shape != (L // layout_tile,) or tj.max(initial=0) >= nj1
             or Z_orig_pad.shape != (d, L)):
         raise ValueError("virtual_correction: W_joint, the tile table or the layout tile "
@@ -556,13 +570,13 @@ def virtual_correction(
     if any(t.data_ptr() % 16 for t in (G, codes_pad, Z_orig_pad, Zc)):
         raise ValueError("virtual_correction: G, codes_pad and Z_orig_pad must start on "
                          "16-byte boundaries (the kernel copies 16 bytes at a time)")
-    lib = _build.load("rotate", _SIGNATURES)
-    _build.check(lib.k10_virtual_correction(
+    _build.check(_lib_for(layout_tile).k10_virtual_correction(
         G.data_ptr(), codes_pad.data_ptr(),
         _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), pen.data_ptr(),
         blk_of_phys.data_ptr(), sigma.data_ptr(), W_joint.data_ptr(), order.data_ptr(),
         _table_on(tj.tobytes(), str(dev)).data_ptr(), Z_orig_pad.data_ptr(), Zc.data_ptr(),
-        L, n, span, T, layout_tile, nj1 - 1, K, d, _ceil4(d), B, cfg.n_covariates, groups,
+        L, n, span, T, layout_tile, tile_steps(layout_tile), nj1 - 1, K, d, _ceil4(d), B,
+        cfg.n_covariates, groups,
         legacy(cfg), bf16(Z_orig_pad), grid, smem,
         torch.cuda.current_stream(dev).cuda_stream,
     ), "k10_virtual_correction")

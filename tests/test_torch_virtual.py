@@ -22,7 +22,8 @@
   JAX package's own bounds (tests/test_multicov_fast.py:144-171): Z_corr
   atol 2e-4, objective rtol 1e-5, R atol 1e-6.
 * (g) The default rotate path (K7 fusing the moments) against the K8
-  path: M rtol 1e-5 of its max, three rounds at objective rtol 1e-5.
+  path (the fused moments dropped before each correction): M rtol 1e-5
+  of its max, three rounds at objective rtol 1e-5.
 * (h) ``run_harmony(..., virtual_r=True)`` at the setup of
   tests/test_auto_mode.py:105-136: the virtual path engages, R columns sum
   to 1 and ``res.W`` reproduces the applied correction (atol 5e-4).
@@ -39,9 +40,9 @@
   two correction groups or one, or K11 and K9 take it; the shapes it
   turns away are K > 256, d > 192 or one group past shared memory.
 * (i) Virtual R engages at K = d = 100, whose (K, d+1) moment table is
-  wider than a CTA's threads hold in 4x4 register tiles at once, and
-  raises (never falls back to the written path) where the layout tiles
-  are not whole 64-cell pieces.
+  wider than a CTA's threads hold in 4x4 register tiles at once, and on
+  layout tiles that are not whole 64-cell pieces (160 cells), where it
+  once raised.
 * (l) ``estep_variant='legacy'``, the reference's two-normalise op order:
   (a), (b), (c) at their bounds; the mixed/pad tail's recomputed R
   (``_virtual_tail_r``) against the JAX function's at 1e-6 in both
@@ -84,6 +85,7 @@ from harmony_tpu_torch import state as tstate
 from harmony_tpu_torch.ops import cuda_ridge, cuda_rotate
 from harmony_tpu_torch.ops import ridge as tridge
 from harmony_tpu_torch.ops import rotate as tr
+from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
 
 from test_torch_rotate import CASES, _close, _jax_schedule, _problem, _t, gram_table
 
@@ -624,27 +626,27 @@ def _virtual_against_materialised(B_vec, variant):
     _close(out[True].R, out[False].R, rtol=0, atol=1e-6)
 
 
-def test_fused_moments_match_the_k8_path(monkeypatch):
+def test_fused_moments_match_the_k8_path():
     """The default (materialised) rotate path: K7's last round fuses the
-    moments; with the fusion refused the correction runs K8 on R."""
+    moments; with the fused moments dropped from each phase's state the
+    correction runs K8 on R."""
     setup = _setup((3,), 4000, 4096)
     ct = dataclasses.replace(setup[1], virtual_r=False)
     runs = {}
     for fused in (True, False):
-        if not fused:
-            monkeypatch.setattr(cuda_rotate, "moments_fit", lambda tile: False)
         _, st, _, tiled = _states(*setup)  # the same generator seed: the same schedules
-        first = tengine.cluster(ct, st, tiled=tiled)
-        assert (first.tiled_moments is not None) == fused and first.virt_pen is None
-        if fused:
-            Zo = tr.pad_cells_to_tile(ct, first.Z_orig.float())
-            M = cuda_ridge.tile_moments_twin(first.R.float(), Zo, tiled.tile,
-                                             tridge.full_tile_joint(ct, tiled),
-                                             int(tiled.joint_codes.shape[1]))
-            _close(first.tiled_moments, M, rtol=0, atol=1e-5 * float(M.abs().max()))
-        st = tengine.correct(ct, first, tengine.MStepLayout(tiled))
-        for _ in range(2):
-            st = tengine.harmony_round(ct, st, layout=tengine.MStepLayout(tiled))
+        for r in range(3):
+            phase = tengine.cluster(ct, st, tiled=tiled)
+            assert phase.tiled_moments is not None and phase.virt_pen is None
+            if fused and r == 0:
+                Zo = tr.pad_cells_to_tile(ct, phase.Z_orig.float())
+                M = cuda_ridge.tile_moments_twin(phase.R.float(), Zo, tiled.tile,
+                                                 tridge.full_tile_joint(ct, tiled),
+                                                 int(tiled.joint_codes.shape[1]))
+                _close(phase.tiled_moments, M, rtol=0, atol=1e-5 * float(M.abs().max()))
+            if not fused:
+                phase = dataclasses.replace(phase, tiled_moments=None)
+            st = tengine.correct(ct, phase, tengine.MStepLayout(tiled))
         runs[fused] = st
     _close(runs[True].trace_lists(ct)["objective_kmeans"],
            runs[False].trace_lists(ct)["objective_kmeans"], rtol=1e-5)
@@ -694,14 +696,37 @@ def test_virtual_r_engages_at_wide_moment_tables():
     _close(out.tiled_moments, M, rtol=0, atol=1e-5 * float(M.abs().max()))
 
 
-def test_virtual_r_raises_where_the_moments_cannot_fuse(monkeypatch):
-    """Layout tiles that are not whole 64-cell pieces: the materialised
-    path leaves the moments to K8, virtual R raises naming its ROADMAP item
-    instead of quietly running the written path."""
-    setup = _setup((3,), 4000, 4096)
-    _, st, _, tiled = _states(*setup)
-    monkeypatch.setattr(cuda_rotate, "moments_fit", lambda tile: False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9, virtual R on other layout"):
-        tengine.cluster(setup[1], st, tiled=tiled)
-    out = tengine.cluster(dataclasses.replace(setup[1], virtual_r=False), st, tiled=tiled)
-    assert out.tiled_moments is None and out.virt_pen is None
+def test_virtual_r_raises_where_the_moments_cannot_fuse():
+    """Layout tiles that are not whole 64-cell pieces (160 cells, T =
+    2560) once raised "ROADMAP A9, virtual R on other layout tiles". K7 now
+    splits a piece's moments at the tile boundary, so nothing raises: the
+    virtual phase runs and fuses the moments, equal to K8's on the R it
+    rebuilds, and so does the materialised one (tests/test_torch_virtual_tiles.py
+    holds both against the JAX package)."""
+    rng = np.random.default_rng(5)
+    N, d, K, T, tile = 16_384, 8, 8, 2560, 160
+    meta = {"v0": rng.integers(0, 3, N).astype(np.int32)}
+    design = tpre.build_design(meta, ["v0"])
+    opts = tconfig.harmony_options(block_size=0.25)
+    ct = tpre.resolve_config(design=design, options=opts, n_cells=N, d=d, nclust=K,
+                             max_iter=1, early_stop=False, verbose=False)
+    ct = tconfig.finalize_engine_config(dataclasses.replace(
+        ct, shuffle_mode="rotate", estep_sub_tile=T, mstep_tile=tile, mstep_mode="tiled",
+        virtual_r=True, estep_impl="kernel", mstep_impl="kernel"))
+    perm, _ = build_batch_tiled_order(design.codes, tile, seed=0)
+    design = dataclasses.replace(design, codes=design.codes[:, perm])
+    Zt = tpre.orient_embedding(rng.normal(size=(N, d)).astype(np.float32), N)[:, perm]
+    hp = tpre.expand_hyperparams(design, K, None, 0.1, None, opts.tau)
+    tiled = tengine.mstep_layout(ct, design.codes).tiled
+    assert ct.estep_sub_tile == T and tiled.tile == tile and tile % 64
+    for virtual in (True, False):
+        cfg = dataclasses.replace(ct, virtual_r=virtual)
+        st = tstate.init_state(cfg, Zt, design, hp.sigma, hp.theta, hp.lamb, 3, "cpu")
+        st = tengine.init_cluster_from(cfg, st, Zt[:, rng.choice(N, K, replace=False)])
+        out = tengine.cluster(cfg, st, tiled=tiled)
+        assert out.tiled_moments is not None and (out.virt_pen is not None) == virtual
+        R = tengine.materialize_r(cfg, out).R
+        M = cuda_ridge.tile_moments_twin(R.float(), tr.pad_cells_to_tile(cfg, out.Z_orig.float()),
+                                         tile, tridge.full_tile_joint(cfg, tiled),
+                                         int(tiled.joint_codes.shape[1]))
+        _close(out.tiled_moments, M, rtol=0, atol=1e-5 * float(M.abs().max()))
