@@ -102,7 +102,9 @@ Phases (``--phases`` picks a subset, comma-separated):
 13. bf16     run_harmony(..., dtype="bfloat16") on the main shape's cells,
              nothing cut: rotate, the stats carry, virtual R; the bf16
              forms of K6 and K10 once an iteration, K7, K11 once, no K8 or
-             K9; R stored in bf16, its column sums within 1e-2 of 1, the
+             K9 (K6, K10 and K11 in the bf16 product form the resolved
+             'bfloat16' precision selects); R stored in bf16, its column
+             sums within 1e-2 of 1, the
              separation shrinks; its seconds per iteration and peak device
              memory beside the float32 virtual path's. Then the same cells
              from shared initial centroids, early stop off, five
@@ -120,7 +122,24 @@ Phases (``--phases`` picks a subset, comma-separated):
              their float32 forms on the upcast inputs (0.0 required),
              their plain versions and two launches bit-equal, at the main
              shape (timed) and the shapes of K7's last round above, in
-             both op orders.
+             both op orders (fp32 products: their configs keep the
+             'float32' precision).
+13b. f16     the float16 storage forms of K6, K7, K10 and K11 (fp32
+             products) as the kernels phase checks the bf16 ones (0.0
+             against the float32 forms on the upcast inputs; timed at the
+             main shape), also on 160-cell layout tiles; then the bf16
+             product forms of K6, K10 and K11 for bf16 and float16 storage
+             (check_products: G within 1e-5 of the product on its own
+             operands, K11's R equal to K7's bit for bit, K10's Z_corr the
+             rounding of a value within 1e-5 of its twin's), at the main
+             shape (timed beside the fp32-product forms), in both op
+             orders, on 160-cell tiles and at the ragged, wide, one-group,
+             past-K10 and VIRTUAL_WIDE shapes; then run_harmony(...,
+             dtype="float16") on the main shape's cells as phase bf16 runs
+             its engine (K6 and K10 once an iteration, K7, K11 once, no K8
+             or K9; R's column sums within 1e-2 of 1), held to the same
+             float32 virtual run at BF16_HELD_RTOL, its peak memory
+             printed.
 14. bf16_10m (opt-in: named in --phases, not run by default) the bf16 path
              at BASELINE's shape, 10,000,000 x 50 cells, 100 batches, K =
              100: wall, phase seconds (the ingest streamed, the copy
@@ -154,7 +173,8 @@ Phases (``--phases`` picks a subset, comma-separated):
              run_harmony(mesh=) on 500,000 x 50 cells on 2 gloo ranks of
              the one card, nothing cut: mesh_main (K6, K7, K9), mesh_virtual
              (K6, K7, K10, K11) and mesh_permute (the plain sharded phase,
-             K8, K9), each held to one device's run on the same cells (final
+             K8, K9), and the other MESH_PATHS (bf16 and float16 virtual R
+             among them), each held to one device's run on the same cells (final
              objective within 5%, separation shrinking, R's columns within
              1e-4 of 1, the ranks' traces equal), with seconds an iteration
              (run_bench on both), all-reduces an iteration and their bytes,
@@ -185,14 +205,17 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
+import types
 
 PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
-          "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16", "host", "mesh",
-          "harness")
+          "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16", "f16", "host",
+          "mesh", "harness")
 # phases run only when named in --phases: the bf16 engine at BASELINE's
 # shape, on one card and on the mesh
 OPT_IN_PHASES = ("bf16_10m", "mesh_bf16_10m")
@@ -231,6 +254,10 @@ MESH_BENCH_PAIRS = 3
 # first and its operations over the second.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# bf16 on the tensor cores, dense (NVIDIA data sheet): the peak of the bf16
+# product forms' operations (K6's, K10's and K11's under a reduced-precision
+# engine's 'bfloat16' precision)
+BF16_TC_FLOP_PER_S = 989e12
 
 # main-path shape: the repo's canonical 500k x 50, K = 100, B = 10
 N_MAIN, D_MAIN, K_MAIN, B_MAIN = 500_000, 50, 100, 10
@@ -253,6 +280,8 @@ MESH_PATHS = {
                          "want": ("cell", False, False, "dense")},
     "mesh_virtual_bf16": {**_MESH_ROTATE, "virtual": True, "dtype": "bfloat16",
                           "want": ("carry", False, True, "tiled")},
+    "mesh_virtual_f16": {**_MESH_ROTATE, "virtual": True, "dtype": "float16",
+                         "want": ("carry", False, True, "tiled")},
     "mesh_segment": {**_MESH_ROTATE, "cells": 200_000, "batches": B_SEGMENT,
                      "want": ("carry", False, False, "segment")},
 }
@@ -266,8 +295,14 @@ N_SIGTERM = 20_000  # the harness run sent SIGTERM after its warm-up
 VIRTUAL_WIDE = ((20_000, 300, 32, (B_MAIN,), 26), (20_000, D_MAIN, 256, (B_MAIN,), 29))
 R_ATOL = 1e-5  # assignments: fp32 with another summation order
 SUM_RTOL = 1e-4  # sums: max |kernel - plain| <= SUM_RTOL * max |plain|
-# the kernels with a bf16 storage form (the bf16 engine's virtual route)
-BF16_FORMS = ("K6", "K7", "K10", "K11")
+# the kernels with reduced-precision forms (the bf16 and float16 engines'
+# virtual route): 2-byte storage forms of all four, and the bf16 product
+# form of K6, K10 and K11 that those engines take
+REDUCED_FORMS = ("K6", "K7", "K10", "K11")
+PRODUCT_FORMS = ("K6", "K10", "K11")
+# a bf16 product form against its plain twin on the same operands: only the
+# order of the fp32 sums differs
+PRODUCT_ATOL = 1e-5
 # peak device memory of each main path run, MiB
 PEAKS = {}
 # logs too long for the console (profile, ptxas report); a path setting
@@ -278,8 +313,8 @@ def log(*a):
     print(*a, flush=True)
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOP_PER_S):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -1087,7 +1122,7 @@ def k11_form(torch, dev, cfg, d, Np) -> str:
     """K11's launch plan at a shape, for the log."""
     from harmony_tpu_torch.ops import cuda_rotate
 
-    plan = cuda_rotate.materialize_r_plan(cfg.K, d, cfg.B, cfg.n_covariates)
+    plan = cuda_rotate.materialize_r_plan(cfg.K, d, cfg.B, cfg.n_covariates, cfg.bf16_products)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     chain = f"v_chain, {plan.kj} values a lane" if plan.kj else "assign_chain"
     return (f"{chain}, Y {'staged' if plan.ys_shared else 'read from device memory'}, "
@@ -1124,39 +1159,48 @@ def check_k11(torch, dev, N, d, K, B_vec, seed, variant):
     require(colsum <= 1e-4, f"K11 alone: R columns do not sum to 1: {colsum}")
 
 
-def bf16_ulps(torch, out, ref) -> float:
-    """The largest |out - ref| of two bf16 tensors in bf16 ulps of ref
-    (an ulp at |r| is 2^(floor(log2 |r|) - 7)); 0 where they are equal."""
+def storage_ulps(torch, out, ref) -> float:
+    """The largest |out - ref| of two tensors of a 2-byte float dtype in
+    ulps of ref in that dtype (an ulp at |r| is 2^(floor(log2 |r|) - m),
+    m = 7 for bf16 and 10 for float16, the exponent floored at the
+    smallest normal's); 0 where they are equal."""
+    fi = torch.finfo(ref.dtype)
+    m, emin = -math.log2(fi.eps), math.log2(fi.tiny)
     o, r = out.double(), ref.double()
     a = r.abs()
-    ulp = torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-38))) - 7),
-                      torch.full_like(a, 2.0 ** -133))
-    return float(((o - r).abs() / ulp).max())
+    e = torch.floor(torch.log2(a.clamp_min(fi.tiny))).clamp_min(emin)
+    return float(((o - r).abs() / torch.exp2(e - m)).max())
 
 
-def check_bf16(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
-    """The bf16 forms of K6 (bf16 Z_raw), K7's last round (moments on a bf16
-    Z_orig, R written in bf16), K10 (bf16 Z_orig in, bf16 Z_corr out) and
-    K11 (bf16 R out) on check_virtual's inputs stored in bf16, in the op
-    order ``variant``. Required, 0.0: K6's and K7's float32 outputs equal
-    the float32 forms' on the upcast inputs; K11's R equals K7's float32 R
-    of the same round cast to bf16; K10's Z_corr equals K9 on K11's float32
-    R and the upcast Z_orig, cast to bf16; each kernel's two launches
-    bit-equal. Against the plain versions on the same bf16 inputs: float32
-    outputs at the float32 checks' bounds, bf16 outputs within one bf16 ulp
-    past the float32 difference (atol 1e-5). Timed (``timed``) beside the
-    float32 forms on the upcast inputs, with bounds for 2-byte storage."""
+def check_storage_forms(torch, dev, N, d, K, B_vec, seed, timed, dt, variant="fused_vpu",
+                        tiles=None):
+    """The 2-byte storage forms (``dt``: bf16 or float16), fp32 products, of
+    K6 (Z_raw in ``dt``), K7's last round (moments on Z_orig in ``dt``, R
+    written in ``dt``), K10 (Z_orig in, Z_corr out) and K11 (R out) on
+    check_virtual's inputs stored in ``dt``, in the op order ``variant``
+    (``tiles``: the E-step and layout tiles, TILE160's). Required, 0.0:
+    K6's and K7's float32 outputs equal the float32 forms' on the upcast
+    inputs; K11's R equals K7's float32 R of the same round cast to ``dt``;
+    K10's Z_corr equals K9 on K11's float32 R and the upcast Z_orig, cast
+    to ``dt``; each kernel's two launches bit-equal. Against the plain
+    versions on the same inputs: float32 outputs at the float32 checks'
+    bounds, 2-byte outputs within one ulp of ``dt`` past the float32
+    difference (atol 1e-5). Timed (``timed``) beside the float32 forms on
+    the upcast inputs, with bounds for 2-byte storage."""
     import dataclasses
 
     from harmony_tpu_torch.ops import cuda_ridge, cuda_rotate, rotate
     from harmony_tpu_torch.ops.ridge import virtual_tile_correction
 
-    bf = torch.bfloat16
+    eps = torch.finfo(dt).eps
     (cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g, tile, layout, Zo, nj,
-     tj) = virtual_problem(torch, dev, N, d, K, B_vec, seed, variant)
-    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+     tj) = virtual_problem(torch, dev, N, d, K, B_vec, seed, variant, tiles)
+    # the engine dtype with fp32 products: the precision the float32 config
+    # resolved ('float32') stays
+    cfg = dataclasses.replace(cfg, dtype=str(dt).removeprefix("torch."))
+    require(not cfg.bf16_products, "the storage forms' config takes the bf16 product form")
     Np, ncov = cfg.Np, len(B_vec)
-    Zb, Zob = Z.to(bf), Zo.to(bf)
+    Zb, Zob = Z.to(dt), Zo.to(dt)
     Zu, Zou = Zb.float(), Zob.float()
     spec_b = rotate.MomentsSpec(Z_orig=Zob, tile_joint=tj, n_joint=nj, tile=tile)
     spec_u = spec_b._replace(Z_orig=Zou)
@@ -1167,11 +1211,11 @@ def check_bf16(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
     up6 = cuda_rotate.reassign(*args6, Zu, codes_pad)
     ref6 = rotate.reassign(*args6, Zb, codes_pad)
     Zn, tO, O, E, G = out6
-    # K7, a phase's last round on bf16 state: R, E and O in bf16
+    # K7, a phase's last round on 2-byte state: R, E and O in dt
     rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
     lay = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G)
-    rs = rotate.RoundState(R=torch.zeros(K, Np, device=dev, dtype=bf), E=E.to(bf),
-                           O=O.to(bf), tile_O=tO, kmeans_error=None, entropy=None)
+    rs = rotate.RoundState(R=torch.zeros(K, Np, device=dev, dtype=dt), E=E.to(dt),
+                           O=O.to(dt), tile_O=tO, kmeans_error=None, entropy=None)
     args7 = (cfg, Y, rs, Pr_b, sigma, theta, rt, blocks, lay)
     kw = dict(write_r=True, emit_pen=True)
     out7 = cuda_rotate.rotate_update_round_v2(*args7, moments=spec_b, **kw)
@@ -1182,10 +1226,10 @@ def check_bf16(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
     ref7 = rotate.rotate_update_round_v2(*args7, moments=spec_b, **kw)
     # K11 and K10 from that round's tables
     vargs = (Y, sigma, out7.pen, out7.blkmap, Zn, codes_pad)
-    R11 = cuda_rotate.materialize_r(cfg, *vargs, out_dtype=bf)
-    again11 = cuda_rotate.materialize_r(cfg, *vargs, out_dtype=bf)
+    R11 = cuda_rotate.materialize_r(cfg, *vargs, out_dtype=dt)
+    again11 = cuda_rotate.materialize_r(cfg, *vargs, out_dtype=dt)
     R11f = cuda_rotate.materialize_r(cfg, *vargs)
-    ref11 = rotate.materialize_r(cfg, *vargs, out_dtype=bf)
+    ref11 = rotate.materialize_r(cfg, *vargs, out_dtype=dt)
     W = 0.1 * torch.randn(nj + 1, d, K, generator=g, device=dev)
     W[nj] = 0.0
     cargs = (cfg, W, tj, tile, *vargs)
@@ -1203,9 +1247,10 @@ def check_bf16(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
         again10 = virtual_tile_correction(cfg, W, tj, tile, virt)
         ref10 = Zc9
     torch.cuda.synchronize()
-    require(all(t.dtype == torch.float32 for t in out6), "K6 (bf16) outputs are not float32")
-    require(out7.R.dtype == R11.dtype == bf and Zc.dtype == (bf if k10_takes else torch.float32),
-            "K7, K11 or K10 (bf16) outputs are not bf16, or the fallback not float32")
+    what = f"{dt} storage"
+    require(all(t.dtype == torch.float32 for t in out6), f"K6 ({what}) outputs are not float32")
+    require(out7.R.dtype == R11.dtype == dt and Zc.dtype == (dt if k10_takes else torch.float32),
+            f"K7, K11 or K10 ({what}) outputs are not {dt}, or the fallback not float32")
     d6 = max(float((a - b).abs().max()) for a, b in zip(out6, up6))
     same6 = all(bool(torch.equal(a, b)) for a, b in zip(out6, again6))
     e6 = max(float((Zn - ref6[0]).abs().max()), float((G - ref6[4]).abs().max()))
@@ -1217,22 +1262,22 @@ def check_bf16(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
     same7 = all(bool(torch.equal(getattr(out7, f), getattr(again7, f)))
                 for f in names7 + ("R", "E", "O"))
     r7 = max(rel_err(getattr(out7, f), getattr(ref7, f)) for f in names7)
-    u7 = bf16_ulps(torch, out7.R, ref7.R)
-    r_cast = float((out7.R.float() - f32_7.R.to(bf).float()).abs().max())
-    d11 = float((R11.float() - f32_7.R.to(bf).float()).abs().max())
+    u7 = storage_ulps(torch, out7.R, ref7.R)
+    r_cast = float((out7.R.float() - f32_7.R.to(dt).float()).abs().max())
+    d11 = float((R11.float() - f32_7.R.to(dt).float()).abs().max())
     same11 = bool(torch.equal(R11, again11))
-    u11 = bf16_ulps(torch, R11, ref11)
+    u11 = storage_ulps(torch, R11, ref11)
     e11 = float((R11.float() - ref11.float()).abs().max())
     d10 = float((Zc.float() - Zc9.to(Zc.dtype).float()).abs().max())
     same10 = bool(torch.equal(Zc, again10))
     e10 = float((Zc.float() - ref10.float()).abs().max())
-    u10 = bf16_ulps(torch, Zc, ref10) if k10_takes else 0.0
+    u10 = storage_ulps(torch, Zc, ref10) if k10_takes else 0.0
     colsum = float(R11[:, :N].float().sum(0).sub(1).abs().max())
-    log(f"  bf16 forms ({variant}) N={N} (Np={Np}) d={d} K={K} B_vec={B_vec}, layout tile "
+    log(f"  {what} forms ({variant}) N={N} (Np={Np}) d={d} K={K} B_vec={B_vec}, layout tile "
         f"{tile}: K6 against its float32 form on the upcast Z {d6:.1e} (0.0 required), "
         f"repeat bit-equal {same6}, plain max|dZn|,|dG| {e6:.2e} (1e-6), sums rel {r6:.2e}; "
         f"K7 last round against the float32 form on the upcast Z_orig: M, pen, tile_O, "
-        f"objective {d7:.1e}, R/E/O {d7r:.1e} (0.0), its bf16 R against the float32 form's "
+        f"objective {d7:.1e}, R/E/O {d7r:.1e} (0.0), its {dt} R against the float32 form's "
         f"cast {r_cast:.1e} (0.0), repeat bit-equal {same7}, plain rel {r7:.2e}, R "
         f"{u7:.2f} ulp; K11 against K7's float32 R cast {d11:.1e} (0.0), repeat bit-equal "
         f"{same11}, plain max|dR| {e11:.2e} ({u11:.2f} ulp), R column sums within "
@@ -1241,23 +1286,23 @@ def check_bf16(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
             f"{same10}, plain max|dZ| {e10:.2e} ({u10:.2f} ulp)" if k10_takes else
             f"past K10's limits K11, then K9 on float32 copies, against K9 on K11's R "
             f"{d10:.1e} (0.0), repeat bit-equal {same10}"))
-    require(d6 == 0.0 and same6, f"K6 (bf16): {d6} against the float32 form, repeat {same6}")
-    require(e6 <= 1e-6 and r6 <= SUM_RTOL, f"K6 (bf16) disagrees with its plain version: "
+    require(d6 == 0.0 and same6, f"K6 ({what}): {d6} against the float32 form, repeat {same6}")
+    require(e6 <= 1e-6 and r6 <= SUM_RTOL, f"K6 ({what}) disagrees with its plain version: "
             f"{e6}, {r6}")
     require(d7 == 0.0 and d7r == 0.0 and r_cast == 0.0 and same7,
-            f"K7 (bf16): {d7}, {d7r}, {r_cast} against the float32 form, repeat {same7}")
-    require(r7 <= SUM_RTOL, f"K7 (bf16) disagrees with its plain version: {r7}")
-    # bf16 outputs: the float32 difference (R_ATOL) plus one bf16 ulp
-    bad7 = (out7.R.float() - ref7.R.float()).abs() > R_ATOL + ref7.R.float().abs() * 2.0 ** -7
-    require(not bool(bad7.any()), "K7 (bf16) R disagrees with its plain version")
-    require(d11 == 0.0 and same11, f"K11 (bf16): {d11} against K7's R cast, repeat {same11}")
-    bad11 = (R11.float() - ref11.float()).abs() > R_ATOL + ref11.float().abs() * 2.0 ** -7
-    require(not bool(bad11.any()), f"K11 (bf16) disagrees with its plain version: {e11}")
-    require(colsum <= 1e-2, f"K11 (bf16) R columns do not sum to 1: {colsum}")
-    require(d10 == 0.0 and same10, f"K10 (bf16): {d10} against K9 on K11's R, repeat {same10}")
+            f"K7 ({what}): {d7}, {d7r}, {r_cast} against the float32 form, repeat {same7}")
+    require(r7 <= SUM_RTOL, f"K7 ({what}) disagrees with its plain version: {r7}")
+    # 2-byte outputs: the float32 difference (R_ATOL) plus one ulp of dt
+    bad7 = (out7.R.float() - ref7.R.float()).abs() > R_ATOL + ref7.R.float().abs() * eps
+    require(not bool(bad7.any()), f"K7 ({what}) R disagrees with its plain version")
+    require(d11 == 0.0 and same11, f"K11 ({what}): {d11} against K7's R cast, repeat {same11}")
+    bad11 = (R11.float() - ref11.float()).abs() > R_ATOL + ref11.float().abs() * eps
+    require(not bool(bad11.any()), f"K11 ({what}) disagrees with its plain version: {e11}")
+    require(colsum <= 1e-2, f"K11 ({what}) R columns do not sum to 1: {colsum}")
+    require(d10 == 0.0 and same10, f"K10 ({what}): {d10} against K9 on K11's R, repeat {same10}")
     bad10 = (Zc.float() - ref10.float()).abs() > SUM_RTOL * float(
-        ref10.float().abs().max()) + ref10.float().abs() * 2.0 ** -7
-    require(not bool(bad10.any()), f"K10 (bf16) disagrees with its plain version: {e10}")
+        ref10.float().abs().max()) + ref10.float().abs() * eps
+    require(not bool(bad10.any()), f"K10 ({what}) disagrees with its plain version: {e10}")
     rows = {k: {"max_abs_err": v} for k, v in
             (("K6", e6), ("K7", r7), ("K10", e10), ("K11", e11))}
     if not timed or not k10_takes:
@@ -1276,13 +1321,13 @@ def check_bf16(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
             ("K10", lambda: cuda_rotate.virtual_correction(*cargs, Zob, G),
              lambda: cuda_rotate.virtual_correction(*cargs, Zou, G),
              lambda: rotate.virtual_correction(*cargs, Zob, G), 10),
-            ("K11", lambda: cuda_rotate.materialize_r(cfg, *vargs, out_dtype=bf),
+            ("K11", lambda: cuda_rotate.materialize_r(cfg, *vargs, out_dtype=dt),
              lambda: cuda_rotate.materialize_r(cfg, *vargs),
-             lambda: rotate.materialize_r(cfg, *vargs, out_dtype=bf), 10)):
-        rows[k]["ms"] = time_ms(torch, f"{k} kernel, bf16 storage", fn, iters=iters)
+             lambda: rotate.materialize_r(cfg, *vargs, out_dtype=dt), 10)):
+        rows[k]["ms"] = time_ms(torch, f"{k} kernel, {what}", fn, iters=iters)
         rows[k]["ms_float32_form"] = time_ms(torch, f"{k} kernel, float32 form on the upcast "
                                              "inputs", fn32, iters=iters)
-        rows[k]["plain_ms"] = time_ms(torch, f"{k} plain, bf16 storage", plain, iters=3)
+        rows[k]["plain_ms"] = time_ms(torch, f"{k} plain, {what}", plain, iters=3)
         rows[k]["library_ms"] = None
     nb = out7.pen.shape[0]
     # the bytes each function moves with Z_raw, Z_orig, Z_corr and R in 2
@@ -1295,14 +1340,176 @@ def check_bf16(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
         *k10_work(K, d, Np, ncov, layout.n_pure, 2))
     rows["K11"]["bound_ms"], rows["K11"]["bound_by"] = bound(
         4 * d * Np + 4 * ncov * Np + 2 * K * Np, flops)
-    # K7's moments: the library einsum of K8's function on the bf16 round's
+    # K7's moments: the library einsum of K8's function on the 2-byte round's
     # R and the upcast Z_orig
     nt = Np // tile
     oh = torch.nn.functional.one_hot(torch.as_tensor(tj, device=dev).long(), nj + 1).float()
     R3 = f32_7.R.reshape(K, nt, tile)
     Za3 = torch.cat([Zou, torch.ones(1, Np, device=dev)]).reshape(d + 1, nt, tile)
-    rows["K7"]["library_ms"] = time_ms(torch, "K7 (bf16) moments library einsum",
+    rows["K7"]["library_ms"] = time_ms(torch, f"K7 ({what}) moments library einsum",
                                        lambda: torch.einsum("ktu,tj,dtu->jkd", R3, oh, Za3))
+    return rows
+
+
+def check_products(torch, dev, N, d, K, B_vec, seed, timed, dt, variant="fused_vpu",
+                   tiles=None):
+    """The bf16 product forms of K6, K10 and K11 (a bf16 or float16 engine
+    under the resolved 'bfloat16': both operands of g = Y^T Zn and of K10's
+    W R rounded to bf16, tensor-core products, fp32 sums) on
+    check_virtual's inputs stored in ``dt``, in the op order ``variant``
+    (``tiles``: TILE160's layout tiles). Required: K6's G within
+    PRODUCT_ATOL of the plain product on its own operands (Y and K6's Zn
+    rounded to bf16, an fp32 product), its Zn equal to the fp32-product
+    form's (0.0); K11's float32 R equal to the R K7's last round wrote from
+    that G, bit for bit, its ``dt`` R that R cast (0.0); K10's Z_corr the
+    rounding to ``dt`` of a value within PRODUCT_ATOL of the plain product
+    on its operands (the betas and K11's float32 R, which K10's chain
+    shares, rounded to bf16; an fp32 product): round(twin - atol) <=
+    Z_corr <= round(twin + atol) elementwise, or, past K10's limits, K11
+    then K9 (float32) equal to K9 on K11's R; each kernel's two launches
+    bit-equal. Against the whole plain versions, which round their own
+    float32 Zn and R, within what a neighbouring bf16 operand can move:
+    g 2^-7 (unit vectors), R R_ATOL, Z_corr one ulp of ``dt`` plus max|W|
+    (2^-8 + K R_ATOL). Timed (``timed``) beside the fp32-product forms of
+    the same storage, with bounds at the bf16 tensor-core peak."""
+    import dataclasses
+
+    from harmony_tpu_torch.ops import cuda_ridge, cuda_rotate, rotate
+    from harmony_tpu_torch.ops.ridge import virtual_tile_correction
+
+    eps = torch.finfo(dt).eps
+    (cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g, tile, layout, Zo, nj,
+     tj) = virtual_problem(torch, dev, N, d, K, B_vec, seed, variant, tiles)
+    cfg = dataclasses.replace(cfg, dtype=str(dt).removeprefix("torch."),
+                              matmul_precision="bfloat16")
+    cfg32 = dataclasses.replace(cfg, matmul_precision="float32")
+    require(cfg.bf16_products and not cfg32.bf16_products,
+            f"bf16_products {cfg.bf16_products} under 'bfloat16', {cfg32.bf16_products} under "
+            "'float32'")
+    Np, ncov = cfg.Np, len(B_vec)
+    what = f"bf16 products, {dt} storage"
+    bfo = rotate.bf16_operand
+    Zs, Zos = Z.to(dt), Zo.to(dt)
+    # K6
+    args6 = (Y, sigma, Pr_b, Zs, codes_pad)
+    out6 = cuda_rotate.reassign(cfg, *args6)
+    again6 = cuda_rotate.reassign(cfg, *args6)
+    f32p6 = cuda_rotate.reassign(cfg32, *args6)
+    ref6 = rotate.reassign(cfg, *args6)
+    Zn, tO, O, E, G = out6
+    # K7's last round reads that G (its moments on Z_orig in dt), R float32
+    rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
+    lay = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G)
+    rs = rotate.RoundState(R=torch.zeros(K, Np, device=dev), E=E.to(dt), O=O.to(dt),
+                           tile_O=tO, kmeans_error=None, entropy=None)
+    spec = rotate.MomentsSpec(Z_orig=Zos, tile_joint=tj, n_joint=nj, tile=tile)
+    out7 = cuda_rotate.rotate_update_round_v2(cfg, Y, rs, Pr_b, sigma, theta, rt, blocks, lay,
+                                              write_r=True, moments=spec, emit_pen=True)
+    # K11 from its tables, float32 and dt
+    vargs = (Y, sigma, out7.pen, out7.blkmap, Zn, codes_pad)
+    R11f = cuda_rotate.materialize_r(cfg, *vargs)
+    R11 = cuda_rotate.materialize_r(cfg, *vargs, out_dtype=dt)
+    again11 = cuda_rotate.materialize_r(cfg, *vargs, out_dtype=dt)
+    ref11 = rotate.materialize_r(cfg, *vargs)
+    W = 0.1 * torch.randn(nj + 1, d, K, generator=g, device=dev)
+    W[nj] = 0.0
+    cargs = (cfg, W, tj, tile, *vargs)
+    k10_takes = cuda_rotate.k10_fits(cfg, d, Np // tile, dev)
+    # the product alone on K10's operands: K11's float32 R is its chain's
+    twin10 = cuda_ridge.tiled_correction_twin(bfo(W), tj, bfo(R11f), Zos.float(), tile)
+    if k10_takes:
+        Zc = cuda_rotate.virtual_correction(*cargs, Zos, G)
+        again10 = cuda_rotate.virtual_correction(*cargs, Zos, G)
+        ref10 = rotate.virtual_correction(*cargs, Zos, G)
+    else:
+        virt = rotate.VirtualR(pen=out7.pen, blkmap=out7.blkmap, Zn_pad=Zn, codes_pad=codes_pad,
+                               Y=Y, Z_orig_pad=Zos, sigma=sigma, G=G)
+        Zc = virtual_tile_correction(cfg, W, tj, tile, virt)
+        again10 = virtual_tile_correction(cfg, W, tj, tile, virt)
+        ref10 = cuda_ridge.tiled_correction(W, tj, R11f, Zos.float().contiguous(), tile)
+    torch.cuda.synchronize()
+    # K6: the product on its own operands; the plain K6 rounds its own Zn
+    G_twin = (bfo(Y.t()) @ bfo(Zn)).t()
+    eg = float((G - G_twin).abs().max())
+    eg_plain = float((G - ref6[4]).abs().max())
+    e_zn = float((Zn - f32p6[0]).abs().max())
+    e_zn_plain = float((Zn - ref6[0]).abs().max())
+    r6 = max(rel_err(a, b) for a, b in zip(out6[1:4], ref6[1:4]))
+    same6 = all(bool(torch.equal(a, b)) for a, b in zip(out6, again6))
+    # K11: K7's R, bit for bit
+    d11 = float((R11f - out7.R).abs().max())
+    d11c = float((R11.float() - R11f.to(dt).float()).abs().max())
+    e11 = float((R11f - ref11).abs().max())
+    same11 = bool(torch.equal(R11, again11))
+    colsum = float(R11[:, :N].float().sum(0).sub(1).abs().max())
+    same10 = bool(torch.equal(Zc, again10))
+    if k10_takes:
+        zc = Zc.float()
+        inside = bool(((zc >= (twin10 - PRODUCT_ATOL).to(dt).float())
+                       & (zc <= (twin10 + PRODUCT_ATOL).to(dt).float())).all())
+        e10 = float((zc - twin10.to(dt).float()).abs().max())
+        e10_plain = float((zc - ref10.float()).abs().max())
+        lim10 = (ref10.float().abs() * eps + PRODUCT_ATOL
+                 + float(W.abs().max()) * (2.0 ** -8 + K * R_ATOL))
+        bad10 = bool(((zc - ref10.float()).abs() > lim10).any())
+    else:
+        e10 = e10_plain = float((Zc - ref10).abs().max())
+        inside, bad10 = e10 == 0.0, False
+    log(f"  {what} ({variant}) N={N} (Np={Np}) d={d} K={K} B_vec={B_vec}, layout tile {tile}: "
+        f"K6 G against the product on its operands {eg:.2e} (atol {PRODUCT_ATOL}), against the "
+        f"plain K6 {eg_plain:.2e} (2^-7), Zn against the fp32-product form {e_zn:.1e} (0.0), "
+        f"plain {e_zn_plain:.2e} (1e-6), sums rel {r6:.2e}, repeat bit-equal {same6}; K11's "
+        f"float32 R against K7's {d11:.1e} (0.0), its {dt} R against that R cast {d11c:.1e} "
+        f"(0.0), plain max|dR| {e11:.2e} (atol {R_ATOL}), repeat bit-equal {same11}, R "
+        f"column sums within {colsum:.2e} of 1; " + (
+            f"K10 Z_corr against the product on its operands rounded to {dt} {e10:.2e} (0 but "
+            f"where a sum sits at a rounding midpoint), the rounding of a value within "
+            f"{PRODUCT_ATOL} of it: {inside}; against the plain K10 {e10_plain:.2e}; repeat "
+            f"bit-equal {same10}" if k10_takes else
+            f"past K10's limits K11 (bf16 products), then K9 on float32, against K9 on K11's "
+            f"R {e10:.1e} (0.0), repeat bit-equal {same10}"))
+    require(eg <= PRODUCT_ATOL and eg_plain <= 2.0 ** -7,
+            f"K6 ({what}) G disagrees: {eg} (product), {eg_plain} (plain)")
+    require(e_zn == 0.0 and e_zn_plain <= 1e-6 and r6 <= SUM_RTOL and same6,
+            f"K6 ({what}): Zn {e_zn}, {e_zn_plain}, sums {r6}, repeat {same6}")
+    require(d11 == 0.0 and d11c == 0.0 and same11,
+            f"K11 ({what}): {d11} against K7's R, {d11c} cast, repeat {same11}")
+    require(e11 <= R_ATOL and colsum <= 1e-2, f"K11 ({what}) disagrees with its plain "
+            f"version: {e11}, column sums {colsum}")
+    require(inside and not bad10 and same10,
+            f"K10 ({what}): product {e10} (inside {inside}), plain {e10_plain}, repeat {same10}")
+    # K10's error in ulps of dt: a sum at a rounding midpoint of dt rounds
+    # one ulp from the twin's rounding
+    rows = {"K6": {"max_abs_err": eg},
+            "K10": {"max_abs_err": e10, "max_ulps": (storage_ulps(torch, Zc, twin10.to(dt))
+                                                     if k10_takes else 0.0)},
+            "K11": {"max_abs_err": e11}}
+    if not timed or not k10_takes:
+        return rows
+    flops = 2.0 * K * d * Np
+    for k, fn, fn32, plain, iters in (
+            ("K6", lambda: cuda_rotate.reassign(cfg, *args6),
+             lambda: cuda_rotate.reassign(cfg32, *args6),
+             lambda: rotate.reassign(cfg, *args6), 10),
+            ("K10", lambda: cuda_rotate.virtual_correction(*cargs, Zos, G),
+             lambda: cuda_rotate.virtual_correction(cfg32, *cargs[1:], Zos, G),
+             lambda: rotate.virtual_correction(*cargs, Zos, G), 10),
+            ("K11", lambda: cuda_rotate.materialize_r(cfg, *vargs, out_dtype=dt),
+             lambda: cuda_rotate.materialize_r(cfg32, *vargs, out_dtype=dt),
+             lambda: rotate.materialize_r(cfg, *vargs, out_dtype=dt), 10)):
+        rows[k]["ms"] = time_ms(torch, f"{k} kernel, {what}", fn, iters=iters)
+        rows[k]["ms_fp32_products"] = time_ms(torch, f"{k} kernel, fp32 products, {dt} storage",
+                                              fn32, iters=iters)
+        rows[k]["plain_ms"] = time_ms(torch, f"{k} plain, {what}", plain, iters=3)
+        rows[k]["library_ms"] = None
+    # the bytes of the storage forms (2-byte Z_raw, Z_orig, Z_corr, R),
+    # the products at the bf16 tensor-core peak, the fp32 bound beside
+    work = {"K6": (2 * d * Np + 4 * d * Np + 4 * ncov * Np + 4 * K * Np, flops),
+            "K10": k10_work(K, d, Np, ncov, layout.n_pure, 2),
+            "K11": (4 * d * Np + 4 * ncov * Np + 2 * K * Np, flops)}
+    for k, (nbytes, fl) in work.items():
+        rows[k]["bound_ms"], rows[k]["bound_by"] = bound(nbytes, fl, BF16_TC_FLOP_PER_S)
+        rows[k]["bound_ms_fp32_products"], _ = bound(nbytes, fl)
     return rows
 
 
@@ -2122,25 +2329,31 @@ BF16_CELL_OBJ_RTOL = 5e-2
 BF16_HELD_ITERS = 5  # iterations of the held pair (early stop off)
 
 
-def run_bf16_path(torch, dev, wrappers, phase, n, B):
-    """run_harmony(..., dtype="bfloat16") on the canonical synthetic cells
-    (n x 50, B batches, seed 7), everything else at its default: rotate,
-    the stats carry, virtual R. Launch counts are set to 0 right before the
-    call and read right after it. Required: K6 and K10 once an iteration,
-    K11 once, K7, no K8 or K9; bf16 storage and R; R's column sums within
+def run_reduced_path(torch, dev, wrappers, phase, n, B, held_f32):
+    """run_harmony(..., dtype=) on the canonical synthetic cells (n x 50, B
+    batches, seed 7), in bfloat16 (phases 'bf16', 'bf16_10m') or float16
+    ('f16'), everything else at its default: rotate, the stats carry,
+    virtual R, and the bf16 product form of K6, K10 and K11 (the resolved
+    'bfloat16'). Launch counts are set to 0 right before the call and read
+    right after it. Required: K6 and K10 once an iteration, K11 once, K7,
+    no K8 or K9; storage and R in the engine dtype; R's column sums within
     1e-2 of 1; finite embeddings; the batch-centroid separation shrinks.
-    At the main shape (phase 'bf16') the run is also held to a float32
-    virtual run: both from the same initial centroids, early stop off,
-    BF16_HELD_ITERS iterations, Z_corr and the objective at BF16_HELD_RTOL
-    (held_to). Returns (launches, objective trace, iterations)."""
+    At the main shape (phases 'bf16', 'f16') the run is also held to a
+    float32 virtual run: both from the same initial centroids, early stop
+    off, BF16_HELD_ITERS iterations, Z_corr and the objective at
+    BF16_HELD_RTOL (held_to), made once and kept in ``held_f32`` ({(n, B):
+    its objective trace and Z_corr on the host}). Returns (launches,
+    objective trace, iterations)."""
     import numpy as np
 
     from harmony_tpu_torch import engine, run_harmony
     from harmony_tpu_torch.config import default_nclust
 
+    name = "float16" if phase == "f16" else "bfloat16"
+    held_phase = phase in ("bf16", "f16")
     Zs, bs = synthetic(torch, n, D_MAIN, B, 7, dev)
     sep0 = separation(torch, Zs.t(), bs, B)
-    Y0 = initial_centroids(torch, Zs, default_nclust(n), 5) if phase == "bf16" else None
+    Y0 = initial_centroids(torch, Zs, default_nclust(n), 5) if held_phase else None
     Zh, meta = Zs.cpu().numpy(), {"batch": bs.cpu().numpy()}
     del Zs
     torch.cuda.synchronize()
@@ -2149,7 +2362,7 @@ def run_bf16_path(torch, dev, wrappers, phase, n, B):
         w.launches = 0
     t0 = time.perf_counter()
     res = run_harmony(Zh, meta, ["batch"], max_iter=MAX_ITER, return_object=True, seed=0,
-                      dtype="bfloat16")
+                      dtype=name)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
@@ -2174,14 +2387,14 @@ def run_bf16_path(torch, dev, wrappers, phase, n, B):
     log(f"  peak device memory {peak:.1f} MiB (torch.cuda.max_memory_allocated over the "
         f"call){beside}")
     PEAKS[phase] = peak
-    bf = torch.bfloat16
-    require((cfg.shuffle_mode, cfg.rotate_route, cfg.dtype, cfg.matmul_precision) ==
-            ("rotate", "carry", "bfloat16", "bfloat16"),
+    bf = getattr(torch, name)
+    require((cfg.shuffle_mode, cfg.rotate_route, cfg.dtype, cfg.matmul_precision,
+             cfg.bf16_products) == ("rotate", "carry", name, "bfloat16", True),
             f"{phase}: resolved {cfg.shuffle_mode}, {cfg.rotate_route}, {cfg.dtype}, "
-            f"{cfg.matmul_precision}")
+            f"{cfg.matmul_precision}, bf16 products {cfg.bf16_products}")
     require(st.virt_pen is not None, f"{phase}: virtual R did not engage")
     require(st.Z_orig.dtype == st.Z_corr.dtype == st.R.dtype == st.Y.dtype == bf,
-            f"{phase}: the state is not stored in bf16")
+            f"{phase}: the state is not stored in {name}")
     require(launches["K6"] == n_it and launches["K10"] == n_it and launches["K11"] == 1,
             f"{phase}: K6 {launches['K6']}, K10 {launches['K10']} launches for {n_it} "
             f"iterations, K11 {launches['K11']}")
@@ -2191,21 +2404,28 @@ def run_bf16_path(torch, dev, wrappers, phase, n, B):
     dev_r = float(np.abs(res.R.astype(np.float64).sum(0) - 1).max())
     sep1 = separation(torch, torch.as_tensor(res.Z_corr, device=dev),
                       torch.as_tensor(meta["batch"], device=dev), B)
-    log(f"  R (bf16) column sums within {dev_r:.2e} of 1; batch-centroid separation "
+    log(f"  R ({name}) column sums within {dev_r:.2e} of 1; batch-centroid separation "
         f"{sep0:.4f} -> {sep1:.4f}")
     require(dev_r <= 1e-2, f"{phase}: R column sums off by {dev_r}")
     require(sep1 < sep0, f"{phase}: batch-centroid separation did not shrink")
     profile_round(torch, res, f"profile_round_{phase}.txt",
                   engine.mstep_layout(cfg, res.design.codes, dev))
-    if phase == "bf16":
+    if held_phase:
         held = {}
-        for dt in ("float32", "bfloat16"):
+        for dt in ("float32", name):
+            if dt == "float32" and (n, B) in held_f32:
+                held[dt] = held_f32[(n, B)]
+                continue
             held[dt] = run_harmony(Zh, meta, ["batch"], max_iter=BF16_HELD_ITERS,
                                    early_stop=False, return_object=True, seed=0, dtype=dt,
                                    shuffle_mode="rotate", virtual_r=True, init_Y=Y0)
             require(held[dt].state.virt_pen is not None, f"{phase}: held {dt} run not virtual")
+        # the host arrays held_to reads, so no device state outlives the phase
+        held_f32[(n, B)] = types.SimpleNamespace(
+            objective_harmony=np.asarray(held["float32"].objective_harmony),
+            Z_corr=np.asarray(held["float32"].Z_corr))
         held_to(torch, f"{phase} against float32 virtual R, the same initial centroids, "
-                f"{BF16_HELD_ITERS} iterations", held["bfloat16"], held["float32"],
+                f"{BF16_HELD_ITERS} iterations", held[name], held["float32"],
                 BF16_HELD_RTOL)
     else:
         # the float32 engine on the same cells, virtual R as the bf16 one,
@@ -2550,7 +2770,7 @@ MESH_INJECT = {
     "rotate_cell": (("K4", "K5"), _NOT_E, "dense"),
     "segment": (("K6", "K7"), ("K1", "K2", "K3", "K4", "K5", "K8", "K9", "K10", "K11", "K12"),
                 "segment"),
-    "virtual_bf16": (BF16_FORMS, ("K1", "K2", "K3", "K4", "K5", "K8", "K9", "K12"), "tiled"),
+    "virtual_bf16": (REDUCED_FORMS, ("K1", "K2", "K3", "K4", "K5", "K8", "K9", "K12"), "tiled"),
 }
 
 
@@ -2698,7 +2918,7 @@ def held_mesh_path(phase, p, lines, ref, sep0):
         f"of 1; launches (summed over ranks) { {k: v for k, v in launches.items() if v} }")
     log(f"  phase seconds (rank 0): "
         + json.dumps({k: round(v, 4) for k, v in first["phase_seconds"].items()}))
-    colsum = 1e-2 if p["dtype"] == "bfloat16" else 1e-4
+    colsum = 1e-2 if p["dtype"] in ("bfloat16", "float16") else 1e-4
     require(first["finite"] and first["shape"] == [p["cells"], D_MAIN],
             f"{phase}: embeddings not finite or of the wrong shape")
     require(rel <= 0.05, f"{phase}: final objective {obj} is not within 5% of {obj1}")
@@ -2735,7 +2955,8 @@ def check_mesh(torch, dev):
        0), K = 100, run_harmony(mesh=) on 2 gloo ranks on the one card
        (through the worker's driver_result for rotate_stats_carry=False):
        mesh_main (rotate), mesh_virtual, mesh_permute, mesh_permute_rounds,
-       mesh_rotate_cell, mesh_virtual_bf16 at 500,000 x 50, B = 10, and
+       mesh_rotate_cell, mesh_virtual_bf16, mesh_virtual_f16 at 500,000 x
+       50, B = 10, and
        mesh_segment at 200,000 x 50, B = 40; each held to one device's run
        on the same cells (held_mesh_path), with seconds an iteration (the
        runs' phase timers, and bench.run_bench on both where it takes the
@@ -2851,6 +3072,69 @@ def check_mesh_bf16_10m(torch, dev):
     return {"mesh_bf16_10m": held_mesh_path("mesh_bf16_10m", p, lines, ref, sep0)}
 
 
+def form_row(k: str, phase: str) -> str:
+    """The kernels line's row of kernel ``k`` on a path: its bf16 or float16
+    engine's form on those engines' paths (phases and mesh paths named so),
+    else its own."""
+    if k in REDUCED_FORMS and "bf16" in phase:
+        return k + "_bf16"
+    if k in REDUCED_FORMS and "f16" in phase:
+        return k + "_f16"
+    return k
+
+
+# the storage check's keys, and the keys they take in the row of a kernel
+# whose engine form is the bf16 product form (K6, K10, K11)
+_FP32_PRODUCT_KEYS = {"ms": "ms_fp32_products", "plain_ms": "plain_ms_fp32_products",
+                      "bound_ms": "bound_ms_fp32_products",
+                      "bound_by": "bound_by_fp32_products",
+                      "max_abs_err": "max_abs_err_fp32_products"}
+
+
+def merge_forms(kernels, sfx, storage_rows, product_rows=None):
+    """Into the kernels line's rows of the reduced-precision forms (``sfx``
+    '_bf16' or '_f16'): K7's row is its storage form's; K6's, K10's and
+    K11's the bf16 product form's (``product_rows``), which the engines'
+    paths launch, with the storage form's fp32-product numbers beside it
+    (_FP32_PRODUCT_KEYS)."""
+    for k, row in storage_rows.items():
+        if k in PRODUCT_FORMS:
+            row = {_FP32_PRODUCT_KEYS.get(key, key): v for key, v in row.items()}
+        kernels[k + sfx].update(row)
+    for k, row in (product_rows or {}).items():
+        kernels[k + sfx].update(row)
+
+
+def check_reduced_forms(torch, dev, kernels):
+    """The f16 phase's kernel checks: the float16 storage forms with fp32
+    products (check_storage_forms) at the main shape (timed), in both op
+    orders, on 160-cell layout tiles and at a ragged, a wide, a one-group
+    and a past-K10 shape; then the bf16 product forms (check_products) for
+    bf16 and float16 storage at the main shape (timed), in both op orders,
+    on 160-cell tiles and at the shapes above and VIRTUAL_WIDE's."""
+    log("the float16 storage forms and the bf16 product forms on the card:")
+    f16, bf = torch.float16, torch.bfloat16
+    storage = check_storage_forms(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, True, f16)
+    check_storage_forms(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, False, f16, "legacy")
+    check_storage_forms(torch, dev, N_TILE160, D_MAIN, K_MAIN, (B_MAIN,), 31, False, f16,
+                        tiles=TILE160)
+    for shape in ((30_011, 13, 7, (3, 4), 18), (20_000, 100, 100, (B_MAIN,), 19),
+                  (20_000, D_MAIN, K_MAIN, (100,), 20), (20_000, D_MAIN, 300, (B_MAIN,), 21)):
+        check_storage_forms(torch, dev, *shape, False, f16)
+    merge_forms(kernels, "_f16", storage)
+    for dt, sfx in ((bf, "_bf16"), (f16, "_f16")):
+        products = check_products(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, True, dt)
+        merge_forms(kernels, sfx, {}, products)
+        check_products(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, False, dt, "legacy")
+        for variant in ("fused_vpu", "legacy"):
+            check_products(torch, dev, N_TILE160, D_MAIN, K_MAIN, (B_MAIN,), 31, False, dt,
+                           variant, tiles=TILE160)
+        for shape in ((30_011, 13, 7, (3, 4), 18), (20_000, 100, 100, (B_MAIN,), 19),
+                      (20_000, D_MAIN, K_MAIN, (100,), 20), (20_000, D_MAIN, 300, (B_MAIN,), 21),
+                      *VIRTUAL_WIDE):
+            check_products(torch, dev, *shape, False, dt)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2911,10 +3195,13 @@ def main(argv=None) -> int:
                 "source": "harmony_tpu_torch/csrc/estep_round.cu",
                 "replaces": "harmony_tpu/ops/pallas_rotate.py:223"},
     }
-    # the bf16 storage forms of K6, K7, K10 and K11 (the bf16 engine's
-    # virtual route): their launches are the bf16 phases'
-    for k in BF16_FORMS:
-        kernels[k + "_bf16"] = {**kernels[k], "name": kernels[k]["name"] + " (bf16 storage)"}
+    # the reduced-precision engines' forms of K6, K7, K10 and K11 (their
+    # virtual route): 2-byte storage, and for K6, K10 and K11 the bf16
+    # product form; their launches are the bf16 and f16 phases' (form_row)
+    for sfx, what in (("_bf16", "bf16"), ("_f16", "float16")):
+        for k in REDUCED_FORMS:
+            form = f"{what} storage" + (", bf16 products" if k in PRODUCT_FORMS else "")
+            kernels[k + sfx] = {**kernels[k], "name": f"{kernels[k]['name']} ({form})"}
     wrappers = {"K1": cuda_estep.block_update_round, "K2": cuda_permute.permute_rounds,
                 "K3": cuda_permute.materialize, "K4": cuda_ridge.moments,
                 "K5": cuda_ridge.correction, "K6": cuda_rotate.reassign,
@@ -2937,8 +3224,9 @@ def main(argv=None) -> int:
              "legacy_virtual": (("K6", "K7", "K10", "K11"), ("K8", "K9", "K12")),
              "segment": (("K6", "K7"), ("K4", "K5", "K8", "K9", "K10", "K11")),
              "segment_permute": (("K1",), ("K2", "K3", "K4", "K5", "K8", "K9")),
-             "bf16": (BF16_FORMS, ("K1", "K2", "K3", "K8", "K9", "K12")),
-             "bf16_10m": (BF16_FORMS, ("K1", "K2", "K3", "K8", "K9", "K12")),
+             "bf16": (REDUCED_FORMS, ("K1", "K2", "K3", "K8", "K9", "K12")),
+             "bf16_10m": (REDUCED_FORMS, ("K1", "K2", "K3", "K8", "K9", "K12")),
+             "f16": (REDUCED_FORMS, ("K1", "K2", "K3", "K8", "K9", "K12")),
              # the mesh paths, launches summed over the ranks
              "mesh_main": (("K6", "K7", "K9"),
                            ("K1", "K2", "K3", "K4", "K5", "K8", "K10", "K11", "K12")),
@@ -2949,6 +3237,7 @@ def main(argv=None) -> int:
              "mesh_permute_rounds": (("K4", "K5"), _NOT_E),
              "mesh_rotate_cell": (("K4", "K5"), _NOT_E),
              "mesh_virtual_bf16": MESH_INJECT["virtual_bf16"][:2],
+             "mesh_virtual_f16": MESH_INJECT["virtual_bf16"][:2],
              "mesh_segment": MESH_INJECT["segment"][:2],
              "mesh_bf16_10m": MESH_INJECT["virtual_bf16"][:2]}
     t_start = time.perf_counter()
@@ -2974,10 +3263,14 @@ def main(argv=None) -> int:
     logs = _build.build_logs()
     with open(os.path.join(OUT_DIR, "ptxas.log"), "w") as fh:
         fh.write("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+    # per library: its kernels' most registers and the spills ptxas reports
+    # (every line in ptxas.log)
     for k, v in logs.items():
-        for line in v.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {k}: {line.strip()}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", v)]
+        spills = [ln.strip() for ln in v.splitlines()
+                  if "spill" in ln and " 0 bytes spill stores" not in ln]
+        log(f"  ptxas {k}: {len(regs)} kernels, at most {max(regs, default=0)} registers; "
+            f"{len(spills)} with spills" + (f", e.g. {spills[0]}" if spills else ""))
 
     # ---- 3. kernels against their plain versions ------------------------
     if "kernels" in phases:
@@ -3071,17 +3364,19 @@ def main(argv=None) -> int:
                       (20_000, D_MAIN, K_MAIN, (100,), 20), (20_000, D_MAIN, 300, (B_MAIN,), 21),
                       *VIRTUAL_WIDE):
             check_virtual(torch, dev, *shape, False, "legacy")
-        # the bf16 forms: at the main shape (timed) in both op orders, and
-        # at the shapes the float32 forms are checked at above
-        for k, row in check_bf16(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, True).items():
-            kernels[k + "_bf16"].update(row)
-        check_bf16(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, False, "legacy")
+        # the bf16 storage forms (fp32 products): at the main shape (timed)
+        # in both op orders, and at the shapes the float32 forms are checked
+        # at above
+        bf = torch.bfloat16
+        merge_forms(kernels, "_bf16", check_storage_forms(torch, dev, N_MAIN, D_MAIN, K_MAIN,
+                                                          (B_MAIN,), 17, True, bf))
+        check_storage_forms(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 17, False, bf, "legacy")
         for shape in ((30_011, 13, 7, (3, 4), 18), (20_000, 100, 100, (B_MAIN,), 19),
                       (200_000, D_MAIN, K_MAIN, (B_SEGMENT,), 8),
                       (20_000, D_MAIN, K_MAIN, (100,), 20), (20_000, D_MAIN, 300, (B_MAIN,), 21),
                       *VIRTUAL_WIDE):
             for variant in ("fused_vpu", "legacy"):
-                check_bf16(torch, dev, *shape, False, variant)
+                check_storage_forms(torch, dev, *shape, False, bf, variant)
         k8, k9 = check_tiled(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 256, 13, True)
         kernels["K8"].update(k8)
         kernels["K9"].update(k9)
@@ -3124,19 +3419,24 @@ def main(argv=None) -> int:
         runs += [(p, lambda p=p, n=n, sch=sch: (run_segment_path(torch, dev, wrappers, p, n,
                                                                  sch), None, None))
                  for p, n, sch in SEGMENT_PATHS]
+    held_f32 = {}  # the float32 run the bf16 and f16 paths are held to
     if "bf16" in phases:
-        runs.append(("bf16", lambda: run_bf16_path(torch, dev, wrappers, "bf16", N_MAIN,
-                                                   B_MAIN)))
+        runs.append(("bf16", lambda: run_reduced_path(torch, dev, wrappers, "bf16", N_MAIN,
+                                                      B_MAIN, held_f32)))
+    if "f16" in phases:
+        runs.append(("f16", lambda: (check_reduced_forms(torch, dev, kernels),
+                                     run_reduced_path(torch, dev, wrappers, "f16", N_MAIN,
+                                                      B_MAIN, held_f32))[1]))
     if "bf16_10m" in phases:
-        runs.append(("bf16_10m", lambda: run_bf16_path(torch, dev, wrappers, "bf16_10m", N_10M,
-                                                       B_10M)))
+        runs.append(("bf16_10m", lambda: run_reduced_path(torch, dev, wrappers, "bf16_10m", N_10M,
+                                                          B_10M, held_f32)))
     for phase, run in runs:
         launches, trace, n_it = run()
         if trace is not None:
             traces[phase] = trace
         need, never = paths[phase]
         for k in need:
-            row = kernels[k + "_bf16" if phase.startswith("bf16") else k]
+            row = kernels[form_row(k, phase)]
             by_path = row.setdefault("launches_by_path", {})
             by_path[phase] = launches[k]
             row["launches"] = sum(by_path.values())
@@ -3192,7 +3492,7 @@ def main(argv=None) -> int:
     for phase, launches in mesh_launches.items():
         need, never = paths[phase]
         for k in need:
-            row = kernels[k + "_bf16" if "bf16" in phase else k]
+            row = kernels[form_row(k, phase)]
             by_path = row.setdefault("launches_by_path", {})
             by_path[phase] = launches[k]
             row["launches"] = sum(by_path.values())

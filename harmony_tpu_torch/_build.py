@@ -27,7 +27,10 @@ from typing import Dict, Iterable, List, Optional, Sequence
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("estep_round", "ridge", "rotate", "rotate_tiles", "tiled", "permute_phase")
+# rotate.cu's instances are split over six translation units (its
+# ROTATE_PART), each including it, so that they compile side by side
+SOURCES = ("estep_round", "ridge", "rotate", "rotate_tiles", "rotate_k10", "rotate_mma",
+           "rotate_mma_tiles", "rotate_k11_mma", "tiled", "permute_phase")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -3,10 +3,10 @@
 Counterpart of ``harmony_tpu/api.py`` (``RunHarmony.default``,
 R/ui.R:91-309), with the same signature plus ``device``. ``device=None``
 means the card; without one the call raises instead of carrying on on the
-CPU. Arguments that select a path not ported yet (the float16 engine)
-raise ``NotImplementedError`` naming the ROADMAP item; nothing is
-rerouted. ``mesh`` runs the cells sharded over ``torch.distributed`` ranks
-(:mod:`.sharding`), one process a device, on every route and in bf16 too.
+CPU. Every argument of the JAX package's ``run_harmony`` selects a path
+that runs here; nothing is rerouted. ``mesh`` runs the cells sharded over
+``torch.distributed`` ranks (:mod:`.sharding`), one process a device, on
+every route and in bf16 and float16 too.
 ``shuffle_mode='auto'`` at 100k cells and up runs the rotate schedule;
 ``shuffle_mode='permute'`` at 200k cells and up the fused permute phase.
 The M-step takes the layout the JAX package takes
@@ -33,7 +33,7 @@ from .config import (
 )
 from . import sharding
 from .driver import run as _run
-from .engine import check_mesh_route, mstep_layout
+from .engine import mstep_layout
 from .preprocess import (
     DesignMatrix,
     build_design,
@@ -339,7 +339,8 @@ def run_harmony(
     seeds the ``torch.Generator`` behind the k-means draws and the
     per-round permutations, and ``init_Y`` (d x K or K x d) injects the
     initial centroids for parity runs. ``estep_impl``/``mstep_impl``: 'kernel' (the CUDA kernels),
-    'torch' (plain PyTorch) or 'auto' (kernels for float32 and bfloat16). ``device``:
+    'torch' (plain PyTorch) or 'auto' (kernels for float32, bfloat16 and
+    float16). ``device``:
     None for the card, or a torch device such as ``"cpu"``.
 
     ``shuffle_mode``: 'permute' is the reference-exact schedule; 'rotate'
@@ -366,19 +367,25 @@ def run_harmony(
     caller's cell order.
 
     ``dtype``: 'float32' (the default), 'float64' (plain PyTorch), or
-    'bfloat16', the reduced-precision engine: Z_orig, Z_corr, Y, R, O, E,
-    sigma, theta, lambda and Pr_b are stored in bf16, as the JAX package
-    stores them, and every product and sum runs in fp32 on operands upcast
-    at the boundary, with results cast back where the JAX engine casts
-    them; the arrays of a bf16 result come back as float32 numpy arrays
-    holding the bf16 values. 'float16' raises ``NotImplementedError``.
+    'bfloat16' or 'float16', the reduced-precision engines: Z_orig, Z_corr,
+    Y, R, O, E, sigma, theta, lambda, Pr_b and the batch sizes are stored
+    in that dtype, as the JAX package stores them, and every sum runs in
+    fp32 on operands upcast at the boundary, with results cast back where
+    the JAX engine casts them; the arrays of a bf16 result come back as
+    float32 numpy arrays holding the bf16 values, those of a float16
+    result as float16 arrays. A float16 engine refuses a batch of more
+    than 65,504 cells (``config.check_float16_batches``: its size, O and
+    E would overflow float16).
     ``matmul_precision``: 'auto' resolves by dtype as in the JAX package
-    ('bfloat16' for a bf16 engine, a permission to use bf16 passes; the
-    port's products stay fp32, which it allows), or 'bfloat16',
-    'float32', 'highest'.
+    ('bfloat16' for the reduced-precision engines, under which the rotate
+    kernels' products g = Y^T Zn and the correction's W R take one bf16
+    pass, ``HarmonyConfig.bf16_products``; every other product stays fp32,
+    which it allows), or 'bfloat16', 'float32', 'highest' ('float32' and
+    'highest' keep every product fp32).
 
     ``virtual_r``: None resolves by dtype as in the JAX package (off for
-    float32, on for bfloat16). True, on a rotate run with the default clustering budget and
+    float32, on for bfloat16 and float16). True, on a rotate run with the
+    default clustering budget and
     a batch-tiled layout (the kernels), writes no (K, N) R during the
     rounds: the last round of each phase fuses the M-step's moments and
     stores its penalty tables, the correction recomputes R from them (K10)
@@ -409,8 +416,8 @@ def run_harmony(
     mesh, ``sharding.pad_for_mesh``), runs the kernels on them and
     all-reduces the statistics, and the result's cell arrays gather every
     rank's cells in the caller's order (collectives: read them on every
-    rank). Every route runs on a mesh, in float32 and in bf16
-    (``dtype='bfloat16'``): the stats-carrying rotate route (R written or
+    rank). Every route runs on a mesh, in float32, bf16 and float16
+    (``dtype='bfloat16'``, ``'float16'``): the stats-carrying rotate route (R written or
     virtual), the fused permute phase, the per-round permute schedule and
     the cell-granular rotate round, each with the batch-tiled, segmented or
     dense M-step (``engine``'s module docstring); the rounds of the last
@@ -500,8 +507,6 @@ def run_harmony(
             _, design, ingest_inv = apply_ingest_order(design, perm)
             stream.order(perm)
         layout = mstep_layout(cfg, design.codes, dev, mesh)
-        if mesh is not None:
-            check_mesh_route(cfg)
         with timers.scope("ingest_stream"):
             stream.join()
         with timers.scope("ingest_order"):

@@ -151,7 +151,7 @@ def run_bench(
     from . import sharding
     from .api import apply_ingest_order, ingest_perm, resolve_mesh
     from .config import finalize_engine_config, harmony_options
-    from .engine import check_mesh_route, harmony_round, init_cluster, mstep_layout
+    from .engine import harmony_round, init_cluster, mstep_layout
     from .preprocess import build_design, expand_hyperparams, orient_embedding, resolve_config
     from .runtime import AsyncIngest, resolve_device, synchronize
     from .state import init_state
@@ -208,8 +208,6 @@ def run_bench(
     perm = ingest_perm(cfg, design, seed)[0] if tiled else None
     _, design, _ = apply_ingest_order(design, perm)
     layout = mstep_layout(cfg, design.codes, dev, mesh)
-    if mesh is not None:
-        check_mesh_route(cfg)
     hp = expand_hyperparams(design, cfg.K, None, 0.1, 1.0, options.tau)
     note("building the state on the device")
     Zt = AsyncIngest(Zt, cfg, dev, mesh=mesh).result(perm)

@@ -12,8 +12,9 @@ and resumes alone.
 The file is the JAX package's: the same fields (``_MINIMAL_FIELDS``,
 ``_FULL_ONLY_FIELDS``), a JSON config header with the JAX
 ``HarmonyConfig``'s field set, an optional ``__meta__`` provenance dict,
-and bf16 fields as their 16-bit patterns (``'V2'``, what ``np.savez``
-writes for a bf16 array), so each package reads the other's files. One
+bf16 fields as their 16-bit patterns (``'V2'``, what ``np.savez`` writes
+for a bf16 array) and float16 fields as numpy's float16, so each package
+reads the other's files. One
 array is added, ``state.GENERATOR_FIELD``: the torch generator's state, so
 a resume continues the port's own draws. A JAX-written file has none (its
 key advances with every draw); the generator is then seeded from the key.
@@ -107,7 +108,8 @@ def config_from_header(d: dict, mesh=None) -> HarmonyConfig:
 
 
 def _field(t: torch.Tensor) -> np.ndarray:
-    """A host copy; bf16 as its 16-bit patterns viewed as ``'V2'``."""
+    """A host copy; bf16 as its 16-bit patterns viewed as ``'V2'``,
+    float16 as numpy's float16."""
     t = t.detach()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().view("V2")
@@ -286,7 +288,7 @@ def save_checkpoint_sharded(path: str, cfg: HarmonyConfig, state: HarmonyState,
     state (``state.GENERATOR_FIELD``) and the config (JSON bytes in a uint8
     tensor, with the mesh size beside it) go in once. Fields that are None
     are not written and come back as None (harmony_tpu/checkpoint.py:
-    211-216); bf16 fields stay bf16. A
+    211-216); bf16 and float16 fields keep their dtype. A
     virtual-R state is saved with R materialised (``engine.materialize_r``,
     K11), as the npz format's full mode saves it, and keeps its context.
     The phase's Gram table and the fused moment table, which the JAX state

@@ -124,10 +124,6 @@ def _resume_run(args, Z, meta, mesh=None) -> np.ndarray:
         )
     timers = PhaseTimers(dev)
     layout = mstep_layout(cfg, design.codes, dev, mesh)
-    if mesh is not None:
-        from .engine import check_mesh_route
-
-        check_mesh_route(cfg)
     state = harmonize(cfg, state, max_iter=args.max_iter, verbose=args.verbose, timers=timers,
                       layout=layout, checkpoint_path=args.checkpoint,
                       checkpoint_meta=ckpt_meta, mesh=mesh)
@@ -217,15 +213,16 @@ def main(argv=None) -> int:
                     help="torch.distributed backend of --mesh (default nccl, one rank a "
                     "card; gloo for several ranks on one card or on the CPU)")
     pr.add_argument("--dtype", default=None,
-                    help="engine dtype: float32 (default) or bfloat16")
+                    choices=["float32", "float64", "bfloat16", "float16"],
+                    help="engine dtype: float32 (default), float64, bfloat16 or float16")
     pr.add_argument("--estep-impl", choices=["auto", "kernel", "torch"], default="auto",
                     dest="estep_impl",
                     help="'kernel' = the CUDA kernels, 'torch' = plain PyTorch, "
-                    "'auto' (default) = the kernels for float32 and bfloat16")
+                    "'auto' (default) = the kernels for float32, bfloat16 and float16")
     pr.add_argument(
         "--virtual-r", choices=["auto", "on", "off"], default="auto", dest="virtual_r",
         help="never write the (K, N) assignment matrix during rounds ('auto' "
-        "resolves by dtype: on for bfloat16, off for float32)",
+        "resolves by dtype: on for bfloat16 and float16, off for float32)",
     )
     pr.add_argument(
         "--checkpoint", default=None, metavar="PATH",
@@ -249,7 +246,9 @@ def main(argv=None) -> int:
     pb.add_argument("--shuffle-mode", choices=["permute", "rotate"], default="rotate",
                     help="schedule to benchmark (default: rotate, the large-run "
                     "schedule; permute = reference-exact)")
-    pb.add_argument("--dtype", default=None, help="engine dtype (e.g. bfloat16)")
+    pb.add_argument("--dtype", default=None,
+                    choices=["float32", "float64", "bfloat16", "float16"],
+                    help="engine dtype (e.g. bfloat16 or float16)")
     pb.add_argument("--mesh", default=None, metavar="auto|N",
                     help="shard the cells over the ranks torchrun started: 'auto', or "
                     "the mesh size N (the number of ranks)")

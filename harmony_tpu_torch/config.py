@@ -9,12 +9,15 @@ Only the knobs that mean something on a GPU are kept. The TPU-only
 resolutions of the JAX package (sorted permute blocks, the permute
 phase's sub-tile padding choice) have no counterpart here. The matmul
 precision resolves by dtype as in the JAX package
-(:func:`resolve_matmul_precision`); every product of the port runs in IEEE
-fp32 on operands upcast from the storage dtype, which each resolved
-precision allows ('bfloat16' permits bf16 passes, 'float32' and 'highest'
-require fp32). The rotate schedule keeps the JAX package's sub-tile and
-padding formula, because it fixes the block partition (see
-:func:`finalize_engine_config`).
+(:func:`resolve_matmul_precision`). A reduced-precision engine (bfloat16,
+float16) under the resolved 'bfloat16' takes one bf16 pass for the
+products of the rotate schedule's kernels that the JAX package traces
+under it (:attr:`HarmonyConfig.bf16_products`: K6's and K11's g = Y^T Zn,
+K10's W R); every other product runs in IEEE fp32 on operands upcast from
+the storage dtype, which each resolved precision allows ('bfloat16'
+permits bf16 passes, 'float32' and 'highest' require fp32). The rotate
+schedule keeps the JAX package's sub-tile and padding formula, because it
+fixes the block partition (see :func:`finalize_engine_config`).
 """
 
 from __future__ import annotations
@@ -227,6 +230,21 @@ class HarmonyConfig:
         return "two_phase" if self.n_shards == 1 else "cell"
 
     @property
+    def bf16_products(self) -> bool:
+        """Do the rotate kernels take the bf16 product form: K6's and K11's
+        g = Y^T Zn and K10's W R on operands rounded to bf16 (round to
+        nearest even), summed in fp32? The JAX package traces these
+        products under ``jax.default_matmul_precision('bfloat16')``
+        (harmony_tpu/engine.py:783-798), one bf16 pass on the TPU. True
+        exactly for a bfloat16 or float16 engine under the resolved
+        precision 'bfloat16'; a float32 engine keeps fp32 products under
+        every precision, which the permission allows. An unresolved 'auto'
+        resolves by dtype here, as the JAX engine resolves it when it
+        traces (harmony_tpu/engine.py:792)."""
+        return (self.dtype in ("bfloat16", "float16")
+                and resolve_matmul_precision(self.dtype, self.matmul_precision) == "bfloat16")
+
+    @property
     def tiled_route(self) -> bool:
         """Does the run take the routes on which the JAX package runs its
         Pallas E-step (the rotate schedule's tile routes, the fused permute
@@ -315,8 +333,9 @@ def resolve_matmul_precision(dtype: str, matmul_precision: str = "auto") -> str:
     package does (harmony_tpu/config.py:341-360): 'bfloat16' for engines
     of fewer than 4 bytes, 'highest' for float64, 'float32' otherwise.
     'bfloat16' is a permission to run products on bf16 operands where the
-    platform has such passes; the port's kernels and plain versions run
-    them in fp32 on upcast operands, which it allows."""
+    platform has such passes: a reduced-precision engine takes it in the
+    rotate kernels' products (:attr:`HarmonyConfig.bf16_products`) and
+    runs the rest in fp32 on upcast operands, which it allows."""
     if matmul_precision != "auto":
         return matmul_precision
     dt = getattr(torch, dtype_name(dtype))
@@ -339,16 +358,31 @@ _MSTEP_MODES = ("auto", "tiled", "dense", "segment")
 _VARIANTS = ("fused_vpu", "fused_mxu", "legacy")
 
 
-# The ROADMAP item of the float16 engine, the one reduced-precision
-# engine not ported (the bf16 engine is).
-FLOAT16_ITEM = "ROADMAP A9, float16 engines"
 _PRECISIONS = ("auto", "bfloat16", "float32", "highest")
+# The largest finite float16: a float16 engine stores each batch's size,
+# and O and E (each at most a batch's size), in float16
+FLOAT16_MAX = 65504
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to harmony_tpu_torch yet ({item})"
-    )
+def check_float16_batches(dtype, batch_sizes) -> None:
+    """Refuse a float16 engine with a batch of more than 65,504 cells, the
+    largest float16. The state stores the batch sizes, O and E in the
+    engine dtype (harmony_tpu/state.py:166); a larger batch's size is
+    rounded, and from 65,520 cells it is inf: its avg_R = O / batch_sizes
+    (harmony_tpu/ops/ridge.py:58) is 0, the M-step's mask drops it and the
+    batch is never corrected, with nothing to say so. The JAX package runs
+    on silently; the port raises instead."""
+    if dtype_name(dtype) != "float16":
+        return
+    big = np.flatnonzero(np.asarray(batch_sizes) > FLOAT16_MAX)
+    if big.size:
+        raise HarmonyConfigError(
+            f"dtype='float16' stores each batch's size and its O and E in float16, whose "
+            f"largest value is {FLOAT16_MAX}; batch row(s) {big.tolist()} hold "
+            f"{np.asarray(batch_sizes)[big].astype(np.int64).tolist()} cells, past it (from "
+            "65,520 cells the size is inf and the batch is never corrected). Use "
+            "dtype='bfloat16' or 'float32', or split the batches"
+        )
 
 
 def _rotate_geometry(cfg: HarmonyConfig) -> HarmonyConfig:
@@ -381,23 +415,27 @@ def finalize_engine_config(cfg: HarmonyConfig, mesh=None) -> HarmonyConfig:
     cell shards of ``mesh`` (a ``sharding.CellMesh``, or anything with a
     ``size``), which sets ``n_shards``.
 
-    - ``dtype='bfloat16'`` is the reduced-precision engine: its state is
-      stored in bf16 and every product and sum runs in fp32 on upcast
-      operands, cast back where the JAX engine casts. ``float16`` raises
-      ``NotImplementedError`` (ROADMAP A9, float16 engines).
+    - ``dtype='bfloat16'`` and ``'float16'`` are the reduced-precision
+      engines: the state is stored in the engine dtype; the rotate
+      kernels' products take one bf16 pass under the resolved 'bfloat16'
+      (:attr:`HarmonyConfig.bf16_products`), every other product and sum
+      runs in fp32 on upcast operands, cast back where the JAX engine
+      casts. A float16 engine with a batch of more than 65,504 cells is
+      refused where the batch sizes are known
+      (:func:`check_float16_batches`).
     - ``matmul_precision='auto'`` resolves by dtype
       (:func:`resolve_matmul_precision`, harmony_tpu/config.py:483-486);
       values other than those in ``_PRECISIONS`` raise
       ``HarmonyConfigError``.
     - ``virtual_r=None`` resolves by dtype, as in the JAX package
-      (harmony_tpu/config.py:492-504): on for bfloat16, off for float32
-      and float64; True selects virtual R where ``engine._virtual_gate``
+      (harmony_tpu/config.py:492-504): on for bfloat16 and float16, off
+      for float32 and float64; True selects virtual R where ``engine._virtual_gate``
       admits it and is ignored elsewhere, as the JAX package ignores it.
     - ``estep_impl``/``mstep_impl='auto'`` pick the hand-written kernels for
-      float32 and bfloat16 engines (K6, K7, K10 and K11 read and write bf16
-      storage on the virtual route; the other kernels run on float32
-      copies made at their wrappers) and the plain PyTorch path for
-      float64; 'kernel' on CPU tensors runs the kernels' plain twins.
+      float32, bfloat16 and float16 engines (K6, K7, K10 and K11 read and
+      write the 2-byte storage on the virtual route; the other kernels run
+      on float32 copies made at their wrappers) and the plain PyTorch path
+      for float64; 'kernel' on CPU tensors runs the kernels' plain twins.
     - ``shuffle_mode='rotate'`` runs the round :attr:`HarmonyConfig.rotate_route`
       names. The tile routes ('carry', 'two_phase') get the JAX package's
       tile geometry, whether or not the rounds carry stats
@@ -437,15 +475,13 @@ def finalize_engine_config(cfg: HarmonyConfig, mesh=None) -> HarmonyConfig:
     if mesh is not None:
         cfg = dataclasses.replace(cfg, n_shards=int(mesh.size))
     reduced = getattr(torch, cfg.dtype).itemsize < 4
-    if reduced and cfg.dtype != "bfloat16":
-        raise _not_ported(f"dtype={cfg.dtype!r}", FLOAT16_ITEM)
     cfg = dataclasses.replace(
         cfg, matmul_precision=resolve_matmul_precision(cfg.dtype, cfg.matmul_precision))
     if cfg.virtual_r is None:
         cfg = dataclasses.replace(cfg, virtual_r=reduced)
     if cfg.shuffle_mode == "rotate" and cfg.rotate_route != "cell":
         cfg = _rotate_geometry(cfg)
-    impl = "kernel" if cfg.dtype in ("float32", "bfloat16") else "torch"
+    impl = "kernel" if cfg.dtype in ("float32", "bfloat16", "float16") else "torch"
     if cfg.estep_impl == "auto":
         cfg = dataclasses.replace(cfg, estep_impl=impl)
     if cfg.mstep_impl == "auto":

@@ -147,19 +147,28 @@
 // where the float form moves 16.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <type_traits>
 
-// ROTATE_TILE_FORMS (set by rotate_tiles.cu, which includes this file): the
-// translation unit holds only the instances for layout tiles that are not
-// whole 64-cell pieces (kWhole = false: K7's split moments and K10) and
-// only the two entry points that launch them, k7_assign and
-// k10_virtual_correction; without it, everything else. Two libraries, so
-// nvcc compiles the two sets of instances side by side.
-#ifndef ROTATE_TILE_FORMS
-#define ROTATE_TILE_FORMS 0
+// ROTATE_PART (set by the file that includes this one): the instances and
+// C entry points of this translation unit. Each part is a library of its
+// own, so nvcc compiles them side by side (cuda_rotate._lib_for and
+// _k10_lib mirror the table):
+//   0 rotate.cu            K6 (every form), K7 on whole 64-cell pieces and
+//                          its commit, K11 with fp32 products;
+//   1 rotate_tiles.cu      K7's moments and K10 with fp32 products on layout
+//                          tiles that are not whole 64-cell pieces;
+//   2 rotate_k10.cu        K10 with fp32 products on whole pieces;
+//   3 rotate_mma.cu        K10 in the bf16 product form on whole pieces;
+//   4 rotate_mma_tiles.cu  K10 in the bf16 product form on the other tiles;
+//   5 rotate_k11_mma.cu    K11 in the bf16 product form.
+// Every part holds each storage type (float, bf16, f16), but K10's product
+// forms only the 2-byte ones: a float32 engine takes no bf16 product.
+#ifndef ROTATE_PART
+#define ROTATE_PART 0
 #endif
 
 namespace {
@@ -175,10 +184,12 @@ constexpr int kVThreads = 512;          // K10: one CTA a SM
 constexpr int kVCells = 64;             // K10: cells a step
 constexpr int kVLP = kVCells + 4;       // K10's (K x 64) R table: a row is 17 float4s
 
-// Storage-type conversions: a bf16 value is the high 16 bits of its float,
-// so the loads are exact; a store rounds to nearest even.
+// Storage-type conversions: a bf16 value is the high 16 bits of its float
+// and every float16 value is a float, so the loads are exact; a store
+// rounds to nearest even.
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -188,6 +199,14 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// four float16 values, 8-byte aligned
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
@@ -200,12 +219,38 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   const unsigned e = __bfloat16_as_ushort(__float2bfloat16_rn(v.w));
   *reinterpret_cast<uint2*>(p) = make_uint2(a | (b << 16), c | (e << 16));
 }
+__device__ __forceinline__ void store4(__half* p, float4 v) {
+  const __half2 a = __floats2half2_rn(v.x, v.y), b = __floats2half2_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&a), *reinterpret_cast<const unsigned*>(&b));
+}
+
+// Two neighbouring cells' values (8-byte aligned as float, 4 as 2-byte).
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
+__device__ __forceinline__ void store2(__half* p, float2 v) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(v.x, v.y);
+}
 
 // The values of cells c..c+3 of a step whose cells [lo, hi) are to be
 // written: one 16-byte (bf16: 8-byte) store where all four are, else one
 // store a cell.
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store1(__half* p, float v) { *p = __float2half_rn(v); }
 template <bool kWhole, typename TZ>
 __device__ __forceinline__ void store4_cells(TZ* p, float4 v, int c, int lo, int hi) {
   if (kWhole || (c >= lo && c + 4 <= hi)) {
@@ -216,6 +261,16 @@ __device__ __forceinline__ void store4_cells(TZ* p, float4 v, int c, int lo, int
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     if (c + i >= lo && c + i < hi) store1(p + i, vv[i]);
+}
+
+template <bool kWhole, typename TZ>
+__device__ __forceinline__ void store2_cells(TZ* p, float2 v, int c, int lo, int hi) {
+  if (kWhole || (c >= lo && c + 2 <= hi)) {
+    store2(p, v);
+    return;
+  }
+  if (c >= lo && c < hi) store1(p, v.x);
+  if (c + 1 >= lo && c + 1 < hi) store1(p + 1, v.y);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -276,6 +331,77 @@ __device__ __forceinline__ void tile_gram(const float* yp, int ys, const float* 
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(yv[j], zv[i], acc[i][j]);
+  }
+}
+
+// ---- The bf16 product form (ROADMAP B.1) -----------------------------------
+// The JAX package traces a reduced-precision engine's phases under
+// jax.default_matmul_precision('bfloat16') (harmony_tpu/engine.py:783-798),
+// so on the TPU g = Y^T Zn (K6, K11) and the correction W R (K10) take one
+// bf16 pass. The product forms round both operands to bf16 (to nearest
+// even) and multiply them on the tensor cores (mma.sync m16n8k16, bf16 in,
+// fp32 accumulated from 0 over the depth in 16-wide steps). The product of
+// two bf16 values is exact in fp32, so a product form and its plain twin
+// (the rounded operands, an fp32 product) differ only in the order of the
+// sums; the fp32-product forms are the instances without kMma, untouched.
+
+// Two floats as a bf16 pair, each rounded to nearest even, lo in the low
+// half (the lower index of an mma fragment's pair).
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// c += a b of one m16n8k16 tile: a (16 x 16, row-major) as four bf16 pairs,
+// b (16 x 8, column-major) as two, c (16 x 8) in fp32. Thread (g, t) = (lane
+// / 4, lane % 4) holds a's rows g, g + 8 at columns 2t, 2t + 1 (+ 8), b's
+// rows 2t, 2t + 1 (+ 8) at column g, c's rows g, g + 8 at columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// g = Y^T zn of one 64-cell piece in the bf16 product form, the routine K6
+// and K11 share, so K11's g keeps K6's G bits. Zp: the piece's Zn in bf16,
+// (64 x S) a cell a row; Yb: Y^T in bf16, (K8 x S) a cluster a row, zero
+// past K; both zero past d up to d16 (d rounded up to 16). S = d16 + 8: a
+// row is 4 mod 8 words, so a fragment's 8 rows x 4 words meet 32 banks.
+// Warp w takes the 8-cluster tiles w, w + 8, ... against the piece's four
+// 16-cell rows and hands each of the 64 x K8 values to put(cell, cluster, g).
+template <typename Put>
+__device__ __forceinline__ void piece_gram_bf16(const __nv_bfloat16* Zp,
+                                                const __nv_bfloat16* Yb, int S, int d16,
+                                                int K8, Put put) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, gr = lane >> 2, tq = lane & 3;
+  const int S2 = S / 2;  // 32-bit words a row
+  const unsigned* Z32 = reinterpret_cast<const unsigned*>(Zp);
+  const unsigned* Y32 = reinterpret_cast<const unsigned*>(Yb);
+  for (int nt = w; nt < K8 / 8; nt += kWarps) {
+    float c[4][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) c[m][0] = c[m][1] = c[m][2] = c[m][3] = 0.f;
+    const unsigned* yr = Y32 + (8 * nt + gr) * S2 + tq;
+    for (int k2 = 0; k2 < d16 / 2; k2 += 8) {
+      const unsigned b[2] = {yr[k2], yr[k2 + 4]};
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const unsigned* zr = Z32 + (16 * m + gr) * S2 + k2 + tq;
+        const unsigned a[4] = {zr[0], zr[8 * S2], zr[4], zr[8 * S2 + 4]};
+        mma_bf16(c[m], a, b);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int t = 16 * m + gr, k = 8 * nt + 2 * tq;
+      put(t, k, c[m][0]);
+      put(t, k + 1, c[m][1]);
+      put(t + 8, k, c[m][2]);
+      put(t + 8, k + 1, c[m][3]);
+    }
   }
 }
 
@@ -818,11 +944,15 @@ __global__ void __launch_bounds__(kThreads) rot_commit_kernel(
 // walks split h of the piece's cells (nh splits), a run of one batch row
 // summed in a register (four cells at once where they share it), and the
 // splits are added in order into the piece's partials row. CTA 0 zeroes
-// the reduce's arrival counts.
-template <typename TZ>
+// the reduce's arrival counts. kMma: the bf16 product form, g by
+// piece_gram_bf16 from Y^T in bf16 (Ybg, staged once) and the piece's Zn
+// rounded to bf16 as it is normalised, into the (K8 x 64) table, from
+// which each thread takes its register tile for the same epilogue.
+template <typename TZ, bool kMma>
 __global__ void __launch_bounds__(kThreads, 2) reassign_assign_kernel(
-    const float* __restrict__ Yt,     // (K, d)
-    const TZ* __restrict__ Z,         // (d, L) raw corrected embedding, float or bf16
+    const float* __restrict__ Yt,     // (K, d) (the fp32-product form)
+    const __nv_bfloat16* __restrict__ Ybg,  // (K8, S) Y^T in bf16, zero past K, d (kMma)
+    const TZ* __restrict__ Z,         // (d, L) raw corrected embedding, float, bf16 or f16
     const int* __restrict__ codes,    // (ncov, L), pads < 0
     const int* __restrict__ offsets,  // (ncov,)
     const float* __restrict__ sigma,  // (K,)
@@ -830,12 +960,16 @@ __global__ void __launch_bounds__(kThreads, 2) reassign_assign_kernel(
     float* __restrict__ G,            // (L, K) out, g = Y^T Zn a cell a row
     float* __restrict__ part,         // (L/64, K*B) out
     int* __restrict__ count,          // (n_chunk + 1,) the reduce's counts, zeroed
-    long long L, int K, int d, int B, int ncov, int K8, int nh, int n_chunk) {
+    long long L, int K, int d, int B, int ncov, int K8, int nh, int n_chunk, int S, int d16) {
   extern __shared__ __align__(16) float smem[];
   const int nkg = K8 / 8;
-  float* Ys = smem;                 // d*K8
-  float* Zb = Ys + d * K8;          // 2*d*kCT: the pieces' Z (float: normalised in place;
-                                    // bf16: two staged pieces, then one float piece)
+  float* Ys = smem;                 // d*K8; kMma: Y^T in bf16 (K8*S), then the piece's
+                                    // bf16 Zn (64*S)
+  __nv_bfloat16* Yb = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Zp = Yb + K8 * S;
+  float* Zb = smem + (kMma ? K8 * S / 2 + 32 * S : d * K8);  // 2*d*kCT: the pieces' Z (float:
+                                    // normalised in place; 2-byte: two staged pieces, then
+                                    // one float piece)
   float* Ls = Zb + 2 * d * kCT;     // K8*kLP: w = exp((g - 1) 2/sigma)
   int* cb = reinterpret_cast<int*>(Ls + K8 * kLP);  // 2*ncov*kCT: the pieces' codes
   float* invs = reinterpret_cast<float*>(cb + 2 * ncov * kCT);  // kCT: 1 / colsum(w)
@@ -849,9 +983,16 @@ __global__ void __launch_bounds__(kThreads, 2) reassign_assign_kernel(
   const int npc = static_cast<int>(L / kCT);
   if (blockIdx.x == 0)  // the reduce's counts: one a column chunk, one for the chunks
     for (int i = tid; i <= n_chunk; i += kThreads) count[i] = 0;
-  for (int i = tid; i < d * K8; i += kThreads) {
-    const int e = i / K8, k = i - e * K8;
-    Ys[i] = k < K ? Yt[k * d + e] : 0.f;
+  if constexpr (kMma) {
+    // Y^T's bf16 rows as they lie; the piece's rows stay zero past d
+    for (int i = tid; i < K8 * S / 8; i += kThreads)
+      reinterpret_cast<uint4*>(Yb)[i] = reinterpret_cast<const uint4*>(Ybg)[i];
+    for (int i = tid; i < 32 * S; i += kThreads) reinterpret_cast<unsigned*>(Zp)[i] = 0u;
+  } else {
+    for (int i = tid; i < d * K8; i += kThreads) {
+      const int e = i / K8, k = i - e * K8;
+      Ys[i] = k < K ? Yt[k * d + e] : 0.f;
+    }
   }
   for (int i = tid; i < K; i += kThreads) i2s[i] = 2.f / sigma[i];
   if (tid < ncov) offs[tid] = offsets[tid];
@@ -886,7 +1027,7 @@ __global__ void __launch_bounds__(kThreads, 2) reassign_assign_kernel(
     const long long base = static_cast<long long>(p) * kCT;
     const TZ* zs = Zs + cur * d * kCT;
     // the piece as float: in place (float), else the float buffer past the
-    // two staged bf16 pieces
+    // two staged 2-byte pieces
     float* zb = kF32 ? Zb + cur * d * kCT : Zb + d * kCT;
     const int* gc = cb + cur * ncov * kCT;
     {
@@ -907,14 +1048,32 @@ __global__ void __launch_bounds__(kThreads, 2) reassign_assign_kernel(
       const float n = nr == 0.f ? 1.f : nr;
       for (int e = tid / kCT; e < d; e += kThreads / kCT) {
         const float z = to_f(zs[e * kCT + t]) / n;
-        zb[e * kCT + t] = z;
+        if constexpr (kMma)
+          Zp[t * S + e] = __float2bfloat16_rn(z);
+        else
+          zb[e * kCT + t] = z;
         Zn[e * L + base + t] = z;
       }
     }
     __syncthreads();
+    if constexpr (kMma) {
+      piece_gram_bf16(Zp, Yb, S, d16, K8, [&](int t, int k, float v) { Ls[k * kLP + t] = v; });
+      __syncthreads();
+    }
     for (int kg = tid >> 4; kg < nkg; kg += kThreads / 16) {
       float acc[4][8];
-      tile_gram(Ys + 8 * kg, K8, zb + 4 * cg, d, acc);
+      if constexpr (kMma) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(Ls + (8 * kg + j) * kLP + 4 * cg);
+          acc[0][j] = v.x;
+          acc[1][j] = v.y;
+          acc[2][j] = v.z;
+          acc[3][j] = v.w;
+        }
+      } else {
+        tile_gram(Ys + 8 * kg, K8, zb + 4 * cg, d, acc);
+      }
       const int k0 = 8 * kg;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -1232,8 +1391,15 @@ constexpr int kBarChain = 1, kBarGroup = 2, kBarFull = 4, kBarEmpty = 7;
 // across a tile boundary runs once for each of its two tiles (the same
 // bits both times), each with its own joint's betas. The
 // chain and the correction share the SM's instruction slots and shared-memory
-// loads, so they overlap only in part.
-template <int KJ, bool kLegacy, typename TZ, bool kWhole>
+// loads, so they overlap only in part. kMma: the bf16 product form of the
+// correction: a group stages its joint's betas as the wrapper rounded them
+// (bf16, (d16 x SW) a dim a row, zero past d and K; SW = K16 + 8), the R
+// tables hold K16 rows (zero past K), and warp w of a group takes the
+// step's 16-dim rows w, w + cw, ... against all eight 8-cell columns: its
+// Z_orig loaded first, then mma.sync over K in 16-wide steps, A from the
+// betas' rows once a step, B from the chain's float table rounded to bf16
+// pairs as it loads, then Z_orig - W R two cells at a time.
+template <int KJ, bool kLegacy, typename TZ, bool kWhole, bool kMma>
 __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
     const float* __restrict__ G,       // (L, K) the phase's Gram table (K6)
     const int* __restrict__ codes,     // (ncov, L), pads < 0
@@ -1241,22 +1407,25 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
     const float* __restrict__ pen,     // (nb, K, B) the last round's block tables
     const int* __restrict__ blkmap,    // (L / T,) block of each physical tile
     const float* __restrict__ sigma,   // (K,)
-    const float* __restrict__ Wj,      // (n_joint + 1, d, K) betas
+    const float* __restrict__ Wj,      // (n_joint + 1, d, K) betas (the fp32-product form)
+    const __nv_bfloat16* __restrict__ Wbj,  // (n_joint + 1, d16, SW) bf16 betas (kMma)
     const int* __restrict__ order,     // (n,) the plan's layout tiles, joint by joint
     const int* __restrict__ tj,        // (L / tw,) joint of each layout tile
-    const TZ* __restrict__ Zo,         // (d, L), float or bf16
+    const TZ* __restrict__ Zo,         // (d, L), float, bf16 or f16
     TZ* __restrict__ Zc,               // (d, L) out, Zo's type
     long long L, int n, int span, int T, int tw, int spt, int trash, int K, int d, int dp,
-    int B, int ncov, int ng) {
+    int B, int ncov, int ng, int SW, int d16) {
   extern __shared__ __align__(16) float smem[];
   const int neb = (d + 3) / 4;
   const int cw = (8 * neb + 31) / 32;              // a correction group's warps
   const int nbuf = ng + 1;                         // R tables
   const int KBp = (K * B + 3) / 4 * 4;
-  float* Ws = smem;                      // ng*K*dp: each group's betas
-  float* Gs = Ws + ng * K * dp;          // 2*kVCells*K: the steps' rows of G
-  float* Ls = Gs + 2 * kVCells * K;      // nbuf*K*kVLP: the steps' R, cluster-major
-  float* pens = Ls + nbuf * K * kVLP;    // 2*KBp: the steps' block tables
+  const int wsz = kMma ? d16 * SW / 2 : K * dp;    // floats of a group's betas
+  float* Ws = smem;                      // ng*wsz: each group's betas
+  float* Gs = Ws + ng * wsz;             // 2*kVCells*K: the steps' rows of G
+  const int rstr = (kMma ? (K + 15) / 16 * 16 : K) * kVLP;  // floats of an R table
+  float* Ls = Gs + 2 * kVCells * K;      // nbuf*rstr: the steps' R, cluster-major
+  float* pens = Ls + nbuf * rstr;        // 2*KBp: the steps' block tables
   int* gcs = reinterpret_cast<int*>(pens + 2 * KBp);  // 2*ncov*kVCells global batch rows
   int* pl = gcs + 2 * ncov * kVCells;    // 3*span: the range's tiles, joints, blocks
   int* offs = pl + 3 * span;             // ncov
@@ -1271,6 +1440,9 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
     pl[2 * span + i] = blkmap[static_cast<long long>(t) * tw / T];
   }
   if (tid < ncov) offs[tid] = offsets[tid];
+  if constexpr (kMma)  // the R tables' rows past K, which the chain never writes
+    for (int bb = 0; bb < nbuf; ++bb)
+      for (int i = K * kVLP + tid; i < rstr; i += kVThreads) Ls[bb * rstr + i] = 0.f;
   __syncthreads();  // the range's plan is in
   // step s of the range: piece (tile * tw) / 64 + s % spt of the tile
   // pl[s / spt], cells [cut_lo, cut_hi) of it in the tile; a tile meets at
@@ -1345,7 +1517,7 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
         const float* Gc = Gs + h * kVCells * K;
         const float* pt = pens + h * KBp;
         const int* gc = gcs + h * ncov * kVCells;
-        float* Lh = Ls + b * K * kVLP;
+        float* Lh = Ls + b * rstr;
         for (int g = wc; g < kVCells / 4; g += nwc)
           v_chain<KJ, kLegacy>(Gc, pt, gc, Lh, sv, 4 * g, K, B, ncov);
       }
@@ -1359,7 +1531,7 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
   const int grp = w / cw, gt = tid - grp * nT;
   const bool owns = gt < 8 * neb;
   const int tb = gt & 7, eb = gt >> 3;
-  float* Wg = Ws + grp * K * dp;
+  float* Wg = Ws + grp * wsz;
   int held = -1;  // the joint whose betas are in Wg
   for (int s = grp; s < ns; s += ng) {
     const int b = s % nbuf, jt = joint(s);
@@ -1367,13 +1539,18 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
     const int c_lo = cut_lo(s), c_hi = cut_hi(s);
     if (c_lo < c_hi && jt != trash && jt != held) {
       // the joint's betas, once every thread of the group is done with the
-      // last, transposed into (K x dp) as they come in (the columns past d
-      // are never stored from)
+      // last: the product form's bf16 rows as they lie, else transposed into
+      // (K x dp) as they come in (the columns past d are never stored from)
       bar_sync(kBarGroup + grp, nT);
-      const float* src = Wj + static_cast<long long>(jt) * d * K;
-      for (int i = gt; i < d * K; i += nT) {
-        const int e = i / K;
-        cp_async4(Wg + (i - e * K) * dp + e, src + i);
+      if constexpr (kMma) {
+        const __nv_bfloat16* src = Wbj + static_cast<long long>(jt) * d16 * SW;
+        for (int i = gt; i < d16 * SW / 8; i += nT) cp_async16(Wg + 4 * i, src + 8 * i);
+      } else {
+        const float* src = Wj + static_cast<long long>(jt) * d * K;
+        for (int i = gt; i < d * K; i += nT) {
+          const int e = i / K;
+          cp_async4(Wg + (i - e * K) * dp + e, src + i);
+        }
       }
       cp_async_commit();
       cp_async_wait<0>();
@@ -1388,6 +1565,50 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
         const int e = x / kQ, c = 4 * (x - e * kQ);
         const long long o = e * L + b0 + c;
         store4_cells<kWhole>(Zc + o, load4(Zo + o), c, c_lo, c_hi);
+      }
+    } else if constexpr (kMma) {
+      // rows m0 + g (+ 8) of the step's product, cells 8 nt + 2 t (+ 1)
+      const int lane = tid & 31, wg = w - grp * cw, gr = lane >> 2, tq = lane & 3;
+      const int SW2 = SW / 2;
+      const unsigned* W32 = reinterpret_cast<const unsigned*>(Wg);
+      const float* Rt = Ls + b * rstr;
+      for (int mt = wg; mt < d16 / 16; mt += cw) {
+        const int m0 = 16 * mt;
+        float2 z[8][2];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = m0 + gr + 8 * h;
+            z[nt][h] = e < d ? load2(Zo + e * L + b0 + 8 * nt + 2 * tq) : make_float2(0.f, 0.f);
+          }
+        float c[8][4];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+        const unsigned* wr = W32 + (m0 + gr) * SW2 + tq;
+        for (int k0 = 0; k0 < K; k0 += 16) {
+          const int k2 = k0 / 2;
+          const unsigned a[4] = {wr[k2], wr[8 * SW2 + k2], wr[k2 + 4], wr[8 * SW2 + k2 + 4]};
+          const float* r0 = Rt + (k0 + 2 * tq) * kVLP + gr;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const float* rc = r0 + 8 * nt;
+            const unsigned bb[2] = {bf16_pair(rc[0], rc[kVLP]),
+                                    bf16_pair(rc[8 * kVLP], rc[9 * kVLP])};
+            mma_bf16(c[nt], a, bb);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = m0 + gr + 8 * h, cell = 8 * nt + 2 * tq;
+            if (e < d)
+              store2_cells<kWhole>(Zc + e * L + b0 + cell,
+                                   make_float2(z[nt][h].x - c[nt][2 * h],
+                                               z[nt][h].y - c[nt][2 * h + 1]),
+                                   cell, c_lo, c_hi);
+          }
       }
     } else if (owns) {
       float4 z[4][2];
@@ -1405,7 +1626,7 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[ii][j] = 0.f;
       const float* Wp = Wg + 4 * eb;
-      const float* Rp = Ls + b * K * kVLP + 4 * tb;
+      const float* Rp = Ls + b * rstr + 4 * tb;
 #pragma unroll 4
       for (int k = 0; k < K; ++k) {
         const float4 wq = *reinterpret_cast<const float4*>(Wp + k * dp);
@@ -1449,25 +1670,31 @@ __global__ void __launch_bounds__(kVThreads, 1) virtual_correction_kernel(
 // assign_chain's); then the next piece's copies are issued; the chain
 // (v_chain, four cells a warp, to 256 clusters; assign_chain past that)
 // leaves R in a (K x 64) table, and R goes out as rows of 256 bytes a
-// cluster (float4 stores; 128 bytes in 8-byte stores of four bf16). Three barriers a piece.
-template <int KJ, bool kLegacy, typename TR>
+// cluster (float4 stores; 128 bytes in 8-byte stores of four 2-byte
+// values). Three barriers a piece. kMma: the bf16 product form, K6's: Y^T
+// in bf16 (Ybg, (K8 x S), staged where ys_shared), the piece's Zn rounded
+// to bf16 into a (64 x S) table once it is in (one barrier more), g by
+// piece_gram_bf16 into the table the chain reads.
+template <int KJ, bool kLegacy, typename TR, bool kMma>
 __global__ void __launch_bounds__(kThreads, 2) materialize_r_kernel(
-    const float* __restrict__ Yp,      // (d, K8) centroids, zero past K
+    const float* __restrict__ Yp,      // (d, K8) centroids, zero past K (fp32 products)
+    const __nv_bfloat16* __restrict__ Ybg,  // (K8, S) Y^T in bf16, zero past K, d (kMma)
     const float* __restrict__ Zn,      // (d, L) the phase's normalised layout
     const int* __restrict__ codes,     // (ncov, L), pads < 0
     const int* __restrict__ offsets,   // (ncov,)
     const float* __restrict__ pen,     // (nb, K, B) the last round's block tables
     const int* __restrict__ blkmap,    // (L / T,) block of each physical tile
     const float* __restrict__ sigma,   // (K,)
-    TR* __restrict__ R,                // (K, L) out, float or bf16
-    long long L, int T, int K, int d, int B, int ncov, int K8, int ys_shared) {
+    TR* __restrict__ R,                // (K, L) out, float, bf16 or f16
+    long long L, int T, int K, int d, int B, int ncov, int K8, int ys_shared, int S, int d16) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, w = tid >> 5;
   // the layout (cuda_rotate.materialize_r_smem_bytes mirrors it), each part
   // a whole number of float4s
-  float* Ys = smem;                                // d*K8 (ys_shared)
-  float* Zb = Ys + (ys_shared ? d * K8 : 0);       // d*kCT: the piece's Zn
-  float* Gs = Zb + d * kCT;                        // KJ > 0: kCT*K g; 0: K*kTP g, then R
+  float* Ys = smem;  // d*K8 (ys_shared); kMma: K8*S bf16
+  float* Zb = Ys + (ys_shared ? (kMma ? K8 * S / 2 : d * K8) : 0);  // d*kCT: the piece's Zn
+  __nv_bfloat16* Zp = reinterpret_cast<__nv_bfloat16*>(Zb + d * kCT);  // kMma: 64*S bf16
+  float* Gs = Zb + d * kCT + (kMma ? 32 * S : 0);  // KJ > 0: kCT*K g; 0: K*kTP g, then R
   float* Lh = Gs + kCT * K;                        // KJ > 0: K*kVLP R
   float* sig = Gs + (K * kTP + 3) / 4 * 4;         // KJ == 0: sigma, then 2/sigma
   float* i2s = sig + K;
@@ -1499,10 +1726,17 @@ __global__ void __launch_bounds__(kThreads, 2) materialize_r_kernel(
     stage_codes(lo);
   }
   cp_async_commit();
-  if (ys_shared)
+  if constexpr (kMma) {
+    if (ys_shared)
+      for (int i = tid; i < K8 * S / 8; i += kThreads)
+        reinterpret_cast<uint4*>(Ys)[i] = reinterpret_cast<const uint4*>(Ybg)[i];
+    for (int i = tid; i < 32 * S; i += kThreads) reinterpret_cast<unsigned*>(Zp)[i] = 0u;
+  } else if (ys_shared) {
     for (int i = tid; i < d * K8 / 4; i += kThreads)
       reinterpret_cast<float4*>(Ys)[i] = reinterpret_cast<const float4*>(Yp)[i];
+  }
   const float* Yr = ys_shared ? Ys : Yp;
+  const __nv_bfloat16* Ybr = ys_shared ? reinterpret_cast<const __nv_bfloat16*>(Ys) : Ybg;
   if (tid < ncov) offs[tid] = offsets[tid];
   float sv[KJ > 0 ? KJ : 1];  // v_chain's 2/sigma (legacy: sigma) of the lane's clusters
   if constexpr (KJ > 0) {
@@ -1543,32 +1777,49 @@ __global__ void __launch_bounds__(kThreads, 2) materialize_r_kernel(
       held = blk;
     }
     __syncthreads();  // the piece's Zn, codes and table are in; the last piece's R is out
-    for (int kg = tid >> 4; kg < K8 / 8; kg += kThreads / 16) {
-      float acc[4][8];
-      tile_gram(Yr + 8 * kg, K8, Zb + 4 * cg, d, acc);
-      const int k0 = 8 * kg;
-      if constexpr (KJ > 0) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float* row = Gs + (4 * cg + i) * K + k0;
-          if (vec) {
-            *reinterpret_cast<float4*>(row) =
-                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-            if (k0 + 4 < K)
-              *reinterpret_cast<float4*>(row + 4) =
-                  make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-          } else {
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              if (k0 + j < K) row[j] = acc[i][j];
-          }
+    if constexpr (kMma) {
+      // the piece's rows in bf16 (zero past d), then K6's product
+      for (int i = tid; i < d * kCT; i += kThreads) {
+        const int e = i / kCT, t = i - e * kCT;
+        Zp[t * S + e] = __float2bfloat16_rn(Zb[i]);
+      }
+      __syncthreads();
+      piece_gram_bf16(Zp, Ybr, S, d16, K8, [&](int t, int k, float v) {
+        if (k < K) {
+          if constexpr (KJ > 0)
+            Gs[t * K + k] = v;
+          else
+            Gs[k * kTP + t] = v;
         }
-      } else {
+      });
+    } else {
+      for (int kg = tid >> 4; kg < K8 / 8; kg += kThreads / 16) {
+        float acc[4][8];
+        tile_gram(Yr + 8 * kg, K8, Zb + 4 * cg, d, acc);
+        const int k0 = 8 * kg;
+        if constexpr (KJ > 0) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (k0 + j < K)
+          for (int i = 0; i < 4; ++i) {
+            float* row = Gs + (4 * cg + i) * K + k0;
+            if (vec) {
+              *reinterpret_cast<float4*>(row) =
+                  make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+              if (k0 + 4 < K)
+                *reinterpret_cast<float4*>(row + 4) =
+                    make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+            } else {
 #pragma unroll
-            for (int i = 0; i < 4; ++i) Gs[(k0 + j) * kTP + 4 * cg + i] = acc[i][j];
+              for (int j = 0; j < 8; ++j)
+                if (k0 + j < K) row[j] = acc[i][j];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (k0 + j < K)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) Gs[(k0 + j) * kTP + 4 * cg + i] = acc[i][j];
+        }
       }
     }
     __syncthreads();  // g is in; Zb is free
@@ -1605,6 +1856,13 @@ int set_smem(const void* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
+// The instances of this translation unit (ROTATE_PART, above): K10's tile
+// form and product form, K11's product form.
+constexpr bool holds_k10(bool whole, bool mma) {
+  return ROTATE_PART == (mma ? (whole ? 3 : 4) : (whole ? 2 : 1));
+}
+constexpr bool holds_k11(bool mma) { return ROTATE_PART == (mma ? 5 : 0); }
+
 // K7's assign launch, with moments reading Z_orig as TZ on layout tiles
 // that are (kWhole) or are not whole 64-cell pieces.
 template <bool kMoments, bool kLegacy, typename TZ, bool kWhole>
@@ -1623,100 +1881,199 @@ int k7_launch(const float* G, const int* codes, const int* offsets, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
+using K7Launch = decltype(&k7_launch<false, false, float, true>);
+
+// K7 with the moments reading Z_orig in the storage type (0 float, 1 bf16,
+// 2 f16).
+template <bool kLegacy, bool kWhole>
+K7Launch k7_moments_form(int storage) {
+  switch (storage) {
+    case 0: return k7_launch<true, kLegacy, float, kWhole>;
+    case 1: return k7_launch<true, kLegacy, __nv_bfloat16, kWhole>;
+    case 2: return k7_launch<true, kLegacy, __half, kWhole>;
+    default: return nullptr;
+  }
+}
+
 // K10 with KJ cluster values a lane (1, 2, 4 or 8: K <= 256), Z as TZ, on
-// layout tiles that are (kWhole) or are not whole 64-cell pieces.
-template <int KJ, bool kLegacy, typename TZ, bool kWhole>
+// layout tiles that are (kWhole) or are not whole 64-cell pieces, the
+// correction's product in fp32 or (kMma) in the bf16 product form.
+template <int KJ, bool kLegacy, typename TZ, bool kWhole, bool kMma>
 int k10_launch(const float* G, const int* codes, const int* offsets, const float* pen,
-               const int* blkmap, const float* sigma, const float* Wj, const int* order,
+               const int* blkmap, const float* sigma, const void* Wj, const int* order,
                const int* tj, const void* Zo, void* Zc, long long L, int n, int span, int T,
                int tw, int spt, int trash, int K, int d, int dp, int B, int ncov, int ng,
-               int grid, int smem_bytes, cudaStream_t st) {
+               int SW, int d16, int grid, int smem_bytes, cudaStream_t st) {
   const void* kern =
-      reinterpret_cast<const void*>(virtual_correction_kernel<KJ, kLegacy, TZ, kWhole>);
+      reinterpret_cast<const void*>(virtual_correction_kernel<KJ, kLegacy, TZ, kWhole, kMma>);
   int err = set_smem(kern, smem_bytes);
   if (err) return err;
-  virtual_correction_kernel<KJ, kLegacy, TZ, kWhole><<<grid, kVThreads, smem_bytes, st>>>(
-      G, codes, offsets, pen, blkmap, sigma, Wj, order, tj, static_cast<const TZ*>(Zo),
-      static_cast<TZ*>(Zc), L, n, span, T, tw, spt, trash, K, d, dp, B, ncov, ng);
+  virtual_correction_kernel<KJ, kLegacy, TZ, kWhole, kMma><<<grid, kVThreads, smem_bytes, st>>>(
+      G, codes, offsets, pen, blkmap, sigma, kMma ? nullptr : static_cast<const float*>(Wj),
+      kMma ? static_cast<const __nv_bfloat16*>(Wj) : nullptr, order, tj,
+      static_cast<const TZ*>(Zo), static_cast<TZ*>(Zc), L, n, span, T, tw, spt, trash, K, d, dp,
+      B, ncov, ng, SW, d16);
   return static_cast<int>(cudaGetLastError());
+}
+
+using K10Launch = decltype(&k10_launch<1, false, float, true, false>);
+
+// The K10 instance for K and the op order.
+template <typename TZ, bool kWhole, bool kMma>
+K10Launch k10_pick_form(int K, int legacy) {
+  return legacy ? (K <= 32    ? k10_launch<1, true, TZ, kWhole, kMma>
+                   : K <= 64  ? k10_launch<2, true, TZ, kWhole, kMma>
+                   : K <= 128 ? k10_launch<4, true, TZ, kWhole, kMma>
+                              : k10_launch<8, true, TZ, kWhole, kMma>)
+                : (K <= 32    ? k10_launch<1, false, TZ, kWhole, kMma>
+                   : K <= 64  ? k10_launch<2, false, TZ, kWhole, kMma>
+                   : K <= 128 ? k10_launch<4, false, TZ, kWhole, kMma>
+                              : k10_launch<8, false, TZ, kWhole, kMma>);
+}
+
+// The K10 instance for the storage type (0 float, 1 bf16, 2 f16) where this
+// library holds the tile and product form, else null. The product form
+// takes 2-byte storage only: a float32 engine takes no bf16 product.
+template <bool kWhole, bool kMma>
+K10Launch k10_form(int K, int legacy, int storage) {
+  if constexpr (holds_k10(kWhole, kMma)) {
+    switch (storage) {
+      case 0:
+        if constexpr (!kMma) return k10_pick_form<float, kWhole, kMma>(K, legacy);
+        break;
+      case 1: return k10_pick_form<__nv_bfloat16, kWhole, kMma>(K, legacy);
+      case 2: return k10_pick_form<__half, kWhole, kMma>(K, legacy);
+    }
+  }
+  return nullptr;
 }
 
 // K11 with KJ cluster values a lane (v_chain), or assign_chain (KJ == 0),
-// R written as TR.
-template <int KJ, bool kLegacy, typename TR>
-int k11_launch(const float* Yp, const float* Zn, const int* codes, const int* offsets,
+// R written as TR, g in fp32 products or (kMma) the bf16 product form.
+template <int KJ, bool kLegacy, typename TR, bool kMma>
+int k11_launch(const void* Y, const float* Zn, const int* codes, const int* offsets,
                const float* pen, const int* blkmap, const float* sigma, void* R, long long L,
-               int T, int K, int d, int B, int ncov, int K8, int ys_shared, int grid,
-               int smem_bytes, cudaStream_t st) {
-  const void* kern = reinterpret_cast<const void*>(materialize_r_kernel<KJ, kLegacy, TR>);
+               int T, int K, int d, int B, int ncov, int K8, int ys_shared, int S, int d16,
+               int grid, int smem_bytes, cudaStream_t st) {
+  const void* kern = reinterpret_cast<const void*>(materialize_r_kernel<KJ, kLegacy, TR, kMma>);
   int err = set_smem(kern, smem_bytes);
   if (err) return err;
-  materialize_r_kernel<KJ, kLegacy, TR><<<grid, kThreads, smem_bytes, st>>>(
-      Yp, Zn, codes, offsets, pen, blkmap, sigma, static_cast<TR*>(R), L, T, K, d, B, ncov,
-      K8, ys_shared);
+  materialize_r_kernel<KJ, kLegacy, TR, kMma><<<grid, kThreads, smem_bytes, st>>>(
+      kMma ? nullptr : static_cast<const float*>(Y),
+      kMma ? static_cast<const __nv_bfloat16*>(Y) : nullptr, Zn, codes, offsets, pen, blkmap,
+      sigma, static_cast<TR*>(R), L, T, K, d, B, ncov, K8, ys_shared, S, d16);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The K10 instance for K, the op order and the tile form, Z as TZ.
-template <typename TZ, bool kWhole>
-decltype(&k10_launch<1, true, float, true>) k10_pick_form(int K, int legacy) {
-  return legacy ? (K <= 32    ? k10_launch<1, true, TZ, kWhole>
-                   : K <= 64  ? k10_launch<2, true, TZ, kWhole>
-                   : K <= 128 ? k10_launch<4, true, TZ, kWhole>
-                              : k10_launch<8, true, TZ, kWhole>)
-                : (K <= 32    ? k10_launch<1, false, TZ, kWhole>
-                   : K <= 64  ? k10_launch<2, false, TZ, kWhole>
-                   : K <= 128 ? k10_launch<4, false, TZ, kWhole>
-                              : k10_launch<8, false, TZ, kWhole>);
-}
+using K11Launch = decltype(&k11_launch<0, false, float, false>);
 
-
-// The K11 instance for the chain form kj and the op order, R as TR.
-template <typename TR>
-decltype(&k11_launch<0, false, float>) k11_pick(int kj, int legacy) {
+// The K11 instance for the chain form kj and the op order.
+template <typename TR, bool kMma>
+K11Launch k11_pick(int kj, int legacy) {
   switch (kj) {
-    case 1: return legacy ? k11_launch<1, true, TR> : k11_launch<1, false, TR>;
-    case 2: return legacy ? k11_launch<2, true, TR> : k11_launch<2, false, TR>;
-    case 4: return legacy ? k11_launch<4, true, TR> : k11_launch<4, false, TR>;
-    case 8: return legacy ? k11_launch<8, true, TR> : k11_launch<8, false, TR>;
-    default: return legacy ? k11_launch<0, true, TR> : k11_launch<0, false, TR>;
+    case 1: return legacy ? k11_launch<1, true, TR, kMma> : k11_launch<1, false, TR, kMma>;
+    case 2: return legacy ? k11_launch<2, true, TR, kMma> : k11_launch<2, false, TR, kMma>;
+    case 4: return legacy ? k11_launch<4, true, TR, kMma> : k11_launch<4, false, TR, kMma>;
+    case 8: return legacy ? k11_launch<8, true, TR, kMma> : k11_launch<8, false, TR, kMma>;
+    default: return legacy ? k11_launch<0, true, TR, kMma> : k11_launch<0, false, TR, kMma>;
   }
 }
+
+// The K11 instance for R's storage type (0 float, 1 bf16, 2 f16) where this
+// library holds the product form, else null.
+template <bool kMma>
+K11Launch k11_form(int kj, int legacy, int storage) {
+  if constexpr (holds_k11(kMma)) {
+    switch (storage) {
+      case 0: return k11_pick<float, kMma>(kj, legacy);
+      case 1: return k11_pick<__nv_bfloat16, kMma>(kj, legacy);
+      case 2: return k11_pick<__half, kMma>(kj, legacy);
+    }
+  }
+  return nullptr;
+}
+
+// K6's assign launch, Z as TZ, g in fp32 products or (kMma) the bf16
+// product form.
+template <typename TZ, bool kMma>
+int k6_assign_launch(const float* Yt, const void* Yb, const void* Z, const int* codes,
+                     const int* offsets, const float* sigma, float* Zn, float* G, float* part,
+                     int* count, long long L, int K, int d, int B, int ncov, int K8, int nh,
+                     int n_chunk, int S, int d16, int grid, int smem_bytes, cudaStream_t st) {
+  const void* kern = reinterpret_cast<const void*>(reassign_assign_kernel<TZ, kMma>);
+  int err = set_smem(kern, smem_bytes);
+  if (err) return err;
+  reassign_assign_kernel<TZ, kMma><<<grid, kThreads, smem_bytes, st>>>(
+      Yt, static_cast<const __nv_bfloat16*>(Yb), static_cast<const TZ*>(Z), codes, offsets,
+      sigma, Zn, G, part, count, L, K, d, B, ncov, K8, nh, n_chunk, S, d16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#if ROTATE_PART == 0
+// K6's assign kernel and its launch for the storage type (0 float, 1 bf16,
+// 2 f16) and the product form.
+template <typename TZ>
+const void* k6_kernel(int mma) {
+  return mma ? reinterpret_cast<const void*>(reassign_assign_kernel<TZ, true>)
+             : reinterpret_cast<const void*>(reassign_assign_kernel<TZ, false>);
+}
+
+const void* k6_pick_kernel(int storage, int mma) {
+  switch (storage) {
+    case 0: return k6_kernel<float>(mma);
+    case 1: return k6_kernel<__nv_bfloat16>(mma);
+    case 2: return k6_kernel<__half>(mma);
+    default: return nullptr;
+  }
+}
+
+using K6Launch = decltype(&k6_assign_launch<float, false>);
+
+template <typename TZ>
+K6Launch k6_launch_of(int mma) {
+  return mma ? k6_assign_launch<TZ, true> : k6_assign_launch<TZ, false>;
+}
+
+K6Launch k6_pick_launch(int storage, int mma) {
+  switch (storage) {
+    case 0: return k6_launch_of<float>(mma);
+    case 1: return k6_launch_of<__nv_bfloat16>(mma);
+    case 2: return k6_launch_of<__half>(mma);
+    default: return nullptr;
+  }
+}
+#endif  // ROTATE_PART == 0
 
 }  // namespace
 
 extern "C" {
 
+#if ROTATE_PART <= 1
 // K7 assign launch over a block's ntile tiles; Zo == nullptr: no moments;
-// legacy != 0: the legacy op order; zbf16 != 0: the moments read a bf16
-// Z_orig.
+// legacy != 0: the legacy op order; storage: the moments' Z_orig (0 float,
+// 1 bf16, 2 f16). Part 0 holds the whole-piece forms, part 1 the moments
+// on layout tiles that are not whole pieces.
 int k7_assign(const void* G, const void* codes,
               const void* offsets, const void* pen, const void* logpen,
               const void* sigma, void* R, void* part, const void* Zo, const void* slot,
               void* mpart, void* mpiece, void* count, long long L, int v0, int ntile,
               int NT, int cpt, int tw, int K, int d, int B, int ncov, int d1p, int legacy,
-              int zbf16, int smem_bytes, void* stream) {
-  using Launch = decltype(&k7_launch<false, false, float, true>);
-  using BF = __nv_bfloat16;
-  Launch launch;
-#if ROTATE_TILE_FORMS
-  // the moments on layout tiles that are not whole pieces
+              int storage, int smem_bytes, void* stream) {
+  K7Launch launch;
+#if ROTATE_PART == 1
   if (Zo == nullptr || tw % kCT == 0) return static_cast<int>(cudaErrorInvalidValue);
-  launch = zbf16 ? (legacy ? k7_launch<true, true, BF, false> : k7_launch<true, false, BF, false>)
-                 : (legacy ? k7_launch<true, true, float, false>
-                           : k7_launch<true, false, float, false>);
+  launch = legacy ? k7_moments_form<true, false>(storage) : k7_moments_form<false, false>(storage);
 #else
   // without moments the tile form does not matter; with them tw must be a
-  // multiple of 64 here (rotate_tiles.cu holds the other form)
+  // multiple of 64 here (part 1 holds the other form)
   if (Zo == nullptr)
     launch = legacy ? k7_launch<false, true, float, true> : k7_launch<false, false, float, true>;
   else if (tw % kCT != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  else if (zbf16)
-    launch = legacy ? k7_launch<true, true, BF, true> : k7_launch<true, false, BF, true>;
   else
-    launch = legacy ? k7_launch<true, true, float, true> : k7_launch<true, false, float, true>;
+    launch = legacy ? k7_moments_form<true, true>(storage) : k7_moments_form<false, true>(storage);
 #endif
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch(static_cast<const float*>(G), static_cast<const int*>(codes),
                 static_cast<const int*>(offsets), static_cast<const float*>(pen),
                 static_cast<const float*>(logpen), static_cast<const float*>(sigma),
@@ -1725,8 +2082,9 @@ int k7_assign(const void* G, const void* codes,
                 static_cast<float*>(mpiece), static_cast<int*>(count), L, v0, ntile * cpt, NT,
                 cpt, tw, K, d, B, ncov, d1p, smem_bytes, static_cast<cudaStream_t>(stream));
 }
+#endif
 
-#if !ROTATE_TILE_FORMS
+#if ROTATE_PART == 0
 int k7_commit(const void* part, int add, int v0, int ntile, int cpt, int NT,
               void* tO_new, const void* tO_old, int rm_v0, int rm_n,
               const void* E_in, const void* O_in, void* E, void* O,
@@ -1748,12 +2106,12 @@ int k7_commit(const void* part, int add, int v0, int ntile, int cpt, int NT,
   return static_cast<int>(cudaGetLastError());
 }
 
-// CTAs of K6's assign kernel (zbf16 != 0: the instance reading bf16 Z) an
-// SM holds with smem_bytes each; < 0 is minus a CUDA error.
-int k6_occupancy(int smem_bytes, int zbf16) {
-  const void* kern =
-      zbf16 ? reinterpret_cast<const void*>(reassign_assign_kernel<__nv_bfloat16>)
-            : reinterpret_cast<const void*>(reassign_assign_kernel<float>);
+// CTAs of K6's assign kernel (storage: Z's type, 0 float, 1 bf16, 2 f16;
+// mma: the bf16 product form) an SM holds with smem_bytes each; < 0 is
+// minus a CUDA error.
+int k6_occupancy(int smem_bytes, int storage, int mma) {
+  const void* kern = k6_pick_kernel(storage, mma);
+  if (kern == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   int err = set_smem(kern, smem_bytes);
   if (err) return -err;
   int n = 0;
@@ -1763,34 +2121,23 @@ int k6_occupancy(int smem_bytes, int zbf16) {
 }
 
 // K6: the assign launch (grid persistent CTAs over the L/64 pieces, nh
-// cell splits of the design sums; zbf16 != 0: Z is bf16), then the reduce
+// cell splits of the design sums; storage: Z's type; mma != 0: the bf16
+// product form, Yb the (K8 x S) bf16 Y^T, d16 its depth), then the reduce
 // over (tile, 256-column chunk), n_chunk = ceil(K*B / 256) chunks.
-int k6_reassign(const void* Yt, const void* Z, const void* codes,
+int k6_reassign(const void* Yt, const void* Yb, const void* Z, const void* codes,
                 const void* offsets, const void* sigma, const void* Pr,
                 void* Zn, void* G, void* part, void* tO, void* O, void* E, void* count,
                 long long L, int NT, int K, int d, int B, int ncov, int b0, int K8, int nh,
-                int grid, int n_chunk, int zbf16, int smem_bytes, void* stream) {
+                int grid, int n_chunk, int storage, int mma, int S, int d16, int smem_bytes,
+                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const void* kern =
-      zbf16 ? reinterpret_cast<const void*>(reassign_assign_kernel<__nv_bfloat16>)
-            : reinterpret_cast<const void*>(reassign_assign_kernel<float>);
-  int err = set_smem(kern, smem_bytes);
-  if (err) return err;
-  const float* Y = static_cast<const float*>(Yt);
-  const int* cd = static_cast<const int*>(codes);
-  const int* of = static_cast<const int*>(offsets);
-  const float* sg = static_cast<const float*>(sigma);
-  if (zbf16)
-    reassign_assign_kernel<__nv_bfloat16><<<grid, kThreads, smem_bytes, st>>>(
-        Y, static_cast<const __nv_bfloat16*>(Z), cd, of, sg, static_cast<float*>(Zn),
-        static_cast<float*>(G), static_cast<float*>(part), static_cast<int*>(count), L, K, d,
-        B, ncov, K8, nh, n_chunk);
-  else
-    reassign_assign_kernel<float><<<grid, kThreads, smem_bytes, st>>>(
-        Y, static_cast<const float*>(Z), cd, of, sg, static_cast<float*>(Zn),
-        static_cast<float*>(G), static_cast<float*>(part), static_cast<int*>(count), L, K, d,
-        B, ncov, K8, nh, n_chunk);
-  err = static_cast<int>(cudaGetLastError());
+  K6Launch launch = k6_pick_launch(storage, mma);
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int err = launch(static_cast<const float*>(Yt), Yb, Z, static_cast<const int*>(codes),
+                   static_cast<const int*>(offsets), static_cast<const float*>(sigma),
+                   static_cast<float*>(Zn), static_cast<float*>(G), static_cast<float*>(part),
+                   static_cast<int*>(count), L, K, d, B, ncov, K8, nh, n_chunk, S, d16, grid,
+                   smem_bytes, st);
   if (err) return err;
   const int npc = static_cast<int>(L / kCT);
   reassign_reduce_kernel<<<dim3(NT, n_chunk), kThreads, 0, st>>>(
@@ -1799,47 +2146,57 @@ int k6_reassign(const void* Yt, const void* Z, const void* codes,
       static_cast<int*>(count), K, B, b0);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // ROTATE_PART == 0
 
-#endif  // !ROTATE_TILE_FORMS
-
+#if ROTATE_PART >= 1 && ROTATE_PART <= 4
 // K10 over the plan's order (n layout tiles of tw cells, each at most spt
 // 64-cell steps) in grid equal ranges of at most span tiles; legacy != 0:
-// the legacy op order; zbf16 != 0: Z_orig and Z_corr are bf16. The tile
-// form is this library's: tw a multiple of 64 here, not in rotate_tiles.cu.
+// the legacy op order; storage: Z_orig's and Z_corr's type (0 float, 1
+// bf16, 2 f16); mma != 0: the bf16 product form, Wj the (n_joint + 1, d16,
+// SW) bf16 betas (else (n_joint + 1, d, K) float). Each part holds one tile
+// form and one product form (holds_k10); another returns an error.
 int k10_virtual_correction(const void* G, const void* codes, const void* offsets,
                            const void* pen, const void* blkmap, const void* sigma,
                            const void* Wj, const void* order, const void* tj, const void* Zo,
                            void* Zc, long long L, int n, int span, int T, int tw, int spt,
                            int trash, int K, int d, int dp, int B, int ncov, int ng, int legacy,
-                           int zbf16, int grid, int smem_bytes, void* stream) {
-  constexpr bool kWholeForm = !ROTATE_TILE_FORMS;
-  if ((tw % kVCells == 0) != kWholeForm) return static_cast<int>(cudaErrorInvalidValue);
-  auto launch = zbf16 ? k10_pick_form<__nv_bfloat16, kWholeForm>(K, legacy)
-                      : k10_pick_form<float, kWholeForm>(K, legacy);
+                           int storage, int mma, int SW, int d16, int grid, int smem_bytes,
+                           void* stream) {
+  const bool whole = tw % kVCells == 0;
+  const K10Launch launch = whole ? (mma ? k10_form<true, true>(K, legacy, storage)
+                                        : k10_form<true, false>(K, legacy, storage))
+                                 : (mma ? k10_form<false, true>(K, legacy, storage)
+                                        : k10_form<false, false>(K, legacy, storage));
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch(static_cast<const float*>(G), static_cast<const int*>(codes),
                 static_cast<const int*>(offsets), static_cast<const float*>(pen),
-                static_cast<const int*>(blkmap), static_cast<const float*>(sigma),
-                static_cast<const float*>(Wj), static_cast<const int*>(order),
-                static_cast<const int*>(tj), Zo, Zc, L, n, span, T, tw, spt, trash, K, d, dp, B,
-                ncov, ng, grid, smem_bytes, static_cast<cudaStream_t>(stream));
+                static_cast<const int*>(blkmap), static_cast<const float*>(sigma), Wj,
+                static_cast<const int*>(order), static_cast<const int*>(tj), Zo, Zc, L, n, span,
+                T, tw, spt, trash, K, d, dp, B, ncov, ng, SW, d16, grid, smem_bytes,
+                static_cast<cudaStream_t>(stream));
 }
+#endif
 
-#if !ROTATE_TILE_FORMS
+#if ROTATE_PART == 0 || ROTATE_PART == 5
 // K11 over grid persistent CTAs; kj: v_chain's cluster values a lane (1,
 // 2, 4, 8), 0 for assign_chain; ys_shared: Y staged into shared memory;
-// legacy != 0: the legacy op order; rbf16 != 0: R is written in bf16.
-int k11_materialize_r(const void* Yp, const void* Zn, const void* codes,
+// legacy != 0: the legacy op order; storage: R's type (0 float, 1 bf16, 2
+// f16); mma != 0: the bf16 product form (part 5), Y the (K8 x S) bf16 Y^T
+// and d16 its depth, else (part 0) Y the (d x K8) float centroids.
+int k11_materialize_r(const void* Y, const void* Zn, const void* codes,
                       const void* offsets, const void* pen, const void* blkmap,
                       const void* sigma, void* R, long long L, int T, int K, int d, int B,
-                      int ncov, int K8, int kj, int ys_shared, int legacy, int rbf16, int grid,
-                      int smem_bytes, void* stream) {
-  auto launch = rbf16 ? k11_pick<__nv_bfloat16>(kj, legacy) : k11_pick<float>(kj, legacy);
-  return launch(static_cast<const float*>(Yp), static_cast<const float*>(Zn),
-                static_cast<const int*>(codes), static_cast<const int*>(offsets),
-                static_cast<const float*>(pen), static_cast<const int*>(blkmap),
-                static_cast<const float*>(sigma), R, L, T, K, d, B, ncov, K8, ys_shared, grid,
-                smem_bytes, static_cast<cudaStream_t>(stream));
+                      int ncov, int K8, int kj, int ys_shared, int legacy, int storage, int mma,
+                      int S, int d16, int grid, int smem_bytes, void* stream) {
+  const K11Launch launch =
+      mma ? k11_form<true>(kj, legacy, storage) : k11_form<false>(kj, legacy, storage);
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(Y, static_cast<const float*>(Zn), static_cast<const int*>(codes),
+                static_cast<const int*>(offsets), static_cast<const float*>(pen),
+                static_cast<const int*>(blkmap), static_cast<const float*>(sigma), R, L, T, K,
+                d, B, ncov, K8, ys_shared, S, d16, grid, smem_bytes,
+                static_cast<cudaStream_t>(stream));
 }
-#endif  // !ROTATE_TILE_FORMS
+#endif
 
 }  // extern "C"

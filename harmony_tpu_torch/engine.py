@@ -16,14 +16,13 @@ On a mesh (``mesh``, a ``sharding.CellMesh``; harmony_tpu/engine.py's
 ``mesh=`` branches) the state holds the rank's columns and the replicated
 cluster state; the phases run the kernels per shard and all-reduce the
 statistics where the JAX package psums them. Every route runs on a mesh,
-in float32 and in bf16: the stats-carrying rotate route (R written or
+in float32, bf16 and float16: the stats-carrying rotate route (R written or
 virtual; K6, K7, K10, K11 per shard), the fused permute phase, the
 per-round permute schedule and the cell-granular rotate round (global
 blocks, plain PyTorch per rank, as the JAX package runs XLA there; the
 cell-granular round also takes ``rotate_stats_carry=False`` on a mesh,
 K12 having no sharded form), each with the batch-tiled, segmented or
-dense M-step (K4/K5 per shard); only the float16 engine raises
-(:func:`check_mesh_route`). The state's generator stays replicated: every
+dense M-step (K4/K5 per shard). The state's generator stays replicated: every
 rank makes every draw, so the ranks stay in lockstep and no collective
 waits on a rank that took another branch.
 """
@@ -38,7 +37,7 @@ import numpy as np
 import torch
 
 from . import ops, sharding
-from .config import FLOAT16_ITEM, HarmonyConfig, _not_ported
+from .config import HarmonyConfig
 from .ops import cuda_estep, cuda_permute, cuda_ridge, cuda_rotate, permute_phase, rotate
 from .ops.estep import (block_update_round, draw_rotate_schedules, make_rotate_layout,
                         rotate_update_round, sharded_block_update_round,
@@ -167,15 +166,6 @@ def _virtual_gate(cfg: HarmonyConfig, tiled: Optional[TiledCells]) -> bool:
         and cfg.max_iter_cluster <= cfg.window_size + 2
         and cfg.estep_sub_tile % tiled.tile == 0
     )
-
-
-def check_mesh_route(cfg: HarmonyConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item where a mesh
-    run would take a route this port does not run: the float16 engine
-    (ROADMAP A9), which it runs nowhere. Every other route runs on a mesh
-    (module docstring)."""
-    if getattr(torch, cfg.dtype).itemsize < 4 and cfg.dtype != "bfloat16":
-        raise _not_ported(f"dtype={cfg.dtype!r} on a mesh", FLOAT16_ITEM)
 
 
 def draw_shard_schedules(cfg: HarmonyConfig, generator: torch.Generator, rounds: int,
@@ -406,7 +396,7 @@ def cluster(
     the phase's end.
     ``perms`` injects the (max_iter_cluster, N) permutations; otherwise
     they are drawn from the state's generator, all up front. On a mesh
-    (the rank's columns; :func:`check_mesh_route` names what raises) the
+    (the rank's columns) the
     permutations and the cell-granular schedules are global and every rank
     draws them; the per-round permute rounds are
     :func:`ops.estep.sharded_block_update_round`, R carried in the order
@@ -414,8 +404,6 @@ def cluster(
     early stop reads the all-reduced objective, so every rank stops at the
     same round.
     """
-    if mesh is not None:
-        check_mesh_route(cfg)
     if cfg.shuffle_mode == "rotate":
         if perms is not None:
             raise ValueError("perms drive the permute schedule; the rotate "

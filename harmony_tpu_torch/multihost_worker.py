@@ -153,7 +153,7 @@ def driver_result(Z, meta: dict, mesh, nclust, max_iter: int, seed: int, shuffle
     from .api import (HarmonyResult, _resolve_shuffle_mode, apply_ingest_order, ingest_perm)
     from .config import finalize_engine_config
     from .driver import run
-    from .engine import check_mesh_route, mstep_layout
+    from .engine import mstep_layout
     from .preprocess import build_design, expand_hyperparams, orient_embedding, resolve_config
     from .runtime import AsyncIngest, PhaseTimers, resolve_device
     from .sharding import pad_for_mesh
@@ -171,8 +171,6 @@ def driver_result(Z, meta: dict, mesh, nclust, max_iter: int, seed: int, shuffle
     if mesh is not None:
         cfg = pad_for_mesh(cfg, mesh)
     cfg = finalize_engine_config(dataclasses.replace(cfg, **change), mesh)
-    if mesh is not None:
-        check_mesh_route(cfg)
     timers = PhaseTimers(dev)
     with timers.scope("ingest_order"):
         perm, _ = ingest_perm(cfg, design, seed)
@@ -489,7 +487,7 @@ def main(argv=None) -> int:
     ap.add_argument("--shuffle", choices=["rotate", "permute", "auto"], default="rotate")
     ap.add_argument("--impl", choices=["auto", "kernel", "torch"], default="auto")
     ap.add_argument("--virtual", action="store_true")
-    ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
+    ap.add_argument("--dtype", choices=["float32", "bfloat16", "float16"], default="float32")
     ap.add_argument("--no-stats-carry", action="store_true",
                     help="rotate_stats_carry=False (on a mesh the cell-granular round)")
     ap.add_argument("--mstep-mode", choices=["auto", "tiled", "dense", "segment"],

@@ -22,11 +22,11 @@ def compute_distances(Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
 
 def initial_assignments(dist: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """R = column softmax of (-dist / sigma) (src/harmony.cpp:143-146). In
-    bf16 it takes ``jax.nn.softmax``'s steps, each rounded to bf16: the
-    exponentials of the shifted logits, their column sums in float32
-    rounded once, the quotient."""
+    a 2-byte dtype (bf16, float16) it takes ``jax.nn.softmax``'s steps,
+    each rounded to that dtype: the exponentials of the shifted logits,
+    their column sums in float32 rounded once, the quotient."""
     x = -dist / sigma[:, None]
-    if x.dtype != torch.bfloat16:
+    if x.dtype.itemsize != 2:
         return torch.softmax(x, dim=0)
     e = torch.exp(x - x.max(dim=0, keepdim=True).values)
     return e / e.float().sum(dim=0, keepdim=True).to(e.dtype)

@@ -65,13 +65,15 @@ _SIGNATURES = {
 }
 
 
-def _bf16(*tensors: torch.Tensor) -> bool:
-    """Does a bf16 engine's state reach this float32 kernel?"""
-    return any(t.dtype == torch.bfloat16 for t in tensors)
+def _reduced(*tensors: torch.Tensor) -> bool:
+    """Does a reduced-precision engine's state (bf16, float16) reach this
+    float32 kernel?"""
+    return any(t.dtype in (torch.bfloat16, torch.float16) for t in tensors)
 
 
 def f32(*tensors: torch.Tensor):
-    """float32 copies of a bf16 engine's tensors (float32 ones as they are)."""
+    """float32 copies of a reduced-precision engine's tensors (float32 ones
+    as they are)."""
     return [t.to(_F32) for t in tensors]
 
 
@@ -153,10 +155,10 @@ def block_update_round(
     """One update_R round; the kernel on CUDA, the plain version with
     ``carry=True`` on CPU: R's columns hold the cells ``order`` (None: in
     order), and the new R comes back in the round's block order, as the
-    kernels write it. A bf16 engine's round runs on float32 copies made
-    here, and R, E and O go back in their dtypes, as
+    kernels write it. A reduced-precision engine's round runs on float32
+    copies made here, and R, E and O go back in their dtypes, as
     ``pallas_block_update_round`` casts (pallas_estep.py:160-251)."""
-    if _bf16(Z, Y, R, E, O, Pr_b, sigma, theta):
+    if _reduced(Z, Y, R, E, O, Pr_b, sigma, theta):
         res = block_update_round(cfg, *f32(Z, Y, R, E, O), codes, *f32(Pr_b, sigma, theta),
                                  perm, order)
         return cast_back(res, R, E, O)
@@ -260,9 +262,10 @@ def rotate_update_round_v1(
 ) -> RoundResult:
     """K12: one rotate round that reads the old block statistics from R,
     for the schedule (rt, order); the kernels on CUDA, the plain version
-    on CPU. A bf16 engine's round runs on float32 copies made here, and R,
-    E and O go back in their dtypes (pallas_rotate.py:1780-1846)."""
-    if _bf16(Y, R, E, O, Pr_b, sigma, theta, layout.Z_pad):
+    on CPU. A reduced-precision engine's round runs on float32 copies made
+    here, and R, E and O go back in their dtypes (pallas_rotate.py:
+    1780-1846)."""
+    if _reduced(Y, R, E, O, Pr_b, sigma, theta, layout.Z_pad):
         res = rotate_update_round_v1(cfg, *f32(Y, R, E, O, Pr_b, sigma, theta), rt, order,
                                      layout._replace(Z_pad=layout.Z_pad.to(_F32)))
         return cast_back(res, R, E, O)

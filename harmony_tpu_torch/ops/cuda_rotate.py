@@ -39,14 +39,24 @@ K7, K10 and K11 take the config's ``estep_variant``: ``legacy`` runs the
 reference's two-normalise op order (:func:`legacy`), the others the
 single normalise; K6 has one op sequence.
 
-A bf16 engine's storage goes to the kernels as it lies (:data:`STORAGE`):
-K6 reads Z_raw, K7's moments Z_orig and K10 Z_orig in bf16, K10 writes
-Z_corr and K11 R in bf16; each kernel is one instance per storage type,
-chosen by an int argument (:func:`bf16`), whose arithmetic is the float32
-form's on the upcast values, so a bf16 output is the float32 form's value
-rounded to nearest even. G, Zn, the penalty tables, sigma and the betas
-stay float32; K7's E and O come in and go out in their own dtype
-(float32 copies at the boundary), as its R does where it writes one.
+A reduced-precision engine's storage goes to the kernels as it lies
+(:data:`STORAGE`: float32, bf16, float16): K6 reads Z_raw, K7's moments
+Z_orig and K10 Z_orig in it, K10 writes Z_corr and K11 R in it; each
+kernel is one instance per storage type, chosen by an int argument
+(:func:`storage_code`), whose arithmetic is the float32 form's on the upcast
+values, so a 2-byte output is the float32 form's value rounded to nearest
+even. G, Zn, the penalty tables, sigma and the betas stay float32; K7's E
+and O come in and go out in their own dtype (float32 copies at the
+boundary), as its R does where it writes one.
+
+Under ``cfg.bf16_products`` (a reduced-precision engine under the
+resolved 'bfloat16') K6 and K11 form g = Y^T Zn, and K10 its W R, in the
+bf16 product form (rotate.cu's kMma instances): both operands rounded to
+bf16, products on the tensor cores, sums in fp32; the wrappers hand over
+Y^T (:func:`y_bf16`) and the betas (:func:`w_bf16`) rounded to bf16 in the
+layout the fragments load. K11 shares K6's routine, so its g keeps G's
+bits and its R stays K7's. rotate.cu's instances lie in six libraries
+(its ROTATE_PART; :func:`_lib_for`, :func:`_k10_lib`, :func:`_k11_lib`).
 
 For CPU tensors each wrapper runs its plain version; anything else
 raises. ``launches`` counts calls into the kernels' C entry points (1 per
@@ -70,8 +80,9 @@ from .cuda_ridge import _ceil4, _table_on, plan_order, sum_joint_rows
 from .rotate import CodesLayout, MomentsSpec, RoundState
 
 _F32 = torch.float32
-# the storage dtypes the four kernels read and write (their bf16 instances)
-STORAGE = (torch.float32, torch.bfloat16)
+# the storage dtypes the four kernels read and write, in the order of the
+# storage code their C entry points take (:func:`storage_code`)
+STORAGE = (torch.float32, torch.bfloat16, torch.float16)
 _SMEM_MAX = 232_448  # bytes of shared memory a CTA may use on Hopper
 _CT = 64  # cells per piece (kCT in rotate.cu)
 _WARPS = 8
@@ -80,22 +91,76 @@ _SIGNATURES = {
     "k7_commit": [_build.PTR, _build.INT, _build.INT, _build.INT, _build.INT,
                   _build.INT, _build.PTR, _build.PTR, _build.INT, _build.INT]
     + [_build.PTR] * 9 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [_build.PTR],
-    "k6_occupancy": [_build.INT, _build.INT],
-    "k6_reassign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 12 + [_build.PTR],
-    "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 16
+    "k6_occupancy": [_build.INT] * 3,
+    "k6_reassign": [_build.PTR] * 14 + [_build.I64] + [_build.INT] * 15 + [_build.PTR],
+    "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 19
     + [_build.PTR],
-    "k11_materialize_r": [_build.PTR] * 8 + [_build.I64] + [_build.INT] * 12 + [_build.PTR],
+    "k11_materialize_r": [_build.PTR] * 8 + [_build.I64] + [_build.INT] * 15 + [_build.PTR],
 }
+# the entry points of each library of rotate.cu's parts (its ROTATE_PART)
+_PART_ENTRIES = {"rotate": ("k7_assign", "k7_commit", "k6_occupancy", "k6_reassign",
+                            "k11_materialize_r"),
+                 "rotate_tiles": ("k7_assign", "k10_virtual_correction"),
+                 "rotate_k10": ("k10_virtual_correction",),
+                 "rotate_mma": ("k10_virtual_correction",),
+                 "rotate_mma_tiles": ("k10_virtual_correction",),
+                 "rotate_k11_mma": ("k11_materialize_r",)}
+
+
+def _lib(name: str):
+    """One library of rotate.cu's parts, built at first use."""
+    return _build.load(name, {k: _SIGNATURES[k] for k in _PART_ENTRIES[name]})
 
 
 def _lib_for(tw: int):
-    """The library whose K7 moments and K10 instances take layout tiles of
-    ``tw`` cells: rotate.cu's where they are whole 64-cell pieces, else
-    rotate_tiles.cu's (its k7_assign and k10_virtual_correction only)."""
-    if tw % _CT == 0:
-        return _build.load("rotate", _SIGNATURES)
-    return _build.load("rotate_tiles", {k: _SIGNATURES[k] for k in
-                                        ("k7_assign", "k10_virtual_correction")})
+    """The library whose K7 moments take layout tiles of ``tw`` cells:
+    rotate.cu's where they are whole 64-cell pieces, else rotate_tiles.cu's."""
+    return _lib("rotate" if tw % _CT == 0 else "rotate_tiles")
+
+
+def _k10_lib(tw: int, mma: bool):
+    """The library holding K10 on layout tiles of ``tw`` cells in the
+    product form ``mma`` (rotate.cu's ROTATE_PART table)."""
+    whole = tw % _V_CELLS == 0
+    if mma:
+        return _lib("rotate_mma" if whole else "rotate_mma_tiles")
+    return _lib("rotate_k10" if whole else "rotate_tiles")
+
+
+def _k11_lib(mma: bool):
+    """The library holding K11 in the product form ``mma``."""
+    return _lib("rotate_k11_mma" if mma else "rotate")
+
+
+def _ceil16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def mma_stride(n: int) -> int:
+    """The row stride, in bf16 values, of a product form's operand table of
+    depth ``n``: n rounded up to 16, plus 8, so a row is 4 mod 8 words and
+    an mma fragment's 8 rows x 4 words meet 32 banks (rotate.cu)."""
+    return _ceil16(n) + 8
+
+
+def y_bf16(Y: torch.Tensor, K8: int) -> torch.Tensor:
+    """Y^T (K, d) rounded to bf16 (to nearest even) as K6 and K11 read it in
+    the product form: (K8, mma_stride(d)), zero past K and d."""
+    d, K = Y.shape
+    Yb = torch.zeros((K8, mma_stride(d)), dtype=torch.bfloat16, device=Y.device)
+    Yb[:K, :d] = Y.t()
+    return Yb
+
+
+def w_bf16(W_joint: torch.Tensor) -> torch.Tensor:
+    """The betas (n_joint + 1, d, K) rounded to bf16 as K10 reads them in
+    the product form: (n_joint + 1, d rounded up to 16, mma_stride(K)),
+    zero past d and K."""
+    nj1, d, K = W_joint.shape
+    Wb = torch.zeros((nj1, _ceil16(d), mma_stride(K)), dtype=torch.bfloat16,
+                     device=W_joint.device)
+    Wb[:, :d, :K] = W_joint
+    return Wb
 
 
 def assign_smem_bytes(K: int, d: int, B: int, ncov: int, moments: bool = False) -> int:
@@ -113,21 +178,24 @@ _LP = _CT + 4  # kLP: the row stride of K6's (K8 x 64) table
 _SPLITS = (4, 2, 1)  # K6: cell splits of the design sums, the most that fit first
 
 
-def reassign_smem_bytes(K: int, d: int, B: int, ncov: int, splits: int) -> int:
+def reassign_smem_bytes(K: int, d: int, B: int, ncov: int, splits: int,
+                        mma: bool = False) -> int:
     """Shared memory of one K6 assign CTA with ``splits`` cell splits of
-    the design sums (layout in rotate.cu)."""
+    the design sums (layout in rotate.cu); ``mma``: the product form, whose
+    Y^T and piece are bf16 tables (K8 and 64 rows of mma_stride(d))."""
     K8 = -(-K // 8) * 8
-    floats = (d * K8 + 2 * d * _CT + K8 * _LP + 2 * ncov * _CT + splits * K * B + 4 * _CT
-              + (K8 // 8 + 1) * _CT + K + ncov)
+    S = mma_stride(d)
+    floats = ((K8 * S // 2 + 32 * S if mma else d * K8) + 2 * d * _CT + K8 * _LP
+              + 2 * ncov * _CT + splits * K * B + 4 * _CT + (K8 // 8 + 1) * _CT + K + ncov)
     return 4 * floats
 
 
-def reassign_plan(K: int, d: int, B: int, ncov: int) -> Tuple[int, int]:
+def reassign_plan(K: int, d: int, B: int, ncov: int, mma: bool = False) -> Tuple[int, int]:
     """(splits, shared memory bytes) of a K6 assign CTA: the most cell
     splits (4, 2, 1) whose (cluster, split) threads a CTA's 256 hold and
     whose tables fit; raises where one split does not fit."""
     for h in _SPLITS:
-        smem = reassign_smem_bytes(K, d, B, ncov, h)
+        smem = reassign_smem_bytes(K, d, B, ncov, h, mma)
         if (h == 1 or h * K <= 256) and smem <= _SMEM_MAX:
             return h, smem
     raise ValueError(f"reassign: K={K}, d={d}, B={B} need {smem} bytes of shared memory "
@@ -141,19 +209,20 @@ def reduce_chunks(K: int, B: int) -> int:
 
 
 @functools.lru_cache(maxsize=16)
-def _k6_grid(smem: int, n_sm: int, zbf16: int) -> int:
-    """The K6 assign CTAs the card holds at once (the instance reading
-    float32 or, ``zbf16``, bf16 Z)."""
-    n = _build.load("rotate", _SIGNATURES).k6_occupancy(smem, zbf16)
+def _k6_grid(smem: int, n_sm: int, code: int, mma: bool) -> int:
+    """The K6 assign CTAs the card holds at once (the instance reading Z in
+    the storage ``code``, in the product form ``mma``)."""
+    n = _lib("rotate").k6_occupancy(smem, code, int(mma))
     if n <= 0:
         raise RuntimeError(f"k6_occupancy: K6 fits no CTA on an SM (CUDA error {-n})")
     return n_sm * n
 
 
-def bf16(t: torch.Tensor) -> int:
-    """The storage argument of K6, K7, K10 and K11: 1 where the tensor the
-    kernel reads or writes in the storage dtype is bf16, 0 for float32."""
-    return int(t.dtype == torch.bfloat16)
+def storage_code(t: torch.Tensor) -> int:
+    """The storage argument of K6, K7, K10 and K11: the index in
+    :data:`STORAGE` of the dtype of the tensor the kernel reads or writes
+    in storage (0 float32, 1 bf16, 2 float16)."""
+    return STORAGE.index(t.dtype)
 
 
 def legacy(cfg: HarmonyConfig) -> int:
@@ -173,13 +242,17 @@ def chain_lanes(K: int) -> int:
 
 
 def materialize_r_smem_bytes(K: int, d: int, B: int, ncov: int, kj: int,
-                             ys_shared: bool) -> int:
+                             ys_shared: bool, mma: bool = False) -> int:
     """Shared memory of one K11 CTA (layout in rotate.cu): the centroids
-    (d x K8, if staged), a piece's Zn, then with v_chain (kj > 0) its g, a
-    row of K a cell, and its (K x 68) R table, with assign_chain (kj == 0)
-    one (K x 65) table and sigma and 2/sigma; the block's penalty table;
-    the piece's codes; the offsets. Each part whole float4s."""
-    f = (d * _ceil(K, 8) if ys_shared else 0) + d * _CT
+    (d x K8, if staged; the product form ``mma``: Y^T in bf16, K8 rows of
+    mma_stride(d)), a piece's Zn (and with ``mma`` its (64 x mma_stride(d))
+    bf16 table), then with v_chain (kj > 0) its g, a row of K a cell, and
+    its (K x 68) R table, with assign_chain (kj == 0) one (K x 65) table
+    and sigma and 2/sigma; the block's penalty table; the piece's codes;
+    the offsets. Each part whole float4s."""
+    K8, S = _ceil(K, 8), mma_stride(d)
+    f = ((K8 * S // 2 if mma else d * K8) if ys_shared else 0) + d * _CT
+    f += 32 * S if mma else 0
     f += _CT * K + K * _V_LP if kj else _ceil(K * (_CT + 1), 4) + _ceil(2 * K, 4)
     return 4 * (f + _ceil(K * B, 4) + ncov * _CT + _ceil(ncov, 4))
 
@@ -190,14 +263,14 @@ class K11Plan(NamedTuple):
     smem: int  # bytes of shared memory a CTA
 
 
-def materialize_r_plan(K: int, d: int, B: int, ncov: int) -> K11Plan:
-    """K11's form at K, d, B and covariates: v_chain (to 256 clusters)
-    with the centroids staged where that fits, else assign_chain with them
-    staged, else assign_chain reading them where they lie. Raises where
-    none fits."""
+def materialize_r_plan(K: int, d: int, B: int, ncov: int, mma: bool = False) -> K11Plan:
+    """K11's form at K, d, B and covariates (in the product form ``mma``):
+    v_chain (to 256 clusters) with the centroids staged where that fits,
+    else assign_chain with them staged, else assign_chain reading them
+    where they lie. Raises where none fits."""
     kj = chain_lanes(K)
     for c, ys in ([(kj, True)] if kj else []) + [(0, True), (0, False)]:
-        smem = materialize_r_smem_bytes(K, d, B, ncov, c, ys)
+        smem = materialize_r_smem_bytes(K, d, B, ncov, c, ys, mma)
         if smem <= _SMEM_MAX:
             return K11Plan(c, ys, smem)
     raise ValueError(f"materialize_r: K={K}, d={d}, B={B} need {smem} bytes of shared memory "
@@ -221,17 +294,22 @@ def materialize_r_grid(n_pieces: int, smem: int, n_sm: int) -> int:
 _V_CELLS, _V_LP, _V_CORR_WARPS, _V_GROUPS, _V_MAX_K = 64, 68, 12, 2, 256
 
 
-def virtual_smem_bytes(K: int, d: int, B: int, ncov: int, span: int, groups: int) -> int:
+def virtual_smem_bytes(K: int, d: int, B: int, ncov: int, span: int, groups: int,
+                       mma: bool = False) -> int:
     """Shared memory of K10's CTA (layout in rotate.cu) with ``groups``
-    correction groups: each group's betas; two steps' rows of G, block
-    tables and codes; one R table more than groups; its range of ``span``
+    correction groups: each group's betas (the product form ``mma``: a
+    bf16 table of d rounded up to 16 rows of mma_stride(K)); two steps'
+    rows of G, block tables and codes; one R table more than groups (K
+    rows, K rounded up to 16 in the product form); its range of ``span``
     layout tiles (tile, joint, block)."""
-    floats = (groups * K * _ceil4(d) + 2 * _V_CELLS * K + (groups + 1) * K * _V_LP
+    betas = _ceil16(d) * mma_stride(K) // 2 if mma else K * _ceil4(d)
+    floats = (groups * betas + 2 * _V_CELLS * K + (groups + 1) * (_ceil16(K) if mma else K) * _V_LP
               + 2 * (-(-K * B // 4) * 4))
     return 4 * (floats + 2 * ncov * _V_CELLS + 3 * span + ncov)
 
 
-def virtual_plan(K: int, d: int, B: int, ncov: int, span: int) -> Optional[Tuple[int, int]]:
+def virtual_plan(K: int, d: int, B: int, ncov: int, span: int,
+                 mma: bool = False) -> Optional[Tuple[int, int]]:
     """(correction groups, shared memory bytes) of K10's CTA: two groups
     where both leave the chain eight warps (d <= 64) and fit, else one;
     None where K10 cannot take the shape: K over 256, d over 192 (the dims
@@ -240,7 +318,7 @@ def virtual_plan(K: int, d: int, B: int, ncov: int, span: int) -> Optional[Tuple
     if K > _V_MAX_K or warps > _V_CORR_WARPS:
         return None
     for groups in range(_V_GROUPS if _V_GROUPS * warps <= 8 else 1, 0, -1):
-        smem = virtual_smem_bytes(K, d, B, ncov, span, groups)
+        smem = virtual_smem_bytes(K, d, B, ncov, span, groups, mma)
         if smem <= _SMEM_MAX:
             return groups, smem
     return None
@@ -251,7 +329,8 @@ def _k10_plan(cfg: HarmonyConfig, d: int, n_tiles: int, dev):
     CTA an SM, each over an equal range of at most ``span`` tiles."""
     grid = min(n_tiles, _sm_count(dev))
     span = -(-n_tiles // grid)
-    return grid, span, virtual_plan(cfg.K, d, cfg.B, cfg.n_covariates, span)
+    return grid, span, virtual_plan(cfg.K, d, cfg.B, cfg.n_covariates, span,
+                                    cfg.bf16_products)
 
 
 def k10_fits(cfg: HarmonyConfig, d: int, n_tiles: int, dev) -> bool:
@@ -289,8 +368,8 @@ def _check(where: str, cfg: HarmonyConfig, floats: dict, codes: torch.Tensor,
             raise TypeError(f"{where}: {name} must be contiguous float32")
     for name, t in storage.items():
         if t.dtype not in STORAGE or not t.is_contiguous():
-            raise TypeError(f"{where}: {name} must be contiguous float32 or bfloat16, "
-                            f"got {t.dtype}")
+            raise TypeError(f"{where}: {name} must be contiguous float32, bfloat16 or "
+                            f"float16, got {t.dtype}")
     if codes.dtype != torch.int32 or not codes.is_contiguous():
         raise TypeError(f"{where}: codes must be contiguous int32")
     T = cfg.estep_sub_tile
@@ -338,7 +417,8 @@ def reassign(
     codes_pad: torch.Tensor,  # (ncov, NT*T) int32; pads -B-1
 ):
     """K6; returns (Zn (d, NT*T), tile_O (NT, K, B), O (K, B), E (K, B),
-    G (NT*T, K)), all float32; Z_raw float32 or bf16."""
+    G (NT*T, K)), all float32; Z_raw float32, bf16 or float16; G in the
+    bf16 product form under ``cfg.bf16_products``."""
     _check("reassign", cfg, {"Y": Y, "sigma": sigma, "Pr_b": Pr_b}, codes_pad,
            {"Z_raw": Z_raw})
     if Z_raw.device.type == "cpu":
@@ -350,9 +430,12 @@ def reassign(
     if Z_raw.data_ptr() % 16 or codes_pad.data_ptr() % 16:
         raise ValueError("reassign: Z_raw and codes_pad must start on 16-byte boundaries "
                          "(the kernel copies 16 bytes at a time)")
-    splits, smem = reassign_plan(K, d, B, cfg.n_covariates)
-    grid = min(L // _CT, _k6_grid(smem, _sm_count(dev), bf16(Z_raw)))
+    mma = cfg.bf16_products
+    splits, smem = reassign_plan(K, d, B, cfg.n_covariates, mma)
+    grid = min(L // _CT, _k6_grid(smem, _sm_count(dev), storage_code(Z_raw), mma))
+    K8 = -(-K // 8) * 8
     Yt = Y.t().contiguous()
+    Yb = y_bf16(Y, K8) if mma else None
     Zn = torch.empty((d, L), dtype=_F32, device=dev)
     G = torch.empty((L, K), dtype=_F32, device=dev)
     part = torch.empty((L // _CT, K * B), dtype=_F32, device=dev)
@@ -362,15 +445,14 @@ def reassign(
     # the reduce's arrival counts, zeroed by the assign launch
     n_chunk = reduce_chunks(K, B)
     count = torch.empty(n_chunk + 1, dtype=torch.int32, device=dev)
-    lib = _build.load("rotate", _SIGNATURES)
-    _build.check(lib.k6_reassign(
-        Yt.data_ptr(), Z_raw.data_ptr(), codes_pad.data_ptr(),
-        _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), sigma.data_ptr(),
-        Pr_b.data_ptr(),
+    _build.check(_lib("rotate").k6_reassign(
+        Yt.data_ptr(), None if Yb is None else Yb.data_ptr(), Z_raw.data_ptr(),
+        codes_pad.data_ptr(), _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(),
+        sigma.data_ptr(), Pr_b.data_ptr(),
         Zn.data_ptr(), G.data_ptr(), part.data_ptr(), tile_O.data_ptr(), O.data_ptr(),
         E.data_ptr(), count.data_ptr(), L, NT, K, d, B, cfg.n_covariates, cfg.B_vec[0],
-        -(-K // 8) * 8, splits, grid, n_chunk, bf16(Z_raw), smem,
-        torch.cuda.current_stream(dev).cuda_stream,
+        K8, splits, grid, n_chunk, storage_code(Z_raw), int(mma), mma_stride(d), _ceil16(d),
+        smem, torch.cuda.current_stream(dev).cuda_stream,
     ), "k6_reassign")
     reassign.launches += 1
     return Zn, tile_O, O, E, G
@@ -397,7 +479,8 @@ def rotate_update_round_v2(
     from the phase's Gram table ``layout.G`` (K6's); with ``moments`` and
     ``emit_pen`` the extras of a phase's last round. R, E and O come back
     in the dtypes of ``rs``'s (the kernel's float32 cast, as
-    pallas_rotate.py:1036-1043 casts), and ``moments.Z_orig`` may be bf16."""
+    pallas_rotate.py:1036-1043 casts), and ``moments.Z_orig`` may be bf16
+    or float16."""
     floats = {"Y": Y, "tile_O": rs.tile_O, "Pr_b": Pr_b, "sigma": sigma, "theta": theta,
               "Z_pad": layout.Z_pad}
     storage = {"R": rs.R, "E": rs.E, "O": rs.O}
@@ -453,7 +536,7 @@ def rotate_update_round_v2(
     pen_out = torch.empty((len(szs), K, B), dtype=_F32, device=dev) if emit_pen else None
     part = torch.empty((max(szs) * cpt, K * B + 2), dtype=_F32, device=dev)
     offsets = _offsets_on(cfg.covariate_offsets, str(dev))
-    lib, alib = _build.load("rotate", _SIGNATURES), _lib_for(tw)
+    lib, alib = _lib("rotate"), _lib_for(tw)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
     # the launches' pointer arguments, read once: the loop below issues
@@ -466,7 +549,7 @@ def rotate_update_round_v2(
     c_tail = (E_w.data_ptr(), O_w.data_ptr(), Pr_b.data_ptr(), theta.data_ptr(),
               pen.data_ptr(), logpen.data_ptr(), ptr(pen_out))
     c_acc, d1p, lg = acc.data_ptr(), _ceil4(d + 1), legacy(cfg)
-    zbf = bf16(moments.Z_orig) if moments is not None else 0
+    zst = storage_code(moments.Z_orig) if moments is not None else 0
 
     def commit(add_blk: int, rm_blk: int, first: bool) -> None:
         v0, nt = ((vstart[add_blk] + rt) % NT, szs[add_blk]) if add_blk >= 0 else (0, 0)
@@ -483,7 +566,7 @@ def rotate_update_round_v2(
     for i, blk in enumerate(order):
         _build.check(alib.k7_assign(
             *a_ptrs, L, (vstart[blk] + rt) % NT, szs[blk], NT, cpt, tw, K, d, B, ncov, d1p,
-            lg, zbf, smem, stream,
+            lg, zst, smem, stream,
         ), "k7_assign")
         rotate_update_round_v2.launches += 1
         commit(blk, order[i + 1] if i + 1 < len(order) else -1, False)
@@ -534,7 +617,9 @@ def virtual_correction(
     """K10: Z_corr (d, Npt) = Z_orig - W_joint[joint(tile)] R, R recomputed
     from the penalty tables and the phase's Gram table ``G``, which the
     kernel needs; the plain version forms g from Y and Zn without it.
-    Z_orig float32 or bf16; Z_corr comes back in its dtype."""
+    Z_orig float32, bf16 or float16; Z_corr comes back in its dtype. Under
+    ``cfg.bf16_products`` W R takes the bf16 product form, which the
+    kernel runs on 2-byte storage only (a float32 engine takes none)."""
     floats = {"Y": Y, "sigma": sigma, "pen": pen, "Zn_pad": Zn_pad, "W_joint": W_joint}
     if G is not None:
         floats["G"] = G
@@ -566,19 +651,23 @@ def virtual_correction(
             f"{virtual_smem_bytes(K, d, B, cfg.n_covariates, span, 1)} bytes of shared "
             f"memory within {_SMEM_MAX} (K11 then K9 take the rest: k10_fits)")
     groups, smem = plan
+    mma = cfg.bf16_products
+    if mma and Z_orig_pad.dtype == _F32:
+        raise TypeError("virtual_correction: the bf16 product form takes Z_orig in bf16 or "
+                        "float16 (a reduced-precision engine's), got float32")
+    Wk = w_bf16(W_joint) if mma else W_joint
     Zc = torch.empty_like(Z_orig_pad)
     if any(t.data_ptr() % 16 for t in (G, codes_pad, Z_orig_pad, Zc)):
         raise ValueError("virtual_correction: G, codes_pad and Z_orig_pad must start on "
                          "16-byte boundaries (the kernel copies 16 bytes at a time)")
-    _build.check(_lib_for(layout_tile).k10_virtual_correction(
+    _build.check(_k10_lib(layout_tile, mma).k10_virtual_correction(
         G.data_ptr(), codes_pad.data_ptr(),
         _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), pen.data_ptr(),
-        blk_of_phys.data_ptr(), sigma.data_ptr(), W_joint.data_ptr(), order.data_ptr(),
+        blk_of_phys.data_ptr(), sigma.data_ptr(), Wk.data_ptr(), order.data_ptr(),
         _table_on(tj.tobytes(), str(dev)).data_ptr(), Z_orig_pad.data_ptr(), Zc.data_ptr(),
         L, n, span, T, layout_tile, tile_steps(layout_tile), nj1 - 1, K, d, _ceil4(d), B,
-        cfg.n_covariates, groups,
-        legacy(cfg), bf16(Z_orig_pad), grid, smem,
-        torch.cuda.current_stream(dev).cuda_stream,
+        cfg.n_covariates, groups, legacy(cfg), storage_code(Z_orig_pad), int(mma),
+        mma_stride(K), _ceil16(d), grid, smem, torch.cuda.current_stream(dev).cuda_stream,
     ), "k10_virtual_correction")
     virtual_correction.launches += 1
     return Zc
@@ -598,32 +687,37 @@ def materialize_r(
     out_dtype=None,
 ) -> torch.Tensor:
     """K11: the last round's R (K, Np), rebuilt from the penalty tables, in
-    ``out_dtype`` (float32 by default, or bf16: the kernel stores each
-    value rounded to nearest even, as pallas_rotate.py:1642-1645 casts)."""
+    ``out_dtype`` (float32 by default, or bf16 or float16: the kernel
+    stores each value rounded to nearest even, as pallas_rotate.py:
+    1642-1645 casts); g in the bf16 product form under
+    ``cfg.bf16_products``, K6's."""
     floats = {"Y": Y, "sigma": sigma, "pen": pen, "Zn_pad": Zn_pad}
     if not _check_virtual("materialize_r", cfg, floats, codes_pad, blk_of_phys):
         return rotate.materialize_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad,
                                     out_dtype)
     out_dtype = out_dtype or _F32
     if out_dtype not in STORAGE:
-        raise TypeError(f"materialize_r: the kernel writes float32 or bfloat16, not {out_dtype}")
+        raise TypeError(f"materialize_r: the kernel writes float32, bfloat16 or float16, not "
+                        f"{out_dtype}")
     K, B, T = cfg.K, cfg.B, cfg.estep_sub_tile
     d, L = Zn_pad.shape
     dev = Zn_pad.device
     if Zn_pad.data_ptr() % 16 or codes_pad.data_ptr() % 16:
         raise ValueError("materialize_r: Zn_pad and codes_pad must start on 16-byte boundaries "
                          "(the kernel copies 16 bytes at a time)")
-    plan = materialize_r_plan(K, d, B, cfg.n_covariates)
+    mma = cfg.bf16_products
+    plan = materialize_r_plan(K, d, B, cfg.n_covariates, mma)
     K8 = _ceil(K, 8)
-    # the centroids as the kernel reads them, (d, K8), zero past K
-    Yp = torch.nn.functional.pad(Y, (0, K8 - K)).contiguous()
+    # the centroids as the kernel reads them: (d, K8), zero past K, or in
+    # the product form Y^T in bf16 as K6 reads it
+    Yp = y_bf16(Y, K8) if mma else torch.nn.functional.pad(Y, (0, K8 - K)).contiguous()
     R = torch.empty((K, L), dtype=out_dtype, device=dev)
-    lib = _build.load("rotate", _SIGNATURES)
-    _build.check(lib.k11_materialize_r(
+    _build.check(_k11_lib(mma).k11_materialize_r(
         Yp.data_ptr(), Zn_pad.data_ptr(), codes_pad.data_ptr(),
         _offsets_on(cfg.covariate_offsets, str(dev)).data_ptr(), pen.data_ptr(),
         blk_of_phys.data_ptr(), sigma.data_ptr(), R.data_ptr(), L, T, K, d, B,
-        cfg.n_covariates, K8, plan.kj, int(plan.ys_shared), legacy(cfg), bf16(R),
+        cfg.n_covariates, K8, plan.kj, int(plan.ys_shared), legacy(cfg), storage_code(R),
+        int(mma), mma_stride(d), _ceil16(d),
         materialize_r_grid(L // _CT, plan.smem, _sm_count(dev)), plan.smem,
         torch.cuda.current_stream(dev).cuda_stream,
     ), "k11_materialize_r")

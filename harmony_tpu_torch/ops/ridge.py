@@ -580,7 +580,13 @@ def _virtual_tail_r(cfg, virt, n_pure, mesh=None):
         pcc = virt.pen[blk, :, code].t()  # (K, tail)
         pc = pcc if pc is None else pc + pcc
     pc = pc * valid[None, :]
-    g = virt.Y.t().to(_F32) @ Zn_t
+    Yt = virt.Y.t().to(_F32)
+    if cfg.bf16_products:
+        # g as K7's rounds read it (K6's bf16 product form)
+        from .rotate import bf16_operand
+
+        Yt, Zn_t = bf16_operand(Yt), bf16_operand(Zn_t)
+    g = Yt @ Zn_t
     sigma = virt.sigma.to(_F32)[:, None]
     if cfg.estep_variant == "legacy":
         e = torch.exp(-(2.0 * (1.0 - g)) / sigma)

@@ -33,6 +33,12 @@ from g, as the three kernels run one routine's operations; K7's and
 K10's read g from G where given (their kernels always do), K11's forms it
 from Zn, as its kernel does.
 
+Under :attr:`HarmonyConfig.bf16_products` (a reduced-precision engine
+under the resolved 'bfloat16') g = Y^T Zn and K10's W R take the bf16
+product form, as their kernels do: both operands rounded to bf16
+(:func:`bf16_operand`), then an fp32 product, so a twin and its kernel
+differ only in the order of the fp32 sums.
+
 Schedule: cells were shuffled once at ingest; virtual tile v holds
 physical tile (v + rt) mod NT for a per-round rotation rt, and the nb
 blocks are contiguous runs of virtual tiles processed in a per-round
@@ -110,6 +116,13 @@ class VirtualR(NamedTuple):
     # crossed from the JAX package (the correction then writes R with K11
     # and applies it with K9: ops.ridge.virtual_tile_correction)
     G: Optional[torch.Tensor] = None
+
+
+def bf16_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (round to nearest even) and held in float32:
+    an operand of the bf16 product form. The product of two such values is
+    exact in float32."""
+    return t.to(torch.bfloat16).to(_F32)
 
 
 def n_tiles(cfg: HarmonyConfig) -> int:
@@ -272,14 +285,18 @@ def reassign(
 
     Returns (Zn (d, NT*T), tile_O (NT, K, B), O (K, B), E (K, B), G (NT*T,
     K)); E is rowsums(R) Pr_b^T with the row sums from covariate 0's block
-    of O; G is (Y^T Zn)^T, cell-major."""
+    of O; G is (Y^T Zn)^T, cell-major, in the bf16 product form under
+    ``cfg.bf16_products``."""
     d, Npt = Z_raw.shape
     T = cfg.estep_sub_tile
     NT = Npt // T
     Zf = Z_raw.to(_F32)
     nrm = torch.sqrt((Zf * Zf).sum(dim=0, keepdim=True))
     Zn = Zf / torch.where(nrm == 0.0, torch.ones_like(nrm), nrm)
-    g = Y.t().to(_F32) @ Zn  # (K, Npt)
+    Yt, Zg = Y.t().to(_F32), Zn
+    if cfg.bf16_products:
+        Yt, Zg = bf16_operand(Yt), bf16_operand(Zn)
+    g = Yt @ Zg  # (K, Npt)
     e = torch.exp((g - 1.0) * (2.0 / sigma.to(_F32))[:, None])
     R_n = e * (codes_pad[0] >= 0).to(_F32)[None, :]
     colsum = R_n.sum(dim=0, keepdim=True)
@@ -292,9 +309,12 @@ def reassign(
     return Zn, tile_O, O, E, g.t().contiguous()
 
 
-def _gram_tiles(Yt, Z3):
-    """g = Y^T z (K, n, T) of ``n`` tiles Z3 (d, n, T)."""
+def _gram_tiles(Yt, Z3, bf16: bool = False):
+    """g = Y^T z (K, n, T) of ``n`` tiles Z3 (d, n, T); ``bf16``: in the
+    bf16 product form (:func:`bf16_operand`)."""
     d, n, T = Z3.shape
+    if bf16:
+        Yt, Z3 = bf16_operand(Yt), bf16_operand(Z3)
     return (Yt @ Z3.reshape(d, n * T)).reshape(-1, n, T)
 
 
@@ -407,7 +427,7 @@ def rotate_update_round_v2(
         if emit_pen:
             pen_out[blk] = pen
         tiles = torch.as_tensor(block_tiles(cfg, rt, blk, NT), device=Y.device)
-        g = (_gram_tiles(Yt, Z3.index_select(1, tiles)) if G3 is None
+        g = (_gram_tiles(Yt, Z3.index_select(1, tiles), cfg.bf16_products) if G3 is None
              else G3.index_select(0, tiles).permute(2, 0, 1))
         R_n, tO, s_rd, ent = _assign_tiles(cfg, g, c3.index_select(1, tiles), pen, logpen,
                                            sig)
@@ -520,7 +540,7 @@ def _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, out_dtype=Non
     for b in range(pen.shape[0]):
         tiles = (blkmap == b).nonzero().squeeze(1)
         if tiles.numel():
-            g = (_gram_tiles(Yt, Z3.index_select(1, tiles)) if G3 is None
+            g = (_gram_tiles(Yt, Z3.index_select(1, tiles), cfg.bf16_products) if G3 is None
                  else G3.index_select(0, tiles).permute(2, 0, 1))
             R[:, tiles] = _assign_r(cfg, g, c3.index_select(1, tiles), pen[b].to(_F32),
                                     sig)[0].to(R.dtype)
@@ -545,14 +565,18 @@ def virtual_correction(
     pallas_rotate.py:1493): Z_orig - W_joint[joint(tile)] R per layout
     tile, R recomputed from the penalty tables, g read from ``G`` where
     given (formed from Y and Zn without it). Mixed and pad tiles meet the
-    zero trash row and pass Z_orig through. Z_orig may be stored in bf16:
-    the correction runs in float32 and Z_corr comes back in Z_orig's dtype,
-    one round-to-nearest-even of the float32 value."""
+    zero trash row and pass Z_orig through. Z_orig may be stored in bf16
+    or float16: the correction runs in float32 and Z_corr comes back in
+    Z_orig's dtype, one round-to-nearest-even of the float32 value. Under
+    ``cfg.bf16_products`` W R takes the bf16 product form."""
     if G is not None and tuple(G.shape) != (Zn_pad.shape[1], pen.shape[1]):
         raise ValueError(f"virtual_correction: G must be ({Zn_pad.shape[1]}, {pen.shape[1]}), "
                          f"one row of g a cell of the layout, got {tuple(G.shape)}")
     R = _virtual_r(cfg, Y, sigma, pen, blk_of_phys, Zn_pad, codes_pad, G=G)
-    return tiled_correction_twin(W_joint.to(_F32), tile_joint, R, Z_orig_pad.to(_F32),
+    W = W_joint.to(_F32)
+    if cfg.bf16_products:
+        W, R = bf16_operand(W), bf16_operand(R)
+    return tiled_correction_twin(W, tile_joint, R, Z_orig_pad.to(_F32),
                                  layout_tile).to(Z_orig_pad.dtype)
 
 

@@ -13,7 +13,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from .config import (
-    HarmonyConfig, HarmonyConfigError, HarmonyOptions, default_nclust, dtype_name,
+    HarmonyConfig, HarmonyConfigError, HarmonyOptions, check_float16_batches, default_nclust,
+    dtype_name,
 )
 
 
@@ -214,7 +215,10 @@ def resolve_config(
     shuffle_mode: str = "permute",
     matmul_precision: str = "auto",
 ) -> HarmonyConfig:
-    """Assemble the static engine config (R/ui.R:133-150, 192-194)."""
+    """Assemble the static engine config (R/ui.R:133-150, 192-194). A
+    float16 engine with a batch past float16's range raises
+    (:func:`config.check_float16_batches`)."""
+    check_float16_batches(dtype, design.batch_sizes())
     if nclust is None:
         nclust = default_nclust(n_cells)
     nclust = max(int(nclust), 1)

@@ -220,11 +220,11 @@ def all_reduce_max(t: torch.Tensor, mesh: CellMesh) -> torch.Tensor:
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous bf16 tensor as its bytes (uint8, the same memory),
-    which every backend moves (gloo takes neither bf16 nor int16 on every
-    build); other tensors as they are. Broadcasts and gathers copy bits,
-    so no value changes."""
-    return t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
+    """A contiguous 2-byte float tensor (bf16, float16) as its bytes (uint8,
+    the same memory), which every backend moves (gloo takes neither bf16
+    nor int16 on every build); other tensors as they are. Broadcasts and
+    gathers copy bits, so no value changes."""
+    return t.view(torch.uint8) if t.is_floating_point() and t.element_size() == 2 else t
 
 
 def broadcast(t: torch.Tensor, mesh: CellMesh, src: int = 0) -> torch.Tensor:

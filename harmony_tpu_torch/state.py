@@ -27,7 +27,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .config import HarmonyConfig
+from .config import HarmonyConfig, check_float16_batches
 from .ops.normalize import l2_normalize_columns
 from .preprocess import DesignMatrix
 from .runtime import AsyncIngest, engine_cast
@@ -168,7 +168,9 @@ def init_state(
     times the scope ``ingest_normalize``. On a ``mesh`` the state holds
     this rank's columns: a device ``Z`` is the rank's (d, Np / size) slice,
     a host ``Z`` the whole (d, N) array, of which only the rank's columns
-    are copied; ``design`` is the whole design."""
+    are copied; ``design`` is the whole design. A float16 engine with a
+    batch past float16's range raises (:func:`config.check_float16_batches`)."""
+    check_float16_batches(cfg.dtype, design.batch_sizes())
     dev = torch.device(device)
     dtype = getattr(torch, cfg.dtype)
     codes = design.codes.astype(np.int32)
@@ -240,7 +242,8 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 def host_numpy(t: torch.Tensor) -> np.ndarray:
     """A host copy; bf16 as float32 holding the same values, which
-    ``.astype(jnp.bfloat16)`` turns back into the same bits."""
+    ``.astype(jnp.bfloat16)`` turns back into the same bits; float16 as
+    numpy's float16, bit for bit."""
     t = t.detach()
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
@@ -257,7 +260,8 @@ def state_from_arrays(
     virtual-R fields are carried where present and not None. Floating
     fields the engine stores in its dtype (``ENGINE_DTYPE_FIELDS``) are
     cast to ``cfg.dtype``: exact for the float32 arrays of
-    :func:`state_to_arrays` that hold a bf16 state's values. On a ``mesh``
+    :func:`state_to_arrays` that hold a bf16 state's values and for the
+    float16 arrays of a float16 state. On a ``mesh``
     the arrays are the global ones (the JAX package's layout) and the state
     takes this rank's part: its columns of :data:`CELL_FIELDS`, its rows
     of the stacked penalty tables and its tiles' entries of the tile ->
@@ -310,8 +314,9 @@ def state_to_arrays(state: HarmonyState, with_generator: bool = False,
                     mesh=None) -> Dict[str, np.ndarray]:
     """Every JAX state field as numpy (cursors as 0-d int32 arrays), the
     virtual-R fields only where set; bf16 fields as float32 arrays holding
-    their values. ``with_generator`` adds ``GENERATOR_FIELD``, the torch
-    generator's state (``get_state()``), so a state built from these arrays
+    their values, float16 fields as float16 arrays. ``with_generator``
+    adds ``GENERATOR_FIELD``, the torch generator's state
+    (``get_state()``), so a state built from these arrays
     continues the port's draws where this one stands. On a ``mesh`` the
     cell-axis fields are gathered (a collective: every rank calls it) into
     the JAX package's global arrays: the ranks' columns in rank order, the

@@ -99,7 +99,9 @@ def test_run_harmony_matches_between_kernel_and_torch_impls_on_cpu():
                      id="kwargs5-ROADMAP A9, reduced-precision engines"),
         pytest.param({"matmul_precision": "bfloat16"}, "bf16", id="kwargs6-ROADMAP A9"),
         pytest.param({"plot_convergence": True}, "plot", id="kwargs7-ROADMAP A10"),
-        ({"dtype": "float16"}, "ROADMAP A9, float16 engines"),
+        # ported: the float16 engine resolves and runs (the id is the one
+        # the case had while it raised)
+        pytest.param({"dtype": "float16"}, "f16", id="kwargs8-ROADMAP A9, float16 engines"),
     ],
 )
 def test_unported_paths_raise(kwargs, item, tmp_path, monkeypatch):
@@ -134,6 +136,14 @@ def test_unported_paths_raise(kwargs, item, tmp_path, monkeypatch):
         assert res.state.Z_corr.dtype == res.state.R.dtype == dt
         assert res.R.dtype == np.float32 and np.isfinite(res.embeddings).all()
         np.testing.assert_allclose(res.R.sum(0), 1.0, atol=5e-3)
+        return
+    if item == "f16":
+        # float16 is numpy's own: the result arrays are float16
+        res = run_harmony(Z, meta, ["dataset"], device="cpu", return_object=True, **kwargs)
+        assert res.config.matmul_precision == "bfloat16" and res.config.bf16_products
+        assert res.state.Z_corr.dtype == res.state.R.dtype == torch.float16
+        assert res.R.dtype == np.float16 and np.isfinite(res.embeddings).all()
+        np.testing.assert_allclose(res.R.astype(np.float64).sum(0), 1.0, atol=5e-3)
         return
     if item is None:
         # ported: on this permute run the virtual-R gate ignores it, as the

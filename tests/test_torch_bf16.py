@@ -118,8 +118,13 @@ def test_bf16_engine_resolves_as_the_jax_package(dtype, prec):
             dtype, p)
     with pytest.raises(tconfig.HarmonyConfigError, match="matmul_precision"):
         tconfig.finalize_engine_config(tconfig.HarmonyConfig(**{**kw, "matmul_precision": "x"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9, float16 engines"):
-        tconfig.finalize_engine_config(tconfig.HarmonyConfig(**{**kw, "dtype": "float16"}))
+    # the float16 engine resolves as the bf16 one does (it raised until ported)
+    f16 = {**kw, "dtype": "float16"}
+    cj = jconfig.finalize_engine_config(jconfig.HarmonyConfig(**f16, estep_impl="pallas"))
+    ct = tconfig.finalize_engine_config(tconfig.HarmonyConfig(**f16))
+    assert ct.matmul_precision == cj.matmul_precision == "bfloat16"
+    assert ct.virtual_r and cj.virtual_r and ct.bf16_products
+    assert (ct.estep_impl, ct.mstep_impl) == ("kernel", "kernel")
 
 
 def _storage(Z):
@@ -274,6 +279,10 @@ def _bf16_setup(B_vec, N, Np, virtual=True, seed=7):
 def test_moe_correct_ridge_on_bf16_matches_jax(path):
     setup = _bf16_setup((3,), 4000, 4096, virtual=path == "virtual")
     cj, ct = setup[:2]
+    # the port's fp32 products, which the JAX package computes on the CPU
+    # under any precision (the bf16 product form, K10's W R under the
+    # resolved 'bfloat16', is held to its twin in test_torch_bf16_products)
+    ct = dataclasses.replace(ct, matmul_precision="float32")
     sj, _, tiled_j, tiled_t = _states(cj, ct, *setup[2:])
     if path == "dense":
         # K4/K5's plain versions on the float32 copies the M-step makes

@@ -322,3 +322,31 @@ def test_bf16_checkpoint_bits(tmp_path, mode):
     _, st3 = tckpt.load_checkpoint(back, Z=Zt, design=td, extra_rounds=0, device="cpu")
     for f in fields:
         np.testing.assert_array_equal(_bits(getattr(st3, f)), _bits(getattr(st2, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("mode", ["minimal", "full"])
+def test_f16_checkpoint_bits(tmp_path, mode):
+    """A JAX float16 file (numpy float16 fields) loads in the port bit for
+    bit; the port writes float16 fields back, and they round-trip."""
+    cj, ct, jd, td, Zt, hj, _, Y0 = _slice_setup(4000, 4096, None)
+    cj = dataclasses.replace(cj, dtype="float16", matmul_precision="bfloat16")
+    sj = jstate.init_state(cj, Zt, jd, hj.sigma, hj.theta, hj.lamb, jax.random.PRNGKey(3))
+    sj = jengine.init_cluster_from(cj, sj, jnp.asarray(Y0))
+    path = str(tmp_path / "jax_f16")
+    jckpt.save_checkpoint(path, cj, sj, mode=mode)
+    with np.load(path + ".npz") as z:
+        assert z["Y"].dtype == np.float16
+    ct2, st2 = tckpt.load_checkpoint(path, Z=Zt, design=td, extra_rounds=0, device="cpu")
+    assert ct2.dtype == "float16" and st2.Y.dtype == torch.float16 and ct2.bf16_products
+    fields = ["Y", "O", "E", "sigma", "theta", "lamb", "Pr_b", "batch_sizes"]
+    fields += ["Z_corr", "Z_orig", "R"] if mode == "full" else []
+    for f in fields:
+        np.testing.assert_array_equal(getattr(st2, f).numpy().view(np.int16),
+                                      np.asarray(getattr(sj, f)).view(np.int16), err_msg=f)
+    back = str(tmp_path / "port_f16")
+    tckpt.save_checkpoint(back, ct2, st2, mode=mode)
+    with np.load(back + ".npz") as z:
+        assert z["Z_corr"].dtype == np.float16
+    _, st3 = tckpt.load_checkpoint(back, Z=Zt, design=td, extra_rounds=0, device="cpu")
+    for f in fields:
+        assert torch.equal(getattr(st3, f), getattr(st2, f)), f

@@ -51,7 +51,7 @@ from harmony_tpu_torch.ops.tiled import build_batch_tiled_order  # noqa: E402
 
 N, D, K, ROUNDS = 4096, 8, 8, 3
 SIZES = (4, 2, 1)  # the largest first: the others load its file
-DTYPES = ("float32", "bfloat16")
+DTYPES = ("float32", "bfloat16", "float16")
 RANK_TIMEOUT = 180.0
 
 
@@ -86,7 +86,7 @@ def problem(mesh, dtype: str):
 
 def _bits(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
-    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+    return (t.view(torch.int16) if t.dtype in (torch.bfloat16, torch.float16) else t).numpy()
 
 
 def _same(a, b) -> bool:
@@ -209,7 +209,7 @@ def test_round_trip_is_bit_equal_to_the_npz_round_trip(worlds, n, dtype):
         assert bool(o[f"{tag}/virtual"]) and bool(o[f"{tag}/no_G"])
         assert bool(o[f"{tag}/generator"])
         float_dtypes = set(o[f"{tag}/dtypes"]) - {"torch.int32", "torch.uint8"}
-        assert "torch.bfloat16" in float_dtypes if dtype == "bfloat16" else (
+        assert f"torch.{dtype}" in float_dtypes if dtype != "float32" else (
             float_dtypes == {"torch.float32"})
 
 

@@ -145,13 +145,16 @@ def test_finalize_resolves_impls_and_refuses_unported():
     # below n_blocks * 128 cells rotate takes the cell-granular round, untiled
     small = tconfig.finalize_engine_config(dataclasses.replace(base, shuffle_mode="rotate"))
     assert (small.rotate_route, small.Np, small.estep_sub_tile) == ("cell", 100, 4096)
-    # the bf16 engine resolves: the kernels, virtual R, the bf16 precision
-    # permission, as the JAX package resolves them; float16 still raises
+    # the bf16 and float16 engines resolve: the kernels, virtual R, the
+    # bf16 precision permission, as the JAX package resolves them
     bf = tconfig.finalize_engine_config(dataclasses.replace(base, dtype="bfloat16",
                                                             matmul_precision="auto"))
     assert (bf.estep_impl, bf.mstep_impl, bf.virtual_r, bf.matmul_precision) == (
         "kernel", "kernel", True, "bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9, float16 engines"):
-        tconfig.finalize_engine_config(dataclasses.replace(base, dtype="float16"))
+    f16 = tconfig.finalize_engine_config(dataclasses.replace(base, dtype="float16",
+                                                             matmul_precision="auto"))
+    assert (f16.estep_impl, f16.mstep_impl, f16.virtual_r, f16.matmul_precision) == (
+        "kernel", "kernel", True, "bfloat16")
+    assert f16.bf16_products and bf.bf16_products and not cfg.bf16_products
     with pytest.raises(tconfig.HarmonyConfigError):
         tconfig.finalize_engine_config(dataclasses.replace(base, estep_impl="pallas"))

@@ -25,7 +25,9 @@ Harmony rounds, lambda estimated, the same centroids on both sides.
   ``tests/test_torch_bf16_engine.py``'s bounds (objective rtol 5e-3,
   Z_corr relative Frobenius 5e-3, R's columns within 5e-3 of 1): virtual R
   with each shard's draws (K6, K7, K10 and K11's plain versions on bf16
-  storage) and the fused permute phase.
+  storage, the bf16 product form) and the fused permute phase; the
+  float16 engine's virtual R against the JAX float16 mesh engine at the
+  same bounds.
 * Shard-count invariance: the per-round permute schedule (N = 4,000) and
   the cell-granular round (N = 2,400, a cell route on one device too) on 2
   and 4 ranks with the port's own draws equal the port's one-device run
@@ -83,11 +85,13 @@ MODES = {
                          over={"virtual_r": True, "estep_sub_tile": 512}),
     "permute_bf16": dict(shuffle="permute", dtype="bfloat16", tiled=True,
                          over={"estep_sub_tile": 256}),
+    "virtual_f16": dict(shuffle="rotate", block=0.25, dtype="float16", tiled=True,
+                        over={"virtual_r": True, "estep_sub_tile": 512}),
 }
 # (mode, N, world size) held against the JAX mesh engine
 JAX_CASES = (("permute_rounds", 4000, 2), ("permute_rounds2", 4096, 4), ("segment", 4000, 4),
              ("cell_nocarry", 4096, 2), ("cell_small", 4094, 4), ("virtual_bf16", 4096, 2),
-             ("permute_bf16", 4096, 4))
+             ("permute_bf16", 4096, 4), ("virtual_f16", 4096, 2))
 # (mode, N) run with the port's own draws on every world size, held to the
 # port's one-device run
 OWN_CASES = (("permute_rounds", 4000), ("cell_small", 2400))
@@ -319,7 +323,7 @@ def test_mesh_route_matches_jax_mesh_engine(ranks, mode, N, n):
     tj = sj.trace_lists(cj)
     np.testing.assert_array_equal(o[cid + "/kmeans_rounds"], tj["kmeans_rounds"])
     nk, nh = len(tj["objective_kmeans"]), len(tj["objective_harmony"])
-    bf16 = MODES[mode].get("dtype") == "bfloat16"
+    bf16 = MODES[mode].get("dtype") in ("bfloat16", "float16")
     rtol = BF16_RTOL if bf16 else 1e-5
     np.testing.assert_allclose(o[cid + "/objective_kmeans"][:nk], tj["objective_kmeans"],
                                rtol=rtol)

@@ -2,10 +2,9 @@
 
 * ``finalize_engine_config``: the same sub-tile T and padded N as the JAX
   package's for several shapes (its ``estep_impl='auto'`` picks Pallas
-  only on a TPU, so it is given 'pallas'); the unported rotate options
-  (``dtype='float16'``) raise ``NotImplementedError`` naming their ROADMAP
-  item, and ``virtual_r=True``, ``rotate_stats_carry=False``,
-  ``estep_variant='legacy'``, ``dtype='bfloat16'`` and runs below
+  only on a TPU, so it is given 'pallas'); ``virtual_r=True``,
+  ``rotate_stats_carry=False``, ``estep_variant='legacy'``,
+  ``dtype='bfloat16'``, ``dtype='float16'`` and runs below
   ``n_blocks * 128`` cells resolve.
 * The K6 twin (``ops.rotate.reassign``) against ``pallas_reassign`` in
   interpret mode: Zn atol 1e-6; tile_O, O, E rtol 1e-5.
@@ -92,13 +91,14 @@ _PORTED_ROUTES = {"ROADMAP B, K12": "two_phase", "cell-granular rotate round": "
      ({"N": 2559}, "cell-granular rotate round"),
      ({"estep_variant": "legacy"}, "ROADMAP A9"),
      ({"mstep_mode": "segment"}, "segmented M-step"),
-     ({"dtype": "float16"}, "ROADMAP A9, float16 engines")],
+     # ported: the id is the one the case had while it raised
+     pytest.param({"dtype": "float16"}, "f16", id="change6-ROADMAP A9, float16 engines")],
 )
 def test_unported_rotate_options_raise(change, item):
     base = tconfig.HarmonyConfig(N=5000, d=4, K=3, B=2, B_vec=(2,), shuffle_mode="rotate")
-    if item == "bf16":
-        # the bf16 engine takes the stats-carrying route with virtual R,
-        # on the geometry of the float32 engine
+    if item in ("bf16", "f16"):
+        # the bf16 and float16 engines take the stats-carrying route with
+        # virtual R, on the geometry of the float32 engine
         cfg = tconfig.finalize_engine_config(dataclasses.replace(base, **change))
         assert (cfg.virtual_r, cfg.estep_impl, cfg.rotate_route) == (True, "kernel", "carry")
         assert (cfg.N_pad, cfg.estep_sub_tile) == (5120, 128)

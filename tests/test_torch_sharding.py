@@ -20,9 +20,8 @@ in one process (no ranks are started here).
 * ``initialize_distributed`` raises on a failed init and is idempotent.
 * Every mesh route ported in ROADMAP A11's part 2 (the per-round permute
   schedule, the cell-granular rotate round and ``rotate_stats_carry=False``,
-  the dense and segmented M-steps, the bf16 engine) resolves as the JAX
-  package resolves it on a mesh and passes the engine's route check;
-  float16 still raises.
+  the dense and segmented M-steps, the bf16 engine) and the float16
+  engine resolve as the JAX package resolves them on a mesh.
 """
 
 from __future__ import annotations
@@ -301,13 +300,9 @@ def test_mesh_routes_of_part_2_raise(n_cells, B, kw, route, monkeypatch):
     ported resolve on a 2-rank mesh as the JAX package resolves them there
     (its 'auto' as on a TPU: Pallas on the stats-carrying rotate route and
     the fused permute phase, XLA elsewhere; the same padded axis), take
-    the M-step layout it takes, and pass the engine's route check; the
-    float16 engine still raises, naming ROADMAP A9."""
+    the M-step layout it takes; so does the float16 engine, which raised
+    until it was ported."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    if route == "dtype='float16'":
-        with pytest.raises(NotImplementedError, match="float16.*ROADMAP A9, float16 engines"):
-            _resolve_both(n_cells, B, kw)
-        return
     ct, cj, layout = _resolve_both(n_cells, B, kw)
     assert ct.n_shards == 2 and ct.Np == cj.Np and ct.dtype == cj.dtype
     assert (cj.estep_impl == "pallas") == (ct.rotate_route == "carry" or ct.permute_fused)
@@ -321,21 +316,20 @@ def test_mesh_routes_of_part_2_raise(n_cells, B, kw, route, monkeypatch):
         # no batch-tiled order passes the mixture gate at 30 batches
         assert layout.tiled is None and layout.segments is None
         assert not cj.use_segments
-    if kw.get("dtype") == "bfloat16":
-        assert ct.virtual_r and cj.virtual_r
+    if kw.get("dtype") in ("bfloat16", "float16"):
+        assert ct.virtual_r and cj.virtual_r and ct.bf16_products
     # the batch-tiled M-step where the JAX package's ingest takes its order
     tj = cj.estep_impl == "pallas" and jtiled.choose_tiled_tile(
         cj, ttiled.count_joint_levels(_codes_of(n_cells, B)), n_shards=2)
     assert (layout.tiled is not None) == bool(tj)
-    tengine.check_mesh_route(ct)
 
 
 def test_written_r_rounds_on_a_mesh_raise(monkeypatch):
     """rotate_stats_carry=False has no run_harmony argument: on a mesh it
     resolves to the cell-granular round, as the JAX package's 'auto' takes
     its XLA round there (only its stats-carry kernel has a sharded
-    wrapper), and every route passes the engine's route check; float16
-    still raises, naming ROADMAP A9."""
+    wrapper), as the float16 engine's rotate route does (it raised until it
+    was ported)."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     base = tconfig.HarmonyConfig(N=20_000, d=4, K=8, B=3, B_vec=(3,), shuffle_mode="rotate")
     jm = jsh.make_mesh(2)
@@ -350,11 +344,9 @@ def test_written_r_rounds_on_a_mesh_raise(monkeypatch):
             jm), jm)
         assert cfg.rotate_route == route and cfg.Np == cj.Np
         assert (cj.estep_impl == "pallas") == (route == "carry")
-        tengine.check_mesh_route(cfg)
     # one device keeps K12 for the same change
     one = tconfig.finalize_engine_config(dataclasses.replace(base, rotate_stats_carry=False))
     assert one.rotate_route == "two_phase"
-    cfg = dataclasses.replace(tconfig.finalize_engine_config(tsh.pad_for_mesh(base, _mesh(2)),
-                                                             _mesh(2)), dtype="float16")
-    with pytest.raises(NotImplementedError, match="float16.*ROADMAP A9, float16 engines"):
-        tengine.check_mesh_route(cfg)
+    f16 = tconfig.finalize_engine_config(tsh.pad_for_mesh(
+        dataclasses.replace(base, dtype="float16", matmul_precision="auto"), _mesh(2)), _mesh(2))
+    assert f16.rotate_route == "carry" and f16.virtual_r and f16.bf16_products
