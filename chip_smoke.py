@@ -214,7 +214,7 @@ import time
 import types
 
 PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
-          "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16", "f16", "host",
+          "graph", "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16", "f16", "host",
           "mesh", "harness")
 # phases run only when named in --phases: the bf16 engine at BASELINE's
 # shape, on one card and on the mesh
@@ -307,6 +307,16 @@ PRODUCT_ATOL = 1e-5
 PEAKS = {}
 # logs too long for the console (profile, ptxas report); a path setting
 OUT_DIR = os.environ.get("CHIP_SMOKE_OUT", "chip_smoke_out")
+
+
+def iter_seconds(ph: dict, n_it: int) -> float:
+    """Seconds a Harmony iteration from a run's timer scopes: on the graph
+    route (HarmonyConfig.graph_route) its one run_rounds scope, the
+    capture included on a process's first run at a shape and the replays
+    after convergence too; elsewhere cluster + correct."""
+    t = (ph["run_rounds"] if "run_rounds" in ph
+         else ph.get("cluster", 0.0) + ph.get("correct", 0.0))
+    return t / max(n_it, 1)
 
 
 def log(*a):
@@ -784,11 +794,11 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
     Zn, tO, O, E, G = cuda_rotate.reassign(*args6)
     again = cuda_rotate.reassign(*args6)
     ref6 = rotate.reassign(*args6)
-    rt, order = rotate.draw_schedules(cfg, g, 1)[0]
+    sched = rotate.draw_schedules(cfg, g, 1)[0]
     layout = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G)
     rs = rotate.RoundState(R=torch.zeros(K, cfg.Np, device=dev), E=ref6[3], O=ref6[2],
                            tile_O=ref6[1], kmeans_error=None, entropy=None)
-    args7 = (cfg, Y, rs, Pr_b, sigma, theta, rt, order, layout)
+    args7 = (cfg, Y, rs, Pr_b, sigma, theta, sched, layout)
     out7 = {wr: cuda_rotate.rotate_update_round_v2(*args7, write_r=wr) for wr in (True, False)}
     ref7 = {wr: rotate.rotate_update_round_v2(*args7, write_r=wr) for wr in (True, False)}
     own_g = rotate.rotate_update_round_v2(*args7[:-1], layout._replace(G=None), write_r=True)
@@ -810,8 +820,9 @@ def check_rotate(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu"):
     e7 = float((out7[True].R - ref7[True].R).abs().max())
     e7g = float((out7[True].R - own_g.R).abs().max())
     require(out7[False].R is rs.R, "K7 without write_r must hand back the input R")
-    log(f"  K7 ({variant}) schedule rt={rt}, order={order[:5]}...: max|dR|={e7:.3e}, against "
-        f"the plain round forming g itself {e7g:.3e} (atol {R_ATOL})")
+    log(f"  K7 ({variant}) schedule rt={int(sched[0])}, order={sched[1:6].tolist()}...: "
+        f"max|dR|={e7:.3e}, against the plain round forming g itself {e7g:.3e} "
+        f"(atol {R_ATOL})")
     require(max(e7, e7g) <= R_ATOL, f"K7 R disagrees: {e7}, {e7g}")
     for wr in (True, False):
         o, r = out7[wr], ref7[wr]
@@ -926,11 +937,11 @@ def check_virtual(torch, dev, N, d, K, B_vec, seed, timed, variant="fused_vpu", 
     # K6's Zn and G, as the engine hands them to the phase's rounds
     args6 = (cfg, Y, sigma, Pr_b, Z, codes_pad)
     Zn, tO, O, E, G = cuda_rotate.reassign(*args6)
-    rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
+    sched = rotate.draw_schedules(cfg, g, 1)[0]
     lay = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G)
     rs = rotate.RoundState(R=torch.zeros(K, Np, device=dev), E=E, O=O, tile_O=tO,
                            kmeans_error=None, entropy=None)
-    args = (cfg, Y, rs, Pr_b, sigma, theta, rt, blocks, lay)
+    args = (cfg, Y, rs, Pr_b, sigma, theta, sched, lay)
     kw = dict(moments=spec, emit_pen=True)
     out = cuda_rotate.rotate_update_round_v2(*args, write_r=True, **kw)
     outv = cuda_rotate.rotate_update_round_v2(*args, write_r=False, **kw)
@@ -1101,10 +1112,10 @@ def probe_k7_tiles(torch, dev) -> dict:
              tj) = virtual_problem(torch, dev, n, D_MAIN, K_MAIN, (B_MAIN,), 31, "fused_vpu",
                                    (TILE160[0], tw))
             Zn, tO, O, E, G = cuda_rotate.reassign(cfg, Y, sigma, Pr_b, Z, codes_pad)
-            rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
+            sched = rotate.draw_schedules(cfg, g, 1)[0]
             rs = rotate.RoundState(R=torch.zeros(K_MAIN, cfg.Np, device=dev), E=E, O=O,
                                    tile_O=tO, kmeans_error=None, entropy=None)
-            args = (cfg, Y, rs, Pr_b, sigma, theta, rt, blocks,
+            args = (cfg, Y, rs, Pr_b, sigma, theta, sched,
                     rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G))
             spec = rotate.MomentsSpec(Z_orig=Zo, tile_joint=tj, n_joint=nj, tile=tile)
             ctas = cfg.Np // 64 / cfg.n_blocks
@@ -1212,11 +1223,11 @@ def check_storage_forms(torch, dev, N, d, K, B_vec, seed, timed, dt, variant="fu
     ref6 = rotate.reassign(*args6, Zb, codes_pad)
     Zn, tO, O, E, G = out6
     # K7, a phase's last round on 2-byte state: R, E and O in dt
-    rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
+    sched = rotate.draw_schedules(cfg, g, 1)[0]
     lay = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G)
     rs = rotate.RoundState(R=torch.zeros(K, Np, device=dev, dtype=dt), E=E.to(dt),
                            O=O.to(dt), tile_O=tO, kmeans_error=None, entropy=None)
-    args7 = (cfg, Y, rs, Pr_b, sigma, theta, rt, blocks, lay)
+    args7 = (cfg, Y, rs, Pr_b, sigma, theta, sched, lay)
     kw = dict(write_r=True, emit_pen=True)
     out7 = cuda_rotate.rotate_update_round_v2(*args7, moments=spec_b, **kw)
     again7 = cuda_rotate.rotate_update_round_v2(*args7, moments=spec_b, **kw)
@@ -1398,12 +1409,12 @@ def check_products(torch, dev, N, d, K, B_vec, seed, timed, dt, variant="fused_v
     ref6 = rotate.reassign(cfg, *args6)
     Zn, tO, O, E, G = out6
     # K7's last round reads that G (its moments on Z_orig in dt), R float32
-    rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
+    sched = rotate.draw_schedules(cfg, g, 1)[0]
     lay = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, G=G)
     rs = rotate.RoundState(R=torch.zeros(K, Np, device=dev), E=E.to(dt), O=O.to(dt),
                            tile_O=tO, kmeans_error=None, entropy=None)
     spec = rotate.MomentsSpec(Z_orig=Zos, tile_joint=tj, n_joint=nj, tile=tile)
-    out7 = cuda_rotate.rotate_update_round_v2(cfg, Y, rs, Pr_b, sigma, theta, rt, blocks, lay,
+    out7 = cuda_rotate.rotate_update_round_v2(cfg, Y, rs, Pr_b, sigma, theta, sched, lay,
                                               write_r=True, moments=spec, emit_pen=True)
     # K11 from its tables, float32 and dt
     vargs = (Y, sigma, out7.pen, out7.blkmap, Zn, codes_pad)
@@ -1530,7 +1541,7 @@ def check_rotate_v1(torch, dev, N, d, K, B_vec, seed, timed):
     E = ops.compute_E(R, Pr_b)
     O = ops.compute_O(R, codes, cfg.covariate_offsets, cfg.B)
     NT = rotate.n_tiles(cfg)
-    order = rotate.draw_schedules(cfg, g, 1)[0][1]
+    order = rotate.schedule_pairs(rotate.draw_schedules(cfg, g, 1))[0][1]
     layout = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad)
     args = (cfg, Y, R.contiguous(), E, O, Pr_b, sigma, theta, NT - 1, order, layout)
     out = cuda_estep.rotate_update_round_v1(*args)
@@ -1783,8 +1794,10 @@ def check_traj(torch, dev, mode):
         layout = engine.mstep_layout(geo, design.codes)
         require(layout.tiled is not None, "rotate trajectory: no batch-tiled layout")
         NT, nb = rotate.n_tiles(geo), len(rotate.block_sizes(geo)[0])
-        kw["schedules"] = [[(int(rng.integers(NT)), rng.permutation(nb).tolist())
-                            for _ in range(base.max_iter_cluster)] for _ in range(iters)]
+        kw["schedules"] = [rotate.schedule_table([(int(rng.integers(NT)),
+                                                   rng.permutation(nb).tolist())
+                                                  for _ in range(base.max_iter_cluster)], dev)
+                           for _ in range(iters)]
     virtual = mode == "rotate_virtual"
     # (label, impl, virtual_r): the plain path never takes virtual R (its
     # gate is the kernels'), so it is the materialised function
@@ -1938,7 +1951,7 @@ def run_main_path(torch, dev, wrappers, phase):
             f"{phase} path: estep_variant={res.config.estep_variant!r}")
     ph = res.phase_seconds()
     n_it = int(res.state.n_rounds)
-    per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
+    per_it = iter_seconds(ph, n_it)
     entry = ("driver.run" if phase == "rotate_two_phase" or phase.startswith("legacy")
              else "run_harmony")
     log(f"{phase} path: {entry} {N_MAIN} x {D_MAIN}, K={res.K}, B={res.B}, {mode}, "
@@ -2036,7 +2049,7 @@ def run_tile160_path(torch, dev, wrappers, path):
     tiled = engine.mstep_layout(cfg, res.design.codes, dev).tiled
     ph = res.phase_seconds()
     n_it = int(res.state.n_rounds)
-    per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
+    per_it = iter_seconds(ph, n_it)
     trace = [float(x) for x in res.objective_harmony]
     log(f"{path} path: driver.run {N_TILE160} x {D_MAIN}, K={res.K}, B={res.B}, "
         f"{cfg.shuffle_mode} (route {cfg.rotate_route!r}, T={cfg.estep_sub_tile}, "
@@ -2241,7 +2254,7 @@ def run_segment_path(torch, dev, wrappers, path, n, schedule):
     layout = engine.mstep_layout(cfg, res.design.codes, dev)
     ph = res.phase_seconds()
     n_it = int(res.state.n_rounds)
-    per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
+    per_it = iter_seconds(ph, n_it)
     log(f"{path} path: run_harmony {n} x {D_MAIN}, K={res.K}, B={res.B}, {cfg.shuffle_mode} "
         f"(route {cfg.rotate_route!r}, fused={cfg.permute_fused}, Np={cfg.Np}), segmented "
         f"M-step: {len(layout.segments or ())} covariate layout(s) of "
@@ -2370,7 +2383,7 @@ def run_reduced_path(torch, dev, wrappers, phase, n, B, held_f32):
     cfg, st = res.config, res.state
     ph = res.phase_seconds()
     n_it = int(st.n_rounds)
-    per_it = (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1)
+    per_it = iter_seconds(ph, n_it)
     log(f"{phase} path: run_harmony {n} x {D_MAIN}, K={res.K}, B={res.B}, dtype "
         f"{cfg.dtype}, matmul_precision {cfg.matmul_precision!r}, {cfg.shuffle_mode} (route "
         f"{cfg.rotate_route!r}, virtual R {st.virt_pen is not None}, T={cfg.estep_sub_tile}, "
@@ -2430,7 +2443,38 @@ def run_reduced_path(torch, dev, wrappers, phase, n, B, held_f32):
     else:
         # the float32 engine on the same cells, virtual R as the bf16 one,
         # for its iterations, time and memory beside them (nothing held)
-        del res, emb, st  # the first run's state is not in the next runs' peaks
+        capture_s = engine.run_rounds.capture_s if cfg.graph_route else 0.0
+        del res, st  # the first run's state is not in the next runs' peaks
+        # the same bf16 call again (the graph route: its capture cached),
+        # then through the per-round host loop (verbose: the driver takes
+        # it, as the JAX package's does), the captures dropped first: the
+        # same bits, and each one's time and peak
+        legs = {}
+        for leg, kw in (("graph, cached", {}), ("host loop (verbose)", {"verbose": True})):
+            if kw:
+                engine.clear_graphs()
+                torch.cuda.empty_cache()
+            _reset_peak(torch)
+            caps = engine.run_rounds.captures
+            t0 = time.perf_counter()
+            rl = run_harmony(Zh, meta, ["batch"], max_iter=MAX_ITER, return_object=True,
+                             seed=0, dtype=name, **kw)
+            torch.cuda.synchronize()
+            wall_l, phl, nl = time.perf_counter() - t0, rl.phase_seconds(), int(rl.state.n_rounds)
+            require(("run_rounds" in phl) == (not kw) and engine.run_rounds.captures == caps,
+                    f"{phase} ({leg}): the run took the wrong loop, or captured")
+            same = (nl == n_it and [float(x) for x in rl.objective_harmony] == trace
+                    and np.array_equal(rl.embeddings, emb))
+            legs[leg] = iter_seconds(phl, nl)
+            log(f"  {leg} beside it: {nl} iterations, wall {wall_l:.2f} s, seconds per Harmony "
+                f"iteration {legs[leg]:.4f}, peak {_peak_mib(torch):.1f} MiB; bit-equal to the "
+                f"first run: {same}")
+            require(same, f"{phase} ({leg}): the run differs from the first run")
+            del rl
+        log(f"  seconds per Harmony iteration: the graph route's first run {per_it:.4f} (its "
+            f"capture {capture_s:.3f} s included; peak {peak:.1f} MiB), cached "
+            f"{legs['graph, cached']:.4f}, the host loop {legs['host loop (verbose)']:.4f}")
+        del emb
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2441,7 +2485,7 @@ def run_reduced_path(torch, dev, wrappers, phase, n, B, held_f32):
         n32 = int(r32.state.n_rounds)
         log(f"  float32 beside it, virtual R: {n32} iterations, wall "
             f"{time.perf_counter() - t0:.2f} s, seconds per Harmony iteration "
-            f"{(ph32.get('cluster', 0.0) + ph32.get('correct', 0.0)) / max(n32, 1):.4f}, "
+            f"{iter_seconds(ph32, n32):.4f}, "
             f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
             f"phase seconds {json.dumps({k: round(v, 4) for k, v in ph32.items()})}; objective "
             f"{[round(float(x), 3) for x in r32.objective_harmony]}")
@@ -2471,6 +2515,287 @@ BF16_ROUTES = (
     ("rotate_cell", 2_000, {}, (), ("K6", "K7", "K12")),
 )
 BF16_ROUTE_ITERS = 4
+
+
+# the graph phase's cells: (cell, schedule, config changes), all at the
+# main shape; each one's body kernel, launched once an iteration
+GRAPH_CELLS = (("rotate-500k", "rotate", {}),
+               ("rotate-virtual-500k", "rotate", {"virtual_r": True}),
+               ("rotate-virtual-bf16-500k", "rotate", {"dtype": "bfloat16"}),
+               ("rotate-virtual-f16-500k", "rotate", {"dtype": "float16"}),
+               ("permute-500k", "permute", {}))
+# the runtime calls that launch work on the card, counted on the host
+_API_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+
+
+def graph_setup(torch, dev, Zh, meta, shuffle, change):
+    """run_harmony's steps up to init_cluster (multihost_worker.driver_result's
+    config, ingest order, M-step layout and state) on the card: (cfg,
+    layout, the initialised state)."""
+    import dataclasses
+
+    from harmony_tpu_torch import engine
+    from harmony_tpu_torch.api import apply_ingest_order, ingest_perm
+    from harmony_tpu_torch.config import finalize_engine_config, harmony_options
+    from harmony_tpu_torch.preprocess import (build_design, expand_hyperparams,
+                                              orient_embedding, resolve_config)
+    from harmony_tpu_torch.runtime import AsyncIngest
+    from harmony_tpu_torch.state import init_state
+
+    change = dict(change)
+    design = build_design(meta, list(meta))
+    n = design.n_cells
+    Zt = orient_embedding(Zh, n)
+    options = harmony_options()
+    cfg = resolve_config(
+        n_cells=n, d=Zt.shape[0], design=design, nclust=None, max_iter=MAX_ITER,
+        early_stop=True, options=options, verbose=False, lambda_estimation=True,
+        ridge_solver="auto", shuffle_mode=shuffle, dtype=change.pop("dtype", "float32"))
+    cfg = finalize_engine_config(dataclasses.replace(cfg, **change))
+    perm, _ = ingest_perm(cfg, design, 0)
+    _, design, _ = apply_ingest_order(design, perm)
+    layout = engine.mstep_layout(cfg, design.codes, dev)
+    hp = expand_hyperparams(design, cfg.K, None, 0.1, None, options.tau)
+    state = init_state(cfg, AsyncIngest(Zt, cfg, dev).result(perm), design, hp.sigma,
+                       hp.theta, hp.lamb, 0, dev)
+    return cfg, layout, engine.init_cluster(cfg, state)
+
+
+def fork(torch, state):
+    """A copy of the state with its own tensors and a generator at the same
+    state: each leg starts from the same bits and the same draws."""
+    import dataclasses
+
+    g = torch.Generator(device=state.device)
+    g.set_state(state.generator.get_state())
+    kw = {f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)
+          if isinstance(getattr(state, f.name), torch.Tensor)}
+    return dataclasses.replace(state, **kw, generator=g)
+
+
+def host_loop(cfg, state, layout, n=MAX_ITER):
+    """The per-round host loop (driver.harmonize's loop): up to ``n``
+    iterations of harmony_round, then one read of the convergence flag."""
+    from harmony_tpu_torch import engine
+
+    for _ in range(n):
+        state = engine.harmony_round(cfg, state, layout=layout)
+        if engine.harmony_converged(cfg, state):
+            break
+    return state
+
+
+def profile_run(torch, fn, n_it, kernel):
+    """One call of ``fn`` under torch.profiler: the runtime launch calls a
+    Harmony iteration (``n_it`` iterations), the device's idle share of the
+    call's wall, and the launches of the kernel ``kernel`` (the body's, one
+    an iteration) and of the IF node's predicate kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    api, busy, body, pred = 0, 0.0, 0, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.key in _API_LAUNCHES:
+                api += e.count
+            continue
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0.0)
+        busy += dt / 1e3
+        if kernel in e.key:
+            body += e.count
+        if "set_if_kernel" in e.key:
+            pred += e.count
+    return {"api_launches_per_iter": api / n_it, "busy_ms_per_iter": busy / n_it,
+            "wall_ms_per_iter": wall * 1e3 / n_it,
+            "idle_share": max(0.0, 1 - busy / (wall * 1e3)), "body_launches": body,
+            "predicate_launches": pred}
+
+
+def check_graph(torch, dev, wrappers):
+    """The one-dispatch run (engine.run_rounds: one captured iteration
+    inside an IF node, replayed an iteration) at full width, in each of
+    GRAPH_CELLS, from one initial state and generator state: (a) the eager
+    host loop, (b) driver.harmonize taking run_rounds, (c) the same with an
+    abort flag never set and abort_poll_rounds=1. The three are held equal
+    bit for bit (Z_corr, R after materialize_r, the traces, the
+    iterations). Per cell: seconds an iteration of (a) and of (b) (a second
+    run, the graph cached) by CUDA events, the capture's seconds, the
+    runtime launch calls an iteration and each leg's idle share under
+    torch.profiler, the peak memory of (a) and of (b)'s first run (its
+    capture and static buffers) and second, that the second run captures
+    nothing, that the replays after convergence launch no body kernel, and
+    that the wrappers count the same launches in (a) and (b). Returns
+    {cell: launches of (b)'s second run}."""
+    import dataclasses
+
+    import numpy as np
+
+    from harmony_tpu_torch import driver, engine
+    from harmony_tpu_torch.runtime import AbortFlag
+
+    Zs, bs = synthetic(torch, N_MAIN, D_MAIN, B_MAIN, 7, dev)
+    Zh, meta = Zs.cpu().numpy(), {"batch": bs.cpu().numpy()}
+    del Zs
+    out, report = {}, {}
+
+    def events_ms(fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        r = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return r, a.elapsed_time(b)
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    for cell, shuffle, change in GRAPH_CELLS:
+        cfg, layout, s0 = graph_setup(torch, dev, Zh, meta, shuffle, change)
+        require(cfg.graph_route, f"graph {cell}: the config is off the graph route")
+        kernel = "head_kernel" if shuffle == "permute" else "reassign_assign_kernel"
+        n0 = s0.n_rounds
+        # (a) the eager host loop, once to warm up, then timed
+        host_loop(cfg, fork(torch, s0), layout)
+        _reset_peak(torch)
+        zero()
+        sa = fork(torch, s0)
+        a_state, a_ms = events_ms(lambda: host_loop(cfg, sa, layout))
+        a_launches, a_peak = counts(), _peak_mib(torch)
+        n_it = a_state.n_rounds - n0
+        ref = engine.materialize_r(cfg, a_state)
+        # (b) driver.harmonize through run_rounds: the first run captures
+        _reset_peak(torch)
+        caps = engine.run_rounds.captures
+        t0 = time.perf_counter()
+        b = driver.harmonize(cfg, fork(torch, s0), layout=layout)
+        torch.cuda.synchronize()
+        b_first_s = time.perf_counter() - t0
+        b_peak_first = _peak_mib(torch)
+        captured = engine.run_rounds.captures - caps
+        capture_s = engine.run_rounds.capture_s
+        # (b) again at the same shape: a cache hit, timed (the loop alone)
+        _reset_peak(torch)
+        zero()
+        caps = engine.run_rounds.captures
+        sb = fork(torch, s0)
+        b2, b_ms = events_ms(lambda: engine.run_rounds(cfg, sb, MAX_ITER, layout))
+        b_launches, b_peak = counts(), _peak_mib(torch)
+        require(engine.run_rounds.captures == caps,
+                f"graph {cell}: a second run at the same shape captured again")
+
+        def least_ms(n_budget, calls=3):
+            # the least of a few calls' event times: a call is host-bound,
+            # and one that the host stalls reads milliseconds more
+            best = []
+            for _ in range(calls):
+                st = fork(torch, s0)
+                best.append(events_ms(lambda: engine.run_rounds(cfg, st, n_budget, layout))[1])
+            return min(best)
+
+        # the call with the budget the run needs against the full budget:
+        # the difference is the cost of the replays after convergence
+        b_ms = min(b_ms, least_ms(MAX_ITER))
+        b_exact_ms = least_ms(n_it)
+        # steady state, without the early stop: two calls of 2 and 8
+        # iterations in each leg, the difference over 6 (a call's fixed
+        # costs, the copies in and out and the last read, cancel)
+        cfg_ne = dataclasses.replace(cfg, epsilon_harmony=-np.inf)
+        steady = {}
+        for leg, fn in (("eager", lambda k, st: host_loop(cfg_ne, st, layout, k)),
+                        ("graph", lambda k, st: engine.run_rounds(cfg_ne, st, k, layout))):
+            fn(2, fork(torch, s0))  # warm (the graph leg captures here)
+            t = {}
+            for k in (2, 8):
+                st = fork(torch, s0)
+                t[k] = events_ms(lambda: fn(k, st))[1]
+            steady[leg] = (t[8] - t[2]) / 6
+        # (c) an abort flag never set, polled before every iteration
+        c = driver.harmonize(cfg, fork(torch, s0), layout=layout, abort=AbortFlag(),
+                             abort_poll_rounds=1)
+        for name, st in (("b", b), ("c", c), ("b2", engine.materialize_r(cfg, b2))):
+            require(st.n_rounds == ref.n_rounds and st.n_harmony == ref.n_harmony,
+                    f"graph {cell} ({name}): {st.n_rounds - n0} iterations, the host loop "
+                    f"{n_it}")
+            for f in ("Z_corr", "R", "Y", "objective_kmeans", "objective_harmony",
+                      "kmeans_rounds"):
+                x, y = getattr(st, f), getattr(ref, f)
+                err = float((x.float() - y.float()).abs().max())
+                require(err == 0.0, f"graph {cell} ({name}): {f} differs from the host loop "
+                        f"by {err}")
+        require(a_launches == b_launches,
+                f"graph {cell}: the replays count other launches than the host loop: "
+                f"{b_launches} against {a_launches}")
+        pa = profile_run(torch, lambda: host_loop(cfg, fork(torch, s0), layout), n_it, kernel)
+        pb = profile_run(torch, lambda: engine.run_rounds(cfg, fork(torch, s0), MAX_ITER, layout),
+                         n_it, kernel)
+        # the replays after convergence launch no body: the device busy time
+        # of a call with the budget the run needs is the same but for their
+        # predicate kernels and the replay prologue's fills (the profiler's
+        # count of a graph's kernels by name is not reliable: it has read
+        # 0 and twice the launches)
+        px = profile_run(torch, lambda: engine.run_rounds(cfg, fork(torch, s0), n_it, layout),
+                         n_it, kernel)
+        idle_replay_busy = ((pb["busy_ms_per_iter"] - px["busy_ms_per_iter"]) * n_it
+                            / (MAX_ITER - n_it))
+        # (a body would keep it busy an iteration's busy time; the prologue's
+        # fills and the predicate kernel take ~0.1 ms)
+        require(idle_replay_busy < 0.25 * px["busy_ms_per_iter"],
+                f"graph {cell}: a replay after convergence keeps the device busy "
+                f"{idle_replay_busy:.4f} ms of an iteration's {px['busy_ms_per_iter']:.3f}: "
+                "it ran the body")
+        row = {"iterations": n_it, "replays": MAX_ITER, "eager_ms_per_iter": a_ms / n_it,
+               "graph_ms_per_iter": b_ms / n_it, "graph_exact_budget_ms": b_exact_ms,
+               "inactive_replay_ms": (b_ms - b_exact_ms) / (MAX_ITER - n_it),
+               "steady_eager_ms_per_iter": steady["eager"],
+               "steady_graph_ms_per_iter": steady["graph"], "capture_s": capture_s,
+               "first_run_s": b_first_s, "captures_first_run": captured,
+               "captures_second_run": 0, "peak_mib_eager": a_peak,
+               "peak_mib_graph_first": b_peak_first, "peak_mib_graph": b_peak,
+               "eager_profile": pa, "graph_profile": pb, "graph_profile_exact_budget": px,
+               "busy_ms_a_replay_after_convergence": idle_replay_busy,
+               "objective_harmony": [float(x) for x in
+                                     ref.objective_harmony[:ref.n_harmony].tolist()]}
+        report[cell] = row
+        log(f"graph {cell}: {n_it} iterations of {MAX_ITER} (three legs bit-equal); "
+            f"eager {a_ms / n_it:.3f} ms an iteration, graph {b_ms / n_it:.3f} ms "
+            f"({MAX_ITER} replays, the loop alone, the least of 4 calls; {b_exact_ms / n_it:.3f} "
+            f"with a budget of "
+            f"{n_it}, {(b_ms - b_exact_ms) / (MAX_ITER - n_it):.4f} ms a replay after "
+            f"convergence); steady state (no early stop, (T8 - T2) / 6) eager "
+            f"{steady['eager']:.3f}, graph {steady['graph']:.3f} ms an iteration; "
+            f"capture {capture_s:.3f} s, first run "
+            f"{b_first_s:.3f} s wall, {captured} capture(s), none on the second run; "
+            f"runtime launches an iteration {pa['api_launches_per_iter']:.1f} eager, "
+            f"{pb['api_launches_per_iter']:.1f} graph; idle share {pa['idle_share']:.3f} "
+            f"eager, {pb['idle_share']:.3f} graph (profiled: busy "
+            f"{pa['busy_ms_per_iter']:.3f} / {pb['busy_ms_per_iter']:.3f} ms, wall "
+            f"{pa['wall_ms_per_iter']:.3f} / {pb['wall_ms_per_iter']:.3f} ms an iteration); "
+            f"device busy {idle_replay_busy:.4f} ms a replay after convergence (profiler "
+            f"counts {kernel} {pb['body_launches']}x, set_if_kernel "
+            f"{pb['predicate_launches']}x); "
+            f"peak {a_peak:.1f} MiB eager, {b_peak_first:.1f} MiB graph's first run, "
+            f"{b_peak:.1f} MiB cached")
+        out[cell] = b_launches
+        del s0, sa, sb, st, a_state, ref, b, b2, c
+        engine.clear_graphs()
+        torch.cuda.empty_cache()
+    with open(os.path.join(OUT_DIR, "graph.json"), "w") as fh:
+        json.dump(report, fh, indent=1)
+    return out
 
 
 def check_bf16_routes(torch, dev, wrappers):
@@ -2699,10 +3024,12 @@ def check_host(torch, dev, wrappers, n=N_MAIN, d=D_MAIN, B=B_MAIN):
     files = glob.glob(os.path.join(tdir, "*.json"))
     require(len(files) == 1, f"host: {len(files)} trace files")
     text = open(files[0]).read()
-    for name in ("cluster", "correct"):
+    # the graph route's run is one run_rounds span (run_rounds replays a
+    # captured iteration; the JAX package's fused path has one scope too)
+    for name in ("run_rounds", "materialize_r"):
         require(f'"name": "{name}"' in text, f"host: the trace has no {name} span")
     log(f"  trace of one rotate round: {files[0]} ({os.path.getsize(files[0]) / 2**20:.1f} MiB) "
-        "holds the cluster and correct spans")
+        "holds the run_rounds and materialize_r spans")
     del Zh
     tmp_ctx.cleanup()
 
@@ -2871,7 +3198,7 @@ def one_device_run(torch, dev, p: dict, Z, batches):
     torch.cuda.synchronize()
     ph, n_it = res.phase_seconds(), int(res.state.n_rounds)
     out = (res.objective_harmony.tolist(), n_it,
-           (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / n_it, _peak_mib(torch), ph)
+           iter_seconds(ph, n_it), _peak_mib(torch), ph)
     del res
     torch.cuda.empty_cache()
     return out
@@ -3239,7 +3566,13 @@ def main(argv=None) -> int:
              "mesh_virtual_bf16": MESH_INJECT["virtual_bf16"][:2],
              "mesh_virtual_f16": MESH_INJECT["virtual_bf16"][:2],
              "mesh_segment": MESH_INJECT["segment"][:2],
-             "mesh_bf16_10m": MESH_INJECT["virtual_bf16"][:2]}
+             "mesh_bf16_10m": MESH_INJECT["virtual_bf16"][:2],
+             # the graph phase's cells (the replays of run_rounds)
+             "graph_rotate-500k": (("K6", "K7", "K9"), ("K8", "K10", "K11", "K12")),
+             "graph_rotate-virtual-500k": (("K6", "K7", "K10"), ("K8", "K9", "K11")),
+             "graph_rotate-virtual-bf16-500k": (("K6", "K7", "K10"), ("K8", "K9", "K11")),
+             "graph_rotate-virtual-f16-500k": (("K6", "K7", "K10"), ("K8", "K9", "K11")),
+             "graph_permute-500k": (("K2", "K3", "K9"), ("K1", "K8"))}
     t_start = time.perf_counter()
 
     # ---- 1. env ----------------------------------------------------------
@@ -3430,7 +3763,12 @@ def main(argv=None) -> int:
     if "bf16_10m" in phases:
         runs.append(("bf16_10m", lambda: run_reduced_path(torch, dev, wrappers, "bf16_10m", N_10M,
                                                           B_10M, held_f32)))
+    from harmony_tpu_torch import engine as _engine
+
     for phase, run in runs:
+        # each path's peak memory holds its own captures only
+        _engine.clear_graphs()
+        torch.cuda.empty_cache()
         launches, trace, n_it = run()
         if trace is not None:
             traces[phase] = trace
@@ -3472,11 +3810,27 @@ def main(argv=None) -> int:
                 f"{len(a)} and {len(b)} entries); two_phase {a}, main {b}")
             require(obj_rel <= 1e-4, f"rotate_two_phase objectives disagree: {obj_rel}")
 
+    # ---- the one-dispatch run: a captured iteration replayed -----------
+    if "graph" in phases:
+        for cell, launches in check_graph(torch, dev, wrappers).items():
+            phase = f"graph_{cell}"
+            need, never = paths[phase]
+            for k in need:
+                row = kernels[form_row(k, phase)]
+                by_path = row.setdefault("launches_by_path", {})
+                by_path[phase] = launches[k]
+                row["launches"] = sum(by_path.values())
+                require(launches[k] > 0, f"{k} was not launched on the {phase} path")
+            for k in never:
+                require(launches[k] == 0, f"{k} was launched on the {phase} path")
+
     if "bf16" in phases:
+        _engine.clear_graphs()
         check_bf16_routes(torch, dev, wrappers)
 
     # ---- 15. the host modules: CLI, checkpoint, stream, abort, trace, bench -
     if "host" in phases:
+        _engine.clear_graphs()
         launches = check_host(torch, dev, wrappers)
         for k in ("K6", "K7", "K9"):
             by_path = kernels[k].setdefault("launches_by_path", {})
@@ -3486,6 +3840,7 @@ def main(argv=None) -> int:
     # ---- 16.-17. the mesh: cells sharded over torch.distributed ranks ----
     mesh_launches = {}
     if "mesh" in phases:
+        _engine.clear_graphs()
         mesh_launches.update(check_mesh(torch, dev))
     if "mesh_bf16_10m" in phases:
         mesh_launches.update(check_mesh_bf16_10m(torch, dev))
@@ -3502,6 +3857,7 @@ def main(argv=None) -> int:
 
     # ---- 18. the port's benchmark harnesses ------------------------------
     if "harness" in phases:
+        _engine.clear_graphs()
         with open(os.path.join(OUT_DIR, "harness.json"), "w") as fh:
             json.dump(check_harness(torch, dev), fh, indent=1)
 

@@ -151,7 +151,7 @@ def run_bench(
     from . import sharding
     from .api import apply_ingest_order, ingest_perm, resolve_mesh
     from .config import finalize_engine_config, harmony_options
-    from .engine import harmony_round, init_cluster, mstep_layout
+    from .engine import harmony_round, init_cluster, mstep_layout, run_rounds
     from .preprocess import build_design, expand_hyperparams, orient_embedding, resolve_config
     from .runtime import AsyncIngest, resolve_device, synchronize
     from .state import init_state
@@ -217,6 +217,11 @@ def run_bench(
     n_devices = 1 if mesh is None else mesh.size
 
     def rounds(st, k: int):
+        # the graph route runs k iterations as k replays of one captured
+        # iteration, as the JAX bench times run_rounds
+        # (harmony_tpu/bench.py:282-333); the other routes the host loop
+        if cfg.graph_route:
+            return run_rounds(cfg, st, k, layout=layout)
         for _ in range(k):
             st = harmony_round(cfg, st, layout=layout, mesh=mesh)
         return st
@@ -247,14 +252,17 @@ def run_bench(
         return out
 
     # warm-up: the first round builds the kernels and makes their first
-    # launches; its wall is an upper bound of a round
+    # launches (on the graph route it also captures the iteration); its
+    # wall is an upper bound of a round
     t0 = time.perf_counter()
     state = rounds(state, 1)
     synchronize(dev)
     warm_s = time.perf_counter() - t0
-    note(f"warm-up done ({warm_s:.2f} s)")
+    # the payload is kept before the progress line says so: a signal that
+    # follows the line finds it
     if progress_cb is not None:
         progress_cb(payload(warm_s, warm_s, "warmup_lower_bound"))
+    note(f"warm-up done ({warm_s:.2f} s)")
     state = rounds(state, 2)  # settle, outside the pairs
     if over_budget():
         max_iter = min(max_iter, 5)

@@ -73,11 +73,16 @@
 //
 // Design. On the TPU the round was one sequential grid with E/O in VMEM.
 // Here, as in estep_round.cu (K1), blocks are sequential and a block's
-// cells are independent, so a round is a host loop over the blocks with
-// two launches each:
+// cells are independent, so a round is a host loop over the positions of
+// the block order with two launches each. Neither launch takes the schedule
+// as host ints: both read the round's row of the schedule table
+// (rotation, block order) and the block table (tiles, first virtual tile)
+// from device memory, so the launches of a round are the same for every
+// schedule and a captured CUDA graph replays any round (engine.run_rounds):
 //   (a) rot_assign over the block's cells, 64-cell pieces of a tile (one
 //       per CTA: a block's ~384 pieces at 500k cells already fit the card
-//       in one wave). A CTA does not compute Y^T Z and stages neither Y^T
+//       in one wave; the launch has the largest block's CTAs, the rest
+//       return at once). A CTA does not compute Y^T Z and stages neither Y^T
 //       nor Z: its piece's rows of G (64 x K floats, contiguous) come in
 //       through cp.async, transposed into the (K x 64) table the chain
 //       reads, with the codes and the penalty tables; then per cell (one
@@ -667,8 +672,14 @@ __device__ __forceinline__ int tile_pieces(int lt, int tw) {
   return static_cast<int>((a + tw - 1) / kCT - a / kCT) + 1;
 }
 
-// The block's CTA c covers cells [p*T + (c % cpt)*64, +64) of physical
-// tile p = (v0 + c / cpt) mod NT, cpt = T / 64. With kMoments each CTA
+// The block at position pos of the round's order (sched: the round's row of
+// the schedule table, [rotation, block order]; blocks: (2, nb) int32, the
+// tiles of each block, then its first virtual tile) has ntile tiles from
+// virtual tile v0 on: v0 = (vstart[blk] + rotation) mod NT. The launch has
+// the largest block's CTAs, and those past the block's ntile * cpt return
+// at once, so one launch shape serves every block and no host int carries
+// the schedule. The block's CTA c covers cells [p*T + (c % cpt)*64, +64) of
+// physical tile p = (v0 + c / cpt) mod NT, cpt = T / 64. With kMoments each CTA
 // stores its piece's (K4 x d1p) table as row c of mpiece (tw a multiple of
 // 64: a layout tile of tw cells is C = tw / 64 whole pieces) or, where
 // layout tiles are not whole pieces (tw >= 64, T a multiple of tw), the
@@ -693,8 +704,13 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
     float* __restrict__ mpart,         // (L / tw, K*(d+1)) out (moments)
     float* __restrict__ mpiece,        // (n_cta, K4*d1p) scratch (moments)
     int* __restrict__ count,           // (n_cta / C,) zero on entry and exit (moments)
-    long long L, int v0, int NT, int cpt, int tw, int K, int d, int B, int ncov,
+    const int* __restrict__ sched,     // (1 + nb,) the round's rotation and block order
+    const int* __restrict__ blocks,    // (2, nb) tiles of each block, first virtual tile
+    int pos, int nb, long long L, int NT, int cpt, int tw, int K, int d, int B, int ncov,
     int d1p) {
+  const int blk = sched[1 + pos];
+  if (static_cast<int>(blockIdx.x) >= blocks[blk] * cpt) return;
+  const int v0 = (blocks[nb + blk] + sched[0]) % NT;
   extern __shared__ __align__(16) float smem[];
   const int K4 = (K + 3) / 4 * 4;
   float* Ls = smem;             // K4*kTP: g, then w, then R
@@ -839,24 +855,38 @@ __global__ void __launch_bounds__(kThreads) rot_assign_kernel(
   }
 }
 
-// One CTA per cluster row k. add: fold the block's partials (ntile tiles of
-// cpt CTAs, physical tiles (v0 + j) mod NT) into tile_O and E/O, and on row
-// 0 the objective terms into acc; rm_n > 0: remove the old O of the block
-// of tiles (rm_v0 + j) mod NT, j < rm_n, summed from the previous table
-// tO_old; always: write the penalty tables (pen_row >= 0: also into that
-// row of pen_out, the block's stored table). E/O are read from E_in/O_in
-// and written to E/O (the first commit of a round copies them). The tile
-// sums are read back from tO_new after the barrier, which makes the CTA's
-// global writes visible to all its threads.
+// One CTA per cluster row k; the commit after the block at position pos of
+// the round's order (pos < 0: the round's first commit), the blocks read
+// from the round's row of the schedule table as K7's assign launch reads
+// them. add (pos >= 0): fold the block's partials (ntile tiles of cpt CTAs,
+// physical tiles (v0 + j) mod NT) into tile_O and E/O, and on row 0 the
+// objective terms into acc (zeroed by the first commit); rm_n > 0 (a block
+// follows at pos + 1): remove its old O, tiles (rm_v0 + j) mod NT, j <
+// rm_n, summed from the previous table tO_old; always: write the penalty
+// tables (emit_pen: also into the removed block's row of pen_out, its
+// stored table). E/O are read from E_in/O_in and written to E/O (the first
+// commit of a round copies them). The tile sums are read back from tO_new
+// after the barrier, which makes the CTA's global writes visible to all its
+// threads.
 __global__ void __launch_bounds__(kThreads) rot_commit_kernel(
-    const float* __restrict__ part, int add, int v0, int ntile, int cpt,
-    int NT, float* tO_new, const float* __restrict__ tO_old, int rm_v0,
-    int rm_n, const float* E_in, const float* O_in, float* E, float* O,
+    const float* __restrict__ part, const int* __restrict__ sched,
+    const int* __restrict__ blocks, int pos, int nb, int cpt,
+    int NT, float* tO_new, const float* __restrict__ tO_old,
+    const float* E_in, const float* O_in, float* E, float* O,
     const float* __restrict__ Pr, const float* __restrict__ theta,
     float* __restrict__ pen, float* __restrict__ logpen,
-    float* __restrict__ pen_out, int pen_row,
-    float* __restrict__ acc, int zero_acc, int K, int B, int b0) {
+    float* __restrict__ pen_out, int emit_pen,
+    float* __restrict__ acc, int K, int B, int b0) {
   extern __shared__ float buf[];  // B block sums, B removal, 2*ntile objective
+  const int rt = sched[0];
+  const int add_blk = pos >= 0 ? sched[1 + pos] : -1;
+  const int rm_blk = pos + 1 < nb ? sched[2 + pos] : -1;
+  const int add = add_blk >= 0, zero_acc = pos < 0;
+  const int v0 = add ? (blocks[nb + add_blk] + rt) % NT : 0;
+  const int ntile = add ? blocks[add_blk] : 0;
+  const int rm_v0 = rm_blk >= 0 ? (blocks[nb + rm_blk] + rt) % NT : 0;
+  const int rm_n = rm_blk >= 0 ? blocks[rm_blk] : 0;
+  const int pen_row = emit_pen && rm_blk >= 0 ? rm_blk : -1;
   const int k = blockIdx.x, tid = threadIdx.x;
   const int P = K * B + 2;
   float* fin = buf;
@@ -1868,16 +1898,17 @@ constexpr bool holds_k11(bool mma) { return ROTATE_PART == (mma ? 5 : 0); }
 template <bool kMoments, bool kLegacy, typename TZ, bool kWhole>
 int k7_launch(const float* G, const int* codes, const int* offsets, const float* pen,
               const float* logpen, const float* sigma, float* R, float* part, const void* Zo,
-              const int* slot, float* mpart, float* mpiece, int* count, long long L, int v0,
-              int ncta, int NT, int cpt, int tw, int K, int d, int B, int ncov, int d1p,
-              int smem_bytes, cudaStream_t st) {
+              const int* slot, float* mpart, float* mpiece, int* count, const int* sched,
+              const int* blocks, int pos, int nb, long long L, int ncta, int NT, int cpt,
+              int tw, int K, int d, int B, int ncov, int d1p, int smem_bytes,
+              cudaStream_t st) {
   const void* kern =
       reinterpret_cast<const void*>(rot_assign_kernel<kMoments, kLegacy, TZ, kWhole>);
   int err = set_smem(kern, smem_bytes);
   if (err) return err;
   rot_assign_kernel<kMoments, kLegacy, TZ, kWhole><<<ncta, kThreads, smem_bytes, st>>>(
       G, codes, offsets, pen, logpen, sigma, R, part, static_cast<const TZ*>(Zo), slot, mpart,
-      mpiece, count, L, v0, NT, cpt, tw, K, d, B, ncov, d1p);
+      mpiece, count, sched, blocks, pos, nb, L, NT, cpt, tw, K, d, B, ncov, d1p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2049,16 +2080,21 @@ K6Launch k6_pick_launch(int storage, int mma) {
 extern "C" {
 
 #if ROTATE_PART <= 1
-// K7 assign launch over a block's ntile tiles; Zo == nullptr: no moments;
+// K7 assign launch for the block at position pos of the round's order
+// (sched: the round's row of the schedule table, [rotation, block order];
+// blocks: (2, nb) int32, the tiles of each block, then its first virtual
+// tile), max_ntile * cpt CTAs, max_ntile the largest block's tiles (the
+// CTAs past the block's return at once); Zo == nullptr: no moments;
 // legacy != 0: the legacy op order; storage: the moments' Z_orig (0 float,
 // 1 bf16, 2 f16). Part 0 holds the whole-piece forms, part 1 the moments
 // on layout tiles that are not whole pieces.
 int k7_assign(const void* G, const void* codes,
               const void* offsets, const void* pen, const void* logpen,
               const void* sigma, void* R, void* part, const void* Zo, const void* slot,
-              void* mpart, void* mpiece, void* count, long long L, int v0, int ntile,
-              int NT, int cpt, int tw, int K, int d, int B, int ncov, int d1p, int legacy,
-              int storage, int smem_bytes, void* stream) {
+              void* mpart, void* mpiece, void* count, const void* sched, const void* blocks,
+              long long L, int pos, int nb, int max_ntile, int NT, int cpt, int tw, int K,
+              int d, int B, int ncov, int d1p, int legacy, int storage, int smem_bytes,
+              void* stream) {
   K7Launch launch;
 #if ROTATE_PART == 1
   if (Zo == nullptr || tw % kCT == 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -2079,30 +2115,34 @@ int k7_assign(const void* G, const void* codes,
                 static_cast<const float*>(logpen), static_cast<const float*>(sigma),
                 static_cast<float*>(R), static_cast<float*>(part), Zo,
                 static_cast<const int*>(slot), static_cast<float*>(mpart),
-                static_cast<float*>(mpiece), static_cast<int*>(count), L, v0, ntile * cpt, NT,
-                cpt, tw, K, d, B, ncov, d1p, smem_bytes, static_cast<cudaStream_t>(stream));
+                static_cast<float*>(mpiece), static_cast<int*>(count),
+                static_cast<const int*>(sched), static_cast<const int*>(blocks), pos, nb, L,
+                max_ntile * cpt, NT, cpt, tw, K, d, B, ncov, d1p, smem_bytes,
+                static_cast<cudaStream_t>(stream));
 }
 #endif
 
 #if ROTATE_PART == 0
-int k7_commit(const void* part, int add, int v0, int ntile, int cpt, int NT,
-              void* tO_new, const void* tO_old, int rm_v0, int rm_n,
+// K7's commit after the block at position pos of the round's order (pos
+// < 0: the round's first commit); max_ntile: the largest block's tiles,
+// which sizes the shared memory.
+int k7_commit(const void* part, const void* sched, const void* blocks, int pos, int nb,
+              int max_ntile, int cpt, int NT, void* tO_new, const void* tO_old,
               const void* E_in, const void* O_in, void* E, void* O,
               const void* Pr, const void* theta, void* pen, void* logpen,
-              void* pen_out, int pen_row, void* acc, int zero_acc, int K, int B,
-              int b0, void* stream) {
-  const int smem_bytes = (2 * B + 2 * ntile) * static_cast<int>(sizeof(float));
+              void* pen_out, int emit_pen, void* acc, int K, int B, int b0, void* stream) {
+  const int smem_bytes = (2 * B + 2 * max_ntile) * static_cast<int>(sizeof(float));
   int err = set_smem(reinterpret_cast<const void*>(rot_commit_kernel), smem_bytes);
   if (err) return err;
   rot_commit_kernel<<<K, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), add, v0, ntile, cpt, NT,
-      static_cast<float*>(tO_new), static_cast<const float*>(tO_old), rm_v0,
-      rm_n, static_cast<const float*>(E_in), static_cast<const float*>(O_in),
+      static_cast<const float*>(part), static_cast<const int*>(sched),
+      static_cast<const int*>(blocks), pos, nb, cpt, NT,
+      static_cast<float*>(tO_new), static_cast<const float*>(tO_old),
+      static_cast<const float*>(E_in), static_cast<const float*>(O_in),
       static_cast<float*>(E), static_cast<float*>(O),
       static_cast<const float*>(Pr), static_cast<const float*>(theta),
       static_cast<float*>(pen), static_cast<float*>(logpen),
-      static_cast<float*>(pen_out), pen_row, static_cast<float*>(acc), zero_acc, K, B,
-      b0);
+      static_cast<float*>(pen_out), emit_pen, static_cast<float*>(acc), K, B, b0);
   return static_cast<int>(cudaGetLastError());
 }
 

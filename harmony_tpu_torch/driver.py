@@ -1,8 +1,14 @@
 """Outer Harmony loop: the analog of ``harmonize`` (R/utils.R:15-46).
 
-Counterpart of ``harmony_tpu/driver.py``. One device->host scalar read per
-round (the convergence flag); everything else stays on the device. On a
-mesh every rank runs the loop in lockstep: the convergence test reads the
+Counterpart of ``harmony_tpu/driver.py``. Where nothing needs the host
+between iterations (no injected draws, no checkpoint, not verbose) on the
+routes of :attr:`HarmonyConfig.graph_route`, the iterations run through
+``engine.run_rounds``: one CUDA graph replay an iteration and the
+convergence test on the device, the host reading the run's state once at
+its end, or once a chunk of ``abort_poll_rounds`` iterations when an abort
+flag is polled (harmony_tpu/driver.py:122-155). Elsewhere the host loop:
+one device->host scalar read per round (the convergence flag). On a mesh
+every rank runs the host loop in lockstep: the convergence test reads the
 replicated (all-reduced) objective, so every rank takes the same decision,
 and an abort is all-reduced (max) before each round, so no rank leaves the
 others waiting in a collective.
@@ -74,6 +80,7 @@ def harmonize(
     checkpoint_every: int = 1,
     checkpoint_meta: Optional[dict] = None,
     mesh=None,
+    abort_poll_rounds: int = 1,
 ) -> HarmonyState:
     """Run up to ``max_iter`` rounds of (cluster, correct), with early stop.
 
@@ -86,6 +93,16 @@ def harmonize(
     before every round; a set flag raises ``KeyboardInterrupt``. A
     virtual-R run materialises its R once after the loop, in the
     ``materialize_r`` timer scope (harmony_tpu/driver.py:149-153, 231-234).
+
+    Without ``perms``, ``schedules``, ``checkpoint_path`` and ``verbose``,
+    on the routes of ``cfg.graph_route`` (the card, no mesh), the run is
+    ``engine.run_rounds``: one call of ``max_iter`` iterations without
+    ``abort``; with it, calls of ``abort_poll_rounds`` iterations, the flag
+    polled before each, the objective trace checked after each and the
+    convergence read between them (harmony_tpu/driver.py:122-155). With
+    ``timers`` the iterations are one ``run_rounds`` scope (no ``cluster``
+    or ``correct`` scopes: the JAX package's fused path has one aggregate
+    scope too).
 
     ``checkpoint_path`` writes a minimal checkpoint (``checkpoint.py``, with
     ``checkpoint_meta`` as its provenance) every ``checkpoint_every``
@@ -111,6 +128,9 @@ def harmonize(
     if verbose:
         _ensure_verbose_handler()
     layout = layout or engine.MStepLayout()
+    if (perms is None and schedules is None and checkpoint_path is None and not verbose
+            and cfg.graph_route and mesh is None):
+        return _one_dispatch(cfg, state, max_iter, abort, abort_poll_rounds, timers, layout)
     for it in range(max_iter):
         if _aborted(abort, mesh):
             raise KeyboardInterrupt("harmony run aborted by user")
@@ -142,6 +162,34 @@ def harmonize(
             break
     with _scope(timers, "materialize_r"):
         state = engine.materialize_r(cfg, state, mesh)
+    return state
+
+
+def _one_dispatch(cfg: HarmonyConfig, state: HarmonyState, max_iter: int, abort,
+                  abort_poll_rounds: int, timers, layout) -> HarmonyState:
+    """harmonize through ``engine.run_rounds`` (harmony_tpu/driver.py:
+    122-155): one call, or chunks of ``abort_poll_rounds`` iterations with
+    the abort flag polled before each."""
+    if max_iter < 1:
+        return state
+    if abort is None:
+        with _scope(timers, "run_rounds"):
+            state = engine.run_rounds(cfg, state, max_iter, layout)
+    else:
+        done = 0
+        while done < max_iter:
+            if abort.aborted():
+                raise KeyboardInterrupt("harmony run aborted by user")
+            k = min(max(abort_poll_rounds, 1), max_iter - done)
+            with _scope(timers, "run_rounds"):
+                state = engine.run_rounds(cfg, state, k, layout)
+            done += k
+            _check_finite(state)
+            if done < max_iter and engine.harmony_converged(cfg, state):
+                break
+    with _scope(timers, "materialize_r"):
+        state = engine.materialize_r(cfg, state)
+    _check_finite(state)
     return state
 
 

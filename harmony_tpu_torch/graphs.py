@@ -1,0 +1,171 @@
+"""CUDA graphs of the one-dispatch run (:func:`engine.run_rounds`).
+
+The JAX package runs a whole Harmony run as one device program: a
+``lax.while_loop`` whose body is a Harmony iteration and whose predicate,
+the convergence test, is computed on the device
+(harmony_tpu/engine.py:709-767). The port's counterpart captures one
+iteration once into a CUDA graph whose launches sit inside an IF
+conditional node on a device predicate (:class:`IterationGraph`, the node
+built by ``csrc/graph.cu``), and replays it once per iteration with no host
+read in between. This module holds what the capture needs besides the
+engine:
+
+* :func:`device_cache`, the cache of the host tables that the kernels'
+  wrappers copy to the card once (a copy from host memory cannot be
+  captured). While a capture is open every table it hands out is also kept
+  by the graph, so no table a replay reads is freed when the cache evicts
+  it.
+* :func:`count`, through which every kernel wrapper counts its launches
+  where it issues them: on the host when it runs, but while an iteration
+  is captured on the device, into a counter of the graph's that the
+  captured stream increments beside the launches, so a replay counts them
+  exactly when its IF node runs the body. The run reads the counters with
+  its one read at the end (:meth:`IterationGraph.add_counts`).
+* The generator's offset (:func:`rng_offset`): a replay advances the
+  registered generator by the iteration's draws whether or not the IF node
+  runs the body, and the run puts it back to the draws made.
+
+Conditional nodes need a CUDA runtime of 12.4 or later.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from . import _build
+
+# The IterationGraph being captured, if one is: it holds the tables the
+# capture reads and the device counters of the launches it captures.
+_capturing: Optional["IterationGraph"] = None
+
+
+def device_cache(maxsize: int):
+    """``functools.lru_cache`` for the functions that copy a host table to
+    the card; each result is also kept by the graph being captured, if one
+    is."""
+
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def get(*args):
+            out = cached(*args)
+            if _capturing is not None:
+                _capturing.tables.append(out)
+            return out
+
+        get.cache_clear = cached.cache_clear
+        return get
+
+    return wrap
+
+
+@device_cache(maxsize=64)
+def _table(data: bytes, dtype: str, shape: tuple, device: str) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(data, dtype=dtype).reshape(shape).copy()).to(device)
+
+
+def device_table(a, dtype, device) -> torch.Tensor:
+    """The host array ``a`` as a ``dtype`` (numpy) tensor on ``device``: on
+    the card copied once per value (:func:`device_cache`), so an iteration
+    that needs it makes no copy from host memory; on the CPU a new tensor."""
+    a = np.ascontiguousarray(a, dtype=dtype)
+    if torch.device(device).type == "cpu":
+        return torch.from_numpy(a.copy())
+    return _table(a.tobytes(), a.dtype.str, a.shape, str(device))
+
+
+def launch_counters() -> list:
+    """The kernel wrappers, each with its ``launches`` count."""
+    from .ops import cuda_estep, cuda_permute, cuda_ridge, cuda_rotate
+
+    return list(dict.fromkeys(  # once each, where a module imports another's
+        f for m in (cuda_estep, cuda_permute, cuda_ridge, cuda_rotate)
+        for f in vars(m).values()
+        if callable(f) and isinstance(getattr(f, "launches", None), int)))
+
+
+def count(fn, n: int = 1) -> None:
+    """Count ``n`` launches of the kernel wrapper ``fn``; called where the
+    wrapper issues them. Outside a capture they are added to
+    ``fn.launches``; while an iteration is captured the launches run at
+    each replay that runs the body, not now, so the add is captured into
+    the same stream, on the graph's device counter of ``fn``."""
+    if _capturing is None:
+        fn.launches += n
+    else:
+        i = _capturing.slot[fn]
+        _capturing.counts[i:i + 1].add_(n)
+
+
+def rng_offset(gen: torch.Generator) -> int:
+    """The Philox offset of a CUDA generator (its state is the seed, then
+    the offset, 8 bytes each)."""
+    return int(gen.get_state().numpy()[8:16].view(np.int64)[0])
+
+
+def set_rng_offset(gen: torch.Generator, offset: int) -> None:
+    state = gen.get_state().clone()
+    state[8:16] = torch.from_numpy(np.array([offset], np.int64).view(np.uint8))
+    gen.set_state(state)
+
+
+_SIGNATURES = {"graph_wrap_if": [_build.PTR, _build.PTR], "graph_runtime_version": []}
+
+
+class IterationGraph:
+    """One iteration, ``body()``, captured into a CUDA graph inside an IF
+    node: a replay runs the body exactly when ``ctl`` (3 int64 on the card:
+    iterations run, budget, convergence flag) says the loop goes on, and
+    launches nothing else but the node's one-thread predicate kernel
+    otherwise. The body advances ``ctl`` itself. ``generator`` is
+    registered with the graph, so each replay draws from the generator's
+    offset at that replay. :attr:`counts` (int64 on the card, one a kernel
+    wrapper) counts the launches the replays ran (:func:`count`). A failed
+    capture raises."""
+
+    def __init__(self, body: Callable[[], None], ctl: torch.Tensor,
+                 generator: torch.Generator):
+        global _capturing
+        lib = _build.load("graph", _SIGNATURES)
+        version = lib.graph_runtime_version()
+        if version < 12040:
+            raise RuntimeError(f"run_rounds needs conditional graph nodes: CUDA 12.4 or later, "
+                               f"the runtime is {version}")
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.graph.register_generator_state(generator)
+        self.tables: List[torch.Tensor] = []
+        # each wrapper's launches in the replays since the counters were
+        # zeroed: incremented by the body's captured adds (count)
+        self.counters = launch_counters()
+        self.slot: Dict[Callable, int] = {f: i for i, f in enumerate(self.counters)}
+        self.counts = torch.zeros(len(self.counters), dtype=torch.int64, device=ctl.device)
+        _capturing = self
+        try:
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                body()
+        finally:
+            _capturing = None
+        _build.check(lib.graph_wrap_if(self.graph.raw_cuda_graph(), ctl.data_ptr()),
+                     "graph_wrap_if")
+        self.graph.instantiate()
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self, n: int) -> None:
+        """``n`` replays back to back, one graph launch each."""
+        for _ in range(n):
+            self.graph.replay()
+
+    def add_counts(self, values: List[int]) -> None:
+        """Add ``values``, the device counters as read after the replays
+        (``counts.tolist()``, read with the run's one read), to the
+        wrappers' ``launches``; :attr:`counts` is zeroed before the next
+        replays."""
+        for f, n in zip(self.counters, values):
+            f.launches += n

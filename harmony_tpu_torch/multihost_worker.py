@@ -319,7 +319,7 @@ def inject_draws(cfg, mesh_size: int, rank: int, rounds: int, seed: int):
     every = [[[(int(rng.integers(NT)), rng.permutation(nb).tolist())
                for _ in range(mesh_size)] for _ in range(cfg.max_iter_cluster)]
              for _ in range(rounds)]
-    return {"schedules": [[r[rank] for r in rnd] for rnd in every]}
+    return {"schedules": [rotate.schedule_table([r[rank] for r in rnd]) for rnd in every]}
 
 
 def _inject(args, mesh) -> dict:

@@ -42,7 +42,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, graphs
 from ..config import HarmonyConfig
 from . import rotate
 from .assign import block_bounds
@@ -221,7 +221,7 @@ def block_update_round(
     _build.check(lib.k1_block_stats(
         R_c.data_ptr(), bq.data_ptr(), gq.data_ptr(), old.data_ptr(), N, span, n_spans, K,
         B, ncov, nb, KS, smem_stats, stream), "k1_block_stats")
-    block_update_round.launches += 2
+    graphs.count(block_update_round, 2)
 
     def commit(ncta: int, add: int, rm: int) -> None:
         _build.check(lib.k1_commit(
@@ -229,7 +229,7 @@ def block_update_round(
             max(rm, 0) * n_spans, n_spans if rm >= 0 else 0, nb * n_spans, Pr_c.data_ptr(),
             th_c.data_ptr(), pen.data_ptr(), acc.data_ptr(), K, B, add, stream,
         ), "k1_commit")
-        block_update_round.launches += 1
+        graphs.count(block_update_round)
 
     commit(0, 0, 0)
     for i, (start, size) in enumerate(block_bounds(cfg)):
@@ -239,7 +239,7 @@ def block_update_round(
                 pen.data_ptr(), sig_c.data_ptr(), R_out.data_ptr(), part.data_ptr(), N,
                 start, size, K, d, B, ncov, T, 0, 0, 0, smem, stream,
             ), "k1_assign")
-            block_update_round.launches += 1
+            graphs.count(block_update_round)
         commit(-(-size // T), 1, i + 1 if i + 1 < nb else -1)
     return RoundResult(R=R_out, E=E_w, O=O_w, kmeans_error=acc[0], entropy=acc[1])
 
@@ -320,7 +320,7 @@ def rotate_update_round_v1(
 
     _build.check(lib.k12_old_stats(R.data_ptr(), gcodes.data_ptr(), old.data_ptr(), L,
                                    span, K, B, ncov, smem_old, stream), "k12_old_stats")
-    rotate_update_round_v1.launches += 1
+    graphs.count(rotate_update_round_v1)
 
     def commit(ncta: int, add: int, rm_blk: int) -> None:
         v, n = ((vstart[rm_blk] + rt) % NT, szs[rm_blk]) if rm_blk >= 0 else (0, 0)
@@ -329,7 +329,7 @@ def rotate_update_round_v1(
             v * split, n * split, NT * split, Pr_b.data_ptr(), theta.data_ptr(),
             pen.data_ptr(), acc.data_ptr(), K, B, add, stream,
         ), "k1_commit")
-        rotate_update_round_v1.launches += 1
+        graphs.count(rotate_update_round_v1)
 
     order = [int(b) for b in order]
     commit(0, 0, order[0])
@@ -340,7 +340,7 @@ def rotate_update_round_v1(
             sigma.data_ptr(), R_out.data_ptr(), part.data_ptr(), L, 0, ncells, K, d, B,
             ncov, Tc, T, NT, (vstart[blk] + rt) % NT, smem, stream,
         ), "k1_assign")
-        rotate_update_round_v1.launches += 1
+        graphs.count(rotate_update_round_v1)
         commit(-(-ncells // Tc), 1, order[i + 1] if i + 1 < len(order) else -1)
     return RoundResult(R=R_out, E=E_w, O=O_w, kmeans_error=acc[0], entropy=acc[1])
 

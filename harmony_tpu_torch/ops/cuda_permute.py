@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, graphs
 from ..config import HarmonyConfig
 from . import permute_phase as twin
 from .cuda_estep import _sm_count
@@ -251,7 +251,7 @@ def phase_head(cfg: HarmonyConfig, Z: torch.Tensor, Y: torch.Tensor) -> torch.Te
         T, min(plan.head_grid, -(-N // T)), head_smem_bytes(K, d, T),
         torch.cuda.current_stream(dev).cuda_stream,
     ), "k2_head")
-    permute_rounds.launches += 1
+    graphs.count(permute_rounds)
     return G
 
 
@@ -305,15 +305,18 @@ def permute_rounds(
     p_pens = [t.data_ptr() for t in pens]
     p_acc = [acc[r].data_ptr() for r in range(rounds)]
     threads = 32 * plan.warps
+    issued = 0  # the launches, counted in one add after the rounds
 
     def cells(assign, p_perm, p_pen, grid, cta_per, span, first):
+        nonlocal issued
         _build.check(lib.k2_cells(
             assign, int(plan.shared), p_G, p_perm, p_gn, p_blk, p_pen, p_sig, p_part[assign], grid,
             threads, cpb, last, nb, cta_per, span, first, K, B, ncov, plan.smem, stream,
         ), "k2_cells")
-        permute_rounds.launches += 1
+        issued += 1
 
     def commit(n1, rm, p_pen, store_row, p_acc_r):
+        nonlocal issued
         rm_first, rm_n = 0, 0
         if rm >= 0:
             size = cpb if rm < nb - 1 else last
@@ -322,7 +325,7 @@ def permute_rounds(
             p_part[1], n1, p_part[0], rm_first, rm_n, *c_tail, p_pen, store_row, p_acc_r,
             K, B, int(n1 >= 0), int(rm >= 0), stream,
         ), "k2_commit")
-        permute_rounds.launches += 1
+        issued += 1
 
     for r in range(rounds):
         p_perm = perms[r].data_ptr()
@@ -339,6 +342,9 @@ def permute_rounds(
                    i + 1 if i + 1 < nb else -1, p_acc[r])
         E_st[r].copy_(E_w)
         O_st[r].copy_(O_w)
+    # where the rounds' launches were issued (a captured phase adds them on
+    # the device once, not once a launch)
+    graphs.count(permute_rounds, issued)
     return RoundsResult(
         E=E_w, O=O_w, E_rounds=E_st, O_rounds=O_st, kmeans_error=acc[:, 0],
         entropy=acc[:, 1],
@@ -349,7 +355,7 @@ def permute_rounds(
 permute_rounds.launches = 0
 
 
-@functools.lru_cache(maxsize=4)
+@graphs.device_cache(maxsize=4)
 def _k3_moments_plan(tj_bytes: bytes, n_joint: int, device: str, groups: int, ctas: int
                      ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
     """K3's work with moments: the layout tiles, joint by joint (ascending
@@ -463,7 +469,7 @@ def materialize(
     ), "k3_materialize")
     if M is not None:
         sum_joint_rows(part, start, M)
-    materialize.launches += 1
+    graphs.count(materialize)
     return R, M
 
 

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, graphs
 
 _F32 = torch.float32
 _SMEM_MAX = 232_448  # bytes of shared memory a CTA may use on Hopper
@@ -243,7 +243,7 @@ def moments(R: torch.Tensor, Z: torch.Tensor, codes: torch.Tensor, B: int,
         part.data_ptr(), M.data_ptr(), N, K, d, B, T, nt, tpc, NS,
         KS, EP, int(global_acc), threads, smem, stream,
     ), "k4_moments")
-    moments.launches += 1
+    graphs.count(moments)
     return M
 
 
@@ -293,7 +293,7 @@ def correction(W: torch.Tensor, R: torch.Tensor, Z: torch.Tensor,
         index.runs.data_ptr(), Zc.data_ptr(), N, K, d, T, nt, T + 4, dp, WB, stages, grid, smem,
         stream,
     ), "k5_correction")
-    correction.launches += 1
+    graphs.count(correction)
     return Zc
 
 
@@ -348,7 +348,7 @@ def tile_moments_twin(R, Z, tile: int, tile_joint, n_joint: int) -> torch.Tensor
     return (oh @ S.reshape(nt, -1)).reshape(n_joint + 1, K, d + 1)
 
 
-@functools.lru_cache(maxsize=8)
+@graphs.device_cache(maxsize=8)
 def _moments_plan(tj_bytes: bytes, n_joint: int, device: str, chunk: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Chunks of up to ``chunk`` tiles of one joint level, joints in
@@ -379,7 +379,7 @@ def plan_order(tile_joint: np.ndarray, device) -> torch.Tensor:
     return _order_on(tj.tobytes(), str(device))
 
 
-@functools.lru_cache(maxsize=4)
+@graphs.device_cache(maxsize=4)
 def _order_on(tj_bytes: bytes, device: str) -> torch.Tensor:
     order = np.argsort(np.frombuffer(tj_bytes, dtype=np.int32), kind="stable")
     return torch.as_tensor(order.astype(np.int32), device=device)
@@ -412,7 +412,7 @@ def _k9_occupancy(threads: int, smem: int, aligned: bool, tile: int) -> int:
     return n
 
 
-@functools.lru_cache(maxsize=4)
+@graphs.device_cache(maxsize=4)
 def _table_on(tj_bytes: bytes, device: str) -> torch.Tensor:
     """The tile -> joint table on the card, copied once per table."""
     return torch.as_tensor(np.frombuffer(tj_bytes, dtype=np.int32).copy(), device=device)
@@ -469,7 +469,7 @@ def tile_moments(R: torch.Tensor, Z: torch.Tensor, tile: int, tile_joint,
         part.data_ptr(), M.data_ptr(), Np, K, d, tile, n_chunks, n_joint, KS, nkb, neb,
         threads, chunk, smem, stream,
     ), "k8_tile_moments")
-    tile_moments.launches += 1
+    graphs.count(tile_moments)
     return M
 
 
@@ -518,7 +518,7 @@ def tiled_correction(W_joint: torch.Tensor, tile_joint, R: torch.Tensor,
         Zc.data_ptr(), Np, n, K, d, _ceil4(d), tile, nj1 - 1, grid, stages, threads, int(aligned),
         smem, stream,
     ), "k9_tiled_correction")
-    tiled_correction.launches += 1
+    graphs.count(tiled_correction)
     return Zc
 
 

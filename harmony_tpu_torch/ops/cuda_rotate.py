@@ -10,11 +10,15 @@ Counterpart of ``harmony_tpu/ops/pallas_rotate.py`` (``pallas_reassign``,
   reduction launch over (tile, column chunk) that builds tile_O, O and E.
   It also returns the phase's Gram table G (L, K) = (Y^T Zn)^T, which the
   phase's K7 rounds read instead of forming Y^T Z again.
-* :func:`rotate_update_round_v2` (K7): a host loop over the blocks in the
-  round's order, g read from ``layout.G``. One commit launch removes the
-  first block's old O; then each block gets an assign launch over its
-  cells and a commit launch that folds its partials into tile_O and E/O,
-  removes the next block's old O and writes the next penalty tables. A
+* :func:`rotate_update_round_v2` (K7): a host loop over the positions of
+  the round's block order, g read from ``layout.G``; each launch reads the
+  round's row of the schedule table (rotation, block order) and the block
+  table from the card, so the host issues the same launches for every
+  schedule (a captured round replays any: ``engine.run_rounds``). One
+  commit launch removes the first block's old O; then each block gets an
+  assign launch over its cells and a commit launch that folds its partials
+  into tile_O and E/O, removes the next block's old O and writes the next
+  penalty tables. A
   block's old O is the fixed-order sum of its tiles in the previous
   round's table, computed in the commit kernel: the loop issues launches
   only, with no PyTorch
@@ -67,12 +71,12 @@ moments).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, graphs
 from ..config import HarmonyConfig
 from . import rotate
 from .cuda_estep import _sm_count
@@ -87,10 +91,9 @@ _SMEM_MAX = 232_448  # bytes of shared memory a CTA may use on Hopper
 _CT = 64  # cells per piece (kCT in rotate.cu)
 _WARPS = 8
 _SIGNATURES = {
-    "k7_assign": [_build.PTR] * 13 + [_build.I64] + [_build.INT] * 13 + [_build.PTR],
-    "k7_commit": [_build.PTR, _build.INT, _build.INT, _build.INT, _build.INT,
-                  _build.INT, _build.PTR, _build.PTR, _build.INT, _build.INT]
-    + [_build.PTR] * 9 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [_build.PTR],
+    "k7_assign": [_build.PTR] * 15 + [_build.I64] + [_build.INT] * 14 + [_build.PTR],
+    "k7_commit": [_build.PTR] * 3 + [_build.INT] * 5 + [_build.PTR] * 11
+    + [_build.INT, _build.PTR] + [_build.INT] * 3 + [_build.PTR],
     "k6_occupancy": [_build.INT] * 3,
     "k6_reassign": [_build.PTR] * 14 + [_build.I64] + [_build.INT] * 15 + [_build.PTR],
     "k10_virtual_correction": [_build.PTR] * 11 + [_build.I64] + [_build.INT] * 19
@@ -386,7 +389,7 @@ def _check_smem(where: str, cfg: HarmonyConfig, smem: int) -> None:
         )
 
 
-@functools.lru_cache(maxsize=4)
+@graphs.device_cache(maxsize=4)
 def _tile_slots(tj_bytes: bytes, n_joint: int, device: str
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7's moment rows, one per layout tile, laid out joint by joint
@@ -401,7 +404,7 @@ def _tile_slots(tj_bytes: bytes, n_joint: int, device: str
     return torch.as_tensor(slot, device=device), torch.as_tensor(start, device=device)
 
 
-@functools.lru_cache(maxsize=4)
+@graphs.device_cache(maxsize=4)
 def _offsets_on(offsets: Tuple[int, ...], device: str) -> torch.Tensor:
     """The covariate offsets as an int32 tensor on the device, made once:
     a host copy inside the round loop would synchronise the stream."""
@@ -454,7 +457,7 @@ def reassign(
         K8, splits, grid, n_chunk, storage_code(Z_raw), int(mma), mma_stride(d), _ceil16(d),
         smem, torch.cuda.current_stream(dev).cuda_stream,
     ), "k6_reassign")
-    reassign.launches += 1
+    graphs.count(reassign)
     return Zn, tile_O, O, E, G
 
 
@@ -468,19 +471,20 @@ def rotate_update_round_v2(
     Pr_b: torch.Tensor,  # (B,)
     sigma: torch.Tensor,  # (K,)
     theta: torch.Tensor,  # (B,)
-    rt: int,
-    order: Sequence[int],
+    sched: torch.Tensor,  # (1 + nb,) int32 the round's row of the schedule table
     layout: CodesLayout,
     write_r: bool = True,
     moments: Optional[MomentsSpec] = None,
     emit_pen: bool = False,
 ) -> RoundState:
-    """K7: one stats-carrying round for the schedule (rt, order), g read
-    from the phase's Gram table ``layout.G`` (K6's); with ``moments`` and
-    ``emit_pen`` the extras of a phase's last round. R, E and O come back
+    """K7: one stats-carrying round for the round's row ``sched`` of the
+    schedule table (``rotate.draw_schedules``: rotation, block order), g
+    read from the phase's Gram table ``layout.G`` (K6's); with ``moments``
+    and ``emit_pen`` the extras of a phase's last round. R, E and O come back
     in the dtypes of ``rs``'s (the kernel's float32 cast, as
     pallas_rotate.py:1036-1043 casts), and ``moments.Z_orig`` may be bf16
-    or float16."""
+    or float16. The launches read the schedule where it lies: the host
+    issues the same launches for every schedule and reads nothing."""
     floats = {"Y": Y, "tile_O": rs.tile_O, "Pr_b": Pr_b, "sigma": sigma, "theta": theta,
               "Z_pad": layout.Z_pad}
     storage = {"R": rs.R, "E": rs.E, "O": rs.O}
@@ -488,8 +492,8 @@ def rotate_update_round_v2(
         storage["Z_orig"] = moments.Z_orig
     _check("rotate_update_round_v2", cfg, floats, layout.codes_pad, storage)
     if Y.device.type == "cpu":
-        return rotate.rotate_update_round_v2(cfg, Y, rs, Pr_b, sigma, theta, rt,
-                                             order, layout, write_r, moments, emit_pen)
+        return rotate.rotate_update_round_v2(cfg, Y, rs, Pr_b, sigma, theta, sched, layout,
+                                             write_r, moments, emit_pen)
     d, L = layout.Z_pad.shape
     K, B, T = cfg.K, cfg.B, cfg.estep_sub_tile
     NT = L // T
@@ -501,8 +505,14 @@ def rotate_update_round_v2(
         raise ValueError("rotate_update_round_v2: the kernel reads g from the layout's "
                          f"Gram table, a contiguous float32 ({L}, {K}) tensor on {Y.device} "
                          "(K6 returns it)")
-    szs, vstart = rotate.block_sizes(cfg, NT)
+    szs, _ = rotate.block_sizes(cfg, NT)
+    nb, big = len(szs), max(szs)
     dev = Y.device
+    if (sched.shape != (1 + nb,) or sched.dtype != torch.int32 or sched.device != dev
+            or not sched.is_contiguous()):
+        raise ValueError(f"rotate_update_round_v2: sched must be the round's contiguous "
+                         f"int32 row (1 + {nb},) of the schedule table on {dev}")
+    blocks = rotate.block_table(cfg, NT, dev)
     ncov, b0 = cfg.n_covariates, cfg.B_vec[0]
     tw, M, mom = _CT, None, (None,) * 5
     if moments is not None:
@@ -518,9 +528,9 @@ def rotate_update_round_v2(
         # one block's pieces' (K4 x d1p) tables (two a piece where layout
         # tiles are not whole pieces: its cells on each side of a tile
         # boundary), and a count per layout tile of a block
-        mpiece = torch.empty((max(szs) * T // _CT * (1 if tw % _CT == 0 else 2),
+        mpiece = torch.empty((big * T // _CT * (1 if tw % _CT == 0 else 2),
                               -(-K // 4) * 4 * _ceil4(d + 1)), dtype=_F32, device=dev)
-        count = torch.zeros(max(szs) * T // tw, dtype=torch.int32, device=dev)
+        count = torch.zeros(big * T // tw, dtype=torch.int32, device=dev)
         mom = (moments.Z_orig, slot, mpart, mpiece, count)
     smem = assign_smem_bytes(K, d, B, ncov, moments is not None)
     _check_smem("rotate_update_round_v2", cfg, smem)
@@ -533,8 +543,8 @@ def rotate_update_round_v2(
     tile_O = torch.empty_like(rs.tile_O)
     R_out = torch.empty((K, L), dtype=_F32, device=dev) if write_r else None
     E_in, O_in = rs.E.to(_F32), rs.O.to(_F32)
-    pen_out = torch.empty((len(szs), K, B), dtype=_F32, device=dev) if emit_pen else None
-    part = torch.empty((max(szs) * cpt, K * B + 2), dtype=_F32, device=dev)
+    pen_out = torch.empty((nb, K, B), dtype=_F32, device=dev) if emit_pen else None
+    part = torch.empty((big * cpt, K * B + 2), dtype=_F32, device=dev)
     offsets = _offsets_on(cfg.covariate_offsets, str(dev))
     lib, alib = _lib("rotate"), _lib_for(tw)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -543,40 +553,36 @@ def rotate_update_round_v2(
     # 2 * n_blocks + 1 launches a round, and the host builds each one
     a_ptrs = (G.data_ptr(), layout.codes_pad.data_ptr(), offsets.data_ptr(), pen.data_ptr(),
               logpen.data_ptr(), sigma.data_ptr(), ptr(R_out), part.data_ptr(),
-              *[ptr(t) for t in mom])
-    c_part, c_new, c_old = part.data_ptr(), tile_O.data_ptr(), rs.tile_O.data_ptr()
+              *[ptr(t) for t in mom], sched.data_ptr(), blocks.data_ptr())
+    c_head = (part.data_ptr(), sched.data_ptr(), blocks.data_ptr())
+    c_tO = (tile_O.data_ptr(), rs.tile_O.data_ptr())
     c_in = ((E_in.data_ptr(), O_in.data_ptr()), (E_w.data_ptr(), O_w.data_ptr()))
     c_tail = (E_w.data_ptr(), O_w.data_ptr(), Pr_b.data_ptr(), theta.data_ptr(),
-              pen.data_ptr(), logpen.data_ptr(), ptr(pen_out))
-    c_acc, d1p, lg = acc.data_ptr(), _ceil4(d + 1), legacy(cfg)
+              pen.data_ptr(), logpen.data_ptr(), ptr(pen_out), int(emit_pen), acc.data_ptr(),
+              K, B, b0, stream)
+    d1p, lg = _ceil4(d + 1), legacy(cfg)
     zst = storage_code(moments.Z_orig) if moments is not None else 0
 
-    def commit(add_blk: int, rm_blk: int, first: bool) -> None:
-        v0, nt = ((vstart[add_blk] + rt) % NT, szs[add_blk]) if add_blk >= 0 else (0, 0)
-        rv0, rn = ((vstart[rm_blk] + rt) % NT, szs[rm_blk]) if rm_blk >= 0 else (0, 0)
-        _build.check(lib.k7_commit(
-            c_part, int(add_blk >= 0), v0, nt, cpt, NT, c_new, c_old, rv0, rn,
-            *c_in[0 if first else 1], *c_tail, rm_blk if emit_pen else -1, c_acc,
-            int(first), K, B, b0, stream,
-        ), "k7_commit")
-        rotate_update_round_v2.launches += 1
+    def commit(pos: int) -> None:
+        # after the block at position pos (-1: the round's first commit)
+        _build.check(lib.k7_commit(*c_head, pos, nb, big, cpt, NT, *c_tO,
+                                   *c_in[0 if pos < 0 else 1], *c_tail), "k7_commit")
 
-    order = [int(b) for b in order]
-    commit(-1, order[0], True)
-    for i, blk in enumerate(order):
+    commit(-1)
+    for pos in range(nb):
         _build.check(alib.k7_assign(
-            *a_ptrs, L, (vstart[blk] + rt) % NT, szs[blk], NT, cpt, tw, K, d, B, ncov, d1p,
-            lg, zst, smem, stream,
+            *a_ptrs, L, pos, nb, big, NT, cpt, tw, K, d, B, ncov, d1p, lg, zst, smem, stream,
         ), "k7_assign")
-        rotate_update_round_v2.launches += 1
-        commit(blk, order[i + 1] if i + 1 < len(order) else -1, False)
+        commit(pos)
     if moments is not None:
         sum_joint_rows(mpart, start, M)
-        rotate_update_round_v2.launches += 1
+    # the round's launches, counted where they were issued, in one add (a
+    # captured round adds them on the device once, not once a launch)
+    graphs.count(rotate_update_round_v2, 2 * nb + 1 + (moments is not None))
     return RoundState(R=R_out.to(rs.R.dtype) if write_r else rs.R, E=E_w.to(rs.E.dtype),
                       O=O_w.to(rs.O.dtype), tile_O=tile_O,
                       kmeans_error=acc[0], entropy=acc[1], M=M, pen=pen_out,
-                      blkmap=rotate.block_of_tiles(cfg, rt, dev, NT) if emit_pen else None)
+                      blkmap=rotate.block_of_tiles(cfg, sched[0], dev, NT) if emit_pen else None)
 
 
 rotate_update_round_v2.launches = 0
@@ -669,7 +675,7 @@ def virtual_correction(
         cfg.n_covariates, groups, legacy(cfg), storage_code(Z_orig_pad), int(mma),
         mma_stride(K), _ceil16(d), grid, smem, torch.cuda.current_stream(dev).cuda_stream,
     ), "k10_virtual_correction")
-    virtual_correction.launches += 1
+    graphs.count(virtual_correction)
     return Zc
 
 
@@ -721,7 +727,7 @@ def materialize_r(
         materialize_r_grid(L // _CT, plan.smem, _sm_count(dev)), plan.smem,
         torch.cuda.current_stream(dev).cuda_stream,
     ), "k11_materialize_r")
-    materialize_r.launches += 1
+    graphs.count(materialize_r)
     return R[:, : cfg.Np]
 
 

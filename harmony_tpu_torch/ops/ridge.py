@@ -68,6 +68,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import HarmonyConfig
 from .normalize import l2_normalize_columns
 
@@ -77,7 +78,7 @@ _F32 = torch.float32
 def _covariate_of_batch(cfg: HarmonyConfig, device) -> torch.Tensor:
     """(B,) covariate id of each global batch row (src/harmony.cpp:96-97)."""
     ids = [c for c, b in enumerate(cfg.B_vec) for _ in range(b)]
-    return torch.as_tensor(ids, dtype=torch.int64, device=device)
+    return graphs.device_table(ids, np.int64, device)
 
 
 def compute_masks(
@@ -334,7 +335,7 @@ def _segment_sum(x: torch.Tensor, ids, n: int) -> torch.Tensor:
     """sum of the rows of x (m, ...) into n segments, as a one-hot product;
     ``ids`` a host array or a tensor."""
     if not isinstance(ids, torch.Tensor):
-        ids = torch.as_tensor(np.asarray(ids))
+        ids = graphs.device_table(ids, np.int64, x.device)
     ids = ids.to(device=x.device, dtype=torch.int64)
     oh = torch.nn.functional.one_hot(ids, n).to(_F32).t()  # (n, m)
     return (oh @ x.reshape(x.shape[0], -1)).reshape((n,) + tuple(x.shape[1:]))
@@ -488,7 +489,7 @@ def _intercept_moments_tiled(cfg, keep, Zf, codes, tiled, ctx, mesh=None):
     seg = ctx[2]
     mask_j = None
     for c, off in enumerate(cfg.covariate_offsets):
-        jc = torch.as_tensor(tiled.joint_codes[c], dtype=torch.int64, device=keep.device)
+        jc = graphs.device_table(tiled.joint_codes[c], np.int64, keep.device)
         kc = keep[:, off : off + cfg.B_vec[c]].index_select(1, jc)  # (K, nj)
         mask_j = kc if mask_j is None else (mask_j | kc)
     mj = mask_j.to(_F32).t()[:, :, None]  # (nj, K, 1)
@@ -517,7 +518,7 @@ def _joint_betas(cfg, W, tiled) -> torch.Tensor:
     covariates, src/harmony.cpp:613-616); the trash row n_joint is zero."""
     W_joint = None
     for c, off in enumerate(cfg.covariate_offsets):
-        jc = torch.as_tensor(tiled.joint_codes[c], dtype=torch.int64, device=W.device)
+        jc = graphs.device_table(tiled.joint_codes[c], np.int64, W.device)
         Wc = W[:, 1 + off : 1 + off + cfg.B_vec[c], :].index_select(1, jc)  # (K, nj, d)
         W_joint = Wc if W_joint is None else W_joint + Wc
     W_joint = W_joint.permute(1, 2, 0).to(_F32)  # (nj, d, K)

@@ -64,8 +64,10 @@ from __future__ import annotations
 
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .. import graphs
 from ..config import HarmonyConfig
 from .cuda_ridge import tile_moments_twin, tiled_correction_twin
 from .estep import RoundResult
@@ -177,12 +179,21 @@ def block_tiles(cfg: HarmonyConfig, rt: int, blk: int, NT: Optional[int] = None)
     return [(vstart[blk] + j + rt) % NT for j in range(szs[blk])]
 
 
-def block_of_tiles(cfg: HarmonyConfig, rt: int, device, NT: Optional[int] = None
+def block_table(cfg: HarmonyConfig, NT: Optional[int] = None, device="cpu") -> torch.Tensor:
+    """(2, nb) int32 on ``device``: the tiles of each block, then its first
+    virtual tile (:func:`block_sizes` over ``NT`` tiles), the table K7's
+    launches read with the round's schedule; on the card built once per
+    layout (``graphs.device_table``)."""
+    return graphs.device_table(np.array(block_sizes(cfg, NT)), np.int32, device)
+
+
+def block_of_tiles(cfg: HarmonyConfig, rt, device, NT: Optional[int] = None
                    ) -> torch.Tensor:
     """(NT,) int32 block of each physical tile under rotation ``rt``
     (blk_of_phys, pallas_rotate.py:1053): tile p sits at virtual slot
     (p - rt) mod NT, and the first NT mod nb blocks hold one tile more.
-    Built on the device from host ints, so no copy waits for the stream."""
+    ``rt`` is an int or the schedule table's 0-d entry on ``device``; built
+    on the device, so no copy waits for the stream."""
     NT = n_tiles(cfg) if NT is None else NT
     base, rem = divmod(NT, len(block_sizes(cfg, NT)[0]))
     v = torch.remainder(torch.arange(NT, device=device) - rt, NT)
@@ -192,10 +203,14 @@ def block_of_tiles(cfg: HarmonyConfig, rt: int, device, NT: Optional[int] = None
 
 def draw_schedules(
     cfg: HarmonyConfig, generator: torch.Generator, rounds: int, NT: Optional[int] = None
-) -> List[Tuple[int, List[int]]]:
-    """``rounds`` (rotation, block order) pairs from the generator, drawn
-    together and brought to the host once (the launch loop needs them),
-    over ``NT`` tiles (default: the whole padded axis)."""
+) -> torch.Tensor:
+    """``rounds`` rounds' schedules over ``NT`` tiles (default: the whole
+    padded axis) from the generator: the rotations by one ``randint``, then
+    one ``randperm`` of the blocks a round, as a (rounds, 1 + nb) int32
+    table on the generator's device, row r the rotation of round r and then
+    its block order. The table stays there: K7's launches read their round's
+    row from it, so a round needs no host read and a captured round replays
+    any schedule (the plain twin reads its row with ``.tolist()``)."""
     NT = n_tiles(cfg) if NT is None else NT
     nb = len(block_sizes(cfg, NT)[0])
     dev = generator.device
@@ -203,7 +218,20 @@ def draw_schedules(
     orders = torch.stack(
         [torch.randperm(nb, generator=generator, device=dev) for _ in range(rounds)]
     )
-    return [(int(r), o) for r, o in zip(rts.tolist(), orders.tolist())]
+    return torch.cat([rts[:, None], orders], dim=1).to(torch.int32)
+
+
+def schedule_table(pairs: Sequence[Tuple[int, Sequence[int]]], device="cpu") -> torch.Tensor:
+    """The schedule table of injected (rotation, block order) pairs, one
+    row a round (:func:`draw_schedules`' layout)."""
+    return torch.tensor([[int(rt), *[int(b) for b in order]] for rt, order in pairs],
+                        dtype=torch.int32, device=device)
+
+
+def schedule_pairs(table: torch.Tensor) -> List[Tuple[int, List[int]]]:
+    """The (rotation, block order) pairs of a schedule table, on the host
+    (one read)."""
+    return [(row[0], row[1:]) for row in table.tolist()]
 
 
 def block_old_stats(
@@ -378,16 +406,17 @@ def rotate_update_round_v2(
     Pr_b: torch.Tensor,  # (B,)
     sigma: torch.Tensor,  # (K,)
     theta: torch.Tensor,  # (B,)
-    rt: int,
-    order: Sequence[int],
+    sched: torch.Tensor,  # (1 + nb,) int32 the round's row of the schedule table
     layout: CodesLayout,
     write_r: bool = True,
     moments: Optional[MomentsSpec] = None,
     emit_pen: bool = False,
 ) -> RoundState:
     """Plain version of K7 (``pallas_rotate_update_round_v2``,
-    pallas_rotate.py:851) for the schedule (rt, order), g taken from
-    ``layout.G`` (formed from ``layout.Z_pad`` block by block without it).
+    pallas_rotate.py:851) for the round's row ``sched`` of the schedule
+    table (:func:`draw_schedules`: the rotation rt, then the block order),
+    read on the host, g taken from ``layout.G`` (formed from
+    ``layout.Z_pad`` block by block without it).
 
     ``write_r=False`` leaves the returned R the (stale) input R: no round
     reads R, so only the phase's last round has to write it. ``moments``
@@ -400,6 +429,7 @@ def rotate_update_round_v2(
     T = cfg.estep_sub_tile
     NT = Npt // T
     b0 = cfg.B_vec[0]
+    rt, *order = sched.tolist()
     _, blk_O = block_old_stats(cfg, rs.tile_O, rt, order)
     Yt = Y.t().to(_F32)
     sig = sigma.to(_F32)
@@ -630,10 +660,10 @@ def sharded_reassign(cfg: HarmonyConfig, mesh, Y, sigma, Pr_b, Z_raw, codes_pad,
 
 
 def sharded_rotate_round_v2(cfg: HarmonyConfig, mesh, Y, rs: RoundState, Pr_b, sigma, theta,
-                            rt: int, order: Sequence[int], layout: CodesLayout,
+                            sched: torch.Tensor, layout: CodesLayout,
                             write_r: bool = True, moments: Optional[MomentsSpec] = None,
                             emit_pen: bool = False, fn=None) -> RoundState:
-    """K7 on the rank's cells for the rank's own schedule (rt, order)
+    """K7 on the rank's cells for the rank's own schedule row ``sched``
     (``fn``: :func:`rotate_update_round_v2` by default,
     ``cuda_rotate.rotate_update_round_v2`` for the kernel), then one
     all-reduce (``sharded_rotate_round_v2``, pallas_rotate.py:1127-1216):
@@ -648,7 +678,7 @@ def sharded_rotate_round_v2(cfg: HarmonyConfig, mesh, Y, rs: RoundState, Pr_b, s
 
     E0, O0 = rs.E.to(_F32), rs.O.to(_F32)
     res = (fn or rotate_update_round_v2)(cfg, Y, rs._replace(E=E0, O=O0), Pr_b, sigma, theta,
-                                         rt, order, layout, write_r, moments, emit_pen)
+                                         sched, layout, write_r, moments, emit_pen)
     parts = [res.O.to(_F32) - O0, res.E.to(_F32) - E0, res.kmeans_error.reshape(1),
              res.entropy.reshape(1)]
     if res.M is not None:

@@ -10,13 +10,16 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
+
+from .. import graphs
 
 
 def one_hot_design(codes: torch.Tensor, offsets: Tuple[int, ...], B: int,
                    dtype=torch.float32) -> torch.Tensor:
     """The stacked one-hot Phi (B, N)."""
-    off = torch.as_tensor(offsets, dtype=codes.dtype, device=codes.device)
+    off = graphs.device_table(offsets, np.int64, codes.device)
     gcodes = (codes + off[:, None]).long()
     oh = torch.nn.functional.one_hot(gcodes, B).to(dtype)  # (ncov, N, B)
     return oh.sum(dim=0).t()

@@ -114,6 +114,13 @@ class HarmonyState:
     # its correction writes R from virt_Y and virt_Zn (K11), then applies
     # it (K9).
     virt_G: Optional[torch.Tensor] = None
+    # The device cursor (n_kmeans, n_harmony, n_rounds), int64 on the
+    # state's device, while engine.run_rounds runs an iteration, else None:
+    # the trace writes go there and advance it on the device, so one
+    # captured iteration serves every iteration, and the host ints are set
+    # from it with one read after the run. Not a field of the JAX state,
+    # whose cursors are device scalars already.
+    cursor: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:

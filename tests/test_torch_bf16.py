@@ -188,7 +188,8 @@ def _last_round_bf16(N, Np, d, K, B_vec, T, write_r, variant):
         moments=spec_j, emit_pen=True)
     G = _t(np.asarray(Zn).T @ Y)
     lay = tr.CodesLayout(Z_pad=_t(Zn), codes_pad=_t(cp_j), G=G)
-    args = (ct, _t(Y), rs_t, _t(Pr), _t(sigma), _t(theta), rt, order, lay, write_r)
+    args = (ct, _t(Y), rs_t, _t(Pr), _t(sigma), _t(theta), tr.schedule_table([(rt, order)])[0],
+            lay, write_r)
     out = cuda_rotate.rotate_update_round_v2(*args, moments=spec_t, emit_pen=True)
     up = cuda_rotate.rotate_update_round_v2(*args, moments=spec_t._replace(Z_orig=Zo_t.float()),
                                             emit_pen=True)

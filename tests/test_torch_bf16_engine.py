@@ -41,6 +41,7 @@ from harmony_tpu_torch import engine as tengine
 from harmony_tpu_torch import preprocess as tpre
 from harmony_tpu_torch import run_harmony
 from harmony_tpu_torch import state as tstate
+from harmony_tpu_torch.ops import rotate as tr
 
 from test_torch_bf16 import _bf, _f64
 from test_torch_rotate import _jax_schedule
@@ -83,6 +84,8 @@ def _rotate_rounds(cj, ct, sj, st, tiled_j, tiled_t, schedule=_jax_schedule, rou
     for _ in range(rounds):
         _, sub = jax.random.split(sj.key)
         sched = [schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)]
+        if ct.rotate_route != "cell":
+            sched = tr.schedule_table(sched)  # the tile routes take the table
         sj = round_j(sj)
         st = tengine.harmony_round(ct, st, schedules=sched,
                                    layout=tengine.MStepLayout(tiled_t))

@@ -50,7 +50,7 @@ from harmony_tpu_torch import state as tstate
 from harmony_tpu_torch.api import HarmonyResult
 from harmony_tpu_torch.runtime import DivergenceError
 
-from test_torch_rotate import _jax_schedule, _slice_setup as _rotate_setup
+from test_torch_rotate import _jax_table, _slice_setup as _rotate_setup
 
 RESUME_ATOL = 5e-4
 
@@ -250,7 +250,7 @@ def test_jax_checkpoint_resumes_in_port(tmp_path, schedule, mode):
     layout = tengine.mstep_layout(ct2, td.codes)
     if schedule == "rotate":
         _, sub = jax.random.split(sj2.key)
-        sched = [_jax_schedule(ct2, k) for k in jax.random.split(sub, cj2.max_iter_cluster)]
+        sched = _jax_table(ct2, jax.random.split(sub, cj2.max_iter_cluster))
         sj3 = _jax_rounds(cj2, sj2, 1, tiled_j)
         st3 = tengine.harmony_round(ct2, st2, schedules=sched, layout=layout)
     else:

@@ -129,7 +129,7 @@ def _rank_main(argv):
         block_size=0.25, estep_sub_tile=512)
     g = torch.Generator()
     g.manual_seed(11)
-    pairs = tengine.draw_shard_schedules(cfg, g, 3, mesh, 8)
+    pairs = trotate.schedule_pairs(tengine.draw_shard_schedules(cfg, g, 3, mesh, 8))
     out["deal__rt"] = np.asarray([p[0] for p in pairs])
     out["deal__order"] = np.asarray([p[1] for p in pairs])
     np.savez(out_path, **out)
@@ -252,7 +252,7 @@ def test_shard_schedules_deal_one_draw_by_rank(mesh_sweep, n):
                                 shuffle_mode="rotate", block_size=0.25, estep_sub_tile=512)
     g = torch.Generator()
     g.manual_seed(11)
-    every = trotate.draw_schedules(cfg, g, 3 * n, 8)
+    every = trotate.schedule_pairs(trotate.draw_schedules(cfg, g, 3 * n, 8))
     outs = mesh_sweep[n]
     for r, o in enumerate(outs):
         mine = every[r::n]
@@ -294,7 +294,7 @@ def test_draw_schedules_are_uniform():
     assert (NT, nb) == (20, 20)
     g = torch.Generator()
     g.manual_seed(1234)
-    _check_pairs(trotate.draw_schedules(cfg, g, N_DRAWS), NT, nb)
+    _check_pairs(trotate.schedule_pairs(trotate.draw_schedules(cfg, g, N_DRAWS)), NT, nb)
 
 
 def test_draw_rotate_schedules_are_uniform():

@@ -197,8 +197,8 @@ def _rank_wrap(case, mesh, out):
                        kmeans_error=None, entropy=None)
     mom = tr.MomentsSpec(Z_orig=Zo, tile_joint=a["tj"][lo // TILE:hi // TILE], n_joint=NJ,
                          tile=TILE)
-    rt, order = case["schedules"][mesh.rank]
-    res = tr.sharded_rotate_round_v2(ct, mesh, Y, rs, Pr, sig, th, rt, order,
+    sched = tr.schedule_table([case["schedules"][mesh.rank]])[0]
+    res = tr.sharded_rotate_round_v2(ct, mesh, Y, rs, Pr, sig, th, sched,
                                      tr.CodesLayout(Zn, cp, G), True, mom, True,
                                      fn=cuda_rotate.rotate_update_round_v2)
     Zv = tr.sharded_virtual_correction(ct, mesh, _t(a["W"]), a["tj"], TILE, Y, sig, res.pen,
@@ -207,7 +207,7 @@ def _rank_wrap(case, mesh, out):
     Rm = tr.sharded_materialize_r(ct, mesh, Y, sig, res.pen, res.blkmap, Zn, cp,
                                   fn=cuda_rotate.materialize_r)
     # the kernel wrappers run the plain versions on CPU tensors
-    pres = tr.sharded_rotate_round_v2(ct, mesh, Y, rs, Pr, sig, th, rt, order,
+    pres = tr.sharded_rotate_round_v2(ct, mesh, Y, rs, Pr, sig, th, sched,
                                       tr.CodesLayout(Zn, cp, G), True, mom, True)
     assert all(torch.equal(getattr(pres, f), getattr(res, f))
                for f in ("R", "E", "O", "tile_O", "M", "pen", "blkmap"))
@@ -237,7 +237,7 @@ def _rank_engine(case, mesh, out):
         if "perms" in case:
             kw["perms"] = np.asarray(case["perms"][r])
         elif "schedules" in case:
-            kw["schedules"] = [s[mesh.rank] for s in case["schedules"][r]]
+            kw["schedules"] = tr.schedule_table([s[mesh.rank] for s in case["schedules"][r]])
         st = tengine.correct(ct, tengine.cluster(ct, st, tiled=layout.tiled, mesh=mesh, **kw),
                              layout, mesh)
     arrays = tstate.state_to_arrays(st, mesh=mesh)

@@ -69,6 +69,7 @@ from harmony_tpu_torch import engine as tengine  # noqa: E402
 from harmony_tpu_torch import preprocess as tpre  # noqa: E402
 from harmony_tpu_torch import sharding as tsh  # noqa: E402
 from harmony_tpu_torch import state as tstate  # noqa: E402
+from harmony_tpu_torch.ops import rotate as tr  # noqa: E402
 from harmony_tpu_torch.ops.tiled import build_batch_tiled_order  # noqa: E402
 
 D, K, ROUNDS = 8, 8, 3
@@ -161,7 +162,8 @@ def _rank_case(case, mesh, out):
         elif "schedules" in case:
             kw["schedules"] = case["schedules"][r]
         elif "shard_schedules" in case:
-            kw["schedules"] = [s[mesh.rank] for s in case["shard_schedules"][r]]
+            kw["schedules"] = tr.schedule_table(
+                [s[mesh.rank] for s in case["shard_schedules"][r]])
         st = tengine.correct(ct, tengine.cluster(ct, st, tiled=layout.tiled, mesh=mesh, **kw),
                              layout, mesh)
     st = tengine.materialize_r(ct, st, mesh)

@@ -192,6 +192,11 @@ def _jax_schedule(cfg_t, key):
     return int(jax.random.randint(k1, (), 0, NT)), [int(b) for b in jax.random.permutation(k2, nb)]
 
 
+def _jax_table(cfg_t, keys):
+    """The schedule table the engine takes, of the rounds' JAX draws."""
+    return tr.schedule_table([_jax_schedule(cfg_t, k) for k in keys])
+
+
 def gram_table(Y, Zn):
     """The phase's Gram table as K6 stores it, (Y^T Zn)^T, from JAX's Zn."""
     return _t(np.asarray(Zn).T @ np.asarray(Y))
@@ -229,7 +234,8 @@ def _k7_rounds_against_pallas(N, Np, d, K, B_vec, T, with_G, variant="fused_vpu"
                 jnp.asarray(theta), key, layout=lay_j, interpret=True, write_r=write_r)
             targs[1] = rs_t
             before = cuda_rotate.rotate_update_round_v2.launches
-            out = cuda_rotate.rotate_update_round_v2(ct, *targs, rt, order, lay_t, write_r)
+            out = cuda_rotate.rotate_update_round_v2(ct, *targs, tr.schedule_table([(rt, order)])[0],
+                                                     lay_t, write_r)
             assert cuda_rotate.rotate_update_round_v2.launches == before
             if write_r:
                 _close(out.R, ref.R, rtol=0, atol=R_ATOL)
@@ -270,7 +276,7 @@ def test_k7_wrapper_rejects_mixed_devices():
                        entropy=None)
     with pytest.raises(ValueError, match="sigma is on meta"):
         cuda_rotate.rotate_update_round_v2(ct, _t(Y), rs, _t(Pr), _t(sigma).to("meta"),
-                                           _t(theta), 0, [0, 1, 2, 3, 4],
+                                           _t(theta), tr.schedule_table([(0, [0, 1, 2, 3, 4])])[0],
                                            tr.CodesLayout(Zn, cp))
     with pytest.raises(ValueError, match="Y is on meta"):
         cuda_rotate.reassign(ct, _t(Y).to("meta"), _t(sigma), _t(Pr), _t(Z), cp)
@@ -286,8 +292,8 @@ def test_schedule_draws_and_blocks():
     g = torch.Generator()
     g.manual_seed(3)
     sched = tr.draw_schedules(ct, g, 4)
-    assert len(sched) == 4
-    for rt, order in sched:
+    assert sched.shape == (4, 21) and sched.dtype == torch.int32
+    for rt, order in tr.schedule_pairs(sched):
         assert 0 <= rt < NT and sorted(order) == list(range(20))
     tiles = [p for b in range(20) for p in tr.block_tiles(ct, 7, b)]
     assert sorted(tiles) == list(range(NT)) and tiles[0] == 7
@@ -356,7 +362,7 @@ def _rotate_slice_against_jax(N, Np, lamb, obj_rtol, r_atol, mic, variant):
     for _ in range(3):
         # the schedules JAX's cluster draws from the state key
         _, sub = jax.random.split(sj.key)
-        sched = [_jax_schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)]
+        sched = _jax_table(ct, jax.random.split(sub, cj.max_iter_cluster))
         sj = correct_j(cluster_j(sj))
         st = tengine.correct(ct, tengine.cluster(ct, st, schedules=sched),
                              tengine.MStepLayout(tiled_t))

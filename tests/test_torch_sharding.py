@@ -214,9 +214,9 @@ def test_each_rank_takes_its_own_schedule():
         g = torch.Generator()
         g.manual_seed(5)
         gens.append(g)
-    every = tr.draw_schedules(ct, gens[n], rounds * n, NT)
+    every = tr.schedule_pairs(tr.draw_schedules(ct, gens[n], rounds * n, NT))
     for r in range(n):
-        mine = tengine.draw_shard_schedules(ct, gens[r], rounds, _mesh(n, r), NT)
+        mine = tr.schedule_pairs(tengine.draw_shard_schedules(ct, gens[r], rounds, _mesh(n, r), NT))
         assert mine == every[r::n] and len(mine) == rounds
         for rt, order in mine:
             assert 0 <= rt < NT and sorted(order) == list(range(len(order)))

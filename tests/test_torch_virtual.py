@@ -125,7 +125,7 @@ def _last_round(N, Np, d, K, B_vec, T, write_r, with_G=False, variant="fused_vpu
         moments=spec_j, emit_pen=True)
     before = cuda_rotate.rotate_update_round_v2.launches
     out = cuda_rotate.rotate_update_round_v2(
-        ct, _t(Y), rs_t, _t(Pr), _t(sigma), _t(theta), rt, order,
+        ct, _t(Y), rs_t, _t(Pr), _t(sigma), _t(theta), tr.schedule_table([(rt, order)])[0],
         tr.CodesLayout(Z_pad=_t(Zn), codes_pad=_t(cp_j),
                        G=gram_table(Y, Zn) if with_G else None),
         write_r, moments=spec_t, emit_pen=True)
@@ -378,7 +378,8 @@ def _virtual_slice_against_jax(N, variant):
     round_j = jax.jit(lambda s: jengine.harmony_round(cj, s, tiled=tiled_j))
     for _ in range(3):
         _, sub = jax.random.split(sj.key)
-        sched = [_jax_schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)]
+        sched = tr.schedule_table(
+            [_jax_schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)])
         sj = round_j(sj)
         st = tengine.harmony_round(ct, st, schedules=sched, layout=tengine.MStepLayout(tiled_t))
     assert sj.virt_pen is not None and st.virt_pen is not None

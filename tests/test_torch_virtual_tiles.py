@@ -139,7 +139,8 @@ def test_virtual_slice_at_160_cell_tiles_matches_jax_engine():
     round_j = jax.jit(lambda s: jengine.harmony_round(cj, s, tiled=tiled_j))
     for _ in range(3):
         _, sub = jax.random.split(sj.key)
-        sched = [_jax_schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)]
+        sched = tr.schedule_table(
+            [_jax_schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)])
         sj = round_j(sj)
         st = tengine.harmony_round(ct, st, schedules=sched, layout=tengine.MStepLayout(tiled_t))
     assert sj.virt_pen is not None and st.virt_pen is not None

@@ -98,6 +98,13 @@ WRAPPERS = {"K1": cuda_estep.block_update_round, "K2": cuda_permute.permute_roun
             "K11": cuda_rotate.materialize_r, "K12": cuda_estep.rotate_update_round_v1}
 
 
+def _pairs(drawn):
+    """(rotation, block order) pairs of draw_schedules' result: a schedule
+    table, or in an older checkout the pairs themselves."""
+    return ([(r[0], r[1:]) for r in drawn.tolist()] if isinstance(drawn, torch.Tensor)
+            else drawn)
+
+
 def k12_args():
     cfg, Z, codes_pad, Y, sigma, Pr_b, theta, g = cs.rotate_problem(
         torch, 500_000, 50, 100, (10,), 22, dev)
@@ -107,7 +114,7 @@ def k12_args():
     E = ops.compute_E(R, Pr_b)
     O = ops.compute_O(R, codes_pad.clamp_min(0), cfg.covariate_offsets, cfg.B)
     NT = rotate.n_tiles(cfg)
-    order = rotate.draw_schedules(cfg, g, 1)[0][1]
+    order = _pairs(rotate.draw_schedules(cfg, g, 1))[0][1]
     layout = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad)
     return (cfg, Y, R.contiguous(), E, O, Pr_b, sigma, theta, NT - 1, order, layout)
 
@@ -147,11 +154,14 @@ def rotate_calls():
     Zn, tO, O, E = out6[:4]
     extra = {"G": out6[4]} if len(out6) > 4 else {}  # a checkout whose K6 stores G
     lay = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad, **extra)
-    rt, blocks = rotate.draw_schedules(cfg, g, 1)[0]
+    drawn = rotate.draw_schedules(cfg, g, 1)
     rs = rotate.RoundState(R=torch.zeros(100, Np, device=dev), E=E, O=O, tile_O=tO,
                            kmeans_error=None, entropy=None)
-    a7 = (cfg, Y, rs, Pr_b, sigma, theta, rt, blocks, lay)
     k7 = cuda_rotate.rotate_update_round_v2
+    # a checkout whose K7 reads the schedule table's row, or (rt, order)
+    sched = ((drawn[0],) if "sched" in inspect.signature(k7).parameters
+             else tuple(_pairs(drawn)[0]))
+    a7 = (cfg, Y, rs, Pr_b, sigma, theta, *sched, lay)
     nj, tj = spec.n_joint, spec.tile_joint
     W = 0.1 * torch.randn(nj + 1, 50, 100, generator=g, device=dev)
     W[nj] = 0.0
@@ -165,7 +175,7 @@ def rotate_calls():
     Zb, Zob = Z.to(bf), Zo.to(bf)
     spec_b = spec._replace(Z_orig=Zob)
     rs_b = rs._replace(R=rs.R.to(bf), E=E.to(bf), O=O.to(bf))
-    a7b = (cfg, Y, rs_b, Pr_b, sigma, theta, rt, blocks, lay)
+    a7b = (cfg, Y, rs_b, Pr_b, sigma, theta, *sched, lay)
     return {"K6": lambda: cuda_rotate.reassign(*args6),
             "K6_bf16": lambda: cuda_rotate.reassign(cfg, Y, sigma, Pr_b, Zb, codes_pad),
             "K7_bf16": lambda: k7(*a7b, write_r=False, moments=spec_b, emit_pen=True),
