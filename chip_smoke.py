@@ -92,6 +92,19 @@ Phases (``--phases`` picks a subset, comma-separated):
              once per iteration, K11 once; no K8, K9 or K12); the
              objective traces held to main's and virtual's (rtol 1e-4),
              and the virtual one to the written one (rtol 1e-5).
+11b. graph   the one-dispatch run (engine.run_rounds, a captured
+             iteration replayed an iteration; the re-entry and the rounds
+             a window test may skip as guarded regions) in GRAPH_CELLS: the
+             main cells (rotate, virtual, bf16, float16, fused permute),
+             the per-round routes at 500k (K1 and the carry route at
+             max_iter_cluster=10, a phase of one stopping early; K12), K1
+             at 50k with one and three covariates (Cholesky's solve),
+             pbmc_stim and 80k x 40 batches (segmented M-step), and two
+             covariates on the carry route. Each cell's host loop, its
+             run_rounds and abort_poll_rounds=1 bit-equal with the host
+             loop's launch counts; a cached call runs no iteration eagerly
+             and reads the host once; its times, launch calls, idle share
+             and peak in $CHIP_SMOKE_OUT/graph.json.
 12. segment  run_harmony on 200,000 x 50 cells in 40 batches (seed 7,
              shuffle_mode left at its default, so rotate): no batch-tiled
              layout exists at this N and B, so the M-step takes the
@@ -319,8 +332,15 @@ def iter_seconds(ph: dict, n_it: int) -> float:
     return t / max(n_it, 1)
 
 
+# the log's copy in $CHIP_SMOKE_OUT/chip_smoke.log, once main has opened it
+# (a chip run returns only the end of a command's output)
+_LOG_COPY = []
+
+
 def log(*a):
     print(*a, flush=True)
+    for fh in _LOG_COPY:
+        print(*a, file=fh, flush=True)
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOP_PER_S):
@@ -1527,8 +1547,9 @@ def check_products(torch, dev, N, d, K, B_vec, seed, timed, dt, variant="fused_v
 def check_rotate_v1(torch, dev, N, d, K, B_vec, seed, timed):
     """K12 (one rotate round reading the old statistics from R) against
     its plain version on the same inputs: the normalised layout, R from
-    the initial softmax (zero on the pads), E/O from R, rotation NT - 1 so
-    that the first block wraps past the last tile."""
+    the initial softmax (zero on the pads), E/O from R, and the round's row
+    of the schedule table on the card (rotation NT - 1, so that the first
+    block wraps past the last tile), which both read."""
     from harmony_tpu_torch import ops
     from harmony_tpu_torch.ops import cuda_estep, rotate
 
@@ -1542,8 +1563,9 @@ def check_rotate_v1(torch, dev, N, d, K, B_vec, seed, timed):
     O = ops.compute_O(R, codes, cfg.covariate_offsets, cfg.B)
     NT = rotate.n_tiles(cfg)
     order = rotate.schedule_pairs(rotate.draw_schedules(cfg, g, 1))[0][1]
+    sched = rotate.schedule_table([(NT - 1, order)], device=dev)[0]
     layout = rotate.CodesLayout(Z_pad=Zn, codes_pad=codes_pad)
-    args = (cfg, Y, R.contiguous(), E, O, Pr_b, sigma, theta, NT - 1, order, layout)
+    args = (cfg, Y, R.contiguous(), E, O, Pr_b, sigma, theta, sched, None, layout)
     out = cuda_estep.rotate_update_round_v1(*args)
     ref = rotate.rotate_update_round_v1(*args)
     torch.cuda.synchronize()
@@ -1553,7 +1575,8 @@ def check_rotate_v1(torch, dev, N, d, K, B_vec, seed, timed):
     colsum = float(out.R[:, :N].sum(0).sub(1).abs().max())
     pad_max = float(out.R[:, N:].abs().max()) if cfg.Np > N else 0.0
     log(f"  K12 N={N} (Np={cfg.Np}, T={cfg.estep_sub_tile}, {NT} tiles) d={d} K={K} "
-        f"B_vec={B_vec}, rotation {NT - 1}, order {order[:5]}...: max|dR|={err:.3e} (atol "
+        f"B_vec={B_vec}, table row: rotation {NT - 1}, order {order[:5]}...: max|dR|="
+        f"{err:.3e} (atol "
         f"{R_ATOL}); " + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items())
         + f" (rtol {SUM_RTOL}); R column sums within {colsum:.2e} of 1, pads {pad_max:.1e}")
     require(err <= R_ATOL, f"K12 R disagrees: {err}")
@@ -2517,13 +2540,33 @@ BF16_ROUTES = (
 BF16_ROUTE_ITERS = 4
 
 
-# the graph phase's cells: (cell, schedule, config changes), all at the
-# main shape; each one's body kernel, launched once an iteration
-GRAPH_CELLS = (("rotate-500k", "rotate", {}),
-               ("rotate-virtual-500k", "rotate", {"virtual_r": True}),
-               ("rotate-virtual-bf16-500k", "rotate", {"dtype": "bfloat16"}),
-               ("rotate-virtual-f16-500k", "rotate", {"dtype": "float16"}),
-               ("permute-500k", "permute", {}))
+# the graph phase's cells: (cell, schedule, config changes, data): the data
+# is (cells, the levels of each covariate) of a seeded synthetic set at
+# D_MAIN dims (graph_data), or "pbmc", the vendored pbmc_ctrl/pbmc_stim
+# counts through datasets.pbmc_dataset (2,000 cells, 20 PCs, one covariate
+# of 2 levels; run_harmony's 'auto' schedule there is 'permute')
+_MAIN_DATA = (N_MAIN, (B_MAIN,))
+GRAPH_CELLS = (("rotate-500k", "rotate", {}, _MAIN_DATA),
+               ("rotate-virtual-500k", "rotate", {"virtual_r": True}, _MAIN_DATA),
+               ("rotate-virtual-bf16-500k", "rotate", {"dtype": "bfloat16"}, _MAIN_DATA),
+               ("rotate-virtual-f16-500k", "rotate", {"dtype": "float16"}, _MAIN_DATA),
+               ("permute-500k", "permute", {}, _MAIN_DATA),
+               # the per-round routes: the carry route past the default budget,
+               # K12, K1 (the default below 100k cells)
+               ("permute-rounds-500k", "permute", {"max_iter_cluster": 10}, _MAIN_DATA),
+               ("rotate-rounds-500k", "rotate", {"max_iter_cluster": 10}, _MAIN_DATA),
+               ("rotate-two-phase-500k", "rotate", {"rotate_stats_carry": False}, _MAIN_DATA),
+               ("permute-rounds-50k", "permute", {}, (50_000, (B_MAIN,))),
+               ("multicov-50k", "permute", {}, (50_000, (10, 8, 4))),
+               ("pbmc-stim", "permute", {}, "pbmc"),
+               ("segment-permute-80k", "permute", {}, (80_000, (B_SEGMENT,))),
+               ("rotate-multicov-500k", "rotate", {}, (N_MAIN, (10, 4))))
+# the cells whose phases the windowed early stop may end before
+# max_iter_cluster rounds: at least one phase across them must stop early
+GRAPH_EARLY_STOP = ("permute-rounds-500k", "rotate-rounds-500k")
+# each route's body kernel, launched in every iteration that runs
+_BODY_KERNEL = {"fused": "head_kernel", "k1": "block_stats_kernel",
+                "carry": "reassign_assign_kernel", "two_phase": "old_stats_kernel"}
 # the runtime calls that launch work on the card, counted on the host
 _API_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpyAsync",
@@ -2561,6 +2604,47 @@ def graph_setup(torch, dev, Zh, meta, shuffle, change):
     state = init_state(cfg, AsyncIngest(Zt, cfg, dev).result(perm), design, hp.sigma,
                        hp.theta, hp.lamb, 0, dev)
     return cfg, layout, engine.init_cluster(cfg, state)
+
+
+def graph_data(torch, dev, data, seed=7):
+    """A graph cell's (Z (N, d) host array, metadata): ``data`` is "pbmc"
+    or (cells, levels of each covariate): synthetic() for the first
+    covariate (named as BASELINE's multi-covariate design: dataset, donor,
+    batch_id), each further one a seeded code with an offset of its own."""
+    import numpy as np
+
+    if data == "pbmc":
+        from harmony_tpu_torch.datasets import pbmc_dataset
+
+        ds = pbmc_dataset()
+        return np.asarray(ds.scaled_pcs, np.float32), dict(ds.meta_data)
+    n, levels = data
+    Zs, bs = synthetic(torch, n, D_MAIN, levels[0], seed, dev)
+    meta = {"dataset": bs.cpu().numpy()}
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    for name, b in zip(("donor", "batch_id"), levels[1:]):
+        codes = torch.randint(0, b, (n,), generator=g, device=dev)
+        Zs += (torch.randn(b, D_MAIN, generator=g, device=dev) * 0.5)[codes]
+        meta[name] = codes.cpu().numpy()
+    return Zs.cpu().numpy(), meta
+
+
+def host_reads(torch, fn):
+    """``fn()``'s result and the synchronising CUDA calls it made (the host
+    reads), counted with torch.cuda's sync debug mode."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (the mode's first use also warns that it is a prototype)
+    return out, sum(str(w.message).startswith("called a synchronizing") for w in caught)
 
 
 def fork(torch, state):
@@ -2621,20 +2705,25 @@ def profile_run(torch, fn, n_it, kernel):
 
 
 def check_graph(torch, dev, wrappers):
-    """The one-dispatch run (engine.run_rounds: one captured iteration
-    inside an IF node, replayed an iteration) at full width, in each of
-    GRAPH_CELLS, from one initial state and generator state: (a) the eager
-    host loop, (b) driver.harmonize taking run_rounds, (c) the same with an
-    abort flag never set and abort_poll_rounds=1. The three are held equal
-    bit for bit (Z_corr, R after materialize_r, the traces, the
+    """The one-dispatch run (engine.run_rounds: one captured iteration in IF
+    nodes, its guarded regions (the re-entry, the rounds the windowed early
+    stop may skip) in IF nodes of their own on device flags, replayed an
+    iteration) at full width, in each of GRAPH_CELLS, from one initial
+    state and generator state: (a) the eager host loop, (b)
+    driver.harmonize taking run_rounds, (c) the same with an abort flag
+    never set and abort_poll_rounds=1. The three are held equal bit for bit
+    (Z_corr, R after materialize_r, Y, the traces, kmeans_rounds, the
     iterations). Per cell: seconds an iteration of (a) and of (b) (a second
     run, the graph cached) by CUDA events, the capture's seconds, the
+    iterations each call of (b) ran eagerly (the capture's warm-up only:
+    none on a cached call) and the host reads of a cached call (one), the
     runtime launch calls an iteration and each leg's idle share under
     torch.profiler, the peak memory of (a) and of (b)'s first run (its
     capture and static buffers) and second, that the second run captures
     nothing, that the replays after convergence launch no body kernel, and
-    that the wrappers count the same launches in (a) and (b). Returns
-    {cell: launches of (b)'s second run}."""
+    that the wrappers count the same launches in (a) and (b). Across
+    GRAPH_EARLY_STOP's cells a phase must stop before max_iter_cluster
+    rounds. Returns {cell: launches of (b)'s second run}."""
     import dataclasses
 
     import numpy as np
@@ -2642,10 +2731,7 @@ def check_graph(torch, dev, wrappers):
     from harmony_tpu_torch import driver, engine
     from harmony_tpu_torch.runtime import AbortFlag
 
-    Zs, bs = synthetic(torch, N_MAIN, D_MAIN, B_MAIN, 7, dev)
-    Zh, meta = Zs.cpu().numpy(), {"batch": bs.cpu().numpy()}
-    del Zs
-    out, report = {}, {}
+    out, report, data_of, early = {}, {}, {}, []
 
     def events_ms(fn):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2663,10 +2749,16 @@ def check_graph(torch, dev, wrappers):
         for w in wrappers.values():
             w.launches = 0
 
-    for cell, shuffle, change in GRAPH_CELLS:
+    for cell, shuffle, change, data in GRAPH_CELLS:
+        if data not in data_of:
+            data_of.clear()  # one set at a time: the cells are grouped by set
+            data_of[data] = graph_data(torch, dev, data)
+        Zh, meta = data_of[data]
         cfg, layout, s0 = graph_setup(torch, dev, Zh, meta, shuffle, change)
         require(cfg.graph_route, f"graph {cell}: the config is off the graph route")
-        kernel = "head_kernel" if shuffle == "permute" else "reassign_assign_kernel"
+        route = ("fused" if cfg.permute_fused else "k1" if shuffle == "permute"
+                 else cfg.rotate_route)
+        kernel = _BODY_KERNEL[route]
         n0 = s0.n_rounds
         # (a) the eager host loop, once to warm up, then timed
         host_loop(cfg, fork(torch, s0), layout)
@@ -2687,6 +2779,7 @@ def check_graph(torch, dev, wrappers):
         b_peak_first = _peak_mib(torch)
         captured = engine.run_rounds.captures - caps
         capture_s = engine.run_rounds.capture_s
+        eager_first = engine.run_rounds.eager
         # (b) again at the same shape: a cache hit, timed (the loop alone)
         _reset_peak(torch)
         zero()
@@ -2694,8 +2787,18 @@ def check_graph(torch, dev, wrappers):
         sb = fork(torch, s0)
         b2, b_ms = events_ms(lambda: engine.run_rounds(cfg, sb, MAX_ITER, layout))
         b_launches, b_peak = counts(), _peak_mib(torch)
+        eager_cached = engine.run_rounds.eager
         require(engine.run_rounds.captures == caps,
                 f"graph {cell}: a second run at the same shape captured again")
+        require(eager_cached == 0, f"graph {cell}: a cached call ran {eager_cached} "
+                "iteration(s) eagerly")
+        sr = fork(torch, s0)
+        torch.cuda.synchronize()
+        reads = host_reads(torch, lambda: engine.run_rounds(cfg, sr, MAX_ITER, layout))[1]
+        require(reads == 1, f"graph {cell}: a cached call made {reads} host reads, not one")
+        rounds = [int(x) for x in b2.kmeans_rounds[:b2.n_rounds].tolist()]
+        if cell in GRAPH_EARLY_STOP:
+            early += [r for r in rounds if r < cfg.max_iter_cluster]
 
         def least_ms(n_budget, calls=3):
             # the least of a few calls' event times: a call is host-bound,
@@ -2749,17 +2852,25 @@ def check_graph(torch, dev, wrappers):
         # 0 and twice the launches)
         px = profile_run(torch, lambda: engine.run_rounds(cfg, fork(torch, s0), n_it, layout),
                          n_it, kernel)
-        idle_replay_busy = ((pb["busy_ms_per_iter"] - px["busy_ms_per_iter"]) * n_it
-                            / (MAX_ITER - n_it))
-        # (a body would keep it busy an iteration's busy time; the prologue's
-        # fills and the predicate kernel take ~0.1 ms)
-        require(idle_replay_busy < 0.25 * px["busy_ms_per_iter"],
-                f"graph {cell}: a replay after convergence keeps the device busy "
-                f"{idle_replay_busy:.4f} ms of an iteration's {px['busy_ms_per_iter']:.3f}: "
-                "it ran the body")
-        row = {"iterations": n_it, "replays": MAX_ITER, "eager_ms_per_iter": a_ms / n_it,
+        idle_replay_busy = float("nan")  # a run that takes its whole budget has none
+        if n_it < MAX_ITER:
+            idle_replay_busy = ((pb["busy_ms_per_iter"] - px["busy_ms_per_iter"]) * n_it
+                                / (MAX_ITER - n_it))
+            # (a body would keep it busy an iteration's busy time; the
+            # prologue's fills and the predicate kernels take ~0.1 ms)
+            require(idle_replay_busy < 0.25 * px["busy_ms_per_iter"],
+                    f"graph {cell}: a replay after convergence keeps the device busy "
+                    f"{idle_replay_busy:.4f} ms of an iteration's "
+                    f"{px['busy_ms_per_iter']:.3f}: it ran the body")
+        inactive_ms = ((b_ms - b_exact_ms) / (MAX_ITER - n_it) if n_it < MAX_ITER
+                       else float("nan"))
+        row = {"route": route, "N": cfg.N, "B_vec": list(cfg.B_vec), "K": cfg.K,
+               "max_iter_cluster": cfg.max_iter_cluster, "kmeans_rounds": rounds,
+               "eager_iterations_first_call": eager_first,
+               "eager_iterations_cached_call": eager_cached, "host_reads_cached_call": reads,
+               "iterations": n_it, "replays": MAX_ITER, "eager_ms_per_iter": a_ms / n_it,
                "graph_ms_per_iter": b_ms / n_it, "graph_exact_budget_ms": b_exact_ms,
-               "inactive_replay_ms": (b_ms - b_exact_ms) / (MAX_ITER - n_it),
+               "inactive_replay_ms": inactive_ms,
                "steady_eager_ms_per_iter": steady["eager"],
                "steady_graph_ms_per_iter": steady["graph"], "capture_s": capture_s,
                "first_run_s": b_first_s, "captures_first_run": captured,
@@ -2770,11 +2881,15 @@ def check_graph(torch, dev, wrappers):
                "objective_harmony": [float(x) for x in
                                      ref.objective_harmony[:ref.n_harmony].tolist()]}
         report[cell] = row
-        log(f"graph {cell}: {n_it} iterations of {MAX_ITER} (three legs bit-equal); "
+        log(f"graph {cell} ({route}, N={cfg.N}, B_vec={cfg.B_vec}, K={cfg.K}, "
+            f"max_iter_cluster={cfg.max_iter_cluster}): {n_it} iterations of {MAX_ITER} (three "
+            f"legs bit-equal), kmeans_rounds {rounds}; eager iterations {eager_first} in the "
+            f"first call (the capture's warm-up), {eager_cached} in a cached call, which makes "
+            f"{reads} host read(s); "
             f"eager {a_ms / n_it:.3f} ms an iteration, graph {b_ms / n_it:.3f} ms "
             f"({MAX_ITER} replays, the loop alone, the least of 4 calls; {b_exact_ms / n_it:.3f} "
             f"with a budget of "
-            f"{n_it}, {(b_ms - b_exact_ms) / (MAX_ITER - n_it):.4f} ms a replay after "
+            f"{n_it}, {inactive_ms:.4f} ms a replay after "
             f"convergence); steady state (no early stop, (T8 - T2) / 6) eager "
             f"{steady['eager']:.3f}, graph {steady['graph']:.3f} ms an iteration; "
             f"capture {capture_s:.3f} s, first run "
@@ -2790,11 +2905,16 @@ def check_graph(torch, dev, wrappers):
             f"peak {a_peak:.1f} MiB eager, {b_peak_first:.1f} MiB graph's first run, "
             f"{b_peak:.1f} MiB cached")
         out[cell] = b_launches
-        del s0, sa, sb, st, a_state, ref, b, b2, c
+        del s0, sa, sb, sr, st, a_state, ref, b, b2, c
         engine.clear_graphs()
         torch.cuda.empty_cache()
     with open(os.path.join(OUT_DIR, "graph.json"), "w") as fh:
         json.dump(report, fh, indent=1)
+    if any(c in report for c in GRAPH_EARLY_STOP):
+        log(f"graph: phases of {', '.join(GRAPH_EARLY_STOP)} that the window test stopped "
+            f"before max_iter_cluster: {early}")
+        require(early, "graph: no phase of the early-stop cells stopped before "
+                "max_iter_cluster rounds")
     return out
 
 
@@ -3483,6 +3603,7 @@ def main(argv=None) -> int:
               "the root of a checkout", file=sys.stderr)
         return 2
     os.makedirs(OUT_DIR, exist_ok=True)
+    _LOG_COPY.append(open(os.path.join(OUT_DIR, "chip_smoke.log"), "w"))
     dev = torch.device("cuda")
     kernels = {
         "K1": {"name": "K1 estep_round", "route": "cuda",
@@ -3572,7 +3693,17 @@ def main(argv=None) -> int:
              "graph_rotate-virtual-500k": (("K6", "K7", "K10"), ("K8", "K9", "K11")),
              "graph_rotate-virtual-bf16-500k": (("K6", "K7", "K10"), ("K8", "K9", "K11")),
              "graph_rotate-virtual-f16-500k": (("K6", "K7", "K10"), ("K8", "K9", "K11")),
-             "graph_permute-500k": (("K2", "K3", "K9"), ("K1", "K8"))}
+             "graph_permute-500k": (("K2", "K3", "K9"), ("K1", "K8")),
+             "graph_permute-rounds-500k": (("K1", "K4", "K5"), ("K2", "K3", "K8", "K9")),
+             "graph_rotate-rounds-500k": (("K6", "K7", "K8", "K9"), ("K10", "K11", "K12")),
+             "graph_rotate-two-phase-500k": (("K12", "K8", "K9"),
+                                             ("K6", "K7", "K10", "K11")),
+             "graph_permute-rounds-50k": (("K1", "K4", "K5"), ("K2", "K3", "K8", "K9")),
+             # three covariates: the dense M-step in PyTorch, Cholesky's solve
+             "graph_multicov-50k": (("K1",), ("K2", "K3", "K4", "K5", "K8", "K9")),
+             "graph_pbmc-stim": (("K1", "K4", "K5"), ("K2", "K3", "K8", "K9")),
+             "graph_segment-permute-80k": (("K1",), ("K2", "K3", "K4", "K5", "K8", "K9")),
+             "graph_rotate-multicov-500k": (("K6", "K7"), ("K1", "K2", "K3", "K12"))}
     t_start = time.perf_counter()
 
     # ---- 1. env ----------------------------------------------------------

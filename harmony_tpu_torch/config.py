@@ -258,21 +258,20 @@ class HarmonyConfig:
         """Does ``driver.harmonize`` run the iterations through
         ``engine.run_rounds`` (the counterpart of the JAX package's
         one-dispatch path, harmony_tpu/driver.py:122-155)? A property of the
-        route alone: true without a mesh, with the kernels, on the routes
-        whose iteration launches the same work every time: the
-        stats-carrying rotate route with the default budget
-        (``max_iter_cluster <= window_size + 2``: a fixed round count, no
-        windowed early stop) and the fused permute phase. On the card
-        ``run_rounds`` replays one captured iteration an iteration; on CPU
-        tensors it runs the same iteration eagerly, with the same bits. Call
-        it on a finalised config. The per-round routes (their windowed early
-        stop moves the cursors by a data-dependent count) and the mesh
-        routes (gloo's collectives cannot be captured) keep the host
-        loop."""
+        route alone: true on one device with the kernels, on every route
+        but the cell-granular round: the stats-carrying rotate route under
+        any budget, the two-phase rotate route (K12), the fused permute
+        phase and the per-round permute route (K1). On the card
+        ``run_rounds`` replays one captured iteration an iteration, the
+        re-entry and the rounds that the windowed early stop may skip as
+        guarded regions on device flags; on CPU tensors it runs the same
+        iteration eagerly, with the same bits. Call it on a finalised
+        config. The mesh routes (gloo's collectives cannot be captured)
+        and the cell-granular round (plain PyTorch on host draws) keep the
+        host loop."""
         if self.n_shards != 1 or self.estep_impl != "kernel":
             return False
-        static = self.max_iter_cluster <= self.window_size + 2
-        return bool((self.rotate_route == "carry" and static) or self.permute_fused)
+        return self.shuffle_mode == "permute" or self.rotate_route in ("carry", "two_phase")
 
     @property
     def use_segments(self) -> bool:

@@ -37,7 +37,10 @@
 //       the permutation, read from a cell-major copy of Z (one contiguous
 //       row a cell), and R is written at those positions, coalesced; K12's
 //       are the block's schedule tiles (v0 + j) mod NT of the physical
-//       layout, read and written in place. The CTA stages Y^T and its
+//       layout, read and written in place. K12's launches read the block
+//       from the round's row of the schedule table on the device (as K7's
+//       do), so the host issues the same launches for every schedule and
+//       a captured round replays any. The CTA stages Y^T and its
 //       cells' Z rows and computes g = Y^T Z with register tiles (4
 //       clusters x up to 8 cells a thread, 16-byte shared loads along d).
 //       Then each warp takes two cells at a time, its lanes over the
@@ -99,7 +102,14 @@ __device__ __forceinline__ void cp_async_wait() {
 // kGather (K1): position p of the round is cell perm[p], Z is (N, d) and
 // R (K, N) is written in position order (the round's block order); else
 // (K12): the CTA's positions walk the block's schedule tiles of the (d, L)
-// layout, and R is written in place.
+// layout, and R is written in place. K12's block is the one at position
+// pos of the round's order, read where the schedule lies (sched: the
+// round's row of the schedule table, [rotation, block order]; blocks:
+// (2, nb), the tiles of each block, then its first virtual tile), as K7's
+// launches read it: ncells = tiles * tileT from virtual tile v0 =
+// (vstart[blk] + rotation) mod NT. The launch has the largest block's
+// CTAs, and those past the block's cells return at once, so the host
+// issues the same launches for every schedule. K1 passes ncells and v0.
 template <bool kGather>
 __global__ void __launch_bounds__(kThreads, 2) assign_kernel(
     const float* __restrict__ Yt,     // (K, d)
@@ -111,7 +121,16 @@ __global__ void __launch_bounds__(kThreads, 2) assign_kernel(
     float* __restrict__ R,            // (K, L) out
     float* __restrict__ part,         // (n_cta, P) out
     long long L, long long cell0, int ncells, int K, int d, int B, int ncov,
-    int T, int tileT, int NT, int v0) {
+    int T, int tileT, int NT, int v0,
+    const int* __restrict__ sched,    // (1 + nb,) K12: the round's schedule row
+    const int* __restrict__ blocks,   // (2, nb) K12: tiles, first virtual tile
+    int pos, int nb) {
+  if (!kGather) {
+    const int blk = sched[1 + pos];
+    ncells = blocks[blk] * tileT;
+    if (static_cast<int>(blockIdx.x) * T >= ncells) return;
+    v0 = (blocks[nb + blk] + sched[0]) % NT;
+  }
   extern __shared__ __align__(16) float smem[];
   const int dp = (d + 3) / 4 * 4, Bp = B | 1, TP = T + 1;
   const int P = K + K * B + 2;
@@ -517,12 +536,28 @@ __device__ void fold_rows(const float* __restrict__ tab, int row0, int nrows,
 // One CTA per cluster row k. add: fold the block's partials into E/O (and,
 // on row 0, the k-means error and entropy into acc); nold > 0: remove the
 // next block's old contribution, rows (old0 + i) mod wrap (i < nold) of
-// the table `old`; always: write the penalty table row.
+// the table `old`; always: write the penalty table row. kSched (K12): the
+// commit after the block at position pos of the round's order (pos < 0:
+// the round's first commit), the blocks read from the schedule row as the
+// assign launch reads them: add the block's ncta = ceil(tiles * tileT /
+// Tc) partial rows, and remove the block at pos + 1, if any: its tiles'
+// split rows each from (v0 * split) on.
+template <bool kSched>
 __global__ void __launch_bounds__(kThreads) commit_kernel(
     const float* __restrict__ part, int ncta, float* __restrict__ E,
     float* __restrict__ O, const float* __restrict__ old, int old0, int nold,
     int wrap, const float* __restrict__ Pr, const float* __restrict__ theta,
-    float* __restrict__ pen, float* __restrict__ acc, int K, int B, int add) {
+    float* __restrict__ pen, float* __restrict__ acc, int K, int B, int add,
+    const int* __restrict__ sched, const int* __restrict__ blocks, int pos, int nb,
+    int NT, int split, int tileT, int Tc) {
+  if (kSched) {
+    const int rt = sched[0];
+    const int rm = pos + 1 < nb ? sched[2 + pos] : -1;
+    add = pos >= 0;
+    ncta = add ? (blocks[sched[1 + pos]] * tileT + Tc - 1) / Tc : 0;
+    old0 = rm >= 0 ? ((blocks[nb + rm] + rt) % NT) * split : 0;
+    nold = rm >= 0 ? blocks[rm] * split : 0;
+  }
   extern __shared__ float buf[];  // kSlices * (B+3), then two finals
   const int k = blockIdx.x;
   const int nE = B + 1 + (k == 0 ? 2 : 0);
@@ -556,37 +591,43 @@ __global__ void __launch_bounds__(kThreads) commit_kernel(
 
 extern "C" {
 
-// perm == nullptr: K12's tile walk over the (d, L) layout; else K1's
-// positions cell0 .. cell0 + ncells - 1 of perm over the (L, d) copy of Z.
+// K1's positions cell0 .. cell0 + ncells - 1 of perm over the (L, d) copy
+// of Z.
 int k1_assign(const void* Yt, const void* Z, const void* gcodes, const void* perm,
               const void* pen, const void* sigma, void* R, void* part,
               long long L, long long cell0, int ncells, int K, int d, int B,
-              int ncov, int T, int tileT, int NT, int v0, int smem_bytes,
-              void* stream) {
-  const bool gather = perm != nullptr;
-  const void* kernel = gather ? reinterpret_cast<const void*>(assign_kernel<true>)
-                              : reinterpret_cast<const void*>(assign_kernel<false>);
+              int ncov, int T, int smem_bytes, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      reinterpret_cast<const void*>(assign_kernel<true>), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (ncells + T - 1) / T;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* Ytf = static_cast<const float*>(Yt);
-  const float* Zf = static_cast<const float*>(Z);
-  const int* gc = static_cast<const int*>(gcodes);
-  const int* pm = static_cast<const int*>(perm);
-  const float* pf = static_cast<const float*>(pen);
-  const float* sf = static_cast<const float*>(sigma);
-  float* Rf = static_cast<float*>(R);
-  float* part_f = static_cast<float*>(part);
-  if (gather)
-    assign_kernel<true><<<grid, kThreads, smem_bytes, st>>>(
-        Ytf, Zf, gc, pm, pf, sf, Rf, part_f, L, cell0, ncells, K, d, B, ncov, T, tileT,
-        NT, v0);
-  else
-    assign_kernel<false><<<grid, kThreads, smem_bytes, st>>>(
-        Ytf, Zf, gc, pm, pf, sf, Rf, part_f, L, cell0, ncells, K, d, B, ncov, T, tileT,
-        NT, v0);
+  assign_kernel<true><<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(Yt), static_cast<const float*>(Z),
+      static_cast<const int*>(gcodes), static_cast<const int*>(perm),
+      static_cast<const float*>(pen), static_cast<const float*>(sigma),
+      static_cast<float*>(R), static_cast<float*>(part), L, cell0, ncells, K, d, B, ncov, T,
+      0, 0, 0, nullptr, nullptr, 0, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K12's tile walk over the (d, L) layout for the block at position pos of
+// the round's schedule row `sched` (blocks: the (2, nb) block table),
+// `grid` CTAs of T cells (the largest block's).
+int k12_assign(const void* Yt, const void* Z, const void* gcodes, const void* pen,
+               const void* sigma, void* R, void* part, long long L, int K, int d, int B,
+               int ncov, int T, int tileT, int NT, const void* sched, const void* blocks,
+               int pos, int nb, int grid, int smem_bytes, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(assign_kernel<false>), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  assign_kernel<false><<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(Yt), static_cast<const float*>(Z),
+      static_cast<const int*>(gcodes), nullptr, static_cast<const float*>(pen),
+      static_cast<const float*>(sigma), static_cast<float*>(R), static_cast<float*>(part), L,
+      0, 0, K, d, B, ncov, T, tileT, NT, 0, static_cast<const int*>(sched),
+      static_cast<const int*>(blocks), pos, nb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -625,13 +666,36 @@ int k1_commit(const void* part, int ncta, void* E, void* O, const void* old,
               void* pen, void* acc, int K, int B, int add, void* stream) {
   const int smem_bytes = (kSlices + 2) * (B + 3) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      commit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      reinterpret_cast<const void*>(commit_kernel<false>), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  commit_kernel<<<K, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  commit_kernel<false><<<K, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), ncta, static_cast<float*>(E),
       static_cast<float*>(O), static_cast<const float*>(old), old0, nold, wrap,
       static_cast<const float*>(Pr), static_cast<const float*>(theta),
-      static_cast<float*>(pen), static_cast<float*>(acc), K, B, add);
+      static_cast<float*>(pen), static_cast<float*>(acc), K, B, add, nullptr, nullptr, 0, 0,
+      0, 0, 0, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K12's commit after the block at position pos (-1: the round's first) of
+// the schedule row `sched`; the table of old statistics has `split` rows a
+// tile, NT * split in all, and the assign launches T cells a CTA.
+int k12_commit(const void* part, void* E, void* O, const void* old, const void* Pr,
+               const void* theta, void* pen, void* acc, int K, int B, const void* sched,
+               const void* blocks, int pos, int nb, int NT, int split, int tileT, int T,
+               void* stream) {
+  const int smem_bytes = (kSlices + 2) * (B + 3) * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(commit_kernel<true>), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  commit_kernel<true><<<K, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), 0, static_cast<float*>(E), static_cast<float*>(O),
+      static_cast<const float*>(old), 0, 0, NT * split, static_cast<const float*>(Pr),
+      static_cast<const float*>(theta), static_cast<float*>(pen), static_cast<float*>(acc),
+      K, B, 0, static_cast<const int*>(sched), static_cast<const int*>(blocks), pos, nb, NT,
+      split, tileT, T);
   return static_cast<int>(cudaGetLastError());
 }
 

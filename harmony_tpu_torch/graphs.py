@@ -7,8 +7,12 @@ the convergence test, is computed on the device
 iteration once into a CUDA graph whose launches sit inside an IF
 conditional node on a device predicate (:class:`IterationGraph`, the node
 built by ``csrc/graph.cu``), and replays it once per iteration with no host
-read in between. This module holds what the capture needs besides the
-engine:
+read in between. Stretches of the iteration that the JAX package runs
+under a ``lax.cond`` or as the clustering ``while_loop``'s later rounds are
+guarded regions (:func:`guarded`): inside the graph each sits in an IF
+node of its own on its device flag, and on the host (CPU tensors, or the
+capture's eager warm-up) it is a Python ``if`` on one read of the flag.
+This module holds what the capture needs besides the engine:
 
 * :func:`device_cache`, the cache of the host tables that the kernels'
   wrappers copy to the card once (a copy from host memory cannot be
@@ -30,6 +34,7 @@ Conditional nodes need a CUDA runtime of 12.4 or later.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import time
 from typing import Callable, Dict, List, Optional
@@ -115,22 +120,47 @@ def set_rng_offset(gen: torch.Generator, offset: int) -> None:
     gen.set_state(state)
 
 
-_SIGNATURES = {"graph_wrap_if": [_build.PTR, _build.PTR], "graph_runtime_version": []}
+def guarded(flag: torch.Tensor, body: Callable[[], None]) -> None:
+    """Run ``body()`` where ``flag`` (one int32, on the device of the
+    tensors the body reads) is nonzero: the counterpart of ``lax.cond``
+    with an identity branch. While an iteration is captured on the card the
+    body's launches are captured as a guarded region of the graph, which a
+    replay runs only where the flag, as the launches before the region left
+    it, is nonzero; elsewhere a Python ``if`` on one read of the flag. The
+    body writes what it computes into tensors that exist before the region
+    (a skipped region leaves them as they were), and no tensor it makes is
+    read after it. Regions do not nest."""
+    if _capturing is not None and flag.device.type == "cuda":
+        _capturing.region(flag, body)
+    elif bool(flag):
+        body()
+
+
+_PTRS = [_build.PTR] * 3
+_SIGNATURES = {"graph_mark": [_build.PTR, _build.PTR],
+               "graph_wrap_regions": [_build.PTR, _build.PTR, _build.INT] + _PTRS,
+               "graph_runtime_version": []}
+# graph_wrap_regions' code for markers that are not start/end pairs in order
+_BAD_MARKERS = -1
 
 
 class IterationGraph:
-    """One iteration, ``body()``, captured into a CUDA graph inside an IF
-    node: a replay runs the body exactly when ``ctl`` (3 int64 on the card:
-    iterations run, budget, convergence flag) says the loop goes on, and
-    launches nothing else but the node's one-thread predicate kernel
-    otherwise. The body advances ``ctl`` itself. ``generator`` is
-    registered with the graph, so each replay draws from the generator's
-    offset at that replay. :attr:`counts` (int64 on the card, one a kernel
-    wrapper) counts the launches the replays ran (:func:`count`). A failed
-    capture raises."""
+    """One iteration, ``body()``, captured into a CUDA graph of IF nodes: a
+    replay runs the body exactly when ``ctl`` (3 int64 on the card:
+    iterations run, budget, convergence flag) says the loop goes on, each
+    guarded region of it (:func:`guarded`) only where its flag also allows,
+    and launches nothing else but the nodes' one-thread predicate kernels
+    otherwise (``csrc/graph.cu``). The body advances ``ctl`` itself.
+    ``generator`` is registered with the graph, so each replay draws from
+    the generator's offset at that replay. :attr:`counts` (int64 on the
+    card, one a kernel wrapper) counts the launches the replays ran
+    (:func:`count`). ``max_regions`` bounds the guarded regions the body
+    opens: their marker words are made before the capture, outside the
+    graph's memory pool, so no other memset the capture holds can name one.
+    A failed capture or rewrite raises."""
 
     def __init__(self, body: Callable[[], None], ctl: torch.Tensor,
-                 generator: torch.Generator):
+                 generator: torch.Generator, max_regions: int = 0):
         global _capturing
         lib = _build.load("graph", _SIGNATURES)
         version = lib.graph_runtime_version()
@@ -146,16 +176,51 @@ class IterationGraph:
         self.counters = launch_counters()
         self.slot: Dict[Callable, int] = {f: i for i, f in enumerate(self.counters)}
         self.counts = torch.zeros(len(self.counters), dtype=torch.int64, device=ctl.device)
+        # each guarded region's (start word, end word, flag), in capture order
+        self.regions: List[tuple] = []
+        self.words = torch.empty(2 * max(max_regions, 1), dtype=torch.int32, device=ctl.device)
+        self._open = False
+        self._lib = lib
         _capturing = self
         try:
             with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                 body()
         finally:
             _capturing = None
-        _build.check(lib.graph_wrap_if(self.graph.raw_cuda_graph(), ctl.data_ptr()),
-                     "graph_wrap_if")
+        arrays = [(ctypes.c_void_p * max(len(self.regions), 1))(
+            *[r[i].data_ptr() for r in self.regions]) for i in range(3)]
+        err = lib.graph_wrap_regions(self.graph.raw_cuda_graph(), ctl.data_ptr(),
+                                     len(self.regions), *arrays)
+        if err == _BAD_MARKERS:
+            raise RuntimeError(f"graph_wrap_regions: the captured graph does not hold the "
+                               f"{len(self.regions)} regions' markers in order")
+        _build.check(err, "graph_wrap_regions")
         self.graph.instantiate()
         self.capture_s = time.perf_counter() - t0
+
+    def region(self, flag: torch.Tensor, body: Callable[[], None]) -> None:
+        """Capture ``body()`` as a guarded region on ``flag``: between two
+        markers (``graph_mark``, a memset of a magic byte) on words of the
+        region's own, which the rewrite finds by address and value and
+        removes. The graph keeps the flag."""
+        if self._open:
+            raise RuntimeError("guarded regions do not nest")
+        if flag.dtype != torch.int32 or flag.numel() != 1:
+            raise TypeError(f"a region's flag is one int32, got {flag.dtype} {tuple(flag.shape)}")
+        r = len(self.regions)
+        if 2 * r + 2 > self.words.numel():
+            raise RuntimeError(f"the iteration opens more than its {self.words.numel() // 2} "
+                               "guarded regions")
+        words = self.words[2 * r:2 * r + 2]
+        self.regions.append((words[0:1], words[1:2], flag))
+        stream = torch.cuda.current_stream(flag.device).cuda_stream
+        self._open = True
+        try:
+            _build.check(self._lib.graph_mark(words[0:1].data_ptr(), stream), "graph_mark")
+            body()
+            _build.check(self._lib.graph_mark(words[1:2].data_ptr(), stream), "graph_mark")
+        finally:
+            self._open = False
 
     def replay(self, n: int) -> None:
         """``n`` replays back to back, one graph launch each."""

@@ -229,7 +229,8 @@ def _run(args, mesh) -> dict:
         "objective_harmony": res.objective_harmony.tolist(),
         "objective_kmeans": res.objective_kmeans.tolist(),
         "n_iter": n_it, "wall_s": wall,
-        "seconds_per_iter": (ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1),
+        "seconds_per_iter": (ph["run_rounds"] if "run_rounds" in ph else
+                             ph.get("cluster", 0.0) + ph.get("correct", 0.0)) / max(n_it, 1),
         "phase_seconds": ph, "launches": launches, "collectives": coll,
         "allreduce_16k_ms": allreduce_ms(mesh),
         "peak_mib": _peak_mib(mesh.device),

@@ -31,15 +31,20 @@ scatter: one launch first sums the old R per span of cells into a table
 of old statistics, then one commit removes the first block's, and each
 block gets an assign launch over its tiles (which may wrap past the last
 tile) and a commit that removes the next block's old statistics, the
-sum of its tiles' rows. 2 * nb + 2 launches a round. In both rounds the
-new R is another buffer than the input R.
+sum of its tiles' rows. The launches read the round's row of the schedule
+table on the device (the rotation, then the block order) and the block
+table (``rotate.block_table``), as K7's do: each assign launch has the
+largest block's CTAs, those past its block's cells return at once, and
+each commit sums its block's CTAs' partials. 2 * nb + 2 launches a round.
+In both rounds the new R is another buffer than the input R.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from .. import _build, graphs
@@ -55,13 +60,17 @@ _WARPS = 8  # kWarps in estep_round.cu
 _CT_OLD = 64  # kCT of old_stats_kernel
 _BS_COLS, _BS_STAGES = 32, 4  # block_stats_kernel: columns a slice, slices in flight
 _SIGNATURES = {
-    "k1_assign": [_build.PTR] * 8 + [_build.I64, _build.I64] + [_build.INT] * 10
+    "k1_assign": [_build.PTR] * 8 + [_build.I64, _build.I64] + [_build.INT] * 7
     + [_build.PTR],
     "k1_keys": [_build.PTR] * 6 + [_build.INT] * 4 + [_build.PTR],
     "k1_block_stats": [_build.PTR] * 4 + [_build.I64] + [_build.INT] * 8 + [_build.PTR],
     "k1_commit": [_build.PTR, _build.INT, _build.PTR, _build.PTR, _build.PTR]
     + [_build.INT] * 3 + [_build.PTR] * 4 + [_build.INT] * 3 + [_build.PTR],
     "k12_old_stats": [_build.PTR] * 3 + [_build.I64] + [_build.INT] * 5 + [_build.PTR],
+    "k12_assign": [_build.PTR] * 7 + [_build.I64] + [_build.INT] * 7 + [_build.PTR] * 2
+    + [_build.INT] * 4 + [_build.PTR],
+    "k12_commit": [_build.PTR] * 8 + [_build.INT] * 2 + [_build.PTR] * 2 + [_build.INT] * 6
+    + [_build.PTR],
 }
 
 
@@ -194,7 +203,7 @@ def block_update_round(
     perm = perm.to(device=dev, dtype=torch.int32).contiguous()
     if order is not None:
         order = order.to(device=dev, dtype=torch.int32).contiguous()
-    off = torch.as_tensor(cfg.covariate_offsets, dtype=torch.int32, device=dev)
+    off = graphs.device_table(cfg.covariate_offsets, np.int32, dev)
     gcodes = (codes + off[:, None]).to(torch.int32).contiguous()
     Zc = Z.t().contiguous()  # (N, d): one contiguous row a cell
     blk = torch.empty((N,), dtype=torch.int32, device=dev)
@@ -237,7 +246,7 @@ def block_update_round(
             _build.check(lib.k1_assign(
                 Yt.data_ptr(), Zc.data_ptr(), gcodes.data_ptr(), perm.data_ptr(),
                 pen.data_ptr(), sig_c.data_ptr(), R_out.data_ptr(), part.data_ptr(), N,
-                start, size, K, d, B, ncov, T, 0, 0, 0, smem, stream,
+                start, size, K, d, B, ncov, T, smem, stream,
             ), "k1_assign")
             graphs.count(block_update_round)
         commit(-(-size // T), 1, i + 1 if i + 1 < nb else -1)
@@ -256,17 +265,21 @@ def rotate_update_round_v1(
     Pr_b: torch.Tensor,  # (B,)
     sigma: torch.Tensor,  # (K,)
     theta: torch.Tensor,  # (B,)
-    rt: int,
-    order: Sequence[int],
+    sched: Union[torch.Tensor, int],
+    order: Optional[Sequence[int]],
     layout: rotate.CodesLayout,
 ) -> RoundResult:
     """K12: one rotate round that reads the old block statistics from R,
-    for the schedule (rt, order); the kernels on CUDA, the plain version
-    on CPU. A reduced-precision engine's round runs on float32 copies made
-    here, and R, E and O go back in their dtypes (pallas_rotate.py:
-    1780-1846)."""
+    for ``sched``, the round's row of the schedule table
+    (``rotate.draw_schedules``: rotation, block order) with ``order``
+    None, or the rotation with ``order`` the block order (host ints, made
+    a row here); the kernels on CUDA, the plain version on CPU. The
+    launches read the row where it lies, so the host issues the same
+    launches for every schedule and reads nothing. A reduced-precision
+    engine's round runs on float32 copies made here, and R, E and O go back
+    in their dtypes (pallas_rotate.py:1780-1846)."""
     if _reduced(Y, R, E, O, Pr_b, sigma, theta, layout.Z_pad):
-        res = rotate_update_round_v1(cfg, *f32(Y, R, E, O, Pr_b, sigma, theta), rt, order,
+        res = rotate_update_round_v1(cfg, *f32(Y, R, E, O, Pr_b, sigma, theta), sched, order,
                                      layout._replace(Z_pad=layout.Z_pad.to(_F32)))
         return cast_back(res, R, E, O)
     codes = layout.codes_pad
@@ -277,7 +290,7 @@ def rotate_update_round_v1(
         if t.device != dev:
             raise ValueError(f"rotate_update_round_v1: {name} is on {t.device}, codes on {dev}")
     if dev.type == "cpu":
-        return rotate.rotate_update_round_v1(cfg, Y, R, E, O, Pr_b, sigma, theta, rt,
+        return rotate.rotate_update_round_v1(cfg, Y, R, E, O, Pr_b, sigma, theta, sched,
                                              order, layout)
     if dev.type != "cuda":
         raise ValueError(f"rotate_update_round_v1: unsupported device {dev}")
@@ -296,8 +309,17 @@ def rotate_update_round_v1(
         raise ValueError(f"rotate_update_round_v1: the layout ({L} cells), R, Y, E or O "
                          f"disagree with the config (whole tiles of {T} cells, a "
                          f"multiple of {_CT_OLD})")
-    szs, vstart = rotate.block_sizes(cfg)
+    szs, _ = rotate.block_sizes(cfg)
+    nb = len(szs)
+    if order is not None:
+        sched = graphs.device_table([int(sched), *[int(b) for b in order]], np.int32, dev)
+    if (sched.shape != (1 + nb,) or sched.dtype != torch.int32 or sched.device != dev
+            or not sched.is_contiguous()):
+        raise ValueError(f"rotate_update_round_v1: sched must be the round's contiguous "
+                         f"int32 row (1 + {nb},) of the schedule table on {dev}")
+    blocks = rotate.block_table(cfg, NT, dev)
     Tc = cell_tile(K, d, B, ncov, max(szs) * T, _sm_count(dev))
+    grid = -(-max(szs) * T // Tc)  # the largest block's CTAs; the rest return
     smem = assign_smem_bytes(K, d, B, ncov, Tc)
     smem_old = old_stats_smem_bytes(K, B, ncov)
     if smem_old > _SMEM_MAX:
@@ -305,11 +327,11 @@ def rotate_update_round_v1(
                          f"shared memory a CTA, over the {_SMEM_MAX} a CTA may use")
     span = next(s for s in (512, 256, 128, 64) if T % s == 0)
     split = T // span  # rows of old statistics a tile
-    off = torch.as_tensor(cfg.covariate_offsets, dtype=torch.int32, device=dev)
+    off = graphs.device_table(cfg.covariate_offsets, np.int32, dev)
     gcodes = torch.where(codes >= 0, codes + off[:, None], -1).to(torch.int32).contiguous()
     P = K + K * B + 2
     old = torch.empty((NT * split, P), dtype=_F32, device=dev)
-    part = torch.empty((-(-max(szs) * T // Tc), P), dtype=_F32, device=dev)
+    part = torch.empty((grid, P), dtype=_F32, device=dev)
     Yt = Y.t().contiguous()
     E_w, O_w = E.clone(), O.clone()
     pen = torch.empty((K, B), dtype=_F32, device=dev)
@@ -317,31 +339,28 @@ def rotate_update_round_v1(
     R_out = torch.empty_like(R)
     lib = _build.load("estep_round", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    s_ptrs = (sched.data_ptr(), blocks.data_ptr())
 
     _build.check(lib.k12_old_stats(R.data_ptr(), gcodes.data_ptr(), old.data_ptr(), L,
                                    span, K, B, ncov, smem_old, stream), "k12_old_stats")
-    graphs.count(rotate_update_round_v1)
 
-    def commit(ncta: int, add: int, rm_blk: int) -> None:
-        v, n = ((vstart[rm_blk] + rt) % NT, szs[rm_blk]) if rm_blk >= 0 else (0, 0)
-        _build.check(lib.k1_commit(
-            part.data_ptr(), ncta, E_w.data_ptr(), O_w.data_ptr(), old.data_ptr(),
-            v * split, n * split, NT * split, Pr_b.data_ptr(), theta.data_ptr(),
-            pen.data_ptr(), acc.data_ptr(), K, B, add, stream,
-        ), "k1_commit")
-        graphs.count(rotate_update_round_v1)
+    def commit(pos: int) -> None:
+        # after the block at position pos (-1: the round's first commit)
+        _build.check(lib.k12_commit(
+            part.data_ptr(), E_w.data_ptr(), O_w.data_ptr(), old.data_ptr(), Pr_b.data_ptr(),
+            theta.data_ptr(), pen.data_ptr(), acc.data_ptr(), K, B, *s_ptrs, pos, nb, NT,
+            split, T, Tc, stream), "k12_commit")
 
-    order = [int(b) for b in order]
-    commit(0, 0, order[0])
-    for i, blk in enumerate(order):
-        ncells = szs[blk] * T
-        _build.check(lib.k1_assign(
-            Yt.data_ptr(), layout.Z_pad.data_ptr(), gcodes.data_ptr(), None, pen.data_ptr(),
-            sigma.data_ptr(), R_out.data_ptr(), part.data_ptr(), L, 0, ncells, K, d, B,
-            ncov, Tc, T, NT, (vstart[blk] + rt) % NT, smem, stream,
-        ), "k1_assign")
-        graphs.count(rotate_update_round_v1)
-        commit(-(-ncells // Tc), 1, order[i + 1] if i + 1 < len(order) else -1)
+    commit(-1)
+    for pos in range(nb):
+        _build.check(lib.k12_assign(
+            Yt.data_ptr(), layout.Z_pad.data_ptr(), gcodes.data_ptr(), pen.data_ptr(),
+            sigma.data_ptr(), R_out.data_ptr(), part.data_ptr(), L, K, d, B, ncov, Tc, T, NT,
+            *s_ptrs, pos, nb, grid, smem, stream), "k12_assign")
+        commit(pos)
+    # the round's launches in one add (a captured round adds them on the
+    # device once)
+    graphs.count(rotate_update_round_v1, 2 * nb + 2)
     return RoundResult(R=R_out, E=E_w, O=O_w, kmeans_error=acc[0], entropy=acc[1])
 
 

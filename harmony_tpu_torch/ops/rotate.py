@@ -490,18 +490,22 @@ def rotate_update_round_v1(
     Pr_b: torch.Tensor,  # (B,)
     sigma: torch.Tensor,  # (K,)
     theta: torch.Tensor,  # (B,)
-    rt: int,
-    order: Sequence[int],
+    rt,
+    order: Optional[Sequence[int]],
     layout: CodesLayout,
 ) -> RoundResult:
     """Plain version of K12 (``pallas_rotate_update_round``,
-    pallas_rotate.py:1752) for the schedule (rt, order), step by step
-    along :func:`v1_steps`. Phase 0 sums the block's old row sums and O
+    pallas_rotate.py:1752) for the schedule (rt, order), or with ``order``
+    None for ``rt`` the round's row of the schedule table (read with
+    ``.tolist()``), as the kernel takes it; step by step along
+    :func:`v1_steps`. Phase 0 sums the block's old row sums and O
     from the input R, tile by tile; the first phase-1 step removes them
     and builds the penalty; each phase-1 step assigns one tile as K1's
     chain does (``exp(-d / sigma)``, an unguarded normalise, the penalty,
     a guarded one) and the block's last step adds its new statistics
     back. Pad cells have all-zero one-hot rows, so their R is 0."""
+    if order is None:
+        rt, *order = rt.tolist()
     K, Np = R.shape
     d, Npt = layout.Z_pad.shape
     T = cfg.estep_sub_tile

@@ -75,13 +75,19 @@ def test_abort_set_from_a_thread_between_rounds(monkeypatch):
 
 
 def test_trace_holds_the_engine_spans(tmp_path):
-    with trace(str(tmp_path)):
-        run_harmony(*_problem(), ["dataset"], max_iter=1, **KW)
-    files = glob.glob(str(tmp_path / "*.json"))
-    assert len(files) == 1
-    text = open(files[0]).read()
-    for name in ("cluster", "correct", "materialize_r"):
-        assert f'"name": "{name}"' in text, name
+    """The default run takes the one-dispatch path (engine.run_rounds), one
+    span for its iterations; the host loop (verbose) has a span a phase."""
+    spans = {"default": ("init_cluster", "run_rounds", "materialize_r"),
+             "verbose": ("init_cluster", "cluster", "correct", "materialize_r")}
+    for how, names in spans.items():
+        out = tmp_path / how
+        with trace(str(out)):
+            run_harmony(*_problem(), ["dataset"], max_iter=1, verbose=how == "verbose", **KW)
+        files = glob.glob(str(out / "*.json"))
+        assert len(files) == 1
+        text = open(files[0]).read()
+        for name in names:
+            assert f'"name": "{name}"' in text, (how, name)
 
 
 def test_phase_timers_report():

@@ -24,10 +24,11 @@
   from the table (the kernels' arithmetic: position -> block -> first
   virtual tile, tiles) is the host path's, for every position; the K7
   twin fed a table row equals it fed the row of the pairs.
-* ``HarmonyConfig.graph_route``, a property of the route: true for the
-  carry route with the default budget and the fused permute phase, false
-  on a mesh, on the per-round routes, past the default budget and without
-  the kernels.
+* ``HarmonyConfig.graph_route``, a property of the route: true on one
+  device with the kernels on every route but the cell-granular round (the
+  carry route under any budget, the two-phase route, the fused permute
+  phase and the per-round permute route), false on a mesh, on the cell
+  route and without the kernels.
 * A checkpoint written after a run_rounds chunk equals one written after
   the host loop's iterations.
 """
@@ -266,10 +267,10 @@ def test_k7_twin_reads_the_table_row():
     ("rotate", {"n_shards": 2}, False),
     ("permute_fused", {"n_shards": 2}, False),
     ("permute_fused", {"estep_impl": "torch"}, False),
-    ("rotate", {"max_iter_cluster": 6}, False),
-    ("rotate", {"rotate_stats_carry": False}, False),
+    ("rotate", {"max_iter_cluster": 6}, True),
+    ("rotate", {"rotate_stats_carry": False}, True),
     ("rotate", {"estep_impl": "torch"}, False),
-    ("permute_fused", {"permute_fused": False}, False),
+    ("permute_fused", {"permute_fused": False}, True),
 ])
 def test_graph_route(route, change, want):
     cfg, _, _ = _run_setup(route)
@@ -279,7 +280,7 @@ def test_graph_route(route, change, want):
 def test_graph_route_of_a_per_round_permute_config():
     cfg = tconfig.finalize_engine_config(tconfig.HarmonyConfig(
         N=4096, d=4, K=8, B=3, B_vec=(3,), shuffle_mode="permute"))
-    assert not cfg.permute_fused and not cfg.graph_route
+    assert not cfg.permute_fused and cfg.graph_route
     cell = tconfig.finalize_engine_config(tconfig.HarmonyConfig(
         N=1000, d=4, K=8, B=3, B_vec=(3,), shuffle_mode="rotate"))
     assert cell.rotate_route == "cell" and not cell.graph_route
