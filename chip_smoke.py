@@ -50,9 +50,12 @@ Phases (``--phases`` picks a subset, comma-separated):
              (injected permutations), the rotate schedule (injected
              rotations and block orders), the rotate schedule with
              virtual R, also against the kernels' materialised run, and the
-             rotate schedule without the stats carry (K12); then
+             rotate schedule without the stats carry (K12), and 2,000
+             cells on the cell-granular rotate round (injected schedule
+             tables; K4, K5); then
              run_harmony on 2,000 cells with shuffle_mode="rotate", which
-             takes the cell-granular round: no K6, K7 or K12.
+             takes the cell-granular round through run_rounds and a
+             capture: no K6, K7 or K12.
 5. permute   run_harmony on 500,000 x 50 cells, 10 batches, K = 100, the
              permute schedule, which at this size runs the fused phase on
              the batch-tiled ingest order; K2, K3 and K9 must be launched,
@@ -1764,18 +1767,21 @@ def synthetic(torch, N, d, B, seed, dev, n_types=12, scale=0.8):
 def check_traj(torch, dev, mode):
     """A 20k-cell run with injected centroids and randomness (permutations
     or rotate schedules), once through the kernels and once through the
-    plain path: the objective traces and Z_corr must agree."""
+    plain path: the objective traces and Z_corr must agree. ``rotate_cell``
+    is 2,000 cells, below n_blocks * 128, so the rotate schedule takes the
+    cell-granular round: its kernels are the dense M-step's K4 and K5."""
     import dataclasses
 
     import numpy as np
 
     from harmony_tpu_torch import driver, engine, preprocess
     from harmony_tpu_torch.config import finalize_engine_config, harmony_options
-    from harmony_tpu_torch.ops import cuda_estep, rotate
+    from harmony_tpu_torch.ops import cuda_estep, cuda_ridge, rotate
     from harmony_tpu_torch.ops.tiled import build_batch_tiled_order
     from harmony_tpu_torch.state import init_state
 
-    n, d, B, iters = 20_000, D_MAIN, B_MAIN, 5
+    cell = mode == "rotate_cell"
+    n, d, B, iters = 2_000 if cell else 20_000, D_MAIN, B_MAIN, 5
     Zs, bs = synthetic(torch, n, d, B, 5, dev)
     Zh, bh = Zs.cpu().numpy().astype(np.float64), bs.cpu().numpy()
     design = preprocess.build_design({"batch": bh.astype(str)}, ["batch"])
@@ -1804,6 +1810,17 @@ def check_traj(torch, dev, mode):
     if mode.startswith("permute"):
         kw["perms"] = np.stack([np.stack([rng.permutation(n) for _ in range(base.max_iter_cluster)])
                                 for _ in range(iters)])
+    elif cell:
+        # the cell-granular round's tables: a rotation in [0, Np), then the
+        # order of the n_blocks blocks; its M-step is dense (K4, K5)
+        geo = finalize_engine_config(base)
+        layout = engine.mstep_layout(geo, design.codes, dev)
+        require(layout.tiled is None and layout.cells is not None,
+                "cell-granular trajectory: not the dense M-step's layout")
+        kw["schedules"] = [rotate.schedule_table([(int(rng.integers(geo.Np)),
+                                                   rng.permutation(geo.n_blocks).tolist())
+                                                  for _ in range(base.max_iter_cluster)], dev)
+                           for _ in range(iters)]
     else:
         # a batch-tiled order at tile 128, so the M-step takes K7's fused
         # moments and runs K9 (K10 under virtual R, K8 and K9 without the
@@ -1833,17 +1850,21 @@ def check_traj(torch, dev, mode):
             base, estep_impl=impl, mstep_impl=impl, virtual_r=vr))
         require(cfg.permute_fused == (mode == "permute_fused"),
                 f"{mode} trajectory resolved permute_fused={cfg.permute_fused}")
-        require(cfg.rotate_route == (None if not rotate_mode else
+        require(cfg.rotate_route == (None if not rotate_mode else "cell" if cell else
                                      "two_phase" if two_phase else "carry"),
                 f"{mode} trajectory resolved rotate_route={cfg.rotate_route!r}")
         st = init_state(cfg, Zt, design, hp.sigma, hp.theta, hp.lamb, 0, dev)
         k12 = cuda_estep.rotate_update_round_v1.launches
+        k4 = cuda_ridge.moments.launches
         t0 = time.perf_counter()
         st = driver.run(cfg, st, Y0=Y0, layout=layout, **kw)
         torch.cuda.synchronize()
         k12 = cuda_estep.rotate_update_round_v1.launches - k12
+        k4 = cuda_ridge.moments.launches - k4
         require((k12 > 0) == (two_phase and impl == "kernel"),
                 f"{mode} trajectory {label}: {k12} K12 launches")
+        require(not cell or (k4 > 0) == (impl == "kernel"),
+                f"{mode} trajectory {label}: {k4} K4 launches")
         require((st.virt_pen is not None) == (label == "kernel" and virtual),
                 f"{mode} trajectory {label}: virtual R engaged={st.virt_pen is not None}")
         out[label] = (st.trace_lists(cfg), st.Z_corr.cpu().numpy(), time.perf_counter() - t0)
@@ -1853,7 +1874,7 @@ def check_traj(torch, dev, mode):
         obj_rel = float(np.max(np.abs(ta["objective_kmeans"] - tb["objective_kmeans"])
                                / np.abs(tb["objective_kmeans"])))
         z_err = float(np.max(np.abs(za - zb)))
-        log(f"trajectory {mode} 20k x {d}, K={base.K}, B={B}, {iters} rounds, {what}: "
+        log(f"trajectory {mode} {n} x {d}, K={base.K}, B={B}, {iters} rounds, {what}: "
             f"objective rel {obj_rel:.3e} (rtol {obj_rtol}), max|dZ_corr|={z_err:.3e} "
             f"(atol {z_atol}); {a} {sa:.2f} s, {b} {sb:.2f} s")
         require(obj_rel <= obj_rtol, f"{mode} trajectory ({what}) objectives disagree: {obj_rel}")
@@ -1871,14 +1892,17 @@ def check_traj(torch, dev, mode):
 def check_cell_route(torch, dev, wrappers):
     """run_harmony on 2,000 cells with shuffle_mode="rotate" on the card:
     below n_blocks * 128 cells it takes the cell-granular round, so no
-    rotate kernel runs; R's columns sum to 1 and the batches mix."""
+    rotate kernel runs, and the graph route: its iterations are one
+    run_rounds call that captures its iteration; R's columns sum to 1 and
+    the batches mix."""
     import numpy as np
 
-    from harmony_tpu_torch import run_harmony
+    from harmony_tpu_torch import engine, run_harmony
 
     n = 2000
     Zs, bs = synthetic(torch, n, D_MAIN, 4, 21, dev)
     sep0 = separation(torch, Zs.t(), bs, 4)
+    caps = engine.run_rounds.captures
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -1887,14 +1911,24 @@ def check_cell_route(torch, dev, wrappers):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
+    captured = engine.run_rounds.captures - caps
+    ph = res.phase_seconds()
     colsum = float(np.abs(res.R.sum(0) - 1).max())
     sep1 = separation(torch, torch.as_tensor(res.Z_corr, device=dev), bs, 4)
     log(f"cell-granular rotate: run_harmony {n} x {D_MAIN}, K={res.K}, B={res.B}, route "
         f"{res.config.rotate_route!r}, Np={res.config.Np}: {int(res.state.n_rounds)} "
-        f"iterations, wall {wall:.2f} s; launches {launches}; R column sums within "
-        f"{colsum:.2e} of 1; separation {sep0:.4f} -> {sep1:.4f}")
+        f"iterations, wall {wall:.2f} s (run_rounds {ph.get('run_rounds', 0.0):.4f} s, "
+        f"{captured} capture(s), the last {engine.run_rounds.capture_s:.3f} s); launches "
+        f"{launches}; R column sums within {colsum:.2e} of 1; separation {sep0:.4f} -> "
+        f"{sep1:.4f}")
     require(res.config.rotate_route == "cell" and res.config.Np == n,
             f"2,000 cells resolved rotate_route={res.config.rotate_route!r}")
+    require(res.config.graph_route and "run_rounds" in ph and captured == 1,
+            f"cell-granular route: run_harmony did not take run_rounds through a capture "
+            f"(graph_route {res.config.graph_route}, scopes {sorted(ph)}, {captured} "
+            "captures)")
+    for k in ("K4", "K5"):
+        require(launches[k] > 0, f"{k} was not launched on the cell-granular route")
     for k in ("K6", "K7", "K12"):
         require(launches[k] == 0, f"{k} was launched on the cell-granular route")
     require(np.isfinite(res.embeddings).all(), "cell-granular route: embeddings not finite")
@@ -2559,14 +2593,22 @@ GRAPH_CELLS = (("rotate-500k", "rotate", {}, _MAIN_DATA),
                ("permute-rounds-50k", "permute", {}, (50_000, (B_MAIN,))),
                ("multicov-50k", "permute", {}, (50_000, (10, 8, 4))),
                ("pbmc-stim", "permute", {}, "pbmc"),
+               # the cell-granular rotate round (below n_blocks * 128 cells):
+               # its schedule table read on the device, K4/K5 the M-step; at
+               # 2,500 cells, the route's full width, its phases reach the
+               # guarded rounds
+               ("rotate-cell-pbmc-stim", "rotate", {}, "pbmc"),
+               ("rotate-cell-2500", "rotate", {"max_iter_cluster": 10, "epsilon_cluster": 1e-3},
+                (2_500, (B_MAIN,))),
                ("segment-permute-80k", "permute", {}, (80_000, (B_SEGMENT,))),
                ("rotate-multicov-500k", "rotate", {}, (N_MAIN, (10, 4))))
 # the cells whose phases the windowed early stop may end before
 # max_iter_cluster rounds: at least one phase across them must stop early
-GRAPH_EARLY_STOP = ("permute-rounds-500k", "rotate-rounds-500k")
+GRAPH_EARLY_STOP = ("permute-rounds-500k", "rotate-rounds-500k", "rotate-cell-2500")
 # each route's body kernel, launched in every iteration that runs
 _BODY_KERNEL = {"fused": "head_kernel", "k1": "block_stats_kernel",
-                "carry": "reassign_assign_kernel", "two_phase": "old_stats_kernel"}
+                "carry": "reassign_assign_kernel", "two_phase": "old_stats_kernel",
+                "cell": "moments_kernel"}
 # the runtime calls that launch work on the card, counted on the host
 _API_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpyAsync",
@@ -2842,7 +2884,12 @@ def check_graph(torch, dev, wrappers):
         require(a_launches == b_launches,
                 f"graph {cell}: the replays count other launches than the host loop: "
                 f"{b_launches} against {a_launches}")
-        pa = profile_run(torch, lambda: host_loop(cfg, fork(torch, s0), layout), n_it, kernel)
+        # the cell-granular round issues ~5,000 launches an iteration
+        # eagerly, and the profiler's cost grows with its events: its eager
+        # leg is profiled over one iteration
+        n_prof = 1 if route == "cell" else n_it
+        pa = profile_run(torch, lambda: host_loop(cfg, fork(torch, s0), layout, n_prof),
+                         n_prof, kernel)
         pb = profile_run(torch, lambda: engine.run_rounds(cfg, fork(torch, s0), MAX_ITER, layout),
                          n_it, kernel)
         # the replays after convergence launch no body: the device busy time
@@ -3702,6 +3749,8 @@ def main(argv=None) -> int:
              # three covariates: the dense M-step in PyTorch, Cholesky's solve
              "graph_multicov-50k": (("K1",), ("K2", "K3", "K4", "K5", "K8", "K9")),
              "graph_pbmc-stim": (("K1", "K4", "K5"), ("K2", "K3", "K8", "K9")),
+             "graph_rotate-cell-pbmc-stim": (("K4", "K5"), _NOT_E),
+             "graph_rotate-cell-2500": (("K4", "K5"), _NOT_E),
              "graph_segment-permute-80k": (("K1",), ("K2", "K3", "K4", "K5", "K8", "K9")),
              "graph_rotate-multicov-500k": (("K6", "K7"), ("K1", "K2", "K3", "K12"))}
     t_start = time.perf_counter()
@@ -3777,6 +3826,11 @@ def main(argv=None) -> int:
         check_ridge(torch, dev, 5_003, 300, 100, B_MAIN, 7, False)
         check_ridge(torch, dev, 5_003, 500, 50, 3, 8, False)
         check_ridge(torch, dev, 5_003, 800, 50, B_MAIN, 9, False)
+        # the cell-granular rotate round's dense M-step at the shapes its
+        # graph cells give it: pbmc-stim (2,000 x 20, K = 67, 2 batches) and
+        # 2,500 cells, the route's full width (K = 83)
+        check_ridge(torch, dev, 2_000, 20, 67, 2, 10, False)
+        check_ridge(torch, dev, 2_500, D_MAIN, 83, B_MAIN, 11, False)
         k6, k7 = check_rotate(torch, dev, N_MAIN, D_MAIN, K_MAIN, (B_MAIN,), 11, True)
         kernels["K6"].update(k6)
         kernels["K7"].update(k7)
@@ -3867,6 +3921,7 @@ def main(argv=None) -> int:
         check_traj(torch, dev, "rotate")
         check_traj(torch, dev, "rotate_virtual")
         check_traj(torch, dev, "rotate_two_phase")
+        check_traj(torch, dev, "rotate_cell")
         check_cell_route(torch, dev, wrappers)
 
     # ---- 5.-9. the main paths ---------------------------------------------

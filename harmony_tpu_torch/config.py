@@ -258,20 +258,17 @@ class HarmonyConfig:
         """Does ``driver.harmonize`` run the iterations through
         ``engine.run_rounds`` (the counterpart of the JAX package's
         one-dispatch path, harmony_tpu/driver.py:122-155)? A property of the
-        route alone: true on one device with the kernels, on every route
-        but the cell-granular round: the stats-carrying rotate route under
-        any budget, the two-phase rotate route (K12), the fused permute
-        phase and the per-round permute route (K1). On the card
-        ``run_rounds`` replays one captured iteration an iteration, the
-        re-entry and the rounds that the windowed early stop may skip as
-        guarded regions on device flags; on CPU tensors it runs the same
-        iteration eagerly, with the same bits. Call it on a finalised
-        config. The mesh routes (gloo's collectives cannot be captured)
-        and the cell-granular round (plain PyTorch on host draws) keep the
-        host loop."""
-        if self.n_shards != 1 or self.estep_impl != "kernel":
-            return False
-        return self.shuffle_mode == "permute" or self.rotate_route in ("carry", "two_phase")
+        route alone: true on one device with the kernels, on every route:
+        the stats-carrying rotate route under any budget, the two-phase
+        rotate route (K12), the cell-granular rotate round (its schedule
+        table read on the device), the fused permute phase and the
+        per-round permute route (K1). On the card ``run_rounds`` replays
+        one captured iteration an iteration, the re-entry and the rounds
+        that the windowed early stop may skip as guarded regions on device
+        flags; on CPU tensors it runs the same iteration eagerly, with the
+        same bits. The mesh routes keep the host loop: gloo's collectives
+        cannot be captured."""
+        return self.n_shards == 1 and self.estep_impl == "kernel"
 
     @property
     def use_segments(self) -> bool:

@@ -4,27 +4,32 @@
 from the Seurat vignette), with ``pbmc_dataset`` reproducing the vignette's
 preprocessing in NumPy.
 
-The files are read in place, in this order: the ``path=`` argument, else
-the directory in ``HARMONY_TPU_DATA``, then the vendored
-``harmony_tpu/data/*.npz`` of this checkout (read by path; nothing of the
-JAX package is imported). Where no ``.npz`` is found the cell lines fall
-back to a deterministic synthetic set with the same schema. The
-reference's ``.rda``/``.RData`` files, which the JAX package also reads
-(``harmony_tpu/rdata.py``), are not read here: the checkout vendors every
-dataset as ``.npz``.
+The files are searched in the JAX package's directories and order: the
+``path=`` argument alone where it is given, else the directory in
+``HARMONY_TPU_DATA``, then the vendored ``harmony_tpu/data/`` of this
+checkout (read by path; nothing of the JAX package is imported), then
+:data:`REFERENCE_DATA`, the reference R package's ``data/``. For each
+dataset the vendored ``.npz`` is read first, then the reference's
+``.rda``/``.RData`` (through the port's own NumPy reader,
+:mod:`harmony_tpu_torch.rdata`), and only where neither is found do the
+cell lines fall back to a deterministic synthetic set with the same
+schema, and ``pbmc_stim`` raise ``FileNotFoundError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from .rdata import RFactor, SparseMatrix, load_rdata
 
 VENDORED = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "harmony_tpu", "data")
+# the JAX package's third directory (harmony_tpu/datasets.py:23-27)
+REFERENCE_DATA = "/root/reference/data"
 
 
 @dataclasses.dataclass
@@ -40,62 +45,64 @@ class CellDataset:
         return self.scaled_pcs.shape[0]
 
 
+def _search_dirs(path: Optional[str]) -> List[str]:
+    if path:
+        return [path]
+    return [p for p in (os.environ.get("HARMONY_TPU_DATA", ""), VENDORED, REFERENCE_DATA) if p]
+
+
 def _find(fname: str, path: Optional[str]) -> Optional[str]:
-    candidates = [path] if path else [p for p in (os.environ.get("HARMONY_TPU_DATA", ""),
-                                                  VENDORED) if p]
-    for base in candidates:
+    for base in _search_dirs(path):
         full = os.path.join(base, fname)
         if os.path.exists(full):
             return full
     return None
 
 
-@dataclasses.dataclass
-class SparseMatrix:
-    """A CSC sparse matrix (genes x cells), the fields of a Matrix-package
-    dgCMatrix as ``harmony_tpu.rdata.RSparseMatrix`` holds them."""
-
-    data: np.ndarray  # x
-    indices: np.ndarray  # i (row indices)
-    indptr: np.ndarray  # p (column pointers)
-    shape: tuple
-    dimnames: Optional[list] = None
-
-    def toarray(self) -> np.ndarray:
-        out = np.zeros(self.shape, dtype=self.data.dtype)
-        for c in range(self.shape[1]):
-            sl = slice(self.indptr[c], self.indptr[c + 1])
-            out[self.indices[sl], c] = self.data[sl]
-        return out
+def _df_to_meta(df: Dict) -> Dict[str, np.ndarray]:
+    """A data.frame's columns as arrays, factors as their level strings."""
+    return {k: v.as_strings() if isinstance(v, RFactor) else np.asarray(v)
+            for k, v in df.items()}
 
 
-def _load_cell_lines(key: str, path: Optional[str]) -> CellDataset:
+def _df_to_matrix(df: Dict) -> np.ndarray:
+    """A numeric data.frame as an (rows, columns) float64 matrix."""
+    return np.stack([np.asarray(v, dtype=np.float64) for v in df.values()], axis=1)
+
+
+def _load_cell_lines(fname: str, key: str, path: Optional[str]) -> CellDataset:
     npz = _find(f"{key}.npz", path)
-    if npz is None:
+    if npz is not None:
+        with np.load(npz, allow_pickle=False) as z:
+            meta = {k[len("meta_"):]: z[k] for k in z.files if k.startswith("meta_")}
+            return CellDataset(scaled_pcs=z["scaled_pcs"], meta_data=meta, name=key)
+    full = _find(fname, path)
+    if full is None:
         return _synthetic_cell_lines(key)
-    with np.load(npz, allow_pickle=False) as z:
-        meta = {k[len("meta_"):]: z[k] for k in z.files if k.startswith("meta_")}
-        return CellDataset(scaled_pcs=z["scaled_pcs"], meta_data=meta, name=key)
+    obj = load_rdata(full)[key]
+    return CellDataset(scaled_pcs=_df_to_matrix(obj["scaled_pcs"]),
+                       meta_data=_df_to_meta(obj["meta_data"]), name=key)
 
 
 def cell_lines(path: Optional[str] = None) -> CellDataset:
     """Cell-line mixture (10x), 20 scaled PCs, covariates dataset/cell_type."""
-    return _load_cell_lines("cell_lines", path)
+    return _load_cell_lines("cell_lines.rda", "cell_lines", path)
 
 
 def cell_lines_small(path: Optional[str] = None) -> CellDataset:
     """300-cell subset of cell_lines."""
-    return _load_cell_lines("cell_lines_small", path)
+    return _load_cell_lines("cell_lines_small.RData", "cell_lines_small", path)
 
 
 def pbmc_stim(path: Optional[str] = None):
     """(pbmc_ctrl, pbmc_stim) gene-count CSC matrices (genes x cells), as
-    :class:`SparseMatrix`."""
+    :class:`SparseMatrix`: the two vendored ``.npz`` files, else the
+    reference's ``pbmc_stim.RData``."""
     out = []
     for key in ("pbmc_ctrl", "pbmc_stim"):
         npz = _find(f"{key}.npz", path)
         if npz is None:
-            raise FileNotFoundError(f"{key}.npz not found; set HARMONY_TPU_DATA")
+            continue
         with np.load(npz, allow_pickle=False) as z:
             out.append(SparseMatrix(
                 data=z["data"], indices=z["indices"], indptr=z["indptr"],
@@ -103,7 +110,15 @@ def pbmc_stim(path: Optional[str] = None):
                 dimnames=[z["genes"] if "genes" in z.files else None,
                           z["cells"] if "cells" in z.files else None],
             ))
-    return tuple(out)
+    if len(out) == 2:
+        return tuple(out)
+    full = _find("pbmc_stim.RData", path)
+    if full is None:
+        raise FileNotFoundError(
+            "pbmc data not found: neither pbmc_ctrl.npz and pbmc_stim.npz nor "
+            f"pbmc_stim.RData in {_search_dirs(path)}; set HARMONY_TPU_DATA")
+    d = load_rdata(full)
+    return d["pbmc.ctrl"], d["pbmc.stim"]
 
 
 def pbmc_dataset(n_pcs: int = 20, path: Optional[str] = None) -> CellDataset:

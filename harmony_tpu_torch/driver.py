@@ -86,8 +86,9 @@ def harmonize(
 
     ``perms`` injects per-round permutations of shape
     (rounds, max_iter_cluster, N) on the permute schedule; ``schedules``
-    injects, per round, the max_iter_cluster (rotation, block order)
-    pairs of the rotate schedule. ``layout`` is the run's M-step layout
+    injects, per round, the rotate schedule's table of the
+    max_iter_cluster (rotation, block order) rows (``rotate.schedule_table``
+    of the pairs). ``layout`` is the run's M-step layout
     (``engine.mstep_layout``; None: dense). ``abort`` is any
     object with an ``aborted()`` method (``runtime.AbortFlag``), polled
     before every round; a set flag raises ``KeyboardInterrupt``. A

@@ -396,7 +396,8 @@ def _round_loop(cfg: HarmonyConfig, state: HarmonyState, round_fn, draws,
 
 
 def _cluster_rotate_written(cfg: HarmonyConfig, state: HarmonyState,
-                            schedules: Optional[Sequence] = None, mesh=None) -> HarmonyState:
+                            schedules: Optional[torch.Tensor] = None,
+                            mesh=None) -> HarmonyState:
     """The rotate rounds without the stats carry, after the re-entry
     (harmony_tpu/engine.py:440-451, 548-595): every round reads the
     previous round's R for each block's old statistics and writes R again,
@@ -404,15 +405,17 @@ def _cluster_rotate_written(cfg: HarmonyConfig, state: HarmonyState,
     Z_corr; the rounds are K12 (:func:`cuda_estep.rotate_update_round_v1`,
     its plain version under 'torch') on the tile route, or the
     cell-granular round (:func:`ops.estep.rotate_update_round`, plain
-    PyTorch everywhere) below ``n_blocks * 128`` cells. ``schedules``
-    injects the rounds' draws: on the tile route the schedule table (as
-    :func:`_cluster_rotate`), on the cell route each round's (rotation,
-    block order) pair in cells; otherwise they are drawn from the state's
-    generator, all up front. On a mesh the route is the cell-granular one
-    (:func:`ops.estep.sharded_rotate_update_round`): the schedule is
-    global, every rank drawing the same pairs."""
+    PyTorch everywhere) below ``n_blocks * 128`` cells. Each round reads
+    its row of the phase's schedule table (the rotation, then the block
+    order; in tiles on the tile route, ``rotate.draw_schedules``, in cells
+    on the cell route, :func:`ops.estep.draw_rotate_schedules`), drawn from
+    the state's generator, all up front, and left on the device, or
+    injected as ``schedules`` (``rotate.schedule_table`` of the pairs).
+    On a mesh the route is the cell-granular one
+    (:func:`ops.estep.sharded_rotate_update_round`): the table is global,
+    every rank drawing the same rows, and read to the host once a phase."""
     if cfg.rotate_route == "cell":
-        # a bf16 engine's rounds run on float32 copies, R, E and O cast
+        # a 2-byte engine's rounds run on float32 copies, R, E and O cast
         # back at each round's end, as the kernels' wrappers do
         f32 = cuda_estep.f32
         draw = draw_rotate_schedules
@@ -422,7 +425,7 @@ def _cluster_rotate_written(cfg: HarmonyConfig, state: HarmonyState,
 
         def round_fn(s: HarmonyState, sched):
             res = rnd(*f32(s.Z_corr, s.Y, s.R, s.E, s.O), s.codes,
-                      *f32(s.Pr_b, s.sigma, s.theta), *sched)
+                      *f32(s.Pr_b, s.sigma, s.theta), sched)
             return cuda_estep.cast_back(res, s.R, s.E, s.O)
     else:
         layout = rotate.CodesLayout(
@@ -436,8 +439,11 @@ def _cluster_rotate_written(cfg: HarmonyConfig, state: HarmonyState,
             return v1(cfg, s.Y, s.R, s.E, s.O, s.Pr_b, s.sigma, s.theta, sched, None, layout)
     if schedules is None:
         schedules = draw(cfg, state.generator, cfg.max_iter_cluster)
-    elif cfg.rotate_route != "cell":
-        schedules = torch.as_tensor(schedules).to(state.device)  # where K12's launches read it
+    else:
+        schedules = torch.as_tensor(schedules).to(state.device)  # where the rounds read it
+    if mesh is not None:
+        # the phase's one read: gloo's collectives keep a mesh on the host loop
+        schedules = schedules.tolist()
     return _round_loop(cfg, state, round_fn, schedules)[0]
 
 
@@ -503,13 +509,13 @@ def cluster(
     in each round's block order and put back in the cells' order once at
     the phase's end.
     ``perms`` injects the (max_iter_cluster, N) permutations, and
-    ``schedules`` the rotate schedule's draws: on the tile routes a
+    ``schedules`` the rotate schedule's draws, on every rotate route a
     schedule table (``rotate.schedule_table`` of the (rotation, block
-    order) pairs), on the cell route the pairs; otherwise they are drawn
-    from the state's generator, all up front. On a mesh
-    (the rank's columns) the
-    permutations and the cell-granular schedules are global and every rank
-    draws them; the per-round permute rounds are
+    order) pairs: in tiles on the tile routes, in cells on the cell
+    route); otherwise they are drawn from the state's generator, all up
+    front. On a mesh (the rank's columns) the permutations and the
+    cell-granular schedule table are global and every rank draws them;
+    the per-round permute rounds are
     :func:`ops.estep.sharded_block_update_round`, R carried in the order
     of the rank's cells in each round's permutation, and the windowed
     early stop reads the all-reduced objective, so every rank stops at the
@@ -915,7 +921,9 @@ def run_rounds(cfg: HarmonyConfig, state: HarmonyState, n_max: int,
     The traces are written at a device cursor (``HarmonyState.cursor``),
     and the host cursors are set from it with one read at the end.
 
-    On the card, on the routes of :attr:`HarmonyConfig.graph_route`, one
+    On the card, on the routes of :attr:`HarmonyConfig.graph_route` (every
+    one-device route with the kernels, the cell-granular rotate round
+    included), one
     iteration is captured once per (config, device, M-step layout) into a
     CUDA graph whose launches sit inside IF conditional nodes on that
     predicate, each of the iteration's guarded regions (the re-entry, the
@@ -942,12 +950,13 @@ def run_rounds(cfg: HarmonyConfig, state: HarmonyState, n_max: int,
     seconds.
 
     Elsewhere (CPU tensors: the plain version for the tests; the card off
-    the graph route) the same iteration runs eagerly under a Python ``if``
-    on the device flag. ``schedules`` (rotate) or ``perms`` (permute)
-    inject each iteration's draws, one row an iteration (an iteration's
-    schedule table, (max_iter_cluster, 1 + nb), or its permutations), for
-    the tests; ``driver.harmonize`` never passes them on this path, as in
-    the JAX package."""
+    the graph route, i.e. without the kernels) the same iteration runs
+    eagerly under a Python ``if`` on the device flag. ``schedules``
+    (rotate) or ``perms`` (permute) inject each iteration's draws, one row
+    an iteration (an iteration's schedule table, (max_iter_cluster, 1 +
+    nb), in tiles on the tile routes and in cells on the cell route, or
+    its permutations), for the tests; ``driver.harmonize`` never passes
+    them on this path, as in the JAX package."""
     layout = layout or MStepLayout()
     given = schedules if cfg.shuffle_mode == "rotate" else perms
     if (perms if cfg.shuffle_mode == "rotate" else schedules) is not None:

@@ -302,9 +302,10 @@ def inject_problem(mode: str, cells: int, dims: int, batches: int, nclust: int,
 
 def inject_draws(cfg, mesh_size: int, rank: int, rounds: int, seed: int):
     """The injected randomness of every shard from one numpy generator,
-    this rank's taken: per round, max_iter_cluster (rotation, block order)
-    pairs over the shard's tiles, or the global permutations, or the
-    global (cell rotation, block order) pairs of the cell-granular round."""
+    this rank's taken: per round, the schedule table of max_iter_cluster
+    (rotation, block order) rows over the shard's tiles, or the global
+    permutations, or the global table of (cell rotation, block order) rows
+    of the cell-granular round."""
     from .ops import rotate
 
     rng = np.random.default_rng(seed + 2)
@@ -313,8 +314,9 @@ def inject_draws(cfg, mesh_size: int, rank: int, rounds: int, seed: int):
                                              for _ in range(cfg.max_iter_cluster)])
                                    for _ in range(rounds)])}
     if cfg.rotate_route == "cell":
-        return {"schedules": [[(int(rng.integers(cfg.Np)), rng.permutation(cfg.n_blocks).tolist())
-                               for _ in range(cfg.max_iter_cluster)] for _ in range(rounds)]}
+        return {"schedules": [rotate.schedule_table(
+            [(int(rng.integers(cfg.Np)), rng.permutation(cfg.n_blocks).tolist())
+             for _ in range(cfg.max_iter_cluster)]) for _ in range(rounds)]}
     NT = cfg.Np // mesh_size // cfg.estep_sub_tile
     nb = len(rotate.block_sizes(cfg, NT)[0])
     every = [[[(int(rng.integers(NT)), rng.permutation(nb).tolist())

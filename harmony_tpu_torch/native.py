@@ -1,14 +1,17 @@
 """Loader for the native host-side kernels (``native/scale_csc.cpp``).
 
-Counterpart of ``harmony_tpu/native.py``, for the one function the port
-calls: the row standardisation of a CSC genes x cells matrix
-(``csc_scale_rows``, behind :func:`harmony_tpu_torch.scale.scale_data`).
+Counterpart of ``harmony_tpu/native.py``, binding the same three
+functions with the same signatures and return values: the row
+standardisation of a CSC genes x cells matrix (``csc_scale_rows``, behind
+:func:`harmony_tpu_torch.scale.scale_data`), its row means and standard
+deviations (``csc_row_stats``) and the library-size log normalisation of
+its counts (``csc_log_normalize``).
 The repo's C++ source is built with ``g++`` at first use into
 ``build/native/`` beside the package (the library's name carries a hash of
 the source, so an edited source rebuilds), and bound with ctypes under a
 lock. This is a host helper, not a device kernel; where no ``g++`` is
-found it returns None and :mod:`harmony_tpu_torch.scale` takes its NumPy
-path, as the JAX package does.
+found each function returns None (:mod:`harmony_tpu_torch.scale` then
+takes its NumPy path), as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ _I64P = ctypes.POINTER(ctypes.c_int64)
 _SIGNATURES = {
     "csc_scale_rows": [_F64P, _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
                        _F64P],
+    "csc_row_stats": [_F64P, _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, _F64P, _F64P],
+    "csc_log_normalize": [_F64P, _I64P, ctypes.c_int64, ctypes.c_double],
 }
 
 
@@ -108,3 +113,36 @@ def csc_scale_rows(data, indices, indptr, nrow: int, ncol: int,
                        _ptr(res, ctypes.c_double))
     return res
 
+
+def csc_row_stats(data, indices, indptr, nrow: int, ncol: int):
+    """Row means and zero-aware sample standard deviations (ncol - 1
+    denominator, src/utils.cpp:132-147) of a CSC matrix: (mean, sd), each
+    (nrow,) float64; None when the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    x, i, p = _csc(data, indices, indptr)
+    _check(x, i, p, nrow, ncol)
+    mean = np.empty(nrow, dtype=np.float64)
+    sd = np.empty(nrow, dtype=np.float64)
+    lib.csc_row_stats(_ptr(x, ctypes.c_double), _ptr(i, ctypes.c_int64),
+                      _ptr(p, ctypes.c_int64), nrow, ncol, _ptr(mean, ctypes.c_double),
+                      _ptr(sd, ctypes.c_double))
+    return mean, sd
+
+
+def csc_log_normalize(data, indptr, ncol: int, scale: float = 1e4) -> Optional[np.ndarray]:
+    """Library-size log1p normalisation of CSC counts, x <- log1p(x /
+    colsum * scale) (a zero column sum taken as 1), in place: returns
+    ``data`` itself where it is a contiguous float64 array, else the
+    normalised copy; None when the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(data, dtype=np.float64)
+    p = np.ascontiguousarray(indptr, dtype=np.int64)
+    if p.shape != (ncol + 1,) or p[-1] != x.size:
+        raise ValueError("malformed CSC arrays")
+    lib.csc_log_normalize(_ptr(x, ctypes.c_double), _ptr(p, ctypes.c_int64), ncol,
+                          float(scale))
+    return x

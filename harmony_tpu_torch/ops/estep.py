@@ -22,7 +22,9 @@ the card; this function is its plain version.
 :func:`rotate_update_round` is the rotate schedule's round below
 ``n_blocks * 128`` cells (``HarmonyConfig.rotate_route == 'cell'``), where
 whole tiles cannot make the reference's block count. It is XLA, not a
-kernel, in the JAX package, and plain PyTorch here on the card too.
+kernel, in the JAX package, and plain PyTorch here on the card too; it
+reads its schedule, a row of :func:`draw_rotate_schedules`' table, on the
+device, so ``engine.run_rounds`` captures its rounds into a CUDA graph.
 
 :func:`sharded_block_update_round` and :func:`sharded_rotate_update_round`
 run the two rounds on a mesh, as the JAX package partitions its XLA
@@ -32,7 +34,7 @@ and the block statistics are summed over the ranks.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -261,15 +263,19 @@ def make_rotate_layout(cfg: HarmonyConfig, Z: torch.Tensor, codes: torch.Tensor)
 
 
 def draw_rotate_schedules(cfg: HarmonyConfig, generator: torch.Generator,
-                          rounds: int) -> List[Tuple[int, List[int]]]:
-    """``rounds`` (cell rotation in [0, Np), order of the n_blocks blocks)
-    pairs for :func:`rotate_update_round` (estep.py:250-252), drawn
-    together and brought to the host once."""
+                          rounds: int) -> torch.Tensor:
+    """``rounds`` rounds' schedules of :func:`rotate_update_round`
+    (harmony_tpu/ops/estep.py:250-252): the cell rotations in [0, Np) by
+    one ``randint``, then one ``randperm`` of the n_blocks blocks a round,
+    as a (rounds, 1 + n_blocks) int32 table on the generator's device in
+    the layout of ``ops/rotate.draw_schedules`` (row r: round r's
+    rotation, then its block order). The table stays there, so a round
+    reads its row with no host read."""
     dev = generator.device
     rs = torch.randint(0, cfg.Np, (rounds,), generator=generator, device=dev)
-    orders = [torch.randperm(cfg.n_blocks, generator=generator, device=dev).tolist()
-              for _ in range(rounds)]
-    return list(zip(rs.tolist(), orders))
+    orders = torch.stack([torch.randperm(cfg.n_blocks, generator=generator, device=dev)
+                          for _ in range(rounds)])
+    return torch.cat([rs[:, None], orders], dim=1).to(torch.int32)
 
 
 def rotate_update_round(
@@ -283,54 +289,74 @@ def rotate_update_round(
     Pr_b: torch.Tensor,  # (B,)
     sigma: torch.Tensor,  # (K,)
     theta: torch.Tensor,  # (B,)
-    r: int,
-    order: Sequence[int],
+    sched: torch.Tensor,  # (1 + n_blocks,) the round's row of the schedule table
     layout: Optional[RotateLayout] = None,
 ) -> RoundResult:
     """The cell-granular rotate round (harmony_tpu/ops/estep.py:212) for
-    the schedule (r, order): virtual position p < Np holds cell
+    the schedule row ``sched`` (:func:`draw_rotate_schedules`: the rotation
+    r, then the block order): virtual position p < Np holds cell
     (p + r) mod Np, block b is positions [b S, (b+1) S), and the blocks run
-    in ``order``. Each block reads its old statistics from R, then updates
-    as :func:`block_update_round` does. The last block's positions past
-    Np are dead (``live``); its write keeps what the neighbours wrote, and
-    the mirror region folds back onto the first S cells at the end."""
+    in the row's order. The row is read on the device: each block's start
+    (b S + r) mod Np in the mirror-padded layout, its live mask (the last
+    block's positions past Np are dead) and the cells it covers are
+    tensors, its columns of the layout and of the mirror-padded R are
+    gathered with ``index_select`` (the JAX function's ``dynamic_slice``),
+    and R is written back from the blocks with one gather through each
+    cell's slot, so no tensor becomes a Python number and a captured round
+    replays any schedule. Each block reads its old statistics from R, then
+    updates as :func:`block_update_round` does; the loop over the n_blocks
+    positions is a Python loop of fixed length."""
     K, Np = R.shape
-    S = _block_len(cfg)
-    dtype, f32 = R.dtype, torch.float32
+    nb, S = cfg.n_blocks, _block_len(cfg)
+    dtype = R.dtype
+    dev = R.device
     if layout is None:
         layout = make_rotate_layout(cfg, Z, codes)
+    sched = sched.to(dev).long()
+    r, order = sched[0], sched[1:]
+    pos = torch.arange(S, device=dev)
+    # the blocks in the round's order: their columns of the mirror layout
+    # and their live slots
+    vpos = order[:, None] * S + pos  # (nb, S) virtual positions
+    cols = (torch.remainder(order * S + r, Np)[:, None] + pos).reshape(-1)
+    live = (vpos < Np).to(dtype)
     R_pad = torch.cat([R, R[:, :S]], dim=1)
-    pos = torch.arange(S, device=R.device)
-    acc_d = torch.zeros((), dtype=f32, device=R.device)
-    acc_e = torch.zeros((), dtype=f32, device=R.device)
-    R_new = torch.zeros((K, Np + S), dtype=dtype, device=R.device)
-    for b in order:
-        b = int(b)
-        start = (b * S + r) % Np
-        sl = slice(start, start + S)
-        live = ((b * S + pos) < Np).to(dtype)
-        oh_b = layout.oh_pad[sl]
-        R_old = R_pad[:, sl] * live[None, :]
+    R_old = R_pad.index_select(1, cols).reshape(K, nb, S) * live
+    Z_blk = layout.Z_pad.index_select(1, cols).reshape(-1, nb, S)
+    oh_blk = layout.oh_pad.index_select(0, cols).reshape(nb, S, -1)
+    c_blk = layout.codes_pad.index_select(1, cols).reshape(-1, nb, S).long()
+    m_blk = live * layout.valid_pad.index_select(0, cols).reshape(nb, S)
+    acc_d = torch.zeros((), dtype=torch.float32, device=dev)
+    acc_e = torch.zeros((), dtype=torch.float32, device=dev)
+    R_new = torch.empty((K, nb, S), dtype=dtype, device=dev)
+    for j in range(nb):
+        R_o = R_old[:, j]
         E, O, R_n, kerr, ent = _update_block(
-            cfg, Y, E, O, R_old.sum(dim=1, keepdim=True),
-            (R_old.float() @ oh_b.float()).to(dtype), layout.Z_pad[:, sl], oh_b,
-            layout.codes_pad[:, sl].long(), live * layout.valid_pad[sl], Pr_b, sigma, theta)
+            cfg, Y, E, O, R_o.sum(dim=1, keepdim=True),
+            (R_o.float() @ oh_blk[j].float()).to(dtype), Z_blk[:, j], oh_blk[j], c_blk[:, j],
+            m_blk[j], Pr_b, sigma, theta)
         acc_d, acc_e = acc_d + kerr, acc_e + ent
-        R_new[:, sl] = torch.where(live[None, :] > 0, R_n, R_new[:, sl])
-    # each cell was written once, at its own position or at its mirror
-    R_out = R_new[:, :Np].clone()
-    R_out[:, :S] += R_new[:, Np:]
+        R_new[:, j] = R_n
+    # cell c sits at virtual position p = (c - r) mod Np, slot p mod S of
+    # block p // S, which ran at the position of that block in the order
+    at = torch.empty_like(order).index_copy_(0, order, torch.arange(nb, device=dev))
+    p = torch.remainder(torch.arange(Np, device=dev) - r, Np)
+    slot = at.index_select(0, p // S) * S + p % S
+    R_out = R_new.reshape(K, nb * S).index_select(1, slot)
     return RoundResult(R=R_out, E=E, O=O, kmeans_error=acc_d, entropy=acc_e)
 
 
-def rotate_block_cells(cfg: HarmonyConfig, mesh, r: int, b: int) -> torch.Tensor:
-    """The rank's real cells of block ``b`` of the cell-granular schedule
-    rotated by ``r``, as its column ids, in the block's order: the block
-    covers cells (r + b S + j) mod Np for j below its live length
-    min(S, Np - b S), which may wrap past the last cell and span ranks."""
+def rotate_block_cells(cfg: HarmonyConfig, mesh, sched: Sequence[int], j: int) -> torch.Tensor:
+    """The rank's real cells of the block at position ``j`` of the
+    cell-granular schedule row ``sched`` (the rotation r, then the block
+    order; a host row of :func:`draw_rotate_schedules`' table), as its
+    column ids, in the block's order: block b covers cells (r + b S + i)
+    mod Np for i below its live length min(S, Np - b S), which may wrap
+    past the last cell and span ranks."""
     from ..sharding import cell_range, valid_cells
 
     Np, S = cfg.Np, _block_len(cfg)
+    r, b = int(sched[0]), int(sched[1 + j])
     lo = cell_range(cfg, mesh)[0]
     hi = lo + valid_cells(cfg, mesh)
     start, L = (b * S + r) % Np, max(min(S, Np - b * S), 0)
@@ -351,18 +377,20 @@ def sharded_rotate_update_round(
     Pr_b: torch.Tensor,
     sigma: torch.Tensor,
     theta: torch.Tensor,
-    r: int,
-    order: Sequence[int],
+    sched: Sequence[int],  # the round's row of the schedule table, on the host
 ) -> RoundResult:
     """:func:`rotate_update_round` on a mesh (the JAX package's XLA round
     on the sharded state, harmony_tpu/engine.py:449-451), plain PyTorch on
-    each rank. The schedule (r, order) is global, drawn alike on every
-    rank; each block is the global slice of the mirror layout, cut to the
-    rank's real cells (:func:`rotate_block_cells`; pad cells are in no
-    block), and its statistics are summed over the ranks as
+    each rank. The schedule table is global, drawn alike on every rank, and
+    read to the host once a phase (gloo's collectives are not captured, so
+    a mesh round runs on the host loop); each block is the global slice of
+    the mirror layout, cut to the rank's real cells
+    (:func:`rotate_block_cells`; pad cells are in no block), and its
+    statistics are summed over the ranks as
     :func:`sharded_block_update_round` sums them. R comes back in the
     rank's columns, pad cells 0."""
-    blocks = [rotate_block_cells(cfg, mesh, r, int(b)).to(R.device) for b in order]
+    blocks = [rotate_block_cells(cfg, mesh, sched, j).to(R.device)
+              for j in range(len(sched) - 1)]
     cuts = [0]
     for c in blocks:
         cuts.append(cuts[-1] + c.shape[0])

@@ -283,9 +283,13 @@ def moe_correct_ridge(
     W = _solve_ridge(cfg, G, rhs)
 
     # centroid refresh from the intercept betas (src/harmony.cpp:610-611);
-    # skipped clusters keep their centroid
+    # skipped clusters keep their centroid. Y is kept row-major, as the
+    # state's other buffers and the graph route's static copies are: a
+    # product that reads Y then takes the same cuBLAS kernel in the host
+    # loop as in a captured iteration (a transposed Y gave the cell-granular
+    # round other bits on the card)
     Y_new = torch.where(any_active[None, :], W[:, 0, :].t().to(Y_old.dtype), Y_old)
-    Y_new = l2_normalize_columns(Y_new)
+    Y_new = l2_normalize_columns(Y_new).contiguous()
     W = W.clone()
     W[:, 0, :] = 0.0
 

@@ -83,9 +83,8 @@ def _rotate_rounds(cj, ct, sj, st, tiled_j, tiled_t, schedule=_jax_schedule, rou
     round_j = jax.jit(lambda s: jengine.harmony_round(cj, s, tiled=tiled_j))
     for _ in range(rounds):
         _, sub = jax.random.split(sj.key)
-        sched = [schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)]
-        if ct.rotate_route != "cell":
-            sched = tr.schedule_table(sched)  # the tile routes take the table
+        sched = tr.schedule_table(
+            [schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)])
         sj = round_j(sj)
         st = tengine.harmony_round(ct, st, schedules=sched,
                                    layout=tengine.MStepLayout(tiled_t))

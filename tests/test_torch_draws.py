@@ -302,7 +302,8 @@ def test_draw_rotate_schedules_are_uniform():
     assert cfg.n_blocks == 20
     g = torch.Generator()
     g.manual_seed(4321)
-    _check_pairs(testep.draw_rotate_schedules(cfg, g, N_DRAWS), cfg.Np, cfg.n_blocks)
+    _check_pairs(trotate.schedule_pairs(testep.draw_rotate_schedules(cfg, g, N_DRAWS)), cfg.Np,
+                 cfg.n_blocks)
 
 
 @pytest.mark.parametrize("K,n_valid", [(8, 2000), (64, 64), (100, 1000)])

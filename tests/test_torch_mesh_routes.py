@@ -160,7 +160,7 @@ def _rank_case(case, mesh, out):
         if "perms" in case:
             kw["perms"] = np.asarray(case["perms"][r])
         elif "schedules" in case:
-            kw["schedules"] = case["schedules"][r]
+            kw["schedules"] = tr.schedule_table(case["schedules"][r])
         elif "shard_schedules" in case:
             kw["schedules"] = tr.schedule_table(
                 [s[mesh.rank] for s in case["shard_schedules"][r]])

@@ -360,5 +360,24 @@ def test_worker_dryrun_defaults_to_the_card():
         dryrun(2)
 
 
+def test_worker_injects_schedule_tables_on_the_cell_route():
+    """The worker's injected draws of the cell-granular round on a mesh are
+    one global schedule table a round (rotation in [0, Np), then a block
+    order), the same on every rank, as every rotate route takes them."""
+    import dataclasses
+
+    from harmony_tpu_torch.multihost_worker import inject_draws, inject_problem
+
+    base = inject_problem("rotate_cell", 4096, 8, 3, 8, 2, 0)[0]
+    cfg = dataclasses.replace(base, n_shards=2)
+    assert cfg.rotate_route == "cell"
+    tables = [inject_draws(cfg, 2, rank, 2, 0)["schedules"] for rank in (0, 1)]
+    for t0, t1 in zip(*tables):
+        assert t0.dtype == torch.int32 and t0.shape == (cfg.max_iter_cluster, 1 + cfg.n_blocks)
+        assert torch.equal(t0, t1)
+        assert ((t0[:, 0] >= 0) & (t0[:, 0] < cfg.Np)).all()
+        assert (t0[:, 1:].sort(dim=1).values == torch.arange(cfg.n_blocks)).all()
+
+
 if __name__ == "__main__":
     _rank_main(sys.argv[1:])

@@ -8,7 +8,8 @@ harmony_tpu.
   ``pallas_rotate_update_round`` in interpret mode, with the rotation and
   block order its key draws; one and two covariates, pad cells, two
   chained rounds: R atol 1e-6; E, O, k-means error and entropy rtol 1e-5.
-* The cell-granular round (``ops.estep.rotate_update_round``) against
+* The cell-granular round (``ops.estep.rotate_update_round``), fed the row
+  of the schedule table that the JAX key draws, against
   ``harmony_tpu.ops.rotate_update_round`` at the shape of
   ``tests/test_rotate.py``'s emulation (203 cells, N_pad 208, two
   covariates): the layout equal; R atol 2e-6; E, O atol 1e-4; the
@@ -173,7 +174,9 @@ def test_cell_round_matches_jax():
         np.testing.assert_array_equal(getattr(lay_t, f).numpy(), np.asarray(getattr(lay_j, f)))
     for key in jax.random.split(jax.random.PRNGKey(42), 2):
         ref = jax.jit(lambda *a: jops.rotate_update_round(cj, *a, key))(*ja)
-        out = te.rotate_update_round(ct, *ta, *_cell_schedule(ct, key), lay_t)
+        # the table row of the rotation and block order the JAX key draws
+        row = tr.schedule_table([_cell_schedule(ct, key)])[0]
+        out = te.rotate_update_round(ct, *ta, row, lay_t)
         _close(out.R, ref.R, rtol=0, atol=2e-6)
         _close(out.E, ref.E, rtol=0, atol=1e-4)
         _close(out.O, ref.O, rtol=0, atol=1e-4)
@@ -185,13 +188,24 @@ def test_cell_round_matches_jax():
 
 
 def test_cell_schedule_draws():
+    """The cell route's schedule table: (rounds, 1 + n_blocks) int32 on the
+    generator's device, a rotation in [0, Np) and a block order a row, drawn
+    as one randint of the rotations, then one randperm a round (the stream
+    the (rotation, block order) pairs came from), and the generator left
+    where those calls leave it."""
     ct = tconfig.HarmonyConfig(N=1000, d=4, K=5, B=2, B_vec=(2,), shuffle_mode="rotate")
-    g = torch.Generator()
+    g, h = torch.Generator(), torch.Generator()
     g.manual_seed(0)
-    sched = te.draw_rotate_schedules(ct, g, 3)
-    assert len(sched) == 3
-    for r, order in sched:
+    h.manual_seed(0)
+    table = te.draw_rotate_schedules(ct, g, 3)
+    assert table.dtype == torch.int32 and table.shape == (3, 1 + ct.n_blocks)
+    assert table.device == g.device
+    for r, order in tr.schedule_pairs(table):
         assert 0 <= r < 1000 and sorted(order) == list(range(20))
+    rs = torch.randint(0, ct.Np, (3,), generator=h)
+    orders = [torch.randperm(ct.n_blocks, generator=h) for _ in range(3)]
+    assert tr.schedule_pairs(table) == [(int(r), o.tolist()) for r, o in zip(rs, orders)]
+    assert torch.equal(g.get_state(), h.get_state())
 
 
 def _cell_setup(N, mic):
@@ -248,9 +262,10 @@ def test_written_rounds_match_jax_engine(route, mic):
     for _ in range(3):
         # the schedules JAX's cluster draws from the state key
         _, sub = jax.random.split(sj.key)
-        sched = [schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)]
-        if route == "two_phase":
-            sched = tr.schedule_table(sched)  # the tile route takes the table
+        # every rotate route takes the schedule table: in tiles on the tile
+        # route, in cells on the cell route
+        sched = tr.schedule_table(
+            [schedule(ct, k) for k in jax.random.split(sub, cj.max_iter_cluster)])
         sj = correct_j(cluster_j(sj))
         st = tengine.correct(ct, tengine.cluster(ct, st, schedules=sched),
                              tengine.MStepLayout(tiled_t))

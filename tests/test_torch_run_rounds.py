@@ -25,10 +25,18 @@
   virtual tile, tiles) is the host path's, for every position; the K7
   twin fed a table row equals it fed the row of the pairs.
 * ``HarmonyConfig.graph_route``, a property of the route: true on one
-  device with the kernels on every route but the cell-granular round (the
-  carry route under any budget, the two-phase route, the fused permute
-  phase and the per-round permute route), false on a mesh, on the cell
-  route and without the kernels.
+  device with the kernels on every route (the carry route under any
+  budget, the two-phase route, the cell-granular round, the fused permute
+  phase and the per-round permute route), false on a mesh and without the
+  kernels.
+* The cell-granular rotate round (below ``n_blocks * 128`` cells, run_harmony's
+  ingest order and dense M-step): ``run_rounds`` equals
+  ``driver.harmonize``'s host loop bit for bit with ``max_iter_cluster=7``,
+  a window test stopping a phase, and ``harmonize`` takes it; its rounds
+  (the schedule table's draws, the phase layout, the rounds, a 2-byte
+  engine's float32 copies and cast back, the window tests and the rounds
+  they guard) run with ``Tensor.item``, ``tolist``, ``__int__``,
+  ``__index__`` and ``__bool__`` raising: no round reads the host.
 * A checkpoint written after a run_rounds chunk equals one written after
   the host loop's iterations.
 """
@@ -261,7 +269,96 @@ def test_k7_twin_reads_the_table_row():
             assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
+def _cell_run_setup(mic=7, N=2000, d=8, B=3, K=8, seed=5, dtype="float32"):
+    """run_harmony's steps up to init_cluster on the CPU on the cell-granular
+    rotate round: the config (``max_iter_cluster=mic``), its ingest order
+    (a plain permutation), the dense M-step's layout (the K4/K5 cell index)
+    and the initialised state."""
+    rng = np.random.default_rng(seed)
+    batches = rng.integers(0, B, N)
+    Z = ((rng.normal(size=(B, d)) * 0.8)[batches] + rng.normal(size=(N, d))).astype(np.float32)
+    design = tpre.build_design({"dataset": batches}, ["dataset"])
+    opts = tconfig.harmony_options(max_iter_cluster=mic)
+    cfg = tconfig.finalize_engine_config(tpre.resolve_config(
+        n_cells=N, d=d, design=design, nclust=K, max_iter=MAX_ITER, early_stop=True,
+        options=opts, verbose=False, lambda_estimation=True, ridge_solver="auto",
+        shuffle_mode="rotate", dtype=dtype))
+    perm, _ = tapi.ingest_perm(cfg, design, seed)
+    _, design, _ = tapi.apply_ingest_order(design, perm)
+    layout = tengine.mstep_layout(cfg, design.codes, "cpu")
+    hp = tpre.expand_hyperparams(design, cfg.K, None, 0.1, None, opts.tau)
+    Zt = tpre.orient_embedding(Z, N)[:, perm]
+
+    def state():
+        st = tstate.init_state(cfg, Zt, design, hp.sigma, hp.theta, hp.lamb, seed, "cpu")
+        return tengine.init_cluster(cfg, st)
+
+    return cfg, layout, state
+
+
+def test_cell_route_run_rounds_equals_the_host_loop(monkeypatch):
+    cfg, layout, state = _cell_run_setup()
+    assert cfg.rotate_route == "cell" and cfg.graph_route and cfg.max_iter_cluster == 7
+    assert layout.tiled is None and layout.segments is None and layout.cells is not None
+    host = tdriver.harmonize(cfg, state(), layout=layout, verbose=True)  # the host loop
+    fused = tengine.run_rounds(cfg, state(), MAX_ITER, layout)
+    rounds = host.kmeans_rounds[:host.n_rounds]
+    assert (rounds < cfg.max_iter_cluster).any()  # a window test stopped a phase
+    assert host.n_rounds >= 2
+    _same(fused, host)
+    calls = []
+    real = tengine.run_rounds
+    monkeypatch.setattr(tengine, "run_rounds",
+                        lambda *a, **k: calls.append(a[2]) or real(*a, **k))
+    _same(tdriver.harmonize(cfg, state(), layout=layout), host)
+    assert calls == [MAX_ITER]
+
+
+def test_the_m_step_keeps_the_centroids_row_major():
+    """The M-step's centroids keep the row-major layout of the graph route's
+    static copies, so a product with Y reads the same operand layout in the
+    host loop as in a captured iteration (a transposed Y made cuBLAS take
+    another kernel in the host loop than in the capture on the card)."""
+    cfg, layout, state = _cell_run_setup()
+    st = tengine.harmony_round(cfg, state(), layout=layout)
+    assert st.Y.is_contiguous()
+    assert tengine.harmony_round(cfg, st, layout=layout).Y.is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cell_rounds_make_no_host_read(monkeypatch, dtype):
+    """A clustering phase of the cell-granular round on a state with a device
+    cursor (run_rounds' state), every round run: the guarded rounds' bodies
+    run as a capture records them, unconditionally. Nothing may read a
+    tensor to the host."""
+    from harmony_tpu_torch import graphs
+
+    cfg, _, state = _cell_run_setup(dtype=dtype)
+    st = state()
+    st = dataclasses.replace(st, cursor=tengine._cursor_of(st))
+    n_k = st.n_kmeans
+
+    def refuse(*a, **k):
+        raise AssertionError("a cell-granular round read a tensor to the host")
+
+    with monkeypatch.context() as m:
+        m.setattr(graphs, "guarded", lambda flag, body: body())
+        for name in ("item", "tolist", "__int__", "__index__", "__bool__"):
+            m.setattr(torch.Tensor, name, refuse)
+        out = tengine._cluster_rotate_written(cfg, st)
+    assert out.cursor[0] == n_k + cfg.max_iter_cluster and out.R.dtype == st.R.dtype
+    assert torch.isfinite(out.R.float()).all()
+    np.testing.assert_allclose(out.R[:, :cfg.N].float().sum(0).numpy(), 1.0, atol=1e-2)
+    with pytest.raises(AssertionError, match="read a tensor"):
+        with monkeypatch.context() as m:
+            m.setattr(torch.Tensor, "tolist", refuse)
+            out.R.tolist()
+
+
 @pytest.mark.parametrize("route,change,want", [
+    ("cell", {}, True),
+    ("cell", {"n_shards": 2}, False),
+    ("cell", {"estep_impl": "torch"}, False),
     ("rotate", {}, True),
     ("permute_fused", {}, True),
     ("rotate", {"n_shards": 2}, False),
@@ -273,7 +370,7 @@ def test_k7_twin_reads_the_table_row():
     ("permute_fused", {"permute_fused": False}, True),
 ])
 def test_graph_route(route, change, want):
-    cfg, _, _ = _run_setup(route)
+    cfg = _cell_run_setup()[0] if route == "cell" else _run_setup(route)[0]
     assert dataclasses.replace(cfg, **change).graph_route is want
 
 
@@ -283,7 +380,7 @@ def test_graph_route_of_a_per_round_permute_config():
     assert not cfg.permute_fused and cfg.graph_route
     cell = tconfig.finalize_engine_config(tconfig.HarmonyConfig(
         N=1000, d=4, K=8, B=3, B_vec=(3,), shuffle_mode="rotate"))
-    assert cell.rotate_route == "cell" and not cell.graph_route
+    assert cell.rotate_route == "cell" and cell.graph_route
 
 
 def test_checkpoint_after_a_chunk_equals_the_host_loop(tmp_path):
