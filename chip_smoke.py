@@ -108,6 +108,14 @@ Phases (``--phases`` picks a subset, comma-separated):
              loop's launch counts; a cached call runs no iteration eagerly
              and reads the host once; its times, launch calls, idle share
              and peak in $CHIP_SMOKE_OUT/graph.json.
+11c. stamps  (in the graph phase's rotate-500k cell, or alone without
+             it) the captured iteration's device stamps on the rotate-500k
+             graph route, one cached run_rounds call under torch.profiler
+             (check_stamps): each iteration's stamped cluster + correct
+             against its kernels' interval in the profiler's trace, the
+             stamps monotone, K9's launches counted in the replays against
+             the trace's, and the global timer's granularity;
+             $CHIP_SMOKE_OUT/stamps.json.
 12. segment  run_harmony on 200,000 x 50 cells in 40 batches (seed 7,
              shuffle_mode left at its default, so rotate): no batch-tiled
              layout exists at this N and B, so the M-step takes the
@@ -230,8 +238,8 @@ import time
 import types
 
 PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
-          "graph", "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16", "f16", "host",
-          "mesh", "harness")
+          "graph", "stamps", "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16",
+          "f16", "host", "mesh", "harness")
 # phases run only when named in --phases: the bf16 engine at BASELINE's
 # shape, on one card and on the mesh
 OPT_IN_PHASES = ("bf16_10m", "mesh_bf16_10m")
@@ -2952,6 +2960,8 @@ def check_graph(torch, dev, wrappers):
             f"peak {a_peak:.1f} MiB eager, {b_peak_first:.1f} MiB graph's first run, "
             f"{b_peak:.1f} MiB cached")
         out[cell] = b_launches
+        if cell == "rotate-500k":
+            check_stamps(torch, dev, wrappers, (cfg, layout, s0))
         del s0, sa, sb, sr, st, a_state, ref, b, b2, c
         engine.clear_graphs()
         torch.cuda.empty_cache()
@@ -2963,6 +2973,97 @@ def check_graph(torch, dev, wrappers):
         require(early, "graph: no phase of the early-stop cells stopped before "
                 "max_iter_cluster rounds")
     return out
+
+
+def check_stamps(torch, dev, wrappers, setup=None):
+    """The captured iteration's device stamps (engine.harmony_round: before
+    cluster, between cluster and correct, after correct; stamp_kernel of
+    csrc/graph.cu) on the rotate-500k graph route, in one cached
+    run_rounds call under torch.profiler (``setup``: the graph phase's
+    (cfg, layout, initial state) of the cell, its capture cached; None:
+    made here): for each iteration run, the
+    stamped cluster + correct against the device interval from the
+    iteration's first to its last operation in the profiler's trace
+    (within 2% or 20 us); the stamps monotone within each replay and from
+    one to the next; K9's launches as graphs.count counted them in the
+    replays (one an iteration) against the trace's instances; and the
+    global timer's granularity, the greatest common divisor of the
+    differences of 2,000 back-to-back stamps."""
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from harmony_tpu_torch import engine, graphs
+
+    t_start = time.perf_counter()
+    if setup is None:
+        Zh, meta = graph_data(torch, dev, _MAIN_DATA)
+        setup = graph_setup(torch, dev, Zh, meta, "rotate", {})
+    cfg, layout, s0 = setup
+    engine.run_rounds(cfg, fork(torch, s0), MAX_ITER, layout)  # captured, or cached
+    entry = next(reversed(engine._graphs.values()))
+    st, k9 = fork(torch, s0), wrappers["K9"]
+    before = k9.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = engine.run_rounds(cfg, st, MAX_ITER, layout)
+        torch.cuda.synchronize()
+    n_run = out.n_harmony - s0.n_harmony
+    stamps = entry.stamps[: 3 * n_run].tolist()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    ops = sorted(((e.get("name", ""), float(e["ts"]), float(e["dur"])) for e in events
+                  if e.get("ph") == "X" and "dur" in e
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                 key=lambda x: x[1])
+    marks = [o for o in ops if "stamp_kernel" in o[0]]
+    require(len(marks) == 3 * n_run, f"stamps: the trace holds {len(marks)} stamp kernels "
+            f"for {n_run} iterations")
+    k9_traced = sum("tiled_correction_kernel" in o[0] for o in ops)
+    k9_counted = k9.launches - before
+    require(k9_counted == k9_traced == n_run,
+            f"stamps: K9 counted {k9_counted} in the replays, the trace {k9_traced}, "
+            f"for {n_run} iterations")
+    rows = []
+    for i in range(n_run):
+        s = stamps[3 * i:3 * i + 3]
+        require(s[0] <= s[1] <= s[2] and (i == 0 or stamps[3 * i - 1] <= s[0]),
+                f"stamps: iteration {i}'s stamps are not monotone: {s}")
+        a, c = marks[3 * i], marks[3 * i + 2]
+        inner = [o for o in ops if o[1] >= a[1] + a[2] and o[1] + o[2] <= c[1]
+                 and "stamp_kernel" not in o[0]]
+        traced_us = max(o[1] + o[2] for o in inner) - min(o[1] for o in inner)
+        stamped_us = (s[2] - s[0]) * 1e-3
+        rows.append({"cluster_us": (s[1] - s[0]) * 1e-3, "correct_us": (s[2] - s[1]) * 1e-3,
+                     "stamped_us": stamped_us, "traced_us": traced_us,
+                     "operations": len(inner)})
+        require(abs(stamped_us - traced_us) <= max(0.02 * traced_us, 20.0),
+                f"stamps: iteration {i} stamped {stamped_us:.1f} us, traced {traced_us:.1f} us")
+    buf = torch.zeros(2000, dtype=torch.int64, device=dev)
+    for i in range(buf.numel()):
+        graphs.stamp(buf, i)
+    steps = np.diff(np.asarray(buf.tolist(), dtype=np.int64))
+    require((steps >= 0).all(), "stamps: back-to-back stamps went back in time")
+    grain = int(np.gcd.reduce(steps[steps > 0])) if (steps > 0).any() else 0
+    report = {"iterations": rows, "global_timer_gcd_ns": grain,
+              "back_to_back_ns_min_median": [int(steps.min()), float(np.median(steps))],
+              "k9_launches_counted": k9_counted, "k9_launches_traced": k9_traced,
+              "seconds": time.perf_counter() - t_start}
+    with open(os.path.join(OUT_DIR, "stamps.json"), "w") as fh:
+        json.dump(report, fh, indent=1)
+    log(f"stamps (rotate-500k, {n_run} iterations): stamped cluster + correct against the "
+        f"trace's interval, us: " + ", ".join(f"{r['stamped_us']:.1f}/{r['traced_us']:.1f}"
+                                            for r in rows)
+        + f"; cluster us {[round(r['cluster_us'], 1) for r in rows]}, correct us "
+        f"{[round(r['correct_us'], 1) for r in rows]}; K9 {k9_counted} counted, {k9_traced} "
+        f"traced; global timer steps a multiple of {grain} ns (back to back min "
+        f"{int(steps.min())} ns, median {float(np.median(steps)):.0f} ns); "
+        f"{report['seconds']:.1f} s")
+    del s0, st, out
 
 
 def check_bf16_routes(torch, dev, wrappers):
@@ -4009,6 +4110,10 @@ def main(argv=None) -> int:
                 require(launches[k] > 0, f"{k} was not launched on the {phase} path")
             for k in never:
                 require(launches[k] == 0, f"{k} was launched on the {phase} path")
+
+    if "stamps" in phases and "graph" not in phases:  # the graph phase checks them too
+        check_stamps(torch, dev, wrappers)
+        _engine.clear_graphs()
 
     if "bf16" in phases:
         _engine.clear_graphs()

@@ -52,7 +52,7 @@
 //       the k-means error and the entropy go to the CTA's partials row in
 //       warp order. A negative code (K12's pad cells) picks no penalty:
 //       the cell's R is 0.
-//   (b) commit_kernel, one CTA per cluster row, reduces the partials in a
+//   (b) round_commit_kernel, one CTA per cluster row, reduces the partials in a
 //       fixed order (so repeated runs give the same trajectory), adds the
 //       block's new contribution to E/O, removes the next block's old
 //       contribution (a fixed-order sum of its rows of the table of old
@@ -543,7 +543,7 @@ __device__ void fold_rows(const float* __restrict__ tab, int row0, int nrows,
 // Tc) partial rows, and remove the block at pos + 1, if any: its tiles'
 // split rows each from (v0 * split) on.
 template <bool kSched>
-__global__ void __launch_bounds__(kThreads) commit_kernel(
+__global__ void __launch_bounds__(kThreads) round_commit_kernel(
     const float* __restrict__ part, int ncta, float* __restrict__ E,
     float* __restrict__ O, const float* __restrict__ old, int old0, int nold,
     int wrap, const float* __restrict__ Pr, const float* __restrict__ theta,
@@ -666,10 +666,10 @@ int k1_commit(const void* part, int ncta, void* E, void* O, const void* old,
               void* pen, void* acc, int K, int B, int add, void* stream) {
   const int smem_bytes = (kSlices + 2) * (B + 3) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(commit_kernel<false>), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      reinterpret_cast<const void*>(round_commit_kernel<false>), cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  commit_kernel<false><<<K, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  round_commit_kernel<false><<<K, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), ncta, static_cast<float*>(E),
       static_cast<float*>(O), static_cast<const float*>(old), old0, nold, wrap,
       static_cast<const float*>(Pr), static_cast<const float*>(theta),
@@ -687,10 +687,10 @@ int k12_commit(const void* part, void* E, void* O, const void* old, const void* 
                void* stream) {
   const int smem_bytes = (kSlices + 2) * (B + 3) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(commit_kernel<true>), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      reinterpret_cast<const void*>(round_commit_kernel<true>), cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  commit_kernel<true><<<K, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  round_commit_kernel<true><<<K, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), 0, static_cast<float*>(E), static_cast<float*>(O),
       static_cast<const float*>(old), 0, 0, NT * split, static_cast<const float*>(Pr),
       static_cast<const float*>(theta), static_cast<float*>(pen), static_cast<float*>(acc),

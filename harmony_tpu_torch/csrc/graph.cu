@@ -33,6 +33,12 @@
 // Conditional nodes need CUDA 12.4 or later (IF nodes with child graphs in
 // their bodies). The set kernels are one thread each: bound by launch
 // latency, about a microsecond each a replay.
+//
+// graph_stamp launches stamp_kernel, one thread that writes the global
+// timer (%globaltimer, nanoseconds) into a slot of an int64 buffer: the
+// device-clock ends of the program's timed spans (runtime.PhaseTimers), and
+// inside the captured iteration three stamps an iteration in slots picked
+// by the iteration counter ctl[0] as the stamp runs.
 
 #include <cuda_runtime.h>
 
@@ -45,6 +51,14 @@ __global__ void set_if_kernel(cudaGraphConditionalHandle handle, const long long
                               const int* flag) {
   const bool run = ctl[2] == 0 && ctl[0] < ctl[1] && (flag == nullptr || *flag != 0);
   cudaGraphSetConditional(handle, run ? 1u : 0u);
+}
+
+// buf[offset + stride * index[0]] (index null: buf[offset]) = the global timer
+__global__ void stamp_kernel(long long* buf, const long long* index, long long stride,
+                             long long offset) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  buf[offset + (index == nullptr ? 0 : stride * index[0])] = static_cast<long long>(t);
 }
 
 constexpr int kBadMarkers = -1;  // the markers do not form begin/end pairs in order
@@ -203,6 +217,15 @@ int graph_wrap_regions(void* graph, const void* ctl, int n_regions, void* const*
   for (cudaGraph_t b : bodies)
     if (b) cudaGraphDestroy(b);  // each child node holds its own copy
   return static_cast<int>(err);
+}
+
+// One stamp_kernel on `stream`: the global timer into
+// buf[offset + stride * index[0]] (`index` may be null: buf[offset]).
+int graph_stamp(void* buf, const void* index, long long stride, long long offset,
+                void* stream) {
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(buf), static_cast<const long long*>(index), stride, offset);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The CUDA runtime's version, for the wrapper's check (12040: 12.4).

@@ -25,7 +25,7 @@ import torch
 
 from . import engine, sharding
 from .config import HarmonyConfig
-from .runtime import DivergenceError, span
+from .runtime import DivergenceError, span, timing
 from .state import HarmonyState
 
 logger = logging.getLogger("harmony_tpu_torch")
@@ -42,19 +42,15 @@ def _ensure_verbose_handler():
 
 
 def _check_finite(state: HarmonyState) -> None:
-    """Fail loudly on a diverged objective trace."""
+    """Fail loudly on a diverged objective trace (the span ``check_finite``)."""
     n = state.n_harmony
     if n < 1:
         return
-    obj = state.objective_harmony[:n].cpu().numpy().astype(np.float64)
-    if not np.isfinite(obj).all():
-        bad = int(np.argmax(~np.isfinite(obj)))
-        raise DivergenceError(bad, obj[max(0, bad - 2): bad + 1].tolist())
-
-
-def _scope(timers, name: str):
-    """The timer scope ``name``, or without timers its profiler span."""
-    return span(name) if timers is None else timers.scope(name)
+    with span("check_finite"):
+        obj = state.objective_harmony[:n].cpu().numpy().astype(np.float64)
+        if not np.isfinite(obj).all():
+            bad = int(np.argmax(~np.isfinite(obj)))
+            raise DivergenceError(bad, obj[max(0, bad - 2): bad + 1].tolist())
 
 
 def _aborted(abort, mesh) -> bool:
@@ -100,10 +96,15 @@ def harmonize(
     ``engine.run_rounds``: one call of ``max_iter`` iterations without
     ``abort``; with it, calls of ``abort_poll_rounds`` iterations, the flag
     polled before each, the objective trace checked after each and the
-    convergence read between them (harmony_tpu/driver.py:122-155). With
-    ``timers`` the iterations are one ``run_rounds`` scope (no ``cluster``
-    or ``correct`` scopes: the JAX package's fused path has one aggregate
-    scope too).
+    convergence read between them (harmony_tpu/driver.py:122-155).
+
+    ``timers`` (a ``runtime.PhaseTimers``) is made the active timers while
+    the call runs, so every span below it records into them. The host
+    loop's iterations are the scopes ``cluster`` and ``correct``; on the
+    one-dispatch path they are one ``run_rounds`` scope (as the JAX
+    package's fused path has one aggregate scope), inside which the
+    captured iteration's stamps give ``cluster`` and ``correct`` their
+    calls and device seconds (``engine.run_rounds``).
 
     ``checkpoint_path`` writes a minimal checkpoint (``checkpoint.py``, with
     ``checkpoint_meta`` as its provenance) every ``checkpoint_every``
@@ -129,18 +130,27 @@ def harmonize(
     if verbose:
         _ensure_verbose_handler()
     layout = layout or engine.MStepLayout()
-    if (perms is None and schedules is None and checkpoint_path is None and not verbose
-            and cfg.graph_route and mesh is None):
-        return _one_dispatch(cfg, state, max_iter, abort, abort_poll_rounds, timers, layout)
+    with timing(timers):
+        if (perms is None and schedules is None and checkpoint_path is None and not verbose
+                and cfg.graph_route and mesh is None):
+            return _one_dispatch(cfg, state, max_iter, abort, abort_poll_rounds, layout)
+        return _host_loop(cfg, state, max_iter, verbose, perms, abort, schedules, layout,
+                          checkpoint_path, checkpoint_every, checkpoint_meta, mesh)
+
+
+def _host_loop(cfg: HarmonyConfig, state: HarmonyState, max_iter: int, verbose: bool, perms,
+               abort, schedules, layout, checkpoint_path, checkpoint_every, checkpoint_meta,
+               mesh) -> HarmonyState:
+    """harmonize's host loop: one read of the convergence flag a round."""
     for it in range(max_iter):
         if _aborted(abort, mesh):
             raise KeyboardInterrupt("harmony run aborted by user")
         t0 = time.perf_counter()
-        with _scope(timers, "cluster"):
+        with span("cluster", sync=True):
             state = engine.cluster(cfg, state, None if perms is None else perms[it],
                                    None if schedules is None else schedules[it], layout.tiled,
                                    mesh)
-        with _scope(timers, "correct"):
+        with span("correct", sync=True):
             state = engine.correct(cfg, state, layout, mesh)
         converged = engine.harmony_converged(cfg, state)
         dt = time.perf_counter() - t0
@@ -148,7 +158,7 @@ def harmonize(
         if checkpoint_path and (it + 1) % checkpoint_every == 0:
             from .checkpoint import save_checkpoint
 
-            with _scope(timers, "checkpoint"):
+            with span("checkpoint", sync=True):
                 save_checkpoint(checkpoint_path, cfg, state, mode="minimal",
                                 meta=checkpoint_meta, mesh=mesh)
         if verbose:
@@ -161,20 +171,20 @@ def harmonize(
             if verbose:
                 logger.info("Harmony converged after %d iterations", it + 1)
             break
-    with _scope(timers, "materialize_r"):
+    with span("materialize_r", sync=True):
         state = engine.materialize_r(cfg, state, mesh)
     return state
 
 
 def _one_dispatch(cfg: HarmonyConfig, state: HarmonyState, max_iter: int, abort,
-                  abort_poll_rounds: int, timers, layout) -> HarmonyState:
+                  abort_poll_rounds: int, layout) -> HarmonyState:
     """harmonize through ``engine.run_rounds`` (harmony_tpu/driver.py:
     122-155): one call, or chunks of ``abort_poll_rounds`` iterations with
     the abort flag polled before each."""
     if max_iter < 1:
         return state
     if abort is None:
-        with _scope(timers, "run_rounds"):
+        with span("run_rounds", sync=True):
             state = engine.run_rounds(cfg, state, max_iter, layout)
     else:
         done = 0
@@ -182,13 +192,13 @@ def _one_dispatch(cfg: HarmonyConfig, state: HarmonyState, max_iter: int, abort,
             if abort.aborted():
                 raise KeyboardInterrupt("harmony run aborted by user")
             k = min(max(abort_poll_rounds, 1), max_iter - done)
-            with _scope(timers, "run_rounds"):
+            with span("run_rounds", sync=True):
                 state = engine.run_rounds(cfg, state, k, layout)
             done += k
             _check_finite(state)
             if done < max_iter and engine.harmony_converged(cfg, state):
                 break
-    with _scope(timers, "materialize_r"):
+    with span("materialize_r", sync=True):
         state = engine.materialize_r(cfg, state)
     _check_finite(state)
     return state
@@ -209,13 +219,15 @@ def run(
     checkpoint_meta: Optional[dict] = None,
     mesh=None,
 ) -> HarmonyState:
-    """init_cluster (or the injected centroids ``Y0``) + harmonize."""
-    with _scope(timers, "init_cluster"):
-        if Y0 is not None:
-            state = engine.init_cluster_from(cfg, state, Y0, mesh)
-        else:
-            state = engine.init_cluster(cfg, state, mesh=mesh)
-    return harmonize(cfg, state, verbose=verbose, perms=perms, abort=abort,
-                     timers=timers, schedules=schedules, layout=layout,
-                     checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
-                     checkpoint_meta=checkpoint_meta, mesh=mesh)
+    """init_cluster (or the injected centroids ``Y0``) + harmonize, with
+    ``timers`` the active timers (harmonize's docstring)."""
+    with timing(timers):
+        with span("init_cluster", sync=True):
+            if Y0 is not None:
+                state = engine.init_cluster_from(cfg, state, Y0, mesh)
+            else:
+                state = engine.init_cluster(cfg, state, mesh=mesh)
+        return harmonize(cfg, state, verbose=verbose, perms=perms, abort=abort,
+                         timers=timers, schedules=schedules, layout=layout,
+                         checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+                         checkpoint_meta=checkpoint_meta, mesh=mesh)

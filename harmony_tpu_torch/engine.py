@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from collections import OrderedDict
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -51,6 +52,7 @@ from .ops.objective import xlogx
 from .ops.ridge import full_tile_joint
 from .ops.segments import CovariateSegments, build_segments
 from .ops.tiled import TiledCells, detect_tiled_layout
+from .runtime import PhaseTimers, active_timers, span
 from .state import HarmonyState
 
 
@@ -167,11 +169,12 @@ def init_cluster(cfg: HarmonyConfig, state: HarmonyState, init_idx=None,
         init_idx=init_idx, uniforms=uniforms,
     )
     del Z
-    Y = l2_normalize_columns(Y)
-    if mesh is not None:
-        Y = sharding.broadcast(Y.contiguous(), mesh)
-    state = dataclasses.replace(state, Y=Y)
-    return _init_common(cfg, state, mesh)
+    with span("init_assign"):
+        Y = l2_normalize_columns(Y)
+        if mesh is not None:
+            Y = sharding.broadcast(Y.contiguous(), mesh)
+        state = dataclasses.replace(state, Y=Y)
+        return _init_common(cfg, state, mesh)
 
 
 def init_cluster_from(cfg: HarmonyConfig, state: HarmonyState, Y0, mesh=None) -> HarmonyState:
@@ -630,12 +633,19 @@ def correct(cfg: HarmonyConfig, state: HarmonyState,
 
 def harmony_round(cfg: HarmonyConfig, state: HarmonyState, perms=None,
                   schedules=None, layout: Optional[MStepLayout] = None,
-                  mesh=None) -> HarmonyState:
+                  mesh=None, stamp=None) -> HarmonyState:
     """One Harmony round: cluster then correct (R/utils.R:26,35), on the
-    run's M-step ``layout`` (None: dense)."""
+    run's M-step ``layout`` (None: dense). ``stamp``, where given, is
+    called with 0 before ``cluster``, 1 between it and ``correct`` and 2
+    after ``correct`` (:func:`_stamp`)."""
     layout = layout or MStepLayout()
-    return correct(cfg, cluster(cfg, state, perms, schedules, layout.tiled, mesh), layout,
-                   mesh)
+    stamp = stamp or (lambda k: None)
+    stamp(0)
+    state = cluster(cfg, state, perms, schedules, layout.tiled, mesh)
+    stamp(1)
+    state = correct(cfg, state, layout, mesh)
+    stamp(2)
+    return state
 
 
 def materialize_r(cfg: HarmonyConfig, state: HarmonyState, mesh=None) -> HarmonyState:
@@ -739,17 +749,47 @@ GRAPH_CACHE_SIZE = 2
 _graphs: "OrderedDict[tuple, _GraphEntry]" = OrderedDict()
 
 
+def _stamp(stamps: torch.Tensor, ctl: torch.Tensor, k: int) -> None:
+    """Stamp ``k`` (0: before ``cluster``, 1: between it and ``correct``, 2:
+    after ``correct``) of the iteration ``ctl[0]`` into
+    ``stamps[3 * ctl[0] + k]``: the card's global timer, the slot picked
+    on the device (``graphs.stamp``); on the CPU the host's clock."""
+    if stamps.device.type == "cuda":
+        graphs.stamp(stamps, k, ctl[0:1], 3)
+    else:
+        stamps[3 * int(ctl[0]) + k] = time.perf_counter_ns()
+
+
+def _stamp_buffer(cfg: HarmonyConfig, device) -> torch.Tensor:
+    """The iteration stamps of one run_rounds call: three an iteration."""
+    return torch.zeros(3 * cfg.harmony_trace_capacity, dtype=torch.int64, device=device)
+
+
+def _record_iterations(timers: PhaseTimers, stamps, n_run: int, device: bool) -> None:
+    """``cluster`` and ``correct`` of the ``n_run`` iterations run, from
+    their stamps (nanoseconds, three an iteration), into ``timers``: device
+    seconds on the card, host seconds on the CPU."""
+    e = sum(stamps[3 * i + 1] - stamps[3 * i] for i in range(n_run)) * 1e-9
+    m = sum(stamps[3 * i + 2] - stamps[3 * i + 1] for i in range(n_run)) * 1e-9
+    for name, sec in (("cluster", e), ("correct", m)):
+        timers.add(name, calls=n_run, **{"device_s" if device else "host_s": sec})
+
+
 def _iteration(cfg: HarmonyConfig, state: HarmonyState, layout: MStepLayout,
-               ctl: torch.Tensor, draws: Optional[torch.Tensor] = None) -> HarmonyState:
+               ctl: torch.Tensor, draws: Optional[torch.Tensor] = None,
+               stamps: Optional[torch.Tensor] = None) -> HarmonyState:
     """One iteration of :func:`run_rounds`' loop, the body of the JAX
     package's ``while_loop``: a Harmony round with the traces at the
     state's device cursor, then the loop's control words advance on the
     device: ctl[0] (iterations run) by one, ctl[2] to the convergence test.
     ``draws`` (one row an iteration) injects the iteration's schedule table
-    or permutations, the row picked by ctl[0] on the device."""
+    or permutations, the row picked by ctl[0] on the device. ``stamps``
+    takes the iteration's three stamps (:func:`_stamp`), outside every
+    guarded region, so a replay that runs the iteration runs all three."""
     d = None if draws is None else draws.index_select(0, ctl[0:1]).squeeze(0)
     kw = {"schedules": d} if cfg.shuffle_mode == "rotate" else {"perms": d}
-    state = harmony_round(cfg, state, layout=layout, **kw)
+    stamp = None if stamps is None else functools.partial(_stamp, stamps, ctl)
+    state = harmony_round(cfg, state, layout=layout, stamp=stamp, **kw)
     ctl[0:1].add_(1)
     ctl[2:3].copy_(harmony_converged_t(cfg, state).reshape(1))
     return state
@@ -781,11 +821,16 @@ def _eager_rounds(cfg: HarmonyConfig, state: HarmonyState, n_max: int, layout: M
     # caller's state keeps its own
     state = dataclasses.replace(state, cursor=_cursor_of(state), **{
         f: getattr(state, f).clone() for f in _CARRY if getattr(state, f) is not None})
+    timers = active_timers()
+    stamps = None if timers is None else _stamp_buffer(cfg, state.device)
     for _ in range(n_max):
         if not bool((ctl[2] == 0) & (ctl[0] < ctl[1])):
             break
-        state = _iteration(cfg, state, layout, ctl, draws)
-    nk, nh, nr = state.cursor.tolist()
+        state = _iteration(cfg, state, layout, ctl, draws, stamps)
+    n_run, nk, nh, nr, *ts = torch.cat(
+        [ctl[:1], state.cursor] + ([] if stamps is None else [stamps])).tolist()
+    if timers is not None:
+        _record_iterations(timers, ts, n_run, state.device.type == "cuda")
     return dataclasses.replace(state, cursor=None, n_kmeans=nk, n_harmony=nh, n_rounds=nr)
 
 
@@ -794,12 +839,14 @@ class _GraphEntry:
     """A captured iteration and its static buffers: ``state`` holds every
     tensor the iteration reads or writes (its generator the one registered
     with the graph), ``ctl`` the loop's control words, ``draws`` the
-    injected draws; ``layout`` is kept for the device tensors it holds."""
+    injected draws, ``stamps`` the iterations' stamps (:func:`_stamp`);
+    ``layout`` is kept for the device tensors it holds."""
 
     state: HarmonyState
     ctl: torch.Tensor
     draws: Optional[torch.Tensor]
     layout: MStepLayout
+    stamps: torch.Tensor
     graph: Optional[graphs.IterationGraph] = None
 
 
@@ -847,8 +894,12 @@ def _graph_rounds(cfg: HarmonyConfig, state: HarmonyState, n_max: int, layout: M
                   draws: Optional[torch.Tensor]) -> HarmonyState:
     """run_rounds on the card: the cached capture (made here on a miss,
     after one eager iteration, its warm-up), ``n_max`` replays less the
-    eager one, one read (run_rounds' docstring)."""
+    eager one, one read (run_rounds' docstring). Its stretches are the
+    spans ``graph_refresh``, ``graph_capture`` (a miss only),
+    ``graph_replays`` and ``graph_read``; under active timers the read
+    also takes the iterations' stamps."""
     dev = state.device
+    timers = active_timers()
     key = (cfg, str(dev), _layout_key(layout), None if draws is None else tuple(draws.shape))
     entry = _graphs.get(key)
     if entry is None:
@@ -856,58 +907,68 @@ def _graph_rounds(cfg: HarmonyConfig, state: HarmonyState, n_max: int, layout: M
             _graphs.popitem(last=False)
         entry = _GraphEntry(state=_static_state(cfg, state),
                             ctl=torch.zeros(3, dtype=torch.int64, device=dev),
-                            draws=None if draws is None else draws.clone(), layout=layout)
+                            draws=None if draws is None else draws.clone(), layout=layout,
+                            stamps=_stamp_buffer(cfg, dev))
         _graphs[key] = entry
     _graphs.move_to_end(key)
     S, ctl = entry.state, entry.ctl
-    # copy in once a run; the read-only inputs too (the graph reads
-    # them where it was captured)
-    for f in _INPUTS + _CARRY + _TRACES:
-        src, dst = getattr(state, f), getattr(S, f)
-        if src is not None and dst is not None and src is not dst:
-            dst.copy_(src)
-    if draws is not None:
-        entry.draws.copy_(draws)
-    for i, v in enumerate((0, n_max, 0)):
-        ctl[i].fill_(v)
-    for i, v in enumerate((state.n_kmeans, state.n_harmony, state.n_rounds)):
-        S.cursor[i].fill_(v)
-    S.n_kmeans, S.n_harmony, S.n_rounds = state.n_kmeans, state.n_harmony, state.n_rounds
-    gen = S.generator
-    gen.set_state(state.generator.get_state())
+    with span("graph_refresh"):
+        # copy in once a run; the read-only inputs too (the graph reads
+        # them where it was captured)
+        for f in _INPUTS + _CARRY + _TRACES:
+            src, dst = getattr(state, f), getattr(S, f)
+            if src is not None and dst is not None and src is not dst:
+                dst.copy_(src)
+        if draws is not None:
+            entry.draws.copy_(draws)
+        for i, v in enumerate((0, n_max, 0)):
+            ctl[i].fill_(v)
+        for i, v in enumerate((state.n_kmeans, state.n_harmony, state.n_rounds)):
+            S.cursor[i].fill_(v)
+        S.n_kmeans, S.n_harmony, S.n_rounds = state.n_kmeans, state.n_harmony, state.n_rounds
+        gen = S.generator
+        gen.set_state(state.generator.get_state())
     eager = 0
     if entry.graph is None:
-        # the capture's warm-up: the call's first iteration, run eagerly
-        out = _iteration(cfg, S, layout, ctl, entry.draws)
-        _carry(S, out)
-        S.n_kmeans, S.n_harmony, S.n_rounds = out.n_kmeans, out.n_harmony, out.n_rounds
-        eager = 1
-        # its regions: at most the re-entry and each round a window test
-        # may skip
-        entry.graph = graphs.IterationGraph(
-            lambda: _carry(S, _iteration(cfg, S, layout, ctl, entry.draws)), ctl, gen,
-            max_regions=1 + cfg.max_iter_cluster)
-        run_rounds.captures += 1
-        run_rounds.capture_s = entry.graph.capture_s
+        with span("graph_capture"):
+            # the capture's warm-up: the call's first iteration, run eagerly
+            out = _iteration(cfg, S, layout, ctl, entry.draws,
+                             None if timers is None else entry.stamps)
+            _carry(S, out)
+            S.n_kmeans, S.n_harmony, S.n_rounds = out.n_kmeans, out.n_harmony, out.n_rounds
+            eager = 1
+            # its regions: at most the re-entry and each round a window
+            # test may skip; its stamps always, so one capture serves runs
+            # with timers and without
+            entry.graph = graphs.IterationGraph(
+                lambda: _carry(S, _iteration(cfg, S, layout, ctl, entry.draws, entry.stamps)),
+                ctl, gen, max_regions=1 + cfg.max_iter_cluster)
+            run_rounds.captures += 1
+            run_rounds.capture_s = entry.graph.capture_s
     run_rounds.eager = eager
-    off0 = graphs.rng_offset(gen)
-    entry.graph.counts.zero_()
-    entry.graph.replay(n_max - eager)
-    # the run's one read: the iterations, the cursors and the launches
-    n_run, nk, nh, nr, *launched = torch.cat(
-        [ctl[:1], S.cursor, entry.graph.counts]).tolist()
-    entry.graph.add_counts(launched)
-    if n_max > eager:
-        # every replay advanced the generator by an iteration's draws,
-        # whether its body ran or not: keep the draws made
-        per = (graphs.rng_offset(gen) - off0) // (n_max - eager)
-        graphs.set_rng_offset(gen, off0 + per * (n_run - eager))
-    state.generator.set_state(gen.get_state())
-    out = dataclasses.replace(
-        state, **{f: getattr(S, f).clone() for f in _CARRY + _TRACES
-                  if getattr(S, f) is not None},
-        n_kmeans=nk, n_harmony=nh, n_rounds=nr, cursor=None)
-    return out
+    with span("graph_replays"):
+        off0 = graphs.rng_offset(gen)
+        entry.graph.counts.zero_()
+        entry.graph.replay(n_max - eager)
+    with span("graph_read"):
+        # the run's one read: the iterations, the cursors, the launches
+        # and, under timers, the stamps
+        counts = entry.graph.counts
+        n_run, nk, nh, nr, *rest = torch.cat(
+            [ctl[:1], S.cursor, counts] + ([] if timers is None else [entry.stamps])).tolist()
+        entry.graph.add_counts(rest[:counts.numel()])
+        if timers is not None:
+            _record_iterations(timers, rest[counts.numel():], n_run, True)
+        if n_max > eager:
+            # every replay advanced the generator by an iteration's draws,
+            # whether its body ran or not: keep the draws made
+            per = (graphs.rng_offset(gen) - off0) // (n_max - eager)
+            graphs.set_rng_offset(gen, off0 + per * (n_run - eager))
+        state.generator.set_state(gen.get_state())
+        return dataclasses.replace(
+            state, **{f: getattr(S, f).clone() for f in _CARRY + _TRACES
+                      if getattr(S, f) is not None},
+            n_kmeans=nk, n_harmony=nh, n_rounds=nr, cursor=None)
 
 
 def run_rounds(cfg: HarmonyConfig, state: HarmonyState, n_max: int,

@@ -28,6 +28,10 @@ This module holds what the capture needs besides the engine:
 * The generator's offset (:func:`rng_offset`): a replay advances the
   registered generator by the iteration's draws whether or not the IF node
   runs the body, and the run puts it back to the draws made.
+* :func:`stamp`, a one-thread kernel that writes the card's global timer
+  into a slot of a buffer, on the stream: ``runtime.PhaseTimers``' spans
+  take two each, and the captured iteration takes three an iteration, in
+  slots picked on the device by the iteration counter.
 
 Conditional nodes need a CUDA runtime of 12.4 or later.
 """
@@ -139,7 +143,23 @@ def guarded(flag: torch.Tensor, body: Callable[[], None]) -> None:
 _PTRS = [_build.PTR] * 3
 _SIGNATURES = {"graph_mark": [_build.PTR, _build.PTR],
                "graph_wrap_regions": [_build.PTR, _build.PTR, _build.INT] + _PTRS,
+               "graph_stamp": [_build.PTR, _build.PTR, _build.I64, _build.I64, _build.PTR],
                "graph_runtime_version": []}
+
+
+def stamp(buf: torch.Tensor, offset: int, index: Optional[torch.Tensor] = None,
+          stride: int = 0) -> None:
+    """Write the card's global timer (nanoseconds, ``%globaltimer``) into
+    ``buf[offset + stride * index[0]]`` (``buf`` int64 on the card;
+    ``index`` an int64 on the card, read when the stamp runs, or None for
+    ``buf[offset]``), on the current stream: a one-thread launch, which a
+    capture records as a node of the graph."""
+    lib = _build.load("graph", _SIGNATURES)
+    # the raw handle: a span takes two stamps, and a Stream object costs
+    # more host time than the launch
+    stream = torch._C._cuda_getCurrentRawStream(buf.device.index)
+    _build.check(lib.graph_stamp(buf.data_ptr(), None if index is None else index.data_ptr(),
+                                 stride, offset, stream), "graph_stamp")
 # graph_wrap_regions' code for markers that are not start/end pairs in order
 _BAD_MARKERS = -1
 

@@ -19,7 +19,6 @@ rest; :func:`state_to_arrays` gathers the JAX package's global arrays and
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import warnings
 from typing import Dict, Optional
@@ -30,7 +29,7 @@ import torch
 from .config import HarmonyConfig, check_float16_batches
 from .ops.normalize import l2_normalize_columns
 from .preprocess import DesignMatrix
-from .runtime import AsyncIngest, engine_cast
+from .runtime import AsyncIngest, engine_cast, span, timing
 
 _F32 = torch.float32
 
@@ -140,10 +139,6 @@ class HarmonyState:
         }
 
 
-def _scope(timers, name: str):
-    return contextlib.nullcontext() if timers is None else timers.scope(name)
-
-
 def _generator(seed: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
@@ -171,63 +166,66 @@ def init_state(
     ``Z`` is the (d, Np) device tensor of :meth:`runtime.AsyncIngest.result`,
     padded and in the engine dtype, or the (d, N) host array in engine
     order, which goes to the device through the same
-    :class:`runtime.AsyncIngest`. ``timers`` (a ``runtime.PhaseTimers``)
-    times the scope ``ingest_normalize``. On a ``mesh`` the state holds
+    :class:`runtime.AsyncIngest`. The call is the span ``init_state``, its
+    normalisation the scope ``ingest_normalize``; ``timers`` (a
+    ``runtime.PhaseTimers``) is made the active timers while it runs. On a
+    ``mesh`` the state holds
     this rank's columns: a device ``Z`` is the rank's (d, Np / size) slice,
     a host ``Z`` the whole (d, N) array, of which only the rank's columns
     are copied; ``design`` is the whole design. A float16 engine with a
     batch past float16's range raises (:func:`config.check_float16_batches`)."""
-    check_float16_batches(cfg.dtype, design.batch_sizes())
-    dev = torch.device(device)
-    dtype = getattr(torch, cfg.dtype)
-    codes = design.codes.astype(np.int32)
-    pad = cfg.Np - cfg.N
-    if pad:
-        codes = np.concatenate([codes, np.zeros((codes.shape[0], pad), np.int32)], axis=1)
-    n_loc = cfg.Np
-    if mesh is not None:
-        from .sharding import shard_cells
+    with timing(timers), span("init_state"):
+        check_float16_batches(cfg.dtype, design.batch_sizes())
+        dev = torch.device(device)
+        dtype = getattr(torch, cfg.dtype)
+        codes = design.codes.astype(np.int32)
+        pad = cfg.Np - cfg.N
+        if pad:
+            codes = np.concatenate([codes, np.zeros((codes.shape[0], pad), np.int32)], axis=1)
+        n_loc = cfg.Np
+        if mesh is not None:
+            from .sharding import shard_cells
 
-        codes = np.ascontiguousarray(shard_cells(codes, cfg, mesh))
-        n_loc = codes.shape[1]
-    if not isinstance(Z, torch.Tensor):
-        Z = AsyncIngest(Z, cfg, dev, mesh=mesh).result()
-    if Z.shape[1] != n_loc or Z.dtype != dtype or Z.device.type != dev.type:
-        raise ValueError(f"a device Z must be ({cfg.d}, {n_loc}) {dtype} on {dev}, got "
-                         f"{tuple(Z.shape)} {Z.dtype} on {Z.device}")
-    Z_orig = Z
-    with _scope(timers, "ingest_normalize"):
-        Z_corr = l2_normalize_columns(Z_orig)
-    batch_sizes = design.batch_sizes().astype(np.float64)
-    Pr_b = batch_sizes / cfg.N
-    t = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(dtype)
-    zf = lambda n: torch.zeros(n, dtype=_F32, device=dev)
-    kcap, hcap = cfg.kmeans_trace_capacity, cfg.harmony_trace_capacity
-    return HarmonyState(
-        Z_orig=Z_orig,
-        Z_corr=Z_corr,
-        Y=torch.zeros((cfg.d, cfg.K), dtype=dtype, device=dev),
-        R=torch.zeros((cfg.K, n_loc), dtype=dtype, device=dev),
-        O=torch.zeros((cfg.K, cfg.B), dtype=dtype, device=dev),
-        E=torch.zeros((cfg.K, cfg.B), dtype=dtype, device=dev),
-        codes=torch.as_tensor(codes, device=dev),
-        Pr_b=t(Pr_b),
-        batch_sizes=t(batch_sizes),
-        sigma=t(sigma),
-        theta=t(theta),
-        lamb=t(lamb),
-        objective_kmeans=zf(kcap),
-        objective_kmeans_dist=zf(kcap),
-        objective_kmeans_entropy=zf(kcap),
-        objective_kmeans_cross=zf(kcap),
-        n_kmeans=0,
-        objective_harmony=zf(hcap),
-        n_harmony=0,
-        kmeans_rounds=torch.zeros(cfg.max_iter_harmony, dtype=torch.int32, device=dev),
-        n_rounds=0,
-        seed=int(seed),
-        generator=_generator(seed, dev),
-    )
+            codes = np.ascontiguousarray(shard_cells(codes, cfg, mesh))
+            n_loc = codes.shape[1]
+        if not isinstance(Z, torch.Tensor):
+            Z = AsyncIngest(Z, cfg, dev, mesh=mesh).result()
+        if Z.shape[1] != n_loc or Z.dtype != dtype or Z.device.type != dev.type:
+            raise ValueError(f"a device Z must be ({cfg.d}, {n_loc}) {dtype} on {dev}, got "
+                             f"{tuple(Z.shape)} {Z.dtype} on {Z.device}")
+        Z_orig = Z
+        with span("ingest_normalize", sync=True):
+            Z_corr = l2_normalize_columns(Z_orig)
+        batch_sizes = design.batch_sizes().astype(np.float64)
+        Pr_b = batch_sizes / cfg.N
+        t = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+        zf = lambda n: torch.zeros(n, dtype=_F32, device=dev)
+        kcap, hcap = cfg.kmeans_trace_capacity, cfg.harmony_trace_capacity
+        return HarmonyState(
+            Z_orig=Z_orig,
+            Z_corr=Z_corr,
+            Y=torch.zeros((cfg.d, cfg.K), dtype=dtype, device=dev),
+            R=torch.zeros((cfg.K, n_loc), dtype=dtype, device=dev),
+            O=torch.zeros((cfg.K, cfg.B), dtype=dtype, device=dev),
+            E=torch.zeros((cfg.K, cfg.B), dtype=dtype, device=dev),
+            codes=torch.as_tensor(codes, device=dev),
+            Pr_b=t(Pr_b),
+            batch_sizes=t(batch_sizes),
+            sigma=t(sigma),
+            theta=t(theta),
+            lamb=t(lamb),
+            objective_kmeans=zf(kcap),
+            objective_kmeans_dist=zf(kcap),
+            objective_kmeans_entropy=zf(kcap),
+            objective_kmeans_cross=zf(kcap),
+            n_kmeans=0,
+            objective_harmony=zf(hcap),
+            n_harmony=0,
+            kmeans_rounds=torch.zeros(cfg.max_iter_harmony, dtype=torch.int32, device=dev),
+            n_rounds=0,
+            seed=int(seed),
+            generator=_generator(seed, dev),
+        )
 
 
 def is_bf16_bits(a: np.ndarray) -> bool:
