@@ -44,6 +44,14 @@ Phases (``--phases`` picks a subset, comma-separated):
              with its head), the device time and achieved bytes a second
              of K2's and K7's cell passes, and the least time the card
              could take. Each main path also prints its peak device memory.
+3b. lloyd    the k-means init's Lloyd round (ops/kmeans.py _lloyd_round,
+             csrc/kmeans.cu) against its plain version on the synthetic
+             cells (unit columns, K = 100 cells as centroids) at 500,000
+             and 10,000,000 x 50: ms a round, launches, the bound, the
+             plain version's ms, the largest gap in Y (LLOYD_GAP); two
+             rounds bit-equal; ten rounds chained as kmeans_centers runs
+             them. Every path below launches LL_RUN Lloyd kernels a k-means
+             init (each rank's on the mesh; none in the graph cells' rounds).
 4. traj      20k-cell runs with injected centroids and randomness, once
              through the kernels and once through the plain path: the
              per-round permute schedule and the fused permute phase
@@ -237,7 +245,7 @@ import sys
 import time
 import types
 
-PHASES = ("env", "build", "kernels", "traj", "permute", "permute_rounds", "main", "virtual",
+PHASES = ("env", "build", "kernels", "lloyd", "traj", "permute", "permute_rounds", "main", "virtual",
           "graph", "stamps", "rotate_rounds", "rotate_two_phase", "legacy", "segment", "bf16",
           "f16", "host", "mesh", "harness")
 # phases run only when named in --phases: the bf16 engine at BASELINE's
@@ -286,6 +294,7 @@ BF16_TC_FLOP_PER_S = 989e12
 # main-path shape: the repo's canonical 500k x 50, K = 100, B = 10
 N_MAIN, D_MAIN, K_MAIN, B_MAIN = 500_000, 50, 100, 10
 MAX_ITER = 10  # run_harmony's default; early stop is on
+LL_RUN = 20  # Lloyd kernel launches a k-means init: 10 rounds of 2
 # the mesh phase's full-width paths: each one's cells (the bench generator,
 # seed 0, K = 100), batches and settings, and what it must resolve to
 # (route, fused permute phase, virtual R, M-step layout); run_bench takes
@@ -1607,6 +1616,55 @@ def check_rotate_v1(torch, dev, N, d, K, B_vec, seed, timed):
         row["bound_ms"], row["bound_by"] = bound(4 * (2 * K * Np + d * Np + ncov * Np),
                                                  2.0 * K * d * Np)
     return row
+
+
+# the largest gap in Y between the Lloyd kernel and its plain round that
+# check_lloyd allows: sound runs read 1.2e-7 at 500k (the sums' order) and
+# 1.1e-5 at 10M (a few cells change cluster between the two fp32 orders);
+# one cell dropped or misassigned moves its cluster's mean by ~5e-5 at 500k
+LLOYD_GAP = {N_MAIN: 1e-5, N_10M: 1e-4}
+
+
+def check_lloyd(torch, dev, N, seed) -> dict:
+    """The Lloyd kernel pair against its plain version on ``N`` x 50
+    synthetic cells with unit columns (Z_corr as init_cluster reads it),
+    K = 100 random cells as the centroids: ms a round and of ten chained
+    rounds (kmeans_centers' span), launches a round, the bound (X read
+    once; 2 N K d FLOPs), the plain version's ms, the largest gap in Y
+    (within LLOYD_GAP)."""
+    from harmony_tpu_torch.ops import kmeans
+
+    Z, _ = synthetic(torch, N, D_MAIN, B_MAIN, seed, dev)
+    X = torch.nn.functional.normalize(Z.t(), dim=0).contiguous()
+    del Z
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    Y = X[:, torch.randperm(N, generator=g, device=dev)[:K_MAIN]].contiguous()
+    n0 = kmeans._lloyd_round.launches
+    Yk = kmeans._lloyd_round(X, Y, N)
+    torch.cuda.synchronize()
+    launches = kmeans._lloyd_round.launches - n0
+    require(launches == 2, f"lloyd {N}: {launches} launches a round, not 2")
+    require(torch.equal(kmeans._lloyd_round(X, Y, N), Yk), f"lloyd {N}: two rounds differ")
+    gap = float((Yk.double() - kmeans.lloyd_round_twin(X, Y, N).double()).abs().max())
+    log(f"  lloyd {N} x {D_MAIN}, K = {K_MAIN}: largest gap to the plain round in Y {gap:.3e}")
+    require(math.isfinite(gap) and gap <= LLOYD_GAP[N],
+            f"lloyd {N}: gap to the plain round {gap} over {LLOYD_GAP[N]}")
+
+    def rounds():
+        Yr = Y
+        for _ in range(MAX_ITER):
+            Yr = kmeans._lloyd_round(X, Yr, N)
+
+    ms = time_ms(torch, f"lloyd round {N}", lambda: kmeans._lloyd_round(X, Y, N), iters=20)
+    ten = time_ms(torch, f"lloyd 10 rounds {N}", rounds, iters=2)
+    plain = time_ms(torch, f"lloyd plain round {N}", lambda: kmeans.lloyd_round_twin(X, Y, N),
+                    iters=3)
+    b, by = bound(4.0 * D_MAIN * N, 2.0 * N * K_MAIN * D_MAIN)
+    log(f"  lloyd {N}: {ms:.4f} ms a round ({b / ms:.1%} of its bound {b:.4f} ms, {by}); "
+        f"10 rounds {ten:.3f} ms; plain {plain:.3f} ms")
+    return {"cells": N, "ms": ms, "ten_rounds_ms": ten, "launches_a_round": launches,
+            "bound_ms": b, "bound_by": by, "plain_ms": plain, "max_abs_err": gap}
 
 
 def tiled_problem(torch, N, d, K, B_vec, tile, seed, dev):
@@ -3195,6 +3253,8 @@ def check_host(torch, dev, wrappers, n=N_MAIN, d=D_MAIN, B=B_MAIN):
         f"{time.perf_counter() - t0:.2f} s; launches {launches}")
     for k in ("K6", "K7", "K9"):
         require(launches[k] > 0, f"host: {k} was not launched by the CLI runs")
+    require(launches["LL"] == 2 * LL_RUN, f"host: {launches['LL']} Lloyd launches by the CLI "
+            f"runs, not {2 * LL_RUN} (two k-means inits; the resume runs none)")
     require(rounds_at_save == 2, f"host: the checkpoint holds {rounds_at_save} rounds, not 2")
     lib = run_harmony(Zh, meta, ["batch"], max_iter=3, seed=0, options=harmony_options())
     cli_out = np.load(os.path.join(tmp, "full.npy"))
@@ -3667,6 +3727,25 @@ def check_mesh_bf16_10m(torch, dev):
     return {"mesh_bf16_10m": held_mesh_path("mesh_bf16_10m", p, lines, ref, sep0)}
 
 
+def record_path(kernels, paths, phase, launches, runs=1) -> None:
+    """A path's launches into the kernels line's rows (``launches_by_path``,
+    ``launches`` their sum), holding it to the kernels it must launch and
+    those it must not (``paths``); a path that runs the k-means init
+    ``runs`` times launches LL_RUN Lloyd kernels each time."""
+    need, never = paths[phase]
+    for k in need:
+        row = kernels[form_row(k, phase)]
+        by_path = row.setdefault("launches_by_path", {})
+        by_path[phase] = launches[k]
+        row["launches"] = sum(by_path.values())
+        require(launches[k] > 0, f"{k} was not launched on the {phase} path")
+    for k in never:
+        require(launches[k] == 0, f"{k} was launched on the {phase} path")
+    if "LL" in need:
+        require(launches["LL"] == LL_RUN * runs, f"{phase} path: {launches['LL']} Lloyd "
+                f"launches, not {LL_RUN} a k-means init x {runs}")
+
+
 def form_row(k: str, phase: str) -> str:
     """The kernels line's row of kernel ``k`` on a path: its bf16 or float16
     engine's form on those engines' paths (phases and mesh paths named so),
@@ -3745,7 +3824,7 @@ def main(argv=None) -> int:
     try:
         import harmony_tpu_torch  # noqa: F401
         from harmony_tpu_torch import _build
-        from harmony_tpu_torch.ops import cuda_estep, cuda_permute, cuda_ridge, cuda_rotate
+        from harmony_tpu_torch.ops import cuda_estep, cuda_permute, cuda_ridge, cuda_rotate, kmeans
     except ImportError as e:
         print(f"chip_smoke: harmony_tpu_torch not importable ({e}); run from "
               "the root of a checkout", file=sys.stderr)
@@ -3790,6 +3869,10 @@ def main(argv=None) -> int:
         "K12": {"name": "K12 rotate_round_v1", "route": "cuda",
                 "source": "harmony_tpu_torch/csrc/estep_round.cu",
                 "replaces": "harmony_tpu/ops/pallas_rotate.py:223"},
+        "LL": {"name": "LL Lloyd round (k-means init)", "route": "cuda",
+               "source": "harmony_tpu_torch/csrc/kmeans.cu",
+               "replaces": "none (harmony_tpu/ops/kmeans.py _lloyd_round: jnp.dot + "
+                           "segment_sum)"},
     }
     # the reduced-precision engines' forms of K6, K7, K10 and K11 (their
     # virtual route): 2-byte storage, and for K6, K10 and K11 the bf16
@@ -3803,7 +3886,8 @@ def main(argv=None) -> int:
                 "K5": cuda_ridge.correction, "K6": cuda_rotate.reassign,
                 "K7": cuda_rotate.rotate_update_round_v2, "K8": cuda_ridge.tile_moments,
                 "K9": cuda_ridge.tiled_correction, "K10": cuda_rotate.virtual_correction,
-                "K11": cuda_rotate.materialize_r, "K12": cuda_estep.rotate_update_round_v1}
+                "K11": cuda_rotate.materialize_r, "K12": cuda_estep.rotate_update_round_v1,
+                "LL": kmeans._lloyd_round}
     # the kernels each path must launch, and those it must not
     paths = {"permute": (("K2", "K3", "K9"), ("K1", "K8")),
              "permute_rounds": (("K1", "K4", "K5"), ("K2", "K3")),
@@ -3854,6 +3938,10 @@ def main(argv=None) -> int:
              "graph_rotate-cell-2500": (("K4", "K5"), _NOT_E),
              "graph_segment-permute-80k": (("K1",), ("K2", "K3", "K4", "K5", "K8", "K9")),
              "graph_rotate-multicov-500k": (("K6", "K7"), ("K1", "K2", "K3", "K12"))}
+    # every path runs the k-means init (LL) but the graph cells, whose
+    # counts start after it: the rounds never run a Lloyd round
+    paths = {p: (need, (*never, "LL")) if p.startswith("graph_") else ((*need, "LL"), never)
+             for p, (need, never) in paths.items()}
     t_start = time.perf_counter()
 
     # ---- 1. env ----------------------------------------------------------
@@ -4015,6 +4103,12 @@ def main(argv=None) -> int:
                 f"{row.get('library_ms')}, bound {row.get('bound_ms', float('nan')):.4f} ms "
                 f"({row.get('bound_by')})")
 
+    # ---- 3b. the k-means init's Lloyd round ------------------------------
+    if "lloyd" in phases:
+        log("the Lloyd round against plain PyTorch on the card:")
+        rows = [check_lloyd(torch, dev, n, 31) for n in (N_MAIN, N_10M)]
+        kernels["LL"].update(rows[0], at_10m=rows[1])
+
     # ---- 4. trajectories: kernels vs plain path -------------------------
     if "traj" in phases:
         check_traj(torch, dev, "permute")
@@ -4059,15 +4153,7 @@ def main(argv=None) -> int:
         launches, trace, n_it = run()
         if trace is not None:
             traces[phase] = trace
-        need, never = paths[phase]
-        for k in need:
-            row = kernels[form_row(k, phase)]
-            by_path = row.setdefault("launches_by_path", {})
-            by_path[phase] = launches[k]
-            row["launches"] = sum(by_path.values())
-            require(launches[k] > 0, f"{k} was not launched on the {phase} path")
-        for k in never:
-            require(launches[k] == 0, f"{k} was launched on the {phase} path")
+        record_path(kernels, paths, phase, launches)
         if phase.endswith("virtual"):
             # one correction per iteration, R rebuilt once per run
             require(launches["K10"] == n_it and launches["K11"] == 1,
@@ -4100,16 +4186,7 @@ def main(argv=None) -> int:
     # ---- the one-dispatch run: a captured iteration replayed -----------
     if "graph" in phases:
         for cell, launches in check_graph(torch, dev, wrappers).items():
-            phase = f"graph_{cell}"
-            need, never = paths[phase]
-            for k in need:
-                row = kernels[form_row(k, phase)]
-                by_path = row.setdefault("launches_by_path", {})
-                by_path[phase] = launches[k]
-                row["launches"] = sum(by_path.values())
-                require(launches[k] > 0, f"{k} was not launched on the {phase} path")
-            for k in never:
-                require(launches[k] == 0, f"{k} was launched on the {phase} path")
+            record_path(kernels, paths, f"graph_{cell}", launches)
 
     if "stamps" in phases and "graph" not in phases:  # the graph phase checks them too
         check_stamps(torch, dev, wrappers)
@@ -4123,7 +4200,7 @@ def main(argv=None) -> int:
     if "host" in phases:
         _engine.clear_graphs()
         launches = check_host(torch, dev, wrappers)
-        for k in ("K6", "K7", "K9"):
+        for k in ("K6", "K7", "K9", "LL"):
             by_path = kernels[k].setdefault("launches_by_path", {})
             by_path["host_cli"] = launches[k]
             kernels[k]["launches"] = sum(by_path.values())
@@ -4136,15 +4213,8 @@ def main(argv=None) -> int:
     if "mesh_bf16_10m" in phases:
         mesh_launches.update(check_mesh_bf16_10m(torch, dev))
     for phase, launches in mesh_launches.items():
-        need, never = paths[phase]
-        for k in need:
-            row = kernels[form_row(k, phase)]
-            by_path = row.setdefault("launches_by_path", {})
-            by_path[phase] = launches[k]
-            row["launches"] = sum(by_path.values())
-            require(launches[k] > 0, f"{k} was not launched on the {phase} path")
-        for k in never:
-            require(launches[k] == 0, f"{k} was launched on the {phase} path")
+        # every rank runs the k-means init on the gathered cells
+        record_path(kernels, paths, phase, launches, runs=MESH_RANKS)
 
     # ---- 18. the port's benchmark harnesses ------------------------------
     if "harness" in phases:

@@ -30,7 +30,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 # rotate.cu's instances are split over six translation units (its
 # ROTATE_PART), each including it, so that they compile side by side
 SOURCES = ("estep_round", "ridge", "rotate", "rotate_tiles", "rotate_k10", "rotate_mma",
-           "rotate_mma_tiles", "rotate_k11_mma", "tiled", "permute_phase", "graph")
+           "rotate_mma_tiles", "rotate_k11_mma", "tiled", "permute_phase", "graph", "kmeans")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -53,7 +53,8 @@ import time
 
 import numpy as np
 
-# the kernels' wrappers by the names the records use (K1-K12)
+# the kernels' wrappers by the names the records use (K1-K12; LL the
+# k-means init's Lloyd round)
 _WRAPPERS = (
     ("K1", "cuda_estep", "block_update_round"), ("K2", "cuda_permute", "permute_rounds"),
     ("K3", "cuda_permute", "materialize"), ("K4", "cuda_ridge", "moments"),
@@ -61,6 +62,7 @@ _WRAPPERS = (
     ("K7", "cuda_rotate", "rotate_update_round_v2"), ("K8", "cuda_ridge", "tile_moments"),
     ("K9", "cuda_ridge", "tiled_correction"), ("K10", "cuda_rotate", "virtual_correction"),
     ("K11", "cuda_rotate", "materialize_r"), ("K12", "cuda_estep", "rotate_update_round_v1"),
+    ("LL", "kmeans", "_lloyd_round"),
 )
 INJECT_MODES = ("rotate", "virtual", "rotate_rounds", "permute", "permute_rounds",
                 "rotate_cell", "segment", "virtual_bf16")
